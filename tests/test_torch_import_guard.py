@@ -1,0 +1,41 @@
+"""The PyTorch port imports neither JAX nor any module of the JAX package."""
+
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parent.parent
+
+_SCRIPT = r"""
+import importlib, json, pkgutil, sys
+sys.modules["jax"] = None            # any `import jax` now raises
+import omero_ms_image_region_tpu_torch as port
+names = [port.__name__]
+for info in pkgutil.walk_packages(port.__path__, port.__name__ + "."):
+    names.append(info.name)
+for name in names:
+    importlib.import_module(name)
+leaked = sorted(m for m in sys.modules
+                if m == "omero_ms_image_region_tpu"
+                or m.startswith("omero_ms_image_region_tpu."))
+print(json.dumps({"imported": names, "leaked": leaked,
+                  "jax": [m for m in sys.modules
+                          if m == "jax" or m.startswith("jax.")
+                          if sys.modules[m] is not None]}))
+"""
+
+
+def test_port_imports_without_jax_or_the_jax_package():
+    proc = subprocess.run([sys.executable, "-c", _SCRIPT], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    doc = json.loads(proc.stdout.strip().splitlines()[-1])
+    # Every module of the slice was imported.
+    for mod in ("kernels.render", "ops.render", "ops.quantum", "ops.flip",
+                "ops.lut", "server.handler", "server.app",
+                "server.__main__", "io.store", "io.service",
+                "services.metadata", "codecs", "flagship"):
+        assert f"omero_ms_image_region_tpu_torch.{mod}" in doc["imported"]
+    assert doc["leaked"] == []
+    assert doc["jax"] == []
