@@ -7,22 +7,34 @@ Phases (any failure ends the run with a non-zero exit and no result line):
 
 1. probe   the card (nvidia-smi name and power limit), torch/CUDA versions,
            whether aiohttp and PIL import;
-2. build   the render kernels from ``kernels/csrc/render.cu`` with nvcc;
+2. build   the kernels from ``kernels/csrc/render.cu`` and
+           ``kernels/csrc/jpeg.cu`` with nvcc and the native JFIF coder
+           ``native/jpegenc.cpp`` with g++, all at once; print each
+           kernel's ptxas register and shared-memory lines;
 3. kernels each kernel against its plain PyTorch version at the flagship
            shape B=8, C=4, 1024x1024 uint16 (and at the served shape B=1):
-           K1 with linear settings (exact) and with all four families and a
-           reversed channel (<= 1 per byte), K2 with a LUT table (<= 1);
-           median time over 25 launches (CUDA events, L2 flushed between
-           launches), the plain version's time, and the bound from the
-           bytes moved and the operations done;
+           K1 render_ramp with linear settings (exact), with all four
+           families and a reversed channel (<= 1 per byte) and on a ragged
+           tile; K2 render_lut with a LUT table (<= 1); K3
+           jpeg_coefficients exactly (mismatch count printed), K4a
+           sparse_pack and K4b compact_rows byte for byte, at q 85 and 90.
+           Each gets the median device time of 25 launches (CUDA events,
+           the L2 flushed before each, a GPU sleep ahead of the timed span
+           so the host's enqueue is not in it), the plain version's time,
+           and the bound from the bytes moved and the operations done;
 4. serve   an 8192^2 4-channel uint16 pyramid through the port's aiohttp app
-           on 127.0.0.1: 8 GETs of 1024^2 tiles (resolution 0 and 1,
-           greyscale, a reversed channel, a LUT channel, a flip, png and
-           jpeg, one render_image region), each checked against the plain
-           render of the same raw read (png pixels exactly; jpeg bytes
-           against the same encoder over the plain pixels); both kernels'
-           launch counters must rise.  Then end-to-end timing (sequential
-           p50, tiles/s at 8 in flight) and one tile's layer breakdown.
+           on 127.0.0.1: 10 GETs (resolution 0 and 1, greyscale, a reversed
+           channel, a LUT channel, a flip, png, a render_image region, JPEG
+           at q 0.9 and at the default quality on the device route, and one
+           256^2 JPEG on the host route), each checked against the plain
+           route on the same read: png pixels exactly; device-route JPEG
+           bytes against plain K1 -> plain K3 -> plain K4 -> the same
+           native coder; the 256^2 JPEG against PIL over the plain pixels.
+           Every kernel's launch counter must rise.  Then end-to-end timing
+           (sequential p50, tiles/s at 8 in flight), one tile's layer
+           breakdown, the device busy share of a sequential run
+           (torch.profiler), and whether PIL's and the native coder's
+           encodes overlap across 8 threads.
 
 It prints the kernel table as one JSON line, then the nvidia-smi line, and
 last ``{"ok": true, "device": {...}}``.  It imports nothing of JAX.
@@ -47,6 +59,8 @@ TILE = 1024
 PLANE = 8 * TILE
 DEVICE = "cuda"
 L2_FLUSH_BYTES = 128 << 20   # > the 50 MB L2
+SLEEP_CYCLES = 2_000_000     # ~1 ms of GPU sleep ahead of a timed launch
+QUALITIES = (85, 90)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -74,13 +88,16 @@ def importable(name: str) -> bool:
 
 def time_ms(torch, fn, reps: int, warmup: int = 3) -> float:
     """Median of ``reps`` single launches, each timed with CUDA events
-    and preceded by an L2 flush outside the timed span."""
+    and preceded by an L2 flush outside the timed span.  A GPU sleep
+    queued ahead of the start event keeps the card busy while the host
+    enqueues the launch, so the span holds the device work alone."""
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(reps):
         flush.zero_()
+        torch.cuda._sleep(SLEEP_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -91,6 +108,14 @@ def time_ms(torch, fn, reps: int, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def bytes_bound(n_bytes: float, ops: float = 0.0):
+    """Least time for ``n_bytes`` moved and ``ops`` f32 operations."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
 def bound(raw, table):
     """Least time for the render on this card: bytes (each input read
     once, each output written once) over HBM bandwidth, against f32
@@ -99,11 +124,7 @@ def bound(raw, table):
     B, C, H, W = raw.shape
     n_bytes = (raw.numel() * raw.element_size() + B * H * W * 4
                + B * C * 4 * 5 + table.numel() * 4)
-    ops = B * H * W * (17 * C + 12)
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_OPS_PER_S * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                 else "operations")
+    return bytes_bound(n_bytes, B * H * W * (17 * C + 12))
 
 
 def byte_diff(got, want):
@@ -191,8 +212,137 @@ def kernel_phase(torch, np):
                     raw, args[-1])
                 e[key + "bound_us"] = e[key + "bound_ms"] * 1e3
                 e[key + "shape"] = list(raw.shape)
+    # The redesigned K1 on a ragged tile (hw % 8 != 0) and a base that is
+    # not 16-byte aligned: its scalar path.
+    unaligned = raw8[1].reshape(-1)[1:1 + 4 * 64 * 64].view(1, 4, 64, 64)
+    for label, raw in (("ragged 37x45", R.raw_to_tensor(
+            synthetic_wsi_tiles(rng, 2, 4, 37, 45), dev)),
+            ("unaligned base", unaligned)):
+        args = args_for(families, raw.shape[0])
+        got = R.render_tile_batch_packed(raw, *args)
+        want = R.render_tile_batch_packed_plain(raw, *args)
+        err, mism = byte_diff(got, want)
+        print(f"check render_ramp {label} {list(raw.shape)}: max_abs_diff "
+              f"{err} mismatched_px {mism} (tolerance 1)", flush=True)
+        check(err <= 1, f"render_ramp {label} disagrees with its plain "
+                        f"version: max |diff| {err}")
     for e in entries.values():
         e["library_ms"] = None    # no single PyTorch call computes this
+        e["library_note"] = "no single PyTorch call computes the render"
+        print(f"kernel {e['name']}: {e['ms']:.4f} ms at B=8 (bound "
+              f"{e['bound_ms']:.4f} ms, plain {e['plain_ms']:.3f} ms); "
+              f"{e['b1_ms']:.4f} ms at B=1 (bound {e['b1_bound_ms']:.4f})",
+              flush=True)
+    return entries, raw8, args_for(linear, 8)
+
+
+def jpeg_kernel_phase(torch, np, raw8, args8):
+    """K3, K4a and K4b against their plain versions on the K1 output of
+    the flagship tiles, at B=8 and B=1, q 85 and 90."""
+    from omero_ms_image_region_tpu_torch.ops import jpegenc as J
+    from omero_ms_image_region_tpu_torch.ops import render as R
+
+    src = "omero_ms_image_region_tpu_torch/kernels/csrc/jpeg.cu"
+    jax_ops = "omero_ms_image_region_tpu/ops/jpegenc.py:"
+    entries = {name: {"name": name, "route": "cuda", "source": src,
+                      "replaces": jax_ops + line, "max_abs_err": 0,
+                      "mismatches": 0, "tolerance": 0}
+               for name, line in (("jpeg_coefficients", "110"),
+                                  ("sparse_pack", "191"),
+                                  ("compact_rows", "400"))}
+    packed8 = R.render_tile_batch_packed(raw8, *args8)
+    for B in (8, 1):
+        packed = packed8[:B].contiguous()
+        _, H, W = packed.shape
+        nb = J.blocks_per_tile(H, W)
+        key = "" if B == 8 else "b1_"
+        for q in QUALITIES:
+            cap = J.default_sparse_cap(H, W, q)
+            got = J.packed_to_jpeg_coefficients(packed, q)
+            want = J.packed_to_jpeg_coefficients_plain(packed, q)
+            torch.cuda.synchronize()
+            mism = sum(int((g != w).sum()) for g, w in zip(got, want))
+            err = max(int((g.int() - w.int()).abs().max())
+                      for g, w in zip(got, want))
+            y, cb, cr = got
+            wire = J.sparse_pack(y, cb, cr, cap)
+            wire_plain = J.sparse_pack_plain(y, cb, cr, cap)
+            wire_diff = int((wire != wire_plain).sum())
+            comp = J.compact_sparse_rows(wire, B, cap, nb)
+            lengths = J.sparse_row_lengths(wire, B, cap, nb)
+            comp_plain = J.compact_rows_plain(wire, lengths)
+            comp_diff = int((comp != comp_plain).sum())
+            # A padding row (n_valid < B) and an overflowing cap too.
+            small = J.sparse_pack(y, cb, cr, 1000)
+            small_diff = int((small != J.sparse_pack_plain(
+                y, cb, cr, 1000)).sum())
+            nv = max(B - 1, 0)
+            pad_diff = int((J.compact_sparse_rows(wire, nv, cap, nb)
+                            != J.compact_rows_plain(wire, J.sparse_row_lengths(
+                                wire, nv, cap, nb))).sum())
+            totals = wire[:, :4].reshape(-1).view(torch.int32).tolist()
+            print(f"check jpeg B={B} q{q}: jpeg_coefficients mismatches "
+                  f"{mism} (of {sum(g.numel() for g in got)}, tolerance 0); "
+                  f"sparse_pack differing bytes {wire_diff} (cap {cap}; "
+                  f"{small_diff} at cap 1000); compact_rows differing bytes "
+                  f"{comp_diff} ({pad_diff} with n_valid={nv}); totals "
+                  f"{totals}", flush=True)
+            check(mism == 0, f"jpeg_coefficients B={B} q{q}: {mism} "
+                             f"coefficients differ from the plain version")
+            check(wire_diff == 0 and small_diff == 0,
+                  f"sparse_pack B={B} q{q} differs from the plain version")
+            check(comp_diff == 0 and pad_diff == 0,
+                  f"compact_rows B={B} q{q} differs from the plain version")
+            e = entries["jpeg_coefficients"]
+            e["mismatches"] += mism
+            e["max_abs_err"] = max(e["max_abs_err"], err)
+            for name, diff in (("sparse_pack", wire_diff + small_diff),
+                               ("compact_rows", comp_diff + pad_diff)):
+                entries[name]["mismatches"] += diff
+                entries[name]["max_abs_err"] = max(
+                    entries[name]["max_abs_err"], 255 if diff else 0)
+            if q != QUALITIES[0]:
+                continue
+            # Timed at q 85, the default quality's neighbour the flagship
+            # serves (codecs.DEFAULT_JPEG_QUALITY).
+            used = int(lengths.sum())
+            stages = {
+                "jpeg_coefficients": (
+                    lambda: J.packed_to_jpeg_coefficients(packed, q),
+                    lambda: J.packed_to_jpeg_coefficients_plain(packed, q),
+                    # packed in, coefficients out, the table block
+                    packed.numel() * 4 + sum(t.numel() * 2 for t in got)
+                    + 1024,
+                    # ~16 f32 operations per pixel for colour and
+                    # subsampling, 2 x 8 multiply-adds per coefficient
+                    B * H * W * 16 + sum(t.numel() for t in got) * 32),
+                "sparse_pack": (
+                    lambda: J.sparse_pack(y, cb, cr, cap),
+                    lambda: J.sparse_pack_plain(y, cb, cr, cap),
+                    sum(t.numel() * 2 for t in got) + wire.numel(), 0),
+                "compact_rows": (
+                    lambda: J.compact_sparse_rows(wire, B, cap, nb),
+                    lambda: J.compact_rows_plain(
+                        wire, J.sparse_row_lengths(wire, B, cap, nb)),
+                    # the used prefixes read, the whole output written
+                    # (lengths, rows, zero tail)
+                    used + comp.numel(), 0),
+            }
+            for name, (fn, plain, n_bytes, ops) in stages.items():
+                e = entries[name]
+                e[key + "ms"] = time_ms(torch, fn, 25)
+                e[key + "plain_ms"] = time_ms(torch, plain, 5)
+                e[key + "bound_ms"], e[key + "bound_by"] = bytes_bound(
+                    n_bytes, ops)
+                e[key + "bound_bytes"] = n_bytes
+                e[key + "shape"] = [B, H, W]
+                e[key + "quality"] = q
+            entries["sparse_pack"][key + "cap"] = cap
+            entries["compact_rows"][key + "used_bytes"] = used
+    for e in entries.values():
+        e["library_ms"] = None
+        e["library_note"] = ("no single PyTorch call computes this stage "
+                             "of the JPEG wire")
         print(f"kernel {e['name']}: {e['ms']:.4f} ms at B=8 (bound "
               f"{e['bound_ms']:.4f} ms, plain {e['plain_ms']:.3f} ms); "
               f"{e['b1_ms']:.4f} ms at B=1 (bound {e['b1_bound_ms']:.4f})",
@@ -235,8 +385,8 @@ CH = "1|100:40000$FF0000,2|100:40000$00FF00,3|100:40000$0000FF," \
 
 
 def requests_for(tile: int):
-    """The 8 checked requests: tiles of ``tile`` pixels on a plane of
-    8 tiles a side."""
+    """The 10 checked requests: tiles of ``tile`` pixels on a plane of
+    8 tiles a side, and one 256^2 tile."""
     def t(res, x, y):
         return f"{res},{x},{y},{tile},{tile}"
     return [
@@ -256,6 +406,10 @@ def requests_for(tile: int):
                                  "flip": "hv", "format": "png"}),
         ("render_image_region", {"tile": t(0, 1, 7), "c": CH, "m": "c",
                                  "format": "jpeg", "q": "0.9"}),
+        ("render_image_region", {"tile": t(0, 2, 5), "c": CH, "m": "c",
+                                 "format": "jpeg", "flip": "h"}),
+        ("render_image_region", {"tile": "0,9,9,256,256", "c": CH, "m": "c",
+                                 "format": "jpeg"}),
         ("render_image", {
             "region": f"{3 * tile - tile // 14},{2 * tile + tile // 2},"
                       f"{tile},{tile}",
@@ -269,10 +423,58 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
+def plain_jpeg(torch, ctx, raw, settings) -> bytes:
+    """The device JPEG route with every stage's plain version: plain K1
+    and plain K3 on the card, plain K4a/K4b (on host tensors), the same
+    native coder."""
+    from omero_ms_image_region_tpu_torch import codecs
+    from omero_ms_image_region_tpu_torch.ops import jpegenc as J
+    from omero_ms_image_region_tpu_torch.ops import render as R
+
+    t = R.settings_to_tensors(settings, DEVICE)
+    packed = R.render_tile_batch_packed_plain(
+        R.raw_to_tensor(raw, DEVICE)[None], *R.batched_settings(t))
+    h, w = packed.shape[-2:]
+    H, W = h + (-h) % 16, w + (-w) % 16
+    q = codecs.quality_percent(ctx.compression_quality)
+    coeffs = J.packed_to_jpeg_coefficients_plain(
+        packed, q, H, W, ctx.flip_horizontal, ctx.flip_vertical)
+    return J.coefficients_to_jpegs(*(c.cpu() for c in coeffs), H, W, q,
+                                   [(w, h)])[0]
+
+
+def encode_overlap(np, rgba, row, w, h, q, cap) -> dict:
+    """16 encodes of one tile on 1 thread and on 8: PIL's JPEG encode and
+    the native sparse coder.  A speedup near 1 means the encodes
+    serialise."""
+    import concurrent.futures as cf
+
+    from omero_ms_image_region_tpu_torch import codecs, native
+
+    out = {}
+    for name, fn in (("pil", lambda: codecs.encode_rgba(rgba, "jpeg",
+                                                         None)),
+                     ("native", lambda: native.jpeg_encode_sparse(
+                         row, w, h, q, cap))):
+        fn()
+        walls = {}
+        for threads in (1, 8):
+            with cf.ThreadPoolExecutor(threads) as pool:
+                t0 = time.perf_counter()
+                list(pool.map(lambda _: fn(), range(16)))
+                walls[threads] = time.perf_counter() - t0
+        out[name] = {"one_thread_ms_per_encode": walls[1] / 16 * 1e3,
+                     "eight_threads_ms_per_encode": walls[8] / 16 * 1e3,
+                     "speedup": walls[1] / walls[8]}
+    return out
+
+
 async def serve_phase(torch, np, data_dir, lut_root, have_aiohttp,
                       have_pil):
-    from omero_ms_image_region_tpu_torch import codecs
+    from omero_ms_image_region_tpu_torch import codecs, native
+    from omero_ms_image_region_tpu_torch.kernels import jpeg as KJ
     from omero_ms_image_region_tpu_torch.kernels import render as K
+    from omero_ms_image_region_tpu_torch.ops import jpegenc as J
     from omero_ms_image_region_tpu_torch.ops import render as R
     from omero_ms_image_region_tpu_torch.ops.flip import flip_image
     from omero_ms_image_region_tpu_torch.server.app import (build_handler,
@@ -313,45 +515,62 @@ async def serve_phase(torch, np, data_dir, lut_root, have_aiohttp,
         return status, body, (time.perf_counter() - t0) * 1e3
 
     try:
-        # Warm-up (first CUDA context use, kernel load), outside the
-        # counted run.
+        # Warm-up (first CUDA context use, library loads, the JPEG
+        # route's tables), outside the counted run.
         await get(*requests[0])
+        await get(*requests[6])
         K.reset_launches()
+        KJ.reset_launches()
         results = [await get(route, q) for route, q in requests]
-        launches = dict(K.LAUNCHES)
-        print(f"serve: launches in the 8-request run: {launches}",
-              flush=True)
+        launches = dict(K.LAUNCHES, **KJ.LAUNCHES)
+        print(f"serve: launches in the {len(requests)}-request run: "
+              f"{launches}", flush=True)
 
+        device_jpegs = 0
         for (route, query), (status, body, ms) in zip(requests, results):
             ctx = ImageRegionCtx.from_params(params_of(route, query))
             raw, settings = await handler.read(ctx)
-            t = R.settings_to_tensors(settings, DEVICE)
-            plain = R.render_tile_batch_packed_plain(
-                R.raw_to_tensor(raw, DEVICE)[None], *R.batched_settings(t))
-            plain = flip_image(plain[0], ctx.flip_horizontal,
-                               ctx.flip_vertical)
-            want_rgba = R.unpack_rgba(plain.cpu().numpy())
             check(status == 200, f"{route} {query}: HTTP {status}")
-            if ctx.format == "png" and have_pil:
-                got_rgba = codecs.decode_to_rgba(body)
-                same = np.array_equal(got_rgba[..., :3], want_rgba[..., :3])
+            h, w = raw.shape[-2:]
+            if ctx.format == "jpeg" and h * w > handler.s.jpeg_host_max_px:
+                device_jpegs += 1
+                route_name = "device jpeg"
+                same = body == plain_jpeg(torch, ctx, raw, settings)
             else:
-                same = body == codecs.encode_rgba(
-                    want_rgba, ctx.format, ctx.compression_quality)
+                t = R.settings_to_tensors(settings, DEVICE)
+                plain = R.render_tile_batch_packed_plain(
+                    R.raw_to_tensor(raw, DEVICE)[None],
+                    *R.batched_settings(t))
+                plain = flip_image(plain[0], ctx.flip_horizontal,
+                                   ctx.flip_vertical)
+                want_rgba = R.unpack_rgba(plain.cpu().numpy())
+                if ctx.format == "png" and have_pil:
+                    route_name = "png"
+                    got_rgba = codecs.decode_to_rgba(body)
+                    same = np.array_equal(got_rgba[..., :3],
+                                          want_rgba[..., :3])
+                else:
+                    route_name = f"host {ctx.format}"
+                    same = body == codecs.encode_rgba(
+                        want_rgba, ctx.format, ctx.compression_quality)
             kernel = ("render_lut" if settings["tables"].ndim == 3
                       else "render_ramp")
             print(f"serve {route} {json.dumps(query)}: status {status} "
                   f"bytes {len(body)} wall_ms {ms:.2f} shape "
-                  f"{list(raw.shape)} kernel {kernel} "
+                  f"{list(raw.shape)} kernel {kernel} route {route_name} "
                   f"matches_plain {same}", flush=True)
-            check(same, f"{route} {query}: served pixels differ from the "
-                        f"plain render")
-        check(launches["render_ramp"] >= 1,
-              "render_ramp was not launched by the served requests")
-        check(launches["render_lut"] >= 1,
-              "render_lut was not launched by the served requests")
+            check(same, f"{route} {query}: served bytes differ from the "
+                        f"plain route")
+        for name in ("render_ramp", "render_lut"):
+            check(launches[name] >= 1,
+                  f"{name} was not launched by the served requests")
+        for name in KJ.LAUNCHES:
+            check(launches[name] >= device_jpegs,
+                  f"{name} launched {launches[name]} times for "
+                  f"{device_jpegs} device-route JPEG GETs")
 
-        # End to end: 4-channel jpeg tiles at resolution 0.
+        # End to end: 4-channel jpeg tiles at resolution 0, the default
+        # quality, on the device route.
         tiles = [("render_image_region",
                   {"tile": f"0,{i % 8},{i // 8},{TILE},{TILE}", "c": CH,
                    "m": "c", "format": "jpeg"}) for i in range(64)]
@@ -365,7 +584,7 @@ async def serve_phase(torch, np, data_dir, lut_root, have_aiohttp,
         conc = await asyncio.gather(*(limited(r) for r in tiles[16:64]))
         wall = time.perf_counter() - t0
         check(all(s == 200 for s, _, _ in conc), "timed run: non-200")
-        e2e = {"tile": f"{TILE}x{TILE}x4 uint16 -> jpeg",
+        e2e = {"tile": f"{TILE}x{TILE}x4 uint16 -> jpeg (device route)",
                "sequential_n": len(seq),
                "sequential_p50_ms": statistics.median(seq),
                "concurrent_n": len(conc), "in_flight": 8,
@@ -375,10 +594,26 @@ async def serve_phase(torch, np, data_dir, lut_root, have_aiohttp,
                "via": "http" if session is not None else "handler"}
         print("e2e: " + json.dumps(e2e), flush=True)
 
+        # Device busy share of 8 sequential GETs.
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for r in tiles[:8]:
+                await get(*r)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        busy_us = sum(e.self_device_time_total for e in prof.key_averages())
+        print("device_busy: " + json.dumps({
+            "gets": 8, "wall_ms": wall * 1e3, "device_busy_ms": busy_us / 1e3,
+            "busy_share": busy_us / 1e6 / wall}), flush=True)
+
         # One tile's layers, medians of 5.
         ctx = ImageRegionCtx.from_params(params_of(*tiles[9]))
-        layers = {k: [] for k in ("read_ms", "h2d_ms", "render_kernel_ms",
-                                  "d2h_ms", "encode_jpeg_ms")}
+        q = codecs.quality_percent(ctx.compression_quality)
+        layers = {k: [] for k in (
+            "read_ms", "h2d_ms", "render_kernel_ms", "front_end_ms",
+            "wire_d2h_ms", "wire_bytes", "entropy_ms", "rgba_d2h_ms",
+            "pil_encode_ms")}
         for _ in range(5):
             t0 = time.perf_counter()
             raw, settings = await handler.read(ctx)
@@ -387,23 +622,38 @@ async def serve_phase(torch, np, data_dir, lut_root, have_aiohttp,
             st = R.batched_settings(R.settings_to_tensors(settings, DEVICE))
             torch.cuda.synchronize()
             t2 = time.perf_counter()
-            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
             ev[0].record()
-            out = R.render_tile_batch_packed(raw_t, *st)
+            packed = R.render_tile_batch_packed(raw_t, *st)
             ev[1].record()
+            _, H, W = packed.shape
+            cap = J.default_sparse_cap(H, W, q) * (
+                2 if J._CAP_MEMO.get(("sparse", H, W, q)) else 1)
+            y, cb, cr = J.packed_to_jpeg_coefficients(packed, q)
+            comp = J.compact_sparse_rows(J.sparse_pack(y, cb, cr, cap), 1,
+                                         cap, J.blocks_per_tile(H, W))
+            ev[2].record()
             torch.cuda.synchronize()
             t3 = time.perf_counter()
-            packed = out[0].cpu().numpy()
+            row = J.fetch_rows(comp, 1)[0]
             t4 = time.perf_counter()
-            codecs.encode_rgba(R.unpack_rgba(packed), "jpeg", None)
+            native.jpeg_encode_sparse(row, W, H, q, cap)
             t5 = time.perf_counter()
-            for k, v in zip(layers, ((t1 - t0) * 1e3, (t2 - t1) * 1e3,
-                                     ev[0].elapsed_time(ev[1]),
-                                     (t4 - t3) * 1e3, (t5 - t4) * 1e3)):
+            rgba = R.unpack_rgba(packed[0].cpu().numpy())
+            t6 = time.perf_counter()
+            codecs.encode_rgba(rgba, "jpeg", None)
+            t7 = time.perf_counter()
+            for k, v in zip(layers, (
+                    (t1 - t0) * 1e3, (t2 - t1) * 1e3,
+                    ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2]),
+                    (t4 - t3) * 1e3, 4 + len(row), (t5 - t4) * 1e3,
+                    (t6 - t5) * 1e3, (t7 - t6) * 1e3)):
                 layers[k].append(v)
         print("breakdown: " + json.dumps(
             {k: statistics.median(v) for k, v in layers.items()}),
             flush=True)
+        print("encode_overlap: " + json.dumps(
+            encode_overlap(np, rgba, row, W, H, q, cap)), flush=True)
         return launches
     finally:
         if session is not None:
@@ -420,6 +670,9 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this run "
               "needs a CUDA card", file=sys.stderr)
         return 2
+    from omero_ms_image_region_tpu_torch import native
+    from omero_ms_image_region_tpu_torch.kernels import build
+    from omero_ms_image_region_tpu_torch.kernels import jpeg as KJ
     from omero_ms_image_region_tpu_torch.kernels import render as K
 
     # 1. probe
@@ -431,16 +684,30 @@ def main() -> int:
         "device": torch.cuda.get_device_name(0),
         "aiohttp": have_aiohttp, "PIL": have_pil}), flush=True)
 
-    # 2. build
+    # 2. build: one nvcc per CUDA source and g++ for the coder, together
+    import concurrent.futures as cf
+
     t0 = time.perf_counter()
+    with cf.ThreadPoolExecutor(2) as pool:
+        coder = pool.submit(native.build)
+        build.build_all([(K.SOURCE, K.NVCC_FLAGS),
+                         (KJ.SOURCE, KJ.NVCC_FLAGS)])
+        coder.result()
     K.library()
-    print(f"build: {time.perf_counter() - t0:.2f} s", flush=True)
-    for line in K.BUILD_LOG.splitlines():
-        if "registers" in line or "Compiling entry" in line:
-            print("build: " + line.strip(), flush=True)
+    KJ.library()
+    native.library()
+    print(f"build: {time.perf_counter() - t0:.2f} s (render.cu, jpeg.cu, "
+          f"native/jpegenc.cpp)", flush=True)
+    for source in (K.SOURCE, KJ.SOURCE):
+        for line in build.build_log(source.name).splitlines():
+            if ("registers" in line or "Compiling entry" in line
+                    or "spill" in line):
+                print(f"build {source.name}: " + line.strip(), flush=True)
 
     # 3. kernels against their plain versions
-    entries = kernel_phase(torch, np)
+    entries, raw8, args8 = kernel_phase(torch, np)
+    entries.update(jpeg_kernel_phase(torch, np, raw8, args8))
+    del raw8, args8
 
     # 4. serve
     with tempfile.TemporaryDirectory() as tmp:

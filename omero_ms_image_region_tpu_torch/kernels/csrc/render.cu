@@ -20,23 +20,37 @@
 // Bound: memory.  Each raw byte is read once and each output word written
 // once: at B=1, C=4, 1024^2 u16 that is 8 MiB in and 4 MiB out (~12.6 MB,
 // ~3.8 us at 3.35 TB/s).  The arithmetic is ~20 f32 operations per
-// pixel-channel (more for the curved families' powf/logf/expf), far below
-// the card's f32 rate per byte moved.  The design therefore only has to keep
-// the loads coalesced and enough of them in flight: a block owns one tile
-// (blockIdx.y) and a run of kThreads * PIX pixels; each thread handles PIX
-// pixels kThreads apart, so every warp load is contiguous, and the channel
-// loop is outside the pixel loop so a thread issues PIX independent loads
-// per channel.  The per-channel constants (window bounds, F(ws), F(we), the
-// selected denominator, the degenerate flag, ramp weights) are computed once
-// per block into shared memory, and the family branch is uniform across the
-// block, so only the selected curve is evaluated.  Making these fast
-// (16-byte vector loads, fusion with the JPEG front end) is later work.
+// pixel-channel (more for the curved families' powf/logf/expf), below the
+// card's f32 rate per byte moved, but not by much once an IEEE division
+// (__fdiv_rn, a reciprocal and a refinement sequence) is among them: the
+// division is the kernel's largest cost.  Each channel therefore carries
+// RN(1 / den), and a / den is rounded correctly from it with a multiply and
+// two fused multiply-adds (divide() below).
+//
+// render_ramp_kernel is built to keep enough bytes in flight.  Each thread
+// owns 8 contiguous pixels: one 16-byte load per channel for uint16 (8 B
+// for uint8, two 16-byte loads for float32), the loads of a chunk of
+// channels (all of them up to 8) issued before any math, and two 16-byte
+// stores of packed output.  The blocks are persistent (a few per SM) and
+// walk the B * ceil(hw / 8) pixel groups of the whole batch grid-stride;
+// each block computes the B * C channel constants (window bounds, F(ws),
+// F(we), the selected denominator, the degenerate flag, the ramp weights)
+// once into shared memory.  A group at a ragged tile end (hw % 8 != 0), or
+// any group when a base is not 16-byte aligned, takes the scalar path: the
+// same arithmetic, one pixel load at a time.  The family branch is uniform
+// per channel, so only the selected curve is evaluated.
+//
+// render_lut_kernel keeps the simpler layout: a block owns one tile
+// (blockIdx.y) and a run of kThreads * kLutPix pixels, each thread kLutPix
+// pixels kThreads apart, and stages the tile's tables in shared memory.
 //
 // Numerics follow the JAX reference exactly where IEEE allows: rintf (half
-// to even, as jnp.round), explicit __fmul_rn/__fadd_rn/__fdiv_rn so no
-// multiply-add is contracted into an FMA (also built with -fmad=false), and
-// the composite summed in channel order.  powf/logf/expf may differ from
-// XLA's by an ulp, which can move a curved-family value by 1.
+// to even, as jnp.round), explicit __fmul_rn/__fadd_rn and a correctly
+// rounded division so no multiply-add is contracted into an FMA (also
+// built with -fmad=false; the fused operations of divide() are exact by
+// construction), and the composite summed in channel order.  powf, logf
+// and expf may differ from XLA's by an ulp, which can move a curved-family
+// value by 1.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -44,9 +58,14 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kRampPix = 4;    // pixels per thread, ramp kernel
+constexpr int kGroup = 8;      // ramp kernel: contiguous pixels per thread
 constexpr int kLutPix = 16;    // LUT kernel: more pixels amortize the table
 constexpr float kEps = 1e-12f;
+// Above this |den| the reciprocal nears the subnormal range; such channels
+// divide with __fdiv_rn.
+constexpr float kMaxRecipDen = 1e30f;
+// Below this |a| (and not 0) a / den may leave the normal range.
+constexpr float kMinRecipNum = 1e-30f;
 constexpr int kTableFloats = 256 * 3;
 constexpr int kDefaultSmem = 48 * 1024;
 
@@ -57,7 +76,7 @@ struct __align__(16) ChanParams {
   float fs, fe, den;     // F(ws), F(we), selected denominator (exp: es, pe)
   int fam, rev, deg;     // family id, reverse flag, degenerate window
   float w[3];            // ramp weights (ramp kernel only)
-  int pad;
+  float inv;             // RN(1 / den), or 0 where |den| is out of range
 };
 
 __device__ __forceinline__ float signed_pow(float x, float k) {
@@ -72,11 +91,10 @@ __device__ __forceinline__ float safe_log(float x) {
 // Per-channel constants of tile b, channel c (ops/quantum.py::_ratio with
 // the scalar parts hoisted; a family id outside 0..2 is exponential, as the
 // reference's where-chain selects).
-__device__ void load_params(ChanParams* params, int b, int c, int C,
-                            const float* ws, const float* we,
-                            const float* coef, const int32_t* fam,
-                            const int32_t* rev, const float* weights) {
-  const int i = b * C + c;
+__device__ void load_params(ChanParams* dst, int i, const float* ws,
+                            const float* we, const float* coef,
+                            const int32_t* fam, const int32_t* rev,
+                            const float* weights) {
   ChanParams p;
   const float s = ws[i], e = we[i], k = coef[i];
   p.we = e;
@@ -110,6 +128,7 @@ __device__ void load_params(ChanParams* params, int b, int c, int C,
   }
   p.deg = fabsf(p.den) < kEps;
   if (p.deg) p.den = 1.f;
+  p.inv = fabsf(p.den) < kMaxRecipDen ? __fdiv_rn(1.f, p.den) : 0.f;
   if (weights != nullptr) {
     p.w[0] = weights[3 * i];
     p.w[1] = weights[3 * i + 1];
@@ -117,40 +136,65 @@ __device__ void load_params(ChanParams* params, int b, int c, int C,
   } else {
     p.w[0] = p.w[1] = p.w[2] = 0.f;
   }
-  p.pad = 0;
-  params[c] = p;
+  *dst = p;
+}
+
+// a / den rounded to nearest even, as __fdiv_rn gives it, at the cost of a
+// multiply and two fused multiply-adds.  With inv = RN(1 / den), q =
+// RN(a * inv) is within an ulp of a / den, and one fused correction with
+// the exact residual a - q * den rounds it correctly (Markstein's
+// theorem), barring underflow and overflow, which the range guards send
+// to __fdiv_rn.
+__device__ __forceinline__ float divide(float a, const ChanParams& p) {
+  if (p.inv != 0.f && !(a != 0.f && fabsf(a) < kMinRecipNum)) {
+    const float q = __fmul_rn(a, p.inv);
+    return __fmaf_rn(__fmaf_rn(-q, p.den, a), p.inv, q);
+  }
+  return __fdiv_rn(a, p.den);
+}
+
+// The family curve F(x) of a clamped value (ops/quantum.py::_ratio); a
+// family id outside 0..2 is exponential, shifted by F(we).
+template <int FAM>
+__device__ __forceinline__ float curve(const ChanParams& p, float x) {
+  if (FAM == kLinear) return x;
+  if (FAM == kPolynomial) return signed_pow(x, p.k);
+  if (FAM == kLogarithmic) return safe_log(x);
+  return expf(fminf(__fsub_rn(signed_pow(x, p.k), p.fe), 0.f));
 }
 
 // One channel's quantized value, reversed and clipped to 0..255, as f32
-// (pallas_render.py::_quantize_channel).
-__device__ __forceinline__ float quantize(const ChanParams& p, float x_raw,
-                                          float cd_start, float k_max,
-                                          float cd_sum) {
-  const float x = fminf(fmaxf(x_raw, p.lo), p.hi);
+// (pallas_render.py::_quantize_channel), for a channel of family FAM.
+template <int FAM>
+__device__ __forceinline__ float quantize_fam(const ChanParams& p,
+                                              float x_raw, float cd_start,
+                                              float k_max, float cd_sum) {
   float r;
   if (p.deg) {
     r = x_raw >= p.we ? 1.f : 0.f;
   } else {
-    float fx;
-    switch (p.fam) {
-      case kLinear:
-        fx = x;
-        break;
-      case kPolynomial:
-        fx = signed_pow(x, p.k);
-        break;
-      case kLogarithmic:
-        fx = safe_log(x);
-        break;
-      default:
-        fx = expf(fminf(__fsub_rn(signed_pow(x, p.k), p.fe), 0.f));
-    }
-    r = __fdiv_rn(__fsub_rn(fx, p.fs), p.den);
+    const float x = fminf(fmaxf(x_raw, p.lo), p.hi);
+    r = divide(__fsub_rn(curve<FAM>(p, x), p.fs), p);
   }
   r = fminf(fmaxf(r, 0.f), 1.f);
   float q = rintf(__fadd_rn(cd_start, __fmul_rn(k_max, r)));
   if (p.rev) q = __fsub_rn(cd_sum, q);
   return fminf(fmaxf(q, 0.f), 255.f);
+}
+
+__device__ __forceinline__ float quantize(const ChanParams& p, float x_raw,
+                                          float cd_start, float k_max,
+                                          float cd_sum) {
+  switch (p.fam) {
+    case kLinear:
+      return quantize_fam<kLinear>(p, x_raw, cd_start, k_max, cd_sum);
+    case kPolynomial:
+      return quantize_fam<kPolynomial>(p, x_raw, cd_start, k_max, cd_sum);
+    case kLogarithmic:
+      return quantize_fam<kLogarithmic>(p, x_raw, cd_start, k_max, cd_sum);
+    default:
+      return quantize_fam<3>(p, x_raw, cd_start, k_max, cd_sum);
+  }
 }
 
 __device__ __forceinline__ int32_t to_byte(float v) {
@@ -167,7 +211,125 @@ __device__ __forceinline__ float load_raw(const T* p) {
   return static_cast<float>(__ldg(p));
 }
 
-// Ramp composite.  Dynamic shared memory: ChanParams[C].
+// Eight contiguous raw values of one channel, loaded with vector loads.
+template <typename T>
+struct Pack8;
+
+template <>
+struct Pack8<uint16_t> {
+  static constexpr int kChunk = 8;   // channels loaded before the math
+  uint4 v;
+  __device__ __forceinline__ void load(const uint16_t* p) {
+    v = __ldg(reinterpret_cast<const uint4*>(p));
+  }
+  __device__ __forceinline__ float get(int j) const {
+    const uint32_t w = (&v.x)[j >> 1];
+    return static_cast<float>((j & 1) ? (w >> 16) : (w & 0xFFFFu));
+  }
+};
+
+template <>
+struct Pack8<uint8_t> {
+  static constexpr int kChunk = 8;
+  uint2 v;
+  __device__ __forceinline__ void load(const uint8_t* p) {
+    v = __ldg(reinterpret_cast<const uint2*>(p));
+  }
+  __device__ __forceinline__ float get(int j) const {
+    const uint32_t w = (&v.x)[j >> 2];
+    return static_cast<float>((w >> (8 * (j & 3))) & 0xFFu);
+  }
+};
+
+template <>
+struct Pack8<float> {
+  static constexpr int kChunk = 4;
+  float4 a, b;
+  __device__ __forceinline__ void load(const float* p) {
+    a = __ldg(reinterpret_cast<const float4*>(p));
+    b = __ldg(reinterpret_cast<const float4*>(p) + 1);
+  }
+  __device__ __forceinline__ float get(int j) const {
+    return j < 4 ? (&a.x)[j] : (&b.x)[j - 4];
+  }
+};
+
+__device__ __forceinline__ void accumulate(float acc[3], float q,
+                                           const ChanParams& p) {
+  acc[0] = __fadd_rn(acc[0], __fmul_rn(q, p.w[0]));
+  acc[1] = __fadd_rn(acc[1], __fmul_rn(q, p.w[1]));
+  acc[2] = __fadd_rn(acc[2], __fmul_rn(q, p.w[2]));
+}
+
+// Quantize and accumulate the eight loaded values of one channel; the
+// family is uniform per channel, so its branch sits outside the pixels.
+template <int FAM, typename T>
+__device__ __forceinline__ void accumulate8(float acc[kGroup][3],
+                                            const Pack8<T>& v,
+                                            const ChanParams& p,
+                                            float cd_start, float k_max,
+                                            float cd_sum) {
+#pragma unroll
+  for (int j = 0; j < kGroup; ++j)
+    accumulate(acc[j],
+               quantize_fam<FAM>(p, v.get(j), cd_start, k_max, cd_sum), p);
+}
+
+template <typename T>
+__device__ __forceinline__ void load_chunk(Pack8<T>* v, const T* tile,
+                                           long long hw, long long px0,
+                                           int c0, int C) {
+#pragma unroll
+  for (int k = 0; k < Pack8<T>::kChunk; ++k)
+    if (c0 + k < C)
+      v[k].load(tile + static_cast<long long>(c0 + k) * hw + px0);
+}
+
+template <typename T>
+__device__ __forceinline__ void accumulate_chunk(float acc[kGroup][3],
+                                                 const Pack8<T>* v,
+                                                 const ChanParams* tp, int c0,
+                                                 int C, float cd_start,
+                                                 float k_max, float cd_sum) {
+#pragma unroll
+  for (int k = 0; k < Pack8<T>::kChunk; ++k) {
+    if (c0 + k < C) {
+      const ChanParams p = tp[c0 + k];
+      switch (p.fam) {
+        case kLinear:
+          accumulate8<kLinear>(acc, v[k], p, cd_start, k_max, cd_sum);
+          break;
+        case kPolynomial:
+          accumulate8<kPolynomial>(acc, v[k], p, cd_start, k_max, cd_sum);
+          break;
+        case kLogarithmic:
+          accumulate8<kLogarithmic>(acc, v[k], p, cd_start, k_max, cd_sum);
+          break;
+        default:
+          accumulate8<3>(acc, v[k], p, cd_start, k_max, cd_sum);
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ void store_group(int32_t* dst,
+                                            const float acc[kGroup][3]) {
+  int4 lo, hi;
+  lo.x = pack(acc[0][0], acc[0][1], acc[0][2]);
+  lo.y = pack(acc[1][0], acc[1][1], acc[1][2]);
+  lo.z = pack(acc[2][0], acc[2][1], acc[2][2]);
+  lo.w = pack(acc[3][0], acc[3][1], acc[3][2]);
+  hi.x = pack(acc[4][0], acc[4][1], acc[4][2]);
+  hi.y = pack(acc[5][0], acc[5][1], acc[5][2]);
+  hi.z = pack(acc[6][0], acc[6][1], acc[6][2]);
+  hi.w = pack(acc[7][0], acc[7][1], acc[7][2]);
+  reinterpret_cast<int4*>(dst)[0] = lo;
+  reinterpret_cast<int4*>(dst)[1] = hi;
+}
+
+// Ramp composite.  Dynamic shared memory: ChanParams[B * C].  `vec` is 1
+// when every pixel group of a full tile is 16-byte aligned (hw % 8 == 0 and
+// aligned bases); the host computes it from the pointers.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 render_ramp_kernel(const T* __restrict__ raw, const float* __restrict__ ws,
@@ -176,46 +338,58 @@ render_ramp_kernel(const T* __restrict__ raw, const float* __restrict__ ws,
                    const int32_t* __restrict__ fam,
                    const int32_t* __restrict__ rev,
                    const float* __restrict__ weights,
-                   int32_t* __restrict__ out, int C, long long hw,
-                   int cd_start, int cd_end) {
+                   int32_t* __restrict__ out, int B, int C, long long hw,
+                   int cd_start, int cd_end, int vec) {
   extern __shared__ __align__(16) unsigned char smem[];
   ChanParams* params = reinterpret_cast<ChanParams*>(smem);
-  const int b = blockIdx.y;
-  for (int c = threadIdx.x; c < C; c += blockDim.x)
-    load_params(params, b, c, C, ws, we, coef, fam, rev, weights);
+  for (int i = threadIdx.x; i < B * C; i += blockDim.x)
+    load_params(params + i, i, ws, we, coef, fam, rev, weights);
   __syncthreads();
 
   const float cd_start_f = static_cast<float>(cd_start);
   const float k_max = static_cast<float>(cd_end - cd_start);
   const float cd_sum = static_cast<float>(cd_start + cd_end);
-  const T* tile = raw + static_cast<long long>(b) * C * hw;
-  const long long base =
-      static_cast<long long>(blockIdx.x) * (kThreads * kRampPix) + threadIdx.x;
-
-  float acc[kRampPix][3];
+  constexpr int kChunk = Pack8<T>::kChunk;
+  const long long groups = (hw + kGroup - 1) / kGroup;   // per tile
+  const long long all = groups * B;
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long g = static_cast<long long>(blockIdx.x) * blockDim.x +
+                     threadIdx.x;
+       g < all; g += stride) {
+    const int b = static_cast<int>(g / groups);
+    const long long px0 = (g - static_cast<long long>(b) * groups) * kGroup;
+    const T* tile = raw + static_cast<long long>(b) * C * hw;
+    const ChanParams* tp = params + b * C;
+    int32_t* dst = out + static_cast<long long>(b) * hw + px0;
+    float acc[kGroup][3];
 #pragma unroll
-  for (int j = 0; j < kRampPix; ++j) acc[j][0] = acc[j][1] = acc[j][2] = 0.f;
+    for (int j = 0; j < kGroup; ++j) acc[j][0] = acc[j][1] = acc[j][2] = 0.f;
 
-  for (int c = 0; c < C; ++c) {
-    const ChanParams& p = params[c];
-    const T* plane = tile + static_cast<long long>(c) * hw;
-#pragma unroll
-    for (int j = 0; j < kRampPix; ++j) {
-      const long long px = base + static_cast<long long>(j) * kThreads;
-      if (px < hw) {
-        const float q =
-            quantize(p, load_raw(plane + px), cd_start_f, k_max, cd_sum);
-        acc[j][0] = __fadd_rn(acc[j][0], __fmul_rn(q, p.w[0]));
-        acc[j][1] = __fadd_rn(acc[j][1], __fmul_rn(q, p.w[1]));
-        acc[j][2] = __fadd_rn(acc[j][2], __fmul_rn(q, p.w[2]));
+    if (vec) {
+      for (int c0 = 0; c0 < C; c0 += kChunk) {
+        Pack8<T> v[kChunk];
+        load_chunk(v, tile, hw, px0, c0, C);
+        accumulate_chunk(acc, v, tp, c0, C, cd_start_f, k_max, cd_sum);
       }
-    }
-  }
-  int32_t* dst = out + static_cast<long long>(b) * hw;
+      store_group(dst, acc);
+    } else {
+      const int n = static_cast<int>(
+          hw - px0 < kGroup ? hw - px0 : static_cast<long long>(kGroup));
+      for (int c = 0; c < C; ++c) {
+        const ChanParams& p = tp[c];
+        const T* plane = tile + static_cast<long long>(c) * hw + px0;
 #pragma unroll
-  for (int j = 0; j < kRampPix; ++j) {
-    const long long px = base + static_cast<long long>(j) * kThreads;
-    if (px < hw) dst[px] = pack(acc[j][0], acc[j][1], acc[j][2]);
+        for (int j = 0; j < kGroup; ++j)
+          if (j < n)
+            accumulate(acc[j],
+                       quantize(p, load_raw(plane + j), cd_start_f, k_max,
+                                cd_sum),
+                       p);
+      }
+#pragma unroll
+      for (int j = 0; j < kGroup; ++j)
+        if (j < n) dst[j] = pack(acc[j][0], acc[j][1], acc[j][2]);
+    }
   }
 }
 
@@ -236,7 +410,7 @@ render_lut_kernel(const T* __restrict__ raw, const float* __restrict__ ws,
   float* table = reinterpret_cast<float*>(params + C);
   const int b = blockIdx.y;
   for (int c = threadIdx.x; c < C; c += blockDim.x)
-    load_params(params, b, c, C, ws, we, coef, fam, rev, nullptr);
+    load_params(params + c, b * C + c, ws, we, coef, fam, rev, nullptr);
   const float* src = tables + static_cast<long long>(b) * C * kTableFloats;
   for (int i = threadIdx.x; i < C * kTableFloats; i += blockDim.x)
     table[i] = src[i];
@@ -292,16 +466,29 @@ cudaError_t launch_ramp(const void* raw, const float* ws, const float* we,
                         const int32_t* rev, const float* weights,
                         int32_t* out, int B, int C, long long hw,
                         int cd_start, int cd_end, cudaStream_t stream) {
-  const size_t smem = sizeof(ChanParams) * C;
+  const size_t smem = sizeof(ChanParams) * B * C;
   cudaError_t err = allow_smem(render_ramp_kernel<T>, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(
-      static_cast<unsigned>((hw + kThreads * kRampPix - 1) /
-                            (kThreads * kRampPix)),
-      B);
-  render_ramp_kernel<T><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(raw), ws, we, coef, fam, rev, weights, out, C,
-      hw, cd_start, cd_end);
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess)
+    return err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, render_ramp_kernel<T>, kThreads, smem)) != cudaSuccess)
+    return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const long long all = (hw + kGroup - 1) / kGroup * B;
+  const long long need = (all + kThreads - 1) / kThreads;
+  const long long resident = static_cast<long long>(sms) * per_sm;
+  const unsigned blocks =
+      static_cast<unsigned>(need < resident ? need : resident);
+  const uintptr_t align = reinterpret_cast<uintptr_t>(raw) |
+                          reinterpret_cast<uintptr_t>(out);
+  const int vec = hw % kGroup == 0 && align % 16 == 0;
+  render_ramp_kernel<T><<<blocks, kThreads, smem, stream>>>(
+      static_cast<const T*>(raw), ws, we, coef, fam, rev, weights, out, B, C,
+      hw, cd_start, cd_end, vec);
   return cudaGetLastError();
 }
 
@@ -388,7 +575,8 @@ extern "C" int render_lut_launch(const void* raw, int dtype, const void* ws,
 }
 
 // Largest channel count each kernel's shared memory holds on this card's
-// 227 KB per block (checked by the Python wrappers before a launch).
+// 227 KB per block (checked by the Python wrappers before a launch): for
+// the ramp kernel the count of B * C settings, for the LUT kernel of C.
 extern "C" int render_max_channels(int lut) {
   const size_t per_channel =
       sizeof(ChanParams) + (lut ? sizeof(float) * kTableFloats : 0);

@@ -1,0 +1,184 @@
+"""Hand-written CUDA kernels of the JPEG route: build, load, launch.
+
+Counterparts of the stages of the JAX package's device program
+``render_to_jpeg_sparse_compact`` (``ops/jpegenc.py:443``):
+
+* :func:`jpeg_coefficients` (K3) replaces ``packed_to_jpeg_coefficients``
+  (``ops/jpegenc.py:110``), with the MCU edge replication and the flips
+  folded into its reads;
+* :func:`sparse_pack` (K4a) replaces ``sparse_pack`` (``:191``);
+* :func:`compact_rows` (K4b) replaces ``_compact_rows`` (``:400``) with the
+  row lengths of ``:457-464``.
+
+All three live in ``csrc/jpeg.cu`` behind a plain ``extern "C"`` interface,
+built and loaded by :mod:`.build` on first use; a build failure raises.
+Each wrapper takes CUDA tensors only, checks them, allocates its outputs
+and scratch with ``torch.empty``, launches on the current stream, raises if
+a launch was refused, and counts one launch in :data:`LAUNCHES` per call.
+The plain PyTorch versions are in ``ops/jpegenc.py``, whose dispatchers
+send CPU tensors there and CUDA tensors here.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import threading
+from typing import Dict, Tuple
+
+import torch
+
+from . import build
+
+SOURCE = build.CSRC / "jpeg.cu"
+# No contraction into FMAs: K3 rounds each product and sum as its plain
+# version does.
+NVCC_FLAGS = build.ARCH_FLAGS + ("-fmad=false",)
+ENTRY_BITS = 18
+
+LAUNCHES: Dict[str, int] = {"jpeg_coefficients": 0, "sparse_pack": 0,
+                            "compact_rows": 0}
+_launch_lock = threading.Lock()
+
+
+def reset_launches() -> None:
+    with _launch_lock:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
+
+
+def _count(name: str) -> None:
+    with _launch_lock:
+        LAUNCHES[name] += 1
+
+
+def _configure(lib: ctypes.CDLL) -> None:
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.jpeg_coefficients_launch.argtypes = [p, i, i, i, i, i, i, i,
+                                             p, p, p, p, p]
+    lib.sparse_pack_launch.argtypes = [p, p, p, i, ll, ll, i, p, ll,
+                                       p, p, p, p]
+    lib.compact_rows_launch.argtypes = [p, i, ll, i, i, ll, p, p, p]
+    for fn in (lib.jpeg_coefficients_launch, lib.sparse_pack_launch,
+               lib.compact_rows_launch):
+        fn.restype = ctypes.c_int
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use."""
+    return build.load(SOURCE, NVCC_FLAGS, _configure)
+
+
+def _cuda(name: str, *tensors: torch.Tensor) -> torch.device:
+    dev = tensors[0].device
+    for t in tensors:
+        if not isinstance(t, torch.Tensor) or t.device.type != "cuda":
+            raise ValueError(f"{name} runs on CUDA tensors only; the plain "
+                             f"version is in ops.jpegenc")
+        if t.device != dev:
+            raise ValueError(f"{name}: tensors on {t.device} and {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: tensors must be contiguous")
+    return dev
+
+
+def _launched(name: str, err: int) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+    _count(name)
+
+
+def jpeg_coefficients(packed: torch.Tensor, tables: torch.Tensor,
+                      grid_h: int, grid_w: int, flip_h: bool = False,
+                      flip_v: bool = False
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K3: packed i32[B, h, w] RGBA -> zigzag coefficients of the
+    (grid_h, grid_w) frame (multiples of 16, at least (h, w)): ``y``
+    i16[B, grid_h*grid_w/64, 64], ``cb``/``cr`` i16[B, grid_h*grid_w/256,
+    64].  Pixels past (h, w) replicate the edge; ``flip_h``/``flip_v``
+    mirror the tile first.  ``tables`` is the f32[256] table block of
+    ``ops.jpegenc.device_tables``."""
+    dev = _cuda("jpeg_coefficients", packed, tables)
+    if packed.dtype != torch.int32 or packed.dim() != 3:
+        raise ValueError(f"packed must be i32[B, h, w], got {packed.dtype} "
+                         f"{tuple(packed.shape)}")
+    if tables.dtype != torch.float32 or tables.numel() != 256:
+        raise ValueError("tables must be f32[256]")
+    B, h, w = packed.shape
+    if (grid_h % 16 or grid_w % 16 or grid_h < h or grid_w < w
+            or h < 1 or w < 1):
+        raise ValueError(f"bad MCU grid ({grid_h}, {grid_w}) for ({h}, {w})")
+    mh, mw = grid_h // 16, grid_w // 16
+    y = torch.empty((B, 4 * mh * mw, 64), dtype=torch.int16, device=dev)
+    cb = torch.empty((B, mh * mw, 64), dtype=torch.int16, device=dev)
+    cr = torch.empty_like(cb)
+    if B == 0:
+        return y, cb, cr
+    lib = library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.jpeg_coefficients_launch(
+            packed.data_ptr(), B, h, w, mh, mw, int(flip_h), int(flip_v),
+            tables.data_ptr(), y.data_ptr(), cb.data_ptr(), cr.data_ptr(),
+            stream)
+    _launched("jpeg_coefficients", err)
+    return y, cb, cr
+
+
+def sparse_pack(y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor,
+                cap: int) -> torch.Tensor:
+    """K4a: coefficients -> u8[B, 4 + nb + ceil(18 cap / 8)] sparse wire
+    (``ops.jpegenc.sparse_pack_plain`` is the same function)."""
+    dev = _cuda("sparse_pack", y, cb, cr)
+    for name, t in (("y", y), ("cb", cb), ("cr", cr)):
+        if t.dtype != torch.int16 or t.dim() != 3 or t.shape[2] != 64:
+            raise ValueError(f"{name} must be i16[B, n, 64], got "
+                             f"{t.dtype} {tuple(t.shape)}")
+    B, nby = y.shape[:2]
+    nbc = cb.shape[1]
+    if cb.shape != cr.shape or cb.shape[0] != B:
+        raise ValueError("cb and cr must match each other and y's batch")
+    if cap < 1:
+        raise ValueError(f"cap must be positive, got {cap}")
+    nb = nby + 2 * nbc
+    width = 4 + nb + (ENTRY_BITS * cap + 7) // 8
+    wire = torch.empty((B, width), dtype=torch.uint8, device=dev)
+    if B == 0:
+        return wire
+    counts = torch.empty((B, nb), dtype=torch.int32, device=dev)
+    totals = torch.empty((B,), dtype=torch.int32, device=dev)
+    comp = torch.empty((B, cap), dtype=torch.int32, device=dev)
+    lib = library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.sparse_pack_launch(
+            y.data_ptr(), cb.data_ptr(), cr.data_ptr(), B, nby, nbc, cap,
+            wire.data_ptr(), width, counts.data_ptr(), totals.data_ptr(),
+            comp.data_ptr(), stream)
+    _launched("sparse_pack", err)
+    return wire
+
+
+def compact_rows(wire: torch.Tensor, n_valid: int, cap: int,
+                 nb: int) -> torch.Tensor:
+    """K4b: sparse wire u8[B, width] -> u8[4B + B*width]: the i32 LE row
+    lengths, then each row's used prefix (rows at or past ``n_valid``
+    take none), then zeros."""
+    dev = _cuda("compact_rows", wire)
+    if wire.dtype != torch.uint8 or wire.dim() != 2:
+        raise ValueError(f"wire must be u8[B, width], got {wire.dtype} "
+                         f"{tuple(wire.shape)}")
+    B, width = wire.shape
+    if width < 4 + nb:
+        raise ValueError(f"wire rows of {width} bytes hold no {nb} counts")
+    out = torch.empty((4 * B + B * width,), dtype=torch.uint8, device=dev)
+    if B == 0:
+        return out
+    offs = torch.empty((B + 1,), dtype=torch.int64, device=dev)
+    lib = library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.compact_rows_launch(
+            wire.data_ptr(), B, width, int(n_valid), cap, nb,
+            out.data_ptr(), offs.data_ptr(), stream)
+    _launched("compact_rows", err)
+    return out

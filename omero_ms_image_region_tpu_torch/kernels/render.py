@@ -8,12 +8,11 @@ Counterparts of the two Pallas TPU kernels in the JAX package's
 * :func:`render_lut` replaces ``_render_kernel_lut`` (``pallas_call`` at
   ``pallas_render.py:256``): renders where a channel resolves a ``.lut``.
 
-Both live in ``csrc/render.cu`` behind a plain ``extern "C"`` interface.
-The source is compiled by ``nvcc`` for ``sm_90a`` on first use into
-``_build/`` beside this file and loaded with ``ctypes``; a build failure
-raises.  Each wrapper checks device, dtype, shape and contiguity, allocates
-its output with ``torch.empty``, launches on the current CUDA stream, raises
-if the launch was refused, and counts the launch in :data:`LAUNCHES`.
+Both live in ``csrc/render.cu`` behind a plain ``extern "C"`` interface,
+built and loaded by :mod:`.build` on first use; a build failure raises.
+Each wrapper checks device, dtype, shape and contiguity, allocates its
+output with ``torch.empty``, launches on the current CUDA stream, raises if
+the launch was refused, and counts the launch in :data:`LAUNCHES`.
 
 The plain PyTorch version of the same function is
 ``ops.render.render_tile_batch_packed_plain``; ``ops.render
@@ -23,25 +22,18 @@ The plain PyTorch version of the same function is
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 import threading
-from pathlib import Path
-from typing import Dict, Optional, Tuple
+from typing import Dict
 
 import torch
 
-_HERE = Path(__file__).resolve().parent
-SOURCE = _HERE / "csrc" / "render.cu"
-BUILD_DIR = _HERE / "_build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+from . import build
+
+SOURCE = build.CSRC / "render.cu"
+NVCC_FLAGS = build.ARCH_FLAGS + (
     # No contraction of a*b+c into an FMA: the composite must round each
     # multiply and add as the reference does.  Never --use_fast_math.
     "-fmad=false",
-    "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC",
 )
 
 _DTYPE_CODES = {torch.uint8: 0, torch.uint16: 1, torch.float32: 2}
@@ -50,10 +42,6 @@ _DTYPE_CODES = {torch.uint8: 0, torch.uint16: 1, torch.float32: 2}
 # where the kernel is launched.
 LAUNCHES: Dict[str, int] = {"render_ramp": 0, "render_lut": 0}
 _launch_lock = threading.Lock()
-
-_lib: Optional[ctypes.CDLL] = None
-_lib_lock = threading.Lock()
-BUILD_LOG = ""
 
 
 def reset_launches() -> None:
@@ -67,55 +55,21 @@ def _count(name: str) -> None:
         LAUNCHES[name] += 1
 
 
-def _nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    for cand in (shutil.which("nvcc"),
-                 os.path.join(cuda_home, "bin", "nvcc")):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found (PATH or $CUDA_HOME/bin): the "
-                       "render kernels are built from source on first use")
-
-
-def build() -> Tuple[Path, str]:
-    """Compile ``csrc/render.cu`` into ``_build/`` (keyed by the source
-    and flags, so an edited source rebuilds); returns the library path
-    and the compiler's output (``-Xptxas=-v`` register/smem report)."""
-    tag = hashlib.sha256(
-        SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = BUILD_DIR / f"librender_{tag}.so"
-    if lib.exists():
-        return lib, ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f"librender_{tag}.{os.getpid()}.tmp.so"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed with exit code {proc.returncode}:\n"
-            f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, lib)        # atomic: concurrent builds agree
-    return lib, proc.stdout + proc.stderr
+def _configure(lib: ctypes.CDLL) -> None:
+    args = ([ctypes.c_void_p, ctypes.c_int]
+            + [ctypes.c_void_p] * 7
+            + [ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+               ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    for fn in (lib.render_ramp_launch, lib.render_lut_launch):
+        fn.argtypes = args
+        fn.restype = ctypes.c_int
+    lib.render_max_channels.argtypes = [ctypes.c_int]
+    lib.render_max_channels.restype = ctypes.c_int
 
 
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built on first use."""
-    global _lib, BUILD_LOG
-    with _lib_lock:
-        if _lib is None:
-            path, BUILD_LOG = build()
-            lib = ctypes.CDLL(str(path))
-            args = ([ctypes.c_void_p, ctypes.c_int]
-                    + [ctypes.c_void_p] * 7
-                    + [ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
-            for fn in (lib.render_ramp_launch, lib.render_lut_launch):
-                fn.argtypes = args
-                fn.restype = ctypes.c_int
-            lib.render_max_channels.argtypes = [ctypes.c_int]
-            lib.render_max_channels.restype = ctypes.c_int
-            _lib = lib
-        return _lib
+    return build.load(SOURCE, NVCC_FLAGS, _configure)
 
 
 def _check(name: str, t: torch.Tensor, dtype: torch.dtype,
@@ -161,9 +115,12 @@ def _launch(name: str, raw, window_start, window_end, family, coefficient,
         return out
     lib = library()
     is_lut = name == "render_lut"
-    if C < 1 or C > lib.render_max_channels(int(is_lut)):
-        raise ValueError(f"{name}: {C} channels do not fit the kernel's "
-                         f"shared memory (max "
+    # The ramp kernel keeps the whole batch's B * C settings in shared
+    # memory, the LUT kernel one tile's C tables.
+    held = C if is_lut else B * C
+    if C < 1 or held > lib.render_max_channels(int(is_lut)):
+        raise ValueError(f"{name}: {held} channel settings do not fit the "
+                         f"kernel's shared memory (max "
                          f"{lib.render_max_channels(int(is_lut))})")
     fn = lib.render_lut_launch if is_lut else lib.render_ramp_launch
     with torch.cuda.device(dev):

@@ -1,0 +1,555 @@
+"""The JPEG route: coefficient front end, sparse wire, host tail.
+
+Counterpart of the sparse engine of the JAX package's ``ops/jpegenc.py``
+(``render_batch_to_jpeg(engine="sparse")``, ``:1448``).  On the card the
+route is
+
+    K1 render (kernels/render.py)  ->  K3 jpeg_coefficients  ->
+    K4a sparse_pack  ->  K4b compact_rows
+
+and only the compacted wire (the used bytes of every row behind an i32
+lengths header) crosses to the host, where the native coder
+(``native/jpegenc.cpp``) writes each tile's JFIF.
+
+Each device stage has a dispatcher here that sends a CPU tensor to its plain
+PyTorch version (``*_plain``, also what the kernels are held against on the
+card) and a CUDA tensor to its kernel in ``kernels/jpeg.py`` (or raises).
+
+Coefficient layout (the JAX package's contract with the entropy coder):
+  * ``y``  i16[B, (H/8)*(W/8),   64]  luma blocks, raster order, zigzagged
+  * ``cb`` i16[B, (H/16)*(W/16), 64]  subsampled chroma, raster, zigzagged
+  * ``cr`` i16[B, (H/16)*(W/16), 64]
+for an (H, W) frame of 16x16 MCUs.  A tile of another size is coded over
+its ceil-16 frame with the edge replicated, and its true size goes into the
+SOF0 header.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Callable, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from .. import native
+
+# ---------------------------------------------------------------- tables
+
+# Annex K base quantization tables (natural 8x8 order).
+BASE_LUMA_QUANT = np.array([
+    [16, 11, 10, 16, 24, 40, 51, 61],
+    [12, 12, 14, 19, 26, 58, 60, 55],
+    [14, 13, 16, 24, 40, 57, 69, 56],
+    [14, 17, 22, 29, 51, 87, 80, 62],
+    [18, 22, 37, 56, 68, 109, 103, 77],
+    [24, 35, 55, 64, 81, 104, 113, 92],
+    [49, 64, 78, 87, 103, 121, 120, 101],
+    [72, 92, 95, 98, 112, 100, 103, 99],
+], dtype=np.int32)
+
+BASE_CHROMA_QUANT = np.array([
+    [17, 18, 24, 47, 99, 99, 99, 99],
+    [18, 21, 26, 66, 99, 99, 99, 99],
+    [24, 26, 56, 99, 99, 99, 99, 99],
+    [47, 66, 99, 99, 99, 99, 99, 99],
+    [99, 99, 99, 99, 99, 99, 99, 99],
+    [99, 99, 99, 99, 99, 99, 99, 99],
+    [99, 99, 99, 99, 99, 99, 99, 99],
+    [99, 99, 99, 99, 99, 99, 99, 99],
+], dtype=np.int32)
+
+# BT.601 full-range weights as float32 (the kernel's literals).
+_Y = np.float32([0.299, 0.587, 0.114])
+_CB = np.float32([-0.168736, 0.331264, 0.5])
+_CR = np.float32([0.5, 0.418688, 0.081312])
+
+
+def quant_tables(quality: int) -> Tuple[np.ndarray, np.ndarray]:
+    """IJG quality scaling of the Annex K tables -> (luma, chroma) u8[8,8]."""
+    quality = int(max(1, min(100, quality)))
+    scale = 5000 // quality if quality < 50 else 200 - 2 * quality
+
+    def scaled(base):
+        t = (base * scale + 50) // 100
+        return np.clip(t, 1, 255).astype(np.uint8)
+    return scaled(BASE_LUMA_QUANT), scaled(BASE_CHROMA_QUANT)
+
+
+@functools.lru_cache(maxsize=1)
+def zigzag_order() -> np.ndarray:
+    """Flat indices (into a row-major 8x8 block) in JPEG zigzag order."""
+    order = sorted(
+        ((r, c) for r in range(8) for c in range(8)),
+        key=lambda rc: (rc[0] + rc[1],
+                        rc[1] if (rc[0] + rc[1]) % 2 == 0 else rc[0]),
+    )
+    return np.array([r * 8 + c for r, c in order], dtype=np.int32)
+
+
+@functools.lru_cache(maxsize=1)
+def dct_matrix() -> np.ndarray:
+    """Orthonormal 8-point DCT-II matrix == the JPEG FDCT normalization."""
+    k = np.arange(8)
+    D = np.cos((2 * k[None, :] + 1) * k[:, None] * np.pi / 16) * 0.5
+    D[0] *= 1.0 / np.sqrt(2.0)
+    return D.astype(np.float32)
+
+
+def device_tables(quality: int, device) -> torch.Tensor:
+    """K3's f32[256] table block on ``device``: D, the luma and chroma
+    quant tables (natural order) and each natural index's zigzag
+    position."""
+    return _device_tables(int(quality), str(torch.device(device)))
+
+
+@functools.lru_cache(maxsize=None)
+def _device_tables(quality: int, device: str) -> torch.Tensor:
+    qy, qc = quant_tables(quality)
+    host = np.concatenate([dct_matrix().ravel(), qy.ravel(), qc.ravel(),
+                           np.argsort(zigzag_order())]).astype(np.float32)
+    return torch.from_numpy(host).to(device)
+
+
+# -------------------------------------------------------------- cap rules
+
+ENTRY_BITS = 18      # 6-bit zigzag position + 12-bit value (two's compl.)
+
+
+def sparse_wire_width(H: int, W: int, cap: int) -> int:
+    """Total wire-buffer bytes per tile."""
+    h16, w16 = (H + 15) // 16, (W + 15) // 16
+    nb = h16 * w16 * 6
+    return 4 + nb + (ENTRY_BITS * cap + 7) // 8
+
+
+def sparse_prefix_bytes(total: int, H: int, W: int) -> int:
+    """Bytes of a tile's wire buffer actually carrying data: the header,
+    the per-block counts, and ``total`` 18-bit entries."""
+    h16, w16 = (H + 15) // 16, (W + 15) // 16
+    nb = h16 * w16 * 6
+    return 4 + nb + (ENTRY_BITS * int(total) + 7) // 8
+
+
+def _quality_widen(quality: Optional[int]) -> int:
+    """Cap multiplier for high-quality quant tables: WSI content runs ~5%
+    coefficient density at q80 but ~12% at q90, past the 1/8 default."""
+    return 2 if quality is not None and quality >= 88 else 1
+
+
+def default_sparse_cap(H: int, W: int,
+                       quality: Optional[int] = None) -> int:
+    """Wire entry budget per tile: 1/8 of all coefficient slots (1/4 for
+    quality >= 88)."""
+    return max_sparse_cap(H, W) // 8 * _quality_widen(quality)
+
+
+def max_sparse_cap(H: int, W: int) -> int:
+    """Every coefficient slot of the (16-aligned) frame: the cap at which
+    no tile can overflow."""
+    nb = (H // 8) * (W // 8) + 2 * (H // 16) * (W // 16)
+    return nb * 64
+
+
+def blocks_per_tile(H: int, W: int) -> int:
+    """Coefficient blocks of a tile's ceil-16 frame (luma + both chroma)."""
+    return ((H + 15) // 16) * ((W + 15) // 16) * 6
+
+
+def row_header_i32(row: np.ndarray, word: int) -> int:
+    """Header field ``word`` of one wire row (compacted rows may sit at
+    unaligned offsets, so go through bytes, not a view)."""
+    return int.from_bytes(row[4 * word:4 * word + 4].tobytes(),
+                          "little", signed=True)
+
+
+def sparse_to_dense(buf: np.ndarray, H: int, W: int, cap: int):
+    """Rebuild (y, cb, cr) dense coefficient blocks from one wire row, or
+    None if the row overflowed ``cap``.  ``buf`` may be any length from
+    its used prefix on."""
+    h16, w16 = (H + 15) // 16, (W + 15) // 16
+    nb_y = h16 * w16 * 4
+    nb_c = h16 * w16
+    nb = nb_y + 2 * nb_c
+    total = int(buf[:4].view(np.int32)[0])
+    if total > cap:
+        return None
+    need = 4 + nb + (ENTRY_BITS * total + 7) // 8
+    if len(buf) < need:
+        raise ValueError(
+            f"sparse buffer too short: {len(buf)} bytes < {need} needed")
+    counts = buf[4:4 + nb].astype(np.int64)
+    if int(counts.sum()) != total:
+        raise ValueError("sparse buffer malformed: counts do not sum to "
+                         "total")
+    # Entry j lives MSB-first at bit 18j: read a 32-bit big-endian window
+    # at its byte and shift.
+    stream = np.pad(buf[4 + nb:], (0, 4)).astype(np.uint32)
+    j = np.arange(total)
+    bit = j * ENTRY_BITS
+    byte0 = bit >> 3
+    shift = bit & 7
+    window = ((stream[byte0] << 24) | (stream[byte0 + 1] << 16)
+              | (stream[byte0 + 2] << 8) | stream[byte0 + 3])
+    field = (window >> (32 - 18 - shift)) & 0x3FFFF
+    ps = (field >> 12).astype(np.int64)
+    vs = (field & 0xFFF).astype(np.int16)
+    vs = np.where(vs >= 2048, vs - 4096, vs).astype(np.int16)
+    dense = np.zeros((nb, 64), np.int16)
+    block_ids = np.repeat(np.arange(nb), counts)
+    dense[block_ids, ps] = vs
+    return (dense[:nb_y].reshape(nb_y, 64),
+            dense[nb_y:nb_y + nb_c].reshape(nb_c, 64),
+            dense[nb_y + nb_c:].reshape(nb_c, 64))
+
+
+def slice_block_subgrid(y, cb, cr, grid_h: int, grid_w: int,
+                        width: int, height: int):
+    """The top-left ceil-16 subgrid of dense coefficient blocks: a wire
+    row may cover a (grid_h, grid_w) frame larger than the tile, and
+    baseline JPEG decodes exactly ceil(h/16) x ceil(w/16) MCUs."""
+    gh16, gw16 = grid_h // 16, grid_w // 16
+    th16, tw16 = (height + 15) // 16, (width + 15) // 16
+    y = y.reshape(gh16 * 2, gw16 * 2, 64)[:th16 * 2, :tw16 * 2]
+    cb = cb.reshape(gh16, gw16, 64)[:th16, :tw16]
+    cr = cr.reshape(gh16, gw16, 64)[:th16, :tw16]
+    return (np.ascontiguousarray(y).reshape(-1, 64),
+            np.ascontiguousarray(cb).reshape(-1, 64),
+            np.ascontiguousarray(cr).reshape(-1, 64))
+
+
+# ------------------------------------------------------ K3: coefficients
+
+def _frame_index(n: int, grid: int, flip: bool, device) -> torch.Tensor:
+    """Source index of each frame position along one axis: the edge
+    replicated past ``n``, then mirrored when ``flip``."""
+    idx = torch.arange(grid, device=device).clamp(max=n - 1)
+    return (n - 1) - idx if flip else idx
+
+
+def fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """float32 ``a * b + c`` rounded once, as CUDA's ``__fmaf_rn`` and a
+    CPU's FMA instruction give it.
+
+    The product is exact in float64; the sum is taken in float64 rounded
+    to odd (TwoSum finds its error; an inexact sum with an even last bit
+    moves one ulp toward the exact value), and rounding that to float32
+    is then correctly rounded (53 >= 24 + 2 bits).
+    """
+    p = a.to(torch.float64) * b.to(torch.float64)
+    c = c.to(torch.float64)
+    s = p + c
+    bv = s - p
+    err = (p - (s - bv)) + (c - bv)
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.where(err > 0, torch.full_like(s, float("inf")),
+                         torch.full_like(s, float("-inf")))
+    s = torch.where((err != 0) & even, torch.nextafter(s, toward), s)
+    return s.to(torch.float32)
+
+
+def _dot8(terms) -> torch.Tensor:
+    """sum of eight products ``(a, b)`` in XLA's order (the kernel's):
+    four lanes, lane s = fma(a[s+4], b[s+4], a[s] * b[s]), then
+    (l0 + l1) + (l2 + l3)."""
+    terms = list(terms)
+    lanes = [fma(*terms[s + 4], terms[s][0] * terms[s][1])
+             for s in range(4)]
+    return (lanes[0] + lanes[1]) + (lanes[2] + lanes[3])
+
+
+def _dct_quant_zigzag(x: torch.Tensor, qtable: np.ndarray) -> torch.Tensor:
+    """[B, h, w] f32 samples (h, w multiples of 8) -> i16[B, nb, 64]."""
+    Bq, h, w = x.shape
+    X = x.reshape(Bq, h // 8, 8, w // 8, 8).permute(0, 1, 3, 2, 4)
+    X = X.reshape(Bq, -1, 8, 8)                        # [B, nb, x, y]
+    D = torch.from_numpy(dct_matrix()).to(x.device)
+    # T[u][y] = sum_x D[u][x] X[x][y]
+    T = _dot8((D[None, None, :, k, None], X[:, :, None, k, :])
+              for k in range(8))                       # [B, nb, u, y]
+    # C[u][v] = sum_y T[u][y] D[v][y]
+    C = _dot8((T[:, :, :, k, None], D[None, None, None, :, k])
+              for k in range(8))                       # [B, nb, u, v]
+    qt = torch.from_numpy(qtable.astype(np.float32)).to(x.device)
+    q = torch.round(C / qt)
+    q = torch.clamp(q, -2047.0, 2047.0).to(torch.int16).reshape(Bq, -1, 64)
+    zig = torch.from_numpy(zigzag_order()).to(device=x.device,
+                                               dtype=torch.int64)
+    return q[..., zig]
+
+
+def packed_to_jpeg_coefficients_plain(packed: torch.Tensor, quality: int,
+                                      grid_h: Optional[int] = None,
+                                      grid_w: Optional[int] = None,
+                                      flip_h: bool = False,
+                                      flip_v: bool = False):
+    """Plain PyTorch K3: packed i32[B, h, w] RGBA -> (y, cb, cr) over the
+    (grid_h, grid_w) frame (default: the ceil-16 frame), the tile first
+    mirrored by ``flip_h``/``flip_v`` and its edge replicated.
+
+    The operations and their order are XLA's for the JAX function (on a
+    CPU), as ``csrc/jpeg.cu`` states them: f32 products and sums rounded
+    one by one, and the fused multiply-adds XLA makes done by :func:`fma`.
+    So the kernel agrees with this exactly, and both with JAX.
+    """
+    B, h, w = packed.shape
+    grid_h = grid_h if grid_h is not None else h + (-h) % 16
+    grid_w = grid_w if grid_w is not None else w + (-w) % 16
+    if grid_h % 16 or grid_w % 16 or grid_h < h or grid_w < w:
+        raise ValueError(f"bad MCU grid ({grid_h}, {grid_w}) for ({h}, {w})")
+    dev = packed.device
+    rows = _frame_index(h, grid_h, flip_v, dev)
+    cols = _frame_index(w, grid_w, flip_h, dev)
+    p = packed.index_select(1, rows).index_select(2, cols)
+    r = (p & 0xFF).to(torch.float32)
+    g = ((p >> 8) & 0xFF).to(torch.float32)
+    b = ((p >> 16) & 0xFF).to(torch.float32)
+
+    def c(v):
+        return torch.tensor(v, dtype=torch.float32, device=dev)
+
+    y = fma(c(_Y[2]), b, fma(c(_Y[0]), r, c(_Y[1]) * g)) - c(128.0)
+    cb = fma(c(_CB[2]), b, fma(c(_CB[0]), r, -(c(_CB[1]) * g)))
+    cr = fma(-c(_CR[2]), b, fma(c(_CR[0]), r, -(c(_CR[1]) * g)))
+
+    def sub(x):
+        return ((x[:, 0::2, 0::2] + x[:, 0::2, 1::2])
+                + (x[:, 1::2, 0::2] + x[:, 1::2, 1::2])) / c(4.0)
+
+    qy, qc = quant_tables(quality)
+    return (_dct_quant_zigzag(y, qy), _dct_quant_zigzag(sub(cb), qc),
+            _dct_quant_zigzag(sub(cr), qc))
+
+
+def packed_to_jpeg_coefficients(packed: torch.Tensor, quality: int,
+                                grid_h: Optional[int] = None,
+                                grid_w: Optional[int] = None,
+                                flip_h: bool = False, flip_v: bool = False):
+    """K3 dispatcher: the plain version for a CPU tensor, the kernel
+    (``kernels.jpeg.jpeg_coefficients``) for a CUDA tensor."""
+    if packed.device.type == "cpu":
+        return packed_to_jpeg_coefficients_plain(
+            packed, quality, grid_h, grid_w, flip_h, flip_v)
+    from ..kernels import jpeg as kernels
+
+    B, h, w = packed.shape
+    return kernels.jpeg_coefficients(
+        packed, device_tables(quality, packed.device),
+        grid_h if grid_h is not None else h + (-h) % 16,
+        grid_w if grid_w is not None else w + (-w) % 16, flip_h, flip_v)
+
+
+# ------------------------------------------------------- K4a: sparse wire
+
+def sparse_pack_plain(y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor,
+                      cap: int) -> torch.Tensor:
+    """Plain PyTorch K4a: coefficients -> u8[B, width] wire rows
+
+        [ total i32 LE | per-block nonzero counts u8[nb] |
+          18-bit entries u8[ceil(18 cap / 8)] ]
+
+    entry j (MSB-first at bit 18j) being ``pos << 12 | val & 0xFFF`` of
+    the j-th nonzero in (block, zigzag) order, blocks luma, Cb, Cr.
+    Entries past ``cap`` are dropped (the host sees total > cap) and the
+    stream's unused bytes are zero.
+    """
+    B = y.shape[0]
+    dev = y.device
+    flat = torch.cat([y.reshape(B, -1), cb.reshape(B, -1),
+                      cr.reshape(B, -1)], dim=1).to(torch.int64)
+    N = flat.shape[1]
+    nb = N // 64
+    mask = flat != 0
+    counts = mask.reshape(B, nb, 64).sum(-1).to(torch.uint8)
+    wi = torch.cumsum(mask, dim=1) - 1                     # [B, N]
+    total = mask.sum(dim=1).to(torch.int32)
+    pos = torch.arange(N, device=dev) % 64
+    field = (pos << 12) | (flat & 0xFFF)
+    # Kept entries land at their running index; every other one writes a
+    # zero to slot `cap`, which is also the e0 + 1 guard below.
+    kept = mask & (wi < cap)
+    comp = torch.zeros((B, cap + 1), dtype=torch.int64, device=dev)
+    comp.scatter_(1, torch.where(kept, wi, torch.full_like(wi, cap)),
+                  torch.where(kept, field, torch.zeros_like(field)))
+    nbytes = (ENTRY_BITS * cap + 7) // 8
+    bitpos = torch.arange(nbytes, device=dev) * 8
+    e0 = bitpos // ENTRY_BITS
+    off = bitpos - e0 * ENTRY_BITS                         # 0..17
+    f0 = comp[:, e0]
+    f1 = comp[:, e0 + 1]
+    part0 = ((f0 << off) & 0x3FFFF) >> 10
+    part1 = torch.where(off > 10, f1 >> (28 - off), torch.zeros_like(f1))
+    stream = ((part0 | part1) & 0xFF).to(torch.uint8)
+    header = total.reshape(B, 1).view(torch.uint8)         # little-endian
+    return torch.cat([header, counts, stream], dim=1)
+
+
+def sparse_pack(y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor,
+                cap: int) -> torch.Tensor:
+    """K4a dispatcher (plain version on CPU, kernel on CUDA)."""
+    if y.device.type == "cpu":
+        return sparse_pack_plain(y, cb, cr, cap)
+    from ..kernels import jpeg as kernels
+
+    return kernels.sparse_pack(y, cb, cr, cap)
+
+
+# ---------------------------------------------------- K4b: row compaction
+
+def sparse_row_lengths(wire: torch.Tensor, n_valid: int, cap: int,
+                       nb: int) -> torch.Tensor:
+    """Used bytes of each wire row: header, counts and the kept entries;
+    only header and counts for a row that overflowed ``cap`` (enough for
+    the host to see it); 0 for rows at or past ``n_valid``."""
+    B = wire.shape[0]
+    total = wire[:, :4].reshape(-1).view(torch.int32).to(torch.int64)
+    used = 4 + nb + (ENTRY_BITS * torch.clamp(total, max=cap) + 7) // 8
+    lengths = torch.where(total <= cap, used, torch.full_like(used, 4 + nb))
+    keep = torch.arange(B, device=wire.device) < n_valid
+    return torch.where(keep, lengths, torch.zeros_like(lengths))
+
+
+def compact_rows_plain(wire: torch.Tensor,
+                       lengths: torch.Tensor) -> torch.Tensor:
+    """Pack each row's first ``lengths[b]`` bytes contiguously behind an
+    i32 LE lengths header: u8[4B + B*width],
+
+        [ lengths i32 LE x B | row0[:len0] | row1[:len1] | ... | zeros ]
+    """
+    B, width = wire.shape
+    lengths = lengths.to(torch.int64)
+    cum = torch.cat([torch.zeros(1, dtype=torch.int64, device=wire.device),
+                     torch.cumsum(lengths, 0)])
+    col = torch.arange(width, device=wire.device)
+    keep = col[None, :] < lengths[:, None]
+    data = torch.zeros(B * width, dtype=torch.uint8, device=wire.device)
+    data[(cum[:-1, None] + col[None, :])[keep]] = wire[keep]
+    header = lengths.to(torch.int32).view(torch.uint8)
+    return torch.cat([header, data])
+
+
+def compact_sparse_rows(wire: torch.Tensor, n_valid: int, cap: int,
+                        nb: int) -> torch.Tensor:
+    """K4b dispatcher: :func:`compact_rows_plain` over
+    :func:`sparse_row_lengths` on CPU, the kernel on CUDA."""
+    if wire.device.type == "cpu":
+        return compact_rows_plain(
+            wire, sparse_row_lengths(wire, n_valid, cap, nb))
+    from ..kernels import jpeg as kernels
+
+    return kernels.compact_rows(wire, n_valid, cap, nb)
+
+
+def fetch_rows(compact: torch.Tensor, B: int) -> List[np.ndarray]:
+    """The compacted wire to the host: its lengths header, then exactly
+    the bytes the rows use.  Returns each row as a u8 array (rows that
+    carry nothing come back empty)."""
+    lengths = compact[:4 * B].cpu().numpy().view(np.int32).astype(np.int64)
+    used = int(lengths.sum())
+    body = compact[4 * B:4 * B + used].cpu().numpy()
+    offs = np.concatenate([[0], np.cumsum(lengths)])
+    return [body[offs[i]:offs[i + 1]] for i in range(B)]
+
+
+# ------------------------------------------------------------- host tail
+
+# Process-wide overflow memo: once a (shape, quality) workload overflows
+# its default cap, later calls start at the doubled cap.
+_CAP_MEMO: dict = {}
+
+
+def finish_sparse_to_jpegs(bufs, dims, H: int, W: int, quality: int,
+                           cap: int, dense_coefficients: Callable) -> list:
+    """Fetched wire rows -> JFIF per tile.
+
+    ``dims`` gives each tile's true ``(width, height)``.  A tile whose own
+    ceil-16 frame is smaller than (H, W) is coded from the top-left block
+    subgrid; a tile that overflowed ``cap`` is coded from
+    ``dense_coefficients(i) -> (y, cb, cr)`` with the dense coder.
+    """
+    out = []
+    for i, (w_, h_) in enumerate(dims):
+        exact = ((h_ + 15) // 16 * 16 == H and (w_ + 15) // 16 * 16 == W)
+        try:
+            if exact:
+                out.append(native.jpeg_encode_sparse(bufs[i], w_, h_,
+                                                     quality, cap))
+                continue
+            dense = sparse_to_dense(bufs[i], H, W, cap)
+            if dense is None:
+                raise native.SparseOverflowError(f"overflow (cap={cap})")
+        except native.SparseOverflowError:
+            dense = dense_coefficients(i)
+        y, cb, cr = slice_block_subgrid(*dense, H, W, w_, h_) \
+            if not exact else dense
+        out.append(native.jpeg_encode(y, cb, cr, w_, h_, quality))
+    return out
+
+
+def wire_rows(y, cb, cr, cap: int, n_valid: int) -> List[np.ndarray]:
+    """K4a + K4b on the coefficients' device, then the compacted wire's
+    used bytes to the host: the first ``n_valid`` rows."""
+    B = y.shape[0]
+    nb = y.shape[1] + 2 * cb.shape[1]
+    wire = sparse_pack(y, cb, cr, cap)
+    return fetch_rows(compact_sparse_rows(wire, n_valid, cap, nb),
+                      B)[:n_valid]
+
+
+def coefficients_to_jpegs(y, cb, cr, H: int, W: int, quality: int,
+                          dims: Sequence[Tuple[int, int]],
+                          cap: Optional[int] = None) -> list:
+    """Coefficients of B tiles on an (H, W) frame -> JFIF for the first
+    ``len(dims)`` of them, the sparse engine's cap policy included.
+
+    The wire starts at ``cap`` (default :func:`default_sparse_cap`; twice
+    that once the workload's memo is set).  When a tile overflows it and
+    would fit in twice the cap, the whole batch is packed once more at the
+    doubled cap and the memo set.  A tile still over the cap is coded from
+    its dense coefficients, which stay on the device until then.
+    """
+    n = len(dims)
+    if cap is None:
+        cap = default_sparse_cap(H, W, quality)
+    memo_key = ("sparse", H, W, quality)
+    if _CAP_MEMO.get(memo_key):
+        cap = cap * 2
+    rows = wire_rows(y, cb, cr, cap, n)
+    totals = np.array([row_header_i32(r, 0) for r in rows])
+    if (memo_key not in _CAP_MEMO
+            and ((totals > cap) & (totals <= 2 * cap)).any()):
+        _CAP_MEMO[memo_key] = True
+        cap = cap * 2
+        rows = wire_rows(y, cb, cr, cap, n)
+
+    def dense_coefficients(i):
+        return (y[i].cpu().numpy(), cb[i].cpu().numpy(),
+                cr[i].cpu().numpy())
+
+    return finish_sparse_to_jpegs(rows, dims, H, W, quality, cap,
+                                  dense_coefficients)
+
+
+def render_batch_to_jpeg(raw, window_start, window_end, family, coefficient,
+                         reverse, cd_start, cd_end, tables, quality: int,
+                         dims, cap: Optional[int] = None) -> list:
+    """One batch of tiles -> JFIF per tile, on raw's device.
+
+    ``raw`` is [B, C, H, W] with H, W multiples of 16 (callers edge-pad:
+    the render is pointwise, so padding commutes with it) and per-tile
+    settings stacked along B, as ``ops.render.render_tile_batch_packed``
+    takes them.  ``dims`` gives the true ``(width, height)`` of each of
+    the first ``len(dims)`` tiles for its SOF0 header; rows past them are
+    batch padding and cost no wire bytes.  The JAX package's
+    ``render_batch_to_jpeg(engine="sparse")`` gives the same bytes.
+    """
+    from .render import render_tile_batch_packed
+
+    B, C, H, W = raw.shape
+    if H % 16 or W % 16:
+        raise ValueError(f"raw frame ({H}, {W}) is not a multiple of 16")
+    packed = render_tile_batch_packed(raw, window_start, window_end, family,
+                                      coefficient, reverse, cd_start,
+                                      cd_end, tables)
+    y, cb, cr = packed_to_jpeg_coefficients(packed, quality)
+    return coefficients_to_jpegs(y, cb, cr, H, W, quality, dims, cap)

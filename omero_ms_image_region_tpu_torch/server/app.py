@@ -26,7 +26,8 @@ from ..ops.lut import LutProvider
 from ..services.metadata import LocalMetadataService
 from .ctx import ImageRegionCtx
 from .errors import BadRequestError, NotFoundError
-from .handler import ImageRegionHandler, ImageRegionServices, Renderer
+from .handler import (JPEG_HOST_MAX_PX, ImageRegionHandler,
+                      ImageRegionServices, Renderer)
 
 log = logging.getLogger(__name__)
 
@@ -35,7 +36,8 @@ FEATURES = ["flip", "png-tiles"]
 
 
 def build_handler(data_dir: str, lut_root: Optional[str] = None,
-                  device: Union[str, torch.device] = "cuda"
+                  device: Union[str, torch.device] = "cuda",
+                  jpeg_host_max_px: int = JPEG_HOST_MAX_PX
                   ) -> ImageRegionHandler:
     """The handler over a data directory of chunked pyramids."""
     return ImageRegionHandler(ImageRegionServices(
@@ -43,6 +45,7 @@ def build_handler(data_dir: str, lut_root: Optional[str] = None,
         metadata=LocalMetadataService(data_dir),
         renderer=Renderer(device),
         lut_provider=LutProvider(lut_root),
+        jpeg_host_max_px=jpeg_host_max_px,
     ))
 
 

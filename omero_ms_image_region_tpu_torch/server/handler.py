@@ -9,10 +9,15 @@ The analogue of ``ImageRegionRequestHandler.java`` (metadata fetch
   channels) -> render on the device -> flip -> unpack -> encode.
 
 Not here yet: the byte cache, single-flight, admission, the device raw
-cache, the prefetcher and the tiny-region CPU path; a projection request
-(``p=``) is refused with a 400.
-``format=jpeg`` renders on the device and encodes the RGBA with
-``codecs.encode_rgba`` (PIL).
+cache and the prefetcher; a projection request (``p=``) is refused with a
+400.
+
+``format=jpeg`` follows the JAX handler's two routes.  A region above
+``ImageRegionServices.jpeg_host_max_px`` pixels takes the device route,
+:meth:`Renderer.render_jpeg`: render, JPEG front end and sparse wire on the
+card, the native entropy coder on the host.  A region at or below it is
+rendered on the card and its RGBA encoded with ``codecs.encode_rgba``
+(PIL), the bytes of the JAX handler's tiny-region path.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ import torch
 
 from .. import codecs
 from ..models.rendering import default_rendering_def, restrict_to_active
+from ..ops import jpegenc
 from ..ops.flip import flip_image
 from ..ops.render import (batched_settings, pack_settings, raw_to_tensor,
                           render_tile_batch_packed, resolve_device,
@@ -36,6 +42,10 @@ from .region import RegionDef, clamp_region_to_plane, get_region_def
 from .settings import update_settings
 
 DEFAULT_MAX_TILE_LENGTH = 2048  # beanRefContext.xml:63-66
+# JPEG regions of at most this many pixels are rendered on the device and
+# encoded with PIL, the bytes of the JAX handler's tiny-region path (its
+# cpu_fallback_max_px default); larger ones take the device JPEG route.
+JPEG_HOST_MAX_PX = 256 * 256
 
 
 class Renderer:
@@ -64,6 +74,35 @@ class Renderer:
         packed = flip_image(packed[0], flip_horizontal, flip_vertical)
         return packed.cpu().numpy().view(np.uint32)
 
+    async def render_jpeg(self, raw: np.ndarray, settings: dict,
+                          quality: int, width: int, height: int,
+                          flip_horizontal: bool = False,
+                          flip_vertical: bool = False) -> bytes:
+        """[C, h, w] raw + packed settings -> JFIF bytes of the (flipped)
+        tile, ``width`` x ``height`` in its SOF0 header."""
+        return await asyncio.to_thread(
+            self.render_jpeg_sync, raw, settings, quality, width, height,
+            flip_horizontal, flip_vertical)
+
+    def render_jpeg_sync(self, raw: np.ndarray, settings: dict,
+                         quality: int, width: int, height: int,
+                         flip_horizontal: bool = False,
+                         flip_vertical: bool = False) -> bytes:
+        """The device JPEG route for one tile: raw to the device, the
+        render (K1/K2, B=1), the coefficient front end over the tile's
+        ceil-16 frame with the flips and the edge replication folded into
+        its reads (K3), the sparse wire and its compaction (K4a, K4b);
+        the compacted wire's used bytes back; the native entropy coder."""
+        raw_t = raw_to_tensor(raw, self.device)[None]
+        tensors = settings_to_tensors(settings, self.device)
+        packed = render_tile_batch_packed(raw_t, *batched_settings(tensors))
+        h, w = packed.shape[-2:]
+        H, W = h + (-h) % 16, w + (-w) % 16
+        y, cb, cr = jpegenc.packed_to_jpeg_coefficients(
+            packed, quality, H, W, flip_horizontal, flip_vertical)
+        return jpegenc.coefficients_to_jpegs(
+            y, cb, cr, H, W, quality, [(width, height)])[0]
+
 
 @dataclass
 class ImageRegionServices:
@@ -75,6 +114,8 @@ class ImageRegionServices:
     renderer: Renderer
     lut_provider: object = None       # ops.lut.LutProvider
     max_tile_length: int = DEFAULT_MAX_TILE_LENGTH
+    # 0 sends every JPEG region down the device route.
+    jpeg_host_max_px: int = JPEG_HOST_MAX_PX
 
 
 class ImageRegionHandler:
@@ -86,6 +127,12 @@ class ImageRegionHandler:
     async def render_image_region(self, ctx: ImageRegionCtx) -> bytes:
         """``render_image_region`` / ``render_image``: the encoded bytes."""
         raw, settings = await self.read(ctx)
+        h, w = raw.shape[-2:]
+        if ctx.format == "jpeg" and h * w > self.s.jpeg_host_max_px:
+            quality = codecs.quality_percent(ctx.compression_quality)
+            return await self.s.renderer.render_jpeg(
+                raw, settings, quality, w, h, ctx.flip_horizontal,
+                ctx.flip_vertical)
         packed = await self.s.renderer.render(
             raw, settings, ctx.flip_horizontal, ctx.flip_vertical)
         return await asyncio.to_thread(self.encode, unpack_rgba(packed),

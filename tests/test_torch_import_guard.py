@@ -32,8 +32,9 @@ def test_port_imports_without_jax_or_the_jax_package():
     assert proc.returncode == 0, proc.stderr
     doc = json.loads(proc.stdout.strip().splitlines()[-1])
     # Every module of the slice was imported.
-    for mod in ("kernels.render", "ops.render", "ops.quantum", "ops.flip",
-                "ops.lut", "server.handler", "server.app",
+    for mod in ("kernels.build", "kernels.render", "kernels.jpeg",
+                "ops.render", "ops.quantum", "ops.flip", "ops.lut",
+                "ops.jpegenc", "native", "server.handler", "server.app",
                 "server.__main__", "io.store", "io.service",
                 "services.metadata", "codecs", "flagship"):
         assert f"omero_ms_image_region_tpu_torch.{mod}" in doc["imported"]

@@ -1,0 +1,427 @@
+"""Port JPEG route (plain PyTorch path) against the JAX package.
+
+The same numpy inputs, made from a seed, go through the JAX function and
+its port counterpart:
+
+* tables and cap rules: equal;
+* K3 ``packed_to_jpeg_coefficients``: within 1 of JAX on every
+  coefficient, at most 1e-4 of them off (XLA's einsum sums in another
+  order than the port's fixed one); the flip and edge-replication folding
+  against JAX ``pad_planes_to_mcu`` of the flipped tile;
+* K4a ``sparse_pack`` and K4b ``_compact_rows`` (with the row lengths of
+  ``render_to_jpeg_sparse_compact``): byte-exact, full buffers;
+* the native coder: the same JFIF bytes;
+* ``render_batch_to_jpeg``: the same JFIF bytes as the JAX sparse engine,
+  on the refimpl-golden content and on noise that forces the 2x cap retry
+  and the dense route.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+from omero_ms_image_region_tpu import native as jax_native
+from omero_ms_image_region_tpu.flagship import (
+    batched_args as jax_batched_args, flagship_settings as jax_flagship,
+    synthetic_wsi_tiles,
+)
+from omero_ms_image_region_tpu.ops import jpegenc as J
+from omero_ms_image_region_tpu_torch import native
+from omero_ms_image_region_tpu_torch.flagship import flagship_rdef
+from omero_ms_image_region_tpu_torch.kernels import build
+from omero_ms_image_region_tpu_torch.kernels import jpeg as kernels
+from omero_ms_image_region_tpu_torch.ops import jpegenc as P
+from omero_ms_image_region_tpu_torch.ops import render as port_render
+
+MISMATCH_SHARE = 1e-4
+_jax_sparse_pack = jax.jit(J.sparse_pack, static_argnames=("cap",))
+
+
+def _packed(rng, B, H, W):
+    """u32[B, H, W] RGBA: smooth blobs plus noise of a different strength
+    per tile (coefficients from dense to sparse)."""
+    yy, xx = np.mgrid[0:H, 0:W]
+    img = np.zeros((B, H, W, 3), np.float32)
+    for b in range(B):
+        for _ in range(6):
+            cy, cx = rng.integers(0, H), rng.integers(0, W)
+            s = rng.uniform(3, max(4, min(H, W) / 3))
+            img[b] += np.exp(-((yy - cy) ** 2 + (xx - cx) ** 2)
+                             / (2 * s * s))[..., None] * rng.uniform(0, 255, 3)
+        img[b] += rng.normal(0, 4 * b, (H, W, 3))
+    img = np.clip(img, 0, 255).astype(np.uint32)
+    return (img[..., 0] | (img[..., 1] << 8) | (img[..., 2] << 16)
+            | np.uint32(0xFF000000))
+
+
+def _t(a: np.ndarray) -> torch.Tensor:
+    a = np.ascontiguousarray(a)
+    if a.dtype == np.uint32:
+        a = a.view(np.int32)
+    return torch.from_numpy(a.copy())
+
+
+def _jax_coeffs(packed, q):
+    qy, qc = (t.astype(np.int32) for t in J.quant_tables(q))
+    return [np.asarray(a) for a in
+            J.packed_to_jpeg_coefficients(packed, qy, qc)]
+
+
+def _assert_within_one(got, want, label):
+    diffs = [np.abs(g.astype(np.int32) - w) for g, w in zip(got, want)]
+    n_off = sum(int((d > 0).sum()) for d in diffs)
+    n = sum(d.size for d in diffs)
+    print(f"{label}: {n_off} of {n} coefficients differ by 1 "
+          f"(share {n_off / n:.2e})")
+    assert max(int(d.max()) for d in diffs) <= 1
+    assert n_off <= MISMATCH_SHARE * n
+
+
+@pytest.fixture(autouse=True)
+def _clear_cap_memos():
+    J._CAP_MEMO.clear()
+    P._CAP_MEMO.clear()
+    yield
+    J._CAP_MEMO.clear()
+    P._CAP_MEMO.clear()
+
+
+# ----------------------------------------------------- tables and cap rules
+
+def test_tables_match_jax():
+    for q in range(1, 101):
+        for got, want in zip(P.quant_tables(q), J.quant_tables(q)):
+            np.testing.assert_array_equal(got, want)
+            assert got.dtype == want.dtype
+    np.testing.assert_array_equal(P.zigzag_order(), J.zigzag_order())
+    np.testing.assert_array_equal(P.dct_matrix(), J.dct_matrix())
+    assert P.ENTRY_BITS == J.ENTRY_BITS
+
+
+@pytest.mark.parametrize("H,W", [(16, 16), (30, 40), (1024, 1024),
+                                 (2048, 720)])
+def test_cap_rules_match_jax(H, W):
+    for q in (None, 50, 87, 88, 95):
+        assert P.default_sparse_cap(H, W, q) == J.default_sparse_cap(H, W, q)
+        assert P._quality_widen(q) == J._quality_widen(q)
+    assert P.max_sparse_cap(H, W) == J.max_sparse_cap(H, W)
+    for cap in (1, 77, P.default_sparse_cap(H, W)):
+        assert P.sparse_wire_width(H, W, cap) == J.sparse_wire_width(H, W, cap)
+    for total in (0, 1, 5, 999):
+        assert P.sparse_prefix_bytes(total, H, W) == \
+            J.sparse_prefix_bytes(total, H, W)
+    assert P.blocks_per_tile(H, W) * 64 == J.max_sparse_cap(
+        H + (-H) % 16, W + (-W) % 16)
+
+
+def test_wire_helpers_match_jax():
+    """row_header_i32, sparse_to_dense and slice_block_subgrid on a JAX
+    wire row (an unaligned slice, as compacted rows are)."""
+    rng = np.random.default_rng(5)
+    H, W = 32, 48
+    y, cb, cr = _jax_coeffs(_packed(rng, 1, H, W), 85)
+    wire = np.asarray(_jax_sparse_pack(y, cb, cr, cap=500))
+    row = np.concatenate([[7], wire[0]]).astype(np.uint8)[1:]
+    assert P.row_header_i32(row, 0) == J.row_header_i32(row, 0)
+    for cap in (500, 10):
+        got, want = P.sparse_to_dense(row, H, W, cap), \
+            J.sparse_to_dense(row, H, W, cap)
+        if want is None:
+            assert got is None
+            continue
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+        for g, w in zip(P.slice_block_subgrid(*got, H, W, 20, 12),
+                        J.slice_block_subgrid(*want, H, W, 20, 12)):
+            np.testing.assert_array_equal(g, w)
+
+
+# ------------------------------------------------------ K3: coefficients
+
+@pytest.mark.parametrize("q", [50, 85, 95])
+def test_coefficients_match_jax(q):
+    rng = np.random.default_rng(q)
+    packed = _packed(rng, 3, 64, 96)
+    got = [a.numpy() for a in
+           P.packed_to_jpeg_coefficients(_t(packed), q)]
+    want = _jax_coeffs(packed, q)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype
+    _assert_within_one(got, want, f"q{q}")
+
+
+@pytest.mark.parametrize("flip", ["", "h", "v", "hv"])
+def test_coefficients_fold_flip_and_edge_replication(flip):
+    """An unaligned 40x30 tile: the port reads the unflipped tile at
+    mirrored, clamped coordinates; JAX pads the flipped tile by edge
+    replication (``pad_planes_to_mcu``) and transforms that."""
+    rng = np.random.default_rng(11)
+    h, w = 30, 40
+    packed = _packed(rng, 1, h, w)[0]
+    flipped = packed[::-1] if "v" in flip else packed
+    flipped = flipped[:, ::-1] if "h" in flip else flipped
+    padded = J.pad_planes_to_mcu(np.ascontiguousarray(flipped)[None])
+    assert padded.shape == (1, 32, 48)
+    want = _jax_coeffs(padded, 85)
+    got = [a.numpy() for a in P.packed_to_jpeg_coefficients(
+        _t(packed[None]), 85, 32, 48, "h" in flip, "v" in flip)]
+    _assert_within_one(got, want, f"flip {flip!r}")
+
+
+def test_coefficients_on_a_larger_frame_replicate_the_edge():
+    """grid larger than the tile's ceil-16 frame (a bucketed batch)."""
+    rng = np.random.default_rng(12)
+    packed = _packed(rng, 2, 16, 16)
+    padded = np.pad(packed, ((0, 0), (0, 16), (0, 32)), mode="edge")
+    got = [a.numpy() for a in
+           P.packed_to_jpeg_coefficients(_t(packed), 85, 32, 48)]
+    _assert_within_one(got, _jax_coeffs(padded, 85), "larger frame")
+    with pytest.raises(ValueError, match="grid"):
+        P.packed_to_jpeg_coefficients(_t(packed), 85, 8, 16)
+
+
+# ------------------------------------------------------- K4a, K4b: wire
+
+def _coeff_case():
+    rng = np.random.default_rng(21)
+    return _jax_coeffs(_packed(rng, 3, 32, 48), 85)
+
+
+@pytest.mark.parametrize("cap", [2000, 400, 1])
+def test_sparse_pack_matches_jax(cap):
+    """Full wire buffers, zero tail included; cap 400 overflows the
+    noisiest tile, cap 1 every tile."""
+    y, cb, cr = _coeff_case()
+    want = np.asarray(_jax_sparse_pack(y, cb, cr, cap=cap))
+    got = P.sparse_pack(_t(y), _t(cb), _t(cr), cap).numpy()
+    assert got.dtype == np.uint8 and got.shape == want.shape
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("n_valid", [3, 2, 0])
+def test_compact_rows_match_jax(n_valid):
+    """Row lengths as ``render_to_jpeg_sparse_compact`` takes them (an
+    overflowing row keeps header and counts only; rows past n_valid
+    none), then ``_compact_rows``: the full buffers agree."""
+    y, cb, cr = _coeff_case()
+    cap = 400
+    wire = np.asarray(_jax_sparse_pack(y, cb, cr, cap=cap))
+    nb = P.blocks_per_tile(32, 48)
+    total = wire[:, :4].copy().view(np.int32).ravel()
+    assert (total > cap).any() and (total <= cap).any()
+    used = 4 + nb + (18 * np.minimum(total, cap) + 7) // 8
+    lengths = np.where(total <= cap, used, 4 + nb)
+    lengths = np.where(np.arange(3) < n_valid, lengths, 0).astype(np.int32)
+    np.testing.assert_array_equal(
+        P.sparse_row_lengths(_t(wire), n_valid, cap, nb).numpy(), lengths)
+    want = np.asarray(J._compact_rows(wire, lengths))
+    got = P.compact_sparse_rows(_t(wire), n_valid, cap, nb).numpy()
+    np.testing.assert_array_equal(got, want)
+    rows = P.fetch_rows(torch.from_numpy(got), 3)
+    assert [len(r) for r in rows] == list(lengths)
+
+
+def test_device_program_matches_jax_render_to_jpeg_sparse_compact():
+    """The whole device half: raw + settings -> compacted wire, the port's
+    K1 -> K3 -> K4a -> K4b against JAX ``render_to_jpeg_sparse_compact``."""
+    rng = np.random.default_rng(3)
+    _, settings = jax_flagship(2)
+    raw = synthetic_wsi_tiles(rng, 3, 2, 32, 32)
+    args = jax_batched_args(settings, raw)
+    q, cap, n_valid = 85, 300, 2
+    qy, qc = (np.asarray(t, np.int32) for t in J.quant_tables(q))
+    want = np.asarray(J.render_to_jpeg_sparse_compact(
+        *args, qy, qc, np.int32(n_valid), cap=cap))
+    s = port_render.settings_to_tensors(
+        port_render.pack_settings(flagship_rdef(2)), "cpu")
+    packed = port_render.render_tile_batch_packed(
+        port_render.raw_to_tensor(raw, "cpu"),
+        *port_render.batched_settings(s, 3))
+    y, cb, cr = P.packed_to_jpeg_coefficients(packed, q)
+    wire = P.sparse_pack(y, cb, cr, cap)
+    got = P.compact_sparse_rows(wire, n_valid, cap,
+                                P.blocks_per_tile(32, 32)).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+# ------------------------------------------------------------ native coder
+
+@pytest.mark.parametrize("q", [50, 90])
+def test_native_coder_matches_jax(q):
+    """Dense and sparse entry points, exact and unaligned true sizes, and
+    the overflow signal."""
+    rng = np.random.default_rng(q)
+    y, cb, cr = _jax_coeffs(_packed(rng, 2, 32, 48), q)
+    for i in range(2):
+        for w, h in ((48, 32), (41, 27)):
+            assert native.jpeg_encode(y[i], cb[i], cr[i], w, h, q) == \
+                jax_native.jpeg_encode_native(y[i], cb[i], cr[i], w, h, q)
+    wire = np.asarray(_jax_sparse_pack(y, cb, cr, cap=2000))
+    for i in range(2):
+        assert native.jpeg_encode_sparse(wire[i], 48, 32, q, 2000) == \
+            jax_native.jpeg_encode_sparse_native(wire[i], 48, 32, q, 2000)
+    with pytest.raises(native.SparseOverflowError):
+        native.jpeg_encode_sparse(wire[1], 48, 32, q, 1)
+    with pytest.raises(ValueError, match="do not match"):
+        native.jpeg_encode(y[0], cb[0], cr[0], 64, 64, q)
+
+
+def test_native_build_failure_raises(monkeypatch, tmp_path):
+    bad = tmp_path / "jpegenc.cpp"
+    bad.write_text("this is not C++\n")
+    monkeypatch.setattr(native, "SOURCE", bad)
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "_build")
+    with pytest.raises(RuntimeError, match="g\\+\\+ failed"):
+        native.build()
+
+
+# ------------------------------------------------- render_batch_to_jpeg
+
+def _port_args(raw: np.ndarray, rdef):
+    s = port_render.settings_to_tensors(port_render.pack_settings(rdef),
+                                        "cpu")
+    return (port_render.raw_to_tensor(raw, "cpu"),
+            *port_render.batched_settings(s, raw.shape[0]))
+
+
+def test_render_batch_to_jpeg_matches_jax_on_golden_content():
+    """The content of the JAX package's TestFusedPathsMatchRefimplGolden
+    (tests/test_jpeg.py:948): soft blobs within the default cap."""
+    B, C, H, W, q = 3, 2, 32, 32, 85
+    rdef, settings = jax_flagship(C)
+    raw = (synthetic_wsi_tiles(np.random.default_rng(42), B, C, H, W)
+           .astype(np.float32) / 8.0 + 15000.0)
+    dims = [(W, H)] * B
+    want = J.render_batch_to_jpeg(*jax_batched_args(settings, raw),
+                                  quality=q, dims=dims, engine="sparse")
+    got = P.render_batch_to_jpeg(*_port_args(raw, flagship_rdef(C)),
+                                 quality=q, dims=dims)
+    assert got == want
+    assert P._CAP_MEMO == J._CAP_MEMO == {}
+
+
+def test_render_batch_to_jpeg_matches_jax_on_retry_and_dense_route():
+    """Noise tiles: one under the cap, one between it and twice it (the
+    one-shot 2x retry), one over twice it (the per-tile dense route); an
+    unaligned true size (block subgrid) and a padding row past dims."""
+    C, H, W, q = 2, 32, 32, 85
+    rng = np.random.default_rng(7)
+    raw = np.concatenate([
+        15000 + rng.normal(0, amp, (1, C, H, W)) for amp in
+        (500, 1000, 4000, 300)]).astype(np.float32)
+    _, settings = jax_flagship(C)
+    dims = [(20, 12), (W, H), (W, H)]
+    cap = J.default_sparse_cap(H, W, q)
+    want = J.render_batch_to_jpeg(*jax_batched_args(settings, raw),
+                                  quality=q, dims=dims, engine="sparse")
+    assert J._CAP_MEMO == {("sparse", H, W, q): True}
+    got = P.render_batch_to_jpeg(*_port_args(raw, flagship_rdef(C)),
+                                 quality=q, dims=dims)
+    assert got == want
+    assert P._CAP_MEMO == J._CAP_MEMO
+    # The memo now starts the workload at the doubled cap, in both.
+    assert P.render_batch_to_jpeg(*_port_args(raw, flagship_rdef(C)),
+                                  quality=q, dims=dims) == want
+    rows = P.wire_rows(*P.packed_to_jpeg_coefficients(
+        port_render.render_tile_batch_packed(
+            *_port_args(raw, flagship_rdef(C))), q), 2 * cap, 3)
+    totals = [P.row_header_i32(r, 0) for r in rows]
+    assert totals[0] <= cap < totals[1] <= 2 * cap < totals[2]
+
+
+def test_render_batch_to_jpeg_refuses_unaligned_frames():
+    raw = np.zeros((1, 2, 20, 32), np.float32)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        P.render_batch_to_jpeg(*_port_args(raw, flagship_rdef(2)),
+                               quality=85, dims=[(32, 20)])
+
+
+# ------------------------------------------------------------- kernels
+
+def test_kernel_wrappers_refuse_cpu_tensors():
+    """A kernel wrapper launches on CUDA or raises; it never falls back."""
+    before = dict(kernels.LAUNCHES)
+    packed = torch.zeros((1, 16, 16), dtype=torch.int32)
+    coeffs = torch.zeros((1, 4, 64), dtype=torch.int16)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.jpeg_coefficients(packed, torch.zeros(256), 16, 16)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.sparse_pack(coeffs, coeffs[:, :1], coeffs[:, :1], 10)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.compact_rows(torch.zeros((1, 40), dtype=torch.uint8), 1, 10,
+                             6)
+    assert kernels.LAUNCHES == before
+
+
+def test_kernel_build_needs_nvcc(monkeypatch):
+    monkeypatch.setenv("PATH", "/nonexistent")
+    monkeypatch.setenv("CUDA_HOME", "/nonexistent")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        build.nvcc()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8, 64, 96), (1, 30, 40)])
+def test_jpeg_kernels_match_plain_on_the_card(shape):
+    """On a CUDA card: K3 exact (with flips and an unaligned tile), K4a
+    and K4b byte for byte, against their plain versions."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run on the GPU machine)")
+    B, h, w = shape
+    dev = torch.device("cuda")
+    packed = _t(_packed(np.random.default_rng(1), B, h, w))
+    gh, gw = h + (-h) % 16, w + (-w) % 16
+    for flip in ((False, False), (True, True)):
+        got = P.packed_to_jpeg_coefficients(packed.to(dev), 90, gh, gw,
+                                            *flip)
+        want = P.packed_to_jpeg_coefficients_plain(packed.to(dev), 90, gh,
+                                                   gw, *flip)
+        for g, wt in zip(got, want):
+            assert torch.equal(g, wt)
+    y, cb, cr = got
+    nb = P.blocks_per_tile(gh, gw)
+    for cap in (P.default_sparse_cap(gh, gw, 90), 5):
+        wire = P.sparse_pack(y, cb, cr, cap)
+        assert torch.equal(wire, P.sparse_pack_plain(y, cb, cr, cap))
+        for n_valid in (B, B - 1):
+            assert torch.equal(
+                P.compact_sparse_rows(wire, n_valid, cap, nb),
+                P.compact_rows_plain(
+                    wire, P.sparse_row_lengths(wire, n_valid, cap, nb)))
+
+
+def _f32_nearest(v):
+    """The float32 nearest the exact rational ``v``, ties to even."""
+    from fractions import Fraction
+
+    f = np.float32(float(v))
+    cands = [f, np.nextafter(f, np.float32(np.inf)),
+             np.nextafter(f, np.float32(-np.inf))]
+    best = min(abs(Fraction(float(c)) - v) for c in cands)
+    ties = [c for c in cands if abs(Fraction(float(c)) - v) == best]
+    return min(ties, key=lambda c: int(np.float32(c).view(np.int32)) & 1)
+
+
+def test_fma_is_correctly_rounded():
+    """``ops.jpegenc.fma`` (the plain version's stand-in for the kernel's
+    __fmaf_rn) against the exact a*b + c rounded to float32, including
+    cancellations and operands far apart in magnitude."""
+    from fractions import Fraction
+
+    rng = np.random.default_rng(8)
+    n = 3000
+    a = (rng.standard_normal(n) * 2.0 ** rng.integers(-20, 20, n)).astype(
+        np.float32)
+    b = (rng.standard_normal(n) * 2.0 ** rng.integers(-20, 20, n)).astype(
+        np.float32)
+    c = (rng.standard_normal(n) * 2.0 ** rng.integers(-50, 50, n)).astype(
+        np.float32)
+    c[:n // 2] = (-(a[:n // 2].astype(np.float64) * b[:n // 2])
+                  * (1 + rng.standard_normal(n // 2) * 1e-7)).astype(
+        np.float32)
+    got = P.fma(_t(a), _t(b), _t(c)).numpy()
+    want = np.array([_f32_nearest(Fraction(float(x)) * Fraction(float(y))
+                                  + Fraction(float(z)))
+                     for x, y, z in zip(a, b, c)], np.float32)
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))

@@ -246,3 +246,55 @@ def test_kernels_match_plain_on_the_card(tables):
     diff = (got.cpu().numpy().view(np.uint8).astype(int)
             - want.cpu().numpy().view(np.uint8).astype(int))
     assert np.abs(diff).max() <= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 4, 37, 45), (1, 3, 1, 7),
+                                   (3, 9, 16, 24)])
+def test_ramp_kernel_ragged_unaligned_and_many_channels_on_the_card(shape):
+    """On a CUDA card: the ramp kernel's scalar path (hw % 8 != 0, and a
+    base that is not 16-byte aligned) and more channels than one load
+    chunk holds, against the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run on the GPU machine)")
+    rng = np.random.default_rng(6)
+    B, C, H, W = shape
+    dev = torch.device("cuda")
+    flat = port_render.raw_to_tensor(_raw(rng, 1, 1, 1, B * C * H * W + 1),
+                                     dev).reshape(-1)
+    ws = torch.tensor(rng.uniform(0, 20000, (B, C)), dtype=torch.float32)
+    args = [ws, ws + 30000, (torch.arange(C) % 4).repeat(B, 1).int(),
+            torch.full((B, C), 0.7), torch.zeros((B, C)).int()]
+    args = [a.to(dev) for a in args] + [0, 255, torch.tensor(
+        rng.uniform(0, 0.5, (B, C, 3)), dtype=torch.float32, device=dev)]
+    for raw in (flat[:-1].view(B, C, H, W), flat[1:].view(B, C, H, W)):
+        got = port_render.render_tile_batch_packed(raw, *args)
+        want = port_render.render_tile_batch_packed_plain(raw, *args)
+        diff = (got.cpu().numpy().view(np.uint8).astype(int)
+                - want.cpu().numpy().view(np.uint8).astype(int))
+        assert np.abs(diff).max() <= 1
+
+
+def test_reciprocal_division_is_correctly_rounded():
+    """The ramp kernel's divide(): with inv = RN(1/den), q = RN(a inv)
+    and one fused correction give IEEE a / den.  Checked here on the same
+    operation sequence (``ops.jpegenc.fma`` is a correctly rounded FMA)
+    for integer windows, wide exponents and all-ones significands."""
+    from omero_ms_image_region_tpu_torch.ops.jpegenc import fma
+
+    rng = np.random.default_rng(10)
+    n = 400_000
+    den = np.concatenate([
+        rng.integers(1, 65536, n).astype(np.float32),
+        ((rng.random(n) + 1) * 2.0 ** rng.integers(-40, 40, n)).astype(
+            np.float32),
+        ((2 ** 24 - 1 - rng.integers(0, 64, n))
+         * 2.0 ** (rng.integers(-60, 20, n) - 23)).astype(np.float32)])
+    a = ((rng.random(3 * n) * 2 - 1) * den).astype(np.float32)
+    a[:n] = np.floor(a[:n] * np.sign(a[:n])).astype(np.float32)
+    inv = (np.float32(1) / den).astype(np.float32)
+    q = torch.from_numpy(a * inv)
+    a_t, den_t, inv_t = (torch.from_numpy(x) for x in (a, den, inv))
+    got = fma(fma(-q, den_t, a_t), inv_t, q).numpy()
+    want = (a / den).astype(np.float32)
+    np.testing.assert_array_equal(got, want)

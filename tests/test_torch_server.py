@@ -1,9 +1,12 @@
 """Port handler and app against the JAX handler, over one pyramid written
 by the JAX package's ``io.store.build_pyramid``.
 
-png / tif: identical bytes.  jpeg: the port encodes the device RGBA with
-PIL (the device JPEG front end is not ported yet), so its bytes equal
-``codecs.encode_rgba(jax_rgba, "jpeg", q)`` of the JAX render's pixels.
+png / tif: identical bytes.  jpeg above ``jpeg_host_max_px``: the device
+route's bytes equal the JAX handler's device-route bytes (its
+``cpu_fallback_max_px=0``).  jpeg at or below it (the default 256^2, which
+every tile here is): the port encodes the device RGBA with PIL, the JAX
+tiny path's bytes, so they equal ``codecs.encode_rgba(jax_rgba, "jpeg",
+q)`` of the JAX render's pixels.
 """
 
 import asyncio
@@ -13,10 +16,12 @@ import numpy as np
 import pytest
 
 from omero_ms_image_region_tpu import codecs as jax_codecs
+from omero_ms_image_region_tpu.flagship import synthetic_wsi_tiles
 from omero_ms_image_region_tpu.io.service import PixelsService as JaxPixels
 from omero_ms_image_region_tpu.io.store import (
     ChunkedPyramidStore as JaxStore, build_pyramid as jax_build_pyramid,
 )
+from omero_ms_image_region_tpu.ops import jpegenc as jax_jpegenc
 from omero_ms_image_region_tpu.ops.lut import LutProvider as JaxLuts
 from omero_ms_image_region_tpu.server.ctx import (
     ImageRegionCtx as JaxCtx,
@@ -30,6 +35,7 @@ from omero_ms_image_region_tpu.services.metadata import (
     CanReadMemo, LocalMetadataService as JaxMetadata,
 )
 from omero_ms_image_region_tpu_torch import codecs
+from omero_ms_image_region_tpu_torch.ops import jpegenc
 from omero_ms_image_region_tpu_torch.io.store import (
     ChunkedPyramidStore, build_pyramid,
 )
@@ -44,6 +50,7 @@ from omero_ms_image_region_tpu_torch.server.region import RegionDef
 
 IMG = 7
 PRIVATE = 8
+SMOOTH = 9          # blob content: JPEG tiles that fit the sparse wire
 H, W = 48, 64
 LUT = np.random.default_rng(9).integers(0, 256, (256, 3)).astype(np.uint8)
 
@@ -57,6 +64,9 @@ def dirs(tmp_path_factory):
                       n_levels=2)
     jax_build_pyramid(planes[:, :1], str(root / str(PRIVATE)),
                       chunk=(32, 32), n_levels=1)
+    smooth = synthetic_wsi_tiles(np.random.default_rng(4), 2, 2, H, W)
+    jax_build_pyramid(smooth.transpose(1, 0, 2, 3).copy(),
+                      str(root / str(SMOOTH)), chunk=(32, 32), n_levels=2)
     (root / str(PRIVATE) / "acl.json").write_text(
         json.dumps({"sessions": ["someone"]}))
     luts = tmp_path_factory.mktemp("luts")
@@ -77,6 +87,12 @@ def handlers(dirs):
         cpu_fallback_max_px=0,
     ))
     return jax, build_handler(data_dir, lut_root, device="cpu")
+
+
+@pytest.fixture(scope="module")
+def device_jpeg_handler(dirs):
+    """The port handler with every JPEG region on the device route."""
+    return build_handler(*dirs, device="cpu", jpeg_host_max_px=0)
 
 
 def run(coro, timeout=60):
@@ -129,6 +145,37 @@ def test_handler_jpeg_is_pil_encode_of_the_jax_pixels(handlers, q):
     got = run(port.render_image_region(ImageRegionCtx.from_params(params)))
     assert got == jax_codecs.encode_rgba(
         jax_rgba, "jpeg", None if q is None else float(q))
+
+
+JPEG_CASES = {
+    "tile": {"tile": "0,1,0,32,32"},
+    "edge_tile": {"tile": "0,1,1,48,32"},
+    "region": {"region": "5,7,40,30"},
+    "flip_h": {"region": "5,7,40,30", "flip": "h"},
+    "flip_v": {"tile": "0,1,0,32,32", "flip": "v"},
+    "flip_hv": {"region": "3,2,37,45", "flip": "hv"},
+    # Uniform noise overflows twice the wire cap: the dense route.
+    "noise_tile": {"tile": "0,0,0,32,32", "imageId": str(IMG)},
+}
+
+
+@pytest.mark.parametrize("q", [None, "0.5", "0.9"])
+@pytest.mark.parametrize("case", sorted(JPEG_CASES))
+def test_handler_jpeg_matches_jax(handlers, device_jpeg_handler, case, q):
+    """The device JPEG route: the JAX handler's bytes (render, coefficient
+    front end, sparse wire, native coder), flips and edge MCUs included."""
+    jax, _ = handlers
+    params = _params(format="jpeg", imageId=str(SMOOTH))
+    params.update(JPEG_CASES[case])
+    if q is not None:
+        params["q"] = q
+    jax_jpegenc._CAP_MEMO.clear()
+    jpegenc._CAP_MEMO.clear()
+    want = run(jax.render_image_region(JaxCtx.from_params(params)))
+    got = run(device_jpeg_handler.render_image_region(
+        ImageRegionCtx.from_params(params)))
+    assert got[:2] == b"\xff\xd8" and got == want
+    assert jpegenc._CAP_MEMO == jax_jpegenc._CAP_MEMO
 
 
 def test_handler_errors(handlers):
