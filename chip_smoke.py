@@ -13,23 +13,31 @@ Phases (any failure ends the run with a non-zero exit and no result line):
            kernel's ptxas register and shared-memory lines;
 3. kernels each kernel against its plain PyTorch version at the flagship
            shape B=8, C=4, 1024x1024 uint16 (and at the served shape B=1):
-           K1 render_ramp with linear settings (exact), with all four
-           families and a reversed channel (<= 1 per byte) and on a ragged
-           tile; K2 render_lut with a LUT table (<= 1); K3
+           K1 render_ramp with linear settings (exact) and with all four
+           families and a reversed channel (<= 1 per byte); K2 render_lut
+           with a LUT channel (<= 1), and with the four families, a
+           reversed channel and a LUT channel (<= 1); both on a ragged
+           37x45 tile and on a base that is not 16-byte aligned; K3
            jpeg_coefficients exactly (mismatch count printed), K4a
-           sparse_pack and K4b compact_rows byte for byte, at q 85 and 90.
+           sparse_pack and K4b compact_rows byte for byte, at q 85 and 90
+           and B=8, 3 and 1 (K4a also at cap 1000, on an all-zero tile, on
+           a B=3 batch with a zero tile in it and on one tile of four
+           tiles' blocks).
            Each gets the median device time of 25 launches (CUDA events,
            the L2 flushed before each, a GPU sleep ahead of the timed span
-           so the host's enqueue is not in it), the plain version's time,
-           and the bound from the bytes moved and the operations done;
+           so the host's enqueue is not in it), the device time of each of
+           its launches and memsets (torch.profiler, L2 warm), the plain
+           version's time, and the bound from the bytes moved and the
+           operations done;
 4. serve   an 8192^2 4-channel uint16 pyramid through the port's aiohttp app
-           on 127.0.0.1: 10 GETs (resolution 0 and 1, greyscale, a reversed
-           channel, a LUT channel, a flip, png, a render_image region, JPEG
-           at q 0.9 and at the default quality on the device route, and one
-           256^2 JPEG on the host route), each checked against the plain
-           route on the same read: png pixels exactly; device-route JPEG
-           bytes against plain K1 -> plain K3 -> plain K4 -> the same
-           native coder; the 256^2 JPEG against PIL over the plain pixels.
+           on 127.0.0.1: 11 GETs (resolution 0 and 1, greyscale, a reversed
+           channel, a LUT channel as png and as a device-route JPEG, a
+           flip, png, a render_image region, JPEG at q 0.9 and at the
+           default quality on the device route, and one 256^2 JPEG on the
+           host route), each checked against the plain route on the same
+           read: png pixels exactly; device-route JPEG bytes against plain
+           K1/K2 -> plain K3 -> plain K4 -> the same native coder; the
+           256^2 JPEG against PIL over the plain pixels.
            Every kernel's launch counter must rise.  Then end-to-end timing
            (sequential p50, tiles/s at 8 in flight), one tile's layer
            breakdown, the device busy share of a sequential run
@@ -108,6 +116,23 @@ def time_ms(torch, fn, reps: int, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def device_split(torch, fn, calls: int = 10) -> dict:
+    """Device microseconds per call of each kernel and memset that ``fn``
+    launches (torch.profiler, L2 warm): what a kernel's time is made of
+    when it is more than one launch."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key.replace("(anonymous namespace)::", "").split("(")[0]
+            .strip(): e.self_device_time_total / calls
+            for e in prof.key_averages() if e.self_device_time_total > 0}
+
+
 def bytes_bound(n_bytes: float, ops: float = 0.0):
     """Least time for ``n_bytes`` moved and ``ops`` f32 operations."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
@@ -161,6 +186,12 @@ def kernel_phase(torch, np):
     luts.add("smoke.lut", smoke_lut(np))
     lut = flagship_rdef(4)
     lut.channel_bindings[1].lut = "smoke.lut"
+    lut_families = flagship_rdef(4)
+    for cb, src in zip(lut_families.channel_bindings,
+                       families.channel_bindings):
+        cb.family, cb.coefficient = src.family, src.coefficient
+        cb.reverse_intensity = src.reverse_intensity
+    lut_families.channel_bindings[2].lut = "smoke.lut"
 
     def args_for(rdef, B, provider=None):
         s = R.settings_to_tensors(R.pack_settings(rdef, provider), dev)
@@ -169,7 +200,8 @@ def kernel_phase(torch, np):
     # (kernel, check name, settings, tolerance)
     checks = [("render_ramp", "linear", linear, None, 0),
               ("render_ramp", "families_reversed", families, None, 1),
-              ("render_lut", "lut", lut, luts, 1)]
+              ("render_lut", "lut", lut, luts, 1),
+              ("render_lut", "lut_families_reversed", lut_families, luts, 1)]
     entries = {}
     for kernel, label, rdef, provider, tol in checks:
         for B in (8, 1):
@@ -208,24 +240,31 @@ def kernel_phase(torch, np):
                 e[key + "plain_ms"] = time_ms(
                     torch,
                     lambda: R.render_tile_batch_packed_plain(raw, *args), 5)
+                e[key + "device_us"] = device_split(
+                    torch, lambda: R.render_tile_batch_packed(raw, *args))
                 e[key + "bound_ms"], e[key + "bound_by"] = bound(
                     raw, args[-1])
                 e[key + "bound_us"] = e[key + "bound_ms"] * 1e3
                 e[key + "shape"] = list(raw.shape)
-    # The redesigned K1 on a ragged tile (hw % 8 != 0) and a base that is
-    # not 16-byte aligned: its scalar path.
+    # K1 and K2 on a ragged tile (hw % 8 != 0) and a base that is not
+    # 16-byte aligned: their scalar paths.
     unaligned = raw8[1].reshape(-1)[1:1 + 4 * 64 * 64].view(1, 4, 64, 64)
-    for label, raw in (("ragged 37x45", R.raw_to_tensor(
-            synthetic_wsi_tiles(rng, 2, 4, 37, 45), dev)),
-            ("unaligned base", unaligned)):
-        args = args_for(families, raw.shape[0])
-        got = R.render_tile_batch_packed(raw, *args)
-        want = R.render_tile_batch_packed_plain(raw, *args)
-        err, mism = byte_diff(got, want)
-        print(f"check render_ramp {label} {list(raw.shape)}: max_abs_diff "
-              f"{err} mismatched_px {mism} (tolerance 1)", flush=True)
-        check(err <= 1, f"render_ramp {label} disagrees with its plain "
-                        f"version: max |diff| {err}")
+    ragged = R.raw_to_tensor(synthetic_wsi_tiles(rng, 2, 4, 37, 45), dev)
+    for kernel, rdef, provider in (("render_ramp", families, None),
+                                   ("render_lut", lut_families, luts)):
+        for label, raw in (("ragged 37x45", ragged),
+                           ("unaligned base", unaligned)):
+            args = args_for(rdef, raw.shape[0], provider)
+            got = R.render_tile_batch_packed(raw, *args)
+            want = R.render_tile_batch_packed_plain(raw, *args)
+            err, mism = byte_diff(got, want)
+            print(f"check {kernel} {label} {list(raw.shape)}: max_abs_diff "
+                  f"{err} mismatched_px {mism} (tolerance 1)", flush=True)
+            check(err <= 1, f"{kernel} {label} disagrees with its plain "
+                            f"version: max |diff| {err}")
+            e = entries[kernel]
+            e["max_abs_err"] = e["max_abs_diff"] = max(e["max_abs_err"], err)
+            e["mismatched_px"] += mism
     for e in entries.values():
         e["library_ms"] = None    # no single PyTorch call computes this
         e["library_note"] = "no single PyTorch call computes the render"
@@ -251,7 +290,7 @@ def jpeg_kernel_phase(torch, np, raw8, args8):
                                   ("sparse_pack", "191"),
                                   ("compact_rows", "400"))}
     packed8 = R.render_tile_batch_packed(raw8, *args8)
-    for B in (8, 1):
+    for B in (8, 3, 1):
         packed = packed8[:B].contiguous()
         _, H, W = packed.shape
         nb = J.blocks_per_tile(H, W)
@@ -272,10 +311,31 @@ def jpeg_kernel_phase(torch, np, raw8, args8):
             lengths = J.sparse_row_lengths(wire, B, cap, nb)
             comp_plain = J.compact_rows_plain(wire, lengths)
             comp_diff = int((comp != comp_plain).sum())
-            # A padding row (n_valid < B) and an overflowing cap too.
+            # A padding row (n_valid < B) and an overflowing cap too; at
+            # B=3 the middle tile's coefficients zeroed (a batch of mixed
+            # density) and an all-zero tile alone.
             small = J.sparse_pack(y, cb, cr, 1000)
             small_diff = int((small != J.sparse_pack_plain(
                 y, cb, cr, 1000)).sum())
+            extra = []
+            if B == 3:
+                mixed = [t.clone() for t in got]
+                for t in mixed:
+                    t[1].zero_()
+                extra = [("mixed B=3", mixed, cap),
+                         ("all-zero", [t[1:2].contiguous() for t in mixed],
+                          cap)]
+            if B == 8:
+                # Four tiles' blocks as one tile of 768 partitions: three
+                # steps of K4a's lookback.
+                extra = [("wide tile", [t.reshape(2, -1, 64) for t in got],
+                          4 * cap)]
+            for label, c, cap_x in extra:
+                d = int((J.sparse_pack(*c, cap_x)
+                         != J.sparse_pack_plain(*c, cap_x)).sum())
+                print(f"check sparse_pack {label} {list(c[0].shape)} q{q}: "
+                      f"differing bytes {d} (cap {cap_x})", flush=True)
+                small_diff += d
             nv = max(B - 1, 0)
             pad_diff = int((J.compact_sparse_rows(wire, nv, cap, nb)
                             != J.compact_rows_plain(wire, J.sparse_row_lengths(
@@ -301,7 +361,7 @@ def jpeg_kernel_phase(torch, np, raw8, args8):
                 entries[name]["mismatches"] += diff
                 entries[name]["max_abs_err"] = max(
                     entries[name]["max_abs_err"], 255 if diff else 0)
-            if q != QUALITIES[0]:
+            if q != QUALITIES[0] or B == 3:
                 continue
             # Timed at q 85, the default quality's neighbour the flagship
             # serves (codecs.DEFAULT_JPEG_QUALITY).
@@ -332,6 +392,7 @@ def jpeg_kernel_phase(torch, np, raw8, args8):
                 e = entries[name]
                 e[key + "ms"] = time_ms(torch, fn, 25)
                 e[key + "plain_ms"] = time_ms(torch, plain, 5)
+                e[key + "device_us"] = device_split(torch, fn)
                 e[key + "bound_ms"], e[key + "bound_by"] = bytes_bound(
                     n_bytes, ops)
                 e[key + "bound_bytes"] = n_bytes
@@ -385,7 +446,7 @@ CH = "1|100:40000$FF0000,2|100:40000$00FF00,3|100:40000$0000FF," \
 
 
 def requests_for(tile: int):
-    """The 10 checked requests: tiles of ``tile`` pixels on a plane of
+    """The 11 checked requests: tiles of ``tile`` pixels on a plane of
     8 tiles a side, and one 256^2 tile."""
     def t(res, x, y):
         return f"{res},{x},{y},{tile},{tile}"
@@ -408,6 +469,9 @@ def requests_for(tile: int):
                                  "format": "jpeg", "q": "0.9"}),
         ("render_image_region", {"tile": t(0, 2, 5), "c": CH, "m": "c",
                                  "format": "jpeg", "flip": "h"}),
+        ("render_image_region", {
+            "tile": t(0, 4, 6), "m": "c", "format": "jpeg",
+            "c": CH.replace("$00FF00", "$smoke.lut")}),
         ("render_image_region", {"tile": "0,9,9,256,256", "c": CH, "m": "c",
                                  "format": "jpeg"}),
         ("render_image", {
@@ -424,8 +488,8 @@ def free_port() -> int:
 
 
 def plain_jpeg(torch, ctx, raw, settings) -> bytes:
-    """The device JPEG route with every stage's plain version: plain K1
-    and plain K3 on the card, plain K4a/K4b (on host tensors), the same
+    """The device JPEG route with every stage's plain version: plain K1 or
+    K2 and plain K3 on the card, plain K4a/K4b (on host tensors), the same
     native coder."""
     from omero_ms_image_region_tpu_torch import codecs
     from omero_ms_image_region_tpu_torch.ops import jpegenc as J

@@ -17,13 +17,21 @@
 //   sparse_pack (K4a) replaces sparse_pack (:191).  Per tile the wire
 //       [total i32 LE | counts u8[nb] | 18-bit MSB-first entries
 //       pos << 12 | val & 0xFFF], entries past `cap` dropped, the unused
-//       stream bytes zero.  A scan-and-scatter in four launches: a warp
-//       per 64-coefficient block counts its nonzeros with __ballot_sync /
-//       __popc; one block per tile scans the counts into offsets and the
-//       total; a warp per block scatters its entries by in-block rank into
-//       an i32[cap] scratch; a byte pass assembles the stream exactly as
-//       :246-257 does.  Bound: bytes, the coefficients read and the wire
-//       written.
+//       stream bytes zero.  One memset of the wire and a few KB of
+//       status words, then one launch that counts, scans and writes in a
+//       single pass: block x takes partition x of 128 coefficient blocks
+//       (blocks start in index order, as CUB's single-pass scan assumes,
+//       so every partition a block waits on is running or done), reads
+//       them with 16-byte loads, writes their u8 counts, scans them,
+//       publishes their count and last entry, and expands their nonzeros
+//       into the partition's entries in shared memory (a rank by popcount
+//       over the 8 lanes of a block).  A single-pass chained scan with
+//       decoupled lookback gives it the entries before it in the tile and
+//       the field of the last of them; then it writes the stream bytes
+//       whose last bit lies in its kept entries, by 16-byte runs with one
+//       16-byte store where the row's alignment allows.  The stream past the kept entries keeps
+//       the memset's zeros; the tile's last partition writes the total.
+//       Bound: bytes, the coefficients read and the wire written.
 //   compact_rows (K4b) replaces _compact_rows (:400) with the row lengths
 //       of :457-464 (n_valid masking).  One thread reads each row's header
 //       on the card and scans the B lengths; then one grid row per wire row
@@ -55,8 +63,13 @@ namespace {
 
 constexpr int kWarps = 8;              // K3: MCUs (warps) per block
 constexpr int kThreads = 256;
-constexpr int kScanThreads = 1024;     // K4a scan: one block per tile
 constexpr int kEntryBits = 18;
+constexpr int kPackThreads = 256;      // K4a
+constexpr int kPartBlocks = 128;       // K4a: coefficient blocks a partition
+// K4a status words (status_word below), 0 until published.
+constexpr unsigned long long kAggregate = 1ull << 62;
+constexpr unsigned long long kInclusive = 2ull << 62;
+constexpr unsigned long long kHasField = 1ull << 61;
 
 // K3's tables, f32[256] on the card: D[u][x] (64), the luma and chroma
 // quant tables in natural order (64 each), and each natural index's zigzag
@@ -184,11 +197,13 @@ jpeg_coefficients_kernel(const int32_t* __restrict__ packed, int B, int h,
   }
 }
 
-// The i16 coefficient pair (2 * lane, 2 * lane + 1) of flat block `blk` of
-// tile b, blocks ordered luma, Cb, Cr.
-__device__ __forceinline__ uint32_t coeff_pair(
-    const int16_t* y, const int16_t* cb, const int16_t* cr, int b,
-    long long blk, long long nby, long long nbc, int lane) {
+// Coefficients 8 * part .. 8 * part + 7 of flat block `blk` of tile b,
+// blocks ordered luma, Cb, Cr; one 16-byte load when `vec` (16-byte
+// aligned bases).
+__device__ __forceinline__ uint4 coeff8(const int16_t* y, const int16_t* cb,
+                                        const int16_t* cr, int b,
+                                        long long blk, long long nby,
+                                        long long nbc, int part, int vec) {
   const int16_t* base;
   if (blk < nby) {
     base = y + (static_cast<long long>(b) * nby + blk) * 64;
@@ -197,154 +212,321 @@ __device__ __forceinline__ uint32_t coeff_pair(
   } else {
     base = cr + (static_cast<long long>(b) * nbc + blk - nby - nbc) * 64;
   }
-  return __ldg(reinterpret_cast<const uint32_t*>(base) + lane);
+  base += 8 * part;
+  if (vec) return __ldg(reinterpret_cast<const uint4*>(base));
+  uint4 v;
+  uint32_t* w = &v.x;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    w[i] = static_cast<uint16_t>(__ldg(base + 2 * i)) |
+           (static_cast<uint32_t>(static_cast<uint16_t>(
+                __ldg(base + 2 * i + 1))) << 16);
+  return v;
 }
 
-// K4a, launch 1: nonzero count per block -> wire counts (u8) and an i32
-// copy for the scan.
-__global__ void __launch_bounds__(kThreads)
-sparse_count_kernel(const int16_t* __restrict__ y,
-                    const int16_t* __restrict__ cb,
-                    const int16_t* __restrict__ cr, int B, long long nby,
-                    long long nbc, long long width,
-                    uint8_t* __restrict__ wire,
-                    int32_t* __restrict__ counts) {
-  const int lane = threadIdx.x & 31;
-  const long long nb = nby + 2 * nbc;
-  const long long all = nb * B;
-  const long long warps = static_cast<long long>(gridDim.x) * (kThreads / 32);
-  for (long long i = static_cast<long long>(blockIdx.x) * (kThreads / 32) +
-                     (threadIdx.x >> 5);
-       i < all; i += warps) {
-    const int b = static_cast<int>(i / nb);
-    const long long blk = i - static_cast<long long>(b) * nb;
-    const uint32_t pair = coeff_pair(y, cb, cr, b, blk, nby, nbc, lane);
-    const unsigned lo = __ballot_sync(0xFFFFFFFFu, (pair & 0xFFFFu) != 0);
-    const unsigned hi = __ballot_sync(0xFFFFFFFFu, (pair >> 16) != 0);
-    if (lane == 0) {
-      const int n = __popc(lo) + __popc(hi);
-      counts[i] = n;
-      wire[b * width + 4 + blk] = static_cast<uint8_t>(n);
+// Coefficient q of the eight (selects, so that a q known only at run time
+// keeps v in registers).
+__device__ __forceinline__ uint32_t coeff_at(const uint4& v, int q) {
+  const uint32_t w = (q & 4) ? ((q & 2) ? v.w : v.z) : ((q & 2) ? v.y : v.x);
+  return (q & 1) ? (w >> 16) : (w & 0xFFFFu);
+}
+
+// Bit q set where coefficient q of the eight is nonzero.
+__device__ __forceinline__ unsigned nonzero8(const uint4& v) {
+  unsigned m = 0;
+#pragma unroll
+  for (int q = 0; q < 8; ++q) m |= (coeff_at(v, q) != 0u ? 1u : 0u) << q;
+  return m;
+}
+
+__device__ __forceinline__ void publish(unsigned long long* word,
+                                        unsigned long long v) {
+  atomicExch(word, v);
+}
+
+__device__ __forceinline__ unsigned long long peek(
+    const unsigned long long* word) {
+  return *reinterpret_cast<const volatile unsigned long long*>(word);
+}
+
+// A status word: flag << 62 | has << 61 | field << 32 | count.  `count`
+// is the partition's entries (aggregate) or the tile's up to and including
+// it (inclusive); `field` the 18-bit field of the last of those entries,
+// `has` whether there is one.
+__device__ __forceinline__ unsigned long long status_word(
+    unsigned long long flag, unsigned count, bool has, uint32_t field) {
+  return flag | (has ? kHasField : 0ull) |
+         (static_cast<unsigned long long>(field) << 32) | count;
+}
+
+// The stream byte whose first bit lies lb bits past the start of entry 0
+// (lb >= -18): it meets entry e0 = floor(lb / 18) and possibly e0 + 1,
+// each entry(e) an 18-bit field written MSB first.
+template <typename Entry>
+__device__ __forceinline__ uint32_t stream_byte(int lb, Entry entry) {
+  const int e0 = static_cast<int>(static_cast<unsigned>(lb + kEntryBits) /
+                                  kEntryBits) - 1;
+  const int off = lb - e0 * kEntryBits;
+  const uint32_t part0 = ((entry(e0) << off) & 0x3FFFFu) >> 10;
+  const uint32_t part1 = off > 10 ? entry(e0 + 1) >> (28 - off) : 0u;
+  return (part0 | part1) & 0xFFu;
+}
+
+// The block writes stream bytes [jlo, jhi) as byte(j - jlo), by 16-byte
+// aligned runs of addresses: four lanes a run, each with one 32-bit word of
+// it; the first lane stores the run with one 16-byte store where it lies
+// inside [jlo, jhi), and each lane stores its bytes at the ends.
+template <typename Byte>
+__device__ __forceinline__ void write_stream(uint8_t* stream, long long jlo,
+                                             long long jhi, Byte byte) {
+  const long long lead = static_cast<long long>(
+      reinterpret_cast<uintptr_t>(stream) & 15u);
+  const long long runs = (jhi - 1 + lead) / 16 + 1;   // past the last run
+  const int w = threadIdx.x & 3;
+  const int n = static_cast<int>(jhi - jlo);
+  // c0: the warp's first run, so that the loop is uniform over the warp.
+  for (long long c0 = (jlo + lead) / 16 + (threadIdx.x & ~31u) / 4;
+       c0 < runs; c0 += blockDim.x / 4) {
+    const long long c = c0 + ((threadIdx.x & 31) >> 2);
+    const int l0 = static_cast<int>(16 * c - lead - jlo);   // run start
+    uint32_t word = 0u;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int l = l0 + 4 * w + q;
+      if (c < runs && l >= 0 && l < n) word |= byte(l) << (8 * q);
+    }
+    const uint32_t w1 = __shfl_down_sync(0xFFFFFFFFu, word, 1);
+    const uint32_t w2 = __shfl_down_sync(0xFFFFFFFFu, word, 2);
+    const uint32_t w3 = __shfl_down_sync(0xFFFFFFFFu, word, 3);
+    if (c >= runs) continue;
+    if (l0 >= 0 && l0 + 16 <= n) {
+      if (w == 0)
+        *reinterpret_cast<uint4*>(stream + jlo + l0) =
+            make_uint4(word, w1, w2, w3);
+    } else {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int l = l0 + 4 * w + q;
+        if (l >= 0 && l < n)
+          stream[jlo + l] = static_cast<uint8_t>(word >> (8 * q));
+      }
     }
   }
 }
 
-// K4a, launch 2: exclusive scan of one tile's block counts (in place ->
-// offsets); the total goes to the wire header and to totals[b].
-__global__ void __launch_bounds__(kScanThreads)
-sparse_scan_kernel(int32_t* __restrict__ counts, long long nb,
-                   long long width, uint8_t* __restrict__ wire,
-                   int32_t* __restrict__ totals) {
-  __shared__ int warp_sums[kScanThreads / 32];
-  const int b = blockIdx.x;
-  int32_t* c = counts + static_cast<long long>(b) * nb;
-  const long long chunk = (nb + kScanThreads - 1) / kScanThreads;
-  const long long lo = threadIdx.x * chunk;
-  const long long hi = lo + chunk < nb ? lo + chunk : nb;
-  int sum = 0;
-  for (long long i = lo; i < hi; ++i) sum += c[i];
-
-  // Block exclusive scan of the per-thread sums.
-  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
-  int incl = sum;
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const int v = __shfl_up_sync(0xFFFFFFFFu, incl, d);
-    if (lane >= d) incl += v;
-  }
-  if (lane == 31) warp_sums[wid] = incl;
+// The least threadIdx.x whose pred holds, or kPackThreads; every thread
+// of the block calls it (red: kPackThreads / 32 ints of shared memory).
+__device__ __forceinline__ int block_first(int* red, bool pred) {
+  const unsigned m = __ballot_sync(0xFFFFFFFFu, pred);
+  const int wid = threadIdx.x >> 5;
+  if ((threadIdx.x & 31) == 0) red[wid] = m ? wid * 32 + __ffs(m) - 1
+                                            : kPackThreads;
   __syncthreads();
-  if (wid == 0) {
-    int s = warp_sums[lane];
+  int first = kPackThreads;
+#pragma unroll
+  for (int w = 0; w < kPackThreads / 32; ++w)
+    first = red[w] < first ? red[w] : first;
+  __syncthreads();
+  return first;
+}
+
+// The sum of v over the block; every thread calls it.
+__device__ __forceinline__ unsigned block_sum(int* red, unsigned v) {
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1) v += __shfl_xor_sync(0xFFFFFFFFu, v, d);
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = static_cast<int>(v);
+  __syncthreads();
+  unsigned sum = 0;
+#pragma unroll
+  for (int w = 0; w < kPackThreads / 32; ++w)
+    sum += static_cast<unsigned>(red[w]);
+  __syncthreads();
+  return sum;
+}
+
+// K4a.  The wire is zero before the launch, and so is status, u64[B *
+// parts].  Block x takes partition i = x % parts of tile b = x / parts:
+// its 128 coefficient blocks, entries [o_start, o_end).  It writes their
+// u8 counts, publishes their count and last entry, expands their nonzeros
+// into their entries in shared memory, gets o_start and the field of entry
+// o_start - 1 by a block-wide lookback, and writes the stream bytes whose
+// last bit lies in its kept entries (those below cap).  The byte that ends
+// the kept entries when its last bit lies past them is written by the
+// partition that holds entry cap - 1 when total >= cap, else by the tile's
+// last partition, which also writes the header; the rest of the stream
+// stays zero.
+__global__ void __launch_bounds__(kPackThreads)
+sparse_pack_kernel(const int16_t* __restrict__ y,
+                   const int16_t* __restrict__ cb,
+                   const int16_t* __restrict__ cr, long long nby,
+                   long long nbc, int B, int parts, int cap, long long width,
+                   int vec, uint8_t* __restrict__ wire,
+                   unsigned long long* status) {
+  constexpr int kRounds = kPartBlocks / (kPackThreads / 8);
+  __shared__ uint32_t ent[kPartBlocks * 64];
+  __shared__ int s_cnt[kPartBlocks];   // counts, then exclusive offsets
+  __shared__ int s_warp[kPartBlocks / 32];
+  __shared__ int s_red[kPackThreads / 32];
+  __shared__ int s_last_blk;
+  __shared__ uint32_t s_own, s_prev;
+  const int b = blockIdx.x / parts, i = blockIdx.x - b * parts;
+  const long long nb = nby + 2 * nbc;
+  const long long blk0 = static_cast<long long>(i) * kPartBlocks;
+  const int n = static_cast<int>(
+      nb - blk0 < kPartBlocks ? (nb > blk0 ? nb - blk0 : 0) : kPartBlocks);
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  const int g = threadIdx.x >> 3, part = threadIdx.x & 7;
+
+  // Counts: 8 lanes per coefficient block, each with 16 bytes of it.
+  uint4 v[kRounds];
+#pragma unroll
+  for (int r = 0; r < kRounds; ++r) {
+    const int k = r * (kPackThreads / 8) + g;
+    v[r] = k < n ? coeff8(y, cb, cr, b, blk0 + k, nby, nbc, part, vec)
+                 : make_uint4(0u, 0u, 0u, 0u);
+  }
+  uint8_t* row = wire + static_cast<long long>(b) * width;
+#pragma unroll
+  for (int r = 0; r < kRounds; ++r) {
+    const int k = r * (kPackThreads / 8) + g;
+    int c = __popc(nonzero8(v[r]));
+    c += __shfl_xor_sync(0xFFFFFFFFu, c, 1);
+    c += __shfl_xor_sync(0xFFFFFFFFu, c, 2);
+    c += __shfl_xor_sync(0xFFFFFFFFu, c, 4);
+    if (part == 0 && k < n) {
+      s_cnt[k] = c;
+      row[4 + blk0 + k] = static_cast<uint8_t>(c);
+    }
+  }
+  __syncthreads();
+
+  // The partition's scan (warps 0 .. kPartBlocks / 32 - 1), in place.
+  int cnt = 0, incl = 0;
+  if (threadIdx.x < kPartBlocks) {
+    cnt = threadIdx.x < n ? s_cnt[threadIdx.x] : 0;
+    incl = cnt;
 #pragma unroll
     for (int d = 1; d < 32; d <<= 1) {
-      const int v = __shfl_up_sync(0xFFFFFFFFu, s, d);
-      if (lane >= d) s += v;
+      const int t = __shfl_up_sync(0xFFFFFFFFu, incl, d);
+      if (lane >= d) incl += t;
     }
-    warp_sums[lane] = s;                 // inclusive over warps
+    if (lane == 31) s_warp[wid] = incl;
   }
   __syncthreads();
-  int run = incl - sum + (wid > 0 ? warp_sums[wid - 1] : 0);
-  for (long long i = lo; i < hi; ++i) {
-    const int n = c[i];
-    c[i] = run;
-    run += n;
+  int agg = 0;
+#pragma unroll
+  for (int w = 0; w < kPartBlocks / 32; ++w) {
+    if (w < wid) incl += s_warp[w];
+    agg += s_warp[w];
   }
-  if (threadIdx.x == kScanThreads - 1) {
-    const int total = warp_sums[31];
-    totals[b] = total;
-    uint8_t* hdr = wire + static_cast<long long>(b) * width;
-    hdr[0] = static_cast<uint8_t>(total & 0xFF);
-    hdr[1] = static_cast<uint8_t>((total >> 8) & 0xFF);
-    hdr[2] = static_cast<uint8_t>((total >> 16) & 0xFF);
-    hdr[3] = static_cast<uint8_t>((total >> 24) & 0xFF);
-  }
-}
-
-// K4a, launch 3: each nonzero's 18-bit field to comp[b][offset + rank]
-// when that index is below cap.
-__global__ void __launch_bounds__(kThreads)
-sparse_scatter_kernel(const int16_t* __restrict__ y,
-                      const int16_t* __restrict__ cb,
-                      const int16_t* __restrict__ cr, int B, long long nby,
-                      long long nbc, const int32_t* __restrict__ offsets,
-                      int cap, int32_t* __restrict__ comp) {
-  const int lane = threadIdx.x & 31;
-  const long long nb = nby + 2 * nbc;
-  const long long all = nb * B;
-  const long long warps = static_cast<long long>(gridDim.x) * (kThreads / 32);
-  const unsigned below = (1u << lane) - 1u;
-  for (long long i = static_cast<long long>(blockIdx.x) * (kThreads / 32) +
-                     (threadIdx.x >> 5);
-       i < all; i += warps) {
-    const int b = static_cast<int>(i / nb);
-    const long long blk = i - static_cast<long long>(b) * nb;
-    const uint32_t pair = coeff_pair(y, cb, cr, b, blk, nby, nbc, lane);
-    const int v0 = static_cast<int16_t>(pair & 0xFFFFu);
-    const int v1 = static_cast<int16_t>(pair >> 16);
-    const unsigned lo = __ballot_sync(0xFFFFFFFFu, v0 != 0);
-    const unsigned hi = __ballot_sync(0xFFFFFFFFu, v1 != 0);
-    const int rank = __popc(lo & below) + __popc(hi & below);
-    const long long base = offsets[i];
-    int32_t* dst = comp + static_cast<long long>(b) * cap;
-    if (v0 != 0) {
-      const long long e = base + rank;
-      if (e < cap) dst[e] = ((2 * lane) << 12) | (v0 & 0xFFF);
-    }
-    if (v1 != 0) {
-      const long long e = base + rank + (v0 != 0);
-      if (e < cap) dst[e] = ((2 * lane + 1) << 12) | (v1 & 0xFFF);
+  if (threadIdx.x < n) s_cnt[threadIdx.x] = incl - cnt;
+  // The partition's last nonzero block, whose last nonzero is its last
+  // entry: published with the count before the entries are expanded.
+  if (threadIdx.x < n && cnt > 0 && incl == agg) s_last_blk = threadIdx.x;
+  __syncthreads();
+  const bool own = agg > 0;
+  unsigned long long* st = status + static_cast<long long>(b) * parts;
+  if (own) {
+#pragma unroll
+    for (int r = 0; r < kRounds; ++r) {
+      const unsigned m = nonzero8(v[r]);
+      const unsigned lanes =
+          (__ballot_sync(0xFFFFFFFFu, m != 0) >> (lane & ~7)) & 0xFFu;
+      if (r * (kPackThreads / 8) + g == s_last_blk &&
+          part == 31 - __clz(lanes)) {
+        const int q = 31 - __clz(m);
+        s_own = (static_cast<uint32_t>(8 * part + q) << 12) |
+                (coeff_at(v[r], q) & 0xFFFu);
+      }
     }
   }
-}
+  __syncthreads();
+  const uint32_t own_field = own ? s_own : 0u;
+  if (i > 0 && threadIdx.x == 0)
+    publish(st + i, status_word(kAggregate, agg, own, own_field));
 
-// K4a, launch 4: stream byte j covers bits [8j, 8j + 8), which meet entry
-// e0 = 8j / 18 and possibly e0 + 1; entries at or past min(total, cap) read
-// as zero.
-__global__ void __launch_bounds__(kThreads)
-sparse_bytes_kernel(const int32_t* __restrict__ comp,
-                    const int32_t* __restrict__ totals, int B, int cap,
-                    long long nbytes, long long head, long long width,
-                    uint8_t* __restrict__ wire) {
-  const long long all = nbytes * B;
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-       i < all; i += stride) {
-    const int b = static_cast<int>(i / nbytes);
-    const long long j = i - static_cast<long long>(b) * nbytes;
-    const int total = totals[b];
-    const long long used = total < cap ? total : cap;
-    const long long bit = j * 8;
-    const long long e0 = bit / kEntryBits;
-    const int off = static_cast<int>(bit - e0 * kEntryBits);
-    const int32_t* c = comp + static_cast<long long>(b) * cap;
-    const uint32_t f0 = e0 < used ? static_cast<uint32_t>(c[e0]) : 0u;
-    const uint32_t f1 = e0 + 1 < used ? static_cast<uint32_t>(c[e0 + 1]) : 0u;
-    const uint32_t part0 = ((f0 << off) & 0x3FFFFu) >> 10;
-    const uint32_t part1 = off > 10 ? f1 >> (28 - off) : 0u;
-    wire[static_cast<long long>(b) * width + head + j] =
-        static_cast<uint8_t>((part0 | part1) & 0xFFu);
+  // Each nonzero to its entry, at its block's offset plus its rank.
+#pragma unroll
+  for (int r = 0; r < kRounds; ++r) {
+    const int k = r * (kPackThreads / 8) + g;
+    const unsigned m = nonzero8(v[r]);
+    int rank = __popc(m);   // then the rank of this lane's first nonzero
+#pragma unroll
+    for (int d = 1; d < 8; d <<= 1) {
+      const int t = __shfl_up_sync(0xFFFFFFFFu, rank, d, 8);
+      if (part >= d) rank += t;
+    }
+    if (k >= n || m == 0) continue;
+    int e = s_cnt[k] + rank - __popc(m);
+#pragma unroll
+    for (int q = 0; q < 8; ++q)
+      if (m & (1u << q))
+        ent[e++] = (static_cast<uint32_t>(8 * part + q) << 12) |
+                   (coeff_at(v[r], q) & 0xFFFu);
+  }
+  __syncthreads();
+
+  // The entries of the tile's earlier partitions and the field of the
+  // last of them, by decoupled lookback: the whole block reads
+  // kPackThreads predecessors at a time, nearest first.
+  unsigned excl = 0;
+  bool has = false;
+  uint32_t prev = 0u;
+  if (i > 0) {
+    for (int j = i - 1;; j -= kPackThreads) {
+      const int idx = j - static_cast<int>(threadIdx.x);
+      unsigned long long s = idx >= 0 ? peek(st + idx) : kInclusive;
+      while (__syncthreads_or((s >> 62) == 0))
+        if ((s >> 62) == 0) s = peek(st + idx);
+      const int done = block_first(s_red, (s >> 62) == 2);
+      const int stop = done < kPackThreads ? done : kPackThreads - 1;
+      const bool mine = static_cast<int>(threadIdx.x) <= stop;
+      excl += block_sum(s_red, mine ? static_cast<unsigned>(s) : 0u);
+      const int near = block_first(s_red, mine && (s & kHasField) != 0);
+      if (!has && near < kPackThreads) {
+        if (static_cast<int>(threadIdx.x) == near)
+          s_prev = static_cast<uint32_t>(s >> 32) & 0x3FFFFu;
+        __syncthreads();
+        has = true;
+        prev = s_prev;
+      }
+      if (done < kPackThreads) break;
+    }
+  }
+  const uint32_t last = own ? own_field : prev;
+  if (threadIdx.x == 0)
+    publish(st + i, status_word(kInclusive, excl + agg, own || has, last));
+
+  const long long o_start = excl, o_end = o_start + agg;
+  const long long kept = o_end < cap ? o_end : cap;
+  uint8_t* stream = row + 4 + nb;
+  if (o_start < kept) {
+    // Bytes from the one that holds entry o_start's first bit; bit
+    // offsets and entries counted from that entry.
+    const long long jlo = kEntryBits * o_start / 8;
+    const long long jhi = o_end >= cap ? (kEntryBits * kept + 7) / 8
+                                       : kEntryBits * kept / 8;
+    const int c0 = static_cast<int>(8 * jlo - kEntryBits * o_start);
+    const int n_kept = static_cast<int>(kept - o_start);
+    write_stream(stream, jlo, jhi, [&](int l) {
+      return stream_byte(8 * l + c0, [&](int e) {
+        return e < 0 ? prev : (e < n_kept ? ent[e] : 0u);
+      });
+    });
+  }
+  if (i == parts - 1 && threadIdx.x == 0) {
+    const long long total = o_end;
+    row[0] = static_cast<uint8_t>(total & 0xFF);
+    row[1] = static_cast<uint8_t>((total >> 8) & 0xFF);
+    row[2] = static_cast<uint8_t>((total >> 16) & 0xFF);
+    row[3] = static_cast<uint8_t>((total >> 24) & 0xFF);
+    if (total > 0 && total < cap && (kEntryBits * total) % 8 != 0) {
+      // The byte that holds the last entry's last bit, zero after it.
+      const long long j = kEntryBits * total / 8;
+      stream[j] = static_cast<uint8_t>(stream_byte(
+          static_cast<int>(8 * j - kEntryBits * (total - 1)),
+          [&](int e) { return e == 0 ? last : 0u; }));
+    }
   }
 }
 
@@ -440,43 +622,40 @@ extern "C" int jpeg_coefficients_launch(const void* packed, int B, int h,
   return cudaGetLastError();
 }
 
-// K4a.  y i16[B, nby, 64], cb / cr i16[B, nbc, 64]; wire u8[B, width]
-// with width = 4 + nb + ceil(18 cap / 8); scratch counts i32[B, nb],
-// totals i32[B], comp i32[B, cap].
+// K4a.  y i16[B, nby, 64], cb / cr i16[B, nbc, 64]; buf holds the wire
+// u8[B, width], width = 4 + nb + ceil(18 cap / 8), then at the next
+// multiple of 8 bytes the status words u64[status_words], status_words at
+// least sparse_pack_status_words(B, nb), one per partition of 128 blocks.
+// One memset of buf, one launch.
+extern "C" long long sparse_pack_status_words(int B, long long nb) {
+  const long long parts = nb > 0 ? (nb + kPartBlocks - 1) / kPartBlocks : 1;
+  return static_cast<long long>(B) * parts;
+}
+
 extern "C" int sparse_pack_launch(const void* y, const void* cb,
                                   const void* cr, int B, long long nby,
-                                  long long nbc, int cap, void* wire,
-                                  long long width, void* counts,
-                                  void* totals, void* comp, void* stream) {
+                                  long long nbc, int cap, void* buf,
+                                  long long width, long long status_words,
+                                  void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
-  const auto* iy = static_cast<const int16_t*>(y);
-  const auto* icb = static_cast<const int16_t*>(cb);
-  const auto* icr = static_cast<const int16_t*>(cr);
-  auto* w8 = static_cast<uint8_t*>(wire);
-  auto* c32 = static_cast<int32_t*>(counts);
-  auto* t32 = static_cast<int32_t*>(totals);
-  auto* comp32 = static_cast<int32_t*>(comp);
   const long long nb = nby + 2 * nbc;
-  const long long nbytes = (static_cast<long long>(kEntryBits) * cap + 7) / 8;
-  const int warps_per_block = kThreads / 32;
-
-  int res = resident_blocks(reinterpret_cast<const void*>(sparse_count_kernel),
-                            kThreads, 132);
-  sparse_count_kernel<<<grid_for(nb * B, warps_per_block, res), kThreads, 0,
-                        s>>>(iy, icb, icr, B, nby, nbc, width, w8, c32);
-  cudaError_t err = cudaGetLastError();
+  const long long words = sparse_pack_status_words(B, nb);
+  if (B < 1 || cap < 1 || status_words < words) return cudaErrorInvalidValue;
+  if (words > 0x7FFFFFFFLL) return cudaErrorInvalidConfiguration;
+  const int parts = static_cast<int>(words / B);
+  const long long wire_bytes = (static_cast<long long>(B) * width + 7) / 8 * 8;
+  auto* w8 = static_cast<uint8_t*>(buf);
+  auto* st = reinterpret_cast<unsigned long long*>(w8 + wire_bytes);
+  const int vec = ((reinterpret_cast<uintptr_t>(y) |
+                    reinterpret_cast<uintptr_t>(cb) |
+                    reinterpret_cast<uintptr_t>(cr)) & 15u) == 0;
+  cudaError_t err = cudaMemsetAsync(buf, 0, wire_bytes + 8 * words, s);
   if (err != cudaSuccess) return err;
-  sparse_scan_kernel<<<B, kScanThreads, 0, s>>>(c32, nb, width, w8, t32);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  res = resident_blocks(reinterpret_cast<const void*>(sparse_scatter_kernel),
-                        kThreads, 132);
-  sparse_scatter_kernel<<<grid_for(nb * B, warps_per_block, res), kThreads, 0,
-                          s>>>(iy, icb, icr, B, nby, nbc, c32, cap, comp32);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  res = resident_blocks(reinterpret_cast<const void*>(sparse_bytes_kernel),
-                        kThreads, 132);
-  sparse_bytes_kernel<<<grid_for(nbytes * B, kThreads, res), kThreads, 0,
-                        s>>>(comp32, t32, B, cap, nbytes, 4 + nb, width, w8);
+  sparse_pack_kernel<<<static_cast<unsigned>(words), kPackThreads, 0,
+                       s>>>(static_cast<const int16_t*>(y),
+                            static_cast<const int16_t*>(cb),
+                            static_cast<const int16_t*>(cr), nby, nbc, B,
+                            parts, cap, width, vec, w8, st);
   return cudaGetLastError();
 }
 

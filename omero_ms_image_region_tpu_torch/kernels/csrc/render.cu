@@ -40,9 +40,14 @@
 // same arithmetic, one pixel load at a time.  The family branch is uniform
 // per channel, so only the selected curve is evaluated.
 //
-// render_lut_kernel keeps the simpler layout: a block owns one tile
-// (blockIdx.y) and a run of kThreads * kLutPix pixels, each thread kLutPix
-// pixels kThreads apart, and stages the tile's tables in shared memory.
+// render_lut_kernel moves pixels the same way, but its persistent blocks
+// stay inside one tile: each of the B tiles gets an equal share of the
+// resident blocks, and a block owns a contiguous run of its tile's pixel
+// groups.  So a block stages its tile's channel constants and tables once
+// (a few hundred 12 KB stagings at B=8), each table entry as a float4
+// (r, g, b, 0) so that a lookup is one 16-byte shared load.  Tables of more
+// channels than shared memory holds are staged and consumed in chunks of
+// channels; the sum stays in channel order.
 //
 // Numerics follow the JAX reference exactly where IEEE allows: rintf (half
 // to even, as jnp.round), explicit __fmul_rn/__fadd_rn and a correctly
@@ -58,8 +63,7 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kGroup = 8;      // ramp kernel: contiguous pixels per thread
-constexpr int kLutPix = 16;    // LUT kernel: more pixels amortize the table
+constexpr int kGroup = 8;      // contiguous pixels per thread
 constexpr float kEps = 1e-12f;
 // Above this |den| the reciprocal nears the subnormal range; such channels
 // divide with __fdiv_rn.
@@ -68,6 +72,8 @@ constexpr float kMaxRecipDen = 1e30f;
 constexpr float kMinRecipNum = 1e-30f;
 constexpr int kTableFloats = 256 * 3;
 constexpr int kDefaultSmem = 48 * 1024;
+constexpr int kMaxSmem = 227 * 1024;   // dynamic shared memory per block
+constexpr int kLutBytes = 256 * 16;    // one channel's staged float4 table
 
 enum Family { kLinear = 0, kPolynomial = 1, kLogarithmic = 2 };
 
@@ -182,19 +188,38 @@ __device__ __forceinline__ float quantize_fam(const ChanParams& p,
   return fminf(fmaxf(q, 0.f), 255.f);
 }
 
+template <int FAM>
+struct FamilyTag {
+  static constexpr int value = FAM;
+};
+
+// f(FamilyTag<family>()) for a family id (one outside 0..2 is
+// exponential): the one branch on the family, taken once per channel.
+template <typename F>
+__device__ __forceinline__ void with_family(int fam, F f) {
+  switch (fam) {
+    case kLinear:
+      f(FamilyTag<kLinear>());
+      break;
+    case kPolynomial:
+      f(FamilyTag<kPolynomial>());
+      break;
+    case kLogarithmic:
+      f(FamilyTag<kLogarithmic>());
+      break;
+    default:
+      f(FamilyTag<3>());
+  }
+}
+
 __device__ __forceinline__ float quantize(const ChanParams& p, float x_raw,
                                           float cd_start, float k_max,
                                           float cd_sum) {
-  switch (p.fam) {
-    case kLinear:
-      return quantize_fam<kLinear>(p, x_raw, cd_start, k_max, cd_sum);
-    case kPolynomial:
-      return quantize_fam<kPolynomial>(p, x_raw, cd_start, k_max, cd_sum);
-    case kLogarithmic:
-      return quantize_fam<kLogarithmic>(p, x_raw, cd_start, k_max, cd_sum);
-    default:
-      return quantize_fam<3>(p, x_raw, cd_start, k_max, cd_sum);
-  }
+  float q;
+  with_family(p.fam, [&](auto fam) {
+    q = quantize_fam<decltype(fam)::value>(p, x_raw, cd_start, k_max, cd_sum);
+  });
+  return q;
 }
 
 __device__ __forceinline__ int32_t to_byte(float v) {
@@ -295,19 +320,10 @@ __device__ __forceinline__ void accumulate_chunk(float acc[kGroup][3],
   for (int k = 0; k < Pack8<T>::kChunk; ++k) {
     if (c0 + k < C) {
       const ChanParams p = tp[c0 + k];
-      switch (p.fam) {
-        case kLinear:
-          accumulate8<kLinear>(acc, v[k], p, cd_start, k_max, cd_sum);
-          break;
-        case kPolynomial:
-          accumulate8<kPolynomial>(acc, v[k], p, cd_start, k_max, cd_sum);
-          break;
-        case kLogarithmic:
-          accumulate8<kLogarithmic>(acc, v[k], p, cd_start, k_max, cd_sum);
-          break;
-        default:
-          accumulate8<3>(acc, v[k], p, cd_start, k_max, cd_sum);
-      }
+      with_family(p.fam, [&](auto fam) {
+        accumulate8<decltype(fam)::value>(acc, v[k], p, cd_start, k_max,
+                                          cd_sum);
+      });
     }
   }
 }
@@ -393,8 +409,59 @@ render_ramp_kernel(const T* __restrict__ raw, const float* __restrict__ ws,
   }
 }
 
-// LUT composite.  Dynamic shared memory: ChanParams[C], then the tile's
-// tables f32[C][256][3].
+__device__ __forceinline__ void add_rgb(float acc[3], const float4 t) {
+  acc[0] = __fadd_rn(acc[0], t.x);
+  acc[1] = __fadd_rn(acc[1], t.y);
+  acc[2] = __fadd_rn(acc[2], t.z);
+}
+
+// Quantize the eight loaded values of one channel of family FAM and add
+// their table entries (lut: the channel's staged float4[256]).
+template <int FAM, typename T>
+__device__ __forceinline__ void lookup8(float acc[kGroup][3],
+                                       const Pack8<T>& v, const ChanParams& p,
+                                       const float4* lut, float cd_start,
+                                       float k_max, float cd_sum) {
+#pragma unroll
+  for (int j = 0; j < kGroup; ++j)
+    add_rgb(acc[j], lut[static_cast<int>(quantize_fam<FAM>(
+                        p, v.get(j), cd_start, k_max, cd_sum))]);
+}
+
+// Channels c0 .. min(c0 + kChunk, ce) - 1, whose tables start at `luts`.
+template <typename T>
+__device__ __forceinline__ void lookup_chunk(float acc[kGroup][3],
+                                             const Pack8<T>* v,
+                                             const ChanParams* tp,
+                                             const float4* luts, int c0,
+                                             int ce, float cd_start,
+                                             float k_max, float cd_sum) {
+#pragma unroll
+  for (int k = 0; k < Pack8<T>::kChunk; ++k) {
+    if (c0 + k < ce) {
+      const ChanParams p = tp[c0 + k];
+      with_family(p.fam, [&](auto fam) {
+        lookup8<decltype(fam)::value>(acc, v[k], p, luts + k * 256, cd_start,
+                                      k_max, cd_sum);
+      });
+    }
+  }
+}
+
+// Tables of channels cs .. ce - 1 of one tile (f32[C][256][3] at `src`) as
+// float4 (r, g, b, 0) entries.
+__device__ __forceinline__ void stage_tables(float4* luts, const float* src,
+                                             int cs, int ce) {
+  for (int i = threadIdx.x; i < (ce - cs) * 256; i += blockDim.x) {
+    const float* e = src + (static_cast<long long>(cs) * 256 + i) * 3;
+    luts[i] = make_float4(__ldg(e), __ldg(e + 1), __ldg(e + 2), 0.f);
+  }
+}
+
+// LUT composite.  Block x works in tile x / blocks_per_tile, on the pixel
+// groups [part * run, (part + 1) * run) of it (run a multiple of kThreads).
+// Dynamic shared memory: ChanParams[C], then float4 tables of `tchunk`
+// channels (all C unless they do not fit).  `vec` as for the ramp kernel.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 render_lut_kernel(const T* __restrict__ raw, const float* __restrict__ ws,
@@ -404,51 +471,78 @@ render_lut_kernel(const T* __restrict__ raw, const float* __restrict__ ws,
                   const int32_t* __restrict__ rev,
                   const float* __restrict__ tables,
                   int32_t* __restrict__ out, int C, long long hw,
-                  int cd_start, int cd_end) {
+                  int cd_start, int cd_end, int vec, int blocks_per_tile,
+                  long long run, int tchunk) {
   extern __shared__ __align__(16) unsigned char smem[];
   ChanParams* params = reinterpret_cast<ChanParams*>(smem);
-  float* table = reinterpret_cast<float*>(params + C);
-  const int b = blockIdx.y;
+  float4* luts = reinterpret_cast<float4*>(params + C);
+  const int b = blockIdx.x / blocks_per_tile;
+  const long long groups = (hw + kGroup - 1) / kGroup;
+  const long long g0 = (blockIdx.x - static_cast<long long>(b) *
+                                         blocks_per_tile) * run;
+  const long long g1 = g0 + run < groups ? g0 + run : groups;
+  const float* src = tables + static_cast<long long>(b) * C * kTableFloats;
+  const bool staged_once = tchunk >= C;
   for (int c = threadIdx.x; c < C; c += blockDim.x)
     load_params(params + c, b * C + c, ws, we, coef, fam, rev, nullptr);
-  const float* src = tables + static_cast<long long>(b) * C * kTableFloats;
-  for (int i = threadIdx.x; i < C * kTableFloats; i += blockDim.x)
-    table[i] = src[i];
+  if (staged_once) stage_tables(luts, src, 0, C);
   __syncthreads();
 
   const float cd_start_f = static_cast<float>(cd_start);
   const float k_max = static_cast<float>(cd_end - cd_start);
   const float cd_sum = static_cast<float>(cd_start + cd_end);
+  constexpr int kChunk = Pack8<T>::kChunk;
   const T* tile = raw + static_cast<long long>(b) * C * hw;
-  const long long base =
-      static_cast<long long>(blockIdx.x) * (kThreads * kLutPix) + threadIdx.x;
-
-  float acc[kLutPix][3];
+  // The loop bounds are uniform over the block: the chunked path's
+  // __syncthreads() is reached by every thread.
+  for (long long base = g0; base < g1; base += kThreads) {
+    const long long g = base + threadIdx.x;
+    const bool active = g < g1;
+    const long long px0 = g * kGroup;
+    float acc[kGroup][3];
 #pragma unroll
-  for (int j = 0; j < kLutPix; ++j) acc[j][0] = acc[j][1] = acc[j][2] = 0.f;
+    for (int j = 0; j < kGroup; ++j) acc[j][0] = acc[j][1] = acc[j][2] = 0.f;
+    const int n = static_cast<int>(
+        hw - px0 < kGroup ? hw - px0 : static_cast<long long>(kGroup));
 
-  for (int c = 0; c < C; ++c) {
-    const ChanParams& p = params[c];
-    const T* plane = tile + static_cast<long long>(c) * hw;
-    const float* lut = table + c * kTableFloats;
+    for (int cs = 0; cs < C; cs += tchunk) {
+      const int ce = cs + tchunk < C ? cs + tchunk : C;
+      if (!staged_once) {
+        __syncthreads();
+        stage_tables(luts, src, cs, ce);
+        __syncthreads();
+      }
+      if (!active) continue;
+      if (vec) {
+        for (int c0 = cs; c0 < ce; c0 += kChunk) {
+          Pack8<T> v[kChunk];
+          load_chunk(v, tile, hw, px0, c0, ce);
+          lookup_chunk(acc, v, params, luts + (c0 - cs) * 256, c0, ce,
+                       cd_start_f, k_max, cd_sum);
+        }
+      } else {
+        for (int c = cs; c < ce; ++c) {
+          const ChanParams& p = params[c];
+          const T* plane = tile + static_cast<long long>(c) * hw + px0;
+          const float4* lut = luts + (c - cs) * 256;
 #pragma unroll
-    for (int j = 0; j < kLutPix; ++j) {
-      const long long px = base + static_cast<long long>(j) * kThreads;
-      if (px < hw) {
-        const int q = static_cast<int>(
-            quantize(p, load_raw(plane + px), cd_start_f, k_max, cd_sum));
-        const float* rgb = lut + 3 * q;
-        acc[j][0] = __fadd_rn(acc[j][0], rgb[0]);
-        acc[j][1] = __fadd_rn(acc[j][1], rgb[1]);
-        acc[j][2] = __fadd_rn(acc[j][2], rgb[2]);
+          for (int j = 0; j < kGroup; ++j)
+            if (j < n)
+              add_rgb(acc[j], lut[static_cast<int>(quantize(
+                                  p, load_raw(plane + j), cd_start_f, k_max,
+                                  cd_sum))]);
+        }
       }
     }
-  }
-  int32_t* dst = out + static_cast<long long>(b) * hw;
+    if (!active) continue;
+    int32_t* dst = out + static_cast<long long>(b) * hw + px0;
+    if (vec) {
+      store_group(dst, acc);
+    } else {
 #pragma unroll
-  for (int j = 0; j < kLutPix; ++j) {
-    const long long px = base + static_cast<long long>(j) * kThreads;
-    if (px < hw) dst[px] = pack(acc[j][0], acc[j][1], acc[j][2]);
+      for (int j = 0; j < kGroup; ++j)
+        if (j < n) dst[j] = pack(acc[j][0], acc[j][1], acc[j][2]);
+    }
   }
 }
 
@@ -492,22 +586,54 @@ cudaError_t launch_ramp(const void* raw, const float* ws, const float* we,
   return cudaGetLastError();
 }
 
+// Channels of float4 tables that fit beside C channels' constants.
+int lut_table_chunk(int C) {
+  const long long room = static_cast<long long>(kMaxSmem) -
+                         static_cast<long long>(sizeof(ChanParams)) * C;
+  const long long fit = room > 0 ? room / kLutBytes : 0;
+  return static_cast<int>(fit < C ? fit : C);
+}
+
 template <typename T>
 cudaError_t launch_lut(const void* raw, const float* ws, const float* we,
                        const float* coef, const int32_t* fam,
                        const int32_t* rev, const float* tables,
                        int32_t* out, int B, int C, long long hw,
                        int cd_start, int cd_end, cudaStream_t stream) {
-  const size_t smem = (sizeof(ChanParams) + sizeof(float) * kTableFloats) * C;
+  const int tchunk = lut_table_chunk(C);
+  if (tchunk < 1) return cudaErrorInvalidValue;
+  const size_t smem =
+      sizeof(ChanParams) * C + static_cast<size_t>(kLutBytes) * tchunk;
   cudaError_t err = allow_smem(render_lut_kernel<T>, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(
-      static_cast<unsigned>((hw + kThreads * kLutPix - 1) /
-                            (kThreads * kLutPix)),
-      B);
-  render_lut_kernel<T><<<grid, kThreads, smem, stream>>>(
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess)
+    return err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, render_lut_kernel<T>, kThreads, smem)) != cudaSuccess)
+    return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  // Split the resident blocks evenly over the B tiles; each block's run is
+  // a whole number of kThreads-group rounds.
+  const long long groups = (hw + kGroup - 1) / kGroup;
+  const long long rounds = (groups + kThreads - 1) / kThreads;
+  const long long share = static_cast<long long>(sms) * per_sm / B;
+  const long long per_tile =
+      share < 1 ? 1 : (share < rounds ? share : rounds);
+  const long long run = (rounds + per_tile - 1) / per_tile * kThreads;
+  const long long blocks_per_tile = (groups + run - 1) / run;
+  const long long blocks = blocks_per_tile * B;
+  if (blocks > 0x7FFFFFFFLL) return cudaErrorInvalidConfiguration;
+  const uintptr_t align = reinterpret_cast<uintptr_t>(raw) |
+                          reinterpret_cast<uintptr_t>(out);
+  const int vec = hw % kGroup == 0 && align % 16 == 0;
+  render_lut_kernel<T><<<static_cast<unsigned>(blocks), kThreads, smem,
+                         stream>>>(
       static_cast<const T*>(raw), ws, we, coef, fam, rev, tables, out, C,
-      hw, cd_start, cd_end);
+      hw, cd_start, cd_end, vec, static_cast<int>(blocks_per_tile), run,
+      tchunk);
   return cudaGetLastError();
 }
 
@@ -576,9 +702,10 @@ extern "C" int render_lut_launch(const void* raw, int dtype, const void* ws,
 
 // Largest channel count each kernel's shared memory holds on this card's
 // 227 KB per block (checked by the Python wrappers before a launch): for
-// the ramp kernel the count of B * C settings, for the LUT kernel of C.
+// the ramp kernel the count of B * C settings; for the LUT kernel the C
+// channel constants of one tile beside one channel's table (its tables are
+// staged in chunks of channels).
 extern "C" int render_max_channels(int lut) {
-  const size_t per_channel =
-      sizeof(ChanParams) + (lut ? sizeof(float) * kTableFloats : 0);
-  return static_cast<int>((227 * 1024) / per_channel);
+  return static_cast<int>((kMaxSmem - (lut ? kLutBytes : 0)) /
+                          sizeof(ChanParams));
 }

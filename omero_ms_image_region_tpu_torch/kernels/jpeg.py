@@ -55,8 +55,9 @@ def _configure(lib: ctypes.CDLL) -> None:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.jpeg_coefficients_launch.argtypes = [p, i, i, i, i, i, i, i,
                                              p, p, p, p, p]
-    lib.sparse_pack_launch.argtypes = [p, p, p, i, ll, ll, i, p, ll,
-                                       p, p, p, p]
+    lib.sparse_pack_launch.argtypes = [p, p, p, i, ll, ll, i, p, ll, ll, p]
+    lib.sparse_pack_status_words.argtypes = [i, ll]
+    lib.sparse_pack_status_words.restype = ll
     lib.compact_rows_launch.argtypes = [p, i, ll, i, i, ll, p, p, p]
     for fn in (lib.jpeg_coefficients_launch, lib.sparse_pack_launch,
                lib.compact_rows_launch):
@@ -127,7 +128,9 @@ def jpeg_coefficients(packed: torch.Tensor, tables: torch.Tensor,
 def sparse_pack(y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor,
                 cap: int) -> torch.Tensor:
     """K4a: coefficients -> u8[B, 4 + nb + ceil(18 cap / 8)] sparse wire
-    (``ops.jpegenc.sparse_pack_plain`` is the same function)."""
+    (``ops.jpegenc.sparse_pack_plain`` is the same function).  One memset
+    and one kernel launch; the wire is a view of a buffer that also holds
+    the scan's status words."""
     dev = _cuda("sparse_pack", y, cb, cr)
     for name, t in (("y", y), ("cb", cb), ("cr", cr)):
         if t.dtype != torch.int16 or t.dim() != 3 or t.shape[2] != 64:
@@ -140,22 +143,23 @@ def sparse_pack(y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor,
     if cap < 1:
         raise ValueError(f"cap must be positive, got {cap}")
     nb = nby + 2 * nbc
+    if nb * 64 >= 2 ** 31:
+        raise ValueError(f"{nb} blocks a tile overflow the i32 total")
     width = 4 + nb + (ENTRY_BITS * cap + 7) // 8
-    wire = torch.empty((B, width), dtype=torch.uint8, device=dev)
     if B == 0:
-        return wire
-    counts = torch.empty((B, nb), dtype=torch.int32, device=dev)
-    totals = torch.empty((B,), dtype=torch.int32, device=dev)
-    comp = torch.empty((B, cap), dtype=torch.int32, device=dev)
+        return torch.empty((B, width), dtype=torch.uint8, device=dev)
     lib = library()
+    words = lib.sparse_pack_status_words(B, nb)
+    wire_bytes = (B * width + 7) // 8 * 8
+    buf = torch.empty((wire_bytes + 8 * words,), dtype=torch.uint8,
+                      device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.sparse_pack_launch(
             y.data_ptr(), cb.data_ptr(), cr.data_ptr(), B, nby, nbc, cap,
-            wire.data_ptr(), width, counts.data_ptr(), totals.data_ptr(),
-            comp.data_ptr(), stream)
+            buf.data_ptr(), width, words, stream)
     _launched("sparse_pack", err)
-    return wire
+    return buf[:B * width].view(B, width)
 
 
 def compact_rows(wire: torch.Tensor, n_valid: int, cap: int,

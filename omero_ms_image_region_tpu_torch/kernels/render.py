@@ -116,7 +116,8 @@ def _launch(name: str, raw, window_start, window_end, family, coefficient,
     lib = library()
     is_lut = name == "render_lut"
     # The ramp kernel keeps the whole batch's B * C settings in shared
-    # memory, the LUT kernel one tile's C tables.
+    # memory, the LUT kernel one tile's C settings beside at least one
+    # channel's table (it stages the tables in chunks of channels).
     held = C if is_lut else B * C
     if C < 1 or held > lib.render_max_channels(int(is_lut)):
         raise ValueError(f"{name}: {held} channel settings do not fit the "

@@ -199,6 +199,225 @@ def test_sparse_pack_matches_jax(cap):
     np.testing.assert_array_equal(got, want)
 
 
+def _kernel_constants(names):
+    """constexpr ints of ``kernels/csrc/jpeg.cu``, so that the model below
+    follows the kernel's own partition and window sizes."""
+    import re
+
+    src = kernels.SOURCE.read_text()
+    env = {}
+    for name in names:
+        m = re.search(rf"constexpr int {name} = ([^;]+);", src)
+        # C integer division on non-negative ints
+        env[name] = eval(m.group(1).replace("/", "//"), {},  # noqa: S307
+                         dict(env))
+    return env
+
+
+def _k4a_model(y, cb, cr, cap, base, order_rng, window=None):
+    """K4a's kernel step by step, in numpy: the memset, then per partition
+    of blocks (8 lanes per block) the counts, the in-place scan, the last
+    entry from the last nonzero block, each nonzero's entry at its block's
+    offset plus its 8-lane rank, the
+    block-wide decoupled lookback over statuses resolved in ``order_rng``'s
+    order (the prefix and the field of the entry before the partition),
+    and the
+    stream bytes whose last bit lies in its kept entries, stored on
+    16-byte aligned addresses from the wire's ``base`` address.  No byte
+    may be written by two blocks.  ``window`` narrows the lookback's step
+    (the kernel's is its block size) to reach its later steps."""
+    c = _kernel_constants(["kEntryBits", "kPackThreads", "kPartBlocks"])
+    bits, threads, part_blocks = (c["kEntryBits"], c["kPackThreads"],
+                                  c["kPartBlocks"])
+    groups = threads // 8
+    window = window or threads
+    B, nby = y.shape[:2]
+    nb = nby + 2 * cb.shape[1]
+    blocks = np.concatenate([y, cb, cr], axis=1).astype(np.int64)
+    nbytes = (bits * cap + 7) // 8
+    head, width = 4 + nb, 4 + nb + nbytes
+    wire = np.zeros((B, width), np.int64)            # the memset
+    writes = np.zeros((B, width), np.int64)
+
+    def put(b, j, v):
+        wire[b, j] = v
+        writes[b, j] += 1
+
+    parts = max(1, -(-nb // part_blocks))
+    local, status = {}, {}       # status: (flag, count, has field, field)
+    for p in range(B * parts):                 # block p: partition p
+        b, i = divmod(p, parts)
+        blk0 = i * part_blocks
+        n = max(0, min(part_blocks, nb - blk0))
+        cnt = np.zeros(part_blocks, np.int64)
+        for r in range(part_blocks // groups):
+            for g in range(groups):
+                k = r * groups + g
+                if k < n:
+                    # the 8 lanes' popcounts, reduced by shfl_xor 1, 2, 4
+                    cnt[k] = sum(int((blocks[b, blk0 + k, 8 * q:8 * q + 8]
+                                      != 0).sum()) for q in range(8))
+                    put(b, 4 + blk0 + k, cnt[k])
+        incl = np.zeros(part_blocks, np.int64)
+        for w in range(part_blocks // 32):
+            incl[32 * w:32 * w + 32] = np.cumsum(cnt[32 * w:32 * w + 32])
+        warp = incl[31::32]
+        offs = [int(warp[:k // 32].sum() + incl[k] - cnt[k])
+                for k in range(n)]
+        ent = {}
+        for k in range(n):
+            coeffs = blocks[b, blk0 + k]
+            rank = 0
+            for part in range(8):
+                e = offs[k] + rank
+                for q in range(8):
+                    if coeffs[8 * part + q]:
+                        ent[e] = ((8 * part + q) << 12) | (
+                            coeffs[8 * part + q] & 0xFFF)
+                        e += 1
+                rank += int((coeffs[8 * part:8 * part + 8] != 0).sum())
+        agg = int(warp.sum())
+        assert sorted(ent) == list(range(agg))
+        own = 0
+        if agg:
+            # the last nonzero of the block whose count is nonzero and
+            # whose inclusive prefix is the partition's count
+            k = [k for k in range(n) if cnt[k] and offs[k] + cnt[k] == agg]
+            assert len(k) == 1
+            coeffs = blocks[b, blk0 + k[0]]
+            q = np.flatnonzero(coeffs)[-1]
+            own = (int(q) << 12) | (coeffs[q] & 0xFFF)
+            assert own == ent[agg - 1]
+        local[p] = (b, i, agg, ent)
+        status[p] = ("agg", agg, agg > 0, own)
+    resolved = {}
+    for p in order_rng.permutation(B * parts):
+        b, i, agg, ent = local[p]
+        excl, has, prev = 0, False, 0
+        if i > 0:
+            j = i - 1
+            while True:
+                window_st = [status[b * parts + j - t] if j - t >= 0
+                             else ("incl", 0, False, 0)
+                             for t in range(window)]
+                done = [lane for lane, st in enumerate(window_st)
+                        if st[0] == "incl"]
+                stop = done[0] if done else window - 1
+                excl += sum(st[1] for st in window_st[:stop + 1])
+                with_field = [st for st in window_st[:stop + 1] if st[2]]
+                if not has and with_field:
+                    has, prev = True, with_field[0][3]
+                if done:
+                    break
+                j -= window
+        last = ent[agg - 1] if agg else prev
+        status[p] = ("incl", excl + agg, agg > 0 or has, last)
+        resolved[p] = (excl, prev, last)
+
+    def write_stream(b, jlo, jhi, byte):
+        lead = (base + b * width + head) % 16
+        c = (jlo + lead) // 16
+        while 16 * c - lead < jhi:
+            j0 = 16 * c - lead
+            if j0 >= jlo and j0 + 16 <= jhi:
+                assert (base + b * width + head + j0) % 16 == 0
+            for j in range(max(j0, jlo), min(j0 + 16, jhi)):
+                put(b, head + j, byte(j - jlo))
+            c += 1
+
+    def stream_byte(lb, entry):
+        assert lb >= -bits
+        e0 = (lb + bits) // bits - 1
+        off = lb - bits * e0
+        part1 = entry(e0 + 1) >> (28 - off) if off > 10 else 0
+        return ((((entry(e0) << off) & 0x3FFFF) >> 10) | part1) & 0xFF
+
+    for p, (b, i, agg, ent) in local.items():
+        o_start, prev, last = resolved[p]
+        o_end = o_start + agg
+        kept = min(o_end, cap)
+        if o_start < kept:
+            def entry(e, ent=ent, n_kept=kept - o_start, prev=prev):
+                assert e >= -1
+                return prev if e < 0 else (ent[e] if e < n_kept else 0)
+
+            jlo = bits * o_start // 8
+            jhi = ((bits * kept + 7) // 8 if o_end >= cap
+                   else bits * kept // 8)
+            c0 = 8 * jlo - bits * o_start
+            write_stream(b, jlo, jhi, lambda l, entry=entry, c0=c0:
+                         stream_byte(8 * l + c0, entry))
+        if i == parts - 1:
+            total = o_end
+            for q in range(4):
+                put(b, q, (total >> (8 * q)) & 0xFF)
+            if 0 < total < cap and (bits * total) % 8:
+                j = bits * total // 8
+                put(b, head + j, stream_byte(
+                    8 * j - bits * (total - 1),
+                    lambda e: last if e == 0 else 0))
+    assert (writes <= 1).all()
+    return wire.astype(np.uint8)
+
+
+def _k4a_case(name):
+    """(y, cb, cr, cap) of i16 coefficients of 128x128 tiles: 384 blocks
+    a tile, three of launch 1's partitions."""
+    import zlib
+
+    rng = np.random.default_rng(zlib.crc32(name.encode()))
+    nby, nbc = 256, 64
+
+    def tiles(B, density, blocks=None):
+        out = []
+        for _ in range(B):
+            v = rng.integers(-2047, 2048, (nby + 2 * nbc, 64))
+            keep = rng.random(v.shape) < density
+            if blocks is not None:
+                keep[~np.isin(np.arange(len(v)), blocks)] = False
+            out.append(np.where(keep, v, 0))
+        c = np.asarray(out, np.int16)
+        return c[:, :nby], c[:, nby:nby + nbc], c[:, nby + nbc:]
+
+    if name == "all_zero":
+        return (*tiles(1, 0.0), 2000)
+    if name == "partition_straddle":
+        # a sparse run of blocks across launch 1's first partition edge,
+        # long zero runs for launch 2's search to cross
+        return (*tiles(1, 0.6, np.r_[3, 120:137, 380]), 2000)
+    if name == "lookback_windows":
+        return (*tiles(2, 0.08), 2000)
+    if name == "mixed_b3":
+        y, cb, cr = (np.concatenate(t) for t in zip(
+            tiles(1, 0.08), tiles(1, 0.005), tiles(1, 0.0)))
+        return y, cb, cr, 1500
+    y, cb, cr = tiles(1, 0.08)
+    total = int(sum((t != 0).sum() for t in (y, cb, cr)))
+    cap = {"total_eq_cap": total, "total_eq_cap_plus_1": total - 1,
+           "cap_1": 1, "random_cap2000": 2000, "random_cap400": 400}[name]
+    return y, cb, cr, cap
+
+
+@pytest.mark.parametrize("name", [
+    "all_zero", "total_eq_cap", "total_eq_cap_plus_1", "cap_1",
+    "partition_straddle", "random_cap2000", "random_cap400", "mixed_b3",
+    "lookback_windows"])
+def test_sparse_pack_kernel_index_model_matches_plain_and_jax(name):
+    """K4a's index arithmetic (block partition, chained prefix with the
+    field before each partition, rank select, byte ownership), modelled in
+    numpy, gives the wire of ``sparse_pack_plain`` and of the JAX
+    ``sparse_pack``, byte for byte."""
+    y, cb, cr, cap = _k4a_case(name)
+    rng = np.random.default_rng(3)
+    want = np.asarray(_jax_sparse_pack(y, cb, cr, cap=cap))
+    np.testing.assert_array_equal(
+        P.sparse_pack_plain(_t(y), _t(cb), _t(cr), cap).numpy(), want)
+    window = 2 if name == "lookback_windows" else None
+    for base in (0, 7):
+        np.testing.assert_array_equal(
+            _k4a_model(y, cb, cr, cap, base, rng, window), want)
+
+
 @pytest.mark.parametrize("n_valid", [3, 2, 0])
 def test_compact_rows_match_jax(n_valid):
     """Row lengths as ``render_to_jpeg_sparse_compact`` takes them (an
@@ -362,10 +581,12 @@ def test_kernel_build_needs_nvcc(monkeypatch):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(8, 64, 96), (1, 30, 40)])
+@pytest.mark.parametrize("shape", [(8, 64, 96), (1, 30, 40), (3, 128, 128)])
 def test_jpeg_kernels_match_plain_on_the_card(shape):
     """On a CUDA card: K3 exact (with flips and an unaligned tile), K4a
-    and K4b byte for byte, against their plain versions."""
+    and K4b byte for byte, against their plain versions; K4a also on an
+    all-zero tile, on the mixed-density B=3 batch of the index model and on
+    a tile of 98304 blocks (768 partitions: three steps of lookback)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (run on the GPU machine)")
     B, h, w = shape
@@ -389,6 +610,16 @@ def test_jpeg_kernels_match_plain_on_the_card(shape):
                 P.compact_sparse_rows(wire, n_valid, cap, nb),
                 P.compact_rows_plain(
                     wire, P.sparse_row_lengths(wire, n_valid, cap, nb)))
+    mixed = _k4a_case("mixed_b3")
+    rng = np.random.default_rng(2)
+    wide = [np.where(rng.random((1, n, 64)) < 0.05,
+                     rng.integers(-2047, 2048, (1, n, 64)), 0).astype(
+                         np.int16) for n in (65536, 16384, 16384)]
+    for c, cap in (([torch.zeros_like(t[:1]) for t in (y, cb, cr)], 1000),
+                   ([_t(a).to(dev) for a in mixed[:3]], mixed[3]),
+                   ([_t(a).to(dev) for a in wide], 400000)):
+        assert torch.equal(P.sparse_pack(*c, cap),
+                           P.sparse_pack_plain(*c, cap))
 
 
 def _f32_nearest(v):

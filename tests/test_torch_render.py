@@ -249,12 +249,15 @@ def test_kernels_match_plain_on_the_card(tables):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("tables", ["ramp", "lut"])
 @pytest.mark.parametrize("shape", [(2, 4, 37, 45), (1, 3, 1, 7),
-                                   (3, 9, 16, 24)])
-def test_ramp_kernel_ragged_unaligned_and_many_channels_on_the_card(shape):
-    """On a CUDA card: the ramp kernel's scalar path (hw % 8 != 0, and a
-    base that is not 16-byte aligned) and more channels than one load
-    chunk holds, against the plain version."""
+                                   (3, 9, 16, 24), (2, 80, 8, 24)])
+def test_ramp_kernel_ragged_unaligned_and_many_channels_on_the_card(
+        shape, tables):
+    """On a CUDA card: each render kernel's scalar path (hw % 8 != 0, and
+    a base that is not 16-byte aligned) and more channels than one load
+    chunk holds, against the plain version.  80 LUT channels are more
+    than the LUT kernel stages at once, so it takes them in chunks."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (run on the GPU machine)")
     rng = np.random.default_rng(6)
@@ -264,10 +267,14 @@ def test_ramp_kernel_ragged_unaligned_and_many_channels_on_the_card(shape):
                                      dev).reshape(-1)
     ws = torch.tensor(rng.uniform(0, 20000, (B, C)), dtype=torch.float32)
     args = [ws, ws + 30000, (torch.arange(C) % 4).repeat(B, 1).int(),
-            torch.full((B, C), 0.7), torch.zeros((B, C)).int()]
+            torch.full((B, C), 0.7), (torch.arange(C) % 3 == 1).repeat(
+                B, 1).int()]
+    tab = (rng.uniform(0, 100 / C, (B, C, 256, 3)) if tables == "lut"
+           else rng.uniform(0, 0.5, (B, C, 3)))
     args = [a.to(dev) for a in args] + [0, 255, torch.tensor(
-        rng.uniform(0, 0.5, (B, C, 3)), dtype=torch.float32, device=dev)]
-    for raw in (flat[:-1].view(B, C, H, W), flat[1:].view(B, C, H, W)):
+        tab, dtype=torch.float32, device=dev)]
+    aligned, unaligned = flat[:-1].view(B, C, H, W), flat[1:].view(B, C, H, W)
+    for raw in (aligned, unaligned):
         got = port_render.render_tile_batch_packed(raw, *args)
         want = port_render.render_tile_batch_packed_plain(raw, *args)
         diff = (got.cpu().numpy().view(np.uint8).astype(int)
