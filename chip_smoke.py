@@ -22,7 +22,9 @@ Phases (any failure ends the run with a non-zero exit and no result line):
            sparse_pack and K4b compact_rows byte for byte, at q 85 and 90
            and B=8, 3 and 1 (K4a also at cap 1000, on an all-zero tile, on
            a B=3 batch with a zero tile in it and on one tile of four
-           tiles' blocks).
+           tiles' blocks; K3 also flipped h, v and hv, on ragged, small,
+           unaligned tiles and on a larger frame; K4b also with n_valid 5
+           and 0 and rows over a cap that gives an odd width).
            Each gets the median device time of 25 launches (CUDA events,
            the L2 flushed before each, a GPU sleep ahead of the timed span
            so the host's enqueue is not in it), the device time of each of
@@ -372,7 +374,7 @@ def jpeg_kernel_phase(torch, np, raw8, args8):
                     lambda: J.packed_to_jpeg_coefficients_plain(packed, q),
                     # packed in, coefficients out, the table block
                     packed.numel() * 4 + sum(t.numel() * 2 for t in got)
-                    + 1024,
+                    + 768,
                     # ~16 f32 operations per pixel for colour and
                     # subsampling, 2 x 8 multiply-adds per coefficient
                     B * H * W * 16 + sum(t.numel() for t in got) * 32),
@@ -400,6 +402,7 @@ def jpeg_kernel_phase(torch, np, raw8, args8):
                 e[key + "quality"] = q
             entries["sparse_pack"][key + "cap"] = cap
             entries["compact_rows"][key + "used_bytes"] = used
+    edge_checks(torch, J, packed8, entries)
     for e in entries.values():
         e["library_ms"] = None
         e["library_note"] = ("no single PyTorch call computes this stage "
@@ -409,6 +412,65 @@ def jpeg_kernel_phase(torch, np, raw8, args8):
               f"{e['b1_ms']:.4f} ms at B=1 (bound {e['b1_bound_ms']:.4f})",
               flush=True)
     return entries
+
+
+def edge_checks(torch, J, packed8, entries):
+    """K3's other paths and K4b's edge cases, each against its plain
+    version with tolerance 0: K3 flipped h, v and hv at B=8; a ragged
+    1000x1000 tile in its 1008^2 frame; a 37x45 tile; 512^2 tiles on a
+    1024^2 frame; a base 4 bytes past a 16-byte boundary.  K4b at B=8
+    with n_valid 8, 5 and 0 on a wire whose cap some rows overflow and
+    whose width is not a multiple of 16."""
+    q = QUALITIES[0]
+    flat = packed8[:2].reshape(-1)
+    k3_cases = [(f"flip {f}", packed8, None, "h" in f, "v" in f)
+                for f in ("h", "v", "hv")]
+    k3_cases += [
+        ("ragged 1000x1000", packed8[:2, :1000, :1000].contiguous(), None,
+         False, False),
+        ("ragged 1000x1000 flip hv", packed8[:2, :1000, :1000].contiguous(),
+         None, True, True),
+        ("37x45", packed8[:3, 100:137, 200:245].contiguous(), None, True,
+         False),
+        ("512^2 on a 1024^2 frame", packed8[:2, :512, :512].contiguous(),
+         (1024, 1024), False, True),
+        ("unaligned base", flat[1:1 + 2 * 1020 * 1024].view(2, 1020, 1024),
+         None, True, False),
+    ]
+    e = entries["jpeg_coefficients"]
+    for label, packed, grid, fh, fv in k3_cases:
+        gh, gw = grid or (None, None)
+        got = J.packed_to_jpeg_coefficients(packed, q, gh, gw, fh, fv)
+        want = J.packed_to_jpeg_coefficients_plain(packed, q, gh, gw, fh,
+                                                   fv)
+        mism = sum(int((g != w).sum()) for g, w in zip(got, want))
+        print(f"check jpeg_coefficients {label} {list(packed.shape)} "
+              f"q{q}: mismatches {mism} (tolerance 0)", flush=True)
+        check(mism == 0, f"jpeg_coefficients {label}: {mism} coefficients "
+                         f"differ from the plain version")
+        e["mismatches"] += mism
+
+    y, cb, cr = J.packed_to_jpeg_coefficients(packed8, q)
+    _, H, W = packed8.shape
+    nb = J.blocks_per_tile(H, W)
+    totals = sorted(J.sparse_pack(y, cb, cr, 1)[:, :4].reshape(-1)
+                    .view(torch.int32).tolist())
+    cap = (totals[3] + totals[4]) // 2     # rows 0..3 of the sort fit
+    while (4 + nb + (J.ENTRY_BITS * cap + 7) // 8) % 16 == 0:
+        cap += 1
+    wire = J.sparse_pack(y, cb, cr, cap)
+    over = int((wire[:, :4].reshape(-1).view(torch.int32) > cap).sum())
+    e = entries["compact_rows"]
+    for nv in (8, 5, 0):
+        d = int((J.compact_sparse_rows(wire, nv, cap, nb)
+                 != J.compact_rows_plain(wire, J.sparse_row_lengths(
+                     wire, nv, cap, nb))).sum())
+        print(f"check compact_rows B=8 n_valid={nv} cap {cap} (width "
+              f"{wire.shape[1]}, {over} rows over the cap): differing "
+              f"bytes {d} (tolerance 0)", flush=True)
+        check(d == 0, f"compact_rows n_valid={nv} differs from the plain "
+                      f"version")
+        e["mismatches"] += d
 
 
 def smoke_lut(np):

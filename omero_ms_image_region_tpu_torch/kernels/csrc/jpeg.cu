@@ -8,12 +8,30 @@
 //   jpeg_coefficients (K3) replaces packed_to_jpeg_coefficients (:110, with
 //       _dct_quant_zigzag :99).  u32 RGBA -> BT.601 YCbCr (luma - 128),
 //       2x2 mean chroma, 8x8 DCT-II D.X.D^T, / quant table, round half to
-//       even, clip +-2047, i16, zigzag.  One warp per 16x16 MCU.  The warp
-//       reads the packed tile at clamped and mirrored coordinates, so the
-//       edge replication of pad_planes_to_mcu (:1632) and the request's
-//       flips never materialise.  Bound: bytes, 4 B/px in and 3 B/px out
-//       (1024^2, B=1: ~7.3 MB, ~2.2 us at 3.35 TB/s); the DCT is ~32 f32
-//       operations per coefficient, far below the card's rate.
+//       even, clip +-2047, i16, zigzag.  Persistent 128-thread blocks walk
+//       the batch's MCUs two at a time (twelve 8x8 blocks).  Warps 0-2 run
+//       the DCT: each of their 96 threads owns one 8-vector, column y of a
+//       block in pass 1 (T[.][y] from X[.][y]) and row u of T in pass 2
+//       (C[u][.]), so each X and T value is one shared load, and D is a
+//       compile-time literal, an immediate operand.  Warp 3 moves bytes: it
+//       copies the next pair's pixels into a double-buffered shared strip
+//       with cp.async (16 bytes a row quad) during pass 1 and stores the
+//       last pair's coefficients during pass 2, so neither waits on
+//       memory.  All four warps convert colour from the strip, one quad a
+//       thread, the 2x2 chroma sums meeting by a shuffle between the two
+//       rows' lanes.  Pass 2 reads its row's quant values and reciprocals
+//       once a pair, divides by a multiply and two FMAs, rounds by an add,
+//       and scatters its 8 coefficients to their zigzag slots in shared
+//       memory; a block's 128 bytes then leave as eight 16-byte stores.
+//       Reads at clamped and mirrored coordinates give the edge
+//       replication of pad_planes_to_mcu (:1632) and the request's flips;
+//       a quad past the tile's right edge or of an unaligned tile is read
+//       pixel by pixel.  Bound: bytes, 4 B/px in and 3 B/px out (1024^2,
+//       B=1: ~7.3 MB, ~2.2 us at 3.35 TB/s); the fixed evaluation order
+//       below leaves ~29 f32 instructions a coefficient and ~17 a pixel,
+//       about as long at the card's instruction rate, and the integer and
+//       shared-memory work around them makes instruction issue, not
+//       memory, what sets its time.
 //   sparse_pack (K4a) replaces sparse_pack (:191).  Per tile the wire
 //       [total i32 LE | counts u8[nb] | 18-bit MSB-first entries
 //       pos << 12 | val & 0xFFF], entries past `cap` dropped, the unused
@@ -33,10 +51,14 @@
 //       the memset's zeros; the tile's last partition writes the total.
 //       Bound: bytes, the coefficients read and the wire written.
 //   compact_rows (K4b) replaces _compact_rows (:400) with the row lengths
-//       of :457-464 (n_valid masking).  One thread reads each row's header
-//       on the card and scans the B lengths; then one grid row per wire row
-//       copies its used prefix behind the lengths header, and one more zero
-//       fills the tail.  Bound: bytes, twice the used prefix.
+//       of :457-464 (n_valid masking).  One launch: every block reads the
+//       B row headers and scans their lengths (a warp scan, 32 rows at a
+//       time), then its threads write the output in 16-byte aligned runs:
+//       a run inside one row's prefix from aligned source words by funnel
+//       shifts, a run of the zero tail as zeros, and the few runs that
+//       straddle the lengths header, a row boundary or an end of the
+//       output byte by byte.  Bound: bytes, the used prefixes read and
+//       the whole output written.
 //
 // Numerics of K3 follow one fixed order: the order in which XLA's CPU
 // backend evaluates the JAX function, found by matching its float32 results
@@ -46,11 +68,13 @@
 //   Y  = fma(0.114, b, fma(0.299, r, 0.587 g)) - 128
 //   Cb = fma(0.5, b, fma(-0.168736, r, -(0.331264 g)))
 //   Cr = fma(-0.081312, b, fma(0.5, r, -(0.418688 g)))
-//   the chroma mean ((a00 + a01) + (a10 + a11)) / 4;
+//   the chroma mean ((a00 + a01) + (a10 + a11)) / 4 (as * 0.25, the same
+//   float: see colour_quad);
 //   each 8-term DCT sum as four lanes, lane s = fma(a[s+4], b[s+4],
 //   a[s] b[s]), added (l0 + l1) + (l2 + l3); first T[u][y] = sum_x
 //   D[u][x] X[x][y], then C[u][v] = sum_y T[u][y] D[v][y];
-//   then / the quant table and rintf (half to even).
+//   then / the quant table (correctly rounded, see divide_q) and rintf
+//   (half to even, see quantize).
 // The plain PyTorch version (ops/jpegenc.py
 // packed_to_jpeg_coefficients_plain) repeats the same operations with a
 // correctly rounded fused multiply-add, so the kernel agrees with it
@@ -61,7 +85,6 @@
 
 namespace {
 
-constexpr int kWarps = 8;              // K3: MCUs (warps) per block
 constexpr int kThreads = 256;
 constexpr int kEntryBits = 18;
 constexpr int kPackThreads = 256;      // K4a
@@ -71,130 +94,356 @@ constexpr unsigned long long kAggregate = 1ull << 62;
 constexpr unsigned long long kInclusive = 2ull << 62;
 constexpr unsigned long long kHasField = 1ull << 61;
 
-// K3's tables, f32[256] on the card: D[u][x] (64), the luma and chroma
-// quant tables in natural order (64 each), and each natural index's zigzag
-// position (64, as exact small floats).  Staged in shared memory, because
-// the lanes of a warp index them at different places.
-constexpr int kTabD = 0, kTabQy = 64, kTabQc = 128, kTabZpos = 192;
-constexpr int kTabSize = 256;
+// K3: a block takes two MCUs at a time, twelve 8x8 blocks (Y0..Y3, Cb, Cr
+// of each); one thread per row quad of 4 pixels (2 x 16 x 4) in the colour
+// phase, and one per 8-vector of a block in the DCT (warps 0-2).
+constexpr int kMcuThreads = 128;
+constexpr int kPairBlocks = 12;
+constexpr int kVecThreads = kPairBlocks * 8;
+// Floats (and i16) a staged 8x8 block: 64 and a pad that puts the blocks
+// of a warp's 8-vectors on distinct banks.
+constexpr int kBlockStride = 72;
+constexpr int kQuantRow = 10;
+
+// K3's table block, f32[192] on the card (ops/jpegenc.py device_tables):
+// the luma and chroma quant tables in natural order, and each natural
+// index's zigzag position.  D is not in it: it is dct_coef() below.
+constexpr int kTabQy = 0;
+constexpr int kTabQc = 64;
+constexpr int kTabZpos = 128;
+constexpr int kTabSize = 192;
+
+// D[u][x] of ops/jpegenc.py dct_matrix(), in float32, bit for bit.  The
+// DCT loops are unrolled, so every index is known at compile time and
+// each term takes its coefficient as an immediate operand.
+__device__ __forceinline__ float dct_coef(int i) {
+  constexpr float kDct[64] = {
+      0x1.6a09e6p-2f, 0x1.6a09e6p-2f, 0x1.6a09e6p-2f, 0x1.6a09e6p-2f,
+      0x1.6a09e6p-2f, 0x1.6a09e6p-2f, 0x1.6a09e6p-2f, 0x1.6a09e6p-2f,
+      0x1.f6297cp-2f, 0x1.a9b662p-2f, 0x1.1c73b4p-2f, 0x1.8f8b84p-4f,
+      -0x1.8f8b84p-4f, -0x1.1c73b4p-2f, -0x1.a9b662p-2f, -0x1.f6297cp-2f,
+      0x1.d906bcp-2f, 0x1.87de2ap-3f, -0x1.87de2ap-3f, -0x1.d906bcp-2f,
+      -0x1.d906bcp-2f, -0x1.87de2ap-3f, 0x1.87de2ap-3f, 0x1.d906bcp-2f,
+      0x1.a9b662p-2f, -0x1.8f8b84p-4f, -0x1.f6297cp-2f, -0x1.1c73b4p-2f,
+      0x1.1c73b4p-2f, 0x1.f6297cp-2f, 0x1.8f8b84p-4f, -0x1.a9b662p-2f,
+      0x1.6a09e6p-2f, -0x1.6a09e6p-2f, -0x1.6a09e6p-2f, 0x1.6a09e6p-2f,
+      0x1.6a09e6p-2f, -0x1.6a09e6p-2f, -0x1.6a09e6p-2f, 0x1.6a09e6p-2f,
+      0x1.1c73b4p-2f, -0x1.f6297cp-2f, 0x1.8f8b84p-4f, 0x1.a9b662p-2f,
+      -0x1.a9b662p-2f, -0x1.8f8b84p-4f, 0x1.f6297cp-2f, -0x1.1c73b4p-2f,
+      0x1.87de2ap-3f, -0x1.d906bcp-2f, 0x1.d906bcp-2f, -0x1.87de2ap-3f,
+      -0x1.87de2ap-3f, 0x1.d906bcp-2f, -0x1.d906bcp-2f, 0x1.87de2ap-3f,
+      0x1.8f8b84p-4f, -0x1.1c73b4p-2f, 0x1.a9b662p-2f, -0x1.f6297cp-2f,
+      0x1.f6297cp-2f, -0x1.a9b662p-2f, 0x1.1c73b4p-2f, -0x1.8f8b84p-4f,
+  };
+  return kDct[i];
+}
 
 // BT.601 full-range weights (ops/jpegenc.py:129-131), as float32.
 constexpr float kYr = 0.299f, kYg = 0.587f, kYb = 0.114f;
 constexpr float kCbr = -0.168736f, kCbg = 0.331264f, kCbb = 0.5f;
 constexpr float kCrr = 0.5f, kCrg = 0.418688f, kCrb = 0.081312f;
 
+// Byte k of px as a float, exactly and without a conversion instruction:
+// the bits 0x4B0000bb are the float 2^23 + bb.
+__device__ __forceinline__ float byte_f(int32_t px, int k) {
+  return __fsub_rn(__int_as_float(static_cast<int>(
+                       __byte_perm(px, 0x4B000000, 0x7540 | k))),
+                   8388608.f);
+}
+
 __device__ __forceinline__ void ycbcr(int32_t px, float* y, float* cb,
                                       float* cr) {
-  const float r = static_cast<float>(px & 0xFF);
-  const float g = static_cast<float>((px >> 8) & 0xFF);
-  const float b = static_cast<float>((px >> 16) & 0xFF);
+  const float r = byte_f(px, 0);
+  const float g = byte_f(px, 1);
+  const float b = byte_f(px, 2);
   *y = __fsub_rn(__fmaf_rn(kYb, b, __fmaf_rn(kYr, r, __fmul_rn(kYg, g))),
                  128.f);
   *cb = __fmaf_rn(kCbb, b, __fmaf_rn(kCbr, r, -__fmul_rn(kCbg, g)));
   *cr = __fmaf_rn(-kCrb, b, __fmaf_rn(kCrr, r, -__fmul_rn(kCrg, g)));
 }
 
-// sum_k a[k * as] * b[k * bs] over k = 0..7 in XLA's order: four lanes,
-// each a product and one fused multiply-add, then a pairwise sum.
-__device__ __forceinline__ float dot8(const float* a, int as, const float* b,
-                                     int bs) {
+// rintf(x) clipped to +-2047, as i16, without a conversion instruction:
+// for |x| < 2^22, x + 1.5 * 2^23 rounds x to an integer n half to even, as
+// rintf does, and its bits are 0x4B400000 + n, whose low 16 bits are n as
+// an i16.  The clip never binds: |X| <= 128 (YCbCr of bytes, luma - 128),
+// and sum_x |D[u][x]| <= 8 * 0.35356 for every u, so |C| <= 128 * 2.8285^2
+// < 1025 and |C / q| < 1025 for q >= 1.
+__device__ __forceinline__ int16_t quantize(float x) {
+  return static_cast<int16_t>(__float_as_int(__fadd_rn(x, 12582912.f)));
+}
+
+// n / d for 0 <= n < 2^31 by a multiply-high and a shift: mul =
+// ceil(2^(31 + l) / d), l = ceil(log2 d), shr = l - 1 (Granlund and
+// Montgomery; the magic numbers of CUTLASS's FastDivmod).
+struct FastDiv {
+  int d;
+  unsigned mul, shr;
+};
+
+FastDiv fast_div(int d) {
+  int l = 0;
+  while ((1ll << l) < d) ++l;
+  if (d == 1) return {1, 0u, 0u};
+  return {d, static_cast<unsigned>(((1ull << (31 + l)) + d - 1) / d),
+          static_cast<unsigned>(l - 1)};
+}
+
+__device__ __forceinline__ int divide_by(int n, FastDiv f) {
+  return f.d == 1 ? n
+                  : static_cast<int>(__umulhi(static_cast<unsigned>(n),
+                                              f.mul) >> f.shr);
+}
+
+// sum_k a(k) * b(k) over k = 0..7 in XLA's order: four lanes, each a
+// product and one fused multiply-add, then a pairwise sum.
+template <typename A, typename Bv>
+__device__ __forceinline__ float dot8(A a, Bv b) {
   float l[4];
 #pragma unroll
   for (int s = 0; s < 4; ++s)
-    l[s] = __fmaf_rn(a[(s + 4) * as], b[(s + 4) * bs],
-                     __fmul_rn(a[s * as], b[s * bs]));
+    l[s] = __fmaf_rn(a(s + 4), b(s + 4), __fmul_rn(a(s), b(s)));
   return __fadd_rn(__fadd_rn(l[0], l[1]), __fadd_rn(l[2], l[3]));
 }
 
-// K3.  Warp w of the grid-stride walk takes MCU m of tile b.  Shared, per
-// warp: X[6][64] (four luma blocks, Cb, Cr; natural order) and T[6][64].
-__global__ void __launch_bounds__(kThreads)
-jpeg_coefficients_kernel(const int32_t* __restrict__ packed, int B, int h,
-                         int w, int mh, int mw, int flip_h, int flip_v,
+// acc / q rounded to nearest even, as __fdiv_rn gives it, with inv =
+// RN(1 / q) (render.cu divide(), Markstein's theorem).  Its conditions
+// hold here: q is an integer 1..255, and every nonzero acc is at least
+// 2^-83 in magnitude (pixels are integers and D's entries multiples of
+// 2^-27, so X is made of multiples of 2^-29, T of 2^-56 and acc of
+// 2^-83), which keeps the residual acc - RN(acc inv) q a normal float,
+// computed exactly by the inner fused multiply-add.
+__device__ __forceinline__ float divide_q(float acc, float q, float inv) {
+  const float r = __fmul_rn(acc, inv);
+  return __fmaf_rn(__fmaf_rn(-r, q, acc), inv, r);
+}
+
+// 16 bytes from global to shared memory without a register (cp.async,
+// L2 only); complete after cp_async_wait() in the issuing thread.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(smem))),
+               "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::
+                   : "memory");
+}
+
+// Where MCU m's pixels and coefficients are: its tile b and MCU row and
+// column.
+struct Mcu {
+  int b, mi, my, mx;
+};
+
+__device__ __forceinline__ Mcu mcu_at(int m, FastDiv mcus, FastDiv mw) {
+  Mcu c;
+  c.b = divide_by(m, mcus);
+  c.mi = m - c.b * mcus.d;
+  c.my = divide_by(c.mi, mw);
+  c.mx = c.mi - c.my * mw.d;
+  return c;
+}
+
+// K3.  Block x takes MCU pairs x, x + gridDim.x, ...: MCUs 2p and 2p + 1
+// of the batch in flat (tile, MCU row, MCU column) order.  Warps 0-2 run
+// the DCT; warp 3 moves bytes: it copies the next pair's pixels into the
+// other half of a double-buffered strip with cp.async while the DCT warps
+// run pass 1, and stores the previous pair's coefficients while they run
+// pass 2.  All four warps convert colour.  Shared: the strip (128 row
+// quads a pair), X and T of the pair's twelve blocks (T transposed,
+// Tt[k][y][u]) and Z, their zigzagged i16 (double-buffered).
+__global__ void __launch_bounds__(kMcuThreads)
+jpeg_coefficients_kernel(const int32_t* __restrict__ packed, int all, int h,
+                         int w, FastDiv mcus, FastDiv mw, int flip_h,
+                         int flip_v, int vec,
                          const float* __restrict__ tables,
                          int16_t* __restrict__ out_y,
                          int16_t* __restrict__ out_cb,
                          int16_t* __restrict__ out_cr) {
-  __shared__ float xs[kWarps][6 * 64];
-  __shared__ float ts[kWarps][6 * 64];
-  __shared__ float tab[kTabSize];
-  for (int i = threadIdx.x; i < kTabSize; i += blockDim.x) tab[i] = tables[i];
-  __syncthreads();
-  const float* D = tab + kTabD;
-  const int lane = threadIdx.x & 31;
-  const int wib = threadIdx.x >> 5;
-  float* X = xs[wib];
-  float* T = ts[wib];
-  const long long mcus = static_cast<long long>(mh) * mw;
-  const long long all = mcus * B;
+  __shared__ __align__(16) int4 strip[2][kMcuThreads];
+  __shared__ __align__(16) float xs[kPairBlocks * kBlockStride];
+  __shared__ __align__(16) float ts[kPairBlocks * kBlockStride];
+  __shared__ __align__(16) int16_t zs[2][kPairBlocks * kBlockStride];
+  // The quant tables as (q, RN(1 / q)) in rows of kQuantRow float2 (a pad
+  // that keeps a quarter warp's 16-byte loads of 8 rows on distinct
+  // banks); read by pass 2 once a pair.
+  __shared__ __align__(16) float2 quant[2 * 8 * kQuantRow];
+  const int t = threadIdx.x;
+  const int pairs = (all + 1) / 2;
   const long long hw = static_cast<long long>(h) * w;
+  if (t < 64) {
+    const int row = (t >> 3) * kQuantRow + (t & 7);
+    const float qy = tables[kTabQy + t], qc = tables[kTabQc + t];
+    quant[row] = make_float2(qy, __frcp_rn(qy));
+    quant[8 * kQuantRow + row] = make_float2(qc, __frcp_rn(qc));
+  }
 
-  for (long long m = static_cast<long long>(blockIdx.x) * kWarps + wib;
-       m < all; m += static_cast<long long>(gridDim.x) * kWarps) {
-    const int b = static_cast<int>(m / mcus);
-    const int mi = static_cast<int>(m - static_cast<long long>(b) * mcus);
-    const int my = mi / mw, mx = mi - (mi / mw) * mw;
-    const int32_t* tile = packed + static_cast<long long>(b) * hw;
-
-    // Colour and subsample: lane handles chroma pixels lane and lane + 32,
-    // each the mean of a 2x2 luma quad.
+  // Warp 3: pair p's 128 row quads into strip[buf], four a lane.  Quad i
+  // is MCU 2p + (i >> 6), frame row (i >> 2) & 15, columns 4 (i & 3) ..
+  // + 3; a quad past the tile's right edge, or of an unaligned tile, is
+  // read pixel by pixel.  Under flip_h every quad is stored mirrored (its
+  // last pixel first), and the colour phase reverses it.
+  auto fetch = [&](int p, int buf) {
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
-      const int ci = lane + 32 * half;
-      const int cy = ci >> 3, cx = ci & 7;
-      float cbs[4], crs[4];
+      const int m = 2 * p + half;
+      if (m >= all) continue;
+      const Mcu c = mcu_at(m, mcus, mw);
+      const int32_t* tile = packed + c.b * hw;
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int ly = 2 * cy + (q >> 1), lx = 2 * cx + (q & 1);
-        int sy = min(my * 16 + ly, h - 1);
-        int sx = min(mx * 16 + lx, w - 1);
+      for (int s = 0; s < 2; ++s) {
+        const int i = 64 * half + 32 * s + (t & 31);
+        const int fy = c.my * 16 + ((i >> 2) & 15);
+        const int fx0 = c.mx * 16 + 4 * (i & 3);
+        int sy = min(fy, h - 1);
         if (flip_v) sy = h - 1 - sy;
-        if (flip_h) sx = w - 1 - sx;
-        float yv;
-        ycbcr(__ldg(tile + static_cast<long long>(sy) * w + sx), &yv, &cbs[q],
-              &crs[q]);
-        X[((ly >> 3) * 2 + (lx >> 3)) * 64 + (ly & 7) * 8 + (lx & 7)] = yv;
-      }
-      X[4 * 64 + ci] = __fdiv_rn(
-          __fadd_rn(__fadd_rn(cbs[0], cbs[1]), __fadd_rn(cbs[2], cbs[3])),
-          4.f);
-      X[5 * 64 + ci] = __fdiv_rn(
-          __fadd_rn(__fadd_rn(crs[0], crs[1]), __fadd_rn(crs[2], crs[3])),
-          4.f);
-    }
-    __syncwarp();
-
-    // Pass 1: T[k][u][y] = sum_x D[u][x] X[k][x][y].
+        const int32_t* row = tile + static_cast<long long>(sy) * w;
+        if (vec && fx0 + 3 < w) {
+          cp_async16(&strip[buf][i], row + (flip_h ? w - 4 - fx0 : fx0));
+        } else {
+          int px[4];
 #pragma unroll
-    for (int i = 0; i < 12; ++i) {
-      const int o = lane + 32 * i;
-      const int k = o >> 6, u = (o >> 3) & 7, yy = o & 7;
-      T[o] = dot8(D + u * 8, 1, X + k * 64 + yy, 8);
-    }
-    __syncwarp();
-
-    // Pass 2: C[k][u][v] = sum_y T[k][u][y] D[v][y]; quantize, zigzag.
-#pragma unroll
-    for (int i = 0; i < 12; ++i) {
-      const int o = lane + 32 * i;
-      const int k = o >> 6, n = o & 63, u = n >> 3, v = n & 7;
-      const float acc = dot8(T + k * 64 + u * 8, 1, D + v * 8, 1);
-      const float qt = tab[(k < 4 ? kTabQy : kTabQc) + n];
-      const float q = fminf(fmaxf(rintf(__fdiv_rn(acc, qt)), -2047.f), 2047.f);
-      int16_t* dst;
-      if (k < 4) {
-        const long long blk =
-            static_cast<long long>(2 * my + (k >> 1)) * (2 * mw) + 2 * mx +
-            (k & 1);
-        dst = out_y + (static_cast<long long>(b) * 4 * mcus + blk) * 64;
-      } else {
-        dst = (k == 4 ? out_cb : out_cr) +
-              (static_cast<long long>(b) * mcus + mi) * 64;
+          for (int q = 0; q < 4; ++q) {
+            int sx = min(fx0 + q, w - 1);
+            if (flip_h) sx = w - 1 - sx;
+            px[q] = __ldg(row + sx);
+          }
+          strip[buf][i] = flip_h ? make_int4(px[3], px[2], px[1], px[0])
+                                 : make_int4(px[0], px[1], px[2], px[3]);
+        }
       }
-      dst[static_cast<int>(tab[kTabZpos + n])] = static_cast<int16_t>(q);
     }
-    __syncwarp();
+  };
+  // Warp 3: the coefficients of pair p from zs[buf], three 16-byte chunks
+  // a lane, chunk l & 7 of blocks (l >> 3) + 4s; 8 lanes write a block's
+  // 128 bytes.  Each MCU's Y0 and chroma offsets are found once.
+  auto store = [&](int p, int buf) {
+    const int lane = t & 31;
+    long long ybase[2], cbase[2];
+#pragma unroll
+    for (int h2 = 0; h2 < 2; ++h2) {
+      const Mcu c = mcu_at(min(2 * p + h2, all - 1), mcus, mw);
+      ybase[h2] = (static_cast<long long>(c.b) * 4 * mcus.d +
+                   2LL * c.my * (2 * mw.d) + 2 * c.mx) * 64;
+      cbase[h2] = (static_cast<long long>(c.b) * mcus.d + c.mi) * 64;
+    }
+#pragma unroll
+    for (int s = 0; s < 3; ++s) {
+      const int k = (lane >> 3) + 4 * s;
+      const bool second = k >= 6;
+      const int kind = second ? k - 6 : k;
+      if (2 * p + second >= all) continue;
+      int16_t* dst =
+          kind < 4 ? out_y + (second ? ybase[1] : ybase[0]) +
+                         ((kind >> 1) * 2 * mw.d + (kind & 1)) * 64
+                   : (kind == 4 ? out_cb : out_cr) +
+                         (second ? cbase[1] : cbase[0]);
+      reinterpret_cast<uint4*>(dst)[lane & 7] =
+          *reinterpret_cast<const uint4*>(zs[buf] + k * kBlockStride +
+                                          (lane & 7) * 8);
+    }
+  };
+
+  // The DCT: block k of the pair (0..5 the first MCU's Y0..Y3, Cb, Cr;
+  // 6..11 the second's), vector e of it (column y in pass 1, row u in
+  // pass 2).  Colour: quad t of the strip, MCU 2p + half, frame row r,
+  // columns 4j .. 4j + 3; the row's partner (r ^ 1) is lane ^ 4.
+  const int k = t >> 3, e = t & 7;
+  const bool dct = t < kVecThreads;
+  const int kind = k % 6;
+  const int half = t >> 6, r = (t >> 2) & 15, j = t & 3;
+  // Where row e's 8 coefficients go in Z: block k's zigzag positions.
+  int zoff[8];
+#pragma unroll
+  for (int v = 0; v < 8; ++v)
+    zoff[v] = k * kBlockStride +
+              (dct ? static_cast<int>(tables[kTabZpos + e * 8 + v]) : 0);
+
+  int p = blockIdx.x, buf = 0;
+  if (!dct && p < pairs) fetch(p, 0);
+  for (; p < pairs; p += gridDim.x, buf ^= 1) {
+    if (!dct) cp_async_wait();
+    __syncthreads();
+
+    // Colour: luma as one 16-byte store; the 2x2 chroma sums, the top row
+    // forming Cb and the bottom row Cr of two chroma columns.  x / 4 and
+    // x * 0.25 are the same float while x / 4 is normal, and every
+    // nonzero sum here is at least 2^-27 (a multiple of the weights'
+    // ulps).
+    {
+      int4 cur = strip[buf][t];
+      if (flip_h) cur = make_int4(cur.w, cur.z, cur.y, cur.x);
+      float yv[4], cbv[4], crv[4];
+      ycbcr(cur.x, &yv[0], &cbv[0], &crv[0]);
+      ycbcr(cur.y, &yv[1], &cbv[1], &crv[1]);
+      ycbcr(cur.z, &yv[2], &cbv[2], &crv[2]);
+      ycbcr(cur.w, &yv[3], &cbv[3], &crv[3]);
+      *reinterpret_cast<float4*>(
+          xs + (half * 6 + (r >> 3) * 2 + (j >> 1)) * kBlockStride +
+          (r & 7) * 8 + 4 * (j & 1)) = make_float4(yv[0], yv[1], yv[2],
+                                                   yv[3]);
+      const bool top = (r & 1) == 0;
+      const float cb0 = __fadd_rn(cbv[0], cbv[1]);
+      const float cb1 = __fadd_rn(cbv[2], cbv[3]);
+      const float cr0 = __fadd_rn(crv[0], crv[1]);
+      const float cr1 = __fadd_rn(crv[2], crv[3]);
+      const float o0 = __shfl_xor_sync(0xFFFFFFFFu, top ? cr0 : cb0, 4);
+      const float o1 = __shfl_xor_sync(0xFFFFFFFFu, top ? cr1 : cb1, 4);
+      const float c0 = top ? __fadd_rn(cb0, o0) : __fadd_rn(o0, cr0);
+      const float c1 = top ? __fadd_rn(cb1, o1) : __fadd_rn(o1, cr1);
+      *reinterpret_cast<float2*>(
+          xs + (half * 6 + (top ? 4 : 5)) * kBlockStride + (r >> 1) * 8 +
+          2 * j) = make_float2(__fmul_rn(c0, 0.25f), __fmul_rn(c1, 0.25f));
+    }
+    __syncthreads();
+
+    if (dct) {
+      // Pass 1: T[u][y] = sum_x D[u][x] X[x][y] for y = e.
+      float x[8], col[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) x[i] = xs[k * kBlockStride + i * 8 + e];
+#pragma unroll
+      for (int u = 0; u < 8; ++u)
+        col[u] = dot8([&](int i) { return dct_coef(u * 8 + i); },
+                      [&](int i) { return x[i]; });
+      float4* tt = reinterpret_cast<float4*>(ts + k * kBlockStride + e * 8);
+      tt[0] = make_float4(col[0], col[1], col[2], col[3]);
+      tt[1] = make_float4(col[4], col[5], col[6], col[7]);
+    } else if (p + static_cast<int>(gridDim.x) < pairs) {
+      fetch(p + gridDim.x, buf ^ 1);
+    }
+    __syncthreads();
+
+    if (dct) {
+      // Pass 2: C[u][v] = sum_y T[u][y] D[v][y] for u = e; quantize,
+      // zigzag.
+      float row[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) row[i] = ts[k * kBlockStride + i * 8 + e];
+      float2 qrow[8];
+      const float4* qsrc = reinterpret_cast<const float4*>(
+          quant + (kind < 4 ? 0 : 8 * kQuantRow) + e * kQuantRow);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float4 q2 = qsrc[i];
+        qrow[2 * i] = make_float2(q2.x, q2.y);
+        qrow[2 * i + 1] = make_float2(q2.z, q2.w);
+      }
+#pragma unroll
+      for (int v = 0; v < 8; ++v) {
+        const float acc = dot8([&](int i) { return row[i]; },
+                               [&](int i) { return dct_coef(v * 8 + i); });
+        zs[buf][zoff[v]] = quantize(divide_q(acc, qrow[v].x, qrow[v].y));
+      }
+    } else if (p != static_cast<int>(blockIdx.x)) {
+      store(p - gridDim.x, buf ^ 1);
+    }
   }
+  // The last pair's coefficients.
+  __syncthreads();
+  if (!dct && p != static_cast<int>(blockIdx.x))
+    store(p - gridDim.x, buf ^ 1);
 }
 
 // Coefficients 8 * part .. 8 * part + 7 of flat block `blk` of tile b,
@@ -530,63 +779,137 @@ sparse_pack_kernel(const int16_t* __restrict__ y,
   }
 }
 
-// K4b, launch 1 (one thread): row lengths from the wire headers, written
-// as the i32 LE lengths header; offs[0..B] their exclusive scan.
-__global__ void compact_lengths_kernel(const uint8_t* __restrict__ wire,
-                                       int B, long long width, int n_valid,
-                                       int cap, long long nb,
-                                       uint8_t* __restrict__ out,
-                                       long long* __restrict__ offs) {
-  if (threadIdx.x != 0 || blockIdx.x != 0) return;
-  long long run = 0;
-  for (int b = 0; b < B; ++b) {
-    const uint8_t* hdr = wire + static_cast<long long>(b) * width;
-    const int32_t total = static_cast<int32_t>(
-        static_cast<uint32_t>(hdr[0]) | (static_cast<uint32_t>(hdr[1]) << 8) |
-        (static_cast<uint32_t>(hdr[2]) << 16) |
-        (static_cast<uint32_t>(hdr[3]) << 24));
-    const long long kept = total < cap ? total : cap;
-    int32_t len = static_cast<int32_t>(
-        total <= cap ? 4 + nb + (kEntryBits * kept + 7) / 8 : 4 + nb);
-    if (b >= n_valid) len = 0;
-    out[4 * b] = static_cast<uint8_t>(len & 0xFF);
-    out[4 * b + 1] = static_cast<uint8_t>((len >> 8) & 0xFF);
-    out[4 * b + 2] = static_cast<uint8_t>((len >> 16) & 0xFF);
-    out[4 * b + 3] = static_cast<uint8_t>((len >> 24) & 0xFF);
-    offs[b] = run;
-    run += len;
-  }
-  offs[B] = run;
+// K4b.  The used bytes of row b: header, counts and kept entries; header
+// and counts alone for a row that overflowed cap; none at or past n_valid.
+__device__ __forceinline__ long long row_length(const uint8_t* wire, int b,
+                                                long long width, int n_valid,
+                                                int cap, long long nb) {
+  if (b >= n_valid) return 0;
+  const uint8_t* hdr = wire + static_cast<long long>(b) * width;
+  const int32_t total = static_cast<int32_t>(
+      static_cast<uint32_t>(__ldg(hdr)) |
+      (static_cast<uint32_t>(__ldg(hdr + 1)) << 8) |
+      (static_cast<uint32_t>(__ldg(hdr + 2)) << 16) |
+      (static_cast<uint32_t>(__ldg(hdr + 3)) << 24));
+  const long long kept = total < cap ? total : cap;
+  return total <= cap ? 4 + nb + (kEntryBits * kept + 7) / 8 : 4 + nb;
 }
 
-// K4b, launch 2: grid row r < B copies row r's prefix to 4B + offs[r];
-// grid row B zero-fills everything after the last row.
+// The row whose prefix holds byte d of the data (d < offs[B]): the last r
+// with offs[r] <= d (rows of length 0 share their successor's offset).
+__device__ __forceinline__ int row_of(const long long* offs, int B,
+                                      long long d) {
+  int lo = 0, hi = B;   // offs[lo] <= d < offs[hi]
+  while (hi - lo > 1) {
+    const int mid = (lo + hi) >> 1;
+    if (offs[mid] <= d) lo = mid; else hi = mid;
+  }
+  return lo;
+}
+
+// K4b, one launch.  out = [lengths i32 LE x B | row prefixes | zeros], n
+// bytes, written by 16-byte runs of aligned addresses: run c holds bytes
+// 16c - lead .. 16c - lead + 15 (lead = out's address mod 16).  Each block
+// first scans the row lengths into offs (dynamic shared memory, B + 1).
 __global__ void __launch_bounds__(kThreads)
-compact_copy_kernel(const uint8_t* __restrict__ wire, int B,
-                    long long width, const long long* __restrict__ offs,
+compact_rows_kernel(const uint8_t* __restrict__ wire, int B, long long width,
+                    int n_valid, int cap, long long nb,
                     uint8_t* __restrict__ out) {
-  const int r = blockIdx.y;
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  const long long start = static_cast<long long>(blockIdx.x) * blockDim.x +
-                          threadIdx.x;
-  uint8_t* dst = out + 4LL * B + offs[r];
-  if (r < B) {
-    const long long len = offs[r + 1] - offs[r];
-    const uint8_t* src = wire + static_cast<long long>(r) * width;
-    for (long long i = start; i < len; i += stride) dst[i] = src[i];
-  } else {
-    const long long len = static_cast<long long>(B) * width - offs[B];
-    for (long long i = start; i < len; i += stride) dst[i] = 0;
+  extern __shared__ long long offs[];
+  if (threadIdx.x < 32) {
+    const int lane = threadIdx.x;
+    long long carry = 0;
+    for (int c = 0; c < B; c += 32) {
+      const int r = c + lane;
+      const long long len =
+          r < B ? row_length(wire, r, width, n_valid, cap, nb) : 0;
+      long long incl = len;
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const long long v = __shfl_up_sync(0xFFFFFFFFu, incl, d);
+        if (lane >= d) incl += v;
+      }
+      if (r < B) offs[r] = carry + incl - len;
+      carry += __shfl_sync(0xFFFFFFFFu, incl, 31);
+    }
+    if (lane == 0) offs[B] = carry;
+  }
+  __syncthreads();
+  const long long head = 4LL * B, data = offs[B];
+  const long long n = head + static_cast<long long>(B) * width;
+  const long long lead =
+      static_cast<long long>(reinterpret_cast<uintptr_t>(out) & 15u);
+  const long long runs = (n + lead + 15) / 16;
+  // Output byte o, one at a time.
+  auto byte_at = [&](long long o) -> uint32_t {
+    if (o < head) {
+      const int r = static_cast<int>(o >> 2);
+      return static_cast<uint32_t>((offs[r + 1] - offs[r]) >> (8 * (o & 3))) &
+             0xFFu;
+    }
+    const long long d = o - head;
+    if (d >= data) return 0u;
+    const int r = row_of(offs, B, d);
+    return __ldg(wire + static_cast<long long>(r) * width + d - offs[r]);
+  };
+  for (long long c = static_cast<long long>(blockIdx.x) * blockDim.x +
+                     threadIdx.x;
+       c < runs; c += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const long long o0 = 16 * c - lead;
+    uint4* dst = reinterpret_cast<uint4*>(out + o0);
+    const bool whole = o0 >= 0 && o0 + 16 <= n;
+    if (whole && o0 >= head + data) {          // the zero tail
+      *dst = make_uint4(0u, 0u, 0u, 0u);
+      continue;
+    }
+    if (whole && o0 >= head) {
+      const long long d0 = o0 - head;
+      const int r = row_of(offs, B, d0);
+      if (d0 + 16 <= offs[r + 1]) {            // inside row r's prefix
+        const uint8_t* src =
+            wire + static_cast<long long>(r) * width + d0 - offs[r];
+        const int sh = static_cast<int>(reinterpret_cast<uintptr_t>(src) & 3u);
+        const uint32_t* ws = reinterpret_cast<const uint32_t*>(src - sh);
+        uint32_t wd[5];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) wd[i] = __ldg(ws + i);
+        wd[4] = sh ? __ldg(ws + 4) : 0u;
+        uint32_t o[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          o[i] = __funnelshift_r(wd[i], wd[i + 1], 8 * sh);
+        *dst = make_uint4(o[0], o[1], o[2], o[3]);
+        continue;
+      }
+    }
+    // A run across the lengths header, a row boundary or the data's end,
+    // or at an end of the output.
+    uint32_t o[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const long long oi = o0 + i;
+      if (oi >= 0 && oi < n) o[i >> 2] |= byte_at(oi) << (8 * (i & 3));
+    }
+    if (whole) {
+      *dst = make_uint4(o[0], o[1], o[2], o[3]);
+    } else {
+      for (int i = 0; i < 16; ++i) {
+        const long long oi = o0 + i;
+        if (oi >= 0 && oi < n)
+          out[oi] = static_cast<uint8_t>(o[i >> 2] >> (8 * (i & 3)));
+      }
+    }
   }
 }
 
-int resident_blocks(const void* kernel, int threads, int fallback) {
+int resident_blocks(const void* kernel, int threads, int fallback,
+                    size_t smem = 0) {
   int dev = 0, sms = 0, per_sm = 0;
   if (cudaGetDevice(&dev) != cudaSuccess ||
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
           cudaSuccess ||
       cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads,
-                                                    0) != cudaSuccess ||
+                                                    smem) != cudaSuccess ||
       per_sm < 1)
     return fallback;
   return sms * per_sm;
@@ -603,22 +926,34 @@ unsigned grid_for(long long work, int per_block, int resident) {
 // Plain C interface, loaded with ctypes.  Each returns cudaGetLastError()
 // after its launches (0 = launched).
 
-// K3.  packed i32[B, h, w]; tables f32[256] on the card (layout above);
+// K3.  packed i32[B, h, w]; tables f32[192] on the card (layout above);
 // out_y i16[B, 4*mh*mw, 64], out_cb / out_cr i16[B, mh*mw, 64] for an
-// mh x mw grid of 16x16 MCUs (mh*16 >= h, mw*16 >= w).
+// mh x mw grid of 16x16 MCUs (mh*16 >= h, mw*16 >= w); the outputs 16-byte
+// aligned.
 extern "C" int jpeg_coefficients_launch(const void* packed, int B, int h,
                                         int w, int mh, int mw, int flip_h,
                                         int flip_v, const void* tables,
                                         void* out_y, void* out_cb,
                                         void* out_cr, void* stream) {
   const long long all = static_cast<long long>(mh) * mw * B;
+  if (all > 0x7FFFFFFELL) return cudaErrorInvalidConfiguration;
+  if (((reinterpret_cast<uintptr_t>(out_y) |
+        reinterpret_cast<uintptr_t>(out_cb) |
+        reinterpret_cast<uintptr_t>(out_cr)) & 15u) != 0)
+    return cudaErrorMisalignedAddress;
+  const int vec =
+      (reinterpret_cast<uintptr_t>(packed) & 15u) == 0 && w % 4 == 0;
   const int resident = resident_blocks(
-      reinterpret_cast<const void*>(jpeg_coefficients_kernel), kThreads, 132);
-  jpeg_coefficients_kernel<<<grid_for(all, kWarps, resident), kThreads, 0,
+      reinterpret_cast<const void*>(jpeg_coefficients_kernel), kMcuThreads,
+      132);
+  jpeg_coefficients_kernel<<<grid_for((all + 1) / 2, 1, resident),
+                             kMcuThreads, 0,
                              static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(packed), B, h, w, mh, mw, flip_h, flip_v,
-      static_cast<const float*>(tables), static_cast<int16_t*>(out_y),
-      static_cast<int16_t*>(out_cb), static_cast<int16_t*>(out_cr));
+      static_cast<const int32_t*>(packed), static_cast<int>(all), h, w,
+      fast_div(mh * mw), fast_div(mw), flip_h, flip_v, vec,
+      static_cast<const float*>(tables),
+      static_cast<int16_t*>(out_y), static_cast<int16_t*>(out_cb),
+      static_cast<int16_t*>(out_cr));
   return cudaGetLastError();
 }
 
@@ -659,23 +994,26 @@ extern "C" int sparse_pack_launch(const void* y, const void* cb,
   return cudaGetLastError();
 }
 
-// K4b.  wire u8[B, width] -> out u8[4B + B * width]; scratch offs
-// i64[B + 1].
+// K4b.  wire u8[B, width] -> out u8[4B + B * width]; one launch, no
+// scratch (the row offsets live in each block's shared memory).
 extern "C" int compact_rows_launch(const void* wire, int B, long long width,
                                    int n_valid, int cap, long long nb,
-                                   void* out, void* offs, void* stream) {
-  const auto s = static_cast<cudaStream_t>(stream);
-  const auto* w8 = static_cast<const uint8_t*>(wire);
-  auto* o8 = static_cast<uint8_t*>(out);
-  auto* offs64 = static_cast<long long*>(offs);
-  compact_lengths_kernel<<<1, 32, 0, s>>>(w8, B, width, n_valid, cap, nb, o8,
-                                          offs64);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const int res = resident_blocks(
-      reinterpret_cast<const void*>(compact_copy_kernel), kThreads, 132);
-  const int per_row = res / (B + 1) > 0 ? res / (B + 1) : 1;
-  const dim3 grid(grid_for(width, kThreads, per_row), B + 1);
-  compact_copy_kernel<<<grid, kThreads, 0, s>>>(w8, B, width, offs64, o8);
+                                   void* out, void* stream) {
+  const size_t smem = (static_cast<size_t>(B) + 1) * sizeof(long long);
+  if (B < 1) return cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        compact_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  const long long n = 4LL * B + static_cast<long long>(B) * width;
+  const int resident = resident_blocks(
+      reinterpret_cast<const void*>(compact_rows_kernel), kThreads, 132,
+      smem);
+  compact_rows_kernel<<<grid_for(n / 16 + 2, kThreads, resident),
+                        kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(wire), B, width, n_valid, cap, nb,
+      static_cast<uint8_t*>(out));
   return cudaGetLastError();
 }

@@ -13,8 +13,9 @@ Counterparts of the stages of the JAX package's device program
 All three live in ``csrc/jpeg.cu`` behind a plain ``extern "C"`` interface,
 built and loaded by :mod:`.build` on first use; a build failure raises.
 Each wrapper takes CUDA tensors only, checks them, allocates its outputs
-and scratch with ``torch.empty``, launches on the current stream, raises if
-a launch was refused, and counts one launch in :data:`LAUNCHES` per call.
+(and K4a's status words) with ``torch.empty``, launches on the current
+stream, raises if a launch was refused, and counts one launch in
+:data:`LAUNCHES` per call.
 The plain PyTorch versions are in ``ops/jpegenc.py``, whose dispatchers
 send CPU tensors there and CUDA tensors here.
 """
@@ -58,7 +59,7 @@ def _configure(lib: ctypes.CDLL) -> None:
     lib.sparse_pack_launch.argtypes = [p, p, p, i, ll, ll, i, p, ll, ll, p]
     lib.sparse_pack_status_words.argtypes = [i, ll]
     lib.sparse_pack_status_words.restype = ll
-    lib.compact_rows_launch.argtypes = [p, i, ll, i, i, ll, p, p, p]
+    lib.compact_rows_launch.argtypes = [p, i, ll, i, i, ll, p, p]
     for fn in (lib.jpeg_coefficients_launch, lib.sparse_pack_launch,
                lib.compact_rows_launch):
         fn.restype = ctypes.c_int
@@ -96,14 +97,14 @@ def jpeg_coefficients(packed: torch.Tensor, tables: torch.Tensor,
     (grid_h, grid_w) frame (multiples of 16, at least (h, w)): ``y``
     i16[B, grid_h*grid_w/64, 64], ``cb``/``cr`` i16[B, grid_h*grid_w/256,
     64].  Pixels past (h, w) replicate the edge; ``flip_h``/``flip_v``
-    mirror the tile first.  ``tables`` is the f32[256] table block of
+    mirror the tile first.  ``tables`` is the f32[192] table block of
     ``ops.jpegenc.device_tables``."""
     dev = _cuda("jpeg_coefficients", packed, tables)
     if packed.dtype != torch.int32 or packed.dim() != 3:
         raise ValueError(f"packed must be i32[B, h, w], got {packed.dtype} "
                          f"{tuple(packed.shape)}")
-    if tables.dtype != torch.float32 or tables.numel() != 256:
-        raise ValueError("tables must be f32[256]")
+    if tables.dtype != torch.float32 or tables.numel() != 192:
+        raise ValueError("tables must be f32[192]")
     B, h, w = packed.shape
     if (grid_h % 16 or grid_w % 16 or grid_h < h or grid_w < w
             or h < 1 or w < 1):
@@ -166,7 +167,7 @@ def compact_rows(wire: torch.Tensor, n_valid: int, cap: int,
                  nb: int) -> torch.Tensor:
     """K4b: sparse wire u8[B, width] -> u8[4B + B*width]: the i32 LE row
     lengths, then each row's used prefix (rows at or past ``n_valid``
-    take none), then zeros."""
+    take none), then zeros.  One kernel launch, no scratch."""
     dev = _cuda("compact_rows", wire)
     if wire.dtype != torch.uint8 or wire.dim() != 2:
         raise ValueError(f"wire must be u8[B, width], got {wire.dtype} "
@@ -177,12 +178,11 @@ def compact_rows(wire: torch.Tensor, n_valid: int, cap: int,
     out = torch.empty((4 * B + B * width,), dtype=torch.uint8, device=dev)
     if B == 0:
         return out
-    offs = torch.empty((B + 1,), dtype=torch.int64, device=dev)
     lib = library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.compact_rows_launch(
             wire.data_ptr(), B, width, int(n_valid), cap, nb,
-            out.data_ptr(), offs.data_ptr(), stream)
+            out.data_ptr(), stream)
     _launched("compact_rows", err)
     return out

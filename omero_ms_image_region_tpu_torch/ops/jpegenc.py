@@ -97,16 +97,15 @@ def dct_matrix() -> np.ndarray:
 
 
 def device_tables(quality: int, device) -> torch.Tensor:
-    """K3's f32[256] table block on ``device``: D, the luma and chroma
-    quant tables (natural order) and each natural index's zigzag
-    position."""
+    """K3's f32[192] table block on ``device``: the luma and chroma quant
+    tables (natural order) and each natural index's zigzag position."""
     return _device_tables(int(quality), str(torch.device(device)))
 
 
 @functools.lru_cache(maxsize=None)
 def _device_tables(quality: int, device: str) -> torch.Tensor:
     qy, qc = quant_tables(quality)
-    host = np.concatenate([dct_matrix().ravel(), qy.ravel(), qc.ravel(),
+    host = np.concatenate([qy.ravel(), qc.ravel(),
                            np.argsort(zigzag_order())]).astype(np.float32)
     return torch.from_numpy(host).to(device)
 

@@ -181,6 +181,76 @@ def test_coefficients_on_a_larger_frame_replicate_the_edge():
         P.packed_to_jpeg_coefficients(_t(packed), 85, 8, 16)
 
 
+def _kernel_dct():
+    """K3's D as jpeg.cu bakes it (``constexpr float kDct[64]``)."""
+    import re
+
+    src = kernels.SOURCE.read_text()
+    body = re.search(r"constexpr float kDct\[64\] = \{([^}]*)\};",
+                     src).group(1)
+    vals = [float.fromhex(v.strip().rstrip("f"))
+            for v in body.split(",") if v.strip()]
+    return np.array(vals, np.float64).reshape(8, 8)
+
+
+def test_k3_baked_constants_match_tables():
+    """The kernel's D equals ``dct_matrix()`` in float32 bit for bit (each
+    literal exactly a float32), and its table offsets are where
+    ``device_tables`` puts the quant tables and zigzag positions."""
+    D = _kernel_dct()
+    assert (D.astype(np.float32).astype(np.float64) == D).all()
+    np.testing.assert_array_equal(D.astype(np.float32).view(np.int32),
+                                  P.dct_matrix().view(np.int32))
+    c = _kernel_constants(["kTabQy", "kTabQc", "kTabZpos", "kTabSize"])
+    for q in (1, 50, 85, 90, 100):
+        tab = P.device_tables(q, "cpu").numpy()
+        assert tab.shape == (c["kTabSize"],)
+        qy, qc = P.quant_tables(q)
+        np.testing.assert_array_equal(tab[c["kTabQy"]:c["kTabQy"] + 64],
+                                      qy.ravel())
+        np.testing.assert_array_equal(tab[c["kTabQc"]:c["kTabQc"] + 64],
+                                      qc.ravel())
+        zpos = tab[c["kTabZpos"]:c["kTabZpos"] + 64].astype(np.int64)
+        np.testing.assert_array_equal(P.zigzag_order()[zpos], np.arange(64))
+
+
+def test_k3_quantizer_reciprocal_division_is_correctly_rounded():
+    """K3's divide_q: with inv = RN(1/q), r = RN(acc inv) and one fused
+    correction give IEEE acc / q, for every quant value 1..255 and
+    accumulators that land on exact halves, at the clip edges, small and
+    at random.  Then K3's quantize: below 1025 in magnitude (every
+    quotient K3 meets), the low 16 bits of the float x + 1.5 * 2^23 are
+    the plain version's rint, clipped to +-2047, as an i16."""
+    rng = np.random.default_rng(4)
+    q = np.arange(1, 256, dtype=np.float32)[:, None]
+    k = rng.integers(-2100, 2100, (255, 400)).astype(np.float32)
+    acc = np.concatenate([
+        (k + np.float32(0.5)) * q,                        # exact halves
+        k * q,                                            # exact integers
+        np.float32([2046.5, 2047.0, 2047.5, 2048.0, -2046.5, -2047.0,
+                    -2047.5, -2048.0]) * q,               # clip edges
+        np.nextafter((np.float32(2047.5) * q).repeat(2, 1),
+                     np.float32([[0, np.inf]]).repeat(255, 0)),
+        ((rng.random((255, 600)) * 2 - 1) * 2048 * q),     # at random
+        (rng.random((255, 100)) * 2.0 ** rng.integers(-83, -20,
+                                                      (255, 100))),
+    ], axis=1).astype(np.float32)
+    q = np.broadcast_to(q, acc.shape).astype(np.float32)
+    inv = (np.float32(1) / q).astype(np.float32)
+    r = torch.from_numpy(acc * inv)
+    acc_t, q_t, inv_t = (torch.from_numpy(np.ascontiguousarray(x))
+                         for x in (acc, q, inv))
+    got = P.fma(P.fma(-r, q_t, acc_t), inv_t, r).numpy()
+    want = (acc / q).astype(np.float32)
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    inside = np.abs(want) < 1025
+    assert inside.mean() > 0.4
+    magic = (got[inside] + np.float32(12582912)).astype(np.float32)
+    np.testing.assert_array_equal(
+        (magic.view(np.int32) & 0xFFFF).astype(np.uint16).view(np.int16),
+        np.clip(np.rint(want[inside]), -2047, 2047).astype(np.int16))
+
+
 # ------------------------------------------------------- K4a, K4b: wire
 
 def _coeff_case():
@@ -441,6 +511,129 @@ def test_compact_rows_match_jax(n_valid):
     assert [len(r) for r in rows] == list(lengths)
 
 
+def _k4b_model(wire, n_valid, cap, nb, src_base, out_base):
+    """K4b's single launch step by step, in numpy: the row lengths from
+    the headers and their exclusive scan by 32-row chunks (a warp scan
+    with a carry), then the output in 16-byte runs of aligned addresses
+    from ``out_base``: a run inside one row's prefix from the aligned
+    32-bit source words around it (the wire at ``src_base``) by funnel
+    shifts, a run of the zero tail as zeros, any other run (the lengths
+    header, a row boundary, the data's end, an end of the output) byte
+    by byte.  Every output byte is written once."""
+    bits = _kernel_constants(["kEntryBits"])["kEntryBits"]
+    B, width = wire.shape
+    mem = np.zeros(src_base + B * width + 8, np.uint8)
+    mem[src_base:src_base + B * width] = wire.ravel()
+
+    def word(addr):
+        assert addr % 4 == 0
+        # an aligned word is read only where it holds a byte of the wire
+        assert src_base - 3 <= addr < src_base + B * width
+        return int.from_bytes(mem[addr:addr + 4].tobytes(), "little")
+
+    offs = np.zeros(B + 1, np.int64)
+    carry = 0
+    for c in range(0, B, 32):
+        lens = []
+        for r in range(c, min(c + 32, B)):
+            total = int(wire[r, :4].copy().view(np.int32)[0])
+            kept = min(total, cap)
+            n = (4 + nb + (bits * kept + 7) // 8 if total <= cap
+                 else 4 + nb)
+            lens.append(n if r < n_valid else 0)
+        incl = np.cumsum(lens)
+        offs[c:c + len(lens)] = carry + incl - lens
+        carry += int(incl[-1])
+    offs[B] = carry
+    head, data = 4 * B, int(offs[B])
+    n = head + B * width
+    out = np.zeros(n, np.int64)
+    writes = np.zeros(n, np.int64)
+    lead = out_base % 16
+
+    def row_of(d):
+        return int(np.searchsorted(offs, d, side="right")) - 1
+
+    def byte_at(o):
+        if o < head:
+            return int(offs[o // 4 + 1] - offs[o // 4]) >> (8 * (o % 4)) & 255
+        d = o - head
+        if d >= data:
+            return 0
+        r = row_of(d)
+        return int(wire[r, d - offs[r]])
+
+    for c in range((n + lead + 15) // 16):
+        o0 = 16 * c - lead
+        whole = o0 >= 0 and o0 + 16 <= n
+        if whole:
+            assert (out_base + o0) % 16 == 0
+        if whole and o0 >= head + data:
+            run = [0] * 16
+        elif (whole and o0 >= head
+              and o0 - head + 16 <= offs[row_of(o0 - head) + 1]):
+            d0 = o0 - head
+            r = row_of(d0)
+            src = src_base + r * width + d0 - int(offs[r])
+            sh = src % 4
+            w = [word(src - sh + 4 * i) for i in range(4)]
+            w.append(word(src - sh + 16) if sh else 0)
+            words = [((w[i + 1] << 32 | w[i]) >> (8 * sh)) & 0xFFFFFFFF
+                     for i in range(4)]
+            run = [(x >> (8 * q)) & 255 for x in words for q in range(4)]
+        else:
+            run = [byte_at(o0 + i) if 0 <= o0 + i < n else None
+                   for i in range(16)]
+        for i, v in enumerate(run):
+            if v is not None and 0 <= o0 + i < n:
+                out[o0 + i] = v
+                writes[o0 + i] += 1
+    assert (writes == 1).all()
+    return out.astype(np.uint8)
+
+
+def _k4b_case(name):
+    """(wire, n_valid, cap, nb): wires of K4a's layout, some rows over
+    their cap, widths that are not multiples of 16."""
+    if name == "jax_wire_b3":
+        y, cb, cr = _coeff_case()
+        cap = 400
+        return (np.asarray(_jax_sparse_pack(y, cb, cr, cap=cap)), 2, cap,
+                P.blocks_per_tile(32, 48))
+    rng = np.random.default_rng(len(name))
+    B, nb, cap, n_valid = {"b1": (1, 54, 37, 1),
+                           "b8_odd_width": (8, 54, 46, 8),
+                           "b8_n_valid5": (8, 13, 61, 5),
+                           "b40_chunks": (40, 6, 9, 37)}[name]
+    width = 4 + nb + (18 * cap + 7) // 8
+    wire = rng.integers(0, 256, (B, width)).astype(np.uint8)
+    totals = rng.integers(0, 2 * cap, B).astype(np.int32)
+    totals[0] = cap + 1                       # overflowed
+    wire[:, :4] = totals.view(np.uint8).reshape(B, 4)
+    return wire, n_valid, cap, nb
+
+
+@pytest.mark.parametrize("name", ["b1", "jax_wire_b3", "b8_odd_width",
+                                  "b8_n_valid5", "b40_chunks"])
+def test_compact_rows_kernel_index_model_matches_plain_and_jax(name):
+    """K4b's index arithmetic (per-block length scan, 16-byte runs built
+    by funnel shifts from aligned words, bytes at the run edges, the zero
+    tail), modelled in numpy at several source and output alignments,
+    gives the output of ``compact_rows_plain`` and JAX ``_compact_rows``
+    byte for byte."""
+    wire, n_valid, cap, nb = _k4b_case(name)
+    assert wire.shape[1] % 16
+    t = _t(wire)
+    lengths = P.sparse_row_lengths(t, n_valid, cap, nb)
+    want = np.asarray(J._compact_rows(wire, lengths.numpy().astype(
+        np.int32)))
+    np.testing.assert_array_equal(
+        P.compact_rows_plain(t, lengths).numpy(), want)
+    for src_base, out_base in ((0, 0), (1, 3), (3, 9), (2, 15)):
+        np.testing.assert_array_equal(
+            _k4b_model(wire, n_valid, cap, nb, src_base, out_base), want)
+
+
 def test_device_program_matches_jax_render_to_jpeg_sparse_compact():
     """The whole device half: raw + settings -> compacted wire, the port's
     K1 -> K3 -> K4a -> K4b against JAX ``render_to_jpeg_sparse_compact``."""
@@ -564,7 +757,7 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     packed = torch.zeros((1, 16, 16), dtype=torch.int32)
     coeffs = torch.zeros((1, 4, 64), dtype=torch.int16)
     with pytest.raises(ValueError, match="CUDA"):
-        kernels.jpeg_coefficients(packed, torch.zeros(256), 16, 16)
+        kernels.jpeg_coefficients(packed, torch.zeros(192), 16, 16)
     with pytest.raises(ValueError, match="CUDA"):
         kernels.sparse_pack(coeffs, coeffs[:, :1], coeffs[:, :1], 10)
     with pytest.raises(ValueError, match="CUDA"):
@@ -583,8 +776,9 @@ def test_kernel_build_needs_nvcc(monkeypatch):
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(8, 64, 96), (1, 30, 40), (3, 128, 128)])
 def test_jpeg_kernels_match_plain_on_the_card(shape):
-    """On a CUDA card: K3 exact (with flips and an unaligned tile), K4a
-    and K4b byte for byte, against their plain versions; K4a also on an
+    """On a CUDA card: K3 exact (flipped h, v and hv, an unaligned tile,
+    a larger frame, a base that is not 16-byte aligned), K4a and K4b byte
+    for byte, against their plain versions; K4a also on an
     all-zero tile, on the mixed-density B=3 batch of the index model and on
     a tile of 98304 blocks (768 partitions: three steps of lookback)."""
     if not torch.cuda.is_available():
@@ -593,11 +787,20 @@ def test_jpeg_kernels_match_plain_on_the_card(shape):
     dev = torch.device("cuda")
     packed = _t(_packed(np.random.default_rng(1), B, h, w))
     gh, gw = h + (-h) % 16, w + (-w) % 16
-    for flip in ((False, False), (True, True)):
-        got = P.packed_to_jpeg_coefficients(packed.to(dev), 90, gh, gw,
-                                            *flip)
-        want = P.packed_to_jpeg_coefficients_plain(packed.to(dev), 90, gh,
-                                                   gw, *flip)
+    on_card = packed.to(dev)
+    # a base 4 bytes past a 16-byte boundary: the scalar path
+    unaligned = torch.cat([on_card.reshape(-1)[:1], on_card.reshape(-1)])[
+        1:].view(B, h, w)
+    assert unaligned.data_ptr() % 16 == 4
+    for tile, grid, flip in (
+            (on_card, (gh, gw), (True, True)),
+            (on_card, (gh, gw), (True, False)),
+            (on_card, (gh, gw), (False, True)),
+            (on_card, (gh + 16, gw + 32), (False, True)),   # larger frame
+            (unaligned, (gh, gw), (True, False)),
+            (on_card, (gh, gw), (False, False))):
+        got = P.packed_to_jpeg_coefficients(tile, 90, *grid, *flip)
+        want = P.packed_to_jpeg_coefficients_plain(tile, 90, *grid, *flip)
         for g, wt in zip(got, want):
             assert torch.equal(g, wt)
     y, cb, cr = got
