@@ -31,20 +31,44 @@ Phases (any failure ends the run with a non-zero exit and no result line):
            its launches and memsets (torch.profiler, L2 warm), the plain
            version's time, and the bound from the bytes moved and the
            operations done;
-4. serve   an 8192^2 4-channel uint16 pyramid through the port's aiohttp app
-           on 127.0.0.1: 11 GETs (resolution 0 and 1, greyscale, a reversed
+4. serve   an 8192^2 4-channel uint16 pyramid through the port's default
+           aiohttp app (micro-batcher, device raw cache, single-flight) on
+           127.0.0.1: 11 GETs (resolution 0 and 1, greyscale, a reversed
            channel, a LUT channel as png and as a device-route JPEG, a
            flip, png, a render_image region, JPEG at q 0.9 and at the
            default quality on the device route, and one 256^2 JPEG on the
-           host route), each checked against the plain route on the same
-           read: png pixels exactly; device-route JPEG bytes against plain
-           K1/K2 -> plain K3 -> plain K4 -> the same native coder; the
-           256^2 JPEG against PIL over the plain pixels.
-           Every kernel's launch counter must rise.  Then end-to-end timing
-           (sequential p50, tiles/s at 8 in flight), one tile's layer
-           breakdown, the device busy share of a sequential run
-           (torch.profiler), and whether PIL's and the native coder's
-           encodes overlap across 8 threads.
+           host route), each checked against the plain route on a host
+           read of the same request: png pixels exactly; device-route JPEG
+           bytes against plain K1/K2 -> plain K3 -> plain K4 -> the same
+           native coder; the 256^2 JPEG against PIL over the plain pixels.
+           Every kernel's launch counter must rise.  Then
+           batch:      8 distinct device-route JPEG GETs at once (two
+                       windows, a reversed channel, flip h, flip v, a
+                       1000x1000 region in the 1024 bucket, a LUT channel,
+                       q 0.9), each equal to the plain route; fails unless
+                       a group held 2 or more tiles, or if more groups were
+                       in execute than device lanes; its launch counts are
+                       the kernel line's ``launches``;
+           e2e:        the raw cache cleared, 16 sequential and 48 GETs at
+                       8 in flight, every one a miss (fails on a hit): p50,
+                       tiles/s, group sizes, queue wait, execute time;
+           raw_cache:  the 16 sequential tiles with another window, each a
+                       hit (fails on a miss) and equal to the plain route:
+                       warm p50 against cold;
+           digest:     the 16 sequential tiles cold again with the raw
+                       cache's content-digest dedup on (off by default):
+                       cold p50 against the e2e run's, and the share of
+                       misses the dedup saved a copy for;
+           postures:   4 of the burst's GETs at once through the batcher's
+                       own call on host planes (one pinned group buffer),
+                       and through the direct reference handler
+                       (``build_handler(batcher=False)``), each equal to the
+                       plain route;
+           then the device busy share (torch.profiler) of 8 sequential and
+           of 32 concurrent cold GETs, one tile's layer breakdown on a cold
+           host read (read, digest, pinned DMA, kernels, wire, coder),
+           hashlib's digest rates, and whether PIL's and the native
+           coder's encodes overlap across 8 threads.
 
 It prints the kernel table as one JSON line, then the nvidia-smi line, and
 last ``{"ok": true, "device": {...}}``.  It imports nothing of JAX.
@@ -505,6 +529,9 @@ def build_data(np, data_dir: str, lut_root: str) -> float:
 
 CH = "1|100:40000$FF0000,2|100:40000$00FF00,3|100:40000$0000FF," \
      "4|100:40000$FFFF00"
+# A second window for the same tiles (a viewer re-windowing).
+CH2 = "1|500:30000$FF0000,2|300:45000$00FF00,3|200:35000$0000FF," \
+      "4|800:25000$FFFF00"
 
 
 def requests_for(tile: int):
@@ -569,6 +596,24 @@ def plain_jpeg(torch, ctx, raw, settings) -> bytes:
                                    [(w, h)])[0]
 
 
+def digest_rates(raw) -> dict:
+    """MB/s of hashlib's digests over one tile's raw planes (median of 5):
+    the raw cache's BLAKE2b against the others the standard library
+    has."""
+    import hashlib
+
+    view = memoryview(raw.reshape(-1)).cast("B")
+    rates = {}
+    for name in ("blake2b", "sha256", "sha1", "md5"):
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            hashlib.new(name, view).digest()
+            times.append(time.perf_counter() - t0)
+        rates[name] = raw.nbytes / statistics.median(times) / 1e6
+    return rates
+
+
 def encode_overlap(np, rgba, row, w, h, q, cap) -> dict:
     """16 encodes of one tile on 1 thread and on 8: PIL's JPEG encode and
     the native sparse coder.  A speedup near 1 means the encodes
@@ -595,19 +640,97 @@ def encode_overlap(np, rgba, row, w, h, q, cap) -> dict:
     return out
 
 
+def launch_counts():
+    from omero_ms_image_region_tpu_torch.kernels import jpeg as KJ
+    from omero_ms_image_region_tpu_torch.kernels import render as K
+    return dict(K.LAUNCHES, **KJ.LAUNCHES)
+
+
+def reset_launch_counts() -> None:
+    from omero_ms_image_region_tpu_torch.kernels import jpeg as KJ
+    from omero_ms_image_region_tpu_torch.kernels import render as K
+    K.reset_launches()
+    KJ.reset_launches()
+
+
+class Batches:
+    """The batcher's group counters over one phase."""
+
+    def __init__(self, batcher):
+        self.b = batcher
+        self.batches0 = batcher.batches_dispatched
+        self.tiles0 = batcher.tiles_rendered
+        self.sizes0 = dict(batcher.group_sizes)
+        batcher.max_executing = 0
+        batcher.queue_waits_ms.clear()
+        batcher.execute_ms.clear()
+
+    def report(self) -> dict:
+        b = self.b
+        sizes = {k: v - self.sizes0.get(k, 0)
+                 for k, v in sorted(b.group_sizes.items())
+                 if v - self.sizes0.get(k, 0)}
+        groups = b.batches_dispatched - self.batches0
+        tiles = b.tiles_rendered - self.tiles0
+        waits = sorted(b.queue_waits_ms)
+        execute = list(b.execute_ms)
+        return {"groups": groups, "tiles": tiles,
+                "mean_group_size": tiles / groups if groups else 0.0,
+                "group_sizes": sizes,
+                "max_groups_in_execute": b.max_executing,
+                "device_lanes": b.device_lanes,
+                "queue_wait_p50_ms": statistics.median(waits) if waits
+                else None,
+                "queue_wait_max_ms": waits[-1] if waits else None,
+                "execute_p50_ms": statistics.median(execute) if execute
+                else None}
+
+
+def batch_requests():
+    """8 distinct device-route JPEG GETs for one concurrent burst: two
+    windows, a reversed channel, flip=h, flip=v, a 1000x1000 region (the
+    1024 bucket), a LUT channel and q=0.9 (each of the last two its own
+    group key)."""
+    def t(x):
+        return f"0,{x},0,{TILE},{TILE}"
+    jpeg = {"m": "c", "format": "jpeg"}
+    return [
+        ("render_image_region", dict(jpeg, tile=t(0), c=CH)),
+        ("render_image_region", dict(jpeg, tile=t(1), c=CH2)),
+        ("render_image_region", dict(
+            jpeg, tile=t(2), c=CH,
+            maps='[{},{"reverse":{"enabled":true}},{},{}]')),
+        ("render_image_region", dict(jpeg, tile=t(3), c=CH, flip="h")),
+        ("render_image_region", dict(jpeg, tile=t(4), c=CH, flip="v")),
+        ("render_image_region", dict(
+            jpeg, region=f"{5 * TILE + 7},{TILE // 3},1000,1000", c=CH)),
+        ("render_image_region", dict(
+            jpeg, tile=t(6), c=CH.replace("$00FF00", "$smoke.lut"))),
+        ("render_image_region", dict(jpeg, tile=t(7), c=CH, q="0.9")),
+    ]
+
+
 async def serve_phase(torch, np, data_dir, lut_root, have_aiohttp,
                       have_pil):
     from omero_ms_image_region_tpu_torch import codecs, native
+    from omero_ms_image_region_tpu_torch.io.devicecache import plane_digest
+    from omero_ms_image_region_tpu_torch.io.staging import HostPlanes
     from omero_ms_image_region_tpu_torch.kernels import jpeg as KJ
-    from omero_ms_image_region_tpu_torch.kernels import render as K
     from omero_ms_image_region_tpu_torch.ops import jpegenc as J
     from omero_ms_image_region_tpu_torch.ops import render as R
     from omero_ms_image_region_tpu_torch.ops.flip import flip_image
     from omero_ms_image_region_tpu_torch.server.app import (build_handler,
                                                             create_app)
+    from omero_ms_image_region_tpu_torch.server.batcher import (
+        BatchingRenderer)
     from omero_ms_image_region_tpu_torch.server.ctx import ImageRegionCtx
 
+    # The default app: batcher, device raw cache and single-flight on.
     handler = build_handler(data_dir, lut_root, device=DEVICE)
+    batcher, cache = handler.s.renderer, handler.s.raw_cache
+    check(isinstance(batcher, BatchingRenderer) and cache is not None
+          and handler.s.single_flight is not None,
+          "build_handler did not build the default posture")
     requests = requests_for(TILE)
 
     def params_of(route, query):
@@ -640,110 +763,259 @@ async def serve_phase(torch, np, data_dir, lut_root, have_aiohttp,
             status = 200
         return status, body, (time.perf_counter() - t0) * 1e3
 
-    try:
-        # Warm-up (first CUDA context use, library loads, the JPEG
-        # route's tables), outside the counted run.
-        await get(*requests[0])
-        await get(*requests[6])
-        K.reset_launches()
-        KJ.reset_launches()
-        results = [await get(route, q) for route, q in requests]
-        launches = dict(K.LAUNCHES, **KJ.LAUNCHES)
-        print(f"serve: launches in the {len(requests)}-request run: "
-              f"{launches}", flush=True)
+    async def matches_plain(route, query, body):
+        """The served body against the plain route on a host read of the
+        same request (png: pixels; device-route JPEG: bytes against plain
+        K1/K2 -> plain K3 -> plain K4 -> the native coder; host JPEG:
+        bytes against PIL over the plain pixels)."""
+        ctx = ImageRegionCtx.from_params(params_of(route, query))
+        raw, settings = await handler.read(ctx)
+        h, w = raw.shape[-2:]
+        if ctx.format == "jpeg" and h * w > handler.s.jpeg_host_max_px:
+            return "device jpeg", list(raw.shape), settings, (
+                body == plain_jpeg(torch, ctx, raw, settings))
+        t = R.settings_to_tensors(settings, DEVICE)
+        plain = R.render_tile_batch_packed_plain(
+            R.raw_to_tensor(raw, DEVICE)[None], *R.batched_settings(t))
+        plain = flip_image(plain[0], ctx.flip_horizontal, ctx.flip_vertical)
+        want_rgba = R.unpack_rgba(plain.cpu().numpy())
+        if ctx.format == "png" and have_pil:
+            got_rgba = codecs.decode_to_rgba(body)
+            return "png", list(raw.shape), settings, np.array_equal(
+                got_rgba[..., :3], want_rgba[..., :3])
+        return f"host {ctx.format}", list(raw.shape), settings, (
+            body == codecs.encode_rgba(want_rgba, ctx.format,
+                                       ctx.compression_quality))
 
-        device_jpegs = 0
-        for (route, query), (status, body, ms) in zip(requests, results):
-            ctx = ImageRegionCtx.from_params(params_of(route, query))
-            raw, settings = await handler.read(ctx)
-            check(status == 200, f"{route} {query}: HTTP {status}")
-            h, w = raw.shape[-2:]
-            if ctx.format == "jpeg" and h * w > handler.s.jpeg_host_max_px:
-                device_jpegs += 1
-                route_name = "device jpeg"
-                same = body == plain_jpeg(torch, ctx, raw, settings)
-            else:
-                t = R.settings_to_tensors(settings, DEVICE)
-                plain = R.render_tile_batch_packed_plain(
-                    R.raw_to_tensor(raw, DEVICE)[None],
-                    *R.batched_settings(t))
-                plain = flip_image(plain[0], ctx.flip_horizontal,
-                                   ctx.flip_vertical)
-                want_rgba = R.unpack_rgba(plain.cpu().numpy())
-                if ctx.format == "png" and have_pil:
-                    route_name = "png"
-                    got_rgba = codecs.decode_to_rgba(body)
-                    same = np.array_equal(got_rgba[..., :3],
-                                          want_rgba[..., :3])
-                else:
-                    route_name = f"host {ctx.format}"
-                    same = body == codecs.encode_rgba(
-                        want_rgba, ctx.format, ctx.compression_quality)
-            kernel = ("render_lut" if settings["tables"].ndim == 3
-                      else "render_ramp")
-            print(f"serve {route} {json.dumps(query)}: status {status} "
-                  f"bytes {len(body)} wall_ms {ms:.2f} shape "
-                  f"{list(raw.shape)} kernel {kernel} route {route_name} "
-                  f"matches_plain {same}", flush=True)
-            check(same, f"{route} {query}: served bytes differ from the "
-                        f"plain route")
-        for name in ("render_ramp", "render_lut"):
-            check(launches[name] >= 1,
-                  f"{name} was not launched by the served requests")
-        for name in KJ.LAUNCHES:
-            check(launches[name] >= device_jpegs,
-                  f"{name} launched {launches[name]} times for "
-                  f"{device_jpegs} device-route JPEG GETs")
-
-        # End to end: 4-channel jpeg tiles at resolution 0, the default
-        # quality, on the device route.
-        tiles = [("render_image_region",
-                  {"tile": f"0,{i % 8},{i // 8},{TILE},{TILE}", "c": CH,
-                   "m": "c", "format": "jpeg"}) for i in range(64)]
-        seq = [(await get(*r))[2] for r in tiles[:16]]
-        sem = asyncio.Semaphore(8)
+    async def in_flight(reqs, n=8):
+        sem = asyncio.Semaphore(n)
 
         async def limited(r):
             async with sem:
                 return await get(*r)
         t0 = time.perf_counter()
-        conc = await asyncio.gather(*(limited(r) for r in tiles[16:64]))
-        wall = time.perf_counter() - t0
+        out = await asyncio.gather(*(limited(r) for r in reqs))
+        return out, time.perf_counter() - t0
+
+    try:
+        # Warm-up (first CUDA context use, library loads, the JPEG
+        # route's tables), outside the counted run.
+        await get(*requests[0])
+        await get(*requests[6])
+        reset_launch_counts()
+        results = [await get(route, q) for route, q in requests]
+        serve_launches = launch_counts()
+        print(f"serve: launches in the {len(requests)}-request run: "
+              f"{serve_launches}", flush=True)
+
+        device_jpegs = 0
+        for (route, query), (status, body, ms) in zip(requests, results):
+            check(status == 200, f"{route} {query}: HTTP {status}")
+            name, shape, settings, same = await matches_plain(route, query,
+                                                              body)
+            device_jpegs += name == "device jpeg"
+            kernel = ("render_lut" if settings["tables"].ndim == 3
+                      else "render_ramp")
+            print(f"serve {route} {json.dumps(query)}: status {status} "
+                  f"bytes {len(body)} wall_ms {ms:.2f} shape {shape} "
+                  f"kernel {kernel} route {name} matches_plain {same}",
+                  flush=True)
+            check(same, f"{route} {query}: served bytes differ from the "
+                        f"plain route")
+        for name in ("render_ramp", "render_lut"):
+            check(serve_launches[name] >= 1,
+                  f"{name} was not launched by the served requests")
+        for name in KJ.LAUNCHES:
+            check(serve_launches[name] >= device_jpegs,
+                  f"{name} launched {serve_launches[name]} times for "
+                  f"{device_jpegs} device-route JPEG GETs")
+
+        # batch: 8 distinct device-route JPEG GETs at once.  Each is sent
+        # once alone first, so the burst is served from the raw cache and
+        # reaches the batcher together.
+        burst = batch_requests()
+        for r in burst:
+            await get(*r)
+        reset_launch_counts()
+        stats = Batches(batcher)
+        out, wall = await in_flight(burst)
+        launches = launch_counts()
+        batch = stats.report()
+        for (route, query), (status, body, ms) in zip(burst, out):
+            check(status == 200, f"batch {query}: HTTP {status}")
+            name, shape, _, same = await matches_plain(route, query, body)
+            print(f"batch {json.dumps(query)}: bytes {len(body)} wall_ms "
+                  f"{ms:.2f} shape {shape} route {name} matches_plain "
+                  f"{same}", flush=True)
+            check(name == "device jpeg" and same,
+                  f"batch {query}: body differs from the plain route")
+        batch.update(wall_ms=wall * 1e3, launches=launches)
+        print("batch: " + json.dumps(batch), flush=True)
+        check(batch["groups"] < batch["tiles"],
+              "batch: no group held 2 or more tiles; the batched path "
+              "was not run")
+        check(batch["max_groups_in_execute"] <= batcher.device_lanes,
+              "batch: more groups in execute than device lanes")
+        for name, n in launches.items():
+            check(n >= 1, f"{name} was not launched by the batch burst")
+
+        # e2e: 4-channel jpeg tiles at resolution 0, default quality,
+        # device route, through the batcher, every GET a raw-cache miss.
+        tiles = [("render_image_region",
+                  {"tile": f"0,{i % 8},{i // 8},{TILE},{TILE}", "c": CH,
+                   "m": "c", "format": "jpeg"}) for i in range(64)]
+        cache.clear()
+        hits0, misses0 = cache.hits, cache.misses
+        stats = Batches(batcher)
+        seq = [(await get(*r))[2] for r in tiles[:16]]
+        seq_groups = stats.report()
+        stats = Batches(batcher)
+        conc, wall = await in_flight(tiles[16:64])
         check(all(s == 200 for s, _, _ in conc), "timed run: non-200")
-        e2e = {"tile": f"{TILE}x{TILE}x4 uint16 -> jpeg (device route)",
+        groups = stats.report()
+        e2e = {"tile": f"{TILE}x{TILE}x4 uint16 -> jpeg (device route, "
+                       f"batcher)",
                "sequential_n": len(seq),
                "sequential_p50_ms": statistics.median(seq),
+               "sequential_mean_group_size": seq_groups["mean_group_size"],
                "concurrent_n": len(conc), "in_flight": 8,
                "concurrent_tiles_per_s": len(conc) / wall,
                "concurrent_p50_ms": statistics.median(
                    ms for _, _, ms in conc),
+               "mean_group_size": groups["mean_group_size"],
+               "group_sizes": groups["group_sizes"],
+               "max_groups_in_execute": groups["max_groups_in_execute"],
+               "queue_wait_p50_ms": groups["queue_wait_p50_ms"],
+               "execute_p50_ms": groups["execute_p50_ms"],
+               "sequential_execute_p50_ms": seq_groups["execute_p50_ms"],
+               "raw_cache_hits": cache.hits - hits0,
+               "raw_cache_misses": cache.misses - misses0,
                "via": "http" if session is not None else "handler"}
         print("e2e: " + json.dumps(e2e), flush=True)
+        check(e2e["raw_cache_hits"] == 0,
+              "e2e: the cold run had raw-cache hits")
 
-        # Device busy share of 8 sequential GETs.
+        # raw_cache: the 16 sequential tiles again with another window,
+        # each a raw-cache hit.
+        hits0, misses0 = cache.hits, cache.misses
+        rewindow = [(route, dict(q, c=CH2)) for route, q in tiles[:16]]
+        stats = Batches(batcher)
+        warm = []
+        for r in rewindow:
+            status, body, ms = await get(*r)
+            check(status == 200, f"raw_cache {r[1]}: HTTP {status}")
+            warm.append(ms)
+            _, _, _, same = await matches_plain(*r, body)
+            check(same, f"raw_cache {r[1]}: body differs from the plain "
+                        f"route")
+        rc = {"gets": len(rewindow),
+              "hits": cache.hits - hits0, "misses": cache.misses - misses0,
+              "warm_p50_ms": statistics.median(warm),
+              "cold_p50_ms": e2e["sequential_p50_ms"],
+              "entries": len(cache), "resident_bytes": cache.size_bytes,
+              "bodies_match_plain": True, "batcher": stats.report()}
+        print("raw_cache: " + json.dumps(rc), flush=True)
+        check(rc["hits"] == len(rewindow) and rc["misses"] == 0,
+              "raw_cache: a re-windowed tile missed the raw cache")
+
+        # digest: the same 16 tiles cold again, with the content-digest
+        # dedup on; what it costs a cold GET, and how many misses it saved
+        # a copy for.
+        cache.clear()
+        cache.digest_index = True
+        plane0 = cache.plane_hits, cache.plane_misses
+        try:
+            hashed = [(await get(*r))[2] for r in tiles[:16]]
+        finally:
+            cache.digest_index = False
+        plane_hits = cache.plane_hits - plane0[0]
+        plane_misses = cache.plane_misses - plane0[1]
+        digest = {"gets": len(hashed),
+                  "cold_p50_ms_dedup_on": statistics.median(hashed),
+                  "cold_p50_ms_dedup_off": e2e["sequential_p50_ms"],
+                  "plane_hits": plane_hits, "plane_misses": plane_misses,
+                  "copies_saved_share": plane_hits / max(1, plane_hits
+                                                         + plane_misses)}
+        print("digest: " + json.dumps(digest), flush=True)
+
+        # postures: 4 burst GETs at once through the batcher's own call on
+        # host planes (staged by the group through one pinned buffer on
+        # the lane's stream) and through the direct reference handler.
+        reqs = burst[2:6]
+        ctxs = [ImageRegionCtx.from_params(params_of(*r)) for r in reqs]
+        reads = [await handler.read(c) for c in ctxs]
+        host_batcher = BatchingRenderer(DEVICE)
+        direct = build_handler(data_dir, lut_root, device=DEVICE,
+                               batcher=False)
+        try:
+            host_bodies = await asyncio.gather(*(
+                host_batcher.render_jpeg(
+                    raw, s, codecs.quality_percent(c.compression_quality),
+                    raw.shape[2], raw.shape[1], c.flip_horizontal,
+                    c.flip_vertical) for c, (raw, s) in zip(ctxs, reads)))
+        finally:
+            await host_batcher.close()
+        direct_bodies = await asyncio.gather(*(
+            direct.render_image_region(c) for c in ctxs))
+        postures = {}
+        for label, bodies in (("batcher_host_planes", host_bodies),
+                              ("direct", direct_bodies)):
+            for r, body in zip(reqs, bodies):
+                _, _, _, same = await matches_plain(*r, body)
+                check(same, f"{label} {r[1]}: body differs from the plain "
+                            f"route")
+            postures[label] = {"gets": len(reqs), "bodies_match_plain": True}
+        postures["batcher_host_planes"]["group_sizes"] = dict(
+            host_batcher.group_sizes)
+        print("postures: " + json.dumps(postures), flush=True)
+
+        # Device busy share: 8 sequential cold GETs, and 32 cold GETs at
+        # 8 in flight (torch.profiler, device time of all kernels and
+        # copies over the window's wall time).
         from torch.profiler import ProfilerActivity, profile
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for r in tiles[:8]:
-                await get(*r)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        busy_us = sum(e.self_device_time_total for e in prof.key_averages())
-        print("device_busy: " + json.dumps({
-            "gets": 8, "wall_ms": wall * 1e3, "device_busy_ms": busy_us / 1e3,
-            "busy_share": busy_us / 1e6 / wall}), flush=True)
+        busy = {}
+        for label, reqs in (("sequential", tiles[16:24]),
+                            ("in_flight_8", tiles[24:56])):
+            cache.clear()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                if label == "sequential":
+                    for r in reqs:
+                        await get(*r)
+                else:
+                    await in_flight(reqs)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            busy_us = sum(e.self_device_time_total
+                          for e in prof.key_averages())
+            busy[label] = {"gets": len(reqs), "wall_ms": wall * 1e3,
+                           "device_busy_ms": busy_us / 1e3,
+                           "busy_share": busy_us / 1e6 / wall}
+        print("device_busy: " + json.dumps(busy), flush=True)
 
-        # One tile's layers, medians of 5.
+        # One tile's layers, medians of 5, on a cold host read.
         ctx = ImageRegionCtx.from_params(params_of(*tiles[9]))
         q = codecs.quality_percent(ctx.compression_quality)
         layers = {k: [] for k in (
-            "read_ms", "h2d_ms", "render_kernel_ms", "front_end_ms",
-            "wire_d2h_ms", "wire_bytes", "entropy_ms", "rgba_d2h_ms",
-            "pil_encode_ms")}
+            "read_ms", "digest_ms", "pinned_h2d_ms", "h2d_ms",
+            "render_kernel_ms", "front_end_ms", "wire_d2h_ms", "wire_bytes",
+            "entropy_ms", "rgba_d2h_ms", "pil_encode_ms")}
         for _ in range(5):
             t0 = time.perf_counter()
             raw, settings = await handler.read(ctx)
             t1 = time.perf_counter()
+            plane_digest(raw)
+            tp = time.perf_counter()
+            # The served miss: the DMA out of an already filled pinned
+            # buffer (the handler reads straight into it).
+            planes = HostPlanes(raw.shape, raw.dtype, DEVICE)
+            np.copyto(planes.array, raw)
+            tp0 = time.perf_counter()
+            planes.upload()
+            torch.cuda.synchronize()
+            tp1 = time.perf_counter()
+            # raw_to_tensor: a host copy into a pinned buffer, then the DMA.
+            td = time.perf_counter()
             raw_t = R.raw_to_tensor(raw, DEVICE)[None]
             st = R.batched_settings(R.settings_to_tensors(settings, DEVICE))
             torch.cuda.synchronize()
@@ -770,7 +1042,8 @@ async def serve_phase(torch, np, data_dir, lut_root, have_aiohttp,
             codecs.encode_rgba(rgba, "jpeg", None)
             t7 = time.perf_counter()
             for k, v in zip(layers, (
-                    (t1 - t0) * 1e3, (t2 - t1) * 1e3,
+                    (t1 - t0) * 1e3, (tp - t1) * 1e3, (tp1 - tp0) * 1e3,
+                    (t2 - td) * 1e3,
                     ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2]),
                     (t4 - t3) * 1e3, 4 + len(row), (t5 - t4) * 1e3,
                     (t6 - t5) * 1e3, (t7 - t6) * 1e3)):
@@ -778,14 +1051,16 @@ async def serve_phase(torch, np, data_dir, lut_root, have_aiohttp,
         print("breakdown: " + json.dumps(
             {k: statistics.median(v) for k, v in layers.items()}),
             flush=True)
+        print("digest_rates: " + json.dumps(digest_rates(raw)), flush=True)
         print("encode_overlap: " + json.dumps(
             encode_overlap(np, rgba, row, W, H, q, cap)), flush=True)
-        return launches
+        return launches, serve_launches
     finally:
         if session is not None:
             await session.close()
         if runner is not None:
             await runner.cleanup()
+        await batcher.close()
 
 
 def main() -> int:
@@ -844,11 +1119,12 @@ def main() -> int:
         secs = build_data(np, data_dir, lut_root)
         print(f"serve: built a {PLANE}x{PLANE} 4-channel uint16 pyramid in "
               f"{secs:.1f} s", flush=True)
-        launches = asyncio.run(serve_phase(torch, np, data_dir, lut_root,
-                                           have_aiohttp, have_pil))
+        launches, serve_launches = asyncio.run(serve_phase(
+            torch, np, data_dir, lut_root, have_aiohttp, have_pil))
 
     for name, e in entries.items():
         e["launches"] = launches[name]
+        e["serve_launches"] = serve_launches[name]
         e["card"], e["power_limit"] = [s.strip() for s in smi.split(",")]
     print(json.dumps({"kernels": list(entries.values())}), flush=True)
     print(smi, flush=True)

@@ -7,7 +7,7 @@ level/size enumeration, and the server tile size.
 
 from __future__ import annotations
 
-from typing import List, Protocol, Tuple, runtime_checkable
+from typing import List, Optional, Protocol, Tuple, runtime_checkable
 
 import numpy as np
 
@@ -39,13 +39,15 @@ class PixelSource(Protocol):
         ...
 
     def get_region(self, z: int, c: int, t: int, region: RegionDef,
-                   level: int = 0) -> np.ndarray:
+                   level: int = 0, out: Optional[np.ndarray] = None
+                   ) -> np.ndarray:
         """Read a rectangular region of one plane at a pyramid level.
 
         Region coordinates are in the level's pixel space; the caller is
         responsible for truncation to level bounds (the reference truncates
         in ``getRegionDef``, ``:751-758``).  Returns [h, w] in the source
-        dtype.
+        dtype, or writes into ``out`` (an [h, w] array, cast to its dtype)
+        and returns it.
         """
         ...
 

@@ -85,7 +85,8 @@ class ChunkedPyramidStore:
     # -- reads --------------------------------------------------------------
 
     def get_region(self, z: int, c: int, t: int, region: RegionDef,
-                   level: int = 0) -> np.ndarray:
+                   level: int = 0, out: Optional[np.ndarray] = None
+                   ) -> np.ndarray:
         sx, sy = self._level_dims[level]
         x0, y0 = region.x, region.y
         x1, y1 = x0 + region.width, y0 + region.height
@@ -95,7 +96,8 @@ class ChunkedPyramidStore:
                 f"bounds ({sx}x{sy})"
             )
         mm = self._map_level(level)
-        out = np.empty((region.height, region.width), dtype=self._dtype)
+        if out is None:
+            out = np.empty((region.height, region.width), dtype=self._dtype)
         ch, cw = self.chunk_h, self.chunk_w
         for gy in range(y0 // ch, -(-y1 // ch)):
             for gx in range(x0 // cw, -(-x1 // cw)):

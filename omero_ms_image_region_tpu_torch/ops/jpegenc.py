@@ -458,13 +458,16 @@ _CAP_MEMO: dict = {}
 
 
 def finish_sparse_to_jpegs(bufs, dims, H: int, W: int, quality: int,
-                           cap: int, dense_coefficients: Callable) -> list:
+                           cap: int, dense_coefficients: Callable,
+                           on_tile: Optional[Callable] = None) -> list:
     """Fetched wire rows -> JFIF per tile.
 
     ``dims`` gives each tile's true ``(width, height)``.  A tile whose own
     ceil-16 frame is smaller than (H, W) is coded from the top-left block
     subgrid; a tile that overflowed ``cap`` is coded from
     ``dense_coefficients(i) -> (y, cb, cr)`` with the dense coder.
+    ``on_tile(i, data)``, when given, is called with each tile's bytes as
+    soon as they exist (the batcher's first-tile-out settlement).
     """
     out = []
     for i, (w_, h_) in enumerate(dims):
@@ -473,6 +476,8 @@ def finish_sparse_to_jpegs(bufs, dims, H: int, W: int, quality: int,
             if exact:
                 out.append(native.jpeg_encode_sparse(bufs[i], w_, h_,
                                                      quality, cap))
+                if on_tile is not None:
+                    on_tile(i, out[-1])
                 continue
             dense = sparse_to_dense(bufs[i], H, W, cap)
             if dense is None:
@@ -482,6 +487,8 @@ def finish_sparse_to_jpegs(bufs, dims, H: int, W: int, quality: int,
         y, cb, cr = slice_block_subgrid(*dense, H, W, w_, h_) \
             if not exact else dense
         out.append(native.jpeg_encode(y, cb, cr, w_, h_, quality))
+        if on_tile is not None:
+            on_tile(i, out[-1])
     return out
 
 
@@ -497,7 +504,8 @@ def wire_rows(y, cb, cr, cap: int, n_valid: int) -> List[np.ndarray]:
 
 def coefficients_to_jpegs(y, cb, cr, H: int, W: int, quality: int,
                           dims: Sequence[Tuple[int, int]],
-                          cap: Optional[int] = None) -> list:
+                          cap: Optional[int] = None,
+                          on_tile: Optional[Callable] = None) -> list:
     """Coefficients of B tiles on an (H, W) frame -> JFIF for the first
     ``len(dims)`` of them, the sparse engine's cap policy included.
 
@@ -506,6 +514,7 @@ def coefficients_to_jpegs(y, cb, cr, H: int, W: int, quality: int,
     would fit in twice the cap, the whole batch is packed once more at the
     doubled cap and the memo set.  A tile still over the cap is coded from
     its dense coefficients, which stay on the device until then.
+    ``on_tile`` is passed to :func:`finish_sparse_to_jpegs`.
     """
     n = len(dims)
     if cap is None:
@@ -526,12 +535,13 @@ def coefficients_to_jpegs(y, cb, cr, H: int, W: int, quality: int,
                 cr[i].cpu().numpy())
 
     return finish_sparse_to_jpegs(rows, dims, H, W, quality, cap,
-                                  dense_coefficients)
+                                  dense_coefficients, on_tile)
 
 
 def render_batch_to_jpeg(raw, window_start, window_end, family, coefficient,
                          reverse, cd_start, cd_end, tables, quality: int,
-                         dims, cap: Optional[int] = None) -> list:
+                         dims, cap: Optional[int] = None,
+                         on_tile: Optional[Callable] = None) -> list:
     """One batch of tiles -> JFIF per tile, on raw's device.
 
     ``raw`` is [B, C, H, W] with H, W multiples of 16 (callers edge-pad:
@@ -539,7 +549,8 @@ def render_batch_to_jpeg(raw, window_start, window_end, family, coefficient,
     settings stacked along B, as ``ops.render.render_tile_batch_packed``
     takes them.  ``dims`` gives the true ``(width, height)`` of each of
     the first ``len(dims)`` tiles for its SOF0 header; rows past them are
-    batch padding and cost no wire bytes.  The JAX package's
+    batch padding and cost no wire bytes.  ``on_tile(i, data)`` is called
+    with each tile's bytes as soon as they are coded.  The JAX package's
     ``render_batch_to_jpeg(engine="sparse")`` gives the same bytes.
     """
     from .render import render_tile_batch_packed
@@ -551,4 +562,47 @@ def render_batch_to_jpeg(raw, window_start, window_end, family, coefficient,
                                       coefficient, reverse, cd_start,
                                       cd_end, tables)
     y, cb, cr = packed_to_jpeg_coefficients(packed, quality)
-    return coefficients_to_jpegs(y, cb, cr, H, W, quality, dims, cap)
+    return coefficients_to_jpegs(y, cb, cr, H, W, quality, dims, cap,
+                                 on_tile)
+
+
+def pad_planes_to_mcu(raw, target_h: Optional[int] = None,
+                      target_w: Optional[int] = None, flip_h: bool = False,
+                      flip_v: bool = False, out: Optional[np.ndarray] = None):
+    """Edge-replicate [C, h, w] planes to a 16-aligned (target_h, target_w)
+    frame (default: the planes' own ceil-16 frame), the planes first
+    mirrored by ``flip_h`` / ``flip_v``.
+
+    The render is pointwise, so padding the raw and rendering equals
+    rendering and replicating the image's edge; replication (not zeros)
+    keeps the padding out of the edge blocks' DCT energy.  Mirroring first
+    puts the padding at the bottom and right of the flipped tile, where
+    its SOF0 crop drops it.  A numpy array is padded on the host (into
+    ``out`` when given); a tensor by one gather on its device with
+    clamped, mirrored indices (uint16 in its int16 view).
+    """
+    h, w = raw.shape[-2:]
+    th = target_h if target_h is not None else h + (-h) % 16
+    tw = target_w if target_w is not None else w + (-w) % 16
+    if th % 16 or tw % 16 or th < h or tw < w:
+        raise ValueError(f"bad MCU pad target ({th}, {tw}) for ({h}, {w})")
+    if isinstance(raw, np.ndarray):
+        if flip_v:
+            raw = raw[:, ::-1, :]
+        if flip_h:
+            raw = raw[:, :, ::-1]
+        if out is None:
+            if (th, tw) == (h, w):
+                return raw
+            out = np.empty(raw.shape[:-2] + (th, tw), raw.dtype)
+        out[:, :h, :w] = raw
+        out[:, :h, w:] = out[:, :h, w - 1:w]
+        out[:, h:, :] = out[:, h - 1:h, :]
+        return out
+    if (th, tw) == (h, w) and not (flip_h or flip_v):
+        return raw
+    rows = _frame_index(h, th, flip_v, raw.device)
+    cols = _frame_index(w, tw, flip_h, raw.device)
+    src = raw.view(torch.int16) if raw.dtype == torch.uint16 else raw
+    padded = src[:, rows[:, None], cols[None, :]]
+    return padded.view(torch.uint16) if raw.dtype == torch.uint16 else padded

@@ -16,12 +16,16 @@ def main(argv=None) -> None:
                         help="directory scanned for *.lut files")
     parser.add_argument("--device", default="cuda",
                         help="torch device to render on (default cuda)")
+    parser.add_argument("--request-deadline-ms", type=float, default=0.0,
+                        help="time budget of a render request; a request "
+                             "over it gets a 504 (default 0: unbounded)")
     args = parser.parse_args(argv)
 
     from aiohttp import web
 
     from .app import create_app
-    web.run_app(create_app(args.data_dir, args.lut_root, args.device),
+    web.run_app(create_app(args.data_dir, args.lut_root, args.device,
+                           request_deadline_ms=args.request_deadline_ms),
                 port=args.port)
 
 

@@ -21,13 +21,18 @@ from typing import Optional, Union
 import torch
 
 from .. import __version__, codecs
+from ..io.devicecache import DeviceRawCache
 from ..io.service import PixelsService
 from ..ops.lut import LutProvider
+from ..ops.render import resolve_device
 from ..services.metadata import LocalMetadataService
+from ..utils.transient import DeadlineExceededError, deadline_scope
+from .batcher import BatchingRenderer
 from .ctx import ImageRegionCtx
 from .errors import BadRequestError, NotFoundError
 from .handler import (JPEG_HOST_MAX_PX, ImageRegionHandler,
                       ImageRegionServices, Renderer)
+from .singleflight import SingleFlight
 
 log = logging.getLogger(__name__)
 
@@ -37,23 +42,43 @@ FEATURES = ["flip", "png-tiles"]
 
 def build_handler(data_dir: str, lut_root: Optional[str] = None,
                   device: Union[str, torch.device] = "cuda",
-                  jpeg_host_max_px: int = JPEG_HOST_MAX_PX
-                  ) -> ImageRegionHandler:
-    """The handler over a data directory of chunked pyramids."""
+                  jpeg_host_max_px: int = JPEG_HOST_MAX_PX,
+                  batcher: bool = True) -> ImageRegionHandler:
+    """The handler over a data directory of chunked pyramids, in the JAX
+    app's default posture (``server/app.py:234-308`` there): the batching
+    renderer (max_batch 8, linger 2 ms, pipeline depth 4, 2 device lanes),
+    the device raw cache (2 GiB) and single-flight.  The cache's
+    content-digest dedup stays off (``io.devicecache``).
+
+    ``batcher=False`` builds the reference the tests hold the default
+    against: the direct :class:`Renderer` (one B=1 launch of each kernel
+    per request), with no raw cache and no single-flight."""
+    device = resolve_device(device)
+    if batcher:
+        serving = dict(renderer=BatchingRenderer(device),
+                       raw_cache=DeviceRawCache(device=device),
+                       single_flight=SingleFlight())
+    else:
+        serving = dict(renderer=Renderer(device))
     return ImageRegionHandler(ImageRegionServices(
         pixels_service=PixelsService(data_dir),
         metadata=LocalMetadataService(data_dir),
-        renderer=Renderer(device),
         lut_provider=LutProvider(lut_root),
         jpeg_host_max_px=jpeg_host_max_px,
+        **serving,
     ))
 
 
 def create_app(data_dir: str, lut_root: Optional[str] = None,
                device: Union[str, torch.device] = "cuda",
-               handler: Optional[ImageRegionHandler] = None):
+               handler: Optional[ImageRegionHandler] = None,
+               request_deadline_ms: float = 0.0):
     """The aiohttp application serving the render routes.  ``handler``
-    overrides the one built from ``data_dir``/``lut_root``/``device``."""
+    overrides the one built from ``data_dir``/``lut_root``/``device``.
+    ``request_deadline_ms`` > 0 gives every render request that budget
+    (``utils.transient``; 0, the JAX default, leaves it unbounded): work
+    whose budget is spent is dropped from the batch queue, and the client
+    gets a 504.  The app's cleanup closes the handler's renderer."""
     from aiohttp import web
 
     handler = handler or build_handler(data_dir, lut_root, device)
@@ -65,6 +90,8 @@ def create_app(data_dir: str, lut_root: Optional[str] = None,
             return web.Response(status=400, text=str(e))
         if isinstance(e, (NotFoundError, FileNotFoundError)):
             return web.Response(status=404)
+        if isinstance(e, DeadlineExceededError):
+            return web.json_response({"error": str(e)}, status=504)
         log.exception("render failed", exc_info=e)
         return web.Response(status=500)
 
@@ -74,7 +101,8 @@ def create_app(data_dir: str, lut_root: Optional[str] = None,
         params.pop("tail", None)
         try:
             ctx = ImageRegionCtx.from_params(params)
-            body = await handler.render_image_region(ctx)
+            with deadline_scope(request_deadline_ms):
+                body = await handler.render_image_region(ctx)
         except Exception as e:
             return status_of(e)
         return web.Response(body=body, headers={
@@ -92,7 +120,11 @@ def create_app(data_dir: str, lut_root: Optional[str] = None,
     async def healthz(request: web.Request) -> web.Response:
         return web.json_response({"status": "ok"})
 
+    async def close_renderer(app: web.Application) -> None:
+        await handler.s.renderer.close()
+
     app = web.Application()
+    app.on_cleanup.append(close_renderer)
     for prefix in ("webgateway", "webclient"):
         for route in ("render_image_region", "render_image"):
             base = f"/{prefix}/{route}/{{imageId}}/{{theZ}}/{{theT}}"

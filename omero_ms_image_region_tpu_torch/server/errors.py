@@ -5,8 +5,11 @@
   ========================  ======  ==============
   BadRequestError           400     message text
   NotFoundError             404     empty
+  DeadlineExceededError     504     JSON ``{"error": ...}``
   anything else             500     empty
   ========================  ======  ==============
+
+``DeadlineExceededError`` lives in ``utils.transient``.
 """
 
 

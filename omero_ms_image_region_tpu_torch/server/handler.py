@@ -1,45 +1,57 @@
 """Request orchestration: parsed ctx -> encoded image bytes.
 
 The analogue of ``ImageRegionRequestHandler.java`` (metadata fetch
-``:316-427``, region pipeline ``:429-604``) with the device part behind a
+``:316-427``, region pipeline ``:429-604``) and of the JAX package's
+``server/handler.py`` (``render_image_region`` ``:332-458``,
+``_get_region`` ``:509-624``) with the device part behind a renderer: the
+batching renderer (``server.batcher``) in the default app, or the direct
 :class:`Renderer`.  The pipeline, in order:
 
-  ACL (before anything is served) -> z/t/resolution bounds -> region ->
-  raw read -> settings (``update_settings``, restricted to the active
-  channels) -> render on the device -> flip -> unpack -> encode.
-
-Not here yet: the byte cache, single-flight, admission, the device raw
-cache and the prefetcher; a projection request (``p=``) is refused with a
-400.
+  ACL (per caller) -> single-flight (concurrent identical requests share
+  one run) -> z/t/resolution bounds -> region -> settings
+  (``update_settings``, restricted to the active channels) -> raw planes
+  (the device raw cache on the event loop; on a miss, a read into a pinned
+  buffer and one copy to the card in a worker thread) -> render on the
+  device, flips included -> encode.
 
 ``format=jpeg`` follows the JAX handler's two routes.  A region above
 ``ImageRegionServices.jpeg_host_max_px`` pixels takes the device route,
-:meth:`Renderer.render_jpeg`: render, JPEG front end and sparse wire on the
-card, the native entropy coder on the host.  A region at or below it is
-rendered on the card and its RGBA encoded with ``codecs.encode_rgba``
-(PIL), the bytes of the JAX handler's tiny-region path.
+``render_jpeg``: render, JPEG front end and sparse wire on the card, the
+native entropy coder on the host.  A region at or below it is rendered on
+the card and its RGBA encoded with ``codecs.encode_rgba`` (PIL), the bytes
+of the JAX handler's tiny-region path.  Both renderers take the flips: the
+batcher mirrors each tile's raw before padding it to its bucket (as the
+JAX handler folds its flips into the raw), the direct renderer folds them
+into K3's reads or flips the packed tile.
+
+Not here yet: the byte cache, admission and the prefetcher; a projection
+request (``p=``) is refused with a 400.
 """
 
 from __future__ import annotations
 
 import asyncio
 from dataclasses import dataclass
-from typing import List, Sequence, Tuple, Union
+from typing import List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from .. import codecs
+from ..io.devicecache import region_key
+from ..io.staging import HostPlanes, stage
+from ..models.pixels import Pixels
 from ..models.rendering import default_rendering_def, restrict_to_active
 from ..ops import jpegenc
 from ..ops.flip import flip_image
-from ..ops.render import (batched_settings, pack_settings, raw_to_tensor,
+from ..ops.render import (batched_settings, pack_settings,
                           render_tile_batch_packed, resolve_device,
                           settings_to_tensors, unpack_rgba)
+from ..utils import transient
 from .ctx import ImageRegionCtx
 from .errors import BadRequestError, NotFoundError
 from .region import RegionDef, clamp_region_to_plane, get_region_def
-from .settings import update_settings
+from .settings import render_identity_key, update_settings
 
 DEFAULT_MAX_TILE_LENGTH = 2048  # beanRefContext.xml:63-66
 # JPEG regions of at most this many pixels are rendered on the device and
@@ -49,10 +61,12 @@ JPEG_HOST_MAX_PX = 256 * 256
 
 
 class Renderer:
-    """Direct device render: one kernel launch per request.
+    """Direct device render: one B=1 launch of each kernel per request.
 
-    Owns its device: raw planes and settings are copied there, the render
-    kernel and the flip run there, and only the packed tile comes back.
+    Owns its device: host planes are staged there through a pinned
+    buffer, the kernels and the flip run there, and only the packed tile
+    or the compacted wire comes back.  The reference handler of
+    ``server.app.build_handler(batcher=False)``, which has no raw cache.
     """
 
     def __init__(self, device: Union[str, torch.device] = "cuda"):
@@ -68,7 +82,7 @@ class Renderer:
     def render_sync(self, raw: np.ndarray, settings: dict,
                     flip_horizontal: bool = False,
                     flip_vertical: bool = False) -> np.ndarray:
-        raw_t = raw_to_tensor(raw, self.device)[None]
+        raw_t = stage(raw, self.device)[None]
         tensors = settings_to_tensors(settings, self.device)
         packed = render_tile_batch_packed(raw_t, *batched_settings(tensors))
         packed = flip_image(packed[0], flip_horizontal, flip_vertical)
@@ -93,7 +107,7 @@ class Renderer:
         ceil-16 frame with the flips and the edge replication folded into
         its reads (K3), the sparse wire and its compaction (K4a, K4b);
         the compacted wire's used bytes back; the native entropy coder."""
-        raw_t = raw_to_tensor(raw, self.device)[None]
+        raw_t = stage(raw, self.device)[None]
         tensors = settings_to_tensors(settings, self.device)
         packed = render_tile_batch_packed(raw_t, *batched_settings(tensors))
         h, w = packed.shape[-2:]
@@ -103,6 +117,10 @@ class Renderer:
         return jpegenc.coefficients_to_jpegs(
             y, cb, cr, H, W, quality, [(width, height)])[0]
 
+    async def close(self) -> None:
+        """Nothing to release (the batcher's counterpart stops its
+        dispatchers)."""
+
 
 @dataclass
 class ImageRegionServices:
@@ -111,11 +129,27 @@ class ImageRegionServices:
 
     pixels_service: object            # io.service.PixelsService
     metadata: object                  # services.metadata.LocalMetadataService
-    renderer: Renderer
+    renderer: object                  # Renderer or batcher.BatchingRenderer
     lut_provider: object = None       # ops.lut.LutProvider
     max_tile_length: int = DEFAULT_MAX_TILE_LENGTH
     # 0 sends every JPEG region down the device route.
     jpeg_host_max_px: int = JPEG_HOST_MAX_PX
+    raw_cache: object = None          # io.devicecache.DeviceRawCache
+    # In-flight render dedup (singleflight.SingleFlight); None disables
+    # coalescing.
+    single_flight: object = None
+
+
+@dataclass
+class _Plan:
+    """A request resolved against its image: where to read and how to
+    render."""
+
+    src: object                       # io.pixelsource.PixelSource
+    region: RegionDef
+    level: int
+    active: List[int]
+    settings: dict
 
 
 class ImageRegionHandler:
@@ -125,31 +159,54 @@ class ImageRegionHandler:
         self.s = services
 
     async def render_image_region(self, ctx: ImageRegionCtx) -> bytes:
-        """``render_image_region`` / ``render_image``: the encoded bytes."""
-        raw, settings = await self.read(ctx)
-        h, w = raw.shape[-2:]
-        if ctx.format == "jpeg" and h * w > self.s.jpeg_host_max_px:
-            quality = codecs.quality_percent(ctx.compression_quality)
-            return await self.s.renderer.render_jpeg(
-                raw, settings, quality, w, h, ctx.flip_horizontal,
-                ctx.flip_vertical)
-        packed = await self.s.renderer.render(
-            raw, settings, ctx.flip_horizontal, ctx.flip_vertical)
-        return await asyncio.to_thread(self.encode, unpack_rgba(packed),
-                                       ctx)
+        """``render_image_region`` / ``render_image``: the encoded bytes.
+
+        ACL runs per caller; concurrent identical requests then share one
+        pipeline run (single-flight).  Without single-flight the await is
+        still bounded by the request's deadline: a group whose members'
+        budgets died after it was popped may still be running, and the
+        caller gets its ``DeadlineExceededError`` at budget end.
+        """
+        pixels = await self._authorize(ctx)
+
+        async def produce() -> bytes:
+            transient.check_deadline("render pipeline")
+            return await self._get_region(ctx, pixels)
+
+        if self.s.single_flight is None:
+            remaining = transient.remaining_ms()
+            if remaining is None:
+                return await produce()
+            try:
+                return await asyncio.wait_for(
+                    produce(), timeout=max(0.0, remaining) / 1000.0)
+            except asyncio.TimeoutError:
+                raise transient.DeadlineExceededError(
+                    "deadline exceeded awaiting render")
+        data, _ = await self.s.single_flight.run(render_identity_key(ctx),
+                                                 produce)
+        return data
 
     async def read(self, ctx: ImageRegionCtx) -> Tuple[np.ndarray, dict]:
-        """ACL, bounds and region resolution, then the raw read.
+        """ACL, bounds and region resolution, then a host read that
+        bypasses the raw cache.
 
         Returns the active channels' raw planes [C_active, h, w] in the
-        storage dtype (mirrored where the request flips, as the reference
-        reads) and their packed render settings.
+        storage dtype and their packed render settings.
         """
+        plan = await self._plan(ctx, await self._authorize(ctx))
+        raw = await asyncio.to_thread(self._read_planes, plan, ctx)
+        return raw, plan.settings
+
+    async def _authorize(self, ctx: ImageRegionCtx) -> Pixels:
         pixels = await self.s.metadata.get_pixels_description(
             ctx.image_id, ctx.omero_session_key)
         if pixels is None or not await self.s.metadata.can_read(
                 "Image", ctx.image_id, ctx.omero_session_key):
             raise NotFoundError(f"Cannot find Image:{ctx.image_id}")
+        return pixels
+
+    async def _plan(self, ctx: ImageRegionCtx, pixels: Pixels) -> _Plan:
         if ctx.z < 0 or ctx.z >= pixels.size_z:
             raise BadRequestError(
                 f"Parameter 'theZ' not within bounds: {ctx.z}")
@@ -176,9 +233,6 @@ class ImageRegionHandler:
             levels, ctx.resolution, ctx.tile, ctx.region, src.tile_size(),
             self.s.max_tile_length, ctx.flip_horizontal, ctx.flip_vertical,
         )
-        # The request resolution indexes the largest-first level list
-        # directly; the store numbers levels largest-first too.
-        level = ctx.resolution or 0
         clamp_region_to_plane(levels, ctx.resolution, region)
         if region.width <= 0 or region.height <= 0:
             raise BadRequestError(
@@ -188,17 +242,73 @@ class ImageRegionHandler:
         active_rdef, active = restrict_to_active(rdef)
         if not active:
             raise BadRequestError("No active channels to render")
-        raw = await asyncio.to_thread(self._read_region, src, ctx, region,
-                                      level, active)
-        return raw, pack_settings(active_rdef, self.s.lut_provider)
+        # The request resolution indexes the largest-first level list
+        # directly; the store numbers levels largest-first too.
+        return _Plan(src, region, ctx.resolution or 0, active,
+                     pack_settings(active_rdef, self.s.lut_provider))
+
+    async def _get_region(self, ctx: ImageRegionCtx,
+                          pixels: Pixels) -> bytes:
+        plan = await self._plan(ctx, pixels)
+        raw = None
+        cache = self.s.raw_cache
+        if cache is not None:
+            # A hit is a dict lookup: no thread hop.
+            raw = cache.get(self._region_key(ctx, plan))
+        if raw is None:
+            raw = await asyncio.to_thread(self._load, plan, ctx)
+        h, w = plan.region.height, plan.region.width
+        renderer = self.s.renderer
+        if ctx.format == "jpeg" and h * w > self.s.jpeg_host_max_px:
+            quality = codecs.quality_percent(ctx.compression_quality)
+            return await renderer.render_jpeg(
+                raw, plan.settings, quality, w, h, ctx.flip_horizontal,
+                ctx.flip_vertical)
+        packed = await renderer.render(raw, plan.settings,
+                                       ctx.flip_horizontal,
+                                       ctx.flip_vertical)
+        return await asyncio.to_thread(
+            lambda: self.encode(unpack_rgba(packed), ctx))
 
     @staticmethod
-    def _read_region(src, ctx: ImageRegionCtx, region: RegionDef,
-                     level: int, active: List[int]) -> np.ndarray:
-        # Storage dtype: the kernels widen on the device, so uint16
-        # sources move half the bytes of a float32 copy.
-        return np.stack([src.get_region(ctx.z, c, ctx.t, region, level)
-                         for c in active])
+    def _region_key(ctx: ImageRegionCtx, plan: _Plan) -> tuple:
+        """The raw read's cache identity: one construction site for the
+        event-loop probe and the loader."""
+        return region_key(ctx.image_id, ctx.z, ctx.t, plan.level,
+                          plan.region.as_tuple(), tuple(plan.active))
+
+    @staticmethod
+    def _read_planes(plan: _Plan, ctx: ImageRegionCtx,
+                     out: Optional[np.ndarray] = None) -> np.ndarray:
+        """[C_active, h, w] planes in the storage dtype (the kernels widen
+        on the device, so uint16 moves half the bytes of float32), read
+        into ``out`` when given."""
+        if out is None:
+            return np.stack([
+                plan.src.get_region(ctx.z, c, ctx.t, plan.region, plan.level)
+                for c in plan.active])
+        for i, c in enumerate(plan.active):
+            plan.src.get_region(ctx.z, c, ctx.t, plan.region, plan.level,
+                                out=out[i])
+        return out
+
+    def _load(self, plan: _Plan, ctx: ImageRegionCtx
+              ) -> Union[np.ndarray, torch.Tensor]:
+        """Raw planes for the renderer (worker thread).  With a raw cache:
+        read straight into a pinned buffer, copied once to the card and
+        cached there (a tensor).  Without: host planes, which the renderer
+        stages."""
+        cache = self.s.raw_cache
+        if cache is None:
+            return self._read_planes(plan, ctx)
+
+        def read_pinned() -> HostPlanes:
+            planes = HostPlanes(
+                (len(plan.active), plan.region.height, plan.region.width),
+                plan.src.dtype, cache.device)
+            self._read_planes(plan, ctx, out=planes.array)
+            return planes
+        return cache.get_or_load(self._region_key(ctx, plan), read_pinned)
 
     @staticmethod
     def encode(rgba: np.ndarray, ctx: ImageRegionCtx) -> bytes:

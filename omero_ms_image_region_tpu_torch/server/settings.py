@@ -21,6 +21,19 @@ from .ctx import ImageRegionCtx
 from .errors import BadRequestError
 
 
+def render_identity_key(ctx: ImageRegionCtx) -> str:
+    """Canonical identity of a render for in-flight dedup: everything the
+    bytes depend on (plane address, region, channels, windows, colours,
+    maps, model, flips, format, quality) and nothing else.
+
+    ``ctx.cache_key`` is exactly that: SipHash over the sorted request
+    params, so params that differ only in order share one key.  The
+    session key is not a param: ACL runs per caller before the shared
+    render is awaited.
+    """
+    return ctx.cache_key
+
+
 def update_settings(rdef: RenderingDef, ctx: ImageRegionCtx) -> RenderingDef:
     """Return a copy of ``rdef`` with the request's settings applied.
 

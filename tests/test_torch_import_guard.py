@@ -35,7 +35,9 @@ def test_port_imports_without_jax_or_the_jax_package():
     for mod in ("kernels.build", "kernels.render", "kernels.jpeg",
                 "ops.render", "ops.quantum", "ops.flip", "ops.lut",
                 "ops.jpegenc", "native", "server.handler", "server.app",
-                "server.__main__", "io.store", "io.service",
+                "server.__main__", "server.batcher", "server.singleflight",
+                "io.store", "io.service", "io.staging", "io.devicecache",
+                "utils.transient",
                 "services.metadata", "codecs", "flagship"):
         assert f"omero_ms_image_region_tpu_torch.{mod}" in doc["imported"]
     assert doc["leaked"] == []

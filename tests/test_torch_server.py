@@ -1,12 +1,19 @@
 """Port handler and app against the JAX handler, over one pyramid written
 by the JAX package's ``io.store.build_pyramid``.
 
-png / tif: identical bytes.  jpeg above ``jpeg_host_max_px``: the device
-route's bytes equal the JAX handler's device-route bytes (its
-``cpu_fallback_max_px=0``).  jpeg at or below it (the default 256^2, which
-every tile here is): the port encodes the device RGBA with PIL, the JAX
-tiny path's bytes, so they equal ``codecs.encode_rgba(jax_rgba, "jpeg",
-q)`` of the JAX render's pixels.
+Both handlers serve in their default posture: the batching renderer, the
+device raw cache and single-flight (the JAX side with
+``cpu_fallback_max_px=0``, so its every region goes to the device, and with
+its cache's content-digest dedup, which the port leaves off; neither
+changes a byte).  The device JPEG cases run through the port's reference
+handler too, ``build_handler(batcher=False)``: the direct renderer.  png /
+tif: identical bytes.  jpeg above ``jpeg_host_max_px``: the device route's
+bytes equal the JAX handler's device-route bytes.  jpeg at or below it
+(the default 256^2, which every tile here is): the port encodes the device
+RGBA with PIL, the JAX tiny path's bytes, so they equal
+``codecs.encode_rgba(jax_rgba, "jpeg", q)`` of the JAX render's pixels.
+The JAX handler is built for each request: its batcher serves the one
+event loop it started on.
 """
 
 import asyncio
@@ -26,9 +33,17 @@ from omero_ms_image_region_tpu.ops.lut import LutProvider as JaxLuts
 from omero_ms_image_region_tpu.server.ctx import (
     ImageRegionCtx as JaxCtx,
 )
+from omero_ms_image_region_tpu.io.devicecache import (
+    DeviceRawCache as JaxRawCache,
+)
+from omero_ms_image_region_tpu.server.batcher import (
+    BatchingRenderer as JaxBatcher,
+)
 from omero_ms_image_region_tpu.server.handler import (
     ImageRegionHandler as JaxHandler, ImageRegionServices as JaxServices,
-    Renderer as JaxRenderer,
+)
+from omero_ms_image_region_tpu.server.singleflight import (
+    SingleFlight as JaxSingleFlight,
 )
 from omero_ms_image_region_tpu.services.cache import CacheConfig, Caches
 from omero_ms_image_region_tpu.services.metadata import (
@@ -47,6 +62,10 @@ from omero_ms_image_region_tpu_torch.server.errors import (
     BadRequestError, NotFoundError,
 )
 from omero_ms_image_region_tpu_torch.server.region import RegionDef
+from omero_ms_image_region_tpu_torch.server.settings import (
+    render_identity_key,
+)
+from omero_ms_image_region_tpu_torch.utils import transient
 
 IMG = 7
 PRIVATE = 8
@@ -74,25 +93,51 @@ def dirs(tmp_path_factory):
     return str(root), str(luts)
 
 
+class JaxDefault:
+    """Runs one request through a JAX handler in its default posture."""
+
+    def __init__(self, data_dir, lut_root):
+        self.data_dir, self.lut_root = data_dir, lut_root
+
+    def __call__(self, params) -> bytes:
+        handler = JaxHandler(JaxServices(
+            pixels_service=JaxPixels(self.data_dir),
+            metadata=JaxMetadata(self.data_dir),
+            caches=Caches.from_config(CacheConfig()),
+            can_read_memo=CanReadMemo(),
+            renderer=JaxBatcher(),
+            lut_provider=JaxLuts(self.lut_root),
+            raw_cache=JaxRawCache(),
+            single_flight=JaxSingleFlight(),
+            cpu_fallback_max_px=0,
+        ))
+
+        async def go():
+            try:
+                return await handler.render_image_region(
+                    JaxCtx.from_params(params))
+            finally:
+                await handler.s.renderer.close()
+        return run(go())
+
+
 @pytest.fixture(scope="module")
 def handlers(dirs):
     data_dir, lut_root = dirs
-    jax = JaxHandler(JaxServices(
-        pixels_service=JaxPixels(data_dir),
-        metadata=JaxMetadata(data_dir),
-        caches=Caches.from_config(CacheConfig()),
-        can_read_memo=CanReadMemo(),
-        renderer=JaxRenderer(kernel="xla"),
-        lut_provider=JaxLuts(lut_root),
-        cpu_fallback_max_px=0,
-    ))
-    return jax, build_handler(data_dir, lut_root, device="cpu")
+    return JaxDefault(data_dir, lut_root), build_handler(data_dir, lut_root,
+                                                        device="cpu")
 
 
-@pytest.fixture(scope="module")
-def device_jpeg_handler(dirs):
-    """The port handler with every JPEG region on the device route."""
-    return build_handler(*dirs, device="cpu", jpeg_host_max_px=0)
+@pytest.fixture(scope="module", params=["batcher", "direct"])
+def device_jpeg_handler(request, dirs):
+    """The port handler with every JPEG region on the device route: the
+    default posture, and the direct reference (``batcher=False``)."""
+    return build_handler(*dirs, device="cpu", jpeg_host_max_px=0,
+                         batcher=request.param == "batcher")
+
+
+def _ctx(params):
+    return ImageRegionCtx.from_params(params)
 
 
 def run(coro, timeout=60):
@@ -128,7 +173,7 @@ CASES = {
 def test_handler_bytes_match_jax(handlers, case):
     jax, port = handlers
     params = _params(**CASES[case])
-    want = run(jax.render_image_region(JaxCtx.from_params(params)))
+    want = jax(params)
     got = run(port.render_image_region(ImageRegionCtx.from_params(params)))
     assert got == want
 
@@ -137,7 +182,7 @@ def test_handler_bytes_match_jax(handlers, case):
 def test_handler_jpeg_is_pil_encode_of_the_jax_pixels(handlers, q):
     jax, port = handlers
     params = _params(tile="0,1,0,32,32", flip="v")
-    png = run(jax.render_image_region(JaxCtx.from_params(params)))
+    png = jax(params)
     jax_rgba = jax_codecs.decode_to_rgba(png)
     params.update(format="jpeg")
     if q is not None:
@@ -171,11 +216,14 @@ def test_handler_jpeg_matches_jax(handlers, device_jpeg_handler, case, q):
         params["q"] = q
     jax_jpegenc._CAP_MEMO.clear()
     jpegenc._CAP_MEMO.clear()
-    want = run(jax.render_image_region(JaxCtx.from_params(params)))
+    want = jax(params)
     got = run(device_jpeg_handler.render_image_region(
         ImageRegionCtx.from_params(params)))
     assert got[:2] == b"\xff\xd8" and got == want
-    assert jpegenc._CAP_MEMO == jax_jpegenc._CAP_MEMO
+    if device_jpeg_handler.s.raw_cache is not None:
+        # The batcher codes from its bucket's frame, as JAX's does; the
+        # direct route's B=1 frame is the tile's own, with its own cap.
+        assert jpegenc._CAP_MEMO == jax_jpegenc._CAP_MEMO
 
 
 def test_handler_errors(handlers):
@@ -253,3 +301,195 @@ def test_codecs_match_jax():
     for fmt in ("png", "tif", "jpeg"):
         assert codecs.encode_rgba(rgba, fmt, 0.7) == \
             jax_codecs.encode_rgba(rgba, fmt, 0.7)
+
+
+@pytest.mark.parametrize("case", [
+    {"tile": "0,1,0,32,32", "flip": "hv"},
+    {"region": "3,2,37,45", "flip": "v", "format": "jpeg"},
+    {"tile": "0,1,0,32,32", "format": "jpeg", "q": "0.9"},
+])
+def test_direct_renderer_matches_default_posture(dirs, handlers, case):
+    """``build_handler(batcher=False)``, the direct route with no raw
+    cache and no single-flight, gives the default app's bytes."""
+    jax, _ = handlers
+    params = _params(imageId=str(SMOOTH), **case)
+    direct = build_handler(*dirs, device="cpu", jpeg_host_max_px=0,
+                           batcher=False)
+    default = build_handler(*dirs, device="cpu", jpeg_host_max_px=0)
+    got = run(direct.render_image_region(_ctx(params)))
+    assert got == run(default.render_image_region(_ctx(params)))
+    assert got == jax(params)
+
+
+@pytest.mark.parametrize("fmt", ["jpeg", "png"])
+def test_rewindow_from_warm_raw_cache_matches_cold(dirs, handlers, fmt):
+    """A re-window of a cached tile is a raw-cache hit (no read, no copy)
+    and gives the bytes of a cold render and of the JAX handler."""
+    jax, _ = handlers
+    handler = build_handler(*dirs, device="cpu", jpeg_host_max_px=0)
+    cache = handler.s.raw_cache
+    first = _params(format=fmt, imageId=str(SMOOTH), region="3,2,37,45",
+                    flip="h")
+    second = dict(first, c="1|300:30000$FF0000,2|100:50000$00FF00")
+    run(handler.render_image_region(_ctx(first)))
+    hits, misses = cache.hits, cache.misses
+    warm = run(handler.render_image_region(_ctx(second)))
+    assert (cache.hits, cache.misses) == (hits + 1, misses)
+    cold = run(build_handler(*dirs, device="cpu", jpeg_host_max_px=0,
+                             batcher=False).render_image_region(
+        _ctx(second)))
+    assert warm == cold == jax(second)
+
+
+class _Gated:
+    """A renderer that counts calls and holds each until its gate opens."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.calls = 0
+        self.gate = None
+
+    async def render(self, *args):
+        self.calls += 1
+        await self.gate.wait()
+        return await self.inner.render(*args)
+
+    async def render_jpeg(self, *args):
+        self.calls += 1
+        await self.gate.wait()
+        return await self.inner.render_jpeg(*args)
+
+    async def close(self):
+        await self.inner.close()
+
+
+def _run_gated(handler, params_list, open_when):
+    gated = _Gated(handler.s.renderer)
+    handler.s.renderer = gated
+
+    async def main():
+        gated.gate = asyncio.Event()
+        tasks = [asyncio.ensure_future(handler.render_image_region(
+            _ctx(p))) for p in params_list]
+        # Let every request reach the single-flight table before the gate
+        # opens (one arriving after the leader settled would not
+        # coalesce).
+        for _ in range(3000):
+            await asyncio.sleep(0.01)
+            if open_when():
+                break
+        assert open_when()
+        gated.gate.set()
+        try:
+            return await asyncio.gather(*tasks)
+        finally:
+            await gated.close()
+    return gated, run(main())
+
+
+def test_concurrent_identical_requests_render_once(dirs, handlers):
+    jax, _ = handlers
+    handler = build_handler(*dirs, device="cpu")
+    flight = handler.s.single_flight
+    params = _params(tile="0,1,0,32,32")
+    n = 6
+    gated, bodies = _run_gated(handler, [params] * n,
+                               lambda: flight.hits == n - 1)
+    assert gated.calls == 1                     # one pipeline run
+    assert gated.inner.tiles_rendered == 1      # one tile rendered
+    assert set(bodies) == {jax(params)}
+    assert (flight.hits, flight.misses, flight.inflight()) == (n - 1, 1, 0)
+
+
+def test_different_requests_do_not_coalesce(dirs):
+    handler = build_handler(*dirs, device="cpu")
+    flight = handler.s.single_flight
+    a = _params(tile="0,1,0,32,32", c="1|0:60000$FF0000")
+    b = _params(tile="0,1,0,32,32", c="1|0:30000$FF0000")
+    gated, (one, two) = _run_gated(handler, [a, b],
+                                   lambda: flight.inflight() == 2)
+    assert one != two
+    assert gated.calls == 2 and flight.hits == 0
+
+
+@pytest.mark.parametrize("single_flight", [True, False])
+def test_deadline_bounds_the_await(dirs, single_flight):
+    """A request whose budget runs out while its render is held gets
+    ``DeadlineExceededError`` at budget end, with single-flight (the
+    waiter's own budget) and without it (the handler's bounded await, in
+    the reference handler, which has no single-flight)."""
+    handler = build_handler(*dirs, device="cpu", batcher=single_flight)
+    assert (handler.s.single_flight is not None) == single_flight
+    gated = _Gated(handler.s.renderer)
+    handler.s.renderer = gated
+
+    async def main():
+        gated.gate = asyncio.Event()
+        try:
+            with transient.deadline_scope(200.0):
+                with pytest.raises(transient.DeadlineExceededError):
+                    await handler.render_image_region(
+                        _ctx(_params(tile="0,1,0,32,32")))
+        finally:
+            gated.gate.set()
+            await gated.close()
+    run(main())
+    assert gated.calls == 1
+
+
+def test_app_maps_a_spent_request_deadline_to_504(dirs):
+    """``create_app(request_deadline_ms=)`` opens each request's budget;
+    a budget spent before the render answers 504, and a generous one
+    serves the request."""
+    from aiohttp.test_utils import TestClient, TestServer
+
+    query = {k: v for k, v in _params(tile="0,1,0,32,32").items()
+             if k not in ("imageId", "theZ", "theT")}
+    url = f"/webgateway/render_image_region/{IMG}/1/0"
+
+    async def go(budget_ms):
+        app = create_app(*dirs, device="cpu",
+                         request_deadline_ms=budget_ms)
+        async with TestClient(TestServer(app)) as client:
+            r = await client.get(url, params=query)
+            return r.status, await r.read()
+
+    status, body = run(go(1e-6))
+    assert status == 504 and b"deadline" in body
+    assert run(go(60_000.0))[0] == 200
+
+
+def test_param_order_shares_identity():
+    a = _ctx({"imageId": str(IMG), "theZ": "0", "theT": "0", "m": "c",
+              "c": "1|0:60000$FF0000", "format": "png"})
+    b = _ctx({"format": "png", "c": "1|0:60000$FF0000", "m": "c",
+              "theT": "0", "theZ": "0", "imageId": str(IMG)})
+    assert render_identity_key(a) == render_identity_key(b)
+
+
+def test_flipped_ragged_tiles_share_a_group(dirs, handlers):
+    """Ragged tiles with mixed flips in one bucket group: each is mirrored
+    before its edge padding, and each gives the JAX handler's bytes."""
+    jax, _ = handlers
+    handler = build_handler(*dirs, device="cpu", jpeg_host_max_px=0)
+    batcher = handler.s.renderer
+    # Co-arrivals on a CPU run are spread by their thread hops.
+    batcher.linger_ms = 1000.0
+    params = [_params(format="jpeg", imageId=str(SMOOTH), **case)
+              for case in ({"region": "5,7,40,30", "flip": "h"},
+                           {"region": "3,2,37,45", "flip": "hv"},
+                           {"tile": "0,1,1,48,32", "flip": "v"},
+                           {"tile": "0,1,0,32,32"})]
+
+    async def main():
+        try:
+            return await asyncio.gather(*(
+                handler.render_image_region(_ctx(p)) for p in params))
+        finally:
+            await batcher.close()
+
+    got = run(main())
+    assert batcher.tiles_rendered == len(params)
+    assert batcher.batches_dispatched < len(params)
+    for p, body in zip(params, got):
+        assert body == jax(p)
