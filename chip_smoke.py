@@ -64,11 +64,38 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                        and through the direct reference handler
                        (``build_handler(batcher=False)``), each equal to the
                        plain route;
+           spans:      the per-request p50 of each span of the render path
+                       (the JAX package's names) over the e2e run's 16
+                       sequential and 48 concurrent GETs, and of
+                       ``imageregion_request_duration_ms``; fails if
+                       getPixelBuffer, queueWait, the group's execute or
+                       the coder has no sample; then the /metrics scrape;
+           http_cache: a cold device-route JPEG GET (200 with ETag,
+                       Cache-Control, Last-Modified), its If-None-Match
+                       and If-Modified-Since repeats (empty 304s) and a
+                       HEAD (the headers alone), none of them moving the
+                       batcher's counters; a 404 without cache headers;
            then the device busy share (torch.profiler) of 8 sequential and
            of 32 concurrent cold GETs, one tile's layer breakdown on a cold
            host read (read, digest, pinned DMA, kernels, wire, coder),
            hashlib's digest rates, and whether PIL's and the native
-           coder's encodes overlap across 8 threads.
+           coder's encodes overlap across 8 threads; then
+           admission:  24 distinct cold device-route JPEG GETs at once
+                       through an app with an admission bound of 4: each a
+                       200 equal to the plain route or a 503 with
+                       Retry-After >= 1, at least one 503, admitted + shed
+                       = 24 (the default app's e2e run shed none);
+           watchdog:   a seeded 3 s freeze of a group's lane, healed by
+                       the watchdog's requeue (0.5 s floor) with the plain
+                       route's bytes before the freeze ends, exactly one
+                       requeue; without the injector a repeat runs clean.
+           The app is reached over HTTP on 127.0.0.1 where aiohttp is
+           installed, else through its request front (``server.app.Front``:
+           the same conditional decision, handler and status mapping);
+           each line says which;
+5. front_cost the host cost the front adds to a GET outside any I/O (a
+           trace, 11 spans, admission, the ETag and header decision),
+           median of 10,000, with the card's name and power limit.
 
 It prints the kernel table as one JSON line, then the nvidia-smi line, and
 last ``{"ok": true, "device": {...}}``.  It imports nothing of JAX.
@@ -710,64 +737,345 @@ def batch_requests():
     ]
 
 
-async def serve_phase(torch, np, data_dir, lut_root, have_aiohttp,
-                      have_pil):
-    from omero_ms_image_region_tpu_torch import codecs, native
-    from omero_ms_image_region_tpu_torch.io.devicecache import plane_digest
-    from omero_ms_image_region_tpu_torch.io.staging import HostPlanes
-    from omero_ms_image_region_tpu_torch.kernels import jpeg as KJ
-    from omero_ms_image_region_tpu_torch.ops import jpegenc as J
+def params_of(route, query, image="1"):
+    return dict(query, imageId=image, theZ="0", theT="0")
+
+
+class Client:
+    """One app a config describes, over HTTP on 127.0.0.1 when aiohttp is
+    installed, else through the app's request front
+    (``server.app.Front``: the same conditional decision, handler, status
+    mapping and request accounting, without a socket; its watchdog runs as
+    a task here)."""
+
+    def __init__(self, config, handler, have_aiohttp):
+        self.config, self.handler = config, handler
+        self.via = "http" if have_aiohttp else "front"
+        self.runner = self.session = self.front = self.watchdog = None
+
+    async def start(self):
+        if self.via == "http":
+            import aiohttp
+            from aiohttp import web
+            from omero_ms_image_region_tpu_torch.server.app import create_app
+            self.port = free_port()
+            self.runner = web.AppRunner(create_app(
+                self.config, DEVICE, handler=self.handler))
+            await self.runner.setup()
+            await web.TCPSite(self.runner, "127.0.0.1", self.port).start()
+            self.session = aiohttp.ClientSession(
+                timeout=aiohttp.ClientTimeout(total=120))
+            return
+        from omero_ms_image_region_tpu_torch.server.app import Front
+        from omero_ms_image_region_tpu_torch.server.watchdog import (
+            build_watchdog)
+        self.front = Front(self.config, self.handler)
+        if self.config.watchdog.enabled:
+            self.watchdog = asyncio.create_task(build_watchdog(
+                self.config.watchdog, self.handler.s.renderer).run())
+
+    async def stop(self):
+        if self.session is not None:
+            await self.session.close()
+        if self.runner is not None:
+            await self.runner.cleanup()       # closes the renderer
+        if self.watchdog is not None:
+            self.watchdog.cancel()
+            await asyncio.gather(self.watchdog, return_exceptions=True)
+        await self.handler.s.renderer.close()
+
+    async def request(self, route, query, method="GET", headers=None,
+                      image="1"):
+        """(status, headers, body, wall ms) of one request."""
+        t0 = time.perf_counter()
+        if self.session is not None:
+            url = (f"http://127.0.0.1:{self.port}/webgateway/{route}/"
+                   f"{image}/0/0")
+            async with self.session.request(method, url, params=query,
+                                            headers=headers or {}) as r:
+                body = await r.read()
+                status, hdrs = r.status, r.headers.copy()  # any case
+        else:
+            answer = await self.front.observed(
+                route, method, params_of(route, query, image),
+                headers or {}, {})
+            status, hdrs, body = answer.status, answer.headers, answer.body
+        return status, hdrs, body, (time.perf_counter() - t0) * 1e3
+
+    async def metrics(self) -> str:
+        if self.session is not None:
+            async with self.session.get(
+                    f"http://127.0.0.1:{self.port}/metrics") as r:
+                return await r.text()
+        return self.front.metrics_text()
+
+
+# The render path's spans (the JAX package's names), and the ones a cold
+# device-route GET must have.
+SPANS = ("get_pixels_description", "canRead",
+         "PixelsService.getPixelBuffer", "PixelsService.readRegion",
+         "dedup.coalesced", "batcher.queueWait",
+         "batcher.queueWait.cancelled", "batcher.stage",
+         "Renderer.renderAsPackedInt.batch", "jfif.encodeBatch",
+         "Renderer.renderAsPackedInt", "encodeImage")
+REQUIRED_SPANS = ("PixelsService.getPixelBuffer", "batcher.queueWait",
+                  "Renderer.renderAsPackedInt.batch", "jfif.encodeBatch")
+
+
+async def settled(batcher) -> None:
+    """Wait for the batcher's last group: a JPEG request is answered when
+    its tile is coded, before its group's lane spans are recorded."""
+    while batcher.inflight():
+        await asyncio.sleep(0.005)
+
+
+def reset_spans(telemetry, registry) -> None:
+    registry.reset()
+    telemetry.REQUEST_HIST.reset()
+    telemetry.TRACES.reset()
+
+
+def span_split(telemetry, registry) -> dict:
+    """Each span's per-request p50 over the finished traces since
+    :func:`reset_spans` (a lane span counts once on each member's trace),
+    its sample count in the registry, and the p50 of
+    ``imageregion_request_duration_ms`` (bucket resolution, as /metrics
+    gives it)."""
+    traces = telemetry.TRACES.recent()
+    snap = registry.snapshot()
+    out = {}
+    for name in SPANS:
+        per_request = [v for v in (t.span_ms(name) for t in traces)
+                       if v is not None]
+        out[name] = {"p50_ms": statistics.median(per_request)
+                     if per_request else None,
+                     "requests": len(per_request),
+                     "samples": snap.get(name, {}).get("count", 0)}
+    hist = telemetry.REQUEST_HIST.get("render_image_region")
+    return {"traces": len(traces), "spans": out,
+            "request_duration_ms_p50_bucket": hist.quantile(0.5)
+            if hist else None,
+            "request_duration_count": hist.count if hist else 0}
+
+
+async def http_cache_phase(client, handler, matches_plain) -> None:
+    """A cold device-route JPEG GET, its If-None-Match and
+    If-Modified-Since repeats (304, no body), a HEAD (its headers, no
+    body), with the batcher's counters unmoved by the last three; a 404
+    without cache headers."""
+    batcher = handler.s.renderer
+    handler.s.raw_cache.clear()
+    route, query = ("render_image_region", {
+        "tile": f"0,3,3,{TILE},{TILE}", "c": CH, "m": "c",
+        "format": "jpeg", "q": "0.75"})
+    status, hdrs, body, ms = await client.request(route, query)
+    check(status == 200 and all(k in hdrs for k in (
+        "ETag", "Cache-Control", "Last-Modified")),
+        f"http_cache: cold GET {status} without its cache headers")
+    _, _, _, same = await matches_plain(route, query, body)
+    check(same, "http_cache: the cold GET differs from the plain route")
+    counters = (batcher.batches_dispatched, batcher.tiles_rendered)
+    inm = await client.request(route, query,
+                               headers={"If-None-Match": hdrs["ETag"]})
+    ims = await client.request(route, query, headers={
+        "If-Modified-Since": hdrs["Last-Modified"]})
+    head = await client.request(route, query, method="HEAD")
+    moved = (batcher.batches_dispatched - counters[0],
+             batcher.tiles_rendered - counters[1])
+    nf = await client.request(route, query, image="99")
+    doc = {"cold": [status, len(body), round(ms, 3)],
+           "if_none_match": [inm[0], len(inm[2])],
+           "if_modified_since": [ims[0], len(ims[2])],
+           "head": [head[0], len(head[2])],
+           "batches_moved": moved[0], "tiles_moved": moved[1],
+           "not_found": [nf[0], sorted(k for k in nf[1] if k in (
+               "ETag", "Cache-Control", "Vary", "Last-Modified"))],
+           "etag": hdrs["ETag"], "cache_control": hdrs["Cache-Control"],
+           "via": client.via}
+    print("http_cache: " + json.dumps(doc), flush=True)
+    check(inm[0] == 304 and inm[2] == b"", "http_cache: If-None-Match "
+          "did not get an empty 304")
+    check(ims[0] == 304 and ims[2] == b"", "http_cache: If-Modified-Since "
+          "did not get an empty 304")
+    check(head[0] == 200 and head[2] == b"" and all(
+        head[1].get(k) == hdrs[k] for k in ("ETag", "Cache-Control",
+                                            "Last-Modified")),
+        "http_cache: HEAD did not answer the 200's headers alone")
+    check(moved == (0, 0), "http_cache: a 304 or the HEAD rendered")
+    check(nf[0] == 404 and not doc["not_found"][1],
+          "http_cache: the 404 carries cache headers")
+
+
+def front_handler(data_dir, lut_root, raw):
+    """A config from ``raw`` over the smoke's data, and its handler on the
+    card."""
+    from omero_ms_image_region_tpu_torch.server.app import build_services
+    from omero_ms_image_region_tpu_torch.server.config import AppConfig
+    from omero_ms_image_region_tpu_torch.server.handler import (
+        ImageRegionHandler)
+
+    config = AppConfig.from_dict(dict(raw, **{
+        "data-dir": data_dir,
+        "omero.server": {"omero.script_repo_root": lut_root}}))
+    return config, ImageRegionHandler(build_services(config, DEVICE))
+
+
+async def admission_phase(data_dir, lut_root, have_aiohttp,
+                          matches_plain) -> None:
+    """24 distinct cold device-route JPEG GETs at once through an app
+    whose admission bound is 4: each a 200 equal to the plain route or a
+    503 with Retry-After >= 1; at least one 503; admitted + shed = 24."""
+    config, handler = front_handler(data_dir, lut_root, {
+        "fault-tolerance": {"admission-max-queue": 4}})
+    adm = handler.s.admission
+    reqs = [("render_image_region", {
+        "tile": f"0,{i % 8},{i // 8},{TILE},{TILE}", "c": CH2, "m": "c",
+        "format": "jpeg", "q": "0.8"}) for i in range(24)]
+    client = Client(config, handler, have_aiohttp)
+    await client.start()
+    try:
+        t0 = time.perf_counter()
+        out = await asyncio.gather(*(client.request(*r) for r in reqs))
+        wall = time.perf_counter() - t0
+        statuses = {}
+        for (route, query), (status, hdrs, body, _) in zip(reqs, out):
+            statuses[status] = statuses.get(status, 0) + 1
+            if status == 200:
+                _, _, _, same = await matches_plain(route, query, body)
+                check(same, f"admission {query}: body differs from the "
+                            f"plain route")
+            else:
+                check(status == 503 and int(hdrs.get("Retry-After", 0))
+                      >= 1, f"admission {query}: HTTP {status} "
+                            f"Retry-After {hdrs.get('Retry-After')}")
+        doc = {"gets": len(reqs), "bound": adm.max_queue,
+               "statuses": statuses, "admitted": adm.admitted_total,
+               "shed": adm.shed_total, "wall_ms": wall * 1e3,
+               "via": client.via}
+        print("admission: " + json.dumps(doc), flush=True)
+        check(statuses.get(503, 0) >= 1, "admission: nothing was shed")
+        check(adm.admitted_total + adm.shed_total == len(reqs),
+              "admission: admitted + shed != GETs")
+    finally:
+        await client.stop()
+
+
+async def watchdog_phase(data_dir, lut_root, have_aiohttp,
+                         matches_plain) -> None:
+    """A seeded freeze (3 s, once) wedges the first group of a
+    device-route JPEG GET; the watchdog (0.1 s cadence, 0.5 s floor)
+    requeues it, and the GET is answered with the plain route's bytes
+    before the freeze ends.  Then, with the injector uninstalled, a repeat
+    runs clean."""
+    from omero_ms_image_region_tpu_torch.utils import faultinject, telemetry
+
+    config, handler = front_handler(data_dir, lut_root, {
+        "watchdog": {"interval-s": 0.1, "stall-min-s": 0.5},
+        "fault-injection": {"seed": 1, "freeze-rate": 1.0,
+                            "freeze-ms": 3000, "freeze-max": 1}})
+    injector = faultinject.active()
+    client = Client(config, handler, have_aiohttp)
+    await client.start()
+    fires0 = telemetry.WATCHDOG.totals()
+
+    def fired():
+        now = telemetry.WATCHDOG.totals()
+        return {k: v - fires0.get(k, 0) for k, v in now.items()
+                if v - fires0.get(k, 0)}
+    try:
+        route = "render_image_region"
+        query = {"tile": f"0,6,6,{TILE},{TILE}", "c": CH, "m": "c",
+                 "format": "jpeg", "q": "0.7"}
+        status, _, body, ms = await client.request(route, query)
+        _, _, _, same = await matches_plain(route, query, body)
+        healed = {"status": status, "wall_ms": ms, "matches_plain": same,
+                  "fires": fired(), "injected": injector.snapshot()}
+        faultinject.uninstall()
+        query2 = dict(query, tile=f"0,7,6,{TILE},{TILE}")
+        status2, _, body2, ms2 = await client.request(route, query2)
+        _, _, _, same2 = await matches_plain(route, query2, body2)
+        doc = {"healed": healed, "repeat": {
+            "status": status2, "wall_ms": ms2, "matches_plain": same2,
+            "fires": fired()}, "via": client.via}
+        print("watchdog: " + json.dumps(doc), flush=True)
+        check(status == 200 and same and ms < 3000.0,
+              "watchdog: the frozen GET was not healed before the freeze "
+              "ended")
+        check(healed["fires"] == {"requeue-group": 1}
+              and healed["injected"] == {"freeze": 1},
+              "watchdog: not exactly one requeue of one frozen group")
+        check(status2 == 200 and same2
+              and doc["repeat"]["fires"] == {"requeue-group": 1},
+              "watchdog: the repeat without the injector did not run "
+              "clean")
+    finally:
+        faultinject.uninstall()
+        await client.stop()
+
+
+def front_cost_phase(smi: str, n: int = 10_000) -> None:
+    """The host cost the front adds to a GET outside any I/O: a trace
+    opened and finished, 11 spans (a cold device-route GET's), admission
+    admit and release, the ETag, the cache and Last-Modified headers, the
+    conditional decision and the request series.  Median of ``n``."""
+    from omero_ms_image_region_tpu_torch.server import httpcache
+    from omero_ms_image_region_tpu_torch.server.admission import (
+        AdmissionController)
+    from omero_ms_image_region_tpu_torch.server.app import (
+        conditional_answer)
+    from omero_ms_image_region_tpu_torch.utils import telemetry
+    from omero_ms_image_region_tpu_torch.utils.stopwatch import (
+        StopWatchRegistry)
+
+    registry = StopWatchRegistry()
+    hist = telemetry.HistogramVec("route")
+    adm = AdmissionController(512)
+    names = ("get_pixels_description", "canRead", "canRead",
+             "PixelsService.getPixelBuffer", "PixelsService.readRegion",
+             "batcher.queueWait", "batcher.stage", "batcher.groupTiles",
+             "Renderer.renderAsPackedInt.batch", "jfif.encodeBatch",
+             "Renderer.renderAsPackedInt")
+    key, mtime = "5d41402abc4b2a76b9719d911017c592", 1.7e9
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter_ns()
+        trace_id = telemetry.new_trace_id()
+        with telemetry.trace_scope(trace_id, "render_image_region"):
+            etag = httpcache.etag_for(key, "0")
+            cc, vary = httpcache.cache_headers(0, False)
+            headers = {"ETag": etag, "Cache-Control": cc,
+                       "Last-Modified": httpcache.http_date(
+                           httpcache.last_modified_basis(mtime, "0"))}
+            if vary:
+                headers["Vary"] = vary
+            conditional_answer({}, "GET", etag, mtime)
+            t_admit = adm.admit()
+            for name in names:
+                registry.record(name, 1.0)
+            adm.release(t_admit)
+        telemetry.TRACES.finish(trace_id)
+        hist.observe("render_image_region", 1.0)
+        telemetry.count_request("front_cost", 200)
+        times.append(time.perf_counter_ns() - t0)
+    times.sort()
+    print("front_cost: " + json.dumps({
+        "iterations": n, "p50_us": times[n // 2] / 1e3,
+        "p90_us": times[int(n * 0.9)] / 1e3, "spans_per_get": len(names),
+        "card": smi}), flush=True)
+
+
+def plain_matcher(torch, np, handler, have_pil):
+    """``matches_plain(route, query, body)``: the served body against the
+    plain route on a host read of the same request (png: pixels;
+    device-route JPEG: bytes against plain K1/K2 -> plain K3 -> plain K4 ->
+    the native coder; host JPEG: bytes against PIL over the plain
+    pixels)."""
+    from omero_ms_image_region_tpu_torch import codecs
     from omero_ms_image_region_tpu_torch.ops import render as R
     from omero_ms_image_region_tpu_torch.ops.flip import flip_image
-    from omero_ms_image_region_tpu_torch.server.app import (build_handler,
-                                                            create_app)
-    from omero_ms_image_region_tpu_torch.server.batcher import (
-        BatchingRenderer)
     from omero_ms_image_region_tpu_torch.server.ctx import ImageRegionCtx
 
-    # The default app: batcher, device raw cache and single-flight on.
-    handler = build_handler(data_dir, lut_root, device=DEVICE)
-    batcher, cache = handler.s.renderer, handler.s.raw_cache
-    check(isinstance(batcher, BatchingRenderer) and cache is not None
-          and handler.s.single_flight is not None,
-          "build_handler did not build the default posture")
-    requests = requests_for(TILE)
-
-    def params_of(route, query):
-        return dict(query, imageId="1", theZ="0", theT="0")
-
-    runner = session = None
-    if have_aiohttp:
-        import aiohttp
-        from aiohttp import web
-        port = free_port()
-        runner = web.AppRunner(create_app(data_dir, handler=handler))
-        await runner.setup()
-        await web.TCPSite(runner, "127.0.0.1", port).start()
-        session = aiohttp.ClientSession(
-            timeout=aiohttp.ClientTimeout(total=120))
-    else:
-        print("serve: aiohttp is not installed; calling "
-              "ImageRegionHandler.render_image_region directly", flush=True)
-
-    async def get(route, query):
-        t0 = time.perf_counter()
-        if session is not None:
-            url = f"http://127.0.0.1:{port}/webgateway/{route}/1/0/0"
-            async with session.get(url, params=query) as r:
-                body = await r.read()
-                status = r.status
-        else:
-            body = await handler.render_image_region(
-                ImageRegionCtx.from_params(params_of(route, query)))
-            status = 200
-        return status, body, (time.perf_counter() - t0) * 1e3
-
     async def matches_plain(route, query, body):
-        """The served body against the plain route on a host read of the
-        same request (png: pixels; device-route JPEG: bytes against plain
-        K1/K2 -> plain K3 -> plain K4 -> the native coder; host JPEG:
-        bytes against PIL over the plain pixels)."""
         ctx = ImageRegionCtx.from_params(params_of(route, query))
         raw, settings = await handler.read(ctx)
         h, w = raw.shape[-2:]
@@ -786,6 +1094,45 @@ async def serve_phase(torch, np, data_dir, lut_root, have_aiohttp,
         return f"host {ctx.format}", list(raw.shape), settings, (
             body == codecs.encode_rgba(want_rgba, ctx.format,
                                        ctx.compression_quality))
+
+    return matches_plain
+
+
+async def serve_phase(torch, np, data_dir, lut_root, have_aiohttp,
+                      have_pil):
+    from omero_ms_image_region_tpu_torch import codecs, native
+    from omero_ms_image_region_tpu_torch.io.devicecache import plane_digest
+    from omero_ms_image_region_tpu_torch.io.staging import HostPlanes
+    from omero_ms_image_region_tpu_torch.kernels import jpeg as KJ
+    from omero_ms_image_region_tpu_torch.ops import jpegenc as J
+    from omero_ms_image_region_tpu_torch.ops import render as R
+    from omero_ms_image_region_tpu_torch.server.app import build_handler
+    from omero_ms_image_region_tpu_torch.server.batcher import (
+        BatchingRenderer)
+    from omero_ms_image_region_tpu_torch.server.config import AppConfig
+    from omero_ms_image_region_tpu_torch.server.ctx import ImageRegionCtx
+    from omero_ms_image_region_tpu_torch.utils import telemetry
+    from omero_ms_image_region_tpu_torch.utils.stopwatch import REGISTRY
+
+    # The default app: batcher, device raw cache, single-flight and
+    # admission on.
+    config = AppConfig(data_dir=data_dir, lut_root=lut_root)
+    handler = build_handler(data_dir, lut_root, device=DEVICE)
+    batcher, cache = handler.s.renderer, handler.s.raw_cache
+    check(isinstance(batcher, BatchingRenderer) and cache is not None
+          and handler.s.single_flight is not None
+          and handler.s.admission is not None,
+          "build_handler did not build the default posture")
+    requests = requests_for(TILE)
+    client = Client(config, handler, have_aiohttp)
+    await client.start()
+    print(f"serve: the default app via {client.via}", flush=True)
+
+    async def get(route, query):
+        status, _, body, ms = await client.request(route, query)
+        return status, body, ms
+
+    matches_plain = plain_matcher(torch, np, handler, have_pil)
 
     async def in_flight(reqs, n=8):
         sem = asyncio.Semaphore(n)
@@ -866,11 +1213,18 @@ async def serve_phase(torch, np, data_dir, lut_root, have_aiohttp,
                    "m": "c", "format": "jpeg"}) for i in range(64)]
         cache.clear()
         hits0, misses0 = cache.hits, cache.misses
+        shed0 = handler.s.admission.shed_total
         stats = Batches(batcher)
+        reset_spans(telemetry, REGISTRY)
         seq = [(await get(*r))[2] for r in tiles[:16]]
+        await settled(batcher)
+        seq_spans = span_split(telemetry, REGISTRY)
         seq_groups = stats.report()
         stats = Batches(batcher)
+        reset_spans(telemetry, REGISTRY)
         conc, wall = await in_flight(tiles[16:64])
+        await settled(batcher)
+        conc_spans = span_split(telemetry, REGISTRY)
         check(all(s == 200 for s, _, _ in conc), "timed run: non-200")
         groups = stats.report()
         e2e = {"tile": f"{TILE}x{TILE}x4 uint16 -> jpeg (device route, "
@@ -890,10 +1244,29 @@ async def serve_phase(torch, np, data_dir, lut_root, have_aiohttp,
                "sequential_execute_p50_ms": seq_groups["execute_p50_ms"],
                "raw_cache_hits": cache.hits - hits0,
                "raw_cache_misses": cache.misses - misses0,
-               "via": "http" if session is not None else "handler"}
+               "sheds": handler.s.admission.shed_total - shed0,
+               "via": client.via}
         print("e2e: " + json.dumps(e2e), flush=True)
         check(e2e["raw_cache_hits"] == 0,
               "e2e: the cold run had raw-cache hits")
+        check(e2e["sheds"] == 0, "e2e: the default app shed a request")
+
+        # spans: the per-request split of the two e2e runs, and the scrape.
+        spans = {"sequential": seq_spans, "in_flight_8": conc_spans,
+                 "via": client.via}
+        print("spans: " + json.dumps(spans), flush=True)
+        for label in ("sequential", "in_flight_8"):
+            for name in REQUIRED_SPANS:
+                check(spans[label]["spans"][name]["samples"] > 0,
+                      f"spans: {name} has no sample in the {label} run")
+        scrape = await client.metrics()
+        check('imageregion_span_count{span="jfif.encodeBatch"}' in scrape
+              and "imageregion_requests_total{" in scrape
+              and "imageregion_batches_dispatched " in scrape,
+              "spans: /metrics lacks the span, request or batcher series")
+        print(f"spans: /metrics {len(scrape.splitlines())} lines, "
+              f"{scrape.count('# TYPE ')} families, via {client.via}",
+              flush=True)
 
         # raw_cache: the 16 sequential tiles again with another window,
         # each a raw-cache hit.
@@ -968,6 +1341,8 @@ async def serve_phase(torch, np, data_dir, lut_root, have_aiohttp,
         postures["batcher_host_planes"]["group_sizes"] = dict(
             host_batcher.group_sizes)
         print("postures: " + json.dumps(postures), flush=True)
+
+        await http_cache_phase(client, handler, matches_plain)
 
         # Device busy share: 8 sequential cold GETs, and 32 cold GETs at
         # 8 in flight (torch.profiler, device time of all kernels and
@@ -1054,12 +1429,14 @@ async def serve_phase(torch, np, data_dir, lut_root, have_aiohttp,
         print("digest_rates: " + json.dumps(digest_rates(raw)), flush=True)
         print("encode_overlap: " + json.dumps(
             encode_overlap(np, rgba, row, W, H, q, cap)), flush=True)
+
+        await admission_phase(data_dir, lut_root, have_aiohttp,
+                              matches_plain)
+        await watchdog_phase(data_dir, lut_root, have_aiohttp,
+                             matches_plain)
         return launches, serve_launches
     finally:
-        if session is not None:
-            await session.close()
-        if runner is not None:
-            await runner.cleanup()
+        await client.stop()
         await batcher.close()
 
 
@@ -1121,6 +1498,7 @@ def main() -> int:
               f"{secs:.1f} s", flush=True)
         launches, serve_launches = asyncio.run(serve_phase(
             torch, np, data_dir, lut_root, have_aiohttp, have_pil))
+    front_cost_phase(smi)
 
     for name, e in entries.items():
         e["launches"] = launches[name]

@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from .. import native
+from ..utils.stopwatch import stopwatch
 
 # ---------------------------------------------------------------- tables
 
@@ -534,8 +535,9 @@ def coefficients_to_jpegs(y, cb, cr, H: int, W: int, quality: int,
         return (y[i].cpu().numpy(), cb[i].cpu().numpy(),
                 cr[i].cpu().numpy())
 
-    return finish_sparse_to_jpegs(rows, dims, H, W, quality, cap,
-                                  dense_coefficients, on_tile)
+    with stopwatch("jfif.encodeBatch"):
+        return finish_sparse_to_jpegs(rows, dims, H, W, quality, cap,
+                                      dense_coefficients, on_tile)
 
 
 def render_batch_to_jpeg(raw, window_start, window_end, family, coefficient,

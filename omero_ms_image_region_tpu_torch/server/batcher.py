@@ -28,9 +28,30 @@ Deliberate differences from the JAX batcher; none changes a byte:
   batch sizes at which the kernels are checked against their plain
   versions on the card.
 
+The front's contract with the JAX batcher (``server.watchdog``,
+``utils.faultinject``, ``utils.stopwatch``): each request's queue wait is
+recorded once, when its group is popped (``batcher.queueWait``, or
+``batcher.queueWait.cancelled`` for work never rendered); the host half of
+staging and the enqueue of the group's copy and gather on the lane's
+stream are ``batcher.stage``; a lane's execute half is
+``Renderer.renderAsPackedInt.batch``.  A lane thread records under every
+member's trace.  The watchdog scans the live groups: one stuck past
+``max(stall_min_s, stall_factor x p99)`` has its unsettled members
+requeued at the head of their queue, and a member already requeued
+``escalate_after - 1`` times is failed with ``ConnectionError``.  A CUDA
+stream cannot be interrupted: a group wedged in its execute half (a
+stream whose synchronous D2H never returns) keeps its thread, its lane
+and its pinned group buffer, so the requeued members take the other lane;
+when the thread returns, its results settle into futures already done
+(skipped), its lane goes back to the pool and its pinned block returns to
+PyTorch's host allocator after its copy's event.  Its group stays out of
+the duration history, so one wedge does not stretch the p99.  An injected
+freeze or device error (``utils.faultinject``) fires in the group's
+worker thread before any launch.
+
 Left out (ROADMAP Queue 1): the mask lane (K8), the executable cache,
-fault injection, shape-cost telemetry, the watchdog, and the lane cap and
-backlog split that the JAX admission side drives.
+shape-cost telemetry, and the lane cap and backlog split that the JAX
+pressure governor drives.
 """
 
 from __future__ import annotations
@@ -51,7 +72,8 @@ from ..io.staging import (HostPlanes, pin_scope, storage_dtype,
                           use_on_current_stream)
 from ..ops.jpegenc import pad_planes_to_mcu, render_batch_to_jpeg
 from ..ops.render import render_tile_batch_packed, resolve_device
-from ..utils import transient
+from ..utils import faultinject, telemetry, transient
+from ..utils.stopwatch import REGISTRY, stopwatch
 
 DEFAULT_BUCKETS = ((256, 256), (512, 512), (1024, 1024), (2048, 2048))
 
@@ -97,6 +119,28 @@ class _Pending:
     # Absolute time.monotonic() budget (utils.transient): work whose
     # budget is spent is failed at dispatch pop, never rendered.
     deadline: Optional[float] = None
+    trace_id: Optional[str] = None   # the requester's trace
+    # Times the watchdog requeued this pending out of a stuck group.
+    requeues: int = 0
+
+
+class _LiveGroup:
+    """A dispatched group as the watchdog sees it.  ``fires``/``t_fire``
+    keep a healed group under scan: if its requeued members never reach a
+    healthy lane, the next interval escalates."""
+
+    __slots__ = ("key", "group", "t_start", "fires", "t_fire")
+
+    def __init__(self, key: tuple, group: List[_Pending], t_start: float):
+        self.key = key
+        self.group = group
+        self.t_start = t_start
+        self.fires = 0
+        self.t_fire = 0.0
+
+
+def _key_label(key: tuple) -> str:
+    return "/".join(str(k) for k in key)
 
 
 class BatchingRenderer:
@@ -152,12 +196,114 @@ class BatchingRenderer:
         self.execute_ms: Deque[float] = collections.deque(maxlen=4096)
         self._executing = 0
         self.max_executing = 0
+        # High-water dispatched queue wait (ms), for /metrics.
+        self.queue_wait_max_ms = 0.0
+        # Watchdog state: live groups by their worker future, and recent
+        # group durations, whose p99 anchors the stuck threshold.  The
+        # knobs are attributes; server.watchdog.build_watchdog sets them.
+        self._live_groups: Dict[object, _LiveGroup] = {}
+        self._group_durations: Deque[float] = collections.deque(maxlen=64)
+        self.watchdog_stall_factor = 8.0
+        self.watchdog_stall_min_s = 30.0
+        self.watchdog_escalate_after = 2
 
     def _count_batch(self, tiles: int) -> None:
         with self._stats_lock:
             self.batches_dispatched += 1
             self.tiles_rendered += tiles
             self.group_sizes[tiles] += 1
+
+    def queue_depth(self) -> int:
+        """Requests waiting across every group key."""
+        return sum(len(q) for q in self._queues.values())
+
+    def inflight(self) -> int:
+        """Groups holding a pipeline slot."""
+        return len(self._inflight)
+
+    # ----------------------------------------------------------- watchdog
+
+    def group_p99_s(self) -> float:
+        """p99 of recent group durations (healed groups excluded); 0 with
+        no history, when the stall floor alone rules."""
+        if not self._group_durations:
+            return 0.0
+        ordered = sorted(self._group_durations)
+        return ordered[int(0.99 * (len(ordered) - 1))]
+
+    def watchdog_scan(self, now: Optional[float] = None) -> List[dict]:
+        """Heal stuck groups (the ``server.watchdog`` target contract).
+
+        A live group older than ``max(stall_min_s, stall_factor x p99)``
+        is stuck.  Its worker thread cannot be interrupted, but its
+        waiters can be rescued: its unsettled members go back to the head
+        of their queue, and a free pipeline slot and lane re-render them.
+        A group whose members were already requeued
+        ``watchdog_escalate_after - 1`` times, or that fires again a full
+        threshold after a heal (no healthy lane took its members), fails
+        them with ``ConnectionError`` instead.  Returns the events."""
+        now = time.monotonic() if now is None else now
+        threshold = max(self.watchdog_stall_min_s,
+                        self.watchdog_stall_factor * self.group_p99_s())
+        events: List[dict] = []
+        for live in list(self._live_groups.values()):
+            anchor = live.t_fire if live.fires else live.t_start
+            if now - anchor < threshold:
+                continue
+            pending = [p for p in live.group if not p.future.done()]
+            if not pending:
+                continue
+            live.fires += 1
+            live.t_fire = now
+            event = {"target": f"lane:{_key_label(live.key)}",
+                     "age_s": round(now - live.t_start, 3),
+                     "tiles": len(pending)}
+            if (live.fires >= self.watchdog_escalate_after
+                    or max(p.requeues for p in pending)
+                    >= self.watchdog_escalate_after - 1):
+                for p in pending:
+                    p.future.set_exception(ConnectionError(
+                        "watchdog: device lane stuck after requeue; "
+                        "escalating"))
+                events.append(dict(event, action="escalate",
+                                   escalate=True))
+                continue
+            queue_ = self._queues.get(live.key)
+            if queue_ is None:
+                continue
+            for p in reversed(pending):
+                if any(q is p for q in queue_):
+                    continue             # still queued from a last heal
+                p.requeues += 1
+                queue_.appendleft(p)
+            wakeup = self._wakeups.get(live.key)
+            if wakeup is not None:
+                wakeup.set()
+            events.append(dict(event, action="requeue-group",
+                               escalate=False))
+        return events
+
+    def _record_queue_waits(self, group: List[_Pending], now: float,
+                            cancelled: bool = False) -> None:
+        """Each request's queue wait, recorded once, when its group is
+        popped: ``batcher.queueWait``, or ``batcher.queueWait.cancelled``
+        for work never rendered (its budget died, or its waiter left),
+        which stays out of the high-water mark."""
+        series = ("batcher.queueWait.cancelled" if cancelled
+                  else "batcher.queueWait")
+        waits = []
+        for p in group:
+            wait_ms = (now - p.t_enqueue) * 1000.0
+            waits.append(wait_ms)
+            REGISTRY.record(series, wait_ms)
+            if p.trace_id:
+                telemetry.record_span(series, p.t_enqueue, wait_ms,
+                                      trace_ids=(p.trace_id,))
+        if not cancelled:
+            with self._stats_lock:
+                self.queue_waits_ms.extend(waits)
+                self.queue_wait_max_ms = max(self.queue_wait_max_ms,
+                                             *waits)
 
     # ------------------------------------------------------------- public
 
@@ -206,6 +352,7 @@ class BatchingRenderer:
         self._dispatchers.clear()
         self._wakeups.clear()
         self._inflight.clear()
+        self._live_groups.clear()
 
     async def _enqueue(self, key: tuple, pending: _Pending):
         loop = asyncio.get_running_loop()
@@ -213,6 +360,7 @@ class BatchingRenderer:
         pending.future = loop.create_future()
         pending.t_enqueue = time.perf_counter()
         pending.deadline = transient.deadline()
+        pending.trace_id = telemetry.current_trace_id()
         queue_ = self._queues.get(key)
         if queue_ is None:
             queue_ = self._queues[key] = collections.deque()
@@ -253,6 +401,9 @@ class BatchingRenderer:
     async def _dispatch_loop(self, key: tuple) -> None:
         """Drain the key's queue into group renders, up to
         ``pipeline_depth`` at once."""
+        # Created from some request's context: detach, so the loop's
+        # spans never land on that one request.
+        telemetry.clear_context()
         queue_ = self._queues[key]
         wakeup = self._wakeups[key]
         slots = asyncio.Semaphore(self.pipeline_depth)
@@ -272,43 +423,62 @@ class BatchingRenderer:
             # task, so a close() cancellation cannot orphan a popped
             # group.
             group: List[_Pending] = []
+            dead: List[_Pending] = []
             now = time.monotonic()
             while queue_ and len(group) < self.max_batch:
                 p = queue_.popleft()
                 if p.future.done():
-                    continue          # the waiter went away while queued
+                    dead.append(p)    # the waiter went away while queued
+                    continue
                 if p.deadline is not None and now >= p.deadline:
+                    telemetry.RESILIENCE.count_deadline_cancelled()
                     p.future.set_exception(transient.DeadlineExceededError(
                         "deadline exceeded in batch queue"))
+                    dead.append(p)
                     continue
                 group.append(p)
+            t_pop = time.perf_counter()
+            if dead:
+                self._record_queue_waits(dead, t_pop, cancelled=True)
             if not group:
                 slots.release()
                 continue
-            t_pop = time.perf_counter()
-            with self._stats_lock:
-                self.queue_waits_ms.extend(
-                    (t_pop - p.t_enqueue) * 1000.0 for p in group)
+            self._record_queue_waits(group, t_pop)
             render = (self._render_group_jpeg if key[0] == "jpeg"
                       else self._render_group)
-            task = asyncio.create_task(self._run_group(render, group, slots))
+            task = asyncio.create_task(
+                self._run_group(render, group, slots, key))
             self._inflight.add(task)
             task.add_done_callback(self._inflight.discard)
 
     async def _run_group(self, render, group: List[_Pending],
-                         slots: asyncio.Semaphore) -> None:
+                         slots: asyncio.Semaphore, key: tuple) -> None:
         """Render one popped group on a worker thread.
 
         Settlement (slot release and waiter resolution) happens in the
         inner future's done callback, so only when the worker thread has
         finished: cancelling this task frees no slot while the group still
         runs, and no waiter ever sees a raw ``CancelledError`` (it would
-        bypass the HTTP layer's mapping of an exception to a 500).
+        bypass the HTTP layer's mapping of an exception to a 500).  The
+        group is live for the watchdog until then.
         """
-        inner = asyncio.ensure_future(asyncio.to_thread(render, group))
+        trace_ids = tuple(p.trace_id for p in group if p.trace_id)
+
+        def run():
+            # The thread's spans land on every member's trace.
+            with telemetry.group_trace(trace_ids):
+                return render(group)
+
+        inner = asyncio.ensure_future(asyncio.to_thread(run))
+        live = _LiveGroup(key, group, time.monotonic())
+        self._live_groups[inner] = live
 
         def settle(fut: asyncio.Future) -> None:
             slots.release()
+            self._live_groups.pop(fut, None)
+            if not live.fires:
+                self._group_durations.append(
+                    time.monotonic() - live.t_start)
             if fut.cancelled():
                 exc: Optional[BaseException] = RuntimeError(
                     "render cancelled")
@@ -333,6 +503,18 @@ class BatchingRenderer:
 
     # ------------------------------------------------- worker-thread half
 
+    @staticmethod
+    def _inject_faults() -> None:
+        """The fault-injection hooks, in the JAX batcher's order (a
+        device error, then a freeze), before any launch."""
+        inj = faultinject.active()
+        if inj is None:
+            return
+        inj.maybe_device_error()
+        freeze = inj.freeze_s()
+        if freeze > 0:
+            time.sleep(freeze)
+
     def _stage_host(self, group: List[_Pending]) -> Optional[HostPlanes]:
         """Host half of staging, before a lane is taken: every host member
         mirrored and edge-padded to the bucket straight into one pinned
@@ -347,6 +529,22 @@ class BatchingRenderer:
             pad_planes_to_mcu(p.raw, bh, bw, p.flip_h, p.flip_v,
                               out=planes.array[j])
         return planes
+
+    def _staged_raw(self, group: List[_Pending]):
+        """Both halves of a group's staging: the host half before a lane
+        is taken, then (as a context, in the lane) the device half.  The
+        two together are one ``batcher.stage`` sample."""
+        t0 = time.perf_counter()
+        staged = self._stage_host(group)
+        host_ms = (time.perf_counter() - t0) * 1000.0
+
+        def device_half() -> torch.Tensor:
+            t1 = time.perf_counter()
+            raw = self._group_raw(group, staged)
+            REGISTRY.record("batcher.stage", host_ms
+                            + (time.perf_counter() - t1) * 1000.0)
+            return raw
+        return device_half
 
     def _group_raw(self, group: List[_Pending],
                    staged: Optional[HostPlanes]) -> torch.Tensor:
@@ -405,9 +603,10 @@ class BatchingRenderer:
             self._lanes.put(stream)
 
     def _render_group(self, group: List[_Pending]) -> List[np.ndarray]:
-        staged = self._stage_host(group)
-        with self._lane():
-            raw = self._group_raw(group, staged)
+        self._inject_faults()
+        device_half = self._staged_raw(group)
+        with self._lane(), stopwatch("Renderer.renderAsPackedInt.batch"):
+            raw = device_half()
             packed = render_tile_batch_packed(raw, *self._settings(group))
             host = packed.cpu().numpy().view(np.uint32)
         self._count_batch(len(group))
@@ -430,9 +629,11 @@ class BatchingRenderer:
         return on_tile
 
     def _render_group_jpeg(self, group: List[_Pending]) -> List[bytes]:
-        staged = self._stage_host(group)
-        with self._lane():
-            raw = self._group_raw(group, staged)
+        REGISTRY.record("batcher.groupTiles", float(len(group)))
+        self._inject_faults()
+        device_half = self._staged_raw(group)
+        with self._lane(), stopwatch("Renderer.renderAsPackedInt.batch"):
+            raw = device_half()
             jpegs = render_batch_to_jpeg(
                 raw, *self._settings(group), quality=group[0].quality,
                 dims=[(p.w, p.h) for p in group],

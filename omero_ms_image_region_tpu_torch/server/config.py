@@ -1,0 +1,502 @@
+"""Service configuration: the JAX package's YAML, for the sections the port
+serves.
+
+Counterpart of the JAX package's ``server/config.py``.  ``AppConfig.
+from_dict`` takes the same dict (``from_yaml`` the same file, e.g.
+``conf/config.example.yaml``) with the same kebab-case keys, and gives the
+served settings the same values and the same validation:
+
+* top level: ``port``, ``worker_pool_size``, ``data-dir``,
+  ``cache-control-header``, the HTTP parse limits
+  (``max-initial-line-length``, ``max-header-size``, ``max-headers``),
+  ``omero.server`` (``omero.pixeldata.max_tile_length``,
+  ``omero.script_repo_root``), ``omero.web.session_cookie_name``,
+  ``single-flight``, ``logging``;
+* ``session-store`` of type ``static`` (or none): a session cookie's value
+  is the session key, as in the JAX ``StaticSessionStore(accept_all=True)``;
+* ``batcher``, ``raw-cache``, ``renderer``, ``http-cache``, ``watchdog``,
+  ``fault-tolerance`` and ``fault-injection``, except the keys that belong
+  to a part not ported (the sidecar's breaker and retries, batch growth,
+  XLA's compile cache, ...).
+
+One default differs on purpose: ``raw-cache.digest-dedup`` is off unless
+the file sets it.  The dedup cost a cold GET 19-20 ms on the H100 and saved
+no copy (PERF.md, ROADMAP Queue 1 item 15).
+
+Everything else is read and checked against the JAX default.  A section
+that is switched off (``enabled: false``) is inert.  A boolean set from
+``true`` to ``false`` switches off a feature the port does not have, which
+is what the port does.  Any other value away from the JAX default fails
+the load with a ``ValueError`` that names the setting and says the port
+does not serve it yet.  The one exception is the byte caches
+(``image-region-cache``, ``pixels-metadata-cache``, ``shape-mask-cache``),
+which ``conf/config.example.yaml`` switches on: a byte-cache hit returns
+the bytes a render returns, so the port answers every request with the
+same status and body without them, at a render's cost.  They load, are
+listed in ``AppConfig.unserved`` and logged as such at startup (ROADMAP
+Queue 1 item 3).  Settings the JAX package turns on by default and the
+port does not have (``wire.streaming``, ``raw-cache.prefetch``, the
+sentinel, the workloads routes, ...) wait in ROADMAP Queue 1.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Optional, Tuple
+
+from ..utils.faultinject import FaultInjectionConfig
+from .httpcache import EPOCH_RE
+
+
+@dataclass
+class BatcherConfig:
+    enabled: bool = True
+    max_batch: int = 8
+    linger_ms: float = 2.0
+    pipeline_depth: int = 4
+    device_lanes: int = 2
+
+
+@dataclass
+class RawCacheConfig:
+    """The device raw cache (``io.devicecache.DeviceRawCache``)."""
+
+    enabled: bool = True
+    max_bytes: int = 2 * 1024 * 1024 * 1024
+    digest_dedup: bool = False
+
+
+@dataclass
+class RendererConfig:
+    # JPEG regions of at most this many pixels are rendered on the card
+    # and encoded with PIL (the port's ``jpeg_host_max_px``; the JAX
+    # package renders them on the host CPU, with the same bytes).
+    cpu_fallback_max_px: int = 256 * 256
+    jpeg_engine: str = "sparse"
+
+
+@dataclass
+class HttpConfig:
+    """Request parse limits, mapped onto aiohttp's ``max_line_size`` /
+    ``max_field_size`` / ``max_headers``."""
+
+    max_initial_line_length: int = 4096
+    max_header_size: int = 8192
+    max_headers: int = 32768
+
+
+@dataclass
+class HttpCacheConfig:
+    """Conditional HTTP (``server.httpcache``)."""
+
+    enabled: bool = True
+    epoch: str = "0"               # "auto": derived from the data tree
+    max_age_s: int = 0             # 0: "no-cache", revalidate every serve
+    vary_acl: bool = True
+
+
+@dataclass
+class WatchdogConfig:
+    """The stuck-lane watchdog (``server.watchdog``)."""
+
+    enabled: bool = True
+    interval_s: float = 2.0
+    stall_factor: float = 8.0
+    stall_min_s: float = 30.0
+    escalate_after: int = 2
+
+
+@dataclass
+class FaultToleranceConfig:
+    request_deadline_ms: float = 0.0     # 0: no deadline
+    admission_max_queue: int = 512       # 0: no admission control
+    shed_retry_after_s: float = 1.0
+
+
+@dataclass
+class LoggingConfig:
+    level: str = "INFO"
+    file: Optional[str] = None           # a time-rolling file appender
+    when: str = "midnight"
+    backup_count: int = 7
+
+
+# The JAX defaults of every section the port does not serve, by YAML key.
+_UNPORTED = {
+    "sidecar": {"socket": None, "role": "combined"},
+    "wire": {
+        "coalesce-max-frames": 64, "coalesce-max-bytes": 1048576,
+        "ring-bytes": 33554432, "ring-min-body-bytes": 4096,
+        "streaming": True, "chunk-max-bytes": 262144,
+    },
+    "fleet": {
+        "enabled": False, "members": 2, "sockets": (), "lane-width": 2,
+        "steal-min-backlog": 2, "hash-replicas": 64, "failover": True,
+        "down-cooldown-s": 5.0,
+    },
+    "hotkey": {
+        "enabled": False, "threshold": 12.0, "decay-s": 20.0,
+        "max-replicas": 2, "top-k": 128, "demote-fraction": 0.5,
+        "scale-factor": 2.0,
+    },
+    "federation": {
+        "enabled": False, "host": "", "shard-epoch": 1, "ring-seed": "",
+        "hash-replicas": 64, "gossip-interval-s": 5.0, "quorum": False,
+        "suspect-after-s": 10.0, "roll-ack-timeout-s": 5.0, "members": (),
+    },
+    "parallel": {
+        "enabled": False, "chan-parallel": 1, "n-devices": None,
+        "coordinator-address": None, "num-processes": None,
+        "process-id": None,
+    },
+    "persistence": {
+        "enabled": False, "dir": "./warm-state",
+        "disk-cache-max-bytes": 1073741824, "executables": True,
+        "snapshot-interval-s": 60.0, "snapshot-top-k": 512,
+        "max-plane-entries": 256, "rehydrate": True,
+        "rehydrate-concurrency": 2,
+    },
+    "sessions": {
+        "enabled": False, "bucket-refill-per-s": 20.0, "bucket-burst": 40.0,
+        "max-tracked": 4096, "prefetch-lookahead": 2,
+    },
+    "loadmodel": {
+        "seed": 1234, "viewers": 10000, "think-time-median-ms": 350.0,
+        "think-time-sigma": 1.0, "session-length-median": 24.0,
+        "session-length-sigma": 1.2, "diurnal-amplitude": 0.6,
+        "bulk-fraction": 0.02, "mask-fraction": 0.0,
+        "pyramid-fraction": 0.0, "animation-fraction": 0.0,
+        "zoom-fraction": 0.05, "skew": 0.0, "image-population": 1,
+    },
+    "workloads": {
+        "device-masks": True, "overlay-enabled": True,
+        "animation-enabled": True, "animation-max-frames": 64,
+    },
+    "pyramid": {
+        "enabled": True, "chunk": 256, "min-level-size": 256,
+        "compressor": "zlib", "defer-poll-s": 0.25,
+    },
+    "autoscaler": {
+        "enabled": False, "interval-s": 2.0, "floor": 1, "ceiling": 0,
+        "queue-high-per-lane": 3.0, "queue-low-per-lane": 0.5,
+        "hold-ticks": 2, "cooldown-s": 30.0, "lane-capacity-tps": 0.0,
+        "session-tps": 2.0, "diurnal-period-s": 86400.0,
+        "diurnal-horizon-s": 300.0, "unit-config": "",
+    },
+    "qos": {"enabled": False, "interactive-weight": 4, "bulk-cost": 4.0},
+    "pressure": {
+        "enabled": False, "interval-s": 1.0, "hbm-high": 0.9,
+        "hbm-low": 0.75, "host-rss-high-mb": 0.0, "host-rss-low-mb": 0.0,
+        "disk-high": 0.95, "disk-low": 0.85, "queue-high": 48,
+        "queue-low": 16, "loop-lag-high-ms": 250.0,
+        "loop-lag-low-ms": 50.0, "critical-factor": 1.25,
+        "step-hold-ticks": 2, "release-hold-ticks": 3,
+        "ladder": ("pause_prefetch", "pause_snapshots", "evict_caches",
+                   "cap_lanes", "drop_quality", "shed_bulk",
+                   "tighten_admission"),
+        "quality-cap": 60, "evict-to-frac": 0.7, "lane-cap": 1,
+        "admission-scale": 0.25, "prefetch-budget-elevated": 0.5,
+        "prefetch-budget-critical": 0.25,
+    },
+    "drain": {
+        "prestage": True, "prestage-max-planes": 256,
+        "settle-timeout-s": 30.0, "fail-readyz": False,
+    },
+    "telemetry": {
+        "slow-request-ms": 0.0, "slow-request-dir": "./slow-traces",
+        "access-log": True, "ready-max-queue-depth": 64,
+        "flight-recorder-events": 512,
+        "flight-recorder-dir": "./flight-recorder",
+        "profile-dir": "./profiles", "profile-max-ms": 10000.0,
+        "provenance-header": False,
+    },
+    "slo": {
+        "availability-target": 0.0, "latency-ms": 0.0,
+        "latency-target": 0.99, "fast-window-s": 60.0,
+        "slow-window-s": 600.0, "breach-burn-rate": 14.4,
+    },
+    "decisions": {
+        "ring-size": 256, "spool-dir": "", "outcome-horizon-ticks": 3,
+    },
+    "sentinel": {
+        "enabled": True, "tick-interval-s": 5.0, "confirm-ticks": 3,
+        "recover-ticks": 3, "min-samples": 32, "warmup-ticks": 3,
+        "drift-ratio": 1.5, "baseline-alpha": 0.2,
+        "throughput-floor-ratio": 0.5, "bundle-dir": "",
+        "max-bundles": 8, "profile-ms": 200, "records-dir": ".",
+    },
+    "redis-cache": {"uri": None},
+    "metadata-service": {"type": "local", "dsn": None},
+}
+
+# The unported keys of the served sections, with their JAX defaults.
+_UNPORTED_KEYS = {
+    "batcher": {"max-batch-limit": None, "target-inflight": 1},
+    "raw-cache": {"prefetch": True},
+    "renderer": {"kernel": "xla", "compilation-cache-dir": None,
+                 "prewarm": ()},
+    "http-cache": {"peer-fetch": True, "peer-timeout-ms": 500.0},
+    "watchdog": {"wire-hang-s": 60.0},
+    "fault-tolerance": {
+        "breaker-failure-threshold": 5, "breaker-reset-s": 5.0,
+        "retry-max-attempts": 3, "retry-base-backoff-ms": 25.0,
+        "retry-max-backoff-ms": 1000.0, "degraded-mode": False,
+        "supervise": True, "supervisor-max-backoff-s": 30.0,
+    },
+    "fault-injection": {
+        "wire-drop-rate": 0.0, "wire-truncate-rate": 0.0,
+        "wire-delay-rate": 0.0, "wire-delay-ms": 0.0,
+        "die-after-requests": 0,
+    },
+    "omero.server": {"omero.data.dir": None},
+    "session-store": {"uri": None},
+}
+
+# Byte caches: loaded and listed in AppConfig.unserved (module docstring).
+_BYTE_CACHES = ("image-region-cache", "pixels-metadata-cache",
+                "shape-mask-cache")
+
+
+def _same(value, default) -> bool:
+    if isinstance(value, list):
+        value = tuple(value)
+    return value == default
+
+
+def _refuse(name: str, value) -> ValueError:
+    return ValueError(f"{name}: {value!r} is not served by the port yet "
+                      f"(omero_ms_image_region_tpu_torch serves only the "
+                      f"JAX default here)")
+
+
+def _check(section: str, block: dict, defaults: dict,
+           served=()) -> None:
+    """Hold ``block``'s keys outside ``served`` to ``defaults``."""
+    for key, value in block.items():
+        if key in served:
+            continue
+        name = f"{section}.{key}"
+        if key not in defaults:
+            raise ValueError(f"{name}: unknown setting; the port cannot "
+                             f"check it against the JAX default")
+        default = defaults[key]
+        if _same(value, default) or (default is True and value is False):
+            continue
+        raise _refuse(name, value)
+
+
+def _block(raw: dict, name: str) -> dict:
+    block = raw.get(name, {}) or {}
+    if not isinstance(block, dict):
+        raise ValueError(f"{name} must be a mapping")
+    return block
+
+
+@dataclass
+class AppConfig:
+    port: int = 8080
+    # None: 2 x cores; sizes the executor every render offload runs on.
+    worker_pool_size: Optional[int] = None
+    data_dir: str = "./data"
+    max_tile_length: int = 2048            # omero.pixeldata.max_tile_length
+    cache_control_header: str = ""
+    lut_root: Optional[str] = None         # omero.script_repo_root
+    session_cookie_name: str = "sessionid"
+    session_store_type: Optional[str] = None     # None | "static"
+    # None: off (the JAX default for a static store or none).
+    session_store_required: Optional[bool] = None
+    single_flight: bool = True
+    batcher: BatcherConfig = field(default_factory=BatcherConfig)
+    raw_cache: RawCacheConfig = field(default_factory=RawCacheConfig)
+    renderer: RendererConfig = field(default_factory=RendererConfig)
+    http: HttpConfig = field(default_factory=HttpConfig)
+    http_cache: HttpCacheConfig = field(default_factory=HttpCacheConfig)
+    watchdog: WatchdogConfig = field(default_factory=WatchdogConfig)
+    fault_tolerance: FaultToleranceConfig = field(
+        default_factory=FaultToleranceConfig)
+    fault_injection: FaultInjectionConfig = field(
+        default_factory=FaultInjectionConfig)
+    logging: LoggingConfig = field(default_factory=LoggingConfig)
+    # Sections switched on that the port loads but does not serve.
+    unserved: Tuple[str, ...] = ()
+
+    @classmethod
+    def from_yaml(cls, path: str) -> "AppConfig":
+        import yaml
+
+        with open(path) as f:
+            raw = yaml.safe_load(f) or {}
+        return cls.from_dict(raw)
+
+    @classmethod
+    def from_dict(cls, raw: dict) -> "AppConfig":
+        cfg = cls()
+        cfg.port = int(raw.get("port", cfg.port))
+        if raw.get("worker_pool_size") is not None:
+            cfg.worker_pool_size = int(raw["worker_pool_size"])
+            if cfg.worker_pool_size <= 0:
+                raise ValueError("worker_pool_size must be positive")
+        cfg.http = HttpConfig(
+            max_initial_line_length=int(raw.get(
+                "max-initial-line-length",
+                cfg.http.max_initial_line_length)),
+            max_header_size=int(raw.get("max-header-size",
+                                        cfg.http.max_header_size)),
+            max_headers=int(raw.get("max-headers", cfg.http.max_headers)))
+        lg = _block(raw, "logging")
+        cfg.logging = LoggingConfig(
+            level=str(lg.get("level", cfg.logging.level)),
+            file=lg.get("file"),
+            when=str(lg.get("when", cfg.logging.when)),
+            backup_count=int(lg.get("backup-count",
+                                    cfg.logging.backup_count)))
+        cfg.data_dir = raw.get("data-dir", cfg.data_dir)
+        server = _block(raw, "omero.server")
+        _check("omero.server", server, _UNPORTED_KEYS["omero.server"],
+               served=("omero.pixeldata.max_tile_length",
+                       "omero.script_repo_root"))
+        cfg.max_tile_length = int(server.get(
+            "omero.pixeldata.max_tile_length", cfg.max_tile_length))
+        cfg.lut_root = server.get("omero.script_repo_root", cfg.lut_root)
+        cfg.cache_control_header = raw.get("cache-control-header",
+                                           cfg.cache_control_header)
+        cfg._http_cache(_block(raw, "http-cache"))
+        cfg.session_cookie_name = _block(raw, "omero.web").get(
+            "session_cookie_name", cfg.session_cookie_name)
+        store = _block(raw, "session-store")
+        _check("session-store", store, _UNPORTED_KEYS["session-store"],
+               served=("type", "required"))
+        cfg.session_store_type = store.get("type")
+        if cfg.session_store_type not in (None, "static"):
+            raise _refuse("session-store.type", cfg.session_store_type)
+        if store.get("required") is not None:
+            cfg.session_store_required = bool(store["required"])
+        for name in ("redis-cache", "metadata-service"):
+            _check(name, _block(raw, name), _UNPORTED[name])
+        cfg.unserved = tuple(
+            name for name in _BYTE_CACHES
+            if _block(raw, name).get("enabled", False))
+        cfg._batcher(_block(raw, "batcher"))
+        sf = raw.get("single-flight")
+        # An empty section (its children commented out) parses as None
+        # and keeps the default.
+        if isinstance(sf, dict):
+            cfg.single_flight = bool(sf.get("enabled", cfg.single_flight))
+        elif sf is not None:
+            cfg.single_flight = bool(sf)
+        rc = _block(raw, "raw-cache")
+        _check("raw-cache", rc, _UNPORTED_KEYS["raw-cache"],
+               served=("enabled", "max-bytes", "digest-dedup"))
+        cfg.raw_cache = RawCacheConfig(
+            enabled=bool(rc.get("enabled", cfg.raw_cache.enabled)),
+            max_bytes=int(rc.get("max-bytes", cfg.raw_cache.max_bytes)),
+            digest_dedup=bool(rc.get("digest-dedup",
+                                     cfg.raw_cache.digest_dedup)))
+        for name, defaults in _UNPORTED.items():
+            if name in ("redis-cache", "metadata-service"):
+                continue
+            block = _block(raw, name)
+            if "enabled" in defaults and block.get("enabled") is False:
+                continue                 # switched off: inert
+            _check(name, block, defaults)
+        cfg._watchdog(_block(raw, "watchdog"))
+        cfg._fault_tolerance(_block(raw, "fault-tolerance"))
+        cfg._fault_injection(_block(raw, "fault-injection"))
+        cfg._renderer(_block(raw, "renderer"))
+        return cfg
+
+    def _http_cache(self, hc: dict) -> None:
+        _check("http-cache", hc, _UNPORTED_KEYS["http-cache"],
+               served=("enabled", "epoch", "max-age-s", "vary-acl"))
+        d = HttpCacheConfig()
+        self.http_cache = HttpCacheConfig(
+            enabled=bool(hc.get("enabled", d.enabled)),
+            epoch=str(hc.get("epoch", d.epoch)),
+            max_age_s=int(hc.get("max-age-s", d.max_age_s)),
+            vary_acl=bool(hc.get("vary-acl", d.vary_acl)))
+        if not EPOCH_RE.match(self.http_cache.epoch):
+            raise ValueError("http-cache.epoch must match [A-Za-z0-9._-]+, "
+                             f"got {self.http_cache.epoch!r}")
+        if self.http_cache.max_age_s < 0:
+            raise ValueError("http-cache.max-age-s must be >= 0 "
+                             "(0 = no-cache, revalidate every serve)")
+
+    def _batcher(self, b: dict) -> None:
+        _check("batcher", b, _UNPORTED_KEYS["batcher"],
+               served=("enabled", "max-batch", "linger-ms",
+                       "pipeline-depth", "device-lanes"))
+        d = BatcherConfig()
+        self.batcher = BatcherConfig(
+            enabled=bool(b.get("enabled", d.enabled)),
+            max_batch=int(b.get("max-batch", d.max_batch)),
+            linger_ms=float(b.get("linger-ms", d.linger_ms)),
+            pipeline_depth=int(b.get("pipeline-depth", d.pipeline_depth)),
+            device_lanes=int(b.get("device-lanes", d.device_lanes)))
+        if self.batcher.pipeline_depth < 1:
+            raise ValueError("batcher.pipeline-depth must be >= 1")
+        if self.batcher.device_lanes < 1:
+            raise ValueError("batcher.device-lanes must be >= 1")
+
+    def _watchdog(self, wd: dict) -> None:
+        _check("watchdog", wd, _UNPORTED_KEYS["watchdog"],
+               served=("enabled", "interval-s", "stall-factor",
+                       "stall-min-s", "escalate-after"))
+        d = WatchdogConfig()
+        self.watchdog = WatchdogConfig(
+            enabled=bool(wd.get("enabled", d.enabled)),
+            interval_s=float(wd.get("interval-s", d.interval_s)),
+            stall_factor=float(wd.get("stall-factor", d.stall_factor)),
+            stall_min_s=float(wd.get("stall-min-s", d.stall_min_s)),
+            escalate_after=int(wd.get("escalate-after",
+                                      d.escalate_after)))
+        if self.watchdog.interval_s <= 0:
+            raise ValueError("watchdog.interval-s must be > 0")
+        if self.watchdog.stall_factor < 1.0:
+            raise ValueError("watchdog.stall-factor must be >= 1")
+        if self.watchdog.stall_min_s <= 0:
+            raise ValueError("watchdog.stall-min-s must be > 0")
+        if self.watchdog.escalate_after < 1:
+            raise ValueError("watchdog.escalate-after must be >= 1")
+
+    def _fault_tolerance(self, ft: dict) -> None:
+        _check("fault-tolerance", ft, _UNPORTED_KEYS["fault-tolerance"],
+               served=("request-deadline-ms", "admission-max-queue",
+                       "shed-retry-after-s"))
+        d = FaultToleranceConfig()
+        self.fault_tolerance = FaultToleranceConfig(
+            request_deadline_ms=float(ft.get("request-deadline-ms",
+                                             d.request_deadline_ms)),
+            admission_max_queue=int(ft.get("admission-max-queue",
+                                           d.admission_max_queue)),
+            shed_retry_after_s=float(ft.get("shed-retry-after-s",
+                                            d.shed_retry_after_s)))
+        if self.fault_tolerance.request_deadline_ms < 0:
+            raise ValueError("fault-tolerance.request-deadline-ms must "
+                             "be >= 0")
+        if self.fault_tolerance.admission_max_queue < 0:
+            raise ValueError("fault-tolerance.admission-max-queue must "
+                             "be >= 0 (0 disables admission control)")
+
+    def _fault_injection(self, fi: dict) -> None:
+        _check("fault-injection", fi, _UNPORTED_KEYS["fault-injection"],
+               served=("seed", "device-error-rate", "freeze-rate",
+                       "freeze-ms", "freeze-max"))
+        d = FaultInjectionConfig()
+        self.fault_injection = FaultInjectionConfig(
+            seed=int(fi["seed"]) if fi.get("seed") is not None else None,
+            device_error_rate=float(fi.get("device-error-rate",
+                                           d.device_error_rate)),
+            freeze_rate=float(fi.get("freeze-rate", d.freeze_rate)),
+            freeze_ms=float(fi.get("freeze-ms", d.freeze_ms)),
+            freeze_max=int(fi.get("freeze-max", d.freeze_max))).validate()
+
+    def _renderer(self, rd: dict) -> None:
+        _check("renderer", rd, _UNPORTED_KEYS["renderer"],
+               served=("cpu-fallback-max-px", "jpeg-engine"))
+        d = RendererConfig()
+        self.renderer = RendererConfig(
+            cpu_fallback_max_px=int(rd.get("cpu-fallback-max-px",
+                                           d.cpu_fallback_max_px)),
+            jpeg_engine=str(rd.get("jpeg-engine", d.jpeg_engine)))
+        if self.renderer.jpeg_engine != "sparse":
+            raise _refuse("renderer.jpeg-engine", self.renderer.jpeg_engine)

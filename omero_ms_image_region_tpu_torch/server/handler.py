@@ -24,13 +24,23 @@ batcher mirrors each tile's raw before padding it to its bucket (as the
 JAX handler folds its flips into the raw), the direct renderer folds them
 into K3's reads or flips the packed tile.
 
-Not here yet: the byte cache, admission and the prefetcher; a projection
-request (``p=``) is refused with a 400.
+Admission (``server.admission``) sits inside the single-flight producer,
+as in the JAX handler: a coalesced follower claims no slot.  The stages
+are timed under the JAX package's span names (``utils.stopwatch``):
+``get_pixels_description``, ``canRead``, ``PixelsService.getPixelBuffer``,
+``PixelsService.readRegion`` (a raw-cache miss's read and copy),
+``Renderer.renderAsPackedInt`` (the await of the renderer) and
+``encodeImage`` (PIL); a follower's await is a ``dedup.coalesced`` span on
+its trace.
+
+Not here yet: the byte cache and the prefetcher; a projection request
+(``p=``) is refused with a 400.
 """
 
 from __future__ import annotations
 
 import asyncio
+import time
 from dataclasses import dataclass
 from typing import List, Optional, Sequence, Tuple, Union
 
@@ -47,7 +57,8 @@ from ..ops.flip import flip_image
 from ..ops.render import (batched_settings, pack_settings,
                           render_tile_batch_packed, resolve_device,
                           settings_to_tensors, unpack_rgba)
-from ..utils import transient
+from ..utils import telemetry, transient
+from ..utils.stopwatch import stopwatch
 from .ctx import ImageRegionCtx
 from .errors import BadRequestError, NotFoundError
 from .region import RegionDef, clamp_region_to_plane, get_region_def
@@ -138,6 +149,7 @@ class ImageRegionServices:
     # In-flight render dedup (singleflight.SingleFlight); None disables
     # coalescing.
     single_flight: object = None
+    admission: object = None          # admission.AdmissionController
 
 
 @dataclass
@@ -167,11 +179,21 @@ class ImageRegionHandler:
         budgets died after it was popped may still be running, and the
         caller gets its ``DeadlineExceededError`` at budget end.
         """
+        t0 = time.perf_counter()
         pixels = await self._authorize(ctx)
+        admission = self.s.admission
 
         async def produce() -> bytes:
-            transient.check_deadline("render pipeline")
-            return await self._get_region(ctx, pixels)
+            t_admit = admission.admit() if admission is not None else None
+            completed = False
+            try:
+                transient.check_deadline("render pipeline")
+                data = await self._get_region(ctx, pixels)
+                completed = True
+            finally:
+                if admission is not None:
+                    admission.release(t_admit, completed=completed)
+            return data
 
         if self.s.single_flight is None:
             remaining = transient.remaining_ms()
@@ -183,8 +205,11 @@ class ImageRegionHandler:
             except asyncio.TimeoutError:
                 raise transient.DeadlineExceededError(
                     "deadline exceeded awaiting render")
-        data, _ = await self.s.single_flight.run(render_identity_key(ctx),
-                                                 produce)
+        data, coalesced = await self.s.single_flight.run(
+            render_identity_key(ctx), produce)
+        if coalesced:
+            telemetry.record_span("dedup.coalesced", t0,
+                                  (time.perf_counter() - t0) * 1000.0)
         return data
 
     async def read(self, ctx: ImageRegionCtx) -> Tuple[np.ndarray, dict]:
@@ -199,12 +224,20 @@ class ImageRegionHandler:
         return raw, plan.settings
 
     async def _authorize(self, ctx: ImageRegionCtx) -> Pixels:
-        pixels = await self.s.metadata.get_pixels_description(
-            ctx.image_id, ctx.omero_session_key)
-        if pixels is None or not await self.s.metadata.can_read(
-                "Image", ctx.image_id, ctx.omero_session_key):
+        with stopwatch("get_pixels_description"):
+            pixels = await self.s.metadata.get_pixels_description(
+                ctx.image_id, ctx.omero_session_key)
+        if pixels is None or not await self.can_read(
+                ctx.image_id, ctx.omero_session_key):
             raise NotFoundError(f"Cannot find Image:{ctx.image_id}")
         return pixels
+
+    async def can_read(self, image_id: int,
+                       session_key: Optional[str]) -> bool:
+        """The read ACL of an image for a caller."""
+        with stopwatch("canRead"):
+            return await self.s.metadata.can_read("Image", image_id,
+                                                  session_key)
 
     async def _plan(self, ctx: ImageRegionCtx, pixels: Pixels) -> _Plan:
         if ctx.z < 0 or ctx.z >= pixels.size_z:
@@ -217,8 +250,9 @@ class ImageRegionHandler:
             # Refused rather than rendered as a single plane.
             raise BadRequestError("Projection (p=) is not served yet")
 
-        src = await asyncio.to_thread(self.s.pixels_service.get_pixel_source,
-                                      ctx.image_id)
+        with stopwatch("PixelsService.getPixelBuffer"):
+            src = await asyncio.to_thread(
+                self.s.pixels_service.get_pixel_source, ctx.image_id)
         if src.resolution_levels() > 1:
             levels: Sequence[Sequence[int]] = [
                 list(d) for d in src.resolution_descriptions()]
@@ -261,12 +295,14 @@ class ImageRegionHandler:
         renderer = self.s.renderer
         if ctx.format == "jpeg" and h * w > self.s.jpeg_host_max_px:
             quality = codecs.quality_percent(ctx.compression_quality)
-            return await renderer.render_jpeg(
-                raw, plan.settings, quality, w, h, ctx.flip_horizontal,
-                ctx.flip_vertical)
-        packed = await renderer.render(raw, plan.settings,
-                                       ctx.flip_horizontal,
-                                       ctx.flip_vertical)
+            with stopwatch("Renderer.renderAsPackedInt"):
+                return await renderer.render_jpeg(
+                    raw, plan.settings, quality, w, h, ctx.flip_horizontal,
+                    ctx.flip_vertical)
+        with stopwatch("Renderer.renderAsPackedInt"):
+            packed = await renderer.render(raw, plan.settings,
+                                           ctx.flip_horizontal,
+                                           ctx.flip_vertical)
         return await asyncio.to_thread(
             lambda: self.encode(unpack_rgba(packed), ctx))
 
@@ -298,6 +334,11 @@ class ImageRegionHandler:
         read straight into a pinned buffer, copied once to the card and
         cached there (a tensor).  Without: host planes, which the renderer
         stages."""
+        with stopwatch("PixelsService.readRegion"):
+            return self._load_inner(plan, ctx)
+
+    def _load_inner(self, plan: _Plan, ctx: ImageRegionCtx
+                    ) -> Union[np.ndarray, torch.Tensor]:
         cache = self.s.raw_cache
         if cache is None:
             return self._read_planes(plan, ctx)
@@ -314,7 +355,8 @@ class ImageRegionHandler:
     def encode(rgba: np.ndarray, ctx: ImageRegionCtx) -> bytes:
         """Format dispatch; an unknown format is a 404."""
         try:
-            return codecs.encode_rgba(rgba, ctx.format,
-                                      ctx.compression_quality)
+            with stopwatch("encodeImage"):
+                return codecs.encode_rgba(rgba, ctx.format,
+                                          ctx.compression_quality)
         except codecs.UnknownFormatError as e:
             raise NotFoundError(str(e))

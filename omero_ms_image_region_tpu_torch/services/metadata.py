@@ -9,13 +9,21 @@ calls on a local filesystem-backed service over the chunked-store layout.
 ACL model: each image directory may carry an ``acl.json`` —
 ``{"public": true}`` or ``{"sessions": ["key", ...]}``.  Absent file =
 public (the standalone dev posture).
+
+``source_mtime`` is the ``Last-Modified`` source of conditional HTTP
+(``server.httpcache``).  The port reads chunked stores only
+(``io.service``), so an image's stamp is the newer of its directory's and
+its ``meta.json``'s mtime; the JAX service also stamps NGFF and TIFF
+sources, which wait for the port's readers of those formats.
 """
 
 from __future__ import annotations
 
 import json
 import os
-from typing import Optional
+import threading
+import time
+from typing import Dict, Optional, Tuple
 
 from ..models.pixels import Pixels
 
@@ -34,8 +42,14 @@ def _check_acl(path: str, session_key: Optional[str]) -> bool:
 class LocalMetadataService:
     """Filesystem-backed metadata: ``<data_dir>/<image_id>/meta.json``."""
 
+    # Source mtimes are memoized this long: a request pays a dict hit, not
+    # a stat walk.
+    _MTIME_TTL_S = 5.0
+
     def __init__(self, data_dir: str):
         self.data_dir = data_dir
+        self._mtime_memo: Dict[int, Tuple[float, Optional[float]]] = {}
+        self._mtime_lock = threading.Lock()
 
     def _image_dir(self, image_id: int) -> str:
         return os.path.join(self.data_dir, str(image_id))
@@ -57,6 +71,41 @@ class LocalMetadataService:
             size_c=m["size_c"],
             size_t=m["size_t"],
         )
+
+    def source_mtime_cached(self, image_id: int
+                            ) -> Tuple[bool, Optional[float]]:
+        """Memo peek, ``(hit, mtime)``, with no filesystem work: the
+        request path's inline fast path (only a miss pays a thread hop to
+        :meth:`source_mtime`)."""
+        now = time.monotonic()
+        with self._mtime_lock:
+            hit = self._mtime_memo.get(image_id)
+            if hit is not None and hit[0] > now:
+                return True, hit[1]
+        return False, None
+
+    def source_mtime(self, image_id: int) -> Optional[float]:
+        """The image's source mtime (unix seconds): the newest of its
+        directory and its ``meta.json``; None when the image does not
+        exist.  Memoized for ``_MTIME_TTL_S``."""
+        hit, value = self.source_mtime_cached(image_id)
+        if hit:
+            return value
+        image_dir = self._image_dir(image_id)
+        candidates = []
+        try:
+            candidates.append(os.stat(image_dir).st_mtime)
+            candidates.append(
+                os.stat(os.path.join(image_dir, "meta.json")).st_mtime)
+        except OSError:
+            pass
+        mtime = max(candidates) if candidates else None
+        with self._mtime_lock:
+            self._mtime_memo[image_id] = (
+                time.monotonic() + self._MTIME_TTL_S, mtime)
+            if len(self._mtime_memo) > 4096:    # bounded, coarse
+                self._mtime_memo.clear()
+        return mtime
 
     async def can_read(self, object_type: str, object_id: int,
                        session_key: Optional[str]) -> bool:

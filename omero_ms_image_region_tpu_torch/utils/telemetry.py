@@ -1,0 +1,565 @@
+"""Request traces, bucketed histograms and the ``/metrics`` exposition.
+
+Counterpart of the request half of the JAX package's ``utils/telemetry.py``:
+
+* **Traces.**  Every HTTP request gets a trace id; a span recorded anywhere
+  below it (handler, batcher dispatcher, a lane thread rendering a group)
+  lands on that request's trace through a ``contextvars`` context.  A lane
+  thread renders a group under :func:`group_trace`, so its spans land on
+  every member's trace.
+* **Histograms.**  Fixed log-scale buckets (0.25 ms .. ~32.8 s), the JAX
+  package's bounds, so the two packages' series align bucket for bucket.
+* **Counters** of the front: sheds by reason and deadline cancellations
+  (:class:`Resilience`), watchdog fires by action (:class:`WatchdogStats`),
+  conditional-HTTP answers (:class:`HttpCacheStats`).
+* **The exposition**: :func:`request_metric_lines`, :func:`span_lines`
+  (``utils.stopwatch``), :func:`resilience_metric_lines`,
+  :func:`device_metric_lines`, joined by :func:`finalize_exposition`,
+  which writes one ``# TYPE`` header per family.
+
+The family names, label keys and types are the JAX package's, so one
+dashboard and one cardinality budget (``conf/metrics_budget.json``) read
+both.  Not ported: ``imageregion_compile_*`` and ``imageregion_link_*``
+(XLA compile events and TPU-link fetch rates: an eager CUDA launch has no
+compile step, and the card sits on PCIe in the same host); the cost
+ledger, shape costs, exemplars, the flight recorder, SLO, sentinel,
+provenance and fleet families, which wait for the forensics plane and the
+fleet; the retry, degraded-render and supervisor counters, which have no
+caller in a port with no retry, no degraded mode and no sidecar.
+
+Nothing here imports ``torch``.
+"""
+
+from __future__ import annotations
+
+import contextvars
+import threading
+import time
+import uuid
+from bisect import bisect_left
+from collections import OrderedDict
+from contextlib import contextmanager
+from typing import Dict, List, Optional, Tuple
+
+# Fixed log-scale bucket bounds (ms): 0.25 ms .. ~32.8 s, ratio 2.
+BUCKET_BOUNDS_MS: Tuple[float, ...] = tuple(0.25 * 2 ** i
+                                            for i in range(18))
+
+
+def _fmt(v: float) -> str:
+    return "%g" % v
+
+
+class Histogram:
+    """Cumulative log-bucket histogram (not thread-safe on its own; the
+    owner holds its lock around :meth:`add`)."""
+
+    __slots__ = ("bounds", "counts", "sum", "count")
+
+    def __init__(self, bounds: Tuple[float, ...] = BUCKET_BOUNDS_MS):
+        self.bounds = bounds
+        self.counts = [0] * (len(bounds) + 1)     # last = +Inf overflow
+        self.sum = 0.0
+        self.count = 0
+
+    def add(self, value: float) -> None:
+        self.sum += value
+        self.count += 1
+        self.counts[bisect_left(self.bounds, value)] += 1
+
+    def cumulative(self) -> List[int]:
+        out, acc = [], 0
+        for c in self.counts:
+            acc += c
+            out.append(acc)
+        return out
+
+    def quantile(self, q: float) -> float:
+        """Bucket-resolution estimate: the upper bound of the bucket that
+        holds the q-th sample."""
+        if not self.count:
+            return 0.0
+        target = max(1, int(q * self.count + 0.5))
+        acc = 0
+        for i, c in enumerate(self.counts):
+            acc += c
+            if acc >= target:
+                return (self.bounds[i] if i < len(self.bounds)
+                        else self.bounds[-1] * 2)
+        return self.bounds[-1] * 2
+
+    def series(self, name: str, labels: str = "") -> List[str]:
+        """``_bucket``/``_sum``/``_count`` lines; ``labels`` is the inner
+        label body without braces, ``le`` composes after it."""
+        sep = "," if labels else ""
+        cum = self.cumulative()
+        lines = [f'{name}_bucket{{{labels}{sep}le="{_fmt(b)}"}} {c}'
+                 for b, c in zip(self.bounds, cum)]
+        lines.append(f'{name}_bucket{{{labels}{sep}le="+Inf"}} {cum[-1]}')
+        suffix = f"{{{labels}}}" if labels else ""
+        lines.append(f"{name}_sum{suffix} {round(self.sum, 3)}")
+        lines.append(f"{name}_count{suffix} {self.count}")
+        return lines
+
+
+class HistogramVec:
+    """Thread-safe histogram family keyed by one label value."""
+
+    def __init__(self, label: str):
+        self.label = label
+        self._lock = threading.Lock()
+        self._hists: Dict[str, Histogram] = {}
+
+    def observe(self, label_value: str, value: float) -> None:
+        with self._lock:
+            h = self._hists.get(label_value)
+            if h is None:
+                h = self._hists[label_value] = Histogram()
+            h.add(value)
+
+    def get(self, label_value: str) -> Optional[Histogram]:
+        with self._lock:
+            return self._hists.get(label_value)
+
+    def series(self, name: str) -> List[str]:
+        with self._lock:
+            lines = []
+            for lv, h in sorted(self._hists.items()):
+                lines += h.series(name, f'{self.label}="{lv}"')
+            return lines
+
+    def reset(self) -> None:
+        with self._lock:
+            self._hists.clear()
+
+
+# End-to-end request latency by route, and request totals by status.
+REQUEST_HIST = HistogramVec("route")
+_REQ_LOCK = threading.Lock()
+_REQ_TOTALS: Dict[tuple, int] = {}
+
+
+def count_request(route: str, status: int) -> None:
+    with _REQ_LOCK:
+        key = (route, int(status))
+        _REQ_TOTALS[key] = _REQ_TOTALS.get(key, 0) + 1
+
+
+def request_totals() -> Dict[tuple, int]:
+    with _REQ_LOCK:
+        return dict(_REQ_TOTALS)
+
+
+# ------------------------------------------------------------------ traces
+
+def new_trace_id() -> str:
+    return uuid.uuid4().hex[:16]
+
+
+class Trace:
+    """One request's spans: ``{"name", "start_ms", "dur_ms"}`` dicts, with
+    ``start_ms`` relative to the trace's start."""
+
+    __slots__ = ("trace_id", "route", "t0", "wall_ts", "spans")
+
+    def __init__(self, trace_id: str, route: str = ""):
+        self.trace_id = trace_id
+        self.route = route
+        self.t0 = time.perf_counter()
+        self.wall_ts = time.time()
+        self.spans: List[dict] = []
+
+    def add_span(self, name: str, t_start: float, dur_ms: float) -> None:
+        # list.append is atomic under the GIL; readers copy the list first.
+        self.spans.append({"name": name,
+                           "start_ms": round((t_start - self.t0) * 1e3, 3),
+                           "dur_ms": round(dur_ms, 3)})
+
+    def span_ms(self, *names: str) -> Optional[float]:
+        """Total duration of the spans with one of the exact ``names``
+        (None when the request never reached those stages)."""
+        total, seen = 0.0, False
+        for s in list(self.spans):
+            if s["name"] in names:
+                total += s["dur_ms"]
+                seen = True
+        return total if seen else None
+
+
+class TraceRegistry:
+    """Active traces by id, bounded, and the most recent finished ones.
+
+    A span may arrive after its request finished: a lane thread records
+    its group's execute span when the group ends, and a JPEG request is
+    answered as soon as its own tile is coded.  Such a span lands on the
+    finished trace while it is among the recent ones.  (The JAX registry
+    opens a new, orphan trace for it instead.)"""
+
+    def __init__(self, max_active: int = 4096, recent: int = 64):
+        self._lock = threading.Lock()
+        self._active: Dict[str, Trace] = {}
+        self._max_active = max_active
+        self._recent: "OrderedDict[str, Trace]" = OrderedDict()
+        self._max_recent = recent
+
+    def _evict(self) -> None:
+        while len(self._active) > self._max_active:
+            self._active.pop(next(iter(self._active)))
+
+    def start(self, trace_id: str, route: str = "") -> Trace:
+        trace = Trace(trace_id, route)
+        with self._lock:
+            self._active[trace_id] = trace
+            self._evict()
+        return trace
+
+    def get_or_create(self, trace_id: str) -> Trace:
+        trace = self._active.get(trace_id)     # GIL-atomic fast path
+        if trace is not None:
+            return trace
+        with self._lock:
+            trace = (self._active.get(trace_id)
+                     or self._recent.get(trace_id))
+            if trace is None:
+                trace = self._active[trace_id] = Trace(trace_id)
+                self._evict()
+            return trace
+
+    def finish(self, trace_id: str) -> Optional[Trace]:
+        with self._lock:
+            trace = self._active.pop(trace_id, None)
+            if trace is not None:
+                self._recent[trace_id] = trace
+                while len(self._recent) > self._max_recent:
+                    self._recent.popitem(last=False)
+        return trace
+
+    def recent(self) -> List[Trace]:
+        """The most recent finished traces, oldest first."""
+        with self._lock:
+            return list(self._recent.values())
+
+    def reset(self) -> None:
+        with self._lock:
+            self._active.clear()
+            self._recent.clear()
+
+
+TRACES = TraceRegistry()
+
+# The trace ids the current execution context works for: one for a
+# request, every member's for a lane thread rendering a group.
+_TRACE_IDS: contextvars.ContextVar[Tuple[str, ...]] = \
+    contextvars.ContextVar("imageregion_trace_ids", default=())
+
+# Values recorded through the stopwatch registry that are not durations.
+_NON_SPAN_NAMES = frozenset({"batcher.groupTiles"})
+
+
+def current_trace_id() -> Optional[str]:
+    ids = _TRACE_IDS.get()
+    return ids[0] if ids else None
+
+
+def clear_context() -> None:
+    """Detach the current context from any trace.  A long-lived task
+    spawned inside a request (the batcher's dispatcher loops) calls this,
+    or every span it records would land on the spawning request."""
+    _TRACE_IDS.set(())
+
+
+@contextmanager
+def trace_scope(trace_id: str, route: str = ""):
+    """One request's root scope: registers the trace and makes it the
+    context's recording target; the caller finishes it."""
+    trace = TRACES.start(trace_id, route)
+    token = _TRACE_IDS.set((trace_id,))
+    try:
+        yield trace
+    finally:
+        _TRACE_IDS.reset(token)
+
+
+@contextmanager
+def group_trace(trace_ids: Tuple[str, ...]):
+    """Recording target of a lane thread rendering a group: its spans land
+    on every member's trace."""
+    token = _TRACE_IDS.set(tuple(trace_ids))
+    try:
+        yield
+    finally:
+        _TRACE_IDS.reset(token)
+
+
+def record_span(name: str, t_start: float, dur_ms: float,
+                trace_ids: Optional[Tuple[str, ...]] = None) -> None:
+    """Attach a span to ``trace_ids`` (default: the context's traces)."""
+    ids = trace_ids if trace_ids is not None else _TRACE_IDS.get()
+    for tid in ids:
+        TRACES.get_or_create(tid).add_span(name, t_start, dur_ms)
+
+
+def observe_span(name: str, dur_ms: float) -> None:
+    """The stopwatch registry's hook: a recorded stage duration becomes a
+    span on the context's traces."""
+    if name in _NON_SPAN_NAMES:
+        return
+    ids = _TRACE_IDS.get()
+    if ids:
+        record_span(name, time.perf_counter() - dur_ms / 1000.0, dur_ms,
+                    trace_ids=ids)
+
+
+# -------------------------------------------------------------- counters
+
+class Resilience:
+    """Sheds by reason and deadline cancellations (thread-safe: the batcher's
+    dispatcher and the admission controller both count here)."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.shed: Dict[str, int] = {}
+        self.deadline_cancelled = 0
+
+    def count_shed(self, reason: str = "queue-full") -> None:
+        with self._lock:
+            self.shed[reason] = self.shed.get(reason, 0) + 1
+
+    def count_deadline_cancelled(self, n: int = 1) -> None:
+        with self._lock:
+            self.deadline_cancelled += n
+
+    def reset(self) -> None:
+        with self._lock:
+            self.shed.clear()
+            self.deadline_cancelled = 0
+
+
+RESILIENCE = Resilience()
+
+
+class WatchdogStats:
+    """Watchdog fires by healing action (a closed vocabulary:
+    requeue-group, escalate)."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.fires: Dict[str, int] = {}
+
+    def count_fire(self, action: str) -> None:
+        with self._lock:
+            self.fires[action] = self.fires.get(action, 0) + 1
+
+    def totals(self) -> Dict[str, int]:
+        with self._lock:
+            return dict(self.fires)
+
+    def metric_lines(self) -> List[str]:
+        with self._lock:
+            return [f'imageregion_watchdog_fires_total{{action="{a}"}} '
+                    f"{self.fires[a]}" for a in sorted(self.fires)]
+
+    def reset(self) -> None:
+        with self._lock:
+            self.fires.clear()
+
+
+WATCHDOG = WatchdogStats()
+
+
+class HttpCacheStats:
+    """Conditional-HTTP answers: If-None-Match and If-Modified-Since-only
+    arrivals, 304s and renderless HEADs.  The JAX class also counts the
+    fleet's peer byte fetches, which wait for the fleet."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.etag_requests = 0
+        self.ims_requests = 0
+        self.not_modified = 0
+        self.head = 0
+
+    def _bump(self, name: str) -> None:
+        with self._lock:
+            setattr(self, name, getattr(self, name) + 1)
+
+    def count_etag_request(self) -> None:
+        self._bump("etag_requests")
+
+    def count_ims_request(self) -> None:
+        self._bump("ims_requests")
+
+    def count_not_modified(self) -> None:
+        self._bump("not_modified")
+
+    def count_head(self) -> None:
+        self._bump("head")
+
+    def metric_lines(self) -> List[str]:
+        with self._lock:
+            if not (self.etag_requests or self.ims_requests
+                    or self.not_modified or self.head):
+                return []          # quiet until a conditional arrives
+            return [
+                "imageregion_httpcache_etag_requests_total "
+                f"{self.etag_requests}",
+                "imageregion_httpcache_ims_requests_total "
+                f"{self.ims_requests}",
+                f"imageregion_httpcache_304_total {self.not_modified}",
+                f"imageregion_httpcache_head_total {self.head}",
+            ]
+
+    def reset(self) -> None:
+        with self._lock:
+            self.etag_requests = self.ims_requests = 0
+            self.not_modified = self.head = 0
+
+
+HTTPCACHE = HttpCacheStats()
+
+
+# ------------------------------------------------------------ exposition
+
+METRIC_TYPES: Dict[str, str] = {
+    "imageregion_span_count": "counter",
+    "imageregion_span_mean_ms": "gauge",
+    "imageregion_span_ms": "histogram",
+    "imageregion_request_duration_ms": "histogram",
+    "imageregion_requests_total": "counter",
+    "imageregion_rawcache_hits": "counter",
+    "imageregion_rawcache_misses": "counter",
+    "imageregion_rawcache_evictions": "counter",
+    "imageregion_rawcache_bytes": "gauge",
+    "imageregion_planecache_hits": "counter",
+    "imageregion_planecache_misses": "counter",
+    "imageregion_singleflight_hits": "counter",
+    "imageregion_singleflight_misses": "counter",
+    "imageregion_singleflight_inflight": "gauge",
+    "imageregion_batches_dispatched": "counter",
+    "imageregion_tiles_rendered": "counter",
+    "imageregion_batcher_queue_depth": "gauge",
+    "imageregion_pipeline_inflight": "gauge",
+    "imageregion_batcher_max_batch": "gauge",
+    "imageregion_batcher_queue_wait_max_ms": "gauge",
+    "imageregion_shed_total": "counter",
+    "imageregion_deadline_cancelled_total": "counter",
+    "imageregion_watchdog_fires_total": "counter",
+    "imageregion_httpcache_etag_requests_total": "counter",
+    "imageregion_httpcache_ims_requests_total": "counter",
+    "imageregion_httpcache_304_total": "counter",
+    "imageregion_httpcache_head_total": "counter",
+}
+
+METRIC_HELP: Dict[str, str] = {
+    "imageregion_batcher_queue_wait_max_ms":
+        "High-water dispatched queue wait (cancelled waits excluded)",
+    "imageregion_watchdog_fires_total":
+        "Watchdog healings by action (requeue-group, drop-connection, "
+        "escalate)",
+    "imageregion_httpcache_304_total":
+        "If-None-Match revalidations answered 304 with zero render/"
+        "admission/token work",
+    "imageregion_httpcache_head_total":
+        "HEAD requests answered headers-only without a render",
+    "imageregion_httpcache_ims_requests_total":
+        "If-Modified-Since-only revalidation arrivals (ETag absent)",
+}
+
+_HIST_SUFFIXES = ("_bucket", "_sum", "_count")
+
+
+def _family_of(line: str) -> str:
+    name = line.split("{", 1)[0].split(" ", 1)[0]
+    for suffix in _HIST_SUFFIXES:
+        if name.endswith(suffix):
+            base = name[: -len(suffix)]
+            if METRIC_TYPES.get(base) == "histogram":
+                return base
+    return name
+
+
+def finalize_exposition(lines: List[str]) -> str:
+    """Series grouped by family (first seen first), one ``# HELP`` and one
+    ``# TYPE`` line per family, free comments last."""
+    families: Dict[str, List[str]] = {}
+    comments: List[str] = []
+    for line in lines:
+        line = line.rstrip("\n")
+        if not line:
+            continue
+        if line.startswith("#"):
+            if not line.startswith(("# TYPE", "# HELP")):
+                comments.append(line)
+            continue
+        families.setdefault(_family_of(line), []).append(line)
+    out: List[str] = []
+    for fam, series in families.items():
+        out.append(f"# HELP {fam} "
+                   f"{METRIC_HELP.get(fam, fam.replace('_', ' '))}")
+        out.append(f"# TYPE {fam} {METRIC_TYPES.get(fam, 'untyped')}")
+        out += series
+    return "\n".join(out + comments) + "\n"
+
+
+def request_metric_lines() -> List[str]:
+    """The request histogram and totals, and the conditional-HTTP
+    counters."""
+    lines = REQUEST_HIST.series("imageregion_request_duration_ms")
+    for (route, status), n in sorted(request_totals().items()):
+        lines.append(f'imageregion_requests_total{{route="{route}",'
+                     f'status="{status}"}} {n}')
+    return lines + HTTPCACHE.metric_lines()
+
+
+def resilience_metric_lines() -> List[str]:
+    """Sheds by reason, deadline cancellations and watchdog fires."""
+    with RESILIENCE._lock:
+        shed = sorted(RESILIENCE.shed.items())
+        cancelled = RESILIENCE.deadline_cancelled
+    lines = [f'imageregion_shed_total{{reason="{r}"}} {n}'
+             for r, n in shed]
+    lines.append(f"imageregion_deadline_cancelled_total {cancelled}")
+    return lines + WATCHDOG.metric_lines()
+
+
+def device_metric_lines(services) -> List[str]:
+    """The raw cache, single-flight and batcher gauges of a handler's
+    services (duck-typed: ``server.handler.ImageRegionServices``)."""
+    lines: List[str] = []
+    cache = getattr(services, "raw_cache", None)
+    if cache is not None:
+        lines += [f"imageregion_rawcache_hits {cache.hits}",
+                  f"imageregion_rawcache_misses {cache.misses}",
+                  f"imageregion_rawcache_bytes {cache.size_bytes}",
+                  f"imageregion_rawcache_evictions {cache.evictions}",
+                  f"imageregion_planecache_hits {cache.plane_hits}",
+                  f"imageregion_planecache_misses {cache.plane_misses}"]
+    single_flight = getattr(services, "single_flight", None)
+    if single_flight is not None:
+        lines += [f"imageregion_singleflight_hits {single_flight.hits}",
+                  f"imageregion_singleflight_misses {single_flight.misses}",
+                  "imageregion_singleflight_inflight "
+                  f"{single_flight.inflight()}"]
+    renderer = getattr(services, "renderer", None)
+    if hasattr(renderer, "queue_depth"):
+        lines += [
+            f"imageregion_batches_dispatched {renderer.batches_dispatched}",
+            f"imageregion_tiles_rendered {renderer.tiles_rendered}",
+            f"imageregion_batcher_queue_depth {renderer.queue_depth()}",
+            f"imageregion_pipeline_inflight {renderer.inflight()}",
+            f"imageregion_batcher_max_batch {renderer.max_batch}",
+            "imageregion_batcher_queue_wait_max_ms "
+            f"{round(renderer.queue_wait_max_ms, 3)}",
+        ]
+    return lines
+
+
+def reset() -> None:
+    """Test isolation: clear every process-global accumulator."""
+    TRACES.reset()
+    REQUEST_HIST.reset()
+    with _REQ_LOCK:
+        _REQ_TOTALS.clear()
+    RESILIENCE.reset()
+    WATCHDOG.reset()
+    HTTPCACHE.reset()

@@ -1,0 +1,197 @@
+"""The port's config loader and CLI against the JAX package's.
+
+``conf/config.example.yaml`` loads in the port; the settings the port
+serves get the values the JAX ``AppConfig.from_dict`` gives them; an
+unported setting away from its JAX default is refused with its name; and
+``python -m omero_ms_image_region_tpu_torch.server --config FILE`` parses
+its flags over the file and serves, with the file's HTTP parse limits.
+"""
+
+import dataclasses
+import os
+import socket
+import subprocess
+import sys
+import time
+import urllib.error
+import urllib.request
+
+import numpy as np
+import pytest
+
+from omero_ms_image_region_tpu.io.store import build_pyramid
+from omero_ms_image_region_tpu.server.config import AppConfig as JaxConfig
+from omero_ms_image_region_tpu_torch.server import config as port_config
+from omero_ms_image_region_tpu_torch.server.__main__ import parse_args
+from omero_ms_image_region_tpu_torch.server.config import AppConfig
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+EXAMPLE = os.path.join(REPO, "conf", "config.example.yaml")
+CUSTOM = {
+    "port": 9191, "worker_pool_size": 3, "data-dir": "/srv/images",
+    "max-initial-line-length": 2048, "max-header-size": 4096,
+    "max-headers": 64, "cache-control-header": "private, max-age=60",
+    "logging": {"level": "DEBUG", "backup-count": 2},
+    "omero.server": {"omero.pixeldata.max_tile_length": "1024",
+                     "omero.script_repo_root": "/luts"},
+    "omero.web": {"session_cookie_name": "sid"},
+    "session-store": {"type": "static", "required": True},
+    "batcher": {"max-batch": 4, "linger-ms": 5, "pipeline-depth": 2,
+                "device-lanes": 1},
+    "single-flight": {"enabled": False},
+    "raw-cache": {"max-bytes": 1 << 30, "digest-dedup": False},
+    "renderer": {"cpu-fallback-max-px": 0, "jpeg-engine": "sparse"},
+    "http-cache": {"epoch": "release-7", "max-age-s": 30,
+                   "vary-acl": False},
+    "watchdog": {"interval-s": 0.5, "stall-factor": 4,
+                 "stall-min-s": 3, "escalate-after": 3},
+    "fault-tolerance": {"request-deadline-ms": 2500,
+                        "admission-max-queue": 16,
+                        "shed-retry-after-s": 2},
+    "fault-injection": {"seed": 3, "freeze-rate": 0.5, "freeze-ms": 10,
+                        "freeze-max": 2, "device-error-rate": 0.1},
+}
+
+
+def _served(port, jax, path="") -> list:
+    """(setting, port value, JAX value) for every field of the port's
+    config, the JAX config's field of the same name beside it."""
+    out = []
+    for f in dataclasses.fields(port):
+        if f.name == "unserved":
+            continue
+        mine, theirs = getattr(port, f.name), getattr(jax, f.name)
+        if dataclasses.is_dataclass(mine):
+            out += _served(mine, theirs, f"{path}{f.name}.")
+        else:
+            out.append((path + f.name, mine, theirs))
+    return out
+
+
+@pytest.mark.parametrize("source", ["example", "custom"])
+def test_served_settings_match_jax(source):
+    if source == "example":
+        port, jax = AppConfig.from_yaml(EXAMPLE), JaxConfig.from_yaml(EXAMPLE)
+        # The example switches on the three byte caches, which the port
+        # loads, lists and serves without.
+        assert port.unserved == ("image-region-cache",
+                                 "pixels-metadata-cache",
+                                 "shape-mask-cache")
+    else:
+        port, jax = AppConfig.from_dict(CUSTOM), JaxConfig.from_dict(CUSTOM)
+        assert port.unserved == ()
+    for name, mine, theirs in _served(port, jax):
+        assert mine == theirs, name
+
+
+def test_defaults_match_jax_but_the_digest_dedup():
+    diffs = [(n, m, t) for n, m, t in _served(AppConfig.from_dict({}),
+                                               JaxConfig.from_dict({}))
+             if m != t]
+    assert diffs == [("raw_cache.digest_dedup", False, True)]
+
+
+def test_unported_defaults_are_the_jax_defaults():
+    jax = JaxConfig()
+    for section, table in port_config._UNPORTED.items():
+        if section in ("redis-cache", "metadata-service"):
+            continue
+        block = getattr(jax, section.replace("-", "_"))
+        fields = {f.name.replace("_", "-"): getattr(block, f.name)
+                  for f in dataclasses.fields(block)}
+        assert table == fields, section
+    assert jax.caches.redis_uri is None
+    assert jax.metadata_backend == "local"
+
+
+@pytest.mark.parametrize("raw, name", [
+    ({"fleet": {"enabled": True, "members": 2}}, "fleet.enabled"),
+    ({"sessions": {"enabled": True}}, "sessions.enabled"),
+    ({"pressure": {"hbm-high": 0.95}}, "pressure.hbm-high"),
+    ({"sidecar": {"role": "split", "socket": "/tmp/s"}}, "sidecar."),
+    ({"renderer": {"jpeg-engine": "huffman"}}, "renderer.jpeg-engine"),
+    ({"renderer": {"prewarm": ["4x1024"]}}, "renderer.prewarm"),
+    ({"batcher": {"target-inflight": 2}}, "batcher.target-inflight"),
+    ({"fault-tolerance": {"degraded-mode": True}},
+     "fault-tolerance.degraded-mode"),
+    ({"fault-injection": {"seed": 1, "wire-drop-rate": 0.5}},
+     "fault-injection.wire-drop-rate"),
+    ({"session-store": {"type": "redis", "uri": "redis://h"}},
+     "session-store."),
+    ({"metadata-service": {"type": "postgres", "dsn": "postgres://h"}},
+     "metadata-service."),
+    ({"telemetry": {"slow-request-ms": 50}}, "telemetry.slow-request-ms"),
+    ({"wire": {"ring-bytes": 0}}, "wire.ring-bytes"),
+    ({"sentinel": {"drift-ratio": 2.0}}, "sentinel.drift-ratio"),
+    ({"qos": {"enabled": True}}, "qos.enabled"),
+    ({"workloads": {"unknown-key": 1}}, "workloads.unknown-key"),
+])
+def test_an_unported_setting_is_refused_by_name(raw, name):
+    JaxConfig.from_dict(raw)                 # a valid JAX config
+    with pytest.raises(ValueError, match="^" + name.replace(".", r"\.")):
+        AppConfig.from_dict(raw)
+
+
+@pytest.mark.parametrize("raw", [
+    {"fleet": {"enabled": False, "members": 4}},     # switched off: inert
+    {"wire": {"streaming": False}},                  # a feature off
+    {"sentinel": {"enabled": False}},
+    {"raw-cache": {"prefetch": False}},
+    {"pyramid": {"enabled": False, "chunk": 512}},
+])
+def test_switching_off_a_missing_feature_loads(raw):
+    JaxConfig.from_dict(raw)
+    AppConfig.from_dict(raw)
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def test_cli_serves_from_a_config_file_with_flag_overrides(tmp_path):
+    data = tmp_path / "data"
+    planes = np.random.default_rng(2).integers(
+        0, 60000, size=(1, 1, 32, 32)).astype(np.uint16)
+    build_pyramid(planes, str(data / "3"), chunk=(32, 32), n_levels=1)
+    conf = tmp_path / "config.yaml"
+    conf.write_text("port: 1\ndata-dir: /nowhere\n"
+                    "max-initial-line-length: 300\n"
+                    "http-cache:\n    epoch: r2\n"
+                    "fault-tolerance:\n    request-deadline-ms: 100\n")
+    port = _free_port()
+    argv = ["--config", str(conf), "--port", str(port), "--data-dir",
+            str(data), "--device", "cpu", "--request-deadline-ms", "0"]
+    config, device = parse_args(argv)
+    assert (config.port, config.data_dir, device) == (port, str(data),
+                                                      "cpu")
+    assert config.http.max_initial_line_length == 300
+    assert config.fault_tolerance.request_deadline_ms == 0
+    assert config.http_cache.epoch == "r2"
+
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "omero_ms_image_region_tpu_torch.server",
+         *argv], cwd=REPO, stdout=subprocess.DEVNULL,
+        stderr=subprocess.PIPE)
+    base = f"http://127.0.0.1:{port}"
+    try:
+        for _ in range(300):
+            try:
+                urllib.request.urlopen(base + "/healthz", timeout=1)
+                break
+            except OSError:
+                assert proc.poll() is None, proc.stderr.read().decode()
+                time.sleep(0.1)
+        r = urllib.request.urlopen(
+            base + "/webgateway/render_image/3/0/0?format=png", timeout=30)
+        assert r.status == 200 and r.headers["ETag"].startswith('"ir1-r2-')
+        # The request-line bound reached aiohttp: a longer line is a 400.
+        with pytest.raises(urllib.error.HTTPError) as ei:
+            urllib.request.urlopen(
+                base + "/webgateway/render_image/3/0/0?q=" + "9" * 400,
+                timeout=30)
+        assert ei.value.code == 400
+    finally:
+        proc.terminate()
+        proc.wait(timeout=30)

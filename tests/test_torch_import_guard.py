@@ -1,4 +1,6 @@
-"""The PyTorch port imports neither JAX nor any module of the JAX package."""
+"""The PyTorch port imports neither JAX nor any module of the JAX package,
+and imports ``aiohttp`` and ``yaml`` only inside the functions that need
+them."""
 
 import json
 import subprocess
@@ -10,6 +12,8 @@ REPO = Path(__file__).resolve().parent.parent
 _SCRIPT = r"""
 import importlib, json, pkgutil, sys
 sys.modules["jax"] = None            # any `import jax` now raises
+sys.modules["aiohttp"] = None        # so does a module-level aiohttp
+sys.modules["yaml"] = None           # or yaml import
 import omero_ms_image_region_tpu_torch as port
 names = [port.__name__]
 for info in pkgutil.walk_packages(port.__path__, port.__name__ + "."):
@@ -37,7 +41,9 @@ def test_port_imports_without_jax_or_the_jax_package():
                 "ops.jpegenc", "native", "server.handler", "server.app",
                 "server.__main__", "server.batcher", "server.singleflight",
                 "io.store", "io.service", "io.staging", "io.devicecache",
-                "utils.transient",
+                "utils.transient", "utils.telemetry", "utils.stopwatch",
+                "utils.faultinject", "server.httpcache", "server.admission",
+                "server.watchdog", "server.config", "server.errors",
                 "services.metadata", "codecs", "flagship"):
         assert f"omero_ms_image_region_tpu_torch.{mod}" in doc["imported"]
     assert doc["leaked"] == []

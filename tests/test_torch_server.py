@@ -57,6 +57,7 @@ from omero_ms_image_region_tpu_torch.io.store import (
 from omero_ms_image_region_tpu_torch.server.app import (
     build_handler, create_app,
 )
+from omero_ms_image_region_tpu_torch.server.config import AppConfig
 from omero_ms_image_region_tpu_torch.server.ctx import ImageRegionCtx
 from omero_ms_image_region_tpu_torch.server.errors import (
     BadRequestError, NotFoundError,
@@ -252,7 +253,8 @@ def test_app_get_matches_handler_and_maps_errors(dirs, handlers):
         _params(tile="0,1,0,32,32"))))
 
     async def go():
-        app = create_app(*dirs, handler=port)
+        app = create_app(AppConfig(data_dir=dirs[0], lut_root=dirs[1]),
+                         handler=port)
         async with TestClient(TestServer(app)) as client:
             r = await client.get(base + "/trailing/ignored", params=query)
             body = await r.read()
@@ -438,7 +440,7 @@ def test_deadline_bounds_the_await(dirs, single_flight):
 
 
 def test_app_maps_a_spent_request_deadline_to_504(dirs):
-    """``create_app(request_deadline_ms=)`` opens each request's budget;
+    """``fault-tolerance.request-deadline-ms`` opens each request's budget;
     a budget spent before the render answers 504, and a generous one
     serves the request."""
     from aiohttp.test_utils import TestClient, TestServer
@@ -448,8 +450,11 @@ def test_app_maps_a_spent_request_deadline_to_504(dirs):
     url = f"/webgateway/render_image_region/{IMG}/1/0"
 
     async def go(budget_ms):
-        app = create_app(*dirs, device="cpu",
-                         request_deadline_ms=budget_ms)
+        app = create_app(AppConfig.from_dict({
+            "data-dir": dirs[0],
+            "omero.server": {"omero.script_repo_root": dirs[1]},
+            "fault-tolerance": {"request-deadline-ms": budget_ms}}),
+            device="cpu")
         async with TestClient(TestServer(app)) as client:
             r = await client.get(url, params=query)
             return r.status, await r.read()
