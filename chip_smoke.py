@@ -7,10 +7,11 @@ Phases (any failure ends the run with a non-zero exit and no result line):
 
 1. probe   the card (nvidia-smi name and power limit), torch/CUDA versions,
            whether aiohttp and PIL import;
-2. build   the kernels from ``kernels/csrc/render.cu`` and
-           ``kernels/csrc/jpeg.cu`` with nvcc and the native JFIF coder
-           ``native/jpegenc.cpp`` with g++, all at once; print each
-           kernel's ptxas register and shared-memory lines;
+2. build   the kernels from ``kernels/csrc/render.cu``,
+           ``kernels/csrc/jpeg.cu`` and ``kernels/csrc/workloads.cu`` with
+           nvcc and the native JFIF coder ``native/jpegenc.cpp`` with g++,
+           all at once; print each kernel's ptxas register and
+           shared-memory lines;
 3. kernels each kernel against its plain PyTorch version at the flagship
            shape B=8, C=4, 1024x1024 uint16 (and at the served shape B=1):
            K1 render_ramp with linear settings (exact) and with all four
@@ -25,13 +26,24 @@ Phases (any failure ends the run with a non-zero exit and no result line):
            tiles' blocks; K3 also flipped h, v and hv, on ragged, small,
            unaligned tiles and on a larger frame; K4b also with n_valid 5
            and 0 and rows over a cap that gives an odd width).
+           Then K7 project_fold (uint16 zc=32 1024^2, max, mean and sum
+           finalized, also in two chunks; zc=1; a 256-row band at y0=512
+           of a 1024^2 plane; h=1000; u8, int32, f32 with NaN planes, and
+           int8, int16, uint32 and float64 on a ragged 37x45 chunk), K8a
+           mask_rasterize (B=8 1024^2 in four flips, 37x45, 1x9: W*H % 8
+           != 0) and K8b mask_overlay (B=1 1024^2 and a 37x45 pair, grid
+           bytes 0-3, fill alpha 0, 128, 255), each byte for byte.
            Each gets the median device time of 25 launches (CUDA events,
            the L2 flushed before each, a GPU sleep ahead of the timed span
            so the host's enqueue is not in it), the device time of each of
            its launches and memsets (torch.profiler, L2 warm), the plain
            version's time, and the bound from the bytes moved and the
-           operations done;
-4. serve   an 8192^2 4-channel uint16 pyramid through the port's default
+           operations done; K7 also torch.sum over the chunk's dim 0 (the
+           library call; torch.amax has no uint16 kernel);
+4. serve   an 8192^2 4-channel uint16 pyramid (image 1), a 1024^2 x 32
+           4-channel uint16 Z-stack (image 2, 256 MiB) and 10 masks
+           (8 of 1024^2 with fills, one 37x45, one 1023^2 whose payload
+           ends mid-byte) through the port's default
            aiohttp app (micro-batcher, device raw cache, single-flight) on
            127.0.0.1: 11 GETs (resolution 0 and 1, greyscale, a reversed
            channel, a LUT channel as png and as a device-route JPEG, a
@@ -75,6 +87,22 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                        and If-Modified-Since repeats (empty 304s) and a
                        HEAD (the headers alone), none of them moving the
                        batcher's counters; a 404 without cache headers;
+           projection: p=intmax|0:31, intmean and intsum of the Z-stack as
+                       JPEG and PNG, each equal to the batcher=False
+                       reference app; a re-windowed repeat makes 4 raw-cache
+                       proj hits; one channel's 32 planes folded on the
+                       host and by K7 (pinned H2D included), equal, with
+                       their times;
+           masks:      8 same-shape masks at once (mean group >= 2), each
+                       PNG equal to the host rasterizer's; flips, a colour
+                       override and the ragged payload; a 304 and a 404;
+                       K8a launched;
+           overlay:    masks 2 and 3 over a 1024^2 region, equal to the
+                       host path (the base PNG decoded, host grids,
+                       overlay_masks_batch); K8a and K8b launched;
+           animation:  axis=z&frames=8 JPEG on the Z-stack: 8 FRME records
+                       in order, each the plain route's bytes for its
+                       plane; the strip's mean group;
            then the device busy share (torch.profiler) of 8 sequential and
            of 32 concurrent cold GETs, one tile's layer breakdown on a cold
            host read (read, digest, pinned DMA, kernels, wire, coder),
@@ -97,8 +125,12 @@ Phases (any failure ends the run with a non-zero exit and no result line):
            trace, 11 spans, admission, the ETag and header decision),
            median of 10,000, with the card's name and power limit.
 
-It prints the kernel table as one JSON line, then the nvidia-smi line, and
-last ``{"ok": true, "device": {...}}``.  It imports nothing of JAX.
+Each phase's launch counts are set to 0 just before it and read just
+after.  It prints the kernel table of all eight kernels as one JSON line
+(``launches``: the batch burst for K1-K4b, the four workload phases for
+K7, K8a and K8b; ``workload_launches``: each kernel's launches in each of
+those phases), then the nvidia-smi line, and last ``{"ok": true,
+"device": {...}}``.  It imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -533,11 +565,208 @@ def smoke_lut(np):
         np.uint8)
 
 
+# ------------------------------------------------- workload kernels phase
+
+WL_SOURCE = "omero_ms_image_region_tpu_torch/kernels/csrc/workloads.cu"
+Z_STACK = 32                 # planes of the smoke's Z-stack
+
+
+def workloads_kernel_phase(torch, np):
+    """K7, K8a and K8b against their plain versions, byte for byte
+    (``array_equal``, NaN equal to NaN), at the sizes the new phases give
+    them, with the edge cases listed in the module docstring; each timed
+    as the others are."""
+    from omero_ms_image_region_tpu_torch.flagship import synthetic_wsi_tiles
+    from omero_ms_image_region_tpu_torch.kernels import workloads as KW
+    from omero_ms_image_region_tpu_torch.ops import maskops as M
+    from omero_ms_image_region_tpu_torch.ops import projection as P
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(7)
+    entries = {
+        "project_fold": {"name": "project_fold", "route": "cuda",
+                         "source": WL_SOURCE,
+                         "replaces": "omero_ms_image_region_tpu/ops/"
+                                     "projection.py:178",
+                         "max_abs_err": 0, "mismatches": 0,
+                         "tolerance": 0},
+        "mask_rasterize": {"name": "mask_rasterize", "route": "cuda",
+                           "source": WL_SOURCE,
+                           "replaces": "omero_ms_image_region_tpu/ops/"
+                                       "maskops.py:143",
+                           "max_abs_err": 0, "mismatches": 0,
+                           "tolerance": 0},
+        "mask_overlay": {"name": "mask_overlay", "route": "cuda",
+                         "source": WL_SOURCE,
+                         "replaces": "omero_ms_image_region_tpu/ops/"
+                                     "maskops.py:197",
+                         "max_abs_err": 0, "mismatches": 0,
+                         "tolerance": 0},
+    }
+
+    def tally(name, got, want, label):
+        g, w = got.cpu().numpy(), want.cpu().numpy()
+        same = np.array_equal(g, w, equal_nan=True)
+        diff = int((~((g == w) | (np.isnan(g) & np.isnan(w)))).sum()
+                   if g.dtype.kind == "f" else (g != w).sum())
+        err = (0.0 if same else float(np.nanmax(np.abs(
+            g.astype(np.float64) - w.astype(np.float64)))))
+        print(f"check {name} {label}: differing {diff} of {g.size} "
+              f"(tolerance 0)", flush=True)
+        check(same, f"{name} {label} differs from its plain version")
+        e = entries[name]
+        e["mismatches"] += diff
+        e["max_abs_err"] = max(e["max_abs_err"], err)
+
+    # K7: (label, chunk [zc, h, W], out shape, y0, first/finalize cases)
+    def stack_of(dtype, zc, h, w):
+        if dtype == np.uint16:
+            return np.stack([synthetic_wsi_tiles(rng, 1, 1, h, w)[0, 0]
+                             for _ in range(zc)])
+        if np.dtype(dtype).kind == "f":
+            x = rng.normal(0, 1000, size=(zc, h, w)).astype(dtype)
+            x[1, ::7] = np.nan              # NaN rows in two planes
+            x[zc - 1, :, ::5] = np.nan
+            return x
+        info = np.iinfo(dtype)
+        return rng.integers(info.min, info.max, size=(zc, h, w),
+                            endpoint=True).astype(dtype)
+
+    cases = [("u16 zc=32 1024^2", np.uint16, Z_STACK, TILE, TILE, TILE, 0),
+             ("u16 zc=1", np.uint16, 1, TILE, TILE, TILE, 0),
+             ("u16 256-row band at y0=512", np.uint16, 8, 256, TILE,
+              TILE, 512),
+             ("u16 h=1000", np.uint16, 8, 1000, TILE, TILE, 0),
+             ("u8", np.uint8, 16, 512, 512, 512, 0),
+             ("int32", np.int32, 16, 512, 512, 512, 0),
+             ("f32 with NaN planes", np.float32, 16, 512, 512, 512, 0),
+             ("int8 37x45", np.int8, 5, 37, 45, 37, 0),
+             ("uint32 37x45", np.uint32, 5, 37, 45, 37, 0),
+             ("float64 37x45", np.float64, 5, 37, 45, 37, 0),
+             ("int16 37x45", np.int16, 5, 37, 45, 37, 0)]
+    for label, dtype, zc, h, w, H, y0 in cases:
+        chunk = P.stage_planes(stack_of(dtype, zc, h, w), dev)
+        type_max = (1.0 if np.dtype(dtype).kind == "f"
+                    else float(np.iinfo(dtype).max))
+        for alg in (0, 1, 2):
+            base = torch.full((H, w), 7.0, dtype=torch.float32, device=dev)
+            got, want = base.clone(), base.clone()
+            KW.project_fold(chunk, got, y0, alg, True, True, zc, type_max)
+            P.fold_chunk_plain(chunk, want, y0, alg, True, True, zc,
+                               type_max)
+            tally("project_fold", got, want, f"{label} alg {alg}")
+            # Two chunks: the second folds onto the first's rows.
+            if zc > 2:
+                got2, want2 = base.clone(), base.clone()
+                half = zc // 2
+                for out, fold in ((got2, KW.project_fold),
+                                  (want2, P.fold_chunk_plain)):
+                    fold(chunk[:half].contiguous(), out, y0, alg, True,
+                         False, zc, type_max)
+                    fold(chunk[half:].contiguous(), out, y0, alg, False,
+                         True, zc, type_max)
+                tally("project_fold", got2, want2,
+                      f"{label} alg {alg} in two chunks")
+    # Timed at the projection phase's shape: one channel's 32 planes.
+    chunk = P.stage_planes(stack_of(np.uint16, Z_STACK, TILE, TILE), dev)
+    out = torch.empty((TILE, TILE), dtype=torch.float32, device=dev)
+    e = entries["project_fold"]
+    for alg, tag in ((0, "max"), (2, "sum")):
+        key = "" if alg == 0 else "sum_"
+        e[key + "ms"] = time_ms(torch, lambda: KW.project_fold(
+            chunk, out, 0, alg, True, True, Z_STACK, 65535.0), 25)
+        e[key + "plain_ms"] = time_ms(torch, lambda: P.fold_chunk_plain(
+            chunk, out, 0, alg, True, True, Z_STACK, 65535.0), 5)
+        e[key + "bound_ms"], e[key + "bound_by"] = bytes_bound(
+            chunk.numel() * 2 + out.numel() * 4, chunk.numel())
+        lib = ((lambda: torch.amax(chunk, dim=0)) if alg == 0 else
+               (lambda: torch.sum(chunk, dim=0, dtype=torch.float32)))
+        try:
+            e[key + "library_ms"] = time_ms(torch, lib, 25)
+            e[key + "library_call"] = (
+                "torch.amax(chunk, dim=0)" if alg == 0 else
+                "torch.sum(chunk, dim=0, dtype=torch.float32)")
+        except Exception as exc:      # an op torch lacks for uint16
+            e[key + "library_ms"] = None
+            e[key + "library_call"] = f"{tag}: {type(exc).__name__}: {exc}"
+    e["shape"] = [Z_STACK, TILE, TILE]
+    e["dtype"] = "uint16"
+    del chunk, out
+
+    # K8a: B=8 1024^2 masks in four flips, a 37x45 batch and a 1x9 one
+    # (W*H % 8 != 0: the scalar path).
+    for (w, h, B) in ((TILE, TILE, 8), (37, 45, 3), (1, 9, 2)):
+        packed = torch.from_numpy(rng.integers(
+            0, 256, size=(B, M.packed_nbytes(w, h)), dtype=np.uint8)).to(dev)
+        for fh, fv in ((0, 0), (1, 0), (0, 1), (1, 1)):
+            tally("mask_rasterize",
+                  KW.mask_rasterize(packed, w, h, bool(fh), bool(fv)),
+                  M.mask_rasterize_plain(packed, w, h, bool(fh), bool(fv)),
+                  f"{B}x{w}x{h} flip h{fh} v{fv}")
+        if B == 8:
+            e = entries["mask_rasterize"]
+            e["ms"] = time_ms(torch, lambda: KW.mask_rasterize(
+                packed, w, h), 25)
+            e["plain_ms"] = time_ms(torch, lambda: M.mask_rasterize_plain(
+                packed, w, h), 5)
+            e["bound_ms"], e["bound_by"] = bytes_bound(
+                packed.numel() + B * w * h)
+            e["shape"] = [B, h, w]
+    # K8b: one 1024^2 RGBA tile, grid bytes 0..3, fill alpha 0, 128, 255;
+    # a 37x45 pair on the scalar path.
+    for (w, h, B) in ((TILE, TILE, 1), (37, 45, 2)):
+        base = torch.from_numpy(rng.integers(
+            0, 256, size=(B, h, w, 4), dtype=np.uint8)).to(dev)
+        grids = torch.from_numpy(rng.integers(
+            0, 4, size=(B, h, w), dtype=np.uint8)).to(dev)
+        for alpha in (0, 128, 255):
+            fills = torch.tensor([[255, 40, 7, alpha]] * B,
+                                 dtype=torch.uint8, device=dev)
+            tally("mask_overlay", KW.mask_overlay(base, grids, fills),
+                  M.mask_overlay_plain(base, grids, fills),
+                  f"{B}x{w}x{h} alpha {alpha}")
+            if B == 1 and alpha == 128:
+                e = entries["mask_overlay"]
+                e["ms"] = time_ms(torch, lambda: KW.mask_overlay(
+                    base, grids, fills), 25)
+                e["plain_ms"] = time_ms(
+                    torch, lambda: M.mask_overlay_plain(base, grids, fills),
+                    5)
+                e["bound_ms"], e["bound_by"] = bytes_bound(
+                    base.numel() * 2 + grids.numel() + fills.numel())
+                e["shape"] = [B, h, w, 4]
+    for name in ("mask_rasterize", "mask_overlay"):
+        entries[name]["library_ms"] = None
+        entries[name]["library_note"] = "no single PyTorch call computes this"
+    e = entries["project_fold"]
+    e["library_note"] = ("max: " + e["library_call"] + "; sum: "
+                         + e["sum_library_call"])
+    if e["library_ms"] is None:      # no amax of this type: the sum's
+        e["library_ms"] = e["sum_library_ms"]
+    for e in entries.values():
+        print(f"kernel {e['name']}: {e['ms']:.4f} ms (bound "
+              f"{e['bound_ms']:.4f} ms, plain {e['plain_ms']:.3f} ms, "
+              f"library {e['library_ms']}) at {e['shape']}", flush=True)
+    return entries
+
+
 # ------------------------------------------------------------- serve phase
 
+ZSTACK_IMAGE = "2"
+# Masks: 1-8 1024^2 with fills, 9 37x45, 10 1023x1023 (a payload that is
+# not a whole number of bytes, with trailing bytes).
+MASK_SHAPES = {**{i: (TILE, TILE) for i in range(1, 9)}, 9: (37, 45),
+               10: (TILE - 1, TILE - 1)}
+
+
 def build_data(np, data_dir: str, lut_root: str) -> float:
+    """The flagship plane (image 1), the Z-stack (image 2) and the masks,
+    written with the port's own ``build_pyramid`` and ``write_mask``."""
     from omero_ms_image_region_tpu_torch.flagship import synthetic_wsi_tiles
     from omero_ms_image_region_tpu_torch.io.store import build_pyramid
+    from omero_ms_image_region_tpu_torch.models.mask import Mask
+    from omero_ms_image_region_tpu_torch.services.metadata import (
+        write_mask)
 
     t0 = time.perf_counter()
     rng = np.random.default_rng(1)
@@ -549,6 +778,25 @@ def build_data(np, data_dir: str, lut_root: str) -> float:
             planes[:, 0, ty * TILE:(ty + 1) * TILE,
                    tx * TILE:(tx + 1) * TILE] = row[tx]
     build_pyramid(planes, os.path.join(data_dir, "1"), chunk=(256, 256))
+    del planes
+    # A confocal-sized Z-stack: 4 channels of 1024^2 uint16, 32 planes
+    # (256 MiB), one synthetic_wsi_tiles call per plane.
+    stack = np.empty((4, Z_STACK, TILE, TILE), np.uint16)
+    rng = np.random.default_rng(1)
+    for z in range(Z_STACK):
+        stack[:, z] = synthetic_wsi_tiles(rng, 1, 4, TILE, TILE)[0]
+    build_pyramid(stack, os.path.join(data_dir, ZSTACK_IMAGE),
+                  chunk=(256, 256))
+    # ROI-like masks: a thresholded blob field each.
+    rng = np.random.default_rng(2)
+    for sid, (w, h) in MASK_SHAPES.items():
+        grid = synthetic_wsi_tiles(rng, 1, 1, h, w)[0, 0] > 9000
+        bits = np.packbits(grid.reshape(-1)).tobytes()
+        if sid == 10:
+            bits += b"\xff\xff"
+        fill = (None if sid in (1, 9) else
+                (40 * sid % 256, 255 - 20 * sid, 90, 64 + 16 * sid))
+        write_mask(data_dir, Mask(sid, w, h, bits, fill))
     with open(os.path.join(lut_root, "smoke.lut"), "wb") as f:
         f.write(smoke_lut(np).T.tobytes())     # 768-byte planar R, G, B
     return time.perf_counter() - t0
@@ -670,14 +918,17 @@ def encode_overlap(np, rgba, row, w, h, q, cap) -> dict:
 def launch_counts():
     from omero_ms_image_region_tpu_torch.kernels import jpeg as KJ
     from omero_ms_image_region_tpu_torch.kernels import render as K
-    return dict(K.LAUNCHES, **KJ.LAUNCHES)
+    from omero_ms_image_region_tpu_torch.kernels import workloads as KW
+    return dict(K.LAUNCHES, **KJ.LAUNCHES, **KW.LAUNCHES)
 
 
 def reset_launch_counts() -> None:
     from omero_ms_image_region_tpu_torch.kernels import jpeg as KJ
     from omero_ms_image_region_tpu_torch.kernels import render as K
+    from omero_ms_image_region_tpu_torch.kernels import workloads as KW
     K.reset_launches()
     KJ.reset_launches()
+    KW.reset_launches()
 
 
 class Batches:
@@ -738,7 +989,11 @@ def batch_requests():
 
 
 def params_of(route, query, image="1"):
-    return dict(query, imageId=image, theZ="0", theT="0")
+    """A request's params: ``query`` may name ``imageId`` and ``theZ``
+    (default image 1, plane 0); a mask's id is ``shapeId``."""
+    if route == "render_shape_mask":
+        return dict(query, shapeId=image)
+    return dict({"imageId": image, "theZ": "0", "theT": "0"}, **query)
 
 
 class Client:
@@ -789,8 +1044,12 @@ class Client:
         """(status, headers, body, wall ms) of one request."""
         t0 = time.perf_counter()
         if self.session is not None:
+            query = dict(query)
+            image = query.pop("imageId", image)
+            z = query.pop("theZ", "0")
+            tail = ("" if route == "render_shape_mask" else f"/{z}/0")
             url = (f"http://127.0.0.1:{self.port}/webgateway/{route}/"
-                   f"{image}/0/0")
+                   f"{image}{tail}")
             async with self.session.request(method, url, params=query,
                                             headers=headers or {}) as r:
                 body = await r.read()
@@ -1098,6 +1357,230 @@ def plain_matcher(torch, np, handler, have_pil):
     return matches_plain
 
 
+def frames_of(body: bytes):
+    """The frame bodies of an animation stream, in order."""
+    out, i = [], 0
+    while i < len(body):
+        check(body[i:i + 4] == b"FRME", "animation: a record without FRME")
+        n = int.from_bytes(body[i + 4:i + 8], "big")
+        out.append(body[i + 8:i + 8 + n])
+        i += 8 + n
+    return out
+
+
+async def workload_phases(torch, np, client, handler, data_dir, lut_root,
+                          matches_plain) -> dict:
+    """The projection, mask, overlay and animation routes through the
+    default app; each phase's kernel launches (counts set to 0 just
+    before it, read just after)."""
+    from omero_ms_image_region_tpu_torch import codecs
+    from omero_ms_image_region_tpu_torch.models.rendering import Projection
+    from omero_ms_image_region_tpu_torch.ops import maskops as M
+    from omero_ms_image_region_tpu_torch.ops import projection as P
+    from omero_ms_image_region_tpu_torch.server.app import build_handler
+    from omero_ms_image_region_tpu_torch.server.ctx import (
+        ImageRegionCtx, ShapeMaskCtx)
+    from omero_ms_image_region_tpu_torch.server.handler import (
+        ShapeMaskHandler)
+    from omero_ms_image_region_tpu_torch.server.region import RegionDef
+    from omero_ms_image_region_tpu_torch.utils import telemetry
+    from omero_ms_image_region_tpu_torch.utils.color import (
+        split_html_color)
+
+    batcher, cache = handler.s.renderer, handler.s.raw_cache
+    reference = build_handler(data_dir, lut_root, device=DEVICE,
+                              batcher=False)
+    phases = {}
+
+    async def direct(route, query) -> bytes:
+        return await reference.render_image_region(
+            ImageRegionCtx.from_params(params_of(route, query)))
+
+    # projection: p= over the Z-stack's 32 planes, JPEG and PNG, each
+    # equal to the batcher=False reference; a repeat hits the raw cache's
+    # proj entries; then one channel folded on the host and by K7.
+    reset_launch_counts()
+    stats = Batches(batcher)
+    gets = []
+    for alg in ("intmax", "intmean", "intsum"):
+        for fmt in ("jpeg", "png"):
+            q = {"imageId": ZSTACK_IMAGE, "c": CH, "m": "c",
+                 "format": fmt, "p": f"{alg}|0:{Z_STACK - 1}"}
+            status, _, body, ms = await client.request(
+                "render_image_region", q)
+            check(status == 200, f"projection {alg} {fmt}: HTTP {status}")
+            check(body == await direct("render_image_region", q),
+                  f"projection {alg} {fmt}: body differs from the "
+                  f"batcher=False reference")
+            gets.append([alg, fmt, len(body), ms])
+    hits0, misses0 = cache.hits, cache.misses
+    q = {"imageId": ZSTACK_IMAGE, "c": CH2, "m": "c", "format": "jpeg",
+         "p": f"intmax|0:{Z_STACK - 1}"}
+    status, _, body, repeat_ms = await client.request(
+        "render_image_region", q)
+    check(status == 200 and body == await direct("render_image_region", q),
+          "projection: the re-windowed repeat differs from the reference")
+    repeat_hits = cache.hits - hits0
+    check(repeat_hits == 4 and cache.misses == misses0,
+          f"projection: the repeat made {repeat_hits} raw-cache hits and "
+          f"{cache.misses - misses0} misses (want 4 proj hits)")
+    src = handler.s.pixels_service.get_pixel_source(int(ZSTACK_IMAGE))
+    full = RegionDef(0, 0, TILE, TILE)
+
+    def get_plane(z):
+        return src.get_region(z, 0, 0, full, 0)
+
+    folds = {}
+    for alg in (Projection.MAXIMUM_INTENSITY, Projection.MEAN_INTENSITY):
+        outs = {}
+        for placement in ("host", "device"):
+            times = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                outs[placement] = P.project_planes(
+                    get_plane, alg, Z_STACK, 0, Z_STACK - 1, 1, 65535.0,
+                    shape=(TILE, TILE), placement=placement, device=DEVICE)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            folds[f"{alg.name.lower()}_{placement}_fold_ms"] = \
+                statistics.median(times)
+        check(torch.equal(outs["host"], outs["device"]),
+              f"projection: the K7 fold of {alg.name} differs from the "
+              f"host fold")
+    t0 = time.perf_counter()
+    for z in range(Z_STACK):
+        get_plane(z)
+    folds["read_32_planes_ms"] = (time.perf_counter() - t0) * 1e3
+    launches = launch_counts()
+    groups = stats.report()
+    proj = {"gets": gets, "repeat_raw_cache_hits": repeat_hits,
+            "repeat_ms": repeat_ms,
+            "proj_entries": sum(1 for k in list(cache._entries)
+                                if k[0] == "proj"),
+            "one_channel_32_planes": folds,
+            "mean_group_size": groups["mean_group_size"],
+            "launches": launches, "via": client.via}
+    print("projection: " + json.dumps(proj), flush=True)
+    for name in ("project_fold", "render_ramp", "jpeg_coefficients",
+                 "sparse_pack", "compact_rows"):
+        check(launches[name] >= 1,
+              f"projection: {name} was not launched")
+    phases["projection"] = launches
+
+    # masks: 8 same-shape masks at once (one key of the mask lane), each
+    # PNG the host rasterizer's; a colour override, flips, a payload with
+    # a ragged end, a 304 and a 404.
+    meta = handler.s.metadata
+
+    async def host_png(sid, query):
+        mask = await meta.get_mask(sid, None)
+        ctx = ShapeMaskCtx.from_params(dict(query, shapeId=str(sid)))
+        color = split_html_color(query["color"]) if "color" in query \
+            else None
+        return ShapeMaskHandler._render(mask, color, ctx)
+
+    reset_launch_counts()
+    stats = Batches(batcher)
+    t0 = time.perf_counter()
+    outs = await asyncio.gather(*(
+        client.request("render_shape_mask", {}, image=str(sid))
+        for sid in range(1, 9)))
+    burst_ms = (time.perf_counter() - t0) * 1e3
+    burst = stats.report()
+    for sid, (status, _, body, _) in zip(range(1, 9), outs):
+        check(status == 200 and body == await host_png(sid, {}),
+              f"masks: mask {sid} differs from the host rasterizer")
+    extra = [(9, {"flip": "h"}), (9, {"flip": "v", "color": "00FF0080"}),
+             (10, {"flip": "hv"}), (10, {}), (1, {"color": "FF000080"})]
+    for sid, query in extra:
+        status, _, body, _ = await client.request(
+            "render_shape_mask", query, image=str(sid))
+        check(status == 200 and body == await host_png(sid, query),
+              f"masks: mask {sid} {query} differs from the host rasterizer")
+    status_304, _, body_304, _ = await client.request(
+        "render_shape_mask", {}, headers={"If-None-Match":
+                                          outs[0][1]["ETag"]}, image="1")
+    status_404, _, _, _ = await client.request("render_shape_mask", {},
+                                               image="99")
+    launches = launch_counts()
+    masks = {"burst": {"gets": 8, "wall_ms": burst_ms,
+                       "mean_group_size": burst["mean_group_size"],
+                       "group_sizes": burst["group_sizes"]},
+             "checked": 8 + len(extra), "not_modified": status_304,
+             "missing": status_404, "launches": launches,
+             "via": client.via}
+    print("masks: " + json.dumps(masks), flush=True)
+    check(burst["mean_group_size"] >= 2,
+          "masks: the 8 same-shape masks did not group")
+    check(status_304 == 304 and body_304 == b"" and status_404 == 404,
+          "masks: the 304 or the 404 went wrong")
+    check(launches["mask_rasterize"] >= 1,
+          "masks: mask_rasterize was not launched")
+    phases["masks"] = launches
+
+    # overlay: masks 2 and 3 over a 1024^2 region, against the host path
+    # (the base PNG decoded, the host grids, overlay_masks_batch).
+    base_q = {"tile": f"0,2,3,{TILE},{TILE}", "c": CH, "m": "c",
+              "format": "png"}
+    _, _, base_png, _ = await client.request("render_image_region", base_q)
+    _, _, _, base_same = await matches_plain("render_image_region", base_q,
+                                             base_png)
+    check(base_same, "overlay: the base differs from the plain route")
+    reset_launch_counts()
+    status, _, body, overlay_ms = await client.request(
+        "render_overlay", dict(base_q, shapes="2,3"))
+    launches = launch_counts()
+    want = codecs.decode_to_rgba(base_png)
+    for sid in (2, 3):
+        mask = await meta.get_mask(sid, None)
+        grid, palette = M.rasterize_mask(mask)
+        want = M.overlay_masks_batch(want[None], grid[None],
+                                     palette[1][None])[0]
+    check(status == 200 and body == codecs.encode_rgba(want, "png"),
+          "overlay: the composite differs from the host path")
+    overlay = {"status": status, "bytes": len(body), "wall_ms": overlay_ms,
+               "launches": launches, "via": client.via}
+    print("overlay: " + json.dumps(overlay), flush=True)
+    check(launches["mask_rasterize"] >= 2 and launches["mask_overlay"] >= 2,
+          "overlay: K8a and K8b were not launched for each shape")
+    phases["overlay"] = launches
+
+    # animation: 8 z frames of the Z-stack as JPEG, in order, each the
+    # plain route's bytes for its plane.
+    reset_launch_counts()
+    stats = Batches(batcher)
+    q = {"imageId": ZSTACK_IMAGE, "c": CH, "m": "c", "format": "jpeg",
+         "axis": "z", "frames": "8"}
+    status, hdrs, body, anim_ms = await client.request("render_animation",
+                                                       q)
+    launches = launch_counts()
+    groups = stats.report()
+    check(status == 200, f"animation: HTTP {status}")
+    frames = frames_of(body)
+    check(len(frames) == 8, f"animation: {len(frames)} frames")
+    for z, frame in enumerate(frames):
+        fq = {"imageId": ZSTACK_IMAGE, "theZ": str(z), "c": CH, "m": "c",
+              "format": "jpeg"}
+        _, _, plain_body, _ = await client.request("render_image_region",
+                                                   fq)
+        _, _, _, same = await matches_plain("render_image_region", fq,
+                                            frame)
+        check(frame == plain_body and same,
+              f"animation: frame {z} differs from the plain route")
+    anim = {"frames": len(frames), "bytes": len(body), "wall_ms": anim_ms,
+            "first_frame_ms": telemetry.WORKLOADS.first_frame_ms,
+            "content_type": hdrs.get("Content-Type"),
+            "mean_group_size": groups["mean_group_size"],
+            "group_sizes": groups["group_sizes"], "launches": launches,
+            "via": client.via}
+    print("animation: " + json.dumps(anim), flush=True)
+    check(launches["render_ramp"] >= 1 and launches["compact_rows"] >= 1,
+          "animation: the render and JPEG kernels were not launched")
+    phases["animation"] = launches
+    await reference.s.renderer.close()
+    return phases
+
+
 async def serve_phase(torch, np, data_dir, lut_root, have_aiohttp,
                       have_pil):
     from omero_ms_image_region_tpu_torch import codecs, native
@@ -1203,8 +1686,9 @@ async def serve_phase(torch, np, data_dir, lut_root, have_aiohttp,
               "was not run")
         check(batch["max_groups_in_execute"] <= batcher.device_lanes,
               "batch: more groups in execute than device lanes")
-        for name, n in launches.items():
-            check(n >= 1, f"{name} was not launched by the batch burst")
+        for name in ("render_ramp", "render_lut", *KJ.LAUNCHES):
+            check(launches[name] >= 1,
+                  f"{name} was not launched by the batch burst")
 
         # e2e: 4-channel jpeg tiles at resolution 0, default quality,
         # device route, through the batcher, every GET a raw-cache miss.
@@ -1343,6 +1827,8 @@ async def serve_phase(torch, np, data_dir, lut_root, have_aiohttp,
         print("postures: " + json.dumps(postures), flush=True)
 
         await http_cache_phase(client, handler, matches_plain)
+        workload_launches = await workload_phases(
+            torch, np, client, handler, data_dir, lut_root, matches_plain)
 
         # Device busy share: 8 sequential cold GETs, and 32 cold GETs at
         # 8 in flight (torch.profiler, device time of all kernels and
@@ -1434,7 +1920,7 @@ async def serve_phase(torch, np, data_dir, lut_root, have_aiohttp,
                               matches_plain)
         await watchdog_phase(data_dir, lut_root, have_aiohttp,
                              matches_plain)
-        return launches, serve_launches
+        return launches, serve_launches, workload_launches
     finally:
         await client.stop()
         await batcher.close()
@@ -1452,6 +1938,7 @@ def main() -> int:
     from omero_ms_image_region_tpu_torch.kernels import build
     from omero_ms_image_region_tpu_torch.kernels import jpeg as KJ
     from omero_ms_image_region_tpu_torch.kernels import render as K
+    from omero_ms_image_region_tpu_torch.kernels import workloads as KW
 
     # 1. probe
     smi = smi_line()
@@ -1469,14 +1956,16 @@ def main() -> int:
     with cf.ThreadPoolExecutor(2) as pool:
         coder = pool.submit(native.build)
         build.build_all([(K.SOURCE, K.NVCC_FLAGS),
-                         (KJ.SOURCE, KJ.NVCC_FLAGS)])
+                         (KJ.SOURCE, KJ.NVCC_FLAGS),
+                         (KW.SOURCE, KW.NVCC_FLAGS)])
         coder.result()
     K.library()
     KJ.library()
+    KW.library()
     native.library()
     print(f"build: {time.perf_counter() - t0:.2f} s (render.cu, jpeg.cu, "
-          f"native/jpegenc.cpp)", flush=True)
-    for source in (K.SOURCE, KJ.SOURCE):
+          f"workloads.cu, native/jpegenc.cpp)", flush=True)
+    for source in (K.SOURCE, KJ.SOURCE, KW.SOURCE):
         for line in build.build_log(source.name).splitlines():
             if ("registers" in line or "Compiling entry" in line
                     or "spill" in line):
@@ -1486,6 +1975,8 @@ def main() -> int:
     entries, raw8, args8 = kernel_phase(torch, np)
     entries.update(jpeg_kernel_phase(torch, np, raw8, args8))
     del raw8, args8
+    torch.cuda.empty_cache()
+    workload_entries = workloads_kernel_phase(torch, np)
 
     # 4. serve
     with tempfile.TemporaryDirectory() as tmp:
@@ -1494,15 +1985,28 @@ def main() -> int:
         os.makedirs(data_dir)
         os.makedirs(lut_root)
         secs = build_data(np, data_dir, lut_root)
-        print(f"serve: built a {PLANE}x{PLANE} 4-channel uint16 pyramid in "
-              f"{secs:.1f} s", flush=True)
-        launches, serve_launches = asyncio.run(serve_phase(
-            torch, np, data_dir, lut_root, have_aiohttp, have_pil))
+        print(f"serve: built a {PLANE}x{PLANE} 4-channel uint16 pyramid, "
+              f"a {TILE}x{TILE}x{Z_STACK} 4-channel uint16 Z-stack and "
+              f"{len(MASK_SHAPES)} masks in {secs:.1f} s", flush=True)
+        launches, serve_launches, workload_launches = asyncio.run(
+            serve_phase(torch, np, data_dir, lut_root, have_aiohttp,
+                        have_pil))
     front_cost_phase(smi)
 
+    # launches: the batch burst for K1-K4b; the four workload phases
+    # together for K7, K8a and K8b.  Every kernel also carries its
+    # launches in each workload phase.
     for name, e in entries.items():
         e["launches"] = launches[name]
         e["serve_launches"] = serve_launches[name]
+    for name, e in workload_entries.items():
+        e["launches"] = sum(p[name] for p in workload_launches.values())
+        check(e["launches"] >= 1,
+              f"{name} was not launched by the workload phases")
+    entries.update(workload_entries)
+    for name, e in entries.items():
+        e["workload_launches"] = {phase: p[name] for phase, p in
+                                  workload_launches.items()}
         e["card"], e["power_limit"] = [s.strip() for s in smi.split(",")]
     print(json.dumps({"kernels": list(entries.values())}), flush=True)
     print(smi, flush=True)

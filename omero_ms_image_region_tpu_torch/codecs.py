@@ -13,7 +13,7 @@ is imported where it is used, so the render path imports without it.
 from __future__ import annotations
 
 import io
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -60,6 +60,25 @@ def encode_rgba(rgba: np.ndarray, fmt: str,
         img.save(buf, format="PNG")
     else:
         img.save(buf, format="TIFF")
+    return buf.getvalue()
+
+
+def encode_mask_png(grid: np.ndarray,
+                    fill_color: Tuple[int, int, int, int]) -> bytes:
+    """Encode a 0/1 mask grid as a palettized PNG.
+
+    Mirrors the reference's 2-entry ``IndexColorModel``: index 0 fully
+    transparent, index 1 the fill color with its alpha
+    (``ShapeMaskRequestHandler.java:185-203``).
+    """
+    from PIL import Image
+
+    grid = np.ascontiguousarray(grid.astype(np.uint8))
+    img = Image.fromarray(grid, mode="P")
+    r, g, b, a = fill_color
+    img.putpalette([0, 0, 0, r, g, b][: 6])
+    buf = io.BytesIO()
+    img.save(buf, format="PNG", transparency=bytes([0, a]))
     return buf.getvalue()
 
 

@@ -61,10 +61,11 @@ class DeviceRawCache:
     ``get_or_load(key, loader)`` returns a tensor on ``device``;
     ``loader()`` supplies the host planes on a miss, as a numpy array or as
     ``io.staging.HostPlanes`` already filled (then they are copied from
-    that pinned buffer, with no second host copy).  Thread-safe: the
-    handler loads in worker threads; the copy happens outside the lock,
-    and concurrent misses on one key may both load (last write wins, which
-    is right for immutable pixels).
+    that pinned buffer, with no second host copy), or a tensor it made on
+    the device and synchronized (a projected plane), cached as it is.
+    Thread-safe: the handler loads in worker threads; the copy happens
+    outside the lock, and concurrent misses on one key may both load (last
+    write wins, which is right for immutable pixels).
     """
 
     def __init__(self, max_bytes: int = 2 * 1024 * 1024 * 1024,
@@ -154,6 +155,8 @@ class DeviceRawCache:
                 return arr
             self.misses += 1
         loaded = loader()
+        if isinstance(loaded, torch.Tensor):
+            return self._insert(key, loaded.to(self.device), None)
         if isinstance(loaded, HostPlanes):
             host, upload = loaded.array, loaded.upload
         else:
@@ -174,6 +177,11 @@ class DeviceRawCache:
             digest = None
         if arr is None:
             arr = self._upload(upload)
+        return self._insert(key, arr, digest)
+
+    def _insert(self, key: Hashable, arr: torch.Tensor,
+                digest: Optional[str]) -> torch.Tensor:
+        """Publish a loaded entry, then evict to the budget."""
         with self._lock:
             old = self._entries.pop(key, None)
             if old is not None:

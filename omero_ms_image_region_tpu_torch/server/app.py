@@ -1,4 +1,4 @@
-"""The HTTP service: the render routes with the JAX default app's front.
+"""The HTTP service: the JAX default app's routes and its front.
 
 Routes (the reference's, ``ImageRegionMicroserviceVerticle.java:214-231``;
 trailing segments are tolerated as its ``:theT*`` patterns are):
@@ -6,6 +6,15 @@ trailing segments are tolerated as its ``:theT*`` patterns are):
   GET|HEAD /webgateway/render_image_region/{imageId}/{theZ}/{theT}[/...]
   GET|HEAD /webgateway/render_image/{imageId}/{theZ}/{theT}[/...]
   (the same two under /webclient)
+  GET|HEAD /webgateway/render_shape_mask/{shapeId}[/...]
+  GET|HEAD /webgateway/render_overlay/{imageId}/{theZ}/{theT}[/...]
+      ?shapes=<id,id,...>[&color=] : the region as PNG with the masks
+      blended in request order (404 with ``workloads.overlay-enabled``
+      off)
+  GET /webgateway/render_animation/{imageId}/{theZ}/{theT}[/...]
+      ?axis=z|t&frames=N : N frames from the URL's theZ or theT, streamed
+      as ``FRME`` + u32be length + frame records (404 with
+      ``workloads.animation-enabled`` off)
   GET /metrics       Prometheus text exposition
   GET /healthz       liveness
   OPTIONS /          the feature document
@@ -13,9 +22,11 @@ trailing segments are tolerated as its ``:theT*`` patterns are):
 Around the render path, as the JAX default app (``create_app(AppConfig())``
 there) has it:
 
-* **Conditional HTTP** (``server.httpcache``): every 200 carries an ETag
-  from the render identity and the epoch, ``Cache-Control`` and ``Vary`` by
-  whether the image is readable anonymously, and ``Last-Modified``.  A
+* **Conditional HTTP** (``server.httpcache``): every image, mask and
+  overlay 200 carries an ETag from the render identity and the epoch, and
+  ``Cache-Control`` and ``Vary`` by whether the object is readable
+  anonymously; an image also ``Last-Modified`` (masks have no source
+  stamp; an overlay's identity folds its shapes and colour).  A
   matching ``If-None-Match``, or a fresh ``If-Modified-Since`` alone, gets
   a 304 and a HEAD gets the headers, before single-flight, admission or any
   render (:func:`conditional_answer` decides).  No error carries cache
@@ -24,15 +35,20 @@ there) has it:
   trace and its deadline scope; its duration and status feed
   ``imageregion_request_duration_ms`` and ``imageregion_requests_total``.
 * **Admission** (503 + ``Retry-After`` past ``admission-max-queue`` renders
-  in flight, or when the estimated wait passes the deadline) and the
-  **watchdog** over the batcher's lanes.
+  in flight, or when the estimated wait passes the deadline; an overlay's
+  base and each animation frame are renders of the image route; a mask
+  has no global admission leg in the JAX app either, only the session
+  fairness tokens, which come with sessions) and the **watchdog** over the
+  batcher's lanes.
 * **Status mapping** (``server.errors``).
 
 :class:`Front` holds all of it without aiohttp, so a caller can drive the
 route without a socket; :func:`create_app` puts it behind aiohttp, which is
 imported there.  Left out: the chunked first-tile-out response body of the
 JAX app (``wire.streaming``): the port answers with the same bytes in one
-body (ROADMAP Queue 1).
+body (ROADMAP Queue 1); and on the mask route the session fairness
+tokens, the viewport tracker's activity mark and the federated peer
+fetch, which come with sessions and the fleet.
 """
 
 from __future__ import annotations
@@ -42,7 +58,8 @@ import json
 import logging
 import time
 from dataclasses import dataclass, field
-from typing import Mapping, Optional, Union
+from typing import AsyncIterator, Awaitable, Callable, Mapping, Optional, \
+    Union
 
 import torch
 
@@ -59,18 +76,20 @@ from . import httpcache
 from .admission import AdmissionController
 from .batcher import BatchingRenderer
 from .config import AppConfig
-from .ctx import ImageRegionCtx
+from .ctx import ImageRegionCtx, ShapeMaskCtx
 from .errors import BadRequestError, NotFoundError, OverloadedError
 from .handler import (JPEG_HOST_MAX_PX, ImageRegionHandler,
-                      ImageRegionServices, Renderer)
+                      ImageRegionServices, Renderer, ShapeMaskHandler,
+                      WorkloadsHandler)
 from .singleflight import SingleFlight
 from .watchdog import Watchdog, build_watchdog
 
 log = logging.getLogger("omero_ms_image_region_tpu_torch.server")
 
 PROVIDER = "ImageRegionMicroservice"
-FEATURES = ["flip", "png-tiles"]
+FEATURES = ["flip", "mask-color", "png-tiles"]
 ROUTES = ("render_image_region", "render_image")
+ANIMATION_CONTENT_TYPE = "application/x-image-region-animation"
 
 
 def build_services(config: AppConfig,
@@ -160,6 +179,9 @@ class Answer:
     status: int
     headers: dict = field(default_factory=dict)
     body: bytes = b""
+    # A streamed body (an animation's frame records), written after the
+    # headers; ``body`` is then empty.
+    stream: Optional[AsyncIterator[bytes]] = None
 
 
 def _json(status: int, doc: dict, **headers) -> Answer:
@@ -169,13 +191,17 @@ def _json(status: int, doc: dict, **headers) -> Answer:
 
 
 class Front:
-    """The default app's render route without a socket: session, header
-    layer, conditional answers, the handler, status mapping and request
+    """The default app's routes without a socket: session, header layer,
+    conditional answers, the handlers, status mapping and request
     accounting."""
 
     def __init__(self, config: AppConfig, handler: ImageRegionHandler):
         self.config = config
         self.handler = handler
+        wl = config.workloads
+        self.mask_handler = ShapeMaskHandler(handler.s, wl.device_masks)
+        self.workloads = WorkloadsHandler(handler, self.mask_handler,
+                                          wl.animation_max_frames)
         hc = config.http_cache
         if hc.enabled and hc.epoch == httpcache.EPOCH_AUTO:
             # Derived once at startup from the data tree's source stamps.
@@ -216,18 +242,27 @@ class Front:
         log.exception("render failed", exc_info=e)
         return Answer(500)
 
-    async def _acl_gated(self, image_id: int) -> bool:
-        """Is the image private for edge caches (not readable
+    async def can_read(self, object_type: str, object_id: int,
+                       session_key: Optional[str]) -> bool:
+        """The read ACL of an ``Image`` or a ``Mask``; False on error."""
+        try:
+            if object_type == "Mask":
+                return await self.mask_handler.can_read(object_id,
+                                                        session_key)
+            return await self.handler.can_read(object_id, session_key)
+        except Exception:
+            return False
+
+    async def _acl_gated(self, object_type: str, object_id: int) -> bool:
+        """Is the object private for edge caches (not readable
         anonymously)?  Errs toward private."""
         if not self.config.http_cache.vary_acl:
             return True
-        try:
-            return not await self.handler.can_read(image_id, None)
-        except Exception:
-            return True
+        return not await self.can_read(object_type, object_id, None)
 
-    async def cache_headers(self, headers: dict,
-                            ctx: ImageRegionCtx) -> Optional[str]:
+    async def cache_headers(self, headers: dict, identity: str,
+                            object_type: str,
+                            object_id: int) -> Optional[str]:
         """Stamp ETag, Cache-Control and Vary onto ``headers``; return the
         ETag (None with conditional HTTP off, when only the legacy
         ``cache-control-header`` applies)."""
@@ -236,10 +271,10 @@ class Front:
             if legacy:
                 headers["Cache-Control"] = legacy
             return None
-        etag = httpcache.etag_for(ctx.cache_key, hc.epoch)
+        etag = httpcache.etag_for(identity, hc.epoch)
         headers["ETag"] = etag
         cc, vary = httpcache.cache_headers(
-            hc.max_age_s, await self._acl_gated(ctx.image_id))
+            hc.max_age_s, await self._acl_gated(object_type, object_id))
         headers["Cache-Control"] = legacy or cc
         if vary:
             headers["Vary"] = vary
@@ -259,56 +294,206 @@ class Front:
         except Exception:
             return None
 
+    async def answer(self, method: str, headers: Mapping[str, str],
+                     out: dict, identity: str, object_type: str,
+                     object_id: int, session_key: Optional[str],
+                     produce: Callable[[], Awaitable[bytes]],
+                     mtime: Optional[float] = None) -> Answer:
+        """The header layer around one render: ETag, Cache-Control and
+        Vary from ``identity`` (and ``Last-Modified`` from ``mtime``);
+        the 304 or headers-only answer (:func:`conditional_answer`) for a
+        caller that may read the object; else ``produce()``'s body, an
+        unreadable object getting its 404 there."""
+        etag = await self.cache_headers(out, identity, object_type,
+                                        object_id)
+        if mtime is not None:
+            out["Last-Modified"] = httpcache.http_date(mtime)
+        status = conditional_answer(headers, method, etag, mtime)
+        if status is not None and await self.can_read(
+                object_type, object_id, session_key):
+            if status == 304:
+                telemetry.HTTPCACHE.count_not_modified()
+            else:
+                telemetry.HTTPCACHE.count_head()
+            return Answer(status, out)
+        try:
+            body = await produce()
+        except Exception as e:
+            return self.status_of(e)
+        return Answer(200, out, body)
+
+    def _session(self, cookies: Mapping[str, str]):
+        """(session key, None), or (None, the 403) when a session is
+        required and there is none."""
+        session = self.session_key(cookies)
+        if session is None and self.session_required:
+            return None, Answer(403)
+        return session, None
+
     async def render(self, method: str, params: dict,
                      headers: Mapping[str, str],
                      cookies: Mapping[str, str]) -> Answer:
         """One ``render_image_region`` / ``render_image`` request."""
-        session = self.session_key(cookies)
-        if session is None and self.session_required:
-            return Answer(403)
+        session, refused = self._session(cookies)
+        if refused is not None:
+            return refused
         try:
             ctx = ImageRegionCtx.from_params(params, session)
         except BadRequestError as e:
             return self.status_of(e)
         out = {"Content-Type": codecs.CONTENT_TYPES.get(
             ctx.format, "application/octet-stream")}
-        etag = await self.cache_headers(out, ctx)
         mtime = httpcache.last_modified_basis(
             await self.source_mtime(ctx.image_id),
             self.config.http_cache.epoch)
-        if mtime is not None:
-            out["Last-Modified"] = httpcache.http_date(mtime)
-        status = conditional_answer(headers, method, etag, mtime)
-        if status is not None:
-            try:
-                readable = await self.handler.can_read(ctx.image_id,
-                                                       ctx.omero_session_key)
-            except Exception:
-                readable = False
-            if readable:
-                if status == 304:
-                    telemetry.HTTPCACHE.count_not_modified()
-                else:
-                    telemetry.HTTPCACHE.count_head()
-                return Answer(status, out)
+        return await self.answer(
+            method, headers, out, ctx.cache_key, "Image", ctx.image_id,
+            ctx.omero_session_key,
+            lambda: self.handler.render_image_region(ctx), mtime)
+
+    async def render_mask(self, method: str, params: dict,
+                          headers: Mapping[str, str],
+                          cookies: Mapping[str, str]) -> Answer:
+        """One ``render_shape_mask`` request.  The ETag identity is the
+        reference's mask cache key with the flips folded in (they change
+        the bytes); a mask has no ``Last-Modified``."""
+        session, refused = self._session(cookies)
+        if refused is not None:
+            return refused
         try:
-            body = await self.handler.render_image_region(ctx)
-        except Exception as e:
+            ctx = ShapeMaskCtx.from_params(params, session)
+        except BadRequestError as e:
             return self.status_of(e)
-        return Answer(200, out, body)
+        identity = (f"{ctx.cache_key()}:f{int(ctx.flip_horizontal)}"
+                    f"{int(ctx.flip_vertical)}")
+        return await self.answer(
+            method, headers, {"Content-Type": "image/png"}, identity,
+            "Mask", ctx.shape_id, ctx.omero_session_key,
+            lambda: self.mask_handler.render_shape_mask(ctx))
+
+    async def render_overlay(self, method: str, params: dict,
+                             headers: Mapping[str, str],
+                             cookies: Mapping[str, str]) -> Answer:
+        """One ``render_overlay`` request: ``shapes=<id,id,...>`` (request
+        order is paint order), ``color=`` overrides the fills, the base
+        is forced to PNG.  The ETag identity folds the base's cache key
+        with the shapes and the colour."""
+        if not self.config.workloads.overlay_enabled:
+            return Answer(404)
+        params = dict(params)
+        shapes_raw = params.pop("shapes", "")
+        color = params.pop("color", None)
+        params["format"] = "png"
+        try:
+            shape_ids = [int(v) for v in shapes_raw.split(",") if v]
+        except ValueError:
+            return self.status_of(BadRequestError(
+                f"Incorrect format for shapes '{shapes_raw}'"))
+        if not shape_ids:
+            return self.status_of(BadRequestError(
+                "overlay needs ?shapes=<id,id,...>"))
+        session, refused = self._session(cookies)
+        if refused is not None:
+            return refused
+        try:
+            ctx = ImageRegionCtx.from_params(params, session)
+        except BadRequestError as e:
+            return self.status_of(e)
+        identity = (f"{ctx.cache_key}:ov:"
+                    + ",".join(str(v) for v in shape_ids)
+                    + f":{color or ''}")
+        return await self.answer(
+            method, headers, {"Content-Type": "image/png"}, identity,
+            "Image", ctx.image_id, ctx.omero_session_key,
+            lambda: self.workloads.render_overlay(ctx, shape_ids,
+                                                  color=color))
+
+    async def render_animation(self, method: str, params: dict,
+                               headers: Mapping[str, str],
+                               cookies: Mapping[str, str]) -> Answer:
+        """One ``render_animation`` request: ``axis=z|t`` (default t) and
+        ``frames=N`` (default 2) frames from the URL's theZ or theT, each
+        a request of the plain route with that coordinate.  The first
+        frame is awaited before the headers, so a failure before the body
+        keeps its status; the rest follow as :attr:`Answer.stream`.  Never
+        edge-cached."""
+        if not self.config.workloads.animation_enabled:
+            return Answer(404)
+        params = dict(params)
+        axis = (params.pop("axis", "t") or "t").lower()
+        if axis not in ("z", "t"):
+            return self.status_of(BadRequestError(
+                f"Incorrect format for axis '{axis}'"))
+        frames_raw = params.pop("frames", "2")
+        try:
+            n_frames = int(frames_raw)
+        except ValueError:
+            return self.status_of(BadRequestError(
+                f"Incorrect format for frames '{frames_raw}'"))
+        if n_frames < 1:
+            return self.status_of(BadRequestError("frames must be >= 1"))
+        axis_key = "theZ" if axis == "z" else "theT"
+        session, refused = self._session(cookies)
+        if refused is not None:
+            return refused
+        start = int(params.get(axis_key) or 0)
+        try:
+            frame_ctxs = [ImageRegionCtx.from_params(
+                dict(params, **{axis_key: str(start + i)}), session)
+                for i in range(n_frames)]
+        except BadRequestError as e:
+            return self.status_of(e)
+        out = {"Content-Type": ANIMATION_CONTENT_TYPE,
+               "Cache-Control": "no-store"}
+        frames = self.workloads.render_animation_stream(frame_ctxs)
+        try:
+            first = await frames.__anext__()
+        except StopAsyncIteration:
+            first = b""
+        except Exception as e:
+            await frames.aclose()
+            return self.status_of(e)
+
+        async def stream() -> AsyncIterator[bytes]:
+            try:
+                if first:
+                    yield first
+                async for record in frames:
+                    yield record
+            finally:
+                await frames.aclose()
+        return Answer(200, out, stream=stream())
+
+    def _route(self, route: str):
+        return {"render_shape_mask": self.render_mask,
+                "render_overlay": self.render_overlay,
+                "render_animation": self.render_animation}.get(
+                    route, self.render)
 
     async def observed(self, route: str, method: str, params: dict,
                        headers: Mapping[str, str],
-                       cookies: Mapping[str, str]) -> Answer:
-        """:meth:`render` in a request trace and its deadline scope; its
-        duration and status feed the request series.  A cancelled request
-        (the client went away) is counted as 499."""
+                       cookies: Mapping[str, str],
+                       send: Optional[Callable[[Answer], Awaitable[None]]]
+                       = None) -> Answer:
+        """The route's request in a request trace and its deadline scope;
+        its duration and status feed the request series.  A streamed
+        answer is handed to ``send`` inside the scope (which writes it),
+        or, with no ``send``, read into :attr:`Answer.body`.  A cancelled
+        request (the client went away) is counted as 499."""
         trace_id = telemetry.new_trace_id()
         t0 = time.perf_counter()
         try:
             with telemetry.trace_scope(trace_id, route), deadline_scope(
                     self.config.fault_tolerance.request_deadline_ms):
-                answer = await self.render(method, params, headers, cookies)
+                answer = await self._route(route)(method, params, headers,
+                                                  cookies)
+                if answer.stream is not None:
+                    if send is not None:
+                        await send(answer)
+                    else:
+                        answer.body = b"".join(
+                            [chunk async for chunk in answer.stream])
+                        answer.stream = None
         except BaseException:
             telemetry.TRACES.finish(trace_id)
             telemetry.count_request(route, 499)
@@ -382,15 +567,35 @@ def create_app(config: Optional[AppConfig] = None,
                             body=answer.body or None)
 
     def route_handler(route: str):
-        async def serve(request: web.Request) -> web.Response:
+        async def serve(request: web.Request) -> web.StreamResponse:
             params = dict(request.query)
             params.update(request.match_info)
             # The tail never reaches the params: /7/0/0 and /7/0/0/ share
             # a cache key and an ETag.
             params.pop("tail", None)
-            return to_response(await front.observed(
+            streamed: list = []
+
+            async def send(answer: Answer) -> None:
+                """Write a streamed answer chunk by chunk; a client that
+                leaves closes the stream, which cancels the frames still
+                queued."""
+                resp = web.StreamResponse(status=answer.status,
+                                          headers=answer.headers)
+                streamed.append(resp)
+                try:
+                    await resp.prepare(request)
+                    async for chunk in answer.stream:
+                        await resp.write(chunk)
+                    await resp.write_eof()
+                except ConnectionResetError:
+                    log.debug("%s client disconnected mid-stream", route)
+                finally:
+                    await answer.stream.aclose()
+
+            answer = await front.observed(
                 route, request.method, params, request.headers,
-                request.cookies))
+                request.cookies, send)
+            return streamed[0] if streamed else to_response(answer)
         return serve
 
     async def metrics(request: web.Request) -> web.Response:
@@ -434,6 +639,17 @@ def create_app(config: Optional[AppConfig] = None,
             serve = route_handler(route)
             app.router.add_get(base, serve)          # GET and HEAD
             app.router.add_get(base + "/{tail:.*}", serve)
+    mask = route_handler("render_shape_mask")
+    app.router.add_get("/webgateway/render_shape_mask/{shapeId}", mask)
+    app.router.add_get("/webgateway/render_shape_mask/{shapeId}/{tail:.*}",
+                       mask)
+    # Registered whatever the config: a disabled route answers 404 from
+    # its handler, as in the JAX app.
+    for route in ("render_overlay", "render_animation"):
+        base = f"/webgateway/{route}/{{imageId}}/{{theZ}}/{{theT}}"
+        serve = route_handler(route)
+        app.router.add_get(base, serve)
+        app.router.add_get(base + "/{tail:.*}", serve)
     app.router.add_get("/metrics", metrics)
     app.router.add_get("/healthz", healthz)
     app.router.add_route("OPTIONS", "/{tail:.*}", details)

@@ -49,9 +49,14 @@ the duration history, so one wedge does not stretch the p99.  An injected
 freeze or device error (``utils.faultinject``) fires in the group's
 worker thread before any launch.
 
-Left out (ROADMAP Queue 1): the mask lane (K8), the executable cache,
-shape-cost telemetry, and the lane cap and backlog split that the JAX
-pressure governor drives.
+The mask lane (:meth:`BatchingRenderer.rasterize_mask`): a packed mask
+queues under ``("mask", width, height, flip_h, flip_v)``, so same-shape,
+same-flip masks group into one K8a launch on a lane's stream
+(``Renderer.rasterizeMask.batch``); the grids come back to the host for
+the PNG tail.
+
+Left out (ROADMAP Queue 1): the executable cache, shape-cost telemetry,
+and the lane cap and backlog split that the JAX pressure governor drives.
 """
 
 from __future__ import annotations
@@ -71,6 +76,7 @@ import torch
 from ..io.staging import (HostPlanes, pin_scope, storage_dtype,
                           use_on_current_stream)
 from ..ops.jpegenc import pad_planes_to_mcu, render_batch_to_jpeg
+from ..ops.maskops import rasterize_packed_batch
 from ..ops.render import render_tile_batch_packed, resolve_device
 from ..utils import faultinject, telemetry, transient
 from ..utils.stopwatch import REGISTRY, stopwatch
@@ -140,6 +146,8 @@ class _LiveGroup:
 
 
 def _key_label(key: tuple) -> str:
+    if key and key[0] == "mask":
+        return "mask:" + "x".join(str(v) for v in key[1:3])
     return "/".join(str(k) for k in key)
 
 
@@ -339,6 +347,19 @@ class BatchingRenderer:
             raw, settings, height, width, bucket, flip_horizontal,
             flip_vertical, quality))
 
+    async def rasterize_mask(self, packed: np.ndarray, width: int,
+                             height: int, flip_horizontal: bool,
+                             flip_vertical: bool) -> np.ndarray:
+        """u8[nbytes] packed mask bits -> u8[height, width] 0/1 grid,
+        byte-identical to the host ``ops.maskops`` unpack and flip.
+        ``packed`` must be ``maskops.pack_mask_payload``'s exact
+        ``packed_nbytes``, so the members of a group stack."""
+        key = ("mask", width, height, bool(flip_horizontal),
+               bool(flip_vertical))
+        return await self._enqueue(key, _Pending(
+            packed, {}, height, width, (height, width),
+            bool(flip_horizontal), bool(flip_vertical)))
+
     def _bind(self, loop: asyncio.AbstractEventLoop) -> None:
         """Serve ``loop``, dropping the state of a closed one (its tasks
         and events can never run again)."""
@@ -444,8 +465,12 @@ class BatchingRenderer:
                 slots.release()
                 continue
             self._record_queue_waits(group, t_pop)
-            render = (self._render_group_jpeg if key[0] == "jpeg"
-                      else self._render_group)
+            if key[0] == "jpeg":
+                render = self._render_group_jpeg
+            elif key[0] == "mask":
+                render = self._render_group_mask
+            else:
+                render = self._render_group
             task = asyncio.create_task(
                 self._run_group(render, group, slots, key))
             self._inflight.add(task)
@@ -640,3 +665,21 @@ class BatchingRenderer:
                 on_tile=self._early_settle_cb(group))
         self._count_batch(len(group))
         return jpegs
+
+    def _render_group_mask(self, group: List[_Pending]) -> List[np.ndarray]:
+        """One K8a launch for a (shape, flips) mask group: the payloads
+        stacked into one pinned buffer, copied and rasterized on the
+        lane's stream, the grids copied back."""
+        _, width, height, flip_h, flip_v = self._mask_key_of(group)
+        packed = np.stack([p.raw for p in group])
+        with self._lane(), stopwatch("Renderer.rasterizeMask.batch"):
+            grids = rasterize_packed_batch(packed, width, height, flip_h,
+                                           flip_v, self.device)
+        self._count_batch(len(group))
+        return [grids[i] for i in range(len(group))]
+
+    @staticmethod
+    def _mask_key_of(group: List[_Pending]) -> tuple:
+        """The group key of a mask group, from its first member."""
+        p = group[0]
+        return ("mask", p.w, p.h, p.flip_h, p.flip_v)

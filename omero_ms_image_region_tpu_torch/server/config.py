@@ -17,11 +17,15 @@ served settings the same values and the same validation:
 * ``batcher``, ``raw-cache``, ``renderer``, ``http-cache``, ``watchdog``,
   ``fault-tolerance`` and ``fault-injection``, except the keys that belong
   to a part not ported (the sidecar's breaker and retries, batch growth,
-  XLA's compile cache, ...).
+  XLA's compile cache, ...);
+* ``workloads``: ``device-masks`` (masks rasterized in the batcher's mask
+  lane on the card; off: on the host), ``overlay-enabled`` and
+  ``animation-enabled`` (off: the route answers 404, as the JAX handler
+  does) and ``animation-max-frames``.
 
 One default differs on purpose: ``raw-cache.digest-dedup`` is off unless
 the file sets it.  The dedup cost a cold GET 19-20 ms on the H100 and saved
-no copy (PERF.md, ROADMAP Queue 1 item 15).
+no copy (PERF.md, ROADMAP Queue 1 item 13).
 
 Everything else is read and checked against the JAX default.  A section
 that is switched off (``enabled: false``) is inert.  A boolean set from
@@ -36,7 +40,7 @@ same status and body without them, at a render's cost.  They load, are
 listed in ``AppConfig.unserved`` and logged as such at startup (ROADMAP
 Queue 1 item 3).  Settings the JAX package turns on by default and the
 port does not have (``wire.streaming``, ``raw-cache.prefetch``, the
-sentinel, the workloads routes, ...) wait in ROADMAP Queue 1.
+sentinel, the pyramid job, ...) wait in ROADMAP Queue 1.
 """
 
 from __future__ import annotations
@@ -114,6 +118,16 @@ class FaultToleranceConfig:
 
 
 @dataclass
+class WorkloadsConfig:
+    """The mask lane and the overlay and animation routes."""
+
+    device_masks: bool = True
+    overlay_enabled: bool = True
+    animation_enabled: bool = True
+    animation_max_frames: int = 64
+
+
+@dataclass
 class LoggingConfig:
     level: str = "INFO"
     file: Optional[str] = None           # a time-rolling file appender
@@ -167,10 +181,6 @@ _UNPORTED = {
         "bulk-fraction": 0.02, "mask-fraction": 0.0,
         "pyramid-fraction": 0.0, "animation-fraction": 0.0,
         "zoom-fraction": 0.05, "skew": 0.0, "image-population": 1,
-    },
-    "workloads": {
-        "device-masks": True, "overlay-enabled": True,
-        "animation-enabled": True, "animation-max-frames": 64,
     },
     "pyramid": {
         "enabled": True, "chunk": 256, "min-level-size": 256,
@@ -317,6 +327,7 @@ class AppConfig:
     fault_injection: FaultInjectionConfig = field(
         default_factory=FaultInjectionConfig)
     logging: LoggingConfig = field(default_factory=LoggingConfig)
+    workloads: WorkloadsConfig = field(default_factory=WorkloadsConfig)
     # Sections switched on that the port loads but does not serve.
     unserved: Tuple[str, ...] = ()
 
@@ -403,6 +414,7 @@ class AppConfig:
         cfg._fault_tolerance(_block(raw, "fault-tolerance"))
         cfg._fault_injection(_block(raw, "fault-injection"))
         cfg._renderer(_block(raw, "renderer"))
+        cfg._workloads(_block(raw, "workloads"))
         return cfg
 
     def _http_cache(self, hc: dict) -> None:
@@ -489,6 +501,22 @@ class AppConfig:
             freeze_rate=float(fi.get("freeze-rate", d.freeze_rate)),
             freeze_ms=float(fi.get("freeze-ms", d.freeze_ms)),
             freeze_max=int(fi.get("freeze-max", d.freeze_max))).validate()
+
+    def _workloads(self, wl: dict) -> None:
+        _check("workloads", wl, {},
+               served=("device-masks", "overlay-enabled",
+                       "animation-enabled", "animation-max-frames"))
+        d = WorkloadsConfig()
+        self.workloads = WorkloadsConfig(
+            device_masks=bool(wl.get("device-masks", d.device_masks)),
+            overlay_enabled=bool(wl.get("overlay-enabled",
+                                        d.overlay_enabled)),
+            animation_enabled=bool(wl.get("animation-enabled",
+                                          d.animation_enabled)),
+            animation_max_frames=int(wl.get("animation-max-frames",
+                                            d.animation_max_frames)))
+        if self.workloads.animation_max_frames < 1:
+            raise ValueError("workloads.animation-max-frames must be >= 1")
 
     def _renderer(self, rd: dict) -> None:
         _check("renderer", rd, _UNPORTED_KEYS["renderer"],

@@ -1,13 +1,14 @@
-"""Request context: URL-parameter parsing, validation, cache key.
+"""Request contexts: URL-parameter parsing, validation, cache keys.
 
-Re-expression of ``ImageRegionCtx.java:122-402``.  The context is a plain
-dataclass (JSON-serializable — the analogue of the reference's Jackson
-round-trip over the event bus, which its tests lock down; SURVEY.md
-section 4).
+Re-expression of ``ImageRegionCtx.java:122-402`` and ``ShapeMaskCtx.java``.
+Contexts are plain dataclasses (JSON-serializable — the analogue of the
+reference's Jackson round-trip over the event bus, which its tests lock
+down; SURVEY.md section 4).
 
-The cache key intentionally reproduces the reference's exact byte format —
+Cache keys intentionally reproduce the reference's exact byte format —
 ``<java class name>:k=v...`` hashed with Guava-seeded SipHash-2-4
-(``ImageRegionCtx.java:165-177``) — so a deployment can share a warm
+(``ImageRegionCtx.java:165-177``) and ``ome.model.roi.Mask:<id>:<color>``
+(``ShapeMaskCtx.java:35-36,77-81``) — so a deployment can share a warm
 Redis cache with the Java service it replaces.
 """
 
@@ -24,6 +25,7 @@ from .region import RegionDef
 
 # Exact strings used by the reference for cache-key derivation.
 _IMAGE_CTX_CLASS = "com.glencoesoftware.omero.ms.image.region.ImageRegionCtx"
+_MASK_CLASS = "ome.model.roi.Mask"
 
 
 def _require(params: Mapping[str, str], key: str) -> str:
@@ -215,3 +217,34 @@ class ImageRegionCtx:
         for key in sorted(set(params.keys())):
             pieces.append(f":{key}={params[key]}")
         return guava_siphash24_hex("".join(pieces))
+
+
+@dataclass
+class ShapeMaskCtx:
+    """Parsed ``render_shape_mask`` request (= ShapeMaskCtx.java)."""
+
+    shape_id: int = 0
+    color: Optional[str] = None
+    flip_horizontal: bool = False
+    flip_vertical: bool = False
+    omero_session_key: Optional[str] = None
+
+    @classmethod
+    def from_params(cls, params: Mapping[str, str],
+                    omero_session_key: Optional[str] = None
+                    ) -> "ShapeMaskCtx":
+        ctx = cls(omero_session_key=omero_session_key)
+        ctx.shape_id = _parse_int(_require(params, "shapeId"),
+                                  "shapeId parameter")
+        ctx.color = params.get("color")
+        flip = (params.get("flip") or "").lower()
+        ctx.flip_horizontal = "h" in flip
+        ctx.flip_vertical = "v" in flip
+        return ctx
+
+    def cache_key(self) -> str:
+        """``ome.model.roi.Mask:<id>:<color>`` (= CACHE_KEY_FORMAT,
+        ``ShapeMaskCtx.java:35-36,77-81``), color ``null`` when unset as
+        Java formats it."""
+        color = "null" if self.color is None else self.color
+        return f"{_MASK_CLASS}:{self.shape_id}:{color}"

@@ -1,11 +1,13 @@
 """Request orchestration: parsed ctx -> encoded image bytes.
 
 The analogue of ``ImageRegionRequestHandler.java`` (metadata fetch
-``:316-427``, region pipeline ``:429-604``) and of the JAX package's
-``server/handler.py`` (``render_image_region`` ``:332-458``,
-``_get_region`` ``:509-624``) with the device part behind a renderer: the
-batching renderer (``server.batcher``) in the default app, or the direct
-:class:`Renderer`.  The pipeline, in order:
+``:316-427``, region pipeline ``:429-604``), ``ShapeMaskRequestHandler
+.java`` and of the JAX package's ``server/handler.py``
+(``render_image_region`` ``:332-458``, ``_get_region`` ``:509-624``,
+``_project`` ``:751-831``, ``ShapeMaskHandler`` ``:839-945``,
+``WorkloadsHandler`` ``:953-1088``) with the device part behind a
+renderer: the batching renderer (``server.batcher``) in the default app,
+or the direct :class:`Renderer`.  The image pipeline, in order:
 
   ACL (per caller) -> single-flight (concurrent identical requests share
   one run) -> z/t/resolution bounds -> region -> settings
@@ -33,8 +35,28 @@ are timed under the JAX package's span names (``utils.stopwatch``):
 ``encodeImage`` (PIL); a follower's await is a ``dedup.coalesced`` span on
 its trace.
 
-Not here yet: the byte cache and the prefetcher; a projection request
-(``p=``) is refused with a 400.
+A projection (``p=intmax|intmean|intsum``) renders the whole projected
+plane at full resolution, as the reference does (``:506-558``): each
+active channel's Z window is folded on the host (the JAX handler's
+``placement="host"``; a plane above 64 MiB of uint16 in row bands), the
+f32 plane goes to the card through a pinned buffer and into the device
+raw cache under ``("proj", image, t, c, alg, start, end)`` when it takes
+at most an eighth of the cache, and the f32 planes feed the render and
+JPEG kernels on the card.  A projected JPEG always takes the device route
+(the JAX handler's tiny-region path excludes projections).
+
+:class:`ShapeMaskHandler` serves ``render_shape_mask``: the mask's ACL,
+the stored mask, the colour override, the grid (the batcher's mask lane
+and K8a in the default app; the host rasterizer for a renderer without
+the lane or with ``device_masks`` off) and the palette PNG, the same bytes
+either way.  :class:`WorkloadsHandler` composes the image and mask
+pipelines: ``render_overlay`` (the base region as PNG, each shape's grid
+by K8a and blend by K8b in request order) and ``render_animation`` (a z or
+t strip, every frame started at once so the batcher groups them,
+``FRME`` records in order).
+
+Not here yet: the byte caches (the shape-mask tier included) and the
+prefetcher.
 """
 
 from __future__ import annotations
@@ -50,16 +72,20 @@ import torch
 from .. import codecs
 from ..io.devicecache import region_key
 from ..io.staging import HostPlanes, stage
-from ..models.pixels import Pixels
+from ..models.pixels import Pixels, pixels_type_range
 from ..models.rendering import default_rendering_def, restrict_to_active
 from ..ops import jpegenc
+from ..ops import projection as projection_ops
 from ..ops.flip import flip_image
+from ..ops.maskops import (overlay_tensor, pack_mask_payload,
+                           rasterize_mask, rasterize_tensor)
 from ..ops.render import (batched_settings, pack_settings,
                           render_tile_batch_packed, resolve_device,
                           settings_to_tensors, unpack_rgba)
 from ..utils import telemetry, transient
+from ..utils.color import split_html_color
 from ..utils.stopwatch import stopwatch
-from .ctx import ImageRegionCtx
+from .ctx import ImageRegionCtx, ShapeMaskCtx
 from .errors import BadRequestError, NotFoundError
 from .region import RegionDef, clamp_region_to_plane, get_region_def
 from .settings import render_identity_key, update_settings
@@ -69,6 +95,11 @@ DEFAULT_MAX_TILE_LENGTH = 2048  # beanRefContext.xml:63-66
 # encoded with PIL, the bytes of the JAX handler's tiny-region path (its
 # cpu_fallback_max_px default); larger ones take the device JPEG route.
 JPEG_HOST_MAX_PX = 256 * 256
+# Projection banding: planes whose uint16 storage exceeds the threshold
+# project in row bands (project_region_banded), so peak host memory is a
+# chunk; each band targets about _PROJECTION_BAND_BYTES of f32 rows.
+_PROJECTION_BAND_THRESHOLD_BYTES = 64 * 1024 * 1024
+_PROJECTION_BAND_BYTES = 32 * 1024 * 1024
 
 
 class Renderer:
@@ -90,10 +121,18 @@ class Renderer:
         return await asyncio.to_thread(self.render_sync, raw, settings,
                                        flip_horizontal, flip_vertical)
 
+    def _on_device(self, raw: Union[np.ndarray, torch.Tensor]
+                   ) -> torch.Tensor:
+        """[1, C, h, w] on the device: host planes staged through a pinned
+        buffer, device planes (a projection) as they are."""
+        if isinstance(raw, torch.Tensor):
+            return raw.to(self.device)[None]
+        return stage(raw, self.device)[None]
+
     def render_sync(self, raw: np.ndarray, settings: dict,
                     flip_horizontal: bool = False,
                     flip_vertical: bool = False) -> np.ndarray:
-        raw_t = stage(raw, self.device)[None]
+        raw_t = self._on_device(raw)
         tensors = settings_to_tensors(settings, self.device)
         packed = render_tile_batch_packed(raw_t, *batched_settings(tensors))
         packed = flip_image(packed[0], flip_horizontal, flip_vertical)
@@ -118,7 +157,7 @@ class Renderer:
         ceil-16 frame with the flips and the edge replication folded into
         its reads (K3), the sparse wire and its compaction (K4a, K4b);
         the compacted wire's used bytes back; the native entropy coder."""
-        raw_t = stage(raw, self.device)[None]
+        raw_t = self._on_device(raw)
         tensors = settings_to_tensors(settings, self.device)
         packed = render_tile_batch_packed(raw_t, *batched_settings(tensors))
         h, w = packed.shape[-2:]
@@ -246,10 +285,6 @@ class ImageRegionHandler:
         if ctx.t < 0 or ctx.t >= pixels.size_t:
             raise BadRequestError(
                 f"Parameter 'theT' not within bounds: {ctx.t}")
-        if ctx.projection is not None:
-            # Refused rather than rendered as a single plane.
-            raise BadRequestError("Projection (p=) is not served yet")
-
         with stopwatch("PixelsService.getPixelBuffer"):
             src = await asyncio.to_thread(
                 self.s.pixels_service.get_pixel_source, ctx.image_id)
@@ -284,16 +319,23 @@ class ImageRegionHandler:
     async def _get_region(self, ctx: ImageRegionCtx,
                           pixels: Pixels) -> bytes:
         plan = await self._plan(ctx, pixels)
-        raw = None
-        cache = self.s.raw_cache
-        if cache is not None:
-            # A hit is a dict lookup: no thread hop.
-            raw = cache.get(self._region_key(ctx, plan))
-        if raw is None:
-            raw = await asyncio.to_thread(self._load, plan, ctx)
-        h, w = plan.region.height, plan.region.width
+        if ctx.projection is not None:
+            raw = await self._project(ctx, pixels, plan)
+            h, w = pixels.size_y, pixels.size_x
+            device_jpeg = ctx.format == "jpeg"
+        else:
+            raw = None
+            cache = self.s.raw_cache
+            if cache is not None:
+                # A hit is a dict lookup: no thread hop.
+                raw = cache.get(self._region_key(ctx, plan))
+            if raw is None:
+                raw = await asyncio.to_thread(self._load, plan, ctx)
+            h, w = plan.region.height, plan.region.width
+            device_jpeg = (ctx.format == "jpeg"
+                           and h * w > self.s.jpeg_host_max_px)
         renderer = self.s.renderer
-        if ctx.format == "jpeg" and h * w > self.s.jpeg_host_max_px:
+        if device_jpeg:
             quality = codecs.quality_percent(ctx.compression_quality)
             with stopwatch("Renderer.renderAsPackedInt"):
                 return await renderer.render_jpeg(
@@ -305,6 +347,71 @@ class ImageRegionHandler:
                                            ctx.flip_vertical)
         return await asyncio.to_thread(
             lambda: self.encode(unpack_rgba(packed), ctx))
+
+    async def _project(self, ctx: ImageRegionCtx, pixels: Pixels,
+                       plan: _Plan) -> torch.Tensor:
+        """The Z-projection branch (``:506-558``): each active channel's
+        projected full plane, f32 [C_active, H, W] on the card.
+
+        Planes stream through ``ops.projection.project_planes`` (only the
+        Z window's planes are read, one at a time) or, for a plane above
+        ``_PROJECTION_BAND_THRESHOLD_BYTES`` of uint16,
+        ``project_region_banded``; both fold on the host, as the JAX
+        handler does.  A projected plane that takes at most an eighth of
+        the raw cache is cached there, so one whole-slide plane cannot
+        flush the tiles of a pan."""
+        start = ctx.projection_start or 0
+        end = (ctx.projection_end if ctx.projection_end is not None
+               else pixels.size_z - 1)
+        projection_ops.check_projection_bounds(
+            start, end, 1, plan.active[0], ctx.t,
+            pixels.size_z, pixels.size_c, pixels.size_t)
+        type_max = pixels_type_range(pixels.pixels_type)[1]
+        full = RegionDef(0, 0, pixels.size_x, pixels.size_y)
+        src, device = plan.src, self.s.renderer.device
+
+        def project_one(c: int) -> torch.Tensor:
+            with stopwatch("ProjectionService.projectStack"):
+                if (pixels.size_x * pixels.size_y * 2
+                        > _PROJECTION_BAND_THRESHOLD_BYTES):
+                    band = max(64, _PROJECTION_BAND_BYTES
+                               // max(pixels.size_x * 4, 1))
+                    return projection_ops.project_region_banded(
+                        lambda z, y0, h: src.get_region(
+                            z, c, ctx.t,
+                            RegionDef(0, y0, pixels.size_x, h), 0),
+                        ctx.projection, pixels.size_z, start, end, 1,
+                        type_max,
+                        plane_shape=(pixels.size_y, pixels.size_x),
+                        band_rows=band, placement="host", device=device)
+                return projection_ops.project_planes(
+                    lambda z: src.get_region(z, c, ctx.t, full, 0),
+                    ctx.projection, pixels.size_z, start, end, 1,
+                    type_max, shape=(pixels.size_y, pixels.size_x),
+                    placement="host", device=device)
+
+        cache = self.s.raw_cache
+        plane_bytes = pixels.size_x * pixels.size_y * 4
+        cacheable = (cache is not None
+                     and plane_bytes <= cache.max_bytes // 8)
+
+        def run() -> torch.Tensor:
+            out = []
+            for c in plan.active:
+                if cacheable:
+                    key = ("proj", ctx.image_id, ctx.t, c,
+                           int(ctx.projection), start, end)
+                    out.append(cache.get_or_load(
+                        key, lambda c=c: project_one(c)))
+                else:
+                    out.append(project_one(c))
+            planes = torch.stack(out)
+            if planes.is_cuda:
+                # Read next on a lane's stream.
+                torch.cuda.current_stream(planes.device).synchronize()
+            return planes
+
+        return await asyncio.to_thread(run)
 
     @staticmethod
     def _region_key(ctx: ImageRegionCtx, plan: _Plan) -> tuple:
@@ -360,3 +467,206 @@ class ImageRegionHandler:
                                           ctx.compression_quality)
         except codecs.UnknownFormatError as e:
             raise NotFoundError(str(e))
+
+
+class ShapeMaskHandler:
+    """The mask pipeline (``ShapeMaskVerticle.java:67-155`` and
+    ``ShapeMaskRequestHandler.java``).
+
+    With ``device_masks`` (the default) a renderer that has a mask lane
+    (``BatchingRenderer.rasterize_mask``) rasterizes there: same-shape
+    masks group into one K8a launch.  Its grid equals the host
+    rasterizer's bit for bit and the PNG tail is shared, so the bytes are
+    the same either way.  The host rasterizer serves a renderer without a
+    lane (the direct reference) and ``device_masks`` off.  Left out: the
+    JAX handler's shape-mask byte cache, off by default there
+    (``AppConfig.unserved`` names ``shape-mask-cache`` when a config
+    switches it on)."""
+
+    def __init__(self, services: ImageRegionServices,
+                 device_masks: bool = True):
+        self.s = services
+        self.device_masks = device_masks
+
+    async def can_read(self, shape_id: int,
+                       session_key: Optional[str]) -> bool:
+        """The read ACL of a mask for a caller."""
+        with stopwatch("canRead"):
+            return await self.s.metadata.can_read("Mask", shape_id,
+                                                  session_key)
+
+    async def render_shape_mask(self, ctx: ShapeMaskCtx) -> bytes:
+        if not await self.can_read(ctx.shape_id, ctx.omero_session_key):
+            raise NotFoundError(f"Cannot find Shape:{ctx.shape_id}")
+        with stopwatch("getMask"):
+            mask = await self.s.metadata.get_mask(ctx.shape_id,
+                                                  ctx.omero_session_key)
+        if mask is None:
+            raise NotFoundError(f"Cannot find Shape:{ctx.shape_id}")
+
+        color = None
+        if ctx.color is not None:
+            color = split_html_color(ctx.color)
+            if color is None:
+                raise BadRequestError(f"Invalid color '{ctx.color}'")
+
+        with stopwatch("renderShapeMask"):
+            rasterize = (getattr(self.s.renderer, "rasterize_mask", None)
+                         if self.device_masks else None)
+            if rasterize is not None:
+                png = await self._render_device(mask, color, ctx,
+                                                rasterize)
+                telemetry.WORKLOADS.count_request("mask_device")
+            else:
+                png = await asyncio.to_thread(self._render, mask, color,
+                                              ctx)
+                telemetry.WORKLOADS.count_request("mask_host")
+        return png
+
+    @staticmethod
+    def _render(mask, color, ctx: ShapeMaskCtx) -> bytes:
+        grid, palette = rasterize_mask(
+            mask, color, ctx.flip_horizontal, ctx.flip_vertical)
+        return codecs.encode_mask_png(grid, tuple(palette[1]))
+
+    @staticmethod
+    async def _render_device(mask, color, ctx: ShapeMaskCtx,
+                             rasterize) -> bytes:
+        """The payload checked and cut on the host (the host path's
+        checks), one awaited group launch for the grid, the same PNG
+        tail."""
+        fill = mask.resolved_fill_color(color)
+        packed = pack_mask_payload(mask.bytes_, mask.width, mask.height)
+        grid = await rasterize(packed, mask.width, mask.height,
+                               ctx.flip_horizontal, ctx.flip_vertical)
+        return await asyncio.to_thread(codecs.encode_mask_png, grid,
+                                       tuple(fill))
+
+
+# Animation wire framing: each frame leaves as a length-prefixed record, so
+# a scrubbing client can carve frame boundaries out of the stream.
+ANIMATION_FRAME_MAGIC = b"FRME"
+
+
+def frame_record(body: bytes) -> bytes:
+    """``FRME`` + u32be length + encoded frame bytes."""
+    return (ANIMATION_FRAME_MAGIC
+            + len(body).to_bytes(4, "big") + body)
+
+
+class WorkloadsHandler:
+    """The routes that compose the image and mask pipelines: overlay
+    composites and z/t animation strips.  It owns no pixels or caches:
+    it drives the same handlers the plain routes use, so every identity,
+    ACL and admission rule of those holds here too."""
+
+    def __init__(self, image_handler: ImageRegionHandler,
+                 mask_handler: ShapeMaskHandler, max_frames: int = 64):
+        self.image_handler = image_handler
+        self.mask_handler = mask_handler
+        self.s = image_handler.s
+        self.max_frames = max_frames
+
+    async def render_overlay(self, ctx: ImageRegionCtx,
+                             shape_ids: Sequence[int],
+                             color: Optional[str] = None) -> bytes:
+        """Region pixels and ROI masks composited on the card -> PNG.
+
+        ``ctx`` carries ``format="png"`` (the app forces it: the base must
+        be lossless).  Each mask must match the rendered region's size.
+        The base is rendered by the image handler and decoded; then for
+        each shape in request order its grid (K8a) and its blend over the
+        running composite (K8b), the exact ``ops.maskops
+        .overlay_masks_batch`` formula; the composite comes back once and
+        is encoded."""
+        if not shape_ids:
+            raise BadRequestError("overlay needs at least one shapeId")
+        fill_override = None
+        if color is not None:
+            fill_override = split_html_color(color)
+            if fill_override is None:
+                raise BadRequestError(f"Invalid color '{color}'")
+
+        masks = []
+        for sid in shape_ids:
+            if not await self.mask_handler.can_read(sid,
+                                                    ctx.omero_session_key):
+                raise NotFoundError(f"Cannot find Shape:{sid}")
+            with stopwatch("getMask"):
+                mask = await self.s.metadata.get_mask(
+                    sid, ctx.omero_session_key)
+            if mask is None:
+                raise NotFoundError(f"Cannot find Shape:{sid}")
+            masks.append(mask)
+
+        base_png = await self.image_handler.render_image_region(ctx)
+        base = await asyncio.to_thread(codecs.decode_to_rgba, base_png)
+        device = self.s.renderer.device
+
+        def composite() -> bytes:
+            out = stage(np.ascontiguousarray(base), device)
+            for mask in masks:
+                if (mask.height, mask.width) != base.shape[:2]:
+                    raise BadRequestError(
+                        f"Shape:{mask.shape_id} is "
+                        f"{mask.width}x{mask.height}, region is "
+                        f"{base.shape[1]}x{base.shape[0]}")
+                packed = pack_mask_payload(mask.bytes_, mask.width,
+                                           mask.height)
+                grid = rasterize_tensor(
+                    stage(packed[None], device), mask.width, mask.height,
+                    ctx.flip_horizontal, ctx.flip_vertical)
+                fill = stage(np.array(
+                    [mask.resolved_fill_color(fill_override)],
+                    dtype=np.uint8), device)
+                out = overlay_tensor(out[None], grid, fill)[0]
+            return codecs.encode_rgba(out.cpu().numpy(), "png")
+
+        with stopwatch("renderOverlay"):
+            body = await asyncio.to_thread(composite)
+        telemetry.WORKLOADS.count_request("overlay")
+        return body
+
+    async def render_animation_stream(self, frame_ctxs:
+                                      Sequence[ImageRegionCtx]):
+        """Async generator: a z/t frame range, length-prefixed frames
+        yielded in order.
+
+        Every frame's render starts at once, so the batcher's linger
+        groups the strip while the client reads frame 0.  Closing the
+        generator (a client that left, a deadline) cancels every frame not
+        yet settled: its queued device work is dropped at the dispatch
+        queue."""
+        if not frame_ctxs:
+            raise BadRequestError("animation needs at least one frame")
+        if len(frame_ctxs) > self.max_frames:
+            raise BadRequestError(
+                f"animation of {len(frame_ctxs)} frames exceeds the "
+                f"configured cap of {self.max_frames}")
+        t0 = time.perf_counter()
+        telemetry.WORKLOADS.count_stream()
+        tasks = [asyncio.ensure_future(
+            self.image_handler.render_image_region(fctx))
+            for fctx in frame_ctxs]
+        served = 0
+        try:
+            for task in tasks:
+                body = await task
+                if served == 0:
+                    telemetry.WORKLOADS.observe_first_frame_ms(
+                        (time.perf_counter() - t0) * 1000.0)
+                served += 1
+                telemetry.WORKLOADS.count_frames()
+                yield frame_record(body)
+        finally:
+            remaining = [t for t in tasks if not t.done()]
+            for t in remaining:
+                t.cancel()
+            for t in tasks[served + 1:]:
+                if t.done() and not t.cancelled():
+                    t.exception()       # retrieved: the stream failed first
+            if remaining:
+                telemetry.WORKLOADS.count_stream_cancelled()
+                # Settle the cancellations, so no "exception was never
+                # retrieved" outlives the stream.
+                await asyncio.gather(*remaining, return_exceptions=True)

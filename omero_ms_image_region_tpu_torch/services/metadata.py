@@ -15,6 +15,12 @@ public (the standalone dev posture).
 (``io.service``), so an image's stamp is the newer of its directory's and
 its ``meta.json``'s mtime; the JAX service also stamps NGFF and TIFF
 sources, which wait for the port's readers of those formats.
+
+Shape masks live under ``<data_dir>/masks/<shape_id>.json`` (width, height,
+fill colour) and ``.bin`` (the packed bits), the layout :func:`write_mask`
+writes and both packages read.  A mask's ACL is ``<shape_id>.acl.json``
+beside them, with the image's ``public`` / ``sessions`` keys; without one
+a mask is readable when it exists.
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ import threading
 import time
 from typing import Dict, Optional, Tuple
 
+from ..models.mask import Mask
 from ..models.pixels import Pixels
 
 
@@ -53,6 +60,9 @@ class LocalMetadataService:
 
     def _image_dir(self, image_id: int) -> str:
         return os.path.join(self.data_dir, str(image_id))
+
+    def _mask_base(self, shape_id: int) -> str:
+        return os.path.join(self.data_dir, "masks", str(shape_id))
 
     async def get_pixels_description(self, image_id: int,
                                      session_key: Optional[str]
@@ -109,9 +119,54 @@ class LocalMetadataService:
 
     async def can_read(self, object_type: str, object_id: int,
                        session_key: Optional[str]) -> bool:
-        if object_type != "Image":
-            return False
-        path = self._image_dir(object_id)
+        """The read ACL of an ``Image`` or a ``Mask`` for a caller."""
+        if object_type == "Image":
+            path = self._image_dir(object_id)
+        else:
+            path = self._mask_base(object_id)
+            acl = path + ".acl.json"
+            if os.path.exists(acl):
+                with open(acl) as f:
+                    a = json.load(f)
+                if a.get("public"):
+                    return True
+                return (session_key is not None
+                        and session_key in a.get("sessions", []))
+            return os.path.exists(path + ".json")
         if not os.path.exists(path):
             return False
         return _check_acl(path, session_key)
+
+    async def get_mask(self, shape_id: int,
+                       session_key: Optional[str]) -> Optional[Mask]:
+        """The stored mask, or None when there is none."""
+        base = self._mask_base(shape_id)
+        if not os.path.exists(base + ".json"):
+            return None
+        with open(base + ".json") as f:
+            m = json.load(f)
+        with open(base + ".bin", "rb") as f:
+            bits = f.read()
+        fill = m.get("fill_color")
+        return Mask(
+            shape_id=shape_id,
+            width=m["width"],
+            height=m["height"],
+            bytes_=bits,
+            fill_color=None if fill is None else tuple(fill),
+        )
+
+
+def write_mask(data_dir: str, mask: Mask) -> None:
+    """Persist a mask in the layout ``LocalMetadataService`` reads."""
+    os.makedirs(os.path.join(data_dir, "masks"), exist_ok=True)
+    base = os.path.join(data_dir, "masks", str(mask.shape_id))
+    with open(base + ".json", "w") as f:
+        json.dump({
+            "width": mask.width,
+            "height": mask.height,
+            "fill_color": (None if mask.fill_color is None
+                           else list(mask.fill_color)),
+        }, f)
+    with open(base + ".bin", "wb") as f:
+        f.write(mask.bytes_)

@@ -11,7 +11,8 @@ Counterpart of the request half of the JAX package's ``utils/telemetry.py``:
   package's bounds, so the two packages' series align bucket for bucket.
 * **Counters** of the front: sheds by reason and deadline cancellations
   (:class:`Resilience`), watchdog fires by action (:class:`WatchdogStats`),
-  conditional-HTTP answers (:class:`HttpCacheStats`).
+  conditional-HTTP answers (:class:`HttpCacheStats`), the mask, overlay
+  and animation routes (:class:`WorkloadStats`).
 * **The exposition**: :func:`request_metric_lines`, :func:`span_lines`
   (``utils.stopwatch``), :func:`resilience_metric_lines`,
   :func:`device_metric_lines`, joined by :func:`finalize_exposition`,
@@ -418,6 +419,70 @@ class HttpCacheStats:
 HTTPCACHE = HttpCacheStats()
 
 
+class WorkloadStats:
+    """The workload routes: requests by kind (a closed vocabulary:
+    ``mask_device`` / ``mask_host``, the rasterizer that served a mask,
+    ``overlay``, ``animation``), animation streams, frames and
+    cancellations, and the last stream's first-frame latency.  The JAX
+    class also counts pyramid jobs, which come with the pyramid job."""
+
+    REQUEST_KINDS = ("mask_device", "mask_host", "overlay", "animation")
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.requests: Dict[str, int] = {}
+        self.streams = 0
+        self.frames = 0
+        self.stream_cancels = 0
+        self.first_frame_ms: Optional[float] = None
+
+    def count_request(self, kind: str) -> None:
+        with self._lock:
+            self.requests[kind] = self.requests.get(kind, 0) + 1
+
+    def count_stream(self) -> None:
+        with self._lock:
+            self.streams += 1
+
+    def count_frames(self, n: int = 1) -> None:
+        with self._lock:
+            self.frames += n
+
+    def count_stream_cancelled(self) -> None:
+        with self._lock:
+            self.stream_cancels += 1
+
+    def observe_first_frame_ms(self, ms: float) -> None:
+        with self._lock:
+            self.first_frame_ms = ms
+
+    def metric_lines(self) -> List[str]:
+        with self._lock:
+            if not (self.requests or self.streams):
+                return []          # quiet until a workload request
+            lines = [f'imageregion_workload_requests_total{{kind="{k}"}} '
+                     f"{self.requests[k]}" for k in sorted(self.requests)]
+            lines += [
+                f"imageregion_animation_streams_total {self.streams}",
+                f"imageregion_animation_frames_total {self.frames}",
+                "imageregion_animation_cancelled_total "
+                f"{self.stream_cancels}",
+            ]
+            if self.first_frame_ms is not None:
+                lines.append("imageregion_animation_first_frame_ms "
+                             f"{_fmt(self.first_frame_ms)}")
+        return lines
+
+    def reset(self) -> None:
+        with self._lock:
+            self.requests.clear()
+            self.streams = self.frames = self.stream_cancels = 0
+            self.first_frame_ms = None
+
+
+WORKLOADS = WorkloadStats()
+
+
 # ------------------------------------------------------------ exposition
 
 METRIC_TYPES: Dict[str, str] = {
@@ -448,6 +513,11 @@ METRIC_TYPES: Dict[str, str] = {
     "imageregion_httpcache_ims_requests_total": "counter",
     "imageregion_httpcache_304_total": "counter",
     "imageregion_httpcache_head_total": "counter",
+    "imageregion_workload_requests_total": "counter",
+    "imageregion_animation_streams_total": "counter",
+    "imageregion_animation_frames_total": "counter",
+    "imageregion_animation_cancelled_total": "counter",
+    "imageregion_animation_first_frame_ms": "gauge",
 }
 
 METRIC_HELP: Dict[str, str] = {
@@ -463,6 +533,19 @@ METRIC_HELP: Dict[str, str] = {
         "HEAD requests answered headers-only without a render",
     "imageregion_httpcache_ims_requests_total":
         "If-Modified-Since-only revalidation arrivals (ETag absent)",
+    "imageregion_workload_requests_total":
+        "Device-workloads requests by kind (mask_device/mask_host = "
+        "which rasterizer served the mask; overlay; animation)",
+    "imageregion_animation_streams_total":
+        "z/t animation streams started",
+    "imageregion_animation_frames_total":
+        "Animation frames written to clients",
+    "imageregion_animation_cancelled_total":
+        "Animation streams cancelled mid-flight (client disconnect "
+        "or deadline) with remaining device work cancelled",
+    "imageregion_animation_first_frame_ms":
+        "Last animation stream's first-frame latency (the bounded "
+        "first-frame-out contract's live gauge)",
 }
 
 _HIST_SUFFIXES = ("_bucket", "_sum", "_count")
@@ -512,14 +595,15 @@ def request_metric_lines() -> List[str]:
 
 
 def resilience_metric_lines() -> List[str]:
-    """Sheds by reason, deadline cancellations and watchdog fires."""
+    """Sheds by reason, deadline cancellations, watchdog fires and the
+    workload routes' counters."""
     with RESILIENCE._lock:
         shed = sorted(RESILIENCE.shed.items())
         cancelled = RESILIENCE.deadline_cancelled
     lines = [f'imageregion_shed_total{{reason="{r}"}} {n}'
              for r, n in shed]
     lines.append(f"imageregion_deadline_cancelled_total {cancelled}")
-    return lines + WATCHDOG.metric_lines()
+    return lines + WATCHDOG.metric_lines() + WORKLOADS.metric_lines()
 
 
 def device_metric_lines(services) -> List[str]:
@@ -563,3 +647,4 @@ def reset() -> None:
     RESILIENCE.reset()
     WATCHDOG.reset()
     HTTPCACHE.reset()
+    WORKLOADS.reset()

@@ -137,10 +137,16 @@ def test_metrics_match_jax(data_dir):
     types = telemetry.METRIC_TYPES
     port_fams = _families(text, types)
     assert port_fams == _families(jax_text, types)
-    # Every ported family but the shed and watchdog counters, which
-    # this sequence never moves.
+    # Every ported family but the shed and watchdog counters and the
+    # workload routes' families, which this sequence never moves
+    # (tests/test_torch_workloads.py holds those to the JAX app's).
     assert {f for f, _ in port_fams} == set(types) - {
-        "imageregion_shed_total", "imageregion_watchdog_fires_total"}
+        "imageregion_shed_total", "imageregion_watchdog_fires_total",
+        "imageregion_workload_requests_total",
+        "imageregion_animation_streams_total",
+        "imageregion_animation_frames_total",
+        "imageregion_animation_cancelled_total",
+        "imageregion_animation_first_frame_ms"}
 
     def totals(t):
         return {k: v for k, v in _series(t).items()
