@@ -9,9 +9,9 @@ Phases (any failure ends the run with a non-zero exit and no result line):
            whether aiohttp and PIL import;
 2. build   the kernels from ``kernels/csrc/render.cu``,
            ``kernels/csrc/jpeg.cu`` and ``kernels/csrc/workloads.cu`` with
-           nvcc and the native JFIF coder ``native/jpegenc.cpp`` with g++,
-           all at once; print each kernel's ptxas register and
-           shared-memory lines;
+           nvcc and the native codecs (``native/jpegenc.cpp``,
+           ``jpegdec.cpp`` and ``tilecache.cpp``) with g++, all at once;
+           print each kernel's ptxas register and shared-memory lines;
 3. kernels each kernel against its plain PyTorch version at the flagship
            shape B=8, C=4, 1024x1024 uint16 (and at the served shape B=1):
            K1 render_ramp with linear settings (exact) and with all four
@@ -32,7 +32,12 @@ Phases (any failure ends the run with a non-zero exit and no result line):
            int8, int16, uint32 and float64 on a ragged 37x45 chunk), K8a
            mask_rasterize (B=8 1024^2 in four flips, 37x45, 1x9: W*H % 8
            != 0) and K8b mask_overlay (B=1 1024^2 and a 37x45 pair, grid
-           bytes 0-3, fill alpha 0, 128, 255), each byte for byte.
+           bytes 0-3, fill alpha 0, 128, 255), each byte for byte; and K9
+           mean2_int exactly (4 x 8192^2 uint16, the pyramid job's first
+           level step; 4 x 1024^2 uint16; 3 x 4096^2 uint8; int16 with
+           negatives; an odd 4097 x 8191 plane; an int8 37 x 45 plane),
+           with ``torch.round(F.avg_pool2d(x.float(), 2))`` as its
+           library call.
            Each gets the median device time of 25 launches (CUDA events,
            the L2 flushed before each, a GPU sleep ahead of the timed span
            so the host's enqueue is not in it), the device time of each of
@@ -40,7 +45,10 @@ Phases (any failure ends the run with a non-zero exit and no result line):
            version's time, and the bound from the bytes moved and the
            operations done; K7 also torch.sum over the chunk's dim 0 (the
            library call; torch.amax has no uint16 kernel);
-4. serve   an 8192^2 4-channel uint16 pyramid (image 1), a 1024^2 x 32
+4. serve   an 8192^2 4-channel uint16 pyramid (image 1; its level 0
+           also as a single-level tiled OME-TIFF, image 3, and an NGFF
+           group, image 4), a 4096^2 RGB JPEG-in-TIFF (image 5, PIL JFIF
+           tiles of 512^2), a 1024^2 x 32
            4-channel uint16 Z-stack (image 2, 256 MiB) and 10 masks
            (8 of 1024^2 with fills, one 37x45, one 1023^2 whose payload
            ends mid-byte) through the port's default
@@ -103,6 +111,23 @@ Phases (any failure ends the run with a non-zero exit and no result line):
            animation:  axis=z&frames=8 JPEG on the Z-stack: 8 FRME records
                        in order, each the plain route's bytes for its
                        plane; the strip's mean group;
+           readers:    6 of the checked res-0 GETs (png, LUT png, three
+                       device-route JPEGs, a render_image region) from
+                       images 3 and 4, each byte-equal to image 1's; a
+                       1024^2 device-route JPEG of image 5 equal to the
+                       plain route over the reader's pixels (the native
+                       decoder), which are within 2 of the Python
+                       decoder's; each reader's cold
+                       ``PixelsService.readRegion`` over 8 row-0 tiles
+                       beside the chunked store's; K1-K4b launched;
+           pyramid:    POST /pyramid for image 3, polled to done: every
+                       committed level equal to image 1's store level bit
+                       for bit, a resolution-2 JPEG and png of image 3
+                       (now served from the pyramid) equal to image 1's,
+                       levels_committed_total up by the level count, K9
+                       launched once per level step; the job's wall time
+                       split into the source read, the K9 steps and the
+                       level writes;
            then the device busy share (torch.profiler) of 8 sequential and
            of 32 concurrent cold GETs, one tile's layer breakdown on a cold
            host read (read, digest, pinned DMA, kernels, wire, coder),
@@ -126,11 +151,11 @@ Phases (any failure ends the run with a non-zero exit and no result line):
            median of 10,000, with the card's name and power limit.
 
 Each phase's launch counts are set to 0 just before it and read just
-after.  It prints the kernel table of all eight kernels as one JSON line
-(``launches``: the batch burst for K1-K4b, the four workload phases for
-K7, K8a and K8b; ``workload_launches``: each kernel's launches in each of
-those phases), then the nvidia-smi line, and last ``{"ok": true,
-"device": {...}}``.  It imports nothing of JAX.
+after.  It prints the kernel table of all nine kernels as one JSON line
+(``launches``: the batch burst for K1-K4b, the workload phases for K7,
+K8a, K8b and K9; ``workload_launches``: each kernel's launches in each of
+those phases, readers and pyramid included), then the nvidia-smi line,
+and last ``{"ok": true, "device": {...}}``.  It imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -750,20 +775,129 @@ def workloads_kernel_phase(torch, np):
     return entries
 
 
+def pyramid_kernel_phase(torch, np):
+    """K9 (mean2_int) against its plain version, exactly, at the pyramid
+    job's shapes: its first level step (4 x 8192^2 uint16), 4 x 1024^2
+    uint16, an RGB WSI's 3 x 4096^2 uint8, int16 with negatives, an odd
+    4097 x 8191 plane and an int8 37 x 45 plane; timed at the first."""
+    import torch.nn.functional as F
+
+    from omero_ms_image_region_tpu_torch.kernels import workloads as KW
+    from omero_ms_image_region_tpu_torch.ops import pyramid as PY
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(9)
+    e = {"name": "mean2_int", "route": "cuda", "source": WL_SOURCE,
+         "replaces": "omero_ms_image_region_tpu/ops/pyramid.py:26",
+         "max_abs_err": 0, "mismatches": 0, "tolerance": 0}
+
+    def planes(dtype, shape):
+        carrier = torch.int16 if dtype == torch.uint16 else dtype
+        info = torch.iinfo(carrier)
+        x = torch.randint(info.min, info.max + 1, shape, dtype=carrier,
+                          device=dev, generator=gen)
+        return x.view(torch.uint16) if dtype == torch.uint16 else x
+
+    def as_int(t):
+        return PY._widen(t)
+
+    cases = [("4x8192^2 u16 (the job's first level step)", torch.uint16,
+              (4, PLANE, PLANE)),
+             ("4x1024^2 u16", torch.uint16, (4, TILE, TILE)),
+             ("3x4096^2 u8 (an RGB WSI)", torch.uint8, (3, 4096, 4096)),
+             ("2x1024x1000 i16 with negatives", torch.int16,
+              (2, TILE, 1000)),
+             ("odd 4097x8191 u16", torch.uint16, (1, 4097, 8191)),
+             ("i8 37x45", torch.int8, (1, 37, 45))]
+    for label, dtype, shape in cases:
+        x = planes(dtype, shape)
+        got, want = KW.mean2_int(x), PY.mean2_int_plain(x)
+        torch.cuda.synchronize()
+        diff = int((as_int(got) != as_int(want)).sum())
+        err = int((as_int(got) - as_int(want)).abs().max()) if diff else 0
+        print(f"check mean2_int {label}: differing {diff} of "
+              f"{got.numel()} (tolerance 0)", flush=True)
+        check(diff == 0, f"mean2_int {label} differs from its plain "
+                         f"version")
+        e["mismatches"] += diff
+        e["max_abs_err"] = max(e["max_abs_err"], err)
+        if shape[0] == 4 and shape[1] == PLANE:
+            e["ms"] = time_ms(torch, lambda: KW.mean2_int(x), 25)
+            e["plain_ms"] = time_ms(torch, lambda: PY.mean2_int_plain(x),
+                                    5)
+            e["library_ms"] = time_ms(torch, lambda: torch.round(
+                F.avg_pool2d(as_int(x).to(torch.float32), 2)), 25)
+            e["library_call"] = ("torch.round(F.avg_pool2d(x.float(), 2)) "
+                                 "(uint16 widened through int32), cast "
+                                 "included")
+            e["bound_ms"], e["bound_by"] = bytes_bound(
+                x.numel() * 2 + got.numel() * 2, got.numel() * 6)
+            e["shape"] = list(shape)
+            e["dtype"] = "uint16"
+        del x, got, want
+    torch.cuda.empty_cache()
+    print(f"kernel mean2_int: {e['ms']:.4f} ms (bound {e['bound_ms']:.4f} "
+          f"ms, plain {e['plain_ms']:.3f} ms, library "
+          f"{e['library_ms']:.4f} ms) at {e['shape']}", flush=True)
+    return {"mean2_int": e}
+
+
 # ------------------------------------------------------------- serve phase
 
 ZSTACK_IMAGE = "2"
+# Image 1's level 0 through the other readers: a single-level tiled
+# OME-TIFF (3) and an NGFF group (4); an RGB JPEG-in-TIFF (5).
+READER_IMAGES = {"ome-tiff": "3", "ome-ngff": "4"}
+JPEG_IMAGE = "5"
+RGB_PLANE = 4096
+JPEG_TILE = 512
 # Masks: 1-8 1024^2 with fills, 9 37x45, 10 1023x1023 (a payload that is
 # not a whole number of bytes, with trailing bytes).
 MASK_SHAPES = {**{i: (TILE, TILE) for i in range(1, 9)}, 9: (37, 45),
                10: (TILE - 1, TILE - 1)}
 
 
+def write_jpeg_tiff(np, path, rgb, tile: int, quality: int) -> None:
+    """A tiled RGB TIFF of compression 7 (photometric YCbCr), each tile a
+    complete JFIF stream from PIL, written with the port's ``_TiffOut``."""
+    import io
+
+    from PIL import Image
+
+    from omero_ms_image_region_tpu_torch.io.tiffwrite import _TiffOut
+
+    h, w, _ = rgb.shape
+    with open(path, "wb") as f:
+        out = _TiffOut(f, big=False)
+        offs, cnts = [], []
+        for y in range(0, h, tile):
+            for x in range(0, w, tile):
+                buf = io.BytesIO()
+                Image.fromarray(np.ascontiguousarray(
+                    rgb[y:y + tile, x:x + tile])).save(
+                    buf, "jpeg", quality=quality)
+                out.align()
+                offs.append(out.write(buf.getvalue()))
+                cnts.append(len(buf.getvalue()))
+        ifd, _ = out.write_ifd([
+            (256, 4, [w]), (257, 4, [h]), (258, 3, [8, 8, 8]),
+            (259, 3, [7]), (262, 3, [6]), (277, 3, [3]), (284, 3, [1]),
+            (322, 4, [tile]), (323, 4, [tile]), (324, 4, offs),
+            (325, 4, cnts)])
+        out.patch_first_ifd(ifd)
+
+
 def build_data(np, data_dir: str, lut_root: str) -> float:
-    """The flagship plane (image 1), the Z-stack (image 2) and the masks,
-    written with the port's own ``build_pyramid`` and ``write_mask``."""
+    """The flagship plane (image 1, and its level 0 again as images 3 and
+    4), the RGB JPEG-in-TIFF (image 5), the Z-stack (image 2) and the
+    masks, written with the port's own ``build_pyramid``,
+    ``write_ome_tiff``, ``write_ngff`` and ``write_mask`` (PIL encodes
+    image 5's tiles)."""
     from omero_ms_image_region_tpu_torch.flagship import synthetic_wsi_tiles
+    from omero_ms_image_region_tpu_torch.io.ngff import write_ngff
     from omero_ms_image_region_tpu_torch.io.store import build_pyramid
+    from omero_ms_image_region_tpu_torch.io.tiffwrite import write_ome_tiff
     from omero_ms_image_region_tpu_torch.models.mask import Mask
     from omero_ms_image_region_tpu_torch.services.metadata import (
         write_mask)
@@ -778,7 +912,28 @@ def build_data(np, data_dir: str, lut_root: str) -> float:
             planes[:, 0, ty * TILE:(ty + 1) * TILE,
                    tx * TILE:(tx + 1) * TILE] = row[tx]
     build_pyramid(planes, os.path.join(data_dir, "1"), chunk=(256, 256))
+    # The same level 0 as a single-level OME-TIFF (512^2 tiles, no
+    # compression) and an NGFF group, each read by its own reader.
+    tiff_dir = os.path.join(data_dir, READER_IMAGES["ome-tiff"])
+    os.makedirs(tiff_dir)
+    write_ome_tiff(planes, os.path.join(tiff_dir, "plane.ome.tiff"),
+                   tile=(512, 512), n_levels=1)
+    write_ngff(planes, os.path.join(data_dir, READER_IMAGES["ome-ngff"],
+                                    "plane.zarr"),
+               chunk=(512, 512), n_levels=1, compressor=None)
     del planes
+    # An RGB brightfield-like plane as tiled JPEG-in-TIFF (image 5).
+    rgb = np.empty((RGB_PLANE, RGB_PLANE, 3), np.uint8)
+    n = RGB_PLANE // TILE
+    for ty in range(n):
+        row = synthetic_wsi_tiles(rng, n, 3, TILE, TILE)
+        for tx in range(n):
+            rgb[ty * TILE:(ty + 1) * TILE, tx * TILE:(tx + 1) * TILE] = \
+                (row[tx] >> 8).astype(np.uint8).transpose(1, 2, 0)
+    os.makedirs(os.path.join(data_dir, JPEG_IMAGE))
+    write_jpeg_tiff(np, os.path.join(data_dir, JPEG_IMAGE, "rgb.tif"), rgb,
+                    JPEG_TILE, 90)
+    del rgb
     # A confocal-sized Z-stack: 4 channels of 1024^2 uint16, 32 planes
     # (256 MiB), one synthetic_wsi_tiles call per plane.
     stack = np.empty((4, Z_STACK, TILE, TILE), np.uint16)
@@ -1007,6 +1162,7 @@ class Client:
         self.config, self.handler = config, handler
         self.via = "http" if have_aiohttp else "front"
         self.runner = self.session = self.front = self.watchdog = None
+        self.jobs = None
 
     async def start(self):
         if self.via == "http":
@@ -1028,15 +1184,18 @@ class Client:
         if self.config.watchdog.enabled:
             self.watchdog = asyncio.create_task(build_watchdog(
                 self.config.watchdog, self.handler.s.renderer).run())
+        if self.front.jobs is not None:
+            self.jobs = asyncio.create_task(self.front.jobs.run())
 
     async def stop(self):
         if self.session is not None:
             await self.session.close()
         if self.runner is not None:
             await self.runner.cleanup()       # closes the renderer
-        if self.watchdog is not None:
-            self.watchdog.cancel()
-            await asyncio.gather(self.watchdog, return_exceptions=True)
+        for task in (self.watchdog, self.jobs):
+            if task is not None:
+                task.cancel()
+                await asyncio.gather(task, return_exceptions=True)
         await self.handler.s.renderer.close()
 
     async def request(self, route, query, method="GET", headers=None,
@@ -1060,6 +1219,28 @@ class Client:
                 headers or {}, {})
             status, hdrs, body = answer.status, answer.headers, answer.body
         return status, hdrs, body, (time.perf_counter() - t0) * 1e3
+
+    async def submit_pyramid(self, image: str):
+        """(status, job document) of ``POST /pyramid {"imageId": ...}``."""
+        body = json.dumps({"imageId": int(image)}).encode()
+        if self.session is not None:
+            async with self.session.post(
+                    f"http://127.0.0.1:{self.port}/pyramid",
+                    data=body) as r:
+                return r.status, await r.json(content_type=None)
+        answer = await self.front.observed(
+            "pyramid_submit", "POST", {}, {}, {},
+            call=lambda: self.front.pyramid_submit(body))
+        return answer.status, json.loads(answer.body or b"null")
+
+    async def pyramid_job(self, job_id: str):
+        """(status, job document) of ``GET /pyramid/{jobId}``."""
+        if self.session is not None:
+            async with self.session.get(
+                    f"http://127.0.0.1:{self.port}/pyramid/{job_id}") as r:
+                return r.status, await r.json(content_type=None)
+        answer = self.front.pyramid_status(job_id)
+        return answer.status, json.loads(answer.body or b"null")
 
     async def metrics(self) -> str:
         if self.session is not None:
@@ -1581,6 +1762,211 @@ async def workload_phases(torch, np, client, handler, data_dir, lut_root,
     return phases
 
 
+# The res-0 checked requests served again from images 3 and 4: png, a LUT
+# channel png, three device-route JPEGs (q 0.9, flip h, LUT) and a
+# render_image region.
+READER_GETS = (0, 4, 6, 7, 8, 10)
+RGB_CH = "1|0:255$FF0000,2|0:255$00FF00,3|0:255$0000FF"
+
+
+def read_span_ms(telemetry) -> list:
+    """Per-request ``PixelsService.readRegion`` ms of the traces since
+    the last reset."""
+    return [v for v in (t.span_ms("PixelsService.readRegion")
+                        for t in telemetry.TRACES.recent()) if v is not None]
+
+
+async def readers_phase(torch, np, client, handler, data_dir, requests,
+                        results) -> dict:
+    """Image 1's res-0 GETs served from images 3 (OME-TIFF) and 4 (NGFF),
+    each byte-equal to image 1's; one 1024^2 device-route JPEG of image 5
+    (JPEG-in-TIFF) equal to the plain route over the reader's pixels, and
+    those pixels within the decoders' IDCT rounding (2) of the Python
+    decoder's; then each reader's cold read span.  Returns the phase's
+    kernel launches."""
+    from omero_ms_image_region_tpu_torch.io.jpegdec import (
+        decode_baseline_jpeg, ycbcr_to_rgb)
+    from omero_ms_image_region_tpu_torch.io.tiff import (
+        TILE_BYTE_COUNTS, TILE_OFFSETS, TiffFile)
+    from omero_ms_image_region_tpu_torch.kernels import jpeg as KJ
+    from omero_ms_image_region_tpu_torch.server.ctx import ImageRegionCtx
+    from omero_ms_image_region_tpu_torch.utils import telemetry
+    from omero_ms_image_region_tpu_torch.utils.stopwatch import REGISTRY
+
+    reset_launch_counts()
+    gets = []
+    for i in READER_GETS:
+        route, query = requests[i]
+        want = results[i][1]
+        for fmt, image in READER_IMAGES.items():
+            status, _, body, ms = await client.request(route, query,
+                                                       image=image)
+            check(status == 200 and body == want,
+                  f"readers: image {image} ({fmt}) {query}: HTTP {status}, "
+                  f"body {'equal' if body == want else 'differs'} to "
+                  f"image 1's")
+            gets.append([fmt, i, query["format"], len(body), round(ms, 2)])
+
+    # Image 5: the reader's pixels (the native decoder) give the served
+    # bytes; the Python decoder's pixels, the plain version, agree within
+    # the IDCT rounding the two decoders differ by.
+    q = {"tile": f"0,1,1,{TILE},{TILE}", "c": RGB_CH, "m": "c",
+         "format": "jpeg"}
+    status, _, body, ms = await client.request("render_image_region", q,
+                                               image=JPEG_IMAGE)
+    check(status == 200, f"readers: image {JPEG_IMAGE}: HTTP {status}")
+    ctx = ImageRegionCtx.from_params(params_of("render_image_region", q,
+                                               JPEG_IMAGE))
+    raw, settings = await handler.read(ctx)
+    same = body == plain_jpeg(torch, ctx, raw, settings)
+    tf = TiffFile(os.path.join(data_dir, JPEG_IMAGE, "rgb.tif"))
+    ifd, per_row = tf.ifds[0], RGB_PLANE // JPEG_TILE
+    python = np.empty((TILE, TILE, 3), np.uint8)
+    t0 = time.perf_counter()
+    k = TILE // JPEG_TILE
+    for gy in range(k):
+        for gx in range(k):
+            idx = (k + gy) * per_row + k + gx
+            seg = tf._pread(int(ifd.get(TILE_OFFSETS)[idx]),
+                            int(ifd.get(TILE_BYTE_COUNTS)[idx]))
+            python[gy * JPEG_TILE:(gy + 1) * JPEG_TILE,
+                   gx * JPEG_TILE:(gx + 1) * JPEG_TILE] = ycbcr_to_rgb(
+                decode_baseline_jpeg(seg))
+    python_ms = (time.perf_counter() - t0) * 1e3
+    tf.close()
+    python = python.transpose(2, 0, 1)
+    d = np.abs(python.astype(np.int16) - raw.astype(np.int16))
+    jpeg_tiff = {"bytes": len(body), "wall_ms": ms,
+                 "matches_plain_over_reader_pixels": same,
+                 "python_decoder_ms": python_ms,
+                 "python_vs_native_max_abs": int(d.max()),
+                 "python_vs_native_differing": int((d > 0).sum()),
+                 "matches_plain_over_python_pixels":
+                     body == plain_jpeg(torch, ctx, python, settings)}
+    check(same, f"readers: image {JPEG_IMAGE}: served bytes differ from "
+                f"the plain route over the reader's pixels")
+    check(d.max() <= 2, f"readers: image {JPEG_IMAGE}: the Python and "
+                        f"native decoders differ by {int(d.max())} > 2")
+    launches = launch_counts()
+    for name in ("render_ramp", "render_lut", *KJ.LAUNCHES):
+        check(launches[name] >= 1,
+              f"readers: {name} was not launched by the reader GETs")
+
+    # Cold reads: 8 row-0 device-route JPEG tiles of each image (raw cache
+    # cleared, the files in the page cache since they were written).
+    cold = {}
+    for fmt, image in (("chunked", "1"), *READER_IMAGES.items()):
+        handler.s.raw_cache.clear()
+        reset_spans(telemetry, REGISTRY)
+        walls = []
+        for x in range(8):
+            status, _, _, ms = await client.request(
+                "render_image_region",
+                {"tile": f"0,{x},0,{TILE},{TILE}", "c": CH, "m": "c",
+                 "format": "jpeg"}, image=image)
+            check(status == 200, f"readers: cold {fmt}: HTTP {status}")
+            walls.append(ms)
+        await settled(handler.s.renderer)
+        spans = read_span_ms(telemetry)
+        check(len(spans) == 8, f"readers: cold {fmt}: {len(spans)} reads")
+        cold[fmt] = {"read_p50_ms": statistics.median(spans),
+                     "read_max_ms": max(spans),
+                     "get_p50_ms": statistics.median(walls)}
+    print("readers: " + json.dumps({
+        "gets": gets, "bodies_equal_image_1": True,
+        "jpeg_tiff": jpeg_tiff, f"cold_reads_4x{TILE}^2_u16": cold,
+        "launches": launches, "via": client.via}), flush=True)
+    return launches
+
+
+def metric_value(scrape: str, name: str) -> float:
+    for line in scrape.splitlines():
+        if line.startswith(name + " "):
+            return float(line.split()[1])
+    return 0.0
+
+
+async def pyramid_phase(torch, np, client, handler, data_dir) -> dict:
+    """``POST /pyramid`` for image 3 through the default app, polled to
+    its end: every level it commits equals image 1's store level, bit for
+    bit; a resolution-2 GET on image 3, now served from the pyramid,
+    equals image 1's; ``imageregion_pyramid_levels_committed_total`` rose
+    by the level count; K9 ran once per level step.  Returns the phase's
+    kernel launches."""
+    from omero_ms_image_region_tpu_torch.io.ngff import NgffZarrSource
+    from omero_ms_image_region_tpu_torch.io.store import ChunkedPyramidStore
+    from omero_ms_image_region_tpu_torch.server.region import RegionDef
+    from omero_ms_image_region_tpu_torch.utils.stopwatch import REGISTRY
+
+    image = READER_IMAGES["ome-tiff"]
+    committed0 = metric_value(await client.metrics(),
+                              "imageregion_pyramid_levels_committed_total")
+    REGISTRY.reset()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    status, doc = await client.submit_pyramid(image)
+    check(status == 202, f"pyramid: POST answered {status}: {doc}")
+    for _ in range(3000):
+        status, doc = await client.pyramid_job(doc["jobId"])
+        if doc["state"] in ("done", "failed"):
+            break
+        await asyncio.sleep(0.1)
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    check(doc["state"] == "done", f"pyramid: the job ended {doc}")
+    n = doc["levelsTotal"]
+    check(launches["mean2_int"] == n - 1,
+          f"pyramid: K9 launched {launches['mean2_int']} times for "
+          f"{n - 1} level steps")
+    spans = {k: v["total_ms"] for k, v in REGISTRY.snapshot().items()
+             if k.startswith("pyramid.")}
+    committed = metric_value(await client.metrics(),
+                             "imageregion_pyramid_levels_committed_total")
+    check(committed - committed0 == n,
+          f"pyramid: levels_committed_total rose by "
+          f"{committed - committed0}, not {n}")
+
+    # Every level equals image 1's store level, bit for bit.
+    store = ChunkedPyramidStore(os.path.join(data_dir, "1"))
+    built = NgffZarrSource(doc["dest"])
+    check(built.resolution_descriptions()
+          == store.resolution_descriptions()[:n],
+          "pyramid: the level table differs from image 1's")
+    t1 = time.perf_counter()
+    for level, (sx, sy) in enumerate(built.resolution_descriptions()):
+        for c in range(4):
+            full = RegionDef(0, 0, sx, sy)
+            check(np.array_equal(built.get_region(0, c, 0, full, level),
+                                 store.get_region(0, c, 0, full, level)),
+                  f"pyramid: level {level} channel {c} differs from "
+                  f"image 1's")
+    compare_s = time.perf_counter() - t1
+    check(type(handler.s.pixels_service.get_pixel_source(int(image)))
+          is NgffZarrSource, "pyramid: image 3 is not served from its "
+                             "pyramid after the commit")
+    res2 = []
+    for fmt in ("jpeg", "png"):
+        q = {"tile": f"2,1,1,{TILE},{TILE}", "c": CH, "m": "c",
+             "format": fmt}
+        status1, _, body1, _ = await client.request("render_image_region",
+                                                     q, image="1")
+        status3, _, body3, _ = await client.request("render_image_region",
+                                                     q, image=image)
+        check(status1 == status3 == 200 and body1 == body3,
+              f"pyramid: resolution-2 {fmt} of image 3 ({status3}) "
+              f"differs from image 1's ({status1})")
+        res2.append([fmt, len(body3)])
+    print("pyramid: " + json.dumps({
+        "job": {k: doc[k] for k in ("state", "levelsTotal", "levelsDone",
+                                    "resumed")},
+        "wall_s": wall, "split_ms": spans,
+        "mean2_int_launches": launches["mean2_int"],
+        "levels_committed": committed - committed0,
+        "levels_equal_image_1": True, "compare_s": compare_s,
+        "res2_gets_equal_image_1": res2, "via": client.via}), flush=True)
+    return launches
+
+
 async def serve_phase(torch, np, data_dir, lut_root, have_aiohttp,
                       have_pil):
     from omero_ms_image_region_tpu_torch import codecs, native
@@ -1829,6 +2215,10 @@ async def serve_phase(torch, np, data_dir, lut_root, have_aiohttp,
         await http_cache_phase(client, handler, matches_plain)
         workload_launches = await workload_phases(
             torch, np, client, handler, data_dir, lut_root, matches_plain)
+        workload_launches["readers"] = await readers_phase(
+            torch, np, client, handler, data_dir, requests, results)
+        workload_launches["pyramid"] = await pyramid_phase(
+            torch, np, client, handler, data_dir)
 
         # Device busy share: 8 sequential cold GETs, and 32 cold GETs at
         # 8 in flight (torch.profiler, device time of all kernels and
@@ -1954,17 +2344,20 @@ def main() -> int:
 
     t0 = time.perf_counter()
     with cf.ThreadPoolExecutor(2) as pool:
-        coder = pool.submit(native.build)
+        host = pool.submit(native.build_all)
         build.build_all([(K.SOURCE, K.NVCC_FLAGS),
                          (KJ.SOURCE, KJ.NVCC_FLAGS),
                          (KW.SOURCE, KW.NVCC_FLAGS)])
-        coder.result()
+        host.result()
     K.library()
     KJ.library()
     KW.library()
     native.library()
+    native.decoder_library()
+    native.bitops_library()
     print(f"build: {time.perf_counter() - t0:.2f} s (render.cu, jpeg.cu, "
-          f"workloads.cu, native/jpegenc.cpp)", flush=True)
+          f"workloads.cu; native/jpegenc.cpp, jpegdec.cpp, "
+          f"tilecache.cpp)", flush=True)
     for source in (K.SOURCE, KJ.SOURCE, KW.SOURCE):
         for line in build.build_log(source.name).splitlines():
             if ("registers" in line or "Compiling entry" in line
@@ -1977,6 +2370,7 @@ def main() -> int:
     del raw8, args8
     torch.cuda.empty_cache()
     workload_entries = workloads_kernel_phase(torch, np)
+    workload_entries.update(pyramid_kernel_phase(torch, np))
 
     # 4. serve
     with tempfile.TemporaryDirectory() as tmp:
@@ -1985,17 +2379,20 @@ def main() -> int:
         os.makedirs(data_dir)
         os.makedirs(lut_root)
         secs = build_data(np, data_dir, lut_root)
-        print(f"serve: built a {PLANE}x{PLANE} 4-channel uint16 pyramid, "
-              f"a {TILE}x{TILE}x{Z_STACK} 4-channel uint16 Z-stack and "
-              f"{len(MASK_SHAPES)} masks in {secs:.1f} s", flush=True)
+        print(f"serve: built a {PLANE}x{PLANE} 4-channel uint16 pyramid "
+              f"(and its level 0 as an OME-TIFF and an NGFF group), a "
+              f"{RGB_PLANE}^2 RGB JPEG-in-TIFF, a {TILE}x{TILE}x{Z_STACK} "
+              f"4-channel uint16 Z-stack and {len(MASK_SHAPES)} masks in "
+              f"{secs:.1f} s", flush=True)
         launches, serve_launches, workload_launches = asyncio.run(
             serve_phase(torch, np, data_dir, lut_root, have_aiohttp,
                         have_pil))
     front_cost_phase(smi)
 
-    # launches: the batch burst for K1-K4b; the four workload phases
-    # together for K7, K8a and K8b.  Every kernel also carries its
-    # launches in each workload phase.
+    # launches: the batch burst for K1-K4b; the workload phases together
+    # for K7, K8a, K8b and K9 (K9 runs in the pyramid phase).  Every
+    # kernel also carries its launches in each workload phase (the
+    # readers and pyramid phases included).
     for name, e in entries.items():
         e["launches"] = launches[name]
         e["serve_launches"] = serve_launches[name]

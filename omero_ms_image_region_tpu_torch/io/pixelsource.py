@@ -1,8 +1,11 @@
 """The ``PixelSource`` protocol (≙ ``ome.io.nio.PixelBuffer``).
 
 The surface the region pipeline consumes from its pixel buffer
-(SURVEY.md section 2b): region reads at a resolution level, pyramid
-level/size enumeration, and the server tile size.
+(SURVEY.md section 2b): region reads at a resolution level, whole-stack
+reads, pyramid level/size enumeration, and the server tile size.  The
+readers are ``store.ChunkedPyramidStore``, ``ometiff.OmeTiffSource``,
+``ngff.NgffZarrSource`` and ``memory.InMemoryPixelSource``; unlike the
+JAX package's, each region read can fill a caller's array (``out=``).
 """
 
 from __future__ import annotations
@@ -49,6 +52,11 @@ class PixelSource(Protocol):
         dtype, or writes into ``out`` (an [h, w] array, cast to its dtype)
         and returns it.
         """
+        ...
+
+    def get_stack(self, c: int, t: int) -> np.ndarray:
+        """Whole Z-stack of one channel at level 0: [Z, H, W]
+        (≙ ``PixelBuffer.getStack``, ``ProjectionService.java:72``)."""
         ...
 
     def close(self) -> None:

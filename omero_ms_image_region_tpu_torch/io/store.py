@@ -111,6 +111,14 @@ class ChunkedPyramidStore:
                     chunk[iy0 - cy0:iy1 - cy0, ix0 - cx0:ix1 - cx0]
         return out
 
+    def get_stack(self, c: int, t: int) -> np.ndarray:
+        sx, sy = self._level_dims[0]
+        region = RegionDef(0, 0, sx, sy)
+        out = np.empty((self.size_z, sy, sx), dtype=self._dtype)
+        for z in range(self.size_z):
+            self.get_region(z, c, t, region, 0, out=out[z])
+        return out
+
     def close(self) -> None:
         self._maps = [None] * len(self._level_dims)
 

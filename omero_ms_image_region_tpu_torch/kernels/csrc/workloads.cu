@@ -1,19 +1,23 @@
-// Hand-written Hopper kernels of the projection and mask workloads.
+// Hand-written Hopper kernels of the projection, mask and pyramid
+// workloads.
 //
 // K7  project_fold_kernel    replaces the JAX package's projection folds
 //                            (ops/projection.py: _fold_max, _fold_sum,
 //                            _fold_chunk, _stitch, _finalize)
 // K8a mask_rasterize_kernel  replaces ops/maskops.py::_rasterize_batch_jit
 // K8b mask_overlay_kernel    replaces ops/maskops.py::_overlay_batch_jit
+// K9  mean2_int_kernel       replaces ops/pyramid.py::_mean2_int_jit
 //
-// All three are byte passes.  Each thread handles a short vector of
-// consecutive elements with 16-byte loads and stores where the sizes and
-// the alignment allow (the *_launch function picks the path), and one
-// element per thread otherwise.  Built with -fmad=false and without fast
+// All four are byte passes, bound by device memory.  Each thread handles
+// a short vector of consecutive elements with 16-byte loads (and 16- or
+// 8-byte stores) where the sizes and the alignment allow (the *_launch
+// function picks the path), and one element per thread otherwise.  Built with -fmad=false and without fast
 // math: K7 rounds every conversion, add and divide as numpy does.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -303,8 +307,94 @@ __global__ void mask_overlay_kernel(const uint8_t* __restrict__ base,
   d[3] = o >> 24;
 }
 
+// ------------------------------------------------------------------- K9
+
+// The rounded mean of a 2x2 block of integer samples, as the JAX package's
+// _mean2_int_jit computes it: the int32 sum s (exact, |s| <= 4 * 65535),
+// times 0.25 in f32 (exact: a power of two and |s| < 2^24), rounded half
+// to even (rintf, as jnp.round), back to the storage type (in range).
+template <typename T>
+__device__ __forceinline__ T mean4(T a, T b, T c, T d) {
+  int s = (int)a + (int)b + (int)c + (int)d;
+  return (T)(int)rintf(__fmul_rn((float)s, 0.25f));
+}
+
+template <typename T, int N>
+union Lanes {
+  T e[N];
+  typename std::conditional<sizeof(T) * N == 16, uint4, uint2>::type v;
+};
+
+// Vector path: the input row pitch W holds a whole number of 16-byte
+// vectors and both bases are aligned.  A thread reads 16 bytes of each of
+// the two input rows (2K samples each) and writes the K = 8 / sizeof(T)
+// output samples they reduce to as one 8-byte store.  ``in`` is
+// [N, H, W]; an odd last row (H odd) is never read.
+template <typename T>
+__global__ void mean2_int_kernel_vec(const T* __restrict__ in,
+                                     T* __restrict__ out, long long H,
+                                     long long W, long long h, long long w,
+                                     long long vecs_per_row,
+                                     long long total) {
+  constexpr int K = 8 / sizeof(T);
+  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= total) return;
+  long long row = i / vecs_per_row;          // n * h + oy
+  long long v = i - row * vecs_per_row;
+  long long n = row / h;
+  long long oy = row - n * h;
+  const T* r0 = in + (n * H + 2 * oy) * W + 2 * K * v;
+  Lanes<T, 2 * K> a, b;
+  a.v = __ldg(reinterpret_cast<const uint4*>(r0));
+  b.v = __ldg(reinterpret_cast<const uint4*>(r0 + W));
+  Lanes<T, K> o;
+  #pragma unroll
+  for (int k = 0; k < K; ++k)
+    o.e[k] = mean4(a.e[2 * k], a.e[2 * k + 1], b.e[2 * k], b.e[2 * k + 1]);
+  *reinterpret_cast<uint2*>(out + row * w + K * v) = o.v;
+}
+
+// Scalar path: one output sample a thread (odd or unaligned widths).
+template <typename T>
+__global__ void mean2_int_kernel(const T* __restrict__ in,
+                                 T* __restrict__ out, long long H,
+                                 long long W, long long h, long long w,
+                                 long long total) {
+  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= total) return;
+  long long row = i / w;
+  long long ox = i - row * w;
+  long long n = row / h;
+  long long oy = row - n * h;
+  const T* r0 = in + (n * H + 2 * oy) * W + 2 * ox;
+  out[i] = mean4(r0[0], r0[1], r0[W], r0[W + 1]);
+}
+
 bool aligned(const void* p, uintptr_t n) {
   return (reinterpret_cast<uintptr_t>(p) % n) == 0;
+}
+
+template <typename T>
+int launch_mean2(const void* in, void* out, long long N, long long H,
+                 long long W, cudaStream_t stream) {
+  const int threads = 256;
+  constexpr int K = 8 / sizeof(T);
+  long long h = H / 2, w = W / 2;
+  const T* src = static_cast<const T*>(in);
+  T* dst = static_cast<T*>(out);
+  if (W % (2 * K) == 0 && aligned(in, 16) && aligned(out, 8)) {
+    long long per_row = w / K;
+    long long total = N * h * per_row;
+    unsigned blocks = (unsigned)((total + threads - 1) / threads);
+    mean2_int_kernel_vec<T><<<blocks, threads, 0, stream>>>(
+        src, dst, H, W, h, w, per_row, total);
+  } else {
+    long long total = N * h * w;
+    unsigned blocks = (unsigned)((total + threads - 1) / threads);
+    mean2_int_kernel<T><<<blocks, threads, 0, stream>>>(src, dst, H, W, h,
+                                                        w, total);
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -371,6 +461,21 @@ int mask_overlay_launch(const uint8_t* base, const uint8_t* grid,
     mask_overlay_kernel<<<g, threads, 0, s>>>(base, grid, fills, out, px);
   }
   return (int)cudaGetLastError();
+}
+
+// K9: in [N, H, W] of pixel type ``dtype`` (I8, U8, I16 or U16) ->
+// out [N, H / 2, W / 2] of the same type.
+int mean2_int_launch(const void* in, int dtype, long long N, long long H,
+                     long long W, void* out, void* stream) {
+  if (N <= 0 || H < 2 || W < 2) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case I8: return launch_mean2<int8_t>(in, out, N, H, W, s);
+    case U8: return launch_mean2<uint8_t>(in, out, N, H, W, s);
+    case I16: return launch_mean2<int16_t>(in, out, N, H, W, s);
+    case U16: return launch_mean2<uint16_t>(in, out, N, H, W, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

@@ -1,5 +1,5 @@
-"""Hand-written CUDA kernels of the projection and mask workloads: build,
-load, launch.
+"""Hand-written CUDA kernels of the projection, mask and pyramid
+workloads: build, load, launch.
 
 Counterparts of the JAX package's device programs off the render path:
 
@@ -10,15 +10,19 @@ Counterparts of the JAX package's device programs off the render path:
   output plane, so no stitch copy is needed;
 * :func:`mask_rasterize` (K8a) replaces ``ops/maskops.py::
   _rasterize_batch_jit`` (``:143``);
-* :func:`mask_overlay` (K8b) replaces ``_overlay_batch_jit`` (``:197``).
+* :func:`mask_overlay` (K8b) replaces ``_overlay_batch_jit`` (``:197``);
+* :func:`mean2_int` (K9) replaces ``ops/pyramid.py::_mean2_int_jit``
+  (``:26``): the pyramid job's 2x2 integer downsample, read and written in
+  the storage dtype.
 
-All three live in ``csrc/workloads.cu`` behind a plain ``extern "C"``
+All four live in ``csrc/workloads.cu`` behind a plain ``extern "C"``
 interface, built and loaded by :mod:`.build` on first use; a build failure
 raises.  Each wrapper takes CUDA tensors only, checks device, dtype, shape
 and contiguity, launches on the current stream, raises if a launch was
 refused, and counts one launch in :data:`LAUNCHES` per call.  The plain
-PyTorch versions are in ``ops/projection.py`` and ``ops/maskops.py``,
-whose dispatchers send CPU tensors there and CUDA tensors here.
+PyTorch versions are in ``ops/projection.py``, ``ops/maskops.py`` and
+``ops/pyramid.py``, whose dispatchers send CPU tensors there and CUDA
+tensors here.
 """
 
 from __future__ import annotations
@@ -40,8 +44,12 @@ FOLD_DTYPES = {torch.int8: 0, torch.uint8: 1, torch.int16: 2,
                torch.uint16: 3, torch.int32: 4, torch.uint32: 5,
                torch.float32: 6, torch.float64: 7}
 
+# The pixel types K9 reads and writes (a subset of the codes above).
+MEAN2_DTYPES = {t: FOLD_DTYPES[t] for t in (torch.int8, torch.uint8,
+                                            torch.int16, torch.uint16)}
+
 LAUNCHES: Dict[str, int] = {"project_fold": 0, "mask_rasterize": 0,
-                            "mask_overlay": 0}
+                            "mask_overlay": 0, "mean2_int": 0}
 _launch_lock = threading.Lock()
 
 
@@ -62,8 +70,9 @@ def _configure(lib: ctypes.CDLL) -> None:
     lib.project_fold_launch.argtypes = [p, i, i, ll, p, i, i, i, f, f, p]
     lib.mask_rasterize_launch.argtypes = [p, i, ll, i, i, i, i, p, p]
     lib.mask_overlay_launch.argtypes = [p, p, p, i, ll, p, p]
+    lib.mean2_int_launch.argtypes = [p, i, ll, ll, ll, p, p]
     for fn in (lib.project_fold_launch, lib.mask_rasterize_launch,
-               lib.mask_overlay_launch):
+               lib.mask_overlay_launch, lib.mean2_int_launch):
         fn.restype = ctypes.c_int
 
 
@@ -77,7 +86,8 @@ def _cuda(name: str, *tensors: torch.Tensor) -> torch.device:
     for t in tensors:
         if not isinstance(t, torch.Tensor) or t.device.type != "cuda":
             raise ValueError(f"{name} runs on CUDA tensors only; the plain "
-                             f"version is in ops.projection / ops.maskops")
+                             f"version is in ops.projection / ops.maskops "
+                             f"/ ops.pyramid")
         if t.device != dev:
             raise ValueError(f"{name}: tensors on {t.device} and {dev}")
         if not t.is_contiguous():
@@ -190,4 +200,30 @@ def mask_overlay(base: torch.Tensor, grids: torch.Tensor,
             base.data_ptr(), grids.data_ptr(), fills.data_ptr(), B, H * W,
             out.data_ptr(), _stream(dev))
     _launched("mask_overlay", err)
+    return out
+
+
+def mean2_int(planes: torch.Tensor) -> torch.Tensor:
+    """K9: ``planes`` [N, H, W] of int8, uint8, int16 or uint16 (H, W >= 2)
+    -> [N, H // 2, W // 2] of the same type, each sample the rounded mean
+    of its 2x2 block: ``rint((a + b + c + d) * 0.25)`` with the sum in
+    int32 and the scale in f32, half to even.  An odd last row or column
+    is not read."""
+    dev = _cuda("mean2_int", planes)
+    if planes.dtype not in MEAN2_DTYPES or planes.dim() != 3:
+        raise ValueError(f"planes must be [N, H, W] of an integer type of "
+                         f"at most 16 bits, got {planes.dtype} "
+                         f"{tuple(planes.shape)}")
+    N, H, W = planes.shape
+    if H < 2 or W < 2:
+        raise ValueError(f"a {H}x{W} plane does not halve")
+    out = torch.empty((N, H // 2, W // 2), dtype=planes.dtype, device=dev)
+    if N == 0:
+        return out
+    lib = library()
+    with torch.cuda.device(dev):
+        err = lib.mean2_int_launch(planes.data_ptr(),
+                                   MEAN2_DTYPES[planes.dtype], N, H, W,
+                                   out.data_ptr(), _stream(dev))
+    _launched("mean2_int", err)
     return out

@@ -1,14 +1,19 @@
-"""The native JFIF entropy coder (``jpegenc.cpp``), built and loaded.
+"""The native host codecs, built and loaded: the JFIF entropy coder
+(``jpegenc.cpp``), the JPEG decoder (``jpegdec.cpp``) and the TIFF LZW
+decoder and bit unpacker (``tilecache.cpp``).
 
-The C++ source is compiled with ``g++ -O3 -std=c++17 -shared -fPIC
+Each C++ source is compiled with ``g++ -O3 -std=c++17 -shared -fPIC
 -fopenmp`` on first use into ``_build/`` beside this file, once per source
 content (an edited source rebuilds; concurrent builds agree, each writing a
 private file and renaming it into place), and loaded with ``ctypes``.  A
-missing compiler or a failed build raises: there is no pure-Python coder
-to fall back on.
+missing compiler or a failed build raises.  The coder has no pure-Python
+counterpart to fall back on; the decoders' Python counterparts
+(``io.jpegdec``, ``io.tiff._lzw_decode``) are the plain versions the tests
+hold these against, and the readers call the native ones.
 
-ctypes releases the GIL for the whole call, so concurrent requests entropy
-code at the same time on their worker threads.
+ctypes releases the GIL for the whole call, so concurrent requests code and
+decode at the same time on their worker threads; every output buffer is
+allocated per call.
 """
 
 from __future__ import annotations
@@ -19,16 +24,18 @@ import os
 import subprocess
 import threading
 from pathlib import Path
-from typing import Optional
+from typing import Callable, Dict, Optional
 
 import numpy as np
 
 _HERE = Path(__file__).resolve().parent
 SOURCE = _HERE / "jpegenc.cpp"
+JPEGDEC_SOURCE = _HERE / "jpegdec.cpp"
+TILECACHE_SOURCE = _HERE / "tilecache.cpp"
 BUILD_DIR = _HERE / "_build"
 CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-fopenmp")
 
-_lib: Optional[ctypes.CDLL] = None
+_libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
 
 
@@ -36,20 +43,22 @@ class SparseOverflowError(ValueError):
     """The wire buffer dropped entries (content denser than its cap)."""
 
 
-def build() -> Path:
-    """Compile ``jpegenc.cpp`` into ``_build/`` unless it is built."""
-    tag = hashlib.sha256(SOURCE.read_bytes()
+def build(source: Optional[Path] = None) -> Path:
+    """Compile ``source`` (default: the coder, ``jpegenc.cpp``) into
+    ``_build/`` unless it is built."""
+    source = SOURCE if source is None else source
+    tag = hashlib.sha256(source.read_bytes()
                          + " ".join(CXX_FLAGS).encode()).hexdigest()[:16]
-    lib = BUILD_DIR / f"libjpegenc_{tag}.so"
+    lib = BUILD_DIR / f"lib{source.stem}_{tag}.so"
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f"libjpegenc_{tag}.{os.getpid()}.tmp.so"
-    cmd = ["g++", *CXX_FLAGS, "-o", str(tmp), str(SOURCE)]
+    tmp = BUILD_DIR / f"lib{source.stem}_{tag}.{os.getpid()}.tmp.so"
+    cmd = ["g++", *CXX_FLAGS, "-o", str(tmp), str(source)]
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True)
     except OSError as e:
-        raise RuntimeError(f"the native JPEG coder needs g++: {e}") from e
+        raise RuntimeError(f"the native codecs need g++: {e}") from e
     if proc.returncode != 0:
         raise RuntimeError(
             f"g++ failed with exit code {proc.returncode}:\n"
@@ -58,26 +67,73 @@ def build() -> Path:
     return lib
 
 
+def build_all() -> None:
+    """Build the three sources at once, one g++ each."""
+    import concurrent.futures as cf
+
+    with cf.ThreadPoolExecutor(3) as pool:
+        for f in [pool.submit(build, s) for s in
+                  (SOURCE, JPEGDEC_SOURCE, TILECACHE_SOURCE)]:
+            f.result()
+
+
+def _load(source: Path,
+          configure: Callable[[ctypes.CDLL], None]) -> ctypes.CDLL:
+    with _lock:
+        lib = _libs.get(source.name)
+        if lib is None:
+            lib = ctypes.CDLL(str(build(source)))
+            configure(lib)
+            _libs[source.name] = lib
+        return lib
+
+
+def _configure_coder(lib: ctypes.CDLL) -> None:
+    lib.jpeg_encode.restype = ctypes.c_longlong
+    lib.jpeg_encode.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_size_t,
+    ]
+    lib.jpeg_encode_sparse.restype = ctypes.c_longlong
+    lib.jpeg_encode_sparse.argtypes = [
+        ctypes.c_void_p, ctypes.c_size_t,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_size_t,
+    ]
+
+
+def _configure_decoder(lib: ctypes.CDLL) -> None:
+    lib.jpeg_decode_baseline.restype = ctypes.c_longlong
+    lib.jpeg_decode_baseline.argtypes = [
+        ctypes.c_char_p, ctypes.c_size_t, ctypes.c_char_p, ctypes.c_size_t,
+        ctypes.c_void_p, ctypes.c_size_t, ctypes.POINTER(ctypes.c_int),
+        ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
+    ]
+
+
+def _configure_bitops(lib: ctypes.CDLL) -> None:
+    lib.bits_unpack_msb.restype = None
+    lib.bits_unpack_msb.argtypes = [ctypes.c_char_p, ctypes.c_size_t,
+                                    ctypes.c_void_p]
+    lib.tiff_lzw_decode.restype = ctypes.c_longlong
+    lib.tiff_lzw_decode.argtypes = [ctypes.c_char_p, ctypes.c_size_t,
+                                    ctypes.c_void_p, ctypes.c_size_t]
+
+
 def library() -> ctypes.CDLL:
     """The loaded coder, built on first use."""
-    global _lib
-    with _lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            lib.jpeg_encode.restype = ctypes.c_longlong
-            lib.jpeg_encode.argtypes = [
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                ctypes.c_void_p, ctypes.c_size_t,
-            ]
-            lib.jpeg_encode_sparse.restype = ctypes.c_longlong
-            lib.jpeg_encode_sparse.argtypes = [
-                ctypes.c_void_p, ctypes.c_size_t,
-                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                ctypes.c_void_p, ctypes.c_size_t,
-            ]
-            _lib = lib
-        return _lib
+    return _load(SOURCE, _configure_coder)
+
+
+def decoder_library() -> ctypes.CDLL:
+    """The loaded JPEG decoder, built on first use."""
+    return _load(JPEGDEC_SOURCE, _configure_decoder)
+
+
+def bitops_library() -> ctypes.CDLL:
+    """The loaded LZW decoder and bit unpacker, built on first use."""
+    return _load(TILECACHE_SOURCE, _configure_bitops)
 
 
 def jpeg_encode(y, cb, cr, width: int, height: int, quality: int) -> bytes:
@@ -137,3 +193,50 @@ def jpeg_encode_sparse(buf, width: int, height: int, quality: int,
         if n == -1:
             raise ValueError("jpeg_encode_sparse: invalid arguments")
         out_cap = -n
+
+
+def jpeg_decode_baseline(data: bytes, tables: Optional[bytes]) -> np.ndarray:
+    """Decode one 8-bit JPEG (optionally abbreviated, with a TIFF
+    JPEGTables stream) to ``u8[h, w, ncomp]`` raw components.
+
+    The native mirror of ``io.jpegdec.decode_baseline_jpeg``: baseline
+    SOF0/1 and progressive SOF2, sampling 1-2, DRI/RST, inter-scan table
+    updates.  Raises ValueError on a malformed or unsupported stream."""
+    lib = decoder_library()
+    w, h, nc = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    tb = tables or b""
+    # A zero-capacity call sizes the frame from the headers and returns
+    # -2 (too small; -1 = malformed).
+    n = lib.jpeg_decode_baseline(data, len(data), tb, len(tb), None, 0,
+                                 ctypes.byref(w), ctypes.byref(h),
+                                 ctypes.byref(nc))
+    if n != -2:
+        raise ValueError("malformed or unsupported JPEG stream")
+    out = np.empty(w.value * h.value * nc.value, np.uint8)
+    n = lib.jpeg_decode_baseline(data, len(data), tb, len(tb),
+                                 out.ctypes.data, out.size, ctypes.byref(w),
+                                 ctypes.byref(h), ctypes.byref(nc))
+    if n != out.size:
+        raise ValueError("malformed or unsupported JPEG stream")
+    return out.reshape(h.value, w.value, nc.value)
+
+
+def tiff_lzw_decode(data: bytes, dst_cap: int) -> bytes:
+    """TIFF-variant LZW decode into at most ``dst_cap`` bytes.  Raises
+    ValueError on a malformed stream or when the output passes the cap."""
+    lib = bitops_library()
+    out = ctypes.create_string_buffer(max(dst_cap, 1))
+    n = lib.tiff_lzw_decode(data, len(data), out, dst_cap)
+    if n < 0:
+        raise ValueError("malformed TIFF LZW stream (or output cap "
+                         "exceeded)")
+    return ctypes.string_at(out, n)
+
+
+def unpack_bits_msb(data: bytes, n_bits: int) -> np.ndarray:
+    """MSB-first 1-bit unpack to a u8 0/1 array of ``n_bits``."""
+    if len(data) * 8 < n_bits:
+        raise ValueError(f"{len(data)} bytes hold no {n_bits} bits")
+    out = np.empty(n_bits, dtype=np.uint8)
+    bitops_library().bits_unpack_msb(data, n_bits, out.ctypes.data)
+    return out

@@ -15,6 +15,11 @@ trailing segments are tolerated as its ``:theT*`` patterns are):
       ?axis=z|t&frames=N : N frames from the URL's theZ or theT, streamed
       as ``FRME`` + u32be length + frame records (404 with
       ``workloads.animation-enabled`` off)
+  POST /pyramid {"imageId": N} | {"path": dir}
+      queue a background build of an unpyramided image's levels
+      (``server.jobs``; K9 on the card), 202 + the job document; the same
+      404 and 400s as the JAX app (404 with ``pyramid.enabled`` off)
+  GET /pyramid/{jobId}  the job document
   GET /metrics       Prometheus text exposition
   GET /healthz       liveness
   OPTIONS /          the feature document
@@ -81,6 +86,7 @@ from .errors import BadRequestError, NotFoundError, OverloadedError
 from .handler import (JPEG_HOST_MAX_PX, ImageRegionHandler,
                       ImageRegionServices, Renderer, ShapeMaskHandler,
                       WorkloadsHandler)
+from .jobs import PyramidJobManager
 from .singleflight import SingleFlight
 from .watchdog import Watchdog, build_watchdog
 
@@ -210,6 +216,12 @@ class Front:
                 log.warning("http-cache.epoch: auto derived '0' (no "
                             "ingest stamps under %r)", config.data_dir)
         self.session_required = bool(config.session_store_required)
+        py = config.pyramid
+        self.jobs: Optional[PyramidJobManager] = (PyramidJobManager(
+            pixels_service=handler.s.pixels_service,
+            chunk=(py.chunk, py.chunk), min_level_size=py.min_level_size,
+            compressor=None if py.compressor == "none" else py.compressor,
+            device=handler.s.renderer.device) if py.enabled else None)
 
     def session_key(self, cookies: Mapping[str, str]) -> Optional[str]:
         """The static store: the session cookie's value is the key."""
@@ -464,6 +476,37 @@ class Front:
                 await frames.aclose()
         return Answer(200, out, stream=stream())
 
+    async def pyramid_submit(self, body: bytes) -> Answer:
+        """``POST /pyramid`` with ``{"imageId": N}`` (or ``{"path":
+        dir}``): queue a build (idempotent: an unfinished job for the same
+        destination is returned as-is); 202 and the job document."""
+        if self.jobs is None:
+            return Answer(404)
+        text = {"Content-Type": "text/plain; charset=utf-8"}
+        try:
+            doc = json.loads(body.decode("utf-8"))
+        except Exception:
+            return Answer(400, text, b"body must be JSON")
+        if not isinstance(doc, dict) \
+                or (doc.get("imageId") is None and not doc.get("path")):
+            return Answer(400, text,
+                          b'body needs {"imageId": N} or {"path": dir}')
+        try:
+            if doc.get("imageId") is not None:
+                job = self.jobs.submit_image(int(doc["imageId"]))
+            else:
+                job = self.jobs.submit(str(doc["path"]))
+        except FileNotFoundError:
+            return Answer(404)
+        except (ValueError, TypeError) as e:
+            return Answer(400, text, str(e).encode())
+        return _json(202, job.to_doc())
+
+    def pyramid_status(self, job_id: str) -> Answer:
+        """``GET /pyramid/{jobId}``: the job document, or 404."""
+        job = self.jobs.get(job_id) if self.jobs is not None else None
+        return Answer(404) if job is None else _json(200, job.to_doc())
+
     def _route(self, route: str):
         return {"render_shape_mask": self.render_mask,
                 "render_overlay": self.render_overlay,
@@ -474,19 +517,24 @@ class Front:
                        headers: Mapping[str, str],
                        cookies: Mapping[str, str],
                        send: Optional[Callable[[Answer], Awaitable[None]]]
+                       = None,
+                       call: Optional[Callable[[], Awaitable[Answer]]]
                        = None) -> Answer:
         """The route's request in a request trace and its deadline scope;
-        its duration and status feed the request series.  A streamed
-        answer is handed to ``send`` inside the scope (which writes it),
-        or, with no ``send``, read into :attr:`Answer.body`.  A cancelled
-        request (the client went away) is counted as 499."""
+        its duration and status feed the request series.  ``call``
+        answers in place of the route's handler (a route that is not a
+        render, ``pyramid_submit``).  A streamed answer is handed to
+        ``send`` inside the scope (which writes it), or, with no ``send``,
+        read into :attr:`Answer.body`.  A cancelled request (the client
+        went away) is counted as 499."""
         trace_id = telemetry.new_trace_id()
         t0 = time.perf_counter()
         try:
             with telemetry.trace_scope(trace_id, route), deadline_scope(
                     self.config.fault_tolerance.request_deadline_ms):
-                answer = await self._route(route)(method, params, headers,
-                                                  cookies)
+                answer = await (call() if call is not None else
+                                self._route(route)(method, params, headers,
+                                                   cookies))
                 if answer.stream is not None:
                     if send is not None:
                         await send(answer)
@@ -541,8 +589,8 @@ def create_app(config: Optional[AppConfig] = None,
     """The aiohttp application a config describes (default: the JAX
     defaults, ``AppConfig()``).  ``handler`` overrides the one built from
     the config (the test seam).  Startup sets the executor size
-    (``worker_pool_size``) and starts the watchdog; cleanup stops it and
-    closes the handler's renderer."""
+    (``worker_pool_size``) and starts the watchdog and the pyramid job
+    runner; cleanup stops them and closes the handler's renderer."""
     import concurrent.futures as cf
     import os
 
@@ -610,6 +658,15 @@ def create_app(config: Optional[AppConfig] = None,
             doc["options"]["cacheControl"] = config.cache_control_header
         return web.json_response(doc)
 
+    async def pyramid_submit(request: web.Request) -> web.Response:
+        body = await request.read()
+        return to_response(await front.observed(
+            "pyramid_submit", request.method, {}, request.headers,
+            request.cookies, call=lambda: front.pyramid_submit(body)))
+
+    async def pyramid_status(request: web.Request) -> web.Response:
+        return to_response(front.pyramid_status(request.match_info["jobId"]))
+
     async def healthz(request: web.Request) -> web.Response:
         return web.json_response({"status": "ok"})
 
@@ -623,6 +680,9 @@ def create_app(config: Optional[AppConfig] = None,
         if watchdog is not None and watchdog._targets:
             tasks.append(asyncio.create_task(watchdog.run(),
                                              name="watchdog"))
+        if front.jobs is not None:
+            tasks.append(asyncio.create_task(front.jobs.run(),
+                                             name="pyramid-jobs"))
 
     async def on_cleanup(app: web.Application) -> None:
         for task in tasks:
@@ -650,6 +710,8 @@ def create_app(config: Optional[AppConfig] = None,
         serve = route_handler(route)
         app.router.add_get(base, serve)
         app.router.add_get(base + "/{tail:.*}", serve)
+    app.router.add_post("/pyramid", pyramid_submit)
+    app.router.add_get("/pyramid/{jobId}", pyramid_status)
     app.router.add_get("/metrics", metrics)
     app.router.add_get("/healthz", healthz)
     app.router.add_route("OPTIONS", "/{tail:.*}", details)

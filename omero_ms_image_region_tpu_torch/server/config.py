@@ -21,7 +21,12 @@ served settings the same values and the same validation:
 * ``workloads``: ``device-masks`` (masks rasterized in the batcher's mask
   lane on the card; off: on the host), ``overlay-enabled`` and
   ``animation-enabled`` (off: the route answers 404, as the JAX handler
-  does) and ``animation-max-frames``.
+  does) and ``animation-max-frames``;
+* ``pyramid``: ``enabled`` (off: ``POST /pyramid`` and ``GET
+  /pyramid/{jobId}`` answer 404, as in the JAX app), ``chunk``,
+  ``min-level-size`` and ``compressor`` of the background pyramid job
+  (``server.jobs``); ``defer-poll-s`` is held to its JAX default, since the
+  port has no pressure governor to park a job behind.
 
 One default differs on purpose: ``raw-cache.digest-dedup`` is off unless
 the file sets it.  The dedup cost a cold GET 19-20 ms on the H100 and saved
@@ -40,7 +45,11 @@ same status and body without them, at a render's cost.  They load, are
 listed in ``AppConfig.unserved`` and logged as such at startup (ROADMAP
 Queue 1 item 3).  Settings the JAX package turns on by default and the
 port does not have (``wire.streaming``, ``raw-cache.prefetch``, the
-sentinel, the pyramid job, ...) wait in ROADMAP Queue 1.
+sentinel, ...) wait in ROADMAP Queue 1.  Two parts of the JAX data path
+are not served either and have no setting of their own: the OMERO binary
+repository root (``omero.server`` ``omero.data.dir``, held to its JAX
+default of none), and JPEG 2000 TIFFs (compression 33003/33005), which
+the TIFF reader refuses with an error that names the codec.
 """
 
 from __future__ import annotations
@@ -128,6 +137,16 @@ class WorkloadsConfig:
 
 
 @dataclass
+class PyramidConfig:
+    """The background pyramid job (``server.jobs``)."""
+
+    enabled: bool = True
+    chunk: int = 256                # NGFF chunk edge of written levels
+    min_level_size: int = 256       # stop halving below this
+    compressor: str = "zlib"        # zlib | gzip | none
+
+
+@dataclass
 class LoggingConfig:
     level: str = "INFO"
     file: Optional[str] = None           # a time-rolling file appender
@@ -181,10 +200,6 @@ _UNPORTED = {
         "bulk-fraction": 0.02, "mask-fraction": 0.0,
         "pyramid-fraction": 0.0, "animation-fraction": 0.0,
         "zoom-fraction": 0.05, "skew": 0.0, "image-population": 1,
-    },
-    "pyramid": {
-        "enabled": True, "chunk": 256, "min-level-size": 256,
-        "compressor": "zlib", "defer-poll-s": 0.25,
     },
     "autoscaler": {
         "enabled": False, "interval-s": 2.0, "floor": 1, "ceiling": 0,
@@ -259,6 +274,7 @@ _UNPORTED_KEYS = {
         "die-after-requests": 0,
     },
     "omero.server": {"omero.data.dir": None},
+    "pyramid": {"defer-poll-s": 0.25},
     "session-store": {"uri": None},
 }
 
@@ -328,6 +344,7 @@ class AppConfig:
         default_factory=FaultInjectionConfig)
     logging: LoggingConfig = field(default_factory=LoggingConfig)
     workloads: WorkloadsConfig = field(default_factory=WorkloadsConfig)
+    pyramid: PyramidConfig = field(default_factory=PyramidConfig)
     # Sections switched on that the port loads but does not serve.
     unserved: Tuple[str, ...] = ()
 
@@ -415,6 +432,7 @@ class AppConfig:
         cfg._fault_injection(_block(raw, "fault-injection"))
         cfg._renderer(_block(raw, "renderer"))
         cfg._workloads(_block(raw, "workloads"))
+        cfg._pyramid(_block(raw, "pyramid"))
         return cfg
 
     def _http_cache(self, hc: dict) -> None:
@@ -528,3 +546,20 @@ class AppConfig:
             jpeg_engine=str(rd.get("jpeg-engine", d.jpeg_engine)))
         if self.renderer.jpeg_engine != "sparse":
             raise _refuse("renderer.jpeg-engine", self.renderer.jpeg_engine)
+
+    def _pyramid(self, py: dict) -> None:
+        _check("pyramid", py, _UNPORTED_KEYS["pyramid"],
+               served=("enabled", "chunk", "min-level-size", "compressor"))
+        d = PyramidConfig()
+        self.pyramid = PyramidConfig(
+            enabled=bool(py.get("enabled", d.enabled)),
+            chunk=int(py.get("chunk", d.chunk)),
+            min_level_size=int(py.get("min-level-size", d.min_level_size)),
+            compressor=str(py.get("compressor", d.compressor)))
+        if self.pyramid.chunk < 16:
+            raise ValueError("pyramid.chunk must be >= 16")
+        if self.pyramid.min_level_size < 1:
+            raise ValueError("pyramid.min-level-size must be >= 1")
+        if self.pyramid.compressor not in ("zlib", "gzip", "none"):
+            raise ValueError("pyramid.compressor must be zlib, gzip, "
+                             "or none")

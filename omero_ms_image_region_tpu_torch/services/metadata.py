@@ -10,11 +10,18 @@ ACL model: each image directory may carry an ``acl.json`` —
 ``{"public": true}`` or ``{"sessions": ["key", ...]}``.  Absent file =
 public (the standalone dev posture).
 
+Pixels descriptions come from the backend ``io.service`` sniffs, in the
+same order: a chunked store's ``meta.json``, else an OME-NGFF group's
+``.zattrs`` / ``.zarray`` JSON, else an OME-TIFF's OME-XML and IFDs.  The
+NGFF and TIFF parses run off the event loop and are cached per (path,
+mtime), so a WSI pyramid is parsed again only when rewritten.
+
 ``source_mtime`` is the ``Last-Modified`` source of conditional HTTP
-(``server.httpcache``).  The port reads chunked stores only
-(``io.service``), so an image's stamp is the newer of its directory's and
-its ``meta.json``'s mtime; the JAX service also stamps NGFF and TIFF
-sources, which wait for the port's readers of those formats.
+(``server.httpcache``): the newest of the image directory, its
+``meta.json``, the NGFF group's geometry stamp (the ``.zattrs`` and
+level-0 ``.zarray`` files, not the directory) or the TIFF file, as in the
+JAX service, so both packages send the same ``Last-Modified`` and ETag
+epoch for the same tree.
 
 Shape masks live under ``<data_dir>/masks/<shape_id>.json`` (width, height,
 fill colour) and ``.bin`` (the packed bits), the layout :func:`write_mask`
@@ -25,14 +32,64 @@ a mask is readable when it exists.
 
 from __future__ import annotations
 
+import asyncio
 import json
 import os
 import threading
 import time
 from typing import Dict, Optional, Tuple
 
+import numpy as np
+
+from ..io.ngff import NgffZarrSource, find_ngff
+from ..io.ometiff import OmeTiffSource, find_tiff
 from ..models.mask import Mask
 from ..models.pixels import Pixels
+
+# Level-0 dataset path per NGFF root, validated by the root .zattrs
+# mtime: the path only changes when .zattrs changes, so the per-request
+# freshness stamp stays stat-only.
+_NGFF_LEVEL0: Dict[str, Tuple[int, Optional[str]]] = {}
+_NGFF_LEVEL0_LOCK = threading.Lock()
+
+
+def _ngff_level0_zarray(ngff: str, zattrs_mtime_ns: int) -> Optional[str]:
+    with _NGFF_LEVEL0_LOCK:
+        cached = _NGFF_LEVEL0.get(ngff)
+        if cached is not None and cached[0] == zattrs_mtime_ns:
+            return cached[1]
+    path = None
+    try:
+        with open(os.path.join(ngff, ".zattrs")) as f:
+            attrs = json.load(f)
+        datasets = (attrs.get("multiscales") or [{}])[0] \
+            .get("datasets") or []
+        if datasets and datasets[0].get("path"):
+            path = os.path.join(ngff, datasets[0]["path"], ".zarray")
+    except (OSError, ValueError, KeyError, IndexError):
+        pass    # malformed/absent .zattrs: the parse downstream complains
+    with _NGFF_LEVEL0_LOCK:
+        _NGFF_LEVEL0[ngff] = (zattrs_mtime_ns, path)
+    return path
+
+
+def _ngff_meta_mtime(ngff: str) -> int:
+    """Freshness stamp (ns) of an NGFF group's geometry: the metadata
+    FILES, not the directory (an in-place rewrite leaves the directory's
+    mtime alone), the first multiscales level's ``.zarray`` included."""
+    candidates = [os.path.join(ngff, ".zattrs"),
+                  os.path.join(ngff, ".zarray")]
+    try:
+        zattrs_mtime = os.stat(candidates[0]).st_mtime_ns
+    except OSError:
+        zattrs_mtime = 0
+    if zattrs_mtime:
+        level0 = _ngff_level0_zarray(ngff, zattrs_mtime)
+        if level0 is not None:
+            candidates.append(level0)
+    return max((os.stat(p).st_mtime_ns for p in candidates
+                if os.path.exists(p)),
+               default=os.stat(ngff).st_mtime_ns)
 
 
 def _check_acl(path: str, session_key: Optional[str]) -> bool:
@@ -47,7 +104,8 @@ def _check_acl(path: str, session_key: Optional[str]) -> bool:
 
 
 class LocalMetadataService:
-    """Filesystem-backed metadata: ``<data_dir>/<image_id>/meta.json``."""
+    """Filesystem-backed metadata over the image directories of a data
+    directory (chunked store, NGFF group or TIFF) and its masks."""
 
     # Source mtimes are memoized this long: a request pays a dict hit, not
     # a stat walk.
@@ -55,6 +113,9 @@ class LocalMetadataService:
 
     def __init__(self, data_dir: str):
         self.data_dir = data_dir
+        # image id -> ((path, mtime_ns), Pixels) for NGFF- and TIFF-backed
+        # images (a chunked store's meta.json read is cheap enough bare).
+        self._parsed_pixels: Dict[int, tuple] = {}
         self._mtime_memo: Dict[int, Tuple[float, Optional[float]]] = {}
         self._mtime_lock = threading.Lock()
 
@@ -67,20 +128,62 @@ class LocalMetadataService:
     async def get_pixels_description(self, image_id: int,
                                      session_key: Optional[str]
                                      ) -> Optional[Pixels]:
-        meta_path = os.path.join(self._image_dir(image_id), "meta.json")
-        if not os.path.exists(meta_path):
+        image_dir = self._image_dir(image_id)
+        meta_path = os.path.join(image_dir, "meta.json")
+        if os.path.exists(meta_path):
+            with open(meta_path) as f:
+                m = json.load(f)
+            return Pixels(
+                image_id=image_id,
+                pixels_type=m.get("pixels_type", m["dtype"]),
+                size_x=m["levels"][0]["size_x"],
+                size_y=m["levels"][0]["size_y"],
+                size_z=m["size_z"],
+                size_c=m["size_c"],
+                size_t=m["size_t"],
+            )
+        ngff = await asyncio.to_thread(find_ngff, image_dir)
+        if ngff is not None:
+            mtime = await asyncio.to_thread(_ngff_meta_mtime, ngff)
+            return await self._parsed(image_id, ngff, mtime,
+                                      self._parse_ngff_pixels)
+        tiff = find_tiff(image_dir)
+        if tiff is None:
             return None
-        with open(meta_path) as f:
-            m = json.load(f)
+        return await self._parsed(image_id, tiff,
+                                  os.stat(tiff).st_mtime_ns,
+                                  self._parse_tiff_pixels)
+
+    async def _parsed(self, image_id: int, path: str, mtime: int,
+                      parse) -> Pixels:
+        """The (path, mtime)-cached parse of an NGFF or TIFF image's
+        Pixels, run off the event loop on a miss."""
+        cached = self._parsed_pixels.get(image_id)
+        if cached is not None and cached[0] == (path, mtime):
+            return cached[1]
+        px = await asyncio.to_thread(parse, image_id, path)
+        self._parsed_pixels[image_id] = ((path, mtime), px)
+        return px
+
+    @staticmethod
+    def _parse_ngff_pixels(image_id: int, ngff: str) -> Pixels:
+        src = NgffZarrSource(ngff)
         return Pixels(
-            image_id=image_id,
-            pixels_type=m.get("pixels_type", m["dtype"]),
-            size_x=m["levels"][0]["size_x"],
-            size_y=m["levels"][0]["size_y"],
-            size_z=m["size_z"],
-            size_c=m["size_c"],
-            size_t=m["size_t"],
-        )
+            image_id=image_id, pixels_type=np.dtype(src.dtype).name,
+            size_x=src.size_x, size_y=src.size_y, size_z=src.size_z,
+            size_c=src.size_c, size_t=src.size_t)
+
+    @staticmethod
+    def _parse_tiff_pixels(image_id: int, tiff: str) -> Pixels:
+        src = OmeTiffSource(tiff)
+        try:
+            size_x, size_y = src.resolution_descriptions()[0]
+            return Pixels(
+                image_id=image_id, pixels_type=src.pixels_type,
+                size_x=size_x, size_y=size_y, size_z=src.size_z,
+                size_c=src.size_c, size_t=src.size_t)
+        finally:
+            src.close()
 
     def source_mtime_cached(self, image_id: int
                             ) -> Tuple[bool, Optional[float]]:
@@ -96,8 +199,9 @@ class LocalMetadataService:
 
     def source_mtime(self, image_id: int) -> Optional[float]:
         """The image's source mtime (unix seconds): the newest of its
-        directory and its ``meta.json``; None when the image does not
-        exist.  Memoized for ``_MTIME_TTL_S``."""
+        directory, its ``meta.json``, its NGFF group's geometry stamp or,
+        without a group, its TIFF; None when the image does not exist.
+        Memoized for ``_MTIME_TTL_S``."""
         hit, value = self.source_mtime_cached(image_id)
         if hit:
             return value
@@ -105,8 +209,16 @@ class LocalMetadataService:
         candidates = []
         try:
             candidates.append(os.stat(image_dir).st_mtime)
-            candidates.append(
-                os.stat(os.path.join(image_dir, "meta.json")).st_mtime)
+            meta = os.path.join(image_dir, "meta.json")
+            if os.path.exists(meta):
+                candidates.append(os.stat(meta).st_mtime)
+            ngff = find_ngff(image_dir)
+            if ngff is not None:
+                candidates.append(_ngff_meta_mtime(ngff) / 1e9)
+            else:
+                tiff = find_tiff(image_dir)
+                if tiff is not None:
+                    candidates.append(os.stat(tiff).st_mtime)
         except OSError:
             pass
         mtime = max(candidates) if candidates else None

@@ -422,15 +422,19 @@ HTTPCACHE = HttpCacheStats()
 class WorkloadStats:
     """The workload routes: requests by kind (a closed vocabulary:
     ``mask_device`` / ``mask_host``, the rasterizer that served a mask,
-    ``overlay``, ``animation``), animation streams, frames and
-    cancellations, and the last stream's first-frame latency.  The JAX
-    class also counts pyramid jobs, which come with the pyramid job."""
+    ``overlay``, ``animation``), pyramid jobs by lifecycle action
+    (``submitted``, ``resumed``, ``completed``, ``failed``, ``cancelled``),
+    the jobs running and the levels committed, animation streams, frames
+    and cancellations, and the last stream's first-frame latency."""
 
     REQUEST_KINDS = ("mask_device", "mask_host", "overlay", "animation")
 
     def __init__(self):
         self._lock = threading.Lock()
         self.requests: Dict[str, int] = {}
+        self.jobs: Dict[str, int] = {}
+        self.jobs_active = 0
+        self.levels_committed = 0
         self.streams = 0
         self.frames = 0
         self.stream_cancels = 0
@@ -439,6 +443,22 @@ class WorkloadStats:
     def count_request(self, kind: str) -> None:
         with self._lock:
             self.requests[kind] = self.requests.get(kind, 0) + 1
+
+    def count_job(self, action: str) -> None:
+        with self._lock:
+            self.jobs[action] = self.jobs.get(action, 0) + 1
+
+    def job_started(self) -> None:
+        with self._lock:
+            self.jobs_active += 1
+
+    def job_finished(self) -> None:
+        with self._lock:
+            self.jobs_active = max(0, self.jobs_active - 1)
+
+    def count_level_committed(self) -> None:
+        with self._lock:
+            self.levels_committed += 1
 
     def count_stream(self) -> None:
         with self._lock:
@@ -458,11 +478,17 @@ class WorkloadStats:
 
     def metric_lines(self) -> List[str]:
         with self._lock:
-            if not (self.requests or self.streams):
+            if not (self.requests or self.jobs or self.jobs_active
+                    or self.levels_committed or self.streams):
                 return []          # quiet until a workload request
             lines = [f'imageregion_workload_requests_total{{kind="{k}"}} '
                      f"{self.requests[k]}" for k in sorted(self.requests)]
+            lines += [f'imageregion_pyramid_jobs_total{{action="{a}"}} '
+                      f"{self.jobs[a]}" for a in sorted(self.jobs)]
             lines += [
+                f"imageregion_pyramid_jobs_active {self.jobs_active}",
+                "imageregion_pyramid_levels_committed_total "
+                f"{self.levels_committed}",
                 f"imageregion_animation_streams_total {self.streams}",
                 f"imageregion_animation_frames_total {self.frames}",
                 "imageregion_animation_cancelled_total "
@@ -476,6 +502,8 @@ class WorkloadStats:
     def reset(self) -> None:
         with self._lock:
             self.requests.clear()
+            self.jobs.clear()
+            self.jobs_active = self.levels_committed = 0
             self.streams = self.frames = self.stream_cancels = 0
             self.first_frame_ms = None
 
@@ -514,6 +542,9 @@ METRIC_TYPES: Dict[str, str] = {
     "imageregion_httpcache_304_total": "counter",
     "imageregion_httpcache_head_total": "counter",
     "imageregion_workload_requests_total": "counter",
+    "imageregion_pyramid_jobs_total": "counter",
+    "imageregion_pyramid_jobs_active": "gauge",
+    "imageregion_pyramid_levels_committed_total": "counter",
     "imageregion_animation_streams_total": "counter",
     "imageregion_animation_frames_total": "counter",
     "imageregion_animation_cancelled_total": "counter",
@@ -536,6 +567,13 @@ METRIC_HELP: Dict[str, str] = {
     "imageregion_workload_requests_total":
         "Device-workloads requests by kind (mask_device/mask_host = "
         "which rasterizer served the mask; overlay; animation)",
+    "imageregion_pyramid_jobs_total":
+        "Pyramid build job lifecycle transitions by action "
+        "(submitted, resumed, completed, failed, cancelled)",
+    "imageregion_pyramid_jobs_active":
+        "Pyramid build jobs currently running",
+    "imageregion_pyramid_levels_committed_total":
+        "Pyramid levels atomically committed (tmp-dir os.replace)",
     "imageregion_animation_streams_total":
         "z/t animation streams started",
     "imageregion_animation_frames_total":

@@ -44,7 +44,11 @@ def test_port_imports_without_jax_or_the_jax_package():
                 "utils.transient", "utils.telemetry", "utils.stopwatch",
                 "utils.faultinject", "server.httpcache", "server.admission",
                 "server.watchdog", "server.config", "server.errors",
-                "services.metadata", "codecs", "flagship"):
+                "services.metadata", "codecs", "flagship",
+                "kernels.workloads", "ops.pyramid", "ops.projection",
+                "ops.maskops", "io.tiff", "io.jpegdec", "io.ometiff",
+                "io.ngff", "io.memory", "io.tiffwrite", "server.jobs",
+                "ingest"):
         assert f"omero_ms_image_region_tpu_torch.{mod}" in doc["imported"]
     assert doc["leaked"] == []
     assert doc["jax"] == []

@@ -137,12 +137,16 @@ def test_metrics_match_jax(data_dir):
     types = telemetry.METRIC_TYPES
     port_fams = _families(text, types)
     assert port_fams == _families(jax_text, types)
-    # Every ported family but the shed and watchdog counters and the
-    # workload routes' families, which this sequence never moves
-    # (tests/test_torch_workloads.py holds those to the JAX app's).
+    # Every ported family but the shed and watchdog counters, the
+    # workload routes' families and the pyramid job's, which this sequence
+    # never moves (tests/test_torch_workloads.py and
+    # tests/test_torch_readers.py hold those to the JAX app's).
     assert {f for f, _ in port_fams} == set(types) - {
         "imageregion_shed_total", "imageregion_watchdog_fires_total",
         "imageregion_workload_requests_total",
+        "imageregion_pyramid_jobs_total",
+        "imageregion_pyramid_jobs_active",
+        "imageregion_pyramid_levels_committed_total",
         "imageregion_animation_streams_total",
         "imageregion_animation_frames_total",
         "imageregion_animation_cancelled_total",
