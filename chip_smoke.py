@@ -10,7 +10,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
 2. build   the kernels from ``kernels/csrc/render.cu``,
            ``kernels/csrc/jpeg.cu`` and ``kernels/csrc/workloads.cu`` with
            nvcc and the native codecs (``native/jpegenc.cpp``,
-           ``jpegdec.cpp`` and ``tilecache.cpp``) with g++, all at once;
+           ``jpegdec.cpp``, ``tilecache.cpp`` and the JPEG 2000 tier-1,
+           ``jp2kt1.cpp``) with g++, all at once;
            print each kernel's ptxas register and shared-memory lines;
 3. kernels each kernel against its plain PyTorch version at the flagship
            shape B=8, C=4, 1024x1024 uint16 (and at the served shape B=1):
@@ -71,7 +72,10 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                        the kernel line's ``launches``;
            e2e:        the raw cache cleared, 16 sequential and 48 GETs at
                        8 in flight, every one a miss (fails on a hit): p50,
-                       tiles/s, group sizes, queue wait, execute time;
+                       tiles/s, group sizes, queue wait, execute time (the
+                       app of these phases and of admission: and watchdog:
+                       runs without the prefetcher, which would turn cold
+                       GETs warm; prefetch: runs the default app with it);
            raw_cache:  the 16 sequential tiles with another window, each a
                        hit (fails on a miss) and equal to the plain route:
                        warm p50 against cold;
@@ -128,6 +132,33 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                        launched once per level step; the job's wall time
                        split into the source read, the K9 steps and the
                        level writes;
+           omero:      the OMERO deployment: an app with the Postgres
+                       session store (required) and metadata service on
+                       a sqlite OMERO schema (``SqliteAsyncDb``, its
+                       statements counted) and ``omero.data.dir`` on a
+                       repository holding image 3's OME-TIFF as a
+                       ManagedRepository fileset (image 11), a big-endian
+                       2048^2 x 4 uint16 ROMIO buffer cut from image 1
+                       (12) and two Aperio-style JP2K TIFFs of 2048^2 RGB
+                       in 512^2 tiles, 33005 and 33003 (13, 14): owner,
+                       member and public-read device-route JPEG GETs of
+                       each, 11 and 12 byte-equal to image 1's, 13 and 14
+                       to the plain route over the reader's pixels; a LUT
+                       GET; the outsider's 404 on a private image; 403s
+                       for no cookie, an expired and an unknown one; one
+                       JP2K tile by the native and the Python tier-1,
+                       equal, with both times; a repeat GET asking no ACL
+                       statement past the canRead memo; cold
+                       ``readRegion`` over 8 512^2 tiles of each layout
+                       beside the chunked store's; K1-K4b launched;
+           prefetch:   the default app with prefetch on and sessions
+                       enabled: one session pans 16 1024^2 tiles of image
+                       1 (a snake over rows 4 and 5), each body equal to
+                       the plain route; the prefetcher's hit rate (fails
+                       at 0), staged, predicted and skipped counts, the
+                       pan-step p50 against e2e's cold p50; then e2e's 48
+                       GETs at 8 in flight with prefetch on, mean group
+                       size and tiles/s beside e2e's (reported only);
            then the device busy share (torch.profiler) of 8 sequential and
            of 32 concurrent cold GETs, one tile's layer breakdown on a cold
            host read (read, digest, pinned DMA, kernels, wire, coder),
@@ -154,7 +185,8 @@ Each phase's launch counts are set to 0 just before it and read just
 after.  It prints the kernel table of all nine kernels as one JSON line
 (``launches``: the batch burst for K1-K4b, the workload phases for K7,
 K8a, K8b and K9; ``workload_launches``: each kernel's launches in each of
-those phases, readers and pyramid included), then the nvidia-smi line,
+those phases, readers, pyramid, omero and prefetch included), then the
+nvidia-smi line,
 and last ``{"ok": true, "device": {...}}``.  It imports nothing of JAX.
 """
 
@@ -1158,8 +1190,8 @@ class Client:
     mapping and request accounting, without a socket; its watchdog runs as
     a task here)."""
 
-    def __init__(self, config, handler, have_aiohttp):
-        self.config, self.handler = config, handler
+    def __init__(self, config, handler, have_aiohttp, db=None):
+        self.config, self.handler, self.db = config, handler, db
         self.via = "http" if have_aiohttp else "front"
         self.runner = self.session = self.front = self.watchdog = None
         self.jobs = None
@@ -1171,7 +1203,7 @@ class Client:
             from omero_ms_image_region_tpu_torch.server.app import create_app
             self.port = free_port()
             self.runner = web.AppRunner(create_app(
-                self.config, DEVICE, handler=self.handler))
+                self.config, DEVICE, handler=self.handler, db=self.db))
             await self.runner.setup()
             await web.TCPSite(self.runner, "127.0.0.1", self.port).start()
             self.session = aiohttp.ClientSession(
@@ -1180,7 +1212,7 @@ class Client:
         from omero_ms_image_region_tpu_torch.server.app import Front
         from omero_ms_image_region_tpu_torch.server.watchdog import (
             build_watchdog)
-        self.front = Front(self.config, self.handler)
+        self.front = Front(self.config, self.handler, db=self.db)
         if self.config.watchdog.enabled:
             self.watchdog = asyncio.create_task(build_watchdog(
                 self.config.watchdog, self.handler.s.renderer).run())
@@ -1196,12 +1228,18 @@ class Client:
             if task is not None:
                 task.cancel()
                 await asyncio.gather(task, return_exceptions=True)
+        if self.handler.s.prefetcher is not None:
+            self.handler.s.prefetcher.close()
         await self.handler.s.renderer.close()
 
     async def request(self, route, query, method="GET", headers=None,
-                      image="1"):
-        """(status, headers, body, wall ms) of one request."""
+                      image="1", cookies=None):
+        """(status, headers, body, wall ms) of one request; ``cookies``
+        (name -> value) go in its ``Cookie`` header."""
         t0 = time.perf_counter()
+        if cookies:
+            headers = dict(headers or {}, Cookie="; ".join(
+                f"{k}={v}" for k, v in cookies.items()))
         if self.session is not None:
             query = dict(query)
             image = query.pop("imageId", image)
@@ -1216,7 +1254,7 @@ class Client:
         else:
             answer = await self.front.observed(
                 route, method, params_of(route, query, image),
-                headers or {}, {})
+                headers or {}, cookies or {})
             status, hdrs, body = answer.status, answer.headers, answer.body
         return status, hdrs, body, (time.perf_counter() - t0) * 1e3
 
@@ -1354,6 +1392,8 @@ def front_handler(data_dir, lut_root, raw):
     from omero_ms_image_region_tpu_torch.server.handler import (
         ImageRegionHandler)
 
+    raw = dict(raw)
+    raw.setdefault("raw-cache", {"prefetch": False})
     config = AppConfig.from_dict(dict(raw, **{
         "data-dir": data_dir,
         "omero.server": {"omero.script_repo_root": lut_root}}))
@@ -1391,7 +1431,7 @@ async def admission_phase(data_dir, lut_root, have_aiohttp,
         doc = {"gets": len(reqs), "bound": adm.max_queue,
                "statuses": statuses, "admitted": adm.admitted_total,
                "shed": adm.shed_total, "wall_ms": wall * 1e3,
-               "via": client.via}
+               "prefetch": False, "via": client.via}
         print("admission: " + json.dumps(doc), flush=True)
         check(statuses.get(503, 0) >= 1, "admission: nothing was shed")
         check(adm.admitted_total + adm.shed_total == len(reqs),
@@ -1967,6 +2007,497 @@ async def pyramid_phase(torch, np, client, handler, data_dir) -> dict:
     return launches
 
 
+# The OMERO deployment (omero:): the repository images' ids, the legacy
+# buffer's pixels id (Pixels/Dir-001/1012: the Dir-### fan-out), the
+# OMERO.web cookies and the OMERO sessions their Django sessions hold.
+OMERO_IMAGES = {"ome-tiff": "11", "romio": "12", "jp2k-33005": "13",
+                "jp2k-33003": "14"}
+PRIVATE_IMAGE = "15"
+OMERO_SIZE = 2048
+ROMIO_PIXELS_ID = 1012
+J2K_TILE = 512
+OMERO_COOKIES = {"ck-owner": "sess-owner", "ck-member": "sess-member",
+                 "ck-outsider": "sess-outsider"}
+OMERO_DSN = "postgresql://omero@localhost/omero"
+OMERO_SCHEMA = """
+CREATE TABLE experimentergroup (id INTEGER PRIMARY KEY, name TEXT,
+                                permissions INTEGER);
+CREATE TABLE experimenter (id INTEGER PRIMARY KEY, omename TEXT);
+CREATE TABLE groupexperimentermap (child INTEGER, parent INTEGER);
+CREATE TABLE session (id INTEGER PRIMARY KEY, uuid TEXT, owner INTEGER,
+                      closed TEXT);
+CREATE TABLE image (id INTEGER PRIMARY KEY, owner_id INTEGER,
+                    group_id INTEGER, fileset INTEGER);
+CREATE TABLE fileset (id INTEGER PRIMARY KEY, templateprefix TEXT);
+CREATE TABLE filesetentry (id INTEGER PRIMARY KEY, fileset INTEGER,
+                           originalfile INTEGER, clientpath TEXT);
+CREATE TABLE originalfile (id INTEGER PRIMARY KEY, path TEXT, name TEXT,
+                           mimetype TEXT);
+CREATE TABLE pixelstype (id INTEGER PRIMARY KEY, value TEXT);
+CREATE TABLE pixels (id INTEGER PRIMARY KEY, image INTEGER, sizex INTEGER,
+                     sizey INTEGER, sizez INTEGER, sizec INTEGER,
+                     sizet INTEGER, pixelstype INTEGER);
+CREATE TABLE shape (id INTEGER PRIMARY KEY, roi INTEGER, owner_id INTEGER,
+                    group_id INTEGER, width INTEGER, height INTEGER,
+                    bytes BLOB, fillcolor INTEGER);
+CREATE TABLE django_session (session_key TEXT PRIMARY KEY,
+                             session_data TEXT, expire_date TEXT);
+"""
+
+
+class SqliteAsyncDb:
+    """The ``AsyncDb`` (``fetchrow`` / ``fetch``) the port's Postgres
+    session store and metadata service run on in this script: an
+    OMERO-schema subset in a sqlite file, the services' PostgreSQL
+    statements run as written but for ``$N`` -> ``?`` and ``now()`` ->
+    ``CURRENT_TIMESTAMP``.  It counts statements, the Django-session
+    lookups apart.  It proves the statements and the ACL arithmetic, not
+    a live Postgres: no pool, no network round trip, no server-side plan
+    or lock."""
+
+    def __init__(self, path: str):
+        import sqlite3
+
+        self.conn = sqlite3.connect(path, check_same_thread=False)
+        self.conn.row_factory = sqlite3.Row
+        self.statements = 0
+        self.session_statements = 0
+
+    def _run(self, sql, args):
+        import re
+
+        if "django_session" in sql:
+            self.session_statements += 1
+        else:
+            self.statements += 1
+        return self.conn.execute(re.sub(r"\$\d+", "?", sql).replace(
+            "now()", "CURRENT_TIMESTAMP"), args)
+
+    async def fetchrow(self, sql, *args):
+        row = self._run(sql, args).fetchone()
+        return None if row is None else dict(row)
+
+    async def fetch(self, sql, *args):
+        return [dict(r) for r in self._run(sql, args).fetchall()]
+
+
+def write_j2k_tiff(np, path, rgb, compression: int) -> None:
+    """An Aperio-style tiled TIFF whose 512^2 tiles are raw J2K
+    codestreams from PIL (lossy 9/7 at a 20:1 rate): 33005 RGB with the
+    codestream's colour transform on, 33003 YCbCr planes with it off (the
+    photometric 6 convention), written with the port's ``_TiffOut``."""
+    import io
+
+    from PIL import Image
+
+    from omero_ms_image_region_tpu_torch.io.tiffwrite import _TiffOut
+
+    h, w, _ = rgb.shape
+    ycc = compression == 33003
+    with open(path, "wb") as f:
+        out = _TiffOut(f, big=False)
+        offs, cnts = [], []
+        for y in range(0, h, J2K_TILE):
+            for x in range(0, w, J2K_TILE):
+                t = rgb[y:y + J2K_TILE, x:x + J2K_TILE]
+                if ycc:
+                    r, g, b = (t[..., i].astype(np.float32)
+                               for i in range(3))
+                    t = np.stack([
+                        0.299 * r + 0.587 * g + 0.114 * b,
+                        128.0 - 0.168736 * r - 0.331264 * g + 0.5 * b,
+                        128.0 + 0.5 * r - 0.418688 * g - 0.081312 * b],
+                        -1).round().clip(0, 255).astype(np.uint8)
+                buf = io.BytesIO()
+                Image.fromarray(np.ascontiguousarray(t)).save(
+                    buf, "JPEG2000", irreversible=True, no_jp2=True,
+                    quality_mode="rates", quality_layers=[20],
+                    mct=0 if ycc else 1)
+                out.align()
+                offs.append(out.write(buf.getvalue()))
+                cnts.append(len(buf.getvalue()))
+        ifd, _ = out.write_ifd([
+            (256, 4, [w]), (257, 4, [h]), (258, 3, [8, 8, 8]),
+            (259, 3, [compression]), (262, 3, [6 if ycc else 2]),
+            (277, 3, [3]), (284, 3, [1]), (322, 4, [J2K_TILE]),
+            (323, 4, [J2K_TILE]), (324, 4, offs), (325, 4, cnts)])
+        out.patch_first_ifd(ifd)
+
+
+def build_omero(np, data_dir: str, root: str):
+    """The OMERO deployment under ``root``: the binary repository (image
+    3's OME-TIFF hard-linked into a ManagedRepository fileset; a
+    big-endian 2048^2 x 4 uint16 ROMIO buffer cropped from image 1's level
+    0; two Aperio-style JP2K TIFFs, 33005 and 33003, of 2048^2 RGB from
+    the same crop), an empty data directory, and the OMERO schema in
+    sqlite: the public group holds images 11-14 (owner and member in it,
+    the outsider reading by the world bit), the private group image 15;
+    live Django sessions for the three cookies, and an expired one."""
+    import base64
+    import pickle
+
+    from omero_ms_image_region_tpu_torch.io.ometiff import find_tiff
+    from omero_ms_image_region_tpu_torch.io.store import ChunkedPyramidStore
+    from omero_ms_image_region_tpu_torch.server.region import RegionDef
+    from omero_ms_image_region_tpu_torch.services.db_metadata import (
+        _romio_rel_path)
+
+    t0 = time.perf_counter()
+    repo = os.path.join(root, "OMERO")
+    prefix = "user-1_100/2026-10/17"
+    managed = os.path.join(repo, "ManagedRepository", prefix)
+    os.makedirs(managed)
+    os.link(find_tiff(os.path.join(data_dir, READER_IMAGES["ome-tiff"])),
+            os.path.join(managed, "plane.ome.tiff"))
+    store = ChunkedPyramidStore(os.path.join(data_dir, "1"))
+    crop = np.stack([store.get_region(0, c, 0, RegionDef(
+        0, 0, OMERO_SIZE, OMERO_SIZE), 0) for c in range(4)])
+    store.close()
+    romio = os.path.join(repo, _romio_rel_path(ROMIO_PIXELS_ID))
+    os.makedirs(os.path.dirname(romio))
+    with open(romio, "wb") as f:          # XYZCT: one plane a channel
+        f.write(crop.astype(">u2").tobytes())
+    rgb = np.ascontiguousarray((crop[:3] >> 8).astype(np.uint8)
+                               .transpose(1, 2, 0))
+    for comp in (33005, 33003):
+        write_j2k_tiff(np, os.path.join(managed, f"scan-{comp}.svs"), rgb,
+                       comp)
+    omero_data = os.path.join(root, "omero-data")
+    os.makedirs(omero_data)
+
+    db = SqliteAsyncDb(os.path.join(root, "omero.db"))
+    c = db.conn
+    c.executescript(OMERO_SCHEMA)
+    c.executemany("INSERT INTO experimentergroup VALUES (?, ?, ?)",
+                  [(0, "system", -120), (10, "lab", -120),
+                   (12, "atlas-public", -52)])
+    c.executemany("INSERT INTO experimenter VALUES (?, ?)",
+                  [(100, "owner"), (101, "member"), (102, "outsider")])
+    c.executemany("INSERT INTO groupexperimentermap VALUES (?, ?)",
+                  [(100, 10), (100, 12), (101, 12)])
+    c.executemany("INSERT INTO session VALUES (?, ?, ?, ?)",
+                  [(i + 1, key, 100 + i, None)
+                   for i, key in enumerate(OMERO_COOKIES.values())])
+    files = {"11": "plane.ome.tiff", "13": "scan-33005.svs",
+             "14": "scan-33003.svs", "15": "plane.ome.tiff"}
+    for image, name in files.items():
+        fs = 900 + int(image)
+        c.execute("INSERT INTO fileset VALUES (?, ?)", (fs, prefix + "/"))
+        c.execute("INSERT INTO filesetentry VALUES (?, ?, ?, ?)",
+                  (fs, fs, fs, name))
+        c.execute("INSERT INTO originalfile VALUES (?, ?, ?, ?)",
+                  (fs, prefix + "/", name, "image/tiff"))
+    c.executemany("INSERT INTO image VALUES (?, ?, ?, ?)", [
+        (11, 100, 12, 911), (12, 100, 12, None), (13, 100, 12, 913),
+        (14, 100, 12, 914), (15, 100, 10, 915)])
+    c.executemany("INSERT INTO pixelstype VALUES (?, ?)",
+                  [(1, "uint16"), (2, "uint8")])
+    c.executemany("INSERT INTO pixels VALUES (?, ?, ?, ?, ?, ?, ?, ?)", [
+        (1011, 11, PLANE, PLANE, 1, 4, 1, 1),
+        (ROMIO_PIXELS_ID, 12, OMERO_SIZE, OMERO_SIZE, 1, 4, 1, 1),
+        (1013, 13, OMERO_SIZE, OMERO_SIZE, 1, 3, 1, 2),
+        (1014, 14, OMERO_SIZE, OMERO_SIZE, 1, 3, 1, 2),
+        (1015, 15, PLANE, PLANE, 1, 4, 1, 1)])
+
+    def payload(key):
+        return base64.b64encode(b"hmac:" + pickle.dumps(
+            {"connector": {"omero_session_key": key}})).decode()
+    c.executemany("INSERT INTO django_session VALUES (?, ?, ?)", [
+        *((cookie, payload(key), "2999-01-01 00:00:00")
+          for cookie, key in OMERO_COOKIES.items()),
+        ("ck-expired", payload("sess-owner"), "2001-01-01 00:00:00")])
+    c.commit()
+    return db, repo, omero_data, time.perf_counter() - t0
+
+
+async def omero_phase(torch, np, client, handler, data_dir, lut_root,
+                      have_aiohttp) -> dict:
+    """The OMERO deployment path: the port's app with the Postgres session
+    store (required) and metadata service on the sqlite ``AsyncDb``, and
+    ``omero.data.dir`` on the repository (prefetch off: the cold reads
+    below count on misses).  Owner, member and public-read (outsider)
+    device-route JPEG GETs of each repository image, each a 200: the
+    OME-TIFF fileset's and the ROMIO buffer's byte-equal to image 1's, the
+    JP2K TIFFs' equal to the plain route over the reader's pixels; one LUT
+    GET (K2); the outsider on the private image a 404; no cookie, an
+    expired and an unknown cookie a 403.  Then one JP2K tile decoded with
+    the native and the Python tier-1, equal; the canRead memo's repeat
+    GET (no ACL statement beyond ``get_pixels_description``'s); each
+    layout's cold ``PixelsService.readRegion`` over 8 512^2 tiles beside
+    the chunked store's.  Returns the phase's kernel launches."""
+    from omero_ms_image_region_tpu_torch.io import jp2k
+    from omero_ms_image_region_tpu_torch.io.tiff import (
+        TILE_BYTE_COUNTS, TILE_OFFSETS, TiffFile)
+    from omero_ms_image_region_tpu_torch.kernels import jpeg as KJ
+    from omero_ms_image_region_tpu_torch.server.app import build_services
+    from omero_ms_image_region_tpu_torch.server.config import AppConfig
+    from omero_ms_image_region_tpu_torch.server.ctx import ImageRegionCtx
+    from omero_ms_image_region_tpu_torch.server.handler import (
+        ImageRegionHandler)
+    from omero_ms_image_region_tpu_torch.services.db_metadata import (
+        DbMetadataService)
+    from omero_ms_image_region_tpu_torch.utils import telemetry
+    from omero_ms_image_region_tpu_torch.utils.stopwatch import REGISTRY
+
+    db, repo, omero_data, build_s = build_omero(
+        np, data_dir, os.path.dirname(data_dir))
+    config = AppConfig.from_dict({
+        "data-dir": omero_data,
+        "omero.server": {"omero.data.dir": repo,
+                         "omero.script_repo_root": lut_root},
+        "session-store": {"type": "postgres", "uri": OMERO_DSN,
+                          "required": True},
+        "metadata-service": {"type": "postgres", "dsn": OMERO_DSN},
+        "raw-cache": {"prefetch": False}})
+    ohandler = ImageRegionHandler(build_services(config, DEVICE, db=db))
+    check(isinstance(ohandler.s.metadata, DbMetadataService),
+          "omero: the app did not build the database metadata service")
+    oclient = Client(config, ohandler, have_aiohttp, db=db)
+    await oclient.start()
+    route = "render_image_region"
+    u16 = {"tile": f"0,1,1,{TILE},{TILE}", "c": CH, "m": "c",
+           "format": "jpeg"}
+    lut = dict(u16, c=CH.replace("$00FF00", "$smoke.lut"))
+    rgb = dict(u16, c=RGB_CH)
+    try:
+        image1 = {}
+        for name, q in (("u16", u16), ("lut", lut)):
+            status, _, body, _ = await client.request(route, q, image="1")
+            check(status == 200, f"omero: image 1 {name}: HTTP {status}")
+            image1[name] = body
+        reset_launch_counts()
+        blocks0 = jp2k.T1_NATIVE_BLOCKS
+        gets, first_statements = [], {}
+        for layout, image in OMERO_IMAGES.items():
+            q = rgb if layout.startswith("jp2k") else u16
+            bodies = []
+            for cookie, session in OMERO_COOKIES.items():
+                n0 = db.statements
+                status, _, body, ms = await oclient.request(
+                    route, q, image=image, cookies={"sessionid": cookie})
+                first_statements.setdefault(image, db.statements - n0)
+                check(status == 200, f"omero: {layout} as {session}: "
+                                     f"HTTP {status}")
+                bodies.append(body)
+                gets.append([layout, session, len(body), round(ms, 2)])
+            if layout.startswith("jp2k"):
+                ctx = ImageRegionCtx.from_params(
+                    params_of(route, q, image), "sess-owner")
+                raw, settings = await ohandler.read(ctx)
+                want = plain_jpeg(torch, ctx, raw, settings)
+                what = "the plain route over the reader's pixels"
+            else:
+                want, what = image1["u16"], "image 1's"
+            check(all(b == want for b in bodies),
+                  f"omero: {layout}: a body differs from {what}")
+        status, _, body, _ = await oclient.request(
+            route, lut, image=OMERO_IMAGES["ome-tiff"],
+            cookies={"sessionid": "ck-owner"})
+        check(status == 200 and body == image1["lut"],
+              f"omero: the LUT GET ({status}) differs from image 1's")
+        check(jp2k.T1_NATIVE_BLOCKS > blocks0,
+              "omero: the JP2K GETs did not run the native tier-1")
+        denied = {}
+        for label, image, cookies in (
+                ("outsider_private", PRIVATE_IMAGE,
+                 {"sessionid": "ck-outsider"}),
+                ("no_cookie", OMERO_IMAGES["ome-tiff"], None),
+                ("expired", OMERO_IMAGES["ome-tiff"],
+                 {"sessionid": "ck-expired"}),
+                ("unknown", OMERO_IMAGES["ome-tiff"],
+                 {"sessionid": "ck-nobody"})):
+            status, hdrs, body, _ = await oclient.request(
+                route, u16, image=image, cookies=cookies)
+            denied[label] = status
+            check(status == (404 if label == "outsider_private" else 403)
+                  and not body and "ETag" not in hdrs,
+                  f"omero: {label}: HTTP {status}")
+        launches = launch_counts()
+        for name in ("render_ramp", "render_lut", *KJ.LAUNCHES):
+            check(launches[name] >= 1,
+                  f"omero: {name} was not launched by the OMERO GETs")
+
+        # The canRead memo: a repeat GET inside the TTL asks the database
+        # only get_pixels_description's own statements.
+        memo = ohandler.s.can_read_memo
+        n0 = db.statements
+        await ohandler.s.metadata.get_pixels_description(
+            int(OMERO_IMAGES["ome-tiff"]), "sess-owner")
+        pixels_statements = db.statements - n0
+        hits0, n0, s0 = memo.hits, db.statements, db.session_statements
+        status, _, body, repeat_ms = await oclient.request(
+            route, u16, image=OMERO_IMAGES["ome-tiff"],
+            cookies={"sessionid": "ck-owner"})
+        repeat = {"statements": db.statements - n0,
+                  "session_statements": db.session_statements - s0,
+                  "memo_hits": memo.hits - hits0,
+                  "pixels_description_statements": pixels_statements,
+                  "first_get_statements": first_statements,
+                  "wall_ms": repeat_ms}
+        check(status == 200 and body == image1["u16"]
+              and repeat["statements"] == pixels_statements
+              and repeat["memo_hits"] >= 2,
+              f"omero: the repeat GET asked ACL questions past the memo "
+              f"{repeat}")
+
+        # One JP2K tile: native tier-1 against the Python tier-1.
+        tf = TiffFile(os.path.join(repo, "ManagedRepository",
+                                   "user-1_100/2026-10/17/scan-33005.svs"))
+        ifd = tf.ifds[0]
+        seg = tf._pread(int(ifd.get(TILE_OFFSETS)[0]),
+                        int(ifd.get(TILE_BYTE_COUNTS)[0]))
+        tf.close()
+        t0 = time.perf_counter()
+        native = jp2k.decode_tiff_jp2k(seg, 33005, 2)
+        native_ms = (time.perf_counter() - t0) * 1e3
+        served_t1 = jp2k._t1
+        jp2k._t1 = lambda *a: jp2k._t1_decode(*a[:7], half_at_zero=a[7])
+        try:
+            t0 = time.perf_counter()
+            python = jp2k.decode_tiff_jp2k(seg, 33005, 2)
+            python_ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            jp2k._t1 = served_t1
+        tier1 = {"tile": f"{J2K_TILE}^2 RGB 9/7", "bytes": len(seg),
+                 "native_ms": native_ms, "python_t1_ms": python_ms,
+                 "equal": bool(np.array_equal(native, python))}
+        check(tier1["equal"], "omero: the native and Python tier-1 "
+                              "decodes of one JP2K tile differ")
+
+        # Cold reads: 8 tiles of 512^2 (rows 0-1, which no GET above
+        # read) of each layout, the raw cache cleared.
+        cold = {}
+        for layout, cl, h, image, ch in (
+                ("chunked", client, handler, "1", CH),
+                ("ome-tiff", oclient, ohandler, OMERO_IMAGES["ome-tiff"],
+                 CH),
+                ("romio", oclient, ohandler, OMERO_IMAGES["romio"], CH),
+                ("jp2k-33005", oclient, ohandler,
+                 OMERO_IMAGES["jp2k-33005"], RGB_CH)):
+            h.s.raw_cache.clear()
+            reset_spans(telemetry, REGISTRY)
+            walls = []
+            for i in range(8):
+                status, _, _, ms = await cl.request(
+                    route, {"tile": f"0,{i % 4},{i // 4},512,512", "c": ch,
+                            "m": "c", "format": "jpeg"}, image=image,
+                    cookies={"sessionid": "ck-owner"})
+                check(status == 200, f"omero: cold {layout}: HTTP {status}")
+                walls.append(ms)
+            await settled(h.s.renderer)
+            spans = read_span_ms(telemetry)
+            check(len(spans) == 8, f"omero: cold {layout}: {len(spans)} "
+                                   f"reads")
+            cold[layout] = {"read_p50_ms": statistics.median(spans),
+                            "read_max_ms": max(spans),
+                            "get_p50_ms": statistics.median(walls)}
+        print("omero: " + json.dumps({
+            "build_s": build_s, "gets": gets, "denied": denied,
+            "bodies_equal": True, "memo_repeat": repeat,
+            "jp2k_tier1": tier1, "cold_reads_512^2": cold,
+            "native_t1_blocks": jp2k.T1_NATIVE_BLOCKS - blocks0,
+            "launches": launches, "prefetch": False,
+            "via": oclient.via}), flush=True)
+        return launches
+    finally:
+        await oclient.stop()
+
+
+async def prefetch_phase(torch, np, data_dir, lut_root, have_aiohttp,
+                         matches_plain, e2e, tiles) -> dict:
+    """The default app with prefetch on and ``sessions.enabled`` (a
+    static session store): one session pans a snake of 16 resolution-0
+    1024^2 tiles of image 1 (row 4 left to right, row 5 back), one GET at
+    a time, each sent after the previous answer; each body equals the
+    plain route (checked after the pan).  Prints the prefetcher's hit rate
+    and counts and the pan-step p50 beside e2e's cold p50; fails if
+    nothing was staged or nothing staged was hit.  Then e2e's 48 GETs at 8
+    in flight with prefetch on (one session a row), its mean group and
+    tiles/s beside e2e's: reported, not gated.  Returns the phase's kernel
+    launches."""
+    from omero_ms_image_region_tpu_torch.kernels import jpeg as KJ
+    from omero_ms_image_region_tpu_torch.utils import telemetry
+
+    config, handler = front_handler(data_dir, lut_root, {
+        "session-store": {"type": "static"},
+        "sessions": {"enabled": True}, "raw-cache": {"prefetch": True}})
+    pf, cache = handler.s.prefetcher, handler.s.raw_cache
+    check(pf is not None and pf.viewport is not None,
+          "prefetch: the app has no prefetcher with a viewport model")
+    client = Client(config, handler, have_aiohttp)
+    await client.start()
+    route = "render_image_region"
+    try:
+        path = [(x, 4) for x in range(8)] + [(x, 5) for x in range(7, -1,
+                                                                   -1)]
+        pan = [(route, {"tile": f"0,{x},{y},{TILE},{TILE}", "c": CH,
+                        "m": "c", "format": "jpeg"}) for x, y in path]
+        reset_launch_counts()
+        telemetry.PREFETCH.reset()
+        out = []
+        for r in pan:
+            status, _, body, ms = await client.request(
+                *r, cookies={"sessionid": "viewer-1"})
+            check(status == 200, f"prefetch: pan {r[1]}: HTTP {status}")
+            out.append((body, ms))
+        pf.flush()
+        launches = launch_counts()
+        for r, (body, _) in zip(pan, out):
+            _, _, _, same = await matches_plain(*r, body)
+            check(same, f"prefetch: pan {r[1]}: body differs from the "
+                        f"plain route")
+        steps = [ms for _, ms in out[1:]]
+        doc = {"pan": {"gets": len(pan), "hit_rate": pf.hit_rate(),
+                       "staged": pf.staged, "hits": pf.hits,
+                       "predicted": pf.predicted,
+                       "scheduled": pf.scheduled,
+                       "skipped": dict(telemetry.PREFETCH.skipped),
+                       "raw_cache_hits": cache.hits,
+                       "step_p50_ms": statistics.median(steps),
+                       "first_ms": out[0][1],
+                       "e2e_cold_p50_ms": e2e["sequential_p50_ms"],
+                       "bodies_match_plain": True}}
+        check(pf.staged > 0, "prefetch: the pan staged no tile")
+        check((pf.hit_rate() or 0) > 0,
+              "prefetch: no staged tile was hit by the pan")
+        for name in ("render_ramp", *KJ.LAUNCHES):
+            check(launches[name] >= 1,
+                  f"prefetch: {name} was not launched by the pan")
+
+        # e2e's burst with prefetch on: 48 cold GETs at 8 in flight.
+        cache.clear()
+        staged0, hits0 = pf.staged, pf.hits
+        shed0 = handler.s.admission.shed_total
+        stats = Batches(handler.s.renderer)
+        sem = asyncio.Semaphore(8)
+
+        async def limited(i, r):
+            async with sem:
+                return await client.request(
+                    *r, cookies={"sessionid": f"burst-row-{i // 8}"})
+        t0 = time.perf_counter()
+        burst = await asyncio.gather(*(limited(i, r) for i, r in
+                                       enumerate(tiles[16:64])))
+        wall = time.perf_counter() - t0
+        pf.flush()
+        await settled(handler.s.renderer)
+        groups = stats.report()
+        doc["burst_8_in_flight"] = {
+            "gets": len(burst), "statuses": sorted({s for s, *_ in burst}),
+            "tiles_per_s": len(burst) / wall,
+            "p50_ms": statistics.median(ms for *_, ms in burst),
+            "mean_group_size": groups["mean_group_size"],
+            "staged": pf.staged - staged0, "hits": pf.hits - hits0,
+            "sheds": handler.s.admission.shed_total - shed0,
+            "e2e_tiles_per_s": e2e["concurrent_tiles_per_s"],
+            "e2e_mean_group_size": e2e["mean_group_size"]}
+        doc.update(launches=launches, via=client.via)
+        print("prefetch: " + json.dumps(doc), flush=True)
+        return launches
+    finally:
+        await client.stop()
+
+
 async def serve_phase(torch, np, data_dir, lut_root, have_aiohttp,
                       have_pil):
     from omero_ms_image_region_tpu_torch import codecs, native
@@ -1985,13 +2516,20 @@ async def serve_phase(torch, np, data_dir, lut_root, have_aiohttp,
 
     # The default app: batcher, device raw cache, single-flight and
     # admission on.
+    # Without the prefetcher: the cold phases (e2e, digest) count on
+    # misses, and a staged neighbour would turn them warm; prefetch: runs
+    # the default app with it.
     config = AppConfig(data_dir=data_dir, lut_root=lut_root)
-    handler = build_handler(data_dir, lut_root, device=DEVICE)
+    config.raw_cache.prefetch = False
+    handler = build_handler(data_dir, lut_root, device=DEVICE,
+                            prefetch=False)
     batcher, cache = handler.s.renderer, handler.s.raw_cache
     check(isinstance(batcher, BatchingRenderer) and cache is not None
           and handler.s.single_flight is not None
-          and handler.s.admission is not None,
-          "build_handler did not build the default posture")
+          and handler.s.admission is not None
+          and handler.s.prefetcher is None,
+          "build_handler did not build the default posture (prefetch "
+          "off)")
     requests = requests_for(TILE)
     client = Client(config, handler, have_aiohttp)
     await client.start()
@@ -2115,7 +2653,7 @@ async def serve_phase(torch, np, data_dir, lut_root, have_aiohttp,
                "raw_cache_hits": cache.hits - hits0,
                "raw_cache_misses": cache.misses - misses0,
                "sheds": handler.s.admission.shed_total - shed0,
-               "via": client.via}
+               "prefetch": False, "via": client.via}
         print("e2e: " + json.dumps(e2e), flush=True)
         check(e2e["raw_cache_hits"] == 0,
               "e2e: the cold run had raw-cache hits")
@@ -2178,7 +2716,8 @@ async def serve_phase(torch, np, data_dir, lut_root, have_aiohttp,
                   "cold_p50_ms_dedup_off": e2e["sequential_p50_ms"],
                   "plane_hits": plane_hits, "plane_misses": plane_misses,
                   "copies_saved_share": plane_hits / max(1, plane_hits
-                                                         + plane_misses)}
+                                                         + plane_misses),
+                  "prefetch": False}
         print("digest: " + json.dumps(digest), flush=True)
 
         # postures: 4 burst GETs at once through the batcher's own call on
@@ -2219,6 +2758,11 @@ async def serve_phase(torch, np, data_dir, lut_root, have_aiohttp,
             torch, np, client, handler, data_dir, requests, results)
         workload_launches["pyramid"] = await pyramid_phase(
             torch, np, client, handler, data_dir)
+        workload_launches["omero"] = await omero_phase(
+            torch, np, client, handler, data_dir, lut_root, have_aiohttp)
+        workload_launches["prefetch"] = await prefetch_phase(
+            torch, np, data_dir, lut_root, have_aiohttp, matches_plain, e2e,
+            tiles)
 
         # Device busy share: 8 sequential cold GETs, and 32 cold GETs at
         # 8 in flight (torch.profiler, device time of all kernels and
@@ -2333,11 +2877,16 @@ def main() -> int:
     # 1. probe
     smi = smi_line()
     have_aiohttp, have_pil = importable("aiohttp"), importable("PIL")
+    pil_j2k = None
+    if have_pil:
+        from PIL import features
+        pil_j2k = features.check("jpg_2000")
     print("probe: " + json.dumps({
         "nvidia_smi": smi, "torch": torch.__version__,
         "cuda": torch.version.cuda, "python": sys.version.split()[0],
         "device": torch.cuda.get_device_name(0),
-        "aiohttp": have_aiohttp, "PIL": have_pil}), flush=True)
+        "aiohttp": have_aiohttp, "PIL": have_pil,
+        "PIL_jpeg2000": pil_j2k}), flush=True)
 
     # 2. build: one nvcc per CUDA source and g++ for the coder, together
     import concurrent.futures as cf
@@ -2355,9 +2904,10 @@ def main() -> int:
     native.library()
     native.decoder_library()
     native.bitops_library()
+    native.jp2k_library()
     print(f"build: {time.perf_counter() - t0:.2f} s (render.cu, jpeg.cu, "
           f"workloads.cu; native/jpegenc.cpp, jpegdec.cpp, "
-          f"tilecache.cpp)", flush=True)
+          f"tilecache.cpp, jp2kt1.cpp)", flush=True)
     for source in (K.SOURCE, KJ.SOURCE, KW.SOURCE):
         for line in build.build_log(source.name).splitlines():
             if ("registers" in line or "Compiling entry" in line

@@ -239,6 +239,12 @@ class DeviceRawCache:
             self._keys_by_digest.clear()
             self._bytes = 0
 
+    def __contains__(self, key: Hashable) -> bool:
+        """Residency probe with no LRU bump and no hit count (the
+        prefetcher's)."""
+        with self._lock:
+            return key in self._entries
+
     @property
     def size_bytes(self) -> int:
         return self._bytes

@@ -10,10 +10,13 @@ select the OME-NGFF reader; otherwise an ``*.ome.tif(f)`` / ``*.tif(f)``
 file selects the OME-TIFF reader — the role Bio-Formats format dispatch
 plays behind ``PixelsService.getPixelBuffer``.
 
-Left out: the JAX service's ``repo_root`` (images resolved through
-DB-provided paths in an OMERO binary repository, legacy ``Pixels/<id>``
-ROMIO buffers among them).  It needs the DB metadata service and the ROMIO
-reader, which come with a later slice.
+With ``repo_root`` (``omero.server`` ``omero.data.dir``) an image that the
+data directory lacks opens from the OMERO binary repository, through the
+repository-relative candidate paths the DB metadata service resolves
+(``services.db_metadata.DbMetadataService.resolve_image_paths``): a
+ManagedRepository fileset file (OME-TIFF, a TIFF-based vendor file such as
+an Aperio ``.svs``, or an NGFF group) or a legacy ``Pixels/<id>`` ROMIO
+buffer (``io.romio``), as the JAX service opens them.
 """
 
 from __future__ import annotations
@@ -48,9 +51,14 @@ class PixelsService:
     # source's refcount high until a cycle collection runs.
     _GC_THRESHOLD = 8
 
-    def __init__(self, data_dir: str, max_open: int = DEFAULT_MAX_OPEN):
+    def __init__(self, data_dir: str, max_open: int = DEFAULT_MAX_OPEN,
+                 repo_root: Optional[str] = None):
         self.data_dir = data_dir
         self.max_open = max_open
+        # The OMERO binary repository's mount (``omero.data.dir``,
+        # ``config.yaml:19-20``), the role of the reference's file-path
+        # resolver bean (``beanRefContext.xml:13-16``); None: off.
+        self.repo_root = repo_root
         self._lock = threading.Lock()
         self._open: "OrderedDict[int, PixelSource]" = OrderedDict()
         self._evicted: List[PixelSource] = []
@@ -112,8 +120,58 @@ class PixelsService:
                 self._open.move_to_end(image_id)
             return src
 
-    def get_pixel_source(self, image_id: int) -> PixelSource:
-        """≙ ``PixelsService.getPixelBuffer(pixels, false)``."""
+    def _open_from_repo(self, image_id: int, candidates,
+                        pixels) -> PixelSource:
+        """Open the first usable repository-relative candidate: TIFF
+        suffixes (``.ome.tif(f)`` first) through the OME-TIFF reader,
+        ``*.zarr`` directories as OME-NGFF, a ``Pixels/<id>`` entry as a
+        ROMIO buffer (with the DB geometry, ``pixels``), and any other
+        file whose magic says TIFF (vendor WSI names) as a TIFF."""
+        from .romio import RomioPixelSource
+
+        def rank(rel: str) -> int:
+            low = rel.lower()
+            if low.endswith((".ome.tif", ".ome.tiff")):
+                return 0
+            if low.endswith((".tif", ".tiff", ".svs", ".ndpi")):
+                return 1
+            return 2
+
+        tried = []
+        for rel in sorted(candidates, key=rank):
+            path = os.path.join(self.repo_root, rel)
+            if os.path.isdir(path):
+                ngff = find_ngff(path)
+                if ngff is not None:
+                    return NgffZarrSource(ngff)
+                tried.append(rel)
+                continue
+            if not os.path.isfile(path):
+                tried.append(rel)
+                continue
+            if rank(rel) < 2:
+                return OmeTiffSource(path)
+            if rel.startswith("Pixels/"):
+                if pixels is None:
+                    raise ValueError(
+                        f"image {image_id}: ROMIO path {rel} needs "
+                        f"pixels geometry to open")
+                return RomioPixelSource(path, pixels)
+            with open(path, "rb") as f:
+                magic = f.read(4)
+            if magic[:2] in (b"II", b"MM"):
+                return OmeTiffSource(path)
+            tried.append(rel)       # present, but not a format served
+        raise FileNotFoundError(
+            f"image {image_id}: no usable pixel file under "
+            f"{self.repo_root} (candidates: {tried or candidates})")
+
+    def get_pixel_source(self, image_id: int, candidates=None,
+                         pixels=None) -> PixelSource:
+        """≙ ``PixelsService.getPixelBuffer(pixels, false)``.
+        ``candidates`` (repository-relative paths from the DB) apply only
+        when the data directory has no entry for the image, so a local
+        copy always wins."""
         with self._lock:
             src = self._open.get(image_id)
             if src is not None:
@@ -124,11 +182,16 @@ class PixelsService:
                     self._drain_evicted_locked()
                 return src
         backend = self._sniff(image_id)
-        if backend is None:
+        if backend is None and candidates and self.repo_root:
+            kind, path = "repo", None
+        elif backend is None:
             raise FileNotFoundError(
                 f"no pixel data for image {image_id} under {self.data_dir}")
-        kind, path = backend
-        if kind == "chunked":
+        else:
+            kind, path = backend
+        if kind == "repo":
+            src = self._open_from_repo(image_id, candidates, pixels)
+        elif kind == "chunked":
             src = ChunkedPyramidStore(path)
         elif kind == "ngff":
             src = NgffZarrSource(path)

@@ -80,6 +80,20 @@ class HostPlanes:
         return out.view(torch.uint16) if self.dtype == np.uint16 else out
 
 
+def read_pinned(src, z: int, t: int, region, level: int,
+                channels: Sequence[int],
+                device: Union[str, torch.device]) -> HostPlanes:
+    """Read the ``channels``' planes of one region of ``src`` (a
+    ``PixelSource``) straight into a pinned buffer, [C, h, w] in the
+    storage dtype: each reader fills its row of the buffer (``out=``), so
+    a cold read is copied once before the DMA."""
+    planes = HostPlanes((len(channels), region.height, region.width),
+                        src.dtype, device)
+    for i, c in enumerate(channels):
+        src.get_region(z, c, t, region, level, out=planes.array[i])
+    return planes
+
+
 def stage(arr: np.ndarray, device: Union[str, torch.device]
           ) -> torch.Tensor:
     """Host array -> tensor on ``device`` through a pinned buffer (one host

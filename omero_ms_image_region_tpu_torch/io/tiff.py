@@ -11,9 +11,8 @@ library is a dependency); scope is exactly what serving needs:
 - tiled (322/323/324/325) and stripped (273/278/279) image data;
 - compression: none (1), old-style JPEG (6, interchange-format layout),
   LZW (5), new-style JPEG (7, baseline; tables from tag 347, via
-  ``io/jpegdec``), deflate (8 / 32946), PackBits (32773); Aperio
-  JPEG 2000 (33003/33005) raises a ValueError naming the codec: its
-  decoder is not ported yet;
+  ``io/jpegdec``), deflate (8 / 32946), PackBits (32773), Aperio
+  JPEG 2000 (33003 YCbCr, 33005 RGB; ``io/jp2k``);
 - predictors (317): horizontal differencing (2) and floating-point
   byte differencing (3, TIFF TechNote 3); unknown ids reject loudly;
 - SubIFD chains (330) — OME-TIFF 6.0 stores pyramid levels there;
@@ -254,13 +253,12 @@ def decode_segment(data: bytes, compression: int,
             "old-style JPEG segments (compression 6) decode via "
             "read_segment, not decode_segment")
     if compression in (33003, 33005):
-        raise ValueError(_jp2k_not_ported(compression))
+        # Array-path codec: handled in read_segment (io/jp2k.py), never
+        # through this bytes-level API.
+        raise ValueError(
+            f"JPEG 2000 segments (compression {compression}) decode "
+            f"via read_segment, not decode_segment")
     raise ValueError(f"unsupported TIFF compression {compression}")
-
-
-def _jp2k_not_ported(compression: int) -> str:
-    return (f"TIFF compression {compression} (Aperio JPEG 2000) is not "
-            f"ported yet: the JPEG 2000 decoder comes with a later slice")
 
 
 def _undo_predictor(rows: np.ndarray) -> np.ndarray:
@@ -520,6 +518,26 @@ class TiffFile:
             img[:seg_h, :seg_w].astype(dt.newbyteorder("="),
                                        copy=False))
 
+    def _read_jp2k_segment(self, ifd: Ifd, raw: bytes, comp: int,
+                           seg_h: int, seg_w: int, spp: int,
+                           dt: np.dtype) -> np.ndarray:
+        """Aperio JPEG 2000 tiles (raw J2K codestreams; 33003 = YCbCr
+        planes, 33005 = RGB), which Bio-Formats reads behind
+        getPixelBuffer; tier-1 runs in the native decoder."""
+        from .jp2k import decode_tiff_jp2k
+        img = decode_tiff_jp2k(raw, comp, int(ifd.one(PHOTOMETRIC, 1)))
+        seg_h = self._check_frame(img, seg_h, seg_w, spp, ifd.tiled,
+                                  self.path, "JPEG2000")
+        if img.dtype.itemsize > dt.itemsize:
+            # A deeper codestream cast down would wrap mod 2^bits: a
+            # declaration mismatch fails instead of corrupting pixels.
+            raise ValueError(
+                f"{self.path}: JPEG2000 sample depth "
+                f"{img.dtype.itemsize * 8} exceeds declared "
+                f"{dt.itemsize * 8}-bit samples")
+        return np.ascontiguousarray(
+            img[:seg_h, :seg_w].astype(dt.newbyteorder("=")))
+
     def _check_jpeg_depth(self, ifd: Ifd, img: np.ndarray) -> None:
         """Decoded-vs-declared sample depth must MATCH, both ways: a
         12-bit stream under an 8-bit declaration cast down would wrap
@@ -582,7 +600,8 @@ class TiffFile:
         raw = self._pread(int(offsets[idx]), int(counts[idx]))
         dt = ifd.dtype().newbyteorder(self.endian)
         if comp in (33003, 33005):
-            raise ValueError(f"{self.path}: {_jp2k_not_ported(comp)}")
+            return self._read_jp2k_segment(ifd, raw, comp, seg_h, seg_w,
+                                           spp, dt)
         if comp == 7:
             return self._read_jpeg_segment(ifd, raw, seg_h, seg_w, spp)
         if ifd.bits == 1:

@@ -1,6 +1,7 @@
 """The native host codecs, built and loaded: the JFIF entropy coder
-(``jpegenc.cpp``), the JPEG decoder (``jpegdec.cpp``) and the TIFF LZW
-decoder and bit unpacker (``tilecache.cpp``).
+(``jpegenc.cpp``), the JPEG decoder (``jpegdec.cpp``), the TIFF LZW
+decoder and bit unpacker (``tilecache.cpp``) and the JPEG 2000 tier-1
+decoder (``jp2kt1.cpp``).
 
 Each C++ source is compiled with ``g++ -O3 -std=c++17 -shared -fPIC
 -fopenmp`` on first use into ``_build/`` beside this file, once per source
@@ -8,8 +9,9 @@ content (an edited source rebuilds; concurrent builds agree, each writing a
 private file and renaming it into place), and loaded with ``ctypes``.  A
 missing compiler or a failed build raises.  The coder has no pure-Python
 counterpart to fall back on; the decoders' Python counterparts
-(``io.jpegdec``, ``io.tiff._lzw_decode``) are the plain versions the tests
-hold these against, and the readers call the native ones.
+(``io.jpegdec``, ``io.tiff._lzw_decode``, ``io.jp2k._t1_decode``) are the
+plain versions the tests hold these against, and the readers call the
+native ones.
 
 ctypes releases the GIL for the whole call, so concurrent requests code and
 decode at the same time on their worker threads; every output buffer is
@@ -32,6 +34,7 @@ _HERE = Path(__file__).resolve().parent
 SOURCE = _HERE / "jpegenc.cpp"
 JPEGDEC_SOURCE = _HERE / "jpegdec.cpp"
 TILECACHE_SOURCE = _HERE / "tilecache.cpp"
+JP2KT1_SOURCE = _HERE / "jp2kt1.cpp"
 BUILD_DIR = _HERE / "_build"
 CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-fopenmp")
 
@@ -68,12 +71,12 @@ def build(source: Optional[Path] = None) -> Path:
 
 
 def build_all() -> None:
-    """Build the three sources at once, one g++ each."""
+    """Build the four sources at once, one g++ each."""
     import concurrent.futures as cf
 
-    with cf.ThreadPoolExecutor(3) as pool:
-        for f in [pool.submit(build, s) for s in
-                  (SOURCE, JPEGDEC_SOURCE, TILECACHE_SOURCE)]:
+    sources = (SOURCE, JPEGDEC_SOURCE, TILECACHE_SOURCE, JP2KT1_SOURCE)
+    with cf.ThreadPoolExecutor(len(sources)) as pool:
+        for f in [pool.submit(build, s) for s in sources]:
             f.result()
 
 
@@ -121,6 +124,15 @@ def _configure_bitops(lib: ctypes.CDLL) -> None:
                                     ctypes.c_void_p, ctypes.c_size_t]
 
 
+def _configure_jp2kt1(lib: ctypes.CDLL) -> None:
+    lib.jp2k_t1_decode.restype = ctypes.c_longlong
+    lib.jp2k_t1_decode.argtypes = [
+        ctypes.c_char_p, ctypes.c_size_t,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+    ]
+
+
 def library() -> ctypes.CDLL:
     """The loaded coder, built on first use."""
     return _load(SOURCE, _configure_coder)
@@ -134,6 +146,25 @@ def decoder_library() -> ctypes.CDLL:
 def bitops_library() -> ctypes.CDLL:
     """The loaded LZW decoder and bit unpacker, built on first use."""
     return _load(TILECACHE_SOURCE, _configure_bitops)
+
+
+def jp2k_library() -> ctypes.CDLL:
+    """The loaded JPEG 2000 tier-1 decoder, built on first use."""
+    return _load(JP2KT1_SOURCE, _configure_jp2kt1)
+
+
+def jp2k_t1_decode(data: bytes, w: int, h: int, npasses: int, msbs: int,
+                   orient: int, segsym: bool,
+                   half_at_zero: bool) -> np.ndarray:
+    """EBCOT tier-1 decode of one code-block to f64[h, w] (the native
+    mirror of ``io.jp2k._t1_decode``, same arguments, same values)."""
+    out = np.zeros((h, w), np.float64)
+    rc = jp2k_library().jp2k_t1_decode(
+        data, len(data), w, h, npasses, msbs, orient, int(segsym),
+        int(half_at_zero), out.ctypes.data_as(ctypes.c_void_p))
+    if rc != 0:
+        raise ValueError("jp2k_t1_decode: invalid arguments")
+    return out
 
 
 def jpeg_encode(y, cb, cr, width: int, height: int, quality: int) -> bytes:

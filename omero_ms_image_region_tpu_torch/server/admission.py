@@ -14,10 +14,18 @@ before any read or render is paid for, when
   that held a slot all along.
 
 The handler claims a slot inside the single-flight producer, so a
-coalesced follower claims none.  Not ported: the per-session token buckets
-(``sessions.enabled``) and the pressure governor's scaling of the bound
-(``pressure.enabled``); both are off in the JAX default, and the config
-loader refuses them.
+coalesced follower claims none.
+
+With ``sessions.enabled`` a per-session fairness gate runs first
+(:class:`SessionTokenBuckets`, :meth:`AdmissionController.admit_session`):
+each caller, before single-flight (like the ACL check), draws a token from
+its session's bucket, and a session over its budget is refused with a 503
+of reason ``fairness`` while every other session's admission stays as it
+was.  A request the global bound then refuses gets its token back.  A mask
+GET draws a token too (it has no global leg).  Not ported: the pressure
+governor's scaling of the bound (``pressure.enabled``, off in the JAX
+default; the config loader refuses it) and the ``qos`` bulk cost: every
+request costs 1 token, as with ``qos`` off in the JAX app.
 
 Event-loop confined (``admit``/``release`` run on the loop thread), so no
 lock.
@@ -26,10 +34,75 @@ lock.
 from __future__ import annotations
 
 import time
-from typing import Optional
+from collections import OrderedDict
+from typing import Callable, Optional
 
 from ..utils import telemetry, transient
 from .errors import OverloadedError
+
+
+class SessionTokenBuckets:
+    """Per-session token buckets over the request ctx's session key.
+
+    Each session holds at most ``burst`` tokens, refilled at
+    ``refill_per_s``; a request costs 1 token.  The table is a bounded LRU
+    (``max_sessions``): an evicted session starts again with a full burst.
+    The key is ``ctx.omero_session_key`` as the session store resolved it
+    (None: the shared anonymous bucket)."""
+
+    ANONYMOUS = ""
+
+    def __init__(self, refill_per_s: float, burst: float,
+                 max_sessions: int = 4096,
+                 clock: Callable[[], float] = time.monotonic):
+        if refill_per_s <= 0:
+            raise ValueError("bucket refill_per_s must be > 0")
+        if burst < 1:
+            raise ValueError("bucket burst must be >= 1")
+        if max_sessions < 1:
+            raise ValueError("bucket max_sessions must be >= 1")
+        self.refill_per_s = float(refill_per_s)
+        self.burst = float(burst)
+        self.max_sessions = int(max_sessions)
+        self.clock = clock
+        # session -> [tokens, t_last]; event-loop confined.
+        self._buckets: "OrderedDict[str, list]" = OrderedDict()
+
+    def _bucket(self, session_key: Optional[str]) -> list:
+        key = session_key if session_key else self.ANONYMOUS
+        bucket = self._buckets.get(key)
+        now = self.clock()
+        if bucket is None:
+            bucket = [self.burst, now]
+            self._buckets[key] = bucket
+            while len(self._buckets) > self.max_sessions:
+                self._buckets.popitem(last=False)
+        else:
+            self._buckets.move_to_end(key)
+            bucket[0] = min(self.burst,
+                            bucket[0] + (now - bucket[1]) * self.refill_per_s)
+            bucket[1] = now
+        return bucket
+
+    def try_take(self, session_key: Optional[str],
+                 cost: float = 1.0) -> bool:
+        """Draw ``cost`` tokens; False when the session is over budget."""
+        bucket = self._bucket(session_key)
+        if bucket[0] >= cost:
+            bucket[0] -= cost
+            return True
+        return False
+
+    def refund(self, session_key: Optional[str], cost: float = 1.0) -> None:
+        """Give back tokens of a request that was refused afterwards."""
+        bucket = self._bucket(session_key)
+        bucket[0] = min(self.burst, bucket[0] + cost)
+
+    def retry_after_s(self, session_key: Optional[str],
+                      cost: float = 1.0) -> float:
+        """Seconds until the session's bucket covers ``cost``."""
+        bucket = self._bucket(session_key)
+        return max(0.0, cost - bucket[0]) / self.refill_per_s
 
 
 class AdmissionController:
@@ -39,12 +112,14 @@ class AdmissionController:
     ALPHA = 0.2
 
     def __init__(self, max_queue: int, renderer=None,
-                 retry_after_s: float = 1.0):
+                 retry_after_s: float = 1.0,
+                 session_buckets: Optional[SessionTokenBuckets] = None):
         if max_queue < 1:
             raise ValueError("admission max_queue must be >= 1")
         self.max_queue = max_queue
         self.renderer = renderer          # duck-typed; lanes estimate
         self.retry_after_s = retry_after_s
+        self.session_buckets = session_buckets  # None: sessions unmetered
         self.inflight = 0                 # admitted, not yet released
         self.ewma_s: Optional[float] = None
         self.admitted_total = 0
@@ -69,6 +144,31 @@ class AdmissionController:
         telemetry.RESILIENCE.count_shed(reason)
         raise OverloadedError(message, retry_after_s=max(
             self.retry_after_s, wait_ms / 1000.0))
+
+    def admit_session(self, ctx):
+        """The per-session fairness gate, per caller and before
+        single-flight, so one session's 503 never reaches a coalesced
+        follower of another.  Returns the debit for
+        :meth:`refund_session` (None when unmetered); raises
+        ``OverloadedError`` (reason ``fairness``) over budget."""
+        buckets = self.session_buckets
+        if buckets is None or ctx is None:
+            return None
+        session = ctx.omero_session_key
+        if buckets.try_take(session):
+            return (session, 1.0)
+        self.shed_total += 1
+        telemetry.RESILIENCE.count_shed("fairness")
+        raise OverloadedError(
+            "session over its admission budget",
+            retry_after_s=max(self.retry_after_s,
+                              buckets.retry_after_s(session)))
+
+    def refund_session(self, debit) -> None:
+        """Give back an :meth:`admit_session` debit whose request the
+        global bound (or the leader it coalesced onto) refused."""
+        if debit is not None and self.session_buckets is not None:
+            self.session_buckets.refund(*debit)
 
     def admit(self) -> float:
         """Claim a slot or shed.  Returns the admission time to hand back

@@ -39,21 +39,36 @@ there) has it:
 * **Request traces** (``utils.telemetry``): each render request opens a
   trace and its deadline scope; its duration and status feed
   ``imageregion_request_duration_ms`` and ``imageregion_requests_total``.
+* **Sessions** (``services.sessions``): the session cookie resolves to
+  the OMERO session key through the configured store
+  (:func:`make_session_store`: static, the Redis or the Postgres
+  ``django_session`` store); with enforcement on (:func:`session_required`:
+  the default for redis and postgres) a cookie that does not resolve gets
+  a 403 before anything else runs.
+* **Metadata and ACL**: the data directory's (``services.metadata``), or,
+  with ``metadata-service.type: postgres``, the OMERO database's
+  (``services.db_metadata``), connected at startup from the DSN (or built
+  on the ``db`` connection given to :func:`create_app`), with the image
+  pixels then opened from ``omero.data.dir`` when the data directory lacks
+  them.
 * **Admission** (503 + ``Retry-After`` past ``admission-max-queue`` renders
   in flight, or when the estimated wait passes the deadline; an overlay's
   base and each animation frame are renders of the image route; a mask
-  has no global admission leg in the JAX app either, only the session
-  fairness tokens, which come with sessions) and the **watchdog** over the
-  batcher's lanes.
+  has no global admission leg in the JAX app either), with
+  ``sessions.enabled`` the per-session fairness tokens (the image route's
+  and the mask route's, 503 with reason ``fairness``), and the
+  **watchdog** over the batcher's lanes.
+* **Prefetch** (``raw-cache.prefetch``, on by default): the predicted next
+  tiles of each GET staged into the raw cache (``services.prefetch``),
+  along each session's pan with ``sessions.enabled``.
 * **Status mapping** (``server.errors``).
 
 :class:`Front` holds all of it without aiohttp, so a caller can drive the
 route without a socket; :func:`create_app` puts it behind aiohttp, which is
 imported there.  Left out: the chunked first-tile-out response body of the
 JAX app (``wire.streaming``): the port answers with the same bytes in one
-body (ROADMAP Queue 1); and on the mask route the session fairness
-tokens, the viewport tracker's activity mark and the federated peer
-fetch, which come with sessions and the fleet.
+body (ROADMAP Queue 1); and on the mask route the federated peer fetch,
+which comes with the fleet.
 """
 
 from __future__ import annotations
@@ -73,12 +88,19 @@ from ..io.devicecache import DeviceRawCache
 from ..io.service import PixelsService
 from ..ops.lut import LutProvider
 from ..ops.render import resolve_device
+from ..services.db_metadata import (DbMetadataService,
+                                    PostgresMetadataService)
 from ..services.metadata import LocalMetadataService
+from ..services.prefetch import TilePrefetcher
+from ..services.sessions import (DjangoPostgresSessionStore,
+                                 DjangoRedisSessionStore, SessionStore,
+                                 StaticSessionStore, resolve_session_key)
+from ..services.viewport import ViewportTracker
 from ..utils import faultinject, telemetry
 from ..utils.stopwatch import span_lines
 from ..utils.transient import DeadlineExceededError, deadline_scope
 from . import httpcache
-from .admission import AdmissionController
+from .admission import AdmissionController, SessionTokenBuckets
 from .batcher import BatchingRenderer
 from .config import AppConfig
 from .ctx import ImageRegionCtx, ShapeMaskCtx
@@ -98,14 +120,76 @@ ROUTES = ("render_image_region", "render_image")
 ANIMATION_CONTENT_TYPE = "application/x-image-region-animation"
 
 
+def session_required(config: AppConfig) -> bool:
+    """Is a resolved session required?  ``session-store.required`` when
+    set, else on for the redis and postgres stores (the reference's session
+    handler is mandatory, ``ImageRegionMicroserviceVerticle.java:199-212``)
+    and off for a static store or none."""
+    if config.session_store_required is not None:
+        return config.session_store_required
+    return config.session_store_type in ("redis", "postgres")
+
+
+def make_session_store(config: AppConfig,
+                       db=None) -> Optional[SessionStore]:
+    """The session store the config names, as the JAX app builds it: a
+    store that cannot be built (no uri, no driver) refuses the start with
+    a ``ValueError`` when sessions are required, else logs a warning and
+    serves without sessions; an unknown type is a ``ValueError``.  ``db``
+    (an open ``AsyncDb``) carries the postgres store in place of a
+    connection from the uri."""
+    required = session_required(config)
+    kind = config.session_store_type
+
+    def unavailable(msg: str) -> None:
+        if required:
+            raise ValueError(f"session enforcement is on but {msg}")
+        log.warning("%s; sessions disabled", msg)
+
+    if kind == "static":
+        return StaticSessionStore(accept_all=True)
+    if kind == "redis":
+        if not config.session_store_uri:
+            unavailable("session-store.type is 'redis' with no uri")
+            return None
+        try:
+            return DjangoRedisSessionStore(config.session_store_uri)
+        except ImportError:
+            unavailable("the redis package is unavailable")
+            return None
+    if kind == "postgres":
+        if db is not None:
+            return DjangoPostgresSessionStore.on_db(db)
+        if not config.session_store_uri:
+            unavailable("session-store.type is 'postgres' with no uri")
+            return None
+        try:
+            return DjangoPostgresSessionStore(config.session_store_uri)
+        except ImportError:
+            unavailable("no async postgres driver (asyncpg/psycopg) "
+                        "is available")
+            return None
+    if kind is not None:
+        raise ValueError(f"invalid session-store.type {kind!r} (expected "
+                         f"redis | postgres | static)")
+    if required:
+        raise ValueError("session-store.required is true but no "
+                         "session-store.type is configured")
+    return None
+
+
 def build_services(config: AppConfig,
-                   device: Union[str, torch.device] = "cuda"
-                   ) -> ImageRegionServices:
+                   device: Union[str, torch.device] = "cuda",
+                   db=None) -> ImageRegionServices:
     """The render stack a config describes (the JAX ``build_services``):
     the batching renderer (or, with ``batcher.enabled`` off, the direct
-    :class:`Renderer`), the device raw cache, single-flight and admission,
-    each as its section says.  Installs the fault injector when the config
-    gives it a seed."""
+    :class:`Renderer`), the device raw cache and its prefetcher,
+    single-flight, admission (with the session buckets when
+    ``sessions.enabled``) and the canRead memo, each as its section says.
+    With ``metadata-service.type: postgres`` and an open ``db``
+    (``AsyncDb``) the metadata service is the OMERO database's; without
+    ``db`` the app connects it at startup.  Installs the fault injector
+    when the config gives it a seed."""
     if config.fault_injection.seed is not None:
         faultinject.install(config.fault_injection)
     device = resolve_device(device)
@@ -115,40 +199,62 @@ def build_services(config: AppConfig,
                                  pipeline_depth=b.pipeline_depth,
                                  device_lanes=b.device_lanes)
                 if b.enabled else Renderer(device))
-    rc = config.raw_cache
-    ft = config.fault_tolerance
+    rc, ft, se = config.raw_cache, config.fault_tolerance, config.sessions
+    raw_cache = (DeviceRawCache(rc.max_bytes, device=device,
+                                digest_index=rc.digest_dedup)
+                 if rc.enabled else None)
+    buckets = (SessionTokenBuckets(se.bucket_refill_per_s, se.bucket_burst,
+                                   max_sessions=se.max_tracked)
+               if se.enabled else None)
+    prefetcher = None
+    if raw_cache is not None and rc.prefetch:
+        # The viewport model needs sessions: without them every request
+        # is anonymous, and one shared trajectory of unrelated viewers
+        # would predict nothing useful (the JAX app's gate).
+        prefetcher = TilePrefetcher(
+            raw_cache, lookahead=se.prefetch_lookahead,
+            viewport=(ViewportTracker(max_sessions=se.max_tracked)
+                      if se.enabled else None))
+    metadata = (DbMetadataService(db)
+                if db is not None and config.metadata_backend == "postgres"
+                else LocalMetadataService(config.data_dir))
     return ImageRegionServices(
-        pixels_service=PixelsService(config.data_dir),
-        metadata=LocalMetadataService(config.data_dir),
+        pixels_service=PixelsService(config.data_dir,
+                                     repo_root=config.omero_data_dir),
+        metadata=metadata,
         renderer=renderer,
         lut_provider=LutProvider(config.lut_root),
         max_tile_length=config.max_tile_length,
         jpeg_host_max_px=config.renderer.cpu_fallback_max_px,
-        raw_cache=(DeviceRawCache(rc.max_bytes, device=device,
-                                  digest_index=rc.digest_dedup)
-                   if rc.enabled else None),
+        raw_cache=raw_cache,
         single_flight=SingleFlight() if config.single_flight else None,
         admission=(AdmissionController(ft.admission_max_queue,
                                        renderer=renderer,
-                                       retry_after_s=ft.shed_retry_after_s)
+                                       retry_after_s=ft.shed_retry_after_s,
+                                       session_buckets=buckets)
                    if ft.admission_max_queue > 0 else None),
+        prefetcher=prefetcher,
     )
 
 
 def build_handler(data_dir: str, lut_root: Optional[str] = None,
                   device: Union[str, torch.device] = "cuda",
                   jpeg_host_max_px: int = JPEG_HOST_MAX_PX,
-                  batcher: bool = True) -> ImageRegionHandler:
+                  batcher: bool = True,
+                  prefetch: bool = True) -> ImageRegionHandler:
     """The handler over a data directory of chunked pyramids, in the JAX
     app's default posture: the batching renderer (max_batch 8, linger
     2 ms, pipeline depth 4, 2 device lanes), the device raw cache (2 GiB,
-    digest dedup off), single-flight and admission (512).
+    digest dedup off) and its prefetcher (``prefetch=False``: none),
+    single-flight and admission (512).
 
     ``batcher=False`` builds the reference the tests hold the default
     against: the direct :class:`Renderer` (one B=1 launch of each kernel
-    per request), with no raw cache, single-flight or admission."""
+    per request), with no raw cache, prefetcher, single-flight or
+    admission."""
     config = AppConfig(data_dir=data_dir, lut_root=lut_root)
     config.renderer.cpu_fallback_max_px = jpeg_host_max_px
+    config.raw_cache.prefetch = prefetch
     if not batcher:
         config.batcher.enabled = config.raw_cache.enabled = False
         config.single_flight = False
@@ -201,9 +307,11 @@ class Front:
     conditional answers, the handlers, status mapping and request
     accounting."""
 
-    def __init__(self, config: AppConfig, handler: ImageRegionHandler):
+    def __init__(self, config: AppConfig, handler: ImageRegionHandler,
+                 db=None):
         self.config = config
         self.handler = handler
+        self.session_store = make_session_store(config, db)
         wl = config.workloads
         self.mask_handler = ShapeMaskHandler(handler.s, wl.device_masks)
         self.workloads = WorkloadsHandler(handler, self.mask_handler,
@@ -215,7 +323,7 @@ class Front:
             if hc.epoch == "0":
                 log.warning("http-cache.epoch: auto derived '0' (no "
                             "ingest stamps under %r)", config.data_dir)
-        self.session_required = bool(config.session_store_required)
+        self.session_required = session_required(config)
         py = config.pyramid
         self.jobs: Optional[PyramidJobManager] = (PyramidJobManager(
             pixels_service=handler.s.pixels_service,
@@ -223,11 +331,12 @@ class Front:
             compressor=None if py.compressor == "none" else py.compressor,
             device=handler.s.renderer.device) if py.enabled else None)
 
-    def session_key(self, cookies: Mapping[str, str]) -> Optional[str]:
-        """The static store: the session cookie's value is the key."""
-        if self.config.session_store_type != "static":
-            return None
-        return cookies.get(self.config.session_cookie_name) or None
+    async def session_key(self, cookies: Mapping[str, str]
+                          ) -> Optional[str]:
+        """The OMERO session key the session cookie resolves to (None when
+        it does not, or without a store)."""
+        return await resolve_session_key(self.session_store, cookies,
+                                         self.config.session_cookie_name)
 
     def status_of(self, e: Exception) -> Answer:
         """The reference's empty 404/500 bodies
@@ -298,6 +407,8 @@ class Front:
         if not self.config.http_cache.enabled:
             return None
         metadata = self.handler.s.metadata
+        if not hasattr(metadata, "source_mtime"):
+            return None          # the OMERO database has no source stamp
         hit, value = metadata.source_mtime_cached(image_id)
         if hit:
             return value
@@ -334,10 +445,10 @@ class Front:
             return self.status_of(e)
         return Answer(200, out, body)
 
-    def _session(self, cookies: Mapping[str, str]):
+    async def _session(self, cookies: Mapping[str, str]):
         """(session key, None), or (None, the 403) when a session is
         required and there is none."""
-        session = self.session_key(cookies)
+        session = await self.session_key(cookies)
         if session is None and self.session_required:
             return None, Answer(403)
         return session, None
@@ -346,7 +457,7 @@ class Front:
                      headers: Mapping[str, str],
                      cookies: Mapping[str, str]) -> Answer:
         """One ``render_image_region`` / ``render_image`` request."""
-        session, refused = self._session(cookies)
+        session, refused = await self._session(cookies)
         if refused is not None:
             return refused
         try:
@@ -369,7 +480,7 @@ class Front:
         """One ``render_shape_mask`` request.  The ETag identity is the
         reference's mask cache key with the flips folded in (they change
         the bytes); a mask has no ``Last-Modified``."""
-        session, refused = self._session(cookies)
+        session, refused = await self._session(cookies)
         if refused is not None:
             return refused
         try:
@@ -378,10 +489,22 @@ class Front:
             return self.status_of(e)
         identity = (f"{ctx.cache_key()}:f{int(ctx.flip_horizontal)}"
                     f"{int(ctx.flip_vertical)}")
+
+        async def produce() -> bytes:
+            # After the renderless answers, as in the JAX app: the session
+            # stays live in the viewport model (no pan vote), and the mask
+            # draws its session's fairness token (kept on a 404 or 400,
+            # so scraping missing ids is metered too).
+            s = self.handler.s
+            tracker = getattr(s.prefetcher, "viewport", None)
+            if tracker is not None and ctx.omero_session_key:
+                tracker.observe_activity(ctx.omero_session_key)
+            if s.admission is not None:
+                s.admission.admit_session(ctx)
+            return await self.mask_handler.render_shape_mask(ctx)
         return await self.answer(
             method, headers, {"Content-Type": "image/png"}, identity,
-            "Mask", ctx.shape_id, ctx.omero_session_key,
-            lambda: self.mask_handler.render_shape_mask(ctx))
+            "Mask", ctx.shape_id, ctx.omero_session_key, produce)
 
     async def render_overlay(self, method: str, params: dict,
                              headers: Mapping[str, str],
@@ -404,7 +527,7 @@ class Front:
         if not shape_ids:
             return self.status_of(BadRequestError(
                 "overlay needs ?shapes=<id,id,...>"))
-        session, refused = self._session(cookies)
+        session, refused = await self._session(cookies)
         if refused is not None:
             return refused
         try:
@@ -445,7 +568,7 @@ class Front:
         if n_frames < 1:
             return self.status_of(BadRequestError("frames must be >= 1"))
         axis_key = "theZ" if axis == "z" else "theT"
-        session, refused = self._session(cookies)
+        session, refused = await self._session(cookies)
         if refused is not None:
             return refused
         start = int(params.get(axis_key) or 0)
@@ -557,6 +680,7 @@ class Front:
         return telemetry.finalize_exposition(
             telemetry.request_metric_lines() + span_lines()
             + telemetry.resilience_metric_lines()
+            + telemetry.session_metric_lines()
             + telemetry.device_metric_lines(self.handler.s))
 
 
@@ -585,12 +709,18 @@ def configure_logging(config: AppConfig) -> None:
 
 def create_app(config: Optional[AppConfig] = None,
                device: Union[str, torch.device] = "cuda",
-               handler: Optional[ImageRegionHandler] = None):
+               handler: Optional[ImageRegionHandler] = None, db=None):
     """The aiohttp application a config describes (default: the JAX
     defaults, ``AppConfig()``).  ``handler`` overrides the one built from
-    the config (the test seam).  Startup sets the executor size
-    (``worker_pool_size``) and starts the watchdog and the pyramid job
-    runner; cleanup stops them and closes the handler's renderer."""
+    the config (the test seam).  ``db``, an open ``AsyncDb`` (``fetchrow``
+    / ``fetch``), carries the postgres session store and metadata service
+    in place of connections from the config's uri and dsn.  Startup sets
+    the executor size (``worker_pool_size``), connects the OMERO database's
+    metadata service when the config names one and no ``db`` was given
+    (degrading to the local service with a warning without ``asyncpg``, as
+    the JAX app does), and starts the watchdog and the pyramid job runner;
+    cleanup stops them, closes the prefetcher, the database pool and the
+    handler's renderer."""
     import concurrent.futures as cf
     import os
 
@@ -600,8 +730,9 @@ def create_app(config: Optional[AppConfig] = None,
     for name in config.unserved:
         log.warning("%s is switched on, but the port has no byte caches "
                     "yet: it serves every request by rendering", name)
-    handler = handler or ImageRegionHandler(build_services(config, device))
-    front = Front(config, handler)
+    handler = handler or ImageRegionHandler(build_services(config, device,
+                                                          db=db))
+    front = Front(config, handler, db=db)
     watchdog: Optional[Watchdog] = None
     if config.watchdog.enabled:
         watchdog = build_watchdog(
@@ -672,7 +803,19 @@ def create_app(config: Optional[AppConfig] = None,
 
     tasks: list = []
 
+    owned: list = []        # the database pool this app opened
+
     async def on_startup(app: web.Application) -> None:
+        if (config.metadata_backend == "postgres"
+                and not isinstance(handler.s.metadata, DbMetadataService)):
+            try:
+                handler.s.metadata = await PostgresMetadataService.connect(
+                    config.metadata_dsn)
+                owned.append(handler.s.metadata)
+            except ImportError:
+                log.warning("metadata-service.type is 'postgres' but "
+                            "asyncpg is unavailable; using the local "
+                            "backend")
         workers = config.worker_pool_size or 2 * (os.cpu_count() or 4)
         asyncio.get_running_loop().set_default_executor(
             cf.ThreadPoolExecutor(max_workers=workers,
@@ -688,6 +831,12 @@ def create_app(config: Optional[AppConfig] = None,
         for task in tasks:
             task.cancel()
         await asyncio.gather(*tasks, return_exceptions=True)
+        if handler.s.prefetcher is not None:
+            handler.s.prefetcher.close()
+        for resource in owned + [front.session_store]:
+            close = getattr(resource, "close", None)
+            if close is not None:
+                await close()
         await handler.s.renderer.close()
 
     app = web.Application()

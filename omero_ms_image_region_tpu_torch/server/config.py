@@ -10,11 +10,20 @@ served settings the same values and the same validation:
   ``cache-control-header``, the HTTP parse limits
   (``max-initial-line-length``, ``max-header-size``, ``max-headers``),
   ``omero.server`` (``omero.pixeldata.max_tile_length``,
-  ``omero.script_repo_root``), ``omero.web.session_cookie_name``,
-  ``single-flight``, ``logging``;
-* ``session-store`` of type ``static`` (or none): a session cookie's value
-  is the session key, as in the JAX ``StaticSessionStore(accept_all=True)``;
-* ``batcher``, ``raw-cache``, ``renderer``, ``http-cache``, ``watchdog``,
+  ``omero.script_repo_root``, and ``omero.data.dir``: the OMERO binary
+  repository an image opens from when the data directory lacks it),
+  ``omero.web.session_cookie_name``, ``single-flight``, ``logging``;
+* ``session-store``: ``type`` (``static``, ``redis`` or ``postgres``),
+  ``uri`` and ``required`` (default: on for redis and postgres), resolved
+  into a store by ``server.app.make_session_store`` as the JAX app does;
+* ``metadata-service``: ``type`` ``local`` (the data directory) or
+  ``postgres`` (the OMERO database, ``services.db_metadata``; needs a
+  ``dsn``);
+* ``sessions``: ``enabled`` (per-session admission buckets and the
+  viewport model that steers the prefetcher), ``bucket-refill-per-s``,
+  ``bucket-burst``, ``max-tracked`` and ``prefetch-lookahead``;
+* ``batcher``, ``raw-cache`` (``prefetch`` included, on by default as in
+  the JAX package), ``renderer``, ``http-cache``, ``watchdog``,
   ``fault-tolerance`` and ``fault-injection``, except the keys that belong
   to a part not ported (the sidecar's breaker and retries, batch growth,
   XLA's compile cache, ...);
@@ -44,12 +53,8 @@ the bytes a render returns, so the port answers every request with the
 same status and body without them, at a render's cost.  They load, are
 listed in ``AppConfig.unserved`` and logged as such at startup (ROADMAP
 Queue 1 item 3).  Settings the JAX package turns on by default and the
-port does not have (``wire.streaming``, ``raw-cache.prefetch``, the
-sentinel, ...) wait in ROADMAP Queue 1.  Two parts of the JAX data path
-are not served either and have no setting of their own: the OMERO binary
-repository root (``omero.server`` ``omero.data.dir``, held to its JAX
-default of none), and JPEG 2000 TIFFs (compression 33003/33005), which
-the TIFF reader refuses with an error that names the codec.
+port does not have (``wire.streaming``, the sentinel, ...) wait in ROADMAP
+Queue 1.
 """
 
 from __future__ import annotations
@@ -77,6 +82,7 @@ class RawCacheConfig:
     enabled: bool = True
     max_bytes: int = 2 * 1024 * 1024 * 1024
     digest_dedup: bool = False
+    prefetch: bool = True          # the predicted next tiles, staged
 
 
 @dataclass
@@ -147,6 +153,19 @@ class PyramidConfig:
 
 
 @dataclass
+class SessionsConfig:
+    """Session-aware serving: the per-session admission buckets
+    (``server.admission``) and the viewport model (``services.viewport``)
+    that steers the prefetcher."""
+
+    enabled: bool = False
+    bucket_refill_per_s: float = 20.0    # tokens (requests) per second
+    bucket_burst: float = 40.0
+    max_tracked: int = 4096              # LRU bound of buckets and states
+    prefetch_lookahead: int = 2          # pan steps predicted ahead
+
+
+@dataclass
 class LoggingConfig:
     level: str = "INFO"
     file: Optional[str] = None           # a time-rolling file appender
@@ -188,10 +207,6 @@ _UNPORTED = {
         "snapshot-interval-s": 60.0, "snapshot-top-k": 512,
         "max-plane-entries": 256, "rehydrate": True,
         "rehydrate-concurrency": 2,
-    },
-    "sessions": {
-        "enabled": False, "bucket-refill-per-s": 20.0, "bucket-burst": 40.0,
-        "max-tracked": 4096, "prefetch-lookahead": 2,
     },
     "loadmodel": {
         "seed": 1234, "viewers": 10000, "think-time-median-ms": 350.0,
@@ -251,13 +266,12 @@ _UNPORTED = {
         "max-bundles": 8, "profile-ms": 200, "records-dir": ".",
     },
     "redis-cache": {"uri": None},
-    "metadata-service": {"type": "local", "dsn": None},
 }
 
 # The unported keys of the served sections, with their JAX defaults.
 _UNPORTED_KEYS = {
     "batcher": {"max-batch-limit": None, "target-inflight": 1},
-    "raw-cache": {"prefetch": True},
+    "raw-cache": {},
     "renderer": {"kernel": "xla", "compilation-cache-dir": None,
                  "prewarm": ()},
     "http-cache": {"peer-fetch": True, "peer-timeout-ms": 500.0},
@@ -273,9 +287,10 @@ _UNPORTED_KEYS = {
         "wire-delay-rate": 0.0, "wire-delay-ms": 0.0,
         "die-after-requests": 0,
     },
-    "omero.server": {"omero.data.dir": None},
+    "omero.server": {},
     "pyramid": {"defer-poll-s": 0.25},
-    "session-store": {"uri": None},
+    "session-store": {},
+    "metadata-service": {},
 }
 
 # Byte caches: loaded and listed in AppConfig.unserved (module docstring).
@@ -327,10 +342,15 @@ class AppConfig:
     max_tile_length: int = 2048            # omero.pixeldata.max_tile_length
     cache_control_header: str = ""
     lut_root: Optional[str] = None         # omero.script_repo_root
+    # The OMERO binary repository (omero.data.dir); None: off.
+    omero_data_dir: Optional[str] = None
     session_cookie_name: str = "sessionid"
-    session_store_type: Optional[str] = None     # None | "static"
-    # None: off (the JAX default for a static store or none).
+    session_store_type: Optional[str] = None   # redis | postgres | static
+    session_store_uri: Optional[str] = None
+    # None: on for the redis and postgres stores, off for static or none.
     session_store_required: Optional[bool] = None
+    metadata_backend: str = "local"            # local | postgres
+    metadata_dsn: Optional[str] = None
     single_flight: bool = True
     batcher: BatcherConfig = field(default_factory=BatcherConfig)
     raw_cache: RawCacheConfig = field(default_factory=RawCacheConfig)
@@ -345,6 +365,7 @@ class AppConfig:
     logging: LoggingConfig = field(default_factory=LoggingConfig)
     workloads: WorkloadsConfig = field(default_factory=WorkloadsConfig)
     pyramid: PyramidConfig = field(default_factory=PyramidConfig)
+    sessions: SessionsConfig = field(default_factory=SessionsConfig)
     # Sections switched on that the port loads but does not serve.
     unserved: Tuple[str, ...] = ()
 
@@ -382,10 +403,12 @@ class AppConfig:
         server = _block(raw, "omero.server")
         _check("omero.server", server, _UNPORTED_KEYS["omero.server"],
                served=("omero.pixeldata.max_tile_length",
-                       "omero.script_repo_root"))
+                       "omero.script_repo_root", "omero.data.dir"))
         cfg.max_tile_length = int(server.get(
             "omero.pixeldata.max_tile_length", cfg.max_tile_length))
         cfg.lut_root = server.get("omero.script_repo_root", cfg.lut_root)
+        cfg.omero_data_dir = server.get("omero.data.dir",
+                                        cfg.omero_data_dir)
         cfg.cache_control_header = raw.get("cache-control-header",
                                            cfg.cache_control_header)
         cfg._http_cache(_block(raw, "http-cache"))
@@ -393,14 +416,14 @@ class AppConfig:
             "session_cookie_name", cfg.session_cookie_name)
         store = _block(raw, "session-store")
         _check("session-store", store, _UNPORTED_KEYS["session-store"],
-               served=("type", "required"))
+               served=("type", "uri", "required"))
         cfg.session_store_type = store.get("type")
-        if cfg.session_store_type not in (None, "static"):
-            raise _refuse("session-store.type", cfg.session_store_type)
+        cfg.session_store_uri = store.get("uri")
         if store.get("required") is not None:
             cfg.session_store_required = bool(store["required"])
-        for name in ("redis-cache", "metadata-service"):
-            _check(name, _block(raw, name), _UNPORTED[name])
+        cfg._metadata_service(_block(raw, "metadata-service"))
+        _check("redis-cache", _block(raw, "redis-cache"),
+               _UNPORTED["redis-cache"])
         cfg.unserved = tuple(
             name for name in _BYTE_CACHES
             if _block(raw, name).get("enabled", False))
@@ -414,14 +437,16 @@ class AppConfig:
             cfg.single_flight = bool(sf)
         rc = _block(raw, "raw-cache")
         _check("raw-cache", rc, _UNPORTED_KEYS["raw-cache"],
-               served=("enabled", "max-bytes", "digest-dedup"))
+               served=("enabled", "max-bytes", "digest-dedup", "prefetch"))
         cfg.raw_cache = RawCacheConfig(
             enabled=bool(rc.get("enabled", cfg.raw_cache.enabled)),
             max_bytes=int(rc.get("max-bytes", cfg.raw_cache.max_bytes)),
             digest_dedup=bool(rc.get("digest-dedup",
-                                     cfg.raw_cache.digest_dedup)))
+                                     cfg.raw_cache.digest_dedup)),
+            prefetch=bool(rc.get("prefetch", cfg.raw_cache.prefetch)))
+        cfg._sessions(_block(raw, "sessions"))
         for name, defaults in _UNPORTED.items():
-            if name in ("redis-cache", "metadata-service"):
+            if name == "redis-cache":
                 continue
             block = _block(raw, name)
             if "enabled" in defaults and block.get("enabled") is False:
@@ -434,6 +459,41 @@ class AppConfig:
         cfg._workloads(_block(raw, "workloads"))
         cfg._pyramid(_block(raw, "pyramid"))
         return cfg
+
+    def _metadata_service(self, meta: dict) -> None:
+        _check("metadata-service", meta, _UNPORTED_KEYS["metadata-service"],
+               served=("type", "dsn"))
+        self.metadata_backend = str(meta.get("type", self.metadata_backend))
+        self.metadata_dsn = meta.get("dsn")
+        if self.metadata_backend not in ("local", "postgres"):
+            raise ValueError(
+                "metadata-service.type must be 'local' or 'postgres', "
+                f"got {self.metadata_backend!r}")
+        if self.metadata_backend == "postgres" and not self.metadata_dsn:
+            raise ValueError("metadata-service.type 'postgres' requires "
+                             "a dsn")
+
+    def _sessions(self, se: dict) -> None:
+        _check("sessions", se, {},
+               served=("enabled", "bucket-refill-per-s", "bucket-burst",
+                       "max-tracked", "prefetch-lookahead"))
+        d = SessionsConfig()
+        self.sessions = SessionsConfig(
+            enabled=bool(se.get("enabled", d.enabled)),
+            bucket_refill_per_s=float(se.get("bucket-refill-per-s",
+                                             d.bucket_refill_per_s)),
+            bucket_burst=float(se.get("bucket-burst", d.bucket_burst)),
+            max_tracked=int(se.get("max-tracked", d.max_tracked)),
+            prefetch_lookahead=int(se.get("prefetch-lookahead",
+                                          d.prefetch_lookahead)))
+        if self.sessions.bucket_refill_per_s <= 0:
+            raise ValueError("sessions.bucket-refill-per-s must be > 0")
+        if self.sessions.bucket_burst < 1:
+            raise ValueError("sessions.bucket-burst must be >= 1")
+        if self.sessions.max_tracked < 1:
+            raise ValueError("sessions.max-tracked must be >= 1")
+        if self.sessions.prefetch_lookahead < 1:
+            raise ValueError("sessions.prefetch-lookahead must be >= 1")
 
     def _http_cache(self, hc: dict) -> None:
         _check("http-cache", hc, _UNPORTED_KEYS["http-cache"],

@@ -26,8 +26,19 @@ batcher mirrors each tile's raw before padding it to its bucket (as the
 JAX handler folds its flips into the raw), the direct renderer folds them
 into K3's reads or flips the packed tile.
 
+Every ACL question, the image's, a mask's and the front's anonymous probe
+for ``Vary``, goes through :func:`check_can_read` and the 60 s
+``CanReadMemo`` (``services.metadata``), as in the JAX handler: against the
+OMERO database a repeat request pays no ACL round trip.  The pixel source
+comes from the data directory, else, when the metadata service resolves
+binary-repository paths (``services.db_metadata``) and ``PixelsService``
+has a ``repo_root``, from the OMERO repository
+(:meth:`ImageRegionHandler._open_pixel_source`).
+
 Admission (``server.admission``) sits inside the single-flight producer,
-as in the JAX handler: a coalesced follower claims no slot.  The stages
+as in the JAX handler: a coalesced follower claims no slot.  With
+``sessions.enabled`` each caller first draws its session's fairness token,
+before single-flight.  The stages
 are timed under the JAX package's span names (``utils.stopwatch``):
 ``get_pixels_description``, ``canRead``, ``PixelsService.getPixelBuffer``,
 ``PixelsService.readRegion`` (a raw-cache miss's read and copy),
@@ -55,15 +66,21 @@ by K8a and blend by K8b in request order) and ``render_animation`` (a z or
 t strip, every frame started at once so the batcher groups them,
 ``FRME`` records in order).
 
-Not here yet: the byte caches (the shape-mask tier included) and the
-prefetcher.
+After a tile GET the prefetcher (``services.prefetch``, on in the default
+app) stages the predicted next tiles into the raw cache, and a raw-cache
+hit is reported back to it (:meth:`TilePrefetcher.note_hit`), as in the
+JAX handler; like the JAX handler it skips tiles of at most
+``jpeg_host_max_px`` pixels (the JAX package renders those on the host and
+never reads its raw cache for them).
+
+Not here yet: the byte caches (the shape-mask tier included).
 """
 
 from __future__ import annotations
 
 import asyncio
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -71,7 +88,7 @@ import torch
 
 from .. import codecs
 from ..io.devicecache import region_key
-from ..io.staging import HostPlanes, stage
+from ..io.staging import read_pinned, stage
 from ..models.pixels import Pixels, pixels_type_range
 from ..models.rendering import default_rendering_def, restrict_to_active
 from ..ops import jpegenc
@@ -82,12 +99,13 @@ from ..ops.maskops import (overlay_tensor, pack_mask_payload,
 from ..ops.render import (batched_settings, pack_settings,
                           render_tile_batch_packed, resolve_device,
                           settings_to_tensors, unpack_rgba)
+from ..services.metadata import CanReadMemo
 from ..utils import telemetry, transient
 from ..utils.color import split_html_color
 from ..utils.stopwatch import stopwatch
 from .ctx import ImageRegionCtx, ShapeMaskCtx
-from .errors import BadRequestError, NotFoundError
-from .region import RegionDef, clamp_region_to_plane, get_region_def
+from .errors import BadRequestError, NotFoundError, OverloadedError
+from .region import RegionDef, plan_region
 from .settings import render_identity_key, update_settings
 
 DEFAULT_MAX_TILE_LENGTH = 2048  # beanRefContext.xml:63-66
@@ -178,7 +196,9 @@ class ImageRegionServices:
     the Spring wiring, ``beanRefContext.xml:68-79``)."""
 
     pixels_service: object            # io.service.PixelsService
-    metadata: object                  # services.metadata.LocalMetadataService
+    # services.metadata.LocalMetadataService or services.db_metadata
+    # .DbMetadataService
+    metadata: object
     renderer: object                  # Renderer or batcher.BatchingRenderer
     lut_provider: object = None       # ops.lut.LutProvider
     max_tile_length: int = DEFAULT_MAX_TILE_LENGTH
@@ -189,6 +209,24 @@ class ImageRegionServices:
     # coalescing.
     single_flight: object = None
     admission: object = None          # admission.AdmissionController
+    prefetcher: object = None         # services.prefetch.TilePrefetcher
+    can_read_memo: CanReadMemo = field(default_factory=CanReadMemo)
+
+
+async def check_can_read(services: ImageRegionServices, object_type: str,
+                         object_id: int,
+                         session_key: Optional[str]) -> bool:
+    """The memoized ACL check (memo, else the metadata service and a memo
+    write-back), shared by the image and mask pipelines and the front."""
+    memo = services.can_read_memo
+    hit = await memo.get_async(session_key, object_type, object_id)
+    if hit is not None:
+        return hit
+    with stopwatch("canRead"):
+        ok = await services.metadata.can_read(object_type, object_id,
+                                              session_key)
+    await memo.put_async(session_key, object_type, object_id, ok)
+    return ok
 
 
 @dataclass
@@ -201,6 +239,7 @@ class _Plan:
     level: int
     active: List[int]
     settings: dict
+    levels: Sequence[Sequence[int]]   # (size_x, size_y) per level
 
 
 class ImageRegionHandler:
@@ -221,6 +260,9 @@ class ImageRegionHandler:
         t0 = time.perf_counter()
         pixels = await self._authorize(ctx)
         admission = self.s.admission
+        # The session's fairness token, per caller and before coalescing.
+        debit = (admission.admit_session(ctx) if admission is not None
+                 else None)
 
         async def produce() -> bytes:
             t_admit = admission.admit() if admission is not None else None
@@ -234,22 +276,34 @@ class ImageRegionHandler:
                     admission.release(t_admit, completed=completed)
             return data
 
-        if self.s.single_flight is None:
-            remaining = transient.remaining_ms()
-            if remaining is None:
-                return await produce()
-            try:
-                return await asyncio.wait_for(
-                    produce(), timeout=max(0.0, remaining) / 1000.0)
-            except asyncio.TimeoutError:
-                raise transient.DeadlineExceededError(
-                    "deadline exceeded awaiting render")
-        data, coalesced = await self.s.single_flight.run(
-            render_identity_key(ctx), produce)
+        try:
+            if self.s.single_flight is None:
+                return await self._bounded(produce())
+            data, coalesced = await self.s.single_flight.run(
+                render_identity_key(ctx), produce)
+        except OverloadedError:
+            # Refused by the global bound (here or in the leader this
+            # caller coalesced onto): the session gets its token back.
+            if admission is not None:
+                admission.refund_session(debit)
+            raise
         if coalesced:
             telemetry.record_span("dedup.coalesced", t0,
                                   (time.perf_counter() - t0) * 1000.0)
         return data
+
+    @staticmethod
+    async def _bounded(work):
+        """Await ``work`` within the request's deadline, if it has one."""
+        remaining = transient.remaining_ms()
+        if remaining is None:
+            return await work
+        try:
+            return await asyncio.wait_for(
+                work, timeout=max(0.0, remaining) / 1000.0)
+        except asyncio.TimeoutError:
+            raise transient.DeadlineExceededError(
+                "deadline exceeded awaiting render")
 
     async def read(self, ctx: ImageRegionCtx) -> Tuple[np.ndarray, dict]:
         """ACL, bounds and region resolution, then a host read that
@@ -273,10 +327,26 @@ class ImageRegionHandler:
 
     async def can_read(self, image_id: int,
                        session_key: Optional[str]) -> bool:
-        """The read ACL of an image for a caller."""
-        with stopwatch("canRead"):
-            return await self.s.metadata.can_read("Image", image_id,
-                                                  session_key)
+        """The read ACL of an image for a caller (memoized)."""
+        return await check_can_read(self.s, "Image", image_id, session_key)
+
+    async def _open_pixel_source(self, image_id: int, pixels: Pixels):
+        """The image's pixel source: the data directory's (or the open
+        handle's), else, when the metadata service resolves repository
+        paths and the pixels service has a ``repo_root``, the first usable
+        candidate in the OMERO binary repository (the reference's resolver
+        bean and Bio-Formats, ``ImageRegionRequestHandler.java:302-309``).
+        """
+        svc = self.s.pixels_service
+        try:
+            return await asyncio.to_thread(svc.get_pixel_source, image_id)
+        except FileNotFoundError:
+            resolver = getattr(self.s.metadata, "resolve_image_paths", None)
+            if resolver is None or not getattr(svc, "repo_root", None):
+                raise
+        candidates = await resolver(image_id)
+        return await asyncio.to_thread(svc.get_pixel_source, image_id,
+                                       candidates, pixels)
 
     async def _plan(self, ctx: ImageRegionCtx, pixels: Pixels) -> _Plan:
         if ctx.z < 0 or ctx.z >= pixels.size_z:
@@ -286,8 +356,7 @@ class ImageRegionHandler:
             raise BadRequestError(
                 f"Parameter 'theT' not within bounds: {ctx.t}")
         with stopwatch("PixelsService.getPixelBuffer"):
-            src = await asyncio.to_thread(
-                self.s.pixels_service.get_pixel_source, ctx.image_id)
+            src = await self._open_pixel_source(ctx.image_id, pixels)
         if src.resolution_levels() > 1:
             levels: Sequence[Sequence[int]] = [
                 list(d) for d in src.resolution_descriptions()]
@@ -298,11 +367,9 @@ class ImageRegionHandler:
             raise BadRequestError(
                 f"Resolution {ctx.resolution} not within [0, {len(levels)})")
 
-        region = get_region_def(
+        region, level = plan_region(
             levels, ctx.resolution, ctx.tile, ctx.region, src.tile_size(),
-            self.s.max_tile_length, ctx.flip_horizontal, ctx.flip_vertical,
-        )
-        clamp_region_to_plane(levels, ctx.resolution, region)
+            self.s.max_tile_length, ctx.flip_horizontal, ctx.flip_vertical)
         if region.width <= 0 or region.height <= 0:
             raise BadRequestError(
                 f"Region {region.as_tuple()} outside image bounds")
@@ -311,10 +378,9 @@ class ImageRegionHandler:
         active_rdef, active = restrict_to_active(rdef)
         if not active:
             raise BadRequestError("No active channels to render")
-        # The request resolution indexes the largest-first level list
-        # directly; the store numbers levels largest-first too.
-        return _Plan(src, region, ctx.resolution or 0, active,
-                     pack_settings(active_rdef, self.s.lut_provider))
+        return _Plan(src, region, level, active,
+                     pack_settings(active_rdef, self.s.lut_provider),
+                     levels)
 
     async def _get_region(self, ctx: ImageRegionCtx,
                           pixels: Pixels) -> bytes:
@@ -325,15 +391,25 @@ class ImageRegionHandler:
             device_jpeg = ctx.format == "jpeg"
         else:
             raw = None
-            cache = self.s.raw_cache
+            cache, prefetcher = self.s.raw_cache, self.s.prefetcher
             if cache is not None:
                 # A hit is a dict lookup: no thread hop.
-                raw = cache.get(self._region_key(ctx, plan))
+                key = self._region_key(ctx, plan)
+                raw = cache.get(key)
+                if raw is not None and prefetcher is not None:
+                    prefetcher.note_hit(key)
             if raw is None:
                 raw = await asyncio.to_thread(self._load, plan, ctx)
             h, w = plan.region.height, plan.region.width
-            device_jpeg = (ctx.format == "jpeg"
-                           and h * w > self.s.jpeg_host_max_px)
+            tiny = h * w <= self.s.jpeg_host_max_px
+            if prefetcher is not None and ctx.tile is not None and not tiny:
+                prefetcher.tile_served(
+                    plan.src, ctx.image_id, ctx.z, ctx.t, ctx.resolution,
+                    plan.levels, ctx.tile, plan.src.tile_size(),
+                    self.s.max_tile_length, plan.active,
+                    ctx.flip_horizontal, ctx.flip_vertical,
+                    session_key=ctx.omero_session_key)
+            device_jpeg = ctx.format == "jpeg" and not tiny
         renderer = self.s.renderer
         if device_jpeg:
             quality = codecs.quality_percent(ctx.compression_quality)
@@ -421,19 +497,12 @@ class ImageRegionHandler:
                           plan.region.as_tuple(), tuple(plan.active))
 
     @staticmethod
-    def _read_planes(plan: _Plan, ctx: ImageRegionCtx,
-                     out: Optional[np.ndarray] = None) -> np.ndarray:
+    def _read_planes(plan: _Plan, ctx: ImageRegionCtx) -> np.ndarray:
         """[C_active, h, w] planes in the storage dtype (the kernels widen
-        on the device, so uint16 moves half the bytes of float32), read
-        into ``out`` when given."""
-        if out is None:
-            return np.stack([
-                plan.src.get_region(ctx.z, c, ctx.t, plan.region, plan.level)
-                for c in plan.active])
-        for i, c in enumerate(plan.active):
-            plan.src.get_region(ctx.z, c, ctx.t, plan.region, plan.level,
-                                out=out[i])
-        return out
+        on the device, so uint16 moves half the bytes of float32)."""
+        return np.stack([
+            plan.src.get_region(ctx.z, c, ctx.t, plan.region, plan.level)
+            for c in plan.active])
 
     def _load(self, plan: _Plan, ctx: ImageRegionCtx
               ) -> Union[np.ndarray, torch.Tensor]:
@@ -449,14 +518,10 @@ class ImageRegionHandler:
         cache = self.s.raw_cache
         if cache is None:
             return self._read_planes(plan, ctx)
-
-        def read_pinned() -> HostPlanes:
-            planes = HostPlanes(
-                (len(plan.active), plan.region.height, plan.region.width),
-                plan.src.dtype, cache.device)
-            self._read_planes(plan, ctx, out=planes.array)
-            return planes
-        return cache.get_or_load(self._region_key(ctx, plan), read_pinned)
+        return cache.get_or_load(
+            self._region_key(ctx, plan),
+            lambda: read_pinned(plan.src, ctx.z, ctx.t, plan.region,
+                                plan.level, plan.active, cache.device))
 
     @staticmethod
     def encode(rgba: np.ndarray, ctx: ImageRegionCtx) -> bytes:
@@ -490,10 +555,8 @@ class ShapeMaskHandler:
 
     async def can_read(self, shape_id: int,
                        session_key: Optional[str]) -> bool:
-        """The read ACL of a mask for a caller."""
-        with stopwatch("canRead"):
-            return await self.s.metadata.can_read("Mask", shape_id,
-                                                  session_key)
+        """The read ACL of a mask for a caller (memoized)."""
+        return await check_can_read(self.s, "Mask", shape_id, session_key)
 
     async def render_shape_mask(self, ctx: ShapeMaskCtx) -> bytes:
         if not await self.can_read(ctx.shape_id, ctx.omero_session_key):

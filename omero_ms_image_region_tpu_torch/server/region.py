@@ -121,3 +121,23 @@ def get_region_def(
 # level order.  Our PixelSource numbers levels largest-first like the
 # descriptions, so the request resolution IS the read level (see
 # ImageRegionHandler._get_region).
+
+
+def plan_region(resolution_levels: Sequence[Sequence[int]],
+                resolution: Optional[int], tile: Optional[RegionDef],
+                region: Optional[RegionDef],
+                image_tile_size: Tuple[int, int], max_tile_length: int,
+                flip_horizontal: bool = False,
+                flip_vertical: bool = False) -> Tuple[RegionDef, int]:
+    """The raw rectangle a request reads and the level it reads it at:
+    :func:`get_region_def` clamped to the plane (:func:`clamp_region_to_
+    plane`), and the request resolution, which indexes the largest-first
+    level list directly.  One construction site for the handler's read
+    and the prefetcher's predicted reads, so a predicted tile's raw-cache
+    key is the key its request computes.  An empty region (width or
+    height <= 0) lies outside the plane."""
+    out = get_region_def(resolution_levels, resolution, tile, region,
+                         image_tile_size, max_tile_length, flip_horizontal,
+                         flip_vertical)
+    clamp_region_to_plane(resolution_levels, resolution, out)
+    return out, resolution or 0

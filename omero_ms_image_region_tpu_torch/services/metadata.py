@@ -28,12 +28,19 @@ fill colour) and ``.bin`` (the packed bits), the layout :func:`write_mask`
 writes and both packages read.  A mask's ACL is ``<shape_id>.acl.json``
 beside them, with the image's ``public`` / ``sessions`` keys; without one
 a mask is readable when it exists.
+
+:class:`CanReadMemo` memoizes ACL decisions for 60 s (the JAX package's,
+which plays the Hazelcast ``canRead`` map of the reference): the handlers
+ask every ACL question through it (``server.handler.check_can_read``), so
+against the OMERO database (``services.db_metadata``) a repeat request
+pays no ACL round trip.
 """
 
 from __future__ import annotations
 
 import asyncio
 import json
+import logging
 import os
 import threading
 import time
@@ -45,6 +52,8 @@ from ..io.ngff import NgffZarrSource, find_ngff
 from ..io.ometiff import OmeTiffSource, find_tiff
 from ..models.mask import Mask
 from ..models.pixels import Pixels
+
+log = logging.getLogger(__name__)
 
 # Level-0 dataset path per NGFF root, validated by the root .zattrs
 # mtime: the path only changes when .zattrs changes, so the per-request
@@ -282,3 +291,84 @@ def write_mask(data_dir: str, mask: Mask) -> None:
         }, f)
     with open(base + ".bin", "wb") as f:
         f.write(mask.bytes_)
+
+
+class CanReadMemo:
+    """TTL memo of ACL decisions keyed by (session, type, id)
+    (≙ the Hazelcast ``canRead`` map the reference's workers share,
+    ``ImageRegionVerticle.java:107-111``).
+
+    An in-process TTL dict, and an optional ``shared`` tier (an async
+    ``get`` / ``set`` or ``set_ttl`` cache shared by the service's
+    instances, b"1"/b"0" values) that plays the distributed map: a
+    decision one instance memoized is seen by the others.  The app builds
+    it with ``shared=None``; the shared tier rides the byte caches' Redis
+    client, which the port does not have yet.  A shared-tier failure is a
+    miss, never a failed request."""
+
+    def __init__(self, ttl_seconds: float = 60.0, shared=None):
+        self.ttl = ttl_seconds
+        self.shared = shared
+        self._lock = threading.Lock()
+        self._memo: Dict[Tuple[Optional[str], str, int],
+                         Tuple[bool, float]] = {}
+        self.hits = 0
+        self.misses = 0
+
+    @staticmethod
+    def _shared_key(session_key: Optional[str], object_type: str,
+                    object_id: int) -> str:
+        return f"canRead:{session_key or ''}:{object_type}:{object_id}"
+
+    async def get_async(self, session_key: Optional[str], object_type: str,
+                        object_id: int) -> Optional[bool]:
+        local = self.get(session_key, object_type, object_id)
+        if local is not None or self.shared is None:
+            return local
+        try:
+            raw = await self.shared.get(
+                self._shared_key(session_key, object_type, object_id))
+        except Exception as e:
+            log.warning("shared canRead memo get failed: %r", e)
+            return None
+        if raw is None:
+            return None
+        value = raw == b"1"
+        self.put(session_key, object_type, object_id, value)
+        return value
+
+    async def put_async(self, session_key: Optional[str], object_type: str,
+                        object_id: int, value: bool) -> None:
+        self.put(session_key, object_type, object_id, value)
+        if self.shared is None:
+            return
+        key = self._shared_key(session_key, object_type, object_id)
+        payload = b"1" if value else b"0"
+        try:
+            set_ttl = getattr(self.shared, "set_ttl", None)
+            if set_ttl is not None:
+                await set_ttl(key, payload, self.ttl)
+            else:
+                await self.shared.set(key, payload)
+        except Exception as e:
+            log.warning("shared canRead memo set failed: %r", e)
+
+    def get(self, session_key: Optional[str], object_type: str,
+            object_id: int) -> Optional[bool]:
+        key = (session_key, object_type, object_id)
+        with self._lock:
+            hit = self._memo.get(key)
+            if hit is not None and time.monotonic() > hit[1]:
+                del self._memo[key]
+                hit = None
+            if hit is None:
+                self.misses += 1
+                return None
+            self.hits += 1
+            return hit[0]
+
+    def put(self, session_key: Optional[str], object_type: str,
+            object_id: int, value: bool) -> None:
+        with self._lock:
+            self._memo[(session_key, object_type, object_id)] = (
+                value, time.monotonic() + self.ttl)

@@ -511,6 +511,98 @@ class WorkloadStats:
 WORKLOADS = WorkloadStats()
 
 
+class SessionStats:
+    """The session model (``services.viewport``): the sessions the
+    viewport tracker holds, the tile observations that fed it and its LRU
+    evictions.  No per-session label: sessions are unbounded."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.tracked = 0
+        self.observations = 0
+        self.evicted = 0
+
+    def set_tracked(self, n: int) -> None:
+        with self._lock:
+            self.tracked = int(n)
+
+    def count_observation(self) -> None:
+        with self._lock:
+            self.observations += 1
+
+    def count_evicted(self) -> None:
+        with self._lock:
+            self.evicted += 1
+
+    def metric_lines(self) -> List[str]:
+        with self._lock:
+            return [f"imageregion_session_tracked {self.tracked}",
+                    "imageregion_session_observations_total "
+                    f"{self.observations}",
+                    f"imageregion_session_evictions_total {self.evicted}"]
+
+    def reset(self) -> None:
+        with self._lock:
+            self.tracked = self.observations = self.evicted = 0
+
+
+SESSIONS = SessionStats()
+
+
+class PrefetchStats:
+    """Predictive prefetch (``services.prefetch``): predictions made, loads
+    scheduled and staged, foreground hits on staged planes and skips by
+    reason (a closed vocabulary: ``budget``)."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.predicted = 0
+        self.scheduled = 0
+        self.staged = 0
+        self.hits = 0
+        self.skipped: Dict[str, int] = {}
+
+    def count_predicted(self, n: int = 1) -> None:
+        with self._lock:
+            self.predicted += n
+
+    def count_scheduled(self) -> None:
+        with self._lock:
+            self.scheduled += 1
+
+    def count_staged(self) -> None:
+        with self._lock:
+            self.staged += 1
+
+    def count_hit(self) -> None:
+        with self._lock:
+            self.hits += 1
+
+    def count_skipped(self, reason: str) -> None:
+        with self._lock:
+            self.skipped[reason] = self.skipped.get(reason, 0) + 1
+
+    def metric_lines(self) -> List[str]:
+        with self._lock:
+            lines = [
+                f"imageregion_prefetch_predicted_total {self.predicted}",
+                f"imageregion_prefetch_scheduled_total {self.scheduled}",
+                f"imageregion_prefetch_staged_total {self.staged}",
+                f"imageregion_prefetch_hits_total {self.hits}",
+            ]
+            lines += [f'imageregion_prefetch_skipped_total{{reason="{r}"}} '
+                      f"{self.skipped[r]}" for r in sorted(self.skipped)]
+        return lines
+
+    def reset(self) -> None:
+        with self._lock:
+            self.predicted = self.scheduled = self.staged = self.hits = 0
+            self.skipped.clear()
+
+
+PREFETCH = PrefetchStats()
+
+
 # ------------------------------------------------------------ exposition
 
 METRIC_TYPES: Dict[str, str] = {
@@ -549,6 +641,14 @@ METRIC_TYPES: Dict[str, str] = {
     "imageregion_animation_frames_total": "counter",
     "imageregion_animation_cancelled_total": "counter",
     "imageregion_animation_first_frame_ms": "gauge",
+    "imageregion_session_tracked": "gauge",
+    "imageregion_session_observations_total": "counter",
+    "imageregion_session_evictions_total": "counter",
+    "imageregion_prefetch_predicted_total": "counter",
+    "imageregion_prefetch_scheduled_total": "counter",
+    "imageregion_prefetch_staged_total": "counter",
+    "imageregion_prefetch_hits_total": "counter",
+    "imageregion_prefetch_skipped_total": "counter",
 }
 
 METRIC_HELP: Dict[str, str] = {
@@ -644,6 +744,11 @@ def resilience_metric_lines() -> List[str]:
     return lines + WATCHDOG.metric_lines() + WORKLOADS.metric_lines()
 
 
+def session_metric_lines() -> List[str]:
+    """The session model's and the prefetcher's families."""
+    return SESSIONS.metric_lines() + PREFETCH.metric_lines()
+
+
 def device_metric_lines(services) -> List[str]:
     """The raw cache, single-flight and batcher gauges of a handler's
     services (duck-typed: ``server.handler.ImageRegionServices``)."""
@@ -686,3 +791,5 @@ def reset() -> None:
     WATCHDOG.reset()
     HTTPCACHE.reset()
     WORKLOADS.reset()
+    SESSIONS.reset()
+    PREFETCH.reset()

@@ -1,8 +1,13 @@
 """The port's config loader and CLI against the JAX package's.
 
 ``conf/config.example.yaml`` loads in the port; the settings the port
-serves get the values the JAX ``AppConfig.from_dict`` gives them; an
-unported setting away from its JAX default is refused with its name; and
+serves get the values the JAX ``AppConfig.from_dict`` gives them (the
+OMERO deployment's keys too: ``session-store`` type, uri and required,
+``metadata-service``, ``omero.data.dir``, ``raw-cache.prefetch`` and
+``sessions``); an unported setting away from its JAX default, or an
+unknown key in a served section, is refused with its name; without
+``asyncpg`` and ``redis`` both apps degrade alike, with the same warning
+or the same ``ValueError``; and
 ``python -m omero_ms_image_region_tpu_torch.server --config FILE`` parses
 its flags over the file and serves, with the file's HTTP parse limits.
 """
@@ -51,6 +56,17 @@ CUSTOM = {
     "fault-injection": {"seed": 3, "freeze-rate": 0.5, "freeze-ms": 10,
                         "freeze-max": 2, "device-error-rate": 0.1},
 }
+OMERO = {
+    "omero.server": {"omero.data.dir": "/OMERO"},
+    "session-store": {"type": "postgres", "required": True,
+                      "uri": "postgresql://omero@db/omero"},
+    "metadata-service": {"type": "postgres",
+                         "dsn": "postgresql://omero@db/omero"},
+    "raw-cache": {"prefetch": False, "digest-dedup": False},
+    "sessions": {"enabled": True, "bucket-refill-per-s": 2,
+                 "bucket-burst": 3, "max-tracked": 64,
+                 "prefetch-lookahead": 3},
+}
 
 
 def _served(port, jax, path="") -> list:
@@ -68,7 +84,7 @@ def _served(port, jax, path="") -> list:
     return out
 
 
-@pytest.mark.parametrize("source", ["example", "custom"])
+@pytest.mark.parametrize("source", ["example", "custom", "omero"])
 def test_served_settings_match_jax(source):
     if source == "example":
         port, jax = AppConfig.from_yaml(EXAMPLE), JaxConfig.from_yaml(EXAMPLE)
@@ -78,7 +94,8 @@ def test_served_settings_match_jax(source):
                                  "pixels-metadata-cache",
                                  "shape-mask-cache")
     else:
-        port, jax = AppConfig.from_dict(CUSTOM), JaxConfig.from_dict(CUSTOM)
+        raw = CUSTOM if source == "custom" else OMERO
+        port, jax = AppConfig.from_dict(raw), JaxConfig.from_dict(raw)
         assert port.unserved == ()
     for name, mine, theirs in _served(port, jax):
         assert mine == theirs, name
@@ -106,7 +123,10 @@ def test_unported_defaults_are_the_jax_defaults():
 
 @pytest.mark.parametrize("raw, name", [
     ({"fleet": {"enabled": True, "members": 2}}, "fleet.enabled"),
-    ({"sessions": {"enabled": True}}, "sessions.enabled"),
+    # Served sections refuse a key they do not know (the JAX loader
+    # ignores it).
+    ({"sessions": {"enabled": True, "enabled-for": "all"}},
+     "sessions.enabled"),
     ({"pressure": {"hbm-high": 0.95}}, "pressure.hbm-high"),
     ({"sidecar": {"role": "split", "socket": "/tmp/s"}}, "sidecar."),
     ({"renderer": {"jpeg-engine": "huffman"}}, "renderer.jpeg-engine"),
@@ -116,9 +136,10 @@ def test_unported_defaults_are_the_jax_defaults():
      "fault-tolerance.degraded-mode"),
     ({"fault-injection": {"seed": 1, "wire-drop-rate": 0.5}},
      "fault-injection.wire-drop-rate"),
-    ({"session-store": {"type": "redis", "uri": "redis://h"}},
+    ({"session-store": {"type": "redis", "uri": "redis://h", "db": 2}},
      "session-store."),
-    ({"metadata-service": {"type": "postgres", "dsn": "postgres://h"}},
+    ({"metadata-service": {"type": "postgres", "dsn": "postgres://h",
+                           "pool-size": 8}},
      "metadata-service."),
     ({"telemetry": {"slow-request-ms": 50}}, "telemetry.slow-request-ms"),
     ({"wire": {"ring-bytes": 0}}, "wire.ring-bytes"),
@@ -142,6 +163,104 @@ def test_an_unported_setting_is_refused_by_name(raw, name):
 def test_switching_off_a_missing_feature_loads(raw):
     JaxConfig.from_dict(raw)
     AppConfig.from_dict(raw)
+
+
+@pytest.mark.parametrize("raw, outcome", [
+    # A store that cannot be built refuses the start when sessions are
+    # required (the default for redis and postgres) ...
+    ({"session-store": {"type": "redis", "uri": "redis://h"}},
+     "session enforcement is on but the redis package is unavailable"),
+    ({"session-store": {"type": "postgres", "uri": "postgresql://h"}},
+     "session enforcement is on but no async postgres driver "
+     "(asyncpg/psycopg) is available"),
+    ({"session-store": {"type": "postgres"}},
+     "session enforcement is on but session-store.type is 'postgres' "
+     "with no uri"),
+    ({"session-store": {"type": "memcached"}},
+     "invalid session-store.type 'memcached'"),
+    ({"session-store": {"required": True}},
+     "session-store.required is true but no session-store.type"),
+    # ... and serves without sessions, with a warning, when they are not.
+    ({"session-store": {"type": "redis", "uri": "redis://h",
+                        "required": False}},
+     "the redis package is unavailable; sessions disabled"),
+    ({"session-store": {"type": "postgres", "uri": "postgresql://h",
+                        "required": False}},
+     "no async postgres driver (asyncpg/psycopg) is available; sessions "
+     "disabled"),
+])
+def test_missing_drivers_degrade_as_in_jax(raw, outcome, caplog,
+                                            monkeypatch):
+    """Without ``redis``, ``asyncpg`` and ``psycopg`` (each hidden from
+    import) both apps' session-store factories refuse or warn alike."""
+    import logging
+
+    from omero_ms_image_region_tpu.server import app as jax_app
+    from omero_ms_image_region_tpu_torch.server import app as port_app
+
+    for module in ("redis", "redis.asyncio", "asyncpg", "psycopg"):
+        monkeypatch.setitem(sys.modules, module, None)
+    results = []
+    for make, config in ((jax_app._make_session_store,
+                          JaxConfig.from_dict(raw)),
+                         (port_app.make_session_store,
+                          AppConfig.from_dict(raw))):
+        caplog.clear()
+        with caplog.at_level(logging.WARNING):
+            try:
+                store = make(config)
+                results.append(("warned", store,
+                                [r.getMessage() for r in caplog.records]))
+            except ValueError as e:
+                results.append(("refused", str(e)))
+    assert results[0] == results[1]
+    if results[0][0] == "refused":
+        assert results[0][1].startswith(outcome)
+    else:
+        assert results[0][1] is None and results[0][2] == [outcome]
+
+
+def test_postgres_metadata_without_asyncpg_keeps_the_local_service(
+        tmp_path, caplog, monkeypatch):
+    """``metadata-service.type: postgres`` without ``asyncpg``: both apps
+    start, warn alike and serve from the local metadata service."""
+    import asyncio
+    import logging
+
+    from aiohttp.test_utils import TestServer
+
+    from omero_ms_image_region_tpu.server.app import create_app as jax_app
+    from omero_ms_image_region_tpu_torch.server.app import (
+        build_services, create_app)
+    from omero_ms_image_region_tpu_torch.server.handler import (
+        ImageRegionHandler)
+    from omero_ms_image_region_tpu_torch.services.metadata import (
+        LocalMetadataService)
+
+    monkeypatch.setitem(sys.modules, "asyncpg", None)
+    raw = {"data-dir": str(tmp_path),
+           "metadata-service": {"type": "postgres",
+                                "dsn": "postgresql://h/omero"}}
+    handler = ImageRegionHandler(build_services(AppConfig.from_dict(raw),
+                                                "cpu"))
+    port_app = create_app(AppConfig.from_dict(raw), "cpu", handler=handler)
+
+    async def start(app):
+        server = TestServer(app)
+        await server.start_server()
+        await server.close()
+
+    warnings = []
+    for app in (jax_app(JaxConfig.from_dict(raw)), port_app):
+        caplog.clear()
+        with caplog.at_level(logging.WARNING):
+            asyncio.run(start(app))
+        warnings.append([r.getMessage() for r in caplog.records
+                         if "metadata-service" in r.getMessage()])
+    assert warnings[0] == warnings[1] == [
+        "metadata-service.type is 'postgres' but asyncpg is unavailable; "
+        "using the local backend"]
+    assert isinstance(handler.s.metadata, LocalMetadataService)
 
 
 def _free_port() -> int:

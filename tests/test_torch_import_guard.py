@@ -48,7 +48,9 @@ def test_port_imports_without_jax_or_the_jax_package():
                 "kernels.workloads", "ops.pyramid", "ops.projection",
                 "ops.maskops", "io.tiff", "io.jpegdec", "io.ometiff",
                 "io.ngff", "io.memory", "io.tiffwrite", "server.jobs",
-                "ingest"):
+                "ingest", "services.sessions", "services.db_metadata",
+                "services.viewport", "services.prefetch", "io.romio",
+                "io.jp2k"):
         assert f"omero_ms_image_region_tpu_torch.{mod}" in doc["imported"]
     assert doc["leaked"] == []
     assert doc["jax"] == []

@@ -7,9 +7,8 @@ read through both packages' ``PixelsService``: each region at each level,
 z, c and t is ``np.array_equal`` to the JAX reader's, read fresh and into a
 preallocated ``out=`` array; each Z-stack too; the level table, tile size,
 dtype, Pixels description and ``Last-Modified`` source stamp are equal
-(the in-memory source too, by itself).  A JPEG 2000 TIFF, which the JAX
-package decodes, makes the port raise a ``ValueError`` that names the
-codec.
+(the in-memory source too, by itself).  A JPEG 2000 TIFF (33003) reads
+as the JAX reader reads it.
 
 ``test_default_apps_serve_alike`` builds both default apps from one config
 dict over an OME-TIFF and an NGFF image (every JPEG on the device route)
@@ -299,17 +298,21 @@ def test_in_memory_source_reads_as_jax():
     assert np.array_equal(src.get_stack(1, 0), jax.get_stack(1, 0))
 
 
-def test_jp2k_tiff_is_refused_by_name(tmp_path):
+def test_jp2k_tiff_reads_as_jax(tmp_path):
+    """The 33003 (YCbCr) JPEG 2000 TIFF reads region for region as the
+    JAX reader reads it, fresh and into an ``out=`` array."""
     d = tmp_path / "1"
     d.mkdir()
     write_jp2k_tiff(str(d / "wsi.tif"), smooth_rgb(64, 64), 33003)
-    region = RegionDef(0, 0, 64, 64)
     jax = JaxPixelsService(str(tmp_path)).get_pixel_source(1)
-    assert jax.get_region(0, 0, 0, region, 0).shape == (64, 64)
     src = PixelsService(str(tmp_path)).get_pixel_source(1)
-    with pytest.raises(ValueError, match=r"compression 33003 \(Aperio "
-                                         r"JPEG 2000\) is not ported yet"):
-        src.get_region(0, 0, 0, region, 0)
+    for region in (RegionDef(0, 0, 64, 64), RegionDef(5, 9, 37, 45)):
+        for c in range(3):
+            want = jax.get_region(0, c, 0, region, 0)
+            assert np.array_equal(src.get_region(0, c, 0, region, 0), want)
+            out = np.empty_like(want)
+            src.get_region(0, c, 0, region, 0, out=out)
+            assert np.array_equal(out, want)
     src.close()
 
 

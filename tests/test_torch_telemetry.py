@@ -138,11 +138,13 @@ def test_metrics_match_jax(data_dir):
     port_fams = _families(text, types)
     assert port_fams == _families(jax_text, types)
     # Every ported family but the shed and watchdog counters, the
-    # workload routes' families and the pyramid job's, which this sequence
-    # never moves (tests/test_torch_workloads.py and
-    # tests/test_torch_readers.py hold those to the JAX app's).
+    # prefetcher's skips, the workload routes' families and the pyramid
+    # job's, which this sequence never moves (tests/test_torch_workloads.py,
+    # tests/test_torch_readers.py and tests/test_torch_prefetch.py hold
+    # those to the JAX app's).
     assert {f for f, _ in port_fams} == set(types) - {
         "imageregion_shed_total", "imageregion_watchdog_fires_total",
+        "imageregion_prefetch_skipped_total",
         "imageregion_workload_requests_total",
         "imageregion_pyramid_jobs_total",
         "imageregion_pyramid_jobs_active",
