@@ -38,7 +38,14 @@ Phases (any failure ends the run with a non-zero exit and no result line):
            level step; 4 x 1024^2 uint16; 3 x 4096^2 uint8; int16 with
            negatives; an odd 4097 x 8191 plane; an int8 37 x 45 plane),
            with ``torch.round(F.avg_pool2d(x.float(), 2))`` as its
-           library call.
+           library call.  K5 huffman_pack byte for byte (whole rows) and
+           K4b with the Huffman row lengths, on the K3 coefficients of
+           the flagship tiles at B=8 and B=1, q 85 and 92, each with the
+           fixed spec and one tuned to the tile's own frequencies; on an
+           all-zero tile, blocks with runs of 16, 32, 48 and 62 zeros, DC
+           differences of category 11, an entry overflow (cap 100) and a
+           bit overflow (64 words); no PyTorch call packs a Huffman
+           stream (``library_ms`` null).
            Each gets the median device time of 25 launches (CUDA events,
            the L2 flushed before each, a GPU sleep ahead of the timed span
            so the host's enqueue is not in it), the device time of each of
@@ -159,6 +166,25 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                        pan-step p50 against e2e's cold p50; then e2e's 48
                        GETs at 8 in flight with prefetch on, mean group
                        size and tiles/s beside e2e's (reported only);
+           huffman:    ``renderer.jpeg-engine: auto`` (the startup probe's
+                       rate and opening engine, two GETs), then
+                       ``huffman``: e2e's 16 sequential cold tiles, their
+                       16 re-windowed repeats and its 48 GETs at 8 in
+                       flight, after the workload's table tuning; each
+                       JPEG decodes (PIL) to exactly the pixels of the
+                       sparse engine's JPEG of the same URL; cold and warm
+                       p50, tiles/s, the wire bytes a tile and the wire's
+                       D2H ms beside the sparse engine's, the sequential
+                       run's span split, K5's launches (fails at 0, or if
+                       K4a ran);
+           byte_cache: the default app with the three byte caches on: 16
+                       cold device-route JPEG tiles, then each again, the
+                       first GET's bytes with no group dispatched and a
+                       ``cache.hit`` span on every repeat (hit p50 beside
+                       raw_cache's warm p50); a private copy of image 1:
+                       the owner's GET, another session's 404 from the
+                       cached tile's ACL; a mask with a colour and its
+                       repeat, a shape-mask hit with no K8a launch;
            then the device busy share (torch.profiler) of 8 sequential and
            of 32 concurrent cold GETs, one tile's layer breakdown on a cold
            host read (read, digest, pinned DMA, kernels, wire, coder),
@@ -182,11 +208,11 @@ Phases (any failure ends the run with a non-zero exit and no result line):
            median of 10,000, with the card's name and power limit.
 
 Each phase's launch counts are set to 0 just before it and read just
-after.  It prints the kernel table of all nine kernels as one JSON line
-(``launches``: the batch burst for K1-K4b, the workload phases for K7,
-K8a, K8b and K9; ``workload_launches``: each kernel's launches in each of
-those phases, readers, pyramid, omero and prefetch included), then the
-nvidia-smi line,
+after.  It prints the kernel table of all ten kernels as one JSON line
+(``launches``: the batch burst for K1-K4b, the huffman phase for K5, the
+workload phases for K7, K8a, K8b and K9; ``workload_launches``: each
+kernel's launches in each of those phases, readers, pyramid, omero,
+prefetch, huffman and byte_cache included), then the nvidia-smi line,
 and last ``{"ok": true, "device": {...}}``.  It imports nothing of JAX.
 """
 
@@ -211,6 +237,9 @@ DEVICE = "cuda"
 L2_FLUSH_BYTES = 128 << 20   # > the 50 MB L2
 SLEEP_CYCLES = 2_000_000     # ~1 ms of GPU sleep ahead of a timed launch
 QUALITIES = (85, 90)
+# The sparse engine's JPEG kernels (K3, K4a, K4b): the default app's
+# device route; K5 serves the Huffman engine (the huffman phase).
+SPARSE_WIRE = ("jpeg_coefficients", "sparse_pack", "compact_rows")
 
 
 def check(cond: bool, msg: str) -> None:
@@ -552,6 +581,140 @@ def jpeg_kernel_phase(torch, np, raw8, args8):
               f"{e['b1_ms']:.4f} ms at B=1 (bound {e['b1_bound_ms']:.4f})",
               flush=True)
     return entries
+
+
+def huffman_kernel_phase(torch, np, raw8, args8):
+    """K5 (huffman_pack) against its plain version on the K3 coefficients
+    of the flagship tiles, every row byte for byte (tolerance 0), and K4b
+    with the Huffman row lengths: B=8 and B=1 at q 85 and 92, each with
+    the fixed spec and a spec tuned to the tile's own frequencies; an
+    all-zero tile; blocks with runs of 16, 32 and 48 zeros (and 62); DC
+    differences of category 11; an entry overflow (cap 100: K4b keeps the
+    8-byte headers) and a bit overflow (64 words: K5 drops the rest)."""
+    from omero_ms_image_region_tpu_torch import jfif
+    from omero_ms_image_region_tpu_torch.ops import jpegenc as J
+    from omero_ms_image_region_tpu_torch.ops import render as R
+
+    src = "omero_ms_image_region_tpu_torch/kernels/csrc/jpeg.cu"
+    e = {"name": "huffman_pack", "route": "cuda", "source": src,
+         "replaces": "omero_ms_image_region_tpu/ops/jpegenc.py:991",
+         "max_abs_err": 0, "mismatches": 0, "tolerance": 0, "cases": 0}
+    k4b = {}
+    packed8 = R.render_tile_batch_packed(raw8, *args8)
+    _, H, W = packed8.shape
+    h16, w16 = H // 16, W // 16
+    fixed = J.spec_tensor(J.huffman_spec_arrays(), "cuda")
+
+    def compare(label, c, spec, cap, cw):
+        got = J.huffman_pack(*c, cw, spec, h16, w16)
+        want = J.huffman_pack_plain(*c, cw, spec, h16, w16)
+        torch.cuda.synchronize()
+        diff = int((got != want).sum())
+        B = c[0].shape[0]
+        comp_diff = 0
+        for n_valid in (B, max(B - 1, 0)):
+            comp = J.compact_huffman_rows(got, n_valid, cap, cw)
+            comp_diff += int((comp != J.compact_rows_plain(
+                got, J.huffman_row_lengths(got, n_valid, cap, cw))).sum())
+        hdr = got[:, :8].reshape(-1).view(torch.int32).reshape(B, 2)
+        over = [int(t) > cap or int(b) > 32 * cw for t, b in hdr.tolist()]
+        print(f"check huffman_pack {label} B={B}: differing bytes {diff} "
+              f"(rows of {got.shape[1]}), compact_rows (Huffman lengths) "
+              f"differing bytes {comp_diff}; totals "
+              f"{hdr[:, 0].tolist()} bits {hdr[:, 1].tolist()} over "
+              f"{over}", flush=True)
+        check(diff == 0, f"huffman_pack {label} B={B} differs from the "
+                         f"plain version")
+        check(comp_diff == 0, f"compact_rows (Huffman) {label} B={B} "
+                              f"differs from the plain version")
+        e["mismatches"] += diff
+        e["max_abs_err"] = max(e["max_abs_err"], 255 if diff else 0)
+        e["cases"] += 1
+        return got, over
+
+    for B in (8, 1):
+        packed = packed8[:B].contiguous()
+        key = "" if B == 8 else "b1_"
+        for q in (85, 92):
+            c = J.packed_to_jpeg_coefficients(packed, q)
+            cap, cw = J.default_sparse_cap(H, W, q), J.default_words_cap(
+                H, W, q)
+            tuned8 = jfif.tuned_huffman_spec(*jfif.symbol_frequencies(
+                *(t[0].cpu().numpy() for t in c)))
+            tuned = J.spec_tensor(J.spec_kernel_arrays(tuned8), "cuda")
+            wire, over = compare(f"q{q} fixed", c, fixed, cap, cw)
+            compare(f"q{q} tuned", c, tuned, cap, cw)
+            check(not any(over), f"huffman_pack q{q}: a flagship tile "
+                                 f"overflowed its budgets")
+            if q != 85:
+                continue
+            # Timed at q 85 with the fixed spec, as the engine opens.
+            bits = wire[:, 4:8].reshape(-1).view(torch.int32).to(
+                torch.int64)
+            used = int((8 + 4 * ((bits + 31) // 32)).sum())
+            coeff_bytes = sum(t.numel() * 2 for t in c)
+            e[key + "ms"] = time_ms(torch, lambda: J.huffman_pack(
+                *c, cw, fixed, h16, w16), 25)
+            e[key + "plain_ms"] = time_ms(torch, lambda: J.huffman_pack_plain(
+                *c, cw, fixed, h16, w16), 5)
+            e[key + "device_us"] = device_split(torch, lambda: J.huffman_pack(
+                *c, cw, fixed, h16, w16))
+            # the coefficients and the spec read, the used words written
+            e[key + "bound_ms"], e[key + "bound_by"] = bytes_bound(
+                coeff_bytes + 4096 + used)
+            e[key + "bound_bytes"] = coeff_bytes + 4096 + used
+            e[key + "used_bytes"] = used
+            e[key + "shape"] = [B, H, W]
+            e[key + "quality"] = q
+            e[key + "cap_words"] = cw
+            k4b[key + "ms"] = time_ms(torch, lambda: J.compact_huffman_rows(
+                wire, B, cap, cw), 25)
+            k4b[key + "plain_ms"] = time_ms(
+                torch, lambda: J.compact_rows_plain(
+                    wire, J.huffman_row_lengths(wire, B, cap, cw)), 5)
+            # the used prefixes read, the whole output written
+            k4b[key + "bound_ms"], k4b[key + "bound_by"] = bytes_bound(
+                used + 4 * B + wire.numel())
+            k4b[key + "used_bytes"] = used
+
+    # Synthetic content on B=1 q 85 coefficients.
+    q = 85
+    base = J.packed_to_jpeg_coefficients(packed8[:1].contiguous(), q)
+    cap, cw = J.default_sparse_cap(H, W, q), J.default_words_cap(H, W, q)
+    zeros = [torch.zeros_like(t) for t in base]
+    got, _ = compare("all-zero tile", zeros, fixed, cap, cw)
+    check(got[0, :4].view(torch.int32).item() == 0,
+          "huffman_pack: an all-zero tile has nonzero entries")
+    runs = [t.clone() for t in base]
+    y, cb, cr = runs
+    y[:, ::3, 1:] = 0
+    y[:, ::6, 17] = 5             # a run of 16
+    y[:, ::6, 50] = -3            # then 32
+    y[:, 3::6, 49] = -7           # a run of 48
+    y[:, 3::6, 63] = 2            # no EOB after position 63
+    cb[:, ::2, 1:] = 0
+    cb[:, ::2, 63] = 9            # a run of 62: three ZRL codes
+    compare("zero runs 16/32/48/62", runs, fixed, cap, cw)
+    dc = [t.clone() for t in base]
+    dc[0][:, ::2, 0] = 1000
+    dc[0][:, 1::2, 0] = -1000     # differences of 2000: category 11
+    dc[1][:, ::2, 0] = -1020
+    dc[1][:, 1::2, 0] = 1020
+    compare("DC category 11", dc, fixed, cap, cw)
+    c8 = J.packed_to_jpeg_coefficients(packed8, q)
+    _, over = compare("entry overflow (cap 100)", c8, fixed, 100, cw)
+    check(all(over), "huffman_pack: cap 100 did not overflow every row")
+    _, over = compare("bit overflow (64 words)", c8, fixed, cap, 64)
+    check(all(over), "huffman_pack: 64 words did not overflow every row")
+    e["library_ms"] = None
+    e["library_note"] = ("no single PyTorch call packs a Huffman stream")
+    print(f"kernel huffman_pack: {e['ms']:.4f} ms at B=8 (bound "
+          f"{e['bound_ms']:.4f} ms, plain {e['plain_ms']:.3f} ms); "
+          f"{e['b1_ms']:.4f} ms at B=1 (bound {e['b1_bound_ms']:.4f}); "
+          f"{e['cases']} cases equal", flush=True)
+    print("kernel compact_rows (Huffman lengths): " + json.dumps(k4b),
+          flush=True)
+    return {"huffman_pack": e}, k4b
 
 
 def edge_checks(torch, J, packed8, entries):
@@ -1828,7 +1991,6 @@ async def readers_phase(torch, np, client, handler, data_dir, requests,
         decode_baseline_jpeg, ycbcr_to_rgb)
     from omero_ms_image_region_tpu_torch.io.tiff import (
         TILE_BYTE_COUNTS, TILE_OFFSETS, TiffFile)
-    from omero_ms_image_region_tpu_torch.kernels import jpeg as KJ
     from omero_ms_image_region_tpu_torch.server.ctx import ImageRegionCtx
     from omero_ms_image_region_tpu_torch.utils import telemetry
     from omero_ms_image_region_tpu_torch.utils.stopwatch import REGISTRY
@@ -1888,7 +2050,7 @@ async def readers_phase(torch, np, client, handler, data_dir, requests,
     check(d.max() <= 2, f"readers: image {JPEG_IMAGE}: the Python and "
                         f"native decoders differ by {int(d.max())} > 2")
     launches = launch_counts()
-    for name in ("render_ramp", "render_lut", *KJ.LAUNCHES):
+    for name in ("render_ramp", "render_lut", *SPARSE_WIRE):
         check(launches[name] >= 1,
               f"readers: {name} was not launched by the reader GETs")
 
@@ -2228,7 +2390,6 @@ async def omero_phase(torch, np, client, handler, data_dir, lut_root,
     from omero_ms_image_region_tpu_torch.io import jp2k
     from omero_ms_image_region_tpu_torch.io.tiff import (
         TILE_BYTE_COUNTS, TILE_OFFSETS, TiffFile)
-    from omero_ms_image_region_tpu_torch.kernels import jpeg as KJ
     from omero_ms_image_region_tpu_torch.server.app import build_services
     from omero_ms_image_region_tpu_torch.server.config import AppConfig
     from omero_ms_image_region_tpu_torch.server.ctx import ImageRegionCtx
@@ -2313,7 +2474,7 @@ async def omero_phase(torch, np, client, handler, data_dir, lut_root,
                   and not body and "ETag" not in hdrs,
                   f"omero: {label}: HTTP {status}")
         launches = launch_counts()
-        for name in ("render_ramp", "render_lut", *KJ.LAUNCHES):
+        for name in ("render_ramp", "render_lut", *SPARSE_WIRE):
             check(launches[name] >= 1,
                   f"omero: {name} was not launched by the OMERO GETs")
 
@@ -2415,7 +2576,6 @@ async def prefetch_phase(torch, np, data_dir, lut_root, have_aiohttp,
     in flight with prefetch on (one session a row), its mean group and
     tiles/s beside e2e's: reported, not gated.  Returns the phase's kernel
     launches."""
-    from omero_ms_image_region_tpu_torch.kernels import jpeg as KJ
     from omero_ms_image_region_tpu_torch.utils import telemetry
 
     config, handler = front_handler(data_dir, lut_root, {
@@ -2460,7 +2620,7 @@ async def prefetch_phase(torch, np, data_dir, lut_root, have_aiohttp,
         check(pf.staged > 0, "prefetch: the pan staged no tile")
         check((pf.hit_rate() or 0) > 0,
               "prefetch: no staged tile was hit by the pan")
-        for name in ("render_ramp", *KJ.LAUNCHES):
+        for name in ("render_ramp", *SPARSE_WIRE):
             check(launches[name] >= 1,
                   f"prefetch: {name} was not launched by the pan")
 
@@ -2498,12 +2658,291 @@ async def prefetch_phase(torch, np, data_dir, lut_root, have_aiohttp,
         await client.stop()
 
 
+def decoded(np, have_pil, body):
+    """The pixels a JPEG decodes to: PIL's RGB where PIL imports, else
+    the port's native decoder's components."""
+    if have_pil:
+        import io
+
+        from PIL import Image
+        return np.asarray(Image.open(io.BytesIO(body)).convert("RGB"))
+    from omero_ms_image_region_tpu_torch import native
+    return native.jpeg_decode_baseline(body, None)
+
+
+class WireLog:
+    """The fetch observer (``ops.jpegenc.set_fetch_observer``) as a
+    record: each compacted wire's used bytes and its D2H seconds."""
+
+    def __init__(self):
+        self.fetches = []
+
+    def __call__(self, nbytes, seconds):
+        self.fetches.append((nbytes, seconds))
+
+    def take(self) -> list:
+        out, self.fetches = self.fetches, []
+        return out
+
+
+async def huffman_phase(torch, np, client, data_dir, lut_root, have_aiohttp,
+                        have_pil, e2e, rc, tiles) -> dict:
+    """``renderer.jpeg-engine: huffman`` through the default app (prefetch
+    off, as e2e): e2e's 16 sequential cold tiles, their 16 re-windowed
+    warm repeats and its 48 cold GETs at 8 in flight.  Each JPEG decodes
+    to exactly the pixels of the sparse engine's JPEG of the same URL
+    (the main app's; both code the same coefficients losslessly).  Prints
+    cold and warm p50, tiles/s, the wire bytes a tile and the wire's D2H
+    ms, each beside the sparse engine's (e2e's and raw_cache's run; the
+    wire measured on the main app's 16 sequential tiles), and K5's
+    launches (fails at 0, or if K4a ran).  Then ``jpeg-engine: auto``:
+    the startup probe's rate and the opening engine, and two GETs through
+    it.  Returns the Huffman run's kernel launches."""
+    from omero_ms_image_region_tpu_torch.ops import jpegenc as J
+    from omero_ms_image_region_tpu_torch.utils import telemetry
+    from omero_ms_image_region_tpu_torch.utils.stopwatch import REGISTRY
+
+    # auto: the startup probe and the opening engine.
+    config, handler = front_handler(data_dir, lut_root, {
+        "renderer": {"jpeg-engine": "auto"}})
+    ctl = handler.s.renderer.engine_controller
+    check(ctl is not None, "huffman: jpeg-engine auto built no controller")
+    auto = {"probed_rate_mb_s": ctl.rate_mb_s, "opening_engine": ctl.engine,
+            "crossover_mb_s": ctl.crossover}
+    auto_client = Client(config, handler, have_aiohttp)
+    await auto_client.start()
+    try:
+        for r in tiles[:2]:
+            status, _, body, _ = await auto_client.request(*r)
+            check(status == 200 and body[:2] == b"\xff\xd8",
+                  f"huffman: auto engine GET {r[1]}: HTTP {status}")
+        auto["engine_after_gets"] = ctl.current()
+        auto["switches"] = ctl.switches
+    finally:
+        await auto_client.stop()
+        J.set_fetch_observer(None)
+
+    wire = WireLog()
+    J.set_fetch_observer(wire)
+    config, handler = front_handler(data_dir, lut_root, {
+        "renderer": {"jpeg-engine": "huffman"}})
+    batcher = handler.s.renderer
+    check(batcher.jpeg_engine == "huffman",
+          "huffman: the app's batcher is not on the Huffman engine")
+    hclient = Client(config, handler, have_aiohttp)
+    await hclient.start()
+    try:
+        await hclient.request(*tiles[63])           # warm-up, not counted
+        # The warm-up started the workload's table tuning (one tile's
+        # symbol count on a thread); the timed run serves after it, with
+        # the tuned tables, as the engine's steady state.
+        tune_key = (TILE, TILE, 85)
+        for _ in range(600):
+            if tune_key in J._TUNED_TABLES:
+                break
+            await asyncio.sleep(0.05)
+        tables = ("tuned" if J._TUNED_TABLES.get(tune_key) is not None
+                  else "fixed")
+        wire.take()
+        reset_launch_counts()
+        handler.s.raw_cache.clear()
+        reset_spans(telemetry, REGISTRY)
+        cold, bodies = [], {}
+        for r in tiles[:16]:
+            status, _, body, ms = await hclient.request(*r)
+            check(status == 200, f"huffman: {r[1]}: HTTP {status}")
+            cold.append(ms)
+            bodies[json.dumps(r[1], sort_keys=True)] = body
+        await settled(batcher)
+        split = span_split(telemetry, REGISTRY)
+        huff_wire = wire.take()
+        rewindow = [(route, dict(q, c=CH2)) for route, q in tiles[:16]]
+        warm = []
+        for r in rewindow:
+            status, _, body, ms = await hclient.request(*r)
+            check(status == 200, f"huffman: {r[1]}: HTTP {status}")
+            warm.append(ms)
+            bodies[json.dumps(r[1], sort_keys=True)] = body
+        stats = Batches(batcher)
+        sem = asyncio.Semaphore(8)
+
+        async def limited(r):
+            async with sem:
+                return await hclient.request(*r)
+        t0 = time.perf_counter()
+        conc = await asyncio.gather(*(limited(r) for r in tiles[16:64]))
+        wall = time.perf_counter() - t0
+        await settled(batcher)
+        groups = stats.report()
+        launches = launch_counts()
+        for r, (status, _, body, _) in zip(tiles[16:64], conc):
+            check(status == 200, f"huffman: {r[1]}: HTTP {status}")
+            bodies[json.dumps(r[1], sort_keys=True)] = body
+        wire.take()
+    finally:
+        await hclient.stop()
+
+    # The sparse engine's JPEG of each URL (the main app), decoded.
+    same = 0
+    dht = set()
+    for r in tiles[:64] + rewindow:
+        status, _, sparse_body, _ = await client.request(*r)
+        check(status == 200, f"huffman: sparse {r[1]}: HTTP {status}")
+        body = bodies[json.dumps(r[1], sort_keys=True)]
+        dht.add(body[:body.index(b"\xff\xda")].count(b"\xff\xc4"))
+        ok = np.array_equal(decoded(np, have_pil, body),
+                            decoded(np, have_pil, sparse_body))
+        check(ok, f"huffman: {r[1]}: the Huffman JPEG decodes to other "
+                  f"pixels than the sparse engine's")
+        same += ok
+    wire.take()
+    for r in tiles[:16]:
+        await client.request(*r)
+    sparse_wire = wire.take()
+    J.set_fetch_observer(None)
+    check(launches["huffman_pack"] >= 1 and launches["sparse_pack"] == 0,
+          f"huffman: K5 launched {launches['huffman_pack']} times and K4a "
+          f"{launches['sparse_pack']} in the Huffman run")
+    doc = {
+        "gets": len(bodies), "decode_equal_to_sparse": same,
+        "decoder": "PIL" if have_pil else "native",
+        "dht_markers": sorted(dht),
+        "cold_p50_ms": statistics.median(cold),
+        "sparse_cold_p50_ms": e2e["sequential_p50_ms"],
+        "warm_p50_ms": statistics.median(warm),
+        "sparse_warm_p50_ms": rc["warm_p50_ms"],
+        "tiles_per_s_8_in_flight": len(conc) / wall,
+        "sparse_tiles_per_s_8_in_flight": e2e["concurrent_tiles_per_s"],
+        "mean_group_size": groups["mean_group_size"],
+        "wire_bytes_per_tile": statistics.median(n for n, _ in huff_wire),
+        "sparse_wire_bytes_per_tile": statistics.median(
+            n for n, _ in sparse_wire),
+        "wire_d2h_ms": statistics.median(s * 1e3 for _, s in huff_wire),
+        "sparse_wire_d2h_ms": statistics.median(
+            s * 1e3 for _, s in sparse_wire),
+        "k5_launches": launches["huffman_pack"], "tables": tables,
+        # the 16 sequential cold GETs' per-request span p50s, beside
+        # spans:'s sparse split
+        "sequential_spans": {k: v["p50_ms"] for k, v in
+                             split["spans"].items()
+                             if v["p50_ms"] is not None},
+        "launches": launches, "auto": auto, "via": client.via}
+    print("huffman: " + json.dumps(doc), flush=True)
+    return launches
+
+
+async def byte_cache_phase(data_dir, lut_root, have_aiohttp, rc) -> dict:
+    """The default app with the three byte caches on (a static session
+    store): 16 cold device-route JPEG tiles, then each again: every
+    repeat answered with the first GET's bytes, no group dispatched and a
+    ``cache.hit`` span on its trace.  A private copy of image 1 (its
+    ``acl.json`` names one session): the owner's GET, then another
+    session's GET of the cached tile, a 404.  A mask GET with a colour and
+    its repeat, a shape-mask hit with no K8a launch.  Prints the hit p50
+    beside raw_cache's warm p50.  Returns the phase's kernel launches."""
+    from omero_ms_image_region_tpu_torch.utils import telemetry
+    from omero_ms_image_region_tpu_torch.utils.stopwatch import REGISTRY
+
+    config, handler = front_handler(data_dir, lut_root, {
+        "session-store": {"type": "static"},
+        "image-region-cache": {"enabled": True},
+        "pixels-metadata-cache": {"enabled": True},
+        "shape-mask-cache": {"enabled": True}})
+    caches, batcher = handler.s.caches, handler.s.renderer
+    private = os.path.join(data_dir, PRIVATE_COPY)
+    os.makedirs(private, exist_ok=True)
+    src = os.path.join(data_dir, "1")
+    for name in os.listdir(src):
+        if not os.path.exists(os.path.join(private, name)):
+            os.symlink(os.path.join(src, name), os.path.join(private, name))
+    with open(os.path.join(private, "acl.json"), "w") as f:
+        json.dump({"sessions": ["viewer-1"]}, f)
+    client = Client(config, handler, have_aiohttp)
+    await client.start()
+    route = "render_image_region"
+    try:
+        reset_launch_counts()
+        tiles = [(route, {"tile": f"0,{i},3,{TILE},{TILE}", "c": CH,
+                          "m": "c", "format": "jpeg"}) for i in range(8)]
+        tiles += [(route, dict(q, c=CH2)) for _, q in tiles]
+        first = []
+        for r in tiles:
+            status, _, body, _ = await client.request(*r)
+            check(status == 200, f"byte_cache: {r[1]}: HTTP {status}")
+            first.append(body)
+        await settled(batcher)
+        region = caches.image_region.tiers[0]
+        hits0 = region.hits
+        groups0 = batcher.batches_dispatched
+        reset_spans(telemetry, REGISTRY)
+        hit_ms = []
+        for r, body in zip(tiles, first):
+            status, _, again, ms = await client.request(*r)
+            check(status == 200 and again == body,
+                  f"byte_cache: the repeat of {r[1]} differs")
+            hit_ms.append(ms)
+        repeat_hits = region.hits - hits0
+        repeat_groups = batcher.batches_dispatched - groups0
+        traced = sum(t.span_ms("cache.hit") is not None
+                     for t in telemetry.TRACES.recent())
+        check(repeat_groups == 0,
+              "byte_cache: a repeat GET dispatched a group")
+        check(region.hits - hits0 == len(tiles),
+              "byte_cache: a repeat GET missed the image-region cache")
+        check(traced == len(tiles),
+              f"byte_cache: {traced} of {len(tiles)} repeats carry a "
+              f"cache.hit span")
+        # A private copy: the owner renders it, another session is
+        # refused by the cached bytes' ACL.
+        q = dict(tiles[0][1])
+        status, _, owner, _ = await client.request(
+            route, q, image=PRIVATE_COPY, cookies={"sessionid": "viewer-1"})
+        check(status == 200 and owner == first[0],
+              f"byte_cache: the owner's private GET: HTTP {status}")
+        hits1 = region.hits
+        status, _, _, _ = await client.request(
+            route, q, image=PRIVATE_COPY, cookies={"sessionid": "viewer-2"})
+        check(status == 404 and region.hits == hits1 + 1,
+              f"byte_cache: another session's GET of a cached private "
+              f"tile: HTTP {status}")
+        # A mask and its repeat.
+        masks = caches.shape_mask.tiers[0]
+        mq = {"color": "FF00FF"}
+        status, _, mask, _ = await client.request(
+            "render_shape_mask", mq, image="1")
+        check(status == 200, f"byte_cache: mask GET: HTTP {status}")
+        k8a0, mhits0 = launch_counts()["mask_rasterize"], masks.hits
+        status, _, again, _ = await client.request(
+            "render_shape_mask", mq, image="1")
+        check(status == 200 and again == mask and masks.hits == mhits0 + 1
+              and launch_counts()["mask_rasterize"] == k8a0,
+              "byte_cache: the repeat mask GET was not a shape-mask hit")
+        launches = launch_counts()
+        doc = {"repeats": len(tiles), "hits": repeat_hits,
+               "groups_on_repeat": repeat_groups,
+               "cache_hit_spans": traced,
+               "hit_p50_ms": statistics.median(hit_ms),
+               "raw_cache_warm_p50_ms": rc["warm_p50_ms"],
+               "private_other_session": 404, "mask_repeat_hit": True,
+               "pixels_metadata_hits": caches.pixels_metadata.tiers[0].hits,
+               "tier": type(region).__name__, "launches": launches,
+               "via": client.via}
+        print("byte_cache: " + json.dumps(doc), flush=True)
+        return launches
+    finally:
+        await client.stop()
+
+
+# A private copy of image 1 (its acl.json names one session), for the
+# byte_cache phase.
+PRIVATE_COPY = "21"
+
+
 async def serve_phase(torch, np, data_dir, lut_root, have_aiohttp,
                       have_pil):
     from omero_ms_image_region_tpu_torch import codecs, native
     from omero_ms_image_region_tpu_torch.io.devicecache import plane_digest
     from omero_ms_image_region_tpu_torch.io.staging import HostPlanes
-    from omero_ms_image_region_tpu_torch.kernels import jpeg as KJ
     from omero_ms_image_region_tpu_torch.ops import jpegenc as J
     from omero_ms_image_region_tpu_torch.ops import render as R
     from omero_ms_image_region_tpu_torch.server.app import build_handler
@@ -2579,7 +3018,7 @@ async def serve_phase(torch, np, data_dir, lut_root, have_aiohttp,
         for name in ("render_ramp", "render_lut"):
             check(serve_launches[name] >= 1,
                   f"{name} was not launched by the served requests")
-        for name in KJ.LAUNCHES:
+        for name in SPARSE_WIRE:
             check(serve_launches[name] >= device_jpegs,
                   f"{name} launched {serve_launches[name]} times for "
                   f"{device_jpegs} device-route JPEG GETs")
@@ -2610,7 +3049,7 @@ async def serve_phase(torch, np, data_dir, lut_root, have_aiohttp,
               "was not run")
         check(batch["max_groups_in_execute"] <= batcher.device_lanes,
               "batch: more groups in execute than device lanes")
-        for name in ("render_ramp", "render_lut", *KJ.LAUNCHES):
+        for name in ("render_ramp", "render_lut", *SPARSE_WIRE):
             check(launches[name] >= 1,
                   f"{name} was not launched by the batch burst")
 
@@ -2763,6 +3202,11 @@ async def serve_phase(torch, np, data_dir, lut_root, have_aiohttp,
         workload_launches["prefetch"] = await prefetch_phase(
             torch, np, data_dir, lut_root, have_aiohttp, matches_plain, e2e,
             tiles)
+        workload_launches["huffman"] = await huffman_phase(
+            torch, np, client, data_dir, lut_root, have_aiohttp, have_pil,
+            e2e, rc, tiles)
+        workload_launches["byte_cache"] = await byte_cache_phase(
+            data_dir, lut_root, have_aiohttp, rc)
 
         # Device busy share: 8 sequential cold GETs, and 32 cold GETs at
         # 8 in flight (torch.profiler, device time of all kernels and
@@ -2917,6 +3361,10 @@ def main() -> int:
     # 3. kernels against their plain versions
     entries, raw8, args8 = kernel_phase(torch, np)
     entries.update(jpeg_kernel_phase(torch, np, raw8, args8))
+    huffman_entries, huffman_rows = huffman_kernel_phase(torch, np, raw8,
+                                                         args8)
+    entries.update(huffman_entries)
+    entries["compact_rows"]["huffman_rows"] = huffman_rows
     del raw8, args8
     torch.cuda.empty_cache()
     workload_entries = workloads_kernel_phase(torch, np)
@@ -2946,6 +3394,11 @@ def main() -> int:
     for name, e in entries.items():
         e["launches"] = launches[name]
         e["serve_launches"] = serve_launches[name]
+    # K5's path is the Huffman engine's serve (the huffman phase).
+    entries["huffman_pack"]["launches"] = workload_launches["huffman"][
+        "huffman_pack"]
+    check(entries["huffman_pack"]["launches"] >= 1,
+          "huffman_pack was not launched by the huffman phase")
     for name, e in workload_entries.items():
         e["launches"] = sum(p[name] for p in workload_launches.values())
         check(e["launches"] >= 1,

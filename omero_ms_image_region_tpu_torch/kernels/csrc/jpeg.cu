@@ -1,9 +1,11 @@
-// JPEG front end and sparse wire for Hopper (sm_90a): packed RGBA ->
-// quantized zigzag coefficients -> the sparse wire -> compacted rows.
+// JPEG front end and device wires for Hopper (sm_90a): packed RGBA ->
+// quantized zigzag coefficients -> the sparse wire or the Huffman wire ->
+// compacted rows.
 //
-// Counterparts of the JAX package's XLA device program
-// render_to_jpeg_sparse_compact (omero_ms_image_region_tpu/ops/jpegenc.py
-// :443-465), stage by stage:
+// Counterparts of the JAX package's XLA device programs
+// render_to_jpeg_sparse_compact and render_to_jpeg_huffman_compact
+// (omero_ms_image_region_tpu/ops/jpegenc.py :443-465, :470-492), stage by
+// stage:
 //
 //   jpeg_coefficients (K3) replaces packed_to_jpeg_coefficients (:110, with
 //       _dct_quant_zigzag :99).  u32 RGBA -> BT.601 YCbCr (luma - 128),
@@ -58,7 +60,38 @@
 //       shifts, a run of the zero tail as zeros, and the few runs that
 //       straddle the lengths header, a row boundary or an end of the
 //       output byte by byte.  Bound: bytes, the used prefixes read and
-//       the whole output written.
+//       the whole output written.  The same launch compacts the Huffman
+//       wire's rows with the row lengths of :486-492 (mode 1): 8 + 4
+//       ceil(bits / 32) bytes, or the 8-byte header alone for a row over
+//       cap entries or 32 cap_words bits.
+//   huffman_pack (K5) replaces huffman_pack (:991-1207), the engine of
+//       render_to_jpeg_huffman_compact (:470).  Per tile the row [total
+//       nonzeros i32 | total bits i32 | words u32[cap_words]]: the JPEG
+//       entropy stream of the tile's blocks in MCU scan order (Y0..Y3, Cb,
+//       Cr; raster Y block (2my+dy, 2mx+dx) into scan slot (my, mx, dy,
+//       dx)) with one shared DC and one AC table given as runtime data
+//       (the fixed spec or a tuned one, no rebuild): each block's DC
+//       difference against its component's predecessor, each nonzero AC
+//       coefficient's run/size symbol with up to three ZRL codes folded
+//       into one field before it, the EOB, every field MSB first from bit
+//       0 of word 0 (field at bit rb of word w sits at 32 - rb - len, the
+//       u32 values of :1169-1185, which _entropy_bytes byte-swaps).  A
+//       memset and three launches: a warp per block in scan order finds
+//       its nonzero mask by ballot, each lane two zigzag positions, their
+//       runs from the mask, their fields and the block's bit length; one
+//       block per tile scans the bit lengths into block starts and writes
+//       the header; the warps run again and OR each field into the zeroed
+//       words (fields are disjoint; only words where fields meet are
+//       shared).  Words at or past cap_words are dropped, never written.
+//       On a row within its budgets (total <= cap, bits <= 32 cap_words)
+//       the header and words equal the JAX function's.  On a row over
+//       cap entries JAX drops the entries past cap, so its total bits
+//       count a cut stream; here they count the whole stream: total and
+//       the overflow decision agree, and K4b keeps only the 8-byte header
+//       of such a row, which the host codes from dense coefficients.
+//       Bound: bytes, the coefficients read and the used words written;
+//       a simple design (each block's symbols computed twice, an atomic OR
+//       a field) that a later redesign can fuse into one pass.
 //
 // Numerics of K3 follow one fixed order: the order in which XLA's CPU
 // backend evaluates the JAX function, found by matching its float32 results
@@ -779,18 +812,37 @@ sparse_pack_kernel(const int16_t* __restrict__ y,
   }
 }
 
-// K4b.  The used bytes of row b: header, counts and kept entries; header
-// and counts alone for a row that overflowed cap; none at or past n_valid.
+// K4b row modes: the sparse wire's rows (:457-464) or the Huffman wire's
+// (:486-492).
+constexpr int kSparseRows = 0;
+constexpr int kHuffmanRows = 1;
+
+__device__ __forceinline__ int32_t load_i32_le(const uint8_t* p) {
+  return static_cast<int32_t>(
+      static_cast<uint32_t>(__ldg(p)) |
+      (static_cast<uint32_t>(__ldg(p + 1)) << 8) |
+      (static_cast<uint32_t>(__ldg(p + 2)) << 16) |
+      (static_cast<uint32_t>(__ldg(p + 3)) << 24));
+}
+
+// K4b.  The used bytes of row b; none at or past n_valid.  Sparse rows:
+// header, counts and kept entries, or header and counts alone for a row
+// that overflowed cap.  Huffman rows: the 8-byte header and the stream's
+// ceil(bits / 32) words, or the header alone for a row over cap entries or
+// 32 cap_words bits.
 __device__ __forceinline__ long long row_length(const uint8_t* wire, int b,
                                                 long long width, int n_valid,
-                                                int cap, long long nb) {
+                                                int cap, long long nb,
+                                                int mode,
+                                                long long cap_words) {
   if (b >= n_valid) return 0;
   const uint8_t* hdr = wire + static_cast<long long>(b) * width;
-  const int32_t total = static_cast<int32_t>(
-      static_cast<uint32_t>(__ldg(hdr)) |
-      (static_cast<uint32_t>(__ldg(hdr + 1)) << 8) |
-      (static_cast<uint32_t>(__ldg(hdr + 2)) << 16) |
-      (static_cast<uint32_t>(__ldg(hdr + 3)) << 24));
+  const int32_t total = load_i32_le(hdr);
+  if (mode == kHuffmanRows) {
+    const long long bits = load_i32_le(hdr + 4);
+    const bool ok = total <= cap && bits <= 32 * cap_words;
+    return 8 + 4 * (ok ? (bits + 31) / 32 : 0);
+  }
   const long long kept = total < cap ? total : cap;
   return total <= cap ? 4 + nb + (kEntryBits * kept + 7) / 8 : 4 + nb;
 }
@@ -813,8 +865,8 @@ __device__ __forceinline__ int row_of(const long long* offs, int B,
 // first scans the row lengths into offs (dynamic shared memory, B + 1).
 __global__ void __launch_bounds__(kThreads)
 compact_rows_kernel(const uint8_t* __restrict__ wire, int B, long long width,
-                    int n_valid, int cap, long long nb,
-                    uint8_t* __restrict__ out) {
+                    int n_valid, int cap, long long nb, int mode,
+                    long long cap_words, uint8_t* __restrict__ out) {
   extern __shared__ long long offs[];
   if (threadIdx.x < 32) {
     const int lane = threadIdx.x;
@@ -822,7 +874,9 @@ compact_rows_kernel(const uint8_t* __restrict__ wire, int B, long long width,
     for (int c = 0; c < B; c += 32) {
       const int r = c + lane;
       const long long len =
-          r < B ? row_length(wire, r, width, n_valid, cap, nb) : 0;
+          r < B ? row_length(wire, r, width, n_valid, cap, nb, mode,
+                             cap_words)
+                : 0;
       long long incl = len;
 #pragma unroll
       for (int d = 1; d < 32; d <<= 1) {
@@ -899,6 +953,236 @@ compact_rows_kernel(const uint8_t* __restrict__ wire, int B, long long width,
           out[oi] = static_cast<uint8_t>(o[i >> 2] >> (8 * (i & 3)));
       }
     }
+  }
+}
+
+// K5.  The Huffman wire of one tile, in three launches after a memset of
+// the output: huffman_block_kernel<false> (one warp a coefficient block in
+// scan order: its bit length and nonzero count), huffman_scan_kernel (one
+// block a tile: the blocks' bit starts, the header) and
+// huffman_block_kernel<true> (the same warp per block again, each field
+// OR-ed into the zeroed words).
+constexpr int kHuffThreads = 256;
+constexpr int kHuffWarps = kHuffThreads / 32;
+constexpr int kScanThreads = 1024;
+// The spec block, i32[1024] on the card (ops/jpegenc.py spec_tensor).
+constexpr int kSpecDcCode = 0;
+constexpr int kSpecDcLen = 256;
+constexpr int kSpecAcCode = 512;
+constexpr int kSpecAcLen = 768;
+
+// Bits 0..31 of x moved to the even bits 0..62.
+__device__ __forceinline__ unsigned long long spread_even(unsigned x) {
+  unsigned long long v = x;
+  v = (v | (v << 16)) & 0x0000FFFF0000FFFFull;
+  v = (v | (v << 8)) & 0x00FF00FF00FF00FFull;
+  v = (v | (v << 4)) & 0x0F0F0F0F0F0F0F0Full;
+  v = (v | (v << 2)) & 0x3333333333333333ull;
+  v = (v | (v << 1)) & 0x5555555555555555ull;
+  return v;
+}
+
+// JPEG magnitude category, held to 11 as _category (:822) holds it.
+__device__ __forceinline__ int huff_category(int v) {
+  const int a = v < 0 ? -v : v;
+  const int s = 32 - __clz(a);
+  return s < 11 ? s : 11;
+}
+
+// Amplitude bits (_amplitude, :828): the value, or for a negative one its
+// ones' complement in s bits.
+__device__ __forceinline__ uint32_t huff_amplitude(int v, int s) {
+  return static_cast<uint32_t>(v >= 0 ? v : v + (1 << s) - 1);
+}
+
+// The coefficient block at slot `slot` of MCU m of tile b: Y raster block
+// (2 my + dy, 2 mx + dx) for slots 0-3, then Cb, then Cr.
+__device__ __forceinline__ const int16_t* scan_block(
+    const int16_t* y, const int16_t* cb, const int16_t* cr, int b,
+    long long m, int slot, int w16, long long nmcu) {
+  if (slot < 4) {
+    const long long my = m / w16, mx = m - my * w16;
+    const long long yb =
+        (2 * my + (slot >> 1)) * (2LL * w16) + 2 * mx + (slot & 1);
+    return y + (static_cast<long long>(b) * 4 * nmcu + yb) * 64;
+  }
+  return (slot == 4 ? cb : cr) + (static_cast<long long>(b) * nmcu + m) * 64;
+}
+
+// One field of `len` bits (1..30) at stream bit `start`, MSB first, into
+// the u32 words as huffman_pack lays them out (:1169-1185): the field sits
+// at 32 - rb - len of word start / 32, and its low part spills into the
+// next word.  Fields own disjoint bits, so OR-ing into zeroed words in any
+// order gives the stream; words at or past cap_words are dropped.
+__device__ __forceinline__ void huff_deposit(uint32_t* words,
+                                             long long cap_words, int start,
+                                             int len, uint32_t val) {
+  if (len <= 0) return;
+  const long long w = start >> 5;
+  const int rb = start & 31;
+  if (w >= cap_words) return;
+  const int sh0 = 32 - rb - len;
+  atomicOr(words + w, sh0 >= 0 ? val << sh0 : val >> -sh0);
+  if (rb + len > 32 && w + 1 < cap_words)
+    atomicOr(words + w + 1, val << (64 - rb - len));
+}
+
+// A warp per coefficient block, in scan order.  Lane l holds zigzag
+// positions 2l and 2l + 1 and their fields in stream order: the folded
+// ZRL codes and the code + amplitude of each (lane 0's first pair is the
+// DC difference), and lane 31 the EOB.  A ballot gives the block's
+// nonzero mask, from which each coefficient finds its run.
+// kDeposit false: write each block's bit length and nonzero count.  True:
+// OR every field into the tile's words from the block's bit start.
+template <bool kDeposit>
+__global__ void __launch_bounds__(kHuffThreads)
+huffman_block_kernel(const int16_t* __restrict__ y,
+                     const int16_t* __restrict__ cb,
+                     const int16_t* __restrict__ cr, int B, int h16,
+                     int w16, const int32_t* __restrict__ spec,
+                     int* __restrict__ block_bits, int* __restrict__ block_nz,
+                     const int* __restrict__ block_start,
+                     uint8_t* __restrict__ out, long long width,
+                     long long cap_words) {
+  const int lane = threadIdx.x & 31;
+  const long long nmcu = static_cast<long long>(h16) * w16;
+  const long long nb = 6 * nmcu;
+  const long long blocks = nb * B;
+  const uint32_t zc = __ldg(spec + kSpecAcCode + 0xF0);
+  const int zl = __ldg(spec + kSpecAcLen + 0xF0);
+  for (long long g = static_cast<long long>(blockIdx.x) * kHuffWarps +
+                     (threadIdx.x >> 5);
+       g < blocks; g += static_cast<long long>(gridDim.x) * kHuffWarps) {
+    const int b = static_cast<int>(g / nb);
+    const long long s = g - b * nb;
+    const long long m = s / 6;
+    const int slot = static_cast<int>(s - m * 6);
+    const int16_t* blk = scan_block(y, cb, cr, b, m, slot, w16, nmcu);
+    const uint32_t pair = __ldg(reinterpret_cast<const uint32_t*>(blk) + lane);
+    const int v[2] = {static_cast<int16_t>(pair & 0xFFFFu),
+                      static_cast<int16_t>(pair >> 16)};
+    const unsigned e = __ballot_sync(0xFFFFFFFFu, v[0] != 0);
+    const unsigned o = __ballot_sync(0xFFFFFFFFu, v[1] != 0);
+    const unsigned long long nzm = spread_even(e) | (spread_even(o) << 1);
+    const unsigned long long acm = nzm & ~1ull;
+    uint32_t val[5] = {0u, 0u, 0u, 0u, 0u};
+    int len[5] = {0, 0, 0, 0, 0};
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int k = 2 * lane + j;
+      if (k == 0) {
+        // The DC difference: Y1..Y3 from the Y before them in the MCU,
+        // Y0 from the previous MCU's Y3, Cb and Cr from their own block
+        // one MCU back; 0 before the first MCU.
+        int pred = 0;
+        if (slot >= 1 && slot <= 3)
+          pred = __ldg(scan_block(y, cb, cr, b, m, slot - 1, w16, nmcu));
+        else if (m > 0)
+          pred = __ldg(scan_block(y, cb, cr, b, m - 1, slot == 0 ? 3 : slot,
+                                  w16, nmcu));
+        const int diff = v[0] - pred;
+        const int sc = huff_category(diff);
+        const uint32_t code = __ldg(spec + kSpecDcCode + sc);
+        val[1] = (code << sc) | huff_amplitude(diff, sc);
+        len[1] = __ldg(spec + kSpecDcLen + sc) + sc;
+      } else if (v[j] != 0) {
+        const unsigned long long below = acm & ((1ull << k) - 1ull);
+        const int prev = below ? 63 - __clzll(below) : 0;
+        const int run = k - prev - 1;
+        const int z = run >> 4;
+        const int sc = huff_category(v[j]);
+        const int sym = ((run & 15) << 4) | sc;
+        // Up to three ZRL codes as one field (at most 30 bits: the tuned
+        // spec keeps ZRL at 10 bits or less).
+        uint32_t zv = 0u;
+        for (int i = 0; i < z; ++i) zv = (zv << zl) | zc;
+        val[2 * j] = zv;
+        len[2 * j] = z * zl;
+        val[2 * j + 1] =
+            (static_cast<uint32_t>(__ldg(spec + kSpecAcCode + sym)) << sc) |
+            huff_amplitude(v[j], sc);
+        len[2 * j + 1] = __ldg(spec + kSpecAcLen + sym) + sc;
+      }
+    }
+    if (lane == 31 && v[1] == 0) {       // EOB: position 63 is zero
+      val[4] = static_cast<uint32_t>(__ldg(spec + kSpecAcCode));
+      len[4] = __ldg(spec + kSpecAcLen);
+    }
+    const int mine = len[0] + len[1] + len[2] + len[3] + len[4];
+    int incl = mine;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int t = __shfl_up_sync(0xFFFFFFFFu, incl, d);
+      if (lane >= d) incl += t;
+    }
+    if (!kDeposit) {
+      if (lane == 31) {
+        block_bits[g] = incl;
+        block_nz[g] = __popcll(nzm);
+      }
+      continue;
+    }
+    uint32_t* words = reinterpret_cast<uint32_t*>(out + b * width + 8);
+    int start = __ldg(block_start + g) + incl - mine;
+#pragma unroll
+    for (int i = 0; i < 5; ++i) {
+      huff_deposit(words, cap_words, start, len[i], val[i]);
+      start += len[i];
+    }
+  }
+}
+
+// One block a tile: the exclusive scan of its blocks' bit lengths (the bit
+// start of each block), and the header [total nonzeros i32 | total bits
+// i32].  Each thread scans a contiguous run of blocks.
+__global__ void __launch_bounds__(kScanThreads)
+huffman_scan_kernel(const int* __restrict__ block_bits,
+                    const int* __restrict__ block_nz,
+                    int* __restrict__ block_start, long long nb,
+                    uint8_t* __restrict__ out, long long width) {
+  __shared__ int warp_bits[kScanThreads / 32];
+  __shared__ int warp_nz[kScanThreads / 32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long base = static_cast<long long>(blockIdx.x) * nb;
+  const long long per = (nb + kScanThreads - 1) / kScanThreads;
+  const long long lo = min(nb, threadIdx.x * per);
+  const long long hi = min(nb, lo + per);
+  int bits = 0, nz = 0;
+  for (long long i = lo; i < hi; ++i) {
+    bits += block_bits[base + i];
+    nz += block_nz[base + i];
+  }
+  int incl = bits, nz_sum = nz;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int t = __shfl_up_sync(0xFFFFFFFFu, incl, d);
+    if (lane >= d) incl += t;
+    nz_sum += __shfl_xor_sync(0xFFFFFFFFu, nz_sum, d);
+  }
+  if (lane == 31) warp_bits[warp] = incl;
+  if (lane == 0) warp_nz[warp] = nz_sum;
+  __syncthreads();
+  if (warp == 0) {
+    int wb = warp_bits[lane], wn = warp_nz[lane];
+    int wi = wb;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int t = __shfl_up_sync(0xFFFFFFFFu, wi, d);
+      if (lane >= d) wi += t;
+      wn += __shfl_xor_sync(0xFFFFFFFFu, wn, d);
+    }
+    warp_bits[lane] = wi - wb;
+    if (lane == 31) {
+      int32_t* hdr = reinterpret_cast<int32_t*>(out + blockIdx.x * width);
+      hdr[0] = wn;
+      hdr[1] = wi;
+    }
+  }
+  __syncthreads();
+  int run = warp_bits[warp] + incl - bits;
+  for (long long i = lo; i < hi; ++i) {
+    block_start[base + i] = run;
+    run += block_bits[base + i];
   }
 }
 
@@ -995,12 +1279,15 @@ extern "C" int sparse_pack_launch(const void* y, const void* cb,
 }
 
 // K4b.  wire u8[B, width] -> out u8[4B + B * width]; one launch, no
-// scratch (the row offsets live in each block's shared memory).
+// scratch (the row offsets live in each block's shared memory).  mode 0:
+// sparse rows (nb blocks a tile); mode 1: Huffman rows (cap_words words).
 extern "C" int compact_rows_launch(const void* wire, int B, long long width,
                                    int n_valid, int cap, long long nb,
-                                   void* out, void* stream) {
+                                   int mode, long long cap_words, void* out,
+                                   void* stream) {
   const size_t smem = (static_cast<size_t>(B) + 1) * sizeof(long long);
-  if (B < 1) return cudaErrorInvalidValue;
+  if (B < 1 || (mode != kSparseRows && mode != kHuffmanRows))
+    return cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         compact_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1013,7 +1300,53 @@ extern "C" int compact_rows_launch(const void* wire, int B, long long width,
       smem);
   compact_rows_kernel<<<grid_for(n / 16 + 2, kThreads, resident),
                         kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(wire), B, width, n_valid, cap, nb,
-      static_cast<uint8_t*>(out));
+      static_cast<const uint8_t*>(wire), B, width, n_valid, cap, nb, mode,
+      cap_words, static_cast<uint8_t*>(out));
+  return cudaGetLastError();
+}
+
+// K5.  y i16[B, 4*h16*w16, 64], cb / cr i16[B, h16*w16, 64] (raster block
+// order, zigzagged); spec i32[1024] (dc_code, dc_len, ac_code, ac_len, 256
+// each); scratch i32[3 * B * 6*h16*w16]; out u8[B, 8 + 4 cap_words], each
+// row [total i32 | total bits i32 | words u32[cap_words]].  A memset of
+// out and three launches.
+extern "C" int huffman_pack_launch(const void* y, const void* cb,
+                                   const void* cr, int B, int h16, int w16,
+                                   const void* spec, long long cap_words,
+                                   void* scratch, void* out, void* stream) {
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (B < 1 || h16 < 1 || w16 < 1 || cap_words < 0)
+    return cudaErrorInvalidValue;
+  if (((reinterpret_cast<uintptr_t>(y) | reinterpret_cast<uintptr_t>(cb) |
+        reinterpret_cast<uintptr_t>(cr) | reinterpret_cast<uintptr_t>(out)) &
+       3u) != 0)
+    return cudaErrorMisalignedAddress;
+  const long long nb = 6LL * h16 * w16;
+  const long long width = 8 + 4 * cap_words;
+  // Bit starts are i32: at most ~2000 bits a block.
+  if (nb > (1LL << 20) || static_cast<long long>(B) * nb > 0x7FFFFFFFLL)
+    return cudaErrorInvalidConfiguration;
+  int* bits = static_cast<int*>(scratch);
+  int* nz = bits + B * nb;
+  int* start = nz + B * nb;
+  auto* o8 = static_cast<uint8_t*>(out);
+  const auto* y16 = static_cast<const int16_t*>(y);
+  const auto* cb16 = static_cast<const int16_t*>(cb);
+  const auto* cr16 = static_cast<const int16_t*>(cr);
+  const auto* sp = static_cast<const int32_t*>(spec);
+  cudaError_t err = cudaMemsetAsync(out, 0, B * width, s);
+  if (err != cudaSuccess) return err;
+  const int resident = resident_blocks(
+      reinterpret_cast<const void*>(huffman_block_kernel<true>),
+      kHuffThreads, 132);
+  const unsigned grid = grid_for(B * nb, kHuffWarps, resident);
+  huffman_block_kernel<false><<<grid, kHuffThreads, 0, s>>>(
+      y16, cb16, cr16, B, h16, w16, sp, bits, nz, start, o8, width,
+      cap_words);
+  huffman_scan_kernel<<<B, kScanThreads, 0, s>>>(bits, nz, start, nb, o8,
+                                                  width);
+  huffman_block_kernel<true><<<grid, kHuffThreads, 0, s>>>(
+      y16, cb16, cr16, B, h16, w16, sp, bits, nz, start, o8, width,
+      cap_words);
   return cudaGetLastError();
 }

@@ -8,9 +8,11 @@ Counterparts of the stages of the JAX package's device program
   folded into its reads;
 * :func:`sparse_pack` (K4a) replaces ``sparse_pack`` (``:191``);
 * :func:`compact_rows` (K4b) replaces ``_compact_rows`` (``:400``) with the
-  row lengths of ``:457-464``.
+  row lengths of ``:457-464`` (sparse rows) or ``:486-492`` (Huffman rows);
+* :func:`huffman_pack` (K5) replaces ``huffman_pack`` (``:991``), the
+  engine of ``render_to_jpeg_huffman_compact`` (``:470``).
 
-All three live in ``csrc/jpeg.cu`` behind a plain ``extern "C"`` interface,
+All four live in ``csrc/jpeg.cu`` behind a plain ``extern "C"`` interface,
 built and loaded by :mod:`.build` on first use; a build failure raises.
 Each wrapper takes CUDA tensors only, checks them, allocates its outputs
 (and K4a's status words) with ``torch.empty``, launches on the current
@@ -24,7 +26,7 @@ from __future__ import annotations
 
 import ctypes
 import threading
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -37,7 +39,9 @@ NVCC_FLAGS = build.ARCH_FLAGS + ("-fmad=false",)
 ENTRY_BITS = 18
 
 LAUNCHES: Dict[str, int] = {"jpeg_coefficients": 0, "sparse_pack": 0,
-                            "compact_rows": 0}
+                            "compact_rows": 0, "huffman_pack": 0}
+# K4b's row modes (csrc/jpeg.cu kSparseRows, kHuffmanRows).
+SPARSE_ROWS, HUFFMAN_ROWS = 0, 1
 _launch_lock = threading.Lock()
 
 
@@ -59,9 +63,10 @@ def _configure(lib: ctypes.CDLL) -> None:
     lib.sparse_pack_launch.argtypes = [p, p, p, i, ll, ll, i, p, ll, ll, p]
     lib.sparse_pack_status_words.argtypes = [i, ll]
     lib.sparse_pack_status_words.restype = ll
-    lib.compact_rows_launch.argtypes = [p, i, ll, i, i, ll, p, p]
+    lib.compact_rows_launch.argtypes = [p, i, ll, i, i, ll, i, ll, p, p]
+    lib.huffman_pack_launch.argtypes = [p, p, p, i, i, i, p, ll, p, p, p]
     for fn in (lib.jpeg_coefficients_launch, lib.sparse_pack_launch,
-               lib.compact_rows_launch):
+               lib.compact_rows_launch, lib.huffman_pack_launch):
         fn.restype = ctypes.c_int
 
 
@@ -164,17 +169,23 @@ def sparse_pack(y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor,
 
 
 def compact_rows(wire: torch.Tensor, n_valid: int, cap: int,
-                 nb: int) -> torch.Tensor:
-    """K4b: sparse wire u8[B, width] -> u8[4B + B*width]: the i32 LE row
+                 nb: int, cap_words: Optional[int] = None) -> torch.Tensor:
+    """K4b: wire u8[B, width] -> u8[4B + B*width]: the i32 LE row
     lengths, then each row's used prefix (rows at or past ``n_valid``
-    take none), then zeros.  One kernel launch, no scratch."""
+    take none), then zeros.  Sparse rows (``nb`` blocks a tile) without
+    ``cap_words``; Huffman rows (``ops.jpegenc.huffman_row_lengths``)
+    with it.  One kernel launch, no scratch."""
     dev = _cuda("compact_rows", wire)
     if wire.dtype != torch.uint8 or wire.dim() != 2:
         raise ValueError(f"wire must be u8[B, width], got {wire.dtype} "
                          f"{tuple(wire.shape)}")
     B, width = wire.shape
-    if width < 4 + nb:
+    mode = SPARSE_ROWS if cap_words is None else HUFFMAN_ROWS
+    if mode == SPARSE_ROWS and width < 4 + nb:
         raise ValueError(f"wire rows of {width} bytes hold no {nb} counts")
+    if mode == HUFFMAN_ROWS and width != 8 + 4 * cap_words:
+        raise ValueError(f"Huffman rows of {width} bytes are not "
+                         f"8 + 4 x {cap_words}")
     out = torch.empty((4 * B + B * width,), dtype=torch.uint8, device=dev)
     if B == 0:
         return out
@@ -182,7 +193,50 @@ def compact_rows(wire: torch.Tensor, n_valid: int, cap: int,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.compact_rows_launch(
-            wire.data_ptr(), B, width, int(n_valid), cap, nb,
-            out.data_ptr(), stream)
+            wire.data_ptr(), B, width, int(n_valid), cap, nb, mode,
+            cap_words or 0, out.data_ptr(), stream)
     _launched("compact_rows", err)
+    return out
+
+
+def huffman_pack(y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor,
+                 cap_words: int, spec: torch.Tensor, h16: int,
+                 w16: int) -> torch.Tensor:
+    """K5: zigzag coefficients of B tiles on an (16 h16, 16 w16) frame ->
+    u8[B, 8 + 4 cap_words] Huffman wire rows ``[total i32 | total bits
+    i32 | words u32[cap_words]]`` coded with ``spec``, the i32[1024]
+    block of ``ops.jpegenc.spec_tensor`` (fixed or tuned tables, the same
+    build).  ``ops.jpegenc.huffman_pack_plain`` is the same function.
+    Within the budgets (total <= cap, bits <= 32 cap_words) a row equals
+    the JAX ``huffman_pack``'s; past them only its header is used (total
+    and the overflow decision agree; see ``csrc/jpeg.cu``).  A memset and
+    three launches on the current stream; scratch of 12 bytes a block."""
+    dev = _cuda("huffman_pack", y, cb, cr, spec)
+    for name, t in (("y", y), ("cb", cb), ("cr", cr)):
+        if t.dtype != torch.int16 or t.dim() != 3 or t.shape[2] != 64:
+            raise ValueError(f"{name} must be i16[B, n, 64], got "
+                             f"{t.dtype} {tuple(t.shape)}")
+    B = y.shape[0]
+    if (y.shape[1] != 4 * h16 * w16 or cb.shape != (B, h16 * w16, 64)
+            or cr.shape != cb.shape):
+        raise ValueError(f"coefficients {tuple(y.shape)} / "
+                         f"{tuple(cb.shape)} / {tuple(cr.shape)} are not "
+                         f"a {h16} x {w16} MCU frame")
+    if spec.dtype != torch.int32 or spec.numel() != 1024:
+        raise ValueError("spec must be i32[1024]")
+    if cap_words < 0:
+        raise ValueError(f"cap_words must be >= 0, got {cap_words}")
+    out = torch.empty((B, 8 + 4 * cap_words), dtype=torch.uint8, device=dev)
+    if B == 0:
+        return out
+    nb = 6 * h16 * w16
+    scratch = torch.empty((3 * B * nb,), dtype=torch.int32, device=dev)
+    lib = library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.huffman_pack_launch(
+            y.data_ptr(), cb.data_ptr(), cr.data_ptr(), B, h16, w16,
+            spec.data_ptr(), cap_words, scratch.data_ptr(), out.data_ptr(),
+            stream)
+    _launched("huffman_pack", err)
     return out

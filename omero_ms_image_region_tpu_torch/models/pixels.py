@@ -80,3 +80,32 @@ class Pixels:
     pixels_id: Optional[int] = None
     # Physical channel metadata the reference carries along (unused by math).
     channel_names: Tuple[str, ...] = field(default_factory=tuple)
+
+    def to_json(self) -> dict:
+        """The pixels-metadata cache's value (the JAX package's form:
+        channel names are not cached)."""
+        return {
+            "image_id": self.image_id,
+            "pixels_type": self.pixels_type,
+            "size_x": self.size_x,
+            "size_y": self.size_y,
+            "size_z": self.size_z,
+            "size_c": self.size_c,
+            "size_t": self.size_t,
+            "dimension_order": self.dimension_order,
+            "pixels_id": self.pixels_id,
+        }
+
+    @classmethod
+    def from_json(cls, d: dict) -> "Pixels":
+        return cls(
+            image_id=d["image_id"],
+            pixels_type=d["pixels_type"],
+            size_x=d["size_x"],
+            size_y=d["size_y"],
+            size_z=d.get("size_z", 1),
+            size_c=d.get("size_c", 1),
+            size_t=d.get("size_t", 1),
+            dimension_order=d.get("dimension_order", "XYZCT"),
+            pixels_id=d.get("pixels_id"),
+        )

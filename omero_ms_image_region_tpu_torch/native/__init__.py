@@ -1,6 +1,7 @@
 """The native host codecs, built and loaded: the JFIF entropy coder
 (``jpegenc.cpp``), the JPEG decoder (``jpegdec.cpp``), the TIFF LZW
-decoder and bit unpacker (``tilecache.cpp``) and the JPEG 2000 tier-1
+decoder, the bit unpacker and the byte caches' LRU tier
+(``tilecache.cpp``, :class:`NativeLRUCache`) and the JPEG 2000 tier-1
 decoder (``jp2kt1.cpp``).
 
 Each C++ source is compiled with ``g++ -O3 -std=c++17 -shared -fPIC
@@ -116,6 +117,23 @@ def _configure_decoder(lib: ctypes.CDLL) -> None:
 
 
 def _configure_bitops(lib: ctypes.CDLL) -> None:
+    lib.tc_create.restype = ctypes.c_void_p
+    lib.tc_create.argtypes = [ctypes.c_size_t, ctypes.c_uint]
+    lib.tc_destroy.restype = None
+    lib.tc_destroy.argtypes = [ctypes.c_void_p]
+    lib.tc_put.restype = ctypes.c_int
+    lib.tc_put.argtypes = [ctypes.c_void_p, ctypes.c_char_p,
+                           ctypes.c_size_t, ctypes.c_char_p,
+                           ctypes.c_size_t]
+    lib.tc_get.restype = ctypes.c_longlong
+    lib.tc_get.argtypes = [ctypes.c_void_p, ctypes.c_char_p,
+                           ctypes.c_size_t,
+                           ctypes.POINTER(ctypes.POINTER(ctypes.c_uint8))]
+    lib.tc_free.restype = None
+    lib.tc_free.argtypes = [ctypes.POINTER(ctypes.c_uint8)]
+    for fn in (lib.tc_hits, lib.tc_misses, lib.tc_size_bytes):
+        fn.restype = ctypes.c_uint64
+        fn.argtypes = [ctypes.c_void_p]
     lib.bits_unpack_msb.restype = None
     lib.bits_unpack_msb.argtypes = [ctypes.c_char_p, ctypes.c_size_t,
                                     ctypes.c_void_p]
@@ -262,6 +280,62 @@ def tiff_lzw_decode(data: bytes, dst_cap: int) -> bytes:
         raise ValueError("malformed TIFF LZW stream (or output cap "
                          "exceeded)")
     return ctypes.string_at(out, n)
+
+
+class NativeLRUCache:
+    """A byte-cache tier over the C++ sharded LRU (``tc_*`` in
+    ``tilecache.cpp``), in place of ``services.cache.MemoryLRUCache``: the
+    JAX package's binding, the same face and counters (no evictions
+    count, as there).  Each call releases the GIL."""
+
+    def __init__(self, max_bytes: int = 256 * 1024 * 1024,
+                 shards: int = 16):
+        lib = bitops_library()
+        self._lib = lib
+        self._handle = lib.tc_create(max_bytes, shards)
+        if not self._handle:
+            raise MemoryError("tc_create failed")
+        self.max_bytes = max_bytes
+
+    def __del__(self):
+        handle = getattr(self, "_handle", None)
+        if handle:
+            self._lib.tc_destroy(handle)
+            self._handle = None
+
+    def get_sync(self, key: str) -> Optional[bytes]:
+        kb = key.encode()
+        out = ctypes.POINTER(ctypes.c_uint8)()
+        n = self._lib.tc_get(self._handle, kb, len(kb), ctypes.byref(out))
+        if n < 0:
+            return None
+        try:
+            return ctypes.string_at(out, n)
+        finally:
+            self._lib.tc_free(out)
+
+    def set_sync(self, key: str, value: bytes) -> None:
+        kb = key.encode()
+        self._lib.tc_put(self._handle, kb, len(kb), bytes(value),
+                         len(value))
+
+    async def get(self, key: str) -> Optional[bytes]:
+        return self.get_sync(key)
+
+    async def set(self, key: str, value: bytes) -> None:
+        self.set_sync(key, value)
+
+    @property
+    def hits(self) -> int:
+        return int(self._lib.tc_hits(self._handle))
+
+    @property
+    def misses(self) -> int:
+        return int(self._lib.tc_misses(self._handle))
+
+    @property
+    def size_bytes(self) -> int:
+        return int(self._lib.tc_size_bytes(self._handle))
 
 
 def unpack_bits_msb(data: bytes, n_bits: int) -> np.ndarray:

@@ -1,10 +1,10 @@
 // Sharded LRU byte cache and pixel bit ops.
 //
-// A copy of the JAX package's native/tilecache.cpp.  The port binds two of
-// its functions (native/__init__.py): tiff_lzw_decode, the TIFF reader's
-// LZW path (io/tiff.py), and bits_unpack_msb.  The byte-cache tier
-// (tc_*), the mask blend and the flip are compiled but not bound: the
-// byte caches come with a later slice.
+// A copy of the JAX package's native/tilecache.cpp.  The port binds
+// (native/__init__.py) tiff_lzw_decode, the TIFF reader's LZW path
+// (io/tiff.py), bits_unpack_msb and the byte-cache tier (tc_*), the local
+// tier of the byte caches (NativeLRUCache, services/cache.py).  The mask
+// blend and the flip are compiled but not bound.
 //
 // C ABI only, loaded with ctypes, which drops the GIL for the duration of
 // a call.  Every function is exception-free.

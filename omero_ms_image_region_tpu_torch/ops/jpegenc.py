@@ -1,15 +1,26 @@
-"""The JPEG route: coefficient front end, sparse wire, host tail.
+"""The JPEG route: coefficient front end, the sparse and the Huffman
+wire engines, host tails.
 
-Counterpart of the sparse engine of the JAX package's ``ops/jpegenc.py``
-(``render_batch_to_jpeg(engine="sparse")``, ``:1448``).  On the card the
-route is
+Counterpart of the JAX package's ``ops/jpegenc.py``
+(``render_batch_to_jpeg(engine=...)``, ``:1448``): the sparse engine and,
+since the Huffman engine joined it, the device Huffman engine too.  On the
+card the route is
 
     K1 render (kernels/render.py)  ->  K3 jpeg_coefficients  ->
-    K4a sparse_pack  ->  K4b compact_rows
+    K4a sparse_pack    ->  K4b compact_rows (sparse rows)    [sparse]
+    K5 huffman_pack    ->  K4b compact_rows (Huffman rows)   [huffman]
 
 and only the compacted wire (the used bytes of every row behind an i32
-lengths header) crosses to the host, where the native coder
-(``native/jpegenc.cpp``) writes each tile's JFIF.
+lengths header) crosses to the host.  There the native coder
+(``native/jpegenc.cpp``) codes each sparse row to JFIF; a Huffman row is
+already the entropy stream, which the host byte-swaps, 0xFF-stuffs and
+frames (``jfif.py``), about 3x fewer wire bytes than the sparse row.  The
+Huffman engine codes with the fixed shared tables until a workload's tuned
+tables are built (once, on a thread, from one tile); a group whose tiles
+are not all grid-exact takes the sparse engine, as in JAX.  A tile over
+its budgets is coded from its dense coefficients.  The wire's D2H is
+timed and reported to the fetch observer (:func:`set_fetch_observer`),
+which the adaptive engine (``utils.adaptive``) reads.
 
 Each device stage has a dispatcher here that sends a CPU tensor to its plain
 PyTorch version (``*_plain``, also what the kernels are held against on the
@@ -27,6 +38,8 @@ SOF0 header.
 from __future__ import annotations
 
 import functools
+import threading
+import time
 from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -440,13 +453,40 @@ def compact_sparse_rows(wire: torch.Tensor, n_valid: int, cap: int,
     return kernels.compact_rows(wire, n_valid, cap, nb)
 
 
+# The wire-fetch observer: fn(nbytes, seconds), fed by fetch_rows so an
+# adaptive engine (utils.adaptive) can track the live device-to-host rate;
+# None: off.
+_FETCH_OBSERVER = None
+
+
+def set_fetch_observer(fn) -> None:
+    global _FETCH_OBSERVER
+    _FETCH_OBSERVER = fn
+
+
+def _observe_fetch(nbytes: int, seconds: float) -> None:
+    """Report one wire fetch (a transfer alone: the device's work was
+    waited for before it).  An observer's failure never reaches the
+    serving path."""
+    obs = _FETCH_OBSERVER
+    if obs is not None:
+        try:
+            obs(nbytes, seconds)
+        except Exception:   # pragma: no cover - observer bugs stay there
+            pass
+
+
 def fetch_rows(compact: torch.Tensor, B: int) -> List[np.ndarray]:
     """The compacted wire to the host: its lengths header, then exactly
     the bytes the rows use.  Returns each row as a u8 array (rows that
-    carry nothing come back empty)."""
+    carry nothing come back empty).  The header's copy waits for the
+    device's work; the body's is the transfer alone, timed for the fetch
+    observer."""
     lengths = compact[:4 * B].cpu().numpy().view(np.int32).astype(np.int64)
     used = int(lengths.sum())
+    t0 = time.perf_counter()
     body = compact[4 * B:4 * B + used].cpu().numpy()
+    _observe_fetch(used, time.perf_counter() - t0)
     offs = np.concatenate([[0], np.cumsum(lengths)])
     return [body[offs[i]:offs[i + 1]] for i in range(B)]
 
@@ -503,23 +543,396 @@ def wire_rows(y, cb, cr, cap: int, n_valid: int) -> List[np.ndarray]:
                       B)[:n_valid]
 
 
+# ------------------------------------------------- K5: the Huffman wire
+
+def default_words_cap(H: int, W: int, quality: Optional[int] = None) -> int:
+    """Stream-word budget per tile of the Huffman wire: H*W/8 bytes
+    (doubled for quality >= 88); a tile past it takes the dense path."""
+    return (H * W) // 8 // 4 * _quality_widen(quality)
+
+
+def huffman_spec_arrays() -> tuple:
+    """``(dc_code, dc_len, ac_code, ac_len)`` i32 arrays of the fixed
+    spec (``jfif.fixed_huffman_spec``)."""
+    from ..jfif import fixed_huffman_spec
+    return spec_kernel_arrays(fixed_huffman_spec())
+
+
+def spec_kernel_arrays(spec8) -> tuple:
+    """A jfif 8-tuple spec -> the ``(dc_code, dc_len, ac_code, ac_len)``
+    i32 arrays the packer takes (one projection for the fixed spec, the
+    tuner and the checks)."""
+    return (spec8[2].astype(np.int32), spec8[3].astype(np.int32),
+            spec8[6].astype(np.int32), spec8[7].astype(np.int32))
+
+
+def spec_tensor(spec_arrays, device) -> torch.Tensor:
+    """K5's i32[1024] spec block on ``device``: dc_code, dc_len, ac_code
+    and ac_len, 256 entries each.  Refuses a spec whose codes pass 16
+    bits or whose ZRL code passes 10 (three fold into one field)."""
+    arrays = [np.asarray(a, np.int32).ravel() for a in spec_arrays]
+    host = np.zeros(1024, np.int32)
+    for i, a in enumerate(arrays):
+        if a.size > 256:
+            raise ValueError(f"spec array {i} has {a.size} > 256 entries")
+        host[256 * i:256 * i + a.size] = a
+    lens = np.concatenate([host[256:512], host[768:1024]])
+    if lens.max() > 16 or host[768 + 0xF0] > 10:
+        raise ValueError("spec codes must be <= 16 bits, the ZRL code "
+                         "<= 10 bits")
+    return _spec_tensor(host.tobytes(), str(torch.device(device)))
+
+
+@functools.lru_cache(maxsize=16)
+def _spec_tensor(host: bytes, device: str) -> torch.Tensor:
+    return torch.from_numpy(np.frombuffer(host, np.int32).copy()).to(device)
+
+
+def _category_t(x: torch.Tensor) -> torch.Tensor:
+    """JPEG magnitude category (``_category``: bit length, held to 11)."""
+    a = x.abs()
+    return sum((a >= (1 << b)).to(torch.int64) for b in range(11))
+
+
+def _amplitude_t(x: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """Amplitude bits: the value, or its ones' complement in s bits."""
+    return torch.where(x >= 0, x, x + (1 << s) - 1)
+
+
+def huffman_pack_plain(y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor,
+                       cap_words: int, spec: torch.Tensor, h16: int,
+                       w16: int) -> torch.Tensor:
+    """Plain PyTorch K5: zigzag coefficients of B tiles on a (16 h16,
+    16 w16) frame -> u8[B, 8 + 4 cap_words] rows
+
+        [ total nonzeros i32 LE | total bits i32 LE | words u32 LE ]
+
+    the JPEG entropy stream of each tile coded with ``spec`` (the i32[1024]
+    block of :func:`spec_tensor`): blocks in MCU scan order; each block's
+    DC difference against its component's predecessor (Y0 <- the previous
+    MCU's Y3, Y1..Y3 <- the Y before them, Cb and Cr <- their own block one
+    MCU back, the first 0), code then amplitude; each nonzero AC
+    coefficient's ZRL codes (up to three, one field) and run/size code and
+    amplitude; an EOB unless position 63 is nonzero.  Stream bit 0 is the
+    MSB of word 0; words past ``cap_words`` are dropped.
+
+    The JAX ``huffman_pack`` computes the same stream over its compacted
+    entry list (entries past ``cap`` dropped); this one, as K5 does,
+    computes it per coefficient (cumsum, cummax and scatter-adds of
+    disjoint bits), so the two agree word for word on every row within
+    the budgets, and on a row over ``cap`` entries in ``total`` and the
+    overflow decision (JAX's bit count is then of a cut stream)."""
+    B = y.shape[0]
+    dev = y.device
+    n_mcu = h16 * w16
+    nb = 6 * n_mcu
+    i64 = torch.int64
+    yi = (y.to(i64).reshape(B, h16, 2, w16, 2, 64)
+          .permute(0, 1, 3, 2, 4, 5).reshape(B, n_mcu, 4, 64))
+    blocks = torch.cat([yi, cb.to(i64).reshape(B, n_mcu, 1, 64),
+                        cr.to(i64).reshape(B, n_mcu, 1, 64)], dim=2)
+    sp = spec.to(device=dev, dtype=i64)
+    dc_code, dc_len = sp[0:256], sp[256:512]
+    ac_code, ac_len = sp[512:768], sp[768:1024]
+    total = (blocks != 0).sum((1, 2, 3))
+
+    # DC fields: the difference against the component's predecessor.
+    d6 = blocks[..., 0]                                    # [B, n_mcu, 6]
+    prev_mcu = torch.cat([torch.zeros_like(d6[:, :1]), d6[:, :-1]], dim=1)
+    pred = torch.cat([prev_mcu[:, :, 3:4], d6[:, :, 0:3],
+                      prev_mcu[:, :, 4:6]], dim=2)
+    blocks = blocks.reshape(B, nb, 64)
+    dcdiff = (d6 - pred).reshape(B, nb)
+    s_dc = _category_t(dcdiff)
+    dc_val = (dc_code[s_dc] << s_dc) | _amplitude_t(dcdiff, s_dc)
+    dc_flen = dc_len[s_dc] + s_dc
+
+    # AC fields: each nonzero's run from the previous nonzero position.
+    ac = blocks[..., 1:]                                   # [B, nb, 63]
+    nz = ac != 0
+    k = torch.arange(1, 64, dtype=i64, device=dev)
+    prev_incl = torch.cummax(torch.where(nz, k, torch.zeros_like(k)),
+                             dim=-1).values
+    prev = torch.cat([torch.zeros_like(prev_incl[..., :1]),
+                      prev_incl[..., :-1]], dim=-1)
+    run = k - prev - 1
+    s_ac = _category_t(ac)
+    sym = ((run & 15) << 4) | s_ac
+    zero = torch.zeros_like(ac)
+    main_val = torch.where(nz, (ac_code[sym] << s_ac)
+                           | _amplitude_t(ac, s_ac), zero)
+    main_len = torch.where(nz, ac_len[sym] + s_ac, zero)
+    z = torch.where(nz, run >> 4, zero)                    # 0..3 ZRLs
+    zc, zl = ac_code[0xF0], ac_len[0xF0]
+    two = (zc << zl) | zc
+    three = (two << zl) | zc
+    zrl_val = torch.where(z == 3, three, torch.where(
+        z == 2, two, torch.where(z == 1, zc, zero)))
+    zrl_len = z * zl
+    has_eob = blocks[..., 63] == 0
+    eob_val = torch.where(has_eob, ac_code[0], torch.zeros_like(dc_val))
+    eob_len = torch.where(has_eob, ac_len[0], torch.zeros_like(dc_val))
+
+    # Bit offsets: per-coefficient lengths summed within each block, the
+    # block lengths summed over the tile in scan order.
+    coeff_len = zrl_len + main_len
+    within = torch.cumsum(coeff_len, dim=-1)
+    block_ac = within[..., -1]
+    block_bits = dc_flen + block_ac + eob_len              # [B, nb]
+    block_end = torch.cumsum(block_bits, dim=1)
+    block_start = block_end - block_bits
+    total_bits = block_end[:, -1]
+    zrl_start = (block_start + dc_flen)[..., None] + within - coeff_len
+    main_start = zrl_start + zrl_len
+    eob_start = block_start + dc_flen + block_ac
+
+    val = torch.cat([dc_val, zrl_val.reshape(B, -1),
+                     main_val.reshape(B, -1), eob_val], dim=1)
+    length = torch.cat([dc_flen, zrl_len.reshape(B, -1),
+                        main_len.reshape(B, -1), eob_len], dim=1)
+    start = torch.cat([block_start, zrl_start.reshape(B, -1),
+                       main_start.reshape(B, -1), eob_start], dim=1)
+
+    # Deposits: field bits [start, start + len) MSB first, i.e. at
+    # 32 - rb - len of word start >> 5, the low part spilling into the
+    # next word.  Disjoint bits, so adding is OR-ing; slot cap_words
+    # takes the dropped words.
+    w = start >> 5
+    rb = start & 31
+    live = length > 0
+    sh0 = 32 - rb - length
+    c0 = torch.where(sh0 >= 0, val << sh0.clamp(min=0),
+                     val >> (-sh0).clamp(min=0)) & 0xFFFFFFFF
+    cross = live & (rb + length > 32)
+    c1 = (val << (64 - rb - length).clamp(0, 63)) & 0xFFFFFFFF
+    words = torch.zeros((B, cap_words + 1), dtype=i64, device=dev)
+    dump = torch.full_like(w, cap_words)
+    words.scatter_add_(1, torch.where(live & (w < cap_words), w, dump),
+                       torch.where(live, c0, torch.zeros_like(c0)))
+    words.scatter_add_(1, torch.where(cross & (w + 1 < cap_words), w + 1,
+                                      dump),
+                       torch.where(cross, c1, torch.zeros_like(c1)))
+    words = words[:, :cap_words]
+    word_bytes = torch.stack([(words >> (8 * i)) & 0xFF for i in range(4)],
+                             dim=-1).to(torch.uint8).reshape(B, -1)
+    header = torch.stack([total, total_bits], dim=1).to(
+        torch.int32).contiguous().view(torch.uint8)
+    return torch.cat([header, word_bytes], dim=1)
+
+
+def huffman_pack(y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor,
+                 cap_words: int, spec: torch.Tensor, h16: int,
+                 w16: int) -> torch.Tensor:
+    """K5 dispatcher: :func:`huffman_pack_plain` for a CPU tensor, the
+    kernel (``kernels.jpeg.huffman_pack``) for a CUDA tensor."""
+    if y.device.type == "cpu":
+        return huffman_pack_plain(y, cb, cr, cap_words, spec, h16, w16)
+    from ..kernels import jpeg as kernels
+
+    return kernels.huffman_pack(y, cb, cr, cap_words, spec, h16, w16)
+
+
+def huffman_row_lengths(wire: torch.Tensor, n_valid: int, cap: int,
+                        cap_words: int) -> torch.Tensor:
+    """Used bytes of each Huffman wire row (``:486-492``): the header and
+    ``ceil(bits / 32)`` words; the header alone for a row over ``cap``
+    entries or ``32 cap_words`` bits; 0 at or past ``n_valid``."""
+    B = wire.shape[0]
+    hdr = wire[:, :8].reshape(-1).view(torch.int32).reshape(B, 2).to(
+        torch.int64)
+    total, bits = hdr[:, 0], hdr[:, 1]
+    ok = (total <= cap) & (bits <= cap_words * 32)
+    words = torch.where(ok, (bits + 31) // 32, torch.zeros_like(bits))
+    lengths = 8 + 4 * words
+    keep = torch.arange(B, device=wire.device) < n_valid
+    return torch.where(keep, lengths, torch.zeros_like(lengths))
+
+
+def compact_huffman_rows(wire: torch.Tensor, n_valid: int, cap: int,
+                         cap_words: int) -> torch.Tensor:
+    """K4b with the Huffman row lengths: :func:`compact_rows_plain` over
+    :func:`huffman_row_lengths` on CPU, the kernel on CUDA."""
+    if wire.device.type == "cpu":
+        return compact_rows_plain(
+            wire, huffman_row_lengths(wire, n_valid, cap, cap_words))
+    from ..kernels import jpeg as kernels
+
+    return kernels.compact_rows(wire, n_valid, cap, 0, cap_words=cap_words)
+
+
+def huffman_wire_rows(y, cb, cr, cap: int, cap_words: int,
+                      spec: torch.Tensor, n_valid: int, h16: int,
+                      w16: int) -> List[np.ndarray]:
+    """K5 + K4b on the coefficients' device, then the compacted wire's
+    used bytes to the host: the first ``n_valid`` rows."""
+    B = y.shape[0]
+    wire = huffman_pack(y, cb, cr, cap_words, spec, h16, w16)
+    return fetch_rows(compact_huffman_rows(wire, n_valid, cap, cap_words),
+                      B)[:n_valid]
+
+
+def finish_huffman_batch(bufs, dims, H: int, W: int, quality: int,
+                         cap: int, cap_words: int,
+                         dense_fallback: Optional[Callable] = None,
+                         spec=None, on_tile: Optional[Callable] = None
+                         ) -> list:
+    """Fetched Huffman wire rows -> JFIF per tile (the JAX function).
+
+    Host work is the stream's bytes: byte swap, 0xFF stuffing and the
+    frame (``jfif.finish_fixed_stream``, or ``finish_stream_with_spec``
+    when ``spec``, a jfif 8-tuple, coded the stream).  A tile over its
+    budgets, or whose ``dims`` entry is None, is coded by
+    ``dense_fallback(i) -> bytes``."""
+    from ..jfif import finish_fixed_stream, finish_stream_with_spec
+
+    out = []
+    for i, dim in enumerate(dims):
+        row = bufs[i] if dim is not None else None
+        if dim is not None:
+            total = row_header_i32(row, 0)
+            bits = row_header_i32(row, 1)
+        if dim is None or total > cap or bits > cap_words * 32:
+            if dense_fallback is None:
+                raise ValueError(
+                    f"tile {i} needs the dense path but no fallback was "
+                    f"given" if dim is None else
+                    f"huffman wire overflow (entries={total}, bits={bits})")
+            out.append(dense_fallback(i))
+        else:
+            w_, h_ = dim
+            nwords = (bits + 31) // 32
+            # Compacted rows sit at any byte offset: re-base for the view.
+            words = np.ascontiguousarray(row[8:8 + 4 * nwords]).view("<u4")
+            out.append(finish_fixed_stream(words, bits, w_, h_, quality)
+                       if spec is None else
+                       finish_stream_with_spec(words, bits, w_, h_,
+                                               quality, spec))
+        if on_tile is not None:
+            on_tile(i, out[-1])
+    return out
+
+
+# Per-workload tuned tables of the Huffman wire, keyed (H, W, quality):
+# ``(spec arrays, jfif 8-tuple)``, or None when tuning failed (never
+# retried).  Built once per workload on a background thread from one
+# tile's coefficients; groups code with the fixed spec until then.  The
+# spec is runtime data of K5, so the switch costs no rebuild.
+_TUNED_TABLES: dict = {}
+_TUNED_PENDING: set = set()
+_TUNED_LOCK = threading.Lock()
+
+
+def _compute_tuned_tables(key, sample) -> None:
+    """Build and publish the tuned spec of ``key`` from ``sample``, one
+    tile's (y, cb, cr) on the host; a failure publishes None."""
+    from ..jfif import symbol_frequencies, tuned_huffman_spec
+    try:
+        spec8 = tuned_huffman_spec(*symbol_frequencies(*sample))
+        result = (spec_kernel_arrays(spec8), spec8)
+    except Exception:       # pragma: no cover - tuning never breaks serving
+        result = None
+    with _TUNED_LOCK:
+        _TUNED_TABLES[key] = result
+        _TUNED_PENDING.discard(key)
+
+
+def _maybe_start_tuning(key, sample_fn: Callable) -> None:
+    """Start tuning ``key`` once.  ``sample_fn() -> (y, cb, cr)`` numpy
+    runs here, on the caller's thread and stream (the coefficients' copy
+    to the host); the frequency count and table build run on a thread."""
+    with _TUNED_LOCK:
+        if key in _TUNED_TABLES or key in _TUNED_PENDING:
+            return
+        _TUNED_PENDING.add(key)
+    try:
+        sample = sample_fn()
+    except Exception:       # pragma: no cover - as _compute_tuned_tables
+        with _TUNED_LOCK:
+            _TUNED_TABLES[key] = None
+            _TUNED_PENDING.discard(key)
+        return
+    threading.Thread(target=_compute_tuned_tables, args=(key, sample),
+                     name=f"hufftune-{key[0]}x{key[1]}", daemon=True).start()
+
+
+def _huffman_to_jpegs(y, cb, cr, H: int, W: int, quality: int, dims,
+                      cap: int, on_tile: Optional[Callable],
+                      tune: bool) -> list:
+    """The Huffman engine over coefficients on an exact (H, W) frame: the
+    workload's tuned spec when ready (else the fixed one, whose tables the
+    frame then declares), the cap policy of :func:`coefficients_to_jpegs`
+    for entries and words together, and the dense coder for a tile still
+    over its budgets."""
+    n = len(dims)
+    tuned = _TUNED_TABLES.get((H, W, quality))
+    if tuned is not None:
+        spec_arrays, frame_spec = tuned
+    else:
+        spec_arrays, frame_spec = huffman_spec_arrays(), None
+    spec = spec_tensor(spec_arrays, y.device)
+    cap_words = default_words_cap(H, W, quality)
+    memo_key = ("huffman", H, W, quality)
+    if _CAP_MEMO.get(memo_key):
+        cap, cap_words = cap * 2, cap_words * 2
+    h16, w16 = H // 16, W // 16
+    rows = huffman_wire_rows(y, cb, cr, cap, cap_words, spec, n, h16, w16)
+    totals = np.array([row_header_i32(r, 0) for r in rows])
+    bits = np.array([row_header_i32(r, 1) for r in rows])
+    over = (totals > cap) | (bits > cap_words * 32)
+    rescuable = (totals <= 2 * cap) & (bits <= 2 * cap_words * 32)
+    if memo_key not in _CAP_MEMO and (over & rescuable).any():
+        # One retry of the whole batch at doubled budgets, and later
+        # groups of the workload start there.
+        _CAP_MEMO[memo_key] = True
+        cap, cap_words = cap * 2, cap_words * 2
+        rows = huffman_wire_rows(y, cb, cr, cap, cap_words, spec, n, h16,
+                                 w16)
+
+    def dense_tile(i):
+        w_, h_ = dims[i]
+        return native.jpeg_encode(y[i].cpu().numpy(), cb[i].cpu().numpy(),
+                                  cr[i].cpu().numpy(), w_, h_, quality)
+
+    if tuned is None and tune:
+        _maybe_start_tuning((H, W, quality), lambda: (
+            y[0].cpu().numpy(), cb[0].cpu().numpy(), cr[0].cpu().numpy()))
+    with stopwatch("jfif.encodeBatch"):
+        return finish_huffman_batch(rows, dims, H, W, quality, cap,
+                                    cap_words, dense_fallback=dense_tile,
+                                    spec=frame_spec, on_tile=on_tile)
+
+
 def coefficients_to_jpegs(y, cb, cr, H: int, W: int, quality: int,
                           dims: Sequence[Tuple[int, int]],
                           cap: Optional[int] = None,
-                          on_tile: Optional[Callable] = None) -> list:
+                          on_tile: Optional[Callable] = None,
+                          engine: str = "sparse", tune: bool = True) -> list:
     """Coefficients of B tiles on an (H, W) frame -> JFIF for the first
-    ``len(dims)`` of them, the sparse engine's cap policy included.
+    ``len(dims)`` of them through the ``engine``'s wire ("sparse" or
+    "huffman"), its cap policy included.
 
-    The wire starts at ``cap`` (default :func:`default_sparse_cap`; twice
-    that once the workload's memo is set).  When a tile overflows it and
-    would fit in twice the cap, the whole batch is packed once more at the
-    doubled cap and the memo set.  A tile still over the cap is coded from
-    its dense coefficients, which stay on the device until then.
-    ``on_tile`` is passed to :func:`finish_sparse_to_jpegs`.
+    The wire starts at ``cap`` (default :func:`default_sparse_cap`; the
+    Huffman engine also at :func:`default_words_cap` words; twice those
+    once the workload's memo is set).  When a tile overflows and would fit
+    in twice the budget, the whole batch is packed once more at the
+    doubled budget and the memo set.  A tile still over it is coded from
+    its dense coefficients, which stay on the device until then.  The
+    Huffman engine serves only a group whose tiles are all grid-exact
+    (their ceil-16 frame is (H, W)); any other takes the sparse engine.
+    ``tune=False`` never starts the workload's table tuning.  ``on_tile``
+    is called with each tile's bytes as soon as they exist.
     """
     n = len(dims)
     if cap is None:
         cap = default_sparse_cap(H, W, quality)
+    if engine not in ("sparse", "huffman"):
+        raise ValueError(f"jpeg engine must be 'sparse' or 'huffman', "
+                         f"got {engine!r}")
+    all_exact = all((h_ + 15) // 16 * 16 == H and (w_ + 15) // 16 * 16 == W
+                    for (w_, h_) in dims)
+    if engine == "huffman" and all_exact:
+        return _huffman_to_jpegs(y, cb, cr, H, W, quality, dims, cap,
+                                 on_tile, tune)
     memo_key = ("sparse", H, W, quality)
     if _CAP_MEMO.get(memo_key):
         cap = cap * 2
@@ -543,7 +956,8 @@ def coefficients_to_jpegs(y, cb, cr, H: int, W: int, quality: int,
 def render_batch_to_jpeg(raw, window_start, window_end, family, coefficient,
                          reverse, cd_start, cd_end, tables, quality: int,
                          dims, cap: Optional[int] = None,
-                         on_tile: Optional[Callable] = None) -> list:
+                         on_tile: Optional[Callable] = None,
+                         engine: str = "sparse", tune: bool = True) -> list:
     """One batch of tiles -> JFIF per tile, on raw's device.
 
     ``raw`` is [B, C, H, W] with H, W multiples of 16 (callers edge-pad:
@@ -552,8 +966,10 @@ def render_batch_to_jpeg(raw, window_start, window_end, family, coefficient,
     takes them.  ``dims`` gives the true ``(width, height)`` of each of
     the first ``len(dims)`` tiles for its SOF0 header; rows past them are
     batch padding and cost no wire bytes.  ``on_tile(i, data)`` is called
-    with each tile's bytes as soon as they are coded.  The JAX package's
-    ``render_batch_to_jpeg(engine="sparse")`` gives the same bytes.
+    with each tile's bytes as soon as they are coded.  ``engine`` and
+    ``tune`` are :func:`coefficients_to_jpegs`'s.  The JAX package's
+    ``render_batch_to_jpeg`` with the same engine (and the same tuned
+    tables) gives the same bytes.
     """
     from .render import render_tile_batch_packed
 
@@ -565,7 +981,7 @@ def render_batch_to_jpeg(raw, window_start, window_end, family, coefficient,
                                       cd_end, tables)
     y, cb, cr = packed_to_jpeg_coefficients(packed, quality)
     return coefficients_to_jpegs(y, cb, cr, H, W, quality, dims, cap,
-                                 on_tile)
+                                 on_tile, engine, tune)
 
 
 def pad_planes_to_mcu(raw, target_h: Optional[int] = None,

@@ -61,6 +61,16 @@ there) has it:
 * **Prefetch** (``raw-cache.prefetch``, on by default): the predicted next
   tiles of each GET staged into the raw cache (``services.prefetch``),
   along each session's pan with ``sessions.enabled``.
+* **Byte caches** (``services.cache``): the image-region, pixels-metadata
+  and shape-mask caches each config block switches on, a native LRU in
+  front of the shared Redis tier of ``redis-cache.uri`` (without the
+  ``redis`` package: the LRU alone, with a warning), and the canRead memo
+  sharing its answers through the same Redis client.  A mask GET asks the
+  shape-mask cache before its session's fairness token, as in the JAX app.
+* **The JPEG wire engine** (``renderer.jpeg-engine``): ``sparse`` or
+  ``huffman`` for every group; ``auto`` probes the device-to-host rate at
+  startup (``utils.linkprobe``) and, in the batched posture, keeps the
+  choice live (``utils.adaptive``, fed by the wire fetches).
 * **Status mapping** (``server.errors``).
 
 :class:`Front` holds all of it without aiohttp, so a caller can drive the
@@ -86,17 +96,20 @@ import torch
 from .. import __version__, codecs
 from ..io.devicecache import DeviceRawCache
 from ..io.service import PixelsService
+from ..ops.jpegenc import set_fetch_observer
 from ..ops.lut import LutProvider
 from ..ops.render import resolve_device
+from ..services.cache import Caches
 from ..services.db_metadata import (DbMetadataService,
                                     PostgresMetadataService)
-from ..services.metadata import LocalMetadataService
+from ..services.metadata import CanReadMemo, LocalMetadataService
 from ..services.prefetch import TilePrefetcher
 from ..services.sessions import (DjangoPostgresSessionStore,
                                  DjangoRedisSessionStore, SessionStore,
                                  StaticSessionStore, resolve_session_key)
 from ..services.viewport import ViewportTracker
-from ..utils import faultinject, telemetry
+from ..utils import faultinject, linkprobe, telemetry
+from ..utils.adaptive import AdaptiveEngine
 from ..utils.stopwatch import span_lines
 from ..utils.transient import DeadlineExceededError, deadline_scope
 from . import httpcache
@@ -182,10 +195,11 @@ def build_services(config: AppConfig,
                    device: Union[str, torch.device] = "cuda",
                    db=None) -> ImageRegionServices:
     """The render stack a config describes (the JAX ``build_services``):
-    the batching renderer (or, with ``batcher.enabled`` off, the direct
-    :class:`Renderer`), the device raw cache and its prefetcher,
-    single-flight, admission (with the session buckets when
-    ``sessions.enabled``) and the canRead memo, each as its section says.
+    the batching renderer with its wire engine (or, with
+    ``batcher.enabled`` off, the direct :class:`Renderer`), the device raw
+    cache and its prefetcher, single-flight, admission (with the session
+    buckets when ``sessions.enabled``), the byte caches and the canRead
+    memo on their Redis tier, each as its section says.
     With ``metadata-service.type: postgres`` and an open ``db``
     (``AsyncDb``) the metadata service is the OMERO database's; without
     ``db`` the app connects it at startup.  Installs the fault injector
@@ -194,11 +208,34 @@ def build_services(config: AppConfig,
         faultinject.install(config.fault_injection)
     device = resolve_device(device)
     b = config.batcher
-    renderer = (BatchingRenderer(device, max_batch=b.max_batch,
-                                 linger_ms=b.linger_ms,
-                                 pipeline_depth=b.pipeline_depth,
-                                 device_lanes=b.device_lanes)
-                if b.enabled else Renderer(device))
+    engine = config.renderer.jpeg_engine
+    if b.enabled:
+        controller = None
+        if engine == "auto":
+            # The startup probe picks the opening engine; the controller
+            # keeps the choice live from the wire fetches (EWMA,
+            # hysteresis, a probe again after idle).
+            try:
+                rate = linkprobe.measure_fetch_mb_s(device=device)
+            except Exception:
+                rate = None
+            controller = AdaptiveEngine(
+                initial_rate_mb_s=rate,
+                probe=lambda: linkprobe.measure_fetch_mb_s(
+                    nbytes=1 << 20, repeats=2, device=device))
+            set_fetch_observer(controller.observe_fetch)
+            engine = controller.engine
+            log.info("adaptive jpeg engine enabled (opening: %s)", engine)
+        renderer = BatchingRenderer(device, max_batch=b.max_batch,
+                                    linger_ms=b.linger_ms,
+                                    pipeline_depth=b.pipeline_depth,
+                                    device_lanes=b.device_lanes,
+                                    jpeg_engine=engine,
+                                    engine_controller=controller)
+    else:
+        if engine == "auto":
+            engine = linkprobe.resolve_auto_engine(device)
+        renderer = Renderer(device, jpeg_engine=engine)
     rc, ft, se = config.raw_cache, config.fault_tolerance, config.sessions
     raw_cache = (DeviceRawCache(rc.max_bytes, device=device,
                                 digest_index=rc.digest_dedup)
@@ -218,6 +255,10 @@ def build_services(config: AppConfig,
     metadata = (DbMetadataService(db)
                 if db is not None and config.metadata_backend == "postgres"
                 else LocalMetadataService(config.data_dir))
+    caches = Caches.from_config(config.caches)
+    if config.caches.redis_uri and caches.redis is None:
+        log.warning("redis package unavailable; redis cache tier and "
+                    "shared canRead memo disabled")
     return ImageRegionServices(
         pixels_service=PixelsService(config.data_dir,
                                      repo_root=config.omero_data_dir),
@@ -234,6 +275,11 @@ def build_services(config: AppConfig,
                                        session_buckets=buckets)
                    if ft.admission_max_queue > 0 else None),
         prefetcher=prefetcher,
+        caches=caches,
+        # The memo's shared tier plays the reference's Hazelcast map
+        # across instances, on the caches' one Redis client
+        # (ImageRegionVerticle.java:107-111).
+        can_read_memo=CanReadMemo(shared=caches.redis),
     )
 
 
@@ -499,6 +545,10 @@ class Front:
             tracker = getattr(s.prefetcher, "viewport", None)
             if tracker is not None and ctx.omero_session_key:
                 tracker.observe_activity(ctx.omero_session_key)
+            # A byte-cache hit (its ACL checked) costs no token.
+            cached = await self.mask_handler.cached_shape_mask(ctx)
+            if cached is not None:
+                return cached
             if s.admission is not None:
                 s.admission.admit_session(ctx)
             return await self.mask_handler.render_shape_mask(ctx)
@@ -719,8 +769,8 @@ def create_app(config: Optional[AppConfig] = None,
     metadata service when the config names one and no ``db`` was given
     (degrading to the local service with a warning without ``asyncpg``, as
     the JAX app does), and starts the watchdog and the pyramid job runner;
-    cleanup stops them, closes the prefetcher, the database pool and the
-    handler's renderer."""
+    cleanup stops them, closes the prefetcher, the database pool, the
+    handler's renderer and the byte caches' Redis client."""
     import concurrent.futures as cf
     import os
 
@@ -728,8 +778,8 @@ def create_app(config: Optional[AppConfig] = None,
 
     config = config or AppConfig()
     for name in config.unserved:
-        log.warning("%s is switched on, but the port has no byte caches "
-                    "yet: it serves every request by rendering", name)
+        log.warning("%s is switched on, but the port does not serve it",
+                    name)
     handler = handler or ImageRegionHandler(build_services(config, device,
                                                           db=db))
     front = Front(config, handler, db=db)
@@ -838,6 +888,8 @@ def create_app(config: Optional[AppConfig] = None,
             if close is not None:
                 await close()
         await handler.s.renderer.close()
+        # The one shared Redis client (the memo's too).
+        await handler.s.caches.close()
 
     app = web.Application()
     app.on_startup.append(on_startup)

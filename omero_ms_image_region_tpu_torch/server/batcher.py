@@ -49,6 +49,13 @@ the duration history, so one wedge does not stretch the p99.  An injected
 freeze or device error (``utils.faultinject``) fires in the group's
 worker thread before any launch.
 
+The JPEG wire engine (``jpeg_engine``: "sparse" or "huffman") is chosen
+once a group, at the group boundary (:meth:`BatchingRenderer.
+_current_engine`): the adaptive controller's current choice when one is
+wired (``renderer.jpeg-engine: auto``, ``utils.adaptive``), else the
+static engine; ``ops.jpegenc.render_batch_to_jpeg`` falls back to the
+sparse engine for a group with tiles that are not grid-exact.
+
 The mask lane (:meth:`BatchingRenderer.rasterize_mask`): a packed mask
 queues under ``("mask", width, height, flip_h, flip_v)``, so same-shape,
 same-flip masks group into one K8a launch on a lane's stream
@@ -174,7 +181,12 @@ class BatchingRenderer:
     def __init__(self, device: Union[str, torch.device] = "cuda",
                  max_batch: int = 8, linger_ms: float = 2.0,
                  buckets=DEFAULT_BUCKETS, pipeline_depth: int = 4,
-                 device_lanes: int = 2):
+                 device_lanes: int = 2, jpeg_engine: str = "sparse",
+                 engine_controller=None):
+        if jpeg_engine not in ("sparse", "huffman"):
+            raise ValueError(
+                f"batched jpeg engine must be 'sparse' or 'huffman', "
+                f"got {jpeg_engine!r}")
         if pipeline_depth < 1:
             raise ValueError("pipeline_depth must be >= 1")
         if device_lanes < 1:
@@ -185,6 +197,10 @@ class BatchingRenderer:
         self.pipeline_depth = pipeline_depth
         self.buckets = tuple(buckets)
         self.device_lanes = device_lanes
+        self.jpeg_engine = jpeg_engine
+        # Live engine selection (utils.adaptive.AdaptiveEngine); None: the
+        # static jpeg_engine.
+        self.engine_controller = engine_controller
         self._lanes: "queue.Queue[Optional[torch.cuda.Stream]]" = \
             queue.Queue()
         for _ in range(device_lanes):
@@ -653,6 +669,13 @@ class BatchingRenderer:
                 pass                       # the loop is closed
         return on_tile
 
+    def _current_engine(self) -> str:
+        """This group's wire engine: the adaptive controller's when one is
+        wired, else the static choice."""
+        if self.engine_controller is not None:
+            return self.engine_controller.current()
+        return self.jpeg_engine
+
     def _render_group_jpeg(self, group: List[_Pending]) -> List[bytes]:
         REGISTRY.record("batcher.groupTiles", float(len(group)))
         self._inject_faults()
@@ -662,7 +685,8 @@ class BatchingRenderer:
             jpegs = render_batch_to_jpeg(
                 raw, *self._settings(group), quality=group[0].quality,
                 dims=[(p.w, p.h) for p in group],
-                on_tile=self._early_settle_cb(group))
+                on_tile=self._early_settle_cb(group),
+                engine=self._current_engine())
         self._count_batch(len(group))
         return jpegs
 

@@ -35,26 +35,29 @@ served settings the same values and the same validation:
   /pyramid/{jobId}`` answer 404, as in the JAX app), ``chunk``,
   ``min-level-size`` and ``compressor`` of the background pyramid job
   (``server.jobs``); ``defer-poll-s`` is held to its JAX default, since the
-  port has no pressure governor to park a job behind.
+  port has no pressure governor to park a job behind;
+* the byte caches: ``image-region-cache``, ``pixels-metadata-cache`` and
+  ``shape-mask-cache`` (``enabled``), and ``redis-cache.uri`` (the shared
+  tier of the three and of the canRead memo), into
+  ``services.cache.CacheConfig`` as the JAX loader reads them;
+* ``renderer.jpeg-engine``: ``sparse``, ``huffman`` or ``auto``; the
+  ``bitpack`` engine (the JAX direct renderer's, refused there in the
+  batched posture) is refused by name.
 
 One default differs on purpose: ``raw-cache.digest-dedup`` is off unless
 the file sets it.  The dedup cost a cold GET 19-20 ms on the H100 and saved
-no copy (PERF.md, ROADMAP Queue 1 item 13).
+no copy (PERF.md, ROADMAP Queue 1 item 9).
 
 Everything else is read and checked against the JAX default.  A section
 that is switched off (``enabled: false``) is inert.  A boolean set from
 ``true`` to ``false`` switches off a feature the port does not have, which
 is what the port does.  Any other value away from the JAX default fails
 the load with a ``ValueError`` that names the setting and says the port
-does not serve it yet.  The one exception is the byte caches
-(``image-region-cache``, ``pixels-metadata-cache``, ``shape-mask-cache``),
-which ``conf/config.example.yaml`` switches on: a byte-cache hit returns
-the bytes a render returns, so the port answers every request with the
-same status and body without them, at a render's cost.  They load, are
-listed in ``AppConfig.unserved`` and logged as such at startup (ROADMAP
-Queue 1 item 3).  Settings the JAX package turns on by default and the
-port does not have (``wire.streaming``, the sentinel, ...) wait in ROADMAP
-Queue 1.
+does not serve it yet.  ``AppConfig.unserved`` would name a section that
+loads but is not served, with a warning at startup; since the byte caches
+are served, no section is.  Settings the JAX package turns on by default
+and the port does not have (``wire.streaming``, the sentinel, ...) wait in
+ROADMAP Queue 1.
 """
 
 from __future__ import annotations
@@ -62,6 +65,7 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import Optional, Tuple
 
+from ..services.cache import CacheConfig
 from ..utils.faultinject import FaultInjectionConfig
 from .httpcache import EPOCH_RE
 
@@ -265,7 +269,6 @@ _UNPORTED = {
         "throughput-floor-ratio": 0.5, "bundle-dir": "",
         "max-bundles": 8, "profile-ms": 200, "records-dir": ".",
     },
-    "redis-cache": {"uri": None},
 }
 
 # The unported keys of the served sections, with their JAX defaults.
@@ -292,10 +295,6 @@ _UNPORTED_KEYS = {
     "session-store": {},
     "metadata-service": {},
 }
-
-# Byte caches: loaded and listed in AppConfig.unserved (module docstring).
-_BYTE_CACHES = ("image-region-cache", "pixels-metadata-cache",
-                "shape-mask-cache")
 
 
 def _same(value, default) -> bool:
@@ -366,7 +365,9 @@ class AppConfig:
     workloads: WorkloadsConfig = field(default_factory=WorkloadsConfig)
     pyramid: PyramidConfig = field(default_factory=PyramidConfig)
     sessions: SessionsConfig = field(default_factory=SessionsConfig)
-    # Sections switched on that the port loads but does not serve.
+    caches: CacheConfig = field(default_factory=CacheConfig)
+    # Sections switched on that the port loads but does not serve (none
+    # today).
     unserved: Tuple[str, ...] = ()
 
     @classmethod
@@ -422,11 +423,7 @@ class AppConfig:
         if store.get("required") is not None:
             cfg.session_store_required = bool(store["required"])
         cfg._metadata_service(_block(raw, "metadata-service"))
-        _check("redis-cache", _block(raw, "redis-cache"),
-               _UNPORTED["redis-cache"])
-        cfg.unserved = tuple(
-            name for name in _BYTE_CACHES
-            if _block(raw, name).get("enabled", False))
+        cfg._caches(raw)
         cfg._batcher(_block(raw, "batcher"))
         sf = raw.get("single-flight")
         # An empty section (its children commented out) parses as None
@@ -446,8 +443,6 @@ class AppConfig:
             prefetch=bool(rc.get("prefetch", cfg.raw_cache.prefetch)))
         cfg._sessions(_block(raw, "sessions"))
         for name, defaults in _UNPORTED.items():
-            if name == "redis-cache":
-                continue
             block = _block(raw, name)
             if "enabled" in defaults and block.get("enabled") is False:
                 continue                 # switched off: inert
@@ -596,6 +591,21 @@ class AppConfig:
         if self.workloads.animation_max_frames < 1:
             raise ValueError("workloads.animation-max-frames must be >= 1")
 
+    def _caches(self, raw: dict) -> None:
+        redis = _block(raw, "redis-cache")
+        _check("redis-cache", redis, {}, served=("uri",))
+        flags = {}
+        for name in ("image-region-cache", "pixels-metadata-cache",
+                     "shape-mask-cache"):
+            block = _block(raw, name)
+            _check(name, block, {}, served=("enabled",))
+            flags[name] = bool(block.get("enabled", False))
+        self.caches = CacheConfig(
+            redis_uri=redis.get("uri"),
+            image_region=flags["image-region-cache"],
+            pixels_metadata=flags["pixels-metadata-cache"],
+            shape_mask=flags["shape-mask-cache"])
+
     def _renderer(self, rd: dict) -> None:
         _check("renderer", rd, _UNPORTED_KEYS["renderer"],
                served=("cpu-fallback-max-px", "jpeg-engine"))
@@ -604,8 +614,12 @@ class AppConfig:
             cpu_fallback_max_px=int(rd.get("cpu-fallback-max-px",
                                            d.cpu_fallback_max_px)),
             jpeg_engine=str(rd.get("jpeg-engine", d.jpeg_engine)))
-        if self.renderer.jpeg_engine != "sparse":
-            raise _refuse("renderer.jpeg-engine", self.renderer.jpeg_engine)
+        engine = self.renderer.jpeg_engine
+        if engine == "bitpack":
+            raise _refuse("renderer.jpeg-engine", engine)
+        if engine not in ("sparse", "huffman", "auto"):
+            raise ValueError(f"renderer.jpeg-engine must be 'sparse', "
+                             f"'huffman' or 'auto', got {engine!r}")
 
     def _pyramid(self, py: dict) -> None:
         _check("pyramid", py, _UNPORTED_KEYS["pyramid"],

@@ -26,6 +26,7 @@ from .region import RegionDef
 # Exact strings used by the reference for cache-key derivation.
 _IMAGE_CTX_CLASS = "com.glencoesoftware.omero.ms.image.region.ImageRegionCtx"
 _MASK_CLASS = "ome.model.roi.Mask"
+_PIXELS_CLASS = "ome.model.core.Pixels"
 
 
 def _require(params: Mapping[str, str], key: str) -> str:
@@ -217,6 +218,12 @@ class ImageRegionCtx:
         for key in sorted(set(params.keys())):
             pieces.append(f":{key}={params[key]}")
         return guava_siphash24_hex("".join(pieces))
+
+    @staticmethod
+    def pixels_metadata_cache_key(image_id: int) -> str:
+        """The pixels-metadata cache key of an image
+        (``ImageRegionRequestHandler.java:317-318``)."""
+        return f"{_PIXELS_CLASS}:Image:{image_id}"
 
 
 @dataclass

@@ -9,19 +9,20 @@ The analogue of ``ImageRegionRequestHandler.java`` (metadata fetch
 renderer: the batching renderer (``server.batcher``) in the default app,
 or the direct :class:`Renderer`.  The image pipeline, in order:
 
-  ACL (per caller) -> single-flight (concurrent identical requests share
-  one run) -> z/t/resolution bounds -> region -> settings
-  (``update_settings``, restricted to the active channels) -> raw planes
-  (the device raw cache on the event loop; on a miss, a read into a pinned
-  buffer and one copy to the card in a worker thread) -> render on the
-  device, flips included -> encode.
+  image-region cache -> ACL (per caller) -> single-flight (concurrent
+  identical requests share one run) -> z/t/resolution bounds -> region ->
+  settings (``update_settings``, restricted to the active channels) -> raw
+  planes (the device raw cache on the event loop; on a miss, a read into a
+  pinned buffer and one copy to the card in a worker thread) -> render on
+  the device, flips included -> encode -> the cache's write-back.
 
 ``format=jpeg`` follows the JAX handler's two routes.  A region above
 ``ImageRegionServices.jpeg_host_max_px`` pixels takes the device route,
-``render_jpeg``: render, JPEG front end and sparse wire on the card, the
-native entropy coder on the host.  A region at or below it is rendered on
-the card and its RGBA encoded with ``codecs.encode_rgba`` (PIL), the bytes
-of the JAX handler's tiny-region path.  Both renderers take the flips: the
+``render_jpeg``: render, JPEG front end and the renderer's wire engine on
+the card (the sparse wire and the native entropy coder on the host, or the
+Huffman stream, which the host frames).  A region at or below it is
+rendered on the card and its RGBA encoded with ``codecs.encode_rgba``
+(PIL), the bytes of the JAX handler's tiny-region path.  Both renderers take the flips: the
 batcher mirrors each tile's raw before padding it to its bucket (as the
 JAX handler folds its flips into the raw), the direct renderer folds them
 into K3's reads or flips the packed tile.
@@ -73,12 +74,22 @@ JAX handler; like the JAX handler it skips tiles of at most
 ``jpeg_host_max_px`` pixels (the JAX package renders those on the host and
 never reads its raw cache for them).
 
-Not here yet: the byte caches (the shape-mask tier included).
+The byte caches (``services.cache``, the JAX handler's flow): a tile GET
+first asks the image-region cache under the request's cache key, before
+admission, single-flight or any render; a hit still runs the caller's ACL
+(through the memo) and records a ``cache.hit`` span, and a miss renders
+and writes its bytes back.  The pixels description comes through the
+pixels-metadata cache (:meth:`ImageRegionHandler._get_pixels`; an entry
+that does not parse is read again from the service), and a mask with an
+explicit colour through the shape-mask cache.  Each cache is off unless
+its config block switches it on (``Caches.disabled`` is the services'
+default).
 """
 
 from __future__ import annotations
 
 import asyncio
+import json
 import time
 from dataclasses import dataclass, field
 from typing import List, Optional, Sequence, Tuple, Union
@@ -99,6 +110,7 @@ from ..ops.maskops import (overlay_tensor, pack_mask_payload,
 from ..ops.render import (batched_settings, pack_settings,
                           render_tile_batch_packed, resolve_device,
                           settings_to_tensors, unpack_rgba)
+from ..services.cache import Caches
 from ..services.metadata import CanReadMemo
 from ..utils import telemetry, transient
 from ..utils.color import split_html_color
@@ -129,8 +141,14 @@ class Renderer:
     ``server.app.build_handler(batcher=False)``, which has no raw cache.
     """
 
-    def __init__(self, device: Union[str, torch.device] = "cuda"):
+    def __init__(self, device: Union[str, torch.device] = "cuda",
+                 jpeg_engine: str = "sparse"):
+        if jpeg_engine not in ("sparse", "huffman"):
+            raise ValueError(f"jpeg engine must be 'sparse' or 'huffman' "
+                             f"(bitpack is not ported), got "
+                             f"{jpeg_engine!r}")
         self.device = resolve_device(device)
+        self.jpeg_engine = jpeg_engine
 
     async def render(self, raw: np.ndarray, settings: dict,
                      flip_horizontal: bool = False,
@@ -173,8 +191,9 @@ class Renderer:
         """The device JPEG route for one tile: raw to the device, the
         render (K1/K2, B=1), the coefficient front end over the tile's
         ceil-16 frame with the flips and the edge replication folded into
-        its reads (K3), the sparse wire and its compaction (K4a, K4b);
-        the compacted wire's used bytes back; the native entropy coder."""
+        its reads (K3), the renderer's wire and its compaction (K4a and
+        K4b, or K5 and K4b); the compacted wire's used bytes back; the
+        native entropy coder or the Huffman stream's framing."""
         raw_t = self._on_device(raw)
         tensors = settings_to_tensors(settings, self.device)
         packed = render_tile_batch_packed(raw_t, *batched_settings(tensors))
@@ -183,7 +202,8 @@ class Renderer:
         y, cb, cr = jpegenc.packed_to_jpeg_coefficients(
             packed, quality, H, W, flip_horizontal, flip_vertical)
         return jpegenc.coefficients_to_jpegs(
-            y, cb, cr, H, W, quality, [(width, height)])[0]
+            y, cb, cr, H, W, quality, [(width, height)],
+            engine=self.jpeg_engine)[0]
 
     async def close(self) -> None:
         """Nothing to release (the batcher's counterpart stops its
@@ -211,6 +231,9 @@ class ImageRegionServices:
     admission: object = None          # admission.AdmissionController
     prefetcher: object = None         # services.prefetch.TilePrefetcher
     can_read_memo: CanReadMemo = field(default_factory=CanReadMemo)
+    # The byte caches (services.cache.Caches); disabled stacks unless the
+    # app builds them from its config.
+    caches: Caches = field(default_factory=Caches.disabled)
 
 
 async def check_can_read(services: ImageRegionServices, object_type: str,
@@ -251,13 +274,24 @@ class ImageRegionHandler:
     async def render_image_region(self, ctx: ImageRegionCtx) -> bytes:
         """``render_image_region`` / ``render_image``: the encoded bytes.
 
-        ACL runs per caller; concurrent identical requests then share one
-        pipeline run (single-flight).  Without single-flight the await is
-        still bounded by the request's deadline: a group whose members'
-        budgets died after it was popped may still be running, and the
-        caller gets its ``DeadlineExceededError`` at budget end.
+        The image-region cache first (``renderImageRegion``,
+        ``:159-249``): a hit answers after the caller's ACL, with no
+        admission and no render.  On a miss the ACL runs per caller;
+        concurrent identical requests then share one pipeline run
+        (single-flight), whose bytes are written back to the cache.
+        Without single-flight the await is still bounded by the request's
+        deadline: a group whose members' budgets died after it was popped
+        may still be running, and the caller gets its
+        ``DeadlineExceededError`` at budget end.
         """
         t0 = time.perf_counter()
+        cached = await self.s.caches.image_region.get(ctx.cache_key)
+        if cached is not None:
+            if await self.can_read(ctx.image_id, ctx.omero_session_key):
+                telemetry.record_span("cache.hit", t0,
+                                      (time.perf_counter() - t0) * 1000.0)
+                return cached
+            raise NotFoundError(f"Cannot find Image:{ctx.image_id}")
         pixels = await self._authorize(ctx)
         admission = self.s.admission
         # The session's fairness token, per caller and before coalescing.
@@ -274,6 +308,7 @@ class ImageRegionHandler:
             finally:
                 if admission is not None:
                     admission.release(t_admit, completed=completed)
+            await self.s.caches.image_region.set(ctx.cache_key, data)
             return data
 
         try:
@@ -316,10 +351,27 @@ class ImageRegionHandler:
         raw = await asyncio.to_thread(self._read_planes, plan, ctx)
         return raw, plan.settings
 
-    async def _authorize(self, ctx: ImageRegionCtx) -> Pixels:
+    async def _get_pixels(self, ctx: ImageRegionCtx) -> Optional[Pixels]:
+        """The pixels description, the pixels-metadata cache in front of
+        the service (``ImageRegionRequestHandler.java:316-427``); an entry
+        that does not parse falls through to the service."""
+        key = ImageRegionCtx.pixels_metadata_cache_key(ctx.image_id)
+        cached = await self.s.caches.pixels_metadata.get(key)
+        if cached is not None:
+            try:
+                return Pixels.from_json(json.loads(cached))
+            except (ValueError, KeyError):
+                pass
         with stopwatch("get_pixels_description"):
             pixels = await self.s.metadata.get_pixels_description(
                 ctx.image_id, ctx.omero_session_key)
+        if pixels is not None:
+            await self.s.caches.pixels_metadata.set(
+                key, json.dumps(pixels.to_json()).encode())
+        return pixels
+
+    async def _authorize(self, ctx: ImageRegionCtx) -> Pixels:
+        pixels = await self._get_pixels(ctx)
         if pixels is None or not await self.can_read(
                 ctx.image_id, ctx.omero_session_key):
             raise NotFoundError(f"Cannot find Image:{ctx.image_id}")
@@ -543,10 +595,9 @@ class ShapeMaskHandler:
     masks group into one K8a launch.  Its grid equals the host
     rasterizer's bit for bit and the PNG tail is shared, so the bytes are
     the same either way.  The host rasterizer serves a renderer without a
-    lane (the direct reference) and ``device_masks`` off.  Left out: the
-    JAX handler's shape-mask byte cache, off by default there
-    (``AppConfig.unserved`` names ``shape-mask-cache`` when a config
-    switches it on)."""
+    lane (the direct reference) and ``device_masks`` off.  The shape-mask
+    cache is asked first (:meth:`cached_shape_mask`), and a PNG rendered
+    under an explicit colour is written back, as in the reference."""
 
     def __init__(self, services: ImageRegionServices,
                  device_masks: bool = True):
@@ -558,7 +609,24 @@ class ShapeMaskHandler:
         """The read ACL of a mask for a caller (memoized)."""
         return await check_can_read(self.s, "Mask", shape_id, session_key)
 
+    async def cached_shape_mask(self, ctx: ShapeMaskCtx) -> Optional[bytes]:
+        """The shape-mask cache's bytes when the caller may read the mask
+        (a ``cache.hit`` span), else None: a miss, or a hit the caller may
+        not read (the render path then answers its 404).  The app asks
+        this before the session's fairness token, as the JAX app does."""
+        t0 = time.perf_counter()
+        cached = await self.s.caches.shape_mask.get(ctx.cache_key())
+        if cached is None or not await self.can_read(
+                ctx.shape_id, ctx.omero_session_key):
+            return None
+        telemetry.record_span("cache.hit", t0,
+                              (time.perf_counter() - t0) * 1000.0)
+        return cached
+
     async def render_shape_mask(self, ctx: ShapeMaskCtx) -> bytes:
+        cached = await self.cached_shape_mask(ctx)
+        if cached is not None:
+            return cached
         if not await self.can_read(ctx.shape_id, ctx.omero_session_key):
             raise NotFoundError(f"Cannot find Shape:{ctx.shape_id}")
         with stopwatch("getMask"):
@@ -584,6 +652,11 @@ class ShapeMaskHandler:
                 png = await asyncio.to_thread(self._render, mask, color,
                                               ctx)
                 telemetry.WORKLOADS.count_request("mask_host")
+        # Cached only under an explicit colour, as in the reference: a
+        # cached default-colour PNG would hide a later change of the stored
+        # fill (``ShapeMaskVerticle.java:140-148``).
+        if ctx.color is not None:
+            await self.s.caches.shape_mask.set(ctx.cache_key(), png)
         return png
 
     @staticmethod

@@ -301,10 +301,10 @@ class CanReadMemo:
     An in-process TTL dict, and an optional ``shared`` tier (an async
     ``get`` / ``set`` or ``set_ttl`` cache shared by the service's
     instances, b"1"/b"0" values) that plays the distributed map: a
-    decision one instance memoized is seen by the others.  The app builds
-    it with ``shared=None``; the shared tier rides the byte caches' Redis
-    client, which the port does not have yet.  A shared-tier failure is a
-    miss, never a failed request."""
+    decision one instance memoized is seen by the others.  The app gives it
+    the byte caches' Redis client (``services.cache.Caches.redis``), None
+    without ``redis-cache.uri`` or the ``redis`` package.  A shared-tier
+    failure is a miss, never a failed request."""
 
     def __init__(self, ttl_seconds: float = 60.0, shared=None):
         self.ttl = ttl_seconds

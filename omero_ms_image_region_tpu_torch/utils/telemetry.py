@@ -611,6 +611,9 @@ METRIC_TYPES: Dict[str, str] = {
     "imageregion_span_ms": "histogram",
     "imageregion_request_duration_ms": "histogram",
     "imageregion_requests_total": "counter",
+    "imageregion_cache_hits": "counter",
+    "imageregion_cache_misses": "counter",
+    "imageregion_cache_evictions": "counter",
     "imageregion_rawcache_hits": "counter",
     "imageregion_rawcache_misses": "counter",
     "imageregion_rawcache_evictions": "counter",
@@ -750,9 +753,25 @@ def session_metric_lines() -> List[str]:
 
 
 def device_metric_lines(services) -> List[str]:
-    """The raw cache, single-flight and batcher gauges of a handler's
-    services (duck-typed: ``server.handler.ImageRegionServices``)."""
+    """The byte caches, raw cache, single-flight and batcher gauges of a
+    handler's services (duck-typed: ``server.handler
+    .ImageRegionServices``).  Each byte-cache tier with counters gives
+    ``imageregion_cache_{hits,misses}`` (and ``_evictions`` where the tier
+    counts them) under ``cache`` and ``tier``, as the JAX package
+    exports them, whether the cache is enabled or not."""
     lines: List[str] = []
+    for name in ("image_region", "pixels_metadata", "shape_mask"):
+        stack = getattr(getattr(services, "caches", None), name, None)
+        for i, tier in enumerate(getattr(stack, "tiers", ())):
+            hits = getattr(tier, "hits", None)
+            if hits is None:
+                continue
+            lb = f'{{cache="{name}",tier="{i}"}}'
+            lines += [f"imageregion_cache_hits{lb} {hits}",
+                      f"imageregion_cache_misses{lb} {tier.misses}"]
+            evictions = getattr(tier, "evictions", None)
+            if evictions is not None:
+                lines.append(f"imageregion_cache_evictions{lb} {evictions}")
     cache = getattr(services, "raw_cache", None)
     if cache is not None:
         lines += [f"imageregion_rawcache_hits {cache.hits}",

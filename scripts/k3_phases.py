@@ -221,7 +221,8 @@ def main(argv) -> int:
             def launch_k4b():
                 err = lib.compact_rows_launch(
                     wire.data_ptr(), B, wire.shape[1], B, cap, nb,
-                    comp.data_ptr(), torch.cuda.current_stream().cuda_stream)
+                    KJ.SPARSE_ROWS, 0, comp.data_ptr(),
+                    torch.cuda.current_stream().cuda_stream)
                 if err:
                     raise RuntimeError(f"launch failed: CUDA error {err}")
 

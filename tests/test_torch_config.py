@@ -89,10 +89,13 @@ def test_served_settings_match_jax(source):
     if source == "example":
         port, jax = AppConfig.from_yaml(EXAMPLE), JaxConfig.from_yaml(EXAMPLE)
         # The example switches on the three byte caches, which the port
-        # loads, lists and serves without.
-        assert port.unserved == ("image-region-cache",
-                                 "pixels-metadata-cache",
-                                 "shape-mask-cache")
+        # serves: nothing is left unserved, and the cache settings (among
+        # all the others below) equal the JAX loader's.
+        assert port.unserved == ()
+        assert (dataclasses.asdict(port.caches)
+                == dataclasses.asdict(jax.caches))
+        assert (port.caches.image_region and port.caches.pixels_metadata
+                and port.caches.shape_mask)
     else:
         raw = CUSTOM if source == "custom" else OMERO
         port, jax = AppConfig.from_dict(raw), JaxConfig.from_dict(raw)
@@ -129,7 +132,10 @@ def test_unported_defaults_are_the_jax_defaults():
      "sessions.enabled"),
     ({"pressure": {"hbm-high": 0.95}}, "pressure.hbm-high"),
     ({"sidecar": {"role": "split", "socket": "/tmp/s"}}, "sidecar."),
-    ({"renderer": {"jpeg-engine": "huffman"}}, "renderer.jpeg-engine"),
+    # bitpack is the JAX direct renderer's engine (K6, not ported); the
+    # JAX loader refuses it in the batched posture too.
+    ({"renderer": {"jpeg-engine": "bitpack"}, "batcher": {"enabled": False}},
+     "renderer.jpeg-engine"),
     ({"renderer": {"prewarm": ["4x1024"]}}, "renderer.prewarm"),
     ({"batcher": {"target-inflight": 2}}, "batcher.target-inflight"),
     ({"fault-tolerance": {"degraded-mode": True}},

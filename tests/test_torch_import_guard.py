@@ -50,7 +50,8 @@ def test_port_imports_without_jax_or_the_jax_package():
                 "io.ngff", "io.memory", "io.tiffwrite", "server.jobs",
                 "ingest", "services.sessions", "services.db_metadata",
                 "services.viewport", "services.prefetch", "io.romio",
-                "io.jp2k"):
+                "io.jp2k", "services.cache", "jfif", "utils.linkprobe",
+                "utils.adaptive"):
         assert f"omero_ms_image_region_tpu_torch.{mod}" in doc["imported"]
     assert doc["leaked"] == []
     assert doc["jax"] == []
