@@ -19,6 +19,11 @@ costs 13-25 ms, against well under 1 ms for the pinned copy it could
 save, and no measured traffic yet repeats content under distinct keys
 (PERF.md).
 
+Cost ledger (``utils.telemetry``): a miss's copy adds its host bytes to
+the request's ``staged_bytes``, and a digest alias the bytes it saved to
+``staged_bytes_skipped``, as in the JAX cache (no-op outside a request,
+as for the prefetcher's loads).
+
 Streams: a miss is copied on the cache's own CUDA stream and waited for
 before the entry is published, so any stream may read an entry.  A reader
 on another stream marks it with ``io.staging.use_on_current_stream``
@@ -35,6 +40,7 @@ from typing import Callable, Dict, Hashable, Optional, Set, Tuple, Union
 import numpy as np
 import torch
 
+from ..utils import telemetry
 from .staging import HostPlanes, stage
 
 
@@ -173,10 +179,14 @@ class DeviceRawCache:
                     self.plane_hits += 1
                 else:
                     self.plane_misses += 1
+            if arr is not None:
+                # The copy this request did not pay.
+                telemetry.add_cost("staged_bytes_skipped", host.nbytes)
         else:
             digest = None
         if arr is None:
             arr = self._upload(upload)
+            telemetry.add_cost("staged_bytes", host.nbytes)
         return self._insert(key, arr, digest)
 
     def _insert(self, key: Hashable, arr: torch.Tensor,

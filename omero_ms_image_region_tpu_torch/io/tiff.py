@@ -92,6 +92,11 @@ _SAMPLE_DTYPES = {
     (32, 3): "f4", (64, 3): "f8",
 }
 
+# The same domain by dtype name: the storage dtypes a configured spec may
+# name (server.prewarm).
+STORAGE_DTYPE_NAMES = tuple(sorted(
+    {np.dtype(v).name for v in _SAMPLE_DTYPES.values()}))
+
 @dataclass
 class Ifd:
     """One decoded image file directory."""

@@ -72,17 +72,23 @@
 //       dx)) with one shared DC and one AC table given as runtime data
 //       (the fixed spec or a tuned one, no rebuild): each block's DC
 //       difference against its component's predecessor, each nonzero AC
-//       coefficient's run/size symbol with up to three ZRL codes folded
-//       into one field before it, the EOB, every field MSB first from bit
+//       coefficient's ZRL codes (up to three) and run/size code with its
+//       amplitude, the EOB, every field MSB first from bit
 //       0 of word 0 (field at bit rb of word w sits at 32 - rb - len, the
-//       u32 values of :1169-1185, which _entropy_bytes byte-swaps).  A
-//       memset and three launches: a warp per block in scan order finds
-//       its nonzero mask by ballot, each lane two zigzag positions, their
-//       runs from the mask, their fields and the block's bit length; one
-//       block per tile scans the bit lengths into block starts and writes
-//       the header; the warps run again and OR each field into the zeroed
-//       words (fields are disjoint; only words where fields meet are
-//       shared).  Words at or past cap_words are dropped, never written.
+//       u32 values of :1169-1185, which _entropy_bytes byte-swaps).  One
+//       memset (the rows and a status word a chunk) and one launch: a
+//       block of 128 threads takes a chunk of 128 coefficient blocks in
+//       scan order (1536 chunks for B=8 1024^2 tiles, 192 for B=1), stages
+//       them in shared memory with 16-byte loads, and each thread codes
+//       its block once, walking the set bits of its nonzero mask, into
+//       its own words in shared memory; a scan of the block lengths in
+//       the chunk and a decoupled lookback over the tile's earlier chunks
+//       (as K4a does) give every block its stream bit, and the thread of
+//       the block where a word begins gathers the word from the blocks'
+//       words and stores it, coalesced; only the chunk's first and last
+//       words, which it can share with its neighbours, go through a
+//       global atomicOr.  Index math is 32-bit (a fast division a CTA and
+//       a load).  Words at or past cap_words are dropped, never written.
 //       On a row within its budgets (total <= cap, bits <= 32 cap_words)
 //       the header and words equal the JAX function's.  On a row over
 //       cap entries JAX drops the entries past cap, so its total bits
@@ -90,8 +96,9 @@
 //       the overflow decision agree, and K4b keeps only the 8-byte header
 //       of such a row, which the host codes from dense coefficients.
 //       Bound: bytes, the coefficients read and the used words written;
-//       a simple design (each block's symbols computed twice, an atomic OR
-//       a field) that a later redesign can fuse into one pass.
+//       a thread's work is its block's nonzeros (about five a block at
+//       the flagship's q 85), so the integer work per nonzero and the
+//       load latency, not the bytes, set the time.
 //
 // Numerics of K3 follow one fixed order: the order in which XLA's CPU
 // backend evaluates the JAX function, found by matching its float32 results
@@ -956,31 +963,24 @@ compact_rows_kernel(const uint8_t* __restrict__ wire, int B, long long width,
   }
 }
 
-// K5.  The Huffman wire of one tile, in three launches after a memset of
-// the output: huffman_block_kernel<false> (one warp a coefficient block in
-// scan order: its bit length and nonzero count), huffman_scan_kernel (one
-// block a tile: the blocks' bit starts, the header) and
-// huffman_block_kernel<true> (the same warp per block again, each field
-// OR-ed into the zeroed words).
-constexpr int kHuffThreads = 256;
+// K5.  One tile's Huffman wire in one pass: the rows and the status words
+// are zeroed by one memset, then CTA x takes chunk c = x % parts of tile
+// b = x / parts: the kHuffBlocks coefficient blocks from c * kHuffBlocks
+// in scan order (fewer in a tile's ragged last chunk), one thread a block.
+constexpr int kHuffThreads = 128;
+constexpr int kHuffBlocks = kHuffThreads;
 constexpr int kHuffWarps = kHuffThreads / 32;
-constexpr int kScanThreads = 1024;
+// A staged block: 64 i16 and 8 of pad (144 bytes: the 16-byte rows of
+// eight neighbouring blocks fall on distinct banks).
+constexpr int kHuffStride = 72;
+// The most bits a block codes: 64 fields of at most 16 + 11 bits (every
+// coefficient nonzero: no ZRL and no EOB), 54 words.
+constexpr int kHuffBlockWords = 64 * 27 / 32;
 // The spec block, i32[1024] on the card (ops/jpegenc.py spec_tensor).
 constexpr int kSpecDcCode = 0;
 constexpr int kSpecDcLen = 256;
 constexpr int kSpecAcCode = 512;
 constexpr int kSpecAcLen = 768;
-
-// Bits 0..31 of x moved to the even bits 0..62.
-__device__ __forceinline__ unsigned long long spread_even(unsigned x) {
-  unsigned long long v = x;
-  v = (v | (v << 16)) & 0x0000FFFF0000FFFFull;
-  v = (v | (v << 8)) & 0x00FF00FF00FF00FFull;
-  v = (v | (v << 4)) & 0x0F0F0F0F0F0F0F0Full;
-  v = (v | (v << 2)) & 0x3333333333333333ull;
-  v = (v | (v << 1)) & 0x5555555555555555ull;
-  return v;
-}
 
 // JPEG magnitude category, held to 11 as _category (:822) holds it.
 __device__ __forceinline__ int huff_category(int v) {
@@ -992,197 +992,300 @@ __device__ __forceinline__ int huff_category(int v) {
 // Amplitude bits (_amplitude, :828): the value, or for a negative one its
 // ones' complement in s bits.
 __device__ __forceinline__ uint32_t huff_amplitude(int v, int s) {
-  return static_cast<uint32_t>(v >= 0 ? v : v + (1 << s) - 1);
+  return static_cast<uint32_t>(v >= 0 ? v : v + (1 << s) - 1) &
+         ((1u << s) - 1u);
 }
 
 // The coefficient block at slot `slot` of MCU m of tile b: Y raster block
-// (2 my + dy, 2 mx + dx) for slots 0-3, then Cb, then Cr.
-__device__ __forceinline__ const int16_t* scan_block(
-    const int16_t* y, const int16_t* cb, const int16_t* cr, int b,
-    long long m, int slot, int w16, long long nmcu) {
+// (2 my + dy, 2 mx + dx) for slots 0-3, then Cb, then Cr (32-bit index
+// math; the launch keeps a tile's blocks below 2^20).
+__device__ __forceinline__ const int16_t* huff_block(
+    const int16_t* y, const int16_t* cb, const int16_t* cr, int b, int m,
+    int slot, int w16, FastDiv div_w16, int nmcu) {
   if (slot < 4) {
-    const long long my = m / w16, mx = m - my * w16;
-    const long long yb =
-        (2 * my + (slot >> 1)) * (2LL * w16) + 2 * mx + (slot & 1);
+    const int my = divide_by(m, div_w16), mx = m - my * w16;
+    const int yb = (2 * my + (slot >> 1)) * (2 * w16) + 2 * mx + (slot & 1);
     return y + (static_cast<long long>(b) * 4 * nmcu + yb) * 64;
   }
   return (slot == 4 ? cb : cr) + (static_cast<long long>(b) * nmcu + m) * 64;
 }
 
-// One field of `len` bits (1..30) at stream bit `start`, MSB first, into
-// the u32 words as huffman_pack lays them out (:1169-1185): the field sits
-// at 32 - rb - len of word start / 32, and its low part spills into the
-// next word.  Fields own disjoint bits, so OR-ing into zeroed words in any
-// order gives the stream; words at or past cap_words are dropped.
-__device__ __forceinline__ void huff_deposit(uint32_t* words,
-                                             long long cap_words, int start,
-                                             int len, uint32_t val) {
-  if (len <= 0) return;
-  const long long w = start >> 5;
-  const int rb = start & 31;
-  if (w >= cap_words) return;
-  const int sh0 = 32 - rb - len;
-  atomicOr(words + w, sh0 >= 0 ? val << sh0 : val >> -sh0);
-  if (rb + len > 32 && w + 1 < cap_words)
-    atomicOr(words + w + 1, val << (64 - rb - len));
+// K5's status word: flag << 62 | nonzeros << 32 | bits, for the chunk
+// (aggregate) or the tile up to and including it (inclusive).
+__device__ __forceinline__ unsigned long long huff_status(
+    unsigned long long flag, unsigned nz, unsigned bits) {
+  return flag | (static_cast<unsigned long long>(nz) << 32) | bits;
 }
 
-// A warp per coefficient block, in scan order.  Lane l holds zigzag
-// positions 2l and 2l + 1 and their fields in stream order: the folded
-// ZRL codes and the code + amplitude of each (lane 0's first pair is the
-// DC difference), and lane 31 the EOB.  A ballot gives the block's
-// nonzero mask, from which each coefficient finds its run.
-// kDeposit false: write each block's bit length and nonzero count.  True:
-// OR every field into the tile's words from the block's bit start.
-template <bool kDeposit>
+// A thread's bit writer: fields of at most 30 bits appended MSB first to
+// its block's words in shared memory, each word stored once it is full.
+struct HuffWriter {
+  uint32_t* dst;
+  unsigned long long acc;
+  int held, bits, words;
+
+  __device__ __forceinline__ void put(uint32_t v, int len) {
+    acc = (acc << len) | (v & ((1u << len) - 1u));
+    held += len;
+    bits += len;
+    if (held >= 32) {
+      held -= 32;
+      dst[words++] = static_cast<uint32_t>(acc >> held);
+    }
+  }
+
+  __device__ __forceinline__ void flush() {
+    if (held > 0) dst[words++] = static_cast<uint32_t>(acc << (32 - held));
+  }
+};
+
+// Chunk c of tile b in four phases, each block's fields computed once:
+//  1. loads: the chunk's coefficients to shared memory in 16-byte pieces,
+//     eight neighbouring threads a block (all eight pieces of a thread in
+//     flight at once), and the spec's codes.
+//  2. fields: thread j takes block j: its nonzero mask from its staged
+//     rows, then its fields in stream order (the DC difference against
+//     its component's predecessor, which a block of the previous chunk
+//     may hold; each nonzero AC coefficient's ZRL codes and run/size code
+//     with its amplitude, walking the mask's set bits; the EOB unless
+//     position 63 is nonzero), written MSB first into its own words in
+//     shared memory.  A block scan of the bit lengths and nonzero counts
+//     gives each block's chunk-local bit start; the chunk's aggregate is
+//     published.
+//  3. lookback: warp 0 reads the tile's earlier chunks' status words, 32
+//     at a time, nearest first, until an inclusive one, and publishes the
+//     chunk's inclusive prefix: the chunk's first stream bit s0.
+//  4. output: the thread of the block that holds a word's first chunk
+//     bit gathers the word's 32 bits from that block and the next ones
+//     and stores it; words in the chunk are plain coalesced stores, and
+//     only its first and last words, which it can share with its
+//     neighbours, go through a global atomicOr.  Words at or past
+//     cap_words are dropped.  The tile's last chunk writes the header
+//     from its inclusive prefix.
 __global__ void __launch_bounds__(kHuffThreads)
-huffman_block_kernel(const int16_t* __restrict__ y,
-                     const int16_t* __restrict__ cb,
-                     const int16_t* __restrict__ cr, int B, int h16,
-                     int w16, const int32_t* __restrict__ spec,
-                     int* __restrict__ block_bits, int* __restrict__ block_nz,
-                     const int* __restrict__ block_start,
-                     uint8_t* __restrict__ out, long long width,
-                     long long cap_words) {
-  const int lane = threadIdx.x & 31;
-  const long long nmcu = static_cast<long long>(h16) * w16;
-  const long long nb = 6 * nmcu;
-  const long long blocks = nb * B;
-  const uint32_t zc = __ldg(spec + kSpecAcCode + 0xF0);
-  const int zl = __ldg(spec + kSpecAcLen + 0xF0);
-  for (long long g = static_cast<long long>(blockIdx.x) * kHuffWarps +
-                     (threadIdx.x >> 5);
-       g < blocks; g += static_cast<long long>(gridDim.x) * kHuffWarps) {
-    const int b = static_cast<int>(g / nb);
-    const long long s = g - b * nb;
-    const long long m = s / 6;
-    const int slot = static_cast<int>(s - m * 6);
-    const int16_t* blk = scan_block(y, cb, cr, b, m, slot, w16, nmcu);
-    const uint32_t pair = __ldg(reinterpret_cast<const uint32_t*>(blk) + lane);
-    const int v[2] = {static_cast<int16_t>(pair & 0xFFFFu),
-                      static_cast<int16_t>(pair >> 16)};
-    const unsigned e = __ballot_sync(0xFFFFFFFFu, v[0] != 0);
-    const unsigned o = __ballot_sync(0xFFFFFFFFu, v[1] != 0);
-    const unsigned long long nzm = spread_even(e) | (spread_even(o) << 1);
-    const unsigned long long acm = nzm & ~1ull;
-    uint32_t val[5] = {0u, 0u, 0u, 0u, 0u};
-    int len[5] = {0, 0, 0, 0, 0};
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int k = 2 * lane + j;
-      if (k == 0) {
-        // The DC difference: Y1..Y3 from the Y before them in the MCU,
-        // Y0 from the previous MCU's Y3, Cb and Cr from their own block
-        // one MCU back; 0 before the first MCU.
-        int pred = 0;
-        if (slot >= 1 && slot <= 3)
-          pred = __ldg(scan_block(y, cb, cr, b, m, slot - 1, w16, nmcu));
-        else if (m > 0)
-          pred = __ldg(scan_block(y, cb, cr, b, m - 1, slot == 0 ? 3 : slot,
-                                  w16, nmcu));
-        const int diff = v[0] - pred;
-        const int sc = huff_category(diff);
-        const uint32_t code = __ldg(spec + kSpecDcCode + sc);
-        val[1] = (code << sc) | huff_amplitude(diff, sc);
-        len[1] = __ldg(spec + kSpecDcLen + sc) + sc;
-      } else if (v[j] != 0) {
-        const unsigned long long below = acm & ((1ull << k) - 1ull);
-        const int prev = below ? 63 - __clzll(below) : 0;
-        const int run = k - prev - 1;
-        const int z = run >> 4;
-        const int sc = huff_category(v[j]);
-        const int sym = ((run & 15) << 4) | sc;
-        // Up to three ZRL codes as one field (at most 30 bits: the tuned
-        // spec keeps ZRL at 10 bits or less).
-        uint32_t zv = 0u;
-        for (int i = 0; i < z; ++i) zv = (zv << zl) | zc;
-        val[2 * j] = zv;
-        len[2 * j] = z * zl;
-        val[2 * j + 1] =
-            (static_cast<uint32_t>(__ldg(spec + kSpecAcCode + sym)) << sc) |
-            huff_amplitude(v[j], sc);
-        len[2 * j + 1] = __ldg(spec + kSpecAcLen + sym) + sc;
-      }
-    }
-    if (lane == 31 && v[1] == 0) {       // EOB: position 63 is zero
-      val[4] = static_cast<uint32_t>(__ldg(spec + kSpecAcCode));
-      len[4] = __ldg(spec + kSpecAcLen);
-    }
-    const int mine = len[0] + len[1] + len[2] + len[3] + len[4];
-    int incl = mine;
-#pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      const int t = __shfl_up_sync(0xFFFFFFFFu, incl, d);
-      if (lane >= d) incl += t;
-    }
-    if (!kDeposit) {
-      if (lane == 31) {
-        block_bits[g] = incl;
-        block_nz[g] = __popcll(nzm);
-      }
-      continue;
-    }
-    uint32_t* words = reinterpret_cast<uint32_t*>(out + b * width + 8);
-    int start = __ldg(block_start + g) + incl - mine;
-#pragma unroll
-    for (int i = 0; i < 5; ++i) {
-      huff_deposit(words, cap_words, start, len[i], val[i]);
-      start += len[i];
-    }
-  }
-}
+huffman_pack_kernel(const int16_t* __restrict__ y,
+                    const int16_t* __restrict__ cb,
+                    const int16_t* __restrict__ cr, int nmcu, int w16,
+                    FastDiv div_w16, int parts, FastDiv div_parts, int vec,
+                    const int32_t* __restrict__ spec,
+                    uint8_t* __restrict__ out, long long width,
+                    long long cap_words, unsigned long long* status) {
+  __shared__ __align__(16) int16_t s_coef[kHuffBlocks * kHuffStride];
+  __shared__ uint32_t s_bits[kHuffBlocks * kHuffBlockWords];
+  __shared__ uint32_t s_ac[256];          // ac_len << 16 | ac_code
+  __shared__ uint32_t s_dcs[12];          // dc_len << 16 | dc_code
+  __shared__ int s_len[kHuffBlocks];
+  __shared__ int s_start[kHuffBlocks];
+  __shared__ unsigned s_warp[kHuffWarps][2];
+  __shared__ unsigned s_agg[2], s_excl[2];   // {bits, nonzeros}
+  const int b = divide_by(static_cast<int>(blockIdx.x), div_parts);
+  const int c = static_cast<int>(blockIdx.x) - b * parts;
+  const int nb = 6 * nmcu;
+  const int g0 = c * kHuffBlocks;
+  const int n = min(kHuffBlocks, nb - g0);
+  const int j = threadIdx.x, lane = j & 31, wid = j >> 5;
 
-// One block a tile: the exclusive scan of its blocks' bit lengths (the bit
-// start of each block), and the header [total nonzeros i32 | total bits
-// i32].  Each thread scans a contiguous run of blocks.
-__global__ void __launch_bounds__(kScanThreads)
-huffman_scan_kernel(const int* __restrict__ block_bits,
-                    const int* __restrict__ block_nz,
-                    int* __restrict__ block_start, long long nb,
-                    uint8_t* __restrict__ out, long long width) {
-  __shared__ int warp_bits[kScanThreads / 32];
-  __shared__ int warp_nz[kScanThreads / 32];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const long long base = static_cast<long long>(blockIdx.x) * nb;
-  const long long per = (nb + kScanThreads - 1) / kScanThreads;
-  const long long lo = min(nb, threadIdx.x * per);
-  const long long hi = min(nb, lo + per);
-  int bits = 0, nz = 0;
-  for (long long i = lo; i < hi; ++i) {
-    bits += block_bits[base + i];
-    nz += block_nz[base + i];
+  // 1. Loads.
+  uint4 piece[8];
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    const int p = r * kHuffThreads + j, jj = p >> 3, part = p & 7;
+    piece[r] = make_uint4(0u, 0u, 0u, 0u);
+    if (jj < n) {
+      const int g = g0 + jj, m = g / 6;
+      const int16_t* src =
+          huff_block(y, cb, cr, b, m, g - 6 * m, w16, div_w16, nmcu) +
+          8 * part;
+      if (vec) {
+        piece[r] = __ldg(reinterpret_cast<const uint4*>(src));
+      } else {
+        uint32_t* w = &piece[r].x;
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          w[i] = static_cast<uint16_t>(__ldg(src + 2 * i)) |
+                 static_cast<uint32_t>(static_cast<uint16_t>(
+                     __ldg(src + 2 * i + 1))) << 16;
+      }
+    }
   }
-  int incl = bits, nz_sum = nz;
+  for (int i = j; i < 256; i += kHuffThreads)
+    s_ac[i] = static_cast<uint32_t>(__ldg(spec + kSpecAcLen + i)) << 16 |
+              static_cast<uint32_t>(__ldg(spec + kSpecAcCode + i));
+  if (j < 12)
+    s_dcs[j] = static_cast<uint32_t>(__ldg(spec + kSpecDcLen + j)) << 16 |
+               static_cast<uint32_t>(__ldg(spec + kSpecDcCode + j));
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    const int p = r * kHuffThreads + j, jj = p >> 3, part = p & 7;
+    if (jj < n)
+      *reinterpret_cast<uint4*>(s_coef + jj * kHuffStride + 8 * part) =
+          piece[r];
+  }
+  __syncthreads();
+
+  // 2. Fields.
+  int len = 0, nz = 0;
+  if (j < n) {
+    const int16_t* blk = s_coef + j * kHuffStride;
+    unsigned long long mask = 0ull;     // bit k: position k is nonzero
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const uint4 v = reinterpret_cast<const uint4*>(blk)[i];
+      const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int h = 0; h < 4; ++h) {
+        const unsigned two = ((w[h] & 0xFFFFu) != 0u ? 1u : 0u) |
+                             ((w[h] >> 16) != 0u ? 2u : 0u);
+        mask |= static_cast<unsigned long long>(two) << (8 * i + 2 * h);
+      }
+    }
+    nz = __popcll(mask);
+    // The DC difference: Y1..Y3 from the Y before them in the MCU, Y0
+    // from the previous MCU's Y3, Cb and Cr from their own block one MCU
+    // back; 0 before the tile's first MCU.
+    const int g = g0 + j, m = g / 6, slot = g - 6 * m;
+    int pred = 0;
+    if ((slot >= 1 && slot <= 3) || m > 0) {
+      const int pg = slot >= 1 && slot <= 3 ? g - 1 : g - (slot ? 6 : 3);
+      if (pg >= g0) {
+        pred = s_coef[(pg - g0) * kHuffStride];
+      } else {
+        const int pm = pg / 6;
+        pred = __ldg(huff_block(y, cb, cr, b, pm, pg - 6 * pm, w16,
+                                div_w16, nmcu));
+      }
+    }
+    HuffWriter out_bits{s_bits + j * kHuffBlockWords, 0ull, 0, 0, 0};
+    const int diff = blk[0] - pred;
+    int sc = huff_category(diff);
+    uint32_t code = s_dcs[sc];
+    out_bits.put(((code & 0xFFFFu) << sc) | huff_amplitude(diff, sc),
+                 static_cast<int>(code >> 16) + sc);
+    const uint32_t zrl = s_ac[0xF0];
+    unsigned long long rest = mask & ~1ull;
+    int prev = 0;
+    while (rest != 0ull) {
+      const int k = __ffsll(static_cast<long long>(rest)) - 1;
+      rest &= rest - 1ull;
+      const int v = blk[k];
+      const int run = k - prev - 1;
+      prev = k;
+      for (int z = run >> 4; z > 0; --z)
+        out_bits.put(zrl & 0xFFFFu, static_cast<int>(zrl >> 16));
+      sc = huff_category(v);
+      code = s_ac[((run & 15) << 4) | sc];
+      out_bits.put(((code & 0xFFFFu) << sc) | huff_amplitude(v, sc),
+                   static_cast<int>(code >> 16) + sc);
+    }
+    if ((mask >> 63) == 0ull) {          // EOB: position 63 is zero
+      code = s_ac[0];
+      out_bits.put(code & 0xFFFFu, static_cast<int>(code >> 16));
+    }
+    out_bits.flush();
+    len = out_bits.bits;
+  }
+  // The chunk scan: each block's chunk-local bit start.
+  int incl = len, nsum = nz;
 #pragma unroll
   for (int d = 1; d < 32; d <<= 1) {
     const int t = __shfl_up_sync(0xFFFFFFFFu, incl, d);
     if (lane >= d) incl += t;
-    nz_sum += __shfl_xor_sync(0xFFFFFFFFu, nz_sum, d);
+    nsum += __shfl_xor_sync(0xFFFFFFFFu, nsum, d);
   }
-  if (lane == 31) warp_bits[warp] = incl;
-  if (lane == 0) warp_nz[warp] = nz_sum;
+  if (lane == 31) {
+    s_warp[wid][0] = incl;
+    s_warp[wid][1] = nsum;
+  }
   __syncthreads();
-  if (warp == 0) {
-    int wb = warp_bits[lane], wn = warp_nz[lane];
-    int wi = wb;
+  unsigned agg_bits = 0u, agg_nz = 0u;
 #pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      const int t = __shfl_up_sync(0xFFFFFFFFu, wi, d);
-      if (lane >= d) wi += t;
-      wn += __shfl_xor_sync(0xFFFFFFFFu, wn, d);
+  for (int w = 0; w < kHuffWarps; ++w) {
+    if (w < wid) incl += s_warp[w][0];
+    agg_bits += s_warp[w][0];
+    agg_nz += s_warp[w][1];
+  }
+  s_len[j] = len;
+  s_start[j] = incl - len;
+  if (j == 0)
+    publish(status + static_cast<long long>(b) * parts + c,
+            huff_status(c == 0 ? kInclusive : kAggregate, agg_nz,
+                        agg_bits));
+
+  // 3. Lookback.
+  if (wid == 0) {
+    unsigned excl_bits = 0u, excl_nz = 0u;
+    if (c > 0) {
+      unsigned long long* st = status + static_cast<long long>(b) * parts;
+      for (int i = c - 1;; i -= 32) {
+        const int idx = i - lane;
+        unsigned long long s = idx >= 0 ? peek(st + idx) : kInclusive;
+        while (__any_sync(0xFFFFFFFFu, (s >> 62) == 0))
+          if ((s >> 62) == 0) s = peek(st + idx);
+        const unsigned done = __ballot_sync(0xFFFFFFFFu, (s >> 62) == 2);
+        const int stop = done ? __ffs(done) - 1 : 31;
+        unsigned bits = lane <= stop ? static_cast<unsigned>(s) : 0u;
+        unsigned nzs = lane <= stop
+                           ? static_cast<unsigned>(s >> 32) & 0x3FFFFFFFu
+                           : 0u;
+#pragma unroll
+        for (int d = 16; d > 0; d >>= 1) {
+          bits += __shfl_xor_sync(0xFFFFFFFFu, bits, d);
+          nzs += __shfl_xor_sync(0xFFFFFFFFu, nzs, d);
+        }
+        excl_bits += bits;
+        excl_nz += nzs;
+        if (done) break;
+      }
+      if (lane == 0)
+        publish(st + c, huff_status(kInclusive, excl_nz + agg_nz,
+                                    excl_bits + agg_bits));
     }
-    warp_bits[lane] = wi - wb;
-    if (lane == 31) {
-      int32_t* hdr = reinterpret_cast<int32_t*>(out + blockIdx.x * width);
-      hdr[0] = wn;
-      hdr[1] = wi;
+    if (lane == 0) {
+      s_excl[0] = excl_bits;
+      s_excl[1] = excl_nz;
     }
   }
   __syncthreads();
-  int run = warp_bits[warp] + incl - bits;
-  for (long long i = lo; i < hi; ++i) {
-    block_start[base + i] = run;
-    run += block_bits[base + i];
+
+  // 4. Output: the words whose first chunk bit lies in block j.
+  const long long s0 = s_excl[0];
+  uint8_t* row = out + static_cast<long long>(b) * width;
+  uint32_t* words = reinterpret_cast<uint32_t*>(row + 8);
+  if (j < n && len > 0) {
+    const long long lo = s0 + s_start[j], hi = lo + len;
+    const long long m_last = min((hi - 1) >> 5, cap_words - 1);
+    for (long long m = j == 0 ? s0 >> 5 : (lo + 31) >> 5; m <= m_last;
+         ++m) {
+      const int x = static_cast<int>(32 * m - s0);   // chunk-local bit
+      int filled = x < 0 ? -x : 0;
+      int i = j, o = max(x, 0) - s_start[j];
+      uint32_t v = 0u;
+      while (filled < 32 && i < n) {
+        const int take = min(32 - filled, s_len[i] - o);
+        if (take > 0) {
+          const uint32_t* src = s_bits + i * kHuffBlockWords + (o >> 5);
+          const int r = o & 31;
+          const unsigned long long two =
+              static_cast<unsigned long long>(src[0]) << 32 |
+              (r + take > 32 ? src[1] : 0u);
+          v |= static_cast<uint32_t>((two << r) >> (64 - take))
+               << (32 - filled - take);
+          filled += take;
+        }
+        ++i;
+        o = 0;
+      }
+      if (x < 0 || x + 32 > static_cast<int>(agg_bits)) {
+        if (v != 0u) atomicOr(words + m, v);
+      } else {
+        words[m] = v;
+      }
+    }
+  }
+  if (c == parts - 1 && j == 0) {
+    int32_t* hdr = reinterpret_cast<int32_t*>(row);
+    hdr[0] = static_cast<int32_t>(s_excl[1] + agg_nz);
+    hdr[1] = static_cast<int32_t>(s0 + agg_bits);
   }
 }
 
@@ -1307,46 +1410,49 @@ extern "C" int compact_rows_launch(const void* wire, int B, long long width,
 
 // K5.  y i16[B, 4*h16*w16, 64], cb / cr i16[B, h16*w16, 64] (raster block
 // order, zigzagged); spec i32[1024] (dc_code, dc_len, ac_code, ac_len, 256
-// each); scratch i32[3 * B * 6*h16*w16]; out u8[B, 8 + 4 cap_words], each
-// row [total i32 | total bits i32 | words u32[cap_words]].  A memset of
-// out and three launches.
+// each); buf holds the rows u8[B, 8 + 4 cap_words], each [total i32 |
+// total bits i32 | words u32[cap_words]], then at the next multiple of 8
+// bytes the status words u64[status_words], at least
+// huffman_pack_status_words(B, h16 * w16), one per chunk of kHuffBlocks
+// coefficient blocks.  One memset of buf, one launch.
+extern "C" long long huffman_pack_status_words(int B, long long nmcu) {
+  return static_cast<long long>(B) *
+         ((6 * nmcu + kHuffBlocks - 1) / kHuffBlocks);
+}
+
 extern "C" int huffman_pack_launch(const void* y, const void* cb,
                                    const void* cr, int B, int h16, int w16,
                                    const void* spec, long long cap_words,
-                                   void* scratch, void* out, void* stream) {
+                                   void* buf, long long status_words,
+                                   void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
   if (B < 1 || h16 < 1 || w16 < 1 || cap_words < 0)
     return cudaErrorInvalidValue;
   if (((reinterpret_cast<uintptr_t>(y) | reinterpret_cast<uintptr_t>(cb) |
-        reinterpret_cast<uintptr_t>(cr) | reinterpret_cast<uintptr_t>(out)) &
-       3u) != 0)
+        reinterpret_cast<uintptr_t>(cr)) & 1u) != 0 ||
+      (reinterpret_cast<uintptr_t>(buf) & 7u) != 0)
     return cudaErrorMisalignedAddress;
-  const long long nb = 6LL * h16 * w16;
-  const long long width = 8 + 4 * cap_words;
-  // Bit starts are i32: at most ~2000 bits a block.
-  if (nb > (1LL << 20) || static_cast<long long>(B) * nb > 0x7FFFFFFFLL)
+  const long long nmcu = static_cast<long long>(h16) * w16;
+  const long long words = huffman_pack_status_words(B, nmcu);
+  // Bit counts are u32 in the status words and i32 in the header: at most
+  // 1728 bits a block, 2^20 blocks a tile.
+  if (6 * nmcu > (1LL << 20) || words > 0x7FFFFFFFLL)
     return cudaErrorInvalidConfiguration;
-  int* bits = static_cast<int*>(scratch);
-  int* nz = bits + B * nb;
-  int* start = nz + B * nb;
-  auto* o8 = static_cast<uint8_t*>(out);
-  const auto* y16 = static_cast<const int16_t*>(y);
-  const auto* cb16 = static_cast<const int16_t*>(cb);
-  const auto* cr16 = static_cast<const int16_t*>(cr);
-  const auto* sp = static_cast<const int32_t*>(spec);
-  cudaError_t err = cudaMemsetAsync(out, 0, B * width, s);
+  if (status_words < words) return cudaErrorInvalidValue;
+  const int parts = static_cast<int>(words / B);
+  const long long width = 8 + 4 * cap_words;
+  const long long rows = (static_cast<long long>(B) * width + 7) / 8 * 8;
+  auto* o8 = static_cast<uint8_t*>(buf);
+  auto* st = reinterpret_cast<unsigned long long*>(o8 + rows);
+  const int vec = ((reinterpret_cast<uintptr_t>(y) |
+                    reinterpret_cast<uintptr_t>(cb) |
+                    reinterpret_cast<uintptr_t>(cr)) & 15u) == 0;
+  cudaError_t err = cudaMemsetAsync(buf, 0, rows + 8 * words, s);
   if (err != cudaSuccess) return err;
-  const int resident = resident_blocks(
-      reinterpret_cast<const void*>(huffman_block_kernel<true>),
-      kHuffThreads, 132);
-  const unsigned grid = grid_for(B * nb, kHuffWarps, resident);
-  huffman_block_kernel<false><<<grid, kHuffThreads, 0, s>>>(
-      y16, cb16, cr16, B, h16, w16, sp, bits, nz, start, o8, width,
-      cap_words);
-  huffman_scan_kernel<<<B, kScanThreads, 0, s>>>(bits, nz, start, nb, o8,
-                                                  width);
-  huffman_block_kernel<true><<<grid, kHuffThreads, 0, s>>>(
-      y16, cb16, cr16, B, h16, w16, sp, bits, nz, start, o8, width,
-      cap_words);
+  huffman_pack_kernel<<<static_cast<unsigned>(words), kHuffThreads, 0, s>>>(
+      static_cast<const int16_t*>(y), static_cast<const int16_t*>(cb),
+      static_cast<const int16_t*>(cr), static_cast<int>(nmcu), w16,
+      fast_div(w16), parts, fast_div(parts), vec,
+      static_cast<const int32_t*>(spec), o8, width, cap_words, st);
   return cudaGetLastError();
 }

@@ -15,7 +15,7 @@ Counterparts of the stages of the JAX package's device program
 All four live in ``csrc/jpeg.cu`` behind a plain ``extern "C"`` interface,
 built and loaded by :mod:`.build` on first use; a build failure raises.
 Each wrapper takes CUDA tensors only, checks them, allocates its outputs
-(and K4a's status words) with ``torch.empty``, launches on the current
+(and K4a's and K5's status words) with ``torch.empty``, launches on the current
 stream, raises if a launch was refused, and counts one launch in
 :data:`LAUNCHES` per call.
 The plain PyTorch versions are in ``ops/jpegenc.py``, whose dispatchers
@@ -37,6 +37,9 @@ SOURCE = build.CSRC / "jpeg.cu"
 # version does.
 NVCC_FLAGS = build.ARCH_FLAGS + ("-fmad=false",)
 ENTRY_BITS = 18
+# K5's chunk: the coefficient blocks one CTA codes (csrc/jpeg.cu
+# kHuffBlocks).
+HUFF_CHUNK_BLOCKS = 128
 
 LAUNCHES: Dict[str, int] = {"jpeg_coefficients": 0, "sparse_pack": 0,
                             "compact_rows": 0, "huffman_pack": 0}
@@ -64,7 +67,9 @@ def _configure(lib: ctypes.CDLL) -> None:
     lib.sparse_pack_status_words.argtypes = [i, ll]
     lib.sparse_pack_status_words.restype = ll
     lib.compact_rows_launch.argtypes = [p, i, ll, i, i, ll, i, ll, p, p]
-    lib.huffman_pack_launch.argtypes = [p, p, p, i, i, i, p, ll, p, p, p]
+    lib.huffman_pack_launch.argtypes = [p, p, p, i, i, i, p, ll, p, ll, p]
+    lib.huffman_pack_status_words.argtypes = [i, ll]
+    lib.huffman_pack_status_words.restype = ll
     for fn in (lib.jpeg_coefficients_launch, lib.sparse_pack_launch,
                lib.compact_rows_launch, lib.huffman_pack_launch):
         fn.restype = ctypes.c_int
@@ -209,8 +214,10 @@ def huffman_pack(y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor,
     build).  ``ops.jpegenc.huffman_pack_plain`` is the same function.
     Within the budgets (total <= cap, bits <= 32 cap_words) a row equals
     the JAX ``huffman_pack``'s; past them only its header is used (total
-    and the overflow decision agree; see ``csrc/jpeg.cu``).  A memset and
-    three launches on the current stream; scratch of 12 bytes a block."""
+    and the overflow decision agree; see ``csrc/jpeg.cu``).  One memset
+    and one launch on the current stream; the rows are a view of a buffer
+    that also holds the chunks' status words (8 bytes a chunk of
+    :data:`HUFF_CHUNK_BLOCKS` coefficient blocks)."""
     dev = _cuda("huffman_pack", y, cb, cr, spec)
     for name, t in (("y", y), ("cb", cb), ("cr", cr)):
         if t.dtype != torch.int16 or t.dim() != 3 or t.shape[2] != 64:
@@ -226,17 +233,17 @@ def huffman_pack(y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor,
         raise ValueError("spec must be i32[1024]")
     if cap_words < 0:
         raise ValueError(f"cap_words must be >= 0, got {cap_words}")
-    out = torch.empty((B, 8 + 4 * cap_words), dtype=torch.uint8, device=dev)
+    width = 8 + 4 * cap_words
     if B == 0:
-        return out
-    nb = 6 * h16 * w16
-    scratch = torch.empty((3 * B * nb,), dtype=torch.int32, device=dev)
+        return torch.empty((B, width), dtype=torch.uint8, device=dev)
     lib = library()
+    words = lib.huffman_pack_status_words(B, h16 * w16)
+    rows = (B * width + 7) // 8 * 8
+    buf = torch.empty((rows + 8 * words,), dtype=torch.uint8, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.huffman_pack_launch(
             y.data_ptr(), cb.data_ptr(), cr.data_ptr(), B, h16, w16,
-            spec.data_ptr(), cap_words, scratch.data_ptr(), out.data_ptr(),
-            stream)
+            spec.data_ptr(), cap_words, buf.data_ptr(), words, stream)
     _launched("huffman_pack", err)
-    return out
+    return buf[:B * width].view(B, width)

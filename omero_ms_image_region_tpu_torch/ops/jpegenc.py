@@ -623,6 +623,47 @@ def huffman_pack_plain(y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor,
     the budgets, and on a row over ``cap`` entries in ``total`` and the
     overflow decision (JAX's bit count is then of a cut stream)."""
     B = y.shape[0]
+    total, total_bits, val, length, start, _ = huffman_fields_plain(
+        y, cb, cr, spec, h16, w16)
+
+    # Deposits: field bits [start, start + len) MSB first, i.e. at
+    # 32 - rb - len of word start >> 5, the low part spilling into the
+    # next word.  Disjoint bits, so adding is OR-ing; slot cap_words
+    # takes the dropped words.
+    w = start >> 5
+    rb = start & 31
+    live = length > 0
+    sh0 = 32 - rb - length
+    c0 = torch.where(sh0 >= 0, val << sh0.clamp(min=0),
+                     val >> (-sh0).clamp(min=0)) & 0xFFFFFFFF
+    cross = live & (rb + length > 32)
+    c1 = (val << (64 - rb - length).clamp(0, 63)) & 0xFFFFFFFF
+    words = torch.zeros((B, cap_words + 1), dtype=torch.int64,
+                        device=y.device)
+    dump = torch.full_like(w, cap_words)
+    words.scatter_add_(1, torch.where(live & (w < cap_words), w, dump),
+                       torch.where(live, c0, torch.zeros_like(c0)))
+    words.scatter_add_(1, torch.where(cross & (w + 1 < cap_words), w + 1,
+                                      dump),
+                       torch.where(cross, c1, torch.zeros_like(c1)))
+    words = words[:, :cap_words]
+    word_bytes = torch.stack([(words >> (8 * i)) & 0xFF for i in range(4)],
+                             dim=-1).to(torch.uint8).reshape(B, -1)
+    header = torch.stack([total, total_bits], dim=1).to(
+        torch.int32).contiguous().view(torch.uint8)
+    return torch.cat([header, word_bytes], dim=1)
+
+
+def huffman_fields_plain(y: torch.Tensor, cb: torch.Tensor,
+                         cr: torch.Tensor, spec: torch.Tensor, h16: int,
+                         w16: int) -> tuple:
+    """The fields of :func:`huffman_pack_plain`'s stream, each tile's
+    ``(total nonzeros [B], total bits [B], val, length, start, block
+    start)``: ``val``, ``length`` and ``start`` i64[B, F] of every field
+    slot (DC, ZRL, run/size, EOB; a slot of length 0 codes nothing), each
+    field's bits ``[start, start + length)`` of the tile's stream, and the
+    bit start of each block in scan order, i64[B, 6 h16 w16]."""
+    B = y.shape[0]
     dev = y.device
     n_mcu = h16 * w16
     nb = 6 * n_mcu
@@ -692,32 +733,7 @@ def huffman_pack_plain(y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor,
                         main_len.reshape(B, -1), eob_len], dim=1)
     start = torch.cat([block_start, zrl_start.reshape(B, -1),
                        main_start.reshape(B, -1), eob_start], dim=1)
-
-    # Deposits: field bits [start, start + len) MSB first, i.e. at
-    # 32 - rb - len of word start >> 5, the low part spilling into the
-    # next word.  Disjoint bits, so adding is OR-ing; slot cap_words
-    # takes the dropped words.
-    w = start >> 5
-    rb = start & 31
-    live = length > 0
-    sh0 = 32 - rb - length
-    c0 = torch.where(sh0 >= 0, val << sh0.clamp(min=0),
-                     val >> (-sh0).clamp(min=0)) & 0xFFFFFFFF
-    cross = live & (rb + length > 32)
-    c1 = (val << (64 - rb - length).clamp(0, 63)) & 0xFFFFFFFF
-    words = torch.zeros((B, cap_words + 1), dtype=i64, device=dev)
-    dump = torch.full_like(w, cap_words)
-    words.scatter_add_(1, torch.where(live & (w < cap_words), w, dump),
-                       torch.where(live, c0, torch.zeros_like(c0)))
-    words.scatter_add_(1, torch.where(cross & (w + 1 < cap_words), w + 1,
-                                      dump),
-                       torch.where(cross, c1, torch.zeros_like(c1)))
-    words = words[:, :cap_words]
-    word_bytes = torch.stack([(words >> (8 * i)) & 0xFF for i in range(4)],
-                             dim=-1).to(torch.uint8).reshape(B, -1)
-    header = torch.stack([total, total_bits], dim=1).to(
-        torch.int32).contiguous().view(torch.uint8)
-    return torch.cat([header, word_bytes], dim=1)
+    return total, total_bits, val, length, start, block_start
 
 
 def huffman_pack(y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor,

@@ -22,6 +22,11 @@ trailing segments are tolerated as its ``:theT*`` patterns are):
   GET /pyramid/{jobId}  the job document
   GET /metrics       Prometheus text exposition
   GET /healthz       liveness
+  GET /readyz        readiness: 200 ``{"status": "ready", "checks":
+                     {"prewarm": "complete", "queue": "ok"}}``, or 503
+                     ``"degraded"`` while the startup prewarm runs or
+                     failed, or past ``telemetry.ready-max-queue-depth``
+                     queued tiles (:meth:`Front.ready`)
   OPTIONS /          the feature document
 
 Around the render path, as the JAX default app (``create_app(AppConfig())``
@@ -38,7 +43,24 @@ there) has it:
   headers.
 * **Request traces** (``utils.telemetry``): each render request opens a
   trace and its deadline scope; its duration and status feed
-  ``imageregion_request_duration_ms`` and ``imageregion_requests_total``.
+  ``imageregion_request_duration_ms`` and ``imageregion_requests_total``,
+  its cost ledger the ``imageregion_request_cost_*`` histograms and the
+  top-K of expensive requests, and its provenance record
+  (``utils.provenance``: 304, byte cache, warm raw cache or cold render,
+  coalesced) the ``imageregion_provenance_*`` counters and, under
+  ``telemetry.provenance-header``, the ``X-Image-Region-Provenance``
+  header of a success.  With ``telemetry.access-log`` (on by default)
+  each traced request writes one JSON line to the logger
+  ``omero_ms_image_region_tpu_torch.access``: ``ts``, ``trace``,
+  ``route``, ``status``, ``bytes``, ``ms``, ``queue_ms``, ``render_ms``
+  (the render's await less its queue wait), ``encode_ms``, ``cache``,
+  ``cost`` and, for a success, ``prov``, as the JAX app writes them.
+* **Readiness** (``server.prewarm``): with ``renderer.prewarm`` the
+  kernels are built and launched at every batch size on a background
+  thread at startup, and ``/readyz`` answers 503 ``pending`` until they
+  are, and 503 with the reason if that failed.  The JAX ``/readyz`` also
+  annotates the sentinel, SLO, pressure, rehydrate, fleet and federation
+  states; those lines come with their modules.
 * **Sessions** (``services.sessions``): the session cookie resolves to
   the OMERO session key through the configured store
   (:func:`make_session_store`: static, the Redis or the Postgres
@@ -86,10 +108,11 @@ from __future__ import annotations
 import asyncio
 import json
 import logging
+import threading
 import time
 from dataclasses import dataclass, field
 from typing import AsyncIterator, Awaitable, Callable, Mapping, Optional, \
-    Union
+    Tuple, Union
 
 import torch
 
@@ -108,7 +131,7 @@ from ..services.sessions import (DjangoPostgresSessionStore,
                                  DjangoRedisSessionStore, SessionStore,
                                  StaticSessionStore, resolve_session_key)
 from ..services.viewport import ViewportTracker
-from ..utils import faultinject, linkprobe, telemetry
+from ..utils import faultinject, linkprobe, provenance, telemetry
 from ..utils.adaptive import AdaptiveEngine
 from ..utils.stopwatch import span_lines
 from ..utils.transient import DeadlineExceededError, deadline_scope
@@ -126,6 +149,7 @@ from .singleflight import SingleFlight
 from .watchdog import Watchdog, build_watchdog
 
 log = logging.getLogger("omero_ms_image_region_tpu_torch.server")
+access_log = logging.getLogger("omero_ms_image_region_tpu_torch.access")
 
 PROVIDER = "ImageRegionMicroservice"
 FEATURES = ["flip", "mask-color", "png-tiles"]
@@ -236,6 +260,8 @@ def build_services(config: AppConfig,
         if engine == "auto":
             engine = linkprobe.resolve_auto_engine(device)
         renderer = Renderer(device, jpeg_engine=engine)
+    if config.renderer.prewarm and b.enabled:
+        start_prewarm(config, renderer, device)
     rc, ft, se = config.raw_cache, config.fault_tolerance, config.sessions
     raw_cache = (DeviceRawCache(rc.max_bytes, device=device,
                                 digest_index=rc.digest_dedup)
@@ -281,6 +307,29 @@ def build_services(config: AppConfig,
         # (ImageRegionVerticle.java:107-111).
         can_read_memo=CanReadMemo(shared=caches.redis),
     )
+
+
+def start_prewarm(config: AppConfig, renderer: BatchingRenderer,
+                  device: torch.device) -> None:
+    """Run ``server.prewarm.prewarm_renderer`` over
+    ``renderer.prewarm`` on a background thread, with
+    ``telemetry.READINESS.prewarm_pending`` set until it ends (both wire
+    engines under ``jpeg-engine: auto``: the controller may switch).  A
+    malformed spec raises here, failing the boot, as in the JAX app."""
+    from .prewarm import parse_spec, prewarm_renderer
+
+    for spec in config.renderer.prewarm:
+        parse_spec(spec)
+    engines = (("sparse", "huffman") if renderer.engine_controller
+               is not None else (renderer.jpeg_engine,))
+    telemetry.READINESS.prewarm_failed = None
+    telemetry.READINESS.prewarm_pending = True
+    threading.Thread(
+        target=prewarm_renderer,
+        args=(list(config.renderer.prewarm), engines, renderer.max_batch,
+              renderer.buckets, device),
+        kwargs={"cpu_fallback_max_px": config.renderer.cpu_fallback_max_px},
+        name="prewarm", daemon=True).start()
 
 
 def build_handler(data_dir: str, lut_root: Optional[str] = None,
@@ -340,6 +389,9 @@ class Answer:
     # A streamed body (an animation's frame records), written after the
     # headers; ``body`` is then empty.
     stream: Optional[AsyncIterator[bytes]] = None
+    # The request ctx that carries the provenance marks (None before a
+    # request parses).
+    prov_ctx: object = None
 
 
 def _json(status: int, doc: dict, **headers) -> Answer:
@@ -463,16 +515,27 @@ class Front:
         except Exception:
             return None
 
+    def stamp_provenance(self, ctx, headers: dict) -> None:
+        """The ``X-Image-Region-Provenance`` header of a success, under
+        ``telemetry.provenance-header``."""
+        if not self.config.telemetry.provenance_header or ctx is None:
+            return
+        value = provenance.header_value(provenance.assemble(
+            ctx, 200, telemetry.current_trace_id()))
+        if value:
+            headers["X-Image-Region-Provenance"] = value
+
     async def answer(self, method: str, headers: Mapping[str, str],
                      out: dict, identity: str, object_type: str,
                      object_id: int, session_key: Optional[str],
                      produce: Callable[[], Awaitable[bytes]],
-                     mtime: Optional[float] = None) -> Answer:
+                     mtime: Optional[float] = None, ctx=None) -> Answer:
         """The header layer around one render: ETag, Cache-Control and
         Vary from ``identity`` (and ``Last-Modified`` from ``mtime``);
         the 304 or headers-only answer (:func:`conditional_answer`) for a
-        caller that may read the object; else ``produce()``'s body, an
-        unreadable object getting its 404 there."""
+        caller that may read the object, in the ``304`` provenance tier;
+        else ``produce()``'s body, an unreadable object getting its 404
+        there.  ``ctx`` carries the provenance marks."""
         etag = await self.cache_headers(out, identity, object_type,
                                         object_id)
         if mtime is not None:
@@ -484,12 +547,18 @@ class Front:
                 telemetry.HTTPCACHE.count_not_modified()
             else:
                 telemetry.HTTPCACHE.count_head()
-            return Answer(status, out)
+            if ctx is not None:
+                provenance.mark(ctx, tier="304")
+            self.stamp_provenance(ctx, out)
+            return Answer(status, out, prov_ctx=ctx)
         try:
             body = await produce()
         except Exception as e:
-            return self.status_of(e)
-        return Answer(200, out, body)
+            answer = self.status_of(e)
+            answer.prov_ctx = ctx
+            return answer
+        self.stamp_provenance(ctx, out)
+        return Answer(200, out, body, prov_ctx=ctx)
 
     async def _session(self, cookies: Mapping[str, str]):
         """(session key, None), or (None, the 403) when a session is
@@ -518,7 +587,7 @@ class Front:
         return await self.answer(
             method, headers, out, ctx.cache_key, "Image", ctx.image_id,
             ctx.omero_session_key,
-            lambda: self.handler.render_image_region(ctx), mtime)
+            lambda: self.handler.render_image_region(ctx), mtime, ctx=ctx)
 
     async def render_mask(self, method: str, params: dict,
                           headers: Mapping[str, str],
@@ -554,7 +623,7 @@ class Front:
             return await self.mask_handler.render_shape_mask(ctx)
         return await self.answer(
             method, headers, {"Content-Type": "image/png"}, identity,
-            "Mask", ctx.shape_id, ctx.omero_session_key, produce)
+            "Mask", ctx.shape_id, ctx.omero_session_key, produce, ctx=ctx)
 
     async def render_overlay(self, method: str, params: dict,
                              headers: Mapping[str, str],
@@ -591,7 +660,7 @@ class Front:
             method, headers, {"Content-Type": "image/png"}, identity,
             "Image", ctx.image_id, ctx.omero_session_key,
             lambda: self.workloads.render_overlay(ctx, shape_ids,
-                                                  color=color))
+                                                  color=color), ctx=ctx)
 
     async def render_animation(self, method: str, params: dict,
                                headers: Mapping[str, str],
@@ -637,7 +706,9 @@ class Front:
             first = b""
         except Exception as e:
             await frames.aclose()
-            return self.status_of(e)
+            answer = self.status_of(e)
+            answer.prov_ctx = frame_ctxs[0]
+            return answer
 
         async def stream() -> AsyncIterator[bytes]:
             try:
@@ -647,7 +718,7 @@ class Front:
                     yield record
             finally:
                 await frames.aclose()
-        return Answer(200, out, stream=stream())
+        return Answer(200, out, stream=stream(), prov_ctx=frame_ctxs[0])
 
     async def pyramid_submit(self, body: bytes) -> Answer:
         """``POST /pyramid`` with ``{"imageId": N}`` (or ``{"path":
@@ -699,9 +770,11 @@ class Front:
         render, ``pyramid_submit``).  A streamed answer is handed to
         ``send`` inside the scope (which writes it), or, with no ``send``,
         read into :attr:`Answer.body`.  A cancelled request (the client
-        went away) is counted as 499."""
+        went away) is counted as 499.  The finished request is accounted
+        by :meth:`finish`."""
         trace_id = telemetry.new_trace_id()
         t0 = time.perf_counter()
+        streamed = [0]
         try:
             with telemetry.trace_scope(trace_id, route), deadline_scope(
                     self.config.fault_tolerance.request_deadline_ms):
@@ -710,6 +783,7 @@ class Front:
                                                    cookies))
                 if answer.stream is not None:
                     if send is not None:
+                        answer.stream = _counted(answer.stream, streamed)
                         await send(answer)
                     else:
                         answer.body = b"".join(
@@ -719,19 +793,108 @@ class Front:
             telemetry.TRACES.finish(trace_id)
             telemetry.count_request(route, 499)
             raise
-        telemetry.TRACES.finish(trace_id)
-        telemetry.REQUEST_HIST.observe(
-            route, (time.perf_counter() - t0) * 1000.0)
-        telemetry.count_request(route, answer.status)
+        trace = telemetry.TRACES.finish(trace_id)
+        self.finish(route, answer.status, len(answer.body) + streamed[0],
+                    (time.perf_counter() - t0) * 1000.0, trace,
+                    answer.prov_ctx)
         return answer
+
+    def finish(self, route: str, status: int, nbytes: int,
+               total_ms: float, trace: Optional[telemetry.Trace],
+               prov_ctx=None) -> None:
+        """A finished request's accounting, as the JAX app's
+        ``_finish_request`` does it: the request histogram and totals;
+        a success's provenance record into the provenance counters; the
+        cost ledger into the cost histograms and the top-K; and, with
+        ``telemetry.access-log``, the JSON access line."""
+        record = None
+        if prov_ctx is not None and status < 400:
+            record = provenance.assemble(
+                prov_ctx, status,
+                trace.trace_id if trace is not None else None)
+            telemetry.PROVENANCE.count(record)
+        telemetry.REQUEST_HIST.observe(route, total_ms)
+        telemetry.count_request(route, status)
+        if trace is None:
+            return
+        ledger, cache_class = telemetry.assemble_ledger(trace, total_ms,
+                                                        nbytes)
+        telemetry.observe_request_cost(route, ledger)
+        telemetry.COST_TOPK.offer({
+            "trace": trace.trace_id, "route": route, "status": status,
+            "ts": round(trace.wall_ts, 3), "cache": cache_class,
+            "total_ms": round(total_ms, 3), "cost": ledger})
+        if not self.config.telemetry.access_log:
+            return
+        queue_ms = trace.span_ms("batcher.queueWait")
+        render_ms = trace.span_ms("Renderer.renderAsPackedInt")
+        if render_ms is not None and queue_ms:
+            # The render span is the whole await of the batcher, its
+            # queue wait included.
+            render_ms = max(0.0, render_ms - queue_ms)
+        line = {
+            "ts": round(trace.wall_ts, 3),
+            "trace": trace.trace_id,
+            "route": route,
+            "status": status,
+            "bytes": nbytes,
+            "ms": round(total_ms, 3),
+            "queue_ms": queue_ms,
+            "render_ms": render_ms,
+            "encode_ms": trace.span_ms("encodeImage", "jfif.encodeBatch"),
+            "cache": cache_class,
+            "cost": ledger,
+        }
+        if record is not None:
+            line["prov"] = {k: v for k, v in record.items() if k != "trace"}
+        access_log.info("%s", json.dumps(line))
+
+    def ready(self) -> Tuple[bool, dict]:
+        """(ok, checks) of ``/readyz``, the JAX app's combined-role
+        ``_ready_state``: ``prewarm`` (``pending``, ``complete``, or
+        ``failed: <reason>``, which keeps the process unready) and
+        ``queue`` (``ok``, or ``depth N over M`` past
+        ``telemetry.ready-max-queue-depth`` tiles queued in the batcher).
+        The JAX app's sentinel, SLO, pressure, rehydrate, fleet and
+        federation annotations wait for their modules."""
+        checks: dict = {}
+        ok = True
+        readiness = telemetry.READINESS
+        if readiness.prewarm_failed:
+            ok = False
+            checks["prewarm"] = f"failed: {readiness.prewarm_failed}"
+        elif readiness.prewarm_pending:
+            ok = False
+            checks["prewarm"] = "pending"
+        else:
+            checks["prewarm"] = "complete"
+        renderer = self.handler.s.renderer
+        depth = (renderer.queue_depth() if hasattr(renderer, "queue_depth")
+                 else 0)
+        max_depth = self.config.telemetry.ready_max_queue_depth
+        if depth > max_depth:
+            ok = False
+            checks["queue"] = f"depth {depth} over {max_depth}"
+        else:
+            checks["queue"] = "ok"
+        return ok, checks
 
     def metrics_text(self) -> str:
         """The ``/metrics`` body (Prometheus text exposition)."""
         return telemetry.finalize_exposition(
             telemetry.request_metric_lines() + span_lines()
+            + telemetry.cost_metric_lines()
             + telemetry.resilience_metric_lines()
             + telemetry.session_metric_lines()
             + telemetry.device_metric_lines(self.handler.s))
+
+
+async def _counted(stream: AsyncIterator[bytes],
+                   box: list) -> AsyncIterator[bytes]:
+    """``stream``, adding the bytes it yields to ``box[0]``."""
+    async for chunk in stream:
+        box[0] += len(chunk)
+        yield chunk
 
 
 def configure_logging(config: AppConfig) -> None:
@@ -851,6 +1014,14 @@ def create_app(config: Optional[AppConfig] = None,
     async def healthz(request: web.Request) -> web.Response:
         return web.json_response({"status": "ok"})
 
+    async def readyz(request: web.Request) -> web.Response:
+        """200 only when this process can serve renders now; a 503 names
+        what it waits for."""
+        ok, checks = front.ready()
+        return web.json_response(
+            {"status": "ready" if ok else "degraded", "checks": checks},
+            status=200 if ok else 503)
+
     tasks: list = []
 
     owned: list = []        # the database pool this app opened
@@ -915,6 +1086,7 @@ def create_app(config: Optional[AppConfig] = None,
     app.router.add_get("/pyramid/{jobId}", pyramid_status)
     app.router.add_get("/metrics", metrics)
     app.router.add_get("/healthz", healthz)
+    app.router.add_get("/readyz", readyz)
     app.router.add_route("OPTIONS", "/{tail:.*}", details)
     return app
 

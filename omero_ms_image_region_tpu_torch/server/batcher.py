@@ -35,7 +35,10 @@ recorded once, when its group is popped (``batcher.queueWait``, or
 staging and the enqueue of the group's copy and gather on the lane's
 stream are ``batcher.stage``; a lane's execute half is
 ``Renderer.renderAsPackedInt.batch``.  A lane thread records under every
-member's trace.  The watchdog scans the live groups: one stuck past
+member's trace, spans and cost ledger alike: each member gets its share
+of the group's staging (``stage_ms``, ``staged_bytes``) and of its
+execute (``device_ms``), as the JAX batcher writes them.  The watchdog
+scans the live groups: one stuck past
 ``max(stall_min_s, stall_factor x p99)`` has its unsettled members
 requeued at the head of their queue, and a member already requeued
 ``escalate_after - 1`` times is failed with ``ConnectionError``.  A CUDA
@@ -574,7 +577,10 @@ class BatchingRenderer:
     def _staged_raw(self, group: List[_Pending]):
         """Both halves of a group's staging: the host half before a lane
         is taken, then (as a context, in the lane) the device half.  The
-        two together are one ``batcher.stage`` sample."""
+        two together are one ``batcher.stage`` sample, and each member's
+        cost ledger gets its share of them (``stage_ms``) and of the host
+        bytes copied to the card (``staged_bytes``; members already on
+        the card staged none)."""
         t0 = time.perf_counter()
         staged = self._stage_host(group)
         host_ms = (time.perf_counter() - t0) * 1000.0
@@ -582,8 +588,13 @@ class BatchingRenderer:
         def device_half() -> torch.Tensor:
             t1 = time.perf_counter()
             raw = self._group_raw(group, staged)
-            REGISTRY.record("batcher.stage", host_ms
-                            + (time.perf_counter() - t1) * 1000.0)
+            stage_ms = host_ms + (time.perf_counter() - t1) * 1000.0
+            REGISTRY.record("batcher.stage", stage_ms)
+            n = len(group)
+            fields = {"stage_ms": stage_ms / n}
+            if staged is not None:
+                fields["staged_bytes"] = staged.array.nbytes / n
+            telemetry.add_costs(fields)
             return raw
         return device_half
 
@@ -643,13 +654,21 @@ class BatchingRenderer:
                 self.execute_ms.append((time.perf_counter() - t0) * 1000.0)
             self._lanes.put(stream)
 
+    @staticmethod
+    def _device_cost(group: List[_Pending], t0: float) -> None:
+        """Each member's share of the group's execute (``device_ms``)."""
+        telemetry.add_cost("device_ms", (time.perf_counter() - t0)
+                           * 1000.0 / len(group))
+
     def _render_group(self, group: List[_Pending]) -> List[np.ndarray]:
         self._inject_faults()
         device_half = self._staged_raw(group)
         with self._lane(), stopwatch("Renderer.renderAsPackedInt.batch"):
             raw = device_half()
+            t0 = time.perf_counter()
             packed = render_tile_batch_packed(raw, *self._settings(group))
             host = packed.cpu().numpy().view(np.uint32)
+            self._device_cost(group, t0)
         self._count_batch(len(group))
         return [host[i, :p.h, :p.w] for i, p in enumerate(group)]
 
@@ -682,11 +701,13 @@ class BatchingRenderer:
         device_half = self._staged_raw(group)
         with self._lane(), stopwatch("Renderer.renderAsPackedInt.batch"):
             raw = device_half()
+            t0 = time.perf_counter()
             jpegs = render_batch_to_jpeg(
                 raw, *self._settings(group), quality=group[0].quality,
                 dims=[(p.w, p.h) for p in group],
                 on_tile=self._early_settle_cb(group),
                 engine=self._current_engine())
+            self._device_cost(group, t0)
         self._count_batch(len(group))
         return jpegs
 
@@ -697,8 +718,10 @@ class BatchingRenderer:
         _, width, height, flip_h, flip_v = self._mask_key_of(group)
         packed = np.stack([p.raw for p in group])
         with self._lane(), stopwatch("Renderer.rasterizeMask.batch"):
+            t0 = time.perf_counter()
             grids = rasterize_packed_batch(packed, width, height, flip_h,
                                            flip_v, self.device)
+            self._device_cost(group, t0)
         self._count_batch(len(group))
         return [grids[i] for i in range(len(group))]
 

@@ -42,7 +42,13 @@ served settings the same values and the same validation:
   ``services.cache.CacheConfig`` as the JAX loader reads them;
 * ``renderer.jpeg-engine``: ``sparse``, ``huffman`` or ``auto``; the
   ``bitpack`` engine (the JAX direct renderer's, refused there in the
-  batched posture) is refused by name.
+  batched posture) is refused by name;
+* ``renderer.prewarm``: the tile shapes built and launched at startup
+  (``server.prewarm``; a malformed spec fails the load, as in JAX);
+* ``telemetry``: ``access-log`` (the JSON access line, on by default),
+  ``ready-max-queue-depth`` (``/readyz``'s backlog bound) and
+  ``provenance-header``; its other keys (the slow-request dumps, the
+  flight recorder, profiles) are held to their JAX defaults.
 
 One default differs on purpose: ``raw-cache.digest-dedup`` is off unless
 the file sets it.  The dedup cost a cold GET 19-20 ms on the H100 and saved
@@ -96,6 +102,19 @@ class RendererConfig:
     # package renders them on the host CPU, with the same bytes).
     cpu_fallback_max_px: int = 256 * 256
     jpeg_engine: str = "sparse"
+    # Tile shapes built and launched at startup, on a background thread
+    # behind /readyz (server.prewarm): "<channels>x<edge>[@q][:dtype]".
+    prewarm: Tuple[str, ...] = ()
+
+
+@dataclass
+class TelemetryConfig:
+    """The request telemetry the port serves: the JSON access log, the
+    ``/readyz`` backlog bound and the provenance debug header."""
+
+    access_log: bool = True
+    ready_max_queue_depth: int = 64
+    provenance_header: bool = False
 
 
 @dataclass
@@ -246,14 +265,6 @@ _UNPORTED = {
         "prestage": True, "prestage-max-planes": 256,
         "settle-timeout-s": 30.0, "fail-readyz": False,
     },
-    "telemetry": {
-        "slow-request-ms": 0.0, "slow-request-dir": "./slow-traces",
-        "access-log": True, "ready-max-queue-depth": 64,
-        "flight-recorder-events": 512,
-        "flight-recorder-dir": "./flight-recorder",
-        "profile-dir": "./profiles", "profile-max-ms": 10000.0,
-        "provenance-header": False,
-    },
     "slo": {
         "availability-target": 0.0, "latency-ms": 0.0,
         "latency-target": 0.99, "fast-window-s": 60.0,
@@ -275,8 +286,13 @@ _UNPORTED = {
 _UNPORTED_KEYS = {
     "batcher": {"max-batch-limit": None, "target-inflight": 1},
     "raw-cache": {},
-    "renderer": {"kernel": "xla", "compilation-cache-dir": None,
-                 "prewarm": ()},
+    "renderer": {"kernel": "xla", "compilation-cache-dir": None},
+    "telemetry": {
+        "slow-request-ms": 0.0, "slow-request-dir": "./slow-traces",
+        "flight-recorder-events": 512,
+        "flight-recorder-dir": "./flight-recorder",
+        "profile-dir": "./profiles", "profile-max-ms": 10000.0,
+    },
     "http-cache": {"peer-fetch": True, "peer-timeout-ms": 500.0},
     "watchdog": {"wire-hang-s": 60.0},
     "fault-tolerance": {
@@ -366,6 +382,7 @@ class AppConfig:
     pyramid: PyramidConfig = field(default_factory=PyramidConfig)
     sessions: SessionsConfig = field(default_factory=SessionsConfig)
     caches: CacheConfig = field(default_factory=CacheConfig)
+    telemetry: TelemetryConfig = field(default_factory=TelemetryConfig)
     # Sections switched on that the port loads but does not serve (none
     # today).
     unserved: Tuple[str, ...] = ()
@@ -451,6 +468,7 @@ class AppConfig:
         cfg._fault_tolerance(_block(raw, "fault-tolerance"))
         cfg._fault_injection(_block(raw, "fault-injection"))
         cfg._renderer(_block(raw, "renderer"))
+        cfg._telemetry(_block(raw, "telemetry"))
         cfg._workloads(_block(raw, "workloads"))
         cfg._pyramid(_block(raw, "pyramid"))
         return cfg
@@ -608,18 +626,37 @@ class AppConfig:
 
     def _renderer(self, rd: dict) -> None:
         _check("renderer", rd, _UNPORTED_KEYS["renderer"],
-               served=("cpu-fallback-max-px", "jpeg-engine"))
+               served=("cpu-fallback-max-px", "jpeg-engine", "prewarm"))
         d = RendererConfig()
         self.renderer = RendererConfig(
             cpu_fallback_max_px=int(rd.get("cpu-fallback-max-px",
                                            d.cpu_fallback_max_px)),
-            jpeg_engine=str(rd.get("jpeg-engine", d.jpeg_engine)))
+            jpeg_engine=str(rd.get("jpeg-engine", d.jpeg_engine)),
+            prewarm=tuple(str(s) for s in rd.get("prewarm", ()) or ()))
+        from .prewarm import parse_spec
+        for spec in self.renderer.prewarm:
+            parse_spec(spec)        # a malformed spec fails the load
         engine = self.renderer.jpeg_engine
         if engine == "bitpack":
             raise _refuse("renderer.jpeg-engine", engine)
         if engine not in ("sparse", "huffman", "auto"):
             raise ValueError(f"renderer.jpeg-engine must be 'sparse', "
                              f"'huffman' or 'auto', got {engine!r}")
+
+    def _telemetry(self, tel: dict) -> None:
+        _check("telemetry", tel, _UNPORTED_KEYS["telemetry"],
+               served=("access-log", "ready-max-queue-depth",
+                       "provenance-header"))
+        d = TelemetryConfig()
+        self.telemetry = TelemetryConfig(
+            access_log=bool(tel.get("access-log", d.access_log)),
+            ready_max_queue_depth=int(tel.get("ready-max-queue-depth",
+                                              d.ready_max_queue_depth)),
+            provenance_header=bool(tel.get("provenance-header",
+                                           d.provenance_header)))
+        if self.telemetry.ready_max_queue_depth < 1:
+            raise ValueError("telemetry.ready-max-queue-depth must be "
+                             ">= 1")
 
     def _pyramid(self, py: dict) -> None:
         _check("pyramid", py, _UNPORTED_KEYS["pyramid"],

@@ -84,6 +84,12 @@ that does not parse is read again from the service), and a mask with an
 explicit colour through the shape-mask cache.  Each cache is off unless
 its config block switches it on (``Caches.disabled`` is the services'
 default).
+
+Provenance (``utils.provenance``): the handlers mark where a response's
+bytes came from on its ctx, as the JAX handlers do: ``byte_cache`` for an
+image-region or shape-mask cache hit, ``hbm_warm`` or ``render_cold`` for
+a raw-cache hit or miss, ``coalesced`` for a single-flight follower, and
+the fairness tokens a session drew.
 """
 
 from __future__ import annotations
@@ -112,7 +118,7 @@ from ..ops.render import (batched_settings, pack_settings,
                           settings_to_tensors, unpack_rgba)
 from ..services.cache import Caches
 from ..services.metadata import CanReadMemo
-from ..utils import telemetry, transient
+from ..utils import provenance, telemetry, transient
 from ..utils.color import split_html_color
 from ..utils.stopwatch import stopwatch
 from .ctx import ImageRegionCtx, ShapeMaskCtx
@@ -290,6 +296,7 @@ class ImageRegionHandler:
             if await self.can_read(ctx.image_id, ctx.omero_session_key):
                 telemetry.record_span("cache.hit", t0,
                                       (time.perf_counter() - t0) * 1000.0)
+                provenance.mark(ctx, tier="byte_cache")
                 return cached
             raise NotFoundError(f"Cannot find Image:{ctx.image_id}")
         pixels = await self._authorize(ctx)
@@ -297,6 +304,8 @@ class ImageRegionHandler:
         # The session's fairness token, per caller and before coalescing.
         debit = (admission.admit_session(ctx) if admission is not None
                  else None)
+        if debit is not None:
+            provenance.mark(ctx, tokens=debit[1])
 
         async def produce() -> bytes:
             t_admit = admission.admit() if admission is not None else None
@@ -325,6 +334,7 @@ class ImageRegionHandler:
         if coalesced:
             telemetry.record_span("dedup.coalesced", t0,
                                   (time.perf_counter() - t0) * 1000.0)
+            provenance.mark(ctx, coalesced=True)
         return data
 
     @staticmethod
@@ -450,6 +460,8 @@ class ImageRegionHandler:
                 raw = cache.get(key)
                 if raw is not None and prefetcher is not None:
                     prefetcher.note_hit(key)
+            provenance.mark(ctx, tier="render_cold" if raw is None
+                            else "hbm_warm")
             if raw is None:
                 raw = await asyncio.to_thread(self._load, plan, ctx)
             h, w = plan.region.height, plan.region.width
@@ -621,6 +633,7 @@ class ShapeMaskHandler:
             return None
         telemetry.record_span("cache.hit", t0,
                               (time.perf_counter() - t0) * 1000.0)
+        provenance.mark(ctx, tier="byte_cache")
         return cached
 
     async def render_shape_mask(self, ctx: ShapeMaskCtx) -> bytes:

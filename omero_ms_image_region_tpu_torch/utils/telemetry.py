@@ -13,20 +13,36 @@ Counterpart of the request half of the JAX package's ``utils/telemetry.py``:
   (:class:`Resilience`), watchdog fires by action (:class:`WatchdogStats`),
   conditional-HTTP answers (:class:`HttpCacheStats`), the mask, overlay
   and animation routes (:class:`WorkloadStats`).
+* **The cost ledger.**  Each trace accumulates numeric costs
+  (:meth:`Trace.add_cost`, :func:`add_cost`, :func:`add_costs`) written
+  by the layer that did the work: the batcher's device-execute and stage
+  ms shared pro rata over a group, the raw cache's staged bytes.
+  :func:`assemble_ledger` merges them with the span-derived fields when
+  the request finishes; :func:`observe_request_cost` feeds the per-route
+  ``imageregion_request_cost_*`` histograms (:data:`COST_HISTS`), and
+  :data:`COST_TOPK` keeps the most expensive recent requests.  The
+  access log (``server.app``) writes them on its JSON line.
+* **Provenance counters** (:class:`ProvenanceStats`): responses by byte
+  source tier and member, and routing flags, over the closed vocabularies
+  of ``utils.provenance``.
+* **Readiness** (:data:`READINESS`): the startup prewarm's state behind
+  ``/readyz`` (``server.prewarm``).
 * **The exposition**: :func:`request_metric_lines`, :func:`span_lines`
   (``utils.stopwatch``), :func:`resilience_metric_lines`,
-  :func:`device_metric_lines`, joined by :func:`finalize_exposition`,
-  which writes one ``# TYPE`` header per family.
+  :func:`device_metric_lines`, :func:`cost_metric_lines`, joined by
+  :func:`finalize_exposition`, which writes one ``# TYPE`` header per
+  family.
 
 The family names, label keys and types are the JAX package's, so one
 dashboard and one cardinality budget (``conf/metrics_budget.json``) read
 both.  Not ported: ``imageregion_compile_*`` and ``imageregion_link_*``
 (XLA compile events and TPU-link fetch rates: an eager CUDA launch has no
-compile step, and the card sits on PCIe in the same host); the cost
-ledger, shape costs, exemplars, the flight recorder, SLO, sentinel,
-provenance and fleet families, which wait for the forensics plane and the
-fleet; the retry, degraded-render and supervisor counters, which have no
-caller in a port with no retry, no degraded mode and no sidecar.
+compile step, and the card sits on PCIe in the same host); ``merge_costs``
+(the sidecar wire's ledger graft), shape costs, exemplars, the flight
+recorder, SLO, sentinel and fleet families, which wait for the sidecar,
+the rest of the forensics plane and the fleet; the retry,
+degraded-render and supervisor counters, which have no caller in a port
+with no retry, no degraded mode and no sidecar.
 
 Nothing here imports ``torch``.
 """
@@ -40,7 +56,7 @@ import uuid
 from bisect import bisect_left
 from collections import OrderedDict
 from contextlib import contextmanager
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Mapping, Optional, Tuple
 
 # Fixed log-scale bucket bounds (ms): 0.25 ms .. ~32.8 s, ratio 2.
 BUCKET_BOUNDS_MS: Tuple[float, ...] = tuple(0.25 * 2 ** i
@@ -159,9 +175,12 @@ def new_trace_id() -> str:
 
 class Trace:
     """One request's spans: ``{"name", "start_ms", "dur_ms"}`` dicts, with
-    ``start_ms`` relative to the trace's start."""
+    ``start_ms`` relative to the trace's start; and its cost ledger,
+    numeric accumulators written under ``lock`` by the layers that did
+    the work (batcher lane threads, the raw cache)."""
 
-    __slots__ = ("trace_id", "route", "t0", "wall_ts", "spans")
+    __slots__ = ("trace_id", "route", "t0", "wall_ts", "spans", "costs",
+                 "lock")
 
     def __init__(self, trace_id: str, route: str = ""):
         self.trace_id = trace_id
@@ -169,6 +188,25 @@ class Trace:
         self.t0 = time.perf_counter()
         self.wall_ts = time.time()
         self.spans: List[dict] = []
+        self.costs: Dict[str, float] = {}
+        self.lock = threading.Lock()
+
+    def add_cost(self, key: str, value: float) -> None:
+        with self.lock:
+            self.costs[key] = self.costs.get(key, 0.0) + float(value)
+
+    def add_costs(self, items: Mapping[str, float]) -> None:
+        """Several ledger fields under one lock acquisition (a group
+        flushes its fields at once)."""
+        with self.lock:
+            costs = self.costs
+            for key, value in items.items():
+                costs[key] = costs.get(key, 0.0) + float(value)
+
+    def export_costs(self) -> Dict[str, float]:
+        """A copy of the ledger."""
+        with self.lock:
+            return dict(self.costs)
 
     def add_span(self, name: str, t_start: float, dur_ms: float) -> None:
         # list.append is atomic under the GIL; readers copy the list first.
@@ -309,6 +347,132 @@ def observe_span(name: str, dur_ms: float) -> None:
     if ids:
         record_span(name, time.perf_counter() - dur_ms / 1000.0, dur_ms,
                     trace_ids=ids)
+
+
+def add_cost(key: str, value: float,
+             trace_ids: Optional[Tuple[str, ...]] = None) -> None:
+    """Accumulate a cost onto the context's trace ledger(s).  Pro-rata
+    shares are the caller's: a lane thread rendering a group under
+    :func:`group_trace` passes its execute ms over the group size, and
+    every member's ledger gets that share.  No-op outside a trace
+    (prefetch, prewarm)."""
+    ids = trace_ids if trace_ids is not None else _TRACE_IDS.get()
+    for tid in ids:
+        TRACES.get_or_create(tid).add_cost(key, value)
+
+
+def add_costs(items: Mapping[str, float],
+              trace_ids: Optional[Tuple[str, ...]] = None) -> None:
+    """:func:`add_cost` of a whole mapping, one lock per trace."""
+    ids = trace_ids if trace_ids is not None else _TRACE_IDS.get()
+    if not ids or not items:
+        return
+    for tid in ids:
+        TRACES.get_or_create(tid).add_costs(items)
+
+
+# ------------------------------------------------------------ cost ledger
+
+# Per-route cost histograms: one family per ledger field.  Byte fields
+# are observed in KB so the fixed ms-scale log buckets still resolve them.
+_COST_HIST_FIELDS = {
+    "device_ms": "imageregion_request_cost_device_ms",
+    "read_ms": "imageregion_request_cost_read_ms",
+    "stage_ms": "imageregion_request_cost_stage_ms",
+    "queue_ms": "imageregion_request_cost_queue_ms",
+    "encode_ms": "imageregion_request_cost_encode_ms",
+    "staged_kb": "imageregion_request_cost_staged_kb",
+    "wire_kb": "imageregion_request_cost_wire_kb",
+}
+
+COST_HISTS: Dict[str, HistogramVec] = {
+    f: HistogramVec("route") for f in _COST_HIST_FIELDS}
+
+
+class CostTopK:
+    """Bounded ledger of the most expensive recent requests (by wall
+    ``total_ms``), evicting the cheapest.  Thread-safe."""
+
+    def __init__(self, k: int = 16):
+        self.k = k
+        self._lock = threading.Lock()
+        self._entries: List[dict] = []   # sorted descending by total_ms
+        self.observed = 0
+
+    def offer(self, doc: dict) -> None:
+        score = float(doc.get("total_ms") or 0.0)
+        with self._lock:
+            self.observed += 1
+            if (len(self._entries) >= self.k and score <= float(
+                    self._entries[-1].get("total_ms") or 0.0)):
+                return
+            self._entries.append(doc)
+            self._entries.sort(key=lambda d: -(d.get("total_ms") or 0.0))
+            del self._entries[self.k:]
+
+    def snapshot(self) -> List[dict]:
+        with self._lock:
+            return [dict(d) for d in self._entries]
+
+    def reset(self) -> None:
+        with self._lock:
+            self._entries.clear()
+            self.observed = 0
+
+
+COST_TOPK = CostTopK()
+
+
+def assemble_ledger(trace: Trace, total_ms: float,
+                    nbytes: int) -> Tuple[Dict[str, float], str]:
+    """(ledger, cache class) of a finished request: the accumulated costs
+    with the span-derived fields (queue wait, read, encode), the response
+    size and the wall time.  The cache class is where the bytes came
+    from: ``byte-cache`` (no pipeline ran), ``coalesced`` (a
+    single-flight follower), else ``render``."""
+    ledger = trace.export_costs()
+    queue_ms = trace.span_ms("batcher.queueWait")
+    if queue_ms is not None:
+        ledger["queue_ms"] = round(queue_ms, 3)
+    read_ms = trace.span_ms("PixelsService.readRegion")
+    if read_ms is not None:
+        ledger["read_ms"] = round(read_ms, 3)
+    encode_ms = trace.span_ms("encodeImage", "jfif.encodeBatch")
+    if encode_ms is not None:
+        ledger["encode_ms"] = round(encode_ms, 3)
+    ledger["wire_bytes"] = int(nbytes)
+    ledger["total_ms"] = round(total_ms, 3)
+    if trace.span_ms("cache.hit") is not None:
+        cache_class = "byte-cache"
+    elif trace.span_ms("dedup.coalesced") is not None:
+        cache_class = "coalesced"
+    else:
+        cache_class = "render"
+    return ledger, cache_class
+
+
+def observe_request_cost(route: str, ledger: Dict[str, float]) -> None:
+    """Feed the per-route cost histograms from a finished ledger."""
+    for name, hist in COST_HISTS.items():
+        if name == "staged_kb":
+            value = ledger.get("staged_bytes")
+        elif name == "wire_kb":
+            value = ledger.get("wire_bytes")
+        else:
+            value = ledger.get(name)
+        if value is None:
+            continue
+        if name.endswith("_kb"):
+            value = float(value) / 1024.0
+        hist.observe(route, float(value))
+
+
+def cost_metric_lines() -> List[str]:
+    """The cost histograms and the provenance counters."""
+    lines: List[str] = []
+    for name, hist in COST_HISTS.items():
+        lines += hist.series(_COST_HIST_FIELDS[name])
+    return lines + PROVENANCE.metric_lines()
 
 
 # -------------------------------------------------------------- counters
@@ -603,6 +767,82 @@ class PrefetchStats:
 PREFETCH = PrefetchStats()
 
 
+class ProvenanceStats:
+    """Responses by byte-source tier and serving member, and the routing
+    flags (``utils.provenance``).  Both label sets are closed: ``tier``
+    is ``provenance.TIERS`` (a drifted tier counts as ``render_cold``),
+    ``member`` at most 64 names, ``flag`` ``provenance.FLAGS``."""
+
+    _MAX_MEMBERS = 64
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.by_tier_member: Dict[Tuple[str, str], int] = {}
+        self.flags: Dict[str, int] = {}
+        self._members: set = set()
+
+    def count(self, record: Mapping) -> None:
+        from .provenance import FLAGS, TIERS
+        tier = record.get("tier")
+        if tier not in TIERS:
+            tier = "render_cold"
+        member = str(record.get("member") or "-")
+        with self._lock:
+            if member not in self._members:
+                if len(self._members) >= self._MAX_MEMBERS:
+                    member = "_overflow"
+                self._members.add(member)
+            key = (tier, member)
+            self.by_tier_member[key] = self.by_tier_member.get(key, 0) + 1
+            for flag in FLAGS:
+                if record.get(flag):
+                    self.flags[flag] = self.flags.get(flag, 0) + 1
+
+    def totals(self) -> Dict[str, int]:
+        """Responses by tier."""
+        with self._lock:
+            out: Dict[str, int] = {}
+            for (tier, _member), n in self.by_tier_member.items():
+                out[tier] = out.get(tier, 0) + n
+            return out
+
+    def metric_lines(self) -> List[str]:
+        with self._lock:
+            lines = [f'imageregion_provenance_total{{tier="{tier}",'
+                     f'member="{member}"}} '
+                     f"{self.by_tier_member[(tier, member)]}"
+                     for tier, member in sorted(self.by_tier_member)]
+            lines += [f'imageregion_provenance_flags_total{{flag="{f}"}} '
+                      f"{self.flags[f]}" for f in sorted(self.flags)]
+        return lines
+
+    def reset(self) -> None:
+        with self._lock:
+            self.by_tier_member.clear()
+            self.flags.clear()
+            self._members.clear()
+
+
+PROVENANCE = ProvenanceStats()
+
+
+class Readiness:
+    """The process's state behind ``/readyz``: whether the startup
+    prewarm (``server.prewarm``) is still running, and why it failed if
+    it did (a failed build or launch keeps the process unready)."""
+
+    def __init__(self):
+        self.prewarm_pending = False
+        self.prewarm_failed: Optional[str] = None
+
+    def reset(self) -> None:
+        self.prewarm_pending = False
+        self.prewarm_failed = None
+
+
+READINESS = Readiness()
+
+
 # ------------------------------------------------------------ exposition
 
 METRIC_TYPES: Dict[str, str] = {
@@ -652,6 +892,9 @@ METRIC_TYPES: Dict[str, str] = {
     "imageregion_prefetch_staged_total": "counter",
     "imageregion_prefetch_hits_total": "counter",
     "imageregion_prefetch_skipped_total": "counter",
+    "imageregion_provenance_total": "counter",
+    "imageregion_provenance_flags_total": "counter",
+    **{name: "histogram" for name in _COST_HIST_FIELDS.values()},
 }
 
 METRIC_HELP: Dict[str, str] = {
@@ -812,3 +1055,8 @@ def reset() -> None:
     WORKLOADS.reset()
     SESSIONS.reset()
     PREFETCH.reset()
+    for hist in COST_HISTS.values():
+        hist.reset()
+    COST_TOPK.reset()
+    PROVENANCE.reset()
+    READINESS.reset()

@@ -45,7 +45,10 @@ CUSTOM = {
                 "device-lanes": 1},
     "single-flight": {"enabled": False},
     "raw-cache": {"max-bytes": 1 << 30, "digest-dedup": False},
-    "renderer": {"cpu-fallback-max-px": 0, "jpeg-engine": "sparse"},
+    "renderer": {"cpu-fallback-max-px": 0, "jpeg-engine": "sparse",
+                 "prewarm": ["4x1024", "3x512@90:uint8"]},
+    "telemetry": {"access-log": False, "ready-max-queue-depth": 8,
+                  "provenance-header": True},
     "http-cache": {"epoch": "release-7", "max-age-s": 30,
                    "vary-acl": False},
     "watchdog": {"interval-s": 0.5, "stall-factor": 4,
@@ -136,7 +139,7 @@ def test_unported_defaults_are_the_jax_defaults():
     # JAX loader refuses it in the batched posture too.
     ({"renderer": {"jpeg-engine": "bitpack"}, "batcher": {"enabled": False}},
      "renderer.jpeg-engine"),
-    ({"renderer": {"prewarm": ["4x1024"]}}, "renderer.prewarm"),
+    ({"renderer": {"kernel": "pallas"}}, "renderer.kernel"),
     ({"batcher": {"target-inflight": 2}}, "batcher.target-inflight"),
     ({"fault-tolerance": {"degraded-mode": True}},
      "fault-tolerance.degraded-mode"),

@@ -51,7 +51,7 @@ def test_port_imports_without_jax_or_the_jax_package():
                 "ingest", "services.sessions", "services.db_metadata",
                 "services.viewport", "services.prefetch", "io.romio",
                 "io.jp2k", "services.cache", "jfif", "utils.linkprobe",
-                "utils.adaptive"):
+                "utils.adaptive", "server.prewarm", "utils.provenance"):
         assert f"omero_ms_image_region_tpu_torch.{mod}" in doc["imported"]
     assert doc["leaked"] == []
     assert doc["jax"] == []
