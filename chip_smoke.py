@@ -36,9 +36,15 @@ Phases (any failure ends the run with a non-zero exit and no result line):
            finalized, also in two chunks; zc=1; a 256-row band at y0=512
            of a 1024^2 plane; h=1000; u8, int32, f32 with NaN planes, and
            int8, int16, uint32 and float64 on a ragged 37x45 chunk), K8a
-           mask_rasterize (B=8 1024^2 in four flips, 37x45, 1x9: W*H % 8
-           != 0) and K8b mask_overlay (B=1 1024^2 and a 37x45 pair, grid
-           bytes 0-3, fill alpha 0, 128, 255), each byte for byte; and K9
+           mask_rasterize (in four flips: B=8 1024^2, B=1 1023^2, B=3
+           1000x999 (a row stride no multiple of 4), 37x45, 1x9, 31x7,
+           33x5: groups that span rows; 100x99 packed from an odd
+           address) and K8b mask_overlay (grid bytes 0-3, fill alpha 0,
+           128, 255: B=1 1024^2, a 37x45 pair, 1023x1021, a base 4 bytes
+           past a 16-byte boundary, B=3 256^2, a base 1 byte and a grid
+           3 bytes past one), each byte for byte, with ``copy_ms`` beside
+           their times (a ``dst.copy_(src)`` of the same bytes under the
+           same timing; K8a also timed at 1023^2 with flip_h); and K9
            mean2_int exactly (4 x 8192^2 uint16, the pyramid job's first
            level step; 4 x 1024^2 uint16; 3 x 4096^2 uint8; int16 with
            negatives; an odd 4097 x 8191 plane; an int8 37 x 45 plane),
@@ -305,21 +311,29 @@ def time_ms(torch, fn, reps: int, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def device_split(torch, fn, calls: int = 10) -> dict:
+def device_split(torch, fn, calls: int = 10, tries: int = 3) -> dict:
     """Device microseconds per call of each kernel and memset that ``fn``
     launches (torch.profiler, L2 warm): what a kernel's time is made of
-    when it is more than one launch."""
+    when it is more than one launch.  The profiler now and then records
+    no kernel at all; such a window is profiled again, up to ``tries``
+    times (an empty dict after that)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    return {e.key.replace("(anonymous namespace)::", "").split("(")[0]
-            .strip(): e.self_device_time_total / calls
-            for e in prof.key_averages() if e.self_device_time_total > 0}
+    split = {}
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        split = {e.key.replace("(anonymous namespace)::", "").split("(")[0]
+                 .strip(): e.self_device_time_total / calls
+                 for e in prof.key_averages()
+                 if e.self_device_time_total > 0}
+        if split:
+            break
+    return split
 
 
 def bytes_bound(n_bytes: float, ops: float = 0.0):
@@ -1014,48 +1028,87 @@ def workloads_kernel_phase(torch, np):
     e["dtype"] = "uint16"
     del chunk, out
 
-    # K8a: B=8 1024^2 masks in four flips, a 37x45 batch and a 1x9 one
-    # (W*H % 8 != 0: the scalar path).
-    for (w, h, B) in ((TILE, TILE, 8), (37, 45, 3), (1, 9, 2)):
+    def copy_ms(n_bytes):
+        """``dst.copy_(src)`` of half ``n_bytes`` each way under time_ms:
+        the same bytes as the kernel, as a yardstick of the harness (the
+        half rounded down to 16 bytes: PyTorch's copy of a size that is no
+        multiple of 4 takes a slower, unvectorized kernel)."""
+        src = torch.empty(n_bytes // 32 * 16, dtype=torch.uint8, device=dev)
+        dst = torch.empty_like(src)
+        return time_ms(torch, lambda: dst.copy_(src), 25)
+
+    def timed(e, key, fn, n_bytes, shape):
+        """The kernel's time (cold L2), its device time with the L2 warm,
+        the copy yardstick and the bound, under ``key``."""
+        e[key + "ms"] = time_ms(torch, fn, 25)
+        e[key + "device_us"] = device_split(torch, fn)
+        e[key + "copy_ms"] = copy_ms(n_bytes)
+        e[key + "bound_ms"], e[key + "bound_by"] = bytes_bound(n_bytes)
+        e[key + "shape"] = shape
+        print(f"kernel {e['name']} {shape}: {e[key + 'ms']:.4f} ms, copy of "
+              f"the same bytes {e[key + 'copy_ms']:.4f} ms, bound "
+              f"{e[key + 'bound_ms']:.4f} ms, warm L2 "
+              f"{json.dumps(e[key + 'device_us'])} us", flush=True)
+
+    # K8a, four flips each: B=8 1024^2 masks (timed unflipped); one
+    # 1023^2 mask (timed with flip_h: groups cross rows); B=3 1000x999
+    # (a row stride of 124,875 bytes, no multiple of 4); 37x45, 1x9, 31x7
+    # and 33x5 (W < 32 and W just above it: groups span rows); B=3 100x99
+    # packed from 3 bytes past a 4-byte boundary.
+    for (w, h, B, poff) in ((TILE, TILE, 8, 0), (TILE - 1, TILE - 1, 1, 0),
+                            (1000, 999, 3, 0), (37, 45, 3, 0), (1, 9, 2, 0),
+                            (31, 7, 2, 0), (33, 5, 2, 0), (100, 99, 3, 3)):
+        nb = M.packed_nbytes(w, h)
         packed = torch.from_numpy(rng.integers(
-            0, 256, size=(B, M.packed_nbytes(w, h)), dtype=np.uint8)).to(dev)
+            0, 256, size=B * nb + 4, dtype=np.uint8)).to(dev)[
+                poff:poff + B * nb].view(B, nb)
+        where = f" packed +{poff} bytes" if poff else ""
         for fh, fv in ((0, 0), (1, 0), (0, 1), (1, 1)):
             tally("mask_rasterize",
                   KW.mask_rasterize(packed, w, h, bool(fh), bool(fv)),
                   M.mask_rasterize_plain(packed, w, h, bool(fh), bool(fv)),
-                  f"{B}x{w}x{h} flip h{fh} v{fv}")
+                  f"{B}x{w}x{h}{where} flip h{fh} v{fv}")
+        e = entries["mask_rasterize"]
         if B == 8:
-            e = entries["mask_rasterize"]
-            e["ms"] = time_ms(torch, lambda: KW.mask_rasterize(
-                packed, w, h), 25)
+            timed(e, "", lambda: KW.mask_rasterize(packed, w, h),
+                  packed.numel() + B * w * h, [B, h, w])
             e["plain_ms"] = time_ms(torch, lambda: M.mask_rasterize_plain(
                 packed, w, h), 5)
-            e["bound_ms"], e["bound_by"] = bytes_bound(
-                packed.numel() + B * w * h)
-            e["shape"] = [B, h, w]
-    # K8b: one 1024^2 RGBA tile, grid bytes 0..3, fill alpha 0, 128, 255;
-    # a 37x45 pair on the scalar path.
-    for (w, h, B) in ((TILE, TILE, 1), (37, 45, 2)):
-        base = torch.from_numpy(rng.integers(
-            0, 256, size=(B, h, w, 4), dtype=np.uint8)).to(dev)
-        grids = torch.from_numpy(rng.integers(
-            0, 4, size=(B, h, w), dtype=np.uint8)).to(dev)
+        elif w == TILE - 1:
+            timed(e, "ragged_", lambda: KW.mask_rasterize(packed, w, h,
+                                                          True),
+                  packed.numel() + B * w * h, [B, h, w, "flip_h"])
+    # K8b, fill alpha 0, 128, 255, grid bytes 0..3: one 1024^2 RGBA tile
+    # (timed at alpha 128); a 37x45 pair; 1023x1021 (a ragged tail); a
+    # 1024^2 base that starts 4 bytes past a 16-byte boundary; B=3 256^2;
+    # a base 1 byte and a grid 3 bytes past one (the byte loads).
+    for (w, h, B, off, goff) in ((TILE, TILE, 1, 0, 0), (37, 45, 2, 0, 0),
+                                 (TILE - 1, TILE - 3, 1, 0, 0),
+                                 (TILE, TILE, 1, 4, 0), (256, 256, 3, 0, 0),
+                                 (256, 255, 2, 1, 3)):
+        n, m = B * h * w * 4, B * h * w
+        flat = torch.from_numpy(rng.integers(
+            0, 256, size=n + 16, dtype=np.uint8)).to(dev)
+        base = flat[off:off + n].view(B, h, w, 4)
+        gflat = torch.from_numpy(rng.integers(
+            0, 4, size=m + 16, dtype=np.uint8)).to(dev)
+        grids = gflat[goff:goff + m].view(B, h, w)
+        where = (f" base +{off} bytes" if off else "") + (
+            f" grid +{goff} bytes" if goff else "")
         for alpha in (0, 128, 255):
             fills = torch.tensor([[255, 40, 7, alpha]] * B,
                                  dtype=torch.uint8, device=dev)
             tally("mask_overlay", KW.mask_overlay(base, grids, fills),
                   M.mask_overlay_plain(base, grids, fills),
-                  f"{B}x{w}x{h} alpha {alpha}")
-            if B == 1 and alpha == 128:
+                  f"{B}x{w}x{h}{where} alpha {alpha}")
+            if B == 1 and w == TILE and not off and alpha == 128:
                 e = entries["mask_overlay"]
-                e["ms"] = time_ms(torch, lambda: KW.mask_overlay(
-                    base, grids, fills), 25)
+                timed(e, "", lambda: KW.mask_overlay(base, grids, fills),
+                      base.numel() * 2 + grids.numel() + fills.numel(),
+                      [B, h, w, 4])
                 e["plain_ms"] = time_ms(
                     torch, lambda: M.mask_overlay_plain(base, grids, fills),
                     5)
-                e["bound_ms"], e["bound_by"] = bytes_bound(
-                    base.numel() * 2 + grids.numel() + fills.numel())
-                e["shape"] = [B, h, w, 4]
     for name in ("mask_rasterize", "mask_overlay"):
         entries[name]["library_ms"] = None
         entries[name]["library_note"] = "no single PyTorch call computes this"

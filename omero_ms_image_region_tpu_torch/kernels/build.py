@@ -4,8 +4,8 @@ module of the port uses.
 A source under ``csrc/`` with a plain ``extern "C"`` interface is compiled
 by ``nvcc`` for ``sm_90a`` into ``_build/`` beside this file, once per
 (source bytes, flags): an edited source or a changed flag rebuilds, and
-concurrent builds agree (each writes a private file and renames it into
-place).  The library is loaded with ``ctypes``.  A missing ``nvcc`` or a
+concurrent builds agree (each process and thread writes a private file
+and renames it into place).  The library is loaded with ``ctypes``.  A missing ``nvcc`` or a
 failed build raises; nothing falls back.
 """
 
@@ -54,7 +54,10 @@ def build(source: Path, flags: Sequence[str]) -> Tuple[Path, str]:
     if lib.exists():
         return lib, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f"lib{source.stem}_{tag}.{os.getpid()}.tmp.so"
+    # Private to this thread: build_all and a load() on another thread may
+    # build the same source at once.
+    tmp = (BUILD_DIR / f"lib{source.stem}_{tag}.{os.getpid()}."
+           f"{threading.get_ident()}.tmp.so")
     cmd = [nvcc(), *flags, *LIB_FLAGS, "-o", str(tmp), str(source)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:

@@ -8,11 +8,18 @@
 // K8b mask_overlay_kernel    replaces ops/maskops.py::_overlay_batch_jit
 // K9  mean2_int_kernel       replaces ops/pyramid.py::_mean2_int_jit
 //
-// All four are byte passes, bound by device memory.  Each thread handles
-// a short vector of consecutive elements with 16-byte loads (and 16- or
-// 8-byte stores) where the sizes and the alignment allow (the *_launch
-// function picks the path), and one element per thread otherwise.  Built with -fmad=false and without fast
-// math: K7 rounds every conversion, add and divide as numpy does.
+// All four are byte passes, bound by device memory.  K7 and K9 handle a
+// short vector of consecutive elements a thread with 16-byte loads (and
+// 16- or 8-byte stores) where the sizes and the alignment allow (their
+// *_launch function picks the path), and one element a thread otherwise.
+// K8a and K8b (redesigned for Hopper) have one kernel each that takes
+// every shape: K8a makes 32 output bytes a thread from 32-bit windows of
+// the packed bits, K8b blends 8 pixels a thread from loads it issues all
+// at once; the few bytes or pixels around a row end, a mask's or tile's
+// start off alignment and its ragged end take a narrower path inside the
+// same launch (the notes above each say which).  Built with -fmad=false
+// and without fast math: K7 rounds every conversion, add and divide as
+// numpy does.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -184,122 +191,300 @@ int launch_fold(const void* chunk, float* out, const FoldArgs& a, bool vec,
 }
 
 // ------------------------------------------------------------------ K8a
+//
+// What bounds it: every packed byte becomes eight output bytes (1 MiB of
+// bits to 8 MiB of 0/1 bytes at B=8 1024^2), so its bytes are the output's
+// stores.  The first design made each output byte from its own byte load,
+// flip and index arithmetic (16 rounds of it per 16-byte store, a 64-bit
+// divide a thread), and was bound by instruction issue, not by bytes.
+//
+// Design: one thread makes one group of 32 output bytes, 32-byte aligned
+// in memory, from 32-bit windows of the packed bits.  A window is two
+// aligned 32-bit words, byte-swapped into MSB-first order
+// (``__byte_perm``) and joined with ``__funnelshift_l``; it is reversed
+// with ``__brev`` unless the row is flipped horizontally (the window then
+// starts at the mirrored column and its order is already the output's).
+// The 32 bits become 32 bytes of 0/1 four at a time by a multiply and a
+// mask, and leave as two 16-byte streaming stores.  Indices inside a mask
+// are 32-bit.
+//
+// Which path each group takes, all in the one kernel: a group inside one
+// output row reads one window (all of them when W is a multiple of 32 and
+// the mask's base is 32-byte aligned, as at 1024^2); a group that crosses
+// a row end reads one window per row piece (two when W >= 32, one per row
+// when W < 32); the group holding a mask's first byte (its head, when the
+// mask does not start on a 32-byte boundary: member b > 0 of a batch whose
+// H * W is no multiple of 32) and the one holding its last (its tail)
+// store the bytes they own one at a time.  The packed words are read from
+// the buffer's 4-byte aligned base, so a row stride ``nbytes`` that is no
+// multiple of 4 costs nothing; a word that reaches past either end of the
+// buffer is read byte by byte, its bytes outside it as 0.
 
-// The bit of output (y, x) of a mask: MSB first, continuous across rows,
-// read at the flipped source position.
-__device__ __forceinline__ uint8_t mask_bit(const uint8_t* __restrict__ row,
-                                            int W, int H, int y, int x,
-                                            int fh, int fv) {
-  int sy = fv ? H - 1 - y : y;
-  int sx = fh ? W - 1 - x : x;
-  long long i = (long long)sy * W + sx;
-  return (row[i >> 3] >> (7 - (int)(i & 7))) & 1;
-}
-
-// Vector path: H * W % 16 == 0 and ``out`` 16-byte aligned; 16 output
-// bytes a thread, one 16-byte store.
-__global__ void mask_rasterize_kernel_vec(const uint8_t* __restrict__ packed,
-                                          long long nbytes, int W, int H,
-                                          int fh, int fv,
-                                          uint8_t* __restrict__ out,
-                                          long long vecs_per_mask) {
-  long long v = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  int b = (int)blockIdx.y;
-  if (v >= vecs_per_mask) return;
-  const uint8_t* row = packed + (long long)b * nbytes;
-  long long o = v * 16;
-  int y = (int)(o / W);
-  int x = (int)(o - (long long)y * W);
-  uint32_t w[4];
+// Word ``w`` of ``words`` in MSB-first order (its first byte in bits
+// 31-24).  Bytes outside [lo, hi) of ``words`` read as 0 and are not
+// loaded.
+__device__ __forceinline__ uint32_t be_word(
+    const uint32_t* __restrict__ words, long long w, long long lo,
+    long long hi) {
+  const long long b0 = w * 4;
+  if (b0 >= lo && b0 + 4 <= hi)
+    return __byte_perm(__ldg(words + w), 0, 0x0123);
+  const uint8_t* bytes = reinterpret_cast<const uint8_t*>(words);
+  uint32_t v = 0;
   #pragma unroll
   for (int k = 0; k < 4; ++k) {
-    uint32_t word = 0;
-    #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      word |= (uint32_t)mask_bit(row, W, H, y, x, fh, fv) << (8 * j);
-      if (++x == W) {
-        x = 0;
-        ++y;
-      }
-    }
-    w[k] = word;
+    const long long i = b0 + k;
+    v = (v << 8) | ((i >= lo && i < hi) ? (uint32_t)__ldg(bytes + i) : 0u);
   }
-  reinterpret_cast<uint4*>(out + (long long)b * H * W)[v] =
-      make_uint4(w[0], w[1], w[2], w[3]);
+  return v;
 }
 
-// Scalar path: one output byte a thread.
-__global__ void mask_rasterize_kernel(const uint8_t* __restrict__ packed,
-                                      long long nbytes, int W, int H, int fh,
-                                      int fv, uint8_t* __restrict__ out) {
-  long long o = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  int b = (int)blockIdx.y;
-  long long n = (long long)H * W;
-  if (o >= n) return;
-  int y = (int)(o / W);
-  int x = (int)(o - (long long)y * W);
-  out[(long long)b * n + o] =
-      mask_bit(packed + (long long)b * nbytes, W, H, y, x, fh, fv);
+// The 32 bits from bit ``bit`` of ``words`` on (MSB first): the first in
+// bit 31.
+__device__ __forceinline__ uint32_t bit_window(
+    const uint32_t* __restrict__ words, long long bit, long long lo,
+    long long hi) {
+  const long long w = bit >> 5;
+  return __funnelshift_l(be_word(words, w + 1, lo, hi),
+                         be_word(words, w, lo, hi), (unsigned)(bit & 31));
+}
+
+// Output columns x .. x+len-1 (1 <= len <= 32) of the source row whose
+// first bit is ``row0``, as bits 0 .. len-1.
+__device__ __forceinline__ uint32_t row_bits(
+    const uint32_t* __restrict__ words, long long row0, uint32_t x, int len,
+    uint32_t W, int fh, long long lo, long long hi) {
+  if (fh)   // source columns W-x-len .. W-1-x, read backwards
+    return bit_window(words, row0 + (W - x - len), lo, hi) >> (32 - len);
+  const uint32_t v = __brev(bit_window(words, row0 + x, lo, hi));
+  return len == 32 ? v : v & ((1u << len) - 1u);
+}
+
+constexpr int kMaskGroup = 32;   // output bytes a thread
+
+// A 16-byte streaming store (evict first: K8a and K8b write each output
+// byte once and do not read it back).
+__device__ __forceinline__ void store16(uint4* p, uint4 v) { __stcs(p, v); }
+
+// Bits 0-3 of ``nib`` as four bytes of 0/1, bit 0 in the lowest byte.
+__device__ __forceinline__ uint32_t spread4(uint32_t nib) {
+  return (nib * 0x00204081u) & 0x01010101u;
+}
+
+// ``words``: the packed buffer's 4-byte aligned base; mask b's bits start
+// at byte lo + b * nbytes of it, and [lo, hi) is the buffer.  n = H * W <
+// 2^32.
+__global__ void mask_rasterize_kernel(const uint32_t* __restrict__ words,
+                                      long long lo, long long hi,
+                                      long long nbytes, uint32_t W,
+                                      uint32_t H, int fh, int fv,
+                                      uint8_t* __restrict__ out) {
+  const uint32_t n = H * W;
+  const int b = (int)blockIdx.y;
+  uint8_t* dst = out + (long long)b * n;
+  // The group's first byte, from the 32-byte boundary at or before the
+  // mask's start; it owns bytes k0 .. k1-1 of its 32.
+  const long long start =
+      (long long)(blockIdx.x * blockDim.x + threadIdx.x) * kMaskGroup -
+      (long long)(reinterpret_cast<uintptr_t>(dst) & (kMaskGroup - 1));
+  if (start >= (long long)n) return;
+  const int k0 = start < 0 ? (int)-start : 0;
+  const int k1 = (long long)n - start < kMaskGroup
+                     ? (int)((long long)n - start) : kMaskGroup;
+  const long long bits0 = (lo + (long long)b * nbytes) * 8;
+  const uint32_t o = (uint32_t)(start + k0);
+  uint32_t y = o / W;
+  uint32_t x = o - y * W;
+  uint32_t r = 0;   // bit k: output byte k of the group
+  for (int k = k0; k < k1;) {
+    const int len = min(k1 - k, (int)min(W - x, (uint32_t)kMaskGroup));
+    const uint32_t sy = fv ? H - 1 - y : y;
+    r |= row_bits(words, bits0 + (long long)sy * W, x, len, W, fh, lo, hi)
+         << k;
+    k += len;
+    x = 0;
+    ++y;
+  }
+  if (k0 == 0 && k1 == kMaskGroup) {
+    uint4* d = reinterpret_cast<uint4*>(dst + start);
+    #pragma unroll
+    for (int i = 0; i < kMaskGroup / 16; ++i, r >>= 16)
+      store16(d + i, make_uint4(spread4(r & 15u), spread4((r >> 4) & 15u),
+                                spread4((r >> 8) & 15u),
+                                spread4((r >> 12) & 15u)));
+  } else {
+    for (int k = k0; k < k1; ++k) dst[start + k] = (r >> k) & 1u;
+  }
 }
 
 // ------------------------------------------------------------------ K8b
+//
+// What bounds it: bytes, 9 a pixel (4 read from the base, 1 from the grid,
+// 4 written), with some 15-25 integer operations a pixel.  The first
+// design had each thread blend 4 pixels from one 16-byte and one 4-byte
+// load: at B=1 1024^2 one wave of CTAs with one load pair in flight a
+// thread, then a wait on device memory, then the stores; and any pixel
+// count that is no multiple of 4, or a base off 16-byte alignment, sent
+// the whole tile to a kernel of one pixel a thread and byte loads.
+//
+// Design: a thread blends ``kOverlayPx`` consecutive pixels of one tile
+// and issues all its loads (32 bytes of base, 8 of grid) before it uses
+// any, through the read-only path (``__ldg``); its stores are streaming
+// (``__stcs``: each byte is written once).  Chunks are 16-byte aligned in
+// ``out`` (which the wrapper allocates); the few pixels of a tile before
+// its first aligned chunk (its head: tile b > 0 when H * W is no multiple
+// of 4) and after its last whole chunk (its tail) take one thread each in
+// the same launch.  The base is read in 16-byte loads where it is 16-byte
+// aligned at the tile's first chunk, the grid in 8-byte ones where it is
+// 8-byte aligned there; either takes 4-byte loads where it is 4-byte
+// aligned (a base 4 bytes off a 16-byte boundary) and byte loads else.  A masked
+// pixel's blend is about 15 integer operations, an unmasked one a select;
+// ``/ 255u`` compiles to a multiply by a constant and a shift.
+// (``scripts/k8_masks.py --sweep`` times the alternatives on the card: 16
+// or 4 pixels a thread, CTAs of 256, other load and store hints.)
+
+constexpr int kOverlayPx = 8;   // pixels a thread
 
 // (base * (255 - a) + fill * a + 127) // 255 in u32, a = (grid != 0) *
-// fill alpha; the base's alpha is copied.
-__device__ __forceinline__ uint32_t blend_px(uint32_t px, uint8_t g,
-                                             uint32_t fill) {
-  uint32_t a = g ? (fill >> 24) : 0u;
-  uint32_t ia = 255u - a;
-  uint32_t r = ((px & 0xFFu) * ia + (fill & 0xFFu) * a + 127u) / 255u;
-  uint32_t gg = (((px >> 8) & 0xFFu) * ia + ((fill >> 8) & 0xFFu) * a +
-                 127u) / 255u;
-  uint32_t bb = (((px >> 16) & 0xFFu) * ia + ((fill >> 16) & 0xFFu) * a +
-                 127u) / 255u;
-  return r | (gg << 8) | (bb << 16) | (px & 0xFF000000u);
-}
+// fill alpha; the base's alpha is copied.  Where the grid is 0 that is the
+// base itself ((c * 255 + 127) // 255 == c), so only the masked blend is
+// computed, from a tile's constants: red and blue together in the two
+// 16-bit halves of one word (each at most 255 * 255 + 127, and x // 255 ==
+// (x + 1 + (x >> 8)) >> 8 for every such x), green alone.
+struct Blend {
+  uint32_t ia;     // 255 - fill alpha
+  uint32_t k_rb;   // red * alpha + 127, (blue * alpha + 127) << 16
+  uint32_t k_g;    // green * alpha + 127
+};
 
-__device__ __forceinline__ uint32_t fill_word(const uint8_t* fills, int b) {
+__device__ __forceinline__ Blend blend_of(const uint8_t* fills, int b) {
   const uint8_t* f = fills + 4 * b;
-  return (uint32_t)f[0] | ((uint32_t)f[1] << 8) | ((uint32_t)f[2] << 16) |
-         ((uint32_t)f[3] << 24);
+  const uint32_t a = __ldg(f + 3);
+  return {255u - a, ((uint32_t)__ldg(f) * a + 127u) |
+                        (((uint32_t)__ldg(f + 2) * a + 127u) << 16),
+          (uint32_t)__ldg(f + 1) * a + 127u};
 }
 
-// Vector path: H * W % 4 == 0, base and out 16-byte aligned, grid 4-byte
-// aligned; 4 pixels a thread.
-__global__ void mask_overlay_kernel_vec(const uint8_t* __restrict__ base,
-                                        const uint8_t* __restrict__ grid,
-                                        const uint8_t* __restrict__ fills,
-                                        uint8_t* __restrict__ out,
-                                        long long quads_per_tile) {
-  long long q = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  int b = (int)blockIdx.y;
-  if (q >= quads_per_tile) return;
-  long long quad = (long long)b * quads_per_tile + q;
-  uint32_t fill = fill_word(fills, b);
-  uint4 px = reinterpret_cast<const uint4*>(base)[quad];
-  uint32_t g = reinterpret_cast<const uint32_t*>(grid)[quad];
-  uint4 o;
-  o.x = blend_px(px.x, g & 0xFFu, fill);
-  o.y = blend_px(px.y, (g >> 8) & 0xFFu, fill);
-  o.z = blend_px(px.z, (g >> 16) & 0xFFu, fill);
-  o.w = blend_px(px.w, g >> 24, fill);
-  reinterpret_cast<uint4*>(out)[quad] = o;
+__device__ __forceinline__ uint32_t blend_px(uint32_t px, uint32_t g,
+                                             const Blend& f) {
+  uint32_t rb = (px & 0x00FF00FFu) * f.ia + f.k_rb;
+  rb = ((rb + 0x00010001u + ((rb >> 8) & 0x00FF00FFu)) >> 8) & 0x00FF00FFu;
+  const uint32_t gg = (((px >> 8) & 0xFFu) * f.ia + f.k_g) / 255u;
+  return g ? rb | (gg << 8) | (px & 0xFF000000u) : px;
 }
 
-// Scalar path: one pixel a thread, byte loads and stores.
+// An input load through the read-only path (each input byte is read once;
+// evict-first loads, ``__ldcs``, measured slower here).
+template <typename T>
+__device__ __forceinline__ T ld_stream(const T* p) { return __ldg(p); }
+
+// 4 * N bytes from ``p`` (``A``-byte aligned) into ``w``, in loads of
+// min(A, 4 * N) bytes, all issued before any is used.
+template <int A, int N>
+__device__ __forceinline__ void load_stream(const uint8_t* __restrict__ p,
+                                            uint32_t (&w)[N]) {
+  constexpr int kA = A < 4 * N ? A : 4 * N;
+  if constexpr (kA == 16) {
+    #pragma unroll
+    for (int i = 0; i < N / 4; ++i) {
+      const uint4 v = ld_stream(reinterpret_cast<const uint4*>(p) + i);
+      w[4 * i] = v.x; w[4 * i + 1] = v.y; w[4 * i + 2] = v.z;
+      w[4 * i + 3] = v.w;
+    }
+  } else if constexpr (kA == 8) {
+    #pragma unroll
+    for (int i = 0; i < N / 2; ++i) {
+      const uint2 v = ld_stream(reinterpret_cast<const uint2*>(p) + i);
+      w[2 * i] = v.x; w[2 * i + 1] = v.y;
+    }
+  } else if constexpr (kA == 4) {
+    #pragma unroll
+    for (int i = 0; i < N; ++i)
+      w[i] = ld_stream(reinterpret_cast<const unsigned int*>(p) + i);
+  } else {
+    #pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const unsigned char* q = p + 4 * i;
+      w[i] = (uint32_t)ld_stream(q) | ((uint32_t)ld_stream(q + 1) << 8) |
+             ((uint32_t)ld_stream(q + 2) << 16) |
+             ((uint32_t)ld_stream(q + 3) << 24);
+    }
+  }
+}
+
+// One chunk of kOverlayPx pixels: base and grid ``BA``- and ``GA``-byte
+// aligned, ``out`` 16-byte aligned.
+template <int BA, int GA>
+__device__ __forceinline__ void overlay_chunk(
+    const uint8_t* __restrict__ base, const uint8_t* __restrict__ grid,
+    uint8_t* __restrict__ out, const Blend& fill) {
+  uint32_t px[kOverlayPx], g[kOverlayPx / 4];
+  load_stream<BA>(base, px);
+  load_stream<GA>(grid, g);
+  #pragma unroll
+  for (int i = 0; i < kOverlayPx / 4; ++i)
+    store16(reinterpret_cast<uint4*>(out) + i,
+           make_uint4(blend_px(px[4 * i], g[i] & 0xFFu, fill),
+                      blend_px(px[4 * i + 1], (g[i] >> 8) & 0xFFu, fill),
+                      blend_px(px[4 * i + 2], (g[i] >> 16) & 0xFFu, fill),
+                      blend_px(px[4 * i + 3], g[i] >> 24, fill)));
+}
+
+// ``widest`` (16 or 8) if ``p`` is aligned to it, else 4 if it is 4-byte
+// aligned, else 1: the loads a chunk's bytes from ``p`` are made of.
+__device__ __forceinline__ int load_width(const void* p, int widest) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(p);
+  return a % widest == 0 ? widest : a % 4 == 0 ? 4 : 1;
+}
+
+template <int BA>
+__device__ __forceinline__ void overlay_chunk_g(
+    int ga, const uint8_t* __restrict__ base,
+    const uint8_t* __restrict__ grid, uint8_t* __restrict__ out,
+    const Blend& fill) {
+  switch (ga) {
+    case 8: overlay_chunk<BA, 8>(base, grid, out, fill); break;
+    case 4: overlay_chunk<BA, 4>(base, grid, out, fill); break;
+    default: overlay_chunk<BA, 1>(base, grid, out, fill); break;
+  }
+}
+
+// Tile blockIdx.y: threads 0 .. chunks-1 blend a whole chunk each, the
+// next ``head + tail`` threads one head or tail pixel each.  ``out`` is
+// 16-byte aligned.
 __global__ void mask_overlay_kernel(const uint8_t* __restrict__ base,
                                     const uint8_t* __restrict__ grid,
                                     const uint8_t* __restrict__ fills,
                                     uint8_t* __restrict__ out,
-                                    long long px_per_tile) {
-  long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  int b = (int)blockIdx.y;
-  if (p >= px_per_tile) return;
-  long long i = (long long)b * px_per_tile + p;
-  const uint8_t* s = base + 4 * i;
-  uint32_t px = (uint32_t)s[0] | ((uint32_t)s[1] << 8) |
-                ((uint32_t)s[2] << 16) | ((uint32_t)s[3] << 24);
-  uint32_t o = blend_px(px, grid[i], fill_word(fills, b));
+                                    long long px) {
+  const int b = (int)blockIdx.y;
+  const long long p0 = (long long)b * px;   // the tile's first pixel
+  const long long head = min((long long)((4 - (p0 & 3)) & 3), px);
+  const long long body = p0 + head;          // its first aligned chunk
+  const long long chunks = (px - head) / kOverlayPx;
+  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const Blend fill = blend_of(fills, b);
+  if (t < chunks) {
+    const long long i = body + t * kOverlayPx;
+    const int ga = load_width(grid + body, 8);
+    switch (load_width(base + 4 * body, 16)) {
+      case 16: overlay_chunk_g<16>(ga, base + 4 * i, grid + i, out + 4 * i,
+                                   fill); break;
+      case 4: overlay_chunk_g<4>(ga, base + 4 * i, grid + i, out + 4 * i,
+                                 fill); break;
+      default: overlay_chunk_g<1>(ga, base + 4 * i, grid + i, out + 4 * i,
+                                  fill); break;
+    }
+    return;
+  }
+  const long long j = t - chunks;
+  const long long tail = px - head - chunks * kOverlayPx;
+  if (j >= head + tail) return;
+  const long long i =
+      j < head ? p0 + j : body + chunks * kOverlayPx + (j - head);
+  uint32_t v[1];
+  load_stream<1>(base + 4 * i, v);
+  const uint32_t o = blend_px(v[0], ld_stream(grid + i), fill);
   uint8_t* d = out + 4 * i;
   d[0] = o & 0xFFu;
   d[1] = (o >> 8) & 0xFFu;
@@ -422,44 +607,39 @@ int project_fold_launch(const void* chunk, int dtype, int zc, long long n,
   return (int)cudaErrorInvalidValue;
 }
 
-// K8a: packed u8[B, nbytes] -> u8[B, H, W] 0/1.
+// K8a: packed u8[B, nbytes] -> u8[B, H, W] 0/1 (H * W < 2^32).
 int mask_rasterize_launch(const uint8_t* packed, int B, long long nbytes,
                           int W, int H, int fh, int fv, uint8_t* out,
                           void* stream) {
-  long long n = (long long)H * W;
+  const long long n = (long long)H * W;
   if (B <= 0 || n <= 0) return 0;
+  if (n > 0xFFFFFFFFLL) return (int)cudaErrorInvalidValue;
   const int threads = 256;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n % 16 == 0 && aligned(out, 16)) {
-    long long vecs = n / 16;
-    dim3 grid((unsigned)((vecs + threads - 1) / threads), (unsigned)B);
-    mask_rasterize_kernel_vec<<<grid, threads, 0, s>>>(packed, nbytes, W, H,
-                                                       fh, fv, out, vecs);
-  } else {
-    dim3 grid((unsigned)((n + threads - 1) / threads), (unsigned)B);
-    mask_rasterize_kernel<<<grid, threads, 0, s>>>(packed, nbytes, W, H, fh,
-                                                   fv, out);
-  }
+  const long long lo = (long long)(reinterpret_cast<uintptr_t>(packed) & 3);
+  // With a head, one group more than n / kMaskGroup rounded up.
+  const long long groups = (n + 2 * kMaskGroup - 2) / kMaskGroup;
+  dim3 grid((unsigned)((groups + threads - 1) / threads), (unsigned)B);
+  mask_rasterize_kernel<<<grid, threads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      reinterpret_cast<const uint32_t*>(packed - lo), lo,
+      lo + (long long)B * nbytes, nbytes, (uint32_t)W, (uint32_t)H, fh, fv,
+      out);
   return (int)cudaGetLastError();
 }
 
-// K8b: base u8[B, H, W, 4], grid u8[B, H, W], fills u8[B, 4] -> out.
+// K8b: base u8[B, H, W, 4], grid u8[B, H, W], fills u8[B, 4] -> out
+// (16-byte aligned).
 int mask_overlay_launch(const uint8_t* base, const uint8_t* grid,
                         const uint8_t* fills, int B, long long px,
                         uint8_t* out, void* stream) {
   if (B <= 0 || px <= 0) return 0;
-  const int threads = 256;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (px % 4 == 0 && aligned(base, 16) && aligned(out, 16) &&
-      aligned(grid, 4)) {
-    long long quads = px / 4;
-    dim3 g((unsigned)((quads + threads - 1) / threads), (unsigned)B);
-    mask_overlay_kernel_vec<<<g, threads, 0, s>>>(base, grid, fills, out,
-                                                  quads);
-  } else {
-    dim3 g((unsigned)((px + threads - 1) / threads), (unsigned)B);
-    mask_overlay_kernel<<<g, threads, 0, s>>>(base, grid, fills, out, px);
-  }
+  if (!aligned(out, 16)) return (int)cudaErrorMisalignedAddress;
+  const int threads = 128;
+  // Whole chunks, and up to 3 + kOverlayPx - 1 head and tail pixels.
+  const long long per_tile = px / kOverlayPx + 3 + kOverlayPx;
+  dim3 g((unsigned)((per_tile + threads - 1) / threads), (unsigned)B);
+  mask_overlay_kernel<<<g, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+      base, grid, fills, out, px);
   return (int)cudaGetLastError();
 }
 

@@ -149,7 +149,8 @@ def mask_rasterize(packed: torch.Tensor, width: int, height: int,
     """K8a: packed u8[B, nbytes] mask bits (MSB first, continuous across
     rows, ``nbytes >= ceil(width*height/8)``) -> u8[B, height, width] 0/1
     grids; output ``(y, x)`` reads the bit of the flipped source position.
-    """
+    A mask holds fewer than 2**32 pixels (the kernel indexes it in 32
+    bits)."""
     dev = _cuda("mask_rasterize", packed)
     if packed.dtype != torch.uint8 or packed.dim() != 2:
         raise ValueError(f"packed must be u8[B, nbytes], got {packed.dtype} "
@@ -159,6 +160,8 @@ def mask_rasterize(packed: torch.Tensor, width: int, height: int,
         raise ValueError(f"{nbytes} bytes hold no {width}x{height} mask")
     if B > 65535:
         raise ValueError(f"{B} masks exceed one launch's grid")
+    if width * height >= 1 << 32:
+        raise ValueError(f"a {width}x{height} mask exceeds 2**32 pixels")
     out = torch.empty((B, height, width), dtype=torch.uint8, device=dev)
     if B == 0 or width * height == 0:
         return out

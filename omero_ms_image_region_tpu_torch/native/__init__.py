@@ -6,9 +6,9 @@ decoder (``jp2kt1.cpp``).
 
 Each C++ source is compiled with ``g++ -O3 -std=c++17 -shared -fPIC
 -fopenmp`` on first use into ``_build/`` beside this file, once per source
-content (an edited source rebuilds; concurrent builds agree, each writing a
-private file and renaming it into place), and loaded with ``ctypes``.  A
-missing compiler or a failed build raises.  The coder has no pure-Python
+content (an edited source rebuilds; concurrent builds agree, each process
+and thread writing a private file and renaming it into place), and loaded
+with ``ctypes``.  A missing compiler or a failed build raises.  The coder has no pure-Python
 counterpart to fall back on; the decoders' Python counterparts
 (``io.jpegdec``, ``io.tiff._lzw_decode``, ``io.jp2k._t1_decode``) are the
 plain versions the tests hold these against, and the readers call the
@@ -57,7 +57,10 @@ def build(source: Optional[Path] = None) -> Path:
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f"lib{source.stem}_{tag}.{os.getpid()}.tmp.so"
+    # Private to this thread: the prewarm's build_all and a first use on
+    # another thread may build the same source at once.
+    tmp = (BUILD_DIR / f"lib{source.stem}_{tag}.{os.getpid()}."
+           f"{threading.get_ident()}.tmp.so")
     cmd = ["g++", *CXX_FLAGS, "-o", str(tmp), str(source)]
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True)

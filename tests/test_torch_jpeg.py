@@ -16,6 +16,8 @@ its port counterpart:
   and the dense route.
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -686,6 +688,57 @@ def test_native_build_failure_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "_build")
     with pytest.raises(RuntimeError, match="g\\+\\+ failed"):
         native.build()
+
+
+@pytest.mark.parametrize("helper", ["native", "kernels"])
+def test_concurrent_builds_of_one_source_agree(monkeypatch, tmp_path,
+                                               helper):
+    """Threads of one process that build the same source at once (the
+    prewarm's ``build_all`` and a first use on another thread) each get
+    the library; no build renames another's file away.  The kernel
+    helper runs a stand-in for nvcc that writes its output slowly."""
+    import threading
+
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "native")
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "kernels")
+    if helper == "native":
+        src = tmp_path / "seven.cpp"
+        src.write_text('extern "C" int seven() { return 7; }\n')
+        run = native.build
+    else:
+        src = tmp_path / "seven.cu"
+        src.write_text("// a kernel source\n")
+        fake = tmp_path / "nvcc"
+        fake.write_text('#!/bin/sh\nwhile [ "$1" != "-o" ]; do shift; done\n'
+                        'printf lib > "$2"; sleep 0.3; printf rary >> "$2"\n')
+        fake.chmod(0o755)
+        monkeypatch.setattr(build, "nvcc", lambda: str(fake))
+
+        def run(source):
+            return build.build(source, ("-O3",))[0]
+    gate = threading.Barrier(4)
+    paths, errors = [], []
+
+    def one():
+        gate.wait()
+        try:
+            paths.append(run(src))
+        except Exception as e:      # recorded, then asserted empty
+            errors.append(e)
+
+    threads = [threading.Thread(target=one) for _ in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not any(t.is_alive() for t in threads)
+    assert errors == [] and len(set(paths)) == 1 and len(paths) == 4
+    lib = paths[0]
+    assert not list(lib.parent.glob("*.tmp.so"))
+    if helper == "native":
+        assert ctypes.CDLL(str(lib)).seven() == 7
+    else:
+        assert lib.read_text() == "library"
 
 
 # ------------------------------------------------- render_batch_to_jpeg

@@ -38,7 +38,12 @@ def data_dir(tmp_path_factory):
     return write_tree(str(tmp_path_factory.mktemp("masks")))
 
 
-@pytest.mark.parametrize("w, h", [(64, 64), (37, 45), (1, 9)])
+# 1023^2 (a payload that ends mid-byte), 1000x999 (a row stride of
+# 124,875 bytes, no multiple of 4), 31x7 and 33x5 (rows shorter and just
+# longer than K8a's 32-byte groups): the shapes of K8a's row-crossing,
+# head and tail groups.
+@pytest.mark.parametrize("w, h", [(64, 64), (37, 45), (1, 9), (1023, 1023),
+                                  (1000, 999), (31, 7), (33, 5)])
 @pytest.mark.parametrize("flip_h, flip_v", FLIPS)
 def test_rasterize_packed_batch_matches_jax(w, h, flip_h, flip_v):
     """B=3: the port's device function (its plain version here) equals
@@ -81,14 +86,19 @@ def test_payload_checks_match_jax():
             mod.flip_mask(np.zeros((0, 5), np.uint8), False, True)
 
 
-@pytest.mark.parametrize("alpha", [0, 128, 255])
-def test_overlay_matches_jax(alpha):
+@pytest.mark.parametrize("alpha, h, w", [
+    pytest.param(0, 13, 11, id="0"), pytest.param(128, 13, 11, id="128"),
+    pytest.param(255, 13, 11, id="255"),
+    # A pixel count that is no multiple of 4: K8b's ragged tail, and the
+    # second tile's head.
+    pytest.param(128, 1021, 1023, id="1023x1021-128")])
+def test_overlay_matches_jax(alpha, h, w):
     """The blend with grid bytes above 1 and fill alpha 0, 128 and 255:
     the port's device function (plain version here) and host formula
     equal the JAX host blend and its jitted twin (exact)."""
     rng = np.random.default_rng(alpha)
-    base = rng.integers(0, 256, size=(2, 13, 11, 4), dtype=np.uint8)
-    grids = rng.integers(0, 4, size=(2, 13, 11), dtype=np.uint8)
+    base = rng.integers(0, 256, size=(2, h, w, 4), dtype=np.uint8)
+    grids = rng.integers(0, 4, size=(2, h, w), dtype=np.uint8)
     fills = np.array([[10, 200, 30, alpha], [255, 0, 7, alpha]], np.uint8)
     want = jax_maskops.overlay_masks_batch(base, grids, fills)
     np.testing.assert_array_equal(
@@ -197,14 +207,17 @@ def test_same_shape_masks_form_one_group():
 @pytest.mark.cuda
 def test_mask_kernels_match_plain_on_the_card():
     """On a CUDA card: K8a (four flips, W*H % 8 != 0, a 16-byte aligned
-    and a ragged size) and K8b (fill alpha 0, 128, 255, grid bytes above
-    1) equal their plain versions byte for byte."""
+    and a ragged size, a row stride no multiple of 4, rows shorter and
+    just longer than its 32-byte groups) and K8b (fill alpha 0, 128, 255,
+    grid bytes above 1, a ragged tail, a base 4 bytes past a 16-byte
+    boundary, B=3) equal their plain versions byte for byte."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (run on the GPU machine)")
     from omero_ms_image_region_tpu_torch.kernels import workloads
     dev = torch.device("cuda")
     rng = np.random.default_rng(4)
-    for w, h in ((64, 64), (37, 45), (1, 9)):
+    for w, h in ((64, 64), (37, 45), (1, 9), (1023, 1023), (1000, 999),
+                 (31, 7), (33, 5)):
         packed = torch.from_numpy(rng.integers(
             0, 256, size=(3, maskops.packed_nbytes(w, h)),
             dtype=np.uint8)).to(dev)
@@ -212,13 +225,16 @@ def test_mask_kernels_match_plain_on_the_card():
             assert torch.equal(
                 workloads.mask_rasterize(packed, w, h, fh, fv),
                 maskops.mask_rasterize_plain(packed, w, h, fh, fv))
-    for w, h in ((64, 64), (37, 45)):
-        base = torch.from_numpy(rng.integers(
-            0, 256, size=(2, h, w, 4), dtype=np.uint8)).to(dev)
+    for w, h, B, off in ((64, 64, 2, 0), (37, 45, 2, 0), (1023, 1021, 1, 0),
+                         (1024, 1024, 1, 4), (256, 256, 3, 0)):
+        n = B * h * w * 4
+        flat = torch.from_numpy(rng.integers(
+            0, 256, size=n + 16, dtype=np.uint8)).to(dev)
+        base = flat[off:off + n].view(B, h, w, 4)
         grids = torch.from_numpy(rng.integers(
-            0, 4, size=(2, h, w), dtype=np.uint8)).to(dev)
+            0, 4, size=(B, h, w), dtype=np.uint8)).to(dev)
         for alpha in (0, 128, 255):
-            fills = torch.tensor([[9, 99, 199, alpha]] * 2,
+            fills = torch.tensor([[9, 99, 199, alpha]] * B,
                                  dtype=torch.uint8, device=dev)
             assert torch.equal(workloads.mask_overlay(base, grids, fills),
                                maskops.mask_overlay_plain(base, grids, fills))
