@@ -227,7 +227,26 @@ Phases (any failure ends the run with a non-zero exit and no result line):
            installed, else through its request front (``server.app.Front``:
            the same conditional decision, handler and status mapping);
            each line says which;
-5. front_cost the host cost the front adds to a GET outside any I/O (a
+5. warm_restart two lives of ``python -m omero_ms_image_region_tpu_torch.server``
+           from one YAML (``persistence: {enabled: true, dir: <tmp>}``,
+           ``renderer.prewarm: ["4x1024"]``, the three byte caches, the
+           provenance header) over the flagship data, ``nvcc`` and ``g++``
+           on PATH behind wrappers that log every call.  Life 1 runs from
+           the repo: 16 cold tiles and a mask, then SIGTERM; the manifest
+           and a flight dump holding ``signal`` and ``warmstate.snapshot``
+           must exist.  Life 2 runs from a copy of the package with empty
+           ``_build/`` directories, as a deploy lays it down: no compiler
+           may build (only ``--version`` runs, for the build store's
+           fingerprint), every library comes from the build store
+           (``execcache.load`` events, ``imageregion_execcache_*``),
+           ``/readyz`` reaches 200 with ``rehydrate: done N/N``, life 1's
+           17 GETs answer its bytes from the byte tiers with no group
+           dispatched, and 8 re-windowed GETs of re-staged planes are
+           raw-cache hits (``hbm_warm``, no ``PixelsService.readRegion``)
+           with the plain route's bytes.  Prints each life's seconds to
+           ready, the rehydrate's ms and items, the p50 of the repeats and
+           of the re-windowed GETs, and the nvidia-smi line.
+6. front_cost the host cost the front adds to a GET outside any I/O (a
            trace, 11 spans, admission, the ETag and header decision),
            median of 10,000, with the card's name and power limit.
 
@@ -3226,6 +3245,335 @@ async def access_log_phase(data_dir, lut_root, have_aiohttp) -> dict:
     return doc
 
 
+# A third window for the warm_restart phase's re-windowed GETs.
+CH3 = "1|900:20000$FF0000,2|700:42000$00FF00,3|400:30000$0000FF," \
+      "4|1200:36000$FFFF00"
+
+
+def http_get(port: int, path: str, timeout: float = 300.0):
+    """(status, headers, body, ms) of one GET to 127.0.0.1:``port``."""
+    import urllib.error
+    import urllib.request
+
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                    timeout=timeout) as r:
+            status, headers, body = r.status, dict(r.headers), r.read()
+    except urllib.error.HTTPError as e:
+        status, headers, body = e.code, dict(e.headers), e.read()
+    return status, headers, body, (time.perf_counter() - t0) * 1000.0
+
+
+def scrape(port: int) -> str:
+    status, _, body, _ = http_get(port, "/metrics")
+    check(status == 200, f"warm_restart: /metrics answered {status}")
+    return body.decode()
+
+
+def compiler_wrappers(root: str) -> tuple:
+    """A directory of ``nvcc`` and ``g++`` wrappers that log each call
+    (argv) to a file and run the real compiler; (bin dir, log path)."""
+    import shutil
+
+    from omero_ms_image_region_tpu_torch.kernels import build
+
+    bin_dir = os.path.join(root, "bin")
+    os.makedirs(bin_dir)
+    log_path = os.path.join(root, "compilers.log")
+    for name, real in (("nvcc", build.nvcc()),
+                       ("g++", shutil.which("g++"))):
+        check(real is not None, f"warm_restart: no {name}")
+        path = os.path.join(bin_dir, name)
+        with open(path, "w") as f:
+            f.write(f'#!/bin/sh\necho "{name} $*" >> "{log_path}"\n'
+                    f'exec "{real}" "$@"\n')
+        os.chmod(path, 0o755)
+    return bin_dir, log_path
+
+
+def builds_logged(log_path: str) -> list:
+    """The logged compiler calls that were not ``--version``."""
+    if not os.path.exists(log_path):
+        return []
+    with open(log_path) as f:
+        return [ln.strip() for ln in f if "--version" not in ln]
+
+
+class ServerLife:
+    """``python -m omero_ms_image_region_tpu_torch.server --config`` in
+    ``cwd`` (its package is the one under ``cwd``), stopped with SIGTERM."""
+
+    def __init__(self, cwd: str, config_path: str, port: int,
+                 bin_dir: str, log_path: str):
+        env = dict(os.environ, PYTHONPATH=cwd,
+                   PATH=bin_dir + os.pathsep + os.environ.get("PATH", ""))
+        self.port, self.log_path = port, log_path
+        self.log = open(log_path, "w")
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "omero_ms_image_region_tpu_torch.server",
+             "--config", config_path, "--device", DEVICE], cwd=cwd,
+            env=env, stdout=self.log, stderr=subprocess.STDOUT)
+
+    def wait_ready(self, rehydrate: bool,
+                   timeout_s: float = 600.0) -> tuple:
+        """Poll ``/readyz`` until 200 and, with ``rehydrate``, the boot
+        rehydrate ended; (seconds to the first 200, seconds to the end,
+        the last body)."""
+        ready_s = None
+        while True:
+            check(self.proc.poll() is None,
+                  f"warm_restart: the server exited with "
+                  f"{self.proc.returncode}")
+            check(time.perf_counter() - self.t0 < timeout_s,
+                  "warm_restart: /readyz did not reach 200 with the "
+                  "rehydrate done")
+            try:
+                status, _, body, _ = http_get(self.port, "/readyz", 10.0)
+            except OSError:
+                time.sleep(0.2)
+                continue
+            doc = json.loads(body)
+            if status == 200 and ready_s is None:
+                ready_s = time.perf_counter() - self.t0
+            state = doc["checks"].get("rehydrate", "")
+            if status == 200 and (not rehydrate or state.startswith(
+                    ("done", "aborted"))):
+                return ready_s, time.perf_counter() - self.t0, doc
+            time.sleep(0.1)
+
+    def stop(self) -> int:
+        """SIGTERM, then the exit code (kill after 120 s)."""
+        import signal
+
+        if self.proc.poll() is None:
+            self.proc.send_signal(signal.SIGTERM)
+            try:
+                self.proc.wait(timeout=120)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait()
+        self.log.close()
+        return self.proc.returncode
+
+    def tail(self, n: int = 40) -> str:
+        with open(self.log_path) as f:
+            return "".join(f.readlines()[-n:])
+
+    def prewarm_split(self) -> dict:
+        """The prewarm's logged seconds: loading (or building) the
+        libraries, and the launches at B = 1..8."""
+        import re
+
+        with open(self.log_path) as f:
+            text = f.read()
+        out = {}
+        for key, pattern in (("libraries_s", r"kernels built and loaded in "
+                                             r"([0-9.]+) s"),
+                             ("launches_s", r"prewarmed \S+ .* in "
+                                            r"([0-9.]+) s")):
+            m = re.search(pattern, text)
+            out[key] = float(m.group(1)) if m else None
+        return out
+
+
+def warm_restart_phase(torch, np, data_dir, lut_root, have_pil,
+                       smi: str) -> dict:
+    """Two lives of the server with ``persistence`` on (module docstring,
+    phase 5); fails on any check."""
+    import shutil
+
+    import yaml
+
+    from omero_ms_image_region_tpu_torch import __file__ as pkg_init
+
+    config, handler = front_handler(data_dir, lut_root, {})
+    matches_plain = plain_matcher(torch, np, handler, have_pil)
+    route = "render_image_region"
+    tiles = [{"tile": f"0,{i},5,{TILE},{TILE}", "c": CH, "m": "c",
+              "format": "jpeg"} for i in range(8)]
+    tiles += [dict(q, c=CH2) for q in tiles]
+    rewindowed = [dict(q, c=CH3) for q in tiles[:8]]
+
+    def url(q):
+        from urllib.parse import urlencode
+        return f"/webgateway/{route}/1/0/0?" + urlencode(q)
+
+    mask_url = "/webgateway/render_shape_mask/1?color=FF00FF"
+    with tempfile.TemporaryDirectory() as tmp:
+        bin_dir, compilers = compiler_wrappers(tmp)
+        warm, flight = os.path.join(tmp, "warm"), os.path.join(tmp, "flight")
+        port = free_port()
+        cfg = {"port": port, "data-dir": data_dir,
+               "omero.server": {"omero.script_repo_root": lut_root},
+               "renderer": {"prewarm": [f"4x{TILE}"]},
+               "persistence": {"enabled": True, "dir": warm},
+               "image-region-cache": {"enabled": True},
+               "pixels-metadata-cache": {"enabled": True},
+               "shape-mask-cache": {"enabled": True},
+               "telemetry": {"provenance-header": True,
+                             "flight-recorder-dir": flight}}
+        config_path = os.path.join(tmp, "config.yaml")
+        with open(config_path, "w") as f:
+            yaml.safe_dump(cfg, f)
+        repo = os.path.dirname(os.path.dirname(os.path.abspath(pkg_init)))
+
+        # Life 1, from the repo.
+        life = ServerLife(repo, config_path, port, bin_dir,
+                          os.path.join(tmp, "life1.log"))
+        try:
+            ready1, _, _ = life.wait_ready(rehydrate=False)
+            first = []
+            for path in [url(q) for q in tiles] + [mask_url]:
+                status, headers, body, _ = http_get(port, path)
+                check(status == 200, f"warm_restart: life 1 {path}: "
+                                     f"HTTP {status}")
+                first.append(body)
+        except BaseException:
+            life.stop()
+            print("warm_restart life 1 log tail:\n" + life.tail(), flush=True)
+            raise
+        rc1 = life.stop()
+        split1 = life.prewarm_split()
+        builds1 = builds_logged(compilers)
+        check(rc1 == 0, f"warm_restart: life 1 exited with {rc1}")
+        manifest_path = os.path.join(warm, "manifest.json")
+        check(os.path.exists(manifest_path),
+              "warm_restart: life 1 left no manifest")
+        with open(manifest_path) as f:
+            manifest = json.load(f)
+        dumps = sorted(os.listdir(flight)) if os.path.isdir(flight) else []
+        check(len(dumps) == 1, f"warm_restart: life 1 left {len(dumps)} "
+                               f"flight dumps, not 1")
+        with open(os.path.join(flight, dumps[0])) as f:
+            kinds = [e["kind"] for e in json.load(f)["events"]]
+        check("signal" in kinds and "warmstate.snapshot" in kinds
+              and kinds.index("signal") < kinds.index("warmstate.snapshot"),
+              f"warm_restart: the dump's events lack the signal or the "
+              f"snapshot after it: {kinds[-8:]}")
+
+        # Life 2, from a fresh copy of the package with empty _build/.
+        deploy = os.path.join(tmp, "deploy")
+        pkg = os.path.join(deploy, "omero_ms_image_region_tpu_torch")
+        shutil.copytree(os.path.dirname(os.path.abspath(pkg_init)), pkg,
+                        ignore=shutil.ignore_patterns("_build",
+                                                      "__pycache__"))
+        for sub in ("kernels", "native"):
+            os.makedirs(os.path.join(pkg, sub, "_build"))
+        mark = len(builds_logged(compilers))
+        life = ServerLife(deploy, config_path, port, bin_dir,
+                          os.path.join(tmp, "life2.log"))
+        try:
+            ready2, rehydrated2, ready_doc = life.wait_ready(
+                rehydrate=True)
+            before = scrape(port)
+            repeat_ms = []
+            for path, body in zip([url(q) for q in tiles] + [mask_url],
+                                  first):
+                status, headers, again, ms = http_get(port, path)
+                tier = headers.get("X-Image-Region-Provenance", "")
+                check(status == 200 and again == body
+                      and "tier=byte_cache" in tier,
+                      f"warm_restart: life 2's repeat of {path}: HTTP "
+                      f"{status}, {tier!r}, same bytes: {again == body}")
+                repeat_ms.append(ms)
+            between = scrape(port)
+            rewindow_ms, plain_ok = [], []
+            for q in rewindowed:
+                status, headers, body, ms = http_get(port, url(q))
+                tier = headers.get("X-Image-Region-Provenance", "")
+                check(status == 200 and "tier=hbm_warm" in tier,
+                      f"warm_restart: re-windowed {q['tile']}: HTTP "
+                      f"{status}, {tier!r}")
+                rewindow_ms.append(ms)
+                plain_ok.append(asyncio.run(matches_plain(route, q,
+                                                          body))[3])
+            after = scrape(port)
+            status, _, ring, _ = http_get(port, "/debug/flightrecorder")
+            events = json.loads(ring)["events"]
+        except BaseException:
+            life.stop()
+            print("warm_restart life 2 log tail:\n" + life.tail(), flush=True)
+            raise
+        rc2 = life.stop()
+        split2 = life.prewarm_split()
+        builds2 = builds_logged(compilers)[mark:]
+
+    def delta(a, b, name):
+        return metric_value(b, name) - metric_value(a, name)
+
+    loads = [e for e in events if e["kind"] == "execcache.load"]
+    n_exec = len(manifest["executables"])
+    doc = {
+        "ready_s": [ready1, ready2], "rehydrated_s": rehydrated2,
+        "prewarm_s": [split1, split2],
+        "readyz": ready_doc["checks"],
+        "rehydrate_ms": metric_value(after,
+                                     "imageregion_rehydrate_duration_ms"),
+        "rehydrate_items": metric_value(after,
+                                        "imageregion_rehydrate_items_total"),
+        "bytes_promoted": metric_value(
+            after, "imageregion_rehydrate_bytes_promoted_total"),
+        "planes_restaged": metric_value(
+            after, "imageregion_rehydrate_planes_restaged_total"),
+        "executables_loaded": metric_value(
+            after, "imageregion_rehydrate_executables_loaded_total"),
+        "manifest": {"byte_keys": {k: len(v) for k, v in
+                                   manifest["byte_keys"].items()},
+                     "planes": len(manifest["planes"]),
+                     "executables": n_exec},
+        "store_loads": metric_value(after,
+                                    "imageregion_execcache_loaded_total"),
+        "store_misses": metric_value(after, "imageregion_execcache_misses"),
+        "execcache_load_events": len(loads),
+        "builds": [len(builds1), len(builds2)],
+        "repeat_p50_ms": statistics.median(repeat_ms),
+        "repeat_groups": delta(before, between,
+                               "imageregion_batches_dispatched"),
+        "rewindow_p50_ms": statistics.median(rewindow_ms),
+        "rewindow_groups": delta(between, after,
+                                 "imageregion_batches_dispatched"),
+        "rewindow_tiles": delta(between, after,
+                                "imageregion_tiles_rendered"),
+        "rewindow_raw_hits": delta(between, after,
+                                   "imageregion_rawcache_hits"),
+        "rewindow_reads": delta(between, after,
+                                'imageregion_span_count{span='
+                                '"PixelsService.readRegion"}'),
+        "rewindow_plain_equal": sum(plain_ok), "exit": [rc1, rc2],
+        "nvidia_smi": smi}
+    print("warm_restart: " + json.dumps(doc), flush=True)
+    check(builds2 == [], f"warm_restart: life 2 ran a compiler: {builds2}")
+    check(ready_doc["checks"].get("rehydrate")
+          == f"done {int(doc['rehydrate_items'])}/"
+             f"{int(doc['rehydrate_items'])}"
+          and doc["rehydrate_items"] > 0,
+          f"warm_restart: rehydrate ended as {ready_doc['checks']}")
+    # The three CUDA sources and the four C++ ones (on the CPU, the
+    # latter alone).
+    check(n_exec == (7 if DEVICE == "cuda" else 4)
+          and doc["store_loads"] == n_exec
+          and doc["store_misses"] == 0 and len(loads) == n_exec
+          and doc["executables_loaded"] == n_exec,
+          "warm_restart: not every library came from the build store")
+    check(doc["repeat_groups"] == 0,
+          "warm_restart: a repeat GET dispatched a group")
+    # The re-windowed GETs ran the render path's groups (K1, K3, K4a,
+    # K4b in the server process, whose launch counts this process cannot
+    # read): one tile each.
+    check(doc["rewindow_tiles"] == len(rewindowed)
+          and doc["rewindow_groups"] >= 1,
+          "warm_restart: the re-windowed GETs rendered no group")
+    check(doc["rewindow_raw_hits"] >= len(rewindowed)
+          and doc["rewindow_reads"] == 0,
+          "warm_restart: a re-windowed GET missed the re-staged plane")
+    check(all(plain_ok),
+          "warm_restart: a re-windowed GET differs from the plain route")
+    check(rc2 == 0, f"warm_restart: life 2 exited with {rc2}")
+    return doc
+
+
 async def serve_phase(torch, np, data_dir, lut_root, have_aiohttp,
                       have_pil):
     from omero_ms_image_region_tpu_torch import codecs, native
@@ -3677,6 +4025,7 @@ def main() -> int:
         launches, serve_launches, workload_launches = asyncio.run(
             serve_phase(torch, np, data_dir, lut_root, have_aiohttp,
                         have_pil))
+        warm_restart_phase(torch, np, data_dir, lut_root, have_pil, smi)
     front_cost_phase(smi)
 
     # launches: the batch burst for K1-K4b; the workload phases together

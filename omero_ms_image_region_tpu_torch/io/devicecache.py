@@ -262,6 +262,29 @@ class DeviceRawCache:
     def __len__(self) -> int:
         return len(self._entries)
 
+    def snapshot_entries(self, limit: int = 0):
+        """The warm-state manifest's planes (``services.warmstate``): the
+        resident region entries, most recently used first, each as
+        ``{"key": [image, z, t, level, [x, y, w, h], [channels]],
+        "digest": <content digest, or None with digest dedup off>}``, no
+        LRU bump.  Only region keys can be re-read from the source at
+        boot; projected planes (``("proj", ...)``) are left out.  The JAX
+        entry's fleet ``route`` field comes with the fleet.  ``limit`` 0:
+        all."""
+        out = []
+        with self._lock:
+            for key in reversed(self._entries.keys()):
+                if (not isinstance(key, tuple) or len(key) != 6
+                        or not isinstance(key[0], int)):
+                    continue
+                image_id, z, t, level, region, channels = key
+                out.append({"key": [image_id, z, t, level, list(region),
+                                    list(channels)],
+                            "digest": self._digests_of.get(key)})
+                if limit and len(out) >= limit:
+                    break
+        return out
+
 
 def region_key(image_id: int, z: int, t: int, level: int,
                region: Tuple[int, int, int, int],

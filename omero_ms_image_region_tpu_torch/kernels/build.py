@@ -5,8 +5,14 @@ A source under ``csrc/`` with a plain ``extern "C"`` interface is compiled
 by ``nvcc`` for ``sm_90a`` into ``_build/`` beside this file, once per
 (source bytes, flags): an edited source or a changed flag rebuilds, and
 concurrent builds agree (each process and thread writes a private file
-and renames it into place).  The library is loaded with ``ctypes``.  A missing ``nvcc`` or a
-failed build raises; nothing falls back.
+and renames it into place).  The library is loaded with ``ctypes``.  A
+missing ``nvcc`` or a failed build raises; nothing falls back.
+
+With a build store (:func:`use_store`, ``server.execcache``; the app hands
+one over when ``persistence.enabled`` is on) a library missing from
+``_build/`` is taken from the store when it holds one for this toolchain
+and card, and a library built or found here is stored for the next
+deploy.  Without one nothing changes.
 """
 
 from __future__ import annotations
@@ -30,6 +36,20 @@ LIB_FLAGS = ("-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC")
 _libs: Dict[Tuple[str, Tuple[str, ...]], ctypes.CDLL] = {}
 _logs: Dict[str, str] = {}
 _lock = threading.Lock()
+_store = None       # server.execcache.ExecutableCache, or None
+
+
+def use_store(store) -> None:
+    """Consult ``store`` (an ``ExecutableCache``; None: none) in
+    :func:`build` from now on, and store the libraries this process has
+    already loaded."""
+    global _store
+    _store = store
+    if store is not None:
+        with _lock:
+            paths = [Path(lib._name) for lib in _libs.values()]
+        for path in paths:
+            store.save("nvcc", path)
 
 
 def nvcc() -> str:
@@ -46,12 +66,17 @@ def build(source: Path, flags: Sequence[str]) -> Tuple[Path, str]:
     """Compile ``source`` into ``_build/`` unless a library of the same
     source and flags is there; returns its path and the compiler's output
     (``-Xptxas=-v`` register and shared-memory report; empty when the
-    library was already built)."""
+    library was already built or came from the build store)."""
     flags = tuple(flags)
     tag = hashlib.sha256(
         source.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
     lib = BUILD_DIR / f"lib{source.stem}_{tag}.so"
+    store = _store
     if lib.exists():
+        if store is not None:
+            store.save("nvcc", lib)
+        return lib, ""
+    if store is not None and store.fetch("nvcc", lib):
         return lib, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     # Private to this thread: build_all and a load() on another thread may
@@ -65,6 +90,8 @@ def build(source: Path, flags: Sequence[str]) -> Tuple[Path, str]:
             f"nvcc failed with exit code {proc.returncode}:\n"
             f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
     os.replace(tmp, lib)
+    if store is not None:
+        store.save("nvcc", lib)
     return lib, proc.stdout + proc.stderr
 
 

@@ -8,7 +8,11 @@ Each C++ source is compiled with ``g++ -O3 -std=c++17 -shared -fPIC
 -fopenmp`` on first use into ``_build/`` beside this file, once per source
 content (an edited source rebuilds; concurrent builds agree, each process
 and thread writing a private file and renaming it into place), and loaded
-with ``ctypes``.  A missing compiler or a failed build raises.  The coder has no pure-Python
+with ``ctypes``; with a build store (:func:`use_store`,
+``server.execcache``, handed over by the app when ``persistence.enabled``
+is on) a library missing from ``_build/`` comes from the store when it
+holds one for this toolchain, and a library built or found is stored.  A
+missing compiler or a failed build raises.  The coder has no pure-Python
 counterpart to fall back on; the decoders' Python counterparts
 (``io.jpegdec``, ``io.tiff._lzw_decode``, ``io.jp2k._t1_decode``) are the
 plain versions the tests hold these against, and the readers call the
@@ -41,6 +45,20 @@ CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-fopenmp")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
+_store = None       # server.execcache.ExecutableCache, or None
+
+
+def use_store(store) -> None:
+    """Consult ``store`` (an ``ExecutableCache``; None: none) in
+    :func:`build` from now on, and store the libraries this process has
+    already loaded."""
+    global _store
+    _store = store
+    if store is not None:
+        with _lock:
+            paths = [Path(lib._name) for lib in _libs.values()]
+        for path in paths:
+            store.save("g++", path)
 
 
 class SparseOverflowError(ValueError):
@@ -54,7 +72,12 @@ def build(source: Optional[Path] = None) -> Path:
     tag = hashlib.sha256(source.read_bytes()
                          + " ".join(CXX_FLAGS).encode()).hexdigest()[:16]
     lib = BUILD_DIR / f"lib{source.stem}_{tag}.so"
+    store = _store
     if lib.exists():
+        if store is not None:
+            store.save("g++", lib)
+        return lib
+    if store is not None and store.fetch("g++", lib):
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     # Private to this thread: the prewarm's build_all and a first use on
@@ -71,6 +94,8 @@ def build(source: Optional[Path] = None) -> Path:
             f"g++ failed with exit code {proc.returncode}:\n"
             f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
     os.replace(tmp, lib)
+    if store is not None:
+        store.save("g++", lib)
     return lib
 
 

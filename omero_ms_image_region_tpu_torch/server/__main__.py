@@ -2,7 +2,9 @@
 
 Reads the JAX package's YAML (``conf/config.example.yaml``; see
 ``server.config`` for what the port serves of it).  The flags override the
-file.
+file.  SIGTERM or SIGINT runs the shutdown chain (``server.shutdown``: the
+warm-state snapshot with ``persistence`` on, then the flight-recorder dump)
+before the services close.
 """
 
 from __future__ import annotations

@@ -139,9 +139,13 @@ class AdmissionController:
             return 0.0
         return self.inflight * self.ewma_s * 1000.0 / self._lanes()
 
-    def _shed(self, reason: str, message: str, wait_ms: float):
+    def _shed(self, reason: str, message: str, wait_ms: float, **event):
+        """Count the shed, record its ``admission.shed`` flight event
+        (``event``: the JAX event's fields) and raise the 503."""
         self.shed_total += 1
         telemetry.RESILIENCE.count_shed(reason)
+        telemetry.FLIGHT.record("admission.shed", reason=reason,
+                                inflight=self.inflight, **event)
         raise OverloadedError(message, retry_after_s=max(
             self.retry_after_s, wait_ms / 1000.0))
 
@@ -178,7 +182,7 @@ class AdmissionController:
             self._shed("queue-full",
                        f"admission queue full ({self.inflight} renders "
                        f"in flight, bound {max_queue})",
-                       self.estimated_wait_ms())
+                       self.estimated_wait_ms(), max_queue=max_queue)
         remaining = transient.remaining_ms()
         if remaining is not None:
             est = self.estimated_wait_ms()
@@ -186,7 +190,8 @@ class AdmissionController:
                 self._shed("deadline",
                            f"estimated wait {est:.0f} ms exceeds "
                            f"remaining deadline budget {remaining:.0f} ms",
-                           est)
+                           est, est_wait_ms=round(est, 1),
+                           remaining_ms=round(remaining, 1))
         self.inflight += 1
         self.admitted_total += 1
         return time.monotonic()

@@ -27,6 +27,8 @@ trailing segments are tolerated as its ``:theT*`` patterns are):
                      ``"degraded"`` while the startup prewarm runs or
                      failed, or past ``telemetry.ready-max-queue-depth``
                      queued tiles (:meth:`Front.ready`)
+  GET /debug/warmstate       the warm-state document (``?snapshot=1``)
+  GET /debug/flightrecorder  the flight recorder's ring (``?dump=1``)
   OPTIONS /          the feature document
 
 Around the render path, as the JAX default app (``create_app(AppConfig())``
@@ -58,9 +60,25 @@ there) has it:
 * **Readiness** (``server.prewarm``): with ``renderer.prewarm`` the
   kernels are built and launched at every batch size on a background
   thread at startup, and ``/readyz`` answers 503 ``pending`` until they
-  are, and 503 with the reason if that failed.  The JAX ``/readyz`` also
-  annotates the sentinel, SLO, pressure, rehydrate, fleet and federation
+  are, and 503 with the reason if that failed.  With persistence on it
+  also carries the boot rehydrate's state (``rehydrate``: ``running N/M``
+  ... ``done N/M``), never a reason to be unready.  The JAX ``/readyz``
+  also annotates the sentinel, SLO, pressure, fleet and federation
   states; those lines come with their modules.
+* **Warm restarts** (``persistence.enabled``, off by default): the disk
+  byte tier in each named cache's chain (``services.diskcache``), the
+  build store that keeps the nvcc and g++ libraries across deploys
+  (``server.execcache``), and the warm-state manifest, written every
+  ``snapshot-interval-s`` and on SIGTERM and replayed on boot
+  (``services.warmstate``).  ``GET /debug/warmstate`` reports it
+  (``?snapshot=1`` writes the manifest now).
+* **The flight recorder** (``utils.telemetry.FLIGHT``, sized by
+  ``telemetry.flight-recorder-events``): ``GET /debug/flightrecorder``
+  serves the ring, ``?dump=1`` also writes it to
+  ``telemetry.flight-recorder-dir``.  On SIGTERM or SIGINT
+  :func:`run_app` records the signal and runs the shutdown chain
+  (``server.shutdown``: snapshot, build-store drain, flight dump) before
+  the services close.
 * **Sessions** (``services.sessions``): the session cookie resolves to
   the OMERO session key through the configured store
   (:func:`make_session_store`: static, the Redis or the Postgres
@@ -108,6 +126,7 @@ from __future__ import annotations
 import asyncio
 import json
 import logging
+import os
 import threading
 import time
 from dataclasses import dataclass, field
@@ -131,11 +150,12 @@ from ..services.sessions import (DjangoPostgresSessionStore,
                                  DjangoRedisSessionStore, SessionStore,
                                  StaticSessionStore, resolve_session_key)
 from ..services.viewport import ViewportTracker
+from ..services.warmstate import WarmStateManager
 from ..utils import faultinject, linkprobe, provenance, telemetry
 from ..utils.adaptive import AdaptiveEngine
 from ..utils.stopwatch import span_lines
 from ..utils.transient import DeadlineExceededError, deadline_scope
-from . import httpcache
+from . import execcache, httpcache
 from .admission import AdmissionController, SessionTokenBuckets
 from .batcher import BatchingRenderer
 from .config import AppConfig
@@ -223,14 +243,34 @@ def build_services(config: AppConfig,
     ``batcher.enabled`` off, the direct :class:`Renderer`), the device raw
     cache and its prefetcher, single-flight, admission (with the session
     buckets when ``sessions.enabled``), the byte caches and the canRead
-    memo on their Redis tier, each as its section says.
+    memo on their Redis tier, each as its section says.  With
+    ``persistence.enabled``: the disk byte tier under ``<dir>/bytecache``,
+    the build store under ``<dir>/executables`` (handed to both build
+    helpers, and kept as the renderer's ``exec_cache``) and the
+    warm-state manager, whose rehydrate starts here.
     With ``metadata-service.type: postgres`` and an open ``db``
     (``AsyncDb``) the metadata service is the OMERO database's; without
     ``db`` the app connects it at startup.  Installs the fault injector
     when the config gives it a seed."""
     if config.fault_injection.seed is not None:
         faultinject.install(config.fault_injection)
+    telemetry.FLIGHT.configure(config.telemetry.flight_recorder_events)
     device = resolve_device(device)
+    persistence = config.persistence
+    store = None
+    if persistence.enabled:
+        if not config.caches.disk_dir:
+            # The durable byte tier, between memory and Redis in each
+            # named cache's chain.
+            config.caches.disk_dir = os.path.join(persistence.dir,
+                                                  "bytecache")
+            config.caches.disk_max_bytes = persistence.disk_cache_max_bytes
+        if persistence.executables:
+            # Before anything builds: the native LRU tier below, the
+            # prewarm and the first requests all load through it.
+            store = execcache.ExecutableCache(
+                os.path.join(persistence.dir, "executables"), device)
+            execcache.install(store)
     b = config.batcher
     engine = config.renderer.jpeg_engine
     if b.enabled:
@@ -260,6 +300,7 @@ def build_services(config: AppConfig,
         if engine == "auto":
             engine = linkprobe.resolve_auto_engine(device)
         renderer = Renderer(device, jpeg_engine=engine)
+    renderer.exec_cache = store
     if config.renderer.prewarm and b.enabled:
         start_prewarm(config, renderer, device)
     rc, ft, se = config.raw_cache, config.fault_tolerance, config.sessions
@@ -285,7 +326,7 @@ def build_services(config: AppConfig,
     if config.caches.redis_uri and caches.redis is None:
         log.warning("redis package unavailable; redis cache tier and "
                     "shared canRead memo disabled")
-    return ImageRegionServices(
+    services = ImageRegionServices(
         pixels_service=PixelsService(config.data_dir,
                                      repo_root=config.omero_data_dir),
         metadata=metadata,
@@ -307,6 +348,15 @@ def build_services(config: AppConfig,
         # (ImageRegionVerticle.java:107-111).
         can_read_memo=CanReadMemo(shared=caches.redis),
     )
+    if persistence.enabled:
+        services.warmstate = WarmStateManager(
+            persistence.dir, services,
+            snapshot_interval_s=persistence.snapshot_interval_s,
+            snapshot_top_k=persistence.snapshot_top_k,
+            max_plane_entries=persistence.max_plane_entries,
+            rehydrate_concurrency=persistence.rehydrate_concurrency)
+        services.warmstate.start(rehydrate=persistence.rehydrate)
+    return services
 
 
 def start_prewarm(config: AppConfig, renderer: BatchingRenderer,
@@ -855,10 +905,15 @@ class Front:
         ``failed: <reason>``, which keeps the process unready) and
         ``queue`` (``ok``, or ``depth N over M`` past
         ``telemetry.ready-max-queue-depth`` tiles queued in the batcher).
-        The JAX app's sentinel, SLO, pressure, rehydrate, fleet and
-        federation annotations wait for their modules."""
+        With persistence on, ``rehydrate`` carries the boot rehydrate's
+        state (``idle``, ``running N/M``, ``done N/M`` or ``aborted N/M``),
+        an annotation that never makes the process unready.  The JAX
+        app's sentinel, SLO, pressure, fleet and federation annotations
+        wait for their modules."""
         checks: dict = {}
         ok = True
+        if self.handler.s.warmstate is not None:
+            checks["rehydrate"] = telemetry.PERSIST.rehydrate_summary()
         readiness = telemetry.READINESS
         if readiness.prewarm_failed:
             ok = False
@@ -878,6 +933,33 @@ class Front:
         else:
             checks["queue"] = "ok"
         return ok, checks
+
+    async def warmstate_doc(self, snapshot: bool = False) -> dict:
+        """``GET /debug/warmstate``: whether persistence is on, the
+        rehydrate's state and the snapshot counts; ``snapshot`` also
+        writes the manifest now (``snapshot_path``: its path, or None)."""
+        warmstate = self.handler.s.warmstate
+        doc = {"enabled": warmstate is not None,
+               "rehydrate": telemetry.PERSIST.rehydrate_summary(),
+               "snapshots": telemetry.PERSIST.snapshots,
+               "snapshot_errors": telemetry.PERSIST.snapshot_errors}
+        if warmstate is not None and snapshot:
+            doc["snapshot_path"] = await asyncio.to_thread(
+                warmstate.snapshot_now)
+        return doc
+
+    def flight_doc(self, dump: bool = False) -> dict:
+        """``GET /debug/flightrecorder``: the ring and its counts; ``dump``
+        also writes it to ``telemetry.flight-recorder-dir``
+        (``dumped_to``: the file, or None)."""
+        flight = telemetry.FLIGHT
+        doc = {"events": flight.snapshot(),
+               "events_total": flight.events_total,
+               "dumps_written": flight.dumps_written}
+        if dump:
+            doc["dumped_to"] = flight.dump(
+                self.config.telemetry.flight_recorder_dir, "manual")
+        return doc
 
     def metrics_text(self) -> str:
         """The ``/metrics`` body (Prometheus text exposition)."""
@@ -901,7 +983,6 @@ def configure_logging(config: AppConfig) -> None:
     """Console always; a time-rolling file appender when
     ``logging.file`` is set."""
     import logging.handlers
-    import os
 
     level = getattr(logging, config.logging.level.upper(), logging.INFO)
     fmt = logging.Formatter("%(asctime)s [%(threadName)s] %(levelname)-5s "
@@ -935,7 +1016,6 @@ def create_app(config: Optional[AppConfig] = None,
     cleanup stops them, closes the prefetcher, the database pool, the
     handler's renderer and the byte caches' Redis client."""
     import concurrent.futures as cf
-    import os
 
     from aiohttp import web
 
@@ -948,11 +1028,15 @@ def create_app(config: Optional[AppConfig] = None,
     front = Front(config, handler, db=db)
     watchdog: Optional[Watchdog] = None
     if config.watchdog.enabled:
-        watchdog = build_watchdog(
-            config.watchdog, renderer=handler.s.renderer,
-            escalate_cb=lambda e: log.error(
-                "watchdog escalation: %s on %s", e.get("action"),
-                e.get("target")))
+        def escalate(event: dict) -> None:
+            telemetry.FLIGHT.record("watchdog.escalate", **{
+                k: v for k, v in event.items() if k != "escalate"})
+            log.error("watchdog escalation: %s on %s", event.get("action"),
+                      event.get("target"))
+
+        watchdog = build_watchdog(config.watchdog,
+                                  renderer=handler.s.renderer,
+                                  escalate_cb=escalate)
 
     def to_response(answer: Answer) -> web.Response:
         return web.Response(status=answer.status, headers=answer.headers,
@@ -1014,6 +1098,14 @@ def create_app(config: Optional[AppConfig] = None,
     async def healthz(request: web.Request) -> web.Response:
         return web.json_response({"status": "ok"})
 
+    async def debug_warmstate(request: web.Request) -> web.Response:
+        return web.json_response(await front.warmstate_doc(
+            bool(request.query.get("snapshot"))))
+
+    async def debug_flightrecorder(request: web.Request) -> web.Response:
+        return web.json_response(front.flight_doc(
+            bool(request.query.get("dump"))))
+
     async def readyz(request: web.Request) -> web.Response:
         """200 only when this process can serve renders now; a 503 names
         what it waits for."""
@@ -1052,6 +1144,11 @@ def create_app(config: Optional[AppConfig] = None,
         for task in tasks:
             task.cancel()
         await asyncio.gather(*tasks, return_exceptions=True)
+        warmstate = handler.s.warmstate
+        if warmstate is not None:
+            # Stop the timer and the rehydrate before the stores they read
+            # close under them.
+            await asyncio.to_thread(warmstate.close)
         if handler.s.prefetcher is not None:
             handler.s.prefetcher.close()
         for resource in owned + [front.session_store]:
@@ -1059,10 +1156,13 @@ def create_app(config: Optional[AppConfig] = None,
             if close is not None:
                 await close()
         await handler.s.renderer.close()
-        # The one shared Redis client (the memo's too).
+        # The disk tier's queued writes, then the one shared Redis client
+        # (the memo's too).
         await handler.s.caches.close()
+        execcache.uninstall(getattr(handler.s.renderer, "exec_cache", None))
 
     app = web.Application()
+    app[_front_key()] = front
     app.on_startup.append(on_startup)
     app.on_cleanup.append(on_cleanup)
     for prefix in ("webgateway", "webclient"):
@@ -1087,18 +1187,43 @@ def create_app(config: Optional[AppConfig] = None,
     app.router.add_get("/metrics", metrics)
     app.router.add_get("/healthz", healthz)
     app.router.add_get("/readyz", readyz)
+    app.router.add_get("/debug/warmstate", debug_warmstate)
+    app.router.add_get("/debug/flightrecorder", debug_flightrecorder)
     app.router.add_route("OPTIONS", "/{tail:.*}", details)
     return app
+
+
+def _front_key():
+    """The app key under which :func:`create_app` keeps its
+    :class:`Front` (made at first use: aiohttp is imported lazily)."""
+    global _FRONT_KEY
+    if _FRONT_KEY is None:
+        from aiohttp import web
+        _FRONT_KEY = web.AppKey("front", Front)
+    return _FRONT_KEY
+
+
+_FRONT_KEY = None
 
 
 def run_app(app, config: AppConfig) -> None:
     """Serve on ``config.port`` with the config's HTTP parse limits (the
     reference's ``max-initial-line-length`` / ``max-header-size``, as
     aiohttp's ``max_line_size`` / ``max_field_size`` / ``max_headers``)
-    until SIGINT or SIGTERM."""
+    until SIGINT or SIGTERM.  The signal records a ``signal`` flight event
+    and starts the shutdown chain (``server.shutdown``: the warm-state
+    snapshot, the build store's drain, the flight dump) on a thread of its
+    own; its end is awaited (15 s at most) before aiohttp's cleanup closes
+    the services, so the snapshot sees them live."""
     import signal
 
     from aiohttp import web
+
+    from .shutdown import build_shutdown_chain
+
+    front = app.get(_front_key())
+    chain = build_shutdown_chain(
+        config, front.handler.s if front is not None else None)
 
     async def serve() -> None:
         runner = web.AppRunner(
@@ -1110,14 +1235,29 @@ def run_app(app, config: AppConfig) -> None:
         log.info("serving on :%d", config.port)
         stop = asyncio.Event()
         loop = asyncio.get_running_loop()
+        chain_thread: list = []
+
+        def on_signal(signame: str) -> None:
+            telemetry.FLIGHT.record("signal", sig=signame)
+            if not chain_thread:
+                t = threading.Thread(target=chain.run, args=(signame,),
+                                     name="shutdown-chain", daemon=True)
+                chain_thread.append(t)
+                t.start()
+            stop.set()
+
         for sig in (signal.SIGINT, signal.SIGTERM):
             try:
-                loop.add_signal_handler(sig, stop.set)
+                loop.add_signal_handler(sig, on_signal, sig.name)
             except NotImplementedError:
                 pass
         try:
             await stop.wait()
+            log.info("shutdown signal received")
+            if chain_thread:
+                await asyncio.to_thread(chain_thread[0].join, 15.0)
         finally:
             await runner.cleanup()
+            log.info("shutdown complete")
 
     asyncio.run(serve())

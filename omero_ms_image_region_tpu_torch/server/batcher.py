@@ -464,6 +464,7 @@ class BatchingRenderer:
             # group.
             group: List[_Pending] = []
             dead: List[_Pending] = []
+            expired = 0
             now = time.monotonic()
             while queue_ and len(group) < self.max_batch:
                 p = queue_.popleft()
@@ -475,8 +476,12 @@ class BatchingRenderer:
                     p.future.set_exception(transient.DeadlineExceededError(
                         "deadline exceeded in batch queue"))
                     dead.append(p)
+                    expired += 1
                     continue
                 group.append(p)
+            if expired:
+                telemetry.FLIGHT.record("batch.deadline-cancelled",
+                                        n=expired, key=_key_label(key))
             t_pop = time.perf_counter()
             if dead:
                 self._record_queue_waits(dead, t_pop, cancelled=True)
@@ -484,6 +489,9 @@ class BatchingRenderer:
                 slots.release()
                 continue
             self._record_queue_waits(group, t_pop)
+            telemetry.FLIGHT.record(
+                "batch.formed", key=_key_label(key), tiles=len(group),
+                queued=len(queue_), inflight=len(self._inflight))
             if key[0] == "jpeg":
                 render = self._render_group_jpeg
             elif key[0] == "mask":

@@ -46,9 +46,20 @@ served settings the same values and the same validation:
 * ``renderer.prewarm``: the tile shapes built and launched at startup
   (``server.prewarm``; a malformed spec fails the load, as in JAX);
 * ``telemetry``: ``access-log`` (the JSON access line, on by default),
-  ``ready-max-queue-depth`` (``/readyz``'s backlog bound) and
-  ``provenance-header``; its other keys (the slow-request dumps, the
-  flight recorder, profiles) are held to their JAX defaults.
+  ``ready-max-queue-depth`` (``/readyz``'s backlog bound),
+  ``provenance-header``, and the flight recorder's
+  ``flight-recorder-events`` (the ring's size) and
+  ``flight-recorder-dir`` (where SIGTERM and ``/debug/flightrecorder
+  ?dump=1`` write it); its other keys (the slow-request dumps, profiles)
+  are held to their JAX defaults;
+* ``persistence`` (off by default, as in JAX): ``enabled``, ``dir`` (the
+  disk byte tier under ``bytecache/``, the build store under
+  ``executables/``, ``manifest.json``), ``disk-cache-max-bytes``,
+  ``executables`` (the build store: built kernel and codec libraries
+  kept across deploys, ``server.execcache``), ``snapshot-interval-s``,
+  ``snapshot-top-k``, ``max-plane-entries``, ``rehydrate`` and
+  ``rehydrate-concurrency`` (``services.warmstate``), with the JAX
+  loader's validation.
 
 One default differs on purpose: ``raw-cache.digest-dedup`` is off unless
 the file sets it.  The dedup cost a cold GET 19-20 ms on the H100 and saved
@@ -110,11 +121,35 @@ class RendererConfig:
 @dataclass
 class TelemetryConfig:
     """The request telemetry the port serves: the JSON access log, the
-    ``/readyz`` backlog bound and the provenance debug header."""
+    ``/readyz`` backlog bound, the provenance debug header and the flight
+    recorder (``utils.telemetry.FLIGHT``)."""
 
     access_log: bool = True
     ready_max_queue_depth: int = 64
     provenance_header: bool = False
+    flight_recorder_events: int = 512
+    flight_recorder_dir: str = "./flight-recorder"
+
+
+@dataclass
+class PersistenceConfig:
+    """What survives a restart (the JAX ``PersistenceConfig``): the disk
+    byte tier (``services.diskcache``), the build store
+    (``server.execcache``) and the warm-state manifest
+    (``services.warmstate``).  Off by default."""
+
+    enabled: bool = False
+    # bytecache/, executables/ and manifest.json live under it.
+    dir: str = "./warm-state"
+    disk_cache_max_bytes: int = 1024 * 1024 * 1024
+    # The build store: nvcc and g++ libraries kept across deploys.
+    executables: bool = True
+    # 0 disables the timer; SIGTERM snapshots through the shutdown chain.
+    snapshot_interval_s: float = 60.0
+    snapshot_top_k: int = 512
+    max_plane_entries: int = 256
+    rehydrate: bool = True
+    rehydrate_concurrency: int = 2
 
 
 @dataclass
@@ -224,13 +259,6 @@ _UNPORTED = {
         "coordinator-address": None, "num-processes": None,
         "process-id": None,
     },
-    "persistence": {
-        "enabled": False, "dir": "./warm-state",
-        "disk-cache-max-bytes": 1073741824, "executables": True,
-        "snapshot-interval-s": 60.0, "snapshot-top-k": 512,
-        "max-plane-entries": 256, "rehydrate": True,
-        "rehydrate-concurrency": 2,
-    },
     "loadmodel": {
         "seed": 1234, "viewers": 10000, "think-time-median-ms": 350.0,
         "think-time-sigma": 1.0, "session-length-median": 24.0,
@@ -289,8 +317,6 @@ _UNPORTED_KEYS = {
     "renderer": {"kernel": "xla", "compilation-cache-dir": None},
     "telemetry": {
         "slow-request-ms": 0.0, "slow-request-dir": "./slow-traces",
-        "flight-recorder-events": 512,
-        "flight-recorder-dir": "./flight-recorder",
         "profile-dir": "./profiles", "profile-max-ms": 10000.0,
     },
     "http-cache": {"peer-fetch": True, "peer-timeout-ms": 500.0},
@@ -383,6 +409,8 @@ class AppConfig:
     sessions: SessionsConfig = field(default_factory=SessionsConfig)
     caches: CacheConfig = field(default_factory=CacheConfig)
     telemetry: TelemetryConfig = field(default_factory=TelemetryConfig)
+    persistence: PersistenceConfig = field(
+        default_factory=PersistenceConfig)
     # Sections switched on that the port loads but does not serve (none
     # today).
     unserved: Tuple[str, ...] = ()
@@ -469,6 +497,7 @@ class AppConfig:
         cfg._fault_injection(_block(raw, "fault-injection"))
         cfg._renderer(_block(raw, "renderer"))
         cfg._telemetry(_block(raw, "telemetry"))
+        cfg._persistence(_block(raw, "persistence"))
         cfg._workloads(_block(raw, "workloads"))
         cfg._pyramid(_block(raw, "pyramid"))
         return cfg
@@ -646,17 +675,59 @@ class AppConfig:
     def _telemetry(self, tel: dict) -> None:
         _check("telemetry", tel, _UNPORTED_KEYS["telemetry"],
                served=("access-log", "ready-max-queue-depth",
-                       "provenance-header"))
+                       "provenance-header", "flight-recorder-events",
+                       "flight-recorder-dir"))
         d = TelemetryConfig()
         self.telemetry = TelemetryConfig(
             access_log=bool(tel.get("access-log", d.access_log)),
             ready_max_queue_depth=int(tel.get("ready-max-queue-depth",
                                               d.ready_max_queue_depth)),
             provenance_header=bool(tel.get("provenance-header",
-                                           d.provenance_header)))
+                                           d.provenance_header)),
+            flight_recorder_events=int(tel.get(
+                "flight-recorder-events", d.flight_recorder_events)),
+            flight_recorder_dir=str(tel.get("flight-recorder-dir",
+                                            d.flight_recorder_dir)))
         if self.telemetry.ready_max_queue_depth < 1:
             raise ValueError("telemetry.ready-max-queue-depth must be "
                              ">= 1")
+        if self.telemetry.flight_recorder_events < 16:
+            raise ValueError("telemetry.flight-recorder-events must be "
+                             ">= 16 (the black box needs some tape)")
+
+    def _persistence(self, per: dict) -> None:
+        _check("persistence", per, {},
+               served=("enabled", "dir", "disk-cache-max-bytes",
+                       "executables", "snapshot-interval-s",
+                       "snapshot-top-k", "max-plane-entries", "rehydrate",
+                       "rehydrate-concurrency"))
+        d = PersistenceConfig()
+        self.persistence = PersistenceConfig(
+            enabled=bool(per.get("enabled", d.enabled)),
+            dir=str(per.get("dir", d.dir)),
+            disk_cache_max_bytes=int(per.get("disk-cache-max-bytes",
+                                             d.disk_cache_max_bytes)),
+            executables=bool(per.get("executables", d.executables)),
+            snapshot_interval_s=float(per.get("snapshot-interval-s",
+                                              d.snapshot_interval_s)),
+            snapshot_top_k=int(per.get("snapshot-top-k", d.snapshot_top_k)),
+            max_plane_entries=int(per.get("max-plane-entries",
+                                          d.max_plane_entries)),
+            rehydrate=bool(per.get("rehydrate", d.rehydrate)),
+            rehydrate_concurrency=int(per.get("rehydrate-concurrency",
+                                              d.rehydrate_concurrency)))
+        p = self.persistence
+        if p.disk_cache_max_bytes < 1024 * 1024:
+            raise ValueError("persistence.disk-cache-max-bytes must be "
+                             ">= 1 MiB")
+        if p.snapshot_interval_s < 0:
+            raise ValueError("persistence.snapshot-interval-s must be >= 0 "
+                             "(0 disables the timer)")
+        if p.rehydrate_concurrency < 1:
+            raise ValueError("persistence.rehydrate-concurrency must be "
+                             ">= 1")
+        if p.snapshot_top_k < 1:
+            raise ValueError("persistence.snapshot-top-k must be >= 1")
 
     def _pyramid(self, py: dict) -> None:
         _check("pyramid", py, _UNPORTED_KEYS["pyramid"],

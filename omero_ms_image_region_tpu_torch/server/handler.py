@@ -240,6 +240,9 @@ class ImageRegionServices:
     # The byte caches (services.cache.Caches); disabled stacks unless the
     # app builds them from its config.
     caches: Caches = field(default_factory=Caches.disabled)
+    # The warm-state snapshot and rehydrate (services.warmstate
+    # .WarmStateManager), with persistence.enabled.
+    warmstate: object = None
 
 
 async def check_can_read(services: ImageRegionServices, object_type: str,
@@ -794,6 +797,9 @@ class WorkloadsHandler:
                 f"configured cap of {self.max_frames}")
         t0 = time.perf_counter()
         telemetry.WORKLOADS.count_stream()
+        image = getattr(frame_ctxs[0], "image_id", None)
+        telemetry.FLIGHT.record("animation.stream", image=image,
+                                frames=len(frame_ctxs))
         tasks = [asyncio.ensure_future(
             self.image_handler.render_image_region(fctx))
             for fctx in frame_ctxs]
@@ -816,6 +822,9 @@ class WorkloadsHandler:
                     t.exception()       # retrieved: the stream failed first
             if remaining:
                 telemetry.WORKLOADS.count_stream_cancelled()
+                telemetry.FLIGHT.record(
+                    "animation.cancelled", image=image, served=served,
+                    cancelled=len(remaining))
                 # Settle the cancellations, so no "exception was never
                 # retrieved" outlives the stream.
                 await asyncio.gather(*remaining, return_exceptions=True)

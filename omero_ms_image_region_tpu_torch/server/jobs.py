@@ -25,10 +25,11 @@ Crash safety is structural, not transactional:
   fixed chunk grid, zlib level 1), so a resumed build re-creates
   byte-identical levels and skips the ones already committed.
 
-Left out against the JAX module: the flight recorder's events (the port
-has no flight recorder yet); the pressure governor's ``shed_bulk``
-parking (the port has no governor yet: :meth:`_wait_pressure` never
-parks, so no job is ever ``deferred``); and the per-job cancel and the
+The job records the JAX module's flight events (``pyramid.submit``,
+``pyramid.level``, ``pyramid.done``).  Left out against the JAX module:
+the pressure governor's ``shed_bulk`` parking (the port has no governor
+yet: :meth:`_wait_pressure` never parks, so no job is ever ``deferred``
+and no ``pyramid.deferred`` event is recorded); and the per-job cancel and the
 explain plane's job probe, which nothing in the port calls.
 """
 
@@ -156,6 +157,8 @@ class PyramidJobManager:
         self._jobs[job.job_id] = job
         self._order.append(job.job_id)
         telemetry.WORKLOADS.count_job("submitted")
+        telemetry.FLIGHT.record("pyramid.submit", job=job.job_id,
+                                source=source)
         self._write_sidecar(job)
         if self._queue is not None:
             self._queue.put_nowait(job)
@@ -198,6 +201,9 @@ class PyramidJobManager:
             await asyncio.to_thread(self._commit, job, n_levels)
             job.state = DONE
             telemetry.WORKLOADS.count_job("completed")
+            telemetry.FLIGHT.record("pyramid.done", job=job.job_id,
+                                    levels=n_levels,
+                                    resumed=int(job.resumed))
         except asyncio.CancelledError:     # the runner torn down
             job.state = CANCELLED
             telemetry.WORKLOADS.count_job("cancelled")
@@ -295,6 +301,8 @@ class PyramidJobManager:
                 write_ngff_level_dir(tmp, cur, self.chunk, self.compressor)
                 os.replace(tmp, final)
             telemetry.WORKLOADS.count_level_committed()
+            telemetry.FLIGHT.record("pyramid.level", job=job.job_id,
+                                    level=n, of=n_levels)
         job.levels_done = n + 1
         self._write_sidecar(job)
         if n + 1 < n_levels:

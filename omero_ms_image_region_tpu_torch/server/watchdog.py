@@ -59,6 +59,8 @@ class Watchdog:
                             exc_info=True)
         for event in events:
             telemetry.WATCHDOG.count_fire(event.get("action", "?"))
+            telemetry.FLIGHT.record("watchdog.fire", **{
+                k: v for k, v in event.items() if k != "escalate"})
             log.warning("watchdog fired: %s on %s (%s)",
                         event.get("action"), event.get("target"),
                         {k: v for k, v in event.items()

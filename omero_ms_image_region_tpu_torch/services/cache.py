@@ -5,8 +5,10 @@ counterpart of the reference's ``RedisCacheVerticle`` get/set events
 (``ImageRegionRequestHandler.java:214-249, 469-477``; ``ShapeMaskVerticle
 .java:82-90, 140-148``) and its per-cache enable flags.
 
-Tiering: a process-local LRU in front of an optional shared Redis.  The
-local tier is the native C++ LRU (``native.NativeLRUCache``, built with
+Tiering: a process-local LRU, then, with ``persistence.enabled``, the
+durable disk tier (``services.diskcache``: one store shared by the three
+caches under the ``img:``, ``meta:`` and ``mask:`` namespaces), then an
+optional shared Redis.  The local tier is the native C++ LRU (``native.NativeLRUCache``, built with
 g++ at first use) when its library builds, else :class:`MemoryLRUCache`;
 both are host byte stores, as in the JAX package.  Redis needs the
 ``redis`` package (``redis.asyncio``); without it the caches keep their
@@ -14,10 +16,6 @@ local tier and the app logs that the Redis tier and the shared canRead
 memo are off.  A tier that fails reads as a miss and drops its write, with
 a warning at most every 30 s a tier, so an outage never turns a request
 into a 500.
-
-Left out: the durable disk tier (``CacheConfig.disk_dir``), which belongs
-to the persistence section the config loader still refuses (ROADMAP
-Queue 1); the field stays so the settings equal the JAX package's.
 """
 
 from __future__ import annotations
@@ -253,7 +251,8 @@ class CacheConfig:
     image_region: bool = False         # image-region-cache.enabled
     pixels_metadata: bool = False      # pixels-metadata-cache.enabled
     shape_mask: bool = False           # shape-mask-cache.enabled
-    # The durable disk tier of the persistence section (not ported).
+    # The durable disk tier (services.diskcache); the app sets it from
+    # persistence.dir.
     disk_dir: Optional[str] = None
     disk_max_bytes: int = 1024 * 1024 * 1024
     disk_sync_writes: bool = False
@@ -317,13 +316,15 @@ class NamespacedTier:
 
 @dataclass
 class Caches:
-    """The three named caches (``config.yaml:53-60``) and the one shared
-    Redis client they and the canRead memo ride."""
+    """The three named caches (``config.yaml:53-60``), the one shared
+    Redis client they and the canRead memo ride, and the one durable disk
+    tier they share (``services.diskcache.DiskByteCache``, or None)."""
 
     image_region: CacheStack
     pixels_metadata: CacheStack
     shape_mask: CacheStack
     redis: Optional[RedisCache] = None
+    disk: object = None
 
     @classmethod
     def disabled(cls) -> "Caches":
@@ -335,22 +336,35 @@ class Caches:
 
     @classmethod
     def from_config(cls, config: CacheConfig) -> "Caches":
-        if config.disk_dir:
-            raise ValueError("caches.disk_dir belongs to the persistence "
-                             "section, which the port does not serve yet")
         redis = None
         if config.redis_uri:
             try:
                 redis = RedisCache(config.redis_uri)
             except ImportError:
                 pass
+        disk = None
+        if config.disk_dir:
+            from .diskcache import DiskByteCache
+            disk = DiskByteCache(config.disk_dir,
+                                 max_bytes=config.disk_max_bytes,
+                                 sync_writes=config.disk_sync_writes)
+
+        def disk_view(prefix: str):
+            return NamespacedTier(disk, prefix) if disk is not None else None
+
         return cls(
-            image_region=make_cache(config, config.image_region, redis),
+            image_region=make_cache(config, config.image_region, redis,
+                                    disk=disk_view("img:")),
             pixels_metadata=make_cache(config, config.pixels_metadata,
-                                       redis),
-            shape_mask=make_cache(config, config.shape_mask, redis),
-            redis=redis)
+                                       redis, disk=disk_view("meta:")),
+            shape_mask=make_cache(config, config.shape_mask, redis,
+                                  disk=disk_view("mask:")),
+            redis=redis, disk=disk)
 
     async def close(self) -> None:
+        if self.disk is not None:
+            # Drain the write-behind queue: the bytes of this life's last
+            # seconds are the next life's.
+            await asyncio.to_thread(self.disk.close)
         if self.redis is not None:
             await self.redis.close()

@@ -105,6 +105,9 @@ class TilePrefetcher:
             if out:
                 self.predicted += len(out)
                 telemetry.PREFETCH.count_predicted(len(out))
+                telemetry.FLIGHT.record(
+                    "prefetch.predict", n=len(out),
+                    session=(session_key or "-")[:16], x=tile.x, y=tile.y)
                 return out
         return [(resolution, z, t, tile.x + dx, tile.y + dy)
                 for dx, dy in ((-1, 0), (1, 0), (0, -1), (0, 1))

@@ -27,6 +27,16 @@ Counterpart of the request half of the JAX package's ``utils/telemetry.py``:
   of ``utils.provenance``.
 * **Readiness** (:data:`READINESS`): the startup prewarm's state behind
   ``/readyz`` (``server.prewarm``).
+* **The flight recorder** (:data:`FLIGHT`): a bounded ring of structured
+  events (sheds, formed groups, watchdog fires, pyramid steps, cache
+  evictions, warm-state snapshots, build-store loads) that dumps to
+  ``telemetry.flight-recorder-dir`` on SIGTERM (``server.shutdown``) or on
+  ``/debug/flightrecorder?dump=1``.
+* **Warm-state persistence** (:data:`PERSIST`): the disk byte tier's
+  writes, drops and corrupt entries (``services.diskcache``), the
+  manifest snapshots and the boot rehydrate's progress
+  (``services.warmstate``), and the build store's corrupt entries
+  (``server.execcache``).
 * **The exposition**: :func:`request_metric_lines`, :func:`span_lines`
   (``utils.stopwatch``), :func:`resilience_metric_lines`,
   :func:`device_metric_lines`, :func:`cost_metric_lines`, joined by
@@ -38,9 +48,10 @@ dashboard and one cardinality budget (``conf/metrics_budget.json``) read
 both.  Not ported: ``imageregion_compile_*`` and ``imageregion_link_*``
 (XLA compile events and TPU-link fetch rates: an eager CUDA launch has no
 compile step, and the card sits on PCIe in the same host); ``merge_costs``
-(the sidecar wire's ledger graft), shape costs, exemplars, the flight
-recorder, SLO, sentinel and fleet families, which wait for the sidecar,
-the rest of the forensics plane and the fleet; the retry,
+(the sidecar wire's ledger graft), shape costs, exemplars, the SLO,
+sentinel and fleet families, which wait for the sidecar, the rest of the
+forensics plane and the fleet (so the flight recorder has no member
+stamp and no SLO-breach dump yet); the retry,
 degraded-render and supervisor counters, which have no caller in a port
 with no retry, no degraded mode and no sidecar.
 
@@ -50,6 +61,10 @@ Nothing here imports ``torch``.
 from __future__ import annotations
 
 import contextvars
+import itertools
+import json
+import logging
+import os
 import threading
 import time
 import uuid
@@ -57,6 +72,8 @@ from bisect import bisect_left
 from collections import OrderedDict
 from contextlib import contextmanager
 from typing import Dict, List, Mapping, Optional, Tuple
+
+log = logging.getLogger("omero_ms_image_region_tpu_torch.telemetry")
 
 # Fixed log-scale bucket bounds (ms): 0.25 ms .. ~32.8 s, ratio 2.
 BUCKET_BOUNDS_MS: Tuple[float, ...] = tuple(0.25 * 2 ** i
@@ -843,6 +860,263 @@ class Readiness:
 READINESS = Readiness()
 
 
+# ------------------------------------------------------ flight recorder
+
+# Monotone sequence of dump names: two dumps in one wall-clock second get
+# two names (next() is atomic on CPython).
+_ARTIFACT_SEQ = itertools.count(1)
+
+
+class FlightRecorder:
+    """The black box: a bounded ring of structured events, the JAX
+    package's ``FlightRecorder``.
+
+    ``record`` appends to a ``deque`` with a ``maxlen`` (atomic under the
+    GIL), so lane threads, the admission path and the signal path record
+    without a lock.  ``dump`` writes the ring as one JSON document and
+    never raises: a full disk must not turn a shutdown into a crash."""
+
+    # Dumps past this many are pruned oldest first on each write.
+    MAX_DUMPS = 64
+
+    def __init__(self, maxlen: int = 512):
+        from collections import deque
+        self._ring = deque(maxlen=maxlen)
+        self.events_total = 0
+        self.dumps_written = 0
+
+    def configure(self, maxlen: int) -> None:
+        from collections import deque
+        if maxlen != self._ring.maxlen:
+            self._ring = deque(self._ring, maxlen=max(16, maxlen))
+
+    def record(self, kind: str, **fields) -> None:
+        event = {"ts": round(time.time(), 3), "kind": kind}
+        event.update(fields)
+        self._ring.append(event)
+        self.events_total += 1     # a benign race: a count, not a key
+
+    def snapshot(self) -> List[dict]:
+        return list(self._ring)
+
+    def __len__(self) -> int:
+        return len(self._ring)
+
+    def dump(self, directory: str, reason: str) -> Optional[str]:
+        """Write the ring to ``directory`` as
+        ``flight-<date>-<time>-<pid>-<seq>-<reason>.json``; the path, or
+        None when the write failed (logged, never raised)."""
+        try:
+            events = self.snapshot()
+            os.makedirs(directory, exist_ok=True)
+            seq = next(_ARTIFACT_SEQ)
+            path = os.path.join(
+                directory,
+                time.strftime(f"flight-%Y%m%d-%H%M%S-{os.getpid()}"
+                              f"-{seq:04d}-{reason}.json"))
+            doc = {"flight_recorder": True, "reason": reason,
+                   "ts": round(time.time(), 3), "pid": os.getpid(),
+                   "events": events}
+            with open(path, "w") as f:
+                json.dump(doc, f, indent=1)
+            self.dumps_written += 1
+            self._prune(directory)
+            return path
+        except Exception:
+            try:
+                log.warning("flight-recorder dump to %s failed",
+                            directory, exc_info=True)
+            except Exception:
+                pass
+            return None
+
+    def _prune(self, directory: str) -> None:
+        dumps = sorted(
+            os.path.join(directory, name)
+            for name in os.listdir(directory)
+            if name.startswith("flight-") and name.endswith(".json"))
+        for stale in dumps[:-self.MAX_DUMPS]:
+            try:
+                os.unlink(stale)
+            except OSError:
+                pass
+
+    def metric_lines(self) -> List[str]:
+        return [f"imageregion_flight_events {len(self)}",
+                f"imageregion_flight_events_total {self.events_total}",
+                f"imageregion_flight_dumps_total {self.dumps_written}"]
+
+    def reset(self) -> None:
+        self._ring.clear()
+        self.events_total = 0
+        self.dumps_written = 0
+
+
+FLIGHT = FlightRecorder()
+
+
+# ------------------------------------------------------ warm persistence
+
+class Persistence:
+    """Warm-state accounting, the JAX package's ``Persistence``: the disk
+    byte tier (``services.diskcache``), the manifest snapshots and the
+    boot rehydrate (``services.warmstate``), and, the port's own, the
+    build store's corrupt entries (``server.execcache``; its hit, miss,
+    load and save series come from the store).
+    Thread-safe: the write-behind worker, the snapshot timer and the
+    rehydrator count here; a scrape only reads."""
+
+    _FIELDS = {
+        "diskcache_writes": 0, "diskcache_write_errors": 0,
+        "diskcache_write_dropped": 0, "diskcache_corrupt": 0,
+        "diskcache_bytes": 0, "diskcache_entries": 0,
+        "snapshots": 0, "snapshot_errors": 0, "snapshot_last_ts": 0.0,
+        "snapshot_duration_ms": 0.0,
+        "rehydrate_running": False, "rehydrate_items_total": 0,
+        "rehydrate_items_done": 0, "rehydrate_errors": 0,
+        "rehydrate_aborted": False, "rehydrate_duration_ms": 0.0,
+        "rehydrate_bytes_promoted": 0, "rehydrate_planes_restaged": 0,
+        "rehydrate_executables_loaded": 0, "execcache_corrupt": 0,
+    }
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.reset()
+
+    # ------------------------------------------------------- disk tier
+
+    def count_disk_write(self, error: bool = False,
+                         dropped: bool = False) -> None:
+        with self._lock:
+            if dropped:
+                self.diskcache_write_dropped += 1
+            elif error:
+                self.diskcache_write_errors += 1
+            else:
+                self.diskcache_writes += 1
+
+    def count_disk_corrupt(self) -> None:
+        with self._lock:
+            self.diskcache_corrupt += 1
+        FLIGHT.record("diskcache.corrupt")
+
+    def set_disk_size(self, nbytes: int, entries: int) -> None:
+        with self._lock:
+            self.diskcache_bytes = int(nbytes)
+            self.diskcache_entries = int(entries)
+
+    # ------------------------------------------------------ build store
+
+    def count_exec_corrupt(self) -> None:
+        with self._lock:
+            self.execcache_corrupt += 1
+
+    # -------------------------------------------------------- snapshot
+
+    def count_snapshot(self, duration_ms: float,
+                       error: bool = False) -> None:
+        with self._lock:
+            if error:
+                self.snapshot_errors += 1
+                return
+            self.snapshots += 1
+            self.snapshot_last_ts = time.time()
+            self.snapshot_duration_ms = float(duration_ms)
+
+    # ------------------------------------------------------- rehydrate
+
+    def rehydrate_begin(self, items_total: int) -> None:
+        with self._lock:
+            self.rehydrate_running = True
+            self.rehydrate_aborted = False
+            self.rehydrate_items_total = int(items_total)
+            self.rehydrate_items_done = 0
+
+    def rehydrate_step(self, kind: str = "", nbytes: int = 0,
+                       error: bool = False) -> None:
+        with self._lock:
+            self.rehydrate_items_done += 1
+            if error:
+                self.rehydrate_errors += 1
+                return
+            if kind == "byte":
+                self.rehydrate_bytes_promoted += int(nbytes)
+            elif kind == "plane":
+                self.rehydrate_planes_restaged += 1
+            elif kind == "executable":
+                self.rehydrate_executables_loaded += 1
+
+    def rehydrate_end(self, duration_ms: float,
+                      aborted: bool = False) -> None:
+        with self._lock:
+            self.rehydrate_running = False
+            self.rehydrate_aborted = bool(aborted)
+            self.rehydrate_duration_ms = float(duration_ms)
+
+    def rehydrate_summary(self) -> str:
+        """The ``/readyz`` annotation: ``idle``, ``running N/M``,
+        ``aborted N/M`` or ``done N/M`` (never a readiness failure)."""
+        with self._lock:
+            if self.rehydrate_running:
+                return (f"running {self.rehydrate_items_done}"
+                        f"/{self.rehydrate_items_total}")
+            if self.rehydrate_aborted:
+                return (f"aborted {self.rehydrate_items_done}"
+                        f"/{self.rehydrate_items_total}")
+            if self.rehydrate_items_total:
+                return (f"done {self.rehydrate_items_done}"
+                        f"/{self.rehydrate_items_total}")
+        return "idle"
+
+    def metric_lines(self) -> List[str]:
+        """The JAX families, unlabelled."""
+        with self._lock:
+            age_s = (time.time() - self.snapshot_last_ts
+                     if self.snapshot_last_ts else 0.0)
+            return [
+                f"imageregion_diskcache_writes_total {self.diskcache_writes}",
+                "imageregion_diskcache_write_errors_total "
+                f"{self.diskcache_write_errors}",
+                "imageregion_diskcache_write_dropped_total "
+                f"{self.diskcache_write_dropped}",
+                "imageregion_diskcache_corrupt_total "
+                f"{self.diskcache_corrupt}",
+                f"imageregion_diskcache_bytes {self.diskcache_bytes}",
+                f"imageregion_diskcache_entries {self.diskcache_entries}",
+                f"imageregion_warmstate_snapshots_total {self.snapshots}",
+                "imageregion_warmstate_snapshot_errors_total "
+                f"{self.snapshot_errors}",
+                "imageregion_warmstate_snapshot_age_seconds "
+                f"{round(age_s, 3)}",
+                "imageregion_warmstate_snapshot_duration_ms "
+                f"{round(self.snapshot_duration_ms, 3)}",
+                "imageregion_rehydrate_running "
+                f"{1 if self.rehydrate_running else 0}",
+                "imageregion_rehydrate_items_total "
+                f"{self.rehydrate_items_total}",
+                "imageregion_rehydrate_items_done "
+                f"{self.rehydrate_items_done}",
+                "imageregion_rehydrate_errors_total "
+                f"{self.rehydrate_errors}",
+                "imageregion_rehydrate_duration_ms "
+                f"{round(self.rehydrate_duration_ms, 3)}",
+                "imageregion_rehydrate_bytes_promoted_total "
+                f"{self.rehydrate_bytes_promoted}",
+                "imageregion_rehydrate_planes_restaged_total "
+                f"{self.rehydrate_planes_restaged}",
+                "imageregion_rehydrate_executables_loaded_total "
+                f"{self.rehydrate_executables_loaded}",
+            ]
+
+    def reset(self) -> None:
+        with self._lock:
+            for name, value in self._FIELDS.items():
+                setattr(self, name, value)
+
+
+PERSIST = Persistence()
+
+
 # ------------------------------------------------------------ exposition
 
 METRIC_TYPES: Dict[str, str] = {
@@ -894,6 +1168,31 @@ METRIC_TYPES: Dict[str, str] = {
     "imageregion_prefetch_skipped_total": "counter",
     "imageregion_provenance_total": "counter",
     "imageregion_provenance_flags_total": "counter",
+    "imageregion_flight_events": "gauge",
+    "imageregion_flight_events_total": "counter",
+    "imageregion_flight_dumps_total": "counter",
+    "imageregion_diskcache_writes_total": "counter",
+    "imageregion_diskcache_write_errors_total": "counter",
+    "imageregion_diskcache_write_dropped_total": "counter",
+    "imageregion_diskcache_corrupt_total": "counter",
+    "imageregion_diskcache_bytes": "gauge",
+    "imageregion_diskcache_entries": "gauge",
+    "imageregion_warmstate_snapshots_total": "counter",
+    "imageregion_warmstate_snapshot_errors_total": "counter",
+    "imageregion_warmstate_snapshot_age_seconds": "gauge",
+    "imageregion_warmstate_snapshot_duration_ms": "gauge",
+    "imageregion_rehydrate_running": "gauge",
+    "imageregion_rehydrate_items_total": "gauge",
+    "imageregion_rehydrate_items_done": "gauge",
+    "imageregion_rehydrate_errors_total": "counter",
+    "imageregion_rehydrate_duration_ms": "gauge",
+    "imageregion_rehydrate_bytes_promoted_total": "counter",
+    "imageregion_rehydrate_planes_restaged_total": "counter",
+    "imageregion_rehydrate_executables_loaded_total": "counter",
+    "imageregion_execcache_hits": "counter",
+    "imageregion_execcache_misses": "counter",
+    "imageregion_execcache_loaded_total": "counter",
+    "imageregion_execcache_saved_total": "counter",
     **{name: "histogram" for name in _COST_HIST_FIELDS.values()},
 }
 
@@ -930,6 +1229,19 @@ METRIC_HELP: Dict[str, str] = {
     "imageregion_animation_first_frame_ms":
         "Last animation stream's first-frame latency (the bounded "
         "first-frame-out contract's live gauge)",
+    "imageregion_flight_events":
+        "Events currently held in the flight-recorder ring",
+    "imageregion_diskcache_corrupt_total":
+        "Disk byte-cache entries rejected by checksum/format checks",
+    "imageregion_warmstate_snapshot_age_seconds":
+        "Seconds since the last warm-state manifest write (0 = never)",
+    "imageregion_rehydrate_running":
+        "1 while the boot rehydrator is replaying the warm-state "
+        "manifest",
+    "imageregion_rehydrate_bytes_promoted_total":
+        "Disk byte-cache bytes promoted to the memory tier at boot",
+    "imageregion_execcache_loaded_total":
+        "Built kernel and codec libraries loaded from the build store",
 }
 
 _HIST_SUFFIXES = ("_bucket", "_sum", "_count")
@@ -969,13 +1281,13 @@ def finalize_exposition(lines: List[str]) -> str:
 
 
 def request_metric_lines() -> List[str]:
-    """The request histogram and totals, and the conditional-HTTP
-    counters."""
+    """The request histogram and totals, the conditional-HTTP counters and
+    the flight recorder's ring state."""
     lines = REQUEST_HIST.series("imageregion_request_duration_ms")
     for (route, status), n in sorted(request_totals().items()):
         lines.append(f'imageregion_requests_total{{route="{route}",'
                      f'status="{status}"}} {n}')
-    return lines + HTTPCACHE.metric_lines()
+    return lines + HTTPCACHE.metric_lines() + FLIGHT.metric_lines()
 
 
 def resilience_metric_lines() -> List[str]:
@@ -1040,6 +1352,15 @@ def device_metric_lines(services) -> List[str]:
             "imageregion_batcher_queue_wait_max_ms "
             f"{round(renderer.queue_wait_max_ms, 3)}",
         ]
+    # The warm-state families, always (as in JAX); the build store's only
+    # where the app has one (persistence on).
+    lines += PERSIST.metric_lines()
+    store = getattr(renderer, "exec_cache", None)
+    if store is not None:
+        lines += [f"imageregion_execcache_hits {store.hits}",
+                  f"imageregion_execcache_misses {store.misses}",
+                  f"imageregion_execcache_loaded_total {store.loaded}",
+                  f"imageregion_execcache_saved_total {store.saved}"]
     return lines
 
 
@@ -1060,3 +1381,5 @@ def reset() -> None:
     COST_TOPK.reset()
     PROVENANCE.reset()
     READINESS.reset()
+    FLIGHT.reset()
+    PERSIST.reset()

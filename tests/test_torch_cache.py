@@ -139,9 +139,10 @@ def test_native_lru_tier_behaves_as_jax():
     assert script(NativeLRUCache) == script(JaxNative)
 
 
-def test_caches_from_config_build_the_jax_tiers():
+def test_caches_from_config_build_the_jax_tiers(tmp_path):
     for cfg in ({}, {"image_region": True, "shape_mask": True},
-                {"redis_uri": "redis://nowhere"}):
+                {"redis_uri": "redis://nowhere"},
+                {"image_region": True, "disk_dir": str(tmp_path / "disk")}):
         mine = cache.Caches.from_config(cache.CacheConfig(**cfg))
         theirs = jax_cache.Caches.from_config(jax_cache.CacheConfig(**cfg))
         for name in ("image_region", "pixels_metadata", "shape_mask"):
@@ -149,13 +150,18 @@ def test_caches_from_config_build_the_jax_tiers():
             assert a.enabled == b.enabled
             assert ([type(t).__name__ for t in a.tiers]
                     == [type(t).__name__ for t in b.tiers])
+            # The disk tier's namespace and label (img:, meta:, mask:).
+            assert ([(getattr(t, "prefix", None), cache.tier_label(t))
+                     for t in a.tiers]
+                    == [(getattr(t, "prefix", None), jax_cache.tier_label(t))
+                        for t in b.tiers])
         assert mine.redis is theirs.redis is None   # no redis package
+        assert (mine.disk is None) == (theirs.disk is None) == (
+            "disk_dir" not in cfg)
     disabled = cache.Caches.disabled()
     assert not any(s.enabled for s in (disabled.image_region,
                                        disabled.pixels_metadata,
                                        disabled.shape_mask))
-    with pytest.raises(ValueError, match="persistence"):
-        cache.Caches.from_config(cache.CacheConfig(disk_dir="/tmp/x"))
 
 
 def test_cache_keys_and_values_match_jax():

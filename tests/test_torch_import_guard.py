@@ -51,7 +51,9 @@ def test_port_imports_without_jax_or_the_jax_package():
                 "ingest", "services.sessions", "services.db_metadata",
                 "services.viewport", "services.prefetch", "io.romio",
                 "io.jp2k", "services.cache", "jfif", "utils.linkprobe",
-                "utils.adaptive", "server.prewarm", "utils.provenance"):
+                "utils.adaptive", "server.prewarm", "utils.provenance",
+                "services.diskcache", "services.warmstate",
+                "server.execcache", "server.shutdown"):
         assert f"omero_ms_image_region_tpu_torch.{mod}" in doc["imported"]
     assert doc["leaked"] == []
     assert doc["jax"] == []

@@ -141,10 +141,15 @@ def test_metrics_match_jax(data_dir):
     # prefetcher's skips, the workload routes' families and the pyramid
     # job's, which this sequence never moves (tests/test_torch_workloads.py,
     # tests/test_torch_readers.py and tests/test_torch_prefetch.py hold
-    # those to the JAX app's), and the byte caches' evictions, which the
-    # native LRU tier does not count in either package.
+    # those to the JAX app's), the byte caches' evictions, which the
+    # native LRU tier does not count in either package, and the build
+    # store's, which exist only with persistence on
+    # (tests/test_torch_warmstate.py).
     assert {f for f, _ in port_fams} == set(types) - {
         "imageregion_cache_evictions",
+        "imageregion_execcache_hits", "imageregion_execcache_misses",
+        "imageregion_execcache_loaded_total",
+        "imageregion_execcache_saved_total",
         "imageregion_shed_total", "imageregion_watchdog_fires_total",
         "imageregion_prefetch_skipped_total",
         "imageregion_workload_requests_total",
@@ -258,3 +263,39 @@ def test_a_lane_span_lands_on_every_member_trace():
     assert [s["name"] for s in traces["tc"].spans] == [
         "batcher.queueWait.cancelled"]
     assert telemetry.RESILIENCE.deadline_cancelled == 1
+
+
+def test_persistence_and_flight_families_pass_the_lint(data_dir, tmp_path):
+    """With persistence on (the disk tier, the build store, the rehydrate)
+    the scrape carries the warm-state, build-store and flight-recorder
+    families, with JAX's types, and passes the cardinality budget."""
+    from omero_ms_image_region_tpu_torch.server import execcache
+
+    raw = {"data-dir": data_dir, "renderer": {"cpu-fallback-max-px": 0},
+           "image-region-cache": {"enabled": True},
+           "persistence": {"enabled": True, "dir": str(tmp_path / "warm"),
+                           "snapshot-interval-s": 0}}
+    telemetry.reset()
+    config = AppConfig.from_dict(raw)
+    config.caches.disk_sync_writes = True
+    handler = ImageRegionHandler(build_services(config, "cpu"))
+    try:
+        _, text = asyncio.run(_drive(create_app(
+            AppConfig.from_dict(raw), "cpu", handler=handler)))
+    finally:
+        execcache.install(None)
+    lint = _lint()
+    assert lint.lint_exposition(text, lint.load_budget()) == []
+    fams = {f for f, _ in _families(text, telemetry.METRIC_TYPES)}
+    warm = {f for f in telemetry.METRIC_TYPES
+            if f.startswith(("imageregion_diskcache_",
+                             "imageregion_warmstate_",
+                             "imageregion_rehydrate_",
+                             "imageregion_execcache_",
+                             "imageregion_flight_"))}
+    assert len(warm) == 25 and warm <= fams
+    assert {f: telemetry.METRIC_TYPES[f] for f in warm} == {
+        f: jax_telemetry.METRIC_TYPES[f] for f in warm}
+    series = _series(text)
+    assert series[("imageregion_diskcache_writes_total", "")] >= 1
+    assert series[("imageregion_flight_events_total", "")] >= 1
