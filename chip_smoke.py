@@ -222,7 +222,34 @@ Phases (any failure ends the run with a non-zero exit and no result line):
            watchdog:   a seeded 3 s freeze of a group's lane, healed by
                        the watchdog's requeue (0.5 s floor) with the plain
                        route's bytes before the freeze ends, exactly one
-                       requeue; without the injector a repeat runs clean.
+                       requeue; without the injector a repeat runs clean;
+           forensics:  a default app with a 0.5 s sentinel tick serves
+                       16 flagship tiles at once until its baseline is
+                       learned; a lane freeze (the fault injector; twice
+                       the learned p99, at least 300 ms)
+                       must be confirmed ``drifting`` (``/readyz`` too)
+                       with one incident bundle, and must recover without
+                       it; a ``/debug/profile`` over an 8-in-flight burst
+                       must name render_ramp_kernel,
+                       jpeg_coefficients_kernel, sparse_pack_kernel and
+                       compact_rows_kernel (a 503 fails), a second one
+                       meanwhile answers 409; OpenMetrics exemplars listed
+                       by ``/debug/exemplars``, ``/debug/explain`` of a
+                       served tile resident, ``/debug/costs`` and
+                       ``/debug/decisions`` non-empty; prints the ticks
+                       and seconds from the freeze to ``drifting``, the
+                       bundle's files and the tile p50 during a capture
+                       and outside one;
+           pressure:   an app with the pressure governor (0.25 s ticks), a
+                       64 MiB raw cache and ``hbm-high`` 0.5: cold
+                       flagship tiles drive it to ``critical``; the
+                       ladder engages in order; under it a tile's JPEG
+                       equals the plain route's at quality 60 byte for
+                       byte, a ``p=`` GET answers 503 with Retry-After and
+                       a burst runs one group on a lane at a time; with
+                       traffic stopped it releases in exact reverse;
+                       prints each transition with its time and the tile
+                       p50 under each rung.
            The app is reached over HTTP on 127.0.0.1 where aiohttp is
            installed, else through its request front (``server.app.Front``:
            the same conditional decision, handler and status mapping);
@@ -255,7 +282,8 @@ after.  It prints the kernel table of all ten kernels as one JSON line
 (``launches``: the batch burst for K1-K4b, the huffman phase for K5, the
 workload phases for K7, K8a, K8b and K9; ``workload_launches``: each
 kernel's launches in each of those phases, readers, pyramid, omero,
-prefetch, huffman and byte_cache included), then the nvidia-smi line,
+prefetch, huffman, byte_cache, forensics and pressure included), then the
+nvidia-smi line,
 and last ``{"ok": true, "device": {...}}``.  It imports nothing of JAX.
 """
 
@@ -1531,6 +1559,7 @@ class Client:
         self.via = "http" if have_aiohttp else "front"
         self.runner = self.session = self.front = self.watchdog = None
         self.jobs = None
+        self.loops: list = []
 
     async def start(self):
         if self.via == "http":
@@ -1554,16 +1583,21 @@ class Client:
                 self.config.watchdog, self.handler.s.renderer).run())
         if self.front.jobs is not None:
             self.jobs = asyncio.create_task(self.front.jobs.run())
+        # The pressure governor's and the perf sentinel's tick loops.
+        self.loops = [asyncio.create_task(loop(), name=name)
+                      for name, loop in self.front.background()]
 
     async def stop(self):
         if self.session is not None:
             await self.session.close()
         if self.runner is not None:
             await self.runner.cleanup()       # closes the renderer
-        for task in (self.watchdog, self.jobs):
+        for task in [self.watchdog, self.jobs] + self.loops:
             if task is not None:
                 task.cancel()
                 await asyncio.gather(task, return_exceptions=True)
+        if self.front is not None:
+            self.front.close()
         if self.handler.s.prefetcher is not None:
             self.handler.s.prefetcher.close()
         await self.handler.s.renderer.close()
@@ -1626,12 +1660,36 @@ class Client:
         return (200 if ok else 503), {
             "status": "ready" if ok else "degraded", "checks": checks}
 
-    async def metrics(self) -> str:
+    async def metrics(self, openmetrics: bool = False) -> str:
+        """The ``/metrics`` scrape; ``openmetrics`` asks for the
+        OpenMetrics exposition (exemplars)."""
+        if self.session is not None:
+            headers = ({"Accept": "application/openmetrics-text; "
+                                  "version=1.0.0"} if openmetrics else {})
+            async with self.session.get(
+                    f"http://127.0.0.1:{self.port}/metrics",
+                    headers=headers) as r:
+                return await r.text()
+        return self.front.metrics_text(openmetrics=openmetrics)
+
+    async def debug(self, route: str, **query):
+        """(status, JSON document) of ``GET /debug/<route>?query``."""
         if self.session is not None:
             async with self.session.get(
-                    f"http://127.0.0.1:{self.port}/metrics") as r:
-                return await r.text()
-        return self.front.metrics_text()
+                    f"http://127.0.0.1:{self.port}/debug/{route}",
+                    params=query) as r:
+                return r.status, await r.json(content_type=None)
+        front = self.front
+        if route == "profile":
+            answer = await front.profile(query.get("ms"))
+        elif route == "explain":
+            answer = await front.explain(query.get("path"))
+        else:
+            return 200, {"costs": front.costs_doc,
+                         "decisions": front.decisions_doc,
+                         "exemplars": front.exemplars_doc,
+                         "sentinel": front.sentinel_doc}[route]()
+        return answer.status, json.loads(answer.body or b"null")
 
 
 # The render path's spans (the JAX package's names), and the ones a cold
@@ -1836,6 +1894,361 @@ async def watchdog_phase(data_dir, lut_root, have_aiohttp,
               "clean")
     finally:
         faultinject.uninstall()
+        await client.stop()
+
+
+# The hand kernels a profile of the default app's JPEG tiles must name.
+PROFILED_KERNELS = ("render_ramp_kernel", "jpeg_coefficients_kernel",
+                    "sparse_pack_kernel", "compact_rows_kernel")
+
+
+async def in_flight_gets(client, reqs, depth: int = 8) -> list:
+    """``reqs`` with at most ``depth`` in flight: (status, wall ms, t_end)
+    of each."""
+    sem = asyncio.Semaphore(depth)
+
+    async def one(r):
+        async with sem:
+            status, _, _, ms = await client.request(*r)
+            return status, ms, time.perf_counter()
+    return await asyncio.gather(*(one(r) for r in reqs))
+
+
+async def forensics_phase(data_dir, lut_root, have_aiohttp, smi) -> dict:
+    """The perf sentinel, the profiler and the forensics routes on the
+    card.  A default app with a short sentinel cadence (tick 0.5 s, 8
+    samples a window, 2 warm-up, confirm and recover ticks, a baseline
+    step of 0.5, an incident bundle directory) serves 16 flagship 1024^2
+    JPEG tiles at once, again and again, until its baseline is learned
+    (and has come down from the first, cold window's p99); the fault
+    injector's lane freeze (twice the learned p99 a group, at least 300
+    ms) then induces drift: the sentinel must confirm ``drifting``,
+    ``/readyz`` must carry it and one bundle must be written; without the
+    freeze it must return to ``ok``.  A ``/debug/profile`` taken during
+    an 8-in-flight burst must name the four hand kernels that served it
+    (K1, K3, K4a, K4b), and a second request while it runs must answer
+    409.  An OpenMetrics scrape must carry exemplars whose trace ids
+    ``/debug/exemplars`` lists, ``/debug/explain`` of a served tile must
+    report it resident, ``/debug/costs`` and ``/debug/decisions`` must be
+    non-empty.  Returns the phase's kernel launches."""
+    from omero_ms_image_region_tpu_torch.server import sentinel
+    from omero_ms_image_region_tpu_torch.utils import faultinject
+
+    work = tempfile.mkdtemp(prefix="forensics-", dir=os.path.dirname(
+        data_dir))
+    bundles = os.path.join(work, "bundles")
+    config, handler = front_handler(data_dir, lut_root, {
+        "sentinel": {"tick-interval-s": 0.5, "min-samples": 8,
+                     "warmup-ticks": 2, "confirm-ticks": 2,
+                     "recover-ticks": 2, "baseline-alpha": 0.5,
+                     "bundle-dir": bundles, "profile-ms": 200},
+        "telemetry": {"profile-dir": os.path.join(work, "profiles")},
+        "fault-injection": {"seed": 14}})
+    injector = faultinject.active()
+    client = Client(config, handler, have_aiohttp)
+    await client.start()
+    engine = sentinel.active()
+    route = "render_image_region"
+    tiles = [(route, {"tile": f"0,{i % 8},{2 + i // 8},{TILE},{TILE}",
+                      "c": CH, "m": "c", "format": "jpeg"})
+             for i in range(16)]
+    done = {"n": 0}
+
+    async def serve_until(pred, limit_s: float, what: str) -> float:
+        """The 16 tiles at once, again and again, until ``pred``."""
+        t0 = time.perf_counter()
+        while not await pred():
+            check(time.perf_counter() - t0 < limit_s,
+                  f"forensics: {what} not within {limit_s} s "
+                  f"(windows: {engine.summary()['keys']})")
+            out = await in_flight_gets(client, tiles, depth=len(tiles))
+            check(all(o[0] == 200 for o in out),
+                  f"forensics: a GET failed while waiting for {what}")
+            done["n"] += len(out)
+        return time.perf_counter() - t0
+
+    async def verdict(want: str) -> bool:
+        _, doc = await client.readyz()
+        return doc["checks"].get("sentinel") == want
+
+    async def learned() -> bool:
+        """Warmed up, and the baseline has come down from the first cold
+        window's p99 to within 1.3x of the steady windows'."""
+        keys = engine.summary()["keys"]
+        return engine.verdict == "ok" and any(
+            k["baseline_ticks"] >= config.sentinel.warmup_ticks
+            and k["p99_ms"] and k["n"] >= config.sentinel.min_samples
+            and k["baseline_p99_ms"] < 1.3 * k["p99_ms"]
+            for k in keys.values())
+
+    try:
+        reset_launch_counts()
+        warm_s = await serve_until(learned, 120.0, "a learned baseline")
+        baseline = {k: v["baseline_p99_ms"] for k, v in
+                    engine.summary()["keys"].items()
+                    if v["baseline_p99_ms"] is not None}
+        # Drift: every group's lane freezes twice the learned p99 (at
+        # least 300 ms), so each window's p99 passes 1.5x the baseline
+        # whatever the host's speed.
+        freeze_ms = max(300.0, 2.0 * max(baseline.values()))
+        ticks0 = engine.ticks
+        injector.config.freeze_ms = freeze_ms
+        injector.config.freeze_rate = 1.0
+        drift_s = await serve_until(lambda: verdict("drifting"), 60.0,
+                                    "the drift verdict")
+        drift_ticks = engine.ticks - ticks0
+        injector.config.freeze_rate = 0.0
+        recover_s = await serve_until(lambda: verdict("ok"), 60.0,
+                                      "the recovery")
+        names = sorted(os.listdir(bundles)) if os.path.isdir(bundles) \
+            else []
+        check(len(names) == 1, f"forensics: {len(names)} incident "
+                               f"bundles, not 1")
+        with open(os.path.join(bundles, names[0], "manifest.json")) as f:
+            manifest = json.load(f)
+        bundle_files = sorted(os.listdir(os.path.join(bundles, names[0])))
+        check(all(manifest["files"].get(k) for k in (
+            "flight", "costs", "sketch_diff", "exemplars", "profile")),
+              f"forensics: the bundle lacks a file: {manifest['files']}")
+
+        # A profile over an 8-in-flight burst, and a second one meanwhile.
+        burst = [(route, dict(q, c=CH2)) for _, q in tiles] * 4
+        outside = await in_flight_gets(client, burst)
+        capture = asyncio.create_task(client.debug("profile", ms="1500"))
+        await asyncio.sleep(0.2)
+        t_cap = time.perf_counter()
+        second = await client.debug("profile", ms="10")
+        during = await in_flight_gets(client, burst)
+        status, prof = await capture
+        check(status == 200, f"forensics: /debug/profile answered "
+                             f"{status}: {prof}")
+        check(second[0] == 409, f"forensics: a second profile while one "
+                                f"ran answered {second[0]}, not 409")
+        with open(os.path.join(prof["dir"], "trace.json")) as f:
+            trace = f.read()
+        named = {k: trace.count(k) for k in PROFILED_KERNELS}
+        check(all(named.values()), f"forensics: the profile does not name "
+                                   f"every hand kernel: {named}")
+        in_window = [ms for st, ms, t in during
+                     if t <= t_cap + 1.5 and st == 200]
+        check(all(o[0] == 200 for o in during + outside),
+              "forensics: a burst GET failed")
+
+        # Exemplars, explain, costs, decisions.
+        om = await client.metrics(openmetrics=True)
+        check(om.endswith("# EOF\n"), "forensics: the OpenMetrics scrape "
+                                      "has no # EOF")
+        import re
+        tails = set(re.findall(r'trace_id="([0-9a-f]+)"', om))
+        _, ex = await client.debug("exemplars")
+        listed = {d["trace"] for docs in ex["request_duration_ms"].values()
+                  for d in docs}
+        check(tails and tails <= listed, "forensics: the OpenMetrics "
+              "exemplars are not the ones /debug/exemplars lists")
+        path = ("/webgateway/render_image_region/1/0/0?tile="
+                + tiles[0][1]["tile"] + "&c=" + CH + "&m=c&format=jpeg")
+        status, explained = await client.debug("explain", path=path)
+        check(status == 200 and explained["residency"]["hbm"],
+              f"forensics: /debug/explain of a served tile: {status} "
+              f"{explained}")
+        _, costs = await client.debug("costs")
+        _, dec = await client.debug("decisions")
+        verdicts = [r["verdict"] for r in dec["records"]
+                    if r["kind"] == "sentinel"]
+        check(costs["top"] and costs["shapes"],
+              "forensics: /debug/costs is empty")
+        check(verdicts == ["drift", "recovered"],
+              f"forensics: decision records {verdicts}")
+        launches = launch_counts()
+        doc = {
+            "gets": done["n"] + 2 * len(burst),
+            "tick_s": config.sentinel.tick_interval_s,
+            "baseline_s": warm_s, "baseline_p99_ms": baseline,
+            "freeze_ms": freeze_ms,
+            "drift_after_freeze": {"ticks": drift_ticks,
+                                   "seconds": drift_s},
+            "recover_s": recover_s,
+            "bundle": {"name": names[0], "files": bundle_files,
+                       "manifest_files": manifest["files"]},
+            "profile": {"status": status, "ms": prof["ms"],
+                        "bytes": prof["bytes"], "kernels_named": named,
+                        "second_request": second[0]},
+            "p50_ms_during_capture": statistics.median(in_window)
+            if in_window else None,
+            "p50_ms_outside_capture": statistics.median(
+                [ms for _, ms, _ in outside]),
+            "exemplar_traces": len(tails),
+            "explain_residency": explained["residency"],
+            "cost_shapes": {k: v["dispatches"]
+                            for k, v in costs["shapes"].items()},
+            "decisions": verdicts,
+            "launches": {k: v for k, v in launches.items() if v},
+            "card": smi, "via": client.via}
+        print("forensics: " + json.dumps(doc), flush=True)
+        for name in ("render_ramp",) + SPARSE_WIRE:
+            check(launches[name] >= 1,
+                  f"forensics: {name} was not launched")
+        return launches
+    finally:
+        faultinject.uninstall()
+        await client.stop()
+
+
+async def pressure_phase(data_dir, lut_root, have_aiohttp, smi,
+                         matches_plain) -> dict:
+    """The pressure governor on the card: an app with ``pressure.enabled``
+    (ticks of 0.25 s, a step a tick), a 64 MiB raw cache, ``hbm-high``
+    0.5 and ``low`` 0.25, so that cold flagship tiles (8 MiB of planes
+    each) drive the level to ``critical``, and ``evict-to-frac`` 0.2, so
+    that the evictions bring it under ``low`` once traffic stops.  The
+    ladder must engage in its configured order; while it is engaged (each
+    check waits for the whole ladder, traffic running) a tile's JPEG must
+    equal the plain route's at quality 60 byte for byte
+    (``drop_quality``), a ``p=`` projection must answer 503 with
+    Retry-After (``shed_bulk``) and 16 tiles at once must run one group
+    on a lane at a time (``cap_lanes``); once traffic stops the ladder
+    must release in exact reverse.  Prints each transition with its time
+    and the tile p50 under each rung.  Returns the phase's kernel
+    launches."""
+    from omero_ms_image_region_tpu_torch.server import pressure
+    from omero_ms_image_region_tpu_torch.utils import telemetry
+
+    config, handler = front_handler(data_dir, lut_root, {
+        # A ring that holds the phase's events (every group records one).
+        "telemetry": {"flight-recorder-events": 1 << 16},
+        # Eight tiles' planes (64 MiB of 4-channel uint16 1024^2 tiles).
+        "raw-cache": {"prefetch": False, "max-bytes": 8 * 4 * TILE * TILE * 2},
+        "pressure": {"enabled": True, "interval-s": 0.25, "hbm-high": 0.5,
+                     "hbm-low": 0.25, "evict-to-frac": 0.2,
+                     "step-hold-ticks": 1, "release-hold-ticks": 3}})
+    batcher = handler.s.renderer
+    client = Client(config, handler, have_aiohttp)
+    await client.start()
+    gov = pressure.active()
+    ladder = list(gov.ladder)
+    route = "render_image_region"
+    cold = [(route, {"tile": f"0,{i % 8},{i // 8},{TILE},{TILE}",
+                     "c": CH, "m": "c", "format": "jpeg"})
+            for i in range(64)]
+    by_rung: dict = {}
+    t0, wall0 = time.perf_counter(), time.time()
+    stop = asyncio.Event()
+
+    async def traffic():
+        i = 0
+        while not stop.is_set():
+            reqs = [cold[(i + k) % len(cold)] for k in range(8)]
+            i += 8
+            rung = gov.engaged
+            for status, ms, _ in await in_flight_gets(client, reqs):
+                check(status == 200, f"pressure: a cold GET answered "
+                                     f"{status} under rung {rung}")
+                by_rung.setdefault(rung, []).append(ms)
+
+    async def fully_engaged(what: str) -> None:
+        """Wait (traffic running) until every step is engaged."""
+        t_wait = time.perf_counter()
+        while gov.engaged < len(ladder):
+            check(time.perf_counter() - t_wait < 60.0 and not load.done(),
+                  f"pressure: the ladder was not fully engaged {what} "
+                  f"within 60 s ({gov.summary()})")
+            await asyncio.sleep(0.02)
+
+    load = None
+    try:
+        reset_launch_counts()
+        load = asyncio.create_task(traffic())
+        await fully_engaged("at first")
+        t_full = time.perf_counter() - t0
+        q = {"tile": f"0,3,7,{TILE},{TILE}", "c": CH2, "m": "c",
+             "format": "jpeg"}
+        await fully_engaged("for drop_quality")
+        status, hdrs, body, capped_ms = await client.request(route, q)
+        _, _, _, same = await matches_plain(route, dict(q, q="0.6"), body)
+        check(status == 200 and same and hdrs.get("Cache-Control")
+              == "no-store" and "ETag" not in hdrs,
+              f"pressure: the drop_quality tile ({status}, "
+              f"{hdrs.get('Cache-Control')}) is not the plain route's at "
+              f"quality 60")
+        pq = {"imageId": ZSTACK_IMAGE, "c": CH, "m": "c", "format": "jpeg",
+              "p": f"intmax|0:{Z_STACK - 1}"}
+        await fully_engaged("for shed_bulk")
+        shed_status, shed_hdrs, _, _ = await client.request(route, pq)
+        check(shed_status == 503 and int(shed_hdrs.get("Retry-After", 0))
+              >= 1, f"pressure: the p= GET under shed_bulk answered "
+                    f"{shed_status}")
+        await fully_engaged("for cap_lanes")
+        groups0 = batcher.batches_dispatched
+        batcher.max_executing = 0
+        # 16 distinct tiles at once: at least two groups (max-batch 8)
+        # that two lanes would run together.
+        burst = [(route, dict(q, tile=f"0,{i % 8},{6 + i // 8},{TILE},"
+                                      f"{TILE}", c=CH2))
+                 for i in range(16)]
+        capped = await in_flight_gets(client, burst, depth=16)
+        lanes = {"max_groups_in_execute": batcher.max_executing,
+                 "groups": batcher.batches_dispatched - groups0,
+                 "device_lanes": batcher.device_lanes}
+        check(all(c[0] == 200 for c in capped)
+              and lanes["max_groups_in_execute"] == 1
+              and lanes["groups"] >= 2,
+              f"pressure: cap_lanes did not leave one lane taking groups "
+              f"({lanes})")
+        stop.set()
+        await load
+        t_stop, stop_wall = time.perf_counter(), time.time()
+        at_stop = gov.engaged
+        while gov.engaged or gov.level:
+            check(time.perf_counter() - t_stop < 60.0,
+                  f"pressure: the ladder did not release in 60 s "
+                  f"({gov.summary()})")
+            await asyncio.sleep(0.05)
+        events = [e for e in telemetry.FLIGHT.snapshot()
+                  if e["ts"] >= wall0 - 0.001]
+        base = wall0
+        steps = [(e["action"], e["step"], round(e["ts"] - base, 3))
+                 for e in events if e["kind"] == "pressure.step"]
+        levels = [(e["prev"], e["level"], round(e["ts"] - base, 3))
+                  for e in events if e["kind"] == "pressure.level"]
+        # Every transition keeps the engaged set a prefix of the ladder:
+        # an engage takes the next step, a release gives back the last.
+        stack, ordered = [], True
+        for action, step, _ in steps:
+            if action == "engage":
+                ordered &= len(stack) < len(ladder) \
+                    and step == ladder[len(stack)]
+                stack.append(step)
+            else:
+                ordered &= bool(stack) and step == stack[-1]
+                stack = stack[:-1]
+        released = [e["step"] for e in events if e["kind"] ==
+                    "pressure.step" and e["action"] == "release"
+                    and e["ts"] >= stop_wall - 0.001]
+        launches = launch_counts()
+        doc = {
+            "ladder": ladder, "steps": steps, "levels": levels,
+            "p50_ms_by_rung": {
+                (ladder[r - 1] if r else "none"): {
+                    "gets": len(v), "p50_ms": statistics.median(v)}
+                for r, v in sorted(by_rung.items())},
+            "fully_engaged_s": t_full, "engaged_at_stop": at_stop,
+            "capped_tile_ms": capped_ms, "shed_status": shed_status,
+            "retry_after": shed_hdrs.get("Retry-After"),
+            "cap_lanes": lanes,
+            "release_s": time.perf_counter() - t_stop,
+            "launches": {k: v for k, v in launches.items() if v},
+            "card": smi, "via": client.via}
+        print("pressure: " + json.dumps(doc), flush=True)
+        check(ordered and not stack, "pressure: a transition broke the "
+                                     "ladder's prefix order")
+        check(at_stop >= 1 and released == ladder[:at_stop][::-1],
+              f"pressure: released {released} after traffic stopped, not "
+              f"the exact reverse of {ladder[:at_stop]}")
+        return launches
+    finally:
+        stop.set()
+        if load is not None:
+            await asyncio.gather(load, return_exceptions=True)
         await client.stop()
 
 
@@ -3165,10 +3578,10 @@ async def readyz_phase(have_aiohttp) -> dict:
            "via": client.via}
     print("readyz: " + json.dumps(doc), flush=True)
     check(answers[0] == (503, {"status": "degraded", "checks": {
-        "prewarm": "pending", "queue": "ok"}}),
+        "prewarm": "pending", "queue": "ok", "sentinel": "ok"}}),
           f"readyz: the first answer was {answers[0]}, not 503 pending")
     check(answers[-1] == (200, {"status": "ready", "checks": {
-        "prewarm": "complete", "queue": "ok"}}),
+        "prewarm": "complete", "queue": "ok", "sentinel": "ok"}}),
           f"readyz: the prewarm ended in {answers[-1]}")
     for name in ("render_ramp",) + SPARSE_WIRE:
         check(launches[name] >= 8, f"readyz: the prewarm launched {name} "
@@ -3935,6 +4348,11 @@ async def serve_phase(torch, np, data_dir, lut_root, have_aiohttp,
                               matches_plain)
         await watchdog_phase(data_dir, lut_root, have_aiohttp,
                              matches_plain)
+        smi = smi_line()
+        workload_launches["forensics"] = await forensics_phase(
+            data_dir, lut_root, have_aiohttp, smi)
+        workload_launches["pressure"] = await pressure_phase(
+            data_dir, lut_root, have_aiohttp, smi, matches_plain)
         return launches, serve_launches, workload_launches
     finally:
         await client.stop()

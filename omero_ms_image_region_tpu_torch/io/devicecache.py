@@ -88,6 +88,10 @@ class DeviceRawCache:
         # share one tensor).
         self._digests_of: Dict[Hashable, str] = {}
         self._keys_by_digest: Dict[str, Set[Hashable]] = {}
+        # key -> the plane's routing identity (``server.ctx
+        # .plane_route_key``), recorded at staging: the explain plane's
+        # residency probe (:meth:`resident_route`).
+        self._route_of: Dict[Hashable, str] = {}
         self._bytes = 0
         self.hits = 0
         self.misses = 0
@@ -134,6 +138,7 @@ class DeviceRawCache:
         content."""
         digest = self._digests_of.get(key)
         self._drop_digest(key)
+        self._route_of.pop(key, None)
         if digest is None or not self._keys_by_digest.get(digest):
             self._bytes -= _nbytes(arr)
 
@@ -152,7 +157,8 @@ class DeviceRawCache:
         return arr
 
     def get_or_load(self, key: Hashable, loader: Callable,
-                    digest: Optional[str] = None) -> torch.Tensor:
+                    digest: Optional[str] = None,
+                    route_key: Optional[str] = None) -> torch.Tensor:
         with self._lock:
             arr = self._entries.get(key)
             if arr is not None:
@@ -162,7 +168,8 @@ class DeviceRawCache:
             self.misses += 1
         loaded = loader()
         if isinstance(loaded, torch.Tensor):
-            return self._insert(key, loaded.to(self.device), None)
+            return self._insert(key, loaded.to(self.device), None,
+                                route_key)
         if isinstance(loaded, HostPlanes):
             host, upload = loaded.array, loaded.upload
         else:
@@ -187,10 +194,11 @@ class DeviceRawCache:
         if arr is None:
             arr = self._upload(upload)
             telemetry.add_cost("staged_bytes", host.nbytes)
-        return self._insert(key, arr, digest)
+        return self._insert(key, arr, digest, route_key)
 
     def _insert(self, key: Hashable, arr: torch.Tensor,
-                digest: Optional[str]) -> torch.Tensor:
+                digest: Optional[str],
+                route_key: Optional[str] = None) -> torch.Tensor:
         """Publish a loaded entry, then evict to the budget."""
         with self._lock:
             old = self._entries.pop(key, None)
@@ -207,6 +215,8 @@ class DeviceRawCache:
                         arr = existing
                         break
             self._entries[key] = arr
+            if route_key is not None:
+                self._route_of[key] = route_key
             if digest is None or not self._keys_by_digest.get(digest):
                 self._bytes += _nbytes(arr)
             self._index_digest(key, digest)
@@ -227,24 +237,37 @@ class DeviceRawCache:
                 self.hits += 1
             return arr
 
+    def resident_route(self, route_key: str) -> bool:
+        """Residency by routing identity, with no LRU bump (the explain
+        plane's probe; O(resident entries), never on the serving path)."""
+        with self._lock:
+            return route_key in self._route_of.values()
+
     def evict_to_fraction(self, frac: float) -> int:
-        """Walk LRU-first until resident bytes are at most ``frac`` of the
-        budget (keeping at least one entry); returns the entries
-        dropped."""
+        """The pressure governor's ``evict_caches``: walk LRU-first until
+        resident bytes are at most ``frac`` of the budget (keeping at least
+        one entry); returns the entries dropped.  Their tensors go back to
+        PyTorch's caching allocator, not to the driver."""
         target = max(0, int(self.max_bytes * frac))
-        dropped = 0
+        dropped = freed = 0
         with self._lock:
             while self._bytes > target and len(self._entries) > 1:
                 key, arr = self._entries.popitem(last=False)
+                before = self._bytes
                 self._release_bytes(key, arr)
+                freed += before - self._bytes
                 self.evictions += 1
                 dropped += 1
+        if dropped:
+            telemetry.FLIGHT.record("rawcache.pressure-evict",
+                                    entries=dropped, bytes=freed)
         return dropped
 
     def clear(self) -> None:
         """Drop every entry (counters stay)."""
         with self._lock:
             self._entries.clear()
+            self._route_of.clear()
             self._digests_of.clear()
             self._keys_by_digest.clear()
             self._bytes = 0

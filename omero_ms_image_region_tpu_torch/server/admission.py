@@ -22,10 +22,11 @@ each caller, before single-flight (like the ACL check), draws a token from
 its session's bucket, and a session over its budget is refused with a 503
 of reason ``fairness`` while every other session's admission stays as it
 was.  A request the global bound then refuses gets its token back.  A mask
-GET draws a token too (it has no global leg).  Not ported: the pressure
-governor's scaling of the bound (``pressure.enabled``, off in the JAX
-default; the config loader refuses it) and the ``qos`` bulk cost: every
-request costs 1 token, as with ``qos`` off in the JAX app.
+GET draws a token too (it has no global leg).  While the pressure
+governor's ``tighten_admission`` step is engaged (``server.pressure``), the
+bound is scaled by ``pressure.admission-scale`` and its sheds have reason
+``pressure``.  Not ported: the ``qos`` bulk cost: every request costs 1
+token, as with ``qos`` off in the JAX app.
 
 Event-loop confined (``admit``/``release`` run on the loop thread), so no
 lock.
@@ -65,8 +66,16 @@ class SessionTokenBuckets:
         self.burst = float(burst)
         self.max_sessions = int(max_sessions)
         self.clock = clock
+        # Every request costs 1 token (the JAX ``qos`` bulk cost is not
+        # ported); the explain plane reports it.
+        self.bulk_cost = 1.0
         # session -> [tokens, t_last]; event-loop confined.
         self._buckets: "OrderedDict[str, list]" = OrderedDict()
+        self.taken_total = 0
+        self.refused_total = 0
+
+    def __len__(self) -> int:
+        return len(self._buckets)
 
     def _bucket(self, session_key: Optional[str]) -> list:
         key = session_key if session_key else self.ANONYMOUS
@@ -90,7 +99,9 @@ class SessionTokenBuckets:
         bucket = self._bucket(session_key)
         if bucket[0] >= cost:
             bucket[0] -= cost
+            self.taken_total += 1
             return True
+        self.refused_total += 1
         return False
 
     def refund(self, session_key: Optional[str], cost: float = 1.0) -> None:
@@ -129,9 +140,14 @@ class AdmissionController:
         return max(1, getattr(self.renderer, "device_lanes", 1))
 
     def effective_max_queue(self) -> int:
-        """The depth bound now: ``max_queue`` (the JAX controller scales
-        it under the pressure governor, which the port does not have)."""
-        return self.max_queue
+        """The depth bound now: ``max_queue``, scaled down while the
+        pressure governor's ``tighten_admission`` step is engaged
+        (shedding turns pressure-aware, not only depth-aware)."""
+        from .pressure import active
+        governor = active()
+        if governor is None:
+            return self.max_queue
+        return max(1, int(self.max_queue * governor.admission_scale()))
 
     def estimated_wait_ms(self) -> float:
         """Expected queueing delay of a request admitted now."""
@@ -179,7 +195,8 @@ class AdmissionController:
         to :meth:`release`."""
         max_queue = self.effective_max_queue()
         if self.inflight >= max_queue:
-            self._shed("queue-full",
+            self._shed("pressure" if max_queue < self.max_queue
+                       else "queue-full",
                        f"admission queue full ({self.inflight} renders "
                        f"in flight, bound {max_queue})",
                        self.estimated_wait_ms(), max_queue=max_queue)

@@ -20,15 +20,24 @@ trailing segments are tolerated as its ``:theT*`` patterns are):
       (``server.jobs``; K9 on the card), 202 + the job document; the same
       404 and 400s as the JAX app (404 with ``pyramid.enabled`` off)
   GET /pyramid/{jobId}  the job document
-  GET /metrics       Prometheus text exposition
+  GET /metrics       Prometheus text exposition; with ``Accept:
+                     application/openmetrics-text`` the OpenMetrics one,
+                     whose latency buckets carry trace-id exemplars
   GET /healthz       liveness
   GET /readyz        readiness: 200 ``{"status": "ready", "checks":
-                     {"prewarm": "complete", "queue": "ok"}}``, or 503
-                     ``"degraded"`` while the startup prewarm runs or
-                     failed, or past ``telemetry.ready-max-queue-depth``
-                     queued tiles (:meth:`Front.ready`)
+                     {"prewarm": "complete", "queue": "ok", "sentinel":
+                     "ok"}}``, or 503 ``"degraded"`` while the startup
+                     prewarm runs or failed, or past
+                     ``telemetry.ready-max-queue-depth`` queued tiles
+                     (:meth:`Front.ready`)
   GET /debug/warmstate       the warm-state document (``?snapshot=1``)
   GET /debug/flightrecorder  the flight recorder's ring (``?dump=1``)
+  GET /debug/costs           the top-K expensive requests, shape costs
+  GET /debug/decisions       the decision ledger
+  GET /debug/exemplars       the latency buckets' trace ids
+  GET /debug/sentinel        the perf sentinel's view
+  GET /debug/profile?ms=N    a ``torch.profiler`` capture (Chrome trace)
+  GET /debug/explain?path=U  the dry-run explain document of a render URL
   OPTIONS /          the feature document
 
 Around the render path, as the JAX default app (``create_app(AppConfig())``
@@ -62,9 +71,20 @@ there) has it:
   thread at startup, and ``/readyz`` answers 503 ``pending`` until they
   are, and 503 with the reason if that failed.  With persistence on it
   also carries the boot rehydrate's state (``rehydrate``: ``running N/M``
-  ... ``done N/M``), never a reason to be unready.  The JAX ``/readyz``
-  also annotates the sentinel, SLO, pressure, fleet and federation
-  states; those lines come with their modules.
+  ... ``done N/M``), never a reason to be unready; so are its ``slo``,
+  ``sentinel`` and ``pressure`` annotations.  The JAX ``/readyz`` also
+  annotates the fleet and federation states, which come with the fleet.
+* **Forensics and overload** (:meth:`Front._forensics`): the SLO engine
+  (``slo``; a breach dumps the flight recorder), the decision ledger
+  (``decisions``), the perf sentinel (``sentinel``, on by default: each
+  success's latency sketched by route and size, drift confirmed over
+  ticks, an incident bundle with a ``torch.profiler`` trace in
+  ``sentinel.bundle-dir``) and the pressure governor (``pressure``, off by
+  default: the brownout ladder of ``server.pressure``).  The two tick
+  loops run as tasks beside the watchdog's.  Each success's trace id and
+  provenance tier become its latency bucket's exemplar; past
+  ``telemetry.slow-request-ms`` a request's waterfall is written to
+  ``telemetry.slow-request-dir``.
 * **Warm restarts** (``persistence.enabled``, off by default): the disk
   byte tier in each named cache's chain (``services.diskcache``), the
   build store that keeps the nvcc and g++ libraries across deploys
@@ -151,11 +171,13 @@ from ..services.sessions import (DjangoPostgresSessionStore,
                                  StaticSessionStore, resolve_session_key)
 from ..services.viewport import ViewportTracker
 from ..services.warmstate import WarmStateManager
-from ..utils import faultinject, linkprobe, provenance, telemetry
+from ..utils import decisions, faultinject, linkprobe, provenance, telemetry
 from ..utils.adaptive import AdaptiveEngine
 from ..utils.stopwatch import span_lines
 from ..utils.transient import DeadlineExceededError, deadline_scope
-from . import execcache, httpcache
+from . import execcache, explain, httpcache
+from . import pressure as pressure_mod
+from . import sentinel as sentinel_mod
 from .admission import AdmissionController, SessionTokenBuckets
 from .batcher import BatchingRenderer
 from .config import AppConfig
@@ -477,7 +499,82 @@ class Front:
             pixels_service=handler.s.pixels_service,
             chunk=(py.chunk, py.chunk), min_level_size=py.min_level_size,
             compressor=None if py.compressor == "none" else py.compressor,
-            device=handler.s.renderer.device) if py.enabled else None)
+            device=handler.s.renderer.device,
+            defer_poll_s=py.defer_poll_s) if py.enabled else None)
+        self._forensics()
+
+    def _forensics(self) -> None:
+        """The JAX app's forensics and overload layer: the SLO engine
+        (a breach dumps the flight recorder), the decision ledger, the
+        pressure governor (``pressure.enabled``) and the perf sentinel
+        (``sentinel.enabled``, on by default), each installed
+        process-global as in JAX; their tick loops are
+        :meth:`background`'s."""
+        config = self.config
+        tel = config.telemetry
+
+        def on_slo_breach(objective: str, fast: float, slow: float) -> None:
+            telemetry.FLIGHT.record("slo.breach", objective=objective,
+                                    fast=round(fast, 2), slow=round(slow, 2))
+            path = telemetry.FLIGHT.dump(tel.flight_recorder_dir,
+                                         f"slo-{objective}")
+            log.warning("SLO breach on %s (burn %.1f fast / %.1f slow); "
+                        "flight recorder dumped to %s", objective, fast,
+                        slow, path)
+
+        slo = config.slo
+        telemetry.SLO.configure(
+            availability_target=slo.availability_target,
+            latency_ms=slo.latency_ms, latency_target=slo.latency_target,
+            fast_window_s=slo.fast_window_s,
+            slow_window_s=slo.slow_window_s,
+            breach_burn_rate=slo.breach_burn_rate, on_breach=on_slo_breach)
+        decisions.LEDGER.configure(
+            ring_size=config.decisions.ring_size,
+            spool_dir=config.decisions.spool_dir or None,
+            outcome_horizon_ticks=config.decisions.outcome_horizon_ticks)
+        services = self.handler.s
+        self.governor: Optional[pressure_mod.PressureGovernor] = None
+        if config.pressure.enabled:
+            pressure_mod.apply_cgroup_rss_defaults(config.pressure)
+            ref: list = []
+            self.governor = pressure_mod.PressureGovernor(
+                config.pressure,
+                pressure_mod.build_actuators(config.pressure,
+                                             services=services),
+                pressure_mod.build_sources(services=services,
+                                           governor_ref=ref))
+            ref.append(self.governor)
+            pressure_mod.install(self.governor)
+        self.sentinel: Optional[sentinel_mod.SentinelEngine] = None
+        if config.sentinel.enabled:
+            self.sentinel = sentinel_mod.engine_from_config(
+                config.sentinel, member="local",
+                flight_fn=lambda: {"member": "local",
+                                   "fleet_members": [],
+                                   "events": telemetry.FLIGHT.snapshot()})
+            sentinel_mod.install(self.sentinel)
+
+    def background(self) -> list:
+        """The tick loops to run as tasks while the app serves: the
+        pressure governor's and the sentinel's."""
+        loops = []
+        if self.governor is not None:
+            loops.append(("pressure-governor", self.governor.run))
+        if self.sentinel is not None:
+            loops.append(("perf-sentinel", self.sentinel.run))
+        return loops
+
+    def close(self) -> None:
+        """Uninstall this app's governor and sentinel (its tasks are
+        cancelled by their owner)."""
+        if self.governor is not None \
+                and pressure_mod.active() is self.governor:
+            pressure_mod.uninstall()
+        if self.sentinel is not None:
+            self.sentinel.close()
+            if sentinel_mod.active() is self.sentinel:
+                sentinel_mod.uninstall()
 
     async def session_key(self, cookies: Mapping[str, str]
                           ) -> Optional[str]:
@@ -607,6 +704,12 @@ class Front:
             answer = self.status_of(e)
             answer.prov_ctx = ctx
             return answer
+        if getattr(ctx, "_pressure_quality_capped", False):
+            # Capped bytes are never edge-cached under the full-quality
+            # identity: no ETag, no Vary, no-store.
+            out.pop("ETag", None)
+            out.pop("Vary", None)
+            out["Cache-Control"] = "no-store"
         self.stamp_provenance(ctx, out)
         return Answer(200, out, body, prov_ctx=ctx)
 
@@ -853,18 +956,34 @@ class Front:
                total_ms: float, trace: Optional[telemetry.Trace],
                prov_ctx=None) -> None:
         """A finished request's accounting, as the JAX app's
-        ``_finish_request`` does it: the request histogram and totals;
-        a success's provenance record into the provenance counters; the
-        cost ledger into the cost histograms and the top-K; and, with
-        ``telemetry.access-log``, the JSON access line."""
+        ``_finish_request`` does it: the request histogram (a success's
+        bucket exemplar: its trace id and provenance tier) and totals; the
+        SLO windows; a success's sketch in the perf sentinel; a 5xx's
+        ``request.error`` flight event; a success's provenance record into
+        the provenance counters; the cost ledger into the cost histograms
+        and the top-K; with ``telemetry.access-log``, the JSON access line;
+        and past ``telemetry.slow-request-ms``, the waterfall's dump."""
         record = None
         if prov_ctx is not None and status < 400:
             record = provenance.assemble(
                 prov_ctx, status,
                 trace.trace_id if trace is not None else None)
             telemetry.PROVENANCE.count(record)
-        telemetry.REQUEST_HIST.observe(route, total_ms)
+        exemplar = None
+        if trace is not None and record is not None:
+            exemplar = (trace.trace_id, record["tier"])
+        telemetry.REQUEST_HIST.observe(route, total_ms, exemplar=exemplar)
         telemetry.count_request(route, status)
+        telemetry.SLO.record(status, total_ms)
+        engine = sentinel_mod.active()
+        if engine is not None and status < 400:
+            engine.observe(route, nbytes, total_ms,
+                           trace.trace_id if trace is not None else None)
+        if status >= 500:
+            telemetry.FLIGHT.record(
+                "request.error", route=route, status=status,
+                trace=trace.trace_id if trace is not None else None,
+                ms=round(total_ms, 1))
         if trace is None:
             return
         ledger, cache_class = telemetry.assemble_ledger(trace, total_ms,
@@ -874,6 +993,7 @@ class Front:
             "trace": trace.trace_id, "route": route, "status": status,
             "ts": round(trace.wall_ts, 3), "cache": cache_class,
             "total_ms": round(total_ms, 3), "cost": ledger})
+        self._slow_trace(trace, total_ms, status, record)
         if not self.config.telemetry.access_log:
             return
         queue_ms = trace.span_ms("batcher.queueWait")
@@ -899,6 +1019,18 @@ class Front:
             line["prov"] = {k: v for k, v in record.items() if k != "trace"}
         access_log.info("%s", json.dumps(line))
 
+    def _slow_trace(self, trace: telemetry.Trace, total_ms: float,
+                    status: int, record: Optional[dict]) -> None:
+        tel = self.config.telemetry
+        if tel.slow_request_ms <= 0 or total_ms < tel.slow_request_ms:
+            return
+        path = telemetry.dump_slow_trace(
+            trace, total_ms, status, tel.slow_request_dir,
+            extra={"prov": record} if record is not None else None)
+        if path:
+            log.warning("slow request %s (%.0f ms) on %s: waterfall dumped "
+                        "to %s", trace.trace_id, total_ms, trace.route, path)
+
     def ready(self) -> Tuple[bool, dict]:
         """(ok, checks) of ``/readyz``, the JAX app's combined-role
         ``_ready_state``: ``prewarm`` (``pending``, ``complete``, or
@@ -906,10 +1038,13 @@ class Front:
         ``queue`` (``ok``, or ``depth N over M`` past
         ``telemetry.ready-max-queue-depth`` tiles queued in the batcher).
         With persistence on, ``rehydrate`` carries the boot rehydrate's
-        state (``idle``, ``running N/M``, ``done N/M`` or ``aborted N/M``),
-        an annotation that never makes the process unready.  The JAX
-        app's sentinel, SLO, pressure, fleet and federation annotations
-        wait for their modules."""
+        state (``idle``, ``running N/M``, ``done N/M`` or ``aborted N/M``).
+        As in the JAX app, ``slo`` (with objectives: their burn),
+        ``sentinel`` (``ok`` or ``drifting``) and ``pressure`` (with the
+        governor on: ``ok``, or the level and the engaged steps) annotate
+        too.  No annotation makes the process unready: a drifting or
+        browned-out instance is still serving.  The JAX app's fleet and
+        federation annotations come with the fleet."""
         checks: dict = {}
         ok = True
         if self.handler.s.warmstate is not None:
@@ -932,6 +1067,13 @@ class Front:
             checks["queue"] = f"depth {depth} over {max_depth}"
         else:
             checks["queue"] = "ok"
+        if telemetry.SLO.enabled:
+            checks["slo"] = telemetry.SLO.summary()
+        if self.sentinel is not None:
+            checks["sentinel"] = ("drifting" if self.sentinel.verdict
+                                  == "drifting" else "ok")
+        if self.governor is not None:
+            checks["pressure"] = self.governor.summary()
         return ok, checks
 
     async def warmstate_doc(self, snapshot: bool = False) -> dict:
@@ -961,14 +1103,95 @@ class Front:
                 self.config.telemetry.flight_recorder_dir, "manual")
         return doc
 
-    def metrics_text(self) -> str:
-        """The ``/metrics`` body (Prometheus text exposition)."""
-        return telemetry.finalize_exposition(
-            telemetry.request_metric_lines() + span_lines()
+    def metrics_text(self, openmetrics: bool = False) -> str:
+        """The ``/metrics`` body: the Prometheus text exposition, or with
+        ``openmetrics`` the strict OpenMetrics one, whose request-duration
+        buckets carry their exemplars and which ends ``# EOF``."""
+        text = telemetry.finalize_exposition(
+            telemetry.request_metric_lines(exemplars=openmetrics)
+            + span_lines()
             + telemetry.cost_metric_lines()
             + telemetry.resilience_metric_lines()
             + telemetry.session_metric_lines()
-            + telemetry.device_metric_lines(self.handler.s))
+            + telemetry.device_metric_lines(self.handler.s),
+            openmetrics=openmetrics)
+        return text + "# EOF\n" if openmetrics else text
+
+    def costs_doc(self) -> dict:
+        """``GET /debug/costs``: the top-K most expensive recent requests
+        with their ledgers, and the per-shape device costs."""
+        return {"observed": telemetry.COST_TOPK.observed,
+                "k": telemetry.COST_TOPK.k,
+                "top": telemetry.COST_TOPK.snapshot(),
+                "shapes": telemetry.SHAPE_COSTS.snapshot()}
+
+    @staticmethod
+    def decisions_doc() -> dict:
+        """``GET /debug/decisions``: the decision ledger's ring."""
+        local = decisions.LEDGER.snapshot()
+        return {"records": local, "status": decisions.LEDGER.status(),
+                "ledger": local}
+
+    @staticmethod
+    def exemplars_doc() -> dict:
+        """``GET /debug/exemplars``: each route's latency buckets with the
+        last trace id and tier in each (the JSON twin of the OpenMetrics
+        exemplars)."""
+        return {"request_duration_ms": telemetry.exemplars_snapshot()}
+
+    def sentinel_doc(self) -> dict:
+        """``GET /debug/sentinel``: this process's view, live (not the last
+        tick's)."""
+        doc = telemetry.SENTINEL.merged()
+        if self.sentinel is not None:
+            local = self.sentinel.summary()
+            doc["members"][str(local.get("member") or "local")] = {
+                "age_s": 0.0, "summary": local}
+            if local.get("verdict") == "drifting":
+                doc["verdict"] = "drifting"
+        doc["drifting_members"] = sorted(
+            name for name, row in doc["members"].items()
+            if row.get("summary", {}).get("verdict") == "drifting")
+        return doc
+
+    async def profile(self, ms_raw: Optional[str]) -> Answer:
+        """``GET /debug/profile?ms=N``: a ``torch.profiler`` capture of N ms
+        (default 500, clamped to [1, ``telemetry.profile-max-ms``]) on a
+        worker thread; 400 on a bad ``ms``, 409 while a capture is live,
+        503 when the profiler cannot record (on a card: CUDA activity)."""
+        try:
+            ms = float(ms_raw if ms_raw is not None else 500.0)
+        except ValueError:
+            return Answer(400, {"Content-Type": "text/plain; charset=utf-8"},
+                          b"ms must be a number")
+        ms = max(1.0, min(ms, self.config.telemetry.profile_max_ms))
+        try:
+            doc = await asyncio.to_thread(
+                telemetry.capture_profile,
+                self.config.telemetry.profile_dir, ms)
+        except telemetry.ProfileInProgressError as e:
+            return _json(409, {"error": str(e)})
+        except Exception:
+            log.exception("profile capture failed")
+            return _json(503, {"error": "profiler unavailable"})
+        return _json(200, doc)
+
+    async def explain(self, path: Optional[str]) -> Answer:
+        """``GET /debug/explain?path=<render URL>``: the dry-run document
+        (``server.explain``); 400 without a render URL."""
+        if not path:
+            return _json(400, {"error": "pass ?path=<render URL> (path + "
+                                        "query, server-relative)"})
+        try:
+            doc = await explain.explain(
+                path, self.config, services=self.handler.s,
+                admission=self.handler.s.admission, jobs=self.jobs)
+        except BadRequestError as e:
+            return _json(400, {"error": str(e)})
+        except Exception:
+            log.exception("explain failed")
+            return _json(500, {"error": "explain failed"})
+        return _json(200, doc)
 
 
 async def _counted(stream: AsyncIterator[bytes],
@@ -1075,6 +1298,12 @@ def create_app(config: Optional[AppConfig] = None,
         return serve
 
     async def metrics(request: web.Request) -> web.Response:
+        # Exemplars ride only a scrape that asked for OpenMetrics: the
+        # plain text parser refuses their syntax.
+        if "application/openmetrics-text" in request.headers.get("Accept",
+                                                                  ""):
+            return web.Response(text=front.metrics_text(openmetrics=True),
+                                content_type="application/openmetrics-text")
         return web.Response(text=front.metrics_text(),
                             content_type="text/plain")
 
@@ -1105,6 +1334,24 @@ def create_app(config: Optional[AppConfig] = None,
     async def debug_flightrecorder(request: web.Request) -> web.Response:
         return web.json_response(front.flight_doc(
             bool(request.query.get("dump"))))
+
+    async def debug_costs(request: web.Request) -> web.Response:
+        return web.json_response(front.costs_doc())
+
+    async def debug_decisions(request: web.Request) -> web.Response:
+        return web.json_response(front.decisions_doc())
+
+    async def debug_exemplars(request: web.Request) -> web.Response:
+        return web.json_response(front.exemplars_doc())
+
+    async def debug_sentinel(request: web.Request) -> web.Response:
+        return web.json_response(front.sentinel_doc())
+
+    async def debug_profile(request: web.Request) -> web.Response:
+        return to_response(await front.profile(request.query.get("ms")))
+
+    async def debug_explain(request: web.Request) -> web.Response:
+        return to_response(await front.explain(request.query.get("path")))
 
     async def readyz(request: web.Request) -> web.Response:
         """200 only when this process can serve renders now; a 503 names
@@ -1139,11 +1386,14 @@ def create_app(config: Optional[AppConfig] = None,
         if front.jobs is not None:
             tasks.append(asyncio.create_task(front.jobs.run(),
                                              name="pyramid-jobs"))
+        for name, loop in front.background():
+            tasks.append(asyncio.create_task(loop(), name=name))
 
     async def on_cleanup(app: web.Application) -> None:
         for task in tasks:
             task.cancel()
         await asyncio.gather(*tasks, return_exceptions=True)
+        front.close()
         warmstate = handler.s.warmstate
         if warmstate is not None:
             # Stop the timer and the rehydrate before the stores they read
@@ -1189,6 +1439,12 @@ def create_app(config: Optional[AppConfig] = None,
     app.router.add_get("/readyz", readyz)
     app.router.add_get("/debug/warmstate", debug_warmstate)
     app.router.add_get("/debug/flightrecorder", debug_flightrecorder)
+    app.router.add_get("/debug/costs", debug_costs)
+    app.router.add_get("/debug/decisions", debug_decisions)
+    app.router.add_get("/debug/exemplars", debug_exemplars)
+    app.router.add_get("/debug/sentinel", debug_sentinel)
+    app.router.add_get("/debug/profile", debug_profile)
+    app.router.add_get("/debug/explain", debug_explain)
     app.router.add_route("OPTIONS", "/{tail:.*}", details)
     return app
 

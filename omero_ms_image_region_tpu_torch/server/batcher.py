@@ -65,8 +65,21 @@ same-flip masks group into one K8a launch on a lane's stream
 (``Renderer.rasterizeMask.batch``); the grids come back to the host for
 the PNG tail.
 
-Left out (ROADMAP Queue 1): the executable cache, shape-cost telemetry,
-and the lane cap and backlog split that the JAX pressure governor drives.
+Shape costs (``telemetry.SHAPE_COSTS``): each group's execute wall ms is
+observed under its shape label (``B<n>x<C>x<H>x<W>``, ``jpeg:`` for a JPEG
+group; mask groups are not observed, as in JAX), and once per shape the
+estimate: bytes and f32 operations of K1 (and K3 for a JPEG
+group), counted from the shapes as PERF.md's bounds count them
+(:func:`_shape_estimate`; the data-dependent K4a, K4b and K5 are left
+out).  The JAX batcher takes its estimate from XLA's ``cost_analysis()``.
+
+The pressure governor's ``cap_lanes`` (:meth:`BatchingRenderer
+.set_lane_cap`): at most ``cap`` groups hold a device lane at once; a
+capped lane takes no new group, and groups already on a stream finish.
+
+Left out (ROADMAP Queue 1): the executable cache (the build store keeps
+the built libraries instead) and the backlog split (``target_inflight``),
+which acts only with the batch growth the port does not have.
 """
 
 from __future__ import annotations
@@ -155,6 +168,31 @@ class _LiveGroup:
         self.t_fire = 0.0
 
 
+def _shape_label(raw_shape, jpeg: bool = False) -> str:
+    """The shape-cost label of a group, the JAX batcher's:
+    ``B8x4x1024x1024``, prefixed ``jpeg:`` for a JPEG group."""
+    label = "B" + "x".join(str(int(v)) for v in raw_shape)
+    return ("jpeg:" + label) if jpeg else label
+
+
+def _shape_estimate(raw_shape, itemsize: int, table_numel: int,
+                    jpeg: bool) -> Tuple[float, float]:
+    """(f32 operations, bytes) of a group's K1, and K3 for a JPEG group,
+    counted as PERF.md's bounds count them: each input read once and each
+    output written once; ~17 operations a pixel-channel and 12 a pixel for
+    the render, ~16 a pixel and 32 a coefficient for the JPEG front end."""
+    B, C, H, W = (int(v) for v in raw_shape)
+    px = B * H * W
+    n_bytes = B * C * H * W * itemsize + px * 4 + B * C * 4 * 5 \
+        + table_numel * 4
+    ops = px * (17 * C + 12)
+    if jpeg:
+        coeffs = px * 3 // 2          # Y, and Cb and Cr at 4:2:0
+        n_bytes += px * 4 + coeffs * 2 + 768
+        ops += px * 16 + coeffs * 32
+    return float(ops), float(n_bytes)
+
+
 def _key_label(key: tuple) -> str:
     if key and key[0] == "mask":
         return "mask:" + "x".join(str(v) for v in key[1:3])
@@ -233,6 +271,11 @@ class BatchingRenderer:
         self.watchdog_stall_factor = 8.0
         self.watchdog_stall_min_s = 30.0
         self.watchdog_escalate_after = 2
+        # cap_lanes: at most this many groups past the lane gate (0: no
+        # cap); _gated counts them.
+        self._lane_cap = 0
+        self._gated = 0
+        self._lane_cv = threading.Condition()
 
     def _count_batch(self, tiles: int) -> None:
         with self._stats_lock:
@@ -247,6 +290,14 @@ class BatchingRenderer:
     def inflight(self) -> int:
         """Groups holding a pipeline slot."""
         return len(self._inflight)
+
+    def set_lane_cap(self, cap: int) -> None:
+        """The pressure ladder's ``cap_lanes``: at most ``cap`` groups hold
+        a device lane at once (0 lifts the cap).  A lane above the cap
+        takes no new group; groups already on their streams finish."""
+        with self._lane_cv:
+            self._lane_cap = max(0, int(cap))
+            self._lane_cv.notify_all()
 
     # ----------------------------------------------------------- watchdog
 
@@ -645,7 +696,13 @@ class BatchingRenderer:
         """A device lane for a group's execute half: at most
         ``device_lanes`` groups run their device work, D2H and coding at
         once, each on its own CUDA stream.  A lane is handed back idle:
-        each group ends with a synchronous D2H on its stream."""
+        each group ends with a synchronous D2H on its stream.  Under a lane
+        cap a group first waits until fewer than ``cap`` groups are past
+        the gate."""
+        with self._lane_cv:
+            while self._lane_cap and self._gated >= self._lane_cap:
+                self._lane_cv.wait()
+            self._gated += 1
         stream = self._lanes.get()
         t0 = time.perf_counter()
         with self._stats_lock:
@@ -661,12 +718,29 @@ class BatchingRenderer:
                 self._executing -= 1
                 self.execute_ms.append((time.perf_counter() - t0) * 1000.0)
             self._lanes.put(stream)
+            with self._lane_cv:
+                self._gated -= 1
+                self._lane_cv.notify_all()
 
     @staticmethod
-    def _device_cost(group: List[_Pending], t0: float) -> None:
-        """Each member's share of the group's execute (``device_ms``)."""
-        telemetry.add_cost("device_ms", (time.perf_counter() - t0)
-                           * 1000.0 / len(group))
+    def _device_cost(group: List[_Pending], t0: float,
+                     shape: Optional[str] = None, estimate=None) -> None:
+        """Each member's share of the group's execute (``device_ms``); for
+        a render or JPEG group the shape's observed execute, and once per
+        shape its estimate (``estimate()``: (operations, bytes))."""
+        exec_ms = (time.perf_counter() - t0) * 1000.0
+        telemetry.add_cost("device_ms", exec_ms / len(group))
+        if shape is None:
+            return
+        telemetry.SHAPE_COSTS.observe(shape, exec_ms)
+        if estimate is not None \
+                and telemetry.SHAPE_COSTS.claim_estimate(shape):
+            telemetry.SHAPE_COSTS.set_estimate(shape, *estimate())
+
+    @staticmethod
+    def _estimate(raw: torch.Tensor, settings: tuple, jpeg: bool):
+        return lambda: _shape_estimate(raw.shape, raw.element_size(),
+                                       settings[-1].numel(), jpeg)
 
     def _render_group(self, group: List[_Pending]) -> List[np.ndarray]:
         self._inject_faults()
@@ -674,9 +748,11 @@ class BatchingRenderer:
         with self._lane(), stopwatch("Renderer.renderAsPackedInt.batch"):
             raw = device_half()
             t0 = time.perf_counter()
-            packed = render_tile_batch_packed(raw, *self._settings(group))
+            settings = self._settings(group)
+            packed = render_tile_batch_packed(raw, *settings)
             host = packed.cpu().numpy().view(np.uint32)
-            self._device_cost(group, t0)
+            self._device_cost(group, t0, _shape_label(raw.shape),
+                              self._estimate(raw, settings, False))
         self._count_batch(len(group))
         return [host[i, :p.h, :p.w] for i, p in enumerate(group)]
 
@@ -710,12 +786,14 @@ class BatchingRenderer:
         with self._lane(), stopwatch("Renderer.renderAsPackedInt.batch"):
             raw = device_half()
             t0 = time.perf_counter()
+            settings = self._settings(group)
             jpegs = render_batch_to_jpeg(
-                raw, *self._settings(group), quality=group[0].quality,
+                raw, *settings, quality=group[0].quality,
                 dims=[(p.w, p.h) for p in group],
                 on_tile=self._early_settle_cb(group),
                 engine=self._current_engine())
-            self._device_cost(group, t0)
+            self._device_cost(group, t0, _shape_label(raw.shape, jpeg=True),
+                              self._estimate(raw, settings, True))
         self._count_batch(len(group))
         return jpegs
 

@@ -33,9 +33,9 @@ served settings the same values and the same validation:
   does) and ``animation-max-frames``;
 * ``pyramid``: ``enabled`` (off: ``POST /pyramid`` and ``GET
   /pyramid/{jobId}`` answer 404, as in the JAX app), ``chunk``,
-  ``min-level-size`` and ``compressor`` of the background pyramid job
-  (``server.jobs``); ``defer-poll-s`` is held to its JAX default, since the
-  port has no pressure governor to park a job behind;
+  ``min-level-size``, ``compressor`` and ``defer-poll-s`` (how often a job
+  parked under the pressure ladder's ``shed_bulk`` looks again) of the
+  background pyramid job (``server.jobs``);
 * the byte caches: ``image-region-cache``, ``pixels-metadata-cache`` and
   ``shape-mask-cache`` (``enabled``), and ``redis-cache.uri`` (the shared
   tier of the three and of the canRead memo), into
@@ -47,11 +47,18 @@ served settings the same values and the same validation:
   (``server.prewarm``; a malformed spec fails the load, as in JAX);
 * ``telemetry``: ``access-log`` (the JSON access line, on by default),
   ``ready-max-queue-depth`` (``/readyz``'s backlog bound),
-  ``provenance-header``, and the flight recorder's
-  ``flight-recorder-events`` (the ring's size) and
-  ``flight-recorder-dir`` (where SIGTERM and ``/debug/flightrecorder
-  ?dump=1`` write it); its other keys (the slow-request dumps, profiles)
-  are held to their JAX defaults;
+  ``provenance-header``, the flight recorder's ``flight-recorder-events``
+  (the ring's size) and ``flight-recorder-dir`` (where SIGTERM, an SLO
+  breach and ``/debug/flightrecorder?dump=1`` write it),
+  ``slow-request-ms`` and ``slow-request-dir`` (slow requests' span
+  waterfalls), and ``profile-dir`` and ``profile-max-ms``
+  (``/debug/profile``'s ``torch.profiler`` traces);
+* the forensics and overload sections, with the JAX loader's validation:
+  ``slo`` (the burn-rate objectives), ``decisions`` (the decision ledger's
+  ring and spool), ``sentinel`` (the perf sentinel, on by default;
+  ``records-dir`` is accepted and reads nothing, see ``server.sentinel``)
+  and ``pressure`` (the governor and its ladder, off by default;
+  ``shed_bulk`` must come before ``tighten_admission``);
 * ``persistence`` (off by default, as in JAX): ``enabled``, ``dir`` (the
   disk byte tier under ``bytecache/``, the build store under
   ``executables/``, ``manifest.json``), ``disk-cache-max-bytes``,
@@ -73,8 +80,10 @@ the load with a ``ValueError`` that names the setting and says the port
 does not serve it yet.  ``AppConfig.unserved`` would name a section that
 loads but is not served, with a warning at startup; since the byte caches
 are served, no section is.  Settings the JAX package turns on by default
-and the port does not have (``wire.streaming``, the sentinel, ...) wait in
-ROADMAP Queue 1.
+and the port does not have (``wire.streaming``, ...) wait in ROADMAP Queue
+1.  ``batcher.target-inflight`` stays refused away from 1: the JAX backlog
+split acts only with batch growth (JAX ``server/batcher.py:669``), which
+the port does not have.
 """
 
 from __future__ import annotations
@@ -120,15 +129,102 @@ class RendererConfig:
 
 @dataclass
 class TelemetryConfig:
-    """The request telemetry the port serves: the JSON access log, the
-    ``/readyz`` backlog bound, the provenance debug header and the flight
-    recorder (``utils.telemetry.FLIGHT``)."""
+    """The request telemetry (the JAX ``TelemetryConfig``): the JSON access
+    log, the ``/readyz`` backlog bound, the provenance debug header, the
+    flight recorder (``utils.telemetry.FLIGHT``), the slow-request
+    waterfalls and ``/debug/profile``'s captures."""
 
+    # Requests slower than this write their span waterfall as JSON into
+    # slow_request_dir; 0 disables it.
+    slow_request_ms: float = 0.0
+    slow_request_dir: str = "./slow-traces"
     access_log: bool = True
     ready_max_queue_depth: int = 64
     provenance_header: bool = False
     flight_recorder_events: int = 512
     flight_recorder_dir: str = "./flight-recorder"
+    # /debug/profile?ms=N writes its torch.profiler trace here; a request
+    # is clamped to profile_max_ms.
+    profile_dir: str = "./profiles"
+    profile_max_ms: float = 10000.0
+
+
+@dataclass
+class SloConfig:
+    """Service-level objectives as multi-window burn rates
+    (``utils.telemetry.SLO``); both off by default."""
+
+    availability_target: float = 0.0     # 0: off
+    latency_ms: float = 0.0               # 0: off
+    latency_target: float = 0.99
+    fast_window_s: float = 60.0
+    slow_window_s: float = 600.0
+    breach_burn_rate: float = 14.4
+
+
+@dataclass
+class DecisionsConfig:
+    """The decision ledger (``utils.decisions.LEDGER``)."""
+
+    ring_size: int = 256
+    spool_dir: str = ""                   # "": no JSONL spool
+    outcome_horizon_ticks: int = 3
+
+
+@dataclass
+class SentinelConfig:
+    """The live perf-regression sentinel (``server.sentinel``), on by
+    default.  ``records_dir`` is accepted and read by nothing: the repo's
+    records are the JAX package's TPU and CPU runs
+    (``server.sentinel.load_repo_watermarks``)."""
+
+    enabled: bool = True
+    tick_interval_s: float = 5.0
+    confirm_ticks: int = 3
+    recover_ticks: int = 3
+    min_samples: int = 32
+    warmup_ticks: int = 3
+    drift_ratio: float = 1.5
+    baseline_alpha: float = 0.2
+    throughput_floor_ratio: float = 0.5
+    bundle_dir: str = ""                  # "": no incident bundle
+    max_bundles: int = 8
+    profile_ms: int = 200
+    records_dir: str = "."
+
+
+@dataclass
+class PressureConfig:
+    """The pressure governor and its brownout ladder
+    (``server.pressure``), off by default."""
+
+    enabled: bool = False
+    interval_s: float = 1.0
+    # Enter elevated at ``high``, leave below ``low``; ``high x
+    # critical-factor`` reads critical; high 0 disables the signal.
+    hbm_high: float = 0.90
+    hbm_low: float = 0.75
+    host_rss_high_mb: float = 0.0
+    host_rss_low_mb: float = 0.0
+    disk_high: float = 0.95
+    disk_low: float = 0.85
+    queue_high: int = 48
+    queue_low: int = 16
+    loop_lag_high_ms: float = 250.0
+    loop_lag_low_ms: float = 50.0
+    critical_factor: float = 1.25
+    step_hold_ticks: int = 2
+    release_hold_ticks: int = 3
+    ladder: Tuple[str, ...] = (
+        "pause_prefetch", "pause_snapshots", "evict_caches",
+        "cap_lanes", "drop_quality", "shed_bulk",
+        "tighten_admission")
+    quality_cap: int = 60              # drop_quality: JPEG ceiling
+    evict_to_frac: float = 0.70        # evict_caches: low-water target
+    lane_cap: int = 1                  # cap_lanes: groups on a lane
+    admission_scale: float = 0.25      # tighten_admission multiplier
+    prefetch_budget_elevated: float = 0.5
+    prefetch_budget_critical: float = 0.25
 
 
 @dataclass
@@ -208,6 +304,7 @@ class PyramidConfig:
     chunk: int = 256                # NGFF chunk edge of written levels
     min_level_size: int = 256       # stop halving below this
     compressor: str = "zlib"        # zlib | gzip | none
+    defer_poll_s: float = 0.25      # parked under shed_bulk: re-check
 
 
 @dataclass
@@ -275,38 +372,9 @@ _UNPORTED = {
         "diurnal-horizon-s": 300.0, "unit-config": "",
     },
     "qos": {"enabled": False, "interactive-weight": 4, "bulk-cost": 4.0},
-    "pressure": {
-        "enabled": False, "interval-s": 1.0, "hbm-high": 0.9,
-        "hbm-low": 0.75, "host-rss-high-mb": 0.0, "host-rss-low-mb": 0.0,
-        "disk-high": 0.95, "disk-low": 0.85, "queue-high": 48,
-        "queue-low": 16, "loop-lag-high-ms": 250.0,
-        "loop-lag-low-ms": 50.0, "critical-factor": 1.25,
-        "step-hold-ticks": 2, "release-hold-ticks": 3,
-        "ladder": ("pause_prefetch", "pause_snapshots", "evict_caches",
-                   "cap_lanes", "drop_quality", "shed_bulk",
-                   "tighten_admission"),
-        "quality-cap": 60, "evict-to-frac": 0.7, "lane-cap": 1,
-        "admission-scale": 0.25, "prefetch-budget-elevated": 0.5,
-        "prefetch-budget-critical": 0.25,
-    },
     "drain": {
         "prestage": True, "prestage-max-planes": 256,
         "settle-timeout-s": 30.0, "fail-readyz": False,
-    },
-    "slo": {
-        "availability-target": 0.0, "latency-ms": 0.0,
-        "latency-target": 0.99, "fast-window-s": 60.0,
-        "slow-window-s": 600.0, "breach-burn-rate": 14.4,
-    },
-    "decisions": {
-        "ring-size": 256, "spool-dir": "", "outcome-horizon-ticks": 3,
-    },
-    "sentinel": {
-        "enabled": True, "tick-interval-s": 5.0, "confirm-ticks": 3,
-        "recover-ticks": 3, "min-samples": 32, "warmup-ticks": 3,
-        "drift-ratio": 1.5, "baseline-alpha": 0.2,
-        "throughput-floor-ratio": 0.5, "bundle-dir": "",
-        "max-bundles": 8, "profile-ms": 200, "records-dir": ".",
     },
 }
 
@@ -315,10 +383,7 @@ _UNPORTED_KEYS = {
     "batcher": {"max-batch-limit": None, "target-inflight": 1},
     "raw-cache": {},
     "renderer": {"kernel": "xla", "compilation-cache-dir": None},
-    "telemetry": {
-        "slow-request-ms": 0.0, "slow-request-dir": "./slow-traces",
-        "profile-dir": "./profiles", "profile-max-ms": 10000.0,
-    },
+    "telemetry": {},
     "http-cache": {"peer-fetch": True, "peer-timeout-ms": 500.0},
     "watchdog": {"wire-hang-s": 60.0},
     "fault-tolerance": {
@@ -333,7 +398,7 @@ _UNPORTED_KEYS = {
         "die-after-requests": 0,
     },
     "omero.server": {},
-    "pyramid": {"defer-poll-s": 0.25},
+    "pyramid": {},
     "session-store": {},
     "metadata-service": {},
 }
@@ -411,6 +476,10 @@ class AppConfig:
     telemetry: TelemetryConfig = field(default_factory=TelemetryConfig)
     persistence: PersistenceConfig = field(
         default_factory=PersistenceConfig)
+    slo: SloConfig = field(default_factory=SloConfig)
+    decisions: DecisionsConfig = field(default_factory=DecisionsConfig)
+    sentinel: SentinelConfig = field(default_factory=SentinelConfig)
+    pressure: PressureConfig = field(default_factory=PressureConfig)
     # Sections switched on that the port loads but does not serve (none
     # today).
     unserved: Tuple[str, ...] = ()
@@ -497,6 +566,10 @@ class AppConfig:
         cfg._fault_injection(_block(raw, "fault-injection"))
         cfg._renderer(_block(raw, "renderer"))
         cfg._telemetry(_block(raw, "telemetry"))
+        cfg._slo(_block(raw, "slo"))
+        cfg._decisions(_block(raw, "decisions"))
+        cfg._sentinel(_block(raw, "sentinel"))
+        cfg._pressure(_block(raw, "pressure"))
         cfg._persistence(_block(raw, "persistence"))
         cfg._workloads(_block(raw, "workloads"))
         cfg._pyramid(_block(raw, "pyramid"))
@@ -674,11 +747,16 @@ class AppConfig:
 
     def _telemetry(self, tel: dict) -> None:
         _check("telemetry", tel, _UNPORTED_KEYS["telemetry"],
-               served=("access-log", "ready-max-queue-depth",
-                       "provenance-header", "flight-recorder-events",
-                       "flight-recorder-dir"))
+               served=("slow-request-ms", "slow-request-dir", "access-log",
+                       "ready-max-queue-depth", "provenance-header",
+                       "flight-recorder-events", "flight-recorder-dir",
+                       "profile-dir", "profile-max-ms"))
         d = TelemetryConfig()
         self.telemetry = TelemetryConfig(
+            slow_request_ms=float(tel.get("slow-request-ms",
+                                          d.slow_request_ms)),
+            slow_request_dir=str(tel.get("slow-request-dir",
+                                         d.slow_request_dir)),
             access_log=bool(tel.get("access-log", d.access_log)),
             ready_max_queue_depth=int(tel.get("ready-max-queue-depth",
                                               d.ready_max_queue_depth)),
@@ -687,13 +765,170 @@ class AppConfig:
             flight_recorder_events=int(tel.get(
                 "flight-recorder-events", d.flight_recorder_events)),
             flight_recorder_dir=str(tel.get("flight-recorder-dir",
-                                            d.flight_recorder_dir)))
+                                            d.flight_recorder_dir)),
+            profile_dir=str(tel.get("profile-dir", d.profile_dir)),
+            profile_max_ms=float(tel.get("profile-max-ms",
+                                         d.profile_max_ms)))
+        if self.telemetry.slow_request_ms < 0:
+            raise ValueError("telemetry.slow-request-ms must be >= 0")
         if self.telemetry.ready_max_queue_depth < 1:
             raise ValueError("telemetry.ready-max-queue-depth must be "
                              ">= 1")
         if self.telemetry.flight_recorder_events < 16:
             raise ValueError("telemetry.flight-recorder-events must be "
                              ">= 16 (the black box needs some tape)")
+        if self.telemetry.profile_max_ms <= 0:
+            raise ValueError("telemetry.profile-max-ms must be > 0")
+
+    def _slo(self, slo: dict) -> None:
+        d = SloConfig()
+        _check("slo", slo, {}, served=tuple(
+            f.replace("_", "-") for f in vars(d)))
+        self.slo = SloConfig(
+            availability_target=float(slo.get("availability-target",
+                                              d.availability_target)),
+            latency_ms=float(slo.get("latency-ms", d.latency_ms)),
+            latency_target=float(slo.get("latency-target",
+                                         d.latency_target)),
+            fast_window_s=float(slo.get("fast-window-s", d.fast_window_s)),
+            slow_window_s=float(slo.get("slow-window-s", d.slow_window_s)),
+            breach_burn_rate=float(slo.get("breach-burn-rate",
+                                           d.breach_burn_rate)))
+        for name in ("availability_target", "latency_target"):
+            v = getattr(self.slo, name)
+            if not 0.0 <= v < 1.0:
+                raise ValueError(
+                    f"slo.{name.replace('_', '-')} must be in [0, 1) "
+                    f"(a target of 1.0 leaves zero error budget), got {v}")
+        if self.slo.latency_ms < 0:
+            raise ValueError("slo.latency-ms must be >= 0")
+        if self.slo.fast_window_s <= 0 or self.slo.slow_window_s <= 0:
+            raise ValueError("slo windows must be > 0 seconds")
+        if self.slo.breach_burn_rate <= 0:
+            raise ValueError("slo.breach-burn-rate must be > 0")
+
+    def _decisions(self, dec: dict) -> None:
+        d = DecisionsConfig()
+        _check("decisions", dec, {}, served=(
+            "ring-size", "spool-dir", "outcome-horizon-ticks"))
+        self.decisions = DecisionsConfig(
+            ring_size=int(dec.get("ring-size", d.ring_size)),
+            spool_dir=str(dec.get("spool-dir", d.spool_dir) or ""),
+            outcome_horizon_ticks=int(dec.get("outcome-horizon-ticks",
+                                              d.outcome_horizon_ticks)))
+        if self.decisions.ring_size < 16:
+            raise ValueError("decisions.ring-size must be >= 16")
+        if self.decisions.outcome_horizon_ticks < 1:
+            raise ValueError("decisions.outcome-horizon-ticks must be >= 1")
+
+    def _sentinel(self, sen: dict) -> None:
+        d = SentinelConfig()
+        _check("sentinel", sen, {}, served=tuple(
+            f.replace("_", "-") for f in vars(d)))
+        self.sentinel = SentinelConfig(
+            enabled=bool(sen.get("enabled", d.enabled)),
+            tick_interval_s=float(sen.get("tick-interval-s",
+                                          d.tick_interval_s)),
+            confirm_ticks=int(sen.get("confirm-ticks", d.confirm_ticks)),
+            recover_ticks=int(sen.get("recover-ticks", d.recover_ticks)),
+            min_samples=int(sen.get("min-samples", d.min_samples)),
+            warmup_ticks=int(sen.get("warmup-ticks", d.warmup_ticks)),
+            drift_ratio=float(sen.get("drift-ratio", d.drift_ratio)),
+            baseline_alpha=float(sen.get("baseline-alpha",
+                                         d.baseline_alpha)),
+            throughput_floor_ratio=float(sen.get(
+                "throughput-floor-ratio", d.throughput_floor_ratio)),
+            bundle_dir=str(sen.get("bundle-dir", d.bundle_dir) or ""),
+            max_bundles=int(sen.get("max-bundles", d.max_bundles)),
+            profile_ms=int(sen.get("profile-ms", d.profile_ms)),
+            records_dir=str(sen.get("records-dir", d.records_dir) or ""))
+        c = self.sentinel
+        if c.tick_interval_s <= 0:
+            raise ValueError("sentinel.tick-interval-s must be > 0")
+        if c.confirm_ticks < 1:
+            raise ValueError("sentinel.confirm-ticks must be >= 1 (a "
+                             "zero-confirmation sentinel would page on one "
+                             "slow window)")
+        if c.recover_ticks < 1:
+            raise ValueError("sentinel.recover-ticks must be >= 1")
+        if c.min_samples < 1:
+            raise ValueError("sentinel.min-samples must be >= 1")
+        if c.warmup_ticks < 1:
+            raise ValueError("sentinel.warmup-ticks must be >= 1")
+        if c.drift_ratio <= 1.0:
+            raise ValueError("sentinel.drift-ratio must be > 1.0 (a ratio "
+                             "at or under 1.0 calls steady state a drift)")
+        if not 0.0 < c.baseline_alpha <= 1.0:
+            raise ValueError("sentinel.baseline-alpha must be in (0, 1]")
+        if not 0.0 < c.throughput_floor_ratio <= 1.0:
+            raise ValueError(
+                "sentinel.throughput-floor-ratio must be in (0, 1]")
+        if c.max_bundles < 1:
+            raise ValueError("sentinel.max-bundles must be >= 1")
+        if c.profile_ms < 0:
+            raise ValueError("sentinel.profile-ms must be >= 0")
+
+    def _pressure(self, pr: dict) -> None:
+        d = PressureConfig()
+        _check("pressure", pr, {}, served=tuple(
+            f.replace("_", "-") for f in vars(d)))
+        fields = {}
+        for f, default in vars(d).items():
+            key = f.replace("_", "-")
+            if f == "ladder":
+                fields[f] = tuple(str(v) for v in pr.get(key, ()) or ()) \
+                    or default
+            elif key in pr:
+                fields[f] = type(default)(pr[key])
+        self.pressure = c = PressureConfig(**fields)
+        if c.interval_s <= 0:
+            raise ValueError("pressure.interval-s must be > 0")
+        from .pressure import KNOWN_STEPS
+        seen = set()
+        for step in c.ladder:
+            if step not in KNOWN_STEPS:
+                raise ValueError(f"pressure.ladder step {step!r} is not "
+                                 f"one of {sorted(KNOWN_STEPS)}")
+            if step in seen:
+                raise ValueError(f"pressure.ladder repeats step {step!r}")
+            seen.add(step)
+        if ("shed_bulk" in seen and "tighten_admission" in seen
+                and c.ladder.index("shed_bulk")
+                > c.ladder.index("tighten_admission")):
+            raise ValueError(
+                "pressure.ladder must engage shed_bulk before "
+                "tighten_admission (bulk work sheds first; interactive "
+                "availability goes last)")
+        for high_name, low_name in (
+                ("hbm_high", "hbm_low"),
+                ("host_rss_high_mb", "host_rss_low_mb"),
+                ("disk_high", "disk_low"), ("queue_high", "queue_low"),
+                ("loop_lag_high_ms", "loop_lag_low_ms")):
+            high, low = getattr(c, high_name), getattr(c, low_name)
+            if high > 0 and not 0 <= low < high:
+                raise ValueError(
+                    f"pressure.{low_name.replace('_', '-')} must be in "
+                    f"[0, {high_name.replace('_', '-')}) (the hysteresis "
+                    f"band needs low < high)")
+        if c.critical_factor < 1.0:
+            raise ValueError("pressure.critical-factor must be >= 1")
+        if c.step_hold_ticks < 1 or c.release_hold_ticks < 1:
+            raise ValueError("pressure step/release hold ticks must be "
+                             ">= 1")
+        if not 1 <= c.quality_cap <= 100:
+            raise ValueError("pressure.quality-cap must be in [1, 100]")
+        if not 0.0 < c.evict_to_frac < 1.0:
+            raise ValueError("pressure.evict-to-frac must be in (0, 1)")
+        if c.lane_cap < 1:
+            raise ValueError("pressure.lane-cap must be >= 1")
+        if not 0.0 < c.admission_scale <= 1.0:
+            raise ValueError("pressure.admission-scale must be in (0, 1]")
+        if not (0.0 < c.prefetch_budget_critical
+                <= c.prefetch_budget_elevated <= 1.0):
+            raise ValueError(
+                "pressure prefetch budgets must satisfy 0 < "
+                "prefetch-budget-critical <= prefetch-budget-elevated "
+                "<= 1")
 
     def _persistence(self, per: dict) -> None:
         _check("persistence", per, {},
@@ -731,13 +966,15 @@ class AppConfig:
 
     def _pyramid(self, py: dict) -> None:
         _check("pyramid", py, _UNPORTED_KEYS["pyramid"],
-               served=("enabled", "chunk", "min-level-size", "compressor"))
+               served=("enabled", "chunk", "min-level-size", "compressor",
+                       "defer-poll-s"))
         d = PyramidConfig()
         self.pyramid = PyramidConfig(
             enabled=bool(py.get("enabled", d.enabled)),
             chunk=int(py.get("chunk", d.chunk)),
             min_level_size=int(py.get("min-level-size", d.min_level_size)),
-            compressor=str(py.get("compressor", d.compressor)))
+            compressor=str(py.get("compressor", d.compressor)),
+            defer_poll_s=float(py.get("defer-poll-s", d.defer_poll_s)))
         if self.pyramid.chunk < 16:
             raise ValueError("pyramid.chunk must be >= 16")
         if self.pyramid.min_level_size < 1:
@@ -745,3 +982,5 @@ class AppConfig:
         if self.pyramid.compressor not in ("zlib", "gzip", "none"):
             raise ValueError("pyramid.compressor must be zlib, gzip, "
                              "or none")
+        if self.pyramid.defer_poll_s <= 0:
+            raise ValueError("pyramid.defer-poll-s must be > 0")

@@ -14,6 +14,7 @@ Redis cache with the Java service it replaces.
 
 from __future__ import annotations
 
+import hashlib
 import json
 from dataclasses import dataclass
 from typing import List, Mapping, Optional, Tuple
@@ -255,3 +256,19 @@ class ShapeMaskCtx:
         Java formats it."""
         color = "null" if self.color is None else self.color
         return f"{_MASK_CLASS}:{self.shape_id}:{color}"
+
+
+def plane_route_key(ctx) -> str:
+    """The request's source-plane identity (the JAX
+    ``parallel.fleet.plane_route_key``): everything that pins which bytes
+    are read, nothing the rendering settings touch, so every render of one
+    plane (re-window, re-colour, format) has one key.  The raw cache
+    records it at staging (``DeviceRawCache.resident_route``, the explain
+    plane's "is this plane warm" probe)."""
+    tile = ((ctx.tile.x, ctx.tile.y, ctx.tile.width, ctx.tile.height)
+            if ctx.tile is not None else None)
+    region = ((ctx.region.x, ctx.region.y, ctx.region.width,
+               ctx.region.height) if ctx.region is not None else None)
+    parts = (ctx.image_id, ctx.z, ctx.t, ctx.resolution, tile, region)
+    return hashlib.blake2b(repr(parts).encode(),
+                           digest_size=16).hexdigest()

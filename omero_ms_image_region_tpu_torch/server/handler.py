@@ -39,7 +39,12 @@ has a ``repo_root``, from the OMERO repository
 Admission (``server.admission``) sits inside the single-flight producer,
 as in the JAX handler: a coalesced follower claims no slot.  With
 ``sessions.enabled`` each caller first draws its session's fairness token,
-before single-flight.  The stages
+before single-flight.  Under the pressure governor's ladder
+(``server.pressure``), ``shed_bulk`` sheds a full-plane or projection
+render with a 503 before admission, and ``drop_quality`` caps an
+interactive device-route JPEG's quality (its bytes are then not written to
+the image-region cache).  A raw-cache miss records the plane's routing
+identity (``ctx.plane_route_key``) for the explain plane.  The stages
 are timed under the JAX package's span names (``utils.stopwatch``):
 ``get_pixels_description``, ``canRead``, ``PixelsService.getPixelBuffer``,
 ``PixelsService.readRegion`` (a raw-cache miss's read and copy),
@@ -121,7 +126,8 @@ from ..services.metadata import CanReadMemo
 from ..utils import provenance, telemetry, transient
 from ..utils.color import split_html_color
 from ..utils.stopwatch import stopwatch
-from .ctx import ImageRegionCtx, ShapeMaskCtx
+from . import pressure
+from .ctx import ImageRegionCtx, ShapeMaskCtx, plane_route_key
 from .errors import BadRequestError, NotFoundError, OverloadedError
 from .region import RegionDef, plan_region
 from .settings import render_identity_key, update_settings
@@ -311,6 +317,9 @@ class ImageRegionHandler:
             provenance.mark(ctx, tokens=debit[1])
 
         async def produce() -> bytes:
+            # Bulk work sheds first under the pressure ladder, before any
+            # read or staging cost.
+            pressure.shed_bulk_under_pressure(ctx)
             t_admit = admission.admit() if admission is not None else None
             completed = False
             try:
@@ -320,7 +329,8 @@ class ImageRegionHandler:
             finally:
                 if admission is not None:
                     admission.release(t_admit, completed=completed)
-            await self.s.caches.image_region.set(ctx.cache_key, data)
+            if not getattr(ctx, "_pressure_quality_capped", False):
+                await self.s.caches.image_region.set(ctx.cache_key, data)
             return data
 
         try:
@@ -479,7 +489,8 @@ class ImageRegionHandler:
             device_jpeg = ctx.format == "jpeg" and not tiny
         renderer = self.s.renderer
         if device_jpeg:
-            quality = codecs.quality_percent(ctx.compression_quality)
+            quality = pressure.pressure_quality(
+                codecs.quality_percent(ctx.compression_quality), ctx)
             with stopwatch("Renderer.renderAsPackedInt"):
                 return await renderer.render_jpeg(
                     raw, plan.settings, quality, w, h, ctx.flip_horizontal,
@@ -588,7 +599,8 @@ class ImageRegionHandler:
         return cache.get_or_load(
             self._region_key(ctx, plan),
             lambda: read_pinned(plan.src, ctx.z, ctx.t, plan.region,
-                                plan.level, plan.active, cache.device))
+                                plan.level, plan.active, cache.device),
+            route_key=plane_route_key(ctx))
 
     @staticmethod
     def encode(rgba: np.ndarray, ctx: ImageRegionCtx) -> bytes:

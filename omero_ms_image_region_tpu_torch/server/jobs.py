@@ -25,12 +25,14 @@ Crash safety is structural, not transactional:
   fixed chunk grid, zlib level 1), so a resumed build re-creates
   byte-identical levels and skips the ones already committed.
 
-The job records the JAX module's flight events (``pyramid.submit``,
-``pyramid.level``, ``pyramid.done``).  Left out against the JAX module:
-the pressure governor's ``shed_bulk`` parking (the port has no governor
-yet: :meth:`_wait_pressure` never parks, so no job is ever ``deferred``
-and no ``pyramid.deferred`` event is recorded); and the per-job cancel and the
-explain plane's job probe, which nothing in the port calls.
+Jobs are bulk work: while the pressure governor's ``shed_bulk`` step is
+engaged (``server.pressure``) the build parks between levels in state
+``deferred`` (:meth:`PyramidJobManager._wait_pressure`, polling every
+``pyramid.defer-poll-s``).  The explain plane reads the latest job of an
+image (:meth:`PyramidJobManager.job_for_source`).  The job records the JAX
+module's flight events (``pyramid.submit``, ``pyramid.level``,
+``pyramid.deferred``, ``pyramid.done``).  Left out against the JAX
+module: the per-job cancel, which nothing in the port calls.
 """
 
 from __future__ import annotations
@@ -50,10 +52,10 @@ from ..utils.stopwatch import stopwatch
 
 log = logging.getLogger("omero_ms_image_region_tpu_torch.jobs")
 
-# Job states, closed vocabulary (mirrored by the telemetry actions; the
-# JAX job's "deferred" never occurs here, see _wait_pressure).
+# Job states, closed vocabulary (mirrored by the telemetry actions).
 QUEUED = "queued"
 RUNNING = "running"
+DEFERRED = "deferred"
 DONE = "done"
 FAILED = "failed"
 CANCELLED = "cancelled"
@@ -123,8 +125,10 @@ class PyramidJobManager:
     def __init__(self, pixels_service=None,
                  chunk=(256, 256), min_level_size: int = 256,
                  compressor: Optional[str] = "zlib",
-                 device: Union[str, torch.device] = "cuda"):
+                 device: Union[str, torch.device] = "cuda",
+                 defer_poll_s: float = 0.25):
         self.pixels_service = pixels_service
+        self.defer_poll_s = defer_poll_s
         self.chunk = tuple(chunk)
         self.min_level_size = min_level_size
         self.compressor = compressor
@@ -149,7 +153,7 @@ class PyramidJobManager:
                             else os.path.dirname(source))
         for jid in reversed(self._order):
             j = self._jobs[jid]
-            if j.dest == dest and j.state in (QUEUED, RUNNING):
+            if j.dest == dest and j.state in (QUEUED, RUNNING, DEFERRED):
                 return j
         self._seq += 1
         job = PyramidJob(job_id=f"pj-{self._seq}", source=source,
@@ -172,6 +176,21 @@ class PyramidJobManager:
 
     def get(self, job_id: str) -> Optional[PyramidJob]:
         return self._jobs.get(job_id)
+
+    def job_for_source(self, source: str) -> Optional[dict]:
+        """The latest job of ``source``'s pyramid, from memory or its job
+        file (a previous process's job): the explain plane's probe."""
+        source = os.path.abspath(source)
+        dest = pyramid_root(source if os.path.isdir(source)
+                            else os.path.dirname(source))
+        for jid in reversed(self._order):
+            if self._jobs[jid].dest == dest:
+                return self._jobs[jid].to_doc()
+        try:
+            with open(dest + ".job.json") as f:
+                return json.load(f)
+        except (OSError, ValueError):
+            return None
 
     # ------------------------------------------------------------ runner
 
@@ -244,8 +263,26 @@ class PyramidJobManager:
         return job
 
     async def _wait_pressure(self, job: PyramidJob) -> None:
-        """Where the JAX job parks while the pressure governor sheds bulk
-        work.  The port has no governor yet, so this never parks."""
+        """Park while the ladder's ``shed_bulk`` step is engaged: the build
+        is bulk work and must not starve interactive renders."""
+        from ..utils import telemetry
+        from . import pressure
+        deferred = False
+        while True:
+            gov = pressure.active()
+            if gov is None or not gov.bulk_shed_active():
+                break
+            if not deferred:
+                deferred = True
+                job.state = DEFERRED
+                telemetry.WORKLOADS.count_job("deferred")
+                telemetry.FLIGHT.record("pyramid.deferred", job=job.job_id,
+                                        level=job.levels_done)
+                self._write_sidecar(job)
+            await asyncio.sleep(self.defer_poll_s)
+        if deferred:
+            job.state = RUNNING
+            self._write_sidecar(job)
 
     # ------------------------------------------------------- build steps
 

@@ -304,6 +304,17 @@ class DiskByteCache:
             return
         self._evict_to(int(self.max_bytes * _LOW_WATER))
 
+    def evict_to_fraction(self, frac: float) -> None:
+        """The pressure governor's ``evict_caches``: walk the tier to
+        ``frac`` of its budget now, oldest first (the early form of the
+        write path's eviction)."""
+        self._ensure_scanned()
+        target = max(0, int(self.max_bytes * frac))
+        with self._size_lock:
+            over = self._bytes > target
+        if over:
+            self._evict_to(target)
+
     def _evict_to(self, target: int) -> None:
         for _mtime, path, size in self._entry_mtimes():
             with self._size_lock:

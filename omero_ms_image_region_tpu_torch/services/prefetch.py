@@ -26,12 +26,18 @@ sessions, gets the four lattice neighbours of the tile it was served.
 Best effort: a failed load is dropped (the foreground reads on demand),
 and nothing is scheduled for a request that is not a tile.
 
+* **Budgeted by pressure.**  The pending bound is ``max_pending`` times
+  the local ``budget_scale`` times the pressure governor's
+  :meth:`~..server.pressure.PressureGovernor.prefetch_budget` (elevated
+  pressure halves it, critical quarters it); the ladder's
+  ``pause_prefetch`` step sets ``paused`` (budget 0).  A queued load whose
+  turn comes after the budget reached 0 exits without reading (skip reason
+  ``paused``).  Each staged plane records its routing identity
+  (``server.ctx.plane_route_key``), as the foreground's does.
+
 Not here: the JAX prefetcher's fleet seams (``cache_for_route``, the
 owning member's shard), its federation seam (``remote_prestage``) and its
-hot-key replicas (``replica_caches``), which come with the fleet, and its
-budget scale (``budget_scale``, ``paused``), which the pressure governor's
-ladder drives and which comes with the pressure item; outside a fleet and
-without the governor the JAX prefetcher runs at its full budget too.
+hot-key replicas (``replica_caches``), which come with the fleet.
 """
 
 from __future__ import annotations
@@ -40,10 +46,12 @@ import concurrent.futures
 import logging
 import threading
 from collections import OrderedDict
+from types import SimpleNamespace
 from typing import List, Optional, Sequence, Tuple
 
 from ..io.devicecache import DeviceRawCache, region_key
 from ..io.staging import read_pinned
+from ..server.ctx import plane_route_key
 from ..server.region import RegionDef, plan_region
 from ..utils import telemetry
 
@@ -62,6 +70,10 @@ class TilePrefetcher:
         self.max_pending = max_pending
         self.viewport = viewport          # ViewportTracker, or None
         self.lookahead = max(1, int(lookahead))
+        # Local budget scale in [0, 1], times the governor's
+        # prefetch_budget(); the ladder's pause_prefetch sets it to 0
+        # through ``paused``.
+        self.budget_scale = 1.0
         self._pool = concurrent.futures.ThreadPoolExecutor(
             max_workers=max_workers, thread_name_prefix="tile-prefetch")
         self._lock = threading.Lock()
@@ -73,6 +85,32 @@ class TilePrefetcher:
         self.staged = 0
         self.hits = 0
         self.predicted = 0
+
+    # ------------------------------------------------------------ budget
+
+    @property
+    def paused(self) -> bool:
+        """The ladder's ``pause_prefetch``: paused is budget 0."""
+        return self.budget_scale <= 0.0
+
+    @paused.setter
+    def paused(self, value: bool) -> None:
+        self.budget_scale = 0.0 if value else 1.0
+
+    def effective_budget(self) -> float:
+        """This instant's budget scale: local times the governor's."""
+        scale = self.budget_scale
+        if scale <= 0.0:
+            return 0.0
+        from ..server.pressure import active
+        governor = active()
+        if governor is not None:
+            scale *= governor.prefetch_budget()
+        return max(0.0, min(1.0, scale))
+
+    def effective_max_pending(self) -> int:
+        """The pending bound this instant (0: paused)."""
+        return int(self.max_pending * self.effective_budget())
 
     def note_hit(self, key) -> None:
         """The foreground found ``key`` resident: a predictive hit if this
@@ -126,6 +164,10 @@ class TilePrefetcher:
         if self.viewport is not None:
             self.viewport.observe(session_key, image_id, z, t, resolution,
                                   tile.x, tile.y)
+        budget = self.effective_max_pending()
+        if budget <= 0:
+            telemetry.PREFETCH.count_skipped("budget")
+            return
         cache = self.raw_cache
         for nres, nz, nt, nx, ny in self._candidates(
                 image_id, z, t, resolution, session_key, tile):
@@ -144,13 +186,17 @@ class TilePrefetcher:
             with self._lock:
                 if key in self._pending:
                     continue            # in flight: a dedup, not a skip
-                if len(self._pending) >= self.max_pending:
+                if len(self._pending) >= budget:
                     telemetry.PREFETCH.count_skipped("budget")
                     continue
                 self._pending.add(key)
+            route = plane_route_key(SimpleNamespace(
+                image_id=image_id, z=nz, t=nt, resolution=nres,
+                tile=RegionDef(nx, ny, tile.width, tile.height),
+                region=None))
             try:
-                future = self._pool.submit(self._load, src, key, nz, nt,
-                                           level, region, tuple(active))
+                future = self._pool.submit(self._load, src, key, route, nz,
+                                           nt, level, region, tuple(active))
             except RuntimeError:        # pool shut down mid-request
                 with self._lock:
                     self._pending.discard(key)
@@ -161,9 +207,13 @@ class TilePrefetcher:
                 self._futures.add(future)
             future.add_done_callback(self._futures.discard)
 
-    def _load(self, src, key, z: int, t: int, level: int,
+    def _load(self, src, key, route: str, z: int, t: int, level: int,
               region: RegionDef, active: Tuple[int, ...]) -> None:
         try:
+            # A budget that reached 0 binds queued work too.
+            if self.effective_budget() <= 0.0:
+                telemetry.PREFETCH.count_skipped("paused")
+                return
             loaded = [False]
             cache = self.raw_cache
 
@@ -172,7 +222,7 @@ class TilePrefetcher:
                 return read_pinned(src, z, t, region, level, active,
                                    cache.device)
 
-            cache.get_or_load(key, loader)
+            cache.get_or_load(key, loader, route_key=route)
             if loaded[0]:
                 telemetry.PREFETCH.count_staged()
                 with self._lock:

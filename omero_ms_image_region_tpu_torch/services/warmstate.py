@@ -28,8 +28,13 @@ names) holds:
 Everything is best effort: a missing, corrupt or foreign manifest is a
 cold boot, the rehydrator yields to live load (the batcher's queue and
 groups in flight) and stops at shutdown, and nothing here fails a request
-or the boot.  Left out against JAX: the manifest's ``sentinel`` baseline,
-which comes with the perf sentinel, and the planes' fleet ``route``.
+or the boot.  The manifest also carries the perf sentinel's learned
+baselines (``sentinel``: ``SentinelEngine.export_baseline``), restored
+first on boot (``load_baseline``), so a restart does not learn "normal"
+again from its first windows.  While the pressure governor's
+``pause_snapshots`` step is engaged (``paused``) the timer skips its
+snapshots; the SIGTERM chain's and ``/debug/warmstate``'s still run.  Left
+out against JAX: the planes' fleet ``route``.
 """
 
 from __future__ import annotations
@@ -117,6 +122,8 @@ class WarmStateManager:
         self._snapshot_lock = threading.Lock()
         self._timer_thread: Optional[threading.Thread] = None
         self._rehydrate_thread: Optional[threading.Thread] = None
+        # The ladder's pause_snapshots: the timer skips while set.
+        self.paused = False
 
     # ------------------------------------------------------------ start
 
@@ -143,6 +150,8 @@ class WarmStateManager:
 
     def _timer_loop(self) -> None:
         while not self._stop.wait(self.snapshot_interval_s):
+            if self.paused:
+                continue
             try:
                 self.snapshot_now()
             except Exception:
@@ -189,6 +198,14 @@ class WarmStateManager:
         if store is not None:
             doc["fingerprint"] = store.fingerprint()
             doc["executables"] = store.stored_keys()
+        # The sentinel's learned baselines: a regression deployed with the
+        # restart must not become the new normal.
+        from ..server import sentinel
+        engine = sentinel.active()
+        if engine is not None:
+            baselines = engine.export_baseline()
+            if baselines.get("baselines"):
+                doc["sentinel"] = baselines
         return doc
 
     def snapshot_now(self) -> Optional[str]:
@@ -265,6 +282,17 @@ class WarmStateManager:
             log.info("warm-state manifest fingerprint differs; skipping "
                      "the build store's preload")
             exec_keys = []
+        # The sentinel's baselines first: a dict copy, not I/O, and the
+        # engine should know "normal" before the first windows close.
+        if doc.get("sentinel"):
+            try:
+                from ..server import sentinel
+                engine = sentinel.active()
+                if engine is not None:
+                    engine.load_baseline(doc["sentinel"])
+            except Exception:
+                log.warning("sentinel baseline rehydrate failed",
+                            exc_info=True)
         byte_items = [(name, key) for name in _CACHE_NAMES
                       for key in (doc.get("byte_keys") or {}).get(name, ())]
         plane_items = list(doc.get("planes") or ())

@@ -16,13 +16,14 @@ vocabulary for that answer:
   echoed as the ``X-Image-Region-Provenance`` header under
   ``telemetry.provenance-header`` (never on errors).
 
-The port has one member (``-``), no pressure ladder and no sidecar: the
-``peer``, ``disk`` and ``degraded`` tiers and the ``stolen``,
-``failed_over``, ``drain_rehomed`` and ``quality_capped`` flags stay in
-the vocabulary (the metric label sets the JAX package's budget names) but
-are never marked; the record's ``ladder`` field comes with the pressure
-governor and the sidecar's ``merge_wire`` with the sidecar.  Device-free
-on import.
+The record also names the engaged prefix of the pressure governor's
+ladder (``ladder``) and the ``quality_capped`` flag of a tile whose JPEG
+quality ``drop_quality`` capped.  The port has one member (``-``) and no
+sidecar: the ``peer``, ``disk`` and ``degraded`` tiers and the
+``stolen``, ``failed_over`` and ``drain_rehomed`` flags stay in the
+vocabulary (the metric label sets the JAX package's budget names) but are
+never marked; the sidecar's ``merge_wire`` comes with the sidecar.
+Device-free on import.
 """
 
 from __future__ import annotations
@@ -57,20 +58,14 @@ def marks(ctx) -> Dict:
     return getattr(ctx, _ATTR, None) or {}
 
 
-def is_bulk(ctx) -> bool:
-    """The JAX ``server.pressure.is_bulk`` QoS class: z-projections and
-    full-plane (no tile, no region) renders are bulk; masks (a
-    ``shape_id``) and tiles are interactive."""
-    if getattr(ctx, "shape_id", None) is not None:
-        return False
-    return ctx.projection is not None or (
-        ctx.tile is None and ctx.region is None)
-
-
 def assemble(ctx, status: int, trace_id: Optional[str] = None) -> Dict:
     """The finished request's provenance record, from the ctx marks and
     the status: the tier defaults to ``render_cold`` (no cheaper layer
-    claimed the request), and a 304 overrides every mark."""
+    claimed the request), and a 304 overrides every mark.  The QoS class
+    (``server.pressure.is_bulk``) and the engaged prefix of the pressure
+    ladder (``ladder``) are read here, at finish time; a tile whose
+    quality ``drop_quality`` capped carries ``quality_capped``."""
+    from ..server.pressure import active, is_bulk
     m = marks(ctx)
     if status == 304:
         tier = "304"
@@ -82,11 +77,17 @@ def assemble(ctx, status: int, trace_id: Optional[str] = None) -> Dict:
     for flag in FLAGS:
         if m.get(flag):
             record[flag] = 1
+    if m.get("quality_capped") is None \
+            and getattr(ctx, "_pressure_quality_capped", False):
+        record["quality_capped"] = 1
     try:
         bulk = is_bulk(ctx)
     except AttributeError:             # a ctx without tile or projection
         bulk = False
     record["qos"] = "bulk" if bulk else "interactive"
+    governor = active()
+    if governor is not None and governor.engaged_steps():
+        record["ladder"] = ",".join(governor.engaged_steps())
     tokens = m.get("tokens")
     if tokens:
         record["tokens"] = round(float(tokens), 3)
@@ -98,7 +99,7 @@ def assemble(ctx, status: int, trace_id: Optional[str] = None) -> Dict:
 def header_value(record: Dict) -> str:
     """The compact ``k=v; k=v`` form of the debug header."""
     parts = []
-    for key in ("tier", "member", "qos", "tokens", "trace"):
+    for key in ("tier", "member", "qos", "ladder", "tokens", "trace"):
         value = record.get(key)
         if value not in (None, "", "-"):
             parts.append(f"{key}={value}")

@@ -37,25 +37,34 @@ Counterpart of the request half of the JAX package's ``utils/telemetry.py``:
   manifest snapshots and the boot rehydrate's progress
   (``services.warmstate``), and the build store's corrupt entries
   (``server.execcache``).
+* **The forensics plane**: exemplars on the request-duration buckets
+  (:func:`exemplars_snapshot`, and OpenMetrics tails on a negotiated
+  scrape), the SLO engine (:data:`SLO`, whose breach dumps the flight
+  recorder), the per-shape device cost (:data:`SHAPE_COSTS`), slow-request
+  waterfalls (:func:`dump_slow_trace`), ``torch.profiler`` captures
+  (:func:`capture_profile`), and the control plane's accounting: the
+  pressure governor (:data:`PRESSURE`), the decision ledger
+  (:data:`DECISIONS`) and the perf sentinel (:data:`SENTINEL`).
 * **The exposition**: :func:`request_metric_lines`, :func:`span_lines`
   (``utils.stopwatch``), :func:`resilience_metric_lines`,
   :func:`device_metric_lines`, :func:`cost_metric_lines`, joined by
   :func:`finalize_exposition`, which writes one ``# TYPE`` header per
-  family.
+  family (and, with ``openmetrics``, the strict OpenMetrics form).
 
 The family names, label keys and types are the JAX package's, so one
 dashboard and one cardinality budget (``conf/metrics_budget.json``) read
 both.  Not ported: ``imageregion_compile_*`` and ``imageregion_link_*``
 (XLA compile events and TPU-link fetch rates: an eager CUDA launch has no
 compile step, and the card sits on PCIe in the same host); ``merge_costs``
-(the sidecar wire's ledger graft), shape costs, exemplars, the SLO,
-sentinel and fleet families, which wait for the sidecar, the rest of the
-forensics plane and the fleet (so the flight recorder has no member
-stamp and no SLO-breach dump yet); the retry,
-degraded-render and supervisor counters, which have no caller in a port
-with no retry, no degraded mode and no sidecar.
+(the sidecar wire's ledger graft) and the fleet families (the fleet SLO,
+the sentinel's member rows, the flight recorder's member stamp), which
+wait for the sidecar and the fleet; the retry, degraded-render and
+supervisor counters, which have no caller in a port with no retry, no
+degraded mode and no sidecar.  The shape-cost estimate is the port's own
+kernel count, not XLA's ``cost_analysis()`` (:class:`ShapeCostModel`).
 
-Nothing here imports ``torch``.
+Nothing here imports ``torch`` at module level (:func:`capture_profile`
+imports ``torch.profiler`` when called).
 """
 
 from __future__ import annotations
@@ -86,20 +95,35 @@ def _fmt(v: float) -> str:
 
 class Histogram:
     """Cumulative log-bucket histogram (not thread-safe on its own; the
-    owner holds its lock around :meth:`add`)."""
+    owner holds its lock around :meth:`add`).
 
-    __slots__ = ("bounds", "counts", "sum", "count")
+    With ``exemplars=True`` each bucket also keeps its most recent
+    observation's exemplar, ``(trace_id, tier)`` from the caller, written
+    as one list-slot assignment, and :meth:`series` can write them in
+    OpenMetrics exemplar syntax: the p99 bucket then names a trace."""
 
-    def __init__(self, bounds: Tuple[float, ...] = BUCKET_BOUNDS_MS):
+    __slots__ = ("bounds", "counts", "sum", "count", "exemplars")
+
+    def __init__(self, bounds: Tuple[float, ...] = BUCKET_BOUNDS_MS,
+                 exemplars: bool = False):
         self.bounds = bounds
         self.counts = [0] * (len(bounds) + 1)     # last = +Inf overflow
         self.sum = 0.0
         self.count = 0
+        # bucket index -> (trace_id, tier, value, wall ts) or None.
+        self.exemplars = ([None] * (len(bounds) + 1) if exemplars
+                          else None)
 
-    def add(self, value: float) -> None:
+    def add(self, value: float,
+            exemplar: Optional[Tuple[str, str]] = None) -> None:
         self.sum += value
         self.count += 1
-        self.counts[bisect_left(self.bounds, value)] += 1
+        idx = bisect_left(self.bounds, value)
+        self.counts[idx] += 1
+        if self.exemplars is not None and exemplar is not None:
+            # Last writer wins: the bucket's most recent trace.
+            self.exemplars[idx] = (exemplar[0], exemplar[1], value,
+                                   time.time())
 
     def cumulative(self) -> List[int]:
         out, acc = [], 0
@@ -122,53 +146,100 @@ class Histogram:
                         else self.bounds[-1] * 2)
         return self.bounds[-1] * 2
 
-    def series(self, name: str, labels: str = "") -> List[str]:
+    def _exemplar_suffix(self, idx: int, enabled: bool) -> str:
+        """The OpenMetrics exemplar tail of one bucket line, ``# {trace_id=
+        ..,tier=..} value ts`` (empty without one, or on a plain scrape)."""
+        if not enabled or self.exemplars is None:
+            return ""
+        ex = self.exemplars[idx]
+        if ex is None:
+            return ""
+        trace_id, tier, value, ts = ex
+        return (f' # {{trace_id="{trace_id}",tier="{tier}"}} '
+                f"{round(value, 3)} {round(ts, 3)}")
+
+    def series(self, name: str, labels: str = "",
+               exemplars: bool = False) -> List[str]:
         """``_bucket``/``_sum``/``_count`` lines; ``labels`` is the inner
-        label body without braces, ``le`` composes after it."""
+        label body without braces, ``le`` composes after it.
+        ``exemplars`` adds the exemplar tails: only for a scrape that asked
+        for ``application/openmetrics-text`` (the plain text parser refuses
+        them)."""
         sep = "," if labels else ""
         cum = self.cumulative()
         lines = [f'{name}_bucket{{{labels}{sep}le="{_fmt(b)}"}} {c}'
-                 for b, c in zip(self.bounds, cum)]
-        lines.append(f'{name}_bucket{{{labels}{sep}le="+Inf"}} {cum[-1]}')
+                 f"{self._exemplar_suffix(i, exemplars)}"
+                 for i, (b, c) in enumerate(zip(self.bounds, cum))]
+        lines.append(f'{name}_bucket{{{labels}{sep}le="+Inf"}} {cum[-1]}'
+                     f"{self._exemplar_suffix(len(self.bounds), exemplars)}")
         suffix = f"{{{labels}}}" if labels else ""
         lines.append(f"{name}_sum{suffix} {round(self.sum, 3)}")
         lines.append(f"{name}_count{suffix} {self.count}")
         return lines
 
+    def exemplar_docs(self) -> List[dict]:
+        """The live exemplars as JSON documents (``/debug/exemplars``):
+        bucket upper bound, trace, tier, value and time."""
+        if self.exemplars is None:
+            return []
+        docs = []
+        for i, ex in enumerate(list(self.exemplars)):
+            if ex is None:
+                continue
+            le = (_fmt(self.bounds[i]) if i < len(self.bounds)
+                  else "+Inf")
+            docs.append({"le": le, "trace": ex[0], "tier": ex[1],
+                         "value_ms": round(ex[2], 3),
+                         "ts": round(ex[3], 3)})
+        return docs
+
 
 class HistogramVec:
     """Thread-safe histogram family keyed by one label value."""
 
-    def __init__(self, label: str):
+    def __init__(self, label: str, exemplars: bool = False):
         self.label = label
+        self.exemplars = exemplars
         self._lock = threading.Lock()
         self._hists: Dict[str, Histogram] = {}
 
-    def observe(self, label_value: str, value: float) -> None:
+    def observe(self, label_value: str, value: float,
+                exemplar: Optional[Tuple[str, str]] = None) -> None:
         with self._lock:
             h = self._hists.get(label_value)
             if h is None:
-                h = self._hists[label_value] = Histogram()
-            h.add(value)
+                h = self._hists[label_value] = Histogram(
+                    exemplars=self.exemplars)
+            h.add(value, exemplar=exemplar)
 
     def get(self, label_value: str) -> Optional[Histogram]:
         with self._lock:
             return self._hists.get(label_value)
 
-    def series(self, name: str) -> List[str]:
+    def series(self, name: str, exemplars: bool = False) -> List[str]:
         with self._lock:
             lines = []
             for lv, h in sorted(self._hists.items()):
-                lines += h.series(name, f'{self.label}="{lv}"')
+                lines += h.series(name, f'{self.label}="{lv}"',
+                                  exemplars=exemplars)
             return lines
+
+    def exemplar_docs(self) -> Dict[str, List[dict]]:
+        """{label value: [bucket exemplar documents]}."""
+        with self._lock:
+            items = sorted(self._hists.items())
+        return {lv: docs for lv, h in items
+                if (docs := h.exemplar_docs())}
 
     def reset(self) -> None:
         with self._lock:
             self._hists.clear()
 
 
-# End-to-end request latency by route, and request totals by status.
-REQUEST_HIST = HistogramVec("route")
+# End-to-end request latency by route, and request totals by status.  The
+# latency buckets keep exemplars: each names the last trace id (and its
+# provenance tier) that landed in it.
+REQUEST_HIST = HistogramVec("route", exemplars=True)
 _REQ_LOCK = threading.Lock()
 _REQ_TOTALS: Dict[tuple, int] = {}
 
@@ -240,6 +311,23 @@ class Trace:
                 total += s["dur_ms"]
                 seen = True
         return total if seen else None
+
+    def to_json(self, total_ms: Optional[float] = None,
+                status: Optional[int] = None) -> dict:
+        """The waterfall document (the JAX ``Trace.to_json``): spans by
+        start, the cost ledger, the wall time and the status."""
+        spans = sorted(list(self.spans), key=lambda s: s["start_ms"])
+        with self.lock:
+            costs = dict(self.costs)
+        doc = {"trace_id": self.trace_id, "route": self.route,
+               "ts": self.wall_ts, "spans": spans}
+        if costs:
+            doc["cost"] = {k: round(v, 3) for k, v in costs.items()}
+        if total_ms is not None:
+            doc["total_ms"] = round(total_ms, 3)
+        if status is not None:
+            doc["status"] = status
+        return doc
 
 
 class TraceRegistry:
@@ -732,8 +820,9 @@ SESSIONS = SessionStats()
 
 class PrefetchStats:
     """Predictive prefetch (``services.prefetch``): predictions made, loads
-    scheduled and staged, foreground hits on staged planes and skips by
-    reason (a closed vocabulary: ``budget``)."""
+    scheduled and staged, foreground hits on staged planes, skips by
+    reason (a closed vocabulary: ``budget``, ``paused``) and the live
+    budget scale the pressure governor sets."""
 
     def __init__(self):
         self._lock = threading.Lock()
@@ -742,6 +831,7 @@ class PrefetchStats:
         self.staged = 0
         self.hits = 0
         self.skipped: Dict[str, int] = {}
+        self.budget_scale = 1.0
 
     def count_predicted(self, n: int = 1) -> None:
         with self._lock:
@@ -763,6 +853,11 @@ class PrefetchStats:
         with self._lock:
             self.skipped[reason] = self.skipped.get(reason, 0) + 1
 
+    def set_budget(self, scale: float) -> None:
+        """The pressure governor's live prefetch budget scale."""
+        with self._lock:
+            self.budget_scale = float(scale)
+
     def metric_lines(self) -> List[str]:
         with self._lock:
             lines = [
@@ -770,6 +865,8 @@ class PrefetchStats:
                 f"imageregion_prefetch_scheduled_total {self.scheduled}",
                 f"imageregion_prefetch_staged_total {self.staged}",
                 f"imageregion_prefetch_hits_total {self.hits}",
+                "imageregion_prefetch_budget_scale "
+                f"{_fmt(self.budget_scale)}",
             ]
             lines += [f'imageregion_prefetch_skipped_total{{reason="{r}"}} '
                       f"{self.skipped[r]}" for r in sorted(self.skipped)]
@@ -779,6 +876,7 @@ class PrefetchStats:
         with self._lock:
             self.predicted = self.scheduled = self.staged = self.hits = 0
             self.skipped.clear()
+            self.budget_scale = 1.0
 
 
 PREFETCH = PrefetchStats()
@@ -1117,6 +1215,585 @@ class Persistence:
 PERSIST = Persistence()
 
 
+# ------------------------------------------------------------ SLO engine
+
+class SloEngine:
+    """Config-declared service objectives evaluated as multi-window burn
+    rates (the JAX ``SloEngine``): error rate over error budget in a fast
+    and a slow window; both over the threshold is a breach.
+
+    * ``availability``: the fraction of requests answering below 500
+      (sheds and deadline 504s spend the budget);
+    * ``latency``: the fraction of successful requests under
+      ``latency_ms``.
+
+    Time is bucketed (``BUCKET_S``), so the windows cost O(window /
+    bucket) memory and :meth:`record` is a dict increment; disabled (the
+    default: no target) it costs one boolean test.  A breach transition
+    calls ``on_breach`` once per episode (the app's flight-recorder dump).
+    The clock is injectable (tests run it virtual)."""
+
+    BUCKET_S = 5.0
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._clock = time.monotonic
+        self.enabled = False
+        self.availability_target = 0.0
+        self.latency_ms = 0.0
+        self.latency_target = 0.99
+        self.fast_window_s = 60.0
+        self.slow_window_s = 600.0
+        self.breach_burn_rate = 14.4
+        self.on_breach = None
+        self.breached: Dict[str, bool] = {}
+        self.breaches_total = 0
+        self._buckets: Dict[int, Dict[str, int]] = {}
+
+    def configure(self, availability_target: float = 0.0,
+                  latency_ms: float = 0.0,
+                  latency_target: float = 0.99,
+                  fast_window_s: float = 60.0,
+                  slow_window_s: float = 600.0,
+                  breach_burn_rate: float = 14.4,
+                  on_breach=None, clock=time.monotonic) -> None:
+        with self._lock:
+            self.availability_target = availability_target
+            self.latency_ms = latency_ms
+            self.latency_target = latency_target
+            self.fast_window_s = fast_window_s
+            self.slow_window_s = max(slow_window_s, fast_window_s)
+            self.breach_burn_rate = breach_burn_rate
+            self.on_breach = on_breach
+            self._clock = clock
+            self.enabled = bool(availability_target or latency_ms)
+            self._buckets.clear()
+            self.breached = {}
+
+    def _bucket(self, now: float) -> Dict[str, int]:
+        idx = int(now // self.BUCKET_S)
+        b = self._buckets.get(idx)
+        if b is None:
+            b = self._buckets[idx] = {"ok": 0, "err": 0,
+                                      "fast": 0, "slow": 0}
+            floor = idx - int(self.slow_window_s // self.BUCKET_S) - 1
+            for old in [i for i in self._buckets if i < floor]:
+                del self._buckets[old]
+        return b
+
+    def record(self, status: int, dur_ms: float) -> None:
+        if not self.enabled:
+            return
+        breach_cbs = []
+        with self._lock:
+            b = self._bucket(self._clock())
+            if status >= 500:
+                b["err"] += 1
+            else:
+                b["ok"] += 1
+                if self.latency_ms:
+                    if dur_ms <= self.latency_ms:
+                        b["fast"] += 1
+                    else:
+                        b["slow"] += 1
+            for objective, (fast, slow) in \
+                    self._burn_rates_locked().items():
+                now_breached = (fast >= self.breach_burn_rate
+                                and slow >= self.breach_burn_rate)
+                was = self.breached.get(objective, False)
+                self.breached[objective] = now_breached
+                if now_breached and not was:
+                    self.breaches_total += 1
+                    breach_cbs.append((objective, fast, slow))
+        if self.on_breach is not None:
+            for cb in breach_cbs:
+                try:
+                    self.on_breach(*cb)
+                except Exception:   # forensics never fails a request
+                    log.warning("SLO on_breach hook failed",
+                                exc_info=True)
+
+    def _window_counts(self, window_s: float) -> Dict[str, int]:
+        floor = int((self._clock() - window_s) // self.BUCKET_S)
+        out = {"ok": 0, "err": 0, "fast": 0, "slow": 0}
+        for idx, b in self._buckets.items():
+            if idx >= floor:
+                for k in out:
+                    out[k] += b[k]
+        return out
+
+    def _burn_rates_locked(self) -> Dict[str, Tuple[float, float]]:
+        def burn(bad: int, total: int, target: float) -> float:
+            if total == 0:
+                return 0.0
+            return (bad / total) / max(1e-9, 1.0 - target)
+
+        pair = [self._window_counts(w)
+                for w in (self.fast_window_s, self.slow_window_s)]
+        rates: Dict[str, Tuple[float, float]] = {}
+        if self.availability_target:
+            rates["availability"] = tuple(
+                burn(c["err"], c["ok"] + c["err"],
+                     self.availability_target) for c in pair)
+        if self.latency_ms:
+            rates["latency"] = tuple(
+                burn(c["slow"], c["fast"] + c["slow"],
+                     self.latency_target) for c in pair)
+        return rates
+
+    def burn_rates(self) -> Dict[str, Tuple[float, float]]:
+        """{objective: (fast burn, slow burn)}."""
+        with self._lock:
+            return self._burn_rates_locked()
+
+    def any_breached(self) -> bool:
+        with self._lock:
+            return any(self.breached.values())
+
+    def summary(self) -> str:
+        """The ``/readyz`` annotation."""
+        with self._lock:
+            rates = self._burn_rates_locked()
+            breached = [o for o, v in self.breached.items() if v]
+        if not rates:
+            return "disabled"
+        parts = [f"{o} burn {fast:.1f}/{slow:.1f}"
+                 for o, (fast, slow) in sorted(rates.items())]
+        return ("BREACH " if breached else "ok ") + ", ".join(parts)
+
+    def metric_lines(self) -> List[str]:
+        if not self.enabled:
+            return []
+        with self._lock:
+            rates = self._burn_rates_locked()
+            breached = dict(self.breached)
+            breaches = self.breaches_total
+        lines = []
+        for objective, (fast, slow) in sorted(rates.items()):
+            for window, rate in (("fast", fast), ("slow", slow)):
+                lines.append(
+                    f'imageregion_slo_burn_rate{{slo="{objective}",'
+                    f'window="{window}"}} {round(rate, 4)}')
+            lines.append(
+                f'imageregion_slo_breach{{slo="{objective}"}} '
+                f'{1 if breached.get(objective) else 0}')
+        lines.append(f"imageregion_slo_breaches_total {breaches}")
+        return lines
+
+    def reset(self) -> None:
+        with self._lock:
+            self.enabled = False
+            self.availability_target = 0.0
+            self.latency_ms = 0.0
+            self.on_breach = None
+            self._clock = time.monotonic
+            self._buckets.clear()
+            self.breached = {}
+            self.breaches_total = 0
+
+
+SLO = SloEngine()
+
+
+# ------------------------------------------------------ shape cost model
+
+class ShapeCostModel:
+    """Estimated against observed device cost per group shape (the JAX
+    ``ShapeCostModel``).
+
+    The batcher records each group's execute wall ms under its shape label
+    (``B<n>x<C>x<H>x<W>``, ``jpeg:`` for a JPEG group), and once per shape
+    the estimate: the bytes the group's kernels must move and the f32
+    operations they do, counted from the kernel shapes the way PERF.md's
+    bounds count them (``server.batcher._shape_estimate``).  The JAX
+    package takes its estimate from XLA's ``cost_analysis()`` of the
+    compiled program, which the port does not have, so the two packages'
+    estimates differ by design; only the observed half (dispatches, ms) is
+    held equal.  Label cardinality is bounded by the batch sizes and the
+    buckets."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._shapes: Dict[str, dict] = {}
+        self._claimed: set = set()
+
+    def observe(self, shape: str, ms: float) -> None:
+        with self._lock:
+            s = self._shapes.get(shape)
+            if s is None:
+                s = self._shapes[shape] = {
+                    "dispatches": 0, "ms_total": 0.0,
+                    "est_flops": None, "est_bytes": None}
+            s["dispatches"] += 1
+            s["ms_total"] += ms
+
+    def claim_estimate(self, shape: str) -> bool:
+        """True exactly once per shape: concurrent first groups of one
+        shape count its estimate once."""
+        with self._lock:
+            if shape in self._claimed:
+                return False
+            self._claimed.add(shape)
+            return True
+
+    def set_estimate(self, shape: str, flops: Optional[float],
+                     nbytes: Optional[float]) -> None:
+        with self._lock:
+            s = self._shapes.setdefault(shape, {
+                "dispatches": 0, "ms_total": 0.0,
+                "est_flops": None, "est_bytes": None})
+            s["est_flops"] = float(flops or 0.0)
+            s["est_bytes"] = float(nbytes or 0.0)
+
+    def snapshot(self) -> Dict[str, dict]:
+        with self._lock:
+            return {k: dict(v) for k, v in self._shapes.items()}
+
+    def metric_lines(self) -> List[str]:
+        with self._lock:
+            items = sorted((k, dict(v)) for k, v in self._shapes.items())
+        lines = []
+        for shape, s in items:
+            lb = f'{{shape="{shape}"}}'
+            lines += [
+                f"imageregion_shape_dispatches_total{lb} "
+                f"{s['dispatches']}",
+                f"imageregion_shape_device_ms_total{lb} "
+                f"{round(s['ms_total'], 3)}",
+            ]
+            if s["dispatches"]:
+                lines.append(
+                    f"imageregion_shape_device_ms_mean{lb} "
+                    f"{round(s['ms_total'] / s['dispatches'], 3)}")
+            if s["est_flops"] is not None:
+                lines += [
+                    f"imageregion_shape_estimated_flops{lb} "
+                    f"{_fmt(s['est_flops'])}",
+                    f"imageregion_shape_estimated_bytes{lb} "
+                    f"{_fmt(s['est_bytes'])}",
+                ]
+        return lines
+
+    def reset(self) -> None:
+        with self._lock:
+            self._shapes.clear()
+            self._claimed.clear()
+
+
+SHAPE_COSTS = ShapeCostModel()
+
+
+# ------------------------------------------------------ device profiling
+
+class ProfileInProgressError(Exception):
+    """A capture is already running (``/debug/profile`` answers 409)."""
+
+
+_PROFILE_LOCK = threading.Lock()
+
+
+def capture_profile(directory: str, ms: float) -> dict:
+    """Run ``torch.profiler`` for ``ms`` milliseconds over whatever the
+    process is doing, write a Chrome trace, and return the manifest (the
+    JAX keys: ``dir``, ``ms``, ``requested_ms``, ``files``, ``bytes``).
+
+    The JAX package wraps ``jax.profiler`` and writes XLA's xplane; the
+    port records CPU activity and, where the process has a card, CUDA
+    activity (CUPTI: every kernel and copy on the card in the window, from
+    any thread), and writes ``trace.json`` under
+    ``<directory>/profile-<date>-<time>-<seq>/``.  On a process with a card
+    CUDA activity is required: a profiler that cannot record it raises,
+    and the endpoint answers 503.  CUPTI is process-wide, so one capture
+    runs at a time (:class:`ProfileInProgressError` otherwise).  Blocking:
+    callers run it on a worker thread."""
+    if not _PROFILE_LOCK.acquire(blocking=False):
+        raise ProfileInProgressError("a profile capture is already "
+                                     "running")
+    try:
+        import torch
+        from torch.profiler import (ProfilerActivity, profile,
+                                    supported_activities)
+        activities = [ProfilerActivity.CPU]
+        if torch.cuda.is_available():
+            if ProfilerActivity.CUDA not in supported_activities():
+                raise RuntimeError("torch.profiler cannot record CUDA "
+                                   "activity in this build")
+            activities.append(ProfilerActivity.CUDA)
+        os.makedirs(directory, exist_ok=True)
+        while True:
+            # A name another process took in the same second is skipped.
+            seq = next(_ARTIFACT_SEQ)
+            path = os.path.join(directory, time.strftime(
+                f"profile-%Y%m%d-%H%M%S-{seq:04d}"))
+            try:
+                os.mkdir(path)
+                break
+            except FileExistsError:
+                continue
+        t0 = time.perf_counter()
+        with profile(activities=activities) as prof:
+            time.sleep(max(0.0, ms) / 1000.0)
+        prof.export_chrome_trace(os.path.join(path, "trace.json"))
+        files, total = [], 0
+        for root, _dirs, names in os.walk(path):
+            for name in names:
+                full = os.path.join(root, name)
+                files.append(os.path.relpath(full, path))
+                try:
+                    total += os.path.getsize(full)
+                except OSError:
+                    pass
+        FLIGHT.record("profile.captured", dir=path, ms=round(ms, 1),
+                      files=len(files))
+        return {"dir": path,
+                "ms": round((time.perf_counter() - t0) * 1000.0, 1),
+                "requested_ms": ms, "files": sorted(files),
+                "bytes": total}
+    finally:
+        _PROFILE_LOCK.release()
+
+
+# ------------------------------------------------------ control plane
+
+class PressureStats:
+    """The pressure governor's accounting (``server.pressure``): the folded
+    level, the raw signal readings, and the ladder's engaged steps and
+    transitions.  Closed label sets: the sampler's fixed signals and the
+    config-validated ladder."""
+
+    LEVELS = ("ok", "elevated", "critical")
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.level = 0
+        self.signals: Dict[str, float] = {}
+        self.steps_engaged: Dict[str, int] = {}
+        self.step_transitions: Dict[Tuple[str, str], int] = {}
+        self.level_transitions = 0
+
+    def set_level(self, level: int) -> None:
+        with self._lock:
+            if level != self.level:
+                self.level_transitions += 1
+            self.level = level
+
+    def set_signal(self, name: str, value: float) -> None:
+        with self._lock:
+            self.signals[name] = float(value)
+
+    def set_step(self, step: str, engaged: bool) -> None:
+        with self._lock:
+            self.steps_engaged[step] = 1 if engaged else 0
+            key = (step, "engage" if engaged else "release")
+            self.step_transitions[key] = \
+                self.step_transitions.get(key, 0) + 1
+
+    def declare_steps(self, steps) -> None:
+        """Every ladder step's gauge exists from the first scrape."""
+        with self._lock:
+            for step in steps:
+                self.steps_engaged.setdefault(step, 0)
+
+    def metric_lines(self) -> List[str]:
+        with self._lock:
+            lines = [
+                f"imageregion_pressure_level {self.level}",
+                "imageregion_pressure_level_transitions_total "
+                f"{self.level_transitions}",
+                "imageregion_pressure_steps_engaged "
+                f"{sum(self.steps_engaged.values())}",
+            ]
+            lines += [f'imageregion_pressure_signal{{signal="{name}"}} '
+                      f"{_fmt(self.signals[name])}"
+                      for name in sorted(self.signals)]
+            lines += [f'imageregion_pressure_step_engaged{{step="{step}"}} '
+                      f"{self.steps_engaged[step]}"
+                      for step in sorted(self.steps_engaged)]
+            lines += [f"imageregion_pressure_step_transitions_total"
+                      f'{{step="{step}",action="{action}"}} '
+                      f"{self.step_transitions[(step, action)]}"
+                      for step, action in sorted(self.step_transitions)]
+        return lines
+
+    def reset(self) -> None:
+        with self._lock:
+            self.level = 0
+            self.signals.clear()
+            self.steps_engaged.clear()
+            self.step_transitions.clear()
+            self.level_transitions = 0
+
+
+PRESSURE = PressureStats()
+
+
+class DecisionStats:
+    """The exposition half of the decision ledger (``utils.decisions``):
+    records by (kind, verdict).  Both vocabularies are the JAX package's,
+    closed and owned here."""
+
+    KINDS = ("autoscaler", "epoch", "manifest", "gossip",
+             "drain", "undrain", "handoff", "hotkey", "quorum",
+             "sentinel")
+    VERDICTS = ("up", "down", "blocked", "steady",
+                "installed", "pending", "promoted", "demoted",
+                "agreed", "stale", "split-brain", "unreachable",
+                "legacy", "ok", "mismatch", "done", "failed",
+                "fenced", "restored", "drift", "recovered")
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.counts: Dict[Tuple[str, str], int] = {}
+
+    def count(self, kind: str, verdict: str) -> None:
+        if kind not in self.KINDS or verdict not in self.VERDICTS:
+            return                       # the ledger warned
+        with self._lock:
+            key = (kind, verdict)
+            self.counts[key] = self.counts.get(key, 0) + 1
+
+    def metric_lines(self) -> List[str]:
+        with self._lock:
+            return [f"imageregion_decision_total{{kind={json.dumps(k)},"
+                    f"verdict={json.dumps(v)}}} {n}"
+                    for (k, v), n in sorted(self.counts.items())]
+
+    def reset(self) -> None:
+        with self._lock:
+            self.counts.clear()
+
+
+DECISIONS = DecisionStats()
+
+
+class SentinelStats:
+    """The exposition half of the perf sentinel (``server.sentinel`` owns
+    the sketches and the drift engine): the local engine's last tick
+    summary (:meth:`set_local`), drift, recovery and bundle counts, and
+    :meth:`merged`, the ``GET /debug/sentinel`` document.  The JAX class
+    also ingests fleet members' summaries from the gossip; the port has
+    one member, so ``members`` holds the local row alone."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.local: Optional[dict] = None
+        self.drifts = 0
+        self.recoveries = 0
+        self.bundles = 0
+        self.bundle_errors = 0
+
+    def set_local(self, summary) -> None:
+        if isinstance(summary, dict):
+            with self._lock:
+                self.local = dict(summary)
+
+    def count_drift(self) -> None:
+        with self._lock:
+            self.drifts += 1
+
+    def count_recovery(self) -> None:
+        with self._lock:
+            self.recoveries += 1
+
+    def count_bundle(self, error: bool = False) -> None:
+        with self._lock:
+            if error:
+                self.bundle_errors += 1
+            else:
+                self.bundles += 1
+
+    def merged(self) -> dict:
+        """Per-member rows and one verdict (the JAX document's keys)."""
+        with self._lock:
+            rows: Dict[str, dict] = {}
+            if self.local:
+                name = str(self.local.get("member") or "local")
+                rows[name] = {"age_s": 0.0, "summary": dict(self.local)}
+            drifting = sorted(
+                name for name, row in rows.items()
+                if row["summary"].get("verdict") == "drifting")
+            return {
+                "verdict": "drifting" if drifting else "ok",
+                "drifting_members": drifting,
+                "members": rows,
+                "dropped_members": 0,
+                "drifts": self.drifts,
+                "recoveries": self.recoveries,
+                "bundles": self.bundles,
+                "bundle_errors": self.bundle_errors,
+            }
+
+    def metric_lines(self) -> List[str]:
+        with self._lock:
+            if self.local is None:
+                return []                # until the first tick
+            local = self.local
+            routes = local.get("routes") or {}
+            lines = [
+                "imageregion_sentinel_drift "
+                f"{1 if local.get('verdict') == 'drifting' else 0}",
+                f"imageregion_sentinel_keys {len(routes)}",
+                "imageregion_sentinel_ticks_total "
+                f"{int(local.get('ticks') or 0)}",
+                "imageregion_sentinel_observations_total "
+                f"{int(local.get('observations') or 0)}",
+                f"imageregion_sentinel_drifts_total {self.drifts}",
+                f"imageregion_sentinel_recoveries_total {self.recoveries}",
+                f"imageregion_sentinel_bundles_total {self.bundles}",
+                "imageregion_sentinel_bundle_errors_total "
+                f"{self.bundle_errors}",
+            ]
+            for route in sorted(routes):
+                doc = routes[route] or {}
+                for key, family in (
+                        ("p99_ms", "imageregion_sentinel_live_p99_ms"),
+                        ("baseline_p99_ms",
+                         "imageregion_sentinel_baseline_p99_ms")):
+                    v = doc.get(key)
+                    if isinstance(v, (int, float)):
+                        lines.append(f'{family}{{route="{route}"}} '
+                                     f"{round(float(v), 3)}")
+        return lines
+
+    def reset(self) -> None:
+        with self._lock:
+            self.local = None
+            self.drifts = 0
+            self.recoveries = 0
+            self.bundles = 0
+            self.bundle_errors = 0
+
+
+SENTINEL = SentinelStats()
+
+
+def exemplars_snapshot() -> Dict[str, List[dict]]:
+    """The request-duration histogram's live exemplars per route (the
+    ``/debug/exemplars`` document)."""
+    return REQUEST_HIST.exemplar_docs()
+
+
+def dump_slow_trace(trace: Trace, total_ms: float, status: int,
+                    directory: str,
+                    extra: Optional[dict] = None) -> Optional[str]:
+    """Write a slow request's waterfall as ``<directory>/<trace id>.json``
+    (``telemetry.slow-request-ms``); ``extra`` adds top-level fields (the
+    provenance record).  Never raises: the path, or None."""
+    try:
+        os.makedirs(directory, exist_ok=True)
+        path = os.path.join(directory, f"{trace.trace_id}.json")
+        doc = trace.to_json(total_ms=total_ms, status=status)
+        if extra:
+            doc.update(extra)
+        with open(path, "w") as f:
+            json.dump(doc, f, indent=1)
+        return path
+    except OSError:
+        log.warning("slow-trace dump to %s failed", directory,
+                    exc_info=True)
+        return None
+
+
 # ------------------------------------------------------------ exposition
 
 METRIC_TYPES: Dict[str, str] = {
@@ -1193,6 +1870,32 @@ METRIC_TYPES: Dict[str, str] = {
     "imageregion_execcache_misses": "counter",
     "imageregion_execcache_loaded_total": "counter",
     "imageregion_execcache_saved_total": "counter",
+    "imageregion_prefetch_budget_scale": "gauge",
+    "imageregion_slo_burn_rate": "gauge",
+    "imageregion_slo_breach": "gauge",
+    "imageregion_slo_breaches_total": "counter",
+    "imageregion_shape_dispatches_total": "counter",
+    "imageregion_shape_device_ms_total": "counter",
+    "imageregion_shape_device_ms_mean": "gauge",
+    "imageregion_shape_estimated_flops": "gauge",
+    "imageregion_shape_estimated_bytes": "gauge",
+    "imageregion_pressure_level": "gauge",
+    "imageregion_pressure_level_transitions_total": "counter",
+    "imageregion_pressure_signal": "gauge",
+    "imageregion_pressure_steps_engaged": "gauge",
+    "imageregion_pressure_step_engaged": "gauge",
+    "imageregion_pressure_step_transitions_total": "counter",
+    "imageregion_decision_total": "counter",
+    "imageregion_sentinel_drift": "gauge",
+    "imageregion_sentinel_keys": "gauge",
+    "imageregion_sentinel_ticks_total": "counter",
+    "imageregion_sentinel_observations_total": "counter",
+    "imageregion_sentinel_drifts_total": "counter",
+    "imageregion_sentinel_recoveries_total": "counter",
+    "imageregion_sentinel_bundles_total": "counter",
+    "imageregion_sentinel_bundle_errors_total": "counter",
+    "imageregion_sentinel_live_p99_ms": "gauge",
+    "imageregion_sentinel_baseline_p99_ms": "gauge",
     **{name: "histogram" for name in _COST_HIST_FIELDS.values()},
 }
 
@@ -1242,6 +1945,53 @@ METRIC_HELP: Dict[str, str] = {
         "Disk byte-cache bytes promoted to the memory tier at boot",
     "imageregion_execcache_loaded_total":
         "Built kernel and codec libraries loaded from the build store",
+    "imageregion_prefetch_budget_scale":
+        "Live prefetch budget scale (1 full, 0 paused by the ladder)",
+    "imageregion_slo_burn_rate":
+        "Error-budget burn rate per objective and window",
+    "imageregion_slo_breach":
+        "1 while the objective is in multi-window breach",
+    "imageregion_shape_estimated_flops":
+        "Kernel-count f32 operation estimate of the group shape's launches",
+    "imageregion_shape_estimated_bytes":
+        "Kernel-count byte estimate of the group shape's launches",
+    "imageregion_pressure_level":
+        "Folded resource-pressure level (0 ok, 1 elevated, 2 critical)",
+    "imageregion_pressure_signal":
+        "Raw pressure-signal reading (fraction of budget, or raw "
+        "depth/ms)",
+    "imageregion_pressure_steps_engaged":
+        "Brownout ladder steps currently engaged (prefix of the "
+        "configured ladder)",
+    "imageregion_pressure_step_engaged":
+        "1 while the named ladder step is engaged",
+    "imageregion_pressure_step_transitions_total":
+        "Ladder step engage/release transitions",
+    "imageregion_decision_total":
+        "Control-plane decision-ledger records by kind and verdict",
+    "imageregion_sentinel_drift":
+        "1 while the local perf sentinel holds a confirmed drift "
+        "verdict",
+    "imageregion_sentinel_keys":
+        "Route classes the sentinel currently tracks quantiles for",
+    "imageregion_sentinel_ticks_total":
+        "Drift-evaluation windows the local sentinel has closed",
+    "imageregion_sentinel_observations_total":
+        "Requests the local sentinel has sketched",
+    "imageregion_sentinel_drifts_total":
+        "Per-key drift confirmations (confirm-ticks consecutive "
+        "breaching windows)",
+    "imageregion_sentinel_recoveries_total":
+        "Per-key drift recoveries (recover-ticks consecutive clean "
+        "windows)",
+    "imageregion_sentinel_live_p99_ms":
+        "Live windowed p99 latency per route class (sketch estimate)",
+    "imageregion_sentinel_baseline_p99_ms":
+        "Self-learned rolling-baseline p99 per route class",
+    "imageregion_sentinel_bundles_total":
+        "Forensic incident bundles written on confirmed drift",
+    "imageregion_sentinel_bundle_errors_total":
+        "Incident-bundle captures that failed (drift verdict stands)",
 }
 
 _HIST_SUFFIXES = ("_bucket", "_sum", "_count")
@@ -1257,9 +2007,18 @@ def _family_of(line: str) -> str:
     return name
 
 
-def finalize_exposition(lines: List[str]) -> str:
+def finalize_exposition(lines: List[str],
+                        openmetrics: bool = False) -> str:
     """Series grouped by family (first seen first), one ``# HELP`` and one
-    ``# TYPE`` line per family, free comments last."""
+    ``# TYPE`` line per family, free comments last.
+
+    ``openmetrics=True`` makes a body a strict OpenMetrics parser accepts
+    (the negotiated scrape that carries exemplars): free comments are
+    dropped, ``untyped`` becomes ``unknown``, a counter family ending
+    ``_total`` declares its metadata under the name without the suffix,
+    and a counter that cannot (a legacy name, or one whose short name is a
+    family of its own) is declared ``unknown``.  The caller appends
+    ``# EOF``."""
     families: Dict[str, List[str]] = {}
     comments: List[str] = []
     for line in lines:
@@ -1273,25 +2032,44 @@ def finalize_exposition(lines: List[str]) -> str:
         families.setdefault(_family_of(line), []).append(line)
     out: List[str] = []
     for fam, series in families.items():
-        out.append(f"# HELP {fam} "
+        mtype = METRIC_TYPES.get(fam, "untyped")
+        meta_name = fam
+        if openmetrics:
+            if mtype == "counter":
+                base = fam[:-len("_total")] if fam.endswith("_total") \
+                    else None
+                if base and base not in families:
+                    meta_name = base
+                else:
+                    mtype = "unknown"
+            elif mtype == "untyped":
+                mtype = "unknown"
+        out.append(f"# HELP {meta_name} "
                    f"{METRIC_HELP.get(fam, fam.replace('_', ' '))}")
-        out.append(f"# TYPE {fam} {METRIC_TYPES.get(fam, 'untyped')}")
+        out.append(f"# TYPE {meta_name} {mtype}")
         out += series
-    return "\n".join(out + comments) + "\n"
+    if not openmetrics:
+        out += comments
+    return "\n".join(out) + "\n"
 
 
-def request_metric_lines() -> List[str]:
-    """The request histogram and totals, the conditional-HTTP counters and
-    the flight recorder's ring state."""
-    lines = REQUEST_HIST.series("imageregion_request_duration_ms")
+def request_metric_lines(exemplars: bool = False) -> List[str]:
+    """The request histogram (with its exemplar tails when ``exemplars``:
+    only for a scrape that asked for OpenMetrics) and totals, the
+    conditional-HTTP counters, the SLO burn gauges, the sentinel's
+    families and the flight recorder's ring state."""
+    lines = REQUEST_HIST.series("imageregion_request_duration_ms",
+                                exemplars=exemplars)
     for (route, status), n in sorted(request_totals().items()):
         lines.append(f'imageregion_requests_total{{route="{route}",'
                      f'status="{status}"}} {n}')
-    return lines + HTTPCACHE.metric_lines() + FLIGHT.metric_lines()
+    return (lines + HTTPCACHE.metric_lines() + SLO.metric_lines()
+            + SENTINEL.metric_lines() + FLIGHT.metric_lines())
 
 
 def resilience_metric_lines() -> List[str]:
-    """Sheds by reason, deadline cancellations, watchdog fires and the
+    """Sheds by reason, deadline cancellations, the pressure governor's
+    families, watchdog fires, the decision ledger's counts and the
     workload routes' counters."""
     with RESILIENCE._lock:
         shed = sorted(RESILIENCE.shed.items())
@@ -1299,7 +2077,8 @@ def resilience_metric_lines() -> List[str]:
     lines = [f'imageregion_shed_total{{reason="{r}"}} {n}'
              for r, n in shed]
     lines.append(f"imageregion_deadline_cancelled_total {cancelled}")
-    return lines + WATCHDOG.metric_lines() + WORKLOADS.metric_lines()
+    return (lines + PRESSURE.metric_lines() + WATCHDOG.metric_lines()
+            + DECISIONS.metric_lines() + WORKLOADS.metric_lines())
 
 
 def session_metric_lines() -> List[str]:
@@ -1352,6 +2131,7 @@ def device_metric_lines(services) -> List[str]:
             "imageregion_batcher_queue_wait_max_ms "
             f"{round(renderer.queue_wait_max_ms, 3)}",
         ]
+    lines += SHAPE_COSTS.metric_lines()
     # The warm-state families, always (as in JAX); the build store's only
     # where the app has one (persistence on).
     lines += PERSIST.metric_lines()
@@ -1383,3 +2163,12 @@ def reset() -> None:
     READINESS.reset()
     FLIGHT.reset()
     PERSIST.reset()
+    SLO.reset()
+    SHAPE_COSTS.reset()
+    PRESSURE.reset()
+    DECISIONS.reset()
+    SENTINEL.reset()
+    # The decision ledger imports this module; reset it from here so one
+    # call isolates the whole forensics plane.
+    from . import decisions
+    decisions.LEDGER.reset()

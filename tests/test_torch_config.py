@@ -133,7 +133,7 @@ def test_unported_defaults_are_the_jax_defaults():
     # ignores it).
     ({"sessions": {"enabled": True, "enabled-for": "all"}},
      "sessions.enabled"),
-    ({"pressure": {"hbm-high": 0.95}}, "pressure.hbm-high"),
+    ({"drain": {"fail-readyz": True}}, "drain.fail-readyz"),
     ({"sidecar": {"role": "split", "socket": "/tmp/s"}}, "sidecar."),
     # bitpack is the JAX direct renderer's engine (K6, not ported); the
     # JAX loader refuses it in the batched posture too.
@@ -150,9 +150,9 @@ def test_unported_defaults_are_the_jax_defaults():
     ({"metadata-service": {"type": "postgres", "dsn": "postgres://h",
                            "pool-size": 8}},
      "metadata-service."),
-    ({"telemetry": {"slow-request-ms": 50}}, "telemetry.slow-request-ms"),
+    ({"hotkey": {"threshold": 6.0}}, "hotkey.threshold"),
     ({"wire": {"ring-bytes": 0}}, "wire.ring-bytes"),
-    ({"sentinel": {"drift-ratio": 2.0}}, "sentinel.drift-ratio"),
+    ({"loadmodel": {"viewers": 10}}, "loadmodel.viewers"),
     ({"qos": {"enabled": True}}, "qos.enabled"),
     ({"workloads": {"unknown-key": 1}}, "workloads.unknown-key"),
 ])

@@ -1,6 +1,8 @@
 """The PyTorch port imports neither JAX nor any module of the JAX package,
 and imports ``aiohttp`` and ``yaml`` only inside the functions that need
-them."""
+them.  No module of the port loads anything under ``scripts/`` (the JAX
+sentinel loads ``scripts/bench_gate.py`` for its TPU watermarks), also
+when the perf sentinel is built at the repo root."""
 
 import json
 import subprocess
@@ -20,10 +22,17 @@ for info in pkgutil.walk_packages(port.__path__, port.__name__ + "."):
     names.append(info.name)
 for name in names:
     importlib.import_module(name)
+from omero_ms_image_region_tpu_torch.server import sentinel
+from omero_ms_image_region_tpu_torch.server.config import AppConfig
+engine = sentinel.engine_from_config(AppConfig().sentinel, member="local")
+scripts = sorted(m for m, mod in sys.modules.items()
+                 if "bench_gate" in m or "/scripts/" in str(
+                     getattr(mod, "__file__", None) or ""))
 leaked = sorted(m for m in sys.modules
                 if m == "omero_ms_image_region_tpu"
                 or m.startswith("omero_ms_image_region_tpu."))
 print(json.dumps({"imported": names, "leaked": leaked,
+                  "scripts": scripts, "watermarks": engine.watermarks,
                   "jax": [m for m in sys.modules
                           if m == "jax" or m.startswith("jax.")
                           if sys.modules[m] is not None]}))
@@ -53,7 +62,10 @@ def test_port_imports_without_jax_or_the_jax_package():
                 "io.jp2k", "services.cache", "jfif", "utils.linkprobe",
                 "utils.adaptive", "server.prewarm", "utils.provenance",
                 "services.diskcache", "services.warmstate",
-                "server.execcache", "server.shutdown"):
+                "server.execcache", "server.shutdown", "utils.sketch",
+                "utils.decisions", "server.sentinel", "server.explain",
+                "server.pressure"):
         assert f"omero_ms_image_region_tpu_torch.{mod}" in doc["imported"]
     assert doc["leaked"] == []
     assert doc["jax"] == []
+    assert doc["scripts"] == [] and doc["watermarks"] == {}

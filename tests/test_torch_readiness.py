@@ -2,7 +2,8 @@
 
 Both default apps are built from one config dict over one small pyramid
 and asked ``GET /readyz``; each answers with the same status and the same
-``prewarm`` and ``queue`` checks:
+checks (``prewarm``, ``queue`` and the perf sentinel's ``sentinel``
+annotation):
 
 * by default (200, ``complete``, ``ok``), and past
   ``telemetry.ready-max-queue-depth`` tiles queued (503, ``depth N over
@@ -80,14 +81,6 @@ def _apps(raw: dict):
     return [jax, port]
 
 
-def _checked(answers):
-    """(status, body) with the checks cut to ``prewarm`` and ``queue``
-    (the JAX app also annotates its sentinel, which the port lacks)."""
-    return [(status, dict(body, checks={
-        k: v for k, v in body["checks"].items() if k in ("prewarm", "queue")}))
-        for status, body in answers]
-
-
 def _readyz(app, steps):
     """``GET /readyz`` before each step and once after the last: a list
     of (status, body); a step is a callable run between two probes."""
@@ -115,13 +108,14 @@ def test_readyz_by_default_and_over_the_queue_bound(data_dir):
             renderer.queue_depth = lambda: 4
         answers.append(_readyz(app, [deepen]))
     jax, port = answers
-    assert port == _checked(jax)
+    assert port == jax
     assert port == [
         (200, {"status": "ready",
-               "checks": {"prewarm": "complete", "queue": "ok"}}),
+               "checks": {"prewarm": "complete", "queue": "ok",
+                          "sentinel": "ok"}}),
         (503, {"status": "degraded",
                "checks": {"prewarm": "complete",
-                          "queue": "depth 4 over 3"}})]
+                          "queue": "depth 4 over 3", "sentinel": "ok"}})]
 
 
 def test_readyz_while_the_prewarm_is_pending(data_dir, monkeypatch):
@@ -153,12 +147,14 @@ def test_readyz_while_the_prewarm_is_pending(data_dir, monkeypatch):
             assert ended.wait(timeout=60)
         answers.append(_readyz(app, [release]))
     jax, port = answers
-    assert port == _checked(jax)
+    assert port == jax
     assert port == [
         (503, {"status": "degraded",
-               "checks": {"prewarm": "pending", "queue": "ok"}}),
+               "checks": {"prewarm": "pending", "queue": "ok",
+                          "sentinel": "ok"}}),
         (200, {"status": "ready",
-               "checks": {"prewarm": "complete", "queue": "ok"}})]
+               "checks": {"prewarm": "complete", "queue": "ok",
+                          "sentinel": "ok"}})]
 
 
 @pytest.mark.parametrize("spec", [
@@ -217,7 +213,7 @@ def _prewarmed(data_dir, monkeypatch, warm=None):
 def test_the_port_prewarm_launches_every_batch_size(data_dir, monkeypatch):
     answers, calls = _prewarmed(data_dir, monkeypatch)
     assert answers == [(200, {"status": "ready", "checks": {
-        "prewarm": "complete", "queue": "ok"}})]
+        "prewarm": "complete", "queue": "ok", "sentinel": "ok"}})]
     assert calls == [(1, "sparse", False), (2, "sparse", False)]
 
 
@@ -233,6 +229,6 @@ def test_a_failed_prewarm_keeps_readyz_at_503(data_dir, monkeypatch,
     assert answers == [(503, {"status": "degraded", "checks": {
         "prewarm": "failed: RuntimeError: jpeg_coefficients launch "
                    "failed: CUDA error 700",
-        "queue": "ok"}})]
+        "queue": "ok", "sentinel": "ok"}})]
     failed = [r for r in caplog.records if "prewarm failed" in r.message]
     assert failed and failed[0].exc_info is not None

@@ -412,7 +412,7 @@ def test_manifest_cases(tree, seeded, tmp_path, case):
         # JAX app's bytes and headers.
         assert services.warmstate is None and services.caches.disk is None
         assert services.renderer.exec_cache is None
-        assert sorted(checks) == ["prewarm", "queue"]
+        assert sorted(checks) == ["prewarm", "queue", "sentinel"]
         assert warmstate == {"enabled": False, "rehydrate": "idle",
                              "snapshots": 0, "snapshot_errors": 0}
         jax, _ = exchange(raw, [("GET", u, {}) for u in REQUESTS])
