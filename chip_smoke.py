@@ -9,11 +9,13 @@ Phases (any failure ends the run with a non-zero exit and no result line):
            whether aiohttp and PIL import;
 2. readyz  a fresh default app with ``renderer.prewarm: ["4x1024"]``:
            its background prewarm builds the kernels from
-           ``kernels/csrc/render.cu``, ``kernels/csrc/jpeg.cu`` and
-           ``kernels/csrc/workloads.cu`` with nvcc and the native codecs
-           (``native/jpegenc.cpp``, ``jpegdec.cpp``, ``tilecache.cpp`` and
-           the JPEG 2000 tier-1, ``jp2kt1.cpp``) with g++, all at once, and
-           launches K1, K3, K4a and K4b at B = 1..8 while ``/readyz``
+           ``kernels/csrc/render.cu``, ``kernels/csrc/jpeg.cu``,
+           ``kernels/csrc/workloads.cu`` and ``kernels/csrc/staging.cu``
+           with nvcc and the native codecs (``native/jpegenc.cpp``,
+           ``jpegdec.cpp``, ``tilecache.cpp``, the JPEG 2000 tier-1,
+           ``jp2kt1.cpp``, and the packer, ``wirepack.cpp``) with g++, all
+           at once, and launches K10 at the cold-miss band shape and K1,
+           K3, K4a and K4b at B = 1..8 while ``/readyz``
            answers 503 ``pending``, then 200 ``complete`` (the seconds to
            ready, the prewarm's launches);
    build   the same builds again (found built) and each kernel's ptxas
@@ -61,7 +63,13 @@ Phases (any failure ends the run with a non-zero exit and no result line):
            magnitudes (with room for the whole stream and at the flagship
            budget), bases 2 bytes past alignment and ragged last chunks
            (1000^2 and 37 x 45 tiles); no PyTorch call packs a Huffman
-           stream (``library_ms`` null).
+           stream (``library_ms`` null).  K10 unpack16 (the packed
+           staging's decode, ``kernels/csrc/staging.cu``) byte for byte on
+           packed planes: a 4x1024^2 flagship tile, a 4x256x1024 band
+           decoded into its rows of a 4x1024^2 stack, an all-zero plane
+           (width 0), a full-range noise plane (width 17) and rows of 1000
+           samples (a partial block), each timed beside its bound and
+           plain version (the ``k10:`` line); no PyTorch call decodes it.
            Each gets the median device time of 25 launches (CUDA events,
            the L2 flushed before each, a GPU sleep ahead of the timed span
            so the host's enqueue is not in it), the device time of each of
@@ -99,6 +107,17 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                        app of these phases and of admission: and watchdog:
                        runs without the prefetcher, which would turn cold
                        GETs warm; prefetch: runs the default app with it);
+           staging:    the e2e run's 16 cold tiles cut into the handler's
+                       bands, each band packed (JAX's decision), its words
+                       and widths copied from a pinned buffer and decoded
+                       by K10, each timed, beside the same band's plain
+                       pinned upload; K10's launches in the e2e run (fails
+                       at 0: the cold misses go through it);
+           stream:     render GETs of the default app leave chunked,
+                       their bytes equal to an app's with
+                       ``wire.streaming: false`` (one body with a
+                       Content-Length); the p50 of ``http.firstByte``
+                       over e2e's sequential run;
            raw_cache:  the 16 sequential tiles with another window, each a
                        hit (fails on a miss) and equal to the plain route:
                        warm p50 against cold;
@@ -254,7 +273,18 @@ Phases (any failure ends the run with a non-zero exit and no result line):
            installed, else through its request front (``server.app.Front``:
            the same conditional decision, handler and status mapping);
            each line says which;
-5. warm_restart two lives of ``python -m omero_ms_image_region_tpu_torch.server``
+5. sidecar  the frontend/sidecar split: a ``--role sidecar`` child on a
+           unix socket owns the card; a frontend in a process of its own
+           (it must not initialise CUDA) serves 8 cold flagship JPEG tiles
+           through it, byte-equal to a combined app's, over the
+           shared-memory ring (``ring: true``, the sidecar's ring bytes),
+           with the p50 beside combined; the child killed, the frontend
+           answers 503 with Retry-After with degraded mode off and
+           degraded 200s with it on; then ``--role split``: a 200, the
+           sidecar child killed, the supervisor's new child serves the
+           same bytes, and SIGTERM leaves no child;
+6. warm_restart two lives of
+           ``python -m omero_ms_image_region_tpu_torch.server``
            from one YAML (``persistence: {enabled: true, dir: <tmp>}``,
            ``renderer.prewarm: ["4x1024"]``, the three byte caches, the
            provenance header) over the flagship data, ``nvcc`` and ``g++``
@@ -273,14 +303,15 @@ Phases (any failure ends the run with a non-zero exit and no result line):
            with the plain route's bytes.  Prints each life's seconds to
            ready, the rehydrate's ms and items, the p50 of the repeats and
            of the re-windowed GETs, and the nvidia-smi line.
-6. front_cost the host cost the front adds to a GET outside any I/O (a
+7. front_cost the host cost the front adds to a GET outside any I/O (a
            trace, 11 spans, admission, the ETag and header decision),
            median of 10,000, with the card's name and power limit.
 
 Each phase's launch counts are set to 0 just before it and read just
-after.  It prints the kernel table of all ten kernels as one JSON line
+after.  It prints the kernel table of all eleven kernels as one JSON line
 (``launches``: the batch burst for K1-K4b, the huffman phase for K5, the
-workload phases for K7, K8a, K8b and K9; ``workload_launches``: each
+workload phases for K7, K8a, K8b and K9, the e2e run's cold misses for
+K10; ``workload_launches``: each
 kernel's launches in each of those phases, readers, pyramid, omero,
 prefetch, huffman, byte_cache, forensics and pressure included), then the
 nvidia-smi line,
@@ -1239,6 +1270,91 @@ def pyramid_kernel_phase(torch, np):
     return {"mean2_int": e}
 
 
+STAGING_SOURCE = "omero_ms_image_region_tpu_torch/kernels/csrc/staging.cu"
+
+
+def staging_kernel_phase(torch, np):
+    """K10 (unpack16) against its plain version, byte for byte, on packed
+    planes: a 4x1024^2 flagship tile whole and a 4x256x1024 band (decoded
+    into its rows of a 4x1024^2 stack, the handler's banded write), an
+    all-zero plane (width 0 everywhere), full-range noise (width 17) and
+    rows of 1000 samples (a partial last block).  Each: median ms, the
+    bound (words and widths read, 2 bytes a sample written, over HBM) and
+    the plain version's ms."""
+    from omero_ms_image_region_tpu_torch.flagship import synthetic_wsi_tiles
+    from omero_ms_image_region_tpu_torch.io import staging as S
+    from omero_ms_image_region_tpu_torch.kernels import staging as KS
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(10)
+    flagship = synthetic_wsi_tiles(rng, 1, 4, TILE, TILE)[0]
+    cases = [("4x1024^2 flagship tile", flagship, None),
+             ("4x256x1024 band into rows 256:512", flagship[:, 256:512],
+              (slice(None), slice(256, 512))),
+             ("4x1024^2 all zero (width 0)",
+              np.zeros((4, TILE, TILE), np.uint16), None),
+             ("4x1024^2 full-range noise (width 17)",
+              rng.integers(0, 65536, (4, TILE, TILE)).astype(np.uint16),
+              None),
+             ("4x256x1000 rows of 1000 (a partial block)",
+              synthetic_wsi_tiles(rng, 1, 4, 256, 1000)[0], None)]
+    e = {"name": "unpack16", "route": "cuda", "source": STAGING_SOURCE,
+         "replaces": "omero_ms_image_region_tpu/io/staging.py:53",
+         "max_abs_err": 0, "mismatches": 0, "tolerance": 0,
+         "library_ms": None,
+         "library_note": "no PyTorch call decodes the packed row deltas",
+         "cases": []}
+    for label, arr, rows in cases:
+        words, widths = S.pack16_host(arr)
+        w_t = torch.from_numpy(words.view(np.int32)).to(dev)
+        wd_t = torch.from_numpy(widths).to(dev)
+        if rows is None:
+            out = torch.empty(arr.shape, dtype=torch.int16, device=dev)
+            view = out
+        else:
+            out = torch.zeros((4, TILE, TILE), dtype=torch.int16,
+                              device=dev)
+            view = out[rows]
+        KS.unpack16(w_t, wd_t, view)
+        want = S.unpack16_plain(w_t, wd_t, arr.shape).view(torch.int16)
+        torch.cuda.synchronize()
+        diff = int((view != want).sum())
+        source = torch.from_numpy(arr.view(np.int16)).to(dev)
+        lost = int((view != source).sum())
+        if rows is not None:
+            lost += int(out[:, :256].count_nonzero()
+                        + out[:, 512:].count_nonzero())
+        print(f"check unpack16 {label}: differing {diff} from the plain "
+              f"version, {lost} from the source (tolerance 0)", flush=True)
+        check(diff == 0 and lost == 0,
+              f"unpack16 {label} differs from its plain version or the "
+              f"source")
+        ms = time_ms(torch, lambda: KS.unpack16(w_t, wd_t, view), 25)
+        plain_ms = time_ms(torch, lambda: S.unpack16_plain(
+            w_t, wd_t, arr.shape), 5)
+        bound_ms, bound_by = bytes_bound(words.nbytes + widths.nbytes
+                                         + arr.size * 2)
+        case = {"case": label, "shape": list(arr.shape), "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "packed_ratio": (
+                    words.nbytes + widths.nbytes) / arr.nbytes,
+                "device_us": device_split(
+                    torch, lambda: KS.unpack16(w_t, wd_t, view))}
+        e["cases"].append(case)
+        print(f"kernel unpack16 [{label}]: {ms:.4f} ms (bound "
+              f"{bound_ms:.4f} ms by {bound_by}, plain {plain_ms:.3f} ms, "
+              f"packed/raw {case['packed_ratio']:.3f})", flush=True)
+    first = e["cases"][0]
+    for k in ("ms", "plain_ms", "bound_ms", "bound_by", "shape"):
+        e[k] = first[k]
+    e["band_ms"] = e["cases"][1]["ms"]
+    e["band_bound_ms"] = e["cases"][1]["bound_ms"]
+    print("k10: " + json.dumps({c["case"]: {
+        k: c[k] for k in ("ms", "bound_ms", "plain_ms", "packed_ratio")}
+        for c in e["cases"]}), flush=True)
+    return {"unpack16": e}
+
+
 # ------------------------------------------------------------- serve phase
 
 ZSTACK_IMAGE = "2"
@@ -1469,17 +1585,20 @@ def encode_overlap(np, rgba, row, w, h, q, cap) -> dict:
 def launch_counts():
     from omero_ms_image_region_tpu_torch.kernels import jpeg as KJ
     from omero_ms_image_region_tpu_torch.kernels import render as K
+    from omero_ms_image_region_tpu_torch.kernels import staging as KS
     from omero_ms_image_region_tpu_torch.kernels import workloads as KW
-    return dict(K.LAUNCHES, **KJ.LAUNCHES, **KW.LAUNCHES)
+    return dict(K.LAUNCHES, **KJ.LAUNCHES, **KW.LAUNCHES, **KS.LAUNCHES)
 
 
 def reset_launch_counts() -> None:
     from omero_ms_image_region_tpu_torch.kernels import jpeg as KJ
     from omero_ms_image_region_tpu_torch.kernels import render as K
+    from omero_ms_image_region_tpu_torch.kernels import staging as KS
     from omero_ms_image_region_tpu_torch.kernels import workloads as KW
     K.reset_launches()
     KJ.reset_launches()
     KW.reset_launches()
+    KS.reset_launches()
 
 
 class Batches:
@@ -1699,7 +1818,7 @@ SPANS = ("get_pixels_description", "canRead",
          "dedup.coalesced", "batcher.queueWait",
          "batcher.queueWait.cancelled", "batcher.stage",
          "Renderer.renderAsPackedInt.batch", "jfif.encodeBatch",
-         "Renderer.renderAsPackedInt", "encodeImage")
+         "Renderer.renderAsPackedInt", "encodeImage", "http.firstByte")
 REQUIRED_SPANS = ("PixelsService.getPixelBuffer", "batcher.queueWait",
                   "Renderer.renderAsPackedInt.batch", "jfif.encodeBatch")
 
@@ -1738,6 +1857,143 @@ def span_split(telemetry, registry) -> dict:
             "request_duration_ms_p50_bucket": hist.quantile(0.5)
             if hist else None,
             "request_duration_count": hist.count if hist else 0}
+
+
+async def staging_phase(torch, np, handler, tiles, e2e) -> dict:
+    """The cold misses of the e2e run, layer by layer: each tile's host
+    planes cut into the handler's bands, and each band packed
+    (``io.staging.pack_for_stage``, JAX's decision), its words and widths
+    copied from a pinned buffer, and decoded by K10, each timed (host
+    clock for the pack, CUDA events for the copy and around K10's call,
+    whose host enqueue shows there: the kernel alone is ``k10:``'s); beside
+    them the same band's plain pinned upload (``HostPlanes.upload``), all
+    by calling the port's functions directly.  K10's launches are the e2e
+    run's."""
+    from omero_ms_image_region_tpu_torch.io import staging as S
+    from omero_ms_image_region_tpu_torch.kernels import staging as KS
+    from omero_ms_image_region_tpu_torch.server.ctx import ImageRegionCtx
+
+    dev = torch.device(DEVICE)
+    layers = {k: [] for k in ("pack_ms", "copy_to_pinned_ms", "dma_ms",
+                              "k10_call_ms", "packed_ratio", "plain_fill_ms",
+                              "plain_dma_ms")}
+    per_tile = {"packed_total_ms": [], "plain_total_ms": []}
+    bands_packed = bands = 0
+    for route, query in tiles:
+        ctx = ImageRegionCtx.from_params(params_of(route, query))
+        plan = await handler._plan(ctx, await handler._authorize(ctx))
+        bounds = handler._band_bounds(plan.region,
+                                      plan.src.tile_size()[1])
+        raw, _ = await handler.read(ctx)
+        packed_total = plain_total = 0.0
+        for y0, y1 in zip(bounds, bounds[1:]):
+            band = np.ascontiguousarray(raw[:, y0:y1])
+            bands += 1
+            t0 = time.perf_counter()
+            packed = S.pack_for_stage(band)
+            t1 = time.perf_counter()
+            out = torch.empty(band.shape, dtype=torch.int16, device=dev)
+            if packed is not None:
+                bands_packed += 1
+                words, widths = packed
+                buf = torch.empty(words.nbytes + widths.nbytes,
+                                  dtype=torch.uint8, pin_memory=True)
+                host = buf.numpy()
+                host[:words.nbytes] = words.view(np.uint8)
+                host[words.nbytes:] = widths
+                t2 = time.perf_counter()
+                ev = [torch.cuda.Event(enable_timing=True)
+                      for _ in range(3)]
+                ev[0].record()
+                on_dev = buf.to(dev, non_blocking=True)
+                ev[1].record()
+                KS.unpack16(on_dev[:words.nbytes].view(torch.int32),
+                            on_dev[words.nbytes:], out)
+                ev[2].record()
+                torch.cuda.synchronize()
+                check(torch.equal(out.cpu(), torch.from_numpy(
+                    band.view(np.int16))), "staging: K10 did not give "
+                                           "the band back")
+                dma, k10 = ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(
+                    ev[2])
+                layers["pack_ms"].append((t1 - t0) * 1e3)
+                layers["copy_to_pinned_ms"].append((t2 - t1) * 1e3)
+                layers["dma_ms"].append(dma)
+                layers["k10_call_ms"].append(k10)
+                layers["packed_ratio"].append(
+                    (words.nbytes + widths.nbytes) / band.nbytes)
+                packed_total += (t2 - t0) * 1e3 + dma + k10
+            t3 = time.perf_counter()
+            planes = S.HostPlanes(band.shape, band.dtype, dev)
+            np.copyto(planes.array, band)
+            t4 = time.perf_counter()
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            planes.upload()
+            ev[1].record()
+            torch.cuda.synchronize()
+            layers["plain_fill_ms"].append((t4 - t3) * 1e3)
+            layers["plain_dma_ms"].append(ev[0].elapsed_time(ev[1]))
+            plain_total += (t4 - t3) * 1e3 + ev[0].elapsed_time(ev[1])
+        per_tile["packed_total_ms"].append(packed_total)
+        per_tile["plain_total_ms"].append(plain_total)
+    doc = {"tiles": len(tiles), "bands": bands,
+           "bands_packed": bands_packed,
+           "band_shape": [4, bounds[1] - bounds[0], TILE],
+           "per_band_median": {k: statistics.median(v) if v else None
+                               for k, v in layers.items()},
+           "per_tile_median_ms": {k: statistics.median(v)
+                                  for k, v in per_tile.items()},
+           "k10_launches_in_e2e": e2e["launches"]["unpack16"],
+           "e2e_cold_p50_ms": e2e["sequential_p50_ms"],
+           "card": smi_line()}
+    print("staging: " + json.dumps(doc), flush=True)
+    check(bands_packed > 0, "staging: no band of a flagship tile packed")
+    check(doc["k10_launches_in_e2e"] > 0,
+          "staging: K10 was not launched by the served cold misses")
+    return doc
+
+
+async def stream_phase(client, data_dir, lut_root, have_aiohttp, tiles,
+                       seq_spans) -> dict:
+    """The default app's render GETs leave chunked (``wire.streaming``, on
+    by default): over HTTP each carries ``Transfer-Encoding: chunked``, and
+    its bytes equal an app's with ``wire.streaming: false`` (one body with
+    ``Content-Length``); the p50 of ``http.firstByte`` over the e2e run's
+    16 sequential cold GETs."""
+    config, handler = front_handler(data_dir, lut_root,
+                                    {"wire": {"streaming": False}})
+    unary = Client(config, handler, have_aiohttp)
+    await unary.start()
+    rows = []
+    try:
+        for route, query in tiles:
+            status, hdrs, body, ms = await client.request(route, query)
+            u_status, u_hdrs, u_body, u_ms = await unary.request(route,
+                                                                 query)
+            rows.append({
+                "status": (status, u_status), "same_bytes": body == u_body,
+                "chunked": hdrs.get("Transfer-Encoding") == "chunked",
+                "unary_content_length": u_hdrs.get("Content-Length"),
+                "ms": ms, "unary_ms": u_ms})
+    finally:
+        await unary.stop()
+    first_byte = seq_spans["spans"]["http.firstByte"]
+    doc = {"gets": rows, "first_byte_p50_ms": first_byte["p50_ms"],
+           "first_byte_requests": first_byte["requests"],
+           "e2e_request_p50_bucket_ms":
+               seq_spans["request_duration_ms_p50_bucket"],
+           "via": client.via}
+    print("stream: " + json.dumps(doc), flush=True)
+    check(all(r["status"] == (200, 200) and r["same_bytes"] for r in rows),
+          "stream: a chunked body differs from the unary one")
+    if client.via == "http":
+        check(all(r["chunked"] and r["unary_content_length"] for r in rows),
+              "stream: a render GET was not chunked, or the unary app's "
+              "had no Content-Length")
+    check(first_byte["requests"] > 0,
+          "stream: no http.firstByte span in the e2e run")
+    return doc
 
 
 async def http_cache_phase(client, handler, matches_plain) -> None:
@@ -3713,6 +3969,275 @@ def builds_logged(log_path: str) -> list:
         return [ln.strip() for ln in f if "--version" not in ln]
 
 
+# The frontend of the sidecar phase, in a process of its own so that it can
+# show it never initialised CUDA: each app of ``spec["apps"]`` (a config
+# dict, role frontend) serves ``spec["urls"]`` through its request front
+# (``server.app.build_front``), bodies written to ``spec["out"][name]``.
+FRONTEND_DRIVER = r"""
+import asyncio, json, os, sys, time
+from urllib.parse import parse_qsl, urlsplit
+spec = json.loads(sys.argv[1])
+import torch
+from omero_ms_image_region_tpu_torch.server.app import build_front
+from omero_ms_image_region_tpu_torch.server.config import AppConfig
+from omero_ms_image_region_tpu_torch.utils import telemetry
+
+def params(url):
+    parts = urlsplit(url)
+    _, _, route, image, z, t = parts.path.split("/")[:6]
+    return route, dict(parse_qsl(parts.query), imageId=image, theZ=z, theT=t)
+
+async def run(raw, out_dir):
+    front = build_front(AppConfig.from_dict(raw), "cuda")
+    gets = []
+    for i, url in enumerate(spec["urls"]):
+        route, p = params(url)
+        t0 = time.perf_counter()
+        a = await front.observed(route, "GET", p, {}, {})
+        ms = (time.perf_counter() - t0) * 1e3
+        if out_dir:
+            with open(os.path.join(out_dir, f"{i}.bin"), "wb") as f:
+                f.write(a.body)
+        gets.append({"status": a.status, "ms": ms, "bytes": len(a.body),
+                     "retry_after": a.headers.get("Retry-After"),
+                     "provenance": a.headers.get("X-Image-Region-Provenance"),
+                     "degraded": (a.prov_ctx is not None and getattr(
+                         a.prov_ctx, "_provenance", {}).get("tier")
+                         == "degraded")})
+    ok, checks = await front.readiness()
+    try:
+        status, body = await asyncio.wait_for(
+            front.client.call("metrics", {}), 5.0)
+        sidecar = [l for l in bytes(body).decode().splitlines()
+                   if l.startswith("imageregion_wire_")] if status == 200 \
+            else []
+    except Exception:
+        sidecar = None
+    await front.client.close()
+    front.close()
+    return {"gets": gets, "readyz": [ok, checks], "sidecar_wire": sidecar}
+
+async def main():
+    out = {name: await run(raw, spec["out"].get(name))
+           for name, raw in spec["apps"].items()}
+    out["wire"] = telemetry.WIRE.snapshot()
+    out["degraded_renders"] = telemetry.RESILIENCE.degraded_renders
+    out["cuda_initialized"] = torch.cuda.is_initialized()
+    print(json.dumps(out))
+
+asyncio.run(main())
+"""
+
+
+def run_frontend(spec: dict, timeout_s: float = 300.0) -> dict:
+    """:data:`FRONTEND_DRIVER` in a child process; its JSON result."""
+    proc = subprocess.run([sys.executable, "-c", FRONTEND_DRIVER,
+                           json.dumps(spec)], capture_output=True,
+                          text=True, timeout=timeout_s,
+                          env=dict(os.environ, PYTHONPATH=os.getcwd()))
+    check(proc.returncode == 0, f"sidecar: the frontend process failed "
+                                f"({proc.returncode}):\n"
+                                f"{proc.stderr[-4000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def pgrep(pattern: str) -> list:
+    out = subprocess.run(["pgrep", "-f", "--", pattern], capture_output=True,
+                         text=True).stdout.split()
+    return [int(p) for p in out]
+
+
+def sidecar_phase(torch, np, data_dir, lut_root, have_aiohttp,
+                  smi: str) -> dict:
+    """The frontend/sidecar split on the card.
+
+    A ``--role sidecar`` child on a unix socket owns the card; a frontend
+    (``sidecar.role: frontend``) in a process of its own serves 8 cold
+    flagship JPEG tiles through it, each byte-equal to a fresh combined
+    app's GET of the same URL in this process; the frontend negotiated the
+    shared-memory ring, the bodies rode it (the sidecar's
+    ``imageregion_wire_ring_bytes_total``), and the frontend never
+    initialised CUDA.  p50 through the sidecar against combined.  With the
+    sidecar killed: 503 with Retry-After with degraded mode off, 200s
+    marked ``degraded`` with it on.  Then ``--role split``: a GET, the
+    sidecar child killed, the supervisor's new child serves the same
+    bytes."""
+    import signal
+
+    from omero_ms_image_region_tpu_torch.server import sidecar as SC
+
+    tiles = [("render_image_region",
+              {"tile": f"0,{i},6,{TILE},{TILE}", "c": CH3, "m": "c",
+               "format": "jpeg"}) for i in range(8)]
+    urls = ["/webgateway/render_image_region/1/0/0?" + "&".join(
+        f"{k}={v}" for k, v in q.items()) for _, q in tiles]
+
+    async def combined():
+        config, handler = front_handler(data_dir, lut_root, {})
+        client = Client(config, handler, have_aiohttp)
+        await client.start()
+        try:
+            return [await client.request(*r) for r in tiles]
+        finally:
+            await client.stop()
+
+    combined_gets = asyncio.run(combined())
+    check(all(g[0] == 200 for g in combined_gets),
+          "sidecar: the combined app failed a GET")
+    tmp = tempfile.mkdtemp(prefix="sidecar-")
+    sock = os.path.join(tmp, "render.sock")
+    conf = os.path.join(tmp, "sidecar.yaml")
+    with open(conf, "w") as f:
+        json.dump({"raw-cache": {"prefetch": False},
+                   "omero.server": {"omero.script_repo_root": lut_root}}, f)
+    log = open(os.path.join(tmp, "sidecar.log"), "w")
+    t0 = time.perf_counter()
+    child = subprocess.Popen(
+        [sys.executable, "-m", "omero_ms_image_region_tpu_torch.server",
+         "--role", "sidecar", "--sidecar-socket", sock, "--config", conf,
+         "--data-dir", data_dir, "--device", DEVICE],
+        stdout=log, stderr=subprocess.STDOUT,
+        env=dict(os.environ, PYTHONPATH=os.getcwd()))
+    doc: dict = {"card": smi}
+    try:
+        SC.wait_sidecar_socket(child, sock)
+        doc["sidecar_start_s"] = time.perf_counter() - t0
+        front_raw = {"data-dir": data_dir, "raw-cache": {"prefetch": False},
+                     "omero.server": {"omero.script_repo_root": lut_root},
+                     "telemetry": {"provenance-header": True},
+                     "sidecar": {"role": "frontend", "socket": sock}}
+        out_dir = os.path.join(tmp, "bodies")
+        os.makedirs(out_dir)
+        live = run_frontend({"apps": {"frontend": front_raw}, "urls": urls,
+                             "out": {"frontend": out_dir}})
+        gets = live["frontend"]["gets"]
+        same = []
+        for i, g in enumerate(combined_gets):
+            with open(os.path.join(out_dir, f"{i}.bin"), "rb") as f:
+                same.append(f.read() == g[2])
+        wire = dict(line.rsplit(" ", 1) for line in
+                    live["frontend"]["sidecar_wire"] or [])
+        doc.update({
+            "gets": len(gets), "statuses": [g["status"] for g in gets],
+            "bytes_equal_combined": all(same),
+            "p50_ms_through_sidecar": statistics.median(
+                g["ms"] for g in gets),
+            "p50_ms_combined": statistics.median(
+                g[3] for g in combined_gets),
+            "ring": live["wire"]["ring_negotiated"] > 0,
+            "frontend_wire": live["wire"],
+            "sidecar_ring_bytes": float(wire.get(
+                'imageregion_wire_ring_bytes_total{process="sidecar"}',
+                "nan")),
+            "sidecar_ring_hits": float(wire.get(
+                'imageregion_wire_ring_hits_total{process="sidecar"}',
+                "nan")),
+            "frontend_readyz": live["frontend"]["readyz"],
+            "frontend_cuda_initialized": live["cuda_initialized"]})
+        check(all(g["status"] == 200 for g in gets) and all(same),
+              "sidecar: a GET through the sidecar differs from the "
+              "combined app's bytes")
+        check(doc["ring"] and doc["sidecar_ring_bytes"] > 0,
+              "sidecar: no body rode the shared-memory ring")
+        check(live["cuda_initialized"] is False,
+              "sidecar: the frontend initialised CUDA")
+        check(live["frontend"]["readyz"][0] is True,
+              "sidecar: the frontend's /readyz was not ready")
+
+        child.send_signal(signal.SIGKILL)
+        child.wait(timeout=60)
+        degraded_raw = dict(front_raw, **{"fault-tolerance": {
+            "degraded-mode": True}})
+        dead = run_frontend({"apps": {"off": front_raw,
+                                      "on": degraded_raw},
+                             "urls": urls[:2], "out": {}})
+        off, on = dead["off"]["gets"], dead["on"]["gets"]
+        doc["sidecar_killed"] = {
+            "degraded_off": [(g["status"], g["retry_after"]) for g in off],
+            "degraded_on": [(g["status"], g["provenance"]) for g in on],
+            "degraded_renders": dead["degraded_renders"],
+            "readyz_off": dead["off"]["readyz"],
+            "readyz_on": dead["on"]["readyz"]}
+        print("sidecar_killed: " + json.dumps(doc["sidecar_killed"]),
+              flush=True)
+        check(all(g["status"] == 503 and g["retry_after"] for g in off),
+              "sidecar: a dead sidecar did not answer 503 with "
+              "Retry-After with degraded mode off")
+        # The tier is the provenance record's (its access line and
+        # counters); a streamed frontend answer sends no provenance header,
+        # as in JAX (the sidecar's marks arrive after the headers).
+        check(all(g["status"] == 200 and g["degraded"] for g in on)
+              and dead["degraded_renders"] >= len(on),
+              "sidecar: degraded mode did not serve marked degraded "
+              "bodies")
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait(timeout=60)
+        log.close()
+
+    # --role split: the supervisor brings a killed sidecar child back.
+    port = free_port()
+    split_sock = os.path.join(tmp, "split.sock")
+    split_log = open(os.path.join(tmp, "split.log"), "w")
+    split = subprocess.Popen(
+        [sys.executable, "-m", "omero_ms_image_region_tpu_torch.server",
+         "--role", "split", "--sidecar-socket", split_sock, "--config",
+         conf, "--data-dir", data_dir, "--port", str(port), "--device",
+         DEVICE], stdout=split_log, stderr=subprocess.STDOUT,
+        env=dict(os.environ, PYTHONPATH=os.getcwd()))
+    try:
+        def get_tile(deadline_s: float):
+            t_end = time.perf_counter() + deadline_s
+            while time.perf_counter() < t_end:
+                check(split.poll() is None, f"sidecar: the split process "
+                                            f"exited with {split.returncode}")
+                try:
+                    status, _, body, _ = http_get(port, urls[0], 30.0)
+                    if status == 200:
+                        return body
+                except OSError:
+                    pass
+                time.sleep(0.2)
+            raise RuntimeError("sidecar: the split role served no 200")
+
+        t0 = time.perf_counter()
+        first = get_tile(300)
+        split_first_s = time.perf_counter() - t0
+        children = [p for p in pgrep(f"--sidecar-socket {split_sock}")
+                    if p != split.pid]
+        check(len(children) == 1, f"sidecar: the split role has "
+                                  f"{len(children)} sidecar children")
+        os.kill(children[0], signal.SIGKILL)
+        t0 = time.perf_counter()
+        again = get_tile(300)
+        restart_s = time.perf_counter() - t0
+        new = [p for p in pgrep(f"--sidecar-socket {split_sock}")
+               if p != split.pid]
+        doc["split"] = {"first_200_s": split_first_s,
+                        "restart_to_200_s": restart_s,
+                        "killed": children[0], "new_child": new,
+                        "same_bytes": again == first}
+        check(len(new) == 1 and new[0] != children[0] and again == first,
+              "sidecar: the supervisor did not bring the sidecar back")
+    finally:
+        split.send_signal(signal.SIGTERM)
+        try:
+            split.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            split.kill()
+            split.wait()
+        split_log.close()
+        for pid in pgrep(f"--sidecar-socket {split_sock}"):
+            os.kill(pid, signal.SIGKILL)
+    doc["split"]["children_left"] = len(pgrep(
+        f"--sidecar-socket {split_sock}"))
+    print("sidecar: " + json.dumps(doc), flush=True)
+    check(doc["split"]["children_left"] == 0,
+          "sidecar: the split role left its sidecar child running")
+    return doc
+
+
 class ServerLife:
     """``python -m omero_ms_image_region_tpu_torch.server --config`` in
     ``cwd`` (its package is the one under ``cwd``), stopped with SIGTERM."""
@@ -3965,7 +4490,7 @@ def warm_restart_phase(torch, np, data_dir, lut_root, have_pil,
           f"warm_restart: rehydrate ended as {ready_doc['checks']}")
     # The three CUDA sources and the four C++ ones (on the CPU, the
     # latter alone).
-    check(n_exec == (7 if DEVICE == "cuda" else 4)
+    check(n_exec == (9 if DEVICE == "cuda" else 5)
           and doc["store_loads"] == n_exec
           and doc["store_misses"] == 0 and len(loads) == n_exec
           and doc["executables_loaded"] == n_exec,
@@ -4112,6 +4637,7 @@ async def serve_phase(torch, np, data_dir, lut_root, have_aiohttp,
         shed0 = handler.s.admission.shed_total
         stats = Batches(batcher)
         reset_spans(telemetry, REGISTRY)
+        reset_launch_counts()
         seq = [(await get(*r))[2] for r in tiles[:16]]
         await settled(batcher)
         seq_spans = span_split(telemetry, REGISTRY)
@@ -4122,6 +4648,7 @@ async def serve_phase(torch, np, data_dir, lut_root, have_aiohttp,
         await settled(batcher)
         conc_spans = span_split(telemetry, REGISTRY)
         check(all(s == 200 for s, _, _ in conc), "timed run: non-200")
+        e2e_launches = launch_counts()
         groups = stats.report()
         e2e = {"tile": f"{TILE}x{TILE}x4 uint16 -> jpeg (device route, "
                        f"batcher)",
@@ -4141,8 +4668,11 @@ async def serve_phase(torch, np, data_dir, lut_root, have_aiohttp,
                "raw_cache_hits": cache.hits - hits0,
                "raw_cache_misses": cache.misses - misses0,
                "sheds": handler.s.admission.shed_total - shed0,
+               "launches": e2e_launches,
                "prefetch": False, "via": client.via}
         print("e2e: " + json.dumps(e2e), flush=True)
+        check(e2e_launches["unpack16"] > 0,
+              "e2e: the cold misses never launched K10 (unpack16)")
         check(e2e["raw_cache_hits"] == 0,
               "e2e: the cold run had raw-cache hits")
         check(e2e["sheds"] == 0, "e2e: the default app shed a request")
@@ -4239,9 +4769,13 @@ async def serve_phase(torch, np, data_dir, lut_root, have_aiohttp,
             host_batcher.group_sizes)
         print("postures: " + json.dumps(postures), flush=True)
 
+        await staging_phase(torch, np, handler, tiles[:16], e2e)
+        await stream_phase(client, data_dir, lut_root, have_aiohttp,
+                           tiles[:4], seq_spans)
         await http_cache_phase(client, handler, matches_plain)
         workload_launches = await workload_phases(
             torch, np, client, handler, data_dir, lut_root, matches_plain)
+        workload_launches["e2e"] = e2e_launches
         workload_launches["readers"] = await readers_phase(
             torch, np, client, handler, data_dir, requests, results)
         workload_launches["pyramid"] = await pyramid_phase(
@@ -4371,6 +4905,7 @@ def main() -> int:
     from omero_ms_image_region_tpu_torch.kernels import build
     from omero_ms_image_region_tpu_torch.kernels import jpeg as KJ
     from omero_ms_image_region_tpu_torch.kernels import render as K
+    from omero_ms_image_region_tpu_torch.kernels import staging as KS
     from omero_ms_image_region_tpu_torch.kernels import workloads as KW
 
     # 1. probe
@@ -4398,19 +4933,23 @@ def main() -> int:
         host = pool.submit(native.build_all)
         build.build_all([(K.SOURCE, K.NVCC_FLAGS),
                          (KJ.SOURCE, KJ.NVCC_FLAGS),
-                         (KW.SOURCE, KW.NVCC_FLAGS)])
+                         (KW.SOURCE, KW.NVCC_FLAGS),
+                         (KS.SOURCE, KS.NVCC_FLAGS)])
         host.result()
     K.library()
     KJ.library()
     KW.library()
+    KS.library()
     native.library()
     native.decoder_library()
     native.bitops_library()
     native.jp2k_library()
+    native.wirepack_library()
     print(f"build: {time.perf_counter() - t0:.2f} s after the prewarm's "
-          f"builds (render.cu, jpeg.cu, workloads.cu; native/jpegenc.cpp, "
-          f"jpegdec.cpp, tilecache.cpp, jp2kt1.cpp)", flush=True)
-    for source in (K.SOURCE, KJ.SOURCE, KW.SOURCE):
+          f"builds (render.cu, jpeg.cu, workloads.cu, staging.cu; "
+          f"native/jpegenc.cpp, jpegdec.cpp, tilecache.cpp, jp2kt1.cpp, "
+          f"wirepack.cpp)", flush=True)
+    for source in (K.SOURCE, KJ.SOURCE, KW.SOURCE, KS.SOURCE):
         for line in build.build_log(source.name).splitlines():
             if ("registers" in line or "Compiling entry" in line
                     or "spill" in line):
@@ -4427,6 +4966,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     workload_entries = workloads_kernel_phase(torch, np)
     workload_entries.update(pyramid_kernel_phase(torch, np))
+    staging_entries = staging_kernel_phase(torch, np)
+    torch.cuda.empty_cache()
 
     # 4. serve
     with tempfile.TemporaryDirectory() as tmp:
@@ -4443,6 +4984,7 @@ def main() -> int:
         launches, serve_launches, workload_launches = asyncio.run(
             serve_phase(torch, np, data_dir, lut_root, have_aiohttp,
                         have_pil))
+        sidecar_phase(torch, np, data_dir, lut_root, have_aiohttp, smi)
         warm_restart_phase(torch, np, data_dir, lut_root, have_pil, smi)
     front_cost_phase(smi)
 
@@ -4463,6 +5005,13 @@ def main() -> int:
         check(e["launches"] >= 1,
               f"{name} was not launched by the workload phases")
     entries.update(workload_entries)
+    # K10's path is the cold misses: the e2e run's (all misses).
+    for name, e in staging_entries.items():
+        e["launches"] = workload_launches["e2e"][name]
+        e["serve_launches"] = serve_launches[name]
+        check(e["launches"] >= 1, f"{name} was not launched by the cold "
+                                  f"misses of the e2e run")
+    entries.update(staging_entries)
     for name, e in entries.items():
         e["workload_launches"] = {phase: p[name] for phase, p in
                                   workload_launches.items()}

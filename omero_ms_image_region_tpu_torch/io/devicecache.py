@@ -19,6 +19,11 @@ costs 13-25 ms, against well under 1 ms for the pinned copy it could
 save, and no measured traffic yet repeats content under distinct keys
 (PERF.md).
 
+Staging: a host-array miss goes through ``io.staging.stage``, packed
+(K10) where the JAX ``stage`` packs, as JAX ``io/devicecache.py:185-193``
+does; a loader that returns a tensor already on the card (the handler's
+banded cold read, a projected plane) is stored as it is.
+
 Cost ledger (``utils.telemetry``): a miss's copy adds its host bytes to
 the request's ``staged_bytes``, and a digest alias the bytes it saved to
 ``staged_bytes_skipped``, as in the JAX cache (no-op outside a request,
@@ -102,6 +107,26 @@ class DeviceRawCache:
 
     # ------------------------------------------------------------ digest
 
+    def count_plane(self, hit: bool) -> None:
+        """Count a digest probe's outcome (``io.staging.stage_deduped``
+        counts here too)."""
+        with self._lock:
+            if hit:
+                self.plane_hits += 1
+            else:
+                self.plane_misses += 1
+
+    def resident_digest(self, digest: str, count: bool = True) -> bool:
+        """Is this content on the card under any key (the sidecar's
+        ``plane_probe``)?  A resident answer counts a plane hit (an upload
+        that will not happen); a miss is counted by the upload that
+        follows."""
+        with self._lock:
+            resident = bool(self._keys_by_digest.get(digest))
+            if count and resident:
+                self.plane_hits += 1
+            return resident
+
     def get_by_digest(self, digest: str, bump: bool = True):
         """The tensor holding this content under any key, or None.
         ``bump=False`` skips the LRU touch (the alias lookup of a miss:
@@ -144,9 +169,10 @@ class DeviceRawCache:
 
     # ------------------------------------------------------------- loads
 
-    def _upload(self, upload: Callable[[], torch.Tensor]) -> torch.Tensor:
-        """Run ``upload`` and wait for its copy (on the cache's stream on
-        CUDA, so the wait does not include unrelated work)."""
+    def upload(self, upload: Callable[[], torch.Tensor]) -> torch.Tensor:
+        """Run ``upload`` and wait for the work it queued (on the cache's
+        own stream on CUDA, so the wait does not include unrelated work):
+        the returned tensor may be read on any stream."""
         if self._stream is None:
             return upload()
         with torch.cuda.stream(self._stream):
@@ -171,28 +197,24 @@ class DeviceRawCache:
             return self._insert(key, loaded.to(self.device), None,
                                 route_key)
         if isinstance(loaded, HostPlanes):
-            host, upload = loaded.array, loaded.upload
+            host, planes = loaded.array, loaded
         else:
-            host = np.ascontiguousarray(loaded)
-            upload = lambda: stage(host, self.device)  # noqa: E731
+            host, planes = np.ascontiguousarray(loaded), None
         arr = None
         if self.digest_index:
             # Content already resident under another key aliases that
             # tensor: no copy.
             digest = digest or plane_digest(host)
             arr = self.get_by_digest(digest, bump=False)
-            with self._lock:
-                if arr is not None:
-                    self.plane_hits += 1
-                else:
-                    self.plane_misses += 1
+            self.count_plane(hit=arr is not None)
             if arr is not None:
                 # The copy this request did not pay.
                 telemetry.add_cost("staged_bytes_skipped", host.nbytes)
         else:
             digest = None
         if arr is None:
-            arr = self._upload(upload)
+            arr = self.upload(lambda: stage(host, self.device,
+                                            planes=planes))
             telemetry.add_cost("staged_bytes", host.nbytes)
         return self._insert(key, arr, digest, route_key)
 

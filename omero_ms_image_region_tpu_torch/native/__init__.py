@@ -1,8 +1,9 @@
 """The native host codecs, built and loaded: the JFIF entropy coder
 (``jpegenc.cpp``), the JPEG decoder (``jpegdec.cpp``), the TIFF LZW
 decoder, the bit unpacker and the byte caches' LRU tier
-(``tilecache.cpp``, :class:`NativeLRUCache`) and the JPEG 2000 tier-1
-decoder (``jp2kt1.cpp``).
+(``tilecache.cpp``, :class:`NativeLRUCache`), the JPEG 2000 tier-1
+decoder (``jp2kt1.cpp``) and the packed staging's packer
+(``wirepack.cpp``, :func:`wirepack_pack16`).
 
 Each C++ source is compiled with ``g++ -O3 -std=c++17 -shared -fPIC
 -fopenmp`` on first use into ``_build/`` beside this file, once per source
@@ -40,6 +41,7 @@ SOURCE = _HERE / "jpegenc.cpp"
 JPEGDEC_SOURCE = _HERE / "jpegdec.cpp"
 TILECACHE_SOURCE = _HERE / "tilecache.cpp"
 JP2KT1_SOURCE = _HERE / "jp2kt1.cpp"
+WIREPACK_SOURCE = _HERE / "wirepack.cpp"
 BUILD_DIR = _HERE / "_build"
 CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-fopenmp")
 
@@ -100,10 +102,11 @@ def build(source: Optional[Path] = None) -> Path:
 
 
 def build_all() -> None:
-    """Build the four sources at once, one g++ each."""
+    """Build the five sources at once, one g++ each."""
     import concurrent.futures as cf
 
-    sources = (SOURCE, JPEGDEC_SOURCE, TILECACHE_SOURCE, JP2KT1_SOURCE)
+    sources = (SOURCE, JPEGDEC_SOURCE, TILECACHE_SOURCE, JP2KT1_SOURCE,
+               WIREPACK_SOURCE)
     with cf.ThreadPoolExecutor(len(sources)) as pool:
         for f in [pool.submit(build, s) for s in sources]:
             f.result()
@@ -179,6 +182,14 @@ def _configure_jp2kt1(lib: ctypes.CDLL) -> None:
     ]
 
 
+def _configure_wirepack(lib: ctypes.CDLL) -> None:
+    lib.wirepack_pack16.restype = ctypes.c_longlong
+    lib.wirepack_pack16.argtypes = [
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+    ]
+
+
 def library() -> ctypes.CDLL:
     """The loaded coder, built on first use."""
     return _load(SOURCE, _configure_coder)
@@ -197,6 +208,33 @@ def bitops_library() -> ctypes.CDLL:
 def jp2k_library() -> ctypes.CDLL:
     """The loaded JPEG 2000 tier-1 decoder, built on first use."""
     return _load(JP2KT1_SOURCE, _configure_jp2kt1)
+
+
+def wirepack_library() -> ctypes.CDLL:
+    """The loaded packer, built on first use."""
+    return _load(WIREPACK_SOURCE, _configure_wirepack)
+
+
+def wirepack_pack16(arr: np.ndarray):
+    """Pack a uint16 array (rows: all leading dims) into ``(words u32[n],
+    widths u8[n_rows * ceil(W / 32)])``, the JAX ``wirepack_pack16``'s
+    bytes (``wirepack.cpp`` has the layout; K10 is the device inverse).
+    A packer that does not build raises: nothing falls back."""
+    lib = wirepack_library()
+    arr = np.ascontiguousarray(arr, dtype=np.uint16)
+    width = arr.shape[-1]
+    n_rows = arr.size // max(width, 1)
+    bpr = (width + 31) // 32
+    widths = np.empty(n_rows * bpr, np.uint8)
+    # Worst case: every block at 17 bits a sample over 32 slots (edge
+    # blocks take whole slots), 17 words a block.
+    cap = n_rows * bpr * 17 + 2
+    words = np.empty(cap, np.uint32)
+    n = lib.wirepack_pack16(arr.ctypes.data, n_rows, width,
+                            widths.ctypes.data, words.ctypes.data, cap)
+    if n < 0:
+        raise RuntimeError("wirepack_pack16: capacity underestimated")
+    return words[:n].copy(), widths
 
 
 def jp2k_t1_decode(data: bytes, w: int, h: int, npasses: int, msbs: int,

@@ -33,7 +33,7 @@ from typing import Union
 import numpy as np
 import torch
 
-from ..io.staging import stage
+from ..io.staging import pinned_copy
 from ..models.mask import Mask
 
 
@@ -165,7 +165,8 @@ def rasterize_packed_batch(packed: np.ndarray, width: int, height: int,
     """
     if (flip_horizontal or flip_vertical) and (width == 0 or height == 0):
         raise ValueError("Attempted to flip image with 0 size")
-    packed_t = stage(np.ascontiguousarray(packed, dtype=np.uint8), device)
+    packed_t = pinned_copy(np.ascontiguousarray(packed, dtype=np.uint8),
+                           device)
     grids = rasterize_tensor(packed_t, width, height, flip_horizontal,
                              flip_vertical)
     return grids.cpu().numpy()
@@ -201,7 +202,7 @@ def overlay_masks_device(base_rgba: np.ndarray, mask_grids: np.ndarray,
     output): the three inputs cross through pinned buffers, K8b blends,
     the result comes back."""
     out = overlay_tensor(
-        stage(np.ascontiguousarray(base_rgba, dtype=np.uint8), device),
-        stage(np.ascontiguousarray(mask_grids, dtype=np.uint8), device),
-        stage(np.ascontiguousarray(fills, dtype=np.uint8), device))
+        pinned_copy(np.ascontiguousarray(base_rgba, dtype=np.uint8), device),
+        pinned_copy(np.ascontiguousarray(mask_grids, dtype=np.uint8), device),
+        pinned_copy(np.ascontiguousarray(fills, dtype=np.uint8), device))
     return out.cpu().numpy()

@@ -44,7 +44,7 @@ from typing import Callable, Sequence, Union
 import numpy as np
 import torch
 
-from ..io.staging import stage
+from ..io.staging import pinned_copy
 from ..models.rendering import Projection
 
 
@@ -162,7 +162,7 @@ def _synchronized(t: torch.Tensor) -> torch.Tensor:
 
 def _to_device(plane: np.ndarray, device) -> torch.Tensor:
     """A host-folded f32 plane on ``device`` (pinned staging)."""
-    return _synchronized(stage(np.ascontiguousarray(plane, np.float32),
+    return _synchronized(pinned_copy(np.ascontiguousarray(plane, np.float32),
                                torch.device(device)))
 
 

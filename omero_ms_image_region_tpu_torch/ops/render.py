@@ -31,7 +31,7 @@ from typing import Dict, Union
 import numpy as np
 import torch
 
-from ..io.staging import stage
+from ..io.staging import pinned_copy
 from ..models.rendering import RenderingDef, RenderingModel
 from .quantum import quantize_float
 
@@ -55,14 +55,14 @@ def resolve_device(device: Union[str, torch.device] = "cuda"
 def raw_to_tensor(raw: np.ndarray, device: Union[str, torch.device]
                   ) -> torch.Tensor:
     """Raw planes (numpy, storage dtype) -> a tensor on ``device``, staged
-    through a pinned buffer (``io.staging.stage``).
+    through a pinned buffer (``io.staging.pinned_copy``).
 
     uint8 / uint16 / float32 keep their storage type (the kernels widen in
     registers, so u16 moves half the bytes of f32); uint16 crosses as an
     int16 view.  Any other pixel type is cast to float32 on the host, the
     same value the JAX package's on-device cast gives.
     """
-    return stage(np.asarray(raw), device)
+    return pinned_copy(np.asarray(raw), device)
 
 
 # ----------------------------------------------------------- settings (host)

@@ -5,6 +5,18 @@ Reads the JAX package's YAML (``conf/config.example.yaml``; see
 file.  SIGTERM or SIGINT runs the shutdown chain (``server.shutdown``: the
 warm-state snapshot with ``persistence`` on, then the flight-recorder dump)
 before the services close.
+
+``--role`` (``sidecar.role``; JAX ``server/app.py:2640-2720``):
+
+* ``combined`` (the default): one process, HTTP and the card;
+* ``sidecar``: the card only, serving renders on ``--sidecar-socket`` (a
+  unix path or ``host:port``), no HTTP listener (``server.sidecar``);
+* ``frontend``: HTTP only, renders over the sidecar wire to
+  ``--sidecar-socket``; it never touches the card;
+* ``split``: spawn a ``sidecar`` child (with this command's ``--config``,
+  ``--data-dir``, ``--lut-root`` and ``--device``), kept alive by the
+  supervisor (``fault-tolerance.supervise``, on by default), then serve
+  as its frontend.
 """
 
 from __future__ import annotations
@@ -14,6 +26,12 @@ import argparse
 
 def parse_args(argv=None):
     """The config the command line describes, and the device."""
+    config, device, _ = _parse(argv)
+    return config, device
+
+
+def _parse(argv=None):
+    """The config, the device and the parsed flags."""
     from .config import AppConfig
 
     parser = argparse.ArgumentParser(
@@ -30,6 +48,14 @@ def parse_args(argv=None):
     parser.add_argument("--request-deadline-ms", type=float,
                         help="time budget of a render request; a request "
                              "over it gets a 504 (0: unbounded)")
+    parser.add_argument("--role",
+                        choices=["combined", "frontend", "sidecar", "split"],
+                        help="process role of the frontend/sidecar split "
+                             "(sidecar.role in the config)")
+    parser.add_argument("--sidecar-socket",
+                        help="the sidecar's address: a unix socket path, or "
+                             "host:port for TCP (a private interface: the "
+                             "protocol is unauthenticated)")
     args = parser.parse_args(argv)
     config = (AppConfig.from_yaml(args.config) if args.config
               else AppConfig())
@@ -41,15 +67,54 @@ def parse_args(argv=None):
         config.lut_root = args.lut_root
     if args.request_deadline_ms is not None:
         config.fault_tolerance.request_deadline_ms = args.request_deadline_ms
-    return config, args.device
+    if args.sidecar_socket is not None:
+        config.sidecar.socket = args.sidecar_socket
+    if args.role is not None:
+        config.sidecar.role = args.role
+    if config.sidecar.role != "combined" and not config.sidecar.socket:
+        parser.error(f"--role {config.sidecar.role} requires "
+                     f"--sidecar-socket")
+    return config, args.device, args
 
 
 def main(argv=None) -> None:
     from .app import configure_logging, create_app, run_app
 
-    config, device = parse_args(argv)
+    config, device, args = _parse(argv)
     configure_logging(config)
-    run_app(create_app(config, device), config)
+    if config.sidecar.role == "sidecar":
+        from .sidecar import sidecar_main
+        sidecar_main(config, device)
+        return
+    supervisor = child = None
+    if config.sidecar.role == "split":
+        extra = ["--device", device]
+        for flag, value in (("--data-dir", args.data_dir),
+                            ("--lut-root", args.lut_root)):
+            if value is not None:
+                extra += [flag, value]
+        if config.fault_tolerance.supervise:
+            from .sidecar import SidecarSupervisor
+            supervisor = SidecarSupervisor.for_config(
+                args.config, config.sidecar.socket, extra_args=extra,
+                max_backoff_s=config.fault_tolerance.supervisor_max_backoff_s)
+            supervisor.start()
+        else:
+            from .sidecar import spawn_sidecar
+            child = spawn_sidecar(args.config, config.sidecar.socket,
+                                  extra_args=extra)
+        config.sidecar.role = "frontend"
+    try:
+        run_app(create_app(config, device), config)
+    finally:
+        if supervisor is not None:
+            supervisor.stop()
+        if child is not None:
+            child.terminate()
+            try:
+                child.wait(timeout=15)
+            except Exception:
+                child.kill()
 
 
 if __name__ == "__main__":

@@ -132,12 +132,29 @@ there) has it:
   startup (``utils.linkprobe``) and, in the batched posture, keeps the
   choice live (``utils.adaptive``, fed by the wire fetches).
 * **Status mapping** (``server.errors``).
+* **Chunked responses** (``wire.streaming``, on by default, as in the JAX
+  app, ``:1162-1238``): a render 200 leaves as an HTTP chunked response.
+  Its first chunk is awaited before the headers, so a failure before the
+  body keeps its status; the ``http.firstByte`` span ends when the first
+  chunk is written.  ``wire.streaming: false`` gives the one body with a
+  ``Content-Length``.  The bytes are the same either way.
+* **The frontend role** (``sidecar.role: frontend`` with ``sidecar.socket``;
+  JAX ``:409-566``): the app builds no device services and never touches
+  the card.  Renders and masks go over the sidecar wire
+  (``server.sidecar``: the breaker and op-aware retries of
+  ``fault-tolerance``, the chunk frames forwarded as they arrive), and with
+  ``fault-tolerance.degraded-mode`` a dead sidecar's renders come from the
+  frontend's CPU (``server.degraded``), counted and marked ``degraded``.
+  As in the JAX frontend: a 304 answers on the ETag alone, a HEAD runs the
+  request, there is no ``Last-Modified``, the overlay, animation and
+  pyramid routes answer 404, ``/readyz`` pings the sidecar, ``/metrics``
+  and ``/debug/flightrecorder`` merge the sidecar's, ``/debug/sentinel``
+  its view, and ``/debug/profile``, ``/debug/warmstate`` and the explain
+  plane's residency are the sidecar's.
 
 :class:`Front` holds all of it without aiohttp, so a caller can drive the
 route without a socket; :func:`create_app` puts it behind aiohttp, which is
-imported there.  Left out: the chunked first-tile-out response body of the
-JAX app (``wire.streaming``): the port answers with the same bytes in one
-body (ROADMAP Queue 1); and on the mask route the federated peer fetch,
+imported there.  Left out: on the mask route the federated peer fetch,
 which comes with the fleet.
 """
 
@@ -475,32 +492,54 @@ def _json(status: int, doc: dict, **headers) -> Answer:
 class Front:
     """The default app's routes without a socket: session, header layer,
     conditional answers, the handlers, status mapping and request
-    accounting."""
+    accounting.
 
-    def __init__(self, config: AppConfig, handler: ImageRegionHandler,
-                 db=None):
+    A frontend (proxy mode) passes the ``server.sidecar`` handlers, the
+    mask one as ``mask_handler``, and its ``client``: it then has no
+    services (:attr:`services` None)."""
+
+    def __init__(self, config: AppConfig, handler, db=None,
+                 mask_handler=None, client=None):
         self.config = config
         self.handler = handler
+        self.client = client
+        self.services: Optional[ImageRegionServices] = getattr(
+            handler, "s", None)
         self.session_store = make_session_store(config, db)
         wl = config.workloads
-        self.mask_handler = ShapeMaskHandler(handler.s, wl.device_masks)
-        self.workloads = WorkloadsHandler(handler, self.mask_handler,
-                                          wl.animation_max_frames)
+        self.workloads: Optional[WorkloadsHandler] = None
+        if self.services is not None:
+            self.mask_handler = ShapeMaskHandler(self.services,
+                                                 wl.device_masks)
+            self.workloads = WorkloadsHandler(handler, self.mask_handler,
+                                              wl.animation_max_frames)
+        else:
+            self.mask_handler = mask_handler
         hc = config.http_cache
         if hc.enabled and hc.epoch == httpcache.EPOCH_AUTO:
             # Derived once at startup from the data tree's source stamps.
             hc.epoch = httpcache.derive_epoch(config.data_dir)
+            if hc.epoch == "0" and self.services is None:
+                # A frontend is where the ETags are made: an epoch that
+                # never moves would keep edge caches confirming stale
+                # renders.
+                raise ValueError(
+                    "http-cache.epoch: auto found no ingest stamps under "
+                    f"data-dir {config.data_dir!r}; a frontend has no "
+                    "source tree of its own: set an explicit epoch (or "
+                    "mount the data tree)")
             if hc.epoch == "0":
                 log.warning("http-cache.epoch: auto derived '0' (no "
                             "ingest stamps under %r)", config.data_dir)
         self.session_required = session_required(config)
         py = config.pyramid
         self.jobs: Optional[PyramidJobManager] = (PyramidJobManager(
-            pixels_service=handler.s.pixels_service,
+            pixels_service=self.services.pixels_service,
             chunk=(py.chunk, py.chunk), min_level_size=py.min_level_size,
             compressor=None if py.compressor == "none" else py.compressor,
-            device=handler.s.renderer.device,
-            defer_poll_s=py.defer_poll_s) if py.enabled else None)
+            device=self.services.renderer.device,
+            defer_poll_s=py.defer_poll_s)
+            if py.enabled and self.services is not None else None)
         self._forensics()
 
     def _forensics(self) -> None:
@@ -533,7 +572,7 @@ class Front:
             ring_size=config.decisions.ring_size,
             spool_dir=config.decisions.spool_dir or None,
             outcome_horizon_ticks=config.decisions.outcome_horizon_ticks)
-        services = self.handler.s
+        services = self.services
         self.governor: Optional[pressure_mod.PressureGovernor] = None
         if config.pressure.enabled:
             pressure_mod.apply_cgroup_rss_defaults(config.pressure)
@@ -610,7 +649,12 @@ class Front:
 
     async def can_read(self, object_type: str, object_id: int,
                        session_key: Optional[str]) -> bool:
-        """The read ACL of an ``Image`` or a ``Mask``; False on error."""
+        """The read ACL of an ``Image`` or a ``Mask``; False on error.  A
+        frontend cannot check and says True: its 304 rests on the ETag,
+        which derives from the URL and the epoch, never from pixels (the
+        sidecar's ACL still gates every byte)."""
+        if self.services is None:
+            return True
         try:
             if object_type == "Mask":
                 return await self.mask_handler.can_read(object_id,
@@ -624,6 +668,10 @@ class Front:
         anonymously)?  Errs toward private."""
         if not self.config.http_cache.vary_acl:
             return True
+        if self.services is None:
+            # A frontend cannot probe: enforced sessions make everything
+            # private.
+            return self.session_required
         return not await self.can_read(object_type, object_id, None)
 
     async def cache_headers(self, headers: dict, identity: str,
@@ -649,9 +697,9 @@ class Front:
     async def source_mtime(self, image_id: int) -> Optional[float]:
         """The image's source mtime for ``Last-Modified`` (the memo's
         inline hit, else one thread hop)."""
-        if not self.config.http_cache.enabled:
+        if not self.config.http_cache.enabled or self.services is None:
             return None
-        metadata = self.handler.s.metadata
+        metadata = self.services.metadata
         if not hasattr(metadata, "source_mtime"):
             return None          # the OMERO database has no source stamp
         hit, value = metadata.source_mtime_cached(image_id)
@@ -676,18 +724,26 @@ class Front:
                      out: dict, identity: str, object_type: str,
                      object_id: int, session_key: Optional[str],
                      produce: Callable[[], Awaitable[bytes]],
-                     mtime: Optional[float] = None, ctx=None) -> Answer:
+                     mtime: Optional[float] = None, ctx=None,
+                     stream: Optional[Callable[[], AsyncIterator[bytes]]]
+                     = None) -> Answer:
         """The header layer around one render: ETag, Cache-Control and
         Vary from ``identity`` (and ``Last-Modified`` from ``mtime``);
         the 304 or headers-only answer (:func:`conditional_answer`) for a
         caller that may read the object, in the ``304`` provenance tier;
         else ``produce()``'s body, an unreadable object getting its 404
-        there.  ``ctx`` carries the provenance marks."""
+        there.  With ``stream`` (the chunked response), the body is its
+        chunks: the first awaited here, so its failure keeps its status.
+        ``ctx`` carries the provenance marks."""
         etag = await self.cache_headers(out, identity, object_type,
                                         object_id)
         if mtime is not None:
             out["Last-Modified"] = httpcache.http_date(mtime)
         status = conditional_answer(headers, method, etag, mtime)
+        if status == 200 and self.services is None:
+            # A frontend cannot tell a deleted image from a readable one:
+            # its HEAD runs the request (aiohttp drops the body).
+            status = None
         if status is not None and await self.can_read(
                 object_type, object_id, session_key):
             if status == 304:
@@ -698,20 +754,66 @@ class Front:
                 provenance.mark(ctx, tier="304")
             self.stamp_provenance(ctx, out)
             return Answer(status, out, prov_ctx=ctx)
+        if stream is not None:
+            return await self._streamed(out, ctx, stream())
         try:
             body = await produce()
         except Exception as e:
             answer = self.status_of(e)
             answer.prov_ctx = ctx
             return answer
+        self._strip_if_capped(ctx, out)
+        self.stamp_provenance(ctx, out)
+        return Answer(200, out, body, prov_ctx=ctx)
+
+    @staticmethod
+    def _strip_if_capped(ctx, out: dict) -> None:
+        """Capped bytes are never edge-cached under the full-quality
+        identity: no ETag, no Vary, no-store."""
         if getattr(ctx, "_pressure_quality_capped", False):
-            # Capped bytes are never edge-cached under the full-quality
-            # identity: no ETag, no Vary, no-store.
             out.pop("ETag", None)
             out.pop("Vary", None)
             out["Cache-Control"] = "no-store"
-        self.stamp_provenance(ctx, out)
-        return Answer(200, out, body, prov_ctx=ctx)
+
+    async def _streamed(self, out: dict, ctx,
+                        chunks: AsyncIterator[bytes]) -> Answer:
+        """A chunked 200 of ``chunks`` (JAX ``:1162-1238``): the first
+        chunk awaited before the headers; ``http.firstByte`` from the
+        request's start to the first chunk's write."""
+        trace_id = telemetry.current_trace_id()
+        t_req = (telemetry.TRACES.get_or_create(trace_id).t0
+                 if trace_id else None)
+        try:
+            first = await chunks.__anext__()
+        except StopAsyncIteration:
+            first = b""
+        except Exception as e:
+            await chunks.aclose()
+            answer = self.status_of(e)
+            answer.prov_ctx = ctx
+            return answer
+        # In one process the whole body is settled before its first chunk,
+        # so the cap and the marks are known here; a frontend learns the
+        # sidecar's marks from the fin frame, after the headers left, and
+        # sends no provenance header rather than half a record (its access
+        # line and counters, made at the end, are whole).
+        self._strip_if_capped(ctx, out)
+        if self.services is not None:
+            self.stamp_provenance(ctx, out)
+
+        async def body() -> AsyncIterator[bytes]:
+            try:
+                if first:
+                    yield first
+                if t_req is not None:
+                    telemetry.record_span(
+                        "http.firstByte", t_req,
+                        (time.perf_counter() - t_req) * 1000.0)
+                async for chunk in chunks:
+                    yield chunk
+            finally:
+                await chunks.aclose()
+        return Answer(200, out, stream=body(), prov_ctx=ctx)
 
     async def _session(self, cookies: Mapping[str, str]):
         """(session key, None), or (None, the 403) when a session is
@@ -737,10 +839,15 @@ class Front:
         mtime = httpcache.last_modified_basis(
             await self.source_mtime(ctx.image_id),
             self.config.http_cache.epoch)
+        stream = None
+        if self.config.wire.streaming:
+            stream = lambda: self.handler.render_image_region_stream(  # noqa
+                ctx)
         return await self.answer(
             method, headers, out, ctx.cache_key, "Image", ctx.image_id,
             ctx.omero_session_key,
-            lambda: self.handler.render_image_region(ctx), mtime, ctx=ctx)
+            lambda: self.handler.render_image_region(ctx), mtime, ctx=ctx,
+            stream=stream)
 
     async def render_mask(self, method: str, params: dict,
                           headers: Mapping[str, str],
@@ -759,11 +866,14 @@ class Front:
                     f"{int(ctx.flip_vertical)}")
 
         async def produce() -> bytes:
+            s = self.services
+            if s is None:
+                # A frontend: the sidecar's caches and admission.
+                return await self.mask_handler.render_shape_mask(ctx)
             # After the renderless answers, as in the JAX app: the session
             # stays live in the viewport model (no pan vote), and the mask
             # draws its session's fairness token (kept on a 404 or 400,
             # so scraping missing ids is metered too).
-            s = self.handler.s
             tracker = getattr(s.prefetcher, "viewport", None)
             if tracker is not None and ctx.omero_session_key:
                 tracker.observe_activity(ctx.omero_session_key)
@@ -785,7 +895,8 @@ class Front:
         order is paint order), ``color=`` overrides the fills, the base
         is forced to PNG.  The ETag identity folds the base's cache key
         with the shapes and the colour."""
-        if not self.config.workloads.overlay_enabled:
+        if self.workloads is None \
+                or not self.config.workloads.overlay_enabled:
             return Answer(404)
         params = dict(params)
         shapes_raw = params.pop("shapes", "")
@@ -824,7 +935,8 @@ class Front:
         frame is awaited before the headers, so a failure before the body
         keeps its status; the rest follow as :attr:`Answer.stream`.  Never
         edge-cached."""
-        if not self.config.workloads.animation_enabled:
+        if self.workloads is None \
+                or not self.config.workloads.animation_enabled:
             return Answer(404)
         params = dict(params)
         axis = (params.pop("axis", "t") or "t").lower()
@@ -1046,21 +1158,61 @@ class Front:
         browned-out instance is still serving.  The JAX app's fleet and
         federation annotations come with the fleet."""
         checks: dict = {}
-        ok = True
-        if self.handler.s.warmstate is not None:
+        if self.services.warmstate is not None:
             checks["rehydrate"] = telemetry.PERSIST.rehydrate_summary()
         readiness = telemetry.READINESS
-        if readiness.prewarm_failed:
+        renderer = self.services.renderer
+        return self._ready_checks(
+            checks, readiness.prewarm_failed, readiness.prewarm_pending,
+            renderer.queue_depth() if hasattr(renderer, "queue_depth")
+            else 0)
+
+    async def readiness(self) -> Tuple[bool, dict]:
+        """``/readyz``: :meth:`ready`, or in a frontend the same checks
+        from the sidecar's ``ping`` (2 s at most), and ``sidecar``: ``ok``
+        or ``unreachable`` (unready, unless degraded mode serves:
+        ``degraded-mode: active``), and ``breaker: open`` while it is."""
+        if self.services is not None:
+            return self.ready()
+        checks: dict = {}
+        breaker = self.client.breaker
+        if breaker is not None and breaker.state == breaker.OPEN:
+            checks["breaker"] = "open"
+        try:
+            status, body = await asyncio.wait_for(
+                self.client.call("ping", {}), timeout=2.0)
+            info = (json.loads(bytes(body).decode())
+                    if status == 200 and body else {})
+        except Exception:
+            status, info = None, None
+        if info is None:
+            checks["sidecar"] = "unreachable"
+            if getattr(self.handler, "fallback", None) is not None:
+                # Degraded mode serves: a load balancer keeps routing here.
+                checks["degraded-mode"] = "active"
+                return True, checks
+            return False, checks
+        checks["sidecar"] = ("ok" if status == 200 and info.get("ok")
+                             else f"status {status}")
+        if info.get("rehydrate") is not None:
+            checks["rehydrate"] = str(info["rehydrate"])
+        ok, checks = self._ready_checks(
+            checks, info.get("prewarm_failed"),
+            bool(info.get("prewarm_pending")),
+            int(info.get("queue_depth", 0)))
+        return ok and checks["sidecar"] == "ok", checks
+
+    def _ready_checks(self, checks: dict, prewarm_failed, prewarm_pending,
+                      depth: int) -> Tuple[bool, dict]:
+        ok = True
+        if prewarm_failed:
             ok = False
-            checks["prewarm"] = f"failed: {readiness.prewarm_failed}"
-        elif readiness.prewarm_pending:
+            checks["prewarm"] = f"failed: {prewarm_failed}"
+        elif prewarm_pending:
             ok = False
             checks["prewarm"] = "pending"
         else:
             checks["prewarm"] = "complete"
-        renderer = self.handler.s.renderer
-        depth = (renderer.queue_depth() if hasattr(renderer, "queue_depth")
-                 else 0)
         max_depth = self.config.telemetry.ready_max_queue_depth
         if depth > max_depth:
             ok = False
@@ -1076,11 +1228,30 @@ class Front:
             checks["pressure"] = self.governor.summary()
         return ok, checks
 
+    async def sidecar_doc(self, op: str, timeout_s: float = 2.0,
+                          **extra) -> Optional[dict]:
+        """A frontend's JSON answer of the sidecar's ``op`` (None when it
+        does not answer 200 in ``timeout_s``)."""
+        try:
+            status, body = await asyncio.wait_for(
+                self.client.call(op, {}, extra=extra or None), timeout_s)
+            return (json.loads(bytes(body).decode())
+                    if status == 200 and body else None)
+        except Exception:
+            return None
+
     async def warmstate_doc(self, snapshot: bool = False) -> dict:
         """``GET /debug/warmstate``: whether persistence is on, the
         rehydrate's state and the snapshot counts; ``snapshot`` also
-        writes the manifest now (``snapshot_path``: its path, or None)."""
-        warmstate = self.handler.s.warmstate
+        writes the manifest now (``snapshot_path``: its path, or None).
+        A frontend relays the sidecar's (``{"error": ...}`` when it does
+        not answer)."""
+        if self.services is None:
+            doc = await self.sidecar_doc(
+                "warmstate", 10.0, **({"snapshot": 1} if snapshot else {}))
+            return doc if doc is not None else {
+                "error": "the sidecar did not answer the warmstate op"}
+        warmstate = self.services.warmstate
         doc = {"enabled": warmstate is not None,
                "rehydrate": telemetry.PERSIST.rehydrate_summary(),
                "snapshots": telemetry.PERSIST.snapshots,
@@ -1090,31 +1261,43 @@ class Front:
                 warmstate.snapshot_now)
         return doc
 
-    def flight_doc(self, dump: bool = False) -> dict:
+    def flight_doc(self, dump: bool = False,
+                   sidecar: Optional[dict] = None) -> dict:
         """``GET /debug/flightrecorder``: the ring and its counts; ``dump``
         also writes it to ``telemetry.flight-recorder-dir``
-        (``dumped_to``: the file, or None)."""
+        (``dumped_to``: the file, or None).  A frontend passes its
+        sidecar's ring (``sidecar``, JAX ``:1754-1803``)."""
         flight = telemetry.FLIGHT
         doc = {"events": flight.snapshot(),
                "events_total": flight.events_total,
                "dumps_written": flight.dumps_written}
+        if self.services is None:
+            doc["sidecar"] = sidecar
         if dump:
             doc["dumped_to"] = flight.dump(
                 self.config.telemetry.flight_recorder_dir, "manual")
         return doc
 
-    def metrics_text(self, openmetrics: bool = False) -> str:
+    def metrics_text(self, openmetrics: bool = False,
+                     sidecar_lines=None) -> str:
         """The ``/metrics`` body: the Prometheus text exposition, or with
         ``openmetrics`` the strict OpenMetrics one, whose request-duration
-        buckets carry their exemplars and which ends ``# EOF``."""
-        text = telemetry.finalize_exposition(
-            telemetry.request_metric_lines(exemplars=openmetrics)
-            + span_lines()
-            + telemetry.cost_metric_lines()
-            + telemetry.resilience_metric_lines()
-            + telemetry.session_metric_lines()
-            + telemetry.device_metric_lines(self.handler.s),
-            openmetrics=openmetrics)
+        buckets carry their exemplars and which ends ``# EOF``.  A
+        frontend has the breaker's gauges and passes its sidecar's series
+        (``sidecar_lines``, labelled ``process="sidecar"``; None: the
+        sidecar did not answer, a comment says so), JAX ``:1689-1718``."""
+        lines = (telemetry.request_metric_lines(exemplars=openmetrics)
+                 + span_lines() + telemetry.cost_metric_lines()
+                 + telemetry.resilience_metric_lines(
+                     breaker=getattr(self.client, "breaker", None))
+                 + telemetry.session_metric_lines())
+        if self.services is not None:
+            lines += telemetry.device_metric_lines(self.services)
+        elif sidecar_lines is None:
+            lines.append("# sidecar metrics unavailable")
+        else:
+            lines += sidecar_lines
+        text = telemetry.finalize_exposition(lines, openmetrics=openmetrics)
         return text + "# EOF\n" if openmetrics else text
 
     def costs_doc(self) -> dict:
@@ -1139,15 +1322,23 @@ class Front:
         exemplars)."""
         return {"request_duration_ms": telemetry.exemplars_snapshot()}
 
-    def sentinel_doc(self) -> dict:
+    def sentinel_doc(self, sidecar: Optional[dict] = None) -> dict:
         """``GET /debug/sentinel``: this process's view, live (not the last
-        tick's)."""
+        tick's); a frontend passes its sidecar's (``sidecar``, the
+        ``sentinel`` op's answer), whose summary joins as member
+        ``sidecar``."""
         doc = telemetry.SENTINEL.merged()
         if self.sentinel is not None:
             local = self.sentinel.summary()
             doc["members"][str(local.get("member") or "local")] = {
                 "age_s": 0.0, "summary": local}
             if local.get("verdict") == "drifting":
+                doc["verdict"] = "drifting"
+        summary = (sidecar or {}).get("local") or {}
+        if summary:
+            doc["members"].setdefault("sidecar", {"age_s": 0.0,
+                                                  "summary": summary})
+            if summary.get("verdict") == "drifting":
                 doc["verdict"] = "drifting"
         doc["drifting_members"] = sorted(
             name for name, row in doc["members"].items()
@@ -1165,6 +1356,17 @@ class Front:
             return Answer(400, {"Content-Type": "text/plain; charset=utf-8"},
                           b"ms must be a number")
         ms = max(1.0, min(ms, self.config.telemetry.profile_max_ms))
+        if self.services is None:
+            # The capture runs in the process that owns the card.
+            try:
+                resp_header, body = await self.client.call_full(
+                    "profile", {}, extra={"ms": ms})
+            except Exception as e:
+                return self.status_of(e)
+            if resp_header["status"] == 200:
+                return _json(200, json.loads(bytes(body).decode()))
+            return _json(resp_header["status"],
+                         {"error": resp_header.get("error", "")})
         try:
             doc = await asyncio.to_thread(
                 telemetry.capture_profile,
@@ -1184,8 +1386,9 @@ class Front:
                                         "query, server-relative)"})
         try:
             doc = await explain.explain(
-                path, self.config, services=self.handler.s,
-                admission=self.handler.s.admission, jobs=self.jobs)
+                path, self.config, services=self.services,
+                admission=getattr(self.services, "admission", None),
+                jobs=self.jobs, proxy_client=self.client)
         except BadRequestError as e:
             return _json(400, {"error": str(e)})
         except Exception:
@@ -1224,6 +1427,52 @@ def configure_logging(config: AppConfig) -> None:
         root.addHandler(h)
 
 
+def sidecar_client(config: AppConfig):
+    """A frontend's ``server.sidecar.SidecarClient`` to
+    ``sidecar.socket``, with the config's breaker, retry policy and wire
+    knobs."""
+    from ..utils.transient import CircuitBreaker, RetryPolicy
+    from .sidecar import SidecarClient
+
+    ft = config.fault_tolerance
+    return SidecarClient(
+        config.sidecar.socket,
+        breaker=CircuitBreaker(failure_threshold=ft.breaker_failure_threshold,
+                               reset_after_s=ft.breaker_reset_s),
+        retry=RetryPolicy(max_attempts=ft.retry_max_attempts,
+                          base_backoff_s=ft.retry_base_backoff_ms / 1000.0,
+                          max_backoff_s=ft.retry_max_backoff_ms / 1000.0),
+        wire=config.wire)
+
+
+def build_front(config: AppConfig,
+                device: Union[str, torch.device] = "cuda",
+                handler: Optional[ImageRegionHandler] = None,
+                db=None) -> Front:
+    """The :class:`Front` a config describes: with ``sidecar.role:
+    frontend`` (and no ``handler``), a frontend over the sidecar wire,
+    which builds nothing on the card (the degraded CPU handler behind it
+    with ``fault-tolerance.degraded-mode``); else the combined app over
+    ``handler`` or the services :func:`build_services` makes."""
+    if handler is None and config.sidecar.role == "frontend":
+        from .sidecar import SidecarImageHandler, SidecarMaskHandler
+
+        if config.fault_injection.seed is not None:
+            faultinject.install(config.fault_injection)
+        telemetry.FLIGHT.configure(config.telemetry.flight_recorder_events)
+        client = sidecar_client(config)
+        fallback = None
+        if config.fault_tolerance.degraded_mode:
+            from .degraded import DegradedCpuHandler
+            fallback = DegradedCpuHandler(config)
+        return Front(config, SidecarImageHandler(client, fallback), db=db,
+                     mask_handler=SidecarMaskHandler(client, fallback),
+                     client=client)
+    handler = handler or ImageRegionHandler(build_services(config, device,
+                                                           db=db))
+    return Front(config, handler, db=db)
+
+
 def create_app(config: Optional[AppConfig] = None,
                device: Union[str, torch.device] = "cuda",
                handler: Optional[ImageRegionHandler] = None, db=None):
@@ -1237,7 +1486,9 @@ def create_app(config: Optional[AppConfig] = None,
     (degrading to the local service with a warning without ``asyncpg``, as
     the JAX app does), and starts the watchdog and the pyramid job runner;
     cleanup stops them, closes the prefetcher, the database pool, the
-    handler's renderer and the byte caches' Redis client."""
+    handler's renderer and the byte caches' Redis client.  A frontend
+    (:func:`build_front`) watches its sidecar wire and closes its client
+    instead."""
     import concurrent.futures as cf
 
     from aiohttp import web
@@ -1246,9 +1497,8 @@ def create_app(config: Optional[AppConfig] = None,
     for name in config.unserved:
         log.warning("%s is switched on, but the port does not serve it",
                     name)
-    handler = handler or ImageRegionHandler(build_services(config, device,
-                                                          db=db))
-    front = Front(config, handler, db=db)
+    front = build_front(config, device, handler, db)
+    services, client = front.services, front.client
     watchdog: Optional[Watchdog] = None
     if config.watchdog.enabled:
         def escalate(event: dict) -> None:
@@ -1257,9 +1507,11 @@ def create_app(config: Optional[AppConfig] = None,
             log.error("watchdog escalation: %s on %s", event.get("action"),
                       event.get("target"))
 
-        watchdog = build_watchdog(config.watchdog,
-                                  renderer=handler.s.renderer,
-                                  escalate_cb=escalate)
+        watchdog = build_watchdog(
+            config.watchdog,
+            renderer=services.renderer if services is not None else None,
+            clients=[client] if client is not None else [],
+            escalate_cb=escalate)
 
     def to_response(answer: Answer) -> web.Response:
         return web.Response(status=answer.status, headers=answer.headers,
@@ -1298,19 +1550,33 @@ def create_app(config: Optional[AppConfig] = None,
         return serve
 
     async def metrics(request: web.Request) -> web.Response:
+        sidecar_lines = None
+        if client is not None:
+            # The sidecar's series, best effort: a dead sidecar must not
+            # hang the scrape.
+            try:
+                status, body = await asyncio.wait_for(
+                    client.call("metrics", {}), timeout=2.0)
+                if status == 200 and body:
+                    sidecar_lines = bytes(body).decode().splitlines()
+            except Exception:
+                pass
         # Exemplars ride only a scrape that asked for OpenMetrics: the
         # plain text parser refuses their syntax.
         if "application/openmetrics-text" in request.headers.get("Accept",
                                                                   ""):
-            return web.Response(text=front.metrics_text(openmetrics=True),
-                                content_type="application/openmetrics-text")
-        return web.Response(text=front.metrics_text(),
+            return web.Response(
+                text=front.metrics_text(True, sidecar_lines),
+                content_type="application/openmetrics-text")
+        return web.Response(text=front.metrics_text(False, sidecar_lines),
                             content_type="text/plain")
 
     async def details(request: web.Request) -> web.Response:
         doc = {"provider": PROVIDER, "version": __version__,
                "features": FEATURES,
-               "options": {"maxTileLength": handler.s.max_tile_length}}
+               "options": {"maxTileLength": (
+                   services.max_tile_length if services is not None
+                   else config.max_tile_length)}}
         if config.cache_control_header:
             doc["options"]["cacheControl"] = config.cache_control_header
         return web.json_response(doc)
@@ -1332,8 +1598,10 @@ def create_app(config: Optional[AppConfig] = None,
             bool(request.query.get("snapshot"))))
 
     async def debug_flightrecorder(request: web.Request) -> web.Response:
+        sidecar = (await front.sidecar_doc("flightrecorder")
+                   if client is not None else None)
         return web.json_response(front.flight_doc(
-            bool(request.query.get("dump"))))
+            bool(request.query.get("dump")), sidecar=sidecar))
 
     async def debug_costs(request: web.Request) -> web.Response:
         return web.json_response(front.costs_doc())
@@ -1345,7 +1613,9 @@ def create_app(config: Optional[AppConfig] = None,
         return web.json_response(front.exemplars_doc())
 
     async def debug_sentinel(request: web.Request) -> web.Response:
-        return web.json_response(front.sentinel_doc())
+        sidecar = (await front.sidecar_doc("sentinel")
+                   if client is not None else None)
+        return web.json_response(front.sentinel_doc(sidecar))
 
     async def debug_profile(request: web.Request) -> web.Response:
         return to_response(await front.profile(request.query.get("ms")))
@@ -1356,7 +1626,7 @@ def create_app(config: Optional[AppConfig] = None,
     async def readyz(request: web.Request) -> web.Response:
         """200 only when this process can serve renders now; a 503 names
         what it waits for."""
-        ok, checks = front.ready()
+        ok, checks = await front.readiness()
         return web.json_response(
             {"status": "ready" if ok else "degraded", "checks": checks},
             status=200 if ok else 503)
@@ -1366,12 +1636,12 @@ def create_app(config: Optional[AppConfig] = None,
     owned: list = []        # the database pool this app opened
 
     async def on_startup(app: web.Application) -> None:
-        if (config.metadata_backend == "postgres"
-                and not isinstance(handler.s.metadata, DbMetadataService)):
+        if (services is not None and config.metadata_backend == "postgres"
+                and not isinstance(services.metadata, DbMetadataService)):
             try:
-                handler.s.metadata = await PostgresMetadataService.connect(
+                services.metadata = await PostgresMetadataService.connect(
                     config.metadata_dsn)
-                owned.append(handler.s.metadata)
+                owned.append(services.metadata)
             except ImportError:
                 log.warning("metadata-service.type is 'postgres' but "
                             "asyncpg is unavailable; using the local "
@@ -1394,22 +1664,25 @@ def create_app(config: Optional[AppConfig] = None,
             task.cancel()
         await asyncio.gather(*tasks, return_exceptions=True)
         front.close()
-        warmstate = handler.s.warmstate
-        if warmstate is not None:
-            # Stop the timer and the rehydrate before the stores they read
-            # close under them.
-            await asyncio.to_thread(warmstate.close)
-        if handler.s.prefetcher is not None:
-            handler.s.prefetcher.close()
+        if client is not None:
+            await client.close()
         for resource in owned + [front.session_store]:
             close = getattr(resource, "close", None)
             if close is not None:
                 await close()
-        await handler.s.renderer.close()
+        if services is None:
+            return
+        if services.warmstate is not None:
+            # Stop the timer and the rehydrate before the stores they read
+            # close under them.
+            await asyncio.to_thread(services.warmstate.close)
+        if services.prefetcher is not None:
+            services.prefetcher.close()
+        await services.renderer.close()
         # The disk tier's queued writes, then the one shared Redis client
         # (the memo's too).
-        await handler.s.caches.close()
-        execcache.uninstall(getattr(handler.s.renderer, "exec_cache", None))
+        await services.caches.close()
+        execcache.uninstall(getattr(services.renderer, "exec_cache", None))
 
     app = web.Application()
     app[_front_key()] = front
@@ -1479,7 +1752,7 @@ def run_app(app, config: AppConfig) -> None:
 
     front = app.get(_front_key())
     chain = build_shutdown_chain(
-        config, front.handler.s if front is not None else None)
+        config, front.services if front is not None else None)
 
     async def serve() -> None:
         runner = web.AppRunner(

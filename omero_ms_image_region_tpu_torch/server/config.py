@@ -23,10 +23,20 @@ served settings the same values and the same validation:
   viewport model that steers the prefetcher), ``bucket-refill-per-s``,
   ``bucket-burst``, ``max-tracked`` and ``prefetch-lookahead``;
 * ``batcher``, ``raw-cache`` (``prefetch`` included, on by default as in
-  the JAX package), ``renderer``, ``http-cache``, ``watchdog``,
-  ``fault-tolerance`` and ``fault-injection``, except the keys that belong
-  to a part not ported (the sidecar's breaker and retries, batch growth,
-  XLA's compile cache, ...);
+  the JAX package), ``renderer``, ``http-cache``, ``watchdog`` (with
+  ``wire-hang-s``, the sidecar wire's hang bound), ``fault-tolerance``
+  (the deadline, admission, the sidecar client's breaker and retries,
+  ``degraded-mode`` and the split role's supervisor) and
+  ``fault-injection`` (the lane faults, the wire faults and
+  ``die-after-requests``), except the keys that belong to a part not
+  ported (batch growth, XLA's compile cache, ...);
+* ``sidecar``: ``role`` (``combined``, ``frontend``, ``sidecar`` or
+  ``split``) and ``socket`` (a unix path or ``host:port``; every role but
+  ``combined`` needs one), and ``wire``, the sidecar wire v3's knobs
+  (``coalesce-max-frames``, ``coalesce-max-bytes``, ``ring-bytes``,
+  ``ring-min-body-bytes``, ``streaming``: a render 200 leaves as an HTTP
+  chunked response, on by default, and ``chunk-max-bytes``), with the JAX
+  loader's checks;
 * ``workloads``: ``device-masks`` (masks rasterized in the batcher's mask
   lane on the card; off: on the host), ``overlay-enabled`` and
   ``animation-enabled`` (off: the route answers 404, as the JAX handler
@@ -79,11 +89,9 @@ is what the port does.  Any other value away from the JAX default fails
 the load with a ``ValueError`` that names the setting and says the port
 does not serve it yet.  ``AppConfig.unserved`` would name a section that
 loads but is not served, with a warning at startup; since the byte caches
-are served, no section is.  Settings the JAX package turns on by default
-and the port does not have (``wire.streaming``, ...) wait in ROADMAP Queue
-1.  ``batcher.target-inflight`` stays refused away from 1: the JAX backlog
-split acts only with batch growth (JAX ``server/batcher.py:669``), which
-the port does not have.
+are served, no section is.  ``batcher.target-inflight`` stays refused
+away from 1: the JAX backlog split acts only with batch growth (JAX
+``server/batcher.py:669``), which the port does not have.
 """
 
 from __future__ import annotations
@@ -270,20 +278,67 @@ class HttpCacheConfig:
 
 @dataclass
 class WatchdogConfig:
-    """The stuck-lane watchdog (``server.watchdog``)."""
+    """The stuck-lane and hung-wire watchdog (``server.watchdog``)."""
 
     enabled: bool = True
     interval_s: float = 2.0
     stall_factor: float = 8.0
     stall_min_s: float = 30.0
     escalate_after: int = 2
+    # A sidecar connection with requests in flight and no frame received
+    # for this long is dropped (0: no scan).
+    wire_hang_s: float = 60.0
 
 
 @dataclass
 class FaultToleranceConfig:
     request_deadline_ms: float = 0.0     # 0: no deadline
+    # The sidecar client's breaker: this many consecutive connection
+    # failures open it; after breaker-reset-s one trial call goes through.
+    breaker_failure_threshold: int = 5
+    breaker_reset_s: float = 5.0
+    # The idempotent sidecar ops' attempts and capped backoff.
+    retry_max_attempts: int = 3
+    retry_base_backoff_ms: float = 25.0
+    retry_max_backoff_ms: float = 1000.0
     admission_max_queue: int = 512       # 0: no admission control
     shed_retry_after_s: float = 1.0
+    # A frontend renders on its own CPU (server.degraded) while the
+    # sidecar is unreachable; off: it answers 503.
+    degraded_mode: bool = False
+    # --role split: restart a dead sidecar child with capped backoff.
+    supervise: bool = True
+    supervisor_max_backoff_s: float = 30.0
+
+
+@dataclass
+class SidecarConfig:
+    """The frontend/sidecar process split (``server.sidecar``).
+
+    role: ``combined`` (one process, HTTP and the card; the default),
+    ``frontend`` (HTTP only, renders forwarded to ``socket``), ``sidecar``
+    (the card only, serving renders on ``socket``) or ``split`` (spawn a
+    sidecar child, then serve as a frontend)."""
+
+    socket: Optional[str] = None
+    role: str = "combined"
+
+
+@dataclass
+class WireConfig:
+    """The sidecar wire v3 (``server.sidecar``): frame coalescing bounds,
+    the same-host shared-memory ring and chunked streaming."""
+
+    coalesce_max_frames: int = 64
+    coalesce_max_bytes: int = 1024 * 1024
+    # Bodies of at least ring-min-body-bytes ride a shared-memory ring of
+    # ring-bytes per direction (0: no ring).
+    ring_bytes: int = 32 * 1024 * 1024
+    ring_min_body_bytes: int = 4096
+    # A render 200 leaves as an HTTP chunked response (the sidecar's
+    # chunk frames forwarded as they arrive); off: one body.
+    streaming: bool = True
+    chunk_max_bytes: int = 256 * 1024
 
 
 @dataclass
@@ -330,12 +385,6 @@ class LoggingConfig:
 
 # The JAX defaults of every section the port does not serve, by YAML key.
 _UNPORTED = {
-    "sidecar": {"socket": None, "role": "combined"},
-    "wire": {
-        "coalesce-max-frames": 64, "coalesce-max-bytes": 1048576,
-        "ring-bytes": 33554432, "ring-min-body-bytes": 4096,
-        "streaming": True, "chunk-max-bytes": 262144,
-    },
     "fleet": {
         "enabled": False, "members": 2, "sockets": (), "lane-width": 2,
         "steal-min-backlog": 2, "hash-replicas": 64, "failover": True,
@@ -385,18 +434,9 @@ _UNPORTED_KEYS = {
     "renderer": {"kernel": "xla", "compilation-cache-dir": None},
     "telemetry": {},
     "http-cache": {"peer-fetch": True, "peer-timeout-ms": 500.0},
-    "watchdog": {"wire-hang-s": 60.0},
-    "fault-tolerance": {
-        "breaker-failure-threshold": 5, "breaker-reset-s": 5.0,
-        "retry-max-attempts": 3, "retry-base-backoff-ms": 25.0,
-        "retry-max-backoff-ms": 1000.0, "degraded-mode": False,
-        "supervise": True, "supervisor-max-backoff-s": 30.0,
-    },
-    "fault-injection": {
-        "wire-drop-rate": 0.0, "wire-truncate-rate": 0.0,
-        "wire-delay-rate": 0.0, "wire-delay-ms": 0.0,
-        "die-after-requests": 0,
-    },
+    "watchdog": {},
+    "fault-tolerance": {},
+    "fault-injection": {},
     "omero.server": {},
     "pyramid": {},
     "session-store": {},
@@ -464,6 +504,8 @@ class AppConfig:
     http: HttpConfig = field(default_factory=HttpConfig)
     http_cache: HttpCacheConfig = field(default_factory=HttpCacheConfig)
     watchdog: WatchdogConfig = field(default_factory=WatchdogConfig)
+    sidecar: SidecarConfig = field(default_factory=SidecarConfig)
+    wire: WireConfig = field(default_factory=WireConfig)
     fault_tolerance: FaultToleranceConfig = field(
         default_factory=FaultToleranceConfig)
     fault_injection: FaultInjectionConfig = field(
@@ -556,6 +598,7 @@ class AppConfig:
                                      cfg.raw_cache.digest_dedup)),
             prefetch=bool(rc.get("prefetch", cfg.raw_cache.prefetch)))
         cfg._sessions(_block(raw, "sessions"))
+        cfg._sidecar(_block(raw, "sidecar"), _block(raw, "wire"))
         for name, defaults in _UNPORTED.items():
             block = _block(raw, name)
             if "enabled" in defaults and block.get("enabled") is False:
@@ -642,10 +685,49 @@ class AppConfig:
         if self.batcher.device_lanes < 1:
             raise ValueError("batcher.device-lanes must be >= 1")
 
+    def _sidecar(self, sc: dict, wi: dict) -> None:
+        _check("sidecar", sc, {}, served=("socket", "role"))
+        d = SidecarConfig()
+        self.sidecar = SidecarConfig(socket=sc.get("socket", d.socket),
+                                     role=str(sc.get("role", d.role)))
+        if self.sidecar.role not in ("combined", "frontend", "sidecar",
+                                     "split"):
+            raise ValueError(f"invalid sidecar.role {self.sidecar.role!r}")
+        if self.sidecar.role != "combined" and not self.sidecar.socket:
+            raise ValueError(f"sidecar.role {self.sidecar.role!r} requires "
+                             f"sidecar.socket")
+        _check("wire", wi, {},
+               served=("coalesce-max-frames", "coalesce-max-bytes",
+                       "ring-bytes", "ring-min-body-bytes", "streaming",
+                       "chunk-max-bytes"))
+        w = WireConfig()
+        self.wire = WireConfig(
+            coalesce_max_frames=int(wi.get("coalesce-max-frames",
+                                           w.coalesce_max_frames)),
+            coalesce_max_bytes=int(wi.get("coalesce-max-bytes",
+                                          w.coalesce_max_bytes)),
+            ring_bytes=int(wi.get("ring-bytes", w.ring_bytes)),
+            ring_min_body_bytes=int(wi.get("ring-min-body-bytes",
+                                           w.ring_min_body_bytes)),
+            streaming=bool(wi.get("streaming", w.streaming)),
+            chunk_max_bytes=int(wi.get("chunk-max-bytes",
+                                       w.chunk_max_bytes)))
+        if self.wire.coalesce_max_frames < 1:
+            raise ValueError("wire.coalesce-max-frames must be >= 1")
+        if self.wire.coalesce_max_bytes < 4096:
+            raise ValueError("wire.coalesce-max-bytes must be >= 4096")
+        if self.wire.ring_bytes != 0 and self.wire.ring_bytes < 1024 * 1024:
+            raise ValueError("wire.ring-bytes must be 0 (disabled) or "
+                             ">= 1 MiB")
+        if self.wire.ring_min_body_bytes < 1:
+            raise ValueError("wire.ring-min-body-bytes must be >= 1")
+        if self.wire.chunk_max_bytes < 4096:
+            raise ValueError("wire.chunk-max-bytes must be >= 4096")
+
     def _watchdog(self, wd: dict) -> None:
         _check("watchdog", wd, _UNPORTED_KEYS["watchdog"],
                served=("enabled", "interval-s", "stall-factor",
-                       "stall-min-s", "escalate-after"))
+                       "stall-min-s", "escalate-after", "wire-hang-s"))
         d = WatchdogConfig()
         self.watchdog = WatchdogConfig(
             enabled=bool(wd.get("enabled", d.enabled)),
@@ -653,7 +735,8 @@ class AppConfig:
             stall_factor=float(wd.get("stall-factor", d.stall_factor)),
             stall_min_s=float(wd.get("stall-min-s", d.stall_min_s)),
             escalate_after=int(wd.get("escalate-after",
-                                      d.escalate_after)))
+                                      d.escalate_after)),
+            wire_hang_s=float(wd.get("wire-hang-s", d.wire_hang_s)))
         if self.watchdog.interval_s <= 0:
             raise ValueError("watchdog.interval-s must be > 0")
         if self.watchdog.stall_factor < 1.0:
@@ -662,38 +745,77 @@ class AppConfig:
             raise ValueError("watchdog.stall-min-s must be > 0")
         if self.watchdog.escalate_after < 1:
             raise ValueError("watchdog.escalate-after must be >= 1")
+        if self.watchdog.wire_hang_s < 0:
+            raise ValueError("watchdog.wire-hang-s must be >= 0 "
+                             "(0 disables the hung-wire scan)")
 
     def _fault_tolerance(self, ft: dict) -> None:
         _check("fault-tolerance", ft, _UNPORTED_KEYS["fault-tolerance"],
-               served=("request-deadline-ms", "admission-max-queue",
-                       "shed-retry-after-s"))
+               served=("request-deadline-ms", "breaker-failure-threshold",
+                       "breaker-reset-s", "retry-max-attempts",
+                       "retry-base-backoff-ms", "retry-max-backoff-ms",
+                       "admission-max-queue", "shed-retry-after-s",
+                       "degraded-mode", "supervise",
+                       "supervisor-max-backoff-s"))
         d = FaultToleranceConfig()
         self.fault_tolerance = FaultToleranceConfig(
             request_deadline_ms=float(ft.get("request-deadline-ms",
                                              d.request_deadline_ms)),
+            breaker_failure_threshold=int(ft.get(
+                "breaker-failure-threshold", d.breaker_failure_threshold)),
+            breaker_reset_s=float(ft.get("breaker-reset-s",
+                                         d.breaker_reset_s)),
+            retry_max_attempts=int(ft.get("retry-max-attempts",
+                                          d.retry_max_attempts)),
+            retry_base_backoff_ms=float(ft.get("retry-base-backoff-ms",
+                                               d.retry_base_backoff_ms)),
+            retry_max_backoff_ms=float(ft.get("retry-max-backoff-ms",
+                                              d.retry_max_backoff_ms)),
             admission_max_queue=int(ft.get("admission-max-queue",
                                            d.admission_max_queue)),
             shed_retry_after_s=float(ft.get("shed-retry-after-s",
-                                            d.shed_retry_after_s)))
+                                            d.shed_retry_after_s)),
+            degraded_mode=bool(ft.get("degraded-mode", d.degraded_mode)),
+            supervise=bool(ft.get("supervise", d.supervise)),
+            supervisor_max_backoff_s=float(ft.get(
+                "supervisor-max-backoff-s", d.supervisor_max_backoff_s)))
         if self.fault_tolerance.request_deadline_ms < 0:
             raise ValueError("fault-tolerance.request-deadline-ms must "
                              "be >= 0")
+        if self.fault_tolerance.breaker_failure_threshold < 1:
+            raise ValueError("fault-tolerance.breaker-failure-threshold "
+                             "must be >= 1")
+        if self.fault_tolerance.retry_max_attempts < 1:
+            raise ValueError("fault-tolerance.retry-max-attempts must "
+                             "be >= 1")
         if self.fault_tolerance.admission_max_queue < 0:
             raise ValueError("fault-tolerance.admission-max-queue must "
                              "be >= 0 (0 disables admission control)")
 
     def _fault_injection(self, fi: dict) -> None:
         _check("fault-injection", fi, _UNPORTED_KEYS["fault-injection"],
-               served=("seed", "device-error-rate", "freeze-rate",
-                       "freeze-ms", "freeze-max"))
+               served=("seed", "wire-drop-rate", "wire-truncate-rate",
+                       "wire-delay-rate", "wire-delay-ms",
+                       "device-error-rate", "freeze-rate", "freeze-ms",
+                       "freeze-max", "die-after-requests"))
         d = FaultInjectionConfig()
         self.fault_injection = FaultInjectionConfig(
             seed=int(fi["seed"]) if fi.get("seed") is not None else None,
+            wire_drop_rate=float(fi.get("wire-drop-rate",
+                                        d.wire_drop_rate)),
+            wire_truncate_rate=float(fi.get("wire-truncate-rate",
+                                            d.wire_truncate_rate)),
+            wire_delay_rate=float(fi.get("wire-delay-rate",
+                                         d.wire_delay_rate)),
+            wire_delay_ms=float(fi.get("wire-delay-ms", d.wire_delay_ms)),
             device_error_rate=float(fi.get("device-error-rate",
                                            d.device_error_rate)),
             freeze_rate=float(fi.get("freeze-rate", d.freeze_rate)),
             freeze_ms=float(fi.get("freeze-ms", d.freeze_ms)),
-            freeze_max=int(fi.get("freeze-max", d.freeze_max))).validate()
+            freeze_max=int(fi.get("freeze-max", d.freeze_max)),
+            die_after_requests=int(fi.get("die-after-requests",
+                                          d.die_after_requests))
+        ).validate()
 
     def _workloads(self, wl: dict) -> None:
         _check("workloads", wl, {},

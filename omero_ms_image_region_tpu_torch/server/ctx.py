@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import hashlib
 import json
-from dataclasses import dataclass
+from dataclasses import asdict, dataclass
 from typing import List, Mapping, Optional, Tuple
 
 from ..models.rendering import Projection
@@ -226,6 +226,26 @@ class ImageRegionCtx:
         (``ImageRegionRequestHandler.java:317-318``)."""
         return f"{_PIXELS_CLASS}:Image:{image_id}"
 
+    def to_json(self) -> dict:
+        """The ctx as the sidecar wire carries it (the JAX
+        ``ImageRegionCtx.to_json``: the dataclass fields, tile and region
+        as ``[x, y, w, h]``)."""
+        d = asdict(self)
+        d["tile"] = None if self.tile is None else self.tile.as_tuple()
+        d["region"] = (None if self.region is None
+                       else self.region.as_tuple())
+        return d
+
+    @classmethod
+    def from_json(cls, d: dict) -> "ImageRegionCtx":
+        d = dict(d)
+        for key in ("tile", "region"):
+            if d.get(key) is not None:
+                d[key] = RegionDef(*d[key])
+        if d.get("windows") is not None:
+            d["windows"] = [tuple(w) for w in d["windows"]]
+        return cls(**d)
+
 
 @dataclass
 class ShapeMaskCtx:
@@ -256,6 +276,13 @@ class ShapeMaskCtx:
         Java formats it."""
         color = "null" if self.color is None else self.color
         return f"{_MASK_CLASS}:{self.shape_id}:{color}"
+
+    def to_json(self) -> dict:
+        return asdict(self)
+
+    @classmethod
+    def from_json(cls, d: dict) -> "ShapeMaskCtx":
+        return cls(**d)
 
 
 def plane_route_key(ctx) -> str:

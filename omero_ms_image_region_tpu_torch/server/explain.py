@@ -15,6 +15,8 @@ app writes them for a fleet-less app: the port has one member.
 
 from __future__ import annotations
 
+import asyncio
+import json
 import re
 from typing import Dict, Optional
 from urllib.parse import parse_qsl, urlsplit
@@ -221,9 +223,11 @@ def _explain_animation(path, params, config, services, jobs) -> dict:
 
 
 async def explain(path: str, config, services=None, admission=None,
-                  jobs=None) -> dict:
+                  jobs=None, proxy_client=None) -> dict:
     """The explain document of one render URL.  Read-only: cache probes
-    only, no renderer span moves."""
+    only, no renderer span moves.  A frontend (``proxy_client``, its
+    ``server.sidecar.SidecarClient``) asks its sidecar for the residency
+    over the ``explain`` op."""
     kind, params = classify_render_path(path)
     if kind == "mask":
         return _explain_mask(path, params, config)
@@ -250,6 +254,17 @@ async def explain(path: str, config, services=None, admission=None,
             getattr(getattr(services, "caches", None), "image_region",
                     None),
             getattr(services, "raw_cache", None), ctx.cache_key, route_key)
+    elif proxy_client is not None:
+        try:
+            status, body = await asyncio.wait_for(
+                proxy_client.call("explain", {},
+                                  extra={"key": ctx.cache_key,
+                                         "route": route_key}), 2.0)
+            doc["residency"] = (dict(json.loads(bytes(body).decode()))
+                                if status == 200 and body
+                                else {"error": f"status {status}"})
+        except Exception as e:
+            doc["residency"] = {"error": str(e)[:120]}
     if admission is not None:
         adm = {
             "inflight": admission.inflight,

@@ -12,9 +12,25 @@ or the direct :class:`Renderer`.  The image pipeline, in order:
   image-region cache -> ACL (per caller) -> single-flight (concurrent
   identical requests share one run) -> z/t/resolution bounds -> region ->
   settings (``update_settings``, restricted to the active channels) -> raw
-  planes (the device raw cache on the event loop; on a miss, a read into a
-  pinned buffer and one copy to the card in a worker thread) -> render on
-  the device, flips included -> encode -> the cache's write-back.
+  planes (the device raw cache on the event loop; on a miss, the staged
+  read in a worker thread, :meth:`ImageRegionHandler._load_staged`) ->
+  render on the device, flips included -> encode -> the cache's
+  write-back.
+
+A raw-cache miss stages as the JAX handler's ``load_staged`` does
+(``:697-734``): a region of at least two bands of
+:data:`_STAGE_BAND_ROWS` rows is cut into up to four bands whose bounds
+snap to the source's tile rows, and each band is read into a pinned buffer
+and staged through ``io.staging.stage``: packed on the host and decoded by
+K10 into its rows of one [C, H, W] tensor where JAX would pack it, else
+copied plain.  The copies and decodes are queued on the raw cache's
+stream without a wait, so band k+1's read and pack overlap band k's copy
+and K10, the overlap the JAX handler gets from asynchronous dispatch.  A
+smaller region is one read and one ``stage``.
+
+:meth:`ImageRegionHandler.render_image_region_stream` is the streaming
+surface the app's chunked response reads (``wire.streaming``); in one
+process the stream is the one body, as in the JAX handler.
 
 ``format=jpeg`` follows the JAX handler's two routes.  A region above
 ``ImageRegionServices.jpeg_host_max_px`` pixels takes the device route,
@@ -110,7 +126,8 @@ import torch
 
 from .. import codecs
 from ..io.devicecache import region_key
-from ..io.staging import read_pinned, stage
+from ..io.staging import (_TORCH_DTYPES, pinned_copy, read_pinned,
+                          stage, storage_dtype)
 from ..models.pixels import Pixels, pixels_type_range
 from ..models.rendering import default_rendering_def, restrict_to_active
 from ..ops import jpegenc
@@ -142,6 +159,9 @@ JPEG_HOST_MAX_PX = 256 * 256
 # chunk; each band targets about _PROJECTION_BAND_BYTES of f32 rows.
 _PROJECTION_BAND_THRESHOLD_BYTES = 64 * 1024 * 1024
 _PROJECTION_BAND_BYTES = 32 * 1024 * 1024
+# Cold-staging band height: a region at least two bands tall stages band
+# by band, so band k+1's read and pack overlap band k's copy and decode.
+_STAGE_BAND_ROWS = 256
 
 
 class Renderer:
@@ -175,7 +195,7 @@ class Renderer:
         buffer, device planes (a projection) as they are."""
         if isinstance(raw, torch.Tensor):
             return raw.to(self.device)[None]
-        return stage(raw, self.device)[None]
+        return pinned_copy(raw, self.device)[None]
 
     def render_sync(self, raw: np.ndarray, settings: dict,
                     flip_horizontal: bool = False,
@@ -349,6 +369,11 @@ class ImageRegionHandler:
                                   (time.perf_counter() - t0) * 1000.0)
             provenance.mark(ctx, coalesced=True)
         return data
+
+    async def render_image_region_stream(self, ctx: ImageRegionCtx):
+        """The chunked response's surface (the sidecar proxy streams wire
+        chunks through the same call): in one process, the one body."""
+        yield await self.render_image_region(ctx)
 
     @staticmethod
     async def _bounded(work):
@@ -598,9 +623,63 @@ class ImageRegionHandler:
             return self._read_planes(plan, ctx)
         return cache.get_or_load(
             self._region_key(ctx, plan),
-            lambda: read_pinned(plan.src, ctx.z, ctx.t, plan.region,
-                                plan.level, plan.active, cache.device),
+            lambda: self._load_staged(plan, ctx, cache),
             route_key=plane_route_key(ctx))
+
+    @staticmethod
+    def _band_bounds(region: RegionDef, tile_h: int) -> List[int]:
+        """Row bounds of the JAX handler's staging bands (``:711-725``):
+        ``min(4, height // 256)`` bands, interior bounds snapped to the
+        nearest tile row, so no tile row is read by two bands; [] when the
+        region is under two bands."""
+        n_bands = min(4, region.height // _STAGE_BAND_ROWS)
+        if n_bands < 2:
+            return []
+        tile_h = max(1, tile_h)
+        bounds = [0]
+        for k in range(1, n_bands):
+            b = region.height * k // n_bands
+            snapped = ((region.y + b + tile_h // 2) // tile_h * tile_h
+                       - region.y)
+            b = min(max(snapped, bounds[-1] + 1), region.height - 1)
+            if b > bounds[-1]:
+                bounds.append(b)
+        bounds.append(region.height)
+        return bounds
+
+    @classmethod
+    def _load_staged(cls, plan: _Plan, ctx: ImageRegionCtx, cache):
+        """A raw-cache miss's planes (module docstring): host planes for
+        the cache to stage (under two bands), or the banded [C, H, W]
+        tensor, staged on the cache's stream and waited for."""
+        region, src = plan.region, plan.src
+        bounds = cls._band_bounds(region, src.tile_size()[1])
+        if not bounds:
+            return read_pinned(src, ctx.z, ctx.t, region, plan.level,
+                               plan.active, cache.device)
+        dtype = storage_dtype(src.dtype)
+
+        def run() -> torch.Tensor:
+            out = torch.empty(
+                (len(plan.active), region.height, region.width),
+                dtype=_TORCH_DTYPES[dtype], device=cache.device)
+            for y0, y1 in zip(bounds, bounds[1:]):
+                band = read_pinned(
+                    src, ctx.z, ctx.t,
+                    RegionDef(region.x, region.y + y0, region.width,
+                              y1 - y0),
+                    plan.level, plan.active, cache.device)
+                stage(band.array, cache.device, out=out[:, y0:y1],
+                      planes=band)
+            return out.view(torch.uint16) if dtype == np.uint16 else out
+
+        planes = cache.upload(run)
+        # The raw bytes staged, as for a host-array miss.  (The JAX cache
+        # adds ``staged_bytes`` for host arrays only, so its banded misses
+        # leave the field out of the ledger.)
+        telemetry.add_cost("staged_bytes",
+                           planes.numel() * planes.element_size())
+        return planes
 
     @staticmethod
     def encode(rgba: np.ndarray, ctx: ImageRegionCtx) -> bytes:
@@ -768,7 +847,7 @@ class WorkloadsHandler:
         device = self.s.renderer.device
 
         def composite() -> bytes:
-            out = stage(np.ascontiguousarray(base), device)
+            out = pinned_copy(np.ascontiguousarray(base), device)
             for mask in masks:
                 if (mask.height, mask.width) != base.shape[:2]:
                     raise BadRequestError(
@@ -778,9 +857,10 @@ class WorkloadsHandler:
                 packed = pack_mask_payload(mask.bytes_, mask.width,
                                            mask.height)
                 grid = rasterize_tensor(
-                    stage(packed[None], device), mask.width, mask.height,
+                    pinned_copy(packed[None], device), mask.width,
+                    mask.height,
                     ctx.flip_horizontal, ctx.flip_vertical)
-                fill = stage(np.array(
+                fill = pinned_copy(np.array(
                     [mask.resolved_fill_color(fill_override)],
                     dtype=np.uint8), device)
                 out = overlay_tensor(out[None], grid, fill)[0]

@@ -9,9 +9,16 @@ builds of the native codecs (``kernels.build``, ``native``; tens of
 seconds when nothing is built yet), and each kernel's first launch.  So
 the prewarm does both:
 
-1. builds every CUDA source (one ``nvcc`` each, all at once, on a card)
-   and the native codecs (one ``g++`` each), and loads them;
-2. for each spec of ``renderer.prewarm``, launches the serving kernels
+1. builds every CUDA source (one ``nvcc`` each, all at once, on a card:
+   ``render.cu``, ``jpeg.cu``, ``workloads.cu`` and ``staging.cu``) and
+   the native codecs and the packer (one ``g++`` each), and loads them;
+2. for each spec of ``renderer.prewarm``, gives K10 (the packed staging's
+   decode) its first launch at the shapes a cold miss of the spec's tile
+   stages (its bands, or the whole tile under two bands), once for each
+   ladder length JAX ``prewarm.py:89-117`` compiles (the words of 0.35,
+   0.55 and 0.8 of the raw bytes; K10 builds once, so these are first
+   launches, not compiles), where the JAX ``stage`` would pack that shape;
+3. launches the serving kernels
    once at every batch size the batcher launches (1 to ``max_batch``: it
    launches a group of n tiles at B = n), in the spec's bucket and storage
    dtype, with the renderer's wire engine(s): K1, then K3, then K4a and
@@ -91,14 +98,44 @@ def build_kernels(device: torch.device) -> None:
     with cf.ThreadPoolExecutor(2) as pool:
         host = pool.submit(native.build_all)
         if device.type == "cuda":
-            from ..kernels import build, jpeg, render, workloads
+            from ..kernels import build, jpeg, render, staging, workloads
 
-            modules = (render, jpeg, workloads)
+            modules = (render, jpeg, workloads, staging)
             build.build_all([(m.SOURCE, m.NVCC_FLAGS) for m in modules])
             for m in modules:
                 m.library()
         host.result()
     native.library()
+    native.wirepack_library()
+
+
+def _warm_staging(C: int, edge: int, raw_dtype,
+                  device: torch.device) -> None:
+    """K10's first launches at the spec's cold-miss staging shapes."""
+    from ..io import staging
+    from .handler import _STAGE_BAND_ROWS, ImageRegionHandler
+    from .region import RegionDef
+
+    # Sources tiled at the band height: even bands.
+    bounds = ImageRegionHandler._band_bounds(RegionDef(0, 0, edge, edge),
+                                             _STAGE_BAND_ROWS)
+    heights = sorted({y1 - y0 for y0, y1 in zip(bounds, bounds[1:])}
+                     or {edge})
+    for h in heights:
+        shape = (C, h, edge)
+        nbytes = C * h * edge * np.dtype(raw_dtype).itemsize
+        if (np.dtype(raw_dtype) != np.uint16
+                or nbytes < staging._MIN_STAGE_BYTES
+                or C * h * edge > staging._MAX_STAGE_SAMPLES
+                or not staging._regular_shape(shape)):
+            continue
+        widths = torch.zeros(C * h * ((edge + 31) // 32), dtype=torch.uint8,
+                             device=device)
+        out = torch.empty(shape, dtype=torch.int16, device=device)
+        for f in (0.35, 0.55, 0.8):
+            n_words = staging._pad_words(int(nbytes // 4 * f))
+            staging.unpack16(torch.zeros(n_words, dtype=torch.int32,
+                                         device=device), widths, out)
 
 
 def _warm_one(C: int, edge: int, quality: int, batch_sizes: Sequence[int],
@@ -154,6 +191,7 @@ def prewarm_renderer(specs: List[str], engines: Sequence[str],
                     cpu_fallback_max_px)
                 continue
             t0 = time.perf_counter()
+            _warm_staging(C, edge, raw_dtype, device)
             _warm_one(C, edge, quality, range(1, max_batch + 1), engines,
                       buckets, raw_dtype, device)
             logger.info("prewarmed %s (engines %s, batches 1-%d, %s) in "

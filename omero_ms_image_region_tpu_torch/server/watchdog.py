@@ -9,7 +9,11 @@ target heals the smallest thing that works and returns what it did:
 1. **requeue the group**: the stuck group's unsettled waiters go back to
    the head of their queue, and the other lane renders them
    (``server.batcher.BatchingRenderer.watchdog_scan``);
-2. **escalate**: a victim already requeued ``escalate-after - 1`` times
+2. **drop the connection**: a hung sidecar wire (requests in flight, no
+   frame received for ``watchdog.wire-hang-s``) is dropped, so the retry
+   policy sends the idempotent calls again on a fresh connection
+   (``server.sidecar.SidecarClient.watchdog_scan``);
+3. **escalate**: a victim already healed ``escalate-after - 1`` times
    fails with ``ConnectionError`` (the app answers 503 with
    ``Retry-After``), and the event carries ``escalate=True`` for the
    callback.
@@ -17,8 +21,7 @@ target heals the smallest thing that works and returns what it did:
 Targets implement ``watchdog_scan(now) -> [{"action", "target",
 "escalate", ...}, ...]``.  The watchdog keeps the cadence, counts fires
 (``imageregion_watchdog_fires_total``) and relays escalations.  A scan that
-raises is logged and never stops the loop.  The JAX watchdog also drops
-hung sidecar connections; the port has no sidecar yet.
+raises is logged and never stops the loop.
 """
 
 from __future__ import annotations
@@ -82,13 +85,19 @@ class Watchdog:
             self.tick()
 
 
-def build_watchdog(config, renderer=None, escalate_cb=None) -> Watchdog:
-    """A watchdog over the batcher, with the config's thresholds
-    (``server.config.WatchdogConfig``) pushed onto it."""
+def build_watchdog(config, renderer=None, clients=(),
+                   escalate_cb=None) -> Watchdog:
+    """A watchdog over the batcher (stuck lanes) and the sidecar clients
+    (hung wires), with the config's thresholds
+    (``server.config.WatchdogConfig``) pushed onto each."""
     wd = Watchdog(interval_s=config.interval_s, escalate_cb=escalate_cb)
     if renderer is not None and hasattr(renderer, "watchdog_scan"):
         renderer.watchdog_stall_factor = config.stall_factor
         renderer.watchdog_stall_min_s = config.stall_min_s
         renderer.watchdog_escalate_after = config.escalate_after
         wd.add_target(renderer)
+    for client in clients:
+        client.wire_hang_s = config.wire_hang_s
+        client.watchdog_escalate_after = config.escalate_after
+        wd.add_target(client)
     return wd

@@ -1,19 +1,24 @@
 """Seeded fault injection for the device lanes.
 
-Counterpart of the device half of the JAX package's
-``utils/faultinject.py``.  One process-global :class:`FaultInjector`
-(installed from the ``fault-injection`` config block, or directly by tests)
-is consulted in the batcher's lane thread, before a group's launches:
+Counterpart of the JAX package's ``utils/faultinject.py``.  One
+process-global :class:`FaultInjector` (installed from the
+``fault-injection`` config block, or directly by tests) is consulted at
+fixed hook points:
 
-* ``freeze_s`` stalls the lane (a wedged stream), which the watchdog must
-  heal;
-* ``maybe_device_error`` raises :class:`CudaError`, which fails the group.
+* the batcher's lane thread, before a group's launches: ``freeze_s``
+  stalls the lane (a wedged stream), which the watchdog must heal, and
+  ``maybe_device_error`` raises :class:`CudaError`, which fails the group;
+* ``server.sidecar.SidecarClient``'s calls: ``wire_fault`` drops the
+  request frame or sends half of it and closes the connection (the
+  connection dies under the request), ``wire_delay_s`` delays it;
+* the sidecar's request handling: ``sidecar_should_die`` kills the
+  process on its Nth request (``die-after-requests``), mid-call, for the
+  supervisor's drill.
 
 Decisions come from one seeded ``random.Random`` under a lock, so a fixed
 seed gives a reproducible schedule for a fixed call sequence.  Every rate
 defaults to 0 and the injector to ``None``: a lane pays one ``is None``
-check.  The wire, sidecar and partition faults wait for the sidecar and
-federation.
+check.  The link partitions wait for the federation.
 """
 
 from __future__ import annotations
@@ -37,6 +42,10 @@ class FaultInjectionConfig:
     (the default)."""
 
     seed: Optional[int] = None
+    wire_drop_rate: float = 0.0       # request frame never sent
+    wire_truncate_rate: float = 0.0   # partial frame then close
+    wire_delay_rate: float = 0.0
+    wire_delay_ms: float = 0.0
     device_error_rate: float = 0.0    # error raised in a group render
     freeze_rate: float = 0.0          # a device lane stalls freeze_ms
     freeze_ms: float = 0.0
@@ -44,18 +53,24 @@ class FaultInjectionConfig:
     # watchdog drills need "the first dispatch wedges, the requeue runs
     # clean", which a rate alone cannot promise.
     freeze_max: int = 0
+    die_after_requests: int = 0       # sidecar self-kill mid-call
 
     def validate(self) -> "FaultInjectionConfig":
-        for name in ("device_error_rate", "freeze_rate"):
+        for name in ("wire_drop_rate", "wire_truncate_rate",
+                     "wire_delay_rate", "device_error_rate",
+                     "freeze_rate"):
             v = getattr(self, name)
             if not 0.0 <= v <= 1.0:
                 raise ValueError(f"fault-injection.{name} must be in "
                                  f"[0, 1], got {v}")
-        if self.freeze_ms < 0:
+        if self.wire_delay_ms < 0 or self.freeze_ms < 0:
             raise ValueError("fault-injection delays must be >= 0")
         if self.freeze_max < 0:
             raise ValueError("fault-injection.freeze-max must be >= 0 "
                              "(0 = unbounded)")
+        if self.die_after_requests < 0:
+            raise ValueError("fault-injection.die-after-requests must "
+                             "be >= 0")
         return self
 
 
@@ -66,6 +81,7 @@ class FaultInjector:
         self.config = config.validate()
         self._rng = Random(config.seed)
         self._lock = threading.Lock()
+        self._requests_seen = 0
         self.counts: Dict[str, int] = {}
 
     def _roll(self, rate: float, kind: str) -> bool:
@@ -76,6 +92,20 @@ class FaultInjector:
             if hit:
                 self.counts[kind] = self.counts.get(kind, 0) + 1
         return hit
+
+    def wire_fault(self) -> Optional[str]:
+        """``"drop"``, ``"truncate"`` or None for the frame about to be
+        sent."""
+        if self._roll(self.config.wire_drop_rate, "wire_drop"):
+            return "drop"
+        if self._roll(self.config.wire_truncate_rate, "wire_truncate"):
+            return "truncate"
+        return None
+
+    def wire_delay_s(self) -> float:
+        if self._roll(self.config.wire_delay_rate, "wire_delay"):
+            return self.config.wire_delay_ms / 1000.0
+        return 0.0
 
     def maybe_device_error(self) -> None:
         """Raise an injected device error at the group-render hook."""
@@ -91,6 +121,19 @@ class FaultInjector:
         if self._roll(self.config.freeze_rate, "freeze"):
             return self.config.freeze_ms / 1000.0
         return 0.0
+
+    def sidecar_should_die(self) -> bool:
+        """True on the Nth request this process handles, and never again
+        (a supervised restart must not die in a loop)."""
+        if self.config.die_after_requests <= 0:
+            return False
+        with self._lock:
+            self._requests_seen += 1
+            if self._requests_seen == self.config.die_after_requests:
+                self.counts["sidecar_kill"] = \
+                    self.counts.get("sidecar_kill", 0) + 1
+                return True
+        return False
 
     def snapshot(self) -> Dict[str, int]:
         with self._lock:

@@ -18,12 +18,13 @@ vocabulary for that answer:
 
 The record also names the engaged prefix of the pressure governor's
 ladder (``ladder``) and the ``quality_capped`` flag of a tile whose JPEG
-quality ``drop_quality`` capped.  The port has one member (``-``) and no
-sidecar: the ``peer``, ``disk`` and ``degraded`` tiers and the
+quality ``drop_quality`` capped.  A frontend merges the marks its
+sidecar made (:func:`merge_wire`, the reply's ``prov``) and marks
+``degraded`` when its CPU fallback served (``server.degraded``).  The
+port has one member (``-``): the ``peer`` and ``disk`` tiers and the
 ``stolen``, ``failed_over`` and ``drain_rehomed`` flags stay in the
 vocabulary (the metric label sets the JAX package's budget names) but are
-never marked; the sidecar's ``merge_wire`` comes with the sidecar.
-Device-free on import.
+never marked.  Device-free on import.
 """
 
 from __future__ import annotations
@@ -56,6 +57,19 @@ def mark(ctx, **fields) -> None:
 def marks(ctx) -> Dict:
     """The ctx's marks ({} when none)."""
     return getattr(ctx, _ATTR, None) or {}
+
+
+def merge_wire(ctx, wire_prov) -> None:
+    """Add the marks a sidecar sent back (``prov`` on its reply) to the
+    frontend's ctx; the frontend's own marks win."""
+    if not isinstance(wire_prov, dict):
+        return
+    prov = getattr(ctx, _ATTR, None)
+    if prov is None:
+        prov = {}
+        setattr(ctx, _ATTR, prov)
+    for key, value in wire_prov.items():
+        prov.setdefault(str(key), value)
 
 
 def assemble(ctx, status: int, trace_id: Optional[str] = None) -> Dict:

@@ -296,6 +296,11 @@ class Trace:
         with self.lock:
             return dict(self.costs)
 
+    def export_spans(self) -> List[dict]:
+        """A copy of the spans (plain JSON dicts, ``start_ms`` relative to
+        this trace's start): what a sidecar sends back on the wire."""
+        return [dict(s) for s in list(self.spans)]
+
     def add_span(self, name: str, t_start: float, dur_ms: float) -> None:
         # list.append is atomic under the GIL; readers copy the list first.
         self.spans.append({"name": name,
@@ -369,6 +374,10 @@ class TraceRegistry:
                 self._evict()
             return trace
 
+    def is_active(self, trace_id: str) -> bool:
+        with self._lock:
+            return trace_id in self._active
+
     def finish(self, trace_id: str) -> Optional[Trace]:
         with self._lock:
             trace = self._active.pop(trace_id, None)
@@ -425,6 +434,21 @@ def trace_scope(trace_id: str, route: str = ""):
 
 
 @contextmanager
+def adopt_trace(trace_id: Optional[str]):
+    """Join an existing trace (the sidecar's side of the wire): spans
+    recorded inside land on ``trace_id``'s waterfall.  No-op for None."""
+    if not trace_id:
+        yield None
+        return
+    trace = TRACES.get_or_create(trace_id)
+    token = _TRACE_IDS.set((trace_id,))
+    try:
+        yield trace
+    finally:
+        _TRACE_IDS.reset(token)
+
+
+@contextmanager
 def group_trace(trace_ids: Tuple[str, ...]):
     """Recording target of a lane thread rendering a group: its spans land
     on every member's trace."""
@@ -464,6 +488,17 @@ def add_cost(key: str, value: float,
     ids = trace_ids if trace_ids is not None else _TRACE_IDS.get()
     for tid in ids:
         TRACES.get_or_create(tid).add_cost(key, value)
+
+
+def merge_costs(trace_id: str, costs: Mapping[str, float]) -> None:
+    """Add a ledger sent back by the sidecar onto a trace (a malformed
+    field is dropped)."""
+    trace = TRACES.get_or_create(trace_id)
+    for key, value in costs.items():
+        try:
+            trace.add_cost(str(key), float(value))
+        except (TypeError, ValueError):
+            pass
 
 
 def add_costs(items: Mapping[str, float],
@@ -583,26 +618,52 @@ def cost_metric_lines() -> List[str]:
 # -------------------------------------------------------------- counters
 
 class Resilience:
-    """Sheds by reason and deadline cancellations (thread-safe: the batcher's
-    dispatcher and the admission controller both count here)."""
+    """Sheds by reason, deadline cancellations, the sidecar client's
+    retries and attempts by op, degraded renders and supervisor restarts
+    (thread-safe: the batcher's dispatcher, the admission controller and
+    the supervisor's thread all count here)."""
 
     def __init__(self):
         self._lock = threading.Lock()
         self.shed: Dict[str, int] = {}
+        self.retries: Dict[str, int] = {}
         self.deadline_cancelled = 0
+        self.degraded_renders = 0
+        self.supervisor_restarts = 0
+        # Attempts a sidecar call took, by op.
+        self.attempts_hist = HistogramVec("op")
 
     def count_shed(self, reason: str = "queue-full") -> None:
         with self._lock:
             self.shed[reason] = self.shed.get(reason, 0) + 1
 
+    def count_retry(self, op: str) -> None:
+        with self._lock:
+            self.retries[op] = self.retries.get(op, 0) + 1
+
     def count_deadline_cancelled(self, n: int = 1) -> None:
         with self._lock:
             self.deadline_cancelled += n
 
+    def count_degraded_render(self) -> None:
+        with self._lock:
+            self.degraded_renders += 1
+
+    def count_supervisor_restart(self) -> None:
+        with self._lock:
+            self.supervisor_restarts += 1
+
+    def observe_attempts(self, op: str, attempts: int) -> None:
+        self.attempts_hist.observe(op, float(attempts))
+
     def reset(self) -> None:
         with self._lock:
             self.shed.clear()
+            self.retries.clear()
             self.deadline_cancelled = 0
+            self.degraded_renders = 0
+            self.supervisor_restarts = 0
+        self.attempts_hist.reset()
 
 
 RESILIENCE = Resilience()
@@ -635,6 +696,78 @@ class WatchdogStats:
 
 
 WATCHDOG = WatchdogStats()
+
+
+class WireStats:
+    """The sidecar wire v3's accounting: vectored flushes, the shared-memory
+    ring, ring negotiations and chunk streams (thread-safe)."""
+
+    _FIELDS = ("flushes", "frames_flushed", "flush_bytes", "ring_hits",
+               "ring_fallbacks", "ring_bytes", "ring_negotiated",
+               "ring_declined", "streams", "chunks")
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.reset()
+
+    def observe_flush(self, frames: int, nbytes: int) -> None:
+        with self._lock:
+            self.flushes += 1
+            self.frames_flushed += int(frames)
+            self.flush_bytes += int(nbytes)
+
+    def count_ring(self, nbytes: int, hit: bool) -> None:
+        with self._lock:
+            if hit:
+                self.ring_hits += 1
+                self.ring_bytes += int(nbytes)
+            else:
+                self.ring_fallbacks += 1
+
+    def count_negotiation(self, ring: bool) -> None:
+        with self._lock:
+            if ring:
+                self.ring_negotiated += 1
+            else:
+                self.ring_declined += 1
+
+    def count_stream(self, chunks: int) -> None:
+        with self._lock:
+            self.streams += 1
+            self.chunks += int(chunks)
+
+    def snapshot(self) -> Dict[str, int]:
+        with self._lock:
+            return {f: getattr(self, f) for f in self._FIELDS}
+
+    def metric_lines(self) -> List[str]:
+        with self._lock:
+            fpf = (self.frames_flushed / self.flushes
+                   if self.flushes else 0.0)
+            return [
+                f"imageregion_wire_flushes_total {self.flushes}",
+                f"imageregion_wire_frames_total {self.frames_flushed}",
+                f"imageregion_wire_flush_bytes_total {self.flush_bytes}",
+                f"imageregion_wire_frames_per_flush {round(fpf, 3)}",
+                f"imageregion_wire_ring_hits_total {self.ring_hits}",
+                "imageregion_wire_ring_fallbacks_total "
+                f"{self.ring_fallbacks}",
+                f"imageregion_wire_ring_bytes_total {self.ring_bytes}",
+                "imageregion_wire_ring_negotiated_total "
+                f"{self.ring_negotiated}",
+                "imageregion_wire_ring_declined_total "
+                f"{self.ring_declined}",
+                f"imageregion_wire_streams_total {self.streams}",
+                f"imageregion_wire_chunks_total {self.chunks}",
+            ]
+
+    def reset(self) -> None:
+        with self._lock:
+            for f in self._FIELDS:
+                setattr(self, f, 0)
+
+
+WIRE = WireStats()
 
 
 class HttpCacheStats:
@@ -1822,6 +1955,23 @@ METRIC_TYPES: Dict[str, str] = {
     "imageregion_batcher_queue_wait_max_ms": "gauge",
     "imageregion_shed_total": "counter",
     "imageregion_deadline_cancelled_total": "counter",
+    "imageregion_breaker_state": "gauge",
+    "imageregion_breaker_opens_total": "counter",
+    "imageregion_retries_total": "counter",
+    "imageregion_retry_attempts": "histogram",
+    "imageregion_degraded_renders_total": "counter",
+    "imageregion_supervisor_restarts_total": "counter",
+    "imageregion_wire_flushes_total": "counter",
+    "imageregion_wire_frames_total": "counter",
+    "imageregion_wire_flush_bytes_total": "counter",
+    "imageregion_wire_frames_per_flush": "gauge",
+    "imageregion_wire_ring_hits_total": "counter",
+    "imageregion_wire_ring_fallbacks_total": "counter",
+    "imageregion_wire_ring_bytes_total": "counter",
+    "imageregion_wire_ring_negotiated_total": "counter",
+    "imageregion_wire_ring_declined_total": "counter",
+    "imageregion_wire_streams_total": "counter",
+    "imageregion_wire_chunks_total": "counter",
     "imageregion_watchdog_fires_total": "counter",
     "imageregion_httpcache_etag_requests_total": "counter",
     "imageregion_httpcache_ims_requests_total": "counter",
@@ -2067,18 +2217,52 @@ def request_metric_lines(exemplars: bool = False) -> List[str]:
             + SENTINEL.metric_lines() + FLIGHT.metric_lines())
 
 
-def resilience_metric_lines() -> List[str]:
-    """Sheds by reason, deadline cancellations, the pressure governor's
-    families, watchdog fires, the decision ledger's counts and the
-    workload routes' counters."""
+def resilience_metric_lines(breaker=None) -> List[str]:
+    """The sidecar client's breaker (``breaker``: a frontend's; None: no
+    gauge), sheds by reason, the sidecar retries, deadline cancellations,
+    degraded renders, supervisor restarts and the attempts histogram; the
+    pressure governor's families, watchdog fires, the decision ledger's
+    counts, the workload routes' counters and the wire's."""
+    lines: List[str] = []
+    if breaker is not None:
+        # 0 closed, 1 half-open, 2 open (utils.transient).
+        lines += [f"imageregion_breaker_state {breaker.state}",
+                  f"imageregion_breaker_opens_total {breaker.opens}"]
     with RESILIENCE._lock:
         shed = sorted(RESILIENCE.shed.items())
+        retries = sorted(RESILIENCE.retries.items())
         cancelled = RESILIENCE.deadline_cancelled
-    lines = [f'imageregion_shed_total{{reason="{r}"}} {n}'
-             for r, n in shed]
-    lines.append(f"imageregion_deadline_cancelled_total {cancelled}")
+        degraded = RESILIENCE.degraded_renders
+        restarts = RESILIENCE.supervisor_restarts
+    lines += [f'imageregion_shed_total{{reason="{r}"}} {n}'
+              for r, n in shed]
+    lines += [f'imageregion_retries_total{{op="{op}"}} {n}'
+              for op, n in retries]
+    lines += [f"imageregion_deadline_cancelled_total {cancelled}",
+              f"imageregion_degraded_renders_total {degraded}",
+              f"imageregion_supervisor_restarts_total {restarts}"]
+    lines += RESILIENCE.attempts_hist.series("imageregion_retry_attempts")
     return (lines + PRESSURE.metric_lines() + WATCHDOG.metric_lines()
-            + DECISIONS.metric_lines() + WORKLOADS.metric_lines())
+            + DECISIONS.metric_lines() + WORKLOADS.metric_lines()
+            + WIRE.metric_lines())
+
+
+def with_label(lines: List[str], label: str) -> List[str]:
+    """``lines`` with ``label`` (``key="value"``) added to every series;
+    comments dropped.  A sidecar's series carry ``process="sidecar"`` in
+    a frontend's scrape."""
+    out = []
+    for line in lines:
+        if not line or line.startswith("#"):
+            continue
+        name, sep, rest = line.partition("{")
+        if sep:
+            out.append(f"{name}{{{label},{rest}" if not rest.startswith("}")
+                       else f"{name}{{{label}{rest}")
+        else:
+            name, _, value = line.partition(" ")
+            out.append(f"{name}{{{label}}} {value}")
+    return out
 
 
 def session_metric_lines() -> List[str]:
@@ -2152,6 +2336,7 @@ def reset() -> None:
         _REQ_TOTALS.clear()
     RESILIENCE.reset()
     WATCHDOG.reset()
+    WIRE.reset()
     HTTPCACHE.reset()
     WORKLOADS.reset()
     SESSIONS.reset()

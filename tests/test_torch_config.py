@@ -134,24 +134,25 @@ def test_unported_defaults_are_the_jax_defaults():
     ({"sessions": {"enabled": True, "enabled-for": "all"}},
      "sessions.enabled"),
     ({"drain": {"fail-readyz": True}}, "drain.fail-readyz"),
-    ({"sidecar": {"role": "split", "socket": "/tmp/s"}}, "sidecar."),
+    ({"sidecar": {"role": "split", "socket": "/tmp/s", "workers": 2}},
+     "sidecar.workers"),
     # bitpack is the JAX direct renderer's engine (K6, not ported); the
     # JAX loader refuses it in the batched posture too.
     ({"renderer": {"jpeg-engine": "bitpack"}, "batcher": {"enabled": False}},
      "renderer.jpeg-engine"),
     ({"renderer": {"kernel": "pallas"}}, "renderer.kernel"),
     ({"batcher": {"target-inflight": 2}}, "batcher.target-inflight"),
-    ({"fault-tolerance": {"degraded-mode": True}},
-     "fault-tolerance.degraded-mode"),
-    ({"fault-injection": {"seed": 1, "wire-drop-rate": 0.5}},
-     "fault-injection.wire-drop-rate"),
+    ({"fault-tolerance": {"degraded-mode": True, "cpu-threads": 4}},
+     "fault-tolerance.cpu-threads"),
+    ({"fault-injection": {"seed": 1, "partition-rate": 0.5}},
+     "fault-injection.partition-rate"),
     ({"session-store": {"type": "redis", "uri": "redis://h", "db": 2}},
      "session-store."),
     ({"metadata-service": {"type": "postgres", "dsn": "postgres://h",
                            "pool-size": 8}},
      "metadata-service."),
     ({"hotkey": {"threshold": 6.0}}, "hotkey.threshold"),
-    ({"wire": {"ring-bytes": 0}}, "wire.ring-bytes"),
+    ({"wire": {"ring-bytes": 0, "compression": "lz4"}}, "wire.compression"),
     ({"loadmodel": {"viewers": 10}}, "loadmodel.viewers"),
     ({"qos": {"enabled": True}}, "qos.enabled"),
     ({"workloads": {"unknown-key": 1}}, "workloads.unknown-key"),

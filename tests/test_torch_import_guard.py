@@ -64,7 +64,8 @@ def test_port_imports_without_jax_or_the_jax_package():
                 "services.diskcache", "services.warmstate",
                 "server.execcache", "server.shutdown", "utils.sketch",
                 "utils.decisions", "server.sentinel", "server.explain",
-                "server.pressure"):
+                "server.pressure", "kernels.staging", "server.sidecar",
+                "server.shmring", "server.degraded", "refimpl"):
         assert f"omero_ms_image_region_tpu_torch.{mod}" in doc["imported"]
     assert doc["leaked"] == []
     assert doc["jax"] == []

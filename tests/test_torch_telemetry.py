@@ -157,8 +157,12 @@ def test_metrics_match_jax(data_dir):
     # families this default app does not move (no SLO objective, no
     # decision, no sentinel tick, no pressure governor:
     # tests/test_torch_forensics.py, tests/test_torch_sentinel.py and
-    # tests/test_torch_pressure.py hold those to the JAX app's).
+    # tests/test_torch_pressure.py hold those to the JAX app's); and the
+    # sidecar client's breaker, retries and attempts, which only a
+    # frontend has (tests/test_torch_sidecar.py).
     assert {f for f, _ in port_fams} == set(types) - {
+        "imageregion_breaker_state", "imageregion_breaker_opens_total",
+        "imageregion_retries_total", "imageregion_retry_attempts",
         "imageregion_slo_burn_rate", "imageregion_slo_breach",
         "imageregion_slo_breaches_total", "imageregion_decision_total",
         "imageregion_pressure_signal", "imageregion_pressure_step_engaged",
