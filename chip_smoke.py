@@ -67,9 +67,13 @@ Phases (any failure ends the run with a non-zero exit and no result line):
            staging's decode, ``kernels/csrc/staging.cu``) byte for byte on
            packed planes: a 4x1024^2 flagship tile, a 4x256x1024 band
            decoded into its rows of a 4x1024^2 stack, an all-zero plane
-           (width 0), a full-range noise plane (width 17) and rows of 1000
-           samples (a partial block), each timed beside its bound and
-           plain version (the ``k10:`` line); no PyTorch call decodes it.
+           (width 0), a full-range noise plane (width 17), rows of 1000
+           samples (a partial block), 300 rows (no multiple of a CTA's
+           8), a single row, a 16x1024^2 stack (a look-back over 2048
+           tiles) and a band staged in one buffer as ``stage`` lays it
+           out (the words a view, the widths 4-byte aligned behind them),
+           each timed beside its bound and plain version (the ``k10:``
+           line); no PyTorch call decodes it.
            Each gets the median device time of 25 launches (CUDA events,
            the L2 flushed before each, a GPU sleep ahead of the timed span
            so the host's enqueue is not in it), the device time of each of
@@ -1273,41 +1277,87 @@ def pyramid_kernel_phase(torch, np):
 STAGING_SOURCE = "omero_ms_image_region_tpu_torch/kernels/csrc/staging.cu"
 
 
-def staging_kernel_phase(torch, np):
-    """K10 (unpack16) against its plain version, byte for byte, on packed
-    planes: a 4x1024^2 flagship tile whole and a 4x256x1024 band (decoded
-    into its rows of a 4x1024^2 stack, the handler's banded write), an
-    all-zero plane (width 0 everywhere), full-range noise (width 17) and
-    rows of 1000 samples (a partial last block).  Each: median ms, the
-    bound (words and widths read, 2 bytes a sample written, over HBM) and
-    the plain version's ms."""
+def k10_cases(np):
+    """K10's cases: ``(label, array, rows, layout)``.  ``rows`` (a slice
+    pair) decodes the array into those rows of a zeroed 4x1024^2 stack;
+    ``layout`` "stage" puts the words and widths in one buffer as
+    ``io.staging.stage`` does (the words a view of its head, the widths
+    right behind them), else each is its own tensor.  The 300-row case is
+    no multiple of a CTA's rows, the single row has no look-back, the
+    16x1024^2 stack's look-back crosses 2048 tiles, and the staged band's
+    widths start 4 bytes past an 8-byte boundary."""
     from omero_ms_image_region_tpu_torch.flagship import synthetic_wsi_tiles
+    from omero_ms_image_region_tpu_torch.io import staging as S
+
+    rng = np.random.default_rng(10)
+    flagship = synthetic_wsi_tiles(rng, 1, 4, TILE, TILE)[0]
+    cases = [("4x1024^2 flagship tile", flagship, None, None),
+             ("4x256x1024 band into rows 256:512", flagship[:, 256:512],
+              (slice(None), slice(256, 512)), None),
+             ("4x1024^2 all zero (width 0)",
+              np.zeros((4, TILE, TILE), np.uint16), None, None),
+             ("4x1024^2 full-range noise (width 17)",
+              rng.integers(0, 65536, (4, TILE, TILE)).astype(np.uint16),
+              None, None),
+             ("4x256x1000 rows of 1000 (a partial block)",
+              synthetic_wsi_tiles(rng, 1, 4, 256, 1000)[0], None, None),
+             ("3x100x1000 (300 rows, no multiple of a CTA's rows)",
+              synthetic_wsi_tiles(rng, 1, 3, 100, 1000)[0], None, None),
+             ("1x1x1024 a single row",
+              synthetic_wsi_tiles(rng, 1, 1, 1, TILE)[0], None, None),
+             ("16x1024^2 stack (a 2048-tile look-back)",
+              synthetic_wsi_tiles(rng, 4, 4, TILE, TILE).reshape(
+                  16, TILE, TILE), None, None)]
+    # The first band of the flagship tile whose word count is odd: its
+    # widths start 4 bytes past an 8-byte boundary of the staged buffer.
+    for y in range(0, TILE, 64):
+        band = flagship[:, y:y + 256]
+        if band.shape[1] == 256 and len(S.pack16_host(band)[0]) % 2:
+            cases.append((f"4x256x1024 band {y}:{y + 256} staged in one "
+                          f"buffer (widths 4-byte aligned)", band, None,
+                          "stage"))
+            break
+    return cases
+
+
+def k10_inputs(torch, np, arr, layout):
+    """``(words, widths)`` of ``arr`` packed, on the card, in ``layout``
+    (see :func:`k10_cases`)."""
+    from omero_ms_image_region_tpu_torch.io import staging as S
+
+    words, widths = S.pack16_host(arr)
+    if layout != "stage":
+        return (torch.from_numpy(words.view(np.int32)).cuda(),
+                torch.from_numpy(widths).cuda())
+    buf = np.zeros(words.nbytes + widths.nbytes, np.uint8)
+    buf[:words.nbytes] = words.view(np.uint8)
+    buf[words.nbytes:] = widths
+    on_dev = torch.from_numpy(buf).cuda()
+    return on_dev[:words.nbytes].view(torch.int32), on_dev[words.nbytes:]
+
+
+def staging_kernel_phase(torch, np):
+    """K10 (unpack16) against its plain version and the source, byte for
+    byte, on :func:`k10_cases`: a 4x1024^2 flagship tile whole and a
+    4x256x1024 band (decoded into its rows of a 4x1024^2 stack, the
+    handler's banded write), an all-zero plane (width 0 everywhere),
+    full-range noise (width 17), rows of 1000 samples (a partial last
+    block), 300 rows, a single row, a 16x1024^2 stack and a band staged as
+    ``stage`` lays it out.  Each: median ms, the bound (words and widths
+    read, 2 bytes a sample written, over HBM) and the plain version's
+    ms."""
     from omero_ms_image_region_tpu_torch.io import staging as S
     from omero_ms_image_region_tpu_torch.kernels import staging as KS
 
     dev = torch.device("cuda")
-    rng = np.random.default_rng(10)
-    flagship = synthetic_wsi_tiles(rng, 1, 4, TILE, TILE)[0]
-    cases = [("4x1024^2 flagship tile", flagship, None),
-             ("4x256x1024 band into rows 256:512", flagship[:, 256:512],
-              (slice(None), slice(256, 512))),
-             ("4x1024^2 all zero (width 0)",
-              np.zeros((4, TILE, TILE), np.uint16), None),
-             ("4x1024^2 full-range noise (width 17)",
-              rng.integers(0, 65536, (4, TILE, TILE)).astype(np.uint16),
-              None),
-             ("4x256x1000 rows of 1000 (a partial block)",
-              synthetic_wsi_tiles(rng, 1, 4, 256, 1000)[0], None)]
     e = {"name": "unpack16", "route": "cuda", "source": STAGING_SOURCE,
          "replaces": "omero_ms_image_region_tpu/io/staging.py:53",
          "max_abs_err": 0, "mismatches": 0, "tolerance": 0,
          "library_ms": None,
          "library_note": "no PyTorch call decodes the packed row deltas",
          "cases": []}
-    for label, arr, rows in cases:
-        words, widths = S.pack16_host(arr)
-        w_t = torch.from_numpy(words.view(np.int32)).to(dev)
-        wd_t = torch.from_numpy(widths).to(dev)
+    for label, arr, rows, layout in k10_cases(np):
+        w_t, wd_t = k10_inputs(torch, np, arr, layout)
         if rows is None:
             out = torch.empty(arr.shape, dtype=torch.int16, device=dev)
             view = out
@@ -1329,21 +1379,25 @@ def staging_kernel_phase(torch, np):
         check(diff == 0 and lost == 0,
               f"unpack16 {label} differs from its plain version or the "
               f"source")
+        e["mismatches"] += diff
         ms = time_ms(torch, lambda: KS.unpack16(w_t, wd_t, view), 25)
         plain_ms = time_ms(torch, lambda: S.unpack16_plain(
             w_t, wd_t, arr.shape), 5)
-        bound_ms, bound_by = bytes_bound(words.nbytes + widths.nbytes
-                                         + arr.size * 2)
+        packed_bytes = w_t.numel() * 4 + wd_t.numel()
+        bound_ms, bound_by = bytes_bound(packed_bytes + arr.size * 2)
         case = {"case": label, "shape": list(arr.shape), "ms": ms,
                 "plain_ms": plain_ms, "bound_ms": bound_ms,
-                "bound_by": bound_by, "packed_ratio": (
-                    words.nbytes + widths.nbytes) / arr.nbytes,
+                "bound_by": bound_by,
+                "packed_ratio": packed_bytes / arr.nbytes,
                 "device_us": device_split(
                     torch, lambda: KS.unpack16(w_t, wd_t, view))}
+        if layout == "stage":
+            case["widths_addr_mod_16"] = wd_t.data_ptr() % 16
         e["cases"].append(case)
         print(f"kernel unpack16 [{label}]: {ms:.4f} ms (bound "
               f"{bound_ms:.4f} ms by {bound_by}, plain {plain_ms:.3f} ms, "
               f"packed/raw {case['packed_ratio']:.3f})", flush=True)
+        del w_t, wd_t, out, view, want, source
     first = e["cases"][0]
     for k in ("ms", "plain_ms", "bound_ms", "bound_by", "shape"):
         e[k] = first[k]

@@ -125,8 +125,8 @@ def _pad_words(n: int) -> int:
 _MIN_STAGE_BYTES = 1 << 20
 # The JAX decode computes bit offsets in int32; past this many samples
 # the packed bit count could pass 2**31, so bigger arrays cross plain (in
-# both packages: K10 counts in 64 bits, the gate keeps the decisions
-# equal).
+# both packages, so the decisions stay equal; K10 counts words in 32 bits,
+# which the gate keeps under 2**31).
 _MAX_STAGE_SAMPLES = (1 << 31) // 18
 
 

@@ -10,176 +10,241 @@
 //   first of a row absolute.  Decode: gather, mask, un-zigzag, then an
 //   inclusive scan along the row, wrapped to 16 bits.
 //
-// Three launches on the caller's stream:
-//   1. row_bits_kernel     one warp a row: the row's packed bits;
-//   2. row_offsets_kernel  one CTA: the exclusive scan of (1) over all
-//                          rows, in 64 bits (JAX computes the offsets in
-//                          int32, whence its _MAX_STAGE_SAMPLES gate; the
-//                          gate stays in io/staging.py so both packages
-//                          pack the same planes);
-//   3. unpack16_kernel     one CTA a row, a thread a sample: warp k of a
-//                          chunk of blockDim samples decodes block k
-//                          (a warp scan of the chunk's 32 widths gives
-//                          each block's bit offset), then a CTA scan of
-//                          the deltas, carried from chunk to chunk.
+// The packer writes a block of 32 samples as exactly 32*w bits, w whole
+// words, so every block starts on a word boundary, a block's first word is
+// the sum of the widths before it, and a sample never reads a word of
+// another block.  One launch on the caller's stream, no memset:
+//
+//   1. widths   each CTA takes kTileRows rows, one warp a row; a warp sums
+//               its row's widths (its words).  Byte loads: a warp reads
+//               32 neighbouring width bytes, one sector, at any alignment
+//               (`widths` follows the words in one upload, 4-byte aligned).
+//   2. look-back  the CTA publishes its tile's words as an aggregate; warp
+//               0 reads the status words of the tiles before it, 32 at a
+//               time, nearest first, until an inclusive one (decoupled
+//               look-back), and publishes the tile's inclusive prefix: the
+//               tile's first word.  A status word is epoch << 34 | flag <<
+//               32 | words: the wrapper gives every call on a stream a new
+//               epoch over a scratch that persists per device and stream,
+//               so a word of an earlier call never reads as ready and no
+//               memset runs (a new scratch is zeroed once; epoch 0 is never
+//               given).  Offsets count words in 32 bits (the wrapper refuses
+//               2^32 words or more).
+//   3. decode   a warp stages a chunk of its row (32 blocks, at most 544
+//               words) into shared memory with 4-byte cp.async, all in
+//               flight at once, then decodes 128 samples a step: lane j
+//               takes 4 neighbouring samples of one block, reads the at
+//               most 4 words that hold their bits from shared memory,
+//               un-zigzags them and sums them; a warp scan of the lanes'
+//               sums, carried from step to step, undoes the row delta; the
+//               warp stores 256 contiguous bytes (8 a lane where the row's
+//               address allows, else 2-byte stores).
+//
+// Why shared memory and 4 samples a lane, not a lane a sample with a
+// block's words in registers: a lane a sample pays each block of 32
+// samples a broadcast of its width and offset, a word load that waits on
+// the last block's, two shuffles for the words and a 5-step warp scan plus
+// a carry; here a step of 128 samples takes one broadcast read, at most 4
+// reads and 5 shuffles, and a chunk's loads are all in flight at once.  On
+// the H100 the lane-a-sample decode took 0.0281 ms on the 4 x 1024^2 tile
+// against 0.0154 ms for this one, in one run (scripts/k10_redesign.py
+// --sweep, its `shfl` variant).
 //
 // Bound: bytes.  It reads the words and widths once and writes 2 bytes a
 // sample (4 x 1024^2 uint16: ~6.1 MB of words at the flagship content,
-// 0.13 MB of widths, 8.4 MB out, ~4.4 us at 3.35 TB/s).  A sample's two
-// word reads hit the same or the next word as its neighbours', so a warp
-// reads ~w+1 consecutive words: the gathers coalesce.  The output row is
-// written as one coalesced run of 2-byte stores; a row may be a strided
-// view (a band written straight into its rows of a [C, H, W] plane stack,
-// with no concatenation afterwards).  Never reads past n_words: a width-0
-// block reads nothing, and a sample's second word is read only when the
-// sample crosses into it and it exists (JAX clamps that index, :80-83).
+// 0.13 MB of widths, 8.4 MB out, ~4.4 us at 3.35 TB/s).  Exact wrap to
+// 16 bits; width 0 reads no word; a partial last block (its pad samples
+// are zero deltas); strided output rows (a band written straight into its
+// rows of a [C, H, W] stack); never reads past n_words.  Widths above 17,
+// which the packer never writes, are read as 17, so no input reaches past
+// shared memory.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kRowBitsWarps = 8;     // rows per CTA of row_bits_kernel
-constexpr int kScanThreads = 1024;   // row_offsets_kernel's one CTA
-constexpr int kScanItems = 4;        // rows per thread per pass
+constexpr int kTileRows = 8;                  // rows (warps) per CTA
+constexpr int kThreads = kTileRows * 32;
+constexpr int kMaxWidth = 17;                 // bits of a zigzag 16-bit delta
+constexpr int kChunkBlocks = 32;              // blocks a warp stages at once
+constexpr int kChunkWords = kChunkBlocks * kMaxWidth;
+constexpr unsigned long long kAggregate = 1ull << 32;
+constexpr unsigned long long kInclusive = 2ull << 32;
+constexpr unsigned kFull = 0xFFFFFFFFu;
 
-__device__ __forceinline__ unsigned int warp_incl_u32(unsigned int v,
-                                                      int lane) {
+__device__ __forceinline__ void publish(unsigned long long* word,
+                                        unsigned long long v) {
+  atomicExch(word, v);
+}
+
+__device__ __forceinline__ unsigned long long peek(
+    const unsigned long long* word) {
+  return *reinterpret_cast<const volatile unsigned long long*>(word);
+}
+
+__device__ __forceinline__ unsigned warp_incl(unsigned v, int lane) {
 #pragma unroll
   for (int o = 1; o < 32; o <<= 1) {
-    const unsigned int y = __shfl_up_sync(0xffffffffu, v, o);
+    const unsigned y = __shfl_up_sync(kFull, v, o);
     if (lane >= o) v += y;
   }
   return v;
 }
 
-__device__ __forceinline__ long long warp_incl_i64(long long v, int lane) {
+__device__ __forceinline__ unsigned width_at(const uint8_t* w, int b) {
+  return min(static_cast<unsigned>(__ldg(w + b)),
+             static_cast<unsigned>(kMaxWidth));
+}
+
+// 4 bytes from global to shared memory, zero-filled when !valid.
+__device__ __forceinline__ void copy_word(uint32_t* dst, const uint32_t* src,
+                                          bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(valid ? 4 : 0));
+}
+
+__device__ __forceinline__ void copies_done() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+__device__ __forceinline__ unsigned unzigzag(unsigned z) {
+  return (z >> 1) ^ (0u - (z & 1u));
+}
+
+__global__ void __launch_bounds__(kThreads)
+unpack16_kernel(const uint32_t* __restrict__ words,
+                unsigned long long n_words,
+                const uint8_t* __restrict__ widths, long long n_rows,
+                int width, int bpr, int rows_per_plane,
+                long long plane_stride, long long row_stride,
+                uint16_t* __restrict__ out,
+                unsigned long long* __restrict__ status,
+                unsigned long long epoch) {
+  __shared__ uint32_t s_words[kTileRows][kChunkWords];
+  __shared__ unsigned s_meta[kTileRows][kChunkBlocks];  // offset << 8 | w
+  __shared__ unsigned s_row_words[kTileRows];
+  __shared__ unsigned s_first;                        // the tile's first word
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long tile = blockIdx.x;
+  const long long row = tile * kTileRows + warp;
+  const bool live = row < n_rows;
+  const uint8_t* wrow = widths + (live ? row : 0) * bpr;
+
+  // 1. The row's words; the first chunk's widths stay in w.
+  const int first_nb = min(kChunkBlocks, bpr);
+  unsigned w = live && lane < first_nb ? width_at(wrow, lane) : 0u;
+  unsigned sum = w;
+  if (live)
+    for (int b = lane + kChunkBlocks; b < bpr; b += 32)
+      sum += width_at(wrow, b);
+  sum = __reduce_add_sync(kFull, sum);
+  if (lane == 0) s_row_words[warp] = sum;
+  __syncthreads();
+  unsigned row_first = 0u, agg = 0u;
 #pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const long long y = __shfl_up_sync(0xffffffffu, v, o);
-    if (lane >= o) v += y;
+  for (int r = 0; r < kTileRows; ++r) {
+    if (r < warp) row_first += s_row_words[r];
+    agg += s_row_words[r];
   }
-  return v;
-}
 
-// 32 * sum(widths) of each row.
-__global__ void row_bits_kernel(const uint8_t* __restrict__ widths,
-                                long long n_rows, int bpr,
-                                long long* __restrict__ row_bits) {
-  const int lane = threadIdx.x & 31;
-  const long long row =
-      (long long)blockIdx.x * kRowBitsWarps + (threadIdx.x >> 5);
-  if (row >= n_rows) return;               // the whole warp leaves
-  const uint8_t* w = widths + row * bpr;
-  long long sum = 0;
-  for (int b = lane; b < bpr; b += 32) sum += w[b];
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    sum += __shfl_down_sync(0xffffffffu, sum, o);
-  if (lane == 0) row_bits[row] = sum * 32;
-}
-
-// In place: row_bits -> the exclusive prefix sums (each row's first bit).
-__global__ void __launch_bounds__(kScanThreads)
-row_offsets_kernel(long long* __restrict__ bits, long long n_rows) {
-  __shared__ long long warp_sums[kScanThreads / 32];
-  __shared__ long long chunk_total;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  long long carry = 0;
-  for (long long base = 0; base < n_rows;
-       base += (long long)kScanThreads * kScanItems) {
-    const long long first = base + (long long)tid * kScanItems;
-    long long v[kScanItems];
-    long long local = 0;
-#pragma unroll
-    for (int i = 0; i < kScanItems; ++i) {
-      v[i] = first + i < n_rows ? bits[first + i] : 0;
-      local += v[i];
+  // 2. Look-back.
+  const unsigned long long tag = epoch << 34;
+  if (warp == 0) {
+    unsigned excl = 0u;
+    if (tile == 0) {
+      if (lane == 0) publish(status, tag | kInclusive | agg);
+    } else {
+      if (lane == 0) publish(status + tile, tag | kAggregate | agg);
+      for (long long i = tile - 1;; i -= 32) {
+        const long long idx = i - lane;
+        unsigned long long s =
+            idx >= 0 ? peek(status + idx) : tag | kInclusive;
+        while (__any_sync(kFull, (s >> 34) != epoch))
+          if ((s >> 34) != epoch) s = peek(status + idx);
+        const unsigned done = __ballot_sync(kFull, (s & kInclusive) != 0ull);
+        const int stop = done ? __ffs(done) - 1 : 31;
+        excl += __reduce_add_sync(
+            kFull, lane <= stop ? static_cast<unsigned>(s) : 0u);
+        if (done) break;
+      }
+      if (lane == 0) publish(status + tile, tag | kInclusive | (excl + agg));
     }
-    const long long incl = warp_incl_i64(local, lane);
-    if (lane == 31) warp_sums[warp] = incl;
-    __syncthreads();
-    if (warp == 0) {
-      const long long s = warp_sums[lane];
-      const long long si = warp_incl_i64(s, lane);
-      warp_sums[lane] = si - s;
-      if (lane == 31) chunk_total = si;
-    }
-    __syncthreads();
-    long long run = carry + warp_sums[warp] + incl - local;
-#pragma unroll
-    for (int i = 0; i < kScanItems; ++i) {
-      if (first + i < n_rows) bits[first + i] = run;
-      run += v[i];
-    }
-    carry += chunk_total;
-    __syncthreads();
+    if (lane == 0) s_first = excl;
   }
-}
+  __syncthreads();
+  if (!live) return;
 
-// One CTA a row; blockDim.x a multiple of 32, at most 1024.
-__global__ void __launch_bounds__(1024)
-unpack16_kernel(const uint32_t* __restrict__ words, long long n_words,
-                const uint8_t* __restrict__ widths,
-                const long long* __restrict__ row_off, int width, int bpr,
-                int rows_per_plane, long long plane_stride,
-                long long row_stride, uint16_t* __restrict__ out) {
-  __shared__ unsigned int block_off[32];   // a chunk's blocks, from its start
-  __shared__ unsigned int warp_tot[32];
-  __shared__ unsigned int chunk_bits;
-  __shared__ unsigned int last;
-  const long long row = blockIdx.x;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int nwarps = blockDim.x >> 5;
-  const uint8_t* wrow = widths + row * bpr;
+  // 3. Decode, a chunk of 32 blocks at a time.
   const long long plane = row / rows_per_plane;
   uint16_t* orow = out + plane * plane_stride +
                    (row - plane * rows_per_plane) * row_stride;
-  long long bit_base = row_off[row];
-  unsigned int value = 0;                  // the last sample decoded
-  for (int c0 = 0; c0 < width; c0 += blockDim.x) {
-    const int b0 = c0 >> 5;                // warp k decodes block b0 + k
-    if (warp == 0) {
-      const int b = b0 + lane;
-      const unsigned int bits =
-          (lane < nwarps && b < bpr) ? 32u * wrow[b] : 0u;
-      const unsigned int incl = warp_incl_u32(bits, lane);
-      block_off[lane] = incl - bits;
-      if (lane == 31) chunk_bits = incl;
+  const bool vec = (reinterpret_cast<uintptr_t>(orow) & 7u) == 0;
+  uint32_t* sw = s_words[warp];
+  unsigned* meta = s_meta[warp];
+  unsigned base = s_first + row_first;   // the chunk's first word
+  unsigned carry = 0u;                   // the last sample decoded
+  for (int b0 = 0; b0 < bpr; b0 += kChunkBlocks) {
+    const int nb = min(kChunkBlocks, bpr - b0);
+    if (b0 > 0) w = lane < nb ? width_at(wrow, b0 + lane) : 0u;
+    const unsigned incl = warp_incl(w, lane);
+    const unsigned chunk_words = __shfl_sync(kFull, incl, 31);
+    meta[lane] = (incl - w) << 8 | w;
+    const int col0 = b0 * 32;
+    // decode: begin (scripts/k10_redesign.py swaps this part for a variant)
+    for (unsigned k = lane; k < chunk_words; k += 32) {
+      const unsigned long long i = static_cast<unsigned long long>(base) + k;
+      copy_word(sw + k, words + (i < n_words ? i : 0), i < n_words);
     }
-    __syncthreads();
-    const int col = c0 + tid;
-    unsigned int d = 0;
-    if (col < width) {
-      const unsigned int w = wrow[b0 + warp];
-      if (w != 0) {
-        const long long pos = bit_base + block_off[warp] +
-                              (long long)lane * w;
-        const long long wi = pos >> 5;
-        const unsigned int sh = (unsigned int)(pos & 31);
-        const unsigned int lo = wi < n_words ? __ldg(words + wi) >> sh : 0u;
-        const unsigned int hi = (sh != 0 && wi + 1 < n_words)
-                                    ? __ldg(words + wi + 1) << (32u - sh)
-                                    : 0u;
-        const unsigned int mask = w >= 32 ? 0xffffffffu : (1u << w) - 1u;
-        const unsigned int z = (lo | hi) & mask;
-        d = (z >> 1) ^ (0u - (z & 1u));    // un-zigzag
+    copies_done();
+    __syncwarp();
+    for (int q = 0; q < nb; q += 4) {
+      // Lane j: samples 4*(j & 7) .. +3 of block q + (j >> 3).
+      const unsigned m = meta[q + (lane >> 3)];
+      const unsigned bw = m & 0xFFu, boff = m >> 8;
+      unsigned d[4] = {0u, 0u, 0u, 0u};
+      if (bw != 0u) {                    // blocks past nb have w 0
+        const unsigned bit = (lane & 7u) * 4u * bw;
+        const unsigned wi = boff + (bit >> 5), sh = bit & 31u;
+        const unsigned need = (sh + 4u * bw + 31u) >> 5;  // 1..4 words
+        const uint32_t a0 = sw[wi];
+        const uint32_t a1 = need > 1u ? sw[wi + 1] : 0u;
+        const uint32_t a2 = need > 2u ? sw[wi + 2] : 0u;
+        const uint32_t a3 = need > 3u ? sw[wi + 3] : 0u;
+        const uint64_t lo = static_cast<uint64_t>(a1) << 32 | a0;
+        const uint64_t mid = static_cast<uint64_t>(a2) << 32 | a1;
+        const uint64_t hi = static_cast<uint64_t>(a3) << 32 | a2;
+        const unsigned mask = (1u << bw) - 1u;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const unsigned o = sh + i * bw;                  // < 83
+          const uint64_t v = (o >> 5) == 0u ? lo : (o >> 5) == 1u ? mid : hi;
+          d[i] = unzigzag(static_cast<unsigned>(v >> (o & 31u)) & mask);
+        }
+      }
+      d[1] += d[0];
+      d[2] += d[1];
+      d[3] += d[2];
+      const unsigned lane_incl = warp_incl(d[3], lane);
+      const unsigned x0 = carry + lane_incl - d[3];
+      carry += __reduce_add_sync(kFull, d[3]);
+      const int col = col0 + q * 32 + lane * 4;
+      const unsigned v0 = x0 + d[0], v1 = x0 + d[1], v2 = x0 + d[2],
+                     v3 = x0 + d[3];
+      if (vec && col + 3 < width) {
+        *reinterpret_cast<uint2*>(orow + col) =
+            make_uint2((v0 & 0xFFFFu) | v1 << 16, (v2 & 0xFFFFu) | v3 << 16);
+      } else {
+        if (col < width) orow[col] = static_cast<uint16_t>(v0);
+        if (col + 1 < width) orow[col + 1] = static_cast<uint16_t>(v1);
+        if (col + 2 < width) orow[col + 2] = static_cast<uint16_t>(v2);
+        if (col + 3 < width) orow[col + 3] = static_cast<uint16_t>(v3);
       }
     }
-    const unsigned int incl = warp_incl_u32(d, lane);
-    if (lane == 31) warp_tot[warp] = incl;
-    __syncthreads();
-    if (warp == 0) {
-      const unsigned int t = lane < nwarps ? warp_tot[lane] : 0u;
-      warp_tot[lane] = warp_incl_u32(t, lane) - t;
-    }
-    __syncthreads();
-    const unsigned int x = value + warp_tot[warp] + incl;
-    if (col < width) orow[col] = (uint16_t)x;
-    if (tid == (int)blockDim.x - 1) last = x;
-    bit_base += chunk_bits;
-    __syncthreads();
-    value = last;
+    // decode: end
+    base += chunk_words;
+    __syncwarp();                        // before the next chunk's copies
   }
 }
 
@@ -187,28 +252,28 @@ unpack16_kernel(const uint32_t* __restrict__ words, long long n_words,
 
 extern "C" {
 
+// Rows a CTA decodes (the wrapper's tile count and scratch size).
+int unpack16_tile_rows() { return kTileRows; }
+
 // Decode n_rows rows of `width` samples into `out`: row i is plane
 // i / rows_per_plane, row i % rows_per_plane, at out + plane *
-// plane_stride + row * row_stride (in samples).  `row_off` is scratch of
-// n_rows int64.  Returns cudaGetLastError() after the launches.
+// plane_stride + row * row_stride (in samples).  `status` is scratch of
+// at least ceil(n_rows / kTileRows) uint64 that no call in flight on
+// another stream uses, holding no word tagged `epoch` (1 <= epoch <
+// 2^30).  n_words < 2^32.  Returns cudaGetLastError() after the launch.
 int unpack16_launch(const void* words, long long n_words, const void* widths,
                     long long n_rows, int width, int rows_per_plane,
                     long long plane_stride, long long row_stride, void* out,
-                    void* row_off, void* stream) {
+                    void* status, unsigned long long epoch, void* stream) {
   if (n_rows <= 0 || width <= 0) return (int)cudaGetLastError();
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int bpr = (width + 31) / 32;
-  long long* off = static_cast<long long*>(row_off);
-  const long long bits_grid = (n_rows + kRowBitsWarps - 1) / kRowBitsWarps;
-  row_bits_kernel<<<(unsigned int)bits_grid, kRowBitsWarps * 32, 0, s>>>(
-      static_cast<const uint8_t*>(widths), n_rows, bpr, off);
-  row_offsets_kernel<<<1, kScanThreads, 0, s>>>(off, n_rows);
-  int threads = ((width + 31) / 32) * 32;
-  if (threads > 1024) threads = 1024;
-  unpack16_kernel<<<(unsigned int)n_rows, threads, 0, s>>>(
-      static_cast<const uint32_t*>(words), n_words,
-      static_cast<const uint8_t*>(widths), off, width, bpr, rows_per_plane,
-      plane_stride, row_stride, static_cast<uint16_t*>(out));
+  const long long tiles = (n_rows + kTileRows - 1) / kTileRows;
+  unpack16_kernel<<<(unsigned int)tiles, kThreads, 0,
+                    static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(words),
+      static_cast<unsigned long long>(n_words),
+      static_cast<const uint8_t*>(widths), n_rows, width, (width + 31) / 32,
+      rows_per_plane, plane_stride, row_stride, static_cast<uint16_t*>(out),
+      static_cast<unsigned long long*>(status), epoch);
   return (int)cudaGetLastError();
 }
 

@@ -6,17 +6,24 @@ unpack16_device`` (``:53``): bit-packed zigzag row deltas
 kernel lives in ``csrc/staging.cu`` behind a plain ``extern "C"``
 interface, built with nvcc for ``sm_90a`` by :mod:`.build` on first use; a
 failed build raises.  The wrapper takes CUDA tensors only, checks them,
-launches on the current stream, raises if a launch was refused, and counts
-one launch in :data:`LAUNCHES` per call.  The plain version is
+launches once on the current stream, raises if the launch was refused, and
+counts one launch in :data:`LAUNCHES` per call.  The plain version is
 ``io.staging.unpack16_plain``; ``io.staging.unpack16`` sends CPU tensors
 there and CUDA tensors here.
+
+The kernel finds each tile's first word by a decoupled look-back over a
+status scratch of one uint64 a tile (:func:`status_scratch`): one scratch
+per device and stream, since calls on one stream run one after another and
+calls on two streams (the batcher's lanes, the raw cache's stream) may run
+at once; each call tags its words with a new epoch, so the scratch needs
+no clearing between calls.
 """
 
 from __future__ import annotations
 
 import ctypes
 import threading
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 
@@ -28,6 +35,17 @@ NVCC_FLAGS = build.ARCH_FLAGS
 LAUNCHES: Dict[str, int] = {"unpack16": 0}
 _launch_lock = threading.Lock()
 
+# Offsets count words in 32 bits: the words array stays under this.
+MAX_WORDS = 1 << 32
+# A status word holds the epoch in its top 30 bits; epoch 0 marks a
+# zeroed word and is never given to a call.
+EPOCH_LIMIT = 1 << 30
+_MIN_SCRATCH_TILES = 256
+
+# (device index, stream handle) -> [status scratch, last epoch given]
+_scratch: Dict[Tuple[int, int], list] = {}
+_scratch_lock = threading.Lock()
+
 
 def reset_launches() -> None:
     with _launch_lock:
@@ -37,13 +55,54 @@ def reset_launches() -> None:
 
 def _configure(lib: ctypes.CDLL) -> None:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.unpack16_launch.argtypes = [p, ll, p, ll, i, i, ll, ll, p, p, p]
+    lib.unpack16_launch.argtypes = [p, ll, p, ll, i, i, ll, ll, p, p,
+                                    ctypes.c_ulonglong, p]
     lib.unpack16_launch.restype = ctypes.c_int
+    lib.unpack16_tile_rows.argtypes = []
+    lib.unpack16_tile_rows.restype = ctypes.c_int
 
 
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built on first use."""
     return build.load(SOURCE, NVCC_FLAGS, _configure)
+
+
+def tile_count(n_words: int, n_rows: int, tile_rows: int) -> int:
+    """The CTAs (tiles of ``tile_rows`` rows) of a launch over ``n_rows``
+    rows; refuses ``n_words`` of 2**32 or more (the kernel's offsets are
+    32-bit; ``io.staging``'s sample gate keeps staged arrays far below)."""
+    if n_words >= MAX_WORDS:
+        raise ValueError(f"unpack16: {n_words} words pass the kernel's "
+                         f"32-bit word offsets (at most {MAX_WORDS - 1})")
+    return -(-n_rows // tile_rows)
+
+
+def scratch_tiles(tiles: int) -> int:
+    """The status entries a scratch for ``tiles`` tiles is made with: the
+    next power of two, at least :data:`_MIN_SCRATCH_TILES`, so a stream's
+    scratch is remade a few times at most."""
+    return max(_MIN_SCRATCH_TILES, 1 << max(tiles - 1, 0).bit_length())
+
+
+def status_scratch(device: torch.device, stream_key: int,
+                   tiles: int) -> Tuple[torch.Tensor, int]:
+    """The status scratch of (``device``, ``stream_key``) with room for
+    ``tiles`` and the epoch of the next call on it.  A new scratch is
+    zeroed on the current stream (the caller's launch stream, so the
+    caching allocator hands its memory on only behind that stream's work);
+    when the epochs run out it is zeroed again and they start over at 1."""
+    key = (-1 if device.index is None else device.index, stream_key)
+    with _scratch_lock:
+        entry = _scratch.get(key)
+        if entry is None or entry[0].numel() < tiles:
+            entry = [torch.zeros(scratch_tiles(tiles), dtype=torch.int64,
+                                 device=device), 0]
+            _scratch[key] = entry
+        entry[1] += 1
+        if entry[1] >= EPOCH_LIMIT:
+            entry[0].zero_()
+            entry[1] = 1
+        return entry[0], entry[1]
 
 
 def unpack16(words: torch.Tensor, widths: torch.Tensor,
@@ -83,13 +142,15 @@ def unpack16(words: torch.Tensor, widths: torch.Tensor,
     if h >= 1 << 31 or W >= 1 << 31:
         raise ValueError(f"unpack16: {h} rows of {W} exceed the kernel's "
                          f"32-bit row index")
-    row_off = torch.empty(n_rows, dtype=torch.int64, device=dev)
     lib = library()
+    tiles = tile_count(words.numel(), n_rows, lib.unpack16_tile_rows())
     with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        status, epoch = status_scratch(dev, stream, tiles)
         err = lib.unpack16_launch(
             words.data_ptr(), words.numel(), widths.data_ptr(), n_rows, W,
             h, planes.stride(0), planes.stride(1), planes.data_ptr(),
-            row_off.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+            status.data_ptr(), epoch, stream)
     if err != 0:
         raise RuntimeError(f"unpack16 launch failed: CUDA error {err}")
     with _launch_lock:

@@ -335,6 +335,9 @@ def build_services(config: AppConfig,
                                     device_lanes=b.device_lanes,
                                     jpeg_engine=engine,
                                     engine_controller=controller)
+        # First-tile-out settlement rides the streaming knob: off, the
+        # batcher settles a group's requests at its barrier.
+        renderer.first_tile_out = config.wire.streaming
     else:
         if engine == "auto":
             engine = linkprobe.resolve_auto_engine(device)

@@ -276,6 +276,10 @@ class BatchingRenderer:
         self._lane_cap = 0
         self._gated = 0
         self._lane_cv = threading.Condition()
+        # First-tile-out settlement (``wire.streaming``): a JPEG request
+        # resolves as soon as its own tile is coded; off, a group's
+        # requests settle together at its barrier.  The bytes are the same.
+        self.first_tile_out = True
 
     def _count_batch(self, tiles: int) -> None:
         with self._stats_lock:
@@ -759,7 +763,11 @@ class BatchingRenderer:
     def _early_settle_cb(self, group: List[_Pending]):
         """First-tile-out hook: resolve request ``i`` from the coding
         thread as soon as its bytes exist.  The group's final settle skips
-        futures already done, so this only moves a resolution earlier."""
+        futures already done, so this only moves a resolution earlier.
+        None (barrier settlement) when :attr:`first_tile_out` is off."""
+        if not self.first_tile_out:
+            return None
+
         def on_tile(i: int, data: bytes) -> None:
             fut = group[i].future
 

@@ -11,7 +11,14 @@
 * the handler's banded cold read of a 1024^2 region of a tiled pyramid
   (four bands, decoded into their rows of one tensor) gives the raw planes
   the JAX handler's ``load_staged`` gives, also at an offset that snaps
-  the band bounds to tile rows.
+  the band bounds to tile rows;
+* the layout K10's one-launch design relies on: at the shapes of
+  ``chip_smoke.py``'s K10 cases and on one row of 32 samples, both
+  packers agree and ``len(words) == widths.sum()`` (every block of 32
+  samples is ``w`` whole words, so every block starts on a word);
+* K10's wrapper's host side: the tile count, the status scratch's size,
+  the refusal of 2**32 words, and one scratch per device and stream with a
+  new epoch a call (zeroed again when the epochs run out).
 """
 
 import asyncio
@@ -36,6 +43,7 @@ from omero_ms_image_region_tpu.server.region import RegionDef as JaxRegion
 from omero_ms_image_region_tpu_torch import native
 from omero_ms_image_region_tpu_torch.io import staging
 from omero_ms_image_region_tpu_torch.io.devicecache import DeviceRawCache
+from omero_ms_image_region_tpu_torch.kernels import staging as k10
 from omero_ms_image_region_tpu_torch.server.app import build_services
 from omero_ms_image_region_tpu_torch.server.config import AppConfig
 from omero_ms_image_region_tpu_torch.server.ctx import ImageRegionCtx
@@ -159,3 +167,59 @@ def test_banded_cold_read_is_the_jax_one(tiled_dir, region):
     # A second read of the region is a raw-cache hit.
     assert handler._load(plan, ImageRegionCtx(image_id=IMG)) is got
     asyncio.run(handler.s.renderer.close())
+
+
+# chip_smoke.py's K10 shapes (their content classes: flagship tiles, a
+# band, all zero, full-range noise, rows of 1000) and one row of 32.
+K10_SHAPES = {
+    "tile": lambda rng: synthetic_wsi_tiles(rng, 1, 4, 1024, 1024)[0],
+    "band": lambda rng: synthetic_wsi_tiles(rng, 1, 4, 256, 1024)[0],
+    "zeros": lambda rng: np.zeros((4, 1024, 1024), np.uint16),
+    "full_range": lambda rng: rng.integers(
+        0, 65536, (4, 1024, 1024)).astype(np.uint16),
+    "w1000": lambda rng: synthetic_wsi_tiles(rng, 1, 4, 256, 1000)[0],
+    "row32": lambda rng: rng.integers(0, 65536, (1, 1, 32)).astype(
+        np.uint16),
+}
+
+
+@pytest.mark.parametrize("name", sorted(K10_SHAPES))
+def test_every_block_is_whole_words(name):
+    arr = K10_SHAPES[name](np.random.default_rng(10))
+    words, widths = native.wirepack_pack16(arr)
+    jax_words, jax_widths = jax_native.wirepack_pack16(arr)
+    assert np.array_equal(words, jax_words)
+    assert np.array_equal(widths, jax_widths)
+    assert len(words) == int(widths.astype(np.int64).sum())
+    assert int(widths.max()) <= 17
+
+
+def test_k10_host_plan():
+    assert k10.tile_count(100, 4096, 8) == 512      # a 4x1024^2 tile
+    assert k10.tile_count(100, 300, 8) == 38         # 300 rows
+    assert k10.tile_count(0, 1, 8) == 1
+    assert k10.tile_count(k10.MAX_WORDS - 1, 16384, 8) == 2048
+    with pytest.raises(ValueError, match="32-bit"):
+        k10.tile_count(k10.MAX_WORDS, 16384, 8)
+    assert [k10.scratch_tiles(t) for t in (1, 256, 257, 512, 2048, 2049)] \
+        == [256, 256, 512, 512, 2048, 4096]
+
+
+def test_k10_status_scratch_per_stream(monkeypatch):
+    monkeypatch.setattr(k10, "_scratch", {})
+    cpu = torch.device("cpu")
+    a, e1 = k10.status_scratch(cpu, 7, 512)
+    assert a.dtype == torch.int64 and a.numel() == 512 and e1 == 1
+    assert not a.any()
+    b, e2 = k10.status_scratch(cpu, 7, 100)
+    assert b is a and e2 == 2                        # same stream: reused
+    c, e3 = k10.status_scratch(cpu, 8, 100)
+    assert c is not a and e3 == 1                    # another stream
+    a.fill_(5)
+    d, e4 = k10.status_scratch(cpu, 7, 513)          # grown: a new, zeroed
+    assert d.numel() == 1024 and e4 == 1 and not d.any()
+    monkeypatch.setattr(k10, "EPOCH_LIMIT", 3)
+    k10.status_scratch(cpu, 7, 1)
+    d.fill_(9)
+    e, e6 = k10.status_scratch(cpu, 7, 1)            # epochs ran out
+    assert e is d and e6 == 1 and not e.any()
