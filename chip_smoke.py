@@ -73,7 +73,17 @@ Phases (any failure ends the run with a non-zero exit and no result line):
            tiles) and a band staged in one buffer as ``stage`` lays it
            out (the words a view, the widths 4-byte aligned behind them),
            each timed beside its bound and plain version (the ``k10:``
-           line); no PyTorch call decodes it.
+           line); no PyTorch call decodes it.  K6 bitpack_fixed (the
+           direct renderer's bitpack engine) words and total bits exactly
+           on the K3 coefficients of the flagship tiles at B=8 and B=1, q
+           85 and 95, an overflow at 64 words (the words below the cap
+           equal, nothing spilled into the next tile's), an all-zero tile,
+           runs of 16 to 62 zeros, DC differences of 2048 and more (the
+           clamped category 11) and an unaligned base (the ``check
+           bitpack_fixed`` lines; no PyTorch call packs a Huffman
+           stream).  Then ``b16:`` K1, K3, K4a, K4b and K5 exactly at B =
+           16 (the largest group batch growth launches), each timed
+           there.
            Each gets the median device time of 25 launches (CUDA events,
            the L2 flushed before each, a GPU sleep ahead of the timed span
            so the host's enqueue is not in it), the device time of each of
@@ -232,6 +242,22 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                        ``byte-cache``, ``render``, ``render`` and
                        provenance tiers ``render_cold``, ``byte_cache``,
                        ``304`` and none; the miss's cost ledger;
+           bitpack:    ``renderer.jpeg-engine: bitpack`` with
+                       ``batcher.enabled: false`` (the direct renderer):
+                       4 flagship tiles, one flipped h and one flipped hv
+                       at q 0.95, each K6's stream equal to the plain
+                       bitpack route (plain K1, K3 and K6 and the host
+                       framing), and a 1000x1000 region (not MCU-aligned:
+                       the sparse engine) equal to the plain route; each
+                       GET's wall ms beside a direct sparse app's; K6
+                       launched once a bitpack GET (fails otherwise);
+           growth:     queue-pressure growth in a default app: 64 flagship
+                       tiles and their h-flips (one group key) sent
+                       sequentially, then all 128 at once (up to 100 in
+                       flight, the client's connection limit): each body
+                       equal to its sequential one, and the batcher's
+                       counters must hold groups above 8 (its max_batch
+                       grown to 16);
            then the device busy share (torch.profiler) of 8 sequential and
            of 32 concurrent cold GETs, one tile's layer breakdown on a cold
            host read (read, digest, pinned DMA, kernels, wire, coder),
@@ -312,12 +338,13 @@ Phases (any failure ends the run with a non-zero exit and no result line):
            median of 10,000, with the card's name and power limit.
 
 Each phase's launch counts are set to 0 just before it and read just
-after.  It prints the kernel table of all eleven kernels as one JSON line
+after.  It prints the kernel table of all twelve kernels as one JSON line
 (``launches``: the batch burst for K1-K4b, the huffman phase for K5, the
-workload phases for K7, K8a, K8b and K9, the e2e run's cold misses for
-K10; ``workload_launches``: each
+bitpack phase for K6, the workload phases for K7, K8a, K8b and K9, the
+e2e run's cold misses for K10; ``workload_launches``: each
 kernel's launches in each of those phases, readers, pyramid, omero,
-prefetch, huffman, byte_cache, forensics and pressure included), then the
+prefetch, huffman, byte_cache, bitpack, growth, forensics and pressure
+included), then the
 nvidia-smi line,
 and last ``{"ok": true, "device": {...}}``.  It imports nothing of JAX.
 """
@@ -971,6 +998,181 @@ def edge_checks(torch, J, packed8, entries):
         check(d == 0, f"compact_rows n_valid={nv} differs from the plain "
                       f"version")
         e["mismatches"] += d
+
+
+def flagship_packed(torch, np, B: int, seed: int = 0):
+    """K1's output (linear flagship settings) for B synthetic 1024^2
+    4-channel uint16 tiles, and the raw tiles and settings on the card."""
+    from omero_ms_image_region_tpu_torch.flagship import (
+        flagship_rdef, synthetic_wsi_tiles)
+    from omero_ms_image_region_tpu_torch.ops import render as R
+
+    raw = R.raw_to_tensor(synthetic_wsi_tiles(
+        np.random.default_rng(seed), B, 4, TILE, TILE), "cuda")
+    args = R.batched_settings(R.settings_to_tensors(
+        R.pack_settings(flagship_rdef(4)), "cuda"), B)
+    return R.render_tile_batch_packed(raw, *args), raw, args
+
+
+def bitpack_kernel_phase(torch, np, raw8, args8):
+    """K6 (bitpack_fixed) against its plain version, words and total
+    bits exactly (tolerance 0): the K3 coefficients of the flagship tiles
+    at B=8 and B=1, q 85 and 95, at the encoder's capacity; an overflow
+    (64 words a tile at q 95: the words below the cap equal, each tile's
+    words unspilled into the next tile's); an all-zero tile; runs of 16,
+    32, 48 and 62 zeros; DC differences of 2048 and more (the category-11
+    clamp, whose sign bits JAX adds into the stream); a base 2 bytes past
+    alignment (the 16-bit loads).  Timed at q 85, B=8 and B=1, beside its
+    plain version; no PyTorch call packs a Huffman stream."""
+    from omero_ms_image_region_tpu_torch.ops import jpegenc as J
+    from omero_ms_image_region_tpu_torch.ops import render as R
+
+    packed8 = R.render_tile_batch_packed(raw8, *args8)
+    e = {"name": "bitpack_fixed", "route": "cuda",
+         "source": "omero_ms_image_region_tpu_torch/kernels/csrc/jpeg.cu",
+         "replaces": "omero_ms_image_region_tpu/ops/jpegenc.py:833",
+         "max_abs_err": 0, "mismatches": 0, "tolerance": 0, "cases": 0}
+    _, H, W = packed8.shape
+    scan = J.scan_index_tensor(H // 16, W // 16, packed8.device)
+    spec = J.huffman_spec_arrays()
+
+    def join(c):
+        B = c[0].shape[0]
+        return torch.cat([t.reshape(B, -1, 64) for t in c], dim=1)
+
+    def compare(label, blocks, cw):
+        got_w, got_b = J.bitpack_fixed(blocks, scan, *spec, cw)
+        want_w, want_b = J.bitpack_fixed_plain(blocks, scan, *spec, cw)
+        torch.cuda.synchronize()
+        diff = int((got_w != want_w).sum())
+        bdiff = int((got_b != want_b).sum())
+        bits = got_b.tolist()
+        over = [b > 32 * cw for b in bits]
+        print(f"check bitpack_fixed {label} B={blocks.shape[0]}: differing "
+              f"words {diff} of {got_w.numel()} ({cw} a tile), differing "
+              f"total_bits {bdiff}; bits {bits} over {over}", flush=True)
+        check(diff == 0 and bdiff == 0,
+              f"bitpack_fixed {label} differs from the plain version")
+        e["cases"] += 1
+        return got_w, got_b, over
+
+    for B in (8, 1):
+        packed = packed8[:B].contiguous()
+        key = "" if B == 8 else "b1_"
+        for q in (85, 95):
+            blocks = join(J.packed_to_jpeg_coefficients(packed, q))
+            cw = J.BitpackJpegEncoder(H, W, q).cap_words
+            words, bits, over = compare(f"q{q}", blocks, cw)
+            check(not any(over), f"bitpack_fixed q{q}: a flagship tile "
+                                 f"overflowed the encoder's capacity")
+            if q == 95:
+                _, _, over = compare("overflow (64 words) q95", blocks, 64)
+                check(all(over), "bitpack_fixed: 64 words did not "
+                                 "overflow every tile")
+                continue
+            used = int(((bits.to(torch.int64) + 31) // 32 * 4).sum())
+            n_bytes = blocks.numel() * 2 + scan.numel() * 4 + 4096 + used
+            e[key + "ms"] = time_ms(torch, lambda: J.bitpack_fixed(
+                blocks, scan, *spec, cw), 25)
+            e[key + "plain_ms"] = time_ms(torch, lambda: J.bitpack_fixed_plain(
+                blocks, scan, *spec, cw), 5)
+            e[key + "device_us"] = device_split(torch, lambda: J.bitpack_fixed(
+                blocks, scan, *spec, cw))
+            # the coefficients, the scan map and the spec read, the used
+            # words written
+            e[key + "bound_ms"], e[key + "bound_by"] = bytes_bound(n_bytes)
+            e[key + "bound_bytes"] = n_bytes
+            e[key + "used_bytes"] = used
+            e[key + "shape"] = [B, H, W]
+            e[key + "quality"] = q
+            e[key + "cap_words"] = cw
+    base = join(J.packed_to_jpeg_coefficients(packed8[:2].contiguous(), 85))
+    cw = J.BitpackJpegEncoder(H, W, 85).cap_words
+    compare("all-zero tile", torch.zeros_like(base[:1]), cw)
+    runs = base.clone()
+    runs[:, ::3, 1:] = 0
+    runs[:, ::6, 17] = 5             # a run of 16
+    runs[:, ::6, 50] = -3            # then 32
+    runs[:, 3::6, 49] = -7           # a run of 48
+    runs[:, 3::6, 63] = 2            # no EOB after position 63
+    runs[:, 1::6, 1:] = 0
+    runs[:, 1::6, 63] = 9            # a run of 62: three ZRL codes
+    compare("zero runs 16/32/48/62", runs, cw)
+    dc = base.clone()
+    dc[:, ::2, 0] = 2047
+    dc[:, 1::2, 0] = -2047           # differences of +-4094: clamped
+    dc[:, ::7, 0] = 1024             # and of 3071, 2048, ...
+    compare("DC differences >= 2048", dc, cw)
+    odd = torch.empty(base.numel() + 8, dtype=base.dtype,
+                      device=base.device)
+    odd = odd[1:1 + base.numel()].view_as(base)
+    odd.copy_(base)
+    compare("unaligned base", odd, cw)
+    e["library_ms"] = None
+    e["library_note"] = "no PyTorch call packs a Huffman stream"
+    print(f"kernel bitpack_fixed: {e['ms']:.4f} ms at B=8 (bound "
+          f"{e['bound_ms']:.4f} ms, plain {e['plain_ms']:.3f} ms, device "
+          f"us {json.dumps(e['device_us'])}); {e['b1_ms']:.4f} ms at B=1 "
+          f"(bound {e['b1_bound_ms']:.4f}, plain {e['b1_plain_ms']:.3f}, "
+          f"device us {json.dumps(e['b1_device_us'])}); {e['cases']} "
+          f"cases equal", flush=True)
+    return {"bitpack_fixed": e}
+
+
+def b16_kernel_phase(torch, np) -> dict:
+    """K1, K3, K4a, K4b and K5 against their plain versions at B = 16,
+    the largest group batch growth launches (2 x max-batch): 16 flagship
+    tiles (128 MiB of uint16), K1 exactly on linear settings, K3 at q 85,
+    K4a and K4b (sparse rows), K5 and K4b (Huffman rows) byte for byte;
+    each kernel's ms at B=16 (25 launches, L2 flushed)."""
+    from omero_ms_image_region_tpu_torch.ops import jpegenc as J
+    from omero_ms_image_region_tpu_torch.ops import render as R
+
+    q = 85
+    packed, raw, args = flagship_packed(torch, np, 16, seed=16)
+    B, H, W = packed.shape
+    out = {"B": B, "shape": [B, 4, H, W], "quality": q}
+    want = R.render_tile_batch_packed_plain(raw, *args)
+    out["render_ramp_mismatched_px"] = byte_diff(packed, want)[1]
+    c = J.packed_to_jpeg_coefficients(packed, q)
+    cp = J.packed_to_jpeg_coefficients_plain(packed, q)
+    out["jpeg_coefficients_mismatches"] = sum(
+        int((g != w).sum()) for g, w in zip(c, cp))
+    del want, cp
+    nb = J.blocks_per_tile(H, W)
+    cap = J.default_sparse_cap(H, W, q)
+    wire = J.sparse_pack(*c, cap)
+    out["sparse_pack_differing_bytes"] = int(
+        (wire != J.sparse_pack_plain(*c, cap)).sum())
+    out["compact_rows_differing_bytes"] = int(
+        (J.compact_sparse_rows(wire, B, cap, nb) != J.compact_rows_plain(
+            wire, J.sparse_row_lengths(wire, B, cap, nb))).sum())
+    cw = J.default_words_cap(H, W, q)
+    spec = J.spec_tensor(J.huffman_spec_arrays(), "cuda")
+    hw = J.huffman_pack(*c, cw, spec, H // 16, W // 16)
+    out["huffman_pack_differing_bytes"] = int(
+        (hw != J.huffman_pack_plain(*c, cw, spec, H // 16, W // 16)).sum())
+    out["compact_rows_huffman_differing_bytes"] = int(
+        (J.compact_huffman_rows(hw, B, cap, cw) != J.compact_rows_plain(
+            hw, J.huffman_row_lengths(hw, B, cap, cw))).sum())
+    bad = {k: v for k, v in out.items()
+           if k.endswith(("mismatched_px", "mismatches", "differing_bytes"))
+           and v}
+    out["ms"] = {
+        "render_ramp": time_ms(torch, lambda: R.render_tile_batch_packed(
+            raw, *args), 25),
+        "jpeg_coefficients": time_ms(
+            torch, lambda: J.packed_to_jpeg_coefficients(packed, q), 25),
+        "sparse_pack": time_ms(torch, lambda: J.sparse_pack(*c, cap), 25),
+        "compact_rows": time_ms(torch, lambda: J.compact_sparse_rows(
+            wire, B, cap, nb), 25),
+        "huffman_pack": time_ms(torch, lambda: J.huffman_pack(
+            *c, cw, spec, H // 16, W // 16), 25),
+    }
+    print("b16: " + json.dumps(out), flush=True)
+    check(not bad, f"b16: kernels differ from their plain versions at "
+                   f"B=16: {bad}")
+    return out
 
 
 def smoke_lut(np):
@@ -3591,6 +3793,188 @@ class WireLog:
         return out
 
 
+def plain_bitpack_jpeg(torch, ctx, raw, settings) -> bytes:
+    """The bitpack engine's route with every stage's plain version on the
+    card: plain K1 and K3 (flips in its reads), plain K6, the host's
+    framing (``jfif.finish_fixed_stream``); a stream over the encoder's
+    capacity is the sparse engine's plain route, as the renderer falls
+    back."""
+    from omero_ms_image_region_tpu_torch import codecs
+    from omero_ms_image_region_tpu_torch import jfif
+    from omero_ms_image_region_tpu_torch.ops import jpegenc as J
+    from omero_ms_image_region_tpu_torch.ops import render as R
+
+    t = R.settings_to_tensors(settings, DEVICE)
+    packed = R.render_tile_batch_packed_plain(
+        R.raw_to_tensor(raw, DEVICE)[None], *R.batched_settings(t))
+    h, w = packed.shape[-2:]
+    q = codecs.quality_percent(ctx.compression_quality)
+    y, cb, cr = J.packed_to_jpeg_coefficients_plain(
+        packed, q, h, w, ctx.flip_horizontal, ctx.flip_vertical)
+    cap = J.BitpackJpegEncoder(h, w, q).cap_words
+    blocks = torch.cat([c.reshape(1, -1, 64) for c in (y, cb, cr)], dim=1)
+    words, bits = J.bitpack_fixed_plain(
+        blocks, J._mcu_scan_index(h // 16, w // 16),
+        *J.huffman_spec_arrays(), cap)
+    if int(bits[0]) > 32 * cap:
+        return plain_jpeg(torch, ctx, raw, settings)
+    import numpy as np
+
+    return jfif.finish_fixed_stream(
+        words[0].cpu().numpy().view(np.uint32), int(bits[0]), w, h, q)
+
+
+async def bitpack_phase(torch, np, data_dir, lut_root, have_aiohttp,
+                        tiles) -> dict:
+    """``renderer.jpeg-engine: bitpack`` in the direct posture
+    (``batcher.enabled: false``): 4 flagship tiles, one flipped h, one
+    flipped hv at q 0.95, each K6's stream equal to the plain bitpack
+    route (plain K1, K3 and K6, the host framing), and a 1000x1000 region
+    (not MCU-aligned: the sparse engine) equal to the plain sparse route.
+    Prints each GET's wall ms beside the same tile through a direct
+    sparse app, and K6's launches (fails unless one a bitpack GET).
+    Returns the run's kernel launches."""
+    from omero_ms_image_region_tpu_torch.server.ctx import ImageRegionCtx
+    from omero_ms_image_region_tpu_torch.server.handler import Renderer
+
+    config, handler = front_handler(data_dir, lut_root, {
+        "batcher": {"enabled": False},
+        "renderer": {"jpeg-engine": "bitpack"}})
+    check(isinstance(handler.s.renderer, Renderer)
+          and handler.s.renderer.jpeg_engine == "bitpack",
+          "bitpack: the app did not build the direct bitpack renderer")
+    reqs = [r for r in tiles[:4]]
+    reqs += [(tiles[4][0], dict(tiles[4][1], flip="h")),
+             (tiles[5][0], dict(tiles[5][1], flip="hv", q="0.95")),
+             ("render_image_region", {
+                 "region": f"{TILE + 7},{TILE // 3},1000,1000", "c": CH,
+                 "m": "c", "format": "jpeg"})]
+    aligned = len(reqs) - 1
+    bclient = Client(config, handler, have_aiohttp)
+    await bclient.start()
+    try:
+        await bclient.request(*reqs[0])            # warm-up, not counted
+        reset_launch_counts()
+        out = [await bclient.request(*r) for r in reqs]
+        launches = launch_counts()
+        for (route, query), (status, _, body, ms) in zip(reqs, out):
+            check(status == 200, f"bitpack {query}: HTTP {status}")
+            ctx = ImageRegionCtx.from_params(params_of(route, query))
+            raw, settings = await handler.read(ctx)
+            want = (plain_bitpack_jpeg(torch, ctx, raw, settings)
+                    if "tile" in query else
+                    plain_jpeg(torch, ctx, raw, settings))
+            dht = body[:body.index(b"\xff\xda")].count(b"\xff\xc4")
+            print(f"bitpack {json.dumps(query)}: bytes {len(body)} wall_ms "
+                  f"{ms:.2f} DHTs {dht} matches_plain {body == want}",
+                  flush=True)
+            check(body == want, f"bitpack {query}: body differs from the "
+                                f"plain route")
+    finally:
+        await bclient.stop()
+    config, handler = front_handler(data_dir, lut_root, {
+        "batcher": {"enabled": False}})
+    sclient = Client(config, handler, have_aiohttp)
+    await sclient.start()
+    try:
+        await sclient.request(*reqs[0])
+        sparse = [(await sclient.request(*r))[3] for r in reqs[:4]]
+    finally:
+        await sclient.stop()
+    doc = {"gets": len(reqs), "bitpack_gets": aligned,
+           "k6_launches": launches["bitpack_fixed"],
+           "k3_launches": launches["jpeg_coefficients"],
+           "k4a_launches": launches["sparse_pack"],
+           "wall_ms": [o[3] for o in out],
+           "tile_p50_ms": statistics.median(o[3] for o in out[:4]),
+           "direct_sparse_tile_p50_ms": statistics.median(sparse),
+           "via": bclient.via}
+    print("bitpack: " + json.dumps(doc), flush=True)
+    check(launches["bitpack_fixed"] == aligned,
+          f"bitpack: K6 launched {launches['bitpack_fixed']} times for "
+          f"{aligned} MCU-aligned GETs")
+    return launches
+
+
+async def growth_phase(data_dir, lut_root, have_aiohttp) -> dict:
+    """Queue-pressure growth in the default app (prefetch off): 64
+    flagship tiles and their h-flips (one group key) first sequentially
+    (the raw cache warm, each body kept), then all 128 at once, more
+    than 16 in flight: every body equal to its sequential one, and the
+    batcher's counters must show groups above 8 (``max_batch`` grown to
+    its limit of 16).  Then 16 of them on host planes through a batcher
+    of ``max_batch`` 16: one group, its members staged through one
+    pinned buffer, each body equal to its sequential one.  Returns the
+    burst's kernel launches."""
+    from omero_ms_image_region_tpu_torch import codecs
+    from omero_ms_image_region_tpu_torch.server.batcher import (
+        BatchingRenderer)
+    from omero_ms_image_region_tpu_torch.server.ctx import ImageRegionCtx
+
+    config, handler = front_handler(data_dir, lut_root, {})
+    batcher = handler.s.renderer
+    check(batcher.max_batch == 8 and batcher.max_batch_limit == 16,
+          "growth: the default batcher is not 8 growing to 16")
+    reqs = [("render_image_region",
+             {"tile": f"0,{i % 8},{i // 8},{TILE},{TILE}", "c": CH,
+              "m": "c", "format": "jpeg", **({"flip": "h"} if f else {})})
+            for f in (0, 1) for i in range(64)]
+    gclient = Client(config, handler, have_aiohttp)
+    await gclient.start()
+    try:
+        first = {}
+        for r in reqs:
+            status, _, body, _ = await gclient.request(*r)
+            check(status == 200, f"growth {r[1]}: HTTP {status}")
+            first[json.dumps(r[1], sort_keys=True)] = body
+        stats = Batches(batcher)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        out = await asyncio.gather(*(gclient.request(*r) for r in reqs))
+        wall = time.perf_counter() - t0
+        await settled(batcher)
+        launches = launch_counts()
+        groups = stats.report()
+        for r, (status, _, body, _) in zip(reqs, out):
+            check(status == 200, f"growth burst {r[1]}: HTTP {status}")
+            check(body == first[json.dumps(r[1], sort_keys=True)],
+                  f"growth burst {r[1]}: body differs from its "
+                  f"sequential serve")
+        # One group of 16 members on host planes: the pinned group
+        # buffer at B = 16 (128 MiB of uint16).
+        ctxs = [ImageRegionCtx.from_params(params_of(*r))
+                for r in reqs[:16]]
+        reads = [await handler.read(c) for c in ctxs]
+        host_batcher = BatchingRenderer(DEVICE, max_batch=16)
+        try:
+            bodies = await asyncio.gather(*(
+                host_batcher.render_jpeg(
+                    raw, st, codecs.quality_percent(c.compression_quality),
+                    raw.shape[2], raw.shape[1], c.flip_horizontal,
+                    c.flip_vertical) for c, (raw, st) in zip(ctxs, reads)))
+        finally:
+            await host_batcher.close()
+        for r, body in zip(reqs, bodies):
+            check(body == first[json.dumps(r[1], sort_keys=True)],
+                  f"growth host group {r[1]}: body differs from its "
+                  f"sequential serve")
+        doc = dict(groups, gets=len(reqs), wall_ms=wall * 1e3,
+                   tiles_per_s=len(reqs) / wall,
+                   max_batch=batcher.max_batch,
+                   max_batch_limit=batcher.max_batch_limit,
+                   host_planes_group_sizes=dict(host_batcher.group_sizes),
+                   launches=launches, via=gclient.via)
+        print("growth: " + json.dumps(doc), flush=True)
+        check(max(groups["group_sizes"]) > 8,
+              "growth: no group above 8 tiles in the burst")
+        check(dict(host_batcher.group_sizes) == {16: 1},
+              "growth: the 16 host-plane members were not one group")
+    finally:
+        await gclient.stop()
+        await batcher.close()
+    return launches
+
+
 async def huffman_phase(torch, np, client, data_dir, lut_root, have_aiohttp,
                         have_pil, e2e, rc, tiles) -> dict:
     """``renderer.jpeg-engine: huffman`` through the default app (prefetch
@@ -4844,6 +5228,10 @@ async def serve_phase(torch, np, data_dir, lut_root, have_aiohttp,
             e2e, rc, tiles)
         workload_launches["byte_cache"] = await byte_cache_phase(
             data_dir, lut_root, have_aiohttp, rc)
+        workload_launches["bitpack"] = await bitpack_phase(
+            torch, np, data_dir, lut_root, have_aiohttp, tiles)
+        workload_launches["growth"] = await growth_phase(
+            data_dir, lut_root, have_aiohttp)
         await access_log_phase(data_dir, lut_root, have_aiohttp)
 
         # Device busy share: 8 sequential cold GETs, and 32 cold GETs at
@@ -5016,7 +5404,13 @@ def main() -> int:
                                                          args8)
     entries.update(huffman_entries)
     entries["compact_rows"]["huffman_rows"] = huffman_rows
+    entries.update(bitpack_kernel_phase(torch, np, raw8, args8))
     del raw8, args8
+    torch.cuda.empty_cache()
+    b16 = b16_kernel_phase(torch, np)
+    for name, ms in b16["ms"].items():
+        entries[name]["b16_ms"] = ms
+        entries[name]["b16_exact"] = True
     torch.cuda.empty_cache()
     workload_entries = workloads_kernel_phase(torch, np)
     workload_entries.update(pyramid_kernel_phase(torch, np))
@@ -5049,11 +5443,16 @@ def main() -> int:
     for name, e in entries.items():
         e["launches"] = launches[name]
         e["serve_launches"] = serve_launches[name]
-    # K5's path is the Huffman engine's serve (the huffman phase).
+    # K5's path is the Huffman engine's serve (the huffman phase), K6's
+    # the direct bitpack app's (the bitpack phase).
     entries["huffman_pack"]["launches"] = workload_launches["huffman"][
         "huffman_pack"]
     check(entries["huffman_pack"]["launches"] >= 1,
           "huffman_pack was not launched by the huffman phase")
+    entries["bitpack_fixed"]["launches"] = workload_launches["bitpack"][
+        "bitpack_fixed"]
+    check(entries["bitpack_fixed"]["launches"] >= 1,
+          "bitpack_fixed was not launched by the bitpack phase")
     for name, e in workload_entries.items():
         e["launches"] = sum(p[name] for p in workload_launches.values())
         check(e["launches"] >= 1,
@@ -5070,6 +5469,8 @@ def main() -> int:
         e["workload_launches"] = {phase: p[name] for phase, p in
                                   workload_launches.items()}
         e["card"], e["power_limit"] = [s.strip() for s in smi.split(",")]
+    check(len(entries) == 12, f"the kernel line lists {len(entries)} "
+                              f"kernels, not 12")
     print(json.dumps({"kernels": list(entries.values())}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

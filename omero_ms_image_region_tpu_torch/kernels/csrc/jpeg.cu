@@ -1,6 +1,6 @@
 // JPEG front end and device wires for Hopper (sm_90a): packed RGBA ->
 // quantized zigzag coefficients -> the sparse wire or the Huffman wire ->
-// compacted rows.
+// compacted rows, or the full-grid Huffman stream of the bitpack engine.
 //
 // Counterparts of the JAX package's XLA device programs
 // render_to_jpeg_sparse_compact and render_to_jpeg_huffman_compact
@@ -99,6 +99,26 @@
 //       a thread's work is its block's nonzeros (about five a block at
 //       the flagship's q 85), so the integer work per nonzero and the
 //       load latency, not the bytes, set the time.
+//   bitpack_fixed (K6) replaces _bitpack_fixed (:833-945), the engine of
+//       render_to_jpeg_bits (:948) and TpuJpegEncoder (:1307), the direct
+//       renderer's bitpack engine.  Per tile the words u32[cap_words] of
+//       the same full-grid stream as K5's (every block in MCU scan order,
+//       the order given as the scan map _mcu_scan_index, :807), with no
+//       compaction, no row header and no budget retry, and its whole
+//       length in bits.  The JAX function deposits every field by a
+//       scatter-add of int32 values into the one or two words it touches;
+//       here each thread codes one block twice: once for its length (a
+//       block scan and a decoupled lookback over the tile's chunks of 128
+//       blocks give its first bit, as in K5) and once to deposit its
+//       fields with JAX's int32 shifts, summing a word's adds in
+//       registers, storing a word inside the block plainly and adding
+//       the block's first and last words, which neighbours share, with
+//       a global atomicAdd.  Adds, not ors: a clamped category-11 field
+//       carries sign bits past its length into its word, and JAX adds
+//       them.  Words at or past cap_words are dropped.  One memset (the
+//       words and a status word a chunk) and one launch.  Bound: bytes,
+//       the coefficients read and the used words written; as K5, a
+//       thread's work is its block's nonzeros and the word atomics.
 //
 // Numerics of K3 follow one fixed order: the order in which XLA's CPU
 // backend evaluates the JAX function, found by matching its float32 results
@@ -1289,6 +1309,285 @@ huffman_pack_kernel(const int16_t* __restrict__ y,
   }
 }
 
+// K6.  One tile's full-grid fixed-table stream in one pass: the words and
+// the status words are zeroed by one memset, then CTA x takes chunk c = x
+// % parts of tile b = x / parts: the kBitBlocks coefficient blocks from
+// c * kBitBlocks in scan order (fewer in a tile's ragged last chunk), one
+// thread a block.  The block at scan position g is blocks[b][scan[g]].
+constexpr int kBitThreads = 128;
+constexpr int kBitBlocks = kBitThreads;
+constexpr int kBitWarps = kBitThreads / 32;
+
+// Amplitude bits as _amplitude (:828) gives them in int32: the value, or
+// for a negative one v + 2^s - 1, not cut to s bits (a clamped category
+// 11 keeps its high bits, as in the JAX stream).
+__device__ __forceinline__ int32_t bit_amplitude(int v, int s) {
+  return v >= 0 ? v : v + (1 << s) - 1;
+}
+
+// A thread's deposit of its block's fields, the JAX deposit (:918-935)
+// field by field: a field of `len` bits at stream bit `pos` adds c0 to
+// word pos >> 5 and, when it crosses, c1 to the next word, in int32 with
+// JAX's shifts (arithmetic right shifts).  The adds into a word are summed
+// in registers and the word leaves once the fields have moved past it: a
+// word inside the block by a plain store (no other block's field touches
+// it), the block's first and last words, which its neighbours can share,
+// by a global atomicAdd (add, as JAX adds; for fields of disjoint bits
+// that is or).  Words at or past `cap` are dropped.
+struct BitDeposit {
+  uint32_t* words;
+  long long cap, first, last, cw, pos;
+  uint32_t cur, nxt;
+
+  __device__ __forceinline__ void store(long long m, uint32_t v) const {
+    if (v == 0u || m >= cap) return;
+    if (m == first || m == last)
+      atomicAdd(words + m, v);
+    else
+      words[m] = v;
+  }
+
+  __device__ __forceinline__ void put(int32_t val, int len) {
+    if (len <= 0) return;
+    const long long w = pos >> 5;
+    const int r = static_cast<int>(pos & 31);
+    if (w != cw) {
+      store(cw, cur);
+      if (w == cw + 1) {
+        cur = nxt;
+      } else {
+        store(cw + 1, nxt);
+        cur = 0u;
+      }
+      nxt = 0u;
+      cw = w;
+    }
+    const int sh0 = 32 - r - len;
+    cur += sh0 >= 0 ? static_cast<uint32_t>(val) << min(sh0, 31)
+                    : static_cast<uint32_t>(val >> min(-sh0, 31));
+    const int sh1 = 64 - r - len;
+    if (sh1 < 32) nxt += static_cast<uint32_t>(val) << (max(sh1, 0) & 31);
+    pos += len;
+  }
+
+  __device__ __forceinline__ void finish() const {
+    store(cw, cur);
+    store(cw + 1, nxt);
+  }
+};
+
+// Chunk c of tile b in four phases:
+//  1. loads: the chunk's coefficient blocks (gathered through the scan
+//     map) to shared memory in 16-byte pieces, eight neighbouring threads
+//     a block, and the spec's codes.
+//  2. lengths: thread j takes block j: its nonzero mask, its DC
+//     difference along its component's chain (Y over the MCU's four
+//     slots in turn, Cb and Cr over the MCUs; the predecessor may lie in
+//     the previous chunk), and the bit length of its fields: DC code and
+//     amplitude, per nonzero AC coefficient z ZRL codes (the f0 pair and
+//     f1) and the run/size code and amplitude (f2), the EOB unless
+//     position 63 is nonzero.  A block scan gives each block's chunk-local
+//     bit start; the chunk's aggregate is published.
+//  3. lookback: warp 0 reads the tile's earlier chunks' status words, 32
+//     at a time, nearest first, until an inclusive one, and publishes the
+//     chunk's inclusive prefix: the chunk's first stream bit s0.
+//  4. deposit: thread j walks its fields again and deposits them at
+//     their stream bits (BitDeposit).  The tile's last chunk writes its
+//     total bits.
+__global__ void __launch_bounds__(kBitThreads)
+bitpack_fixed_kernel(const int16_t* __restrict__ blocks, int nb,
+                     const int32_t* __restrict__ scan, int parts,
+                     FastDiv div_parts, int vec,
+                     const int32_t* __restrict__ spec,
+                     uint32_t* __restrict__ words, long long cap_words,
+                     int32_t* __restrict__ total_bits,
+                     unsigned long long* status) {
+  __shared__ __align__(16) int16_t s_coef[kBitBlocks * kHuffStride];
+  __shared__ uint32_t s_ac[256];          // ac_len << 16 | ac_code
+  __shared__ uint32_t s_dcs[12];          // dc_len << 16 | dc_code
+  __shared__ int s_start[kBitBlocks];
+  __shared__ unsigned s_warp[kBitWarps];
+  __shared__ unsigned s_excl;
+  const int b = divide_by(static_cast<int>(blockIdx.x), div_parts);
+  const int c = static_cast<int>(blockIdx.x) - b * parts;
+  const int g0 = c * kBitBlocks;
+  const int n = min(kBitBlocks, nb - g0);
+  const int j = threadIdx.x, lane = j & 31, wid = j >> 5;
+  const int16_t* tile = blocks + static_cast<long long>(b) * nb * 64;
+
+  // 1. Loads.
+  uint4 piece[8];
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    const int p = r * kBitThreads + j, jj = p >> 3, part = p & 7;
+    piece[r] = make_uint4(0u, 0u, 0u, 0u);
+    if (jj < n) {
+      const int16_t* src =
+          tile + static_cast<long long>(__ldg(scan + g0 + jj)) * 64 +
+          8 * part;
+      if (vec) {
+        piece[r] = __ldg(reinterpret_cast<const uint4*>(src));
+      } else {
+        uint32_t* w = &piece[r].x;
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          w[i] = static_cast<uint16_t>(__ldg(src + 2 * i)) |
+                 static_cast<uint32_t>(static_cast<uint16_t>(
+                     __ldg(src + 2 * i + 1))) << 16;
+      }
+    }
+  }
+  for (int i = j; i < 256; i += kBitThreads)
+    s_ac[i] = static_cast<uint32_t>(__ldg(spec + kSpecAcLen + i)) << 16 |
+              (static_cast<uint32_t>(__ldg(spec + kSpecAcCode + i)) &
+               0xFFFFu);
+  if (j < 12)
+    s_dcs[j] = static_cast<uint32_t>(__ldg(spec + kSpecDcLen + j)) << 16 |
+               (static_cast<uint32_t>(__ldg(spec + kSpecDcCode + j)) &
+                0xFFFFu);
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    const int p = r * kBitThreads + j, jj = p >> 3, part = p & 7;
+    if (jj < n)
+      *reinterpret_cast<uint4*>(s_coef + jj * kHuffStride + 8 * part) =
+          piece[r];
+  }
+  __syncthreads();
+
+  // 2. Lengths.
+  int len = 0, diff = 0;
+  unsigned long long mask = 0ull;       // bit k: position k is nonzero
+  const int16_t* blk = s_coef + j * kHuffStride;
+  const uint32_t zrl = s_ac[0xF0];
+  const int zl = static_cast<int>(zrl >> 16);
+  if (j < n) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const uint4 v = reinterpret_cast<const uint4*>(blk)[i];
+      const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int h = 0; h < 4; ++h) {
+        const unsigned two = ((w[h] & 0xFFFFu) != 0u ? 1u : 0u) |
+                             ((w[h] >> 16) != 0u ? 2u : 0u);
+        mask |= static_cast<unsigned long long>(two) << (8 * i + 2 * h);
+      }
+    }
+    // The DC chains: Y1..Y3 from the Y before them in the MCU, Y0 from
+    // the previous MCU's Y3, Cb and Cr from their own block one MCU back;
+    // 0 before the tile's first MCU.
+    const int g = g0 + j, m = g / 6, slot = g - 6 * m;
+    int pred = 0;
+    if ((slot >= 1 && slot <= 3) || m > 0) {
+      const int pg = slot >= 1 && slot <= 3 ? g - 1 : g - (slot ? 6 : 3);
+      pred = pg >= g0 ? s_coef[(pg - g0) * kHuffStride]
+                      : __ldg(tile + static_cast<long long>(
+                                         __ldg(scan + pg)) * 64);
+    }
+    diff = blk[0] - pred;
+    const int sc = huff_category(diff);
+    len = static_cast<int>(s_dcs[sc] >> 16) + sc;
+    unsigned long long rest = mask & ~1ull;
+    int prev = 0;
+    while (rest != 0ull) {
+      const int k = __ffsll(static_cast<long long>(rest)) - 1;
+      rest &= rest - 1ull;
+      const int run = k - prev - 1;
+      prev = k;
+      const int s = huff_category(blk[k]);
+      len += (run >> 4) * zl +
+             static_cast<int>(s_ac[((run & 15) << 4) | s] >> 16) + s;
+    }
+    if ((mask >> 63) == 0ull) len += static_cast<int>(s_ac[0] >> 16);
+  }
+  // The chunk scan: each block's chunk-local bit start.
+  int incl = len;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int t = __shfl_up_sync(0xFFFFFFFFu, incl, d);
+    if (lane >= d) incl += t;
+  }
+  if (lane == 31) s_warp[wid] = incl;
+  __syncthreads();
+  unsigned agg = 0u;
+#pragma unroll
+  for (int w = 0; w < kBitWarps; ++w) {
+    if (w < wid) incl += s_warp[w];
+    agg += s_warp[w];
+  }
+  s_start[j] = incl - len;
+  if (j == 0)
+    publish(status + static_cast<long long>(b) * parts + c,
+            (c == 0 ? kInclusive : kAggregate) | agg);
+
+  // 3. Lookback.
+  if (wid == 0) {
+    unsigned excl = 0u;
+    if (c > 0) {
+      unsigned long long* st = status + static_cast<long long>(b) * parts;
+      for (int i = c - 1;; i -= 32) {
+        const int idx = i - lane;
+        unsigned long long s = idx >= 0 ? peek(st + idx) : kInclusive;
+        while (__any_sync(0xFFFFFFFFu, (s >> 62) == 0))
+          if ((s >> 62) == 0) s = peek(st + idx);
+        const unsigned done = __ballot_sync(0xFFFFFFFFu, (s >> 62) == 2);
+        const int stop = done ? __ffs(done) - 1 : 31;
+        unsigned bits = lane <= stop ? static_cast<unsigned>(s) : 0u;
+#pragma unroll
+        for (int d = 16; d > 0; d >>= 1)
+          bits += __shfl_xor_sync(0xFFFFFFFFu, bits, d);
+        excl += bits;
+        if (done) break;
+      }
+      if (lane == 0) publish(st + c, kInclusive | (excl + agg));
+    }
+    if (lane == 0) s_excl = excl;
+  }
+  __syncthreads();
+
+  // 4. Deposit.
+  const long long s0 = s_excl;
+  if (j < n) {
+    const long long lo = s0 + s_start[j];
+    BitDeposit out{words + static_cast<long long>(b) * cap_words, cap_words,
+                   lo >> 5, (lo + len - 1) >> 5, lo >> 5, lo, 0u, 0u};
+    int sc = huff_category(diff);
+    uint32_t code = s_dcs[sc];
+    out.put(static_cast<int32_t>((code & 0xFFFFu) << sc) |
+                bit_amplitude(diff, sc),
+            static_cast<int>(code >> 16) + sc);
+    const int32_t zc = static_cast<int32_t>(zrl & 0xFFFFu);
+    unsigned long long rest = mask & ~1ull;
+    int prev = 0;
+    while (rest != 0ull) {
+      const int k = __ffsll(static_cast<long long>(rest)) - 1;
+      rest &= rest - 1ull;
+      const int v = blk[k];
+      const int run = k - prev - 1;
+      prev = k;
+      const int z = run >> 4;
+      if (z >= 2)
+        out.put(static_cast<int32_t>(static_cast<uint32_t>(zc) << zl) | zc,
+                2 * zl);
+      else if (z == 1)
+        out.put(zc, zl);
+      if (z >= 3) out.put(zc, zl);
+      sc = huff_category(v);
+      code = s_ac[((run & 15) << 4) | sc];
+      out.put(static_cast<int32_t>((code & 0xFFFFu) << sc) |
+                  bit_amplitude(v, sc),
+              static_cast<int>(code >> 16) + sc);
+    }
+    if ((mask >> 63) == 0ull) {          // EOB: position 63 is zero
+      code = s_ac[0];
+      out.put(static_cast<int32_t>(code & 0xFFFFu),
+              static_cast<int>(code >> 16));
+    }
+    out.finish();
+  }
+  if (c == parts - 1 && j == 0)
+    total_bits[b] = static_cast<int32_t>(s0 + agg);
+}
+
 int resident_blocks(const void* kernel, int threads, int fallback,
                     size_t smem = 0) {
   int dev = 0, sms = 0, per_sm = 0;
@@ -1454,5 +1753,49 @@ extern "C" int huffman_pack_launch(const void* y, const void* cb,
       static_cast<const int16_t*>(cr), static_cast<int>(nmcu), w16,
       fast_div(w16), parts, fast_div(parts), vec,
       static_cast<const int32_t*>(spec), o8, width, cap_words, st);
+  return cudaGetLastError();
+}
+
+// K6.  blocks i16[B, nb, 64] ([Y|Cb|Cr] raster blocks, zigzagged); scan
+// i32[nb], the raster index of each scan position (ops/jpegenc.py
+// _mcu_scan_index, nb = 6 n_mcu); spec i32[1024] as K5's; buf holds the
+// words u32[B, cap_words], then at the next multiple of 8 bytes the status
+// words u64[status_words], at least bitpack_fixed_status_words(B, nb), one
+// per chunk of kBitBlocks blocks; total_bits i32[B].  One memset of buf,
+// one launch.
+extern "C" long long bitpack_fixed_status_words(int B, long long nb) {
+  return static_cast<long long>(B) * ((nb + kBitBlocks - 1) / kBitBlocks);
+}
+
+extern "C" int bitpack_fixed_launch(const void* blocks, int B, long long nb,
+                                    const void* scan, const void* spec,
+                                    long long cap_words, void* buf,
+                                    long long status_words,
+                                    void* total_bits, void* stream) {
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (B < 1 || nb < 6 || nb % 6 != 0 || cap_words < 0)
+    return cudaErrorInvalidValue;
+  if ((reinterpret_cast<uintptr_t>(blocks) & 1u) != 0 ||
+      (reinterpret_cast<uintptr_t>(buf) & 7u) != 0)
+    return cudaErrorMisalignedAddress;
+  const long long words = bitpack_fixed_status_words(B, nb);
+  // Bit counts are u32 in the status words and i32 in total_bits: at most
+  // 1728 bits a block, 2^20 blocks a tile.
+  if (nb > (1LL << 20) || words > 0x7FFFFFFFLL)
+    return cudaErrorInvalidConfiguration;
+  if (status_words < words) return cudaErrorInvalidValue;
+  const int parts = static_cast<int>(words / B);
+  const long long wbytes = (static_cast<long long>(B) * cap_words * 4 + 7) /
+                           8 * 8;
+  auto* o8 = static_cast<uint8_t*>(buf);
+  auto* st = reinterpret_cast<unsigned long long*>(o8 + wbytes);
+  const int vec = (reinterpret_cast<uintptr_t>(blocks) & 15u) == 0;
+  cudaError_t err = cudaMemsetAsync(buf, 0, wbytes + 8 * words, s);
+  if (err != cudaSuccess) return err;
+  bitpack_fixed_kernel<<<static_cast<unsigned>(words), kBitThreads, 0, s>>>(
+      static_cast<const int16_t*>(blocks), static_cast<int>(nb),
+      static_cast<const int32_t*>(scan), parts, fast_div(parts), vec,
+      static_cast<const int32_t*>(spec), reinterpret_cast<uint32_t*>(o8),
+      cap_words, static_cast<int32_t*>(total_bits), st);
   return cudaGetLastError();
 }

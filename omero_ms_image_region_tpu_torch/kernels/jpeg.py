@@ -10,14 +10,17 @@ Counterparts of the stages of the JAX package's device program
 * :func:`compact_rows` (K4b) replaces ``_compact_rows`` (``:400``) with the
   row lengths of ``:457-464`` (sparse rows) or ``:486-492`` (Huffman rows);
 * :func:`huffman_pack` (K5) replaces ``huffman_pack`` (``:991``), the
-  engine of ``render_to_jpeg_huffman_compact`` (``:470``).
+  engine of ``render_to_jpeg_huffman_compact`` (``:470``);
+* :func:`bitpack_fixed` (K6) replaces ``_bitpack_fixed`` (``:833``), the
+  engine of ``render_to_jpeg_bits`` (``:948``) and ``TpuJpegEncoder``
+  (``:1307``): the direct renderer's ``bitpack`` engine.
 
-All four live in ``csrc/jpeg.cu`` behind a plain ``extern "C"`` interface,
+All five live in ``csrc/jpeg.cu`` behind a plain ``extern "C"`` interface,
 built and loaded by :mod:`.build` on first use; a build failure raises.
 Each wrapper takes CUDA tensors only, checks them, allocates its outputs
-(and K4a's and K5's status words) with ``torch.empty``, launches on the current
-stream, raises if a launch was refused, and counts one launch in
-:data:`LAUNCHES` per call.
+(and K4a's, K5's and K6's status words) with ``torch.empty``, launches on
+the current stream, raises if a launch was refused, and counts one launch
+in :data:`LAUNCHES` per call.
 The plain PyTorch versions are in ``ops/jpegenc.py``, whose dispatchers
 send CPU tensors there and CUDA tensors here.
 """
@@ -40,9 +43,12 @@ ENTRY_BITS = 18
 # K5's chunk: the coefficient blocks one CTA codes (csrc/jpeg.cu
 # kHuffBlocks).
 HUFF_CHUNK_BLOCKS = 128
+# K6's chunk (csrc/jpeg.cu kBitBlocks).
+BIT_CHUNK_BLOCKS = 128
 
 LAUNCHES: Dict[str, int] = {"jpeg_coefficients": 0, "sparse_pack": 0,
-                            "compact_rows": 0, "huffman_pack": 0}
+                            "compact_rows": 0, "huffman_pack": 0,
+                            "bitpack_fixed": 0}
 # K4b's row modes (csrc/jpeg.cu kSparseRows, kHuffmanRows).
 SPARSE_ROWS, HUFFMAN_ROWS = 0, 1
 _launch_lock = threading.Lock()
@@ -70,8 +76,12 @@ def _configure(lib: ctypes.CDLL) -> None:
     lib.huffman_pack_launch.argtypes = [p, p, p, i, i, i, p, ll, p, ll, p]
     lib.huffman_pack_status_words.argtypes = [i, ll]
     lib.huffman_pack_status_words.restype = ll
+    lib.bitpack_fixed_launch.argtypes = [p, i, ll, p, p, ll, p, ll, p, p]
+    lib.bitpack_fixed_status_words.argtypes = [i, ll]
+    lib.bitpack_fixed_status_words.restype = ll
     for fn in (lib.jpeg_coefficients_launch, lib.sparse_pack_launch,
-               lib.compact_rows_launch, lib.huffman_pack_launch):
+               lib.compact_rows_launch, lib.huffman_pack_launch,
+               lib.bitpack_fixed_launch):
         fn.restype = ctypes.c_int
 
 
@@ -247,3 +257,48 @@ def huffman_pack(y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor,
             spec.data_ptr(), cap_words, buf.data_ptr(), words, stream)
     _launched("huffman_pack", err)
     return buf[:B * width].view(B, width)
+
+
+def bitpack_fixed(blocks: torch.Tensor, scan_idx: torch.Tensor,
+                  spec: torch.Tensor, cap_words: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K6: zigzag coefficients i16[B, nb, 64] ([Y|Cb|Cr] raster blocks)
+    -> ``(words, total_bits)``: each tile's fixed-table Huffman stream as
+    the bits of u32 words in i32[B, cap_words] (words at or past
+    ``cap_words`` dropped) and its whole length in bits, i32[B].
+    ``scan_idx`` i32[nb / 6, 6] is ``ops.jpegenc._mcu_scan_index`` on the
+    card, ``spec`` the i32[1024] block of ``ops.jpegenc.spec_tensor``.
+    ``ops.jpegenc.bitpack_fixed_plain`` is the same function.  One memset
+    and one launch on the current stream; the words are a view of a
+    buffer that also holds the chunks' status words (8 bytes a chunk of
+    :data:`BIT_CHUNK_BLOCKS` blocks)."""
+    dev = _cuda("bitpack_fixed", blocks, scan_idx, spec)
+    if blocks.dtype != torch.int16 or blocks.dim() != 3 \
+            or blocks.shape[2] != 64:
+        raise ValueError(f"blocks must be i16[B, nb, 64], got "
+                         f"{blocks.dtype} {tuple(blocks.shape)}")
+    B, nb = blocks.shape[:2]
+    if nb < 6 or nb % 6:
+        raise ValueError(f"{nb} blocks a tile are no whole MCUs")
+    if scan_idx.dtype != torch.int32 or scan_idx.numel() != nb:
+        raise ValueError(f"scan_idx must be i32 with {nb} entries")
+    if spec.dtype != torch.int32 or spec.numel() != 1024:
+        raise ValueError("spec must be i32[1024]")
+    if cap_words < 0:
+        raise ValueError(f"cap_words must be >= 0, got {cap_words}")
+    bits = torch.empty((B,), dtype=torch.int32, device=dev)
+    if B == 0:
+        return torch.empty((0, cap_words), dtype=torch.int32,
+                           device=dev), bits
+    lib = library()
+    status = lib.bitpack_fixed_status_words(B, nb)
+    wbytes = (B * cap_words * 4 + 7) // 8 * 8
+    buf = torch.empty((wbytes + 8 * status,), dtype=torch.uint8, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.bitpack_fixed_launch(
+            blocks.data_ptr(), B, nb, scan_idx.data_ptr(), spec.data_ptr(),
+            cap_words, buf.data_ptr(), status, bits.data_ptr(), stream)
+    _launched("bitpack_fixed", err)
+    words = buf[:B * cap_words * 4].view(torch.int32).view(B, cap_words)
+    return words, bits

@@ -1040,3 +1040,260 @@ def pad_planes_to_mcu(raw, target_h: Optional[int] = None,
     src = raw.view(torch.int16) if raw.dtype == torch.uint16 else raw
     padded = src[:, rows[:, None], cols[None, :]]
     return padded.view(torch.uint16) if raw.dtype == torch.uint16 else padded
+
+
+# ------------------------------------------- K6: the bitpack engine
+
+@functools.lru_cache(maxsize=16)
+def _mcu_scan_index(h16: int, w16: int) -> np.ndarray:
+    """[n_mcu, 6] flat block indices (into [Y|Cb|Cr] raster blocks) in
+    interleaved MCU scan order: 2x2 Y, then Cb, then Cr (T.81 A.2.3)."""
+    nb_y = h16 * w16 * 4
+    yw = w16 * 2
+    my, mx = np.divmod(np.arange(h16 * w16), w16)
+    idx = np.stack([
+        (2 * my) * yw + 2 * mx, (2 * my) * yw + 2 * mx + 1,
+        (2 * my + 1) * yw + 2 * mx, (2 * my + 1) * yw + 2 * mx + 1,
+        nb_y + my * w16 + mx,
+        nb_y + h16 * w16 + my * w16 + mx,
+    ], axis=1)
+    return idx.astype(np.int32)
+
+
+def scan_index_tensor(h16: int, w16: int, device) -> torch.Tensor:
+    """:func:`_mcu_scan_index` as i32[n_mcu, 6] on ``device`` (cached)."""
+    return _scan_index_tensor(h16, w16, str(torch.device(device)))
+
+
+@functools.lru_cache(maxsize=16)
+def _scan_index_tensor(h16: int, w16: int, device: str) -> torch.Tensor:
+    return torch.from_numpy(_mcu_scan_index(h16, w16)).to(device)
+
+
+def bitpack_fixed_plain(blocks: torch.Tensor, scan_idx, dc_code, dc_len,
+                        ac_code, ac_len, cap_words: int
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch K6, the tensor twin of the JAX ``_bitpack_fixed``
+    (``ops/jpegenc.py:833``) over a batch: zigzag coefficients i16[B, nb,
+    64] ([Y|Cb|Cr] raster blocks) -> ``(words, total_bits)``, the u32
+    words of each tile's Huffman stream as i32[B, cap_words] (bit 0 of the
+    stream is the MSB of word 0) and its full length in bits, i32[B].
+
+    The fields in stream order, each block in MCU scan order
+    (``scan_idx``, :func:`_mcu_scan_index`): the DC difference along its
+    component's chain (Y over the four slots of each MCU in turn, Cb and
+    Cr over the MCUs), then per AC coefficient the ZRL pair f0 (two ZRL
+    codes as one field), the third ZRL f1 and the coefficient's run/size
+    code and amplitude f2, then the EOB unless position 63 is nonzero.
+    One exclusive cumsum turns the lengths into bit starts, and one int64
+    ``index_add_`` deposits every field into at most two words: fields own
+    disjoint bits, so add is or, as in JAX.  The arithmetic is JAX's int32
+    arithmetic in int64 (the same low 32 bits), so a category-11 clamp
+    (a DC difference of 2048 or more) packs the same words as JAX.  Words
+    at or past ``cap_words`` are dropped; ``total_bits`` is always the
+    whole stream's."""
+    B = blocks.shape[0]
+    dev = blocks.device
+    i64 = torch.int64
+    sidx = torch.as_tensor(scan_idx).to(device=dev, dtype=i64)
+    dc_code, dc_len, ac_code, ac_len = (
+        torch.as_tensor(np.asarray(a)).to(device=dev, dtype=i64)
+        for a in (dc_code, dc_len, ac_code, ac_len))
+    v = blocks.to(i64)[:, sidx]                       # [B, n_mcu, 6, 64]
+    n_mcu = v.shape[1]
+
+    # DC difference chains, one per component.
+    dc = v[..., 0]
+
+    def chain(x):
+        flat = x.reshape(B, -1)
+        prev = torch.cat([torch.zeros_like(flat[:, :1]), flat[:, :-1]],
+                         dim=1)
+        return (flat - prev).reshape(x.shape)
+    dcdiff = torch.cat([chain(dc[..., :4]), chain(dc[..., 4:5]),
+                        chain(dc[..., 5:6])], dim=2)
+    s_dc = _category_t(dcdiff)
+    dc_f_val = (dc_code[s_dc] << s_dc) | _amplitude_t(dcdiff, s_dc)
+    dc_f_len = dc_len[s_dc] + s_dc
+
+    # AC run-lengths from the gap to the previous nonzero position.
+    ac = v[..., 1:]                                   # [B, n_mcu, 6, 63]
+    nz = ac != 0
+    k = torch.arange(1, 64, dtype=i64, device=dev)
+    zero = torch.zeros_like(ac)
+    prev_incl = torch.cummax(torch.where(nz, k, zero), dim=-1).values
+    prev = torch.cat([torch.zeros_like(prev_incl[..., :1]),
+                      prev_incl[..., :-1]], dim=-1)
+    run = k - prev - 1
+    z = torch.where(nz, run >> 4, zero)
+    s_ac = _category_t(ac)
+    sym = ((run & 15) << 4) | s_ac
+    f2_val = torch.where(nz, (ac_code[sym] << s_ac)
+                         | _amplitude_t(ac, s_ac), zero)
+    f2_len = torch.where(nz, ac_len[sym] + s_ac, zero)
+    zc, zl = ac_code[0xF0], ac_len[0xF0]              # ZRL
+    f0_len = torch.clamp(z, max=2) * zl
+    f0_val = torch.where(z >= 2, (zc << zl) | zc,
+                         torch.where(z == 1, zc, zero))
+    f1_len = torch.where(z >= 3, zl, zero)
+    f1_val = torch.where(z >= 3, zc, zero)
+    has_eob = prev_incl[..., -1] < 63
+    eob_val = torch.where(has_eob, ac_code[0], torch.zeros_like(dc_f_val))
+    eob_len = torch.where(has_eob, ac_len[0], torch.zeros_like(dc_f_len))
+
+    # Stream offsets: [dc | (f0 f1 f2) per coefficient | eob] per block,
+    # blocks in scan order.
+    coeff_len = f0_len + f1_len + f2_len
+    within = torch.cumsum(coeff_len, dim=-1)
+    block_ac_bits = within[..., -1]
+    block_bits = dc_f_len + block_ac_bits + eob_len   # [B, n_mcu, 6]
+    block_end = torch.cumsum(block_bits.reshape(B, -1), dim=1).reshape(
+        B, n_mcu, 6)
+    block_start = block_end - block_bits
+    total_bits = block_end.reshape(B, -1)[:, -1]
+    f0_start = (block_start + dc_f_len)[..., None] + (within - coeff_len)
+    f1_start = f0_start + f0_len
+    f2_start = f1_start + f1_len
+    eob_start = block_start + dc_f_len + block_ac_bits
+
+    val = torch.cat([a.reshape(B, -1) for a in (
+        dc_f_val, f0_val, f1_val, f2_val, eob_val)], dim=1)
+    length = torch.cat([a.reshape(B, -1) for a in (
+        dc_f_len, f0_len, f1_len, f2_len, eob_len)], dim=1)
+    start = torch.cat([a.reshape(B, -1) for a in (
+        block_start, f0_start, f1_start, f2_start, eob_start)], dim=1)
+    w = start >> 5
+    r = start & 31
+    sh0 = 32 - r - length                     # in [-30, 32]
+    c0 = torch.where(sh0 >= 0, val << sh0.clamp(0, 31),
+                     val >> (-sh0).clamp(0, 31))
+    sh1 = 64 - r - length                     # in [2, 64]
+    c1 = torch.where(sh1 < 32, val << (sh1.clamp(min=0) & 31),
+                     torch.zeros_like(val))
+    live = length > 0
+    c0 = torch.where(live, c0, torch.zeros_like(c0))
+    c1 = torch.where(live, c1, torch.zeros_like(c1))
+    # One flat deposit over the batch; slot cap_words of each row takes
+    # the dropped words.
+    row = (torch.arange(B, device=dev, dtype=i64) * (cap_words + 1))[:, None]
+    words = torch.zeros(B * (cap_words + 1), dtype=i64, device=dev)
+    dump = torch.full_like(w, cap_words)
+    words.index_add_(0, (row + torch.where(w < cap_words, w, dump))
+                     .reshape(-1), c0.reshape(-1))
+    words.index_add_(0, (row + torch.where(w + 1 < cap_words, w + 1, dump))
+                     .reshape(-1), c1.reshape(-1))
+    words = words.reshape(B, cap_words + 1)[:, :cap_words] & 0xFFFFFFFF
+    words = torch.where(words >= 1 << 31, words - (1 << 32), words)
+    return words.to(torch.int32), total_bits.to(torch.int32)
+
+
+def bitpack_fixed(blocks: torch.Tensor, scan_idx, dc_code, dc_len,
+                  ac_code, ac_len, cap_words: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K6 dispatcher: :func:`bitpack_fixed_plain` for a CPU tensor, the
+    kernel (``kernels.jpeg.bitpack_fixed``) for a CUDA tensor, with
+    ``scan_idx`` (best :func:`scan_index_tensor`, already on the card) and
+    the code arrays as the card's i32 blocks."""
+    if blocks.device.type == "cpu":
+        return bitpack_fixed_plain(blocks, scan_idx, dc_code, dc_len,
+                                   ac_code, ac_len, cap_words)
+    from ..kernels import jpeg as kernels
+
+    idx = torch.as_tensor(scan_idx).to(device=blocks.device,
+                                       dtype=torch.int32)
+    spec = spec_tensor((dc_code, dc_len, ac_code, ac_len), blocks.device)
+    return kernels.bitpack_fixed(blocks, idx, spec, cap_words)
+
+
+def render_to_jpeg_bits(raw, window_start, window_end, family, coefficient,
+                        reverse, cd_start, cd_end, tables, quality: int,
+                        cap_words: int, flip_h: bool = False,
+                        flip_v: bool = False
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The JAX ``render_to_jpeg_bits`` (``:948``) on raw's device: K1 (or
+    K2), K3 and K6, raw [B, C, H, W] (H, W multiples of 16) to each
+    tile's fixed-table Huffman stream, ``(words i32[B, cap_words],
+    total_bits i32[B])``.  ``flip_h``/``flip_v`` mirror every tile in
+    K3's reads."""
+    from .render import render_tile_batch_packed
+
+    B, C, H, W = raw.shape
+    if H % 16 or W % 16:
+        raise ValueError(f"raw frame ({H}, {W}) is not a multiple of 16")
+    packed = render_tile_batch_packed(raw, window_start, window_end, family,
+                                      coefficient, reverse, cd_start,
+                                      cd_end, tables)
+    y, cb, cr = packed_to_jpeg_coefficients(packed, quality, H, W, flip_h,
+                                            flip_v)
+    return bits_from_coefficients(y, cb, cr, H, W, cap_words)
+
+
+def bits_from_coefficients(y, cb, cr, H: int, W: int, cap_words: int
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K6 over K3's coefficients of an (H, W) frame with the fixed
+    tables: the blocks joined as [Y|Cb|Cr] on their device, then the
+    bit pack."""
+    B = y.shape[0]
+    blocks = torch.cat([y.reshape(B, -1, 64), cb.reshape(B, -1, 64),
+                        cr.reshape(B, -1, 64)], dim=1)
+    return bitpack_fixed(blocks, scan_index_tensor(H // 16, W // 16,
+                                                   blocks.device),
+                         *huffman_spec_arrays(), cap_words)
+
+
+class BitpackJpegEncoder:
+    """The host side of the bitpack engine at one tile shape: the port's
+    counterpart of the JAX ``TpuJpegEncoder`` (``ops/jpegenc.py:1307``).
+
+    Holds the per-shape constants (the MCU scan map, the fixed Huffman
+    tables, the quality and the stream capacity, ``(H*W)//4 *
+    _quality_widen(q) // 4`` words unless ``cap_bytes`` is given) and
+    finishes fetched streams into JFIF files with
+    ``jfif.finish_fixed_stream``; a tile whose stream overflows the
+    capacity goes to ``dense_fallback(i)``."""
+
+    def __init__(self, H: int, W: int, quality: int = 85,
+                 cap_bytes: Optional[int] = None):
+        if H % 16 or W % 16:
+            raise ValueError("tile shape must be MCU (16) aligned")
+        self.H, self.W, self.quality = H, W, quality
+        self.cap_words = (cap_bytes or
+                          (H * W) // 4 * _quality_widen(quality)) // 4
+
+    def bits(self, y, cb, cr) -> Tuple[torch.Tensor, torch.Tensor]:
+        """K6 over coefficients of this shape on their device."""
+        return bits_from_coefficients(y, cb, cr, self.H, self.W,
+                                      self.cap_words)
+
+    def render_batch(self, raw, *settings_args, flip_h: bool = False,
+                     flip_v: bool = False):
+        """K1, K3 and K6 on raw's device; ``(words, total_bits)``."""
+        return render_to_jpeg_bits(raw, *settings_args, self.quality,
+                                   self.cap_words, flip_h, flip_v)
+
+    def finish_batch(self, words, bits, dense_fallback=None) -> list:
+        """Stream words (host or device) -> JFIF bytes per tile."""
+        from ..jfif import finish_fixed_stream
+        words = (words.cpu().numpy() if isinstance(words, torch.Tensor)
+                 else np.asarray(words)).view(np.uint32)
+        bits = (bits.cpu().numpy() if isinstance(bits, torch.Tensor)
+                else np.asarray(bits))
+        out = []
+        for i in range(words.shape[0]):
+            if bits[i] > self.cap_words * 32:
+                if dense_fallback is None:
+                    raise ValueError(
+                        f"stream overflow: {bits[i]} bits > cap")
+                out.append(dense_fallback(i))
+            else:
+                out.append(finish_fixed_stream(words[i], int(bits[i]),
+                                               self.W, self.H,
+                                               self.quality))
+        return out
+
+    def encode_batch(self, raw, *settings_args, dense_fallback=None,
+                     flip_h: bool = False, flip_v: bool = False) -> list:
+        return self.finish_batch(
+            *self.render_batch(raw, *settings_args, flip_h=flip_h,
+                               flip_v=flip_v),
+            dense_fallback=dense_fallback)

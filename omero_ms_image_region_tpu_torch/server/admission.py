@@ -25,8 +25,11 @@ was.  A request the global bound then refuses gets its token back.  A mask
 GET draws a token too (it has no global leg).  While the pressure
 governor's ``tighten_admission`` step is engaged (``server.pressure``), the
 bound is scaled by ``pressure.admission-scale`` and its sheds have reason
-``pressure``.  Not ported: the ``qos`` bulk cost: every request costs 1
-token, as with ``qos`` off in the JAX app.
+``pressure``.  With ``qos.enabled`` a bulk request (``pressure.is_bulk``:
+a projection or a full plane) draws ``qos.bulk-cost`` tokens, and its
+refund and Retry-After use the same cost; each fairness shed is counted by
+class in ``telemetry.QOS`` and recorded as a ``qos.shed`` flight event,
+as in the JAX app.
 
 Event-loop confined (``admit``/``release`` run on the loop thread), so no
 lock.
@@ -46,7 +49,8 @@ class SessionTokenBuckets:
     """Per-session token buckets over the request ctx's session key.
 
     Each session holds at most ``burst`` tokens, refilled at
-    ``refill_per_s``; a request costs 1 token.  The table is a bounded LRU
+    ``refill_per_s``; an interactive request costs 1 token, a bulk one
+    ``bulk_cost``.  The table is a bounded LRU
     (``max_sessions``): an evicted session starts again with a full burst.
     The key is ``ctx.omero_session_key`` as the session store resolved it
     (None: the shared anonymous bucket)."""
@@ -54,7 +58,7 @@ class SessionTokenBuckets:
     ANONYMOUS = ""
 
     def __init__(self, refill_per_s: float, burst: float,
-                 max_sessions: int = 4096,
+                 max_sessions: int = 4096, bulk_cost: float = 1.0,
                  clock: Callable[[], float] = time.monotonic):
         if refill_per_s <= 0:
             raise ValueError("bucket refill_per_s must be > 0")
@@ -62,13 +66,13 @@ class SessionTokenBuckets:
             raise ValueError("bucket burst must be >= 1")
         if max_sessions < 1:
             raise ValueError("bucket max_sessions must be >= 1")
+        if bulk_cost < 1:
+            raise ValueError("bucket bulk_cost must be >= 1")
         self.refill_per_s = float(refill_per_s)
         self.burst = float(burst)
         self.max_sessions = int(max_sessions)
+        self.bulk_cost = float(bulk_cost)
         self.clock = clock
-        # Every request costs 1 token (the JAX ``qos`` bulk cost is not
-        # ported); the explain plane reports it.
-        self.bulk_cost = 1.0
         # session -> [tokens, t_last]; event-loop confined.
         self._buckets: "OrderedDict[str, list]" = OrderedDict()
         self.taken_total = 0
@@ -174,15 +178,23 @@ class AdmissionController:
         buckets = self.session_buckets
         if buckets is None or ctx is None:
             return None
+        from .pressure import is_bulk
+        bulk = is_bulk(ctx)
+        cost = buckets.bulk_cost if bulk else 1.0
         session = ctx.omero_session_key
-        if buckets.try_take(session):
-            return (session, 1.0)
+        if buckets.try_take(session, cost):
+            return (session, cost)
         self.shed_total += 1
+        cls = "bulk" if bulk else "interactive"
         telemetry.RESILIENCE.count_shed("fairness")
+        telemetry.QOS.count_shed(cls)
+        telemetry.FLIGHT.record(
+            "qos.shed", reason="fairness", cls=cls,
+            session=(session or "-")[:16], cost=cost)
         raise OverloadedError(
             "session over its admission budget",
             retry_after_s=max(self.retry_after_s,
-                              buckets.retry_after_s(session)))
+                              buckets.retry_after_s(session, cost)))
 
     def refund_session(self, debit) -> None:
         """Give back an :meth:`admit_session` debit whose request the

@@ -334,7 +334,9 @@ def build_services(config: AppConfig,
                                     pipeline_depth=b.pipeline_depth,
                                     device_lanes=b.device_lanes,
                                     jpeg_engine=engine,
-                                    engine_controller=controller)
+                                    engine_controller=controller,
+                                    max_batch_limit=b.max_batch_limit,
+                                    target_inflight=b.target_inflight)
         # First-tile-out settlement rides the streaming knob: off, the
         # batcher settles a group's requests at its barrier.
         renderer.first_tile_out = config.wire.streaming
@@ -349,8 +351,10 @@ def build_services(config: AppConfig,
     raw_cache = (DeviceRawCache(rc.max_bytes, device=device,
                                 digest_index=rc.digest_dedup)
                  if rc.enabled else None)
-    buckets = (SessionTokenBuckets(se.bucket_refill_per_s, se.bucket_burst,
-                                   max_sessions=se.max_tracked)
+    buckets = (SessionTokenBuckets(
+        se.bucket_refill_per_s, se.bucket_burst,
+        max_sessions=se.max_tracked,
+        bulk_cost=(config.qos.bulk_cost if config.qos.enabled else 1.0))
                if se.enabled else None)
     prefetcher = None
     if raw_cache is not None and rc.prefetch:

@@ -24,9 +24,14 @@ Deliberate differences from the JAX batcher; none changes a byte:
 * Plain pinned H2D (``io.staging``) instead of packed staging.
 * No transient retry: a CUDA launch error is sticky, and a failed group
   fails its requests (``utils.transient``).
-* No queue-pressure growth: a group holds at most ``max_batch`` tiles, the
-  batch sizes at which the kernels are checked against their plain
-  versions on the card.
+
+Queue-pressure growth, as in JAX: after :attr:`BatchingRenderer
+.GROW_STREAK` groups of one key in a row that were full and still left a
+queue behind them, ``max_batch`` doubles, up to ``max_batch_limit``
+(default 2 x ``max_batch``: 16 for the default 8, the batch at which the
+kernels are also checked against their plain versions on the card).  With
+``target_inflight`` above 1 a backlog longer than a batch is split across
+the open pipeline slots (:meth:`BatchingRenderer._pop_size`).
 
 The front's contract with the JAX batcher (``server.watchdog``,
 ``utils.faultinject``, ``utils.stopwatch``): each request's queue wait is
@@ -78,8 +83,7 @@ The pressure governor's ``cap_lanes`` (:meth:`BatchingRenderer
 capped lane takes no new group, and groups already on a stream finish.
 
 Left out (ROADMAP Queue 1): the executable cache (the build store keeps
-the built libraries instead) and the backlog split (``target_inflight``),
-which acts only with the batch growth the port does not have.
+the built libraries instead).
 """
 
 from __future__ import annotations
@@ -219,11 +223,17 @@ class BatchingRenderer:
     event loop at a time; state left by a closed loop is dropped.
     """
 
+    # Groups of one key in a row that were full and left a queue before
+    # the batch doubles.
+    GROW_STREAK = 4
+
     def __init__(self, device: Union[str, torch.device] = "cuda",
                  max_batch: int = 8, linger_ms: float = 2.0,
                  buckets=DEFAULT_BUCKETS, pipeline_depth: int = 4,
                  device_lanes: int = 2, jpeg_engine: str = "sparse",
-                 engine_controller=None):
+                 engine_controller=None,
+                 max_batch_limit: Optional[int] = None,
+                 target_inflight: int = 1):
         if jpeg_engine not in ("sparse", "huffman"):
             raise ValueError(
                 f"batched jpeg engine must be 'sparse' or 'huffman', "
@@ -234,6 +244,14 @@ class BatchingRenderer:
             raise ValueError("device_lanes must be >= 1")
         self.device = resolve_device(device)
         self.max_batch = max_batch
+        # The growth ceiling: 2 x max_batch unless given.
+        self.max_batch_limit = max(max_batch, max_batch_limit
+                                   or max_batch * 2)
+        # Full-group streaks per key: trickle traffic on one key does not
+        # reset another's.
+        self._full_streaks: Dict[tuple, int] = {}
+        # Groups a backlog is split across, capped by pipeline_depth.
+        self.target_inflight = max(1, min(target_inflight, pipeline_depth))
         self.linger_ms = linger_ms
         self.pipeline_depth = pipeline_depth
         self.buckets = tuple(buckets)
@@ -521,7 +539,8 @@ class BatchingRenderer:
             dead: List[_Pending] = []
             expired = 0
             now = time.monotonic()
-            while queue_ and len(group) < self.max_batch:
+            take = self._pop_size(len(queue_))
+            while queue_ and len(group) < take:
                 p = queue_.popleft()
                 if p.future.done():
                     dead.append(p)    # the waiter went away while queued
@@ -543,6 +562,7 @@ class BatchingRenderer:
             if not group:
                 slots.release()
                 continue
+            self._grow(key, len(group), bool(queue_))
             self._record_queue_waits(group, t_pop)
             telemetry.FLIGHT.record(
                 "batch.formed", key=_key_label(key), tiles=len(group),
@@ -557,6 +577,31 @@ class BatchingRenderer:
                 self._run_group(render, group, slots, key))
             self._inflight.add(task)
             task.add_done_callback(self._inflight.discard)
+
+    def _grow(self, key: tuple, taken: int, backlog: bool) -> None:
+        """Queue-pressure growth: a full group that still leaves a queue
+        extends its key's streak; after :attr:`GROW_STREAK` of them the
+        batch doubles (up to ``max_batch_limit``) and the streak starts
+        over.  Any other group resets the key's streak."""
+        if taken == self.max_batch and backlog:
+            streak = self._full_streaks.get(key, 0) + 1
+            if (streak >= self.GROW_STREAK
+                    and self.max_batch < self.max_batch_limit):
+                self.max_batch = min(self.max_batch * 2,
+                                     self.max_batch_limit)
+                streak = 0
+            self._full_streaks[key] = streak
+        else:
+            self._full_streaks[key] = 0
+
+    def _pop_size(self, qlen: int) -> int:
+        """How many requests the next group takes: ``max_batch``, or with
+        ``target_inflight`` above 1 and more than a batch queued, the
+        backlog split evenly across the streams not yet in flight."""
+        if self.target_inflight <= 1 or qlen <= self.max_batch:
+            return self.max_batch
+        open_streams = max(1, self.target_inflight - len(self._inflight))
+        return max(1, min(self.max_batch, -(-qlen // open_streams)))
 
     async def _run_group(self, render, group: List[_Pending],
                          slots: asyncio.Semaphore, key: tuple) -> None:

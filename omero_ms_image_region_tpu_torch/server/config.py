@@ -22,14 +22,17 @@ served settings the same values and the same validation:
 * ``sessions``: ``enabled`` (per-session admission buckets and the
   viewport model that steers the prefetcher), ``bucket-refill-per-s``,
   ``bucket-burst``, ``max-tracked`` and ``prefetch-lookahead``;
-* ``batcher``, ``raw-cache`` (``prefetch`` included, on by default as in
-  the JAX package), ``renderer``, ``http-cache``, ``watchdog`` (with
+* ``batcher`` (with ``max-batch-limit``, the queue-pressure growth
+  ceiling, default 2 x ``max-batch``, and ``target-inflight``, the
+  backlog split, capped at ``pipeline-depth``), ``raw-cache``
+  (``prefetch`` included, on by default as in the JAX package),
+  ``renderer``, ``http-cache``, ``watchdog`` (with
   ``wire-hang-s``, the sidecar wire's hang bound), ``fault-tolerance``
   (the deadline, admission, the sidecar client's breaker and retries,
   ``degraded-mode`` and the split role's supervisor) and
   ``fault-injection`` (the lane faults, the wire faults and
   ``die-after-requests``), except the keys that belong to a part not
-  ported (batch growth, XLA's compile cache, ...);
+  ported (XLA's compile cache, the fleet's peer fetch, ...);
 * ``sidecar``: ``role`` (``combined``, ``frontend``, ``sidecar`` or
   ``split``) and ``socket`` (a unix path or ``host:port``; every role but
   ``combined`` needs one), and ``wire``, the sidecar wire v3's knobs
@@ -50,9 +53,13 @@ served settings the same values and the same validation:
   ``shape-mask-cache`` (``enabled``), and ``redis-cache.uri`` (the shared
   tier of the three and of the canRead memo), into
   ``services.cache.CacheConfig`` as the JAX loader reads them;
-* ``renderer.jpeg-engine``: ``sparse``, ``huffman`` or ``auto``; the
-  ``bitpack`` engine (the JAX direct renderer's, refused there in the
-  batched posture) is refused by name;
+* ``renderer.jpeg-engine``: ``sparse``, ``huffman``, ``auto`` or
+  ``bitpack`` (K6, the direct renderer's engine: with ``batcher.enabled``
+  it fails the load with the JAX loader's message);
+* ``qos``: ``enabled``, ``bulk-cost`` (the fairness tokens a bulk
+  request draws from its session's bucket with ``sessions.enabled``) and
+  ``interactive-weight`` (stored; only the fleet router reads it, in JAX
+  too), each >= 1;
 * ``renderer.prewarm``: the tile shapes built and launched at startup
   (``server.prewarm``; a malformed spec fails the load, as in JAX);
 * ``telemetry``: ``access-log`` (the JSON access line, on by default),
@@ -89,9 +96,7 @@ is what the port does.  Any other value away from the JAX default fails
 the load with a ``ValueError`` that names the setting and says the port
 does not serve it yet.  ``AppConfig.unserved`` would name a section that
 loads but is not served, with a warning at startup; since the byte caches
-are served, no section is.  ``batcher.target-inflight`` stays refused
-away from 1: the JAX backlog split acts only with batch growth (JAX
-``server/batcher.py:669``), which the port does not have.
+are served, no section is.
 """
 
 from __future__ import annotations
@@ -108,9 +113,24 @@ from .httpcache import EPOCH_RE
 class BatcherConfig:
     enabled: bool = True
     max_batch: int = 8
+    # The queue-pressure growth ceiling; None: 2 x max_batch.
+    max_batch_limit: Optional[int] = None
     linger_ms: float = 2.0
     pipeline_depth: int = 4
+    # Concurrent groups a backlog is split across (1: max_batch groups).
+    target_inflight: int = 1
     device_lanes: int = 2
+
+
+@dataclass
+class QosConfig:
+    """Tiered QoS: a bulk request (a projection or a full plane) draws
+    ``bulk_cost`` session tokens; ``interactive_weight`` is the fleet
+    router's, stored for it."""
+
+    enabled: bool = False
+    interactive_weight: int = 4
+    bulk_cost: float = 4.0
 
 
 @dataclass
@@ -420,7 +440,6 @@ _UNPORTED = {
         "session-tps": 2.0, "diurnal-period-s": 86400.0,
         "diurnal-horizon-s": 300.0, "unit-config": "",
     },
-    "qos": {"enabled": False, "interactive-weight": 4, "bulk-cost": 4.0},
     "drain": {
         "prestage": True, "prestage-max-planes": 256,
         "settle-timeout-s": 30.0, "fail-readyz": False,
@@ -429,7 +448,7 @@ _UNPORTED = {
 
 # The unported keys of the served sections, with their JAX defaults.
 _UNPORTED_KEYS = {
-    "batcher": {"max-batch-limit": None, "target-inflight": 1},
+    "batcher": {},
     "raw-cache": {},
     "renderer": {"kernel": "xla", "compilation-cache-dir": None},
     "telemetry": {},
@@ -522,6 +541,7 @@ class AppConfig:
     decisions: DecisionsConfig = field(default_factory=DecisionsConfig)
     sentinel: SentinelConfig = field(default_factory=SentinelConfig)
     pressure: PressureConfig = field(default_factory=PressureConfig)
+    qos: QosConfig = field(default_factory=QosConfig)
     # Sections switched on that the port loads but does not serve (none
     # today).
     unserved: Tuple[str, ...] = ()
@@ -616,7 +636,28 @@ class AppConfig:
         cfg._persistence(_block(raw, "persistence"))
         cfg._workloads(_block(raw, "workloads"))
         cfg._pyramid(_block(raw, "pyramid"))
+        cfg._qos(_block(raw, "qos"))
+        if cfg.renderer.jpeg_engine == "bitpack" and cfg.batcher.enabled:
+            # bitpack has no batched group form (the JAX loader's check).
+            raise ValueError(
+                "renderer.jpeg-engine 'bitpack' is only supported by "
+                "the direct (unbatched) renderer; with batcher.enabled "
+                "or parallel.enabled use 'sparse', 'huffman' or 'auto'")
         return cfg
+
+    def _qos(self, qo: dict) -> None:
+        _check("qos", qo, {},
+               served=("enabled", "interactive-weight", "bulk-cost"))
+        d = QosConfig()
+        self.qos = QosConfig(
+            enabled=bool(qo.get("enabled", d.enabled)),
+            interactive_weight=int(qo.get("interactive-weight",
+                                          d.interactive_weight)),
+            bulk_cost=float(qo.get("bulk-cost", d.bulk_cost)))
+        if self.qos.interactive_weight < 1:
+            raise ValueError("qos.interactive-weight must be >= 1")
+        if self.qos.bulk_cost < 1:
+            raise ValueError("qos.bulk-cost must be >= 1")
 
     def _metadata_service(self, meta: dict) -> None:
         _check("metadata-service", meta, _UNPORTED_KEYS["metadata-service"],
@@ -671,17 +712,25 @@ class AppConfig:
 
     def _batcher(self, b: dict) -> None:
         _check("batcher", b, _UNPORTED_KEYS["batcher"],
-               served=("enabled", "max-batch", "linger-ms",
-                       "pipeline-depth", "device-lanes"))
+               served=("enabled", "max-batch", "max-batch-limit",
+                       "linger-ms", "pipeline-depth", "target-inflight",
+                       "device-lanes"))
         d = BatcherConfig()
         self.batcher = BatcherConfig(
             enabled=bool(b.get("enabled", d.enabled)),
             max_batch=int(b.get("max-batch", d.max_batch)),
+            max_batch_limit=(int(b["max-batch-limit"])
+                             if b.get("max-batch-limit") is not None
+                             else None),
             linger_ms=float(b.get("linger-ms", d.linger_ms)),
             pipeline_depth=int(b.get("pipeline-depth", d.pipeline_depth)),
+            target_inflight=int(b.get("target-inflight",
+                                      d.target_inflight)),
             device_lanes=int(b.get("device-lanes", d.device_lanes)))
         if self.batcher.pipeline_depth < 1:
             raise ValueError("batcher.pipeline-depth must be >= 1")
+        if self.batcher.target_inflight < 1:
+            raise ValueError("batcher.target-inflight must be >= 1")
         if self.batcher.device_lanes < 1:
             raise ValueError("batcher.device-lanes must be >= 1")
 
@@ -861,11 +910,10 @@ class AppConfig:
         for spec in self.renderer.prewarm:
             parse_spec(spec)        # a malformed spec fails the load
         engine = self.renderer.jpeg_engine
-        if engine == "bitpack":
-            raise _refuse("renderer.jpeg-engine", engine)
-        if engine not in ("sparse", "huffman", "auto"):
-            raise ValueError(f"renderer.jpeg-engine must be 'sparse', "
-                             f"'huffman' or 'auto', got {engine!r}")
+        if engine not in ("sparse", "huffman", "bitpack", "auto"):
+            raise ValueError(
+                f"renderer.jpeg-engine must be 'sparse', 'huffman', "
+                f"'bitpack' or 'auto', got {engine!r}")
 
     def _telemetry(self, tel: dict) -> None:
         _check("telemetry", tel, _UNPORTED_KEYS["telemetry"],

@@ -117,7 +117,9 @@ from __future__ import annotations
 
 import asyncio
 import json
+import threading
 import time
+from collections import OrderedDict
 from dataclasses import dataclass, field
 from typing import List, Optional, Sequence, Tuple, Union
 
@@ -171,16 +173,50 @@ class Renderer:
     buffer, the kernels and the flip run there, and only the packed tile
     or the compacted wire comes back.  The reference handler of
     ``server.app.build_handler(batcher=False)``, which has no raw cache.
+
+    ``jpeg_engine`` picks the device JPEG wire: ``"sparse"`` (the default)
+    or ``"huffman"``, as the batcher's, or ``"bitpack"``, the JAX direct
+    renderer's fully device-packed stream (K1, K3 and K6; the host only
+    byte-swaps, 0xFF-stuffs and frames it).  The bitpack stream covers
+    the whole MCU grid, so it serves MCU-aligned tiles only; any other
+    tile, and a tile whose stream overflows its encoder's capacity, takes
+    the sparse engine, as in JAX.
     """
+
+    # Bitpack encoders, one per (H, W, quality); shapes and quality are
+    # the client's, so a small LRU, not an unbounded dict.
+    _MAX_BITPACK_ENCODERS = 8
 
     def __init__(self, device: Union[str, torch.device] = "cuda",
                  jpeg_engine: str = "sparse"):
-        if jpeg_engine not in ("sparse", "huffman"):
-            raise ValueError(f"jpeg engine must be 'sparse' or 'huffman' "
-                             f"(bitpack is not ported), got "
-                             f"{jpeg_engine!r}")
+        if jpeg_engine not in ("sparse", "huffman", "bitpack"):
+            raise ValueError(f"jpeg engine must be 'sparse', 'huffman' or "
+                             f"'bitpack', got {jpeg_engine!r}")
         self.device = resolve_device(device)
         self.jpeg_engine = jpeg_engine
+        self._bitpack_encoders: "OrderedDict" = OrderedDict()
+        # render_jpeg_sync runs on worker threads: the LRU's bookkeeping
+        # is under this lock.
+        self._bitpack_lock = threading.Lock()
+
+    def _bitpack_encoder(self, H: int, W: int,
+                         quality: int) -> jpegenc.BitpackJpegEncoder:
+        """The (H, W, quality) encoder: an LRU hit, else one built outside
+        the lock and put in if absent (a racing thread's copy wins at
+        most once)."""
+        key = (H, W, quality)
+        with self._bitpack_lock:
+            enc = self._bitpack_encoders.get(key)
+            if enc is not None:
+                self._bitpack_encoders.move_to_end(key)
+                return enc
+        built = jpegenc.BitpackJpegEncoder(H, W, quality=quality)
+        with self._bitpack_lock:
+            enc = self._bitpack_encoders.setdefault(key, built)
+            self._bitpack_encoders.move_to_end(key)
+            while len(self._bitpack_encoders) > self._MAX_BITPACK_ENCODERS:
+                self._bitpack_encoders.popitem(last=False)
+        return enc
 
     async def render(self, raw: np.ndarray, settings: dict,
                      flip_horizontal: bool = False,
@@ -225,7 +261,10 @@ class Renderer:
         ceil-16 frame with the flips and the edge replication folded into
         its reads (K3), the renderer's wire and its compaction (K4a and
         K4b, or K5 and K4b); the compacted wire's used bytes back; the
-        native entropy coder or the Huffman stream's framing."""
+        native entropy coder or the Huffman stream's framing.  Under the
+        bitpack engine an MCU-aligned tile's stream is K6's, its words
+        back and framed by the host; an overflowing one is coded by the
+        sparse engine from the same coefficients."""
         raw_t = self._on_device(raw)
         tensors = settings_to_tensors(settings, self.device)
         packed = render_tile_batch_packed(raw_t, *batched_settings(tensors))
@@ -233,6 +272,17 @@ class Renderer:
         H, W = h + (-h) % 16, w + (-w) % 16
         y, cb, cr = jpegenc.packed_to_jpeg_coefficients(
             packed, quality, H, W, flip_horizontal, flip_vertical)
+
+        def sparse(_i: int = 0) -> bytes:
+            return jpegenc.coefficients_to_jpegs(
+                y, cb, cr, H, W, quality, [(width, height)],
+                engine="sparse")[0]
+        if self.jpeg_engine == "bitpack":
+            if width % 16 or height % 16:
+                return sparse()
+            enc = self._bitpack_encoder(H, W, quality)
+            return enc.finish_batch(*enc.bits(y, cb, cr),
+                                    dense_fallback=sparse)[0]
         return jpegenc.coefficients_to_jpegs(
             y, cb, cr, H, W, quality, [(width, height)],
             engine=self.jpeg_engine)[0]

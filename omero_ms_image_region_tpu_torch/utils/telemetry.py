@@ -1015,6 +1015,45 @@ class PrefetchStats:
 PREFETCH = PrefetchStats()
 
 
+class QosStats:
+    """Tiered-QoS accounting (the JAX ``QosStats``): the fairness sheds of
+    ``server.admission`` by QoS class (``interactive`` or ``bulk``, the
+    two values of ``pressure.is_bulk``).  The dequeue and jump counters
+    are the fleet router's; they stay 0 until it is ported, and their
+    lines appear only once counted, as in JAX."""
+
+    CLASSES = ("interactive", "bulk")
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.shed: Dict[str, int] = {}
+        self.dequeued: Dict[str, int] = {}
+        self.jumps = 0
+
+    def count_shed(self, cls: str) -> None:
+        with self._lock:
+            self.shed[cls] = self.shed.get(cls, 0) + 1
+
+    def metric_lines(self) -> List[str]:
+        with self._lock:
+            lines = [f"imageregion_qos_interactive_jumps_total "
+                     f"{self.jumps}"]
+            lines += [f'imageregion_qos_shed_total{{class="{c}"}} '
+                      f"{self.shed[c]}" for c in sorted(self.shed)]
+            lines += [f'imageregion_qos_dequeued_total{{class="{c}"}} '
+                      f"{self.dequeued[c]}" for c in sorted(self.dequeued)]
+        return lines
+
+    def reset(self) -> None:
+        with self._lock:
+            self.shed.clear()
+            self.dequeued.clear()
+            self.jumps = 0
+
+
+QOS = QosStats()
+
+
 class ProvenanceStats:
     """Responses by byte-source tier and serving member, and the routing
     flags (``utils.provenance``).  Both label sets are closed: ``tier``
@@ -1993,6 +2032,9 @@ METRIC_TYPES: Dict[str, str] = {
     "imageregion_prefetch_staged_total": "counter",
     "imageregion_prefetch_hits_total": "counter",
     "imageregion_prefetch_skipped_total": "counter",
+    "imageregion_qos_shed_total": "counter",
+    "imageregion_qos_dequeued_total": "counter",
+    "imageregion_qos_interactive_jumps_total": "counter",
     "imageregion_provenance_total": "counter",
     "imageregion_provenance_flags_total": "counter",
     "imageregion_flight_events": "gauge",
@@ -2097,6 +2139,12 @@ METRIC_HELP: Dict[str, str] = {
         "Built kernel and codec libraries loaded from the build store",
     "imageregion_prefetch_budget_scale":
         "Live prefetch budget scale (1 full, 0 paused by the ladder)",
+    "imageregion_qos_shed_total":
+        "Per-session fairness sheds by QoS class (503 + Retry-After)",
+    "imageregion_qos_dequeued_total":
+        "Fleet-router dequeues by QoS class (weighted two-class queue)",
+    "imageregion_qos_interactive_jumps_total":
+        "Interactive dequeues that jumped a waiting bulk backlog",
     "imageregion_slo_burn_rate":
         "Error-budget burn rate per objective and window",
     "imageregion_slo_breach":
@@ -2266,8 +2314,9 @@ def with_label(lines: List[str], label: str) -> List[str]:
 
 
 def session_metric_lines() -> List[str]:
-    """The session model's and the prefetcher's families."""
-    return SESSIONS.metric_lines() + PREFETCH.metric_lines()
+    """The session model's, the prefetcher's and the QoS families."""
+    return (SESSIONS.metric_lines() + PREFETCH.metric_lines()
+            + QOS.metric_lines())
 
 
 def device_metric_lines(services) -> List[str]:
@@ -2341,6 +2390,7 @@ def reset() -> None:
     WORKLOADS.reset()
     SESSIONS.reset()
     PREFETCH.reset()
+    QOS.reset()
     for hist in COST_HISTS.values():
         hist.reset()
     COST_TOPK.reset()

@@ -14,6 +14,7 @@ its flags over the file and serves, with the file's HTTP parse limits.
 
 import dataclasses
 import os
+import re
 import socket
 import subprocess
 import sys
@@ -136,12 +137,7 @@ def test_unported_defaults_are_the_jax_defaults():
     ({"drain": {"fail-readyz": True}}, "drain.fail-readyz"),
     ({"sidecar": {"role": "split", "socket": "/tmp/s", "workers": 2}},
      "sidecar.workers"),
-    # bitpack is the JAX direct renderer's engine (K6, not ported); the
-    # JAX loader refuses it in the batched posture too.
-    ({"renderer": {"jpeg-engine": "bitpack"}, "batcher": {"enabled": False}},
-     "renderer.jpeg-engine"),
     ({"renderer": {"kernel": "pallas"}}, "renderer.kernel"),
-    ({"batcher": {"target-inflight": 2}}, "batcher.target-inflight"),
     ({"fault-tolerance": {"degraded-mode": True, "cpu-threads": 4}},
      "fault-tolerance.cpu-threads"),
     ({"fault-injection": {"seed": 1, "partition-rate": 0.5}},
@@ -154,13 +150,48 @@ def test_unported_defaults_are_the_jax_defaults():
     ({"hotkey": {"threshold": 6.0}}, "hotkey.threshold"),
     ({"wire": {"ring-bytes": 0, "compression": "lz4"}}, "wire.compression"),
     ({"loadmodel": {"viewers": 10}}, "loadmodel.viewers"),
-    ({"qos": {"enabled": True}}, "qos.enabled"),
     ({"workloads": {"unknown-key": 1}}, "workloads.unknown-key"),
 ])
 def test_an_unported_setting_is_refused_by_name(raw, name):
     JaxConfig.from_dict(raw)                 # a valid JAX config
     with pytest.raises(ValueError, match="^" + name.replace(".", r"\.")):
         AppConfig.from_dict(raw)
+
+
+@pytest.mark.parametrize("raw, refused", [
+    # The direct renderer's bitpack engine (K6), and, as in JAX, its
+    # refusal with the batcher on.
+    ({"renderer": {"jpeg-engine": "bitpack"}, "batcher": {"enabled": False}},
+     None),
+    ({"renderer": {"jpeg-engine": "bitpack"}},
+     "renderer.jpeg-engine 'bitpack' is only supported by the direct "
+     "(unbatched) renderer"),
+    # Queue-pressure growth and the backlog split.
+    ({"batcher": {"target-inflight": 2}}, None),
+    ({"batcher": {"max-batch": 4, "max-batch-limit": 32,
+                  "target-inflight": 3}}, None),
+    ({"batcher": {"target-inflight": 0}},
+     "batcher.target-inflight must be >= 1"),
+    # The qos bulk cost (interactive-weight is stored for the fleet).
+    ({"qos": {"enabled": True}}, None),
+    ({"qos": {"enabled": True, "bulk-cost": 2.5, "interactive-weight": 8}},
+     None),
+    ({"qos": {"bulk-cost": 0.5}}, "qos.bulk-cost must be >= 1"),
+])
+def test_a_lifted_setting_loads_as_in_jax(raw, refused):
+    """Each setting this port once refused loads in both loaders with the
+    same fields, or fails both with the JAX loader's message."""
+    if refused is not None:
+        for loader in (JaxConfig, AppConfig):
+            with pytest.raises(ValueError, match="^" + re.escape(refused)):
+                loader.from_dict(raw)
+        return
+    port, jax = AppConfig.from_dict(raw), JaxConfig.from_dict(raw)
+    for name, mine, theirs in _served(port, jax):
+        # The one default that differs on purpose (see the test above).
+        if name != "raw_cache.digest_dedup":
+            assert mine == theirs, name
+    assert port.unserved == ()
 
 
 @pytest.mark.parametrize("raw", [

@@ -159,7 +159,9 @@ def test_metrics_match_jax(data_dir):
     # tests/test_torch_forensics.py, tests/test_torch_sentinel.py and
     # tests/test_torch_pressure.py hold those to the JAX app's); and the
     # sidecar client's breaker, retries and attempts, which only a
-    # frontend has (tests/test_torch_sidecar.py).
+    # frontend has (tests/test_torch_sidecar.py); and the QoS sheds by
+    # class, which only a session's fairness shed moves
+    # (tests/test_torch_growth.py), and dequeues, the fleet router's.
     assert {f for f, _ in port_fams} == set(types) - {
         "imageregion_breaker_state", "imageregion_breaker_opens_total",
         "imageregion_retries_total", "imageregion_retry_attempts",
@@ -174,6 +176,7 @@ def test_metrics_match_jax(data_dir):
         "imageregion_execcache_saved_total",
         "imageregion_shed_total", "imageregion_watchdog_fires_total",
         "imageregion_prefetch_skipped_total",
+        "imageregion_qos_shed_total", "imageregion_qos_dequeued_total",
         "imageregion_workload_requests_total",
         "imageregion_pyramid_jobs_total",
         "imageregion_pyramid_jobs_active",
