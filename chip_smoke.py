@@ -74,15 +74,21 @@ Phases (any failure ends the run with a non-zero exit and no result line):
            out (the words a view, the widths 4-byte aligned behind them),
            each timed beside its bound and plain version (the ``k10:``
            line); no PyTorch call decodes it.  K6 bitpack_fixed (the
-           direct renderer's bitpack engine) words and total bits exactly
-           on the K3 coefficients of the flagship tiles at B=8 and B=1, q
-           85 and 95, an overflow at 64 words (the words below the cap
-           equal, nothing spilled into the next tile's), an all-zero tile,
-           runs of 16 to 62 zeros, DC differences of 2048 and more (the
-           clamped category 11) and an unaligned base (the ``check
-           bitpack_fixed`` lines; no PyTorch call packs a Huffman
-           stream).  Then ``b16:`` K1, K3, K4a, K4b and K5 exactly at B =
-           16 (the largest group batch growth launches), each timed
+           direct renderer's bitpack engine; one launch, no memset) words
+           and total bits exactly on the K3 coefficients of the flagship
+           tiles at B=8 and B=1, q 85 and 95, an overflow at 64 words (the
+           words below the cap equal, nothing spilled into the next
+           tile's), an all-zero tile, runs of 16 to 62 zeros, DC
+           differences of 2048 and more (the clamped category 11), an
+           unaligned base, maximal blocks, clamps below -2047 in one chunk
+           only and first in chunks, streams ending on a word, B=3 of
+           different lengths, the kernel launched into outputs between
+           guard words (a stray store shows), 70 calls back to back on
+           one stream and two, and B=16 (the ``check bitpack_fixed``
+           lines; its kernels and memsets a call counted by the profiler
+           and held to one kernel; no PyTorch call packs a Huffman
+           stream).  Then ``b16:`` K1, K3, K4a, K4b and K5 exactly at
+           B = 16 (the largest group batch growth launches), each timed
            there.
            Each gets the median device time of 25 launches (CUDA events,
            the L2 flushed before each, a GPU sleep ahead of the timed span
@@ -420,29 +426,37 @@ def time_ms(torch, fn, reps: int, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def device_split(torch, fn, calls: int = 10, tries: int = 3) -> dict:
-    """Device microseconds per call of each kernel and memset that ``fn``
-    launches (torch.profiler, L2 warm): what a kernel's time is made of
-    when it is more than one launch.  The profiler now and then records
+def device_events(torch, fn, calls: int = 10, tries: int = 3):
+    """``(split, counts)`` of the kernels and memsets that ``fn`` launches
+    (torch.profiler, L2 warm): device microseconds per call of each, and
+    how many of each one call launches.  The profiler now and then records
     no kernel at all; such a window is profiled again, up to ``tries``
-    times (an empty dict after that)."""
+    times (two empty dicts after that)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    split = {}
+    split, counts = {}, {}
     for _ in range(tries):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-        split = {e.key.replace("(anonymous namespace)::", "").split("(")[0]
-                 .strip(): e.self_device_time_total / calls
-                 for e in prof.key_averages()
-                 if e.self_device_time_total > 0}
+        events = [(e.key.replace("(anonymous namespace)::", "").split("(")[0]
+                   .strip(), e) for e in prof.key_averages()
+                  if e.self_device_time_total > 0]
+        split = {k: e.self_device_time_total / calls for k, e in events}
+        counts = {k: e.count / calls for k, e in events}
         if split:
             break
-    return split
+    return split, counts
+
+
+def device_split(torch, fn, calls: int = 10, tries: int = 3) -> dict:
+    """Device microseconds per call of each kernel and memset that ``fn``
+    launches (``device_events``' split): what a kernel's time is made of
+    when it is more than one launch."""
+    return device_events(torch, fn, calls, tries)[0]
 
 
 def bytes_bound(n_bytes: float, ops: float = 0.0):
@@ -1014,6 +1028,60 @@ def flagship_packed(torch, np, B: int, seed: int = 0):
     return R.render_tile_batch_packed(raw, *args), raw, args
 
 
+def dc_pred_pos(g: int) -> int:
+    """The scan position whose DC the block at scan position g is coded
+    against (Y1..Y3 the Y before, Y0 the previous MCU's Y3, Cb and Cr one
+    MCU back), or -1 in the first MCU."""
+    m, slot = divmod(g, 6)
+    if 1 <= slot <= 3:
+        return g - 1
+    return g - (6 if slot else 3) if m > 0 else -1
+
+
+def bitpack_crafted(torch, J, base, scan, cw, chunk: int) -> list:
+    """The inputs that choose between K6's two paths (as
+    tests/test_torch_bitpack.py makes them at 256^2), on B=2 flagship
+    coefficients ``base`` with ``scan`` (i32[n_mcu, 6]) and chunks of
+    ``chunk`` blocks: clamps of negative amplitude (values below -2047,
+    whose sign bits JAX adds into the words before the field) in chunk 1
+    only and in the first block of chunks 1-4 (their spill reaches the
+    previous chunk's last word), each tile's last block re-coded so that
+    its stream ends on a word boundary, and B=3 tiles of different
+    lengths (a flagship tile, an all-zero one, a clamped one)."""
+    import itertools
+
+    flat = scan.reshape(-1).tolist()
+    one = base.clone()
+    g = chunk + chunk // 2
+    one[:, flat[g], 5] = -3000
+    one[:, flat[g + 1], 0] = one[:, flat[dc_pred_pos(g + 1)], 0] - 2500
+    start = base.clone()
+    for k in range(1, 5):
+        g = k * chunk
+        pred = start[:, flat[dc_pred_pos(g)], 0]
+        start[:, flat[g], 0] = pred - torch.tensor(
+            [2900, 2049 + k], dtype=pred.dtype, device=pred.device)
+    word = base.clone()
+    last, prev = flat[-1], flat[dc_pred_pos(len(flat) - 1)]
+    word[:, last, 1:] = 0
+    word[:, last, 0] = word[:, prev, 0]
+    spec = J.huffman_spec_arrays()
+    _, bits = J.bitpack_fixed_plain(word, scan, *spec, cw)
+    field = {s: int(spec[3][s]) + s for s in range(1, 11)}
+    for b, total in enumerate(bits.tolist()):
+        combo = next(c for n in range(5)
+                     for c in itertools.combinations_with_replacement(
+                         range(1, 11), n)
+                     if sum(field[s] for s in c) % 32 == -total % 32)
+        for k, s in enumerate(combo, start=1):
+            word[b, last, k] = 1 << (s - 1)
+    b3 = torch.cat([base[:1], torch.zeros_like(base[:1]), one[1:]])
+    return [("clamp in chunk 1 only", one),
+            ("clamps first in chunks 1-4", start),
+            ("streams ending on a word", word),
+            ("B=3 of different lengths", b3)]
+
+
 def bitpack_kernel_phase(torch, np, raw8, args8):
     """K6 (bitpack_fixed) against its plain version, words and total
     bits exactly (tolerance 0): the K3 coefficients of the flagship tiles
@@ -1022,8 +1090,21 @@ def bitpack_kernel_phase(torch, np, raw8, args8):
     words unspilled into the next tile's); an all-zero tile; runs of 16,
     32, 48 and 62 zeros; DC differences of 2048 and more (the category-11
     clamp, whose sign bits JAX adds into the stream); a base 2 bytes past
-    alignment (the 16-bit loads).  Timed at q 85, B=8 and B=1, beside its
-    plain version; no PyTorch call packs a Huffman stream."""
+    alignment (the 16-bit loads); blocks of 63 category-10 coefficients
+    (their words pass the chunk's rows: the exact path without a spill);
+    the inputs that choose between the kernel's two paths
+    (``bitpack_crafted``); the kernel launched into outputs between
+    guard words (a store outside words, total bits or its status words
+    shows); 50 calls back to back on one
+    stream over a flagship tile, an all-zero one and a clamped one in
+    turn (each output copied and freed, so the next call's words reuse
+    its memory: a stale epoch or a word left unstored shows), then 10 on
+    a second stream beside 10 on the first; and B=16 (the flagship tiles
+    and their flipped copies).  Timed at q 85, B=8, B=1 and B=16, beside
+    its plain version; no PyTorch call packs a Huffman stream."""
+    from omero_ms_image_region_tpu_torch.kernels import jpeg as KJ
+    from omero_ms_image_region_tpu_torch.kernels.scratch import (
+        status_scratch)
     from omero_ms_image_region_tpu_torch.ops import jpegenc as J
     from omero_ms_image_region_tpu_torch.ops import render as R
 
@@ -1056,6 +1137,32 @@ def bitpack_kernel_phase(torch, np, raw8, args8):
         e["cases"] += 1
         return got_w, got_b, over
 
+    def timed(key, blocks, cw, q):
+        bits = J.bitpack_fixed(blocks, scan, *spec, cw)[1]
+        used = int(((bits.to(torch.int64) + 31) // 32 * 4).sum())
+        n_bytes = blocks.numel() * 2 + scan.numel() * 4 + 4096 + used
+        e[key + "ms"] = time_ms(torch, lambda: J.bitpack_fixed(
+            blocks, scan, *spec, cw), 25)
+        e[key + "plain_ms"] = time_ms(torch, lambda: J.bitpack_fixed_plain(
+            blocks, scan, *spec, cw), 5)
+        e[key + "device_us"], counts = device_events(
+            torch, lambda: J.bitpack_fixed(blocks, scan, *spec, cw), tries=5)
+        # One launch a call and no memset, as the profiler saw them.
+        e[key + "launches_per_call"] = sum(counts.values())
+        e[key + "device_events"] = counts
+        check(e[key + "launches_per_call"] == 1
+              and not any("memset" in k.lower() for k in counts),
+              f"bitpack_fixed {key}launches per call: {counts}, not one "
+              f"kernel and no memset")
+        # the coefficients, the scan map and the spec read, the used
+        # words written
+        e[key + "bound_ms"], e[key + "bound_by"] = bytes_bound(n_bytes)
+        e[key + "bound_bytes"] = n_bytes
+        e[key + "used_bytes"] = used
+        e[key + "shape"] = [blocks.shape[0], H, W]
+        e[key + "quality"] = q
+        e[key + "cap_words"] = cw
+
     for B in (8, 1):
         packed = packed8[:B].contiguous()
         key = "" if B == 8 else "b1_"
@@ -1070,22 +1177,7 @@ def bitpack_kernel_phase(torch, np, raw8, args8):
                 check(all(over), "bitpack_fixed: 64 words did not "
                                  "overflow every tile")
                 continue
-            used = int(((bits.to(torch.int64) + 31) // 32 * 4).sum())
-            n_bytes = blocks.numel() * 2 + scan.numel() * 4 + 4096 + used
-            e[key + "ms"] = time_ms(torch, lambda: J.bitpack_fixed(
-                blocks, scan, *spec, cw), 25)
-            e[key + "plain_ms"] = time_ms(torch, lambda: J.bitpack_fixed_plain(
-                blocks, scan, *spec, cw), 5)
-            e[key + "device_us"] = device_split(torch, lambda: J.bitpack_fixed(
-                blocks, scan, *spec, cw))
-            # the coefficients, the scan map and the spec read, the used
-            # words written
-            e[key + "bound_ms"], e[key + "bound_by"] = bytes_bound(n_bytes)
-            e[key + "bound_bytes"] = n_bytes
-            e[key + "used_bytes"] = used
-            e[key + "shape"] = [B, H, W]
-            e[key + "quality"] = q
-            e[key + "cap_words"] = cw
+            timed(key, blocks, cw, q)
     base = join(J.packed_to_jpeg_coefficients(packed8[:2].contiguous(), 85))
     cw = J.BitpackJpegEncoder(H, W, 85).cap_words
     compare("all-zero tile", torch.zeros_like(base[:1]), cw)
@@ -1108,14 +1200,105 @@ def bitpack_kernel_phase(torch, np, raw8, args8):
     odd = odd[1:1 + base.numel()].view_as(base)
     odd.copy_(base)
     compare("unaligned base", odd, cw)
+    dense = base.clone()
+    dense[:, :, 1:] = 600            # 26-bit fields: over a chunk's rows
+    compare("maximal blocks", dense, 1 << 16)
+    crafted = bitpack_crafted(torch, J, base, scan, cw,
+                              KJ.BIT_CHUNK_BLOCKS)
+    for label, blocks in crafted:
+        _, bits, _ = compare(label, blocks, cw)
+        if label.startswith("streams"):
+            check(all(b % 32 == 0 for b in bits.tolist()),
+                  "bitpack_fixed: a stream does not end on a word")
+        if label.startswith("B=3"):
+            check(len(set(bits.tolist())) == 3,
+                  "bitpack_fixed: the B=3 lengths are not distinct")
+
+    # Stores stay inside the outputs: the kernel launched as the wrapper
+    # launches it, into words and total bits that lie between guard words
+    # of 0x5A5A5A5A, and the status scratch past this call's chunks kept.
+    lib, spec_t, G = KJ.library(), J.spec_tensor(spec, base.device), 4096
+    strays = 0
+    for label, blocks, gcw in [("q85 B=2", base, cw),
+                               ("maximal blocks at 64 words", dense, 64),
+                               *((lb, bl, cw) for lb, bl in crafted)]:
+        B, nb = blocks.shape[:2]
+        buf = torch.full((3 * G + B * gcw + B,), 0x5A5A5A5A,
+                         dtype=torch.int32, device=base.device)
+        words = buf[G:G + B * gcw].view(B, gcw)
+        bits = buf[2 * G + B * gcw:2 * G + B * gcw + B]
+        guards = torch.cat([buf[:G], buf[G + B * gcw:2 * G + B * gcw],
+                            buf[2 * G + B * gcw + B:]])
+        chunks = lib.bitpack_fixed_status_words(B, nb)
+        stream = torch.cuda.current_stream().cuda_stream
+        status, epoch = status_scratch(base.device, stream, chunks)
+        rest = status[chunks:].clone()
+        err = lib.bitpack_fixed_launch(
+            blocks.data_ptr(), B, nb, scan.data_ptr(), spec_t.data_ptr(),
+            gcw, words.data_ptr(), bits.data_ptr(), status.data_ptr(),
+            status.numel(), epoch, stream)
+        check(err == 0, f"bitpack_fixed guarded {label}: CUDA error {err}")
+        want_w, want_b = J.bitpack_fixed_plain(blocks, scan, *spec, gcw)
+        torch.cuda.synchronize()
+        stray = int((guards != 0x5A5A5A5A).sum()) + int(
+            (status[chunks:] != rest).sum())
+        diff = int((words != want_w).sum()) + int((bits != want_b).sum())
+        strays += stray
+        print(f"check bitpack_fixed guarded {label}: guard and scratch "
+              f"words changed {stray}, differing words and bits {diff}",
+              flush=True)
+        check(stray == 0 and diff == 0,
+              f"bitpack_fixed stored outside its outputs on {label}")
+    e["guard_words_changed"] = strays
+    e["cases"] += 1
+
+    # Back to back, then on two streams: each output copied and dropped.
+    turns = [base[:1].contiguous(), torch.zeros_like(base[:1]),
+             crafted[0][1][1:].contiguous()]
+    wants = [J.bitpack_fixed_plain(t, scan, *spec, cw) for t in turns]
+
+    def call(i, kept):
+        w, bits = J.bitpack_fixed(turns[i % 3], scan, *spec, cw)
+        kept.append((i % 3, w.clone(), bits.clone()))
+
+    kept = []
+    for i in range(50):
+        call(i, kept)
+    second = torch.cuda.Stream()
+    second.wait_stream(torch.cuda.current_stream())
+    for i in range(10):
+        call(i, kept)
+        with torch.cuda.stream(second):
+            call(i + 1, kept)
+    torch.cuda.synchronize()
+    bad = sum(int((w != wants[t][0]).sum()) + int((bits != wants[t][1]).sum())
+              for t, w, bits in kept)
+    e["repeat_calls"] = len(kept)
+    e["repeat_differing"] = bad
+    print(f"check bitpack_fixed repeated: {len(kept)} calls (50 on one "
+          f"stream, then 10 on each of two), differing words and bits "
+          f"{bad}", flush=True)
+    check(bad == 0, "bitpack_fixed differs on repeated or concurrent calls")
+    e["cases"] += 1
+    del kept
+
+    c85 = J.packed_to_jpeg_coefficients(packed8, 85)
+    flipped = J.packed_to_jpeg_coefficients(packed8, 85, flip_h=True,
+                                            flip_v=True)
+    b16 = torch.cat([join(c85), join(flipped)])
+    compare("B=16 (flagship tiles and their flips)", b16, cw)
+    timed("b16_", b16, cw, 85)
     e["library_ms"] = None
     e["library_note"] = "no PyTorch call packs a Huffman stream"
     print(f"kernel bitpack_fixed: {e['ms']:.4f} ms at B=8 (bound "
           f"{e['bound_ms']:.4f} ms, plain {e['plain_ms']:.3f} ms, device "
           f"us {json.dumps(e['device_us'])}); {e['b1_ms']:.4f} ms at B=1 "
           f"(bound {e['b1_bound_ms']:.4f}, plain {e['b1_plain_ms']:.3f}, "
-          f"device us {json.dumps(e['b1_device_us'])}); {e['cases']} "
-          f"cases equal", flush=True)
+          f"device us {json.dumps(e['b1_device_us'])}); {e['b16_ms']:.4f} "
+          f"ms at B=16 (bound {e['b16_bound_ms']:.4f}); launches a call "
+          f"{e['launches_per_call']:g} / {e['b1_launches_per_call']:g} / "
+          f"{e['b16_launches_per_call']:g} (profiled); "
+          f"{e['cases']} cases equal", flush=True)
     return {"bitpack_fixed": e}
 
 

@@ -104,21 +104,31 @@
 //       renderer's bitpack engine.  Per tile the words u32[cap_words] of
 //       the same full-grid stream as K5's (every block in MCU scan order,
 //       the order given as the scan map _mcu_scan_index, :807), with no
-//       compaction, no row header and no budget retry, and its whole
-//       length in bits.  The JAX function deposits every field by a
-//       scatter-add of int32 values into the one or two words it touches;
-//       here each thread codes one block twice: once for its length (a
-//       block scan and a decoupled lookback over the tile's chunks of 128
-//       blocks give its first bit, as in K5) and once to deposit its
-//       fields with JAX's int32 shifts, summing a word's adds in
-//       registers, storing a word inside the block plainly and adding
-//       the block's first and last words, which neighbours share, with
-//       a global atomicAdd.  Adds, not ors: a clamped category-11 field
-//       carries sign bits past its length into its word, and JAX adds
-//       them.  Words at or past cap_words are dropped.  One memset (the
-//       words and a status word a chunk) and one launch.  Bound: bytes,
-//       the coefficients read and the used words written; as K5, a
-//       thread's work is its block's nonzeros and the word atomics.
+//       compaction, no row header and no budget retry, zero past the
+//       stream, and its whole length in bits.  The JAX function deposits
+//       every field by a scatter-add of int32 values into the one or two
+//       words it touches.  Here one launch and no memset: a block of 128
+//       threads takes a chunk of 128 coefficient blocks, copies them in
+//       with cp.async, and each thread codes its block once, MSB first,
+//       into its own words; a block scan and a decoupled look-back over a
+//       window of 128 earlier chunks (status words tagged with the call's
+//       epoch, in a scratch kept per device and stream, kernels/scratch.py)
+//       give each block its stream bit; the words are packed into the
+//       chunk's shared memory, and every word is stored once, whole and
+//       plainly, by the chunk in which it begins: the word where a chunk
+//       ends takes the next chunk's first bits, which a warp codes from
+//       the staged next blocks, a lane a block.  Adds, not ors, where
+//       JAX's adds differ: a clamped category-11 field of a value below
+//       -2047 carries sign bits past its length into its word; a chunk
+//       holding one sums its words with JAX's int32 shifts (global
+//       atomicAdd on the words it owns, which no other chunk stores to;
+//       its blocks are walked a second time).  Zeroing blocks at the end
+//       of the grid store the words past each tile's stream once the
+//       tile's last chunk has published its total.  Words at or past
+//       cap_words are dropped.  Bound: bytes, the coefficients read and
+//       the used words written; as K5, a thread's work is its block's
+//       nonzeros, and the loads' and the look-back's latency set the time
+//       of one tile.
 //
 // Numerics of K3 follow one fixed order: the order in which XLA's CPU
 // backend evaluates the JAX function, found by matching its float32 results
@@ -281,6 +291,13 @@ __device__ __forceinline__ float divide_q(float acc, float q, float inv) {
 // L2 only); complete after cp_async_wait() in the issuing thread.
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(smem))),
+               "l"(gmem));
+}
+
+// 4 bytes from global to shared memory without a register (cp.async).
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
                    static_cast<unsigned>(__cvta_generic_to_shared(smem))),
                "l"(gmem));
 }
@@ -1309,14 +1326,49 @@ huffman_pack_kernel(const int16_t* __restrict__ y,
   }
 }
 
-// K6.  One tile's full-grid fixed-table stream in one pass: the words and
-// the status words are zeroed by one memset, then CTA x takes chunk c = x
-// % parts of tile b = x / parts: the kBitBlocks coefficient blocks from
-// c * kBitBlocks in scan order (fewer in a tile's ragged last chunk), one
-// thread a block.  The block at scan position g is blocks[b][scan[g]].
-constexpr int kBitThreads = 128;
+// K6.  One tile's full-grid fixed-table stream in one launch, no memset.
+// CTA x < B * parts takes chunk c = x % parts of tile b = x / parts: the
+// kBitBlocks coefficient blocks from c * kBitBlocks in scan order (fewer
+// in a tile's ragged last chunk), one thread a block; the block at scan
+// position g is blocks[b][scan[g]].  The grid's last B * zero_ctas CTAs
+// (at most kBitZeroCtas a tile) zero each tile's words past its stream.
+// On the H100 chunks of 64 blocks were slower than 128 (a build with
+// -DK6_BIT_THREADS=64: scripts/k6_redesign.py --sweep, PERF.md), and so
+// was one zeroing CTA a tile.
+#ifndef K6_BIT_THREADS
+#define K6_BIT_THREADS 128
+#endif
+constexpr int kBitThreads = K6_BIT_THREADS;
 constexpr int kBitBlocks = kBitThreads;
+constexpr int kBitZeroCtas = 16;
 constexpr int kBitWarps = kBitThreads / 32;
+// Blocks of the next chunk staged beside a chunk, for its last word: the
+// fixed tables code a block in at least 2 bits (a 1-bit DC category 0 and
+// a 1-bit EOB), so 16 cover the 31 bits that word can lack (with shorter
+// codes the rest come from global memory).
+constexpr int kBitAhead = 16;
+constexpr int kBitRows = kBitBlocks + kBitAhead;
+constexpr int kBitLoads = (kBitRows * 8 + kBitThreads - 1) / kBitThreads;
+// Status words a lane of the look-back reads at once (a window of
+// 32 kBitLook chunks: a 1024^2 tile has 192).
+constexpr int kBitLook = 4;
+// After the blocks are coded, their words are packed into the chunk's
+// coefficient rows (the next chunk's rows stay): a chunk whose blocks
+// code more words than that (over 1152 bits a block on average) takes the
+// exact path.
+constexpr int kBitCapWords = kBitBlocks * kHuffStride / 2;
+// A block's length and word count scan as one int: len | words << 18 (a
+// chunk codes fewer than 2^18 bits, 1728 a block at most).
+constexpr int kBitLenBits = 18;
+constexpr int kBitLenMask = (1 << kBitLenBits) - 1;
+// Words past the stream a zeroing CTA is given at least.
+constexpr long long kBitZeroWords = 4096;
+// K6's status word: epoch << 34 | flag << 32 | bits, for the chunk
+// (aggregate) or the tile up to and including it (inclusive).  A word of
+// another epoch (an earlier call, or 0: never written) is not ready.
+constexpr unsigned long long kBitAggregate = 1ull << 32;
+constexpr unsigned long long kBitInclusive = 2ull << 32;
+constexpr unsigned kFullMask = 0xFFFFFFFFu;
 
 // Amplitude bits as _amplitude (:828) gives them in int32: the value, or
 // for a negative one v + 2^s - 1, not cut to s bits (a clamped category
@@ -1325,267 +1377,568 @@ __device__ __forceinline__ int32_t bit_amplitude(int v, int s) {
   return v >= 0 ? v : v + (1 << s) - 1;
 }
 
-// A thread's deposit of its block's fields, the JAX deposit (:918-935)
-// field by field: a field of `len` bits at stream bit `pos` adds c0 to
-// word pos >> 5 and, when it crosses, c1 to the next word, in int32 with
-// JAX's shifts (arithmetic right shifts).  The adds into a word are summed
-// in registers and the word leaves once the fields have moved past it: a
-// word inside the block by a plain store (no other block's field touches
-// it), the block's first and last words, which its neighbours can share,
-// by a global atomicAdd (add, as JAX adds; for fields of disjoint bits
-// that is or).  Words at or past `cap` are dropped.
-struct BitDeposit {
-  uint32_t* words;
-  long long cap, first, last, cw, pos;
-  uint32_t cur, nxt;
+// Whether a field's value has bits above its length: a clamped category
+// 11 of a value below -2047 (its amplitude is negative), or a code longer
+// than its length.  Such a field is not its bits alone: JAX adds its high
+// bits into the bits before it, carrying within the word.
+__device__ __forceinline__ bool bit_spills(int32_t val, int len) {
+  return val < 0 || (val >> len) != 0;
+}
 
-  __device__ __forceinline__ void store(long long m, uint32_t v) const {
-    if (v == 0u || m >= cap) return;
-    if (m == first || m == last)
-      atomicAdd(words + m, v);
-    else
-      words[m] = v;
+// What a field of `len` bits at bit r of its word adds to that word (c0)
+// and to the next (c1), with JAX's int32 shifts (:918-935; arithmetic
+// right shifts).
+__device__ __forceinline__ uint32_t bit_c0(int32_t val, int len, int r) {
+  const int sh0 = 32 - r - len;
+  return sh0 >= 0 ? static_cast<uint32_t>(val) << sh0
+                  : static_cast<uint32_t>(val >> min(-sh0, 31));
+}
+
+__device__ __forceinline__ uint32_t bit_c1(int32_t val, int len, int r) {
+  const int sh1 = 64 - r - len;
+  return sh1 < 32 ? static_cast<uint32_t>(val) << sh1 : 0u;
+}
+
+// Bit k set where coefficient k of a block is nonzero: a staged block by
+// 16-byte loads, a block in global memory (the look-ahead past the staged
+// rows) by 2-byte ones.
+__device__ __forceinline__ unsigned long long staged_mask(
+    const int16_t* blk) {
+  unsigned long long mask = 0ull;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const uint4 v = reinterpret_cast<const uint4*>(blk)[i];
+    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int h = 0; h < 4; ++h) {
+      const unsigned two = ((w[h] & 0xFFFFu) != 0u ? 1u : 0u) |
+                           ((w[h] >> 16) != 0u ? 2u : 0u);
+      mask |= static_cast<unsigned long long>(two) << (8 * i + 2 * h);
+    }
   }
+  return mask;
+}
+
+__device__ unsigned long long global_mask(const int16_t* blk) {
+  unsigned long long mask = 0ull;
+  for (int k = 0; k < 64; ++k)
+    mask |= static_cast<unsigned long long>(__ldg(blk + k) != 0) << k;
+  return mask;
+}
+
+// The scan position whose DC the block at scan position g is coded
+// against: Y1..Y3 the Y before them in the MCU, Y0 the previous MCU's Y3,
+// Cb and Cr their own block one MCU back; -1 in the tile's first MCU.
+__device__ __forceinline__ int dc_pred_pos(int g) {
+  const int m = g / 6, slot = g - 6 * m;
+  if (slot >= 1 && slot <= 3) return g - 1;
+  return m > 0 ? g - (slot ? 6 : 3) : -1;
+}
+
+// A block's fields in stream order, as JAX's int32 values (:852-895): the
+// DC difference's code and amplitude; per nonzero AC coefficient the ZRL
+// pair f0 (two codes as one field), the third ZRL f1, and the run/size
+// code with the amplitude f2; the EOB unless position 63 is nonzero.
+// f(val, len) runs for each field of positive length (JAX's `live`) until
+// it returns false.
+template <typename F>
+__device__ __forceinline__ void bit_fields(const int16_t* blk,
+                                           unsigned long long mask,
+                                           int diff, const uint32_t* s_ac,
+                                           const uint32_t* s_dcs, F&& f) {
+  int sc = huff_category(diff);
+  uint32_t code = s_dcs[sc];
+  int len = static_cast<int>(code >> 16) + sc;
+  if (len > 0 &&
+      !f(static_cast<int32_t>((code & 0xFFFFu) << sc) |
+             bit_amplitude(diff, sc), len))
+    return;
+  const uint32_t zrl = s_ac[0xF0];
+  const int32_t zc = static_cast<int32_t>(zrl & 0xFFFFu);
+  const int zl = static_cast<int>(zrl >> 16);
+  // The next nonzero coefficient is read while this one is coded.
+  unsigned long long rest = mask & ~1ull;
+  int prev = 0;
+  int k = __ffsll(static_cast<long long>(rest)) - 1;
+  int v = blk[k & 63];
+  while (rest != 0ull) {
+    rest &= rest - 1ull;
+    const int k_next = __ffsll(static_cast<long long>(rest)) - 1;
+    const int v_next = blk[k_next & 63];
+    const int run = k - prev - 1;
+    prev = k;
+    const int z = run >> 4;
+    if (zl > 0) {
+      if (z >= 2 &&
+          !f(static_cast<int32_t>(static_cast<uint32_t>(zc) << zl) | zc,
+             2 * zl))
+        return;
+      if (z == 1 && !f(zc, zl)) return;
+      if (z >= 3 && !f(zc, zl)) return;
+    }
+    sc = huff_category(v);
+    code = s_ac[((run & 15) << 4) | sc];
+    len = static_cast<int>(code >> 16) + sc;
+    if (len > 0 &&
+        !f(static_cast<int32_t>((code & 0xFFFFu) << sc) |
+               bit_amplitude(v, sc), len))
+      return;
+    k = k_next;
+    v = v_next;
+  }
+  if ((mask >> 63) == 0ull && (s_ac[0] >> 16) != 0u)   // EOB: 63 is zero
+    f(static_cast<int32_t>(s_ac[0] & 0xFFFFu),
+      static_cast<int>(s_ac[0] >> 16));
+}
+
+// A thread's writer of its block's fields, MSB first, into its own words
+// (at most 27 bits a field and 1728 a block, with codes of at most 16
+// bits); `spill` records a field that bit_spills.
+struct BitWriter {
+  uint32_t* dst;
+  unsigned long long acc;
+  int held, bits, words;
+  bool spill;
 
   __device__ __forceinline__ void put(int32_t val, int len) {
-    if (len <= 0) return;
-    const long long w = pos >> 5;
-    const int r = static_cast<int>(pos & 31);
-    if (w != cw) {
-      store(cw, cur);
-      if (w == cw + 1) {
-        cur = nxt;
-      } else {
-        store(cw + 1, nxt);
-        cur = 0u;
-      }
-      nxt = 0u;
-      cw = w;
+    spill |= bit_spills(val, len);
+    acc = (acc << len) | static_cast<uint32_t>(val);
+    held += len;
+    bits += len;
+    if (held >= 32) {
+      held -= 32;
+      dst[words++] = static_cast<uint32_t>(acc >> held);
     }
-    const int sh0 = 32 - r - len;
-    cur += sh0 >= 0 ? static_cast<uint32_t>(val) << min(sh0, 31)
-                    : static_cast<uint32_t>(val >> min(-sh0, 31));
-    const int sh1 = 64 - r - len;
-    if (sh1 < 32) nxt += static_cast<uint32_t>(val) << (max(sh1, 0) & 31);
-    pos += len;
   }
 
-  __device__ __forceinline__ void finish() const {
-    store(cw, cur);
-    store(cw + 1, nxt);
+  __device__ __forceinline__ void flush() {
+    if (held > 0) dst[words++] = static_cast<uint32_t>(acc << (32 - held));
   }
 };
 
-// Chunk c of tile b in four phases:
-//  1. loads: the chunk's coefficient blocks (gathered through the scan
-//     map) to shared memory in 16-byte pieces, eight neighbouring threads
-//     a block, and the spec's codes.
-//  2. lengths: thread j takes block j: its nonzero mask, its DC
-//     difference along its component's chain (Y over the MCU's four
-//     slots in turn, Cb and Cr over the MCUs; the predecessor may lie in
-//     the previous chunk), and the bit length of its fields: DC code and
-//     amplitude, per nonzero AC coefficient z ZRL codes (the f0 pair and
-//     f1) and the run/size code and amplitude (f2), the EOB unless
-//     position 63 is nonzero.  A block scan gives each block's chunk-local
-//     bit start; the chunk's aggregate is published.
-//  3. lookback: warp 0 reads the tile's earlier chunks' status words, 32
-//     at a time, nearest first, until an inclusive one, and publishes the
-//     chunk's inclusive prefix: the chunk's first stream bit s0.
-//  4. deposit: thread j walks its fields again and deposits them at
-//     their stream bits (BitDeposit).  The tile's last chunk writes its
-//     total bits.
-__global__ void __launch_bounds__(kBitThreads)
-bitpack_fixed_kernel(const int16_t* __restrict__ blocks, int nb,
+// The blocks from scan position g on, for the word in which a chunk's
+// stream ends (the next chunks' first fields): rows below `staged` are in
+// shared memory with their DCs in s_dc, later blocks are read from the
+// tile.  f(val, len) gets their fields in order until it returns false.
+template <typename F>
+__device__ __forceinline__ void bit_next_fields(
+    int g, int g0, int staged, int nb, const int16_t* s_coef,
+    const int* s_dc, const int16_t* __restrict__ tile,
+    const int32_t* __restrict__ scan, const uint32_t* s_ac,
+    const uint32_t* s_dcs, F&& f) {
+  bool more = true;
+  for (; g < nb && more; ++g) {
+    const bool staged_row = g - g0 < staged;
+    const int16_t* blk =
+        staged_row ? s_coef + (g - g0) * kHuffStride
+                   : tile + static_cast<long long>(__ldg(scan + g)) * 64;
+    const unsigned long long mask =
+        staged_row ? staged_mask(blk) : global_mask(blk);
+    const int pg = dc_pred_pos(g);     // >= g - 6 >= g0: not before it
+    const int pred =
+        pg < 0 ? 0
+        : pg - g0 < staged
+            ? s_dc[pg - g0]
+            : __ldg(tile + static_cast<long long>(__ldg(scan + pg)) * 64);
+    bit_fields(blk, mask, (staged_row ? s_dc[g - g0] : blk[0]) - pred,
+               s_ac, s_dcs, [&](int32_t val, int len) {
+                 return more = f(val, len);
+               });
+  }
+}
+
+// Zero words [lo, hi) of a row with 16-byte stores where aligned.
+__device__ __forceinline__ void bit_zero(uint32_t* row, long long lo,
+                                         long long hi) {
+  const int j = threadIdx.x;
+  const long long skew =
+      (4 - static_cast<long long>(
+               (reinterpret_cast<uintptr_t>(row + lo) >> 2) & 3)) & 3;
+  const long long al = min(hi, lo + skew);
+  const long long nv = (hi - al) >> 2;
+  for (long long i = lo + j; i < al; i += kBitThreads) row[i] = 0u;
+  uint4* v = reinterpret_cast<uint4*>(row + al);
+  for (long long i = j; i < nv; i += kBitThreads)
+    v[i] = make_uint4(0u, 0u, 0u, 0u);
+  for (long long i = al + 4 * nv + j; i < hi; i += kBitThreads) row[i] = 0u;
+}
+
+// A chunk in four phases, each block coded once:
+//  1. loads: the chunk's coefficient blocks and the next chunk's first
+//     kBitAhead, gathered through the scan map, to shared memory by
+//     cp.async in 16-byte pieces, eight neighbouring threads a block, all
+//     in flight at once; the DCs of the previous chunk's last 6 blocks
+//     (4-byte cp.async) and the spec's codes.
+//  2. fields: thread j takes block j: its nonzero mask, its DC difference
+//     along its component's chain, and its fields (bit_fields), written
+//     MSB first into its own words, thread-local (BitWriter).  A block scan of the
+//     lengths and word counts gives each block's chunk-local bit start
+//     and word offset and the chunk's aggregate, published;
+//     __syncthreads_or tells whether any field of the chunk spills above
+//     its length.
+//  3. lookback and packing, at once: warp 0 reads the tile's earlier
+//     chunks' status words, 32 kBitLook at once, until an inclusive one,
+//     and publishes the chunk's inclusive prefix: s0, the chunk's first
+//     stream bit, and s1 = s0 + aggregate.  Meanwhile each thread packs
+//     its block's words at its word offset into the chunk's coefficient
+//     rows (all read by now), and warp 1 codes the first 32 bits after the
+//     chunk (the next chunk's first blocks, staged, a lane a block: on
+//     the H100 one thread walking them in turn held an all-zero tile's
+//     look-back phase ~10 us) into 64 bits of a chunk-local frame.
+//  4. output: a chunk owns the words that begin in it, [ceil(s0/32),
+//     ceil(s1/32)), and stores each whole, once, plainly; the word in
+//     which s0 falls belongs to the chunk before.  Without a spill the
+//     thread of the block where a word begins gathers its bits from the
+//     packed words of that block and the next (fields of disjoint bits:
+//     their sum is their bits), and the word in which s1 falls takes the
+//     first bits after the chunk.  With a spill (the exact path; also a
+//     chunk whose words do not fit its rows) the chunk zeroes its owned
+//     words, every thread walks its block again and adds each field's c0
+//     and c1 to the owned words with a global atomicAdd, as JAX adds them
+//     (the spilled bits carry within the word), and the last word takes
+//     what the next chunk's first fields add (bit_next_fields, exact; so
+//     does a chunk without a spill whose next fields spill).  Words at or
+//     past cap_words are dropped.  The tile's last chunk writes its total
+//     bits.
+// A zeroing CTA (x >= B * parts) waits for its tile's last chunk to
+// publish the tile's total and zeroes its share of the words from
+// ceil(total / 32) to cap_words, which no chunk stores.  Every word below
+// the cap is stored once, so the launch needs no memset.
+__global__ void __launch_bounds__(kBitThreads, 1024 / kBitThreads)
+bitpack_fixed_kernel(const int16_t* __restrict__ blocks, int B, int nb,
                      const int32_t* __restrict__ scan, int parts,
-                     FastDiv div_parts, int vec,
-                     const int32_t* __restrict__ spec,
+                     FastDiv div_parts, int zero_ctas, FastDiv div_zero,
+                     int vec, const int32_t* __restrict__ spec,
                      uint32_t* __restrict__ words, long long cap_words,
                      int32_t* __restrict__ total_bits,
-                     unsigned long long* status) {
-  __shared__ __align__(16) int16_t s_coef[kBitBlocks * kHuffStride];
+                     unsigned long long* __restrict__ status,
+                     unsigned long long epoch) {
+  __shared__ __align__(16) int16_t s_coef[kBitRows * kHuffStride];
   __shared__ uint32_t s_ac[256];          // ac_len << 16 | ac_code
   __shared__ uint32_t s_dcs[12];          // dc_len << 16 | dc_code
-  __shared__ int s_start[kBitBlocks];
+  // The DCs of the previous chunk's last 6 blocks (their first two
+  // coefficients, copied by cp.async) and of the staged rows.
+  __shared__ int s_dc_all[6 + kBitRows];
+  __shared__ int s_pre[kBitBlocks + 1];   // start | word offset << 18
   __shared__ unsigned s_warp[kBitWarps];
   __shared__ unsigned s_excl;
-  const int b = divide_by(static_cast<int>(blockIdx.x), div_parts);
-  const int c = static_cast<int>(blockIdx.x) - b * parts;
+  __shared__ unsigned long long s_head;   // the bits after the chunk
+  __shared__ int s_head_spills;
+  uint32_t* s_words = reinterpret_cast<uint32_t*>(s_coef);
+  int* s_dc = s_dc_all + 6;               // s_dc[g - g0], g >= g0 - 6
+  const unsigned long long tag = epoch << 34;
+  const int x = static_cast<int>(blockIdx.x);
+  const int j = threadIdx.x, lane = j & 31, wid = j >> 5;
+
+  if (x >= B * parts) {                   // a zeroing CTA
+    const int zx = x - B * parts;
+    const int b = divide_by(zx, div_zero), z = zx - b * zero_ctas;
+    if (j == 0) {
+      const unsigned long long* st =
+          status + static_cast<long long>(b) * parts + parts - 1;
+      unsigned long long s = peek(st);
+      while ((s >> 34) != epoch || (s & kBitInclusive) == 0ull) {
+        __nanosleep(256);
+        s = peek(st);
+      }
+      s_excl = static_cast<unsigned>(s);
+    }
+    __syncthreads();
+    const long long z0 = (static_cast<long long>(s_excl) + 31) >> 5;
+    if (z0 >= cap_words) return;
+    const long long span = cap_words - z0;
+    bit_zero(words + static_cast<long long>(b) * cap_words,
+             z0 + span * z / zero_ctas, z0 + span * (z + 1) / zero_ctas);
+    return;
+  }
+
+  const int b = divide_by(x, div_parts);
+  const int c = x - b * parts;
   const int g0 = c * kBitBlocks;
   const int n = min(kBitBlocks, nb - g0);
-  const int j = threadIdx.x, lane = j & 31, wid = j >> 5;
+  const int staged = n + (c + 1 < parts ? min(kBitAhead, nb - g0 - n) : 0);
   const int16_t* tile = blocks + static_cast<long long>(b) * nb * 64;
 
   // 1. Loads.
-  uint4 piece[8];
+  int rast[kBitLoads];
 #pragma unroll
-  for (int r = 0; r < 8; ++r) {
+  for (int r = 0; r < kBitLoads; ++r) {
+    const int jj = (r * kBitThreads + j) >> 3;
+    rast[r] = jj < staged ? __ldg(scan + g0 + jj) : 0;
+  }
+  // The DC predecessors in the previous chunk, read beside the blocks.
+  const int prev_rast = j < 6 && c > 0 ? __ldg(scan + g0 - 6 + j) : 0;
+  uint32_t ac[256 / kBitThreads + 1], dcs = 0u;
+#pragma unroll
+  for (int q = 0; q * kBitThreads < 256; ++q) {
+    const int i = q * kBitThreads + j;
+    ac[q] = i < 256 ? static_cast<uint32_t>(__ldg(spec + kSpecAcLen + i))
+                              << 16 |
+                          (static_cast<uint32_t>(
+                               __ldg(spec + kSpecAcCode + i)) & 0xFFFFu)
+                    : 0u;
+  }
+  if (j < 12)
+    dcs = static_cast<uint32_t>(__ldg(spec + kSpecDcLen + j)) << 16 |
+          (static_cast<uint32_t>(__ldg(spec + kSpecDcCode + j)) & 0xFFFFu);
+#pragma unroll
+  for (int r = 0; r < kBitLoads; ++r) {
     const int p = r * kBitThreads + j, jj = p >> 3, part = p & 7;
-    piece[r] = make_uint4(0u, 0u, 0u, 0u);
-    if (jj < n) {
-      const int16_t* src =
-          tile + static_cast<long long>(__ldg(scan + g0 + jj)) * 64 +
-          8 * part;
+    if (jj < staged) {
+      const int16_t* src = tile + static_cast<long long>(rast[r]) * 64 +
+                           8 * part;
+      int16_t* dst = s_coef + jj * kHuffStride + 8 * part;
       if (vec) {
-        piece[r] = __ldg(reinterpret_cast<const uint4*>(src));
+        cp_async16(dst, src);
       } else {
-        uint32_t* w = &piece[r].x;
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
-          w[i] = static_cast<uint16_t>(__ldg(src + 2 * i)) |
-                 static_cast<uint32_t>(static_cast<uint16_t>(
-                     __ldg(src + 2 * i + 1))) << 16;
+        for (int i = 0; i < 8; ++i) dst[i] = __ldg(src + i);
       }
     }
   }
-  for (int i = j; i < 256; i += kBitThreads)
-    s_ac[i] = static_cast<uint32_t>(__ldg(spec + kSpecAcLen + i)) << 16 |
-              (static_cast<uint32_t>(__ldg(spec + kSpecAcCode + i)) &
-               0xFFFFu);
-  if (j < 12)
-    s_dcs[j] = static_cast<uint32_t>(__ldg(spec + kSpecDcLen + j)) << 16 |
-               (static_cast<uint32_t>(__ldg(spec + kSpecDcCode + j)) &
-                0xFFFFu);
 #pragma unroll
-  for (int r = 0; r < 8; ++r) {
-    const int p = r * kBitThreads + j, jj = p >> 3, part = p & 7;
-    if (jj < n)
-      *reinterpret_cast<uint4*>(s_coef + jj * kHuffStride + 8 * part) =
-          piece[r];
-  }
+  for (int q = 0; q * kBitThreads < 256; ++q)
+    if (q * kBitThreads + j < 256) s_ac[q * kBitThreads + j] = ac[q];
+  if (j < 12) s_dcs[j] = dcs;
+  const int16_t* prev_dc = tile + static_cast<long long>(prev_rast) * 64;
+  if (j < 6 && c > 0 && vec) cp_async4(s_dc + j - 6, prev_dc);
+  cp_async_wait();
+  if (j < 6 && c > 0)
+    s_dc[j - 6] = vec ? static_cast<int16_t>(s_dc[j - 6] & 0xFFFF)
+                      : __ldg(prev_dc);
   __syncthreads();
 
-  // 2. Lengths.
-  int len = 0, diff = 0;
-  unsigned long long mask = 0ull;       // bit k: position k is nonzero
+  // 2. Fields.
+  for (int r = j; r < staged; r += kBitThreads)
+    s_dc[r] = s_coef[r * kHuffStride];
+  uint32_t own[kHuffBlockWords];          // the block's words
+  int len = 0, nw = 0, diff = 0;
+  bool spill = false;
+  unsigned long long mask = 0ull;
   const int16_t* blk = s_coef + j * kHuffStride;
-  const uint32_t zrl = s_ac[0xF0];
-  const int zl = static_cast<int>(zrl >> 16);
   if (j < n) {
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const uint4 v = reinterpret_cast<const uint4*>(blk)[i];
-      const uint32_t w[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-      for (int h = 0; h < 4; ++h) {
-        const unsigned two = ((w[h] & 0xFFFFu) != 0u ? 1u : 0u) |
-                             ((w[h] >> 16) != 0u ? 2u : 0u);
-        mask |= static_cast<unsigned long long>(two) << (8 * i + 2 * h);
-      }
-    }
-    // The DC chains: Y1..Y3 from the Y before them in the MCU, Y0 from
-    // the previous MCU's Y3, Cb and Cr from their own block one MCU back;
-    // 0 before the tile's first MCU.
-    const int g = g0 + j, m = g / 6, slot = g - 6 * m;
-    int pred = 0;
-    if ((slot >= 1 && slot <= 3) || m > 0) {
-      const int pg = slot >= 1 && slot <= 3 ? g - 1 : g - (slot ? 6 : 3);
-      pred = pg >= g0 ? s_coef[(pg - g0) * kHuffStride]
-                      : __ldg(tile + static_cast<long long>(
-                                         __ldg(scan + pg)) * 64);
-    }
+    mask = staged_mask(blk);
+    const int pg = dc_pred_pos(g0 + j);
+    const int pred = pg < 0     ? 0
+                     : pg >= g0 ? s_coef[(pg - g0) * kHuffStride]
+                                : s_dc[pg - g0];
     diff = blk[0] - pred;
-    const int sc = huff_category(diff);
-    len = static_cast<int>(s_dcs[sc] >> 16) + sc;
-    unsigned long long rest = mask & ~1ull;
-    int prev = 0;
-    while (rest != 0ull) {
-      const int k = __ffsll(static_cast<long long>(rest)) - 1;
-      rest &= rest - 1ull;
-      const int run = k - prev - 1;
-      prev = k;
-      const int s = huff_category(blk[k]);
-      len += (run >> 4) * zl +
-             static_cast<int>(s_ac[((run & 15) << 4) | s] >> 16) + s;
-    }
-    if ((mask >> 63) == 0ull) len += static_cast<int>(s_ac[0] >> 16);
+    BitWriter out{own, 0ull, 0, 0, 0, false};
+    bit_fields(blk, mask, diff, s_ac, s_dcs, [&](int32_t val, int l) {
+      out.put(val, l);
+      return true;
+    });
+    out.flush();
+    len = out.bits;
+    nw = out.words;
+    spill = out.spill;
   }
-  // The chunk scan: each block's chunk-local bit start.
-  int incl = len;
+  // The chunk scan of len | words << 18: each block's chunk-local bit
+  // start and word offset.
+  const int mine = len | nw << kBitLenBits;
+  int incl = mine;
 #pragma unroll
   for (int d = 1; d < 32; d <<= 1) {
-    const int t = __shfl_up_sync(0xFFFFFFFFu, incl, d);
+    const int t = __shfl_up_sync(kFullMask, incl, d);
     if (lane >= d) incl += t;
   }
   if (lane == 31) s_warp[wid] = incl;
-  __syncthreads();
-  unsigned agg = 0u;
+  const bool any_spill = __syncthreads_or(spill) != 0;
+  unsigned agg_all = 0u;
 #pragma unroll
   for (int w = 0; w < kBitWarps; ++w) {
     if (w < wid) incl += s_warp[w];
-    agg += s_warp[w];
+    agg_all += s_warp[w];
   }
-  s_start[j] = incl - len;
+  const unsigned agg = agg_all & kBitLenMask;
+  const bool packed = !any_spill &&
+                      static_cast<int>(agg_all >> kBitLenBits) <= kBitCapWords;
   if (j == 0)
     publish(status + static_cast<long long>(b) * parts + c,
-            (c == 0 ? kInclusive : kAggregate) | agg);
+            tag | (c == 0 ? kBitInclusive : kBitAggregate) | agg);
+  const bool ahead = c + 1 < parts;
 
-  // 3. Lookback.
+  // 3. Lookback; meanwhile the packing and the bits after the chunk.
   if (wid == 0) {
     unsigned excl = 0u;
     if (c > 0) {
       unsigned long long* st = status + static_cast<long long>(b) * parts;
-      for (int i = c - 1;; i -= 32) {
-        const int idx = i - lane;
-        unsigned long long s = idx >= 0 ? peek(st + idx) : kInclusive;
-        while (__any_sync(0xFFFFFFFFu, (s >> 62) == 0))
-          if ((s >> 62) == 0) s = peek(st + idx);
-        const unsigned done = __ballot_sync(0xFFFFFFFFu, (s >> 62) == 2);
-        const int stop = done ? __ffs(done) - 1 : 31;
-        unsigned bits = lane <= stop ? static_cast<unsigned>(s) : 0u;
+      // kBitLook words a lane, position p = 32 q + lane at chunk i - p,
+      // all read at once; each round waits until every word of its
+      // window is this call's, then sums back to the nearest inclusive.
+      for (int i = c - 1;; i -= 32 * kBitLook) {
+        unsigned long long s[kBitLook];
 #pragma unroll
-        for (int d = 16; d > 0; d >>= 1)
-          bits += __shfl_xor_sync(0xFFFFFFFFu, bits, d);
-        excl += bits;
-        if (done) break;
+        for (int q = 0; q < kBitLook; ++q) {
+          const int idx = i - 32 * q - lane;
+          s[q] = idx >= 0 ? peek(st + idx) : tag | kBitInclusive;
+        }
+        bool ready;
+        do {
+          ready = true;
+#pragma unroll
+          for (int q = 0; q < kBitLook; ++q)
+            if ((s[q] >> 34) != epoch) {
+              s[q] = peek(st + i - 32 * q - lane);
+              ready = false;
+            }
+        } while (!__all_sync(kFullMask, ready));
+        int stop = 32 * kBitLook;          // the nearest inclusive's p
+#pragma unroll
+        for (int q = kBitLook - 1; q >= 0; --q) {
+          const unsigned inc =
+              __ballot_sync(kFullMask, (s[q] & kBitInclusive) != 0ull);
+          if (inc) stop = 32 * q + __ffs(inc) - 1;
+        }
+        unsigned part = 0u;
+#pragma unroll
+        for (int q = 0; q < kBitLook; ++q)
+          if (32 * q + lane <= stop) part += static_cast<unsigned>(s[q]);
+        excl += __reduce_add_sync(kFullMask, part);
+        if (stop < 32 * kBitLook) break;
       }
-      if (lane == 0) publish(st + c, kInclusive | (excl + agg));
+      if (lane == 0) publish(st + c, tag | kBitInclusive | (excl + agg));
     }
     if (lane == 0) s_excl = excl;
   }
+  if (packed) {
+    if (j == kBitBlocks - 1) s_pre[kBitBlocks] = static_cast<int>(agg_all);
+    s_pre[j] = incl - mine;
+    const int wofs = (incl - mine) >> kBitLenBits;
+    for (int k = 0; k < nw; ++k) s_words[wofs + k] = own[k];
+    if (ahead && wid == (kBitWarps > 1 ? 1 : 0)) {
+      // The bits after the chunk: lane l codes the fields of the staged
+      // block n + l that start in its first 32 bits, a warp scan places
+      // them, and past the staged rows (a spec with codes shorter than the
+      // fixed ones) lane 0 goes on alone.
+      unsigned long long bits = 0ull;
+      int lpos = 0, first_spill = 64;
+      if (lane < staged - n) {
+        const int r = n + lane;
+        const int16_t* nblk = s_coef + r * kHuffStride;
+        const unsigned long long nmask = staged_mask(nblk);
+        bit_fields(nblk, nmask, s_dc[r] - s_dc[dc_pred_pos(g0 + r) - g0],
+                   s_ac, s_dcs, [&](int32_t val, int l) {
+                     if (first_spill == 64 && bit_spills(val, l))
+                       first_spill = lpos;
+                     const int sh = 64 - lpos - l;
+                     const unsigned long long u = static_cast<uint32_t>(val);
+                     bits |= sh >= 0 ? u << sh : u >> -sh;
+                     lpos += l;
+                     return lpos < 32;
+                   });
+      }
+      int start = lpos;                  // the warp's exclusive scan
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const int t = __shfl_up_sync(kFullMask, start, d);
+        if (lane >= d) start += t;
+      }
+      const int covered = __shfl_sync(kFullMask, start, 31);
+      start -= lpos;
+      unsigned long long head = start < 64 ? bits >> start : 0ull;
+#pragma unroll
+      for (int d = 16; d > 0; d >>= 1)
+        head |= __shfl_xor_sync(kFullMask, head, d);
+      bool spills =
+          __any_sync(kFullMask, start < 32 && start + first_spill < 32);
+      if (lane == 0) {
+        int pos = covered;
+        if (pos < 32)
+          bit_next_fields(g0 + staged, g0, staged, nb, s_coef, s_dc, tile,
+                          scan, s_ac, s_dcs, [&](int32_t val, int l) {
+                            spills |= bit_spills(val, l);
+                            head |= static_cast<unsigned long long>(
+                                        static_cast<uint32_t>(val))
+                                    << (64 - pos - l);
+                            pos += l;
+                            return pos < 32;
+                          });
+        s_head = head;
+        s_head_spills = spills;
+      }
+    }
+  } else {
+    s_pre[j] = incl - mine;
+  }
   __syncthreads();
 
-  // 4. Deposit.
-  const long long s0 = s_excl;
-  if (j < n) {
-    const long long lo = s0 + s_start[j];
-    BitDeposit out{words + static_cast<long long>(b) * cap_words, cap_words,
-                   lo >> 5, (lo + len - 1) >> 5, lo >> 5, lo, 0u, 0u};
-    int sc = huff_category(diff);
-    uint32_t code = s_dcs[sc];
-    out.put(static_cast<int32_t>((code & 0xFFFFu) << sc) |
-                bit_amplitude(diff, sc),
-            static_cast<int>(code >> 16) + sc);
-    const int32_t zc = static_cast<int32_t>(zrl & 0xFFFFu);
-    unsigned long long rest = mask & ~1ull;
-    int prev = 0;
-    while (rest != 0ull) {
-      const int k = __ffsll(static_cast<long long>(rest)) - 1;
-      rest &= rest - 1ull;
-      const int v = blk[k];
-      const int run = k - prev - 1;
-      prev = k;
-      const int z = run >> 4;
-      if (z >= 2)
-        out.put(static_cast<int32_t>(static_cast<uint32_t>(zc) << zl) | zc,
-                2 * zl);
-      else if (z == 1)
-        out.put(zc, zl);
-      if (z >= 3) out.put(zc, zl);
-      sc = huff_category(v);
-      code = s_ac[((run & 15) << 4) | sc];
-      out.put(static_cast<int32_t>((code & 0xFFFFu) << sc) |
-                  bit_amplitude(v, sc),
-              static_cast<int>(code >> 16) + sc);
+  // 4. Output.
+  const long long s0 = s_excl, s1 = s0 + agg;
+  uint32_t* row = words + static_cast<long long>(b) * cap_words;
+  // The exact sum of what the fields after the chunk add to word s1 >> 5.
+  auto next_c0 = [&]() {
+    const long long end = (s1 | 31) + 1;
+    long long pos = s1;
+    uint32_t sum = 0u;
+    bit_next_fields(g0 + n, g0, staged, nb, s_coef, s_dc, tile, scan, s_ac,
+                    s_dcs, [&](int32_t val, int l) {
+                      sum += bit_c0(val, l, static_cast<int>(pos & 31));
+                      pos += l;
+                      return pos < end;
+                    });
+    return sum;
+  };
+  if (packed) {
+    if (j < n && len > 0) {
+      const int st = s_pre[j] & kBitLenMask;
+      const long long lo = s0 + st;
+      const long long m_end = min((lo + len + 31) >> 5, cap_words);
+      for (long long m = (lo + 31) >> 5; m < m_end; ++m) {
+        const int xb = static_cast<int>(32 * m - s0);   // chunk-local bit
+        int filled = 0, i = j, o = xb - st;
+        uint32_t v = 0u;
+        while (filled < 32 && i < n) {
+          const int pre = s_pre[i];
+          const int take = min(32 - filled, ((s_pre[i + 1] - pre) &
+                                             kBitLenMask) - o);
+          if (take > 0) {
+            const uint32_t* src =
+                s_words + (pre >> kBitLenBits) + (o >> 5);
+            const int r = o & 31;
+            const unsigned long long two =
+                static_cast<unsigned long long>(src[0]) << 32 |
+                (r + take > 32 ? src[1] : 0u);
+            v |= static_cast<uint32_t>((two << r) >> (64 - take))
+                 << (32 - filled - take);
+            filled += take;
+          }
+          ++i;
+          o = 0;
+        }
+        if (ahead && xb + 32 > static_cast<int>(agg)) {
+          if (s_head_spills)
+            v += next_c0();
+          else
+            v |= static_cast<uint32_t>(s_head >> (32 + (s1 & 31)));
+        }
+        row[m] = v;
+      }
     }
-    if ((mask >> 63) == 0ull) {          // EOB: position 63 is zero
-      code = s_ac[0];
-      out.put(static_cast<int32_t>(code & 0xFFFFu),
-              static_cast<int>(code >> 16));
+  } else {
+    // The exact path: zero the owned words, then add every field.
+    const long long m_own = (s0 + 31) >> 5;
+    const long long m_end = min((s1 + 31) >> 5, cap_words);
+    for (long long m = m_own + j; m < m_end; m += kBitThreads) row[m] = 0u;
+    __syncthreads();
+    if (j < n) {
+      long long pos = s0 + (s_pre[j] & kBitLenMask);
+      bit_fields(blk, mask, diff, s_ac, s_dcs, [&](int32_t val, int l) {
+        const long long w = pos >> 5;
+        const int r = static_cast<int>(pos & 31);
+        if (w >= m_own && w < m_end) atomicAdd(row + w, bit_c0(val, l, r));
+        if (r + l > 32 && w + 1 >= m_own && w + 1 < m_end)
+          atomicAdd(row + w + 1, bit_c1(val, l, r));
+        pos += l;
+        return true;
+      });
     }
-    out.finish();
+    if (j == 0 && ahead && (s1 & 31) != 0 && (s1 >> 5) >= m_own &&
+        (s1 >> 5) < m_end)
+      atomicAdd(row + (s1 >> 5), next_c0());
   }
   if (c == parts - 1 && j == 0)
-    total_bits[b] = static_cast<int32_t>(s0 + agg);
+    total_bits[b] = static_cast<int32_t>(s1);
 }
 
 int resident_blocks(const void* kernel, int threads, int fallback,
@@ -1758,44 +2111,50 @@ extern "C" int huffman_pack_launch(const void* y, const void* cb,
 
 // K6.  blocks i16[B, nb, 64] ([Y|Cb|Cr] raster blocks, zigzagged); scan
 // i32[nb], the raster index of each scan position (ops/jpegenc.py
-// _mcu_scan_index, nb = 6 n_mcu); spec i32[1024] as K5's; buf holds the
-// words u32[B, cap_words], then at the next multiple of 8 bytes the status
-// words u64[status_words], at least bitpack_fixed_status_words(B, nb), one
-// per chunk of kBitBlocks blocks; total_bits i32[B].  One memset of buf,
-// one launch.
+// _mcu_scan_index, nb = 6 n_mcu); spec i32[1024] as K5's, codes of at
+// most 16 bits (ops/jpegenc.py spec_tensor refuses longer ones); words
+// i32[B, cap_words]; total_bits i32[B]; status a scratch of at least
+// bitpack_fixed_status_words(B, nb) uint64, one a chunk of kBitBlocks
+// blocks, that no call in flight on another stream uses and that holds no
+// word tagged `epoch` (1 <= epoch < 2^30; kernels/scratch.py gives each
+// call on a stream a new one).  One launch and no memset: every word
+// below the cap is stored once, by the chunk where it begins or, past the
+// stream, by a zeroing CTA.
 extern "C" long long bitpack_fixed_status_words(int B, long long nb) {
   return static_cast<long long>(B) * ((nb + kBitBlocks - 1) / kBitBlocks);
 }
 
 extern "C" int bitpack_fixed_launch(const void* blocks, int B, long long nb,
                                     const void* scan, const void* spec,
-                                    long long cap_words, void* buf,
+                                    long long cap_words, void* words,
+                                    void* total_bits, void* status,
                                     long long status_words,
-                                    void* total_bits, void* stream) {
-  const auto s = static_cast<cudaStream_t>(stream);
-  if (B < 1 || nb < 6 || nb % 6 != 0 || cap_words < 0)
+                                    unsigned long long epoch, void* stream) {
+  if (B < 1 || nb < 6 || nb % 6 != 0 || cap_words < 0 || epoch < 1 ||
+      epoch >= (1ull << 30))
     return cudaErrorInvalidValue;
   if ((reinterpret_cast<uintptr_t>(blocks) & 1u) != 0 ||
-      (reinterpret_cast<uintptr_t>(buf) & 7u) != 0)
+      (reinterpret_cast<uintptr_t>(words) & 3u) != 0 ||
+      (reinterpret_cast<uintptr_t>(status) & 7u) != 0)
     return cudaErrorMisalignedAddress;
-  const long long words = bitpack_fixed_status_words(B, nb);
+  const long long chunks = bitpack_fixed_status_words(B, nb);
   // Bit counts are u32 in the status words and i32 in total_bits: at most
   // 1728 bits a block, 2^20 blocks a tile.
-  if (nb > (1LL << 20) || words > 0x7FFFFFFFLL)
+  const long long want = cap_words / kBitZeroWords;
+  const long long zero = want < 1 ? 1 : want > kBitZeroCtas ? kBitZeroCtas
+                                                             : want;
+  if (nb > (1LL << 20) || chunks + B * zero > 0x7FFFFFFFLL)
     return cudaErrorInvalidConfiguration;
-  if (status_words < words) return cudaErrorInvalidValue;
-  const int parts = static_cast<int>(words / B);
-  const long long wbytes = (static_cast<long long>(B) * cap_words * 4 + 7) /
-                           8 * 8;
-  auto* o8 = static_cast<uint8_t*>(buf);
-  auto* st = reinterpret_cast<unsigned long long*>(o8 + wbytes);
+  if (status_words < chunks) return cudaErrorInvalidValue;
+  const int parts = static_cast<int>(chunks / B);
   const int vec = (reinterpret_cast<uintptr_t>(blocks) & 15u) == 0;
-  cudaError_t err = cudaMemsetAsync(buf, 0, wbytes + 8 * words, s);
-  if (err != cudaSuccess) return err;
-  bitpack_fixed_kernel<<<static_cast<unsigned>(words), kBitThreads, 0, s>>>(
-      static_cast<const int16_t*>(blocks), static_cast<int>(nb),
-      static_cast<const int32_t*>(scan), parts, fast_div(parts), vec,
-      static_cast<const int32_t*>(spec), reinterpret_cast<uint32_t*>(o8),
-      cap_words, static_cast<int32_t*>(total_bits), st);
+  bitpack_fixed_kernel<<<static_cast<unsigned>(chunks + B * zero),
+                         kBitThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int16_t*>(blocks), B, static_cast<int>(nb),
+      static_cast<const int32_t*>(scan), parts, fast_div(parts),
+      static_cast<int>(zero), fast_div(static_cast<int>(zero)), vec,
+      static_cast<const int32_t*>(spec), static_cast<uint32_t*>(words),
+      cap_words, static_cast<int32_t*>(total_bits),
+      static_cast<unsigned long long*>(status), epoch);
   return cudaGetLastError();
 }

@@ -18,9 +18,11 @@ Counterparts of the stages of the JAX package's device program
 All five live in ``csrc/jpeg.cu`` behind a plain ``extern "C"`` interface,
 built and loaded by :mod:`.build` on first use; a build failure raises.
 Each wrapper takes CUDA tensors only, checks them, allocates its outputs
-(and K4a's, K5's and K6's status words) with ``torch.empty``, launches on
-the current stream, raises if a launch was refused, and counts one launch
-in :data:`LAUNCHES` per call.
+(and K4a's and K5's status words) with ``torch.empty``, launches on the
+current stream, raises if a launch was refused, and counts one launch in
+:data:`LAUNCHES` per call.  K6 takes its status words from the scratch
+that it shares with K10 (:func:`.scratch.status_scratch`, an epoch a
+call), so it is one launch with no memset.
 The plain PyTorch versions are in ``ops/jpegenc.py``, whose dispatchers
 send CPU tensors there and CUDA tensors here.
 """
@@ -34,6 +36,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from . import build
+from .scratch import status_scratch
 
 SOURCE = build.CSRC / "jpeg.cu"
 # No contraction into FMAs: K3 rounds each product and sum as its plain
@@ -76,7 +79,8 @@ def _configure(lib: ctypes.CDLL) -> None:
     lib.huffman_pack_launch.argtypes = [p, p, p, i, i, i, p, ll, p, ll, p]
     lib.huffman_pack_status_words.argtypes = [i, ll]
     lib.huffman_pack_status_words.restype = ll
-    lib.bitpack_fixed_launch.argtypes = [p, i, ll, p, p, ll, p, ll, p, p]
+    lib.bitpack_fixed_launch.argtypes = [p, i, ll, p, p, ll, p, p, p, ll,
+                                         ctypes.c_ulonglong, p]
     lib.bitpack_fixed_status_words.argtypes = [i, ll]
     lib.bitpack_fixed_status_words.restype = ll
     for fn in (lib.jpeg_coefficients_launch, lib.sparse_pack_launch,
@@ -264,14 +268,15 @@ def bitpack_fixed(blocks: torch.Tensor, scan_idx: torch.Tensor,
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K6: zigzag coefficients i16[B, nb, 64] ([Y|Cb|Cr] raster blocks)
     -> ``(words, total_bits)``: each tile's fixed-table Huffman stream as
-    the bits of u32 words in i32[B, cap_words] (words at or past
-    ``cap_words`` dropped) and its whole length in bits, i32[B].
-    ``scan_idx`` i32[nb / 6, 6] is ``ops.jpegenc._mcu_scan_index`` on the
-    card, ``spec`` the i32[1024] block of ``ops.jpegenc.spec_tensor``.
-    ``ops.jpegenc.bitpack_fixed_plain`` is the same function.  One memset
-    and one launch on the current stream; the words are a view of a
-    buffer that also holds the chunks' status words (8 bytes a chunk of
-    :data:`BIT_CHUNK_BLOCKS` blocks)."""
+    the bits of u32 words in i32[B, cap_words] (zero past the stream,
+    words at or past ``cap_words`` dropped) and its whole length in bits,
+    i32[B].  ``scan_idx`` i32[nb / 6, 6] is ``ops.jpegenc._mcu_scan_index``
+    on the card, ``spec`` the i32[1024] block of
+    ``ops.jpegenc.spec_tensor``.  ``ops.jpegenc.bitpack_fixed_plain`` is
+    the same function.  One launch on the current stream and no memset:
+    the look-back's status words (one a chunk of :data:`BIT_CHUNK_BLOCKS`
+    blocks) live in the stream's status scratch under a new epoch, and
+    the kernel stores every word below the cap itself."""
     dev = _cuda("bitpack_fixed", blocks, scan_idx, spec)
     if blocks.dtype != torch.int16 or blocks.dim() != 3 \
             or blocks.shape[2] != 64:
@@ -286,19 +291,18 @@ def bitpack_fixed(blocks: torch.Tensor, scan_idx: torch.Tensor,
         raise ValueError("spec must be i32[1024]")
     if cap_words < 0:
         raise ValueError(f"cap_words must be >= 0, got {cap_words}")
+    words = torch.empty((B, cap_words), dtype=torch.int32, device=dev)
     bits = torch.empty((B,), dtype=torch.int32, device=dev)
     if B == 0:
-        return torch.empty((0, cap_words), dtype=torch.int32,
-                           device=dev), bits
+        return words, bits
     lib = library()
-    status = lib.bitpack_fixed_status_words(B, nb)
-    wbytes = (B * cap_words * 4 + 7) // 8 * 8
-    buf = torch.empty((wbytes + 8 * status,), dtype=torch.uint8, device=dev)
+    chunks = lib.bitpack_fixed_status_words(B, nb)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
+        status, epoch = status_scratch(dev, stream, chunks)
         err = lib.bitpack_fixed_launch(
             blocks.data_ptr(), B, nb, scan_idx.data_ptr(), spec.data_ptr(),
-            cap_words, buf.data_ptr(), status, bits.data_ptr(), stream)
+            cap_words, words.data_ptr(), bits.data_ptr(), status.data_ptr(),
+            status.numel(), epoch, stream)
     _launched("bitpack_fixed", err)
-    words = buf[:B * cap_words * 4].view(torch.int32).view(B, cap_words)
     return words, bits

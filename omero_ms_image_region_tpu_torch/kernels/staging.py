@@ -12,22 +12,21 @@ counts one launch in :data:`LAUNCHES` per call.  The plain version is
 there and CUDA tensors here.
 
 The kernel finds each tile's first word by a decoupled look-back over a
-status scratch of one uint64 a tile (:func:`status_scratch`): one scratch
-per device and stream, since calls on one stream run one after another and
-calls on two streams (the batcher's lanes, the raw cache's stream) may run
-at once; each call tags its words with a new epoch, so the scratch needs
-no clearing between calls.
+status scratch of one uint64 a tile (:func:`.scratch.status_scratch`, one
+per device and stream, shared with K6): each call tags its words with a
+new epoch, so the scratch needs no clearing between calls.
 """
 
 from __future__ import annotations
 
 import ctypes
 import threading
-from typing import Dict, Tuple
+from typing import Dict
 
 import torch
 
 from . import build
+from .scratch import status_scratch
 
 SOURCE = build.CSRC / "staging.cu"
 NVCC_FLAGS = build.ARCH_FLAGS
@@ -37,14 +36,6 @@ _launch_lock = threading.Lock()
 
 # Offsets count words in 32 bits: the words array stays under this.
 MAX_WORDS = 1 << 32
-# A status word holds the epoch in its top 30 bits; epoch 0 marks a
-# zeroed word and is never given to a call.
-EPOCH_LIMIT = 1 << 30
-_MIN_SCRATCH_TILES = 256
-
-# (device index, stream handle) -> [status scratch, last epoch given]
-_scratch: Dict[Tuple[int, int], list] = {}
-_scratch_lock = threading.Lock()
 
 
 def reset_launches() -> None:
@@ -75,34 +66,6 @@ def tile_count(n_words: int, n_rows: int, tile_rows: int) -> int:
         raise ValueError(f"unpack16: {n_words} words pass the kernel's "
                          f"32-bit word offsets (at most {MAX_WORDS - 1})")
     return -(-n_rows // tile_rows)
-
-
-def scratch_tiles(tiles: int) -> int:
-    """The status entries a scratch for ``tiles`` tiles is made with: the
-    next power of two, at least :data:`_MIN_SCRATCH_TILES`, so a stream's
-    scratch is remade a few times at most."""
-    return max(_MIN_SCRATCH_TILES, 1 << max(tiles - 1, 0).bit_length())
-
-
-def status_scratch(device: torch.device, stream_key: int,
-                   tiles: int) -> Tuple[torch.Tensor, int]:
-    """The status scratch of (``device``, ``stream_key``) with room for
-    ``tiles`` and the epoch of the next call on it.  A new scratch is
-    zeroed on the current stream (the caller's launch stream, so the
-    caching allocator hands its memory on only behind that stream's work);
-    when the epochs run out it is zeroed again and they start over at 1."""
-    key = (-1 if device.index is None else device.index, stream_key)
-    with _scratch_lock:
-        entry = _scratch.get(key)
-        if entry is None or entry[0].numel() < tiles:
-            entry = [torch.zeros(scratch_tiles(tiles), dtype=torch.int64,
-                                 device=device), 0]
-            _scratch[key] = entry
-        entry[1] += 1
-        if entry[1] >= EPOCH_LIMIT:
-            entry[0].zero_()
-            entry[1] = 1
-        return entry[0], entry[1]
 
 
 def unpack16(words: torch.Tensor, widths: torch.Tensor,

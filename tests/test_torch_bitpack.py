@@ -6,7 +6,13 @@
   95, an all-zero tile, a tile of noise with runs of 48 zeros and more
   (the three ZRL fields) and DC differences past 2048 (the category-11
   clamp), and an overflow at a small cap (the words below the cap equal,
-  the whole stream's bits counted).
+  the whole stream's bits counted); and the inputs that choose between
+  the two paths of K6's kernel (chunks of ``kernels.jpeg.BIT_CHUNK_BLOCKS``
+  blocks): a clamp below -2047 (whose sign bits JAX adds into the words
+  before the field) in one chunk of a tile only, clamps in the first
+  block of chunks (their spill reaches the previous chunk's last word),
+  tiles whose streams end exactly on a word boundary, and B=3 tiles of
+  different stream lengths.
 * ``BitpackJpegEncoder`` gives ``TpuJpegEncoder``'s JFIF bytes, and hands
   an overflowing tile to its dense fallback as JAX does.
 * Both direct apps (``batcher.enabled: false``) with ``jpeg-engine:
@@ -16,6 +22,7 @@
 K6 itself is held to its plain version by ``chip_smoke.py`` on the card.
 """
 
+import chip_smoke
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -28,6 +35,7 @@ from omero_ms_image_region_tpu.flagship import (
 from omero_ms_image_region_tpu.jfif import fixed_huffman_spec
 from omero_ms_image_region_tpu.ops import jpegenc as J
 from omero_ms_image_region_tpu_torch.flagship import flagship_rdef
+from omero_ms_image_region_tpu_torch.kernels import jpeg as KJ
 from omero_ms_image_region_tpu_torch.ops import jpegenc as P
 from omero_ms_image_region_tpu_torch.ops import render as port_render
 
@@ -94,18 +102,38 @@ CASES = {
     "all_zero_48x64": (48, 64, None, None),
     "noise_runs_32x32": (32, 32, None, 1024),
     "overflow_256x256_q95": (256, 256, 95, 300),
+    "clamp_one_chunk_256x256_q95": (256, 256, 95, None),
+    "clamp_chunk_start_256x256_q95": (256, 256, 95, None),
+    "word_boundary_256x256_q95": (256, 256, 95, None),
+    "b3_lengths_256x256_q95": (256, 256, 95, None),
 }
+
+
+CRAFTED = {"clamp_one": "clamp in chunk 1 only",
+           "clamp_chunk": "clamps first in chunks 1-4",
+           "word": "streams ending on a word",
+           "b3": "B=3 of different lengths"}
+
+
+def _case_blocks(name: str, H: int, W: int, q, cap: int) -> np.ndarray:
+    if name.startswith(("rendered", "overflow")):
+        return _rendered_blocks(sum(map(ord, name)) % 97, H, W, q)
+    if name.startswith(("all", "noise")):
+        return _crafted("all_zero" if name.startswith("all") else "noise",
+                        H, W)
+    # The inputs chip_smoke.py holds K6 to on the card, made on the CPU.
+    crafted = dict(chip_smoke.bitpack_crafted(
+        torch, P, torch.from_numpy(_rendered_blocks(7, H, W, q)),
+        P._mcu_scan_index(H // 16, W // 16), cap, KJ.BIT_CHUNK_BLOCKS))
+    kind = next(k for k in CRAFTED if name.startswith(k))
+    return crafted[CRAFTED[kind]].numpy()
 
 
 @pytest.mark.parametrize("name", list(CASES))
 def test_bitpack_fixed_plain_matches_jax(name):
     H, W, q, cap = CASES[name]
-    if name.startswith(("rendered", "overflow")):
-        blocks = _rendered_blocks(sum(map(ord, name)) % 97, H, W, q)
-    else:
-        blocks = _crafted("all_zero" if name.startswith("all")
-                          else "noise", H, W)
     cap = cap or P.BitpackJpegEncoder(H, W, q or 85).cap_words
+    blocks = _case_blocks(name, H, W, q, cap)
     want_w, want_b = _jax_words(blocks, H, W, cap)
     got_w, got_b = P.bitpack_fixed_plain(
         torch.from_numpy(blocks), P._mcu_scan_index(H // 16, W // 16),
@@ -114,11 +142,34 @@ def test_bitpack_fixed_plain_matches_jax(name):
     np.testing.assert_array_equal(got_b.numpy(), want_b)
     over = got_b.numpy() > 32 * cap
     assert over.all() if name.startswith("overflow") else not over.any()
+    scan = P._mcu_scan_index(H // 16, W // 16).reshape(-1)
     if name.startswith("noise"):
         # The clamp: the luma chain has DC differences of 2048 and more.
         y_chain = P._mcu_scan_index(H // 16, W // 16)[:, :4].reshape(-1)
         dc = blocks[0, y_chain, 0].astype(np.int32)
         assert np.abs(np.diff(dc)).max() >= 2048
+    if name.startswith("clamp_one"):
+        # Values below -2047 lie in chunk 1 only, and the clamp changed
+        # the stream.
+        low = (blocks[:, scan] < -2047).any(axis=2)
+        chunks = np.unique(np.nonzero(low)[1] // KJ.BIT_CHUNK_BLOCKS)
+        assert chunks.tolist() == [1]
+        assert not np.array_equal(
+            want_w, _jax_words(_rendered_blocks(7, H, W, q), H, W, cap)[0])
+    if name.startswith("clamp_chunk"):
+        # Each clamp is the first field of its chunk: its spill reaches
+        # the previous chunk's last word (where the chunk starts inside
+        # a word).
+        for k in range(1, 5):
+            g = k * KJ.BIT_CHUNK_BLOCKS
+            diff = blocks[:, scan[g], 0].astype(np.int32) \
+                - blocks[:, scan[chip_smoke.dc_pred_pos(g)], 0]
+            assert (diff <= -2048).all()
+    if name.startswith("word"):
+        assert (got_b.numpy() % 32 == 0).all()
+        assert (got_b.numpy() > 32 * 100).all()
+    if name.startswith("b3"):
+        assert len(set(got_b.tolist())) == 3
 
 
 @pytest.mark.parametrize("H, W, q", [(64, 64, 85), (32, 48, 75),

@@ -43,6 +43,8 @@ from omero_ms_image_region_tpu.server.region import RegionDef as JaxRegion
 from omero_ms_image_region_tpu_torch import native
 from omero_ms_image_region_tpu_torch.io import staging
 from omero_ms_image_region_tpu_torch.io.devicecache import DeviceRawCache
+from omero_ms_image_region_tpu_torch.kernels import jpeg as k6
+from omero_ms_image_region_tpu_torch.kernels import scratch
 from omero_ms_image_region_tpu_torch.kernels import staging as k10
 from omero_ms_image_region_tpu_torch.server.app import build_services
 from omero_ms_image_region_tpu_torch.server.config import AppConfig
@@ -201,25 +203,30 @@ def test_k10_host_plan():
     assert k10.tile_count(k10.MAX_WORDS - 1, 16384, 8) == 2048
     with pytest.raises(ValueError, match="32-bit"):
         k10.tile_count(k10.MAX_WORDS, 16384, 8)
-    assert [k10.scratch_tiles(t) for t in (1, 256, 257, 512, 2048, 2049)] \
+    assert [scratch.scratch_entries(t)
+            for t in (1, 256, 257, 512, 2048, 2049)] \
         == [256, 256, 512, 512, 2048, 4096]
 
 
 def test_k10_status_scratch_per_stream(monkeypatch):
-    monkeypatch.setattr(k10, "_scratch", {})
+    """The look-back scratch of K10 and K6: one per device and stream,
+    shared by both wrappers, a new epoch a call."""
+    assert k10.status_scratch is scratch.status_scratch
+    assert k6.status_scratch is scratch.status_scratch
+    monkeypatch.setattr(scratch, "_scratch", {})
     cpu = torch.device("cpu")
     a, e1 = k10.status_scratch(cpu, 7, 512)
     assert a.dtype == torch.int64 and a.numel() == 512 and e1 == 1
     assert not a.any()
-    b, e2 = k10.status_scratch(cpu, 7, 100)
+    b, e2 = k6.status_scratch(cpu, 7, 100)
     assert b is a and e2 == 2                        # same stream: reused
     c, e3 = k10.status_scratch(cpu, 8, 100)
     assert c is not a and e3 == 1                    # another stream
     a.fill_(5)
-    d, e4 = k10.status_scratch(cpu, 7, 513)          # grown: a new, zeroed
+    d, e4 = k6.status_scratch(cpu, 7, 513)           # grown: a new, zeroed
     assert d.numel() == 1024 and e4 == 1 and not d.any()
-    monkeypatch.setattr(k10, "EPOCH_LIMIT", 3)
+    monkeypatch.setattr(scratch, "EPOCH_LIMIT", 3)
     k10.status_scratch(cpu, 7, 1)
     d.fill_(9)
-    e, e6 = k10.status_scratch(cpu, 7, 1)            # epochs ran out
+    e, e6 = k6.status_scratch(cpu, 7, 1)             # epochs ran out
     assert e is d and e6 == 1 and not e.any()
