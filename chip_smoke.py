@@ -304,7 +304,27 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                        a burst runs one group on a lane at a time; with
                        traffic stopped it releases in exact reverse;
                        prints each transition with its time and the tile
-                       p50 under each rung.
+                       p50 under each rung;
+           fleet:      the default app with ``fleet: {enabled: true,
+                       members: 2}`` (two in-process members on the card,
+                       each its own batcher and raw cache): 32 distinct
+                       cold tiles at 8 in flight, each equal to the plain
+                       route, each served and staged by the member this
+                       script's own consistent-hash ring names (BLAKE2b,
+                       64 points a member; stealing held off until the
+                       skewed burst) and no plane resident on two
+                       members; the same tiles re-windowed, every one a
+                       raw-cache hit on its owner; a skewed burst of 16
+                       cold tiles of one member at once: at least one
+                       steal, and the thief's raw cache unchanged; a burst
+                       with member m1 marked down in its middle: no failed
+                       GET; ``POST /admin/drain?member=m1``: its planes
+                       prestaged on m0, then ``/admin/undrain``; with
+                       ``hotkey`` on, a burst of 64 GETs of one plane (64
+                       windows) promotes a replica, reads balance to it
+                       and no replica is staged twice; K1's launches per
+                       member (each member's batcher groups), the p50 and
+                       tiles/s against the e2e run's.
            The app is reached over HTTP on 127.0.0.1 where aiohttp is
            installed, else through its request front (``server.app.Front``:
            the same conditional decision, handler and status mapping);
@@ -319,6 +339,14 @@ Phases (any failure ends the run with a non-zero exit and no result line):
            degraded 200s with it on; then ``--role split``: a 200, the
            sidecar child killed, the supervisor's new child serves the
            same bytes, and SIGTERM leaves no child;
+5b. fleet_sidecars a ``--role frontend`` with ``fleet.sockets`` over two
+           ``--role sidecar`` processes on the same card: 8 cold tiles
+           byte-equal to the combined fleet app's; a skewed burst with
+           one steal, the thief sidecar's raw cache (its
+           ``shard_manifest``) unchanged; ``drain`` of m0 with the wire
+           prestage of its shard on m1; the drained tile again, answered
+           by a peer ``byte_fetch`` from m0's byte tier; p50s and the
+           sidecars' start time;
 6. warm_restart two lives of
            ``python -m omero_ms_image_region_tpu_torch.server``
            from one YAML (``persistence: {enabled: true, dir: <tmp>}``,
@@ -349,8 +377,8 @@ after.  It prints the kernel table of all twelve kernels as one JSON line
 bitpack phase for K6, the workload phases for K7, K8a, K8b and K9, the
 e2e run's cold misses for K10; ``workload_launches``: each
 kernel's launches in each of those phases, readers, pyramid, omero,
-prefetch, huffman, byte_cache, bitpack, growth, forensics and pressure
-included), then the
+prefetch, huffman, byte_cache, bitpack, growth, forensics, pressure and
+fleet included), then the
 nvidia-smi line,
 and last ``{"ok": true, "device": {...}}``.  It imports nothing of JAX.
 """
@@ -426,12 +454,13 @@ def time_ms(torch, fn, reps: int, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def device_events(torch, fn, calls: int = 10, tries: int = 3):
+def device_events(torch, fn, calls: int = 10, tries: int = 5):
     """``(split, counts)`` of the kernels and memsets that ``fn`` launches
     (torch.profiler, L2 warm): device microseconds per call of each, and
     how many of each one call launches.  The profiler now and then records
-    no kernel at all; such a window is profiled again, up to ``tries``
-    times (two empty dicts after that)."""
+    no kernel at all, or loses some of a window's events (a count that is
+    not a whole number a call); such a window is profiled again, up to
+    ``tries`` times (the last window's counts after that)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -447,7 +476,7 @@ def device_events(torch, fn, calls: int = 10, tries: int = 3):
                   if e.self_device_time_total > 0]
         split = {k: e.self_device_time_total / calls for k, e in events}
         counts = {k: e.count / calls for k, e in events}
-        if split:
+        if split and all(e.count % calls == 0 for _, e in events):
             break
     return split, counts
 
@@ -2105,6 +2134,11 @@ def params_of(route, query, image="1"):
     return dict({"imageId": image, "theZ": "0", "theT": "0"}, **query)
 
 
+class SimpleAnswer:
+    def __init__(self, status, headers, body):
+        self.status, self.headers, self.body = status, headers, body
+
+
 class Client:
     """One app a config describes, over HTTP on 127.0.0.1 when aiohttp is
     installed, else through the app's request front
@@ -2124,17 +2158,29 @@ class Client:
             import aiohttp
             from aiohttp import web
             from omero_ms_image_region_tpu_torch.server.app import create_app
+            from omero_ms_image_region_tpu_torch.server.app import (
+                _front_key)
             self.port = free_port()
-            self.runner = web.AppRunner(create_app(
-                self.config, DEVICE, handler=self.handler, db=self.db))
+            app = create_app(self.config, DEVICE, handler=self.handler,
+                             db=self.db)
+            # The app's front (its fleet router, with handler None).
+            self.app_front = app[_front_key()]
+            self.runner = web.AppRunner(app)
             await self.runner.setup()
             await web.TCPSite(self.runner, "127.0.0.1", self.port).start()
             self.session = aiohttp.ClientSession(
                 timeout=aiohttp.ClientTimeout(total=120))
             return
-        from omero_ms_image_region_tpu_torch.server.app import Front
+        from omero_ms_image_region_tpu_torch.server.app import (Front,
+                                                                build_front)
         from omero_ms_image_region_tpu_torch.server.watchdog import (
             build_watchdog)
+        if self.handler is None:
+            # The config's own stack (a fleet); no watchdog task here.
+            self.front = self.app_front = build_front(self.config, DEVICE)
+            self.loops = [asyncio.create_task(loop(), name=name)
+                          for name, loop in self.front.background()]
+            return
         self.front = Front(self.config, self.handler, db=self.db)
         if self.config.watchdog.enabled:
             self.watchdog = asyncio.create_task(build_watchdog(
@@ -2156,6 +2202,10 @@ class Client:
                 await asyncio.gather(task, return_exceptions=True)
         if self.front is not None:
             self.front.close()
+        if self.handler is None:
+            if self.runner is None:
+                await close_fleet(self.front)
+            return
         if self.handler.s.prefetcher is not None:
             self.handler.s.prefetcher.close()
         await self.handler.s.renderer.close()
@@ -2183,6 +2233,29 @@ class Client:
             answer = await self.front.observed(
                 route, method, params_of(route, query, image),
                 headers or {}, cookies or {})
+            status, hdrs, body = answer.status, answer.headers, answer.body
+        return status, hdrs, body, (time.perf_counter() - t0) * 1e3
+
+    async def request_path(self, method: str, path: str):
+        """(status, headers, body, wall ms) of a request to ``path`` (an
+        ``/admin`` route)."""
+        t0 = time.perf_counter()
+        if self.session is not None:
+            async with self.session.request(
+                    method, f"http://127.0.0.1:{self.port}{path}") as r:
+                body = await r.read()
+                status, hdrs = r.status, r.headers.copy()
+        else:
+            from urllib.parse import parse_qsl, urlsplit
+            parts = urlsplit(path)
+            member = dict(parse_qsl(parts.query)).get("member")
+            if parts.path == "/admin/drain":
+                answer = await self.front.admin_drain(method, member)
+            elif parts.path == "/admin/undrain":
+                answer = self.front.admin_undrain(member)
+            else:
+                answer = SimpleAnswer(200, {}, self.front.metrics_text()
+                                      .encode())
             status, hdrs, body = answer.status, answer.headers, answer.body
         return status, hdrs, body, (time.perf_counter() - t0) * 1e3
 
@@ -4859,6 +4932,420 @@ def sidecar_phase(torch, np, data_dir, lut_root, have_aiohttp,
     return doc
 
 
+# ------------------------------------------------------------- the fleet
+
+def ring_owner(members, key: str, points: int = 64) -> str:
+    """The consistent-hash owner of ``key``, computed here without the
+    port: BLAKE2b-64 of "<member>#<v>" for ``points`` points a member, the
+    first point clockwise of BLAKE2b-64 of the key."""
+    import bisect
+    import hashlib
+
+    def point(s: str) -> int:
+        return int.from_bytes(hashlib.blake2b(
+            s.encode(), digest_size=8).digest(), "big")
+    ring = sorted((point(f"{m}#{v}"), m) for m in members
+                  for v in range(points))
+    i = bisect.bisect([p for p, _ in ring], point(key)) % len(ring)
+    return ring[i][1]
+
+
+def tile_route(x: int, y: int, image: int = 1) -> str:
+    """A level-0 tile's plane identity as the router hashes it."""
+    import hashlib
+    parts = (image, 0, 0, 0, (x, y, TILE, TILE), None)
+    return hashlib.blake2b(repr(parts).encode(),
+                           digest_size=16).hexdigest()
+
+
+async def close_fleet(front) -> None:
+    """Close a front's fleet built outside aiohttp (the app's cleanup
+    does it otherwise)."""
+    from omero_ms_image_region_tpu_torch.server.app import (
+        _member_renderers)
+    front.close()
+    if front.router is not None:
+        await front.router.close()
+    for renderer in _member_renderers(front):
+        await renderer.close()
+    if front.services is not None:
+        await front.services.renderer.close()
+
+
+def member_of(headers) -> str:
+    """The serving member in the provenance header (``-``: none)."""
+    for part in (headers.get("X-Image-Region-Provenance") or "").split("; "):
+        if part.startswith("member="):
+            return part[len("member="):]
+    return "-"
+
+
+async def fleet_phase(torch, data_dir, lut_root, have_aiohttp, e2e,
+                      matches_plain, smi: str) -> dict:
+    """The combined role's fleet on the card (see the module docstring,
+    ``fleet:``).  Returns each kernel's launches in the main-path run (the
+    32 cold tiles), and the bytes of the first 8 for the sidecar fleet."""
+    from omero_ms_image_region_tpu_torch.server.config import AppConfig
+    from omero_ms_image_region_tpu_torch.utils import telemetry
+
+    t_phase = time.perf_counter()
+    config = AppConfig.from_dict({
+        "data-dir": data_dir,
+        "omero.server": {"omero.script_repo_root": lut_root},
+        "raw-cache": {"prefetch": False},
+        "telemetry": {"provenance-header": True},
+        "fleet": {"enabled": True, "members": 2},
+        # Promotion at 12 decayed requests of one plane (JAX's default
+        # threshold), demotion at 6.
+        "hotkey": {"enabled": True}})
+    client = Client(config, None, have_aiohttp)
+    await client.start()
+    router = client.app_front.router
+    members = list(router.order)
+    caches = {n: router.members[n].services.raw_cache for n in members}
+    batchers = {n: router.members[n].services.renderer for n in members}
+    check(members == ["m0", "m1"] and caches["m0"] is not caches["m1"]
+          and batchers["m0"] is not batchers["m1"],
+          "fleet: the app did not build two members, each with its own "
+          "batcher and raw cache")
+    devices = {n: str(batchers[n].device) for n in members}
+
+    def tile(x, y, c=CH, fmt="jpeg"):
+        return ("render_image_region",
+                {"tile": f"0,{x},{y},{TILE},{TILE}", "c": c, "m": "c",
+                 "format": fmt})
+
+    async def in_flight(reqs, n=8):
+        sem = asyncio.Semaphore(n)
+
+        async def one(r):
+            async with sem:
+                return await client.request(*r)
+        t0 = time.perf_counter()
+        out = await asyncio.gather(*(one(r) for r in reqs))
+        return out, time.perf_counter() - t0
+
+    def keys(name):
+        return {str(k) for k in caches[name]._entries}
+
+    doc: dict = {"card": smi, "devices": devices, "via": client.via}
+    try:
+        # Stealing waits for the skewed burst: a steal renders on the
+        # thief without staging, and this part checks every plane on its
+        # owner.
+        router.steal_min_backlog = 0
+        # Warm-up outside the counted run (each member's first group).
+        grid = [(x, y) for y in range(4) for x in range(8)]
+        await in_flight([tile(7, 7), tile(6, 7)])
+        for c in caches.values():
+            c.clear()
+        routed0 = dict(telemetry.FLEET.routed)
+        groups0 = {n: b.batches_dispatched for n, b in batchers.items()}
+        reset_launch_counts()
+        cold, wall = await in_flight([tile(x, y) for x, y in grid])
+        launches = launch_counts()
+        k1 = {n: batchers[n].batches_dispatched - groups0[n]
+              for n in members}
+        statuses = [s for s, _, _, _ in cold]
+        check(all(s == 200 for s in statuses), f"fleet: a cold GET "
+                                               f"failed: {statuses}")
+        want = {xy: ring_owner(members, tile_route(*xy)) for xy in grid}
+        served = {xy: member_of(h) for xy, (_, h, _, _) in zip(grid, cold)}
+        for (x, y), (_, _, body, _) in zip(grid, cold):
+            _, _, _, same = await matches_plain(*tile(x, y), body)
+            check(same, f"fleet: tile {x},{y} differs from the plain "
+                        f"route")
+        route_keys = {xy: tile_route(*xy) for xy in grid}
+        check(all(router.ring.member(route_keys[xy]) == want[xy]
+                  for xy in grid),
+              "fleet: the router's ring disagrees with this script's")
+        check(served == want, f"fleet: a tile was not served by its ring "
+                              f"owner: {served} against {want}")
+        staged = {n: {tuple(e["key"][4])[:2] for e in
+                      caches[n].snapshot_entries()} for n in members}
+        for (x, y), owner in want.items():
+            check((x * TILE, y * TILE) in staged[owner],
+                  f"fleet: tile {x},{y} is not staged on its owner "
+                  f"{owner}")
+        both = keys("m0") & keys("m1")
+        check(not both, f"fleet: {len(both)} planes resident on both "
+                        f"members")
+        check(sum(k1.values()) == launches["render_ramp"]
+              + launches["render_lut"] and all(k1.values()),
+              f"fleet: K1 launches per member {k1} do not add up to "
+              f"{launches['render_ramp']}")
+        doc.update({
+            "gets": len(cold), "in_flight": 8,
+            "p50_ms": statistics.median(ms for *_, ms in cold),
+            "tiles_per_s": len(cold) / wall,
+            "e2e_concurrent_p50_ms": e2e["concurrent_p50_ms"],
+            "e2e_tiles_per_s": e2e["concurrent_tiles_per_s"],
+            "owners": {n: sum(1 for o in want.values() if o == n)
+                       for n in members},
+            "routed": {n: telemetry.FLEET.routed.get(n, 0)
+                       - routed0.get(n, 0) for n in members},
+            "planes": {n: len(caches[n]) for n in members},
+            "planes_on_both": len(both), "bodies_match_plain": True,
+            "k1_launches_per_member": k1, "launches": launches})
+        cold_bodies = {xy: body for xy, (_, _, body, _) in zip(grid, cold)}
+
+        # Re-windowed: every GET a raw-cache hit on its owner.
+        hm0 = {n: (caches[n].hits, caches[n].misses) for n in members}
+        warm, _ = await in_flight([tile(x, y, CH2) for x, y in grid])
+        check(all(s == 200 for s, *_ in warm), "fleet: a warm GET failed")
+        hits = {n: caches[n].hits - hm0[n][0] for n in members}
+        misses = {n: caches[n].misses - hm0[n][1] for n in members}
+        check(hits == doc["owners"] and not any(misses.values())
+              and [member_of(h) for _, h, _, _ in warm]
+              == [want[xy] for xy in grid],
+              f"fleet: re-windowed GETs were not all hits on their owners "
+              f"(hits {hits}, misses {misses})")
+        doc["rewindow"] = {"hits": hits, "misses": misses,
+                           "p50_ms": statistics.median(
+                               ms for *_, ms in warm)}
+
+        # A skewed burst: 16 cold tiles of one member, all at once, with
+        # the config's steal threshold.
+        router.steal_min_backlog = config.fleet.steal_min_backlog
+        victim = "m0"
+        skew = [(x, y) for y in range(4, 7) for x in range(8)
+                if ring_owner(members, tile_route(x, y)) == victim][:16]
+        thief = {n: keys(n) for n in members}
+        stolen0 = telemetry.FLEET.totals()["stolen"]
+        burst, _ = await in_flight([tile(x, y) for x, y in skew],
+                                   n=len(skew))
+        stolen = telemetry.FLEET.totals()["stolen"] - stolen0
+        thieves = [member_of(h) for _, h, _, _ in burst]
+        check(all(s == 200 for s, *_ in burst), "fleet: a skewed GET "
+                                                "failed")
+        check(stolen >= 1 and "m1" in thieves,
+              f"fleet: the skewed burst made no steal ({thieves})")
+        check(keys("m1") == thief["m1"],
+              "fleet: a stolen render was staged in the thief's raw "
+              "cache")
+        for (x, y), (_, _, body, _) in zip(skew, burst):
+            _, _, _, same = await matches_plain(*tile(x, y), body)
+            check(same, f"fleet: stolen tile {x},{y} differs from the "
+                        f"plain route")
+        doc["steal"] = {"gets": len(skew), "stolen": stolen,
+                        "served_by": {n: thieves.count(n) for n in members},
+                        "thief_planes_unchanged": True}
+
+        # A member marked down mid-burst: no failed GET.
+        down = [tile(x, 7, CH2) for x in range(6)] + [
+            tile(x, y, CH3) for x, y in grid[:10]]
+        failed0 = telemetry.FLEET.totals()["failed_over"]
+
+        async def kill_m1():
+            await asyncio.sleep(0.005)
+            router.members["m1"].mark_down()
+        (out, _), _ = await asyncio.gather(in_flight(down), kill_m1())
+        statuses = [s for s, *_ in out]
+        router.members["m1"].revive()
+        check(all(s == 200 for s in statuses),
+              f"fleet: GETs failed across a member's death: {statuses}")
+        doc["member_down"] = {
+            "gets": len(down), "failed": len(down) - statuses.count(200),
+            "failed_over": telemetry.FLEET.totals()["failed_over"]
+            - failed0,
+            "served_by": {n: [member_of(h) for _, h, _, _ in out].count(n)
+                          for n in members}}
+
+        # Drain m1: its shard prestaged on m0; then undrain.
+        m1_keys = keys("m1")
+        status, _, body, drain_ms = await client.request_path(
+            "POST", "/admin/drain?member=m1")
+        drained = json.loads(body)
+        check(status == 200 and drained["prestaged"] >= 1
+              and m1_keys <= keys("m0"),
+              f"fleet: the drain did not prestage m1's planes on m0 "
+              f"({status} {drained.get('prestaged')})")
+        during, _ = await in_flight([tile(x, y, CH3) for x, y in grid[10:]])
+        check(all(s == 200 and member_of(h) == "m0"
+                  for s, h, _, _ in during),
+              "fleet: a GET during the drain failed or reached m1")
+        status, _, body, _ = await client.request_path(
+            "POST", "/admin/undrain?member=m1")
+        check(status == 200, f"fleet: undrain answered {status}")
+        doc["drain"] = {"planes": drained["planes"],
+                        "prestaged": drained["prestaged"],
+                        "settled": drained["settled"], "ms": drain_ms,
+                        "gets_while_draining": len(during)}
+
+        # Hot plane: 64 GETs of one plane, 64 windows, 8 in flight.
+        hot_xy = (0, 7)
+        hot = [tile(*hot_xy, f"1|{100 + i}:40000$FF0000,"
+                             f"2|100:40000$00FF00,3|100:40000$0000FF,"
+                             f"4|100:40000$FFFFFF") for i in range(64)]
+        h0 = telemetry.HOTKEY.totals()
+        got, _ = await in_flight(hot)
+        h1 = telemetry.HOTKEY.totals()
+        route = tile_route(*hot_xy)
+        report = router.shard_report()
+        doc["hotkey"] = {
+            "gets": len(hot),
+            "promoted": h1["promoted"] - h0["promoted"],
+            "balanced": h1["balanced"] - h0["balanced"],
+            "staged": h1["staged"] - h0["staged"],
+            "duplicate_staged": h1["duplicate_staged"],
+            "replica_set": router.replica_set(route),
+            "served_by": {n: [member_of(h) for _, h, _, _ in got].count(n)
+                          for n in members},
+            "shard_report": report}
+        check(all(s == 200 for s, *_ in got), "fleet: a hot GET failed")
+        check(doc["hotkey"]["promoted"] >= 1
+              and doc["hotkey"]["balanced"] >= 1
+              and h1["duplicate_staged"] == 0,
+              f"fleet: the hot burst did not promote and balance: "
+              f"{doc['hotkey']}")
+        status, _, body, _ = await client.request_path("GET", "/metrics")
+        check('imageregion_fleet_member_planes{member="m1"}'
+              in body.decode() and "imageregion_hotkey_promotions_total"
+              in body.decode(), "fleet: /metrics lacks the fleet series")
+        doc["launches_main_path"] = launches
+        doc["phase_s"] = time.perf_counter() - t_phase
+        print("fleet: " + json.dumps(doc), flush=True)
+        return {"launches": launches, "bodies": cold_bodies,
+                "p50_ms": doc["p50_ms"]}
+    finally:
+        await client.stop()
+
+
+def fleet_sidecars_phase(data_dir, lut_root, smi: str,
+                         combined: dict) -> dict:
+    """A frontend fleet over two sidecar processes on the card (the module
+    docstring's ``fleet_sidecars:``)."""
+    import signal
+
+    from omero_ms_image_region_tpu_torch.server import sidecar as SC
+    from omero_ms_image_region_tpu_torch.server.app import build_front
+    from omero_ms_image_region_tpu_torch.server.config import AppConfig
+    from omero_ms_image_region_tpu_torch.utils import telemetry
+
+    tmp = tempfile.mkdtemp(prefix="fleet-")
+    socks = [os.path.join(tmp, f"m{i}.sock") for i in range(2)]
+    conf = os.path.join(tmp, "sidecar.yaml")
+    with open(conf, "w") as f:
+        json.dump({"raw-cache": {"prefetch": False},
+                   "image-region-cache": {"enabled": True},
+                   "omero.server": {"omero.script_repo_root": lut_root}}, f)
+    logs = [open(os.path.join(tmp, f"m{i}.log"), "w") for i in range(2)]
+    t0 = time.perf_counter()
+    children = [subprocess.Popen(
+        [sys.executable, "-m", "omero_ms_image_region_tpu_torch.server",
+         "--role", "sidecar", "--sidecar-socket", sock, "--config", conf,
+         "--data-dir", data_dir, "--device", DEVICE],
+        stdout=log, stderr=subprocess.STDOUT,
+        env=dict(os.environ, PYTHONPATH=os.getcwd()))
+        for sock, log in zip(socks, logs)]
+    doc: dict = {"card": smi}
+    members = ["m0", "m1"]
+
+    def tile(x, y, c=CH):
+        return {"tile": f"0,{x},{y},{TILE},{TILE}", "c": c, "m": "c",
+                "format": "jpeg", "imageId": "1", "theZ": "0", "theT": "0"}
+
+    async def run():
+        config = AppConfig.from_dict({
+            "data-dir": data_dir,
+            "telemetry": {"provenance-header": True},
+            "sidecar": {"role": "frontend"},
+            "fleet": {"enabled": True, "sockets": socks,
+                      "lane-width": 1}})
+        front = build_front(config, DEVICE)
+        router = front.router
+
+        async def get(q):
+            t = time.perf_counter()
+            a = await front.observed("render_image_region", "GET",
+                                     dict(q), {}, {})
+            return a, (time.perf_counter() - t) * 1e3
+
+        try:
+            # 8 cold tiles, byte-equal to the combined fleet's.
+            grid = list(combined["bodies"])[:8]
+            cold = [await get(tile(*xy)) for xy in grid]
+            check(all(a.status == 200 and a.body == combined["bodies"][xy]
+                      for xy, (a, _) in zip(grid, cold)),
+                  "fleet_sidecars: a GET differs from the combined "
+                  "fleet's bytes")
+            doc.update({"gets": len(cold), "bytes_equal_combined": True,
+                        "p50_ms": statistics.median(ms for _, ms in cold),
+                        "p50_ms_combined_fleet": combined["p50_ms"]})
+
+            # A skewed burst: one steal, the thief's shard unchanged.
+            skew = [(x, y) for y in range(4, 8) for x in range(8)
+                    if ring_owner(members, tile_route(x, y)) == "m0"][:6]
+            before = await router.members["m1"].shard_manifest(0)
+            stolen0 = telemetry.FLEET.totals()["stolen"]
+            burst = await asyncio.gather(*(get(tile(*xy)) for xy in skew))
+            after = await router.members["m1"].shard_manifest(0)
+            stolen = telemetry.FLEET.totals()["stolen"] - stolen0
+            check(all(a.status == 200 for a, _ in burst) and stolen >= 1,
+                  f"fleet_sidecars: the skewed burst made no steal "
+                  f"({[a.status for a, _ in burst]})")
+            check(len(after) == len(before),
+                  "fleet_sidecars: a stolen render was staged in the "
+                  "thief sidecar's raw cache")
+            doc["steal"] = {"gets": len(skew), "stolen": stolen,
+                            "thief_planes": len(after)}
+
+            # Drain m0 with the wire prestage, then the peer byte fetch.
+            xy = grid[0] if ring_owner(members, tile_route(*grid[0])) \
+                == "m0" else next(g for g in grid if ring_owner(
+                    members, tile_route(*g)) == "m0")
+            m0_planes = len(await router.members["m0"].shard_manifest(0))
+            t = time.perf_counter()
+            drained = json.loads((await front.admin_drain(
+                "POST", "m0")).body)
+            drain_ms = (time.perf_counter() - t) * 1e3
+            m1_after = len(await router.members["m1"].shard_manifest(0))
+            check(drained["prestaged"] >= 1,
+                  f"fleet_sidecars: the drain prestaged nothing on m1: "
+                  f"{drained}")
+            fetch0 = telemetry.HTTPCACHE.peer_fetches
+            again, peer_ms = await get(tile(*xy))
+            fetched = telemetry.HTTPCACHE.peer_fetches - fetch0
+            check(again.status == 200 and fetched == 1
+                  and again.body == combined["bodies"][xy],
+                  f"fleet_sidecars: the drained tile was not a peer "
+                  f"byte_fetch ({again.status}, {fetched})")
+            front.admin_undrain("m0")
+            ok, checks = await front.readiness()
+            doc["drain"] = {"m0_planes": m0_planes,
+                            "planes": drained["planes"],
+                            "prestaged": drained["prestaged"],
+                            "m1_planes_after": m1_after, "ms": drain_ms}
+            doc["peer_fetch"] = {"fetches": fetched, "ms": peer_ms}
+            doc["readyz"] = [ok, checks]
+        finally:
+            await router.close()
+            for m in router.members.values():
+                await m.client.close()
+            front.close()
+
+    try:
+        for child, sock in zip(children, socks):
+            SC.wait_sidecar_socket(child, sock)
+        doc["sidecars_start_s"] = time.perf_counter() - t0
+        asyncio.run(run())
+    finally:
+        for child in children:
+            if child.poll() is None:
+                child.send_signal(signal.SIGTERM)
+        for child in children:
+            try:
+                child.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                child.kill()
+                child.wait()
+        for log in logs:
+            log.close()
+    doc["phase_s"] = time.perf_counter() - t0
+    print("fleet_sidecars: " + json.dumps(doc), flush=True)
+    return doc
+
+
 class ServerLife:
     """``python -m omero_ms_image_region_tpu_torch.server --config`` in
     ``cwd`` (its package is the one under ``cwd``), stopped with SIGTERM."""
@@ -5512,7 +5999,10 @@ async def serve_phase(torch, np, data_dir, lut_root, have_aiohttp,
             data_dir, lut_root, have_aiohttp, smi)
         workload_launches["pressure"] = await pressure_phase(
             data_dir, lut_root, have_aiohttp, smi, matches_plain)
-        return launches, serve_launches, workload_launches
+        fleet = await fleet_phase(torch, data_dir, lut_root, have_aiohttp,
+                                  e2e, matches_plain, smi)
+        workload_launches["fleet"] = fleet["launches"]
+        return launches, serve_launches, workload_launches, fleet
     finally:
         await client.stop()
         await batcher.close()
@@ -5612,10 +6102,11 @@ def main() -> int:
               f"{RGB_PLANE}^2 RGB JPEG-in-TIFF, a {TILE}x{TILE}x{Z_STACK} "
               f"4-channel uint16 Z-stack and {len(MASK_SHAPES)} masks in "
               f"{secs:.1f} s", flush=True)
-        launches, serve_launches, workload_launches = asyncio.run(
+        launches, serve_launches, workload_launches, fleet = asyncio.run(
             serve_phase(torch, np, data_dir, lut_root, have_aiohttp,
                         have_pil))
         sidecar_phase(torch, np, data_dir, lut_root, have_aiohttp, smi)
+        fleet_sidecars_phase(data_dir, lut_root, smi, fleet)
         warm_restart_phase(torch, np, data_dir, lut_root, have_pil, smi)
     front_cost_phase(smi)
 

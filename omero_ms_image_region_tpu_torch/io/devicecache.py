@@ -259,6 +259,14 @@ class DeviceRawCache:
                 self.hits += 1
             return arr
 
+    def resident_digests(self) -> Set[str]:
+        """Every content digest resident (the fleet's shard accounting:
+        across members these sets should not meet, since a digest on two
+        members is a plane staged twice).  Empty with the digest index
+        off."""
+        with self._lock:
+            return set(self._keys_by_digest)
+
     def resident_route(self, route_key: str) -> bool:
         """Residency by routing identity, with no LRU bump (the explain
         plane's probe; O(resident entries), never on the serving path)."""
@@ -308,27 +316,49 @@ class DeviceRawCache:
         return len(self._entries)
 
     def snapshot_entries(self, limit: int = 0):
-        """The warm-state manifest's planes (``services.warmstate``): the
-        resident region entries, most recently used first, each as
-        ``{"key": [image, z, t, level, [x, y, w, h], [channels]],
-        "digest": <content digest, or None with digest dedup off>}``, no
-        LRU bump.  Only region keys can be re-read from the source at
-        boot; projected planes (``("proj", ...)``) are left out.  The JAX
-        entry's fleet ``route`` field comes with the fleet.  ``limit`` 0:
-        all."""
+        """The warm-state manifest's and the drain handoff's planes
+        (``services.warmstate``, ``parallel.fleet``): the resident region
+        entries, most recently used first, each as ``{"key": [image, z, t,
+        level, [x, y, w, h], [channels]], "digest": <content digest, or
+        None with digest dedup off>, "route": <the plane's routing
+        identity, when it was recorded>}``, no LRU bump.  Only region keys
+        can be re-read from the source; projected planes (``("proj",
+        ...)``) are left out.  ``limit`` 0: all."""
         out = []
         with self._lock:
             for key in reversed(self._entries.keys()):
-                if (not isinstance(key, tuple) or len(key) != 6
-                        or not isinstance(key[0], int)):
+                entry = self._entry(key)
+                if entry is None:
                     continue
-                image_id, z, t, level, region, channels = key
-                out.append({"key": [image_id, z, t, level, list(region),
-                                    list(channels)],
-                            "digest": self._digests_of.get(key)})
+                out.append(entry)
                 if limit and len(out) >= limit:
                     break
         return out
+
+    def entries_for_route(self, route_key: str):
+        """The region entries of one routing identity, in
+        :meth:`snapshot_entries`' form, MRU first, no LRU bump: what a hot
+        route's promotion stages onto its replicas
+        (``parallel.fleet.FleetRouter``)."""
+        with self._lock:
+            return [entry for key in reversed(self._entries.keys())
+                    if self._route_of.get(key) == route_key
+                    and (entry := self._entry(key)) is not None]
+
+    def _entry(self, key: Hashable) -> Optional[dict]:
+        """A region key's manifest entry (lock held); None for any other
+        key."""
+        if (not isinstance(key, tuple) or len(key) != 6
+                or not isinstance(key[0], int)):
+            return None
+        image_id, z, t, level, region, channels = key
+        entry = {"key": [image_id, z, t, level, list(region),
+                         list(channels)],
+                 "digest": self._digests_of.get(key)}
+        route = self._route_of.get(key)
+        if route is not None:
+            entry["route"] = route
+        return entry
 
 
 def region_key(image_id: int, z: int, t: int, level: int,

@@ -12,7 +12,8 @@ before the services close.
 * ``sidecar``: the card only, serving renders on ``--sidecar-socket`` (a
   unix path or ``host:port``), no HTTP listener (``server.sidecar``);
 * ``frontend``: HTTP only, renders over the sidecar wire to
-  ``--sidecar-socket``; it never touches the card;
+  ``--sidecar-socket``, or, with ``fleet.enabled`` and ``fleet.sockets``,
+  routed over one sidecar a member; it never touches the card;
 * ``split``: spawn a ``sidecar`` child (with this command's ``--config``,
   ``--data-dir``, ``--lut-root`` and ``--device``), kept alive by the
   supervisor (``fault-tolerance.supervise``, on by default), then serve
@@ -71,9 +72,13 @@ def _parse(argv=None):
         config.sidecar.socket = args.sidecar_socket
     if args.role is not None:
         config.sidecar.role = args.role
-    if config.sidecar.role != "combined" and not config.sidecar.socket:
+    if (config.sidecar.role != "combined" and not config.sidecar.socket
+            and not (config.sidecar.role == "frontend"
+                     and config.fleet.enabled and config.fleet.sockets)):
+        # A frontend may route over a fleet of sidecars in its place.
         parser.error(f"--role {config.sidecar.role} requires "
-                     f"--sidecar-socket")
+                     f"--sidecar-socket (or a fleet.sockets list for a "
+                     f"frontend fleet router)")
     return config, args.device, args
 
 

@@ -38,6 +38,12 @@ trailing segments are tolerated as its ``:theT*`` patterns are):
   GET /debug/sentinel        the perf sentinel's view
   GET /debug/profile?ms=N    a ``torch.profiler`` capture (Chrome trace)
   GET /debug/explain?path=U  the dry-run explain document of a render URL
+  GET|POST /admin/drain[?member=mN]  the fleet's drain states; POST drains
+                     the member (400 for an unknown member or without a
+                     fleet, 409 for the last routable one)
+  POST /admin/undrain?member=mN      rejoins a drained member
+  GET /admin/autoscaler, GET /admin/federation  JAX's 400 bodies (the
+                     autoscaler and the federation are not ported)
   OPTIONS /          the feature document
 
 Around the render path, as the JAX default app (``create_app(AppConfig())``
@@ -72,8 +78,8 @@ there) has it:
   are, and 503 with the reason if that failed.  With persistence on it
   also carries the boot rehydrate's state (``rehydrate``: ``running N/M``
   ... ``done N/M``), never a reason to be unready; so are its ``slo``,
-  ``sentinel`` and ``pressure`` annotations.  The JAX ``/readyz`` also
-  annotates the fleet and federation states, which come with the fleet.
+  ``sentinel``, ``pressure`` and, with a fleet, ``fleet`` and ``drain``
+  annotations (``drain.fail-readyz`` makes an operator drain a 503).
 * **Forensics and overload** (:meth:`Front._forensics`): the SLO engine
   (``slo``; a breach dumps the flight recorder), the decision ledger
   (``decisions``), the perf sentinel (``sentinel``, on by default: each
@@ -151,11 +157,22 @@ there) has it:
   and ``/debug/flightrecorder`` merge the sidecar's, ``/debug/sentinel``
   its view, and ``/debug/profile``, ``/debug/warmstate`` and the explain
   plane's residency are the sidecar's.
+* **The fleet** (``fleet.enabled``; ``parallel.fleet``, JAX ``:452-690``):
+  in the combined role, ``fleet.members`` in-process members (member 0 the
+  base stack, the others each with its own renderer and raw cache on the
+  app's card) behind a ``FleetRouter``; a ``frontend`` with
+  ``fleet.sockets`` routes over one sidecar per address.  Single-flight
+  and admission move above the router (``FleetImageHandler``), the
+  prefetcher stages into the owning member's shard, the watchdog watches
+  every member's batcher or wire, ``/metrics`` adds the fleet, hot-key and
+  drain families, ``/readyz`` the members' states, and the mask route asks
+  the mask's ring authority's byte tier before a render (remote members
+  only).  The frontend's ``/debug/*`` ride member 0's sidecar; merging
+  every member's rings waits for the federation, as its fleet probes do.
 
 :class:`Front` holds all of it without aiohttp, so a caller can drive the
 route without a socket; :func:`create_app` puts it behind aiohttp, which is
-imported there.  Left out: on the mask route the federated peer fetch,
-which comes with the fleet.
+imported there.
 """
 
 from __future__ import annotations
@@ -178,6 +195,8 @@ from ..io.service import PixelsService
 from ..ops.jpegenc import set_fetch_observer
 from ..ops.lut import LutProvider
 from ..ops.render import resolve_device
+from ..parallel.fleet import (FleetImageHandler, FleetRouter,
+                              RemoteMember, build_local_members)
 from ..services.cache import Caches
 from ..services.db_metadata import (DbMetadataService,
                                     PostgresMetadataService)
@@ -351,11 +370,7 @@ def build_services(config: AppConfig,
     raw_cache = (DeviceRawCache(rc.max_bytes, device=device,
                                 digest_index=rc.digest_dedup)
                  if rc.enabled else None)
-    buckets = (SessionTokenBuckets(
-        se.bucket_refill_per_s, se.bucket_burst,
-        max_sessions=se.max_tracked,
-        bulk_cost=(config.qos.bulk_cost if config.qos.enabled else 1.0))
-               if se.enabled else None)
+    buckets = session_buckets(config)
     prefetcher = None
     if raw_cache is not None and rc.prefetch:
         # The viewport model needs sessions: without them every request
@@ -403,6 +418,70 @@ def build_services(config: AppConfig,
             rehydrate_concurrency=persistence.rehydrate_concurrency)
         services.warmstate.start(rehydrate=persistence.rehydrate)
     return services
+
+
+def session_buckets(config: AppConfig) -> Optional[SessionTokenBuckets]:
+    """The per-session fairness buckets of ``sessions.enabled`` (None
+    without), the ``qos`` bulk cost included."""
+    se = config.sessions
+    if not se.enabled:
+        return None
+    return SessionTokenBuckets(
+        se.bucket_refill_per_s, se.bucket_burst,
+        max_sessions=se.max_tracked,
+        bulk_cost=(config.qos.bulk_cost if config.qos.enabled else 1.0))
+
+
+def fleet_router(config: AppConfig, members: list) -> FleetRouter:
+    """The ``FleetRouter`` over ``members`` that the config's ``fleet``,
+    ``qos``, ``http-cache`` and ``hotkey`` sections describe."""
+    hc = config.http_cache
+    return FleetRouter(
+        members, lane_width=config.fleet.lane_width,
+        steal_min_backlog=config.fleet.steal_min_backlog,
+        hash_replicas=config.fleet.hash_replicas,
+        failover=config.fleet.failover,
+        qos_weight=(config.qos.interactive_weight if config.qos.enabled
+                    else 0),
+        peer_fetch=hc.enabled and hc.peer_fetch,
+        peer_timeout_s=hc.peer_timeout_ms / 1000.0,
+        hotkey=config.hotkey)
+
+
+def fleet_admission(config: AppConfig,
+                    router: FleetRouter) -> Optional[AdmissionController]:
+    """Fleet-wide admission over the router's depth and lanes (None with
+    ``admission-max-queue`` 0)."""
+    ft = config.fault_tolerance
+    if ft.admission_max_queue <= 0:
+        return None
+    return AdmissionController(ft.admission_max_queue, renderer=router,
+                               retry_after_s=ft.shed_retry_after_s,
+                               session_buckets=session_buckets(config))
+
+
+def build_local_fleet(config: AppConfig,
+                      services: ImageRegionServices) -> FleetImageHandler:
+    """The combined role's in-process fleet over ``services`` (JAX
+    ``create_app`` ``:576-689``): ``fleet.members`` members
+    (``parallel.fleet.build_local_members``) behind the router;
+    single-flight and admission move from the services above it, and the
+    shared prefetcher stages each prediction into the owning member's raw
+    cache and a hot route's local replicas'."""
+    members = build_local_members(config, services, config.fleet.members)
+    router = fleet_router(config, members)
+    single_flight = services.single_flight
+    services.single_flight = None
+    services.admission = None
+    prefetcher = services.prefetcher
+    if prefetcher is not None:
+        prefetcher.cache_for_route = router.cache_for_route
+        prefetcher.replica_caches = router.local_replica_caches
+        for member in members[1:]:
+            member.services.prefetcher = prefetcher
+    return FleetImageHandler(router, single_flight=single_flight,
+                             admission=fleet_admission(config, router),
+                             base_services=services)
 
 
 def start_prewarm(config: AppConfig, renderer: BatchingRenderer,
@@ -503,13 +582,17 @@ class Front:
 
     A frontend (proxy mode) passes the ``server.sidecar`` handlers, the
     mask one as ``mask_handler``, and its ``client``: it then has no
-    services (:attr:`services` None)."""
+    services (:attr:`services` None).  A fleet's handler
+    (``parallel.fleet.FleetImageHandler``) brings its :attr:`router`; a
+    frontend fleet's ``client`` is member 0's."""
 
     def __init__(self, config: AppConfig, handler, db=None,
                  mask_handler=None, client=None):
         self.config = config
         self.handler = handler
         self.client = client
+        self.router: Optional[FleetRouter] = getattr(handler, "router",
+                                                     None)
         self.services: Optional[ImageRegionServices] = getattr(
             handler, "s", None)
         self.session_store = make_session_store(config, db)
@@ -587,9 +670,11 @@ class Front:
             self.governor = pressure_mod.PressureGovernor(
                 config.pressure,
                 pressure_mod.build_actuators(config.pressure,
-                                             services=services),
+                                             services=services,
+                                             router=self.router),
                 pressure_mod.build_sources(services=services,
-                                           governor_ref=ref))
+                                           governor_ref=ref,
+                                           router=self.router))
             ref.append(self.governor)
             pressure_mod.install(self.governor)
         self.sentinel: Optional[sentinel_mod.SentinelEngine] = None
@@ -597,9 +682,28 @@ class Front:
             self.sentinel = sentinel_mod.engine_from_config(
                 config.sentinel, member="local",
                 flight_fn=lambda: {"member": "local",
-                                   "fleet_members": [],
+                                   "fleet_members": self.member_names(),
                                    "events": telemetry.FLIGHT.snapshot()})
             sentinel_mod.install(self.sentinel)
+
+    def admission(self):
+        """The admission controller: a fleet's, above its router, else the
+        services' (None without)."""
+        admission = getattr(self.handler, "admission", None)
+        if admission is None:
+            admission = getattr(self.services, "admission", None)
+        return admission
+
+    def member_names(self) -> list:
+        """The fleet's member names ([] without a fleet)."""
+        return list(self.router.order) if self.router is not None else []
+
+    def clients(self) -> list:
+        """The sidecar clients this front holds: each member's in a
+        frontend fleet, else the one sidecar's, else none."""
+        if self.router is not None and self.services is None:
+            return [m.client for m in self.router.members.values()]
+        return [self.client] if self.client is not None else []
 
     def background(self) -> list:
         """The tick loops to run as tasks while the app serves: the
@@ -872,11 +976,25 @@ class Front:
         identity = (f"{ctx.cache_key()}:f{int(ctx.flip_horizontal)}"
                     f"{int(ctx.flip_vertical)}")
 
+        router = self.router
+
         async def produce() -> bytes:
             s = self.services
             if s is None:
-                # A frontend: the sidecar's caches and admission.
-                return await self.mask_handler.render_shape_mask(ctx)
+                # A frontend: the sidecar's caches and admission; a fleet
+                # asks the mask's ring authority first and writes a render
+                # back to it.
+                if router is not None:
+                    try:
+                        peer = await router.fetch_peer_mask(ctx)
+                    except Exception:
+                        peer = None
+                    if peer is not None:
+                        return peer
+                body = await self.mask_handler.render_shape_mask(ctx)
+                if router is not None:
+                    router.put_peer_mask(ctx, body)
+                return body
             # After the renderless answers, as in the JAX app: the session
             # stays live in the viewport model (no pan vote), and the mask
             # draws its session's fairness token (kept on a 404 or 400,
@@ -888,8 +1006,9 @@ class Front:
             cached = await self.mask_handler.cached_shape_mask(ctx)
             if cached is not None:
                 return cached
-            if s.admission is not None:
-                s.admission.admit_session(ctx)
+            admission = self.admission()
+            if admission is not None:
+                admission.admit_session(ctx)
             return await self.mask_handler.render_shape_mask(ctx)
         return await self.answer(
             method, headers, {"Content-Type": "image/png"}, identity,
@@ -1162,17 +1281,40 @@ class Front:
         ``sentinel`` (``ok`` or ``drifting``) and ``pressure`` (with the
         governor on: ``ok``, or the level and the engaged steps) annotate
         too.  No annotation makes the process unready: a drifting or
-        browned-out instance is still serving.  The JAX app's fleet and
-        federation annotations come with the fleet."""
+        browned-out instance is still serving.  With a fleet the backlog is
+        the router's (queued and executing across the members), ``fleet``
+        names the members down (or counts them) and ``drain`` the
+        draining ones; ``drain.fail-readyz`` makes any drain but an
+        autoscaler's a 503."""
         checks: dict = {}
+        if self.router is not None:
+            depth = self.router.queue_depth()
+            self._fleet_note(checks)
+        else:
+            renderer = self.services.renderer
+            depth = (renderer.queue_depth()
+                     if hasattr(renderer, "queue_depth") else 0)
         if self.services.warmstate is not None:
             checks["rehydrate"] = telemetry.PERSIST.rehydrate_summary()
         readiness = telemetry.READINESS
-        renderer = self.services.renderer
         return self._ready_checks(
             checks, readiness.prewarm_failed, readiness.prewarm_pending,
-            renderer.queue_depth() if hasattr(renderer, "queue_depth")
-            else 0)
+            depth)
+
+    def _fleet_note(self, checks: dict) -> None:
+        """The fleet's ``/readyz`` annotations (JAX ``_fleet_note``)."""
+        router = self.router
+        healthy = router.healthy_members()
+        down = [n for n in router.order if n not in healthy]
+        checks["fleet"] = (f"members down: {','.join(down)}" if down
+                           else f"{len(router.order)} members")
+        draining = router.draining_members()
+        if draining:
+            checks["drain"] = "draining: " + ",".join(
+                n + ("(autoscale)" if getattr(router.members[n],
+                                              "drain_intent", None)
+                     == "autoscale" else "")
+                for n in draining)
 
     async def readiness(self) -> Tuple[bool, dict]:
         """``/readyz``: :meth:`ready`, or in a frontend the same checks
@@ -1185,29 +1327,61 @@ class Front:
         breaker = self.client.breaker
         if breaker is not None and breaker.state == breaker.OPEN:
             checks["breaker"] = "open"
-        try:
-            status, body = await asyncio.wait_for(
-                self.client.call("ping", {}), timeout=2.0)
-            info = (json.loads(bytes(body).decode())
-                    if status == 200 and body else {})
-        except Exception:
-            status, info = None, None
-        if info is None:
+        router = self.router
+        # A frontend fleet pings every member still marked healthy, at
+        # once (JAX ``_ready_state``): one that does not answer is marked
+        # down; the prewarm is pending until every answering member's is
+        # done, and the backlog is the sum of theirs and the router's.
+        probes = ([(m, m.client) for m in router.members.values()
+                   if m.healthy] if router is not None
+                  else [(None, self.client)])
+
+        async def probe(member, client):
+            try:
+                status, body = await asyncio.wait_for(
+                    client.call("ping", {}), timeout=2.0)
+                return status, (json.loads(bytes(body).decode())
+                                if status == 200 and body else {})
+            except Exception:
+                if member is not None:
+                    member.mark_down()
+                return None, None
+
+        ok = True
+        infos = []
+        for status, info in await asyncio.gather(
+                *(probe(m, c) for m, c in probes)):
+            if info is None:
+                continue
+            if status != 200 or not info.get("ok"):
+                ok = False
+                checks["sidecar"] = f"status {status}"
+            else:
+                checks.setdefault("sidecar", "ok")
+            infos.append(info)
+        if not infos:
             checks["sidecar"] = "unreachable"
+            if router is not None:
+                self._fleet_note(checks)
             if getattr(self.handler, "fallback", None) is not None:
                 # Degraded mode serves: a load balancer keeps routing here.
                 checks["degraded-mode"] = "active"
                 return True, checks
             return False, checks
-        checks["sidecar"] = ("ok" if status == 200 and info.get("ok")
-                             else f"status {status}")
-        if info.get("rehydrate") is not None:
-            checks["rehydrate"] = str(info["rehydrate"])
-        ok, checks = self._ready_checks(
-            checks, info.get("prewarm_failed"),
-            bool(info.get("prewarm_pending")),
-            int(info.get("queue_depth", 0)))
-        return ok and checks["sidecar"] == "ok", checks
+        notes = [str(i["rehydrate"]) for i in infos
+                 if i.get("rehydrate") is not None]
+        if notes:
+            checks["rehydrate"] = notes[0]
+        depth = sum(int(i.get("queue_depth", 0)) for i in infos)
+        if router is not None:
+            depth += router.queue_depth()
+            self._fleet_note(checks)
+        failed = [i.get("prewarm_failed") for i in infos
+                  if i.get("prewarm_failed")]
+        ready, checks = self._ready_checks(
+            checks, failed[0] if failed else None,
+            any(bool(i.get("prewarm_pending")) for i in infos), depth)
+        return ready and ok and checks["sidecar"] == "ok", checks
 
     def _ready_checks(self, checks: dict, prewarm_failed, prewarm_pending,
                       depth: int) -> Tuple[bool, dict]:
@@ -1233,6 +1407,14 @@ class Front:
                                   == "drifting" else "ok")
         if self.governor is not None:
             checks["pressure"] = self.governor.summary()
+        router = self.router
+        if (self.config.drain.fail_readyz and router is not None
+                and [n for n in router.draining_members()
+                     if getattr(router.members[n], "drain_intent", None)
+                     not in ("autoscale", "gossip")]):
+            # An operator drain (or shutdown's quiesce) takes the instance
+            # out of rotation; an autoscaler's does not.
+            ok = False
         return ok, checks
 
     async def sidecar_doc(self, op: str, timeout_s: float = 2.0,
@@ -1298,6 +1480,9 @@ class Front:
                  + telemetry.resilience_metric_lines(
                      breaker=getattr(self.client, "breaker", None))
                  + telemetry.session_metric_lines())
+        if self.router is not None:
+            lines += telemetry.fleet_metric_lines(
+                self.router, single_flight=self.handler.single_flight)
         if self.services is not None:
             lines += telemetry.device_metric_lines(self.services)
         elif sidecar_lines is None:
@@ -1394,7 +1579,7 @@ class Front:
         try:
             doc = await explain.explain(
                 path, self.config, services=self.services,
-                admission=getattr(self.services, "admission", None),
+                admission=self.admission(),
                 jobs=self.jobs, proxy_client=self.client)
         except BadRequestError as e:
             return _json(400, {"error": str(e)})
@@ -1402,6 +1587,79 @@ class Front:
             log.exception("explain failed")
             return _json(500, {"error": "explain failed"})
         return _json(200, doc)
+
+
+    def drain_status(self) -> dict:
+        """Each member's health, drain state and intent, queue, in-flight
+        renders and resident planes (``GET /admin/drain``)."""
+        router = self.router
+        return {"members": {
+            name: {"healthy": member.healthy,
+                   "draining": member.draining,
+                   "intent": getattr(member, "drain_intent", None),
+                   "depth": router.member_depth(name),
+                   "inflight": router.member_inflight(name),
+                   "planes": member.resident_planes()}
+            for name, member in router.members.items()}}
+
+    def _member_or_error(self, member: Optional[str]) -> Optional[Answer]:
+        """The 400 of JAX's drain routes without a fleet or for an unknown
+        member; None when ``member`` is the fleet's."""
+        if self.router is None:
+            return _json(400, {"error": "drains require a fleet topology "
+                                        "(fleet.enabled)"})
+        if not member or member not in self.router.members:
+            return _json(400, {"error": f"unknown member {member!r}",
+                               "members": list(self.router.order)})
+        return None
+
+    async def admin_drain(self, method: str,
+                          member: Optional[str]) -> Answer:
+        """``GET /admin/drain``: :meth:`drain_status`; ``POST
+        ?member=mN``: drain it (``FleetRouter.drain_member`` with the
+        ``drain`` section's knobs), 409 when it is the last routable
+        member."""
+        if self.router is not None and method == "GET":
+            return _json(200, self.drain_status())
+        refused = self._member_or_error(member)
+        if refused is not None:
+            return refused
+        router = self.router
+        if not [n for n in router.order
+                if router._routable(n) and n != member]:
+            # Draining the last servable member is an outage.
+            return _json(409, {"error": "refusing to drain the last "
+                                        "routable member"})
+        dr = self.config.drain
+        doc = await router.drain_member(
+            member, prestage=dr.prestage, max_planes=dr.prestage_max_planes,
+            settle_timeout_s=dr.settle_timeout_s)
+        doc.update(self.drain_status())
+        return _json(200, doc)
+
+    def admin_undrain(self, member: Optional[str]) -> Answer:
+        """``POST /admin/undrain?member=mN``: rejoin it."""
+        refused = self._member_or_error(member)
+        if refused is not None:
+            return refused
+        self.router.undrain_member(member)
+        return _json(200, self.drain_status())
+
+    @staticmethod
+    def admin_autoscaler() -> Answer:
+        """``GET /admin/autoscaler``: the autoscaler is not ported; JAX's
+        answer without one."""
+        return _json(400, {"enabled": False,
+                           "error": "autoscaler requires autoscaler.enabled "
+                                    "and a fleet topology"})
+
+    @staticmethod
+    def admin_federation() -> Answer:
+        """``GET /admin/federation``: the federation is not ported; JAX's
+        answer without one."""
+        return _json(400, {"enabled": False,
+                           "error": "federation requires federation.enabled "
+                                    "in the combined role"})
 
 
 async def _counted(stream: AsyncIterator[bytes],
@@ -1434,16 +1692,16 @@ def configure_logging(config: AppConfig) -> None:
         root.addHandler(h)
 
 
-def sidecar_client(config: AppConfig):
-    """A frontend's ``server.sidecar.SidecarClient`` to
-    ``sidecar.socket``, with the config's breaker, retry policy and wire
-    knobs."""
+def sidecar_client(config: AppConfig, socket: Optional[str] = None):
+    """A frontend's ``server.sidecar.SidecarClient`` to ``socket``
+    (default ``sidecar.socket``), with the config's breaker, retry policy
+    and wire knobs."""
     from ..utils.transient import CircuitBreaker, RetryPolicy
     from .sidecar import SidecarClient
 
     ft = config.fault_tolerance
     return SidecarClient(
-        config.sidecar.socket,
+        socket or config.sidecar.socket,
         breaker=CircuitBreaker(failure_threshold=ft.breaker_failure_threshold,
                                reset_after_s=ft.breaker_reset_s),
         retry=RetryPolicy(max_attempts=ft.retry_max_attempts,
@@ -1459,24 +1717,47 @@ def build_front(config: AppConfig,
     """The :class:`Front` a config describes: with ``sidecar.role:
     frontend`` (and no ``handler``), a frontend over the sidecar wire,
     which builds nothing on the card (the degraded CPU handler behind it
-    with ``fault-tolerance.degraded-mode``); else the combined app over
-    ``handler`` or the services :func:`build_services` makes."""
+    with ``fault-tolerance.degraded-mode``), routed over one sidecar per
+    ``fleet.sockets`` address with ``fleet.enabled``; else the combined app
+    over ``handler`` or the services :func:`build_services` makes, behind
+    an in-process fleet (:func:`build_local_fleet`) with
+    ``fleet.enabled``."""
+    fleet = config.fleet
     if handler is None and config.sidecar.role == "frontend":
         from .sidecar import SidecarImageHandler, SidecarMaskHandler
 
         if config.fault_injection.seed is not None:
             faultinject.install(config.fault_injection)
         telemetry.FLIGHT.configure(config.telemetry.flight_recorder_events)
-        client = sidecar_client(config)
         fallback = None
         if config.fault_tolerance.degraded_mode:
             from .degraded import DegradedCpuHandler
             fallback = DegradedCpuHandler(config)
+        if fleet.enabled and fleet.sockets:
+            members = [RemoteMember(f"m{i}", sidecar_client(config, sock),
+                                    down_cooldown_s=fleet.down_cooldown_s)
+                       for i, sock in enumerate(fleet.sockets)]
+            router = fleet_router(config, members)
+            image = FleetImageHandler(
+                router,
+                single_flight=SingleFlight() if config.single_flight
+                else None,
+                admission=fleet_admission(config, router),
+                fallback=fallback)
+            # Masks and the merged surfaces ride member 0's sidecar.
+            client = members[0].client
+            return Front(config, image, db=db,
+                         mask_handler=SidecarMaskHandler(client, fallback),
+                         client=client)
+        client = sidecar_client(config)
         return Front(config, SidecarImageHandler(client, fallback), db=db,
                      mask_handler=SidecarMaskHandler(client, fallback),
                      client=client)
-    handler = handler or ImageRegionHandler(build_services(config, device,
-                                                           db=db))
+    if handler is None:
+        services = build_services(config, device, db=db)
+        if fleet.enabled and config.sidecar.role == "combined":
+            return Front(config, build_local_fleet(config, services), db=db)
+        handler = ImageRegionHandler(services)
     return Front(config, handler, db=db)
 
 
@@ -1517,8 +1798,15 @@ def create_app(config: Optional[AppConfig] = None,
         watchdog = build_watchdog(
             config.watchdog,
             renderer=services.renderer if services is not None else None,
-            clients=[client] if client is not None else [],
-            escalate_cb=escalate)
+            clients=front.clients(), escalate_cb=escalate)
+        for renderer in _member_renderers(front):
+            # Each in-process member's batcher is a stuck-lane target.
+            if hasattr(renderer, "watchdog_scan"):
+                renderer.watchdog_stall_factor = config.watchdog.stall_factor
+                renderer.watchdog_stall_min_s = config.watchdog.stall_min_s
+                renderer.watchdog_escalate_after = (
+                    config.watchdog.escalate_after)
+                watchdog.add_target(renderer)
 
     def to_response(answer: Answer) -> web.Response:
         return web.Response(status=answer.status, headers=answer.headers,
@@ -1630,6 +1918,19 @@ def create_app(config: Optional[AppConfig] = None,
     async def debug_explain(request: web.Request) -> web.Response:
         return to_response(await front.explain(request.query.get("path")))
 
+    async def admin_drain(request: web.Request) -> web.Response:
+        return to_response(await front.admin_drain(
+            request.method, request.query.get("member")))
+
+    async def admin_undrain(request: web.Request) -> web.Response:
+        return to_response(front.admin_undrain(request.query.get("member")))
+
+    async def admin_autoscaler(request: web.Request) -> web.Response:
+        return to_response(front.admin_autoscaler())
+
+    async def admin_federation(request: web.Request) -> web.Response:
+        return to_response(front.admin_federation())
+
     async def readyz(request: web.Request) -> web.Response:
         """200 only when this process can serve renders now; a 503 names
         what it waits for."""
@@ -1671,8 +1972,13 @@ def create_app(config: Optional[AppConfig] = None,
             task.cancel()
         await asyncio.gather(*tasks, return_exceptions=True)
         front.close()
-        if client is not None:
-            await client.close()
+        if front.router is not None:
+            # The lanes stop before the member stacks close under them.
+            await front.router.close()
+        for member_client in front.clients():
+            await member_client.close()
+        for renderer in _member_renderers(front):
+            await renderer.close()
         for resource in owned + [front.session_store]:
             close = getattr(resource, "close", None)
             if close is not None:
@@ -1725,8 +2031,23 @@ def create_app(config: Optional[AppConfig] = None,
     app.router.add_get("/debug/sentinel", debug_sentinel)
     app.router.add_get("/debug/profile", debug_profile)
     app.router.add_get("/debug/explain", debug_explain)
+    app.router.add_get("/admin/drain", admin_drain)
+    app.router.add_post("/admin/drain", admin_drain)
+    app.router.add_post("/admin/undrain", admin_undrain)
+    app.router.add_get("/admin/autoscaler", admin_autoscaler)
+    app.router.add_get("/admin/federation", admin_federation)
     app.router.add_route("OPTIONS", "/{tail:.*}", details)
     return app
+
+
+def _member_renderers(front: Front) -> list:
+    """The renderers of a combined fleet's members past member 0 (whose
+    renderer is the services')."""
+    if front.router is None or front.services is None:
+        return []
+    return [m.services.renderer for m in front.router.members.values()
+            if getattr(m, "services", None) is not None
+            and m.services is not front.services]
 
 
 def _front_key():
@@ -1759,7 +2080,8 @@ def run_app(app, config: AppConfig) -> None:
 
     front = app.get(_front_key())
     chain = build_shutdown_chain(
-        config, front.services if front is not None else None)
+        config, front.services if front is not None else None,
+        fleet_router=front.router if front is not None else None)
 
     async def serve() -> None:
         runner = web.AppRunner(

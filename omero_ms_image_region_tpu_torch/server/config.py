@@ -32,10 +32,12 @@ served settings the same values and the same validation:
   ``degraded-mode`` and the split role's supervisor) and
   ``fault-injection`` (the lane faults, the wire faults and
   ``die-after-requests``), except the keys that belong to a part not
-  ported (XLA's compile cache, the fleet's peer fetch, ...);
+  ported (XLA's compile cache, ...); ``http-cache`` with ``peer-fetch``
+  and ``peer-timeout-ms`` (the fleet's peer byte fetch);
 * ``sidecar``: ``role`` (``combined``, ``frontend``, ``sidecar`` or
   ``split``) and ``socket`` (a unix path or ``host:port``; every role but
-  ``combined`` needs one), and ``wire``, the sidecar wire v3's knobs
+  ``combined`` needs one, or, for a frontend, an enabled
+  ``fleet.sockets``), and ``wire``, the sidecar wire v3's knobs
   (``coalesce-max-frames``, ``coalesce-max-bytes``, ``ring-bytes``,
   ``ring-min-body-bytes``, ``streaming``: a render 200 leaves as an HTTP
   chunked response, on by default, and ``chunk-max-bytes``), with the JAX
@@ -58,8 +60,15 @@ served settings the same values and the same validation:
   it fails the load with the JAX loader's message);
 * ``qos``: ``enabled``, ``bulk-cost`` (the fairness tokens a bulk
   request draws from its session's bucket with ``sessions.enabled``) and
-  ``interactive-weight`` (stored; only the fleet router reads it, in JAX
-  too), each >= 1;
+  ``interactive-weight`` (the fleet router's weighted two-class queue),
+  each >= 1;
+* the fleet (``parallel.fleet``): ``fleet`` (``enabled``, ``members``,
+  the frontend's ``sockets``, ``lane-width``, ``steal-min-backlog``,
+  ``hash-replicas``, ``failover``, ``down-cooldown-s``), ``hotkey`` (the
+  hot-plane replication) and ``drain`` (``/admin/drain``'s ``prestage``,
+  ``prestage-max-planes``, ``settle-timeout-s`` and ``fail-readyz``), with
+  the JAX loader's validation; a ``frontend`` may name ``fleet.sockets``
+  in place of ``sidecar.socket``;
 * ``renderer.prewarm``: the tile shapes built and launched at startup
   (``server.prewarm``; a malformed spec fails the load, as in JAX);
 * ``telemetry``: ``access-log`` (the JSON access line, on by default),
@@ -88,6 +97,10 @@ served settings the same values and the same validation:
 One default differs on purpose: ``raw-cache.digest-dedup`` is off unless
 the file sets it.  The dedup cost a cold GET 19-20 ms on the H100 and saved
 no copy (PERF.md, ROADMAP Queue 1 item 9).
+
+The federation, the multi-device mesh, the load model and the autoscaler
+(``federation``, ``parallel``, ``loadmodel``, ``autoscaler``) are not
+served: set away from the JAX default, each is refused by name.
 
 Everything else is read and checked against the JAX default.  A section
 that is switched off (``enabled: false``) is inert.  A boolean set from
@@ -288,12 +301,66 @@ class HttpConfig:
 
 @dataclass
 class HttpCacheConfig:
-    """Conditional HTTP (``server.httpcache``)."""
+    """Conditional HTTP (``server.httpcache``) and the fleet's peer byte
+    fetch."""
 
     enabled: bool = True
     epoch: str = "0"               # "auto": derived from the data tree
     max_age_s: int = 0             # 0: "no-cache", revalidate every serve
     vary_acl: bool = True
+    # A fleet asks the shard authority's byte tier before a re-render on
+    # another member (sidecar members only), within peer_timeout_ms.
+    peer_fetch: bool = True
+    peer_timeout_ms: float = 500.0
+
+
+@dataclass
+class FleetConfig:
+    """The consistent-hash fleet (``parallel.fleet``): N members, each
+    owning a shard of the card's raw-cache state, routed by plane
+    identity, with bounded stealing and hash-ring-next failover."""
+
+    enabled: bool = False
+    # Combined role: in-process members (member 0 is the base stack; the
+    # others get their own renderer and raw cache), all on the app's card.
+    members: int = 2
+    # Frontend role: one render sidecar per address (overrides members).
+    sockets: Tuple[str, ...] = ()
+    lane_width: int = 2            # concurrent renders per member
+    # An idle lane steals the oldest queued request of the most backlogged
+    # peer at this depth; 0: no stealing.
+    steal_min_backlog: int = 2
+    hash_replicas: int = 64        # virtual nodes per member
+    failover: bool = True          # a dead member's shard moves ring-next
+    down_cooldown_s: float = 5.0   # a dead member's time out of the ring
+
+
+@dataclass
+class HotkeyConfig:
+    """Hot-plane replication: a route whose decayed heat passes
+    ``threshold`` gets a replica set, a prefix of its ring chain, and
+    reads balance across the live replicas."""
+
+    enabled: bool = False
+    threshold: float = 12.0
+    decay_s: float = 20.0
+    max_replicas: int = 2
+    top_k: int = 128
+    demote_fraction: float = 0.5
+    # The autoscaler's scale-up signal (stored: the autoscaler is not
+    # ported).
+    scale_factor: float = 2.0
+
+
+@dataclass
+class DrainConfig:
+    """Rolling drains (``/admin/drain``)."""
+
+    prestage: bool = True          # the shard handed warm to successors
+    prestage_max_planes: int = 256
+    settle_timeout_s: float = 30.0
+    # /readyz answers 503 while an operator drain is on.
+    fail_readyz: bool = False
 
 
 @dataclass
@@ -405,16 +472,6 @@ class LoggingConfig:
 
 # The JAX defaults of every section the port does not serve, by YAML key.
 _UNPORTED = {
-    "fleet": {
-        "enabled": False, "members": 2, "sockets": (), "lane-width": 2,
-        "steal-min-backlog": 2, "hash-replicas": 64, "failover": True,
-        "down-cooldown-s": 5.0,
-    },
-    "hotkey": {
-        "enabled": False, "threshold": 12.0, "decay-s": 20.0,
-        "max-replicas": 2, "top-k": 128, "demote-fraction": 0.5,
-        "scale-factor": 2.0,
-    },
     "federation": {
         "enabled": False, "host": "", "shard-epoch": 1, "ring-seed": "",
         "hash-replicas": 64, "gossip-interval-s": 5.0, "quorum": False,
@@ -440,10 +497,6 @@ _UNPORTED = {
         "session-tps": 2.0, "diurnal-period-s": 86400.0,
         "diurnal-horizon-s": 300.0, "unit-config": "",
     },
-    "drain": {
-        "prestage": True, "prestage-max-planes": 256,
-        "settle-timeout-s": 30.0, "fail-readyz": False,
-    },
 }
 
 # The unported keys of the served sections, with their JAX defaults.
@@ -452,7 +505,7 @@ _UNPORTED_KEYS = {
     "raw-cache": {},
     "renderer": {"kernel": "xla", "compilation-cache-dir": None},
     "telemetry": {},
-    "http-cache": {"peer-fetch": True, "peer-timeout-ms": 500.0},
+    "http-cache": {},
     "watchdog": {},
     "fault-tolerance": {},
     "fault-injection": {},
@@ -542,6 +595,9 @@ class AppConfig:
     sentinel: SentinelConfig = field(default_factory=SentinelConfig)
     pressure: PressureConfig = field(default_factory=PressureConfig)
     qos: QosConfig = field(default_factory=QosConfig)
+    fleet: FleetConfig = field(default_factory=FleetConfig)
+    hotkey: HotkeyConfig = field(default_factory=HotkeyConfig)
+    drain: DrainConfig = field(default_factory=DrainConfig)
     # Sections switched on that the port loads but does not serve (none
     # today).
     unserved: Tuple[str, ...] = ()
@@ -618,13 +674,16 @@ class AppConfig:
                                      cfg.raw_cache.digest_dedup)),
             prefetch=bool(rc.get("prefetch", cfg.raw_cache.prefetch)))
         cfg._sessions(_block(raw, "sessions"))
-        cfg._sidecar(_block(raw, "sidecar"), _block(raw, "wire"))
+        cfg._sidecar(_block(raw, "sidecar"), _block(raw, "wire"),
+                     _block(raw, "fleet"))
+        cfg._fleet(_block(raw, "fleet"), _block(raw, "hotkey"))
         for name, defaults in _UNPORTED.items():
             block = _block(raw, name)
             if "enabled" in defaults and block.get("enabled") is False:
                 continue                 # switched off: inert
             _check(name, block, defaults)
         cfg._watchdog(_block(raw, "watchdog"))
+        cfg._drain(_block(raw, "drain"))
         cfg._fault_tolerance(_block(raw, "fault-tolerance"))
         cfg._fault_injection(_block(raw, "fault-injection"))
         cfg._renderer(_block(raw, "renderer"))
@@ -696,19 +755,25 @@ class AppConfig:
 
     def _http_cache(self, hc: dict) -> None:
         _check("http-cache", hc, _UNPORTED_KEYS["http-cache"],
-               served=("enabled", "epoch", "max-age-s", "vary-acl"))
+               served=("enabled", "epoch", "max-age-s", "vary-acl",
+                       "peer-fetch", "peer-timeout-ms"))
         d = HttpCacheConfig()
         self.http_cache = HttpCacheConfig(
             enabled=bool(hc.get("enabled", d.enabled)),
             epoch=str(hc.get("epoch", d.epoch)),
             max_age_s=int(hc.get("max-age-s", d.max_age_s)),
-            vary_acl=bool(hc.get("vary-acl", d.vary_acl)))
+            vary_acl=bool(hc.get("vary-acl", d.vary_acl)),
+            peer_fetch=bool(hc.get("peer-fetch", d.peer_fetch)),
+            peer_timeout_ms=float(hc.get("peer-timeout-ms",
+                                         d.peer_timeout_ms)))
         if not EPOCH_RE.match(self.http_cache.epoch):
             raise ValueError("http-cache.epoch must match [A-Za-z0-9._-]+, "
                              f"got {self.http_cache.epoch!r}")
         if self.http_cache.max_age_s < 0:
             raise ValueError("http-cache.max-age-s must be >= 0 "
                              "(0 = no-cache, revalidate every serve)")
+        if self.http_cache.peer_timeout_ms <= 0:
+            raise ValueError("http-cache.peer-timeout-ms must be > 0")
 
     def _batcher(self, b: dict) -> None:
         _check("batcher", b, _UNPORTED_KEYS["batcher"],
@@ -734,7 +799,7 @@ class AppConfig:
         if self.batcher.device_lanes < 1:
             raise ValueError("batcher.device-lanes must be >= 1")
 
-    def _sidecar(self, sc: dict, wi: dict) -> None:
+    def _sidecar(self, sc: dict, wi: dict, fl: dict) -> None:
         _check("sidecar", sc, {}, served=("socket", "role"))
         d = SidecarConfig()
         self.sidecar = SidecarConfig(socket=sc.get("socket", d.socket),
@@ -742,9 +807,13 @@ class AppConfig:
         if self.sidecar.role not in ("combined", "frontend", "sidecar",
                                      "split"):
             raise ValueError(f"invalid sidecar.role {self.sidecar.role!r}")
-        if self.sidecar.role != "combined" and not self.sidecar.socket:
+        if (self.sidecar.role != "combined" and not self.sidecar.socket
+                and not (self.sidecar.role == "frontend"
+                         and fl.get("enabled") and fl.get("sockets"))):
+            # A frontend may address a fleet of sidecars in place of one.
             raise ValueError(f"sidecar.role {self.sidecar.role!r} requires "
-                             f"sidecar.socket")
+                             f"sidecar.socket (or an enabled fleet.sockets "
+                             f"list)")
         _check("wire", wi, {},
                served=("coalesce-max-frames", "coalesce-max-bytes",
                        "ring-bytes", "ring-min-body-bytes", "streaming",
@@ -772,6 +841,85 @@ class AppConfig:
             raise ValueError("wire.ring-min-body-bytes must be >= 1")
         if self.wire.chunk_max_bytes < 4096:
             raise ValueError("wire.chunk-max-bytes must be >= 4096")
+
+    def _fleet(self, fl: dict, hk: dict) -> None:
+        _check("fleet", fl, {},
+               served=("enabled", "members", "sockets", "lane-width",
+                       "steal-min-backlog", "hash-replicas", "failover",
+                       "down-cooldown-s"))
+        d = FleetConfig()
+        self.fleet = FleetConfig(
+            enabled=bool(fl.get("enabled", d.enabled)),
+            members=int(fl.get("members", d.members)),
+            sockets=tuple(str(a) for a in fl.get("sockets", ()) or ()),
+            lane_width=int(fl.get("lane-width", d.lane_width)),
+            steal_min_backlog=int(fl.get("steal-min-backlog",
+                                         d.steal_min_backlog)),
+            hash_replicas=int(fl.get("hash-replicas", d.hash_replicas)),
+            failover=bool(fl.get("failover", d.failover)),
+            down_cooldown_s=float(fl.get("down-cooldown-s",
+                                         d.down_cooldown_s)))
+        f = self.fleet
+        if f.enabled and not f.sockets and f.members < 2:
+            raise ValueError("fleet.enabled requires members >= 2 "
+                             "or a fleet.sockets list")
+        if f.members < 1:
+            raise ValueError("fleet.members must be >= 1")
+        if f.lane_width < 1:
+            raise ValueError("fleet.lane-width must be >= 1")
+        if f.steal_min_backlog < 0:
+            raise ValueError("fleet.steal-min-backlog must be >= 0 "
+                             "(0 disables stealing)")
+        if f.hash_replicas < 1:
+            raise ValueError("fleet.hash-replicas must be >= 1")
+        if f.down_cooldown_s < 0:
+            raise ValueError("fleet.down-cooldown-s must be >= 0")
+        _check("hotkey", hk, {},
+               served=("enabled", "threshold", "decay-s", "max-replicas",
+                       "top-k", "demote-fraction", "scale-factor"))
+        d = HotkeyConfig()
+        self.hotkey = h = HotkeyConfig(
+            enabled=bool(hk.get("enabled", d.enabled)),
+            threshold=float(hk.get("threshold", d.threshold)),
+            decay_s=float(hk.get("decay-s", d.decay_s)),
+            max_replicas=int(hk.get("max-replicas", d.max_replicas)),
+            top_k=int(hk.get("top-k", d.top_k)),
+            demote_fraction=float(hk.get("demote-fraction",
+                                         d.demote_fraction)),
+            scale_factor=float(hk.get("scale-factor", d.scale_factor)))
+        if h.threshold <= 0:
+            raise ValueError("hotkey.threshold must be > 0")
+        if h.decay_s <= 0:
+            raise ValueError("hotkey.decay-s must be > 0")
+        if h.max_replicas < 2:
+            raise ValueError("hotkey.max-replicas must be >= 2 "
+                             "(R=1 is the unreplicated ring)")
+        if h.top_k < 1:
+            raise ValueError("hotkey.top-k must be >= 1")
+        if not 0.0 < h.demote_fraction < 1.0:
+            raise ValueError("hotkey.demote-fraction must be in "
+                             "(0, 1) — the promotion/demotion "
+                             "hysteresis band")
+        if h.scale_factor < 0:
+            raise ValueError("hotkey.scale-factor must be >= 0 "
+                             "(0 disables the autoscaler signal)")
+
+    def _drain(self, dr: dict) -> None:
+        _check("drain", dr, {},
+               served=("prestage", "prestage-max-planes",
+                       "settle-timeout-s", "fail-readyz"))
+        d = DrainConfig()
+        self.drain = DrainConfig(
+            prestage=bool(dr.get("prestage", d.prestage)),
+            prestage_max_planes=int(dr.get("prestage-max-planes",
+                                           d.prestage_max_planes)),
+            settle_timeout_s=float(dr.get("settle-timeout-s",
+                                          d.settle_timeout_s)),
+            fail_readyz=bool(dr.get("fail-readyz", d.fail_readyz)))
+        if self.drain.prestage_max_planes < 1:
+            raise ValueError("drain.prestage-max-planes must be >= 1")
+        if self.drain.settle_timeout_s <= 0:
+            raise ValueError("drain.settle-timeout-s must be > 0")
 
     def _watchdog(self, wd: dict) -> None:
         _check("watchdog", wd, _UNPORTED_KEYS["watchdog"],

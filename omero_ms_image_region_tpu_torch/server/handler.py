@@ -106,6 +106,15 @@ explicit colour through the shape-mask cache.  Each cache is off unless
 its config block switches it on (``Caches.disabled`` is the services'
 default).
 
+The fleet's hooks (``parallel.fleet``), as in the JAX handler:
+``render_image_region(ctx, adopt_cache=False)`` is a stolen render, read
+from the source and rendered without inserting into this member's raw
+cache (a raw-cache hit still serves), so stealing never moves a plane's
+shard; ``skip_byte_cache=True`` skips the image-region cache's probe,
+which the fleet handler above the router has already made, with the
+caller's ACL; ``ImageRegionServices.pin_device`` is the member's card (the
+renderer's and the raw cache's ``torch.device``; None: the app's).
+
 Provenance (``utils.provenance``): the handlers mark where a response's
 bytes came from on its ctx, as the JAX handlers do: ``byte_cache`` for an
 image-region or shape-mask cache hit, ``hbm_warm`` or ``render_cold`` for
@@ -319,6 +328,8 @@ class ImageRegionServices:
     # The warm-state snapshot and rehydrate (services.warmstate
     # .WarmStateManager), with persistence.enabled.
     warmstate: object = None
+    # A fleet member's card (a torch.device); None: the app's device.
+    pin_device: object = None
 
 
 async def check_can_read(services: ImageRegionServices, object_type: str,
@@ -356,7 +367,9 @@ class ImageRegionHandler:
     def __init__(self, services: ImageRegionServices):
         self.s = services
 
-    async def render_image_region(self, ctx: ImageRegionCtx) -> bytes:
+    async def render_image_region(self, ctx: ImageRegionCtx,
+                                  adopt_cache: bool = True,
+                                  skip_byte_cache: bool = False) -> bytes:
         """``render_image_region`` / ``render_image``: the encoded bytes.
 
         The image-region cache first (``renderImageRegion``,
@@ -368,9 +381,15 @@ class ImageRegionHandler:
         deadline: a group whose members' budgets died after it was popped
         may still be running, and the caller gets its
         ``DeadlineExceededError`` at budget end.
+
+        ``adopt_cache=False`` (a fleet steal) renders from the source
+        without inserting into the raw cache; ``skip_byte_cache=True`` (a
+        fleet member behind the fleet handler) skips the cache probe the
+        fleet handler made.  The write-back runs either way.
         """
         t0 = time.perf_counter()
-        cached = await self.s.caches.image_region.get(ctx.cache_key)
+        cached = (None if skip_byte_cache else
+                  await self.s.caches.image_region.get(ctx.cache_key))
         if cached is not None:
             if await self.can_read(ctx.image_id, ctx.omero_session_key):
                 telemetry.record_span("cache.hit", t0,
@@ -394,7 +413,7 @@ class ImageRegionHandler:
             completed = False
             try:
                 transient.check_deadline("render pipeline")
-                data = await self._get_region(ctx, pixels)
+                data = await self._get_region(ctx, pixels, adopt_cache)
                 completed = True
             finally:
                 if admission is not None:
@@ -532,8 +551,8 @@ class ImageRegionHandler:
                      pack_settings(active_rdef, self.s.lut_provider),
                      levels)
 
-    async def _get_region(self, ctx: ImageRegionCtx,
-                          pixels: Pixels) -> bytes:
+    async def _get_region(self, ctx: ImageRegionCtx, pixels: Pixels,
+                          adopt_cache: bool = True) -> bytes:
         plan = await self._plan(ctx, pixels)
         if ctx.projection is not None:
             raw = await self._project(ctx, pixels, plan)
@@ -551,7 +570,8 @@ class ImageRegionHandler:
             provenance.mark(ctx, tier="render_cold" if raw is None
                             else "hbm_warm")
             if raw is None:
-                raw = await asyncio.to_thread(self._load, plan, ctx)
+                raw = await asyncio.to_thread(self._load, plan, ctx,
+                                              adopt_cache)
             h, w = plan.region.height, plan.region.width
             tiny = h * w <= self.s.jpeg_host_max_px
             if prefetcher is not None and ctx.tile is not None and not tiny:
@@ -657,19 +677,20 @@ class ImageRegionHandler:
             plan.src.get_region(ctx.z, c, ctx.t, plan.region, plan.level)
             for c in plan.active])
 
-    def _load(self, plan: _Plan, ctx: ImageRegionCtx
-              ) -> Union[np.ndarray, torch.Tensor]:
-        """Raw planes for the renderer (worker thread).  With a raw cache:
-        read straight into a pinned buffer, copied once to the card and
-        cached there (a tensor).  Without: host planes, which the renderer
-        stages."""
+    def _load(self, plan: _Plan, ctx: ImageRegionCtx,
+              adopt_cache: bool = True) -> Union[np.ndarray, torch.Tensor]:
+        """Raw planes for the renderer (worker thread).  With a raw cache
+        that adopts the plane: read straight into a pinned buffer, copied
+        once to the card and cached there (a tensor).  Without, or for a
+        stolen render: host planes, which the renderer stages."""
         with stopwatch("PixelsService.readRegion"):
-            return self._load_inner(plan, ctx)
+            return self._load_inner(plan, ctx, adopt_cache)
 
-    def _load_inner(self, plan: _Plan, ctx: ImageRegionCtx
+    def _load_inner(self, plan: _Plan, ctx: ImageRegionCtx,
+                    adopt_cache: bool = True
                     ) -> Union[np.ndarray, torch.Tensor]:
         cache = self.s.raw_cache
-        if cache is None:
+        if cache is None or not adopt_cache:
             return self._read_planes(plan, ctx)
         return cache.get_or_load(
             self._region_key(ctx, plan),

@@ -48,9 +48,11 @@ Consumers read the governor through :func:`install` / :func:`active` (one
 * ``utils.provenance`` (the record's ``ladder`` and ``quality_capped``).
 
 Every level transition and every step is a flight event and an
-``imageregion_pressure_*`` series.  The JAX sources' and actuators' fleet
-seams (the router's queue depth, hot-key replica demotion) wait for the
-fleet.
+``imageregion_pressure_*`` series.  With a fleet (``parallel.fleet``) the
+``queue`` source reads the router's depth (queued and executing across
+the members), and ``evict_caches`` demotes every promoted hot route's
+replica set (``FleetRouter.shed_replicas``) before the LRU pass, as in
+JAX: a replica is a duplicate whose owner keeps its copy.
 """
 
 from __future__ import annotations
@@ -471,10 +473,11 @@ def pressure_quality(quality: int, ctx) -> int:
     return quality
 
 
-def build_sources(services=None, governor_ref: Optional[list] = None
-                  ) -> Dict[str, Callable[[], Optional[float]]]:
+def build_sources(services=None, governor_ref: Optional[list] = None,
+                  router=None) -> Dict[str, Callable[[], Optional[float]]]:
     """The standard signals over a service stack; each is None-safe, so a
-    missing subsystem drops its signal."""
+    missing subsystem drops its signal.  With a fleet ``router`` the
+    queue is the router's."""
     raw_cache = getattr(services, "raw_cache", None)
     disk = getattr(getattr(services, "caches", None), "disk", None)
     renderer = getattr(services, "renderer", None)
@@ -490,6 +493,8 @@ def build_sources(services=None, governor_ref: Optional[list] = None
         return disk.size_bytes / disk.max_bytes
 
     def queue() -> Optional[float]:
+        if router is not None:
+            return float(router.queue_depth())
         if not hasattr(renderer, "queue_depth"):
             return None
         return float(renderer.queue_depth())
@@ -508,10 +513,12 @@ def build_sources(services=None, governor_ref: Optional[list] = None
     }
 
 
-def build_actuators(config, services=None) -> Dict[str, StepActuator]:
+def build_actuators(config, services=None,
+                    router=None) -> Dict[str, StepActuator]:
     """The standard actuators.  The flag steps (``drop_quality``,
     ``shed_bulk``, ``tighten_admission``) have none: their consumers ask
-    the governor."""
+    the governor.  A fleet ``router`` has its hot routes' replicas
+    demoted first by ``evict_caches``."""
     prefetcher = getattr(services, "prefetcher", None)
     warmstate = getattr(services, "warmstate", None)
     raw_cache = getattr(services, "raw_cache", None)
@@ -532,13 +539,18 @@ def build_actuators(config, services=None) -> Dict[str, StepActuator]:
             engage=flag(warmstate, True), release=flag(warmstate, False))
 
     def evict():
+        if router is not None:
+            try:
+                router.shed_replicas()
+            except Exception:
+                log.debug("replica shed failed", exc_info=True)
         frac = config.evict_to_frac
         if raw_cache is not None:
             raw_cache.evict_to_fraction(frac)
         if disk is not None:
             disk.evict_to_fraction(frac)
 
-    if raw_cache is not None or disk is not None:
+    if raw_cache is not None or disk is not None or router is not None:
         actuators["evict_caches"] = StepActuator(
             engage=evict, while_engaged=evict)
 

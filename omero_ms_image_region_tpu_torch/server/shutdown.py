@@ -3,12 +3,13 @@
 Counterpart of the JAX package's ``server/shutdown.py``.  On SIGTERM or
 SIGINT ``server.app.run_app`` runs one chain of hooks while the services
 are still live, before aiohttp's cleanup closes the caches and the pixel
-stores: the warm-state snapshot first (it lists what is hot), the build
-store's drain (a library being stored now is one the next life does not
-build), the flight-recorder dump last (the black box lands even if a hook
-before it failed).  Each hook is guarded, so one failing never skips the
-rest, and the chain runs once: ``run`` never raises.  Left out against
-JAX: the ``fleet-quiesce`` hook, which comes with the fleet.
+stores: with a fleet, the ``fleet-quiesce`` hook first (every member stops
+taking routes, so the snapshot sees a settled shard map), then the
+warm-state snapshot (it lists what is hot), the build store's drain (a
+library being stored now is one the next life does not build), the
+flight-recorder dump last (the black box lands even if a hook before it
+failed).  Each hook is guarded, so one failing never skips the rest, and
+the chain runs once: ``run`` never raises.
 """
 
 from __future__ import annotations
@@ -53,14 +54,29 @@ class ShutdownChain:
         return results
 
 
-def build_shutdown_chain(config, services=None) -> ShutdownChain:
-    """The chain of an app: ``warmstate-snapshot`` (with persistence on),
-    ``execcache-drain`` (with the build store) and ``flight-dump`` to
+def build_shutdown_chain(config, services=None,
+                         fleet_router=None) -> ShutdownChain:
+    """The chain of an app: ``fleet-quiesce`` (with a fleet router),
+    ``warmstate-snapshot`` (with persistence on), ``execcache-drain`` (with
+    the build store) and ``flight-dump`` to
     ``telemetry.flight-recorder-dir``, in that order.  ``services`` (the
-    handler's ``ImageRegionServices``) None gives the dump alone."""
+    handler's ``ImageRegionServices``) None and no router give the dump
+    alone."""
     from ..utils import telemetry
 
     chain = ShutdownChain()
+    if fleet_router is not None:
+        def quiesce():
+            # Flag flips only: the chain runs on its own thread, off the
+            # loop that owns the router's queues.  The lanes see the flags
+            # at their next pop; a whole-process SIGTERM has no surviving
+            # member to hand a shard to, so no handoff.
+            for name in fleet_router.order:
+                fleet_router.members[name].draining = True
+                telemetry.DRAIN.set_state(name, "draining")
+            telemetry.FLIGHT.record("drain.phase", member="*",
+                                    phase="quiesce-all", reason="shutdown")
+        chain.add("fleet-quiesce", quiesce)
     warmstate = getattr(services, "warmstate", None)
     if warmstate is not None:
         chain.add("warmstate-snapshot", warmstate.snapshot_now)

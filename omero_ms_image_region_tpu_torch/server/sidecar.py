@@ -22,13 +22,25 @@ Wire format, little-endian (the ctx payloads are ``ImageRegionCtx
 
 Responses are multiplexed by ``id`` and may arrive out of order.
 
-Ops served: ``hello`` (the v3 negotiation), ``image`` and ``mask``
-(renders), ``plane_probe`` and ``plane_put`` (protocol v2's digest-first
-plane push: ``plane_put`` stages through ``io.staging.stage_deduped``,
-packed and decoded by K10 where it pays), ``metrics``, ``ping``,
-``explain``, ``flightrecorder``, ``decisions``, ``warmstate``,
-``sentinel`` and ``profile``.  Any other op answers 400, as an older JAX
-peer answers an op it does not know.
+Ops served: ``hello`` (the v3 negotiation; a fleet frontend's carries the
+``member`` name, which stamps this process's flight events), ``image``
+(with ``adopt: 0``, a fleet steal: rendered without inserting into the raw
+cache) and ``mask`` (renders), ``plane_probe`` and ``plane_put`` (protocol
+v2's digest-first plane push: ``plane_put`` stages through
+``io.staging.stage_deduped``, packed and decoded by K10 where it pays),
+``metrics``, ``ping``, ``explain``, ``flightrecorder``, ``decisions``,
+``warmstate``, ``sentinel`` and ``profile``, and the fleet's
+(``parallel.fleet.RemoteMember``): ``byte_probe``, ``byte_fetch`` (after
+this process's ACL for the caller's session) and ``byte_put``
+(digest-checked) on the byte tier a ``tier`` names (``region`` or
+``mask``), ``shard_manifest`` (the raw cache's entries), ``prestage``
+(entries re-read from this process's pixel store into its raw cache) and
+``shard_transfer`` (a plane's bytes, digest-checked, staged under its
+region key and route).  Any other op answers 400, as an older JAX peer
+answers an op it does not know: the federation's ``manifest_hello``,
+``member_gossip``, ``epoch_propose``, ``epoch_commit`` and ``partition``
+wait for the federation (ROADMAP Queue 1 item 5), and so do its fences,
+so a byte put, a prestage and a shard transfer are never refused here.
 
 Fault-tolerance fields (optional): a request may carry ``deadline_ms``,
 the requester's remaining budget, re-anchored on the sidecar's clock (a
@@ -50,13 +62,8 @@ Protocol v3, three legs, each falling back to v2 against an older peer:
   ``hello``: bodies of at least ``wire.ring-min-body-bytes`` ride the ring
   with a ``ring: [offset, length]`` descriptor on the socket.
 
-Left out with the fleet (ROADMAP Queue 1 item 7): the ops
-``shard_transfer``, ``shard_manifest``, ``prestage``, ``byte_probe``,
-``byte_fetch``, ``byte_put``, ``manifest_hello``, ``member_gossip``,
-``epoch_propose``, ``epoch_commit`` and ``partition``; the ``adopt: 0``
-request key; the ``hello``'s member name; the multi-sidecar
-``fleet.sockets`` topology; ``SidecarUnit`` and ``SidecarUnitLifecycle``;
-and the federation hooks of :func:`run_sidecar`.
+Left out with the federation: ``SidecarUnit`` and
+``SidecarUnitLifecycle`` and the federation hooks of :func:`run_sidecar`.
 """
 
 from __future__ import annotations
@@ -310,6 +317,152 @@ async def _plane_put(image_handler, header: dict, req_body: bytes) -> bytes:
                        "resident": was_resident}).encode()
 
 
+def _byte_stack(image_handler, header: dict):
+    """(services, the byte-cache chain a byte op names): ``tier: "mask"``
+    the shape-mask chain, else the rendered tiles'."""
+    services = getattr(image_handler, "s", None)
+    caches = getattr(services, "caches", None)
+    name = ("shape_mask" if str(header.get("tier") or "region") == "mask"
+            else "image_region")
+    return services, getattr(caches, name, None)
+
+
+async def _byte_op(image_handler, op: str, header: dict,
+                   req_body: bytes) -> bytes:
+    """The fleet's byte-tier ops (JAX ``:730-816``): ``byte_probe``
+    (presence of N keys, no ACL: a key derives from request parameters,
+    never pixels), ``byte_fetch`` (the bytes, after this process's ACL for
+    the caller's session; a miss is a 404) and ``byte_put`` (a thief's
+    write-back, its body checked against the claimed digest)."""
+    import hashlib
+
+    from .handler import check_can_read
+
+    services, stack = _byte_stack(image_handler, header)
+    enabled = bool(stack is not None and getattr(stack, "enabled", False))
+    if op == "byte_probe":
+        keys = header.get("keys")
+        if not isinstance(keys, list):
+            keys = [header.get("key")]
+        present = [bool(enabled and k
+                        and await stack.get(str(k)) is not None)
+                   for k in keys]
+        return json.dumps({"enabled": enabled,
+                           "present": present}).encode()
+    key = str(header.get("key") or "")
+    if op == "byte_fetch":
+        data = await stack.get(key) if stack is not None and key else None
+        if data is None:
+            raise NotFoundError(f"byte tier miss for {key!r}")
+        image_id = header.get("image_id")
+        if image_id is not None and services is not None:
+            obj = str(header.get("obj") or "Image")
+            if obj not in ("Image", "Mask"):
+                raise BadRequestError(f"byte_fetch obj {obj!r} unsupported")
+            if not await check_can_read(services, obj, int(image_id),
+                                        header.get("session")):
+                raise NotFoundError(f"Cannot find {obj}:{image_id}")
+        return bytes(data)
+    if not key:
+        raise BadRequestError("byte_put requires a key")
+    value = bytes(req_body)
+    claimed = str(header.get("digest") or "")
+    if claimed:
+        actual = hashlib.blake2b(value, digest_size=16).hexdigest()
+        if actual != claimed:
+            raise BadRequestError(f"byte_put digest mismatch: claimed "
+                                  f"{claimed}, body is {actual}")
+    if enabled:
+        await stack.set(key, value)
+    return json.dumps({"stored": enabled}).encode()
+
+
+async def _prestage(image_handler, header: dict) -> bytes:
+    """``prestage``: the handed entries re-read from this process's pixel
+    store into its raw cache (``services.warmstate.restage_plane_entry``),
+    best effort an entry, off the loop."""
+    from ..services.warmstate import restage_plane_entry
+
+    services = getattr(image_handler, "s", None)
+    cache = getattr(services, "raw_cache", None)
+    pixels = getattr(services, "pixels_service", None)
+    entries = header.get("entries") or []
+    if not isinstance(entries, list):
+        raise BadRequestError("prestage entries must be a list")
+
+    def stage_all() -> int:
+        staged = 0
+        for entry in entries:
+            try:
+                if restage_plane_entry(cache, pixels, entry):
+                    staged += 1
+            except Exception:
+                continue        # a bad entry is a cold miss later
+        return staged
+
+    staged = (await asyncio.to_thread(stage_all)
+              if cache is not None and pixels is not None else 0)
+    return json.dumps({"staged": staged}).encode()
+
+
+async def _shard_transfer(image_handler, header: dict,
+                          req_body: bytes) -> bytes:
+    """``shard_transfer``: one plane's bytes staged into the raw cache
+    under its region key and route, as if read from this process's store.
+    The claimed digest is checked before anything is cached (the socket is
+    unauthenticated)."""
+    import numpy as np
+
+    from ..io.devicecache import plane_digest, region_key
+
+    cache = getattr(getattr(image_handler, "s", None), "raw_cache", None)
+    if cache is None:
+        raise BadRequestError("device plane cache is disabled on this "
+                              "sidecar (raw-cache.enabled)")
+    entry = header.get("entry")
+    if not isinstance(entry, dict):
+        raise BadRequestError("shard_transfer requires an entry doc")
+    digest = str(entry.get("digest") or "")
+    try:
+        image_id, z, t, level, region, channels = entry["key"]
+        key = region_key(int(image_id), int(z), int(t), int(level),
+                         tuple(int(v) for v in region),
+                         tuple(int(c) for c in channels))
+        dtype = np.dtype(str(entry["dtype"]))
+        shape = tuple(int(s) for s in entry["shape"])
+        if dtype.kind not in "uif":
+            raise ValueError(f"non-numeric dtype {dtype}")
+    except (KeyError, TypeError, ValueError) as e:
+        raise BadRequestError(f"malformed shard_transfer entry: {e}")
+    if not shape or any(s <= 0 for s in shape):
+        raise BadRequestError(f"shard_transfer shape {list(shape)} must be "
+                              f"all-positive")
+    expected = int(np.prod(shape)) * dtype.itemsize
+    if expected != len(req_body):
+        raise BadRequestError(
+            f"shard_transfer body is {len(req_body)} bytes, shape/dtype "
+            f"say {expected}")
+    arr = np.frombuffer(req_body, dtype).reshape(shape)
+    route = entry.get("route")
+
+    def stage_verified() -> str:
+        actual = plane_digest(arr)
+        if digest and digest != actual:
+            raise BadRequestError(f"shard_transfer digest mismatch: "
+                                  f"claimed {digest}, content is {actual}")
+        cache.get_or_load(key, lambda: arr, digest=actual,
+                          route_key=str(route) if route else None)
+        return actual
+
+    t_anchor = time.perf_counter()
+    actual = await asyncio.to_thread(stage_verified)
+    return json.dumps({"staged": True, "digest": actual,
+                       "t_anchor": t_anchor,
+                       "ms": round((time.perf_counter() - t_anchor)
+                                   * 1000.0, 3),
+                       "host": ""}).encode()
+
+
 def _server_hello(header: dict, frames: FrameWriter, wire) -> tuple:
     """The sidecar's side of ``hello``: attach the client's ring segments
     when offered (and ``wire.ring-bytes`` is not 0), answer the feature
@@ -343,6 +496,11 @@ def _server_hello(header: dict, frames: FrameWriter, wire) -> tuple:
             frames.ring = None
             logger.info("shm ring negotiation failed (%s); socket bodies",
                         e)
+    member = header.get("member")
+    if isinstance(member, str) and member:
+        # The frontend's fleet name for this sidecar: its flight events
+        # carry it from here on (re-stamped at each hello).
+        telemetry.FLIGHT.set_member(member[:32])
     telemetry.WIRE.count_negotiation(ring=ring_ok)
     # ``clock``: this process's perf_counter, from which the client derives
     # the offset that maps exported span anchors onto its timeline.
@@ -423,8 +581,15 @@ async def _serve_connection(image_handler, mask_handler, reader, writer,
                         t0 = time.perf_counter()
                         if op == "image":
                             ctx = ImageRegionCtx.from_json(header["ctx"])
-                            body = await image_handler.render_image_region(
-                                ctx)
+                            if header.get("adopt") in (0, False):
+                                # A fleet steal: the plane's shard stays
+                                # with its ring owner.
+                                body = await \
+                                    image_handler.render_image_region(
+                                        ctx, adopt_cache=False)
+                            else:
+                                body = await \
+                                    image_handler.render_image_region(ctx)
                         else:
                             ctx = ShapeMaskCtx.from_json(header["ctx"])
                             body = await mask_handler.render_shape_mask(ctx)
@@ -474,6 +639,20 @@ async def _serve_connection(image_handler, mask_handler, reader, writer,
                 body = json.dumps(doc).encode()
             elif op == "plane_put":
                 body = await _plane_put(image_handler, header, req_body)
+            elif op in ("byte_probe", "byte_fetch", "byte_put"):
+                body = await _byte_op(image_handler, op, header, req_body)
+            elif op == "shard_manifest":
+                cache = getattr(getattr(image_handler, "s", None),
+                                "raw_cache", None)
+                entries = (cache.snapshot_entries(
+                    int(header.get("limit", 0) or 0))
+                    if cache is not None else [])
+                body = json.dumps({"entries": entries}).encode()
+            elif op == "prestage":
+                body = await _prestage(image_handler, header)
+            elif op == "shard_transfer":
+                body = await _shard_transfer(image_handler, header,
+                                             req_body)
             elif op == "explain":
                 # Read-only residency probe of the /debug/explain plane.
                 from .explain import residency_doc
@@ -920,6 +1099,9 @@ class SidecarClient:
         self.wire_hang_s = 0.0
         self.watchdog_escalate_after = 2
         self._wire_fires = 0     # consecutive; a served reply resets it
+        # The fleet name of the sidecar behind this client
+        # (``parallel.fleet.RemoteMember`` sets it); the hello sends it.
+        self.member_label: Optional[str] = None
 
     async def _ensure_connected(self) -> _Conn:
         conn = self._conn
@@ -964,6 +1146,8 @@ class SidecarClient:
         rid = self._next_id
         fut = asyncio.get_running_loop().create_future()
         header = {"id": rid, "op": "hello", "v": WIRE_VERSION}
+        if self.member_label:
+            header["member"] = self.member_label
         if rings:
             header["rings"] = {
                 "c2s": {"name": rings[0].name,

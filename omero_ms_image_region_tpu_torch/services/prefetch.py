@@ -35,9 +35,16 @@ and nothing is scheduled for a request that is not a tile.
   ``paused``).  Each staged plane records its routing identity
   (``server.ctx.plane_route_key``), as the foreground's does.
 
-Not here: the JAX prefetcher's fleet seams (``cache_for_route``, the
-owning member's shard), its federation seam (``remote_prestage``) and its
-hot-key replicas (``replica_caches``), which come with the fleet.
+* **Fleet-aware.**  With ``cache_for_route`` set (the combined fleet
+  sets ``parallel.fleet.FleetRouter.cache_for_route``), each predicted
+  tile stages into the raw cache of the member that owns its route, so
+  prefetch warms the member that will serve the request and never
+  duplicates a plane; with ``replica_caches`` (``FleetRouter
+  .local_replica_caches``) a promoted hot route's prediction also stages
+  into each local replica's cache.
+
+Not here: the JAX prefetcher's federation seam (``remote_prestage``),
+which comes with the federation.
 """
 
 from __future__ import annotations
@@ -74,6 +81,11 @@ class TilePrefetcher:
         # prefetch_budget(); the ladder's pause_prefetch sets it to 0
         # through ``paused``.
         self.budget_scale = 1.0
+        # Fleet seams: route -> the owning member's raw cache (None: this
+        # prefetcher's own), and route -> the live local replicas' caches
+        # of a promoted hot route.
+        self.cache_for_route = None
+        self.replica_caches = None
         self._pool = concurrent.futures.ThreadPoolExecutor(
             max_workers=max_workers, thread_name_prefix="tile-prefetch")
         self._lock = threading.Lock()
@@ -168,7 +180,6 @@ class TilePrefetcher:
         if budget <= 0:
             telemetry.PREFETCH.count_skipped("budget")
             return
-        cache = self.raw_cache
         for nres, nz, nt, nx, ny in self._candidates(
                 image_id, z, t, resolution, session_key, tile):
             if nres is not None and not 0 <= nres < len(levels):
@@ -181,41 +192,60 @@ class TilePrefetcher:
                 continue
             key = region_key(image_id, nz, nt, level, region.as_tuple(),
                              tuple(active))
-            if key in cache:
-                continue                # resident: no pool churn
-            with self._lock:
-                if key in self._pending:
-                    continue            # in flight: a dedup, not a skip
-                if len(self._pending) >= budget:
-                    telemetry.PREFETCH.count_skipped("budget")
-                    continue
-                self._pending.add(key)
             route = plane_route_key(SimpleNamespace(
                 image_id=image_id, z=nz, t=nt, resolution=nres,
                 tile=RegionDef(nx, ny, tile.width, tile.height),
                 region=None))
-            try:
-                future = self._pool.submit(self._load, src, key, route, nz,
-                                           nt, level, region, tuple(active))
-            except RuntimeError:        # pool shut down mid-request
+            cache = self.raw_cache
+            if self.cache_for_route is not None:
+                # (An empty cache is falsy: compare with None.)
+                routed = self.cache_for_route(route)
+                if routed is not None:
+                    cache = routed
+            targets = [cache]
+            if self.replica_caches is not None:
+                try:
+                    replicas = list(self.replica_caches(route) or ())
+                except Exception:
+                    replicas = []
+                targets += [c for c in replicas if c is not cache]
+            for target in targets:
+                # A replica's staging has a token of its own, so two
+                # caches may hold one key in flight at once.
+                token = key if target is cache else (id(target), key)
+                if key in target:
+                    continue            # resident: no pool churn
                 with self._lock:
-                    self._pending.discard(key)
-                return
-            self.scheduled += 1
-            telemetry.PREFETCH.count_scheduled()
-            with self._lock:
-                self._futures.add(future)
-            future.add_done_callback(self._futures.discard)
+                    if token in self._pending:
+                        continue        # in flight: a dedup, not a skip
+                    if len(self._pending) >= budget:
+                        telemetry.PREFETCH.count_skipped("budget")
+                        continue
+                    self._pending.add(token)
+                try:
+                    future = self._pool.submit(
+                        self._load, src, target, key, route, nz, nt, level,
+                        region, tuple(active), token)
+                except RuntimeError:    # pool shut down mid-request
+                    with self._lock:
+                        self._pending.discard(token)
+                    return
+                self.scheduled += 1
+                telemetry.PREFETCH.count_scheduled()
+                with self._lock:
+                    self._futures.add(future)
+                future.add_done_callback(self._futures.discard)
 
-    def _load(self, src, key, route: str, z: int, t: int, level: int,
-              region: RegionDef, active: Tuple[int, ...]) -> None:
+    def _load(self, src, cache, key, route: str, z: int, t: int,
+              level: int, region: RegionDef, active: Tuple[int, ...],
+              token=None) -> None:
+        token = key if token is None else token
         try:
             # A budget that reached 0 binds queued work too.
             if self.effective_budget() <= 0.0:
                 telemetry.PREFETCH.count_skipped("paused")
                 return
             loaded = [False]
-            cache = self.raw_cache
 
             def loader():
                 loaded[0] = True
@@ -234,7 +264,7 @@ class TilePrefetcher:
             log.debug("prefetch failed for %s: %r", key, e)
         finally:
             with self._lock:
-                self._pending.discard(key)
+                self._pending.discard(token)
 
     def flush(self, timeout: float = 10.0) -> None:
         """Wait for the loads in flight (tests, shutdown)."""

@@ -33,8 +33,10 @@ baselines (``sentinel``: ``SentinelEngine.export_baseline``), restored
 first on boot (``load_baseline``), so a restart does not learn "normal"
 again from its first windows.  While the pressure governor's
 ``pause_snapshots`` step is engaged (``paused``) the timer skips its
-snapshots; the SIGTERM chain's and ``/debug/warmstate``'s still run.  Left
-out against JAX: the planes' fleet ``route``.
+snapshots; the SIGTERM chain's and ``/debug/warmstate``'s still run.  A
+plane entry carries its fleet ``route`` (``server.ctx.plane_route_key``)
+when the cache recorded one, and a restaged plane keeps it, so a drain's
+handoff after a restart hands it to the member that serves it, as in JAX.
 """
 
 from __future__ import annotations
@@ -63,7 +65,9 @@ _DISK_PREFIXES = {"image_region": "img:", "pixels_metadata": "meta:",
 def restage_plane_entry(raw_cache, pixels_service, entry: dict) -> bool:
     """Re-read one manifest plane entry from the pixel store and stage it
     on the card as a cold GET would (``io.staging.read_pinned``, then the
-    raw cache's copy).  False on a malformed entry; read errors propagate
+    raw cache's copy), under the entry's recorded ``route``.  Shared by
+    the boot rehydrate and the fleet's prestage (a drain's handoff, a hot
+    route's replicas).  False on a malformed entry; read errors propagate
     to the caller's guard."""
     from ..io.devicecache import region_key
     from ..io.staging import read_pinned
@@ -84,7 +88,7 @@ def restage_plane_entry(raw_cache, pixels_service, entry: dict) -> bool:
         return read_pinned(src, key[1], key[2], RegionDef(*key[4]), key[3],
                            key[5], raw_cache.device)
 
-    raw_cache.get_or_load(key, load)
+    raw_cache.get_or_load(key, load, route_key=entry.get("route"))
     return True
 
 

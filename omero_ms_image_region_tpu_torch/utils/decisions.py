@@ -7,9 +7,11 @@ at 14:02".  Every control-plane action lands here as one record of a
 closed vocabulary (``telemetry.DecisionStats.KINDS`` / ``VERDICTS``, the
 JAX package's, so the cardinality budget bounds
 ``imageregion_decision_total{kind,verdict}``).  In the port the perf
-sentinel (``server.sentinel``) is the writer: ``kind=sentinel`` with
-``drift`` and ``recovered``.  The autoscaler, epoch, manifest, gossip,
-drain and hot-key writers come with the fleet.  Each record also fires a
+sentinel (``server.sentinel``) writes ``kind=sentinel`` with ``drift`` and
+``recovered``, and the fleet (``parallel.fleet``) its drains (``drain``,
+``handoff``, ``undrain``) and hot-key promotions and demotions
+(``hotkey``).  The autoscaler, epoch, manifest and gossip writers come
+with the federation.  Each record also fires a
 ``decision.<kind>`` flight event, so the black box and the ledger tell one
 story.
 

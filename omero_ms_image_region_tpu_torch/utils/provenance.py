@@ -20,11 +20,12 @@ The record also names the engaged prefix of the pressure governor's
 ladder (``ladder``) and the ``quality_capped`` flag of a tile whose JPEG
 quality ``drop_quality`` capped.  A frontend merges the marks its
 sidecar made (:func:`merge_wire`, the reply's ``prov``) and marks
-``degraded`` when its CPU fallback served (``server.degraded``).  The
-port has one member (``-``): the ``peer`` and ``disk`` tiers and the
-``stolen``, ``failed_over`` and ``drain_rehomed`` flags stay in the
-vocabulary (the metric label sets the JAX package's budget names) but are
-never marked.  Device-free on import.
+``degraded`` when its CPU fallback served (``server.degraded``).  With a
+fleet (``parallel.fleet``) the router marks the serving ``member`` and the
+``stolen``, ``failed_over`` and ``drain_rehomed`` flags, and a peer byte
+fetch the ``peer`` tier; without one the member is ``-``.  The ``disk``
+tier stays in the vocabulary (the metric label sets the JAX package's
+budget names) but is never marked.  Device-free on import.
 """
 
 from __future__ import annotations

@@ -55,12 +55,15 @@ The family names, label keys and types are the JAX package's, so one
 dashboard and one cardinality budget (``conf/metrics_budget.json``) read
 both.  Not ported: ``imageregion_compile_*`` and ``imageregion_link_*``
 (XLA compile events and TPU-link fetch rates: an eager CUDA launch has no
-compile step, and the card sits on PCIe in the same host); ``merge_costs``
-(the sidecar wire's ledger graft) and the fleet families (the fleet SLO,
-the sentinel's member rows, the flight recorder's member stamp), which
-wait for the sidecar and the fleet; the retry, degraded-render and
-supervisor counters, which have no caller in a port with no retry, no
-degraded mode and no sidecar.  The shape-cost estimate is the port's own
+compile step, and the card sits on PCIe in the same host); and the
+federation's families (the fleet SLO, the quorum, the gossiped sentinel
+rows), which wait for the federation.  The fleet's are here
+(``parallel.fleet``): :data:`FLEET` (routed, stolen and failed-over renders
+by member), :data:`HOTKEY` (hot-plane replication), :data:`DRAIN` (drain
+states and the handoff's planes), the peer byte fetch's counters in
+:data:`HTTPCACHE`, :func:`fleet_metric_lines` (with a live router, the
+per-member gauges) and the flight recorder's member stamp
+(:meth:`FlightRecorder.set_member`, set by a sidecar's ``hello``).  The shape-cost estimate is the port's own
 kernel count, not XLA's ``cost_analysis()`` (:class:`ShapeCostModel`).
 
 Nothing here imports ``torch`` at module level (:func:`capture_profile`
@@ -412,6 +415,12 @@ _NON_SPAN_NAMES = frozenset({"batcher.groupTiles"})
 def current_trace_id() -> Optional[str]:
     ids = _TRACE_IDS.get()
     return ids[0] if ids else None
+
+
+def current_trace_ids() -> Tuple[str, ...]:
+    """Every trace id the current context records for (the fleet router
+    captures them at enqueue and re-adopts them in its lane)."""
+    return _TRACE_IDS.get()
 
 
 def clear_context() -> None:
@@ -770,10 +779,210 @@ class WireStats:
 WIRE = WireStats()
 
 
+class _MemberCounts:
+    """Per-member counters with the JAX bound on distinct member names
+    (``_overflow`` past it): names come from config, the bound guards
+    against a caller minting names per request."""
+
+    _MAX_MEMBERS = 64
+
+    def __init__(self):
+        self._lock = threading.Lock()
+
+    def _bump(self, table: Dict[str, int], member: str, n: int = 1) -> None:
+        with self._lock:
+            if member not in table and len(table) >= self._MAX_MEMBERS:
+                member = "_overflow"
+            table[member] = table.get(member, 0) + n
+
+
+class FleetStats(_MemberCounts):
+    """The fleet router's renders by member: routed (at dispatch), stolen
+    (by the thief, which renders without adopting the plane) and failed
+    over (by the hash-ring-next member that adopted a dead or draining
+    member's work)."""
+
+    def __init__(self):
+        super().__init__()
+        self.routed: Dict[str, int] = {}
+        self.stolen: Dict[str, int] = {}
+        self.failed_over: Dict[str, int] = {}
+
+    def count_routed(self, member: str) -> None:
+        self._bump(self.routed, member)
+
+    def count_stolen(self, member: str) -> None:
+        self._bump(self.stolen, member)
+
+    def count_failed_over(self, member: str) -> None:
+        self._bump(self.failed_over, member)
+
+    def totals(self) -> Dict[str, int]:
+        with self._lock:
+            return {"routed": sum(self.routed.values()),
+                    "stolen": sum(self.stolen.values()),
+                    "failed_over": sum(self.failed_over.values())}
+
+    def metric_lines(self) -> List[str]:
+        lines: List[str] = []
+        with self._lock:
+            for fam, table in (
+                    ("imageregion_fleet_routed_total", self.routed),
+                    ("imageregion_fleet_stolen_total", self.stolen),
+                    ("imageregion_fleet_failed_over_total",
+                     self.failed_over)):
+                lines += [f'{fam}{{member="{m}"}} {table[m]}'
+                          for m in sorted(table)]
+        return lines
+
+    def reset(self) -> None:
+        with self._lock:
+            self.routed.clear()
+            self.stolen.clear()
+            self.failed_over.clear()
+
+
+FLEET = FleetStats()
+
+
+class HotkeyStats(_MemberCounts):
+    """Hot-plane replication: promotions, demotions, replica planes
+    staged, the never-double-stage counter (held at 0), balanced reads by
+    the non-owner replica that served them, and the hot-route and
+    replica-pressure gauges (the latter the autoscaler's signal: 0 until
+    the autoscaler is ported, as in a JAX app without one)."""
+
+    def __init__(self):
+        super().__init__()
+        self.promoted = 0
+        self.demoted = 0
+        self.staged = 0
+        self.duplicate_staged = 0
+        self.balanced: Dict[str, int] = {}
+        self.hot_routes = 0
+        self.replica_pressure = 0.0
+
+    def _add(self, name: str, n: int = 1) -> None:
+        with self._lock:
+            setattr(self, name, getattr(self, name) + n)
+
+    def count_promoted(self) -> None:
+        self._add("promoted")
+
+    def count_demoted(self) -> None:
+        self._add("demoted")
+
+    def count_staged(self, n: int = 1) -> None:
+        self._add("staged", int(n))
+
+    def count_duplicate_staged(self) -> None:
+        self._add("duplicate_staged")
+
+    def count_balanced(self, member: str) -> None:
+        self._bump(self.balanced, member)
+
+    def set_hot_routes(self, n: int) -> None:
+        with self._lock:
+            self.hot_routes = int(n)
+
+    def totals(self) -> Dict[str, float]:
+        with self._lock:
+            return {"promoted": self.promoted, "demoted": self.demoted,
+                    "staged": self.staged,
+                    "duplicate_staged": self.duplicate_staged,
+                    "balanced": sum(self.balanced.values()),
+                    "hot_routes": self.hot_routes,
+                    "replica_pressure": self.replica_pressure}
+
+    def metric_lines(self) -> List[str]:
+        with self._lock:
+            if not (self.promoted or self.demoted or self.staged
+                    or self.duplicate_staged or self.balanced
+                    or self.hot_routes or self.replica_pressure):
+                return []          # the tier never engaged: no series
+            return [
+                f"imageregion_hotkey_promotions_total {self.promoted}",
+                f"imageregion_hotkey_demotions_total {self.demoted}",
+                f"imageregion_hotkey_replica_staged_total {self.staged}",
+                "imageregion_hotkey_duplicate_staged_total "
+                f"{self.duplicate_staged}",
+                f"imageregion_hotkey_hot_routes {self.hot_routes}",
+                "imageregion_hotkey_replica_pressure "
+                f"{self.replica_pressure:.3f}",
+            ] + [f'imageregion_hotkey_balanced_total{{member="{m}"}} '
+                 f"{self.balanced[m]}" for m in sorted(self.balanced)]
+
+    def reset(self) -> None:
+        with self._lock:
+            self.promoted = self.demoted = 0
+            self.staged = self.duplicate_staged = 0
+            self.balanced.clear()
+            self.hot_routes = 0
+            self.replica_pressure = 0.0
+
+
+HOTKEY = HotkeyStats()
+
+
+class DrainStats(_MemberCounts):
+    """Rolling drains: each member's state (0 active, 1 draining, 2
+    drained), its transitions, the handoff's prestaged planes and the
+    drains finished."""
+
+    STATES = ("active", "draining", "drained")
+
+    def __init__(self):
+        super().__init__()
+        self.state: Dict[str, int] = {}
+        self.transitions: Dict[str, int] = {}
+        self.prestaged_planes = 0
+        self.drains_total = 0
+
+    def set_state(self, member: str, state: str) -> None:
+        idx = self.STATES.index(state)
+        with self._lock:
+            if member not in self.state \
+                    and len(self.state) >= self._MAX_MEMBERS:
+                member = "_overflow"
+            if self.state.get(member) != idx:
+                self.transitions[member] = \
+                    self.transitions.get(member, 0) + 1
+            self.state[member] = idx
+            if state == "drained":
+                self.drains_total += 1
+
+    def count_prestaged(self, n: int) -> None:
+        with self._lock:
+            self.prestaged_planes += n
+
+    def metric_lines(self) -> List[str]:
+        with self._lock:
+            return ([
+                "imageregion_drain_prestaged_planes_total "
+                f"{self.prestaged_planes}",
+                f"imageregion_drains_total {self.drains_total}"]
+                + [f'imageregion_drain_state{{member="{m}"}} '
+                   f"{self.state[m]}" for m in sorted(self.state)]
+                + [f'imageregion_drain_transitions_total{{member="{m}"}} '
+                   f"{self.transitions[m]}"
+                   for m in sorted(self.transitions)])
+
+    def reset(self) -> None:
+        with self._lock:
+            self.state.clear()
+            self.transitions.clear()
+            self.prestaged_planes = 0
+            self.drains_total = 0
+
+
+DRAIN = DrainStats()
+
+
 class HttpCacheStats:
-    """Conditional-HTTP answers: If-None-Match and If-Modified-Since-only
-    arrivals, 304s and renderless HEADs.  The JAX class also counts the
-    fleet's peer byte fetches, which wait for the fleet."""
+    """Conditional-HTTP answers (If-None-Match and If-Modified-Since-only
+    arrivals, 304s and renderless HEADs) and the fleet's peer byte tier
+    (``parallel.fleet``: the authority's probes, hits, fetched bodies,
+    failed fetches and a thief's write-backs)."""
 
     def __init__(self):
         self._lock = threading.Lock()
@@ -781,6 +990,11 @@ class HttpCacheStats:
         self.ims_requests = 0
         self.not_modified = 0
         self.head = 0
+        self.peer_probes = 0
+        self.peer_hits = 0
+        self.peer_fetches = 0
+        self.peer_fallbacks = 0
+        self.peer_putbacks = 0
 
     def _bump(self, name: str) -> None:
         with self._lock:
@@ -798,10 +1012,27 @@ class HttpCacheStats:
     def count_head(self) -> None:
         self._bump("head")
 
+    def count_peer_probe(self) -> None:
+        self._bump("peer_probes")
+
+    def count_peer_hit(self) -> None:
+        self._bump("peer_hits")
+
+    def count_peer_fetch(self) -> None:
+        self._bump("peer_fetches")
+
+    def count_peer_fallback(self) -> None:
+        self._bump("peer_fallbacks")
+
+    def count_peer_putback(self) -> None:
+        self._bump("peer_putbacks")
+
     def metric_lines(self) -> List[str]:
         with self._lock:
             if not (self.etag_requests or self.ims_requests
-                    or self.not_modified or self.head):
+                    or self.not_modified or self.head or self.peer_probes
+                    or self.peer_fetches or self.peer_fallbacks
+                    or self.peer_putbacks):
                 return []          # quiet until a conditional arrives
             return [
                 "imageregion_httpcache_etag_requests_total "
@@ -810,12 +1041,22 @@ class HttpCacheStats:
                 f"{self.ims_requests}",
                 f"imageregion_httpcache_304_total {self.not_modified}",
                 f"imageregion_httpcache_head_total {self.head}",
+                f"imageregion_httpcache_peer_probes_total {self.peer_probes}",
+                f"imageregion_httpcache_peer_hits_total {self.peer_hits}",
+                "imageregion_httpcache_peer_fetches_total "
+                f"{self.peer_fetches}",
+                "imageregion_httpcache_peer_fallbacks_total "
+                f"{self.peer_fallbacks}",
+                "imageregion_httpcache_peer_putbacks_total "
+                f"{self.peer_putbacks}",
             ]
 
     def reset(self) -> None:
         with self._lock:
             self.etag_requests = self.ims_requests = 0
             self.not_modified = self.head = 0
+            self.peer_probes = self.peer_hits = self.peer_fetches = 0
+            self.peer_fallbacks = self.peer_putbacks = 0
 
 
 HTTPCACHE = HttpCacheStats()
@@ -1154,14 +1395,23 @@ class FlightRecorder:
         self._ring = deque(maxlen=maxlen)
         self.events_total = 0
         self.dumps_written = 0
+        # The fleet member this process is (a sidecar learns it from its
+        # frontend's hello): every event carries it unless it names a
+        # member of its own (a drain phase, a steal).
+        self.member: Optional[str] = None
 
     def configure(self, maxlen: int) -> None:
         from collections import deque
         if maxlen != self._ring.maxlen:
             self._ring = deque(self._ring, maxlen=max(16, maxlen))
 
+    def set_member(self, member: Optional[str]) -> None:
+        self.member = member
+
     def record(self, kind: str, **fields) -> None:
         event = {"ts": round(time.time(), 3), "kind": kind}
+        if self.member is not None and "member" not in fields:
+            event["member"] = self.member
         event.update(fields)
         self._ring.append(event)
         self.events_total += 1     # a benign race: a count, not a key
@@ -1220,6 +1470,7 @@ class FlightRecorder:
         self._ring.clear()
         self.events_total = 0
         self.dumps_written = 0
+        self.member = None
 
 
 FLIGHT = FlightRecorder()
@@ -2016,6 +2267,31 @@ METRIC_TYPES: Dict[str, str] = {
     "imageregion_httpcache_ims_requests_total": "counter",
     "imageregion_httpcache_304_total": "counter",
     "imageregion_httpcache_head_total": "counter",
+    "imageregion_httpcache_peer_probes_total": "counter",
+    "imageregion_httpcache_peer_hits_total": "counter",
+    "imageregion_httpcache_peer_fetches_total": "counter",
+    "imageregion_httpcache_peer_fallbacks_total": "counter",
+    "imageregion_httpcache_peer_putbacks_total": "counter",
+    "imageregion_fleet_members": "gauge",
+    "imageregion_fleet_members_healthy": "gauge",
+    "imageregion_fleet_member_depth": "gauge",
+    "imageregion_fleet_member_inflight": "gauge",
+    "imageregion_fleet_member_healthy": "gauge",
+    "imageregion_fleet_member_planes": "gauge",
+    "imageregion_fleet_routed_total": "counter",
+    "imageregion_fleet_stolen_total": "counter",
+    "imageregion_fleet_failed_over_total": "counter",
+    "imageregion_hotkey_promotions_total": "counter",
+    "imageregion_hotkey_demotions_total": "counter",
+    "imageregion_hotkey_replica_staged_total": "counter",
+    "imageregion_hotkey_duplicate_staged_total": "counter",
+    "imageregion_hotkey_balanced_total": "counter",
+    "imageregion_hotkey_hot_routes": "gauge",
+    "imageregion_hotkey_replica_pressure": "gauge",
+    "imageregion_drain_state": "gauge",
+    "imageregion_drain_transitions_total": "counter",
+    "imageregion_drain_prestaged_planes_total": "counter",
+    "imageregion_drains_total": "counter",
     "imageregion_workload_requests_total": "counter",
     "imageregion_pyramid_jobs_total": "counter",
     "imageregion_pyramid_jobs_active": "gauge",
@@ -2104,6 +2380,25 @@ METRIC_HELP: Dict[str, str] = {
         "HEAD requests answered headers-only without a render",
     "imageregion_httpcache_ims_requests_total":
         "If-Modified-Since-only revalidation arrivals (ETag absent)",
+    "imageregion_httpcache_peer_hits_total":
+        "Authority byte-probes answered resident (peer has the bytes)",
+    "imageregion_httpcache_peer_fetches_total":
+        "Renders avoided by fetching bytes from a fleet peer's tier",
+    "imageregion_httpcache_peer_fallbacks_total":
+        "Peer probe/fetch failures that fell back to the render path",
+    "imageregion_httpcache_peer_putbacks_total":
+        "Stolen-render bytes written back to the shard authority",
+    "imageregion_fleet_member_planes":
+        "HBM-resident plane entries owned by the member (shard size)",
+    "imageregion_fleet_stolen_total":
+        "Renders the member stole from a backlogged peer (no cache "
+        "adoption)",
+    "imageregion_fleet_failed_over_total":
+        "Dead-member shard work adopted hash-ring-next by the member",
+    "imageregion_drain_state":
+        "Fleet-member drain state (0 active, 1 draining, 2 drained)",
+    "imageregion_drain_prestaged_planes_total":
+        "Handoff planes pre-staged WARM onto ring successors by drains",
     "imageregion_workload_requests_total":
         "Device-workloads requests by kind (mask_device/mask_host = "
         "which rasterizer served the mask; overlay; animation)",
@@ -2291,8 +2586,42 @@ def resilience_metric_lines(breaker=None) -> List[str]:
               f"imageregion_supervisor_restarts_total {restarts}"]
     lines += RESILIENCE.attempts_hist.series("imageregion_retry_attempts")
     return (lines + PRESSURE.metric_lines() + WATCHDOG.metric_lines()
-            + DECISIONS.metric_lines() + WORKLOADS.metric_lines()
-            + WIRE.metric_lines())
+            + DRAIN.metric_lines() + DECISIONS.metric_lines()
+            + WORKLOADS.metric_lines() + WIRE.metric_lines())
+
+
+def fleet_metric_lines(router=None, single_flight=None) -> List[str]:
+    """The fleet's families (JAX ``fleet_metric_lines``): the routed,
+    stolen and failed-over counters and the hot-key families; the
+    fleet-wide single-flight table (it moves above the router, off the
+    services whose lines would carry it); and, with a live ``router``
+    (``parallel.fleet.FleetRouter``, duck-typed), the member count, the
+    healthy count and each member's depth, in-flight renders, health and
+    resident planes."""
+    lines = FLEET.metric_lines() + HOTKEY.metric_lines()
+    if single_flight is not None:
+        lines += [f"imageregion_singleflight_hits {single_flight.hits}",
+                  f"imageregion_singleflight_misses {single_flight.misses}",
+                  "imageregion_singleflight_inflight "
+                  f"{single_flight.inflight()}"]
+    if router is None:
+        return lines
+    lines += [f"imageregion_fleet_members {len(router.order)}",
+              "imageregion_fleet_members_healthy "
+              f"{len(router.healthy_members())}"]
+    for name in router.order:
+        member = router.members[name]
+        label = f'{{member="{name}"}}'
+        lines += [
+            f"imageregion_fleet_member_depth{label} "
+            f"{router.member_depth(name)}",
+            f"imageregion_fleet_member_inflight{label} "
+            f"{router.member_inflight(name)}",
+            f"imageregion_fleet_member_healthy{label} "
+            f"{1 if member.healthy else 0}",
+            f"imageregion_fleet_member_planes{label} "
+            f"{member.resident_planes()}"]
+    return lines
 
 
 def with_label(lines: List[str], label: str) -> List[str]:
@@ -2387,6 +2716,9 @@ def reset() -> None:
     WATCHDOG.reset()
     WIRE.reset()
     HTTPCACHE.reset()
+    FLEET.reset()
+    HOTKEY.reset()
+    DRAIN.reset()
     WORKLOADS.reset()
     SESSIONS.reset()
     PREFETCH.reset()

@@ -191,10 +191,13 @@ class CircuitBreaker:
 
 
 # Sidecar ops safe to send again to a peer that may or may not have run
-# the first: renders and probes are reads, ping and metrics repeatable.
-# plane_put changes the device cache and is not here.
+# the first: renders and probes are reads, ping and metrics repeatable,
+# the fleet's shard manifest and byte probe and fetch are reads, and a
+# second prestage is a residency hit.  plane_put, byte_put and
+# shard_transfer change a cache and are not here.
 IDEMPOTENT_OPS = frozenset({"image", "mask", "ping", "metrics",
-                            "plane_probe"})
+                            "plane_probe", "shard_manifest", "prestage",
+                            "byte_probe", "byte_fetch"})
 
 
 class RetryPolicy:

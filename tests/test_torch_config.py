@@ -129,12 +129,13 @@ def test_unported_defaults_are_the_jax_defaults():
 
 
 @pytest.mark.parametrize("raw, name", [
-    ({"fleet": {"enabled": True, "members": 2}}, "fleet.enabled"),
+    ({"federation": {"gossip-interval-s": 2.0}},
+     "federation.gossip-interval-s"),
     # Served sections refuse a key they do not know (the JAX loader
     # ignores it).
     ({"sessions": {"enabled": True, "enabled-for": "all"}},
      "sessions.enabled"),
-    ({"drain": {"fail-readyz": True}}, "drain.fail-readyz"),
+    ({"autoscaler": {"interval-s": 4.0}}, "autoscaler.interval-s"),
     ({"sidecar": {"role": "split", "socket": "/tmp/s", "workers": 2}},
      "sidecar.workers"),
     ({"renderer": {"kernel": "pallas"}}, "renderer.kernel"),
@@ -147,7 +148,7 @@ def test_unported_defaults_are_the_jax_defaults():
     ({"metadata-service": {"type": "postgres", "dsn": "postgres://h",
                            "pool-size": 8}},
      "metadata-service."),
-    ({"hotkey": {"threshold": 6.0}}, "hotkey.threshold"),
+    ({"parallel": {"chan-parallel": 2}}, "parallel.chan-parallel"),
     ({"wire": {"ring-bytes": 0, "compression": "lz4"}}, "wire.compression"),
     ({"loadmodel": {"viewers": 10}}, "loadmodel.viewers"),
     ({"workloads": {"unknown-key": 1}}, "workloads.unknown-key"),
@@ -177,6 +178,34 @@ def test_an_unported_setting_is_refused_by_name(raw, name):
     ({"qos": {"enabled": True, "bulk-cost": 2.5, "interactive-weight": 8}},
      None),
     ({"qos": {"bulk-cost": 0.5}}, "qos.bulk-cost must be >= 1"),
+    # The fleet, its hot-plane replication, its drains and the peer byte
+    # fetch.
+    ({"fleet": {"enabled": True, "members": 2}}, None),
+    ({"fleet": {"enabled": True, "members": 3, "lane-width": 1,
+                "steal-min-backlog": 0, "hash-replicas": 16,
+                "failover": False, "down-cooldown-s": 0.5}}, None),
+    ({"fleet": {"enabled": True, "sockets": ["/tmp/a.sock", "h:9"]},
+      "sidecar": {"role": "frontend"}}, None),
+    ({"fleet": {"enabled": True, "members": 1}},
+     "fleet.enabled requires members >= 2 or a fleet.sockets list"),
+    ({"fleet": {"lane-width": 0}}, "fleet.lane-width must be >= 1"),
+    ({"hotkey": {"threshold": 6.0}}, None),
+    ({"hotkey": {"enabled": True, "max-replicas": 3, "decay-s": 5,
+                 "top-k": 8, "demote-fraction": 0.25}}, None),
+    ({"hotkey": {"max-replicas": 1}}, "hotkey.max-replicas must be >= 2"),
+    ({"hotkey": {"demote-fraction": 1.0}},
+     "hotkey.demote-fraction must be in (0, 1)"),
+    ({"drain": {"fail-readyz": True}}, None),
+    ({"drain": {"prestage": False, "prestage-max-planes": 8,
+                "settle-timeout-s": 2}}, None),
+    ({"drain": {"settle-timeout-s": 0}},
+     "drain.settle-timeout-s must be > 0"),
+    ({"http-cache": {"peer-fetch": False, "peer-timeout-ms": 50}}, None),
+    ({"http-cache": {"peer-timeout-ms": 0}},
+     "http-cache.peer-timeout-ms must be > 0"),
+    ({"sidecar": {"role": "frontend"}},
+     "sidecar.role 'frontend' requires sidecar.socket (or an enabled "
+     "fleet.sockets list)"),
 ])
 def test_a_lifted_setting_loads_as_in_jax(raw, refused):
     """Each setting this port once refused loads in both loaders with the

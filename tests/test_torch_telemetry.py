@@ -161,8 +161,14 @@ def test_metrics_match_jax(data_dir):
     # sidecar client's breaker, retries and attempts, which only a
     # frontend has (tests/test_torch_sidecar.py); and the QoS sheds by
     # class, which only a session's fairness shed moves
-    # (tests/test_torch_growth.py), and dequeues, the fleet router's.
+    # (tests/test_torch_growth.py), and dequeues, the fleet router's; and
+    # the fleet's families, which only a fleet moves (its drain totals
+    # excepted: both apps always emit them), held to the JAX app's by
+    # tests/test_torch_fleet.py.
     assert {f for f, _ in port_fams} == set(types) - {
+        *(f for f in types if f.startswith(("imageregion_fleet_",
+                                            "imageregion_hotkey_"))),
+        "imageregion_drain_state", "imageregion_drain_transitions_total",
         "imageregion_breaker_state", "imageregion_breaker_opens_total",
         "imageregion_retries_total", "imageregion_retry_attempts",
         "imageregion_slo_burn_rate", "imageregion_slo_breach",

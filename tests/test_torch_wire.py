@@ -258,15 +258,17 @@ def test_jax_client_against_the_port_sidecar(data_dir, tmp_path):
 
 
 def test_port_sidecar_refuses_unknown_and_fleet_ops(data_dir, tmp_path):
-    """Ops the port does not serve (the fleet's) answer 400, as a JAX peer
-    answers an op it does not know; a malformed plane_put is a 400 too."""
+    """Ops the port does not serve (the federation's) answer 400, as a JAX
+    peer answers an op it does not know; a malformed plane_put is a 400
+    too."""
     sock = str(tmp_path / "ops.sock")
 
     async def body(services):
         client = sidecar.SidecarClient(sock)
         try:
             out = []
-            for op in ("shard_transfer", "byte_probe", "nonsense"):
+            for op in ("member_gossip", "epoch_propose", "partition",
+                       "nonsense"):
                 out.append((await client.call(op, {}))[0])
             status, err = await client.call(
                 "plane_put", {}, body=b"\0" * 10,
@@ -279,5 +281,5 @@ def test_port_sidecar_refuses_unknown_and_fleet_ops(data_dir, tmp_path):
 
     codes, ping = asyncio.run(_with_port_sidecar(_config(data_dir), sock,
                                                  body))
-    assert codes == [400, 400, 400, 400]
+    assert codes == [400, 400, 400, 400, 400]
     assert ping["ok"] and ping["prewarm_pending"] is False
