@@ -17,7 +17,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
            at once, and launches K10 at the cold-miss band shape and K1,
            K3, K4a and K4b at B = 1..8 while ``/readyz``
            answers 503 ``pending``, then 200 ``complete`` (the seconds to
-           ready, the prewarm's launches);
+           ready, the prewarm's launches); ``kernels/csrc/mesh.cu`` builds
+           beside them, one more nvcc started with them;
    build   the same builds again (found built) and each kernel's ptxas
            register and shared-memory lines;
 3. kernels each kernel against its plain PyTorch version at the flagship
@@ -347,6 +348,27 @@ Phases (any failure ends the run with a non-zero exit and no result line):
            prestage of its shard on m1; the drained tile again, answered
            by a peer ``byte_fetch`` from m0's byte tier; p50s and the
            sidecars' start time;
+5c. mesh   (a) K12a ``composite_partial`` and K12b ``composite_pack``
+           (``kernels/csrc/mesh.cu``, the mesh step's partial composite
+           and ordered pack) against their plain versions at B=8 and B=1,
+           C=4, 1024^2 uint16, the channels split as chan 1, 2 and 4 on
+           the one card (each shard's K12a on its slice, K12b over the
+           stacked partials in shard order): ramp, LUT, a reversed
+           channel (exact) and the curved families (K1's +-1); raw in f32
+           and u8; C=3 padded to 4 with inert channels and B=3 to 4; a
+           ragged 1000x1020 tile; each timed at chan 1 (and each shard's
+           K12a and K12b at chan 2 and 4) beside its bound and plain
+           version.  (b) The mesh app (``parallel: {enabled: true}``)
+           for the sparse and the Huffman engines, standalone and joined
+           to a process group of one (a free ``coordinator-address``,
+           ``num-processes: 1``: NCCL and gloo up, the collectives run on
+           the card): the 11 checked GETs twice and 16 cold tiles at 8 in
+           flight, every body byte-equal to the default app's (the
+           Huffman engine's tables pinned to the fixed ones, which the
+           mesh codes with, as JAX's); K12a and K12b launched, K1 and K2
+           not; cold and warm p50, tiles/s and the mean group size beside
+           ``e2e:``'s.  (c) Two ranks over NCCL are not run: NCCL refuses
+           two ranks on one GPU (a printed line says so);
 6. warm_restart two lives of
            ``python -m omero_ms_image_region_tpu_torch.server``
            from one YAML (``persistence: {enabled: true, dir: <tmp>}``,
@@ -372,10 +394,11 @@ Phases (any failure ends the run with a non-zero exit and no result line):
            median of 10,000, with the card's name and power limit.
 
 Each phase's launch counts are set to 0 just before it and read just
-after.  It prints the kernel table of all twelve kernels as one JSON line
-(``launches``: the batch burst for K1-K4b, the huffman phase for K5, the
-bitpack phase for K6, the workload phases for K7, K8a, K8b and K9, the
-e2e run's cold misses for K10; ``workload_launches``: each
+after.  It prints the kernel table of all fourteen kernels as one JSON
+line (``launches``: the batch burst for K1-K4b, the huffman phase for K5,
+the bitpack phase for K6, the workload phases for K7, K8a, K8b and K9, the
+e2e run's cold misses for K10, the mesh app's GETs for K12a and K12b;
+``workload_launches``: each
 kernel's launches in each of those phases, readers, pyramid, omero,
 prefetch, huffman, byte_cache, bitpack, growth, forensics, pressure and
 fleet included), then the
@@ -5206,7 +5229,7 @@ async def fleet_phase(torch, data_dir, lut_root, have_aiohttp, e2e,
         doc["phase_s"] = time.perf_counter() - t_phase
         print("fleet: " + json.dumps(doc), flush=True)
         return {"launches": launches, "bodies": cold_bodies,
-                "p50_ms": doc["p50_ms"]}
+                "p50_ms": doc["p50_ms"], "e2e": e2e}
     finally:
         await client.stop()
 
@@ -6008,6 +6031,381 @@ async def serve_phase(torch, np, data_dir, lut_root, have_aiohttp,
         await batcher.close()
 
 
+# ------------------------------------------------------------ mesh phase
+
+MESH_SOURCE = "omero_ms_image_region_tpu_torch/kernels/csrc/mesh.cu"
+MESH_REPLACES = {
+    "composite_partial": "omero_ms_image_region_tpu/parallel/mesh.py:227",
+    "composite_pack": "omero_ms_image_region_tpu/parallel/mesh.py:271"}
+MESH_NOTE = ("no single PyTorch call quantizes and composites a channel "
+             "slice, or sums partials in shard order and packs")
+
+
+def mesh_shards(R, raw, args, chan):
+    """K12a over each of ``chan`` channel slices of ``raw`` (the shards of
+    one mesh row), then K12b over the stacked partials, and the same by
+    the plain versions: (partials, plain partials, packed, plain packed)."""
+    C = raw.shape[1]
+    per = C // chan
+    parts = [R.composite_partial(raw, *args, c0=s * per, c1=(s + 1) * per)
+             for s in range(chan)]
+    plain = [R.composite_partial_plain(raw, *args, c0=s * per,
+                                       c1=(s + 1) * per)
+             for s in range(chan)]
+    import torch
+    stacked = torch.stack(parts)
+    return (stacked, torch.stack(plain), R.composite_pack(stacked),
+            R.composite_pack_plain(stacked))
+
+
+def mesh_bound(raw, chan: int, table):
+    """K12a's and K12b's least times at chan = ``chan``: bytes (the
+    shard's raw channels, settings and tables read once, the f32[3, B, H,
+    W] partial written once; the S partials read once, the packed words
+    written once) against f32 operations (~17 a pixel-channel; 3 S adds
+    and 12 to round, clip and pack a pixel)."""
+    B, C, H, W = raw.shape
+    px = B * H * W
+    cl = C // chan
+    part_bytes = (px * cl * raw.element_size() + px * 12 + B * cl * 4 * 5
+                  + table.numel() // chan * 4)
+    pack_bytes = chan * px * 12 + px * 4
+    return (bytes_bound(part_bytes, px * 17 * cl),
+            bytes_bound(pack_bytes, px * (3 * chan + 12)))
+
+
+def mesh_kernel_phase(torch, np):
+    """K12a (composite_partial) and K12b (composite_pack) against their
+    plain versions: B=8 and B=1 flagship tiles, C=4, 1024^2 u16, the
+    channels split as chan 1, 2 and 4; ramp and LUT; a reversed channel
+    and the curved families; raw in f32 and u8; C=3 padded to 4 with
+    inert channels; a ragged 1000x1020 tile; B=3 padded to 4 (data = 2).
+    Returns the two kernels' entries (timed at chan 1)."""
+    from omero_ms_image_region_tpu_torch.flagship import (
+        flagship_rdef, synthetic_wsi_tiles)
+    from omero_ms_image_region_tpu_torch.models.rendering import Family
+    from omero_ms_image_region_tpu_torch.ops import render as R
+    from omero_ms_image_region_tpu_torch.ops.lut import LutProvider
+    from omero_ms_image_region_tpu_torch.parallel.serve import _pad_group
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(12)
+    raw_np = synthetic_wsi_tiles(rng, 8, 4, TILE, TILE)
+    raw8 = R.raw_to_tensor(raw_np, dev)
+    luts = LutProvider()
+    luts.add("smoke.lut", smoke_lut(np))
+    lut = flagship_rdef(4)
+    lut.channel_bindings[1].lut = "smoke.lut"
+    families = flagship_rdef(4)
+    for cb, fam, k in zip(families.channel_bindings,
+                          (Family.LINEAR, Family.POLYNOMIAL,
+                           Family.LOGARITHMIC, Family.EXPONENTIAL),
+                          (1.0, 0.7, 1.0, 0.35)):
+        cb.family, cb.coefficient = fam, k
+    families.channel_bindings[1].reverse_intensity = True
+    reverse = flagship_rdef(4)
+    reverse.channel_bindings[2].reverse_intensity = True
+
+    def args_for(rdef, B, provider=None):
+        s = R.settings_to_tensors(R.pack_settings(rdef, provider), dev)
+        return R.batched_settings(s, B)
+
+    entries = {name: {
+        "name": name, "route": "cuda", "source": MESH_SOURCE,
+        "replaces": MESH_REPLACES[name], "max_abs_err": 0,
+        "mismatched_px": 0, "tolerance": 0, "library_ms": None,
+        "library_note": MESH_NOTE, "checks": 0}
+        for name in ("composite_partial", "composite_pack")}
+
+    def compare(label, raw, args, chan, tol=0):
+        """K12a on each of ``chan`` shards and K12b over them, against the
+        plain versions: the partials (exact unless ``tol``), K12b against
+        its plain version on the same partials (exact), and the kernels'
+        bytes against the plain chain's (within ``tol``: a curved family's
+        quantize may differ by one step, powf/logf/expf against
+        PyTorch's, K1's tolerance)."""
+        parts, plain, packed, plain_packed = mesh_shards(R, raw, args,
+                                                         chan)
+        chain = R.composite_pack_plain(plain)
+        torch.cuda.synchronize()
+        part_err = float((parts - plain).abs().max())
+        pack_err, pack_mism = byte_diff(packed, plain_packed)
+        chain_err, chain_mism = byte_diff(packed, chain)
+        print(f"check mesh {label} chan={chan} {list(raw.shape)}: partial "
+              f"max_abs_diff {part_err}, pack max_abs_diff {pack_err}, "
+              f"kernels against the plain chain {chain_err} "
+              f"({chain_mism} px; tolerance {tol})", flush=True)
+        check((part_err == 0 or tol > 0) and pack_err == 0
+              and chain_err <= tol,
+              f"mesh {label} chan={chan}: K12 disagrees with its plain "
+              f"versions (partial {part_err}, pack {pack_err}, chain "
+              f"{chain_err})")
+        a, b = entries["composite_partial"], entries["composite_pack"]
+        a["max_abs_err"] = max(a["max_abs_err"],
+                               part_err if tol == 0 else float(chain_err))
+        a["tolerance"] = max(a["tolerance"], tol)
+        a["mismatched_px"] += chain_mism
+        b["max_abs_err"] = max(b["max_abs_err"], pack_err)
+        b["mismatched_px"] += pack_mism
+        a["checks"] += 1
+        b["checks"] += 1
+        if chan == 1 and tol == 0:
+            # One shard is K1's composite: its plain version's bytes.
+            k1_err, _ = byte_diff(
+                packed, R.render_tile_batch_packed_plain(raw, *args))
+            check(k1_err == 0, f"mesh {label}: chan 1 differs from K1's "
+                               f"plain render by {k1_err}")
+        return packed
+
+    for B in (8, 1):
+        raw = raw8[:B].contiguous()
+        for label, rdef, provider, tol in (
+                ("ramp", flagship_rdef(4), None, 0),
+                ("lut", lut, luts, 0), ("reverse", reverse, None, 0),
+                ("families_reversed", families, None, 1)):
+            args = args_for(rdef, B, provider)
+            outs = [compare(f"{label} B={B}", raw, args, chan, tol)
+                    for chan in (1, 2, 4)]
+            if tol == 0:
+                # The shard order's sums: every split gives the same bytes
+                # on the flagship settings.
+                for o in outs[1:]:
+                    check(bool(torch.equal(o, outs[0])),
+                          f"mesh {label} B={B}: chan splits disagree")
+    args = args_for(flagship_rdef(4), 2)
+    f32 = (raw8[:2].view(torch.int16).to(torch.int32) & 0xFFFF).to(
+        torch.float32)
+    compare("raw f32 B=2", f32, args, 2)
+    u8 = (raw8[:2].view(torch.int16).to(torch.int32) & 0xFF).to(torch.uint8)
+    compare("raw u8 B=2", u8.contiguous(), args, 2)
+    # C=3 padded to 4 with inert channels, and B=3 padded to 4 (data=2),
+    # as the MeshRenderer pads a group.
+    s3 = R.pack_settings(flagship_rdef(3))
+    stacked = {k: np.stack([s3[k]] * 3) for k in (
+        "window_start", "window_end", "family", "coefficient", "reverse",
+        "tables")}
+    stacked.update(cd_start=int(s3["cd_start"]), cd_end=int(s3["cd_end"]))
+    raw3 = raw_np[:3, :3]
+    padded, st = _pad_group(raw3, stacked, 2, 2)
+    check(padded.shape == (4, 4, TILE, TILE), "mesh: the group was not "
+                                              "padded to (4, 4)")
+    pargs = (*(torch.from_numpy(st[k]).to(dev) for k in (
+        "window_start", "window_end", "family", "coefficient", "reverse")),
+        st["cd_start"], st["cd_end"], torch.from_numpy(st["tables"]).to(dev))
+    packed = compare("C=3->4 B=3->4", R.raw_to_tensor(padded, dev), pargs,
+                     2)
+    unpadded = R.render_tile_batch_packed_plain(
+        R.raw_to_tensor(np.ascontiguousarray(raw3), dev),
+        *(t[:3, :3] for t in pargs[:5]), st["cd_start"], st["cd_end"],
+        pargs[7][:3, :3])
+    check(bool(torch.equal(packed[:3], unpadded)),
+          "mesh: inert channels changed the composite")
+    ragged = R.raw_to_tensor(synthetic_wsi_tiles(rng, 2, 4, 1000, 1020),
+                             dev)
+    compare("ragged 1000x1020", ragged, args_for(flagship_rdef(4), 2), 2)
+
+    # Times at chan = 1 (the served posture on one card): the whole
+    # channel range in one K12a, then K12b over one shard.
+    for B, key in ((8, ""), (1, "b1_")):
+        raw = raw8[:B].contiguous()
+        args = args_for(flagship_rdef(4), B)
+        part = R.composite_partial(raw, *args)[None].contiguous()
+        (pb, pby), (kb, kby) = mesh_bound(raw, 1, args[-1])
+        timings = (
+            ("composite_partial",
+             lambda: R.composite_partial(raw, *args),
+             lambda: R.composite_partial_plain(raw, *args), pb, pby),
+            ("composite_pack", lambda: R.composite_pack(part),
+             lambda: R.composite_pack_plain(part), kb, kby))
+        for name, fn, plain, bnd, by in timings:
+            e = entries[name]
+            e[key + "ms"] = time_ms(torch, fn, 25)
+            e[key + "plain_ms"] = time_ms(torch, plain, 5)
+            e[key + "bound_ms"], e[key + "bound_by"] = bnd, by
+            e[key + "shape"] = list(raw.shape)
+    # And each shard's K12a at chan 2 and 4, B = 8.
+    raw = raw8
+    args = args_for(flagship_rdef(4), 8)
+    for chan in (2, 4):
+        per = 4 // chan
+        e = entries["composite_partial"]
+        e[f"chan{chan}_shard_ms"] = time_ms(
+            torch, lambda: R.composite_partial(raw, *args, c0=0, c1=per), 25)
+        e[f"chan{chan}_shard_bound_ms"] = mesh_bound(raw, chan,
+                                                     args[-1])[0][0]
+        parts = torch.stack([R.composite_partial(raw, *args, c0=s * per,
+                                                 c1=(s + 1) * per)
+                             for s in range(chan)])
+        e = entries["composite_pack"]
+        e[f"chan{chan}_ms"] = time_ms(torch,
+                                      lambda: R.composite_pack(parts), 25)
+        e[f"chan{chan}_bound_ms"] = mesh_bound(raw, chan, args[-1])[1][0]
+    for e in entries.values():
+        print(f"kernel {e['name']}: {e['ms']:.4f} ms at B=8 (bound "
+              f"{e['bound_ms']:.4f} ms by {e['bound_by']}, plain "
+              f"{e['plain_ms']:.3f} ms); {e['b1_ms']:.4f} ms at B=1 (bound "
+              f"{e['b1_bound_ms']:.4f})", flush=True)
+    return entries
+
+
+def mesh_config(data_dir, lut_root, engine, joined):
+    from omero_ms_image_region_tpu_torch.server.config import AppConfig
+    parallel = {"enabled": True}
+    if joined:
+        parallel.update({"coordinator-address": f"127.0.0.1:{free_port()}",
+                         "num-processes": 1, "process-id": 0})
+    return AppConfig.from_dict({
+        "data-dir": data_dir,
+        "omero.server": {"omero.script_repo_root": lut_root},
+        "raw-cache": {"prefetch": False},
+        "renderer": {"jpeg-engine": engine},
+        "parallel": parallel})
+
+
+async def mesh_serve_phase(torch, np, data_dir, lut_root, have_aiohttp,
+                           e2e: dict, smi: str) -> dict:
+    """``mesh:`` (b): the mesh app (``parallel: {enabled: true}``) for
+    the sparse and the Huffman engines, standalone and joined to a process
+    group of one (NCCL and gloo up, the collectives run): the 11 flagship
+    GETs, 16 cold JPEG tiles one at a time and again warm, and 16 other
+    cold tiles at 8 in flight, each body byte-equal to the default app's
+    for the same request; K12a and K12b launched, K1 and K2 not.  Returns
+    K12's launches over the four runs."""
+    import torch.distributed as dist
+    from omero_ms_image_region_tpu_torch.kernels import jpeg as KJ
+    from omero_ms_image_region_tpu_torch.kernels import mesh as KM
+    from omero_ms_image_region_tpu_torch.kernels import render as K
+    from omero_ms_image_region_tpu_torch.ops import jpegenc as J
+    from omero_ms_image_region_tpu_torch.parallel.serve import MeshRenderer
+    from omero_ms_image_region_tpu_torch.server.config import AppConfig
+
+    requests = requests_for(TILE)
+
+    def tiles(row):
+        return [("render_image_region",
+                 {"tile": f"0,{i % 8},{row + i // 8},{TILE},{TILE}",
+                  "c": CH, "m": "c", "format": "jpeg"}) for i in range(16)]
+    # 16 cold JPEG tiles one at a time (then again, warm: raw-cache hits)
+    # and 16 others at 8 in flight, as e2e: runs its tiles.
+    seq, burst = tiles(4), tiles(6)
+    # The Huffman wire of the mesh codes with the fixed tables (as JAX's
+    # mesh): the default app's workload tables are pinned to the fixed
+    # ones for the comparison, and restored after.
+    saved = dict(J._TUNED_TABLES)
+    for edge in (256, 512, 1024, 2048):
+        for q in (85, 90):
+            J._TUNED_TABLES[(edge, edge, q)] = None
+    launches = {"composite_partial": 0, "composite_pack": 0}
+    doc = {"card": smi, "runs": {}}
+    try:
+        for engine in ("sparse", "huffman"):
+            config = AppConfig.from_dict({
+                "data-dir": data_dir,
+                "omero.server": {"omero.script_repo_root": lut_root},
+                "raw-cache": {"prefetch": False},
+                "renderer": {"jpeg-engine": engine}})
+            client = Client(config, None, have_aiohttp)
+            await client.start()
+            try:
+                want = [(await client.request(*r))[2]
+                        for r in requests + seq + burst]
+            finally:
+                await client.stop()
+            for joined in (False, True):
+                label = f"{engine}_{'joined' if joined else 'standalone'}"
+                client = Client(mesh_config(data_dir, lut_root, engine,
+                                            joined), None, have_aiohttp)
+                await client.start()
+                try:
+                    renderer = client.app_front.services.renderer
+                    check(isinstance(renderer, MeshRenderer)
+                          and dist.is_initialized() == joined,
+                          f"mesh {label}: the app did not build a mesh "
+                          f"renderer ({type(renderer).__name__}, joined "
+                          f"{dist.is_initialized()})")
+                    K.reset_launches()
+                    KJ.reset_launches()
+                    KM.reset_launches()
+                    flagship = [await client.request(*r) for r in requests]
+                    cold = [await client.request(*r) for r in seq]
+                    warm = [await client.request(*r) for r in seq]
+                    stats = Batches(renderer)
+                    sem = asyncio.Semaphore(8)
+
+                    async def one(r):
+                        async with sem:
+                            return await client.request(*r)
+                    t0 = time.perf_counter()
+                    out = await asyncio.gather(*(one(r) for r in burst))
+                    wall = time.perf_counter() - t0
+                    groups = stats.report()
+                    got = flagship + cold + warm + out
+                    statuses = [r[0] for r in got]
+                    check(statuses == [200] * len(statuses),
+                          f"mesh {label}: not every GET answered 200: "
+                          f"{statuses}")
+                    n = len(requests)
+                    equal = [r[2] == w for r, w in zip(
+                        got, want[:n] + want[n:n + 16] * 2 + want[n + 16:])]
+                    check(all(equal),
+                          f"mesh {label}: bodies differ from the default "
+                          f"app's: {equal}")
+                    k1 = dict(K.LAUNCHES)
+                    k12 = dict(KM.LAUNCHES)
+                    wire = {k: KJ.LAUNCHES[k] for k in (
+                        "jpeg_coefficients", "sparse_pack", "huffman_pack",
+                        "compact_rows")}
+                    check(sum(k1.values()) == 0,
+                          f"mesh {label}: K1/K2 launched: {k1}")
+                    check(all(v >= 1 for v in k12.values()),
+                          f"mesh {label}: K12 not launched: {k12}")
+                    check(wire["jpeg_coefficients"] >= 1
+                          and wire["sparse_pack" if engine == "sparse"
+                                   else "huffman_pack"] >= 1,
+                          f"mesh {label}: the {engine} wire was not "
+                          f"launched: {wire}")
+                    for k, v in k12.items():
+                        launches[k] += v
+                    doc["runs"][label] = {
+                        "mesh": renderer.mesh.shape,
+                        "device": str(renderer.device),
+                        "joined": joined,
+                        "backend": (dist.get_backend() if joined else None),
+                        "gets": len(got),
+                        "bodies_equal_default_app": True,
+                        "flagship_p50_ms": statistics.median(
+                            ms for *_, ms in flagship),
+                        "cold_p50_ms": statistics.median(
+                            ms for *_, ms in cold),
+                        "warm_p50_ms": statistics.median(
+                            ms for *_, ms in warm),
+                        "burst_tiles_per_s": len(out) / wall,
+                        "burst_p50_ms": statistics.median(
+                            ms for *_, ms in out),
+                        "burst_mean_group_size": groups["mean_group_size"],
+                        "launches": k12, "k1_k2_launches": k1,
+                        "wire_launches": wire}
+                finally:
+                    await client.stop()
+                    if dist.is_initialized():
+                        dist.destroy_process_group()
+    finally:
+        J._TUNED_TABLES.clear()
+        J._TUNED_TABLES.update(saved)
+    doc["e2e_default_app"] = {
+        "sequential_p50_ms": e2e["sequential_p50_ms"],
+        "concurrent_p50_ms": e2e["concurrent_p50_ms"],
+        "concurrent_tiles_per_s": e2e["concurrent_tiles_per_s"],
+        "mean_group_size": e2e["mean_group_size"]}
+    doc["two_ranks"] = ("not measured: NCCL refuses two ranks on one GPU; "
+                        "a two-rank mesh over NCCL waits for a four-chip "
+                        "cell (the gloo pod runs in tests/test_torch_pod.py)")
+    print("mesh: " + json.dumps(doc), flush=True)
+    print("mesh: two ranks over NCCL not run: NCCL refuses two ranks on "
+          "one GPU (a four-chip cell's)", flush=True)
+    return launches
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -6019,6 +6417,7 @@ def main() -> int:
     from omero_ms_image_region_tpu_torch import native
     from omero_ms_image_region_tpu_torch.kernels import build
     from omero_ms_image_region_tpu_torch.kernels import jpeg as KJ
+    from omero_ms_image_region_tpu_torch.kernels import mesh as KM
     from omero_ms_image_region_tpu_torch.kernels import render as K
     from omero_ms_image_region_tpu_torch.kernels import staging as KS
     from omero_ms_image_region_tpu_torch.kernels import workloads as KW
@@ -6039,9 +6438,17 @@ def main() -> int:
 
     # 2. readyz: a fresh app's startup prewarm does the builds (one nvcc
     # per CUDA source, g++ for the codecs) and the first launches behind
-    # /readyz; then the build step below finds everything built.
-    asyncio.run(readyz_phase(have_aiohttp))
+    # /readyz; then the build step below finds everything built.  The mesh
+    # kernels, which the prewarm does not build (the default app never
+    # runs them), build beside it, one more nvcc started at once.
     import concurrent.futures as cf
+
+    mesh_pool = cf.ThreadPoolExecutor(1)
+    mesh_built = mesh_pool.submit(build.build_all,
+                                  [(KM.SOURCE, KM.NVCC_FLAGS)])
+    asyncio.run(readyz_phase(have_aiohttp))
+    mesh_built.result()
+    mesh_pool.shutdown()
 
     t0 = time.perf_counter()
     with cf.ThreadPoolExecutor(2) as pool:
@@ -6049,12 +6456,14 @@ def main() -> int:
         build.build_all([(K.SOURCE, K.NVCC_FLAGS),
                          (KJ.SOURCE, KJ.NVCC_FLAGS),
                          (KW.SOURCE, KW.NVCC_FLAGS),
-                         (KS.SOURCE, KS.NVCC_FLAGS)])
+                         (KS.SOURCE, KS.NVCC_FLAGS),
+                         (KM.SOURCE, KM.NVCC_FLAGS)])
         host.result()
     K.library()
     KJ.library()
     KW.library()
     KS.library()
+    KM.library()
     native.library()
     native.decoder_library()
     native.bitops_library()
@@ -6063,8 +6472,8 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.2f} s after the prewarm's "
           f"builds (render.cu, jpeg.cu, workloads.cu, staging.cu; "
           f"native/jpegenc.cpp, jpegdec.cpp, tilecache.cpp, jp2kt1.cpp, "
-          f"wirepack.cpp)", flush=True)
-    for source in (K.SOURCE, KJ.SOURCE, KW.SOURCE, KS.SOURCE):
+          f"wirepack.cpp; mesh.cu beside them)", flush=True)
+    for source in (K.SOURCE, KJ.SOURCE, KW.SOURCE, KS.SOURCE, KM.SOURCE):
         for line in build.build_log(source.name).splitlines():
             if ("registers" in line or "Compiling entry" in line
                     or "spill" in line):
@@ -6107,6 +6516,14 @@ def main() -> int:
                         have_pil))
         sidecar_phase(torch, np, data_dir, lut_root, have_aiohttp, smi)
         fleet_sidecars_phase(data_dir, lut_root, smi, fleet)
+        # mesh: K12 against its plain versions, then the mesh app.
+        t_mesh = time.perf_counter()
+        mesh_entries = mesh_kernel_phase(torch, np)
+        torch.cuda.empty_cache()
+        mesh_launches = asyncio.run(mesh_serve_phase(
+            torch, np, data_dir, lut_root, have_aiohttp, fleet["e2e"], smi))
+        print(f"mesh: phase {time.perf_counter() - t_mesh:.1f} s",
+              flush=True)
         warm_restart_phase(torch, np, data_dir, lut_root, have_pil, smi)
     front_cost_phase(smi)
 
@@ -6139,12 +6556,16 @@ def main() -> int:
         check(e["launches"] >= 1, f"{name} was not launched by the cold "
                                   f"misses of the e2e run")
     entries.update(staging_entries)
+    # K12's path is the mesh app's GETs (the four runs of mesh:).
+    for name, e in mesh_entries.items():
+        e["launches"] = mesh_launches[name]
+    entries.update(mesh_entries)
     for name, e in entries.items():
-        e["workload_launches"] = {phase: p[name] for phase, p in
+        e["workload_launches"] = {phase: p.get(name, 0) for phase, p in
                                   workload_launches.items()}
         e["card"], e["power_limit"] = [s.strip() for s in smi.split(",")]
-    check(len(entries) == 12, f"the kernel line lists {len(entries)} "
-                              f"kernels, not 12")
+    check(len(entries) == 14, f"the kernel line lists {len(entries)} "
+                              f"kernels, not 14")
     print(json.dumps({"kernels": list(entries.values())}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -3,7 +3,8 @@ module of the port uses.
 
 A source under ``csrc/`` with a plain ``extern "C"`` interface is compiled
 by ``nvcc`` for ``sm_90a`` into ``_build/`` beside this file, once per
-(source bytes, flags): an edited source or a changed flag rebuilds, and
+(source bytes, the bytes of the local headers it includes, flags): an
+edited source or header or a changed flag rebuilds, and
 concurrent builds agree (each process and thread writes a private file
 and renames it into place).  The library is loaded with ``ctypes``.  A
 missing ``nvcc`` or a failed build raises; nothing falls back.
@@ -62,6 +63,23 @@ def nvcc() -> str:
                        "CUDA kernels are built from source on first use")
 
 
+def _source_bytes(source: Path, seen=None) -> bytes:
+    """``source``'s bytes followed by those of each local header it
+    includes (``#include "name"``, beside it), recursively, each once."""
+    seen = set() if seen is None else seen
+    seen.add(source)
+    data = source.read_bytes()
+    out = data
+    for line in data.decode("utf-8", "replace").splitlines():
+        line = line.strip()
+        if not (line.startswith("#include") and '"' in line):
+            continue
+        header = source.parent / line.split('"')[1]
+        if header not in seen and header.exists():
+            out += _source_bytes(header, seen)
+    return out
+
+
 def build(source: Path, flags: Sequence[str]) -> Tuple[Path, str]:
     """Compile ``source`` into ``_build/`` unless a library of the same
     source and flags is there; returns its path and the compiler's output
@@ -69,7 +87,7 @@ def build(source: Path, flags: Sequence[str]) -> Tuple[Path, str]:
     library was already built or came from the build store)."""
     flags = tuple(flags)
     tag = hashlib.sha256(
-        source.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
+        _source_bytes(source) + " ".join(flags).encode()).hexdigest()[:16]
     lib = BUILD_DIR / f"lib{source.stem}_{tag}.so"
     store = _store
     if lib.exists():

@@ -254,6 +254,77 @@ def render_tile_batch_packed_plain(raw, window_start, window_end, family,
     return composite_packed(q, tables)
 
 
+# ------------------------------------- the mesh step's composite (K12)
+
+def composite_partial_plain(raw, window_start, window_end, family,
+                            coefficient, reverse, cd_start, cd_end, tables,
+                            c0: int = 0, c1=None):
+    """Plain PyTorch K12a on any device: one chan shard's partial
+    composite.  raw [B, C, H, W] with per-tile [B, C] settings and f32[B,
+    C, 3] ramp weights or f32[B, C, 256, 3] tables -> f32[3, B, H, W], the
+    sum over the channels ``[c0, c1)`` (default all) in channel order of
+    each channel's weighted or looked-up contribution, each product and
+    add rounded on its own.  The quantized value is
+    :func:`quantize_tiles`' (``ops.quantum``, reversed, clipped to
+    0..255), K1's.  The JAX package's ``_local_render_batched``."""
+    B, C, H, W = raw.shape
+    c1 = C if c1 is None else c1
+    part = slice(c0, c1)
+    q = quantize_tiles(raw[:, part], window_start[:, part],
+                       window_end[:, part], family[:, part],
+                       coefficient[:, part], reverse[:, part], cd_start,
+                       cd_end)
+    acc = torch.zeros((B, 3, H, W), dtype=torch.float32, device=raw.device)
+    if tables.dim() == 3:
+        for k, c in enumerate(range(c0, c1)):
+            acc = acc + q[:, k, None] * tables[:, c, :, None, None]
+    else:
+        idx = q.to(torch.int64).reshape(B, c1 - c0, H * W)
+        for k, c in enumerate(range(c0, c1)):
+            rgb = torch.stack([
+                torch.gather(tables[:, c, :, comp], 1, idx[:, k])
+                for comp in range(3)], dim=1)          # [B, 3, H*W]
+            acc = acc + rgb.reshape(B, 3, H, W)
+    return acc.permute(1, 0, 2, 3).contiguous()
+
+
+def composite_pack_plain(partials):
+    """Plain PyTorch K12b: the all-gathered partials f32[S, 3, B, H, W]
+    summed in shard order (s = 0, 1, ...), rounded half to even, clipped
+    and packed -> i32[B, H, W] (the ``psum`` and pack of the JAX
+    ``_composite_step_batched``)."""
+    acc = partials[0]
+    for s in range(1, partials.shape[0]):
+        acc = acc + partials[s]
+    return _pack_u32(acc[0], acc[1], acc[2])
+
+
+def composite_partial(raw, window_start, window_end, family, coefficient,
+                      reverse, cd_start, cd_end, tables, c0: int = 0,
+                      c1=None):
+    """K12a dispatcher: :func:`composite_partial_plain` for a CPU tensor,
+    the kernel (``kernels.mesh.composite_partial``) for a CUDA tensor."""
+    if raw.device.type == "cpu":
+        return composite_partial_plain(raw, window_start, window_end,
+                                       family, coefficient, reverse,
+                                       cd_start, cd_end, tables, c0, c1)
+    from ..kernels import mesh as kernels
+
+    return kernels.composite_partial(raw, window_start, window_end, family,
+                                     coefficient, reverse, cd_start, cd_end,
+                                     tables, c0, c1)
+
+
+def composite_pack(partials):
+    """K12b dispatcher: :func:`composite_pack_plain` for a CPU tensor, the
+    kernel (``kernels.mesh.composite_pack``) for a CUDA tensor."""
+    if partials.device.type == "cpu":
+        return composite_pack_plain(partials)
+    from ..kernels import mesh as kernels
+
+    return kernels.composite_pack(partials)
+
+
 def render_tile_batch_packed(raw, window_start, window_end, family,
                              coefficient, reverse, cd_start, cd_end,
                              tables):

@@ -1,9 +1,11 @@
-"""Serving across several members: the consistent-hash fleet.
+"""Serving across several members and devices.
 
-Counterpart of the JAX package's ``parallel/``.  :mod:`.fleet` is the
-router (``FleetRouter``) over in-process members (``LocalMember``, each
-with its own renderer and raw cache on its ``torch.device``) and render
-sidecars (``RemoteMember``).  The multi-device mesh (``parallel/mesh.py``,
-``serve.py``, ``cluster.py``) and the federation (``federation.py``) are
-not ported yet (ROADMAP Queue 1 items 5 and 6).
+Counterpart of the JAX package's ``parallel/``: :mod:`.fleet`, the
+consistent-hash router (``FleetRouter``) over in-process members
+(``LocalMember``) and render sidecars (``RemoteMember``); :mod:`.cluster`,
+joining ``torch.distributed`` (one process per GPU); :mod:`.mesh`, the
+``(data, chan)`` mesh and its sharded steps (K12); and :mod:`.serve`, the
+``MeshRenderer`` of the ``parallel.enabled`` posture, its pod channel and
+the ``--role pod-worker`` loop.  Only the federation (``federation.py``)
+is not ported yet (ROADMAP Queue 1 item 5).
 """

@@ -1546,7 +1546,12 @@ def build_local_members(config, base_services, n: int,
     first device becomes ``pin_device`` and the renderer's and raw cache's
     device.  With none, every member takes the base renderer's device (the
     app's), as JAX's members take the process default device.  Member-level
-    single-flight and admission are off: both live above the router."""
+    single-flight and admission are off: both live above the router.
+
+    A ``lockstep`` member-0 renderer (``parallel.serve.MeshRenderer``)
+    spans its whole mesh and is never pinned narrower; beside a mesh the
+    other members render with the direct ``Renderer``, never a batcher
+    (JAX ``:2518-2535``)."""
     import torch
 
     from ..io.devicecache import DeviceRawCache
@@ -1561,7 +1566,9 @@ def build_local_members(config, base_services, n: int,
 
     cooldown = config.fleet.down_cooldown_s
     base_device = base_services.renderer.device
-    base_services.pin_device = (devices_for(0)[0] if devices_for(0)
+    lockstep = getattr(base_services.renderer, "lockstep", False)
+    base_services.pin_device = (devices_for(0)[0]
+                                if devices_for(0) and not lockstep
                                 else None)
     if base_services.pin_device is not None:
         base_services.renderer.device = base_services.pin_device
@@ -1573,7 +1580,7 @@ def build_local_members(config, base_services, n: int,
     for i in range(1, n):
         device = devices_for(i)[0] if devices_for(i) else base_device
         base_engine = getattr(base_services.renderer, "jpeg_engine", None)
-        if b.enabled:
+        if b.enabled and not config.parallel.enabled:
             renderer = BatchingRenderer(
                 device, max_batch=b.max_batch, linger_ms=b.linger_ms,
                 pipeline_depth=b.pipeline_depth,

@@ -17,7 +17,13 @@ before the services close.
 * ``split``: spawn a ``sidecar`` child (with this command's ``--config``,
   ``--data-dir``, ``--lut-root`` and ``--device``), kept alive by the
   supervisor (``fault-tolerance.supervise``, on by default), then serve
-  as its frontend.
+  as its frontend;
+* ``pod-worker``: a rank other than 0 of a mesh pod (``parallel.enabled``
+  with its ``process-id``; JAX ``:2671-2694``): joins the process group,
+  builds the global mesh (one GPU a rank), resolves ``jpeg-engine: auto``
+  with the pod, and replays the leader's group dispatches
+  (``parallel.serve.run_pod_follower``) until the leader announces its
+  shutdown.  It answers no HTTP.
 """
 
 from __future__ import annotations
@@ -50,9 +56,12 @@ def _parse(argv=None):
                         help="time budget of a render request; a request "
                              "over it gets a 504 (0: unbounded)")
     parser.add_argument("--role",
-                        choices=["combined", "frontend", "sidecar", "split"],
+                        choices=["combined", "frontend", "sidecar", "split",
+                                 "pod-worker"],
                         help="process role of the frontend/sidecar split "
-                             "(sidecar.role in the config)")
+                             "(sidecar.role in the config); pod-worker: a "
+                             "non-leader rank of a mesh pod (replays the "
+                             "leader's group dispatches)")
     parser.add_argument("--sidecar-socket",
                         help="the sidecar's address: a unix socket path, or "
                              "host:port for TCP (a private interface: the "
@@ -70,6 +79,16 @@ def _parse(argv=None):
         config.fault_tolerance.request_deadline_ms = args.request_deadline_ms
     if args.sidecar_socket is not None:
         config.sidecar.socket = args.sidecar_socket
+    if args.role == "pod-worker":
+        if not config.parallel.enabled:
+            parser.error("--role pod-worker requires parallel.enabled")
+        if config.parallel.process_id == 0:
+            # The pod channel broadcasts from rank 0: a follower there
+            # would read its own zeros as a shutdown and leave the real
+            # leader waiting.
+            parser.error("--role pod-worker must not be process-id 0 "
+                         "(process 0 is the serving leader)")
+        return config, args.device, args
     if args.role is not None:
         config.sidecar.role = args.role
     if (config.sidecar.role != "combined" and not config.sidecar.socket
@@ -87,6 +106,9 @@ def main(argv=None) -> None:
 
     config, device, args = _parse(argv)
     configure_logging(config)
+    if args.role == "pod-worker":
+        pod_worker(config, device)
+        return
     if config.sidecar.role == "sidecar":
         from .sidecar import sidecar_main
         sidecar_main(config, device)
@@ -120,6 +142,25 @@ def main(argv=None) -> None:
                 child.wait(timeout=15)
             except Exception:
                 child.kill()
+
+
+def pod_worker(config, device: str = "cuda") -> int:
+    """A follower rank of a mesh pod: join, build the mesh, resolve the
+    engine with the pod, replay the leader's groups; returns the number
+    of groups served."""
+    from ..parallel import cluster
+    from ..parallel.serve import run_pod_follower
+
+    p = config.parallel
+    cluster.initialize(p.coordinator_address, p.num_processes,
+                       p.process_id, device=device)
+    mesh = cluster.global_mesh(chan_parallel=p.chan_parallel,
+                               n_devices=p.n_devices, device=device)
+    engine = config.renderer.jpeg_engine
+    if engine == "auto":
+        from ..utils.linkprobe import resolve_auto_engine
+        engine = resolve_auto_engine(mesh.device)   # the pod's choice
+    return run_pod_follower(mesh, jpeg_engine=engine)
 
 
 if __name__ == "__main__":

@@ -169,6 +169,16 @@ there) has it:
   the mask's ring authority's byte tier before a render (remote members
   only).  The frontend's ``/debug/*`` ride member 0's sidecar; merging
   every member's rings waits for the federation, as its fleet probes do.
+* **Mesh serving** (``parallel.enabled``; ``parallel.serve``, JAX
+  ``:170-233``): :func:`build_mesh_renderer` joins the process group of
+  the ``parallel`` section (``parallel.cluster``: one process per GPU,
+  rank 0 the leader, the others ``--role pod-worker``), builds the global
+  ``(data, chan)`` mesh and serves every group through a
+  ``MeshRenderer`` (K12a, K12b, then K3 and K4a or K5); no startup
+  prewarm for it, as in JAX.  The build store keeps serving K12's
+  library: JAX keeps its mesh programs out of its executable cache
+  because serialized XLA programs are bound to a topology, and the
+  port's libraries are not.
 
 :class:`Front` holds all of it without aiohttp, so a caller can drive the
 route without a socket; :func:`create_app` puts it behind aiohttp, which is
@@ -331,7 +341,11 @@ def build_services(config: AppConfig,
             execcache.install(store)
     b = config.batcher
     engine = config.renderer.jpeg_engine
-    if b.enabled:
+    if config.parallel.enabled:
+        renderer = build_mesh_renderer(config, device)
+        # The raw cache and the prefetcher stage onto the leader's GPU.
+        device = renderer.device
+    elif b.enabled:
         controller = None
         if engine == "auto":
             # The startup probe picks the opening engine; the controller
@@ -363,8 +377,14 @@ def build_services(config: AppConfig,
         if engine == "auto":
             engine = linkprobe.resolve_auto_engine(device)
         renderer = Renderer(device, jpeg_engine=engine)
+    # The build store also keeps the mesh kernels' library: JAX keeps its
+    # mesh programs out of its executable cache because they are bound to
+    # a topology, and a K12 library is not.
     renderer.exec_cache = store
-    if config.renderer.prewarm and b.enabled:
+    if (config.renderer.prewarm and b.enabled
+            and not config.parallel.enabled):
+        # Not the mesh renderer, as in JAX: its first groups build and
+        # launch K12.
         start_prewarm(config, renderer, device)
     rc, ft, se = config.raw_cache, config.fault_tolerance, config.sessions
     raw_cache = (DeviceRawCache(rc.max_bytes, device=device,
@@ -418,6 +438,54 @@ def build_services(config: AppConfig,
             rehydrate_concurrency=persistence.rehydrate_concurrency)
         services.warmstate.start(rehydrate=persistence.rehydrate)
     return services
+
+
+def build_mesh_renderer(config: AppConfig,
+                        device: Union[str, torch.device] = "cuda"):
+    """The mesh posture's renderer (JAX ``create_app`` ``:170-233``): join
+    the process group of ``parallel`` (``parallel.cluster``), disarm
+    fault injection on a pod, refuse a process other than rank 0 (the
+    others run ``--role pod-worker``), build the global mesh and, under
+    ``jpeg-engine: auto``, resolve the opening engine with the pod (every
+    rank joins the probe's all-gather) and keep it live with an
+    ``AdaptiveEngine`` fed by the wire fetches."""
+    from ..parallel import cluster
+    from ..parallel.serve import MeshRenderer
+
+    p, b = config.parallel, config.batcher
+    cluster.initialize(p.coordinator_address, p.num_processes,
+                       p.process_id, device=device)
+    if cluster.world_size() > 1:
+        if faultinject.active() is not None:
+            # Chaos on one rank would stall or fail its lockstep sequence
+            # only; the config refuses a seed with an explicit pod, this
+            # disarms a pod joined from the environment.
+            log.warning("multi-process pod: disarming fault injection "
+                        "(it would break the pod's lockstep)")
+            faultinject.uninstall()
+        if cluster.rank() != 0:
+            raise ValueError(
+                "mesh-serving leader must be process 0 of the pod; run "
+                "the other processes with --role pod-worker")
+    mesh = cluster.global_mesh(chan_parallel=p.chan_parallel,
+                               n_devices=p.n_devices, device=device)
+    engine = config.renderer.jpeg_engine
+    controller = None
+    if engine == "auto":
+        engine = linkprobe.resolve_auto_engine(mesh.device)
+        controller = AdaptiveEngine(initial_engine=engine)
+        set_fetch_observer(controller.observe_fetch)
+    log.info("mesh serving enabled: %s on %s (jpeg engine %s%s)",
+             mesh.shape, mesh.device, engine,
+             ", live" if controller is not None else "")
+    renderer = MeshRenderer(mesh, max_batch=b.max_batch,
+                            max_batch_limit=b.max_batch_limit,
+                            linger_ms=b.linger_ms, jpeg_engine=engine,
+                            pipeline_depth=b.pipeline_depth,
+                            engine_controller=controller,
+                            device_lanes=b.device_lanes)
+    renderer.first_tile_out = config.wire.streaming
+    return renderer
 
 
 def session_buckets(config: AppConfig) -> Optional[SessionTokenBuckets]:

@@ -82,6 +82,12 @@ The pressure governor's ``cap_lanes`` (:meth:`BatchingRenderer
 .set_lane_cap`): at most ``cap`` groups hold a device lane at once; a
 capped lane takes no new group, and groups already on a stream finish.
 
+The lockstep hooks of JAX's batcher (``_growth_enabled``,
+``_shared_slots``, ``_deadline_drop_enabled``), which the mesh renderer of
+a multi-process pod sets (``parallel.serve.MeshRenderer``), and
+:meth:`BatchingRenderer._group_arrays`, the group's planes and settings
+stacked on the host (or on the card when a member is there) for it.
+
 Left out (ROADMAP Queue 1): the executable cache (the build store keeps
 the built libraries instead).
 """
@@ -298,6 +304,16 @@ class BatchingRenderer:
         # resolves as soon as its own tile is coded; off, a group's
         # requests settle together at its barrier.  The bytes are the same.
         self.first_tile_out = True
+        # The lockstep hooks (JAX ``:199-233``), which a mesh renderer on a
+        # pod sets (parallel.serve.MeshRenderer): no queue-pressure growth
+        # or backlog split from host-local timing (the pod launches the
+        # configured batch only); one launch slot shared by every key (a
+        # Semaphore(1), made anew for each event loop in _bind); and the
+        # deadline drop at dispatch pop, which stays on, since it happens
+        # on the leader before a group is announced.
+        self._growth_enabled = True
+        self._shared_slots: Optional[asyncio.Semaphore] = None
+        self._deadline_drop_enabled = True
 
     def _count_batch(self, tiles: int) -> None:
         with self._stats_lock:
@@ -461,6 +477,8 @@ class BatchingRenderer:
             raise RuntimeError("BatchingRenderer is serving another "
                                "running event loop")
         self._loop = loop
+        if self._shared_slots is not None:
+            self._shared_slots = asyncio.Semaphore(1)
         self._queues.clear()
         self._dispatchers.clear()
         self._wakeups.clear()
@@ -519,7 +537,7 @@ class BatchingRenderer:
         telemetry.clear_context()
         queue_ = self._queues[key]
         wakeup = self._wakeups[key]
-        slots = asyncio.Semaphore(self.pipeline_depth)
+        slots = self._shared_slots or asyncio.Semaphore(self.pipeline_depth)
         while True:
             if not queue_:
                 wakeup.clear()
@@ -545,7 +563,8 @@ class BatchingRenderer:
                 if p.future.done():
                     dead.append(p)    # the waiter went away while queued
                     continue
-                if p.deadline is not None and now >= p.deadline:
+                if (self._deadline_drop_enabled and p.deadline is not None
+                        and now >= p.deadline):
                     telemetry.RESILIENCE.count_deadline_cancelled()
                     p.future.set_exception(transient.DeadlineExceededError(
                         "deadline exceeded in batch queue"))
@@ -582,7 +601,10 @@ class BatchingRenderer:
         """Queue-pressure growth: a full group that still leaves a queue
         extends its key's streak; after :attr:`GROW_STREAK` of them the
         batch doubles (up to ``max_batch_limit``) and the streak starts
-        over.  Any other group resets the key's streak."""
+        over.  Any other group resets the key's streak.  Off on a pod
+        (``_growth_enabled``)."""
+        if not self._growth_enabled:
+            return
         if taken == self.max_batch and backlog:
             streak = self._full_streaks.get(key, 0) + 1
             if (streak >= self.GROW_STREAK
@@ -597,8 +619,10 @@ class BatchingRenderer:
     def _pop_size(self, qlen: int) -> int:
         """How many requests the next group takes: ``max_batch``, or with
         ``target_inflight`` above 1 and more than a batch queued, the
-        backlog split evenly across the streams not yet in flight."""
-        if self.target_inflight <= 1 or qlen <= self.max_batch:
+        backlog split evenly across the streams not yet in flight (not on
+        a pod: group sizes there must not follow host-local timing)."""
+        if (not self._growth_enabled or self.target_inflight <= 1
+                or qlen <= self.max_batch):
             return self.max_batch
         open_streams = max(1, self.target_inflight - len(self._inflight))
         return max(1, min(self.max_batch, -(-qlen // open_streams)))
@@ -705,6 +729,42 @@ class BatchingRenderer:
             telemetry.add_costs(fields)
             return raw
         return device_half
+
+    def _group_arrays(self, group: List[_Pending]):
+        """The group's planes mirrored and edge-padded to its bucket, and
+        a stacker of its settings (the JAX ``_group_arrays``, without its
+        batch padding): ``(raw, stack)``, ``raw`` a numpy [n, C, bh, bw]
+        in the storage dtype when every member is on the host, else a
+        tensor on this renderer's device; ``stack(name)`` the members'
+        settings ``name`` stacked along a new leading axis."""
+        bh, bw = group[0].bucket
+        if all(isinstance(p.raw, np.ndarray) for p in group):
+            raw = np.empty((len(group), group[0].raw.shape[0], bh, bw),
+                           storage_dtype(group[0].raw.dtype))
+            for j, p in enumerate(group):
+                pad_planes_to_mcu(p.raw, bh, bw, p.flip_h, p.flip_v,
+                                  out=raw[j])
+        else:
+            parts = []
+            for p in group:
+                if isinstance(p.raw, np.ndarray):
+                    t = torch.from_numpy(np.ascontiguousarray(
+                        pad_planes_to_mcu(p.raw, bh, bw, p.flip_h, p.flip_v)
+                        .astype(storage_dtype(p.raw.dtype), copy=False)))
+                    t = _as_storage(t).to(self.device)
+                else:
+                    t = _as_storage(pad_planes_to_mcu(
+                        use_on_current_stream(p.raw), bh, bw, p.flip_h,
+                        p.flip_v))
+                parts.append(t)
+            raw = torch.stack(parts)
+            if _dtype_name(group[0].raw) == "uint16":
+                raw = raw.view(torch.uint16)
+
+        def stack(name):
+            return np.stack([p.settings[name] for p in group])
+
+        return raw, stack
 
     def _group_raw(self, group: List[_Pending],
                    staged: Optional[HostPlanes]) -> torch.Tensor:

@@ -98,9 +98,18 @@ One default differs on purpose: ``raw-cache.digest-dedup`` is off unless
 the file sets it.  The dedup cost a cold GET 19-20 ms on the H100 and saved
 no copy (PERF.md, ROADMAP Queue 1 item 9).
 
-The federation, the multi-device mesh, the load model and the autoscaler
-(``federation``, ``parallel``, ``loadmodel``, ``autoscaler``) are not
-served: set away from the JAX default, each is refused by name.
+* mesh serving (``parallel.mesh``, ``parallel.serve``): ``parallel``
+  (``enabled``, ``chan-parallel``, ``n-devices``, ``coordinator-address``,
+  ``num-processes``, ``process-id``) as the JAX loader reads it, with its
+  errors: ``chan-parallel`` below 1, a coordinator without
+  ``num-processes``, ``bitpack`` with ``parallel.enabled`` and
+  ``fault-injection.seed`` with a multi-process ``parallel`` section.  A
+  position is one process with one GPU (``parallel.cluster``): an
+  ``n-devices`` other than the world size fails at startup, by name.
+
+The federation, the load model and the autoscaler (``federation``,
+``loadmodel``, ``autoscaler``) are not served: set away from the JAX
+default, each is refused by name.
 
 Everything else is read and checked against the JAX default.  A section
 that is switched off (``enabled: false``) is inert.  A boolean set from
@@ -336,6 +345,24 @@ class FleetConfig:
 
 
 @dataclass
+class ParallelConfig:
+    """Mesh-sharded serving (``parallel.serve``): every coalesced group
+    through a ``(data, chan)`` mesh of processes, one GPU each; tiles
+    data-parallel, channels tensor-parallel (K12)."""
+
+    enabled: bool = False
+    chan_parallel: int = 1
+    # None: the world size.  One process per position, so any other value
+    # is refused at startup.
+    n_devices: Optional[int] = None
+    # The tcp:// init (host:port), world size and rank of a pod; None: the
+    # torch.distributed environment, or standalone.
+    coordinator_address: Optional[str] = None
+    num_processes: Optional[int] = None
+    process_id: Optional[int] = None
+
+
+@dataclass
 class HotkeyConfig:
     """Hot-plane replication: a route whose decayed heat passes
     ``threshold`` gets a replica set, a prefix of its ring chain, and
@@ -477,11 +504,6 @@ _UNPORTED = {
         "hash-replicas": 64, "gossip-interval-s": 5.0, "quorum": False,
         "suspect-after-s": 10.0, "roll-ack-timeout-s": 5.0, "members": (),
     },
-    "parallel": {
-        "enabled": False, "chan-parallel": 1, "n-devices": None,
-        "coordinator-address": None, "num-processes": None,
-        "process-id": None,
-    },
     "loadmodel": {
         "seed": 1234, "viewers": 10000, "think-time-median-ms": 350.0,
         "think-time-sigma": 1.0, "session-length-median": 24.0,
@@ -598,6 +620,7 @@ class AppConfig:
     fleet: FleetConfig = field(default_factory=FleetConfig)
     hotkey: HotkeyConfig = field(default_factory=HotkeyConfig)
     drain: DrainConfig = field(default_factory=DrainConfig)
+    parallel: ParallelConfig = field(default_factory=ParallelConfig)
     # Sections switched on that the port loads but does not serve (none
     # today).
     unserved: Tuple[str, ...] = ()
@@ -677,6 +700,7 @@ class AppConfig:
         cfg._sidecar(_block(raw, "sidecar"), _block(raw, "wire"),
                      _block(raw, "fleet"))
         cfg._fleet(_block(raw, "fleet"), _block(raw, "hotkey"))
+        cfg._parallel(_block(raw, "parallel"))
         for name, defaults in _UNPORTED.items():
             block = _block(raw, name)
             if "enabled" in defaults and block.get("enabled") is False:
@@ -686,6 +710,14 @@ class AppConfig:
         cfg._drain(_block(raw, "drain"))
         cfg._fault_tolerance(_block(raw, "fault-tolerance"))
         cfg._fault_injection(_block(raw, "fault-injection"))
+        if (cfg.fault_injection.seed is not None and cfg.parallel.enabled
+                and (cfg.parallel.num_processes or 1) > 1):
+            # Chaos fires on the process that installed it: on a pod it
+            # would stall or fail one rank's lockstep sequence and hang
+            # the rest (a pod joined from the environment is disarmed at
+            # startup instead).  The JAX loader's check.
+            raise ValueError("fault-injection.seed cannot be combined "
+                             "with a multi-host parallel config")
         cfg._renderer(_block(raw, "renderer"))
         cfg._telemetry(_block(raw, "telemetry"))
         cfg._slo(_block(raw, "slo"))
@@ -696,13 +728,38 @@ class AppConfig:
         cfg._workloads(_block(raw, "workloads"))
         cfg._pyramid(_block(raw, "pyramid"))
         cfg._qos(_block(raw, "qos"))
-        if cfg.renderer.jpeg_engine == "bitpack" and cfg.batcher.enabled:
+        if (cfg.renderer.jpeg_engine == "bitpack"
+                and (cfg.batcher.enabled or cfg.parallel.enabled)):
             # bitpack has no batched group form (the JAX loader's check).
             raise ValueError(
                 "renderer.jpeg-engine 'bitpack' is only supported by "
                 "the direct (unbatched) renderer; with batcher.enabled "
                 "or parallel.enabled use 'sparse', 'huffman' or 'auto'")
         return cfg
+
+    def _parallel(self, par: dict) -> None:
+        _check("parallel", par, {},
+               served=("enabled", "chan-parallel", "n-devices",
+                       "coordinator-address", "num-processes",
+                       "process-id"))
+
+        def opt_int(key):
+            return int(par[key]) if par.get(key) is not None else None
+
+        d = ParallelConfig()
+        self.parallel = ParallelConfig(
+            enabled=bool(par.get("enabled", d.enabled)),
+            chan_parallel=int(par.get("chan-parallel", d.chan_parallel)),
+            n_devices=opt_int("n-devices"),
+            coordinator_address=par.get("coordinator-address"),
+            num_processes=opt_int("num-processes"),
+            process_id=opt_int("process-id"))
+        if self.parallel.chan_parallel < 1:
+            raise ValueError("parallel.chan-parallel must be >= 1")
+        if (self.parallel.coordinator_address is not None
+                and self.parallel.num_processes is None):
+            raise ValueError("parallel.coordinator-address requires "
+                             "num-processes and process-id")
 
     def _qos(self, qo: dict) -> None:
         _check("qos", qo, {},

@@ -12,8 +12,10 @@ at startup (and ``utils.adaptive`` keeps measuring it).
 Measured here with pinned copies: a distinct random buffer on the card
 each repeat, copied into a pinned host buffer and synchronized (the best
 of ``repeats``), in place of the JAX package's ``jax.device_get``.  On a
-CPU device the copy is a host memcpy.  One process, one card: the JAX
-package's pod-wide minimum has no counterpart here.
+CPU device the copy is a host memcpy.  On a pod (``parallel.cluster``:
+joined, more than one rank) every rank probes its own GPU's link and the
+pod-wide minimum decides, as in JAX: the rates are all-gathered over gloo
+(host tensors), so every rank picks the same engine.
 """
 
 from __future__ import annotations
@@ -54,13 +56,29 @@ def measure_fetch_mb_s(nbytes: int = 4 << 20, repeats: int = 3,
 
 def resolve_auto_engine(device: Union[str, torch.device] = "cuda") -> str:
     """Measure the link and return "sparse" or "huffman" (a failed probe
-    reads as an unknown, fast link: sparse)."""
+    reads as an unknown, fast link: sparse).
+
+    Collective on a pod: every rank must call it, since each joins the
+    all-gather of the rates, and the slowest link decides."""
     try:
         rate = measure_fetch_mb_s(device=device)
     except Exception:
+        # No early return: on a pod every rank must still join the
+        # all-gather below.  inf does not drag the pod minimum down.
         logger.warning("link probe failed; treating link rate as "
                        "unknown", exc_info=True)
         rate = float("inf")
+    from ..parallel.mesh import joined, world_size
+    if joined() and world_size() > 1:
+        import torch.distributed as dist
+
+        rates = [torch.zeros(1, dtype=torch.float64)
+                 for _ in range(world_size())]
+        dist.all_gather(rates, torch.tensor([rate], dtype=torch.float64))
+        pod_rate = float(torch.cat(rates).min())
+        logger.info("link probe (pod): local %.1f MB/s, pod min %.1f MB/s "
+                    "across %d ranks", rate, pod_rate, len(rates))
+        rate = pod_rate
     engine = "sparse" if rate >= AUTO_SPARSE_MIN_MB_S else "huffman"
     logger.info("link probe: %.1f MB/s device->host -> jpeg engine %r "
                 "(crossover %.0f MB/s)", rate, engine, AUTO_SPARSE_MIN_MB_S)

@@ -148,7 +148,8 @@ def test_unported_defaults_are_the_jax_defaults():
     ({"metadata-service": {"type": "postgres", "dsn": "postgres://h",
                            "pool-size": 8}},
      "metadata-service."),
-    ({"parallel": {"chan-parallel": 2}}, "parallel.chan-parallel"),
+    ({"parallel": {"chan-parallel": 2, "pod-timeout-s": 5}},
+     "parallel.pod-timeout-s"),
     ({"wire": {"ring-bytes": 0, "compression": "lz4"}}, "wire.compression"),
     ({"loadmodel": {"viewers": 10}}, "loadmodel.viewers"),
     ({"workloads": {"unknown-key": 1}}, "workloads.unknown-key"),

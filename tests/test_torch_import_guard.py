@@ -65,7 +65,9 @@ def test_port_imports_without_jax_or_the_jax_package():
                 "server.execcache", "server.shutdown", "utils.sketch",
                 "utils.decisions", "server.sentinel", "server.explain",
                 "server.pressure", "kernels.staging", "server.sidecar",
-                "server.shmring", "server.degraded", "refimpl"):
+                "server.shmring", "server.degraded", "refimpl",
+                "kernels.mesh", "parallel.cluster", "parallel.mesh",
+                "parallel.serve"):
         assert f"omero_ms_image_region_tpu_torch.{mod}" in doc["imported"]
     assert doc["leaked"] == []
     assert doc["jax"] == []
