@@ -348,6 +348,38 @@ Phases (any failure ends the run with a non-zero exit and no result line):
            prestage of its shard on m1; the drained tile again, answered
            by a peer ``byte_fetch`` from m0's byte tier; p50s and the
            sidecars' start time;
+5d. autoscale the elastic autoscaler on the card.  (A) JAX's
+           elasticity drill: a combined app with three in-process members
+           (``fleet.members: 3``, one lane each) and ``autoscaler:
+           {floor: 1, interval-s: 0.5, hold-ticks: 2, cooldown-s: 3}``
+           (queue-high 1.0 and queue-low 0.25 a lane; ``drain.fail-readyz``
+           on; ``ready-max-queue-depth`` out of the way so ``/readyz``
+           reads the drains only), the 64 flagship tiles warmed, then the
+           port's ``LoadModel(seed=1234, viewers=200, grid=8)`` through
+           ``run_open_loop`` in three legs: idle (no traffic) until the
+           autoscaler has parked two members; the parked members' raw
+           caches dropped (a restart's cold card memory); a 10 s burst at
+           1.5x ``e2e:``'s tiles/s at 8 in flight, which grows the fleet a
+           member at a time, each joiner's drained shard resident again
+           (pre-stage-back) and its owned tiles raw-cache hits (>= 0.8);
+           a 10 s quiet leg at 0.1x, which shrinks it to the floor again;
+           then the burst's arrivals through ``run_closed_loop``
+           (concurrency 8).  Every 200 is byte-equal to the default app's
+           body of its tile, no 5xx but sheds (counted), transitions a
+           cooldown apart, ``/readyz`` 200 while members are parked, the
+           transitions in ``GET /admin/autoscaler``, the
+           ``imageregion_autoscaler_*`` and ``imageregion_loadmodel_*``
+           families in the scrape, and K1, K3, K4a, K4b and K10 launched
+           (the counts from the warm-up to the closed loop).  Prints the
+           transitions with their times, the open loop's p50, p99 and
+           late fires, the closed loop's p99 and the launches.  (B)
+           Sidecar units: a frontend over two ``fleet.sockets`` with
+           ``autoscaler.unit-config`` spawns both sidecars itself; idle,
+           the autoscaler parks m1 and stops its process (``pgrep`` finds
+           none); a burst restarts it, its socket accepting before the
+           undrain; every body byte-equal to the default app's; cleanup
+           stops both units.  Latencies are printed, never gated (every
+           member shares the one card);
 5c. mesh   (a) K12a ``composite_partial`` and K12b ``composite_pack``
            (``kernels/csrc/mesh.cu``, the mesh step's partial composite
            and ordered pack) against their plain versions at B=8 and B=1,
@@ -400,8 +432,8 @@ the bitpack phase for K6, the workload phases for K7, K8a, K8b and K9, the
 e2e run's cold misses for K10, the mesh app's GETs for K12a and K12b;
 ``workload_launches``: each
 kernel's launches in each of those phases, readers, pyramid, omero,
-prefetch, huffman, byte_cache, bitpack, growth, forensics, pressure and
-fleet included), then the
+prefetch, huffman, byte_cache, bitpack, growth, forensics, pressure,
+fleet and autoscale included), then the
 nvidia-smi line,
 and last ``{"ok": true, "device": {...}}``.  It imports nothing of JAX.
 """
@@ -2276,6 +2308,8 @@ class Client:
                 answer = await self.front.admin_drain(method, member)
             elif parts.path == "/admin/undrain":
                 answer = self.front.admin_undrain(member)
+            elif parts.path == "/admin/autoscaler":
+                answer = self.front.admin_autoscaler()
             else:
                 answer = SimpleAnswer(200, {}, self.front.metrics_text()
                                       .encode())
@@ -5369,6 +5403,513 @@ def fleet_sidecars_phase(data_dir, lut_root, smi: str,
     return doc
 
 
+# ------------------------------------------------------- autoscale phase
+
+AUTOSCALE_COOLDOWN_S = 3.0
+AUTOSCALE_GRID = 8                # the flagship plane's 8 x 8 tiles
+
+
+def autoscaler_block(**extra) -> dict:
+    """The drill's ``autoscaler`` section: the issue's floor, interval,
+    hold and cooldown; a queue band of 1.0 / 0.25 a lane."""
+    return dict({"enabled": True, "floor": 1, "interval-s": 0.5,
+                 "hold-ticks": 2, "cooldown-s": AUTOSCALE_COOLDOWN_S,
+                 "queue-high-per-lane": 1.0, "queue-low-per-lane": 0.25},
+                **extra)
+
+
+def autoscale_tile(x: int, y: int):
+    return ("render_image_region",
+            {"tile": f"0,{x},{y},{TILE},{TILE}", "c": CH, "m": "c",
+             "format": "jpeg"})
+
+
+def pcts(values) -> dict:
+    vals = sorted(values)
+    if not vals:
+        return {"p50_ms": None, "p99_ms": None, "n": 0}
+    return {"p50_ms": statistics.median(vals),
+            "p99_ms": vals[int(0.99 * (len(vals) - 1))], "n": len(vals)}
+
+
+def load_submit(client, want: dict, served: list):
+    """The load model's service seam over ``client``: a 503 is a shed
+    (``OverloadedError``), any other non-200 or a body that differs from
+    the default app's an error."""
+    from omero_ms_image_region_tpu_torch.server.errors import OverloadedError
+
+    async def submit(arrival):
+        status, headers, body, _ = await client.request(
+            *autoscale_tile(arrival.x, arrival.y))
+        if status == 503:
+            raise OverloadedError("shed")
+        if status != 200:
+            raise RuntimeError(f"HTTP {status} for {arrival.x},{arrival.y}")
+        if body != want[(arrival.x, arrival.y)]:
+            raise RuntimeError(f"tile {arrival.x},{arrival.y} differs from "
+                               f"the default app's bytes")
+        served.append(member_of(headers))
+    return submit
+
+
+async def default_bodies(data_dir, lut_root, have_aiohttp) -> dict:
+    """The default app's body of each of the 64 tiles (8 in flight)."""
+    from omero_ms_image_region_tpu_torch.server.config import AppConfig
+
+    ref = Client(AppConfig.from_dict({
+        "data-dir": data_dir,
+        "omero.server": {"omero.script_repo_root": lut_root},
+        "raw-cache": {"prefetch": False}}), None, have_aiohttp)
+    await ref.start()
+    try:
+        grid = [(x, y) for y in range(AUTOSCALE_GRID)
+                for x in range(AUTOSCALE_GRID)]
+        sem = asyncio.Semaphore(8)
+
+        async def one(xy):
+            async with sem:
+                return await ref.request(*autoscale_tile(*xy))
+        out = await asyncio.gather(*(one(xy) for xy in grid))
+        check(all(s == 200 for s, *_ in out),
+              "autoscale: the default app failed a reference GET")
+        return {xy: body for xy, (_, _, body, _) in zip(grid, out)}
+    finally:
+        await ref.stop()
+
+
+async def autoscale_phase(data_dir, lut_root, have_aiohttp, e2e,
+                          smi: str):
+    """(A) of the module docstring's ``autoscale:``.  Returns the default
+    app's bodies, each kernel's launches over the drill and the burst's
+    offered rate."""
+    from omero_ms_image_region_tpu_torch.server.config import AppConfig
+    from omero_ms_image_region_tpu_torch.services.loadmodel import (
+        LoadModel, run_closed_loop, run_open_loop)
+    from omero_ms_image_region_tpu_torch.utils import telemetry
+
+    t_phase = time.perf_counter()
+    want = await default_bodies(data_dir, lut_root, have_aiohttp)
+    telemetry.AUTOSCALER.reset()
+    telemetry.LOADMODEL.reset()
+    config = AppConfig.from_dict({
+        "data-dir": data_dir,
+        "omero.server": {"omero.script_repo_root": lut_root},
+        "raw-cache": {"prefetch": False},
+        "telemetry": {"provenance-header": True,
+                      "ready-max-queue-depth": 1_000_000},
+        # No stealing, as in JAX's drill: every tile stays on its ring
+        # owner, so a member's shard is the tiles it owns.
+        "fleet": {"enabled": True, "members": 3, "lane-width": 1,
+                  "steal-min-backlog": 0},
+        "drain": {"fail-readyz": True},
+        "autoscaler": autoscaler_block()})
+    reset_launch_counts()
+    client = Client(config, None, have_aiohttp)
+    await client.start()
+    front = client.app_front
+    router, scaler = front.router, front.autoscaler
+    check(scaler is not None and router.order == ["m0", "m1", "m2"],
+          "autoscale: the app built no autoscaler over three members")
+    caches = {n: router.members[n].services.raw_cache for n in router.order}
+
+    def keys(name) -> set:
+        return {repr(e["key"]) for e in caches[name].snapshot_entries()}
+
+    doc: dict = {"card": smi, "via": client.via,
+                 "config": config.autoscaler.__dict__}
+    seen = 0
+    shard_at_drain: dict = {}
+    warm_checks: list = []
+    warm: dict = {}
+    readyz: list = []
+    timeline: list = []
+    done = asyncio.Event()
+    burst_leg = asyncio.Event()       # joiners are checked in the burst
+
+    async def warm_check(name, prestage):
+        if prestage is not None:
+            await prestage
+        cache = caches[name]
+        resident = shard_at_drain.get(name, set()) <= keys(name)
+        owned = [xy for xy in want
+                 if router.ring.member(tile_route(*xy)) == name]
+        h0, m0 = cache.hits, cache.misses
+        for xy in owned:
+            status, headers, body, _ = await client.request(
+                *autoscale_tile(*xy))
+            check(status == 200 and body == want[xy],
+                  f"autoscale: joiner {name}'s tile {xy} failed or differs")
+        hits, misses = cache.hits - h0, cache.misses - m0
+        warm[name] = {"shard_planes": len(shard_at_drain.get(name, ())),
+                      "resident_again": resident, "owned_gets": len(owned),
+                      "hits": hits, "misses": misses,
+                      "hit_rate": hits / max(1, hits + misses)}
+
+    async def watch():
+        nonlocal seen
+        last_ready = 0.0
+        while not done.is_set():
+            while seen < len(scaler.transitions):
+                tr = scaler.transitions[seen]
+                seen += 1
+                name = tr["member"]
+                timeline.append({"action": tr["action"], "member": name,
+                                 "t_s": round(time.perf_counter() - t0, 3),
+                                 "active": tr["active"]})
+                if tr["action"] == "down":
+                    shard_at_drain[name] = keys(name)
+                elif burst_leg.is_set():
+                    warm_checks.append(asyncio.create_task(warm_check(
+                        name, router.last_undrain_prestage)))
+            parked = router.draining_members("autoscale")
+            if parked and time.perf_counter() - last_ready >= 0.25:
+                last_ready = time.perf_counter()
+                status, body = await client.readyz()
+                readyz.append((status, body["checks"].get("drain")))
+            await asyncio.sleep(0.05)
+
+    async def wait_floor(deadline_s: float) -> float:
+        t = time.perf_counter()
+        while time.perf_counter() - t < deadline_s:
+            if scaler.active_members() == ["m0"] and (
+                    scaler._op is None or scaler._op.done()) \
+                    and seen == len(scaler.transitions):
+                return time.perf_counter() - t
+            await asyncio.sleep(0.05)
+        check(False, f"autoscale: the fleet did not reach its floor in "
+                     f"{deadline_s} s (active {scaler.active_members()}, "
+                     f"transitions {timeline})")
+
+    served: list = []
+    submit = load_submit(client, want, served)
+    t0 = time.perf_counter()
+    watcher = asyncio.create_task(watch())
+    try:
+        # Warm the working set on the three members (8 in flight).
+        sem = asyncio.Semaphore(8)
+
+        async def one(xy):
+            async with sem:
+                return await client.request(*autoscale_tile(*xy))
+        grid = list(want)
+        out = await asyncio.gather(*(one(xy) for xy in grid))
+        check(all(s == 200 and b == want[xy]
+                  for xy, (s, _, b, _) in zip(grid, out)),
+              "autoscale: a warm-up GET failed or differs from the default "
+              "app's bytes")
+        planes = {n: len(caches[n]) for n in router.order}
+        check(all(planes.values()), f"autoscale: a member holds no plane "
+                                    f"after the warm-up: {planes}")
+        doc["warmup"] = {"gets": len(out), "planes": planes,
+                         "s": round(time.perf_counter() - t0, 3)}
+
+        # Idle: the autoscaler parks two members.
+        t_idle = time.perf_counter()
+        doc["idle_to_floor_s"] = await wait_floor(20.0)
+        check([t["action"] for t in timeline] == ["down", "down"]
+              and [t["member"] for t in timeline] == ["m2", "m1"],
+              f"autoscale: idle did not park m2 then m1: {timeline}")
+        doc["idle_s"] = round(time.perf_counter() - t_idle, 3)
+        for name in ("m1", "m2"):         # a restart's cold card memory
+            caches[name].clear()
+
+        # The burst: 1.5x e2e's tiles/s at 8 in flight, open loop.
+        model = LoadModel(seed=1234, viewers=200, grid=AUTOSCALE_GRID,
+                          max_level=0, bulk_fraction=0.0)
+        natural = model.events()
+        rate = 1.5 * e2e["concurrent_tiles_per_s"]
+        burst = model.window(rate, 10.0, natural)
+        before = len(timeline)
+        t_burst = time.perf_counter()
+        burst_leg.set()
+        open_report = await run_open_loop(submit, burst, offered_tps=rate)
+        doc["burst_s"] = round(time.perf_counter() - t_burst, 3)
+        if scaler._op is not None:
+            await scaler._op
+        await asyncio.sleep(0.1)          # the watcher sees the last one
+        burst_leg.clear()
+        await asyncio.gather(*warm_checks)
+        grown = [t for t in timeline[before:] if t["action"] == "up"]
+        check(grown, f"autoscale: the burst never grew the fleet "
+                     f"({timeline[before:]})")
+        active = [t["active"] for t in timeline[before:]]
+        check(all(b - a in (-1, 1) for a, b in zip([1] + active, active)),
+              f"autoscale: a transition moved more than one member: "
+              f"{timeline[before:]}")
+        for name, w in warm.items():
+            check(w["resident_again"] and w["shard_planes"] > 0,
+                  f"autoscale: joiner {name} rejoined cold: {w}")
+            check(w["owned_gets"] and w["hit_rate"] >= 0.8,
+                  f"autoscale: joiner {name}'s owned GETs hit {w}")
+
+        # Quiet: 0.1x, back to the floor.
+        quiet = model.window(0.1 * rate, 10.0, natural)
+        t_quiet = time.perf_counter()
+        quiet_report = await run_open_loop(submit, quiet,
+                                           offered_tps=0.1 * rate)
+        doc["quiet_s"] = round(time.perf_counter() - t_quiet, 3)
+        doc["quiet_to_floor_s"] = await wait_floor(15.0)
+
+        # The same burst arrivals, closed loop at 8 in flight.
+        closed_report = await run_closed_loop(submit, burst, concurrency=8)
+        launches = launch_counts()
+        status, _, body, _ = await client.request_path(
+            "GET", "/admin/autoscaler")
+        admin = json.loads(body)
+        scrape = await client.metrics()
+    finally:
+        done.set()
+        await watcher
+        for task in warm_checks:
+            task.cancel()
+        await asyncio.gather(*warm_checks, return_exceptions=True)
+        await client.stop()
+    for report in (open_report, quiet_report, closed_report):
+        check(report.errors == [], f"autoscale: GETs failed: "
+                                   f"{report.errors[:3]}")
+    times = [t["t"] for t in scaler.transitions]
+    check(all(b - a >= AUTOSCALE_COOLDOWN_S
+              for a, b in zip(times, times[1:])),
+          f"autoscale: transitions closer than the cooldown: {timeline}")
+    check(readyz and all(s == 200 for s, _ in readyz),
+          f"autoscale: /readyz was not 200 throughout the autoscale "
+          f"drains: {sorted(set(readyz))}")
+    check(status == 200 and [(t["action"], t["member"])
+                             for t in admin["transitions"]]
+          == [(t["action"], t["member"])
+              for t in scaler.transitions[-16:]],
+          "autoscale: GET /admin/autoscaler does not show the transitions")
+    for family in ("imageregion_autoscaler_transitions_total",
+                   "imageregion_autoscaler_active_members",
+                   "imageregion_loadmodel_offered_total",
+                   "imageregion_loadmodel_completed_total"):
+        check(family in scrape, f"autoscale: {family} is not in the "
+                                f"scrape")
+    for name in ("render_ramp", "jpeg_coefficients", "sparse_pack",
+                 "compact_rows", "unpack16"):
+        check(launches[name] >= 1, f"autoscale: {name} was not launched "
+                                   f"in the phase")
+    doc.update({
+        "offered_tps": rate, "e2e_tiles_per_s":
+            e2e["concurrent_tiles_per_s"],
+        "transitions": timeline, "warm_joiners": warm,
+        "readyz_while_parked": {"polls": len(readyz),
+                                "all_200": True},
+        "open_loop": dict(pcts(open_report.all_latencies()),
+                          served=open_report.served,
+                          sheds=open_report.sheds,
+                          late_fires=open_report.late_fires,
+                          late_ms=open_report.late_ms,
+                          window_s=open_report.window_s),
+        "quiet_loop": dict(pcts(quiet_report.all_latencies()),
+                           served=quiet_report.served,
+                           sheds=quiet_report.sheds,
+                           late_fires=quiet_report.late_fires),
+        "closed_loop": dict(pcts(closed_report.all_latencies()),
+                            served=closed_report.served,
+                            sheds=closed_report.sheds,
+                            concurrency=8),
+        "served_by": {n: served.count(n) for n in router.order},
+        "bodies_equal_default_app": True,
+        "launches": {k: v for k, v in launches.items() if v},
+        "phase_s": round(time.perf_counter() - t_phase, 3)})
+    print("autoscale: " + json.dumps(doc), flush=True)
+    print("autoscale: transitions " + " ".join(
+        f"{t['action']}:{t['member']}@{t['t_s']}s" for t in timeline),
+        flush=True)
+    print(f"autoscale: open loop p50 {doc['open_loop']['p50_ms']} ms, "
+          f"p99 {doc['open_loop']['p99_ms']} ms, late fires "
+          f"{open_report.late_fires}, sheds {open_report.sheds}; closed "
+          f"loop (8) p99 {doc['closed_loop']['p99_ms']} ms ({smi})",
+          flush=True)
+    print("autoscale: launches " + json.dumps(doc["launches"]), flush=True)
+    return want, launches, rate
+
+
+def autoscale_units_phase(data_dir, lut_root, have_aiohttp, want: dict,
+                          rate: float, smi: str) -> dict:
+    """(B) of the module docstring's ``autoscale:``: a frontend whose
+    autoscaler stops and restarts its members' sidecar units."""
+    import socket as socket_mod
+
+    from omero_ms_image_region_tpu_torch.server.config import AppConfig
+    from omero_ms_image_region_tpu_torch.services.loadmodel import (
+        LoadModel, run_open_loop)
+    from omero_ms_image_region_tpu_torch.utils import telemetry
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="units-")
+    socks = [os.path.join(tmp, f"u{i}.sock") for i in range(2)]
+    conf = os.path.join(tmp, "sidecar.yaml")
+    with open(conf, "w") as f:
+        json.dump({"data-dir": data_dir, "raw-cache": {"prefetch": False},
+                   "omero.server": {"omero.script_repo_root": lut_root}}, f)
+    config = AppConfig.from_dict({
+        "data-dir": data_dir,
+        "telemetry": {"provenance-header": True,
+                      "ready-max-queue-depth": 1_000_000},
+        "sidecar": {"role": "frontend"},
+        "fleet": {"enabled": True, "sockets": socks, "lane-width": 1},
+        # Four ticks to act: the open load that restarts m1 must not read
+        # as idle between bunched arrivals and park it again.
+        "autoscaler": autoscaler_block(**{"unit-config": conf,
+                                          "queue-low-per-lane": 0.0,
+                                          "hold-ticks": 4})})
+    doc: dict = {"card": smi}
+
+    def units_alive() -> list:
+        return [bool(pgrep(f"--sidecar-socket {sock}")) for sock in socks]
+
+    async def run():
+        client = Client(config, None, have_aiohttp)
+        t = time.perf_counter()
+        await client.start()
+        front = client.app_front
+        lifecycle, router = front.unit_lifecycle, front.router
+        check(lifecycle is not None and front.autoscaler is not None,
+              "autoscale units: the frontend built no unit lifecycle")
+        if client.via == "front":
+            await asyncio.to_thread(lifecycle.start_all)
+        doc["units_start_s"] = round(time.perf_counter() - t, 3)
+        undrains: list = []
+        real_undrain = router.undrain_member
+
+        def undrain(name, *a, **k):
+            # The restarted unit's socket must accept before the undrain.
+            sock = socks[router.order.index(name)]
+            probe = socket_mod.socket(socket_mod.AF_UNIX)
+            try:
+                probe.settimeout(2.0)
+                probe.connect(sock)
+                accepted = True
+            except OSError:
+                accepted = False
+            finally:
+                probe.close()
+            undrains.append((name, accepted, lifecycle.alive(name)))
+            return real_undrain(name, *a, **k)
+
+        router.undrain_member = undrain
+        served: list = []
+        submit = load_submit(client, want, served)
+        scaler = front.autoscaler
+        try:
+            check(units_alive() == [True, True],
+                  "autoscale units: the startup did not spawn both units")
+            for xy in list(want)[:8]:
+                status, _, body, _ = await client.request(
+                    *autoscale_tile(*xy))
+                check(status == 200 and body == want[xy],
+                      f"autoscale units: tile {xy} failed or differs")
+            # Idle: m1 parked and its process stopped.
+            t = time.perf_counter()
+            while time.perf_counter() - t < 30.0:
+                if (scaler.active_members() == ["m0"]
+                        and scaler._op is not None and scaler._op.done()):
+                    break
+                await asyncio.sleep(0.05)
+            check(scaler.active_members() == ["m0"]
+                  and not lifecycle.alive("m1"),
+                  f"autoscale units: idle did not park and stop m1 "
+                  f"({scaler.transitions})")
+            check(units_alive() == [True, False],
+                  f"autoscale units: pgrep still finds m1's sidecar "
+                  f"({units_alive()})")
+            doc["park_and_stop_s"] = round(time.perf_counter() - t, 3)
+            # Open-loop load restarts m1 and runs on (stopped once the
+            # restarted m1 served): an idle fleet would park the member
+            # again as soon as its restart op ends (the spawn outlasts the
+            # cooldown, JAX's policy too).
+            model = LoadModel(seed=1234, viewers=200, grid=AUTOSCALE_GRID,
+                              max_level=0, bulk_fraction=0.0)
+            stop = asyncio.Event()
+            load = asyncio.create_task(run_open_loop(
+                submit, model.window(rate, 40.0), offered_tps=rate,
+                stop=stop))
+            t = time.perf_counter()
+            try:
+                while (time.perf_counter() - t < 90.0 and not (
+                        scaler.active_members() == ["m0", "m1"]
+                        and scaler._op is not None and scaler._op.done())):
+                    await asyncio.sleep(0.1)
+                check(scaler.active_members() == ["m0", "m1"]
+                      and lifecycle.alive("m1")
+                      and units_alive() == [True, True],
+                      f"autoscale units: the load did not restart m1 "
+                      f"({scaler.transitions}, {units_alive()})")
+                check(undrains == [("m1", True, True)],
+                      f"autoscale units: m1 was undrained before its "
+                      f"socket accepted: {undrains}")
+                doc["restart_s"] = round(time.perf_counter() - t, 3)
+                # The first GETs after the undrain may still go to m0: the
+                # restarted unit's wire breaker, opened by the peer byte
+                # fetches that failed while it was stopped, decays to
+                # half-open within fault-tolerance.breaker-reset-s (JAX's
+                # client does the same).  m1's own tiles are asked for until
+                # m1 serves one.
+                m1_tiles = [xy for xy in want if router.ring.member(
+                    tile_route(*xy)) == "m1"][:4]
+                t = time.perf_counter()
+                first_m1 = None
+                sheds = 0
+                while first_m1 is None and time.perf_counter() - t < 30.0:
+                    for xy in m1_tiles:
+                        routed0 = telemetry.FLEET.routed.get("m1", 0)
+                        status, _, body, _ = await client.request(
+                            *autoscale_tile(*xy))
+                        if status == 503:  # the half-open breaker's shed
+                            sheds += 1
+                            continue
+                        check(status == 200 and body == want[xy],
+                              f"autoscale units: m1's tile {xy} after the "
+                              f"restart failed or differs ({status})")
+                        if telemetry.FLEET.routed.get("m1", 0) > routed0:
+                            first_m1 = time.perf_counter() - t
+                            break
+                    else:
+                        await asyncio.sleep(0.25)
+            finally:
+                stop.set()
+                report = await load
+            breaker = router.members["m1"].client.breaker
+            check(first_m1 is not None,
+                  f"autoscale units: the restarted m1 served none of its "
+                  f"tiles in 30 s (breaker {breaker.state_name}, opens "
+                  f"{breaker.opens})")
+            check(report.errors == [], f"autoscale units: GETs failed: "
+                                       f"{report.errors[:3]}")
+            doc["m1_serving_after_restart_s"] = round(first_m1, 3)
+            doc["sheds_before_m1_served"] = sheds
+            doc["m1_breaker"] = {"state": breaker.state_name,
+                                 "opens": breaker.opens}
+            doc["breaker_events"] = [
+                {k: v for k, v in e.items() if k != "ts"}
+                for e in telemetry.FLIGHT.snapshot()
+                if e["kind"].startswith("breaker.")][-8:]
+            doc.update({
+                "transitions": [(t["action"], t["member"])
+                                for t in scaler.transitions],
+                "burst": dict(pcts(report.all_latencies()),
+                              served=report.served, sheds=report.sheds,
+                              late_fires=report.late_fires),
+                "unit_starts": {n: u.starts
+                                for n, u in lifecycle.units.items()},
+                "unit_stops": {n: u.stops
+                               for n, u in lifecycle.units.items()},
+                "bodies_equal_default_app": True})
+        finally:
+            await client.stop()
+            if client.via == "front":
+                await asyncio.to_thread(lifecycle.stop_all)
+
+    asyncio.run(run())
+    check(units_alive() == [False, False],
+          "autoscale units: a unit outlived the frontend's cleanup")
+    doc["phase_s"] = round(time.perf_counter() - t_phase, 3)
+    print("autoscale units: " + json.dumps(doc), flush=True)
+    return doc
+
+
 class ServerLife:
     """``python -m omero_ms_image_region_tpu_torch.server --config`` in
     ``cwd`` (its package is the one under ``cwd``), stopped with SIGTERM."""
@@ -6516,6 +7057,14 @@ def main() -> int:
                         have_pil))
         sidecar_phase(torch, np, data_dir, lut_root, have_aiohttp, smi)
         fleet_sidecars_phase(data_dir, lut_root, smi, fleet)
+        t_auto = time.perf_counter()
+        want, workload_launches["autoscale"], rate = asyncio.run(
+            autoscale_phase(data_dir, lut_root, have_aiohttp, fleet["e2e"],
+                            smi))
+        autoscale_units_phase(data_dir, lut_root, have_aiohttp, want, rate,
+                              smi)
+        print(f"autoscale: phase {time.perf_counter() - t_auto:.1f} s",
+              flush=True)
         # mesh: K12 against its plain versions, then the mesh app.
         t_mesh = time.perf_counter()
         mesh_entries = mesh_kernel_phase(torch, np)

@@ -28,7 +28,9 @@ over hash-ring-next and its queued work is re-homed there.  A drain
 (:meth:`FleetRouter.drain_member`) takes a member out of routing on
 purpose, settles its in-flight work and hands its shard, warm, to the ring
 successors.  Hot planes get a replica set (:class:`HeatTracker`, a prefix
-of the ring chain) and reads balance across it.
+of the ring chain) and reads balance across it; the hottest one's heat is
+the autoscaler's replica-pressure signal
+(:meth:`FleetRouter.replica_pressure`).
 
 The federation's parts wait for it (ROADMAP Queue 1 item 5): its fences
 (``federation.quorum_allow``), ring seeds from a manifest, the drain's
@@ -804,6 +806,20 @@ class FleetRouter:
 
     def hot_route_count(self) -> int:
         return len(self._replica_sets)
+
+    def replica_pressure(self) -> float:
+        """The hottest promoted route's heat in promotion thresholds (0
+        with none promoted): the autoscaler's "one plane outruns one
+        member" signal, which queue depth misses while the replicas
+        absorb the skew.  Sets the ``imageregion_hotkey_replica_pressure``
+        gauge."""
+        from ..utils import telemetry
+        pressure = 0.0
+        if self._heat is not None and self._replica_sets:
+            pressure = max(self._heat.heat(r) / self._heat.threshold
+                           for r in self._replica_sets)
+        telemetry.HOTKEY.set_pressure(pressure)
+        return pressure
 
     def local_replica_caches(self, route: str) -> List:
         """The raw caches of a promoted route's live in-process replicas,

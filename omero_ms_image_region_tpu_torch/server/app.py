@@ -42,8 +42,9 @@ trailing segments are tolerated as its ``:theT*`` patterns are):
                      the member (400 for an unknown member or without a
                      fleet, 409 for the last routable one)
   POST /admin/undrain?member=mN      rejoins a drained member
-  GET /admin/autoscaler, GET /admin/federation  JAX's 400 bodies (the
-                     autoscaler and the federation are not ported)
+  GET /admin/autoscaler  the autoscaler's status (``autoscaler.enabled``
+                     with a fleet), else JAX's 400 body
+  GET /admin/federation  JAX's 400 body (the federation is not ported)
   OPTIONS /          the feature document
 
 Around the render path, as the JAX default app (``create_app(AppConfig())``
@@ -169,6 +170,13 @@ there) has it:
   the mask's ring authority's byte tier before a render (remote members
   only).  The frontend's ``/debug/*`` ride member 0's sidecar; merging
   every member's rings waits for the federation, as its fleet probes do.
+* **The autoscaler** (``autoscaler.enabled`` with a fleet;
+  ``server.autoscaler``, JAX ``:812-870``; :meth:`Front._elastic`): a tick
+  task that parks members by ``autoscale`` drains and rejoins them by
+  undrains, ``GET /admin/autoscaler`` and ``/readyz``'s ``autoscaler``
+  annotation; with ``autoscaler.unit-config`` a ``fleet.sockets`` frontend
+  spawns its members' sidecars at startup, before ``/readyz`` passes, and
+  stops them at cleanup.
 * **Mesh serving** (``parallel.enabled``; ``parallel.serve``, JAX
   ``:170-233``): :func:`build_mesh_renderer` joins the process group of
   the ``parallel`` section (``parallel.cluster``: one process per GPU,
@@ -699,6 +707,7 @@ class Front:
             defer_poll_s=py.defer_poll_s)
             if py.enabled and self.services is not None else None)
         self._forensics()
+        self._elastic()
 
     def _forensics(self) -> None:
         """The JAX app's forensics and overload layer: the SLO engine
@@ -754,6 +763,51 @@ class Front:
                                    "events": telemetry.FLIGHT.snapshot()})
             sentinel_mod.install(self.sentinel)
 
+    def _elastic(self) -> None:
+        """The JAX app's elastic autoscaler (``server.autoscaler``, JAX
+        ``:812-870``), with ``autoscaler.enabled`` and a fleet: drains with
+        the ``autoscale`` intent and the ``drain`` section's handoff,
+        undrains with pre-stage-back, the pressure governor's level as a
+        signal.  With ``lane-capacity-tps`` and sessions on, the predicted
+        demand is the viewport-tracked sessions x ``session-tps``, scaled
+        by a diurnal fit over the finished requests
+        (``services.loadmodel.DiurnalEstimator``, fed by :meth:`finish`)
+        when ``diurnal-period-s`` > 0.  With ``unit-config`` in a
+        ``fleet.sockets`` frontend, each member's sidecar is a unit
+        (``server.sidecar.SidecarUnitLifecycle``) the app starts at startup
+        and the autoscaler stops and restarts."""
+        config = self.config
+        au = config.autoscaler
+        self.autoscaler = self.diurnal = self.unit_lifecycle = None
+        if not au.enabled or self.router is None:
+            return
+        from .autoscaler import Autoscaler
+
+        demand_source = None
+        if au.lane_capacity_tps > 0 and config.sessions.enabled:
+            if au.diurnal_period_s > 0:
+                from ..services.loadmodel import DiurnalEstimator
+                self.diurnal = DiurnalEstimator(period_s=au.diurnal_period_s)
+
+            def demand_source() -> float:
+                demand = telemetry.SESSIONS.tracked * au.session_tps
+                if self.diurnal is not None:
+                    demand *= self.diurnal.multiplier(
+                        horizon_s=au.diurnal_horizon_s)
+                return demand
+        if au.unit_config and self.services is None:
+            from .sidecar import SidecarUnitLifecycle
+            self.unit_lifecycle = SidecarUnitLifecycle.for_config(
+                au.unit_config, dict(zip(self.router.order,
+                                         config.fleet.sockets)))
+        dr = config.drain
+        self.autoscaler = Autoscaler(
+            au, self.router, governor=self.governor,
+            demand_source=demand_source, lifecycle=self.unit_lifecycle,
+            drain_kwargs={"prestage": dr.prestage,
+                          "max_planes": dr.prestage_max_planes,
+                          "settle_timeout_s": dr.settle_timeout_s})
+
     def admission(self):
         """The admission controller: a fleet's, above its router, else the
         services' (None without)."""
@@ -775,12 +829,14 @@ class Front:
 
     def background(self) -> list:
         """The tick loops to run as tasks while the app serves: the
-        pressure governor's and the sentinel's."""
+        pressure governor's, the sentinel's and the autoscaler's."""
         loops = []
         if self.governor is not None:
             loops.append(("pressure-governor", self.governor.run))
         if self.sentinel is not None:
             loops.append(("perf-sentinel", self.sentinel.run))
+        if self.autoscaler is not None:
+            loops.append(("autoscaler", self.autoscaler.run))
         return loops
 
     def close(self) -> None:
@@ -1285,6 +1341,9 @@ class Front:
         if engine is not None and status < 400:
             engine.observe(route, nbytes, total_ms,
                            trace.trace_id if trace is not None else None)
+        if self.diurnal is not None:
+            # One arrival for the autoscaler's diurnal demand fit.
+            self.diurnal.observe()
         if status >= 500:
             telemetry.FLIGHT.record(
                 "request.error", route=route, status=status,
@@ -1483,6 +1542,9 @@ class Front:
             # An operator drain (or shutdown's quiesce) takes the instance
             # out of rotation; an autoscaler's does not.
             ok = False
+        if self.autoscaler is not None:
+            # An annotation, never a reason to be unready.
+            checks["autoscaler"] = self.autoscaler.summary()
         return ok, checks
 
     async def sidecar_doc(self, op: str, timeout_s: float = 2.0,
@@ -1713,10 +1775,12 @@ class Front:
         self.router.undrain_member(member)
         return _json(200, self.drain_status())
 
-    @staticmethod
-    def admin_autoscaler() -> Answer:
-        """``GET /admin/autoscaler``: the autoscaler is not ported; JAX's
-        answer without one."""
+    def admin_autoscaler(self) -> Answer:
+        """``GET /admin/autoscaler``: the autoscaler's status document
+        (:meth:`server.autoscaler.Autoscaler.status`), or JAX's 400 without
+        one."""
+        if self.autoscaler is not None:
+            return _json(200, self.autoscaler.status())
         return _json(400, {"enabled": False,
                            "error": "autoscaler requires autoscaler.enabled "
                                     "and a fleet topology"})
@@ -2032,6 +2096,10 @@ def create_app(config: Optional[AppConfig] = None,
         if front.jobs is not None:
             tasks.append(asyncio.create_task(front.jobs.run(),
                                              name="pyramid-jobs"))
+        if front.unit_lifecycle is not None:
+            # Each member's sidecar unit, spawned at once off the loop;
+            # /readyz holds traffic until the members answer their pings.
+            await asyncio.to_thread(front.unit_lifecycle.start_all)
         for name, loop in front.background():
             tasks.append(asyncio.create_task(loop(), name=name))
 
@@ -2040,11 +2108,19 @@ def create_app(config: Optional[AppConfig] = None,
             task.cancel()
         await asyncio.gather(*tasks, return_exceptions=True)
         front.close()
+        op = getattr(front.autoscaler, "_op", None)
+        if op is not None and not op.done():
+            # A scale-down mid-settle must not outlive the router it drains.
+            op.cancel()
+            await asyncio.gather(op, return_exceptions=True)
         if front.router is not None:
             # The lanes stop before the member stacks close under them.
             await front.router.close()
         for member_client in front.clients():
             await member_client.close()
+        if front.unit_lifecycle is not None:
+            # The units this app spawned stop with it (no restart).
+            await asyncio.to_thread(front.unit_lifecycle.stop_all)
         for renderer in _member_renderers(front):
             await renderer.close()
         for resource in owned + [front.session_store]:

@@ -107,9 +107,17 @@ no copy (PERF.md, ROADMAP Queue 1 item 9).
   position is one process with one GPU (``parallel.cluster``): an
   ``n-devices`` other than the world size fails at startup, by name.
 
-The federation, the load model and the autoscaler (``federation``,
-``loadmodel``, ``autoscaler``) are not served: set away from the JAX
-default, each is refused by name.
+* the elastic control plane (``server.autoscaler``,
+  ``services.loadmodel``): ``autoscaler`` and ``loadmodel`` as the JAX
+  loader reads them, with its errors, the cross-section ones included:
+  ``autoscaler.unit-config`` needs ``fleet.sockets``, ``autoscaler.enabled``
+  a fleet, and ``autoscaler.floor`` at most the provisioned members.
+
+The federation (``federation``) is not served.  Its values get the JAX
+loader's checks and errors whether the section is on or off; a valid
+section switched off (``enabled: false``) is inert, and set away from the
+JAX default otherwise (``enabled: true`` among them), a setting is refused
+by name.
 
 Everything else is read and checked against the JAX default.  A section
 that is switched off (``enabled: false``) is inert.  A boolean set from
@@ -374,8 +382,8 @@ class HotkeyConfig:
     max_replicas: int = 2
     top_k: int = 128
     demote_fraction: float = 0.5
-    # The autoscaler's scale-up signal (stored: the autoscaler is not
-    # ported).
+    # The autoscaler's scale-up signal: grow once the hottest promoted
+    # route's heat reaches this many promotion thresholds (0: off).
     scale_factor: float = 2.0
 
 
@@ -490,6 +498,60 @@ class SessionsConfig:
 
 
 @dataclass
+class LoadModelConfig:
+    """The open-loop load model (``services.loadmodel.LoadModel
+    .from_config``): the simulated viewer population, seeded, so one seed
+    gives one event stream."""
+
+    seed: int = 1234
+    viewers: int = 10000
+    # Lognormal think time between a viewer's requests, and session
+    # length in requests.
+    think_time_median_ms: float = 350.0
+    think_time_sigma: float = 1.0
+    session_length_median: float = 24.0
+    session_length_sigma: float = 1.2
+    # Session starts bunch toward the peak of a half-sine day.
+    diurnal_amplitude: float = 0.6
+    # The class mix (the rest is interactive tiles).
+    bulk_fraction: float = 0.02
+    mask_fraction: float = 0.0
+    pyramid_fraction: float = 0.0
+    animation_fraction: float = 0.0
+    zoom_fraction: float = 0.05          # pan steps that change level
+    # Zipf popularity skew over image ranks (0: every session on rank 0).
+    skew: float = 0.0
+    image_population: int = 1
+
+
+@dataclass
+class AutoscalerConfig:
+    """The elastic fleet autoscaler (``server.autoscaler``): scales the
+    fleet's members between ``floor`` and ``ceiling`` by drains with a
+    warm handoff and undrains with pre-stage-back."""
+
+    enabled: bool = False
+    interval_s: float = 2.0
+    floor: int = 1
+    ceiling: int = 0                     # 0: every member
+    # Fleet depth per routable lane: sustained >= high grows, <= low
+    # shrinks (the hysteresis band).
+    queue_high_per_lane: float = 3.0
+    queue_low_per_lane: float = 0.5
+    hold_ticks: int = 2                  # consecutive readings to act
+    cooldown_s: float = 30.0             # least spacing of transitions
+    # Requests/s a lane serves; > 0 arms the predicted-demand signal.
+    lane_capacity_tps: float = 0.0
+    session_tps: float = 2.0             # steady requests/s a session
+    # The diurnal fit's period (0: off) and how far ahead it looks.
+    diurnal_period_s: float = 86400.0
+    diurnal_horizon_s: float = 300.0
+    # A sidecar config path: the frontend spawns each fleet.sockets
+    # member's unit, and a scale-down stops it ("": operator-owned).
+    unit_config: str = ""
+
+
+@dataclass
 class LoggingConfig:
     level: str = "INFO"
     file: Optional[str] = None           # a time-rolling file appender
@@ -503,21 +565,6 @@ _UNPORTED = {
         "enabled": False, "host": "", "shard-epoch": 1, "ring-seed": "",
         "hash-replicas": 64, "gossip-interval-s": 5.0, "quorum": False,
         "suspect-after-s": 10.0, "roll-ack-timeout-s": 5.0, "members": (),
-    },
-    "loadmodel": {
-        "seed": 1234, "viewers": 10000, "think-time-median-ms": 350.0,
-        "think-time-sigma": 1.0, "session-length-median": 24.0,
-        "session-length-sigma": 1.2, "diurnal-amplitude": 0.6,
-        "bulk-fraction": 0.02, "mask-fraction": 0.0,
-        "pyramid-fraction": 0.0, "animation-fraction": 0.0,
-        "zoom-fraction": 0.05, "skew": 0.0, "image-population": 1,
-    },
-    "autoscaler": {
-        "enabled": False, "interval-s": 2.0, "floor": 1, "ceiling": 0,
-        "queue-high-per-lane": 3.0, "queue-low-per-lane": 0.5,
-        "hold-ticks": 2, "cooldown-s": 30.0, "lane-capacity-tps": 0.0,
-        "session-tps": 2.0, "diurnal-period-s": 86400.0,
-        "diurnal-horizon-s": 300.0, "unit-config": "",
     },
 }
 
@@ -564,6 +611,49 @@ def _check(section: str, block: dict, defaults: dict,
         if _same(value, default) or (default is True and value is False):
             continue
         raise _refuse(name, value)
+
+
+def _federation(fe: dict) -> None:
+    """The JAX loader's checks of the ``federation`` values that hold
+    whether the section is on or off, with its errors and in its order:
+    the members' shape, the epoch, the ring's replicas, the gossip, suspect
+    and roll-ack intervals, and ``quorum`` only with ``enabled``.  The
+    section is not served, so nothing is kept; :func:`_check` refuses a
+    section that is not switched off and holds a value away from the JAX
+    default (``enabled: true`` among them), by name."""
+    d = _UNPORTED["federation"]
+    members = fe.get("members", ()) or ()
+    if not isinstance(members, (list, tuple)):
+        raise ValueError("federation.members must be a list of "
+                         "{name, host, address?} entries")
+    for i, m in enumerate(members):
+        if not isinstance(m, dict) or not m.get("name") \
+                or not m.get("host"):
+            raise ValueError(f"federation.members[{i}] must be a mapping "
+                             f"with at least name and host")
+    enabled = bool(fe.get("enabled", d["enabled"]))
+    shard_epoch = int(fe.get("shard-epoch", d["shard-epoch"]))
+    hash_replicas = int(fe.get("hash-replicas", d["hash-replicas"]))
+    gossip_s = float(fe.get("gossip-interval-s", d["gossip-interval-s"]))
+    quorum = bool(fe.get("quorum", d["quorum"]))
+    suspect_s = float(fe.get("suspect-after-s", d["suspect-after-s"]))
+    roll_ack_s = float(fe.get("roll-ack-timeout-s",
+                              d["roll-ack-timeout-s"]))
+    if shard_epoch < 1:
+        raise ValueError("federation.shard-epoch must be >= 1 "
+                         "(bump it with every membership change)")
+    if hash_replicas < 1:
+        raise ValueError("federation.hash-replicas must be >= 1")
+    if gossip_s <= 0:
+        raise ValueError("federation.gossip-interval-s must be > 0")
+    if suspect_s <= 0:
+        raise ValueError("federation.suspect-after-s must be > 0")
+    if roll_ack_s <= 0:
+        raise ValueError("federation.roll-ack-timeout-s must be > 0")
+    if quorum and not enabled:
+        raise ValueError("federation.quorum requires "
+                         "federation.enabled (quorum is a verdict "
+                         "over manifest hosts)")
 
 
 def _block(raw: dict, name: str) -> dict:
@@ -621,6 +711,8 @@ class AppConfig:
     hotkey: HotkeyConfig = field(default_factory=HotkeyConfig)
     drain: DrainConfig = field(default_factory=DrainConfig)
     parallel: ParallelConfig = field(default_factory=ParallelConfig)
+    loadmodel: LoadModelConfig = field(default_factory=LoadModelConfig)
+    autoscaler: AutoscalerConfig = field(default_factory=AutoscalerConfig)
     # Sections switched on that the port loads but does not serve (none
     # today).
     unserved: Tuple[str, ...] = ()
@@ -697,9 +789,11 @@ class AppConfig:
                                      cfg.raw_cache.digest_dedup)),
             prefetch=bool(rc.get("prefetch", cfg.raw_cache.prefetch)))
         cfg._sessions(_block(raw, "sessions"))
+        cfg._loadmodel(_block(raw, "loadmodel"))
         cfg._sidecar(_block(raw, "sidecar"), _block(raw, "wire"),
                      _block(raw, "fleet"))
         cfg._fleet(_block(raw, "fleet"), _block(raw, "hotkey"))
+        _federation(_block(raw, "federation"))
         cfg._parallel(_block(raw, "parallel"))
         for name, defaults in _UNPORTED.items():
             block = _block(raw, name)
@@ -727,6 +821,7 @@ class AppConfig:
         cfg._persistence(_block(raw, "persistence"))
         cfg._workloads(_block(raw, "workloads"))
         cfg._pyramid(_block(raw, "pyramid"))
+        cfg._autoscaler(_block(raw, "autoscaler"))
         cfg._qos(_block(raw, "qos"))
         if (cfg.renderer.jpeg_engine == "bitpack"
                 and (cfg.batcher.enabled or cfg.parallel.enabled)):
@@ -1359,3 +1454,129 @@ class AppConfig:
                              "or none")
         if self.pyramid.defer_poll_s <= 0:
             raise ValueError("pyramid.defer-poll-s must be > 0")
+
+    def _loadmodel(self, lm: dict) -> None:
+        """The JAX loader's ``loadmodel`` block and its checks, in its
+        order (the generator checks again when it is built)."""
+        d = LoadModelConfig()
+        _check("loadmodel", lm, {}, served=tuple(
+            f.replace("_", "-") for f in d.__dataclass_fields__))
+        self.loadmodel = m = LoadModelConfig(
+            seed=int(lm.get("seed", d.seed)),
+            viewers=int(lm.get("viewers", d.viewers)),
+            think_time_median_ms=float(lm.get("think-time-median-ms",
+                                              d.think_time_median_ms)),
+            think_time_sigma=float(lm.get("think-time-sigma",
+                                          d.think_time_sigma)),
+            session_length_median=float(lm.get("session-length-median",
+                                               d.session_length_median)),
+            session_length_sigma=float(lm.get("session-length-sigma",
+                                              d.session_length_sigma)),
+            diurnal_amplitude=float(lm.get("diurnal-amplitude",
+                                           d.diurnal_amplitude)),
+            bulk_fraction=float(lm.get("bulk-fraction", d.bulk_fraction)),
+            mask_fraction=float(lm.get("mask-fraction", d.mask_fraction)),
+            pyramid_fraction=float(lm.get("pyramid-fraction",
+                                          d.pyramid_fraction)),
+            animation_fraction=float(lm.get("animation-fraction",
+                                            d.animation_fraction)),
+            zoom_fraction=float(lm.get("zoom-fraction", d.zoom_fraction)),
+            skew=float(lm.get("skew", d.skew)),
+            image_population=int(lm.get("image-population",
+                                        d.image_population)))
+        if m.viewers < 1:
+            raise ValueError("loadmodel.viewers must be >= 1")
+        if m.think_time_median_ms <= 0 or m.session_length_median <= 0:
+            raise ValueError("loadmodel medians must be > 0")
+        if m.think_time_sigma < 0 or m.session_length_sigma < 0:
+            raise ValueError("loadmodel sigmas must be >= 0")
+        if not 0.0 <= m.diurnal_amplitude < 1.0:
+            raise ValueError("loadmodel.diurnal-amplitude must be in "
+                             "[0, 1)")
+        for name in ("bulk_fraction", "mask_fraction", "pyramid_fraction",
+                     "animation_fraction", "zoom_fraction"):
+            if not 0.0 <= getattr(m, name) <= 1.0:
+                raise ValueError(f"loadmodel.{name.replace('_', '-')} "
+                                 f"must be in [0, 1]")
+        if (m.bulk_fraction + m.mask_fraction + m.pyramid_fraction
+                + m.animation_fraction) > 1.0:
+            raise ValueError("loadmodel bulk-fraction + mask-fraction "
+                             "+ pyramid-fraction + animation-fraction "
+                             "must sum to <= 1")
+        if m.skew < 0:
+            raise ValueError("loadmodel.skew must be >= 0 "
+                             "(0 = every session on one image)")
+        if m.image_population < 1:
+            raise ValueError("loadmodel.image-population must be >= 1")
+
+    def _autoscaler(self, au: dict) -> None:
+        """The JAX loader's ``autoscaler`` block and its checks, the
+        cross-section ones last, in its order.  The federation is never on
+        here (``federation.enabled`` is refused), so the provisioned fleet
+        is ``fleet.sockets`` or ``fleet.members``."""
+        d = AutoscalerConfig()
+        _check("autoscaler", au, {}, served=tuple(
+            f.replace("_", "-") for f in d.__dataclass_fields__))
+        self.autoscaler = a = AutoscalerConfig(
+            enabled=bool(au.get("enabled", d.enabled)),
+            interval_s=float(au.get("interval-s", d.interval_s)),
+            floor=int(au.get("floor", d.floor)),
+            ceiling=int(au.get("ceiling", d.ceiling)),
+            queue_high_per_lane=float(au.get("queue-high-per-lane",
+                                             d.queue_high_per_lane)),
+            queue_low_per_lane=float(au.get("queue-low-per-lane",
+                                            d.queue_low_per_lane)),
+            hold_ticks=int(au.get("hold-ticks", d.hold_ticks)),
+            cooldown_s=float(au.get("cooldown-s", d.cooldown_s)),
+            lane_capacity_tps=float(au.get("lane-capacity-tps",
+                                           d.lane_capacity_tps)),
+            session_tps=float(au.get("session-tps", d.session_tps)),
+            diurnal_period_s=float(au.get("diurnal-period-s",
+                                          d.diurnal_period_s)),
+            diurnal_horizon_s=float(au.get("diurnal-horizon-s",
+                                           d.diurnal_horizon_s)),
+            unit_config=str(au.get("unit-config", d.unit_config) or ""))
+        if a.interval_s <= 0:
+            raise ValueError("autoscaler.interval-s must be > 0")
+        if a.floor < 1:
+            raise ValueError("autoscaler.floor must be >= 1 (the "
+                             "fleet must always keep a servable "
+                             "member)")
+        if a.ceiling != 0 and a.ceiling < a.floor:
+            raise ValueError("autoscaler.ceiling must be 0 (all "
+                             "members) or >= autoscaler.floor")
+        if not 0 <= a.queue_low_per_lane < a.queue_high_per_lane:
+            raise ValueError(
+                "autoscaler.queue-low-per-lane must be in [0, "
+                "queue-high-per-lane) — the hysteresis band needs "
+                "low < high")
+        if a.hold_ticks < 1:
+            raise ValueError("autoscaler.hold-ticks must be >= 1")
+        if a.cooldown_s < 0:
+            raise ValueError("autoscaler.cooldown-s must be >= 0")
+        if a.lane_capacity_tps < 0:
+            raise ValueError("autoscaler.lane-capacity-tps must be "
+                             ">= 0 (0 disables the demand signal)")
+        if a.session_tps <= 0:
+            raise ValueError("autoscaler.session-tps must be > 0")
+        if a.diurnal_period_s < 0:
+            raise ValueError("autoscaler.diurnal-period-s must be "
+                             ">= 0 (0 disables diurnal prediction)")
+        if a.diurnal_horizon_s < 0:
+            raise ValueError("autoscaler.diurnal-horizon-s must be "
+                             ">= 0")
+        if a.unit_config and not self.fleet.sockets:
+            raise ValueError(
+                "autoscaler.unit-config manages sidecar unit "
+                "processes — it requires the fleet.sockets topology")
+        if a.enabled and not self.fleet.enabled:
+            raise ValueError(
+                "autoscaler.enabled requires a fleet topology "
+                "(fleet.enabled or federation.enabled) — there is "
+                "nothing to scale without members")
+        if a.enabled:
+            provisioned = len(self.fleet.sockets) or self.fleet.members
+            if a.floor > provisioned:
+                raise ValueError(
+                    f"autoscaler.floor ({a.floor}) exceeds the "
+                    f"provisioned fleet size ({provisioned} members)")

@@ -62,8 +62,13 @@ Protocol v3, three legs, each falling back to v2 against an older peer:
   ``hello``: bodies of at least ``wire.ring-min-body-bytes`` ride the ring
   with a ``ring: [offset, length]`` descriptor on the socket.
 
-Left out with the federation: ``SidecarUnit`` and
-``SidecarUnitLifecycle`` and the federation hooks of :func:`run_sidecar`.
+Sidecar units (:class:`SidecarUnit`, :class:`SidecarUnitLifecycle`): with
+``autoscaler.unit-config`` a fleet frontend spawns each ``fleet.sockets``
+member's sidecar itself, and the autoscaler stops a parked member's
+process after its drain and restarts it, waiting for its socket, before
+the undrain.
+
+Left out with the federation: its hooks in :func:`run_sidecar`.
 """
 
 from __future__ import annotations
@@ -1996,3 +2001,102 @@ class SidecarSupervisor:
                 proc.wait(timeout=timeout_s)
             except Exception:
                 proc.kill()
+
+
+class SidecarUnit:
+    """One fleet member's sidecar process as a unit the autoscaler starts
+    and stops: a scale-down terminates it (its card memory is released),
+    a scale-up spawns it again, blocking until its socket accepts.
+    ``spawn_fn`` is injectable (a test supervises a stand-in).  Both moves
+    are idempotent: stopping a stopped unit and starting a live one do
+    nothing, so a retried scale operation never spawns twice."""
+
+    def __init__(self, name: str, spawn_fn):
+        self.name = name
+        self._spawn_fn = spawn_fn
+        self.proc = None
+        self.starts = 0
+        self.stops = 0
+
+    def alive(self) -> bool:
+        return self.proc is not None and self.proc.poll() is None
+
+    def start(self) -> None:
+        """Spawn the unit (the spawn returns once the socket accepts);
+        nothing while its process lives."""
+        if self.alive():
+            return
+        self.proc = self._spawn_fn()
+        self.starts += 1
+        telemetry.FLIGHT.record("autoscale.unit-start", member=self.name)
+        logger.info("sidecar unit %s started (pid %s)", self.name,
+                    getattr(self.proc, "pid", None))
+
+    def stop(self, timeout_s: float = 15.0) -> None:
+        """SIGTERM (the sidecar's shutdown chain runs), kill past
+        ``timeout_s``; nothing when already stopped."""
+        proc = self.proc
+        if proc is None or proc.poll() is not None:
+            return
+        proc.terminate()
+        try:
+            proc.wait(timeout=timeout_s)
+        except Exception:
+            proc.kill()
+        self.stops += 1
+        telemetry.FLIGHT.record("autoscale.unit-stop", member=self.name)
+        logger.info("sidecar unit %s stopped", self.name)
+
+
+class SidecarUnitLifecycle:
+    """Member name -> :class:`SidecarUnit`, the hooks
+    ``server.autoscaler.Autoscaler(lifecycle=...)`` drives: ``stop`` after
+    the member's drain settled (the handoff needs the live process),
+    ``start`` before its undrain (no route lands on a dead socket).  An
+    unknown name does nothing: a fleet may manage part of its members."""
+
+    def __init__(self, units: Dict[str, SidecarUnit]):
+        self.units = dict(units)
+
+    @classmethod
+    def for_config(cls, config_path: str,
+                   sockets_by_member: Dict[str, str]
+                   ) -> "SidecarUnitLifecycle":
+        """One unit per member, each spawned from the sidecar config
+        ``config_path`` (``autoscaler.unit-config``) on its own socket."""
+        return cls({name: SidecarUnit(
+            name, lambda sock=sock: spawn_sidecar(config_path, sock))
+            for name, sock in sockets_by_member.items()})
+
+    def start(self, name: str) -> None:
+        unit = self.units.get(name)
+        if unit is not None:
+            unit.start()
+
+    def stop(self, name: str) -> None:
+        unit = self.units.get(name)
+        if unit is not None:
+            unit.stop()
+
+    def start_all(self) -> None:
+        """Spawn every unit at once (each start blocks until its socket
+        accepts, and a sidecar's start takes seconds)."""
+        import concurrent.futures as cf
+
+        units = list(self.units.values())
+        if len(units) <= 1:
+            for unit in units:
+                unit.start()
+            return
+        with cf.ThreadPoolExecutor(max_workers=len(units),
+                                   thread_name_prefix="unit-start") as pool:
+            for fut in [pool.submit(u.start) for u in units]:
+                fut.result()
+
+    def stop_all(self) -> None:
+        for unit in self.units.values():
+            unit.stop()
+
+    def alive(self, name: str) -> bool:
+        unit = self.units.get(name)
+        return unit is not None and unit.alive()

@@ -8,10 +8,14 @@ closed vocabulary (``telemetry.DecisionStats.KINDS`` / ``VERDICTS``, the
 JAX package's, so the cardinality budget bounds
 ``imageregion_decision_total{kind,verdict}``).  In the port the perf
 sentinel (``server.sentinel``) writes ``kind=sentinel`` with ``drift`` and
-``recovered``, and the fleet (``parallel.fleet``) its drains (``drain``,
+``recovered``, the fleet (``parallel.fleet``) its drains (``drain``,
 ``handoff``, ``undrain``) and hot-key promotions and demotions
-(``hotkey``).  The autoscaler, epoch, manifest and gossip writers come
-with the federation.  Each record also fires a
+(``hotkey``), and the autoscaler (``server.autoscaler``) ``kind=autoscaler``:
+one record for each change of its tick's verdict (``up``, ``down``,
+``blocked``, ``steady``) with the signals it read, and the measured outcome
+(the queue and the active members) attached ``outcome_horizon_ticks`` ticks
+later by :meth:`DecisionLedger.resolve`.  The epoch, manifest and gossip
+writers come with the federation.  Each record also fires a
 ``decision.<kind>`` flight event, so the black box and the ledger tell one
 story.
 
@@ -19,9 +23,7 @@ Storage is the flight recorder's shape: an append-only bounded ring
 (``/debug/decisions`` snapshots it) and an optional JSONL spool
 (``decisions.jsonl``, one-file rotation).  Recording never fails the
 control plane: a word outside the vocabulary is dropped with a warning,
-spool errors are counted and swallowed.  ``outcome_horizon_ticks`` is
-kept for the autoscaler's measured outcomes (:meth:`DecisionLedger
-.resolve`).
+spool errors are counted and swallowed.
 """
 
 from __future__ import annotations

@@ -63,7 +63,11 @@ by member), :data:`HOTKEY` (hot-plane replication), :data:`DRAIN` (drain
 states and the handoff's planes), the peer byte fetch's counters in
 :data:`HTTPCACHE`, :func:`fleet_metric_lines` (with a live router, the
 per-member gauges) and the flight recorder's member stamp
-(:meth:`FlightRecorder.set_member`, set by a sidecar's ``hello``).  The shape-cost estimate is the port's own
+(:meth:`FlightRecorder.set_member`, set by a sidecar's ``hello``).  The
+elastic control plane's: :data:`AUTOSCALER` (``server.autoscaler``: members
+active, the floor and ceiling, transitions, refusals) in the resilience
+families, and :data:`LOADMODEL` (``services.loadmodel``: arrivals offered,
+completed, shed and late) in the session families, as in JAX.  The shape-cost estimate is the port's own
 kernel count, not XLA's ``cost_analysis()`` (:class:`ShapeCostModel`).
 
 Nothing here imports ``torch`` at module level (:func:`capture_profile`
@@ -849,8 +853,8 @@ class HotkeyStats(_MemberCounts):
     """Hot-plane replication: promotions, demotions, replica planes
     staged, the never-double-stage counter (held at 0), balanced reads by
     the non-owner replica that served them, and the hot-route and
-    replica-pressure gauges (the latter the autoscaler's signal: 0 until
-    the autoscaler is ported, as in a JAX app without one)."""
+    replica-pressure gauges (the latter the autoscaler's signal, set by
+    ``FleetRouter.replica_pressure``)."""
 
     def __init__(self):
         super().__init__()
@@ -884,6 +888,10 @@ class HotkeyStats(_MemberCounts):
     def set_hot_routes(self, n: int) -> None:
         with self._lock:
             self.hot_routes = int(n)
+
+    def set_pressure(self, value: float) -> None:
+        with self._lock:
+            self.replica_pressure = float(value)
 
     def totals(self) -> Dict[str, float]:
         with self._lock:
@@ -976,6 +984,115 @@ class DrainStats(_MemberCounts):
 
 
 DRAIN = DrainStats()
+
+
+class AutoscalerStats:
+    """The elastic autoscaler (``server.autoscaler``): the active-member
+    gauge and the floor and ceiling, transitions by direction and refused
+    decisions by reason.  Both label sets are closed: ``action`` is up or
+    down, ``reason`` one of ``autoscaler.BLOCKED_REASONS``.  Quiet until
+    an autoscaler is live."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.active = 0
+        self.floor = 0
+        self.ceiling = 0
+        self.transitions: Dict[str, int] = {}
+        self.blocked: Dict[str, int] = {}
+
+    def set_active(self, n: int) -> None:
+        with self._lock:
+            self.active = int(n)
+
+    def set_bounds(self, floor: int, ceiling: int) -> None:
+        with self._lock:
+            self.floor = int(floor)
+            self.ceiling = int(ceiling)
+
+    def count_transition(self, action: str) -> None:
+        with self._lock:
+            self.transitions[action] = self.transitions.get(action, 0) + 1
+
+    def count_blocked(self, reason: str) -> None:
+        with self._lock:
+            self.blocked[reason] = self.blocked.get(reason, 0) + 1
+
+    def metric_lines(self) -> List[str]:
+        with self._lock:
+            if not (self.active or self.transitions or self.blocked):
+                return []
+            return ([
+                f"imageregion_autoscaler_active_members {self.active}",
+                f"imageregion_autoscaler_floor {self.floor}",
+                f"imageregion_autoscaler_ceiling {self.ceiling}"]
+                + [f'imageregion_autoscaler_transitions_total'
+                   f'{{action="{a}"}} {self.transitions[a]}'
+                   for a in sorted(self.transitions)]
+                + [f'imageregion_autoscaler_blocked_total'
+                   f'{{reason="{r}"}} {self.blocked[r]}'
+                   for r in sorted(self.blocked)])
+
+    def reset(self) -> None:
+        with self._lock:
+            self.active = self.floor = self.ceiling = 0
+            self.transitions.clear()
+            self.blocked.clear()
+
+
+AUTOSCALER = AutoscalerStats()
+
+
+class LoadModelStats:
+    """The open-loop load model (``services.loadmodel``): arrivals offered
+    and completed by request class (the closed ``loadmodel.CLASSES``),
+    sheds, and arrivals fired behind schedule (the open-loop integrity
+    counter).  Quiet until a process replays arrivals."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.offered: Dict[str, int] = {}
+        self.completed: Dict[str, int] = {}
+        self.sheds = 0
+        self.late = 0
+
+    def count_offered(self, cls: str) -> None:
+        with self._lock:
+            self.offered[cls] = self.offered.get(cls, 0) + 1
+
+    def count_completed(self, cls: str) -> None:
+        with self._lock:
+            self.completed[cls] = self.completed.get(cls, 0) + 1
+
+    def count_shed(self) -> None:
+        with self._lock:
+            self.sheds += 1
+
+    def count_late(self) -> None:
+        with self._lock:
+            self.late += 1
+
+    def metric_lines(self) -> List[str]:
+        with self._lock:
+            if not (self.offered or self.sheds or self.late):
+                return []
+            return ([f"imageregion_loadmodel_shed_total {self.sheds}",
+                     f"imageregion_loadmodel_late_fires_total {self.late}"]
+                    + [f'imageregion_loadmodel_offered_total'
+                       f'{{class="{c}"}} {self.offered[c]}'
+                       for c in sorted(self.offered)]
+                    + [f'imageregion_loadmodel_completed_total'
+                       f'{{class="{c}"}} {self.completed[c]}'
+                       for c in sorted(self.completed)])
+
+    def reset(self) -> None:
+        with self._lock:
+            self.offered.clear()
+            self.completed.clear()
+            self.sheds = self.late = 0
+
+
+LOADMODEL = LoadModelStats()
 
 
 class HttpCacheStats:
@@ -2586,7 +2703,8 @@ def resilience_metric_lines(breaker=None) -> List[str]:
               f"imageregion_supervisor_restarts_total {restarts}"]
     lines += RESILIENCE.attempts_hist.series("imageregion_retry_attempts")
     return (lines + PRESSURE.metric_lines() + WATCHDOG.metric_lines()
-            + DRAIN.metric_lines() + DECISIONS.metric_lines()
+            + DRAIN.metric_lines() + AUTOSCALER.metric_lines()
+            + DECISIONS.metric_lines()
             + WORKLOADS.metric_lines() + WIRE.metric_lines())
 
 
@@ -2643,9 +2761,11 @@ def with_label(lines: List[str], label: str) -> List[str]:
 
 
 def session_metric_lines() -> List[str]:
-    """The session model's, the prefetcher's and the QoS families."""
+    """The session model's, the prefetcher's and the QoS families, and the
+    open-loop load model's counters (only a process replaying arrivals
+    carries them)."""
     return (SESSIONS.metric_lines() + PREFETCH.metric_lines()
-            + QOS.metric_lines())
+            + QOS.metric_lines() + LOADMODEL.metric_lines())
 
 
 def device_metric_lines(services) -> List[str]:
@@ -2719,6 +2839,8 @@ def reset() -> None:
     FLEET.reset()
     HOTKEY.reset()
     DRAIN.reset()
+    AUTOSCALER.reset()
+    LOADMODEL.reset()
     WORKLOADS.reset()
     SESSIONS.reset()
     PREFETCH.reset()

@@ -4,7 +4,9 @@
 serves get the values the JAX ``AppConfig.from_dict`` gives them (the
 OMERO deployment's keys too: ``session-store`` type, uri and required,
 ``metadata-service``, ``omero.data.dir``, ``raw-cache.prefetch`` and
-``sessions``); an unported setting away from its JAX default, or an
+``sessions``, ``loadmodel`` and ``autoscaler``); a switched-off
+``federation`` or ``autoscaler`` section has its values checked with the
+JAX loader's messages; an unported setting away from its JAX default, or an
 unknown key in a served section, is refused with its name; without
 ``asyncpg`` and ``redis`` both apps degrade alike, with the same warning
 or the same ``ValueError``; and
@@ -135,7 +137,6 @@ def test_unported_defaults_are_the_jax_defaults():
     # ignores it).
     ({"sessions": {"enabled": True, "enabled-for": "all"}},
      "sessions.enabled"),
-    ({"autoscaler": {"interval-s": 4.0}}, "autoscaler.interval-s"),
     ({"sidecar": {"role": "split", "socket": "/tmp/s", "workers": 2}},
      "sidecar.workers"),
     ({"renderer": {"kernel": "pallas"}}, "renderer.kernel"),
@@ -151,7 +152,6 @@ def test_unported_defaults_are_the_jax_defaults():
     ({"parallel": {"chan-parallel": 2, "pod-timeout-s": 5}},
      "parallel.pod-timeout-s"),
     ({"wire": {"ring-bytes": 0, "compression": "lz4"}}, "wire.compression"),
-    ({"loadmodel": {"viewers": 10}}, "loadmodel.viewers"),
     ({"workloads": {"unknown-key": 1}}, "workloads.unknown-key"),
 ])
 def test_an_unported_setting_is_refused_by_name(raw, name):
@@ -207,6 +207,29 @@ def test_an_unported_setting_is_refused_by_name(raw, name):
     ({"sidecar": {"role": "frontend"}},
      "sidecar.role 'frontend' requires sidecar.socket (or an enabled "
      "fleet.sockets list)"),
+    # The load model and the autoscaler, with the JAX loader's
+    # cross-section errors.
+    ({"autoscaler": {"interval-s": 4.0}}, None),
+    ({"loadmodel": {"viewers": 10}}, None),
+    ({"loadmodel": {"seed": 7, "skew": 1.5, "image-population": 40,
+                    "bulk-fraction": 0.1, "diurnal-amplitude": 0.0}}, None),
+    ({"fleet": {"enabled": True, "members": 3},
+      "autoscaler": {"enabled": True, "floor": 2, "ceiling": 3,
+                     "cooldown-s": 3, "hold-ticks": 1,
+                     "lane-capacity-tps": 10}}, None),
+    ({"fleet": {"enabled": True, "sockets": ["/tmp/a.sock", "/tmp/b.sock"]},
+      "sidecar": {"role": "frontend"},
+      "autoscaler": {"enabled": True, "unit-config": "/etc/sc.yaml"}}, None),
+    ({"autoscaler": {"enabled": True}},
+     "autoscaler.enabled requires a fleet topology"),
+    ({"fleet": {"enabled": True, "members": 2},
+      "autoscaler": {"enabled": True, "floor": 3}},
+     "autoscaler.floor (3) exceeds the provisioned fleet size (2 members)"),
+    ({"autoscaler": {"queue-low-per-lane": 3.0}},
+     "autoscaler.queue-low-per-lane must be in [0, queue-high-per-lane)"),
+    ({"loadmodel": {"bulk-fraction": 0.6, "mask-fraction": 0.6}},
+     "loadmodel bulk-fraction + mask-fraction + pyramid-fraction + "
+     "animation-fraction must sum to <= 1"),
 ])
 def test_a_lifted_setting_loads_as_in_jax(raw, refused):
     """Each setting this port once refused loads in both loaders with the
@@ -234,6 +257,72 @@ def test_a_lifted_setting_loads_as_in_jax(raw, refused):
 def test_switching_off_a_missing_feature_loads(raw):
     JaxConfig.from_dict(raw)
     AppConfig.from_dict(raw)
+
+
+@pytest.mark.parametrize("raw, error", [
+    ({"federation": {"enabled": False, "quorum": True}},
+     "federation.quorum requires federation.enabled (quorum is a verdict "
+     "over manifest hosts)"),
+    ({"federation": {"enabled": False, "hash-replicas": 0}},
+     "federation.hash-replicas must be >= 1"),
+    ({"autoscaler": {"enabled": False, "floor": 0}},
+     "autoscaler.floor must be >= 1 (the fleet must always keep a "
+     "servable member)"),
+    ({"autoscaler": {"enabled": False, "unit-config": "x"}},
+     "autoscaler.unit-config manages sidecar unit processes — it requires "
+     "the fleet.sockets topology"),
+])
+def test_a_switched_off_section_is_checked_as_in_jax(raw, error):
+    """A section switched off still has its values checked, with the JAX
+    loader's message, in both loaders."""
+    for loader in (JaxConfig, AppConfig):
+        with pytest.raises(ValueError) as e:
+            loader.from_dict(raw)
+        assert str(e.value) == error
+
+
+def _example_leaves():
+    import yaml
+
+    with open(EXAMPLE) as f:
+        example = yaml.safe_load(f)
+    return example, [(section, key) for section in
+                     ("federation", "autoscaler", "loadmodel")
+                     for key in example[section]]
+
+
+@pytest.mark.parametrize("section, key", _example_leaves()[1],
+                         ids=lambda v: v)
+def test_each_leaf_of_the_elastic_sections_loads_as_in_jax(section, key):
+    """``conf/config.example.yaml`` with one leaf of ``federation``,
+    ``autoscaler`` or ``loadmodel`` changed (a flipped boolean, or 0, -1,
+    0.5 and a bogus string), the sections as the example has them
+    (``federation`` and ``autoscaler`` switched off): the port loads what
+    JAX loads and refuses the rest with JAX's exception and message.  The
+    one exception is ``federation.enabled: true``, refused by name."""
+    import copy
+
+    example = _example_leaves()[0]
+    value = example[section][key]
+    for changed in ([not value] if isinstance(value, bool)
+                    else [0, -1, 0.5, "bogus"]):
+        raw = copy.deepcopy(example)
+        raw[section][key] = changed
+        outcomes = []
+        for loader in (JaxConfig, AppConfig):
+            try:
+                loaded = loader.from_dict(raw)
+                outcomes.append(("loaded", dataclasses.asdict(
+                    getattr(loaded, section)) if section != "federation"
+                    else None))
+            except Exception as e:
+                outcomes.append((type(e).__name__, str(e)))
+        if (section, key, changed) == ("federation", "enabled", True):
+            assert outcomes[0][0] == "loaded"
+            assert outcomes[1][1].startswith("federation.enabled: True is "
+                                             "not served")
+            continue
+        assert outcomes[1] == outcomes[0], (key, changed)
 
 
 @pytest.mark.parametrize("raw, outcome", [
