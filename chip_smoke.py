@@ -380,6 +380,39 @@ Phases (any failure ends the run with a non-zero exit and no result line):
            undrain; every body byte-equal to the default app's; cleanup
            stops both units.  Latencies are printed, never gated (every
            member shares the one card);
+5e. federation three federation hosts on the one card: host A is this
+           process's combined app (``federation.enabled``, member a0
+           in-process), hosts B and C two ``--role sidecar`` processes
+           owning b0 and c0 (``quorum: true``, ``suspect-after-s`` 2,
+           ``gossip-interval-s`` 0.5, ring seed ``fed-epoch-1``, shard
+           epoch 1), started after every kernel is built.  Legs, in order:
+           join (the startup's strict agreement; one digest on all three;
+           each process's own ring, B's and C's read over
+           ``manifest_hello``, gives the 64 tiles' route keys the owners
+           this script's seeded BLAKE2b ring computes); serve (48 cold
+           flagship tiles at 8 in flight, the same 48 warm, and two LUT
+           GETs, one owned by a0 and one by b0: every body byte-equal to
+           the default app's, every tile served by its ring owner; cold
+           and warm p50 and tiles/s, the ``fed.hop`` spans of one traced
+           agreement and gossip round, this process's K1, K2, K3, K4a,
+           K4b and K10 launches, each required); epoch roll
+           (``roll_epoch`` to epoch 2 with seed ``fed-epoch-2`` while 8
+           GETs are in flight: committed on all three hosts, the probes'
+           owners moved on every host, no GET failed, the 48 tiles then
+           on their new owners); cross-host drain (``POST /admin/drain``
+           of a0, the in-process member: its raw-cache planes shipped to
+           the successors over ``shard_transfer``, planes, bytes and ms;
+           its tiles then served elsewhere with a raw-cache hit rate of at
+           least 0.8; undrain); netsplit (``partition`` rules cut host C
+           off both ways: C fences within suspect-after-s plus a jittered
+           interval while A and B stay quorate, refuses a roll's propose
+           and an inbound staging, c0's tiles fail over with no 5xx but
+           sheds; after the heal C is quorate again; seconds to fence and
+           to restore); death (host B's process killed with 8 GETs in
+           flight: no 5xx but sheds, its tiles then served elsewhere,
+           ``/readyz`` 200).  The drain leg drains a0, not b0: as in JAX,
+           a drain ships bytes only from an in-process drainer (a remote
+           drainer's successors re-read the plane from their own store).
 5c. mesh   (a) K12a ``composite_partial`` and K12b ``composite_pack``
            (``kernels/csrc/mesh.cu``, the mesh step's partial composite
            and ordered pack) against their plain versions at B=8 and B=1,
@@ -433,7 +466,7 @@ e2e run's cold misses for K10, the mesh app's GETs for K12a and K12b;
 ``workload_launches``: each
 kernel's launches in each of those phases, readers, pyramid, omero,
 prefetch, huffman, byte_cache, bitpack, growth, forensics, pressure,
-fleet and autoscale included), then the
+fleet, autoscale and federation (this process's serve leg) included), then the
 nvidia-smi line,
 and last ``{"ok": true, "device": {...}}``.  It imports nothing of JAX.
 """
@@ -2310,6 +2343,9 @@ class Client:
                 answer = self.front.admin_undrain(member)
             elif parts.path == "/admin/autoscaler":
                 answer = self.front.admin_autoscaler()
+            elif parts.path == "/admin/federation":
+                answer = await self.front.admin_federation(
+                    bool(dict(parse_qsl(parts.query)).get("agree")))
             else:
                 answer = SimpleAnswer(200, {}, self.front.metrics_text()
                                       .encode())
@@ -5988,6 +6024,460 @@ class ServerLife:
         return out
 
 
+# ------------------------------------------------------ federation phase
+
+FED_HOSTS = ("hostA", "hostB", "hostC")
+FED_MEMBERS = ("a0", "b0", "c0")
+FED_SEEDS = ("fed-epoch-1", "fed-epoch-2")
+FED_SUSPECT_S = 2.0
+FED_GOSSIP_S = 0.5
+LUT_CH = CH.replace("$00FF00", "$smoke.lut")
+
+
+def seeded_ring_owner(members, key: str, seed: str, points: int = 64) -> str:
+    """:func:`ring_owner` with a federation's ring seed: ``"<seed>|"``
+    before every point's and the key's string, computed here without the
+    port."""
+    import bisect
+    import hashlib
+
+    def point(s: str) -> int:
+        return int.from_bytes(hashlib.blake2b(
+            s.encode(), digest_size=8).digest(), "big")
+    ring = sorted((point(f"{seed}|{m}#{v}"), m) for m in members
+                  for v in range(points))
+    i = bisect.bisect([p for p, _ in ring], point(f"{seed}|{key}")) % len(
+        ring)
+    return ring[i][1]
+
+
+def fed_owner(xy, seed: str) -> str:
+    return seeded_ring_owner(FED_MEMBERS, tile_route(*xy), seed)
+
+
+def fed_block(host: str, socks: dict) -> dict:
+    """The three hosts' ``federation`` section: a0 in the smoke's own
+    process, b0 and c0 on the sidecars' sockets; quorum on."""
+    return {"enabled": True, "host": host, "quorum": True,
+            "shard-epoch": 1, "ring-seed": FED_SEEDS[0],
+            "gossip-interval-s": FED_GOSSIP_S,
+            "suspect-after-s": FED_SUSPECT_S,
+            "members": [{"name": "a0", "host": "hostA"},
+                        {"name": "b0", "host": "hostB",
+                         "address": socks["hostB"]},
+                        {"name": "c0", "host": "hostC",
+                         "address": socks["hostC"]}]}
+
+
+def tier_of(headers) -> str:
+    """The provenance header's byte source tier (``-``: none)."""
+    for part in (headers.get("X-Image-Region-Provenance") or "").split("; "):
+        if part.startswith("tier="):
+            return part[len("tier="):]
+    return "-"
+
+
+def lut_tile(xy):
+    return ("render_image_region",
+            {"tile": f"0,{xy[0]},{xy[1]},{TILE},{TILE}", "c": LUT_CH,
+             "m": "c", "format": "jpeg"})
+
+
+async def reference_bodies(data_dir, lut_root, have_aiohttp, reqs) -> list:
+    """The default app's bodies of ``reqs``."""
+    from omero_ms_image_region_tpu_torch.server.config import AppConfig
+
+    ref = Client(AppConfig.from_dict({
+        "data-dir": data_dir,
+        "omero.server": {"omero.script_repo_root": lut_root},
+        "raw-cache": {"prefetch": False}}), None, have_aiohttp)
+    await ref.start()
+    try:
+        out = [await ref.request(*r) for r in reqs]
+        check(all(s == 200 for s, *_ in out),
+              "federation: the default app failed a reference GET")
+        return [body for _, _, body, _ in out]
+    finally:
+        await ref.stop()
+
+
+def federation_phase(data_dir, lut_root, have_aiohttp, want: dict,
+                     smi: str) -> dict:
+    """The module docstring's ``federation:``: three hosts on the card,
+    this process's federated app (host A) and two ``--role sidecar``
+    processes (hosts B and C).  Returns this process's launches over the
+    serve leg."""
+    import signal
+
+    from omero_ms_image_region_tpu_torch.server import sidecar as SC
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="fed-")
+    socks = {h: os.path.join(tmp, f"{h}.sock") for h in FED_HOSTS[1:]}
+    logs, children = {}, {}
+    for host, sock in socks.items():
+        conf = os.path.join(tmp, f"{host}.yaml")
+        with open(conf, "w") as f:
+            json.dump({"data-dir": data_dir,
+                       "omero.server": {"omero.script_repo_root": lut_root},
+                       "raw-cache": {"prefetch": False},
+                       "federation": fed_block(host, socks)}, f)
+        logs[host] = open(os.path.join(tmp, f"{host}.log"), "w")
+        children[host] = subprocess.Popen(
+            [sys.executable, "-m", "omero_ms_image_region_tpu_torch.server",
+             "--role", "sidecar", "--sidecar-socket", sock, "--config",
+             conf, "--device", DEVICE],
+            stdout=logs[host], stderr=subprocess.STDOUT,
+            env=dict(os.environ, PYTHONPATH=os.getcwd()))
+    doc: dict = {"card": smi, "hosts": list(FED_HOSTS),
+                 "members": dict(zip(FED_MEMBERS, FED_HOSTS)),
+                 "suspect_after_s": FED_SUSPECT_S,
+                 "gossip_interval_s": FED_GOSSIP_S}
+    try:
+        for host, child in children.items():
+            SC.wait_sidecar_socket(child, socks[host])
+        doc["sidecars_start_s"] = time.perf_counter() - t_phase
+        asyncio.run(federation_legs(data_dir, lut_root, have_aiohttp, want,
+                                    socks, children, doc))
+    except Exception:
+        for host, log in logs.items():
+            log.flush()
+            with open(log.name) as f:
+                tail = f.read()[-3000:]
+            print(f"federation: {host}'s log tail:\n{tail}", flush=True)
+        raise
+    finally:
+        for child in children.values():
+            if child.poll() is None:
+                child.send_signal(signal.SIGTERM)
+        for child in children.values():
+            try:
+                child.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                child.kill()
+                child.wait()
+        for log in logs.values():
+            log.close()
+    doc["phase_s"] = time.perf_counter() - t_phase
+    print("federation: " + json.dumps(doc), flush=True)
+    return doc["serve"]["launches"]
+
+
+async def federation_legs(data_dir, lut_root, have_aiohttp, want: dict,
+                          socks: dict, children: dict, doc: dict) -> None:
+    """The six legs: join, serve, epoch roll, cross-host drain, netsplit,
+    death."""
+    from omero_ms_image_region_tpu_torch.parallel import federation as F
+    from omero_ms_image_region_tpu_torch.server import sidecar as SC
+    from omero_ms_image_region_tpu_torch.server.config import AppConfig
+    from omero_ms_image_region_tpu_torch.utils import faultinject, telemetry
+
+    grid = [(x, y) for y in range(AUTOSCALE_GRID)
+            for x in range(AUTOSCALE_GRID)]
+    routes = [tile_route(*xy) for xy in grid]          # the 64 probes
+    luts = [next(xy for xy in grid if fed_owner(xy, FED_SEEDS[0]) == m)
+            for m in ("a0", "b0")]
+    lut_want = await reference_bodies(data_dir, lut_root, have_aiohttp,
+                                      [lut_tile(xy) for xy in luts])
+    config = AppConfig.from_dict({
+        "data-dir": data_dir,
+        "omero.server": {"omero.script_repo_root": lut_root},
+        "raw-cache": {"prefetch": False},
+        "telemetry": {"provenance-header": True,
+                      "ready-max-queue-depth": 1_000_000},
+        # No stealing: every tile is served by its ring owner.
+        "fleet": {"steal-min-backlog": 0},
+        "federation": fed_block("hostA", socks)})
+    client = Client(config, None, have_aiohttp)
+    await client.start()
+    front = client.app_front
+    router, coord = front.router, front.federation
+    check(coord is not None and router.order == list(FED_MEMBERS),
+          "federation: the app built no federation over a0, b0, c0")
+    gossip = None
+    if client.via == "front":
+        # The app's startup does this over HTTP.
+        await coord.agree(strict=True)
+        gossip = asyncio.create_task(coord.run())
+    # Control clients, unstamped (never partitioned) and breakerless.
+    ctl = {h: SC.SidecarClient(s, breaker=None) for h, s in socks.items()}
+
+    async def op(host, name, **extra):
+        status, body = await ctl[host].call(name, {}, extra=extra)
+        check(status == 200, f"federation: {name} on {host}: {status}")
+        return json.loads(bytes(body).decode())
+
+    async def owners_everywhere(manifest):
+        """Each host's own ring over the 64 probes, and its digest."""
+        owners = {"hostA": [router.ring.member(k) for k in routes]}
+        digests = {"hostA": F.current().digest()}
+        for host in FED_HOSTS[1:]:
+            answer = await op(host, "manifest_hello",
+                              manifest=manifest.to_json(),
+                              probe_keys=routes, from_host="hostA")
+            check(answer.get("agreed") is True,
+                  f"federation: {host} did not agree: {answer}")
+            owners[host], digests[host] = answer["owners"], answer["digest"]
+        want_owners = [seeded_ring_owner(FED_MEMBERS, k, manifest.ring_seed)
+                       for k in routes]
+        for host, mine in owners.items():
+            check(mine == want_owners,
+                  f"federation: {host}'s ring disagrees with the seeded "
+                  f"ring over the probes")
+        check(set(digests.values()) == {manifest.digest()},
+              f"federation: the digests differ: {digests}")
+        return {"digest": manifest.digest(), "epoch": manifest.version,
+                "owners": {m: want_owners.count(m) for m in FED_MEMBERS}}
+
+    async def gets(reqs, depth=8):
+        sem = asyncio.Semaphore(depth)
+
+        async def one(r):
+            async with sem:
+                return await client.request(*r)
+        t0 = time.perf_counter()
+        out = await asyncio.gather(*(one(r) for r in reqs))
+        return out, time.perf_counter() - t0
+
+    def checked(leg, tiles, out, seed=None, allow_shed=False,
+                avoid=None) -> dict:
+        """Every 200 is the default app's body (on the seed's owner, or
+        not on ``avoid``); a 503 is a shed where allowed; nothing else."""
+        counts = {"200": 0, "503": 0}
+        for xy, (status, headers, body, _) in zip(tiles, out):
+            if status == 503 and allow_shed:
+                counts["503"] += 1
+                continue
+            check(status == 200, f"federation {leg}: HTTP {status} for "
+                                 f"{xy}")
+            check(body == want[xy], f"federation {leg}: {xy} differs from "
+                                    f"the default app's body")
+            member = member_of(headers)
+            if seed is not None:
+                check(member == fed_owner(xy, seed),
+                      f"federation {leg}: {xy} served by {member}, not "
+                      f"its ring owner {fed_owner(xy, seed)}")
+            check(member != avoid, f"federation {leg}: {xy} served by "
+                                   f"{avoid}")
+            counts["200"] += 1
+        return counts
+
+    try:
+        # 1. Join: one digest, each host's own ring over 64 probes.
+        check(coord.agreement == {"b0": "agreed", "c0": "agreed"},
+              f"federation: the startup agreement {coord.agreement}")
+        doc["join"] = await owners_everywhere(coord.manifest)
+        doc["join"]["agreement"] = dict(coord.agreement)
+
+        # 2. Serve: 48 cold, the same 48 warm, the LUT GETs.
+        serve = grid[:48]
+        reset_launch_counts()
+        cold, cold_wall = await gets([autoscale_tile(*xy) for xy in serve])
+        doc_serve = {"cold": checked("cold", serve, cold, FED_SEEDS[0])}
+        warm, warm_wall = await gets([autoscale_tile(*xy) for xy in serve])
+        doc_serve["warm"] = checked("warm", serve, warm, FED_SEEDS[0])
+        lut = [await client.request(*lut_tile(xy)) for xy in luts]
+        for xy, body, (status, headers, got, _) in zip(luts, lut_want, lut):
+            check(status == 200 and got == body
+                  and member_of(headers) == fed_owner(xy, FED_SEEDS[0]),
+                  f"federation: the LUT GET of {xy} ({status}, "
+                  f"{member_of(headers)}) differs from the default app's")
+        launches = launch_counts()
+        for name in ("render_ramp", "render_lut", *SPARSE_WIRE, "unpack16"):
+            check(launches[name] >= 1, f"federation: {name} was not "
+                                       f"launched by the serve leg")
+        served_by = {m: sum(member_of(h) == m for _, h, _, _ in cold)
+                     for m in FED_MEMBERS}
+        check(all(served_by.values()), f"federation: a member served "
+                                       f"nothing: {served_by}")
+        # fed.hop: any the GETs' traces hold (the peer byte tier's), and
+        # one traced agreement and gossip round with the two other hosts.
+        get_hops = sum(sp["name"] == "fed.hop"
+                       for tr in telemetry.TRACES.recent()
+                       for sp in tr.export_spans())
+        tid = telemetry.new_trace_id()
+        with telemetry.trace_scope(tid):
+            await coord.agree(strict=True)
+            await coord.gossip_once()
+        hops = [sp for sp in telemetry.TRACES.finish(tid).export_spans()
+                if sp["name"] == "fed.hop"]
+        doc_serve.update({
+            "tiles": len(serve), "in_flight": 8,
+            "cold_p50_ms": statistics.median(ms for *_, ms in cold),
+            "warm_p50_ms": statistics.median(ms for *_, ms in warm),
+            "cold_tiles_per_s": len(serve) / cold_wall,
+            "warm_tiles_per_s": len(serve) / warm_wall,
+            "warm_tiers": {t: sum(tier_of(h) == t for _, h, _, _ in warm)
+                           for t in {tier_of(h) for _, h, _, _ in warm}},
+            "served_by": served_by,
+            "lut_gets": [[list(xy), fed_owner(xy, FED_SEEDS[0])]
+                         for xy in luts],
+            "fed_hop": {"count": len(hops),
+                        "p50_ms": (statistics.median(
+                            sp["dur_ms"] for sp in hops) if hops else None),
+                        "kinds": sorted({sp.get("kind") for sp in hops}),
+                        "in_get_traces": get_hops},
+            "launches": launches})
+        doc["serve"] = doc_serve
+        check(len(hops) >= 4, f"federation: {len(hops)} fed.hop spans in "
+                              f"a traced agreement and gossip round")
+
+        # 3. The epoch roll with 8 GETs in flight.
+        new = F.FleetManifest(coord.manifest.members, version=2,
+                              ring_seed=FED_SEEDS[1],
+                              replicas=coord.manifest.replicas)
+        during = grid[48:56]
+        inflight = asyncio.ensure_future(
+            gets([autoscale_tile(*xy) for xy in during]))
+        await asyncio.sleep(0)
+        t0 = time.perf_counter()
+        rolled = await coord.roll_epoch(new)
+        roll_ms = (time.perf_counter() - t0) * 1e3
+        out, _ = await inflight
+        check(rolled["committed"] and rolled["acks"] == 3
+              and rolled["verdicts"] == {"hostB": "installed",
+                                         "hostC": "installed"},
+              f"federation: the roll did not commit on every host: "
+              f"{rolled}")
+        doc["roll"] = {"ms": roll_ms, "acks": rolled["acks"],
+                       "verdicts": rolled["verdicts"],
+                       "gets_in_flight": checked("roll", during, out)}
+        doc["roll"].update(await owners_everywhere(new))
+        moved = sum(fed_owner(xy, FED_SEEDS[0]) != fed_owner(xy, FED_SEEDS[1])
+                    for xy in grid)
+        doc["roll"]["probes_moved"] = moved
+        post, _ = await gets([autoscale_tile(*xy) for xy in serve])
+        doc["roll"]["after"] = checked("after roll", serve, post,
+                                       FED_SEEDS[1])
+
+        # 4. The cross-host drain of a0: its warm planes ship to the
+        # successors over shard_transfer.
+        mine = [xy for xy in serve if fed_owner(xy, FED_SEEDS[1]) == "a0"]
+        check(mine, "federation: a0 owns none of the served tiles")
+        n0, b0_ = (telemetry.FEDERATION.shard_transfers,
+                   telemetry.FEDERATION.transfer_bytes)
+        t0 = time.perf_counter()
+        status, _, body, _ = await client.request_path(
+            "POST", "/admin/drain?member=a0")
+        drain_ms = (time.perf_counter() - t0) * 1e3
+        drained = json.loads(body)
+        shipped = telemetry.FEDERATION.shard_transfers - n0
+        check(status == 200 and shipped >= 1,
+              f"federation: the drain of a0 shipped no plane ({status}, "
+              f"{drained.get('prestaged')})")
+        out, _ = await gets([autoscale_tile(*xy) for xy in mine])
+        counts = checked("drained", mine, out, avoid="a0")
+        hits = sum(tier_of(h) == "hbm_warm" for _, h, _, _ in out)
+        hit_rate = hits / len(mine)
+        check(hit_rate >= 0.8, f"federation: the drained set's raw-cache "
+                               f"hit rate on the successors is {hit_rate}")
+        await client.request_path("POST", "/admin/undrain?member=a0")
+        doc["drain"] = {"member": "a0", "planes": drained.get("planes"),
+                        "staged": drained.get("prestaged"),
+                        "shard_transfers": shipped,
+                        "bytes": telemetry.FEDERATION.transfer_bytes - b0_,
+                        "ms": drain_ms, "drained_gets": counts,
+                        "successor_hit_rate": hit_rate,
+                        "renders_on_a0": 0}
+
+        # 5. The netsplit: host C cut off both ways.
+        t_split = time.perf_counter()
+        faultinject.PARTITIONS.add("hostA", "hostC")
+        await op("hostB", "partition", action="add", src="hostB",
+                 dst="hostC")
+        for dst in ("hostA", "hostB"):
+            await op("hostC", "partition", action="add", src="hostC",
+                     dst=dst)
+        while True:
+            c_state = await op("hostC", "partition", action="show")
+            if c_state["quorum"]["fenced"]:
+                break
+            check(time.perf_counter() - t_split < 30,
+                  "federation: host C never fenced")
+            await asyncio.sleep(0.05)
+        fence_s = time.perf_counter() - t_split
+        check(fence_s <= FED_SUSPECT_S + 1.2 * FED_GOSSIP_S + 0.5,
+              f"federation: host C fenced after {fence_s:.2f} s")
+        b_state = await op("hostB", "partition", action="show")
+        check(F.quorum_status()["quorate"] and b_state["quorum"]["quorate"],
+              "federation: hosts A and B lost their quorum in the split")
+        c_tiles = [xy for xy in grid if fed_owner(xy, FED_SEEDS[1]) == "c0"]
+        out, _ = await gets([autoscale_tile(*xy) for xy in c_tiles])
+        split_counts = checked("netsplit", c_tiles, out, allow_shed=True,
+                               avoid="c0")
+        check(split_counts["200"] >= 1,
+              "federation: no c0-owned GET failed over in the split")
+        # The fenced minority refuses state changes: a roll's propose and
+        # an inbound staging, sent over the drill's control client (which
+        # no rule cuts) without a from_host, so C hears no one.
+        v3 = F.FleetManifest(new.members, version=3, ring_seed="fed-x",
+                             replicas=new.replicas)
+        refused = [await op("hostC", "epoch_propose",
+                            manifest=v3.to_json()),
+                   await op("hostC", "prestage", entries=[])]
+        check(refused[0].get("reason") == "fenced"
+              and refused[1].get("fenced") is True,
+              f"federation: fenced host C accepted {refused}")
+        c_state = await op("hostC", "partition", action="show")
+        refusals = {"hostA": F.quorum_status()["refusals"],
+                    "hostB": b_state["quorum"]["refusals"],
+                    "hostC": c_state["quorum"]["refusals"]}
+        t_heal = time.perf_counter()
+        faultinject.PARTITIONS.clear()
+        for host in FED_HOSTS[1:]:
+            await op(host, "partition", action="clear")
+        while True:
+            c_state = await op("hostC", "partition", action="show")
+            if c_state["quorum"]["quorate"]:
+                break
+            check(time.perf_counter() - t_heal < 30,
+                  "federation: host C never restored its quorum")
+            await asyncio.sleep(0.05)
+        doc["netsplit"] = {"fence_s": fence_s,
+                           "restore_s": time.perf_counter() - t_heal,
+                           "c0_gets": split_counts, "refusals": refusals,
+                           "c_reachable_after": c_state["quorum"][
+                               "reachable"]}
+
+        # 6. Death: host B's process killed with 8 GETs in flight.
+        b_tiles = [xy for xy in grid
+                   if fed_owner(xy, FED_SEEDS[1]) == "b0"][:8]
+        inflight = asyncio.ensure_future(
+            gets([autoscale_tile(*xy) for xy in b_tiles]))
+        await asyncio.sleep(0.005)
+        children["hostB"].kill()
+        children["hostB"].wait(timeout=30)
+        out, _ = await inflight
+        death = checked("death", b_tiles, out, allow_shed=True)
+        again, _ = await gets([autoscale_tile(*xy) for xy in b_tiles])
+        after = checked("after death", b_tiles, again, allow_shed=True,
+                        avoid="b0")
+        ready_status, ready = await client.readyz()
+        check(ready_status == 200, f"federation: /readyz {ready_status} "
+                                   f"after host B died: {ready}")
+        doc["death"] = {"in_flight": death, "after": after,
+                        "readyz": ready_status,
+                        "fleet": ready["checks"].get("fleet"),
+                        "federation": ready["checks"].get("federation")}
+        status, _, body, _ = await client.request_path(
+            "GET", "/admin/federation")
+        fed_doc = json.loads(body)
+        doc["admin_federation"] = {k: fed_doc.get(k) for k in (
+            "epoch", "agreement", "gossip")}
+    finally:
+        for c in ctl.values():
+            await c.close()
+        if gossip is not None:
+            gossip.cancel()
+            await asyncio.gather(gossip, return_exceptions=True)
+        faultinject.PARTITIONS.clear()
+        await client.stop()
+        if client.via == "front":
+            for c in front.clients():
+                await c.close()
+            F.uninstall()
+
+
 def warm_restart_phase(torch, np, data_dir, lut_root, have_pil,
                        smi: str) -> dict:
     """Two lives of the server with ``persistence`` on (module docstring,
@@ -7065,6 +7555,8 @@ def main() -> int:
                               smi)
         print(f"autoscale: phase {time.perf_counter() - t_auto:.1f} s",
               flush=True)
+        workload_launches["federation"] = federation_phase(
+            data_dir, lut_root, have_aiohttp, want, smi)
         # mesh: K12 against its plain versions, then the mesh app.
         t_mesh = time.perf_counter()
         mesh_entries = mesh_kernel_phase(torch, np)

@@ -6,6 +6,9 @@ consistent-hash router (``FleetRouter``) over in-process members
 joining ``torch.distributed`` (one process per GPU); :mod:`.mesh`, the
 ``(data, chan)`` mesh and its sharded steps (K12); and :mod:`.serve`, the
 ``MeshRenderer`` of the ``parallel.enabled`` posture, its pod channel and
-the ``--role pod-worker`` loop.  Only the federation (``federation.py``)
-is not ported yet (ROADMAP Queue 1 item 5).
+the ``--role pod-worker`` loop; and :mod:`.federation`, the cross-host
+federation (the digest-agreed manifest, gossip, quorum, epoch rolls and
+the cross-host warm handoff) over the fleet and the sidecar wire.
 """
+
+from . import federation  # noqa: F401,E402

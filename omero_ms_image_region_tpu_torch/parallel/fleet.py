@@ -32,15 +32,19 @@ of the ring chain) and reads balance across it; the hottest one's heat is
 the autoscaler's replica-pressure signal
 (:meth:`FleetRouter.replica_pressure`).
 
-The federation's parts wait for it (ROADMAP Queue 1 item 5): its fences
-(``federation.quorum_allow``), ring seeds from a manifest, the drain's
-byte handoff to a member on another host (``wire_handoff``,
-``shard_export`` and ``shard_transfer``; a port sidecar answers the
-``shard_transfer`` op), ``remote_prestage_for_route`` and the hop spans
-across hosts.  Here every decision is the one JAX makes with no
-federation installed.  A hop span (``fleet.hop``) is recorded on the
-requester's trace, without JAX's span metadata (the port's spans carry
-none).
+The federation's hooks (``parallel.federation``): a ring seeded from the
+manifest and swapped at an epoch commit (:meth:`FleetRouter.apply_manifest`);
+the quorum fences of a minority host (``federation.quorum_allow``: no
+shard adoption in the chain walk or a failover, no hot-key promotion, no
+byte write-back to a remote authority); the drain's byte handoff to a
+successor on another host (``wire_handoff``: the drainer's
+:meth:`LocalMember.shard_export` shipped over ``shard_transfer``); the
+prefetcher's seam to a remote owner (:meth:`FleetRouter
+.remote_prestage_for_route`); and the ``RemoteMember`` side of the
+federation's wire ops with a ``fed.hop`` span ({host, member, kind}) on
+each exchange with another host.  With no federation installed every
+decision is the single-host one.  A hop span (``fleet.hop``) is recorded
+on the requester's trace.
 """
 
 from __future__ import annotations
@@ -57,6 +61,18 @@ from typing import Deque, Dict, List, Optional, Sequence, Tuple
 from ..server.ctx import plane_route_key  # noqa: F401  (re-exported)
 
 logger = logging.getLogger("omero_ms_image_region_tpu_torch.fleet")
+
+
+def _entry_key(entry: dict) -> tuple:
+    """A restageable entry's region key as a tuple: matches exported bytes
+    to their hint entries across JSON (lists against tuples)."""
+    try:
+        image_id, z, t, level, region, channels = entry["key"]
+        return (int(image_id), int(z), int(t), int(level),
+                tuple(int(v) for v in region),
+                tuple(int(c) for c in channels))
+    except (KeyError, TypeError, ValueError):
+        return (id(entry),)
 
 
 # ------------------------------------------------------------ hash ring
@@ -283,6 +299,76 @@ class LocalMember(_DownState):
 
         return await asyncio.to_thread(stage_all)
 
+    async def shard_export(self, limit: int = 0) -> List[dict]:
+        """The member's raw-cache shard as entries with the plane bytes
+        (``dtype``, ``shape``, ``bytes``): the cross-host drain handoff's
+        payload, since a successor on another host cannot re-read this
+        host's pixel store.  MRU first; an entry evicted meanwhile is
+        skipped."""
+        import numpy as np
+        import torch
+
+        from ..io.devicecache import region_key
+        cache = self._cache()
+        if cache is None:
+            return []
+        entries = cache.snapshot_entries(limit)
+
+        def export() -> List[dict]:
+            out = []
+            for entry in entries:
+                key = _entry_key(entry)
+                if len(key) != 6:
+                    continue
+                arr = cache.get(region_key(*key))
+                if arr is None:
+                    continue
+                if arr.dtype == torch.uint16:
+                    # Read as int16: not every torch maps uint16 to numpy.
+                    host = arr.view(torch.int16).cpu().numpy().view(
+                        np.uint16)
+                else:
+                    host = arr.cpu().numpy()
+                out.append({**entry, "dtype": str(host.dtype),
+                            "shape": list(host.shape),
+                            "bytes": host.tobytes()})
+            return out
+
+        return await asyncio.to_thread(export)
+
+    async def shard_transfer(self, entries: List[dict]) -> int:
+        """Stage handed-over plane bytes into this member's raw cache under
+        their region key and route: the in-process mirror of the
+        ``shard_transfer`` op, so the handoff does not care which kind of
+        member the successor is.  A resident plane is a hit."""
+        import numpy as np
+
+        from ..io.devicecache import region_key
+        cache = self._cache()
+        if cache is None:
+            return 0
+
+        def stage_all() -> int:
+            staged = 0
+            for entry in entries:
+                key = _entry_key(entry)
+                try:
+                    arr = np.frombuffer(
+                        entry["bytes"], dtype=entry["dtype"]).reshape(
+                        tuple(entry["shape"]))
+                except (KeyError, TypeError, ValueError):
+                    continue
+                if len(key) != 6:
+                    continue
+                cache.get_or_load(region_key(*key), lambda a=arr: a,
+                                  digest=entry.get("digest"),
+                                  route_key=entry.get("route"))
+                staged += 1
+            return staged
+
+        return await asyncio.to_thread(stage_all)
+
+
 class RemoteMember(_DownState):
     """A render sidecar, reached over the wire (``server.sidecar
     .SidecarClient``).  Its client's open breaker, or a connection death a
@@ -308,6 +394,19 @@ class RemoteMember(_DownState):
         if breaker is not None and breaker.state == breaker.OPEN:
             return False
         return time.monotonic() >= self._down_until
+
+    def _fed_span(self, kind: str, t0: float, t1: float, **meta) -> None:
+        """One ``fed.hop`` span ({host, member, kind}) on an exchange with
+        a member on another federation host; nothing for a same-host
+        member or with no federation (``federation.remote_host_of``), and
+        nothing outside a trace."""
+        from . import federation
+        from ..utils import telemetry
+        host = federation.remote_host_of(self.name)
+        if host:
+            telemetry.record_span("fed.hop", t0, (t1 - t0) * 1000.0,
+                                  host=host, member=self.name, kind=kind,
+                                  **meta)
 
     async def render(self, ctx, adopt_cache: bool = True) -> bytes:
         from ..server.sidecar import _map_response
@@ -363,8 +462,12 @@ class RemoteMember(_DownState):
             extra["session"] = session
             if obj != "Image":
                 extra["obj"] = obj
+        t0 = time.perf_counter()
         resp_header, payload = await self.client.call_full(
             "byte_fetch", {}, extra=extra)
+        self._fed_span("byte_fetch", t0, time.perf_counter(),
+                       hit=int(resp_header.get("status") == 200
+                               and payload is not None))
         if resp_header.get("status") != 200 or payload is None:
             return None
         return bytes(payload)
@@ -377,9 +480,12 @@ class RemoteMember(_DownState):
             extra = {"key": str(key), "digest": digest}
             if tier != "region":
                 extra["tier"] = tier
+            t0 = time.perf_counter()
             status, _ = await self.client.call("byte_put", {},
                                                body=bytes(value),
                                                extra=extra)
+            self._fed_span("byte_put", t0, time.perf_counter(),
+                           bytes=len(value))
             return status == 200
         except Exception:
             return False
@@ -417,10 +523,108 @@ class RemoteMember(_DownState):
         """Hand entries to the sidecar (``prestage``): it re-reads them
         from its own pixel store into its raw cache."""
         try:
+            t0 = time.perf_counter()
             doc = await self._doc("prestage", {"entries": entries}) or {}
+            self._fed_span("remote_prestage", t0, time.perf_counter(),
+                           entries=len(entries))
             return int(doc.get("staged", 0))
         except Exception:
             return 0
+
+    # The federation's ops: manifest_hello and member_gossip are reads,
+    # the epoch ops idempotent by contract (all retried); shard_transfer
+    # ships state and is never sent twice.  Each carries this host
+    # (``from_host``), which feeds the receiver's quorum tracker.
+
+    async def _fed_doc(self, op: str, extra: dict) -> Optional[dict]:
+        """The JSON answer of a federation op; None when unreachable."""
+        try:
+            return await self._doc(op, extra)
+        except Exception:
+            return None
+
+    async def manifest_hello(self, doc: dict,
+                             probe_keys: Optional[List[str]] = None
+                             ) -> Optional[dict]:
+        """Send our manifest and learn whether the peer's agrees (and, with
+        ``probe_keys``, the peer's own ring owner of each).  None:
+        unreachable, or a peer without the op."""
+        from . import federation
+        extra = {"manifest": doc, "from_host": federation.self_host()}
+        if probe_keys:
+            extra["probe_keys"] = list(probe_keys)
+        return await self._fed_doc("manifest_hello", extra)
+
+    async def member_gossip(self, view: dict) -> Optional[dict]:
+        """Swap member views and the manifest identity."""
+        from . import federation
+        return await self._fed_doc("member_gossip", {
+            "view": view, "from_host": federation.self_host()})
+
+    async def epoch_propose(self, doc: dict) -> Optional[dict]:
+        """A roll's phase 1: the peer records the manifest pending and
+        acks; nothing activates."""
+        from . import federation
+        return await self._fed_doc("epoch_propose", {
+            "manifest": doc, "from_host": federation.self_host()})
+
+    async def epoch_commit(self, doc: dict,
+                           digest: str = "") -> Optional[dict]:
+        """A roll's phase 2: the peer checks the digest, activates the
+        manifest and swaps its ring (an already-active epoch acks)."""
+        from . import federation
+        extra = {"manifest": doc, "from_host": federation.self_host()}
+        if digest:
+            extra["digest"] = digest
+        return await self._fed_doc("epoch_commit", extra)
+
+    async def shard_transfer(self, entries: List[dict]) -> int:
+        """Ship warm plane bytes into the sidecar's raw cache, one frame a
+        plane (the body the buffer, the header its ``key``, ``digest``,
+        ``route``, ``dtype`` and ``shape``).  Best effort an entry: a
+        failed ship is a cold miss later.  The sidecar's stage, anchored
+        on its clock, is grafted as a ``fed.hop`` span of kind ``stage``
+        clamped into the call's bracket."""
+        import json
+
+        from . import federation
+        from ..utils import telemetry
+        staged = 0
+        for entry in entries:
+            payload = entry.get("bytes")
+            if payload is None:
+                continue
+            meta = {k: entry.get(k) for k in
+                    ("key", "digest", "route", "dtype", "shape")}
+            try:
+                t_send = time.perf_counter()
+                status, body = await self.client.call(
+                    "shard_transfer", {}, body=bytes(payload),
+                    extra={"entry": meta})
+                t_recv = time.perf_counter()
+                doc = (json.loads(bytes(body).decode())
+                       if status == 200 and body else {})
+                self._fed_span("shard_transfer", t_send, t_recv,
+                               bytes=len(payload),
+                               staged=int(bool(doc.get("staged"))))
+                if not doc.get("staged"):
+                    continue
+                staged += 1
+                telemetry.FEDERATION.count_transfer(len(payload))
+                host = federation.remote_host_of(self.name)
+                anchored = (federation.anchor_remote_time(
+                    doc.get("host") or host, doc.get("t_anchor"),
+                    (t_send, t_recv)) if host else None)
+                if anchored is not None:
+                    dur = max(0.0, min(float(doc.get("ms") or 0.0),
+                                       (t_recv - anchored) * 1000.0))
+                    telemetry.record_span(
+                        "fed.hop", anchored, dur,
+                        host=doc.get("host") or host, member=self.name,
+                        kind="stage")
+            except Exception:
+                continue
+        return staged
 
 # --------------------------------------------------------------- router
 
@@ -537,13 +741,17 @@ class FleetRouter:
     dead call over the same way (``failover``; off: its shard fails with
     it).  ``hotkey`` (a ``HotkeyConfig``) turns on hot-plane replication;
     ``peer_fetch`` the byte tier's peer fetch and write-back for remote
-    members, each fetch bounded by ``peer_timeout_s``."""
+    members, each fetch bounded by ``peer_timeout_s``.  ``wire_handoff``
+    (a federation): a drain ships the warm bytes of an in-process drainer
+    to remote successors over ``shard_transfer``, since their host cannot
+    re-read this host's pixel store."""
 
     def __init__(self, members: Sequence, lane_width: int = 2,
                  steal_min_backlog: int = 2, hash_replicas: int = 64,
                  failover: bool = True, qos_weight: int = 0,
                  peer_fetch: bool = True, peer_timeout_s: float = 0.5,
-                 ring_seed: str = "", hotkey=None):
+                 ring_seed: str = "", hotkey=None,
+                 wire_handoff: bool = False):
         if not members:
             raise ValueError("fleet needs at least one member")
         if lane_width < 1:
@@ -570,6 +778,7 @@ class FleetRouter:
         self._closed = False
         self.peer_fetch = peer_fetch
         self.peer_timeout_s = peer_timeout_s
+        self.wire_handoff = bool(wire_handoff)
         # In-process members share one byte-cache chain the fleet handler
         # already probed: only remote peers are asked.
         self._has_remote_members = any(
@@ -639,12 +848,19 @@ class FleetRouter:
         return self._walk_chain(self.ring.chain(route))
 
     def _walk_chain(self, chain: List[str]) -> str:
-        if not self.failover:
+        from . import federation
+        fenced = self.failover and federation.is_fenced()
+        if not self.failover or fenced:
             # failover off: a down owner keeps its shard (which then
             # fails), for queued work and new arrivals alike.  A drain is
-            # an operator's handoff, so it is walked past.
+            # an operator's handoff, so it is walked past.  A fenced
+            # minority walks the same way: adopting a silent peer's shard
+            # in a netsplit is how split brains write, so the owner's call
+            # fails (a refusal counted) and the front answers 503.
             for name in chain:
                 if not self.members[name].draining:
+                    if fenced and not self._routable(name):
+                        federation.quorum_allow("adoption")
                     return name
             return chain[0]
         for name in chain:
@@ -661,7 +877,12 @@ class FleetRouter:
         threshold, sweep cooled promotions down."""
         heat = self._heat.observe(route)
         if heat >= self._heat.threshold and route not in self._replica_sets:
-            self._promote_route(route, heat)
+            from . import federation
+            # Fenced: no promotion (its staging would land on replicas
+            # this island cannot prove it owns); it promotes again on the
+            # first hot dispatch after the restore.
+            if federation.quorum_allow("promotion"):
+                self._promote_route(route, heat)
         self._sweep_hot_routes()
 
     def _promote_route(self, route: str, heat: float) -> None:
@@ -807,6 +1028,11 @@ class FleetRouter:
     def hot_route_count(self) -> int:
         return len(self._replica_sets)
 
+    def hot_owned(self, name: str) -> int:
+        """The promoted routes whose replica set holds ``name`` (the
+        gossip view's ``hot`` figure)."""
+        return sum(1 for reps in self._replica_sets.values() if name in reps)
+
     def replica_pressure(self) -> float:
         """The hottest promoted route's heat in promotion thresholds (0
         with none promoted): the autoscaler's "one plane outruns one
@@ -863,6 +1089,33 @@ class FleetRouter:
                 return getattr(getattr(self.members[name], "services",
                                        None), "raw_cache", None)
         return None
+
+    def remote_prestage_for_route(self, route_key: str,
+                                  entry: dict) -> bool:
+        """The prefetcher's cross-host seam: a predicted plane whose serving
+        member is remote is staged on its owner's host (a fire and forget
+        ``prestage`` hint: the owner re-reads it from its own pixel store).
+        False for a local owner (:meth:`cache_for_route` serves it), with
+        no routable member, or with no running loop."""
+        from ..utils import telemetry
+        for name in self.ring.chain(route_key):
+            if not self._routable(name):
+                continue
+            member = self.members[name]
+            if not getattr(member, "remote", False):
+                return False
+
+            async def hint() -> None:
+                try:
+                    await member.prestage_manifest([entry])
+                except Exception:
+                    pass        # speculation only removes work
+
+            if self._spawn(hint()) is None:
+                return False
+            telemetry.FEDERATION.count_remote_prestage()
+            return True
+        return False
 
     def draining_members(self, intent: Optional[str] = None) -> List[str]:
         """The draining members; ``intent`` filters to one kind."""
@@ -944,10 +1197,33 @@ class FleetRouter:
                     by_successor.setdefault(candidate, []).append(entry)
                     break
         staged = failed = 0
-        for successor, entries in by_successor.items():
+        drainer = self.members[draining]
+        # Cross-host warm handoff: an in-process drainer's bytes ship to
+        # remote successors, exported once; any export failure falls back
+        # to the hint list.
+        exported: Dict[tuple, dict] = {}
+        if self.wire_handoff and not drainer.remote and any(
+                self.members[s].remote for s in by_successor):
             try:
-                staged += await self.members[successor].prestage_manifest(
-                    entries)
+                for entry in await drainer.shard_export(len(manifest)):
+                    exported[_entry_key(entry)] = entry
+            except Exception:
+                logger.warning("shard export from %s failed; hint-list "
+                               "handoff", draining, exc_info=True)
+        for successor, entries in by_successor.items():
+            member = self.members[successor]
+            try:
+                if exported and member.remote:
+                    # Entries evicted before the export go as hints.
+                    staged += await member.shard_transfer(
+                        [exported[_entry_key(e)] for e in entries
+                         if _entry_key(e) in exported])
+                    rest = [e for e in entries
+                            if _entry_key(e) not in exported]
+                    if rest:
+                        staged += await member.prestage_manifest(rest)
+                else:
+                    staged += await member.prestage_manifest(entries)
             except Exception:
                 failed += 1
                 logger.warning("drain handoff to %s failed", successor,
@@ -1145,6 +1421,9 @@ class FleetRouter:
                 continue
             if not getattr(member, "remote", False):
                 return
+            from . import federation
+            if not federation.quorum_allow("write_authority"):
+                return          # fenced: no write-back across the split
 
             async def put() -> None:
                 try:
@@ -1163,6 +1442,10 @@ class FleetRouter:
             return
         owner = self.members.get(work.owner)
         if owner is None or not owner.remote or not owner.healthy:
+            return
+        from . import federation
+        if not federation.quorum_allow("write_authority"):
+            # Fenced: the authority may have moved on the majority side.
             return
         if getattr(work.ctx, "_pressure_quality_capped", False):
             return              # capped bytes never take the full key
@@ -1242,7 +1525,16 @@ class FleetRouter:
         """Queue one unit on the first routable member of its chain.  The
         failed member is excluded by its health alone: a stolen unit's
         owner never failed, and is where it belongs."""
+        from . import federation
         from ..utils import provenance, telemetry
+        if reason == "failover" and not federation.quorum_allow("adoption"):
+            # Fenced: a death's re-home is a shard adoption (the member may
+            # be alive on the majority side), refused; the unit fails as
+            # an all-down fleet's does.  A drain's re-home stays allowed.
+            if not work.future.done():
+                work.future.set_exception(ConnectionError(
+                    "fenced minority partition: shard adoption refused"))
+            return
         chain = (list(self.order) if self._pinned(work.ctx)
                  else self.ring.chain(plane_route_key(work.ctx)))
         tried = work.hops

@@ -221,8 +221,10 @@ class MeshRenderer(BatchingRenderer):
     # The mesh steps run in lockstep across the whole mesh: this renderer
     # is its process's first fleet member (the mesh and bulk lane) and is
     # never pinned narrower than its mesh (parallel.fleet
-    # .build_local_members); the federation, when ported, warns when its
-    # manifest would pin bulk work to another host.
+    # .build_local_members); on a federated mesh host (one process a GPU)
+    # it stays member 0, and parallel.federation.build_federated_members
+    # warns when the manifest's member 0, the bulk lane, is on another
+    # host.
     lockstep = True
 
     def __init__(self, mesh: Mesh, max_batch: Optional[int] = None,

@@ -44,7 +44,9 @@ trailing segments are tolerated as its ``:theT*`` patterns are):
   POST /admin/undrain?member=mN      rejoins a drained member
   GET /admin/autoscaler  the autoscaler's status (``autoscaler.enabled``
                      with a fleet), else JAX's 400 body
-  GET /admin/federation  JAX's 400 body (the federation is not ported)
+  GET /admin/federation  the federation's status (``?agree=1`` runs a
+                     non-strict agreement round first), else JAX's 400
+                     body
   OPTIONS /          the feature document
 
 Around the render path, as the JAX default app (``create_app(AppConfig())``
@@ -168,8 +170,22 @@ there) has it:
   every member's batcher or wire, ``/metrics`` adds the fleet, hot-key and
   drain families, ``/readyz`` the members' states, and the mask route asks
   the mask's ring authority's byte tier before a render (remote members
-  only).  The frontend's ``/debug/*`` ride member 0's sidecar; merging
-  every member's rings waits for the federation, as its fleet probes do.
+  only).  A frontend fleet's ``/debug/flightrecorder`` and
+  ``/debug/decisions`` merge every member's ring (``ring`` and ``ledger``,
+  by time, each event stamped with its member and, in a federation, its
+  host; ``members`` the raw rings); its other ``/debug/*`` ride member 0's
+  sidecar.
+* **The federation** (``federation.enabled``; ``parallel.federation``, JAX
+  ``:576-670``; :func:`build_federated_fleet`): the combined role builds
+  its members from the manifest (this host's in-process, each pinned to
+  its share of the CUDA devices; the others ``RemoteMember`` handles over
+  their sidecar addresses) behind a router seeded by the manifest, with
+  the cross-host drain handoff, the quorum tracker (``federation.quorum``),
+  the roll hook (an epoch commit swaps the ring) and the prefetcher's
+  remote seam.  At startup the app runs one strict agreement round (a
+  split brain refuses to start), then the gossip task; at shutdown it
+  uninstalls the manifest.  ``/readyz`` carries the ``federation``
+  annotation and ``GET /admin/federation`` the status.
 * **The autoscaler** (``autoscaler.enabled`` with a fleet;
   ``server.autoscaler``, JAX ``:812-870``; :meth:`Front._elastic`): a tick
   task that parks members by ``autoscale`` drains and rejoins them by
@@ -508,19 +524,25 @@ def session_buckets(config: AppConfig) -> Optional[SessionTokenBuckets]:
         bulk_cost=(config.qos.bulk_cost if config.qos.enabled else 1.0))
 
 
-def fleet_router(config: AppConfig, members: list) -> FleetRouter:
+def fleet_router(config: AppConfig, members: list,
+                 manifest=None) -> FleetRouter:
     """The ``FleetRouter`` over ``members`` that the config's ``fleet``,
-    ``qos``, ``http-cache`` and ``hotkey`` sections describe."""
+    ``qos``, ``http-cache`` and ``hotkey`` sections describe; with a
+    federation's ``manifest``, its ring seed and replicas and the
+    cross-host drain handoff."""
     hc = config.http_cache
     return FleetRouter(
         members, lane_width=config.fleet.lane_width,
         steal_min_backlog=config.fleet.steal_min_backlog,
-        hash_replicas=config.fleet.hash_replicas,
+        hash_replicas=(manifest.replicas if manifest is not None
+                       else config.fleet.hash_replicas),
         failover=config.fleet.failover,
         qos_weight=(config.qos.interactive_weight if config.qos.enabled
                     else 0),
         peer_fetch=hc.enabled and hc.peer_fetch,
         peer_timeout_s=hc.peer_timeout_ms / 1000.0,
+        ring_seed=manifest.ring_seed if manifest is not None else "",
+        wire_handoff=manifest is not None,
         hotkey=config.hotkey)
 
 
@@ -545,7 +567,14 @@ def build_local_fleet(config: AppConfig,
     shared prefetcher stages each prediction into the owning member's raw
     cache and a hot route's local replicas'."""
     members = build_local_members(config, services, config.fleet.members)
-    router = fleet_router(config, members)
+    return _fleet_handler(config, services, members,
+                          fleet_router(config, members))
+
+
+def _fleet_handler(config: AppConfig, services: ImageRegionServices,
+                   members: list, router: FleetRouter) -> FleetImageHandler:
+    """Single-flight and admission above ``router``, and the shared
+    prefetcher's seams into its members' raw caches."""
     single_flight = services.single_flight
     services.single_flight = None
     services.admission = None
@@ -553,11 +582,46 @@ def build_local_fleet(config: AppConfig,
     if prefetcher is not None:
         prefetcher.cache_for_route = router.cache_for_route
         prefetcher.replica_caches = router.local_replica_caches
-        for member in members[1:]:
-            member.services.prefetcher = prefetcher
+        for member in members:
+            if getattr(member, "services", None) not in (None, services):
+                member.services.prefetcher = prefetcher
     return FleetImageHandler(router, single_flight=single_flight,
                              admission=fleet_admission(config, router),
                              base_services=services)
+
+
+def build_federated_fleet(config: AppConfig, services: ImageRegionServices):
+    """The combined role's federated fleet (JAX ``create_app``
+    ``:576-670``): the manifest installed as this process's, its members
+    (``parallel.federation.build_federated_members``: this host's
+    in-process, the others over their sidecar addresses) behind a router
+    seeded by it with the cross-host drain handoff, the quorum tracker
+    with ``federation.quorum``, the roll hook (an epoch commit swaps the
+    router's ring) and the prefetcher's remote seam.  Returns the handler
+    and the ``FederationCoordinator``."""
+    from ..parallel import federation
+
+    fed = config.federation
+    manifest = federation.FleetManifest.from_config(fed)
+    federation.install(manifest, self_host=fed.host)
+    members = federation.build_federated_members(
+        config, services, manifest,
+        lambda address: sidecar_client(config, address), fed.host)
+    router = fleet_router(config, members, manifest)
+    if fed.quorum:
+        federation.install_quorum(federation.QuorumTracker(
+            manifest, self_host=fed.host,
+            suspect_after_s=fed.suspect_after_s))
+    # The one instant a live ring changes: an epoch's commit.
+    federation.set_roll_hook(router.apply_manifest)
+    coordinator = federation.FederationCoordinator(
+        manifest, fed.host, router,
+        gossip_interval_s=fed.gossip_interval_s)
+    handler = _fleet_handler(config, services, members, router)
+    if services.prefetcher is not None:
+        services.prefetcher.remote_prestage = \
+            router.remote_prestage_for_route
+    return handler, coordinator
 
 
 def start_prewarm(config: AppConfig, renderer: BatchingRenderer,
@@ -660,13 +724,15 @@ class Front:
     mask one as ``mask_handler``, and its ``client``: it then has no
     services (:attr:`services` None).  A fleet's handler
     (``parallel.fleet.FleetImageHandler``) brings its :attr:`router`; a
-    frontend fleet's ``client`` is member 0's."""
+    frontend fleet's ``client`` is member 0's.  A federated fleet brings its
+    ``federation`` (``parallel.federation.FederationCoordinator``)."""
 
     def __init__(self, config: AppConfig, handler, db=None,
-                 mask_handler=None, client=None):
+                 mask_handler=None, client=None, federation=None):
         self.config = config
         self.handler = handler
         self.client = client
+        self.federation = federation
         self.router: Optional[FleetRouter] = getattr(handler, "router",
                                                      None)
         self.services: Optional[ImageRegionServices] = getattr(
@@ -756,9 +822,10 @@ class Front:
             pressure_mod.install(self.governor)
         self.sentinel: Optional[sentinel_mod.SentinelEngine] = None
         if config.sentinel.enabled:
+            member = config.federation.host or "local"
             self.sentinel = sentinel_mod.engine_from_config(
-                config.sentinel, member="local",
-                flight_fn=lambda: {"member": "local",
+                config.sentinel, member=member,
+                flight_fn=lambda: {"member": member,
                                    "fleet_members": self.member_names(),
                                    "events": telemetry.FLIGHT.snapshot()})
             sentinel_mod.install(self.sentinel)
@@ -822,9 +889,12 @@ class Front:
 
     def clients(self) -> list:
         """The sidecar clients this front holds: each member's in a
-        frontend fleet, else the one sidecar's, else none."""
-        if self.router is not None and self.services is None:
-            return [m.client for m in self.router.members.values()]
+        frontend fleet, each remote member's in a federated one, else the
+        one sidecar's, else none."""
+        if self.router is not None and (self.services is None
+                                        or self.federation is not None):
+            return [m.client for m in self.router.members.values()
+                    if getattr(m, "remote", False)]
         return [self.client] if self.client is not None else []
 
     def background(self) -> list:
@@ -1534,6 +1604,10 @@ class Front:
                                   == "drifting" else "ok")
         if self.governor is not None:
             checks["pressure"] = self.governor.summary()
+        if self.federation is not None:
+            # An annotation: a disagreeing peer is loud on
+            # /admin/federation; this host still serves its shard.
+            checks["federation"] = self.federation.summary()
         router = self.router
         if (self.config.drain.fail_readyz and router is not None
                 and [n for n in router.draining_members()
@@ -1580,17 +1654,53 @@ class Front:
                 warmstate.snapshot_now)
         return doc
 
+    def _remote_fleet(self) -> bool:
+        """A frontend fleet: every member is a sidecar."""
+        return self.router is not None and self.services is None
+
+    async def member_docs(self, op: str) -> dict:
+        """A frontend fleet's members' JSON answers of ``op``, by member
+        (None for a member that did not answer in 2 s)."""
+        async def fetch(client):
+            try:
+                status, body = await asyncio.wait_for(
+                    client.call(op, {}), 2.0)
+                return (json.loads(bytes(body).decode())
+                        if status == 200 and body else None)
+            except Exception:
+                return None
+
+        names = list(self.router.order)
+        docs = await asyncio.gather(*(fetch(self.router.members[n].client)
+                                      for n in names))
+        return dict(zip(names, docs))
+
     def flight_doc(self, dump: bool = False,
-                   sidecar: Optional[dict] = None) -> dict:
+                   sidecar: Optional[dict] = None,
+                   members: Optional[dict] = None) -> dict:
         """``GET /debug/flightrecorder``: the ring and its counts; ``dump``
         also writes it to ``telemetry.flight-recorder-dir``
         (``dumped_to``: the file, or None).  A frontend passes its
-        sidecar's ring (``sidecar``, JAX ``:1754-1803``)."""
+        sidecar's ring (``sidecar``, JAX ``:1754-1803``); a frontend fleet
+        every member's (``members``), merged by time into ``ring``, each
+        event stamped with its member (this process's ``frontend``)."""
         flight = telemetry.FLIGHT
         doc = {"events": flight.snapshot(),
                "events_total": flight.events_total,
                "dumps_written": flight.dumps_written}
-        if self.services is None:
+        if members is not None:
+            merged = [dict(e) if "member" in e else dict(e, member="frontend")
+                      for e in doc["events"]]
+            for name, ring in members.items():
+                for event in (ring or {}).get("events", ()):
+                    stamped = dict(event)
+                    stamped.setdefault("member", name)
+                    merged.append(stamped)
+            merged.sort(key=lambda e: e.get("ts", 0.0))
+            doc["members"] = members
+            doc["ring"] = merged
+            doc["sidecar"] = next(iter(members.values()), None)
+        elif self.services is None:
             doc["sidecar"] = sidecar
         if dump:
             doc["dumped_to"] = flight.dump(
@@ -1631,11 +1741,39 @@ class Front:
                 "shapes": telemetry.SHAPE_COSTS.snapshot()}
 
     @staticmethod
-    def decisions_doc() -> dict:
-        """``GET /debug/decisions``: the decision ledger's ring."""
+    def decisions_doc(members: Optional[dict] = None) -> dict:
+        """``GET /debug/decisions``: the decision ledger's ring; a frontend
+        fleet passes its members' (``members``, the ``decisions`` op's
+        answers), merged by time into ``ledger`` with each record stamped
+        with its member and, in a federation, its host (JAX
+        ``:1805-1863``)."""
+        from ..parallel import federation
         local = decisions.LEDGER.snapshot()
-        return {"records": local, "status": decisions.LEDGER.status(),
-                "ledger": local}
+        doc = {"records": local, "status": decisions.LEDGER.status()}
+        if members is None:
+            doc["ledger"] = local
+            return doc
+        self_host = federation.self_host()
+        manifest = federation.current()
+        merged = []
+        for rec in local:
+            stamped = (dict(rec) if "member" in rec
+                       else dict(rec, member="frontend"))
+            if self_host:
+                stamped.setdefault("host", self_host)
+            merged.append(stamped)
+        for name, ring in members.items():
+            host = manifest.host_of(name) if manifest is not None else ""
+            for rec in (ring or {}).get("ring", ()):
+                stamped = dict(rec)
+                stamped.setdefault("member", name)
+                if host:
+                    stamped.setdefault("host", host)
+                merged.append(stamped)
+        merged.sort(key=lambda r: r.get("ts", 0.0))
+        doc["members"] = members
+        doc["ledger"] = merged
+        return doc
 
     @staticmethod
     def exemplars_doc() -> dict:
@@ -1710,7 +1848,8 @@ class Front:
             doc = await explain.explain(
                 path, self.config, services=self.services,
                 admission=self.admission(),
-                jobs=self.jobs, proxy_client=self.client)
+                jobs=self.jobs, proxy_client=self.client,
+                federation_coord=self.federation)
         except BadRequestError as e:
             return _json(400, {"error": str(e)})
         except Exception:
@@ -1785,13 +1924,20 @@ class Front:
                            "error": "autoscaler requires autoscaler.enabled "
                                     "and a fleet topology"})
 
-    @staticmethod
-    def admin_federation() -> Answer:
-        """``GET /admin/federation``: the federation is not ported; JAX's
-        answer without one."""
-        return _json(400, {"enabled": False,
-                           "error": "federation requires federation.enabled "
-                                    "in the combined role"})
+    async def admin_federation(self, agree: bool = False) -> Answer:
+        """``GET /admin/federation``: the coordinator's status (the
+        manifest, each peer's agreement, the last gossip round, the merged
+        view, the host clocks, a pending epoch and the quorum); ``agree``
+        first runs a non-strict agreement round (did the fleet converge
+        after an epoch bump).  JAX's 400 without a federation."""
+        if self.federation is None:
+            return _json(400, {"enabled": False,
+                               "error": "federation requires "
+                                        "federation.enabled in the combined "
+                                        "role"})
+        if agree:
+            await self.federation.agree(strict=False)
+        return _json(200, self.federation.status())
 
 
 async def _counted(stream: AsyncIterator[bytes],
@@ -1852,8 +1998,9 @@ def build_front(config: AppConfig,
     with ``fault-tolerance.degraded-mode``), routed over one sidecar per
     ``fleet.sockets`` address with ``fleet.enabled``; else the combined app
     over ``handler`` or the services :func:`build_services` makes, behind
-    an in-process fleet (:func:`build_local_fleet`) with
-    ``fleet.enabled``."""
+    the federated fleet (:func:`build_federated_fleet`) with
+    ``federation.enabled``, or an in-process fleet
+    (:func:`build_local_fleet`) with ``fleet.enabled``."""
     fleet = config.fleet
     if handler is None and config.sidecar.role == "frontend":
         from .sidecar import SidecarImageHandler, SidecarMaskHandler
@@ -1887,6 +2034,11 @@ def build_front(config: AppConfig,
                      client=client)
     if handler is None:
         services = build_services(config, device, db=db)
+        if config.federation.enabled and config.sidecar.role == "combined":
+            fleet_handler, coordinator = build_federated_fleet(config,
+                                                               services)
+            return Front(config, fleet_handler, db=db,
+                         federation=coordinator)
         if fleet.enabled and config.sidecar.role == "combined":
             return Front(config, build_local_fleet(config, services), db=db)
         handler = ImageRegionHandler(services)
@@ -1930,7 +2082,10 @@ def create_app(config: Optional[AppConfig] = None,
         watchdog = build_watchdog(
             config.watchdog,
             renderer=services.renderer if services is not None else None,
-            clients=front.clients(), escalate_cb=escalate)
+            # A federated fleet's remote members are another host's: the
+            # wire-hang scan watches this host's sidecars only (JAX).
+            clients=[] if front.federation is not None else front.clients(),
+            escalate_cb=escalate)
         for renderer in _member_renderers(front):
             # Each in-process member's batcher is a stuck-lane target.
             if hasattr(renderer, "watchdog_scan"):
@@ -2025,16 +2180,22 @@ def create_app(config: Optional[AppConfig] = None,
             bool(request.query.get("snapshot"))))
 
     async def debug_flightrecorder(request: web.Request) -> web.Response:
-        sidecar = (await front.sidecar_doc("flightrecorder")
-                   if client is not None else None)
+        members = sidecar = None
+        if front._remote_fleet():
+            members = await front.member_docs("flightrecorder")
+        elif client is not None:
+            sidecar = await front.sidecar_doc("flightrecorder")
         return web.json_response(front.flight_doc(
-            bool(request.query.get("dump")), sidecar=sidecar))
+            bool(request.query.get("dump")), sidecar=sidecar,
+            members=members))
 
     async def debug_costs(request: web.Request) -> web.Response:
         return web.json_response(front.costs_doc())
 
     async def debug_decisions(request: web.Request) -> web.Response:
-        return web.json_response(front.decisions_doc())
+        members = (await front.member_docs("decisions")
+                   if front._remote_fleet() else None)
+        return web.json_response(front.decisions_doc(members))
 
     async def debug_exemplars(request: web.Request) -> web.Response:
         return web.json_response(front.exemplars_doc())
@@ -2061,7 +2222,8 @@ def create_app(config: Optional[AppConfig] = None,
         return to_response(front.admin_autoscaler())
 
     async def admin_federation(request: web.Request) -> web.Response:
-        return to_response(front.admin_federation())
+        return to_response(await front.admin_federation(
+            bool(request.query.get("agree"))))
 
     async def readyz(request: web.Request) -> web.Response:
         """200 only when this process can serve renders now; a 503 names
@@ -2100,6 +2262,12 @@ def create_app(config: Optional[AppConfig] = None,
             # Each member's sidecar unit, spawned at once off the loop;
             # /readyz holds traffic until the members answer their pings.
             await asyncio.to_thread(front.unit_lifecycle.start_all)
+        if front.federation is not None:
+            # Join: one agreement round with every remote member (a split
+            # brain refuses the start), then the gossip loop.
+            await front.federation.agree(strict=True)
+            tasks.append(asyncio.create_task(front.federation.run(),
+                                             name="federation-gossip"))
         for name, loop in front.background():
             tasks.append(asyncio.create_task(loop(), name=name))
 
@@ -2118,6 +2286,10 @@ def create_app(config: Optional[AppConfig] = None,
             await front.router.close()
         for member_client in front.clients():
             await member_client.close()
+        if front.federation is not None:
+            from ..parallel import federation
+            if federation.current() is front.federation.manifest:
+                federation.uninstall()
         if front.unit_lifecycle is not None:
             # The units this app spawned stop with it (no restart).
             await asyncio.to_thread(front.unit_lifecycle.stop_all)

@@ -37,11 +37,12 @@ record of ``utils.decisions`` with its signals, and its measured outcome
 ``autoscale.up`` / ``autoscale.down`` / ``autoscale.blocked`` flight
 events.
 
-Left out: the federation's quorum fence in :meth:`Autoscaler.tick` (JAX's
-``federation.quorum_allow("autoscaler")``) waits for the federation.  With
-no federation installed JAX's fence allows every transition, which is
-what the port does; ``BLOCKED_REASONS`` keeps ``"quorum"`` so the
-telemetry vocabulary is JAX's.
+A federated host that lost its quorum (``parallel.federation
+.quorum_allow("autoscaler")``) makes no transition: the tick answers
+``blocked:quorum`` (a refusal counted), since the majority side may be
+scaling the same members.  With no quorum tracker every transition is
+allowed.  The provisioned fleet a federation's floor is held to is its
+manifest's members (``server.config``).
 """
 
 from __future__ import annotations
@@ -327,6 +328,12 @@ class Autoscaler:
                     and now - self._last_transition
                     < self.config.cooldown_s):
                 return self._blocked("cooldown", want, sig)
+            from ..parallel import federation
+            if not federation.quorum_allow("autoscaler"):
+                # Fenced minority: a membership transition is the ring
+                # change a partition forbids (the majority may be scaling
+                # the same members).
+                return self._blocked("quorum", want, sig)
             if want == "up":
                 return self._scale_up(now, sig)
             return self._scale_down(now, sig)

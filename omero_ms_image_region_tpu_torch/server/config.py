@@ -113,11 +113,15 @@ no copy (PERF.md, ROADMAP Queue 1 item 9).
   ``autoscaler.unit-config`` needs ``fleet.sockets``, ``autoscaler.enabled``
   a fleet, and ``autoscaler.floor`` at most the provisioned members.
 
-The federation (``federation``) is not served.  Its values get the JAX
-loader's checks and errors whether the section is on or off; a valid
-section switched off (``enabled: false``) is inert, and set away from the
-JAX default otherwise (``enabled: true`` among them), a setting is refused
-by name.
+* the cross-host federation (``parallel.federation``): ``federation``
+  (``enabled``, ``host``, ``shard-epoch``, ``ring-seed``,
+  ``hash-replicas``, ``gossip-interval-s``, ``quorum``,
+  ``suspect-after-s``, ``roll-ack-timeout-s``, ``members``) as the JAX
+  loader reads it, with its errors in its order: the members' shape, the
+  epoch, the replicas and the intervals, ``quorum`` only with
+  ``enabled``; and with ``enabled``, at least two members, unique names, a
+  ``host`` (by default ``parallel.cluster.host_identity()``) that owns a
+  member, and no ``fleet.sockets`` beside it.
 
 Everything else is read and checked against the JAX default.  A section
 that is switched off (``enabled: false``) is inert.  A boolean set from
@@ -552,21 +556,40 @@ class AutoscalerConfig:
 
 
 @dataclass
+class FederationConfig:
+    """The cross-host federation (``parallel.federation``): the fleet's
+    membership as a versioned manifest every host carries alike, agreed by
+    digest at join (``manifest_hello``), gossiped, rolled in two phases and
+    drained across hosts over ``shard_transfer``."""
+
+    enabled: bool = False
+    # This process's host; it must own at least one member ("": the
+    # cluster layer's host identity).
+    host: str = ""
+    # The shard epoch: bumped with every membership or ring change.
+    shard_epoch: int = 1
+    # Folded into every ring point ("" keeps the single-host owners).
+    ring_seed: str = ""
+    hash_replicas: int = 64
+    gossip_interval_s: float = 5.0
+    # A host that hears no strict majority of manifest hosts within
+    # suspect_after_s fences (refuses adoption, write-backs, promotions,
+    # autoscaling and rolls) until the partition heals.
+    quorum: bool = False
+    suspect_after_s: float = 10.0
+    roll_ack_timeout_s: float = 5.0
+    # Every member fleet-wide, in ring order: {name, host, address}, the
+    # address (unix path or host:port) needed by other hosts.
+    members: Tuple[dict, ...] = ()
+
+
+@dataclass
 class LoggingConfig:
     level: str = "INFO"
     file: Optional[str] = None           # a time-rolling file appender
     when: str = "midnight"
     backup_count: int = 7
 
-
-# The JAX defaults of every section the port does not serve, by YAML key.
-_UNPORTED = {
-    "federation": {
-        "enabled": False, "host": "", "shard-epoch": 1, "ring-seed": "",
-        "hash-replicas": 64, "gossip-interval-s": 5.0, "quorum": False,
-        "suspect-after-s": 10.0, "roll-ack-timeout-s": 5.0, "members": (),
-    },
-}
 
 # The unported keys of the served sections, with their JAX defaults.
 _UNPORTED_KEYS = {
@@ -611,49 +634,6 @@ def _check(section: str, block: dict, defaults: dict,
         if _same(value, default) or (default is True and value is False):
             continue
         raise _refuse(name, value)
-
-
-def _federation(fe: dict) -> None:
-    """The JAX loader's checks of the ``federation`` values that hold
-    whether the section is on or off, with its errors and in its order:
-    the members' shape, the epoch, the ring's replicas, the gossip, suspect
-    and roll-ack intervals, and ``quorum`` only with ``enabled``.  The
-    section is not served, so nothing is kept; :func:`_check` refuses a
-    section that is not switched off and holds a value away from the JAX
-    default (``enabled: true`` among them), by name."""
-    d = _UNPORTED["federation"]
-    members = fe.get("members", ()) or ()
-    if not isinstance(members, (list, tuple)):
-        raise ValueError("federation.members must be a list of "
-                         "{name, host, address?} entries")
-    for i, m in enumerate(members):
-        if not isinstance(m, dict) or not m.get("name") \
-                or not m.get("host"):
-            raise ValueError(f"federation.members[{i}] must be a mapping "
-                             f"with at least name and host")
-    enabled = bool(fe.get("enabled", d["enabled"]))
-    shard_epoch = int(fe.get("shard-epoch", d["shard-epoch"]))
-    hash_replicas = int(fe.get("hash-replicas", d["hash-replicas"]))
-    gossip_s = float(fe.get("gossip-interval-s", d["gossip-interval-s"]))
-    quorum = bool(fe.get("quorum", d["quorum"]))
-    suspect_s = float(fe.get("suspect-after-s", d["suspect-after-s"]))
-    roll_ack_s = float(fe.get("roll-ack-timeout-s",
-                              d["roll-ack-timeout-s"]))
-    if shard_epoch < 1:
-        raise ValueError("federation.shard-epoch must be >= 1 "
-                         "(bump it with every membership change)")
-    if hash_replicas < 1:
-        raise ValueError("federation.hash-replicas must be >= 1")
-    if gossip_s <= 0:
-        raise ValueError("federation.gossip-interval-s must be > 0")
-    if suspect_s <= 0:
-        raise ValueError("federation.suspect-after-s must be > 0")
-    if roll_ack_s <= 0:
-        raise ValueError("federation.roll-ack-timeout-s must be > 0")
-    if quorum and not enabled:
-        raise ValueError("federation.quorum requires "
-                         "federation.enabled (quorum is a verdict "
-                         "over manifest hosts)")
 
 
 def _block(raw: dict, name: str) -> dict:
@@ -713,6 +693,7 @@ class AppConfig:
     parallel: ParallelConfig = field(default_factory=ParallelConfig)
     loadmodel: LoadModelConfig = field(default_factory=LoadModelConfig)
     autoscaler: AutoscalerConfig = field(default_factory=AutoscalerConfig)
+    federation: FederationConfig = field(default_factory=FederationConfig)
     # Sections switched on that the port loads but does not serve (none
     # today).
     unserved: Tuple[str, ...] = ()
@@ -793,13 +774,8 @@ class AppConfig:
         cfg._sidecar(_block(raw, "sidecar"), _block(raw, "wire"),
                      _block(raw, "fleet"))
         cfg._fleet(_block(raw, "fleet"), _block(raw, "hotkey"))
-        _federation(_block(raw, "federation"))
+        cfg._federation(_block(raw, "federation"))
         cfg._parallel(_block(raw, "parallel"))
-        for name, defaults in _UNPORTED.items():
-            block = _block(raw, name)
-            if "enabled" in defaults and block.get("enabled") is False:
-                continue                 # switched off: inert
-            _check(name, block, defaults)
         cfg._watchdog(_block(raw, "watchdog"))
         cfg._drain(_block(raw, "drain"))
         cfg._fault_tolerance(_block(raw, "fault-tolerance"))
@@ -831,6 +807,84 @@ class AppConfig:
                 "the direct (unbatched) renderer; with batcher.enabled "
                 "or parallel.enabled use 'sparse', 'huffman' or 'auto'")
         return cfg
+
+    def _federation(self, fe: dict) -> None:
+        """The JAX loader's ``federation`` block and its checks, in its
+        order (JAX ``:1169-1258``); after the fleet, whose ``sockets`` it
+        excludes."""
+        d = FederationConfig()
+        _check("federation", fe, {}, served=tuple(
+            f.replace("_", "-") for f in d.__dataclass_fields__))
+        members_raw = fe.get("members", ()) or ()
+        if not isinstance(members_raw, (list, tuple)):
+            raise ValueError("federation.members must be a list of "
+                             "{name, host, address?} entries")
+        members = []
+        for i, m in enumerate(members_raw):
+            if not isinstance(m, dict) or not m.get("name") \
+                    or not m.get("host"):
+                raise ValueError(f"federation.members[{i}] must be a "
+                                 f"mapping with at least name and host")
+            members.append({"name": str(m["name"]), "host": str(m["host"]),
+                            "address": str(m.get("address") or "")})
+        self.federation = f = FederationConfig(
+            enabled=bool(fe.get("enabled", d.enabled)),
+            host=str(fe.get("host", d.host) or ""),
+            shard_epoch=int(fe.get("shard-epoch", d.shard_epoch)),
+            ring_seed=str(fe.get("ring-seed", d.ring_seed) or ""),
+            hash_replicas=int(fe.get("hash-replicas", d.hash_replicas)),
+            gossip_interval_s=float(fe.get("gossip-interval-s",
+                                           d.gossip_interval_s)),
+            quorum=bool(fe.get("quorum", d.quorum)),
+            suspect_after_s=float(fe.get("suspect-after-s",
+                                         d.suspect_after_s)),
+            roll_ack_timeout_s=float(fe.get("roll-ack-timeout-s",
+                                            d.roll_ack_timeout_s)),
+            members=tuple(members))
+        if f.shard_epoch < 1:
+            raise ValueError("federation.shard-epoch must be >= 1 "
+                             "(bump it with every membership change)")
+        if f.hash_replicas < 1:
+            raise ValueError("federation.hash-replicas must be >= 1")
+        if f.gossip_interval_s <= 0:
+            raise ValueError("federation.gossip-interval-s must be > 0")
+        if f.suspect_after_s <= 0:
+            raise ValueError("federation.suspect-after-s must be > 0")
+        if f.roll_ack_timeout_s <= 0:
+            raise ValueError("federation.roll-ack-timeout-s must be > 0")
+        if f.quorum and not f.enabled:
+            raise ValueError("federation.quorum requires "
+                             "federation.enabled (quorum is a verdict "
+                             "over manifest hosts)")
+        if not f.enabled:
+            return
+        if len(f.members) < 2:
+            raise ValueError("federation.enabled requires >= 2 members "
+                             "(one host needs no federation — use "
+                             "fleet.members)")
+        names = [m["name"] for m in f.members]
+        if len(set(names)) != len(names):
+            raise ValueError("federation.members names must be unique "
+                             "fleet-wide")
+        if not f.host:
+            from ..parallel.cluster import host_identity
+            f.host = host_identity()
+        hosts = {m["host"] for m in f.members}
+        if f.host not in hosts:
+            raise ValueError(
+                f"federation.host {f.host!r} owns no manifest member "
+                f"(hosts: {sorted(hosts)}); set federation.host "
+                f"explicitly, or name manifest hosts by "
+                f"cluster.host_identity() — the default when the key is "
+                f"omitted")
+        # A remote member's address is checked where the topology is
+        # built (``build_federated_members``): only a routing process
+        # dials them.
+        if self.fleet.sockets:
+            raise ValueError(
+                "federation.enabled and fleet.sockets are mutually "
+                "exclusive — the manifest IS the membership; list remote "
+                "members with addresses in federation.members instead")
 
     def _parallel(self, par: dict) -> None:
         _check("parallel", par, {},
@@ -1511,9 +1565,9 @@ class AppConfig:
 
     def _autoscaler(self, au: dict) -> None:
         """The JAX loader's ``autoscaler`` block and its checks, the
-        cross-section ones last, in its order.  The federation is never on
-        here (``federation.enabled`` is refused), so the provisioned fleet
-        is ``fleet.sockets`` or ``fleet.members``."""
+        cross-section ones last, in its order.  The provisioned fleet is
+        the federation's manifest members, else ``fleet.sockets`` or
+        ``fleet.members`` (JAX ``:1505-1512``)."""
         d = AutoscalerConfig()
         _check("autoscaler", au, {}, served=tuple(
             f.replace("_", "-") for f in d.__dataclass_fields__))
@@ -1569,13 +1623,17 @@ class AppConfig:
             raise ValueError(
                 "autoscaler.unit-config manages sidecar unit "
                 "processes — it requires the fleet.sockets topology")
-        if a.enabled and not self.fleet.enabled:
+        if a.enabled and not (self.fleet.enabled
+                              or self.federation.enabled):
             raise ValueError(
                 "autoscaler.enabled requires a fleet topology "
                 "(fleet.enabled or federation.enabled) — there is "
                 "nothing to scale without members")
         if a.enabled:
-            provisioned = len(self.fleet.sockets) or self.fleet.members
+            provisioned = (len(self.federation.members)
+                           if self.federation.enabled
+                           else (len(self.fleet.sockets)
+                                 or self.fleet.members))
             if a.floor > provisioned:
                 raise ValueError(
                     f"autoscaler.floor ({a.floor}) exceeds the "

@@ -8,9 +8,11 @@ job) without rendering, staging or charging anything: one curl answers
 "is this tile warm, and why was it slow".  It covers the image routes, the
 mask, overlay and animation routes.
 
-The JAX document's fleet sections (``ring``, ``members``, ``federation``
-and the remote ``explain`` probe over the sidecar) are absent, as the JAX
-app writes them for a fleet-less app: the port has one member.
+The ``federation`` section (JAX ``:347-371``) says which manifest this
+host routes (epoch, digest, host), a pending newer epoch, and, with the
+app's coordinator, the peers' agreement and the forked ones.  The JAX
+document's other fleet sections (``ring``, ``members`` and the per-member
+residency over the ``explain`` op) are absent.
 """
 
 from __future__ import annotations
@@ -222,8 +224,31 @@ def _explain_animation(path, params, config, services, jobs) -> dict:
     return doc
 
 
+def _federation_fields(doc: dict, federation_coord) -> None:
+    """The federation's posture: the manifest this host routes, a pending
+    newer epoch and the peers' agreement (the forked ones are ``stale`` or
+    ``split-brain``)."""
+    from ..parallel import federation
+    manifest = federation.current()
+    if manifest is None:
+        return
+    fed: dict = {"epoch": manifest.version, "digest": manifest.digest(),
+                 "self_host": federation.self_host() or None}
+    pend = federation.pending()
+    if pend is not None:
+        fed["pending_epoch"] = pend.version
+        fed["pending_digest"] = pend.digest()
+    agreement = dict(getattr(federation_coord, "agreement", None) or {})
+    if agreement:
+        fed["agreement"] = agreement
+        fed["forked"] = sorted(n for n, v in agreement.items()
+                               if v in ("stale", "split-brain"))
+    doc["federation"] = fed
+
+
 async def explain(path: str, config, services=None, admission=None,
-                  jobs=None, proxy_client=None) -> dict:
+                  jobs=None, proxy_client=None,
+                  federation_coord=None) -> dict:
     """The explain document of one render URL.  Read-only: cache probes
     only, no renderer span moves.  A frontend (``proxy_client``, its
     ``server.sidecar.SidecarClient``) asks its sidecar for the residency
@@ -249,6 +274,7 @@ async def explain(path: str, config, services=None, admission=None,
     if job_doc is not None:
         doc["pyramid_job"] = job_doc
     _etag_fields(doc, config, ctx.cache_key)
+    _federation_fields(doc, federation_coord)
     if services is not None:
         doc["residency"] = await residency_doc(
             getattr(getattr(services, "caches", None), "image_region",

@@ -35,10 +35,13 @@ config's sake.  An engine given watermarks (``watermarks=``) uses them
 as the JAX one does.
 
 The tick runs on a worker thread (:meth:`SentinelEngine.run`), so the
-bundle's profile never blocks the event loop.  The JAX engine's fleet
-posture (gossiped member summaries) waits for the fleet; this process's
-view is the whole view.  Best effort: no sentinel failure fails a
-request, a tick or the boot.
+bundle's profile never blocks the event loop.  Fleet posture: every
+member process (combined app, sidecar) runs its own engine, and in a
+federation each host's tick summary rides its gossip answers into
+``telemetry.SENTINEL`` (:meth:`~..utils.telemetry.SentinelStats.ingest`),
+so ``GET /debug/sentinel`` answers one merged view over the hosts and
+``/readyz`` carries the annotation-only ``sentinel`` note.  Best effort:
+no sentinel failure fails a request, a tick or the boot.
 """
 
 from __future__ import annotations

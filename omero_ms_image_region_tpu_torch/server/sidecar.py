@@ -36,11 +36,18 @@ this process's ACL for the caller's session) and ``byte_put``
 ``mask``), ``shard_manifest`` (the raw cache's entries), ``prestage``
 (entries re-read from this process's pixel store into its raw cache) and
 ``shard_transfer`` (a plane's bytes, digest-checked, staged under its
-region key and route).  Any other op answers 400, as an older JAX peer
-answers an op it does not know: the federation's ``manifest_hello``,
-``member_gossip``, ``epoch_propose``, ``epoch_commit`` and ``partition``
-wait for the federation (ROADMAP Queue 1 item 5), and so do its fences,
-so a byte put, a prestage and a shard transfer are never refused here.
+region key and route; the reply carries ``t_anchor``, ``ms`` and ``host``,
+which the shipping host grafts as a clock-anchored span).  The
+federation's ops (``parallel.federation``): ``manifest_hello`` (the
+joiner's manifest against this process's, and this process's own ring
+owners of the probe keys), ``member_gossip`` (the versioned member views,
+this host's clock anchor, SLO buckets and sentinel summary),
+``epoch_propose`` and ``epoch_commit`` (the two phases of a roll) and
+``partition`` (this process's outbound link-partition rules, the netsplit
+drill's; exempt from the partitions itself).  A fenced minority host
+(quorum lost) refuses write authority (``byte_put`` answers ``stored:
+false, fenced: true``) and inbound staging (``prestage`` and
+``shard_transfer`` answer ``fenced: true``).  Any other op answers 400.
 
 Fault-tolerance fields (optional): a request may carry ``deadline_ms``,
 the requester's remaining budget, re-anchored on the sidecar's clock (a
@@ -68,7 +75,13 @@ member's sidecar itself, and the autoscaler stops a parked member's
 process after its drain and restarts it, waiting for its socket, before
 the undrain.
 
-Left out with the federation: its hooks in :func:`run_sidecar`.
+With ``federation.enabled`` :func:`run_sidecar` installs the manifest
+(and the quorum tracker with ``federation.quorum``) and gossips with one
+member of every other host on ``federation.gossip-interval-s``, so its own
+quorum verdict, and its fence, are local knowledge.  The client
+(:class:`SidecarClient`) of a member on another host carries that host
+(``peer_host``), and a partition rule from this host to it fails its calls
+as a dead wire.
 """
 
 from __future__ import annotations
@@ -377,9 +390,18 @@ async def _byte_op(image_handler, op: str, header: dict,
         if actual != claimed:
             raise BadRequestError(f"byte_put digest mismatch: claimed "
                                   f"{claimed}, body is {actual}")
-    if enabled:
+    from ..parallel import federation
+    fenced = not federation.quorum_allow("write_authority")
+    stored = False
+    if enabled and not fenced:
         await stack.set(key, value)
-    return json.dumps({"stored": enabled}).encode()
+        stored = True
+    # A fenced minority refuses write authority (counted) and answers: the
+    # put is fire and forget.
+    doc = {"stored": stored}
+    if fenced:
+        doc["fenced"] = True
+    return json.dumps(doc).encode()
 
 
 async def _prestage(image_handler, header: dict) -> bytes:
@@ -405,6 +427,10 @@ async def _prestage(image_handler, header: dict) -> bytes:
                 continue        # a bad entry is a cold miss later
         return staged
 
+    from ..parallel import federation
+    if not federation.quorum_allow("transfer"):
+        # Fenced: inbound staging is shard adoption by another name.
+        return json.dumps({"staged": 0, "fenced": True}).encode()
     staged = (await asyncio.to_thread(stage_all)
               if cache is not None and pixels is not None else 0)
     return json.dumps({"staged": staged}).encode()
@@ -459,13 +485,64 @@ async def _shard_transfer(image_handler, header: dict,
                           route_key=str(route) if route else None)
         return actual
 
+    from ..parallel import federation
     t_anchor = time.perf_counter()
     actual = await asyncio.to_thread(stage_verified)
+    stage_ms = (time.perf_counter() - t_anchor) * 1000.0
+    telemetry.FEDERATION.count_transfer(len(req_body))
+    # The anchor: this process's perf-clock instant the stage started, its
+    # length and this host, which the shipping host grafts into its trace
+    # (``federation.anchor_remote_time``).
     return json.dumps({"staged": True, "digest": actual,
                        "t_anchor": t_anchor,
-                       "ms": round((time.perf_counter() - t_anchor)
-                                   * 1000.0, 3),
-                       "host": ""}).encode()
+                       "ms": round(stage_ms, 3),
+                       "host": federation.self_host()}).encode()
+
+
+_FEDERATION_OPS = ("manifest_hello", "member_gossip", "epoch_propose",
+                   "epoch_commit", "partition")
+
+
+def _federation_op(op: str, header: dict) -> dict:
+    """The federation's ops (JAX ``:867-945``), answered from this
+    process's installed manifest (``{"enabled": false}`` with none).
+    ``partition`` edits this process's outbound link rules
+    (``utils.faultinject.PARTITIONS``): ``action`` add, remove, clear or
+    show; its answer carries the rules, the quorum and the active epoch,
+    so a drill can watch a healed host converge."""
+    from ..parallel import federation
+    from ..utils import faultinject
+
+    if op == "manifest_hello":
+        return federation.handle_manifest_hello(header)
+    if op == "member_gossip":
+        return federation.handle_member_gossip(header)
+    if op == "epoch_propose":
+        return federation.handle_epoch_propose(header)
+    if op == "epoch_commit":
+        return federation.handle_epoch_commit(header)
+    action = str(header.get("action") or "show")
+    src = str(header.get("src") or "")
+    dst = str(header.get("dst") or "")
+    both = bool(header.get("bidirectional"))
+    try:
+        if action == "add":
+            faultinject.PARTITIONS.add(
+                src, dst, mode=str(header.get("mode") or "drop"),
+                bidirectional=both)
+        elif action == "remove":
+            faultinject.PARTITIONS.remove(src, dst, bidirectional=both)
+        elif action == "clear":
+            faultinject.PARTITIONS.clear()
+        elif action != "show":
+            raise BadRequestError(f"partition action {action!r} must be "
+                                  f"add/remove/clear/show")
+    except ValueError as e:
+        raise BadRequestError(str(e))
+    active = federation.current()
+    return {"rules": faultinject.PARTITIONS.snapshot(),
+            "quorum": federation.quorum_status(),
+            "epoch": active.version if active is not None else None}
 
 
 def _server_hello(header: dict, frames: FrameWriter, wire) -> tuple:
@@ -656,8 +733,17 @@ async def _serve_connection(image_handler, mask_handler, reader, writer,
             elif op == "prestage":
                 body = await _prestage(image_handler, header)
             elif op == "shard_transfer":
-                body = await _shard_transfer(image_handler, header,
-                                             req_body)
+                from ..parallel import federation
+                if not federation.quorum_allow("transfer"):
+                    # Fenced: taking another host's shard bytes is the
+                    # adoption a partition forbids.
+                    body = json.dumps({"staged": False,
+                                       "fenced": True}).encode()
+                else:
+                    body = await _shard_transfer(image_handler, header,
+                                                 req_body)
+            elif op in _FEDERATION_OPS:
+                body = json.dumps(_federation_op(op, header)).encode()
             elif op == "explain":
                 # Read-only residency probe of the /debug/explain plane.
                 from .explain import residency_doc
@@ -856,6 +942,18 @@ async def run_sidecar(config, socket_path: Optional[str] = None,
     services = build_services(config, device)
     if services_out is not None:
         services_out["services"] = services
+    from ..parallel import federation
+    fed = config.federation
+    fed_manifest = None
+    if fed.enabled:
+        # The federation's ops answer from this process's own copy of the
+        # agreed membership.
+        fed_manifest = federation.FleetManifest.from_config(fed)
+        federation.install(fed_manifest, self_host=fed.host)
+        if fed.quorum:
+            federation.install_quorum(federation.QuorumTracker(
+                fed_manifest, self_host=fed.host,
+                suspect_after_s=fed.suspect_after_s))
     db_metadata = None
     if config.metadata_backend == "postgres":
         from ..services.db_metadata import PostgresMetadataService
@@ -897,12 +995,34 @@ async def run_sidecar(config, socket_path: Optional[str] = None,
         if wd._targets:
             background.append(asyncio.create_task(wd.run(),
                                                   name="watchdog"))
+    if fed_manifest is not None and fed.gossip_interval_s > 0:
+        # The host-level gossip: this process runs its own failure
+        # detector against one member of every other host, so its quorum
+        # verdict is its own knowledge.  No router: it gossips and answers
+        # rolls.
+        from ..parallel.fleet import RemoteMember
+        handles = []
+        seen_hosts: set = set()
+        for spec in fed_manifest.remote_members(fed.host):
+            if spec.host in seen_hosts or not spec.address:
+                continue
+            seen_hosts.add(spec.host)
+            peer = SidecarClient(spec.address, wire=config.wire)
+            peer.peer_host = spec.host
+            handles.append(RemoteMember(spec.name, peer))
+        if handles:
+            coordinator = federation.FederationCoordinator(
+                fed_manifest, self_host=fed.host,
+                gossip_interval_s=fed.gossip_interval_s, handles=handles)
+            background.append(asyncio.create_task(
+                coordinator.run(), name="federation-gossip"))
     # The sidecar sketches its own render latency; the frontend folds its
-    # summary into /debug/sentinel over the ``sentinel`` op.
+    # summary into /debug/sentinel over the ``sentinel`` op (and a
+    # federated host's rides its gossip answers).
     sentinel_engine = None
     if config.sentinel.enabled:
         sentinel_engine = sentinel_mod.engine_from_config(
-            config.sentinel, member="sidecar")
+            config.sentinel, member=fed.host if fed.enabled else "sidecar")
         sentinel_mod.install(sentinel_engine)
         background.append(asyncio.create_task(sentinel_engine.run(),
                                               name="perf-sentinel"))
@@ -918,6 +1038,11 @@ async def run_sidecar(config, socket_path: Optional[str] = None,
             doc["prewarm_failed"] = telemetry.READINESS.prewarm_failed
         if services.warmstate is not None:
             doc["rehydrate"] = telemetry.PERSIST.rehydrate_summary()
+        quorum = federation.quorum_status()
+        if quorum is not None:
+            # An annotation, not unreadiness: a fenced host keeps serving
+            # its own shards.
+            doc["quorum"] = quorum
         return doc
 
     def profile_fn(ms: float) -> dict:
@@ -978,6 +1103,9 @@ async def run_sidecar(config, socket_path: Optional[str] = None,
             sentinel_engine.close()
             if sentinel_mod.active() is sentinel_engine:
                 sentinel_mod.uninstall()
+        if fed_manifest is not None and federation.current() is not None \
+                and federation.self_host() == fed.host:
+            federation.uninstall()
         for task in list(conn_tasks):
             task.cancel()
         if conn_tasks:
@@ -1107,6 +1235,26 @@ class SidecarClient:
         # The fleet name of the sidecar behind this client
         # (``parallel.fleet.RemoteMember`` sets it); the hello sends it.
         self.member_label: Optional[str] = None
+        # The federation host this client reaches (set for a member on
+        # another host): the partition rules match (this host, peer_host),
+        # so an unstamped client is never partitioned.
+        self.peer_host: str = ""
+
+    def _check_partition(self, op: str) -> None:
+        """The netsplit drill: a partition rule from this host to
+        ``peer_host`` keeps the frame home and fails the call as a dead
+        wire does (``ConnectionError``, into the retries, the breaker and
+        the mark-down).  The ``partition`` op is exempt: a drill must
+        always be able to heal what it broke."""
+        if op == "partition" or not self.peer_host:
+            return
+        from ..parallel import federation
+        from ..utils import faultinject
+        src = federation.self_host()
+        mode = faultinject.partitioned(src, self.peer_host)
+        if mode is not None:
+            raise ConnectionError(f"link partitioned ({mode}): {src} -> "
+                                  f"{self.peer_host}")
 
     async def _ensure_connected(self) -> _Conn:
         conn = self._conn
@@ -1355,6 +1503,7 @@ class SidecarClient:
             fut: Optional[asyncio.Future] = None
             rid = 0
             try:
+                self._check_partition(op)
                 conn = await self._ensure_connected()
                 self._next_id += 1
                 rid = self._next_id
@@ -1485,6 +1634,7 @@ class SidecarClient:
             rid = 0
             sink = _StreamSink()
             try:
+                self._check_partition(op)
                 conn = await self._ensure_connected()
                 self._next_id += 1
                 rid = self._next_id

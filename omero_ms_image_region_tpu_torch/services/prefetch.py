@@ -41,10 +41,10 @@ and nothing is scheduled for a request that is not a tile.
   prefetch warms the member that will serve the request and never
   duplicates a plane; with ``replica_caches`` (``FleetRouter
   .local_replica_caches``) a promoted hot route's prediction also stages
-  into each local replica's cache.
-
-Not here: the JAX prefetcher's federation seam (``remote_prestage``),
-which comes with the federation.
+  into each local replica's cache.  With ``remote_prestage`` (a
+  federated fleet sets ``FleetRouter.remote_prestage_for_route``), a
+  prediction whose owner is a member on another host is handed to that
+  host as a ``prestage`` hint, and nothing is staged here.
 """
 
 from __future__ import annotations
@@ -86,6 +86,10 @@ class TilePrefetcher:
         # of a promoted hot route.
         self.cache_for_route = None
         self.replica_caches = None
+        # The federation's seam: ``remote_prestage(route, entry) -> bool``
+        # hints a remote owner's host to stage the plane from its own
+        # pixel store.
+        self.remote_prestage = None
         self._pool = concurrent.futures.ThreadPoolExecutor(
             max_workers=max_workers, thread_name_prefix="tile-prefetch")
         self._lock = threading.Lock()
@@ -202,6 +206,16 @@ class TilePrefetcher:
                 routed = self.cache_for_route(route)
                 if routed is not None:
                     cache = routed
+                elif self.remote_prestage is not None:
+                    # No local member owns the route: its owner is on
+                    # another host, which stages the hint.
+                    entry = {"key": [image_id, nz, nt, level,
+                                     list(region.as_tuple()),
+                                     list(active)],
+                             "route": route}
+                    if self.remote_prestage(route, entry):
+                        self.predicted += 1
+                        continue
             targets = [cache]
             if self.replica_caches is not None:
                 try:

@@ -14,8 +14,14 @@ sentinel (``server.sentinel``) writes ``kind=sentinel`` with ``drift`` and
 one record for each change of its tick's verdict (``up``, ``down``,
 ``blocked``, ``steady``) with the signals it read, and the measured outcome
 (the queue and the active members) attached ``outcome_horizon_ticks`` ticks
-later by :meth:`DecisionLedger.resolve`.  The epoch, manifest and gossip
-writers come with the federation.  Each record also fires a
+later by :meth:`DecisionLedger.resolve`.  The federation
+(``parallel.federation``) writes ``epoch`` (``installed``, ``pending``,
+``done``, ``failed``), ``manifest`` (``agreed``, ``pending``, ``stale``,
+``split-brain``, ``unreachable``, ``legacy``), ``gossip`` (``ok``,
+``mismatch``, ``unreachable``, on a change of a peer's verdict only) and
+``quorum`` (``fenced``, ``restored``); its ``install`` stamps the ledger
+with the host (``configure(host=...)``), so a merged fleet timeline
+attributes each record.  Each record also fires a
 ``decision.<kind>`` flight event, so the black box and the ledger tell one
 story.
 

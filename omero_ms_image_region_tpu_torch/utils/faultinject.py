@@ -18,7 +18,12 @@ fixed hook points:
 Decisions come from one seeded ``random.Random`` under a lock, so a fixed
 seed gives a reproducible schedule for a fixed call sequence.  Every rate
 defaults to 0 and the injector to ``None``: a lane pays one ``is None``
-check.  The link partitions wait for the federation.
+check.
+
+The link partitions (:class:`PartitionTable`, :data:`PARTITIONS`,
+:func:`partitioned`) are the federation's netsplit drill: directional
+``(src_host, dst_host)`` rules that the sidecar client consults before a
+frame leaves this host, set and cleared over the ``partition`` wire op.
 """
 
 from __future__ import annotations
@@ -162,3 +167,86 @@ def uninstall() -> None:
 
 def active() -> Optional[FaultInjector]:
     return _INSTALLED
+
+
+# ------------------------------------------------- link-level partitions
+
+class PartitionTable:
+    """Directional link partitions for the netsplit drill.
+
+    Rules are ``(src_host, dst_host) -> mode``, applied at the sidecar
+    client of the ``src_host`` process (``SidecarClient.call_full`` asks
+    :func:`partitioned` before a frame leaves the host).  ``"drop"``: the
+    call fails as a dead wire (``ConnectionError``, after its retries);
+    ``"deny"``: the same error, counted apart.  No seed gates them: they
+    are topology state the drill flips on and off (the ``partition`` wire
+    op), and they stack with any installed injector.  A rule whose
+    ``src_host`` is not this process's host never matches here."""
+
+    MODES = ("drop", "deny")
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._rules: Dict[tuple, str] = {}
+
+    def add(self, src: str, dst: str, mode: str = "drop",
+            bidirectional: bool = False) -> None:
+        if mode not in self.MODES:
+            raise ValueError(f"partition mode must be one of "
+                             f"{self.MODES}, got {mode!r}")
+        src, dst = str(src), str(dst)
+        if not src or not dst or src == dst:
+            raise ValueError("partition rule needs distinct non-empty "
+                             "src and dst hosts")
+        with self._lock:
+            self._rules[(src, dst)] = mode
+            if bidirectional:
+                self._rules[(dst, src)] = mode
+        self._publish()
+
+    def remove(self, src: str, dst: str,
+               bidirectional: bool = False) -> None:
+        with self._lock:
+            self._rules.pop((str(src), str(dst)), None)
+            if bidirectional:
+                self._rules.pop((str(dst), str(src)), None)
+        self._publish()
+
+    def clear(self) -> None:
+        with self._lock:
+            self._rules.clear()
+        self._publish()
+
+    def check(self, src: str, dst: str) -> Optional[str]:
+        """The blocking mode of src->dst, or None (an open link).  An empty
+        host never matches: an unstamped client is never partitioned."""
+        if not src or not dst:
+            return None
+        with self._lock:
+            return self._rules.get((src, dst))
+
+    def snapshot(self) -> list:
+        with self._lock:
+            return [{"src": s, "dst": d, "mode": m}
+                    for (s, d), m in sorted(self._rules.items())]
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._rules)
+
+    def _publish(self) -> None:
+        from . import telemetry
+        telemetry.QUORUM.set_partition_rules(len(self))
+
+
+PARTITIONS = PartitionTable()
+
+
+def partitioned(src: str, dst: str) -> Optional[str]:
+    """The rule mode blocking src->dst right now (counted on
+    ``imageregion_partition_blocked_total``), or None."""
+    mode = PARTITIONS.check(src, dst)
+    if mode is not None:
+        from . import telemetry
+        telemetry.QUORUM.count_partition_blocked(mode)
+    return mode

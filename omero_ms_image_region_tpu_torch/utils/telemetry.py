@@ -55,9 +55,12 @@ The family names, label keys and types are the JAX package's, so one
 dashboard and one cardinality budget (``conf/metrics_budget.json``) read
 both.  Not ported: ``imageregion_compile_*`` and ``imageregion_link_*``
 (XLA compile events and TPU-link fetch rates: an eager CUDA launch has no
-compile step, and the card sits on PCIe in the same host); and the
-federation's families (the fleet SLO, the quorum, the gossiped sentinel
-rows), which wait for the federation.  The fleet's are here
+compile step, and the card sits on PCIe in the same host).  The
+federation's (``parallel.federation``) are here: :data:`FEDERATION`
+(manifest, agreements, gossip, ``shard_transfer`` planes), :data:`QUORUM`
+(the quorum verdict, fence refusals, injected link partitions),
+:data:`FED_SLO` (the fleet SLO burn over peers' gossiped SLO buckets) and
+the gossiped sentinel rows (:meth:`SentinelStats.ingest`).  The fleet's are here
 (``parallel.fleet``): :data:`FLEET` (routed, stolen and failed-over renders
 by member), :data:`HOTKEY` (hot-plane replication), :data:`DRAIN` (drain
 states and the handoff's planes), the peer byte fetch's counters in
@@ -308,11 +311,17 @@ class Trace:
         this trace's start): what a sidecar sends back on the wire."""
         return [dict(s) for s in list(self.spans)]
 
-    def add_span(self, name: str, t_start: float, dur_ms: float) -> None:
+    def add_span(self, name: str, t_start: float, dur_ms: float,
+                 **meta) -> None:
+        """``meta`` (a federation hop's ``host``, ``member``, ``kind``)
+        rides on the span's dict."""
+        span = {"name": name,
+                "start_ms": round((t_start - self.t0) * 1e3, 3),
+                "dur_ms": round(dur_ms, 3)}
+        if meta:
+            span.update(meta)
         # list.append is atomic under the GIL; readers copy the list first.
-        self.spans.append({"name": name,
-                           "start_ms": round((t_start - self.t0) * 1e3, 3),
-                           "dur_ms": round(dur_ms, 3)})
+        self.spans.append(span)
 
     def span_ms(self, *names: str) -> Optional[float]:
         """Total duration of the spans with one of the exact ``names``
@@ -473,11 +482,12 @@ def group_trace(trace_ids: Tuple[str, ...]):
 
 
 def record_span(name: str, t_start: float, dur_ms: float,
-                trace_ids: Optional[Tuple[str, ...]] = None) -> None:
+                trace_ids: Optional[Tuple[str, ...]] = None,
+                **meta) -> None:
     """Attach a span to ``trace_ids`` (default: the context's traces)."""
     ids = trace_ids if trace_ids is not None else _TRACE_IDS.get()
     for tid in ids:
-        TRACES.get_or_create(tid).add_span(name, t_start, dur_ms)
+        TRACES.get_or_create(tid).add_span(name, t_start, dur_ms, **meta)
 
 
 def observe_span(name: str, dur_ms: float) -> None:
@@ -1920,6 +1930,30 @@ class SloEngine:
         lines.append(f"imageregion_slo_breaches_total {breaches}")
         return lines
 
+    def export_buckets(self) -> dict:
+        """The window state for the fleet aggregate (:class:`FleetSloStats`,
+        over the gossip wire).  Bucket indices key off this process's
+        monotonic clock, so buckets travel as ages (seconds before this
+        export) and the ingesting host re-anchors them.  A disabled engine
+        exports ``{}``."""
+        with self._lock:
+            if not self.enabled:
+                return {}
+            now = self._clock()
+            buckets = [
+                [round(now - idx * self.BUCKET_S, 3),
+                 b["ok"], b["err"], b["fast"], b["slow"]]
+                for idx, b in sorted(self._buckets.items())
+            ]
+            return {
+                "bucket_s": self.BUCKET_S,
+                "availability_target": self.availability_target,
+                "latency_ms": self.latency_ms,
+                "latency_target": self.latency_target,
+                "fast_window_s": self.fast_window_s,
+                "slow_window_s": self.slow_window_s,
+                "buckets": buckets,
+            }
     def reset(self) -> None:
         with self._lock:
             self.enabled = False
@@ -2206,17 +2240,342 @@ class DecisionStats:
 DECISIONS = DecisionStats()
 
 
-class SentinelStats:
-    """The exposition half of the perf sentinel (``server.sentinel`` owns
-    the sketches and the drift engine): the local engine's last tick
-    summary (:meth:`set_local`), drift, recovery and bundle counts, and
-    :meth:`merged`, the ``GET /debug/sentinel`` document.  The JAX class
-    also ingests fleet members' summaries from the gossip; the port has
-    one member, so ``members`` holds the local row alone."""
+class FederationStats:
+    """The federation's accounting (``parallel.federation``): the active
+    manifest's version and member count, join-time agreement outcomes,
+    gossip-round outcomes, the warm planes shipped over ``shard_transfer``
+    and the prestage hints sent to remote owners.  Both label sets are the
+    closed vocabularies below."""
+
+    AGREEMENT_REASONS = ("agreed", "pending", "stale", "split-brain",
+                         "unreachable", "legacy")
+    GOSSIP_REASONS = ("ok", "mismatch", "unreachable")
 
     def __init__(self):
         self._lock = threading.Lock()
+        self.manifest_version = 0
+        self.members = 0
+        self.agreements: Dict[str, int] = {}
+        self.gossip: Dict[str, int] = {}
+        self.shard_transfers = 0
+        self.transfer_bytes = 0
+        self.remote_prestage = 0
+
+    def set_manifest(self, version: int, members: int) -> None:
+        with self._lock:
+            self.manifest_version = int(version)
+            self.members = int(members)
+
+    def count_agreement(self, reason: str) -> None:
+        if reason not in self.AGREEMENT_REASONS:
+            reason = "unreachable"
+        with self._lock:
+            self.agreements[reason] = self.agreements.get(reason, 0) + 1
+
+    def count_gossip(self, reason: str) -> None:
+        if reason not in self.GOSSIP_REASONS:
+            reason = "unreachable"
+        with self._lock:
+            self.gossip[reason] = self.gossip.get(reason, 0) + 1
+
+    def count_transfer(self, nbytes: int) -> None:
+        with self._lock:
+            self.shard_transfers += 1
+            self.transfer_bytes += int(nbytes)
+
+    def count_remote_prestage(self, n: int = 1) -> None:
+        with self._lock:
+            self.remote_prestage += n
+
+    def metric_lines(self) -> List[str]:
+        with self._lock:
+            if not (self.manifest_version or self.agreements
+                    or self.gossip or self.shard_transfers
+                    or self.remote_prestage):
+                return []                # emit-when-live
+            lines = [
+                "imageregion_federation_manifest_version "
+                f"{self.manifest_version}",
+                f"imageregion_federation_members {self.members}",
+                "imageregion_federation_shard_transfers_total "
+                f"{self.shard_transfers}",
+                "imageregion_federation_transfer_bytes_total "
+                f"{self.transfer_bytes}",
+                "imageregion_federation_remote_prestage_total "
+                f"{self.remote_prestage}",
+            ]
+            lines += [f'imageregion_federation_agreements_total'
+                      f'{{reason="{r}"}} {n}'
+                      for r, n in sorted(self.agreements.items())]
+            lines += [f'imageregion_federation_gossip_total'
+                      f'{{reason="{r}"}} {n}'
+                      for r, n in sorted(self.gossip.items())]
+        return lines
+
+    def reset(self) -> None:
+        with self._lock:
+            self.manifest_version = 0
+            self.members = 0
+            self.agreements.clear()
+            self.gossip.clear()
+            self.shard_transfers = 0
+            self.transfer_bytes = 0
+            self.remote_prestage = 0
+
+
+FEDERATION = FederationStats()
+
+
+class FleetSloStats:
+    """Fleet-level SLO burn: every federated host exports its
+    :class:`SloEngine` window buckets over the gossip wire
+    (:meth:`SloEngine.export_buckets`, keyed by age, since bucket indices
+    are process-local) and this host re-anchors them on its own clock, so
+    one host's burning budget shows as ``imageregion_fleet_slo_*`` while
+    the fleet mean looks healthy.  At most ``_MAX_HOSTS`` hosts are held;
+    a new host past the bound is dropped and counted.  The strictest
+    target seen wins."""
+
+    _MAX_HOSTS = 16
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._clock = time.monotonic
+        # host -> {"t": ingest instant, "export": the export document}
+        self.hosts: Dict[str, dict] = {}
+        self.dropped_hosts = 0
+
+    def ingest(self, host: str, export) -> bool:
+        if not host or not isinstance(export, dict) \
+                or not export.get("buckets"):
+            return False
+        with self._lock:
+            if host not in self.hosts \
+                    and len(self.hosts) >= self._MAX_HOSTS:
+                self.dropped_hosts += 1
+                return False
+            self.hosts[host] = {"t": self._clock(), "export": dict(export)}
+        return True
+
+    @staticmethod
+    def _window_counts(export: dict, elapsed: float,
+                       window_s: float) -> Dict[str, int]:
+        out = {"ok": 0, "err": 0, "fast": 0, "slow": 0}
+        bucket_s = float(export.get("bucket_s", 5.0))
+        for row in export.get("buckets", ()):
+            try:
+                age, ok, err, fast, slow = row
+            except (TypeError, ValueError):
+                continue
+            # ``age`` dates the bucket's start at export; a bucket counts
+            # while any part of it overlaps the window.
+            if float(age) + elapsed - bucket_s <= window_s:
+                out["ok"] += int(ok)
+                out["err"] += int(err)
+                out["fast"] += int(fast)
+                out["slow"] += int(slow)
+        return out
+
+    def _burns_locked(self) -> dict:
+        """{"hosts": {host: {objective: {window: burn}}}, "fleet":
+        {objective: {window: burn}}}."""
+        now = self._clock()
+
+        def burn(bad: int, total: int, target: float) -> float:
+            if total == 0 or not target:
+                return 0.0
+            return (bad / total) / max(1e-9, 1.0 - target)
+
+        per_host: Dict[str, dict] = {}
+        fleet_counts: Dict[str, Dict[str, int]] = {}
+        targets = {"availability": 0.0, "latency": 0.0}
+        for host, entry in self.hosts.items():
+            export = entry["export"]
+            elapsed = max(0.0, now - entry["t"])
+            targets["availability"] = max(
+                targets["availability"],
+                float(export.get("availability_target", 0.0)))
+            targets["latency"] = max(
+                targets["latency"],
+                float(export.get("latency_target", 0.0))
+                if export.get("latency_ms") else 0.0)
+            host_doc: Dict[str, dict] = {}
+            for window, window_s in (
+                    ("fast", float(export.get("fast_window_s", 60.0))),
+                    ("slow", float(export.get("slow_window_s", 600.0)))):
+                c = self._window_counts(export, elapsed, window_s)
+                agg = fleet_counts.setdefault(
+                    window, {"ok": 0, "err": 0, "fast": 0, "slow": 0})
+                for k in c:
+                    agg[k] += c[k]
+                if export.get("availability_target"):
+                    host_doc.setdefault("availability", {})[window] = \
+                        burn(c["err"], c["ok"] + c["err"],
+                             float(export["availability_target"]))
+                if export.get("latency_ms"):
+                    host_doc.setdefault("latency", {})[window] = \
+                        burn(c["slow"], c["fast"] + c["slow"],
+                             float(export.get("latency_target", 0.99)))
+            per_host[host] = host_doc
+        fleet: Dict[str, dict] = {}
+        for window, c in fleet_counts.items():
+            if targets["availability"]:
+                fleet.setdefault("availability", {})[window] = burn(
+                    c["err"], c["ok"] + c["err"], targets["availability"])
+            if targets["latency"]:
+                fleet.setdefault("latency", {})[window] = burn(
+                    c["slow"], c["fast"] + c["slow"], targets["latency"])
+        return {"hosts": per_host, "fleet": fleet}
+
+    def burns(self) -> dict:
+        with self._lock:
+            return self._burns_locked()
+
+    def metric_lines(self) -> List[str]:
+        with self._lock:
+            if not self.hosts and not self.dropped_hosts:
+                return []                # emit-when-live
+            doc = self._burns_locked()
+            lines = [f"imageregion_fleet_slo_hosts {len(self.hosts)}"]
+            if self.dropped_hosts:
+                lines.append("imageregion_fleet_slo_dropped_hosts_total "
+                             f"{self.dropped_hosts}")
+            for objective in sorted(doc["fleet"]):
+                for window in sorted(doc["fleet"][objective]):
+                    lines.append(
+                        f'imageregion_fleet_slo_burn_rate{{slo="{objective}"'
+                        f',window="{window}"}} '
+                        f"{round(doc['fleet'][objective][window], 4)}")
+            for host in sorted(doc["hosts"]):
+                for objective in sorted(doc["hosts"][host]):
+                    for window in sorted(doc["hosts"][host][objective]):
+                        rate = doc["hosts"][host][objective][window]
+                        lines.append(
+                            f'imageregion_fleet_slo_host_burn_rate'
+                            f'{{host="{host}",slo="{objective}",'
+                            f'window="{window}"}} {round(rate, 4)}')
+        return lines
+
+    def reset(self) -> None:
+        with self._lock:
+            self._clock = time.monotonic
+            self.hosts.clear()
+            self.dropped_hosts = 0
+
+
+FED_SLO = FleetSloStats()
+
+
+class QuorumStats:
+    """Partition tolerance: the quorum tracker's verdict
+    (``parallel.federation.QuorumTracker``) and the link-partition fault
+    injector (``utils.faultinject``).  Two families,
+    ``imageregion_federation_quorum_*`` and ``imageregion_partition_*``,
+    over closed vocabularies: transitions ``fenced``/``restored``, refusal
+    :data:`ACTIONS`, partition :data:`MODES`."""
+
+    ACTIONS = ("adoption", "write_authority", "promotion",
+               "autoscaler", "transfer", "roll")
+    MODES = ("drop", "deny")
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        # None: no tracker installed (emit-when-live).
+        self.quorate: Optional[bool] = None
+        self.reachable_hosts = 0
+        self.total_hosts = 0
+        self.transitions: Dict[str, int] = {}
+        self.refusals: Dict[str, int] = {}
+        self.partition_rules = 0
+        self.partition_blocked: Dict[str, int] = {}
+
+    def set_quorum(self, quorate: bool, reachable: int, total: int) -> None:
+        with self._lock:
+            self.quorate = bool(quorate)
+            self.reachable_hosts = int(reachable)
+            self.total_hosts = int(total)
+
+    def count_transition(self, verdict: str) -> None:
+        if verdict not in ("fenced", "restored"):
+            return
+        with self._lock:
+            self.transitions[verdict] = self.transitions.get(verdict, 0) + 1
+
+    def count_refusal(self, action: str) -> None:
+        if action not in self.ACTIONS:
+            return
+        with self._lock:
+            self.refusals[action] = self.refusals.get(action, 0) + 1
+
+    def set_partition_rules(self, n: int) -> None:
+        with self._lock:
+            self.partition_rules = int(n)
+
+    def count_partition_blocked(self, mode: str) -> None:
+        if mode not in self.MODES:
+            mode = "drop"
+        with self._lock:
+            self.partition_blocked[mode] = \
+                self.partition_blocked.get(mode, 0) + 1
+
+    def metric_lines(self) -> List[str]:
+        with self._lock:
+            lines: List[str] = []
+            if self.quorate is not None:
+                lines += [
+                    "imageregion_federation_quorum_quorate "
+                    f"{int(self.quorate)}",
+                    "imageregion_federation_quorum_reachable_hosts "
+                    f"{self.reachable_hosts}",
+                    f"imageregion_federation_quorum_hosts {self.total_hosts}",
+                ]
+            lines += [f'imageregion_federation_quorum_transitions_total'
+                      f'{{verdict="{v}"}} {n}'
+                      for v, n in sorted(self.transitions.items())]
+            lines += [f'imageregion_federation_quorum_refusals_total'
+                      f'{{action="{a}"}} {n}'
+                      for a, n in sorted(self.refusals.items())]
+            if self.partition_rules or self.partition_blocked:
+                lines.append(
+                    f"imageregion_partition_rules {self.partition_rules}")
+            lines += [f'imageregion_partition_blocked_total{{mode="{m}"}} '
+                      f'{n}' for m, n in sorted(self.partition_blocked.items())]
+        return lines
+
+    def reset(self) -> None:
+        with self._lock:
+            self.quorate = None
+            self.reachable_hosts = 0
+            self.total_hosts = 0
+            self.transitions.clear()
+            self.refusals.clear()
+            self.partition_rules = 0
+            self.partition_blocked.clear()
+
+
+QUORUM = QuorumStats()
+
+
+class SentinelStats:
+    """The exposition and fleet-merge half of the perf sentinel
+    (``server.sentinel`` owns the sketches and the drift engine): the local
+    engine's last tick summary (:meth:`set_local`), peers' summaries off
+    the federation's gossip (:meth:`ingest`, at most ``_MAX_MEMBERS``, the
+    :class:`FleetSloStats` bound), drift, recovery and bundle counts, and
+    :meth:`merged`, the ``GET /debug/sentinel`` document."""
+
+    _MAX_MEMBERS = 16
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._clock = time.monotonic
+        # A member whose last summary is older is shown but not counted
+        # drifting (a dead member must not pin the fleet red).
+        self.stale_after_s = 120.0
         self.local: Optional[dict] = None
+        # member -> {"t": ingest instant, "summary": tick summary}
+        self.members: Dict[str, dict] = {}
+        self.dropped_members = 0
         self.drifts = 0
         self.recoveries = 0
         self.bundles = 0
@@ -2242,21 +2601,49 @@ class SentinelStats:
             else:
                 self.bundles += 1
 
-    def merged(self) -> dict:
-        """Per-member rows and one verdict (the JAX document's keys)."""
+    def export(self) -> Optional[dict]:
+        """The local summary for the gossip wire (None before the first
+        tick)."""
         with self._lock:
+            return dict(self.local) if self.local else None
+
+    def ingest(self, member: str, summary) -> bool:
+        if not member or not isinstance(summary, dict) \
+                or not summary.get("verdict"):
+            return False
+        with self._lock:
+            if member not in self.members \
+                    and len(self.members) >= self._MAX_MEMBERS:
+                self.dropped_members += 1
+                return False
+            self.members[member] = {"t": self._clock(),
+                                    "summary": dict(summary)}
+        return True
+
+    def merged(self) -> dict:
+        """Per-member rows and one verdict: ``drifting`` while any fresh
+        member reports a confirmed drift."""
+        with self._lock:
+            now = self._clock()
             rows: Dict[str, dict] = {}
             if self.local:
                 name = str(self.local.get("member") or "local")
                 rows[name] = {"age_s": 0.0, "summary": dict(self.local)}
+            for member, entry in self.members.items():
+                if member in rows:
+                    continue
+                rows[member] = {
+                    "age_s": round(max(0.0, now - entry["t"]), 1),
+                    "summary": dict(entry["summary"])}
             drifting = sorted(
                 name for name, row in rows.items()
-                if row["summary"].get("verdict") == "drifting")
+                if row["summary"].get("verdict") == "drifting"
+                and row["age_s"] <= self.stale_after_s)
             return {
                 "verdict": "drifting" if drifting else "ok",
                 "drifting_members": drifting,
                 "members": rows,
-                "dropped_members": 0,
+                "dropped_members": self.dropped_members,
                 "drifts": self.drifts,
                 "recoveries": self.recoveries,
                 "bundles": self.bundles,
@@ -2265,9 +2652,9 @@ class SentinelStats:
 
     def metric_lines(self) -> List[str]:
         with self._lock:
-            if self.local is None:
+            if self.local is None and not self.members:
                 return []                # until the first tick
-            local = self.local
+            local = self.local or {}
             routes = local.get("routes") or {}
             lines = [
                 "imageregion_sentinel_drift "
@@ -2293,11 +2680,23 @@ class SentinelStats:
                     if isinstance(v, (int, float)):
                         lines.append(f'{family}{{route="{route}"}} '
                                      f"{round(float(v), 3)}")
+            now = self._clock()
+            for member in sorted(self.members):
+                entry = self.members[member]
+                if now - entry["t"] > self.stale_after_s:
+                    continue
+                v = 1 if entry["summary"].get("verdict") == "drifting" else 0
+                lines.append("imageregion_sentinel_member_drift"
+                             f"{{member={json.dumps(member)}}} {v}")
         return lines
 
     def reset(self) -> None:
         with self._lock:
+            self._clock = time.monotonic
+            self.stale_after_s = 120.0
             self.local = None
+            self.members.clear()
+            self.dropped_members = 0
             self.drifts = 0
             self.recoveries = 0
             self.bundles = 0
@@ -2471,6 +2870,25 @@ METRIC_TYPES: Dict[str, str] = {
     "imageregion_pressure_step_engaged": "gauge",
     "imageregion_pressure_step_transitions_total": "counter",
     "imageregion_decision_total": "counter",
+    "imageregion_federation_manifest_version": "gauge",
+    "imageregion_federation_members": "gauge",
+    "imageregion_federation_agreements_total": "counter",
+    "imageregion_federation_gossip_total": "counter",
+    "imageregion_federation_shard_transfers_total": "counter",
+    "imageregion_federation_transfer_bytes_total": "counter",
+    "imageregion_federation_remote_prestage_total": "counter",
+    "imageregion_federation_quorum_quorate": "gauge",
+    "imageregion_federation_quorum_reachable_hosts": "gauge",
+    "imageregion_federation_quorum_hosts": "gauge",
+    "imageregion_federation_quorum_transitions_total": "counter",
+    "imageregion_federation_quorum_refusals_total": "counter",
+    "imageregion_partition_rules": "gauge",
+    "imageregion_partition_blocked_total": "counter",
+    "imageregion_fleet_slo_hosts": "gauge",
+    "imageregion_fleet_slo_dropped_hosts_total": "counter",
+    "imageregion_fleet_slo_burn_rate": "gauge",
+    "imageregion_fleet_slo_host_burn_rate": "gauge",
+    "imageregion_sentinel_member_drift": "gauge",
     "imageregion_sentinel_drift": "gauge",
     "imageregion_sentinel_keys": "gauge",
     "imageregion_sentinel_ticks_total": "counter",
@@ -2579,6 +2997,41 @@ METRIC_HELP: Dict[str, str] = {
         "Ladder step engage/release transitions",
     "imageregion_decision_total":
         "Control-plane decision-ledger records by kind and verdict",
+    "imageregion_federation_manifest_version":
+        "Shard epoch of the agreed fleet manifest",
+    "imageregion_federation_agreements_total":
+        "Join-time manifest agreement outcomes by reason",
+    "imageregion_federation_gossip_total":
+        "Membership gossip round outcomes by reason",
+    "imageregion_federation_shard_transfers_total":
+        "Warm HBM planes shipped cross-host over shard_transfer",
+    "imageregion_federation_remote_prestage_total":
+        "Predicted-plane prestage hints sent to remote owners",
+    "imageregion_federation_quorum_quorate":
+        "1 while this host can gossip with a strict majority of "
+        "manifest hosts, 0 while fenced",
+    "imageregion_federation_quorum_reachable_hosts":
+        "Manifest hosts (self included) heard from within "
+        "suspect-after-s",
+    "imageregion_federation_quorum_transitions_total":
+        "Quorum fence/restore transitions by verdict",
+    "imageregion_federation_quorum_refusals_total":
+        "State-changing actions refused while fenced, by action",
+    "imageregion_partition_rules":
+        "Injected link-partition rules active in this process",
+    "imageregion_partition_blocked_total":
+        "Sidecar calls blocked by an injected link partition, by mode",
+    "imageregion_fleet_slo_hosts":
+        "Hosts currently contributing SLO window buckets to the "
+        "fleet burn",
+    "imageregion_fleet_slo_dropped_hosts_total":
+        "SLO bucket ingests dropped by the host-cardinality bound",
+    "imageregion_fleet_slo_burn_rate":
+        "Fleet-aggregated error-budget burn per objective and window",
+    "imageregion_fleet_slo_host_burn_rate":
+        "Per-host error-budget burn per objective and window",
+    "imageregion_sentinel_member_drift":
+        "Per-member drift verdict off the gossip merge (1 = drifting)",
     "imageregion_sentinel_drift":
         "1 while the local perf sentinel holds a confirmed drift "
         "verdict",
@@ -2682,7 +3135,9 @@ def resilience_metric_lines(breaker=None) -> List[str]:
     gauge), sheds by reason, the sidecar retries, deadline cancellations,
     degraded renders, supervisor restarts and the attempts histogram; the
     pressure governor's families, watchdog fires, the decision ledger's
-    counts, the workload routes' counters and the wire's."""
+    counts, the federation's (agreements, gossip, transfers, the quorum
+    and the link partitions, the fleet SLO burn), the workload routes'
+    counters and the wire's."""
     lines: List[str] = []
     if breaker is not None:
         # 0 closed, 1 half-open, 2 open (utils.transient).
@@ -2704,7 +3159,8 @@ def resilience_metric_lines(breaker=None) -> List[str]:
     lines += RESILIENCE.attempts_hist.series("imageregion_retry_attempts")
     return (lines + PRESSURE.metric_lines() + WATCHDOG.metric_lines()
             + DRAIN.metric_lines() + AUTOSCALER.metric_lines()
-            + DECISIONS.metric_lines()
+            + FEDERATION.metric_lines() + QUORUM.metric_lines()
+            + DECISIONS.metric_lines() + FED_SLO.metric_lines()
             + WORKLOADS.metric_lines() + WIRE.metric_lines())
 
 
@@ -2856,6 +3312,9 @@ def reset() -> None:
     SHAPE_COSTS.reset()
     PRESSURE.reset()
     DECISIONS.reset()
+    FEDERATION.reset()
+    FED_SLO.reset()
+    QUORUM.reset()
     SENTINEL.reset()
     # The decision ledger imports this module; reset it from here so one
     # call isolates the whole forensics plane.

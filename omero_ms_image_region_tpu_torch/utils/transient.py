@@ -193,11 +193,17 @@ class CircuitBreaker:
 # Sidecar ops safe to send again to a peer that may or may not have run
 # the first: renders and probes are reads, ping and metrics repeatable,
 # the fleet's shard manifest and byte probe and fetch are reads, and a
-# second prestage is a residency hit.  plane_put, byte_put and
-# shard_transfer change a cache and are not here.
+# second prestage is a residency hit.  The federation's manifest
+# exchange and gossip swap are reads with a versioned merge; its epoch
+# propose and commit are idempotent by contract (a re-propose re-acks, a
+# re-commit answers already-active); a partition rule set again is a no-op.
+# plane_put, byte_put and shard_transfer change a cache and are not here.
 IDEMPOTENT_OPS = frozenset({"image", "mask", "ping", "metrics",
                             "plane_probe", "shard_manifest", "prestage",
-                            "byte_probe", "byte_fetch"})
+                            "byte_probe", "byte_fetch",
+                            "manifest_hello", "member_gossip",
+                            "epoch_propose", "epoch_commit",
+                            "partition"})
 
 
 class RetryPolicy:

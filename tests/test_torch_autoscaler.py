@@ -291,9 +291,28 @@ def test_the_policy_decides_as_jax_over_many_scripts(seed):
     _assert_alike(seed)
 
 
+def _fenced(pkg):
+    """Install in ``pkg``'s federation a quorum tracker that has heard
+    neither other host of a three-host manifest past its suspect window:
+    a fenced minority.  Returns the federation module."""
+    import importlib
+    fed = importlib.import_module(
+        "omero_ms_image_region_tpu.parallel.federation" if pkg == "jax"
+        else "omero_ms_image_region_tpu_torch.parallel.federation")
+    manifest = fed.FleetManifest([fed.MemberSpec(f"m{i}", f"h{i}")
+                                  for i in range(3)])
+    now = {"t": 0.0}
+    tracker = fed.QuorumTracker(manifest, "h0", suspect_after_s=1.0,
+                                clock=lambda: now["t"])
+    now["t"] = 10.0
+    fed.install_quorum(tracker)
+    return fed
+
+
 def test_the_sweep_reaches_every_verdict():
     """The seeds of the fast test exercise each verdict and blocked
-    reason but ``quorum`` (the federation's fence, not ported)."""
+    reason; ``quorum``, the federation's fence, on a fenced host, where
+    both packages block every wanted transition alike."""
     seen = set()
     for seed in range(6):
         for row in _drive("port", _script(seed))["rows"]:
@@ -301,6 +320,19 @@ def test_the_sweep_reaches_every_verdict():
     assert {"up", "down", None, "blocked:cooldown", "blocked:busy",
             "blocked:floor"} <= seen
     assert {"blocked:ceiling", "blocked:no-member"} & seen
+    fenced = {}
+    for pkg in ("jax", "port"):
+        fed = _fenced(pkg)
+        try:
+            fenced[pkg] = _drive(pkg, _script(0))
+            fenced[pkg]["refusals"] = fed.quorum_status()["refusals"]
+        finally:
+            fed.install_quorum(None)
+    assert fenced["port"] == fenced["jax"]
+    verdicts = {row[0] for row in fenced["port"]["rows"]}
+    assert "blocked:quorum" in verdicts
+    assert not {"up", "down"} & verdicts
+    assert fenced["port"]["refusals"]["autoscaler"] >= 1
 
 
 def test_the_replica_pressure_signal_as_jax():

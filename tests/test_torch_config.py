@@ -4,9 +4,10 @@
 serves get the values the JAX ``AppConfig.from_dict`` gives them (the
 OMERO deployment's keys too: ``session-store`` type, uri and required,
 ``metadata-service``, ``omero.data.dir``, ``raw-cache.prefetch`` and
-``sessions``, ``loadmodel`` and ``autoscaler``); a switched-off
-``federation`` or ``autoscaler`` section has its values checked with the
-JAX loader's messages; an unported setting away from its JAX default, or an
+``sessions``, ``loadmodel``, ``autoscaler`` and ``federation``); a
+switched-off ``federation`` or ``autoscaler`` section has its values
+checked with the JAX loader's messages, and a federation switched on its
+manifest checks; an unported setting away from its JAX default, or an
 unknown key in a served section, is refused with its name; without
 ``asyncpg`` and ``redis`` both apps degrade alike, with the same warning
 or the same ``ValueError``; and
@@ -118,21 +119,20 @@ def test_defaults_match_jax_but_the_digest_dedup():
 
 
 def test_unported_defaults_are_the_jax_defaults():
+    """The last section the port once refused, the federation, is served
+    with JAX's defaults, field for field."""
     jax = JaxConfig()
-    for section, table in port_config._UNPORTED.items():
-        if section in ("redis-cache", "metadata-service"):
-            continue
-        block = getattr(jax, section.replace("-", "_"))
-        fields = {f.name.replace("_", "-"): getattr(block, f.name)
-                  for f in dataclasses.fields(block)}
-        assert table == fields, section
+    port = AppConfig()
+    assert (dataclasses.asdict(port.federation)
+            == dataclasses.asdict(jax.federation))
+    assert not hasattr(port_config, "_UNPORTED")
     assert jax.caches.redis_uri is None
     assert jax.metadata_backend == "local"
 
 
 @pytest.mark.parametrize("raw, name", [
-    ({"federation": {"gossip-interval-s": 2.0}},
-     "federation.gossip-interval-s"),
+    ({"federation": {"gossip-interval-s": 2.0, "seeds": ["hostB"]}},
+     "federation.seeds"),
     # Served sections refuse a key they do not know (the JAX loader
     # ignores it).
     ({"sessions": {"enabled": True, "enabled-for": "all"}},
@@ -271,6 +271,38 @@ def test_switching_off_a_missing_feature_loads(raw):
     ({"autoscaler": {"enabled": False, "unit-config": "x"}},
      "autoscaler.unit-config manages sidecar unit processes — it requires "
      "the fleet.sockets topology"),
+    # The federation switched on: JAX's manifest checks, in its order.
+    ({"federation": {"enabled": True, "host": "hA",
+                     "members": [{"name": "a0", "host": "hA"}]}},
+     "federation.enabled requires >= 2 members (one host needs no "
+     "federation — use fleet.members)"),
+    ({"federation": {"enabled": True, "host": "hA",
+                     "members": [{"name": "a0", "host": "hA"},
+                                 {"name": "a0", "host": "hB"}]}},
+     "federation.members names must be unique fleet-wide"),
+    ({"federation": {"enabled": True, "host": "hZ",
+                     "members": [{"name": "a0", "host": "hA"},
+                                 {"name": "b0", "host": "hB"}]}},
+     "federation.host 'hZ' owns no manifest member (hosts: ['hA', 'hB']); "
+     "set federation.host explicitly, or name manifest hosts by "
+     "cluster.host_identity() — the default when the key is omitted"),
+    ({"fleet": {"enabled": True, "sockets": ["/tmp/s0"]},
+      "federation": {"enabled": True, "host": "hA",
+                     "members": [{"name": "a0", "host": "hA"},
+                                 {"name": "b0", "host": "hB"}]}},
+     "federation.enabled and fleet.sockets are mutually exclusive — the "
+     "manifest IS the membership; list remote members with addresses in "
+     "federation.members instead"),
+    ({"federation": {"enabled": True, "host": "hA",
+                     "members": [{"name": "a0", "host": "hA"},
+                                 {"name": "b0"}]}},
+     "federation.members[1] must be a mapping with at least name and host"),
+    ({"autoscaler": {"enabled": True, "floor": 3},
+      "federation": {"enabled": True, "host": "hA",
+                     "members": [{"name": "a0", "host": "hA"},
+                                 {"name": "b0", "host": "hB"}]}},
+     "autoscaler.floor (3) exceeds the provisioned fleet size (2 "
+     "members)"),
 ])
 def test_a_switched_off_section_is_checked_as_in_jax(raw, error):
     """A section switched off still has its values checked, with the JAX
@@ -298,8 +330,8 @@ def test_each_leaf_of_the_elastic_sections_loads_as_in_jax(section, key):
     ``autoscaler`` or ``loadmodel`` changed (a flipped boolean, or 0, -1,
     0.5 and a bogus string), the sections as the example has them
     (``federation`` and ``autoscaler`` switched off): the port loads what
-    JAX loads and refuses the rest with JAX's exception and message.  The
-    one exception is ``federation.enabled: true``, refused by name."""
+    JAX loads, ``federation.enabled: true`` among it, and refuses the rest
+    with JAX's exception and message."""
     import copy
 
     example = _example_leaves()[0]
@@ -313,15 +345,9 @@ def test_each_leaf_of_the_elastic_sections_loads_as_in_jax(section, key):
             try:
                 loaded = loader.from_dict(raw)
                 outcomes.append(("loaded", dataclasses.asdict(
-                    getattr(loaded, section)) if section != "federation"
-                    else None))
+                    getattr(loaded, section))))
             except Exception as e:
                 outcomes.append((type(e).__name__, str(e)))
-        if (section, key, changed) == ("federation", "enabled", True):
-            assert outcomes[0][0] == "loaded"
-            assert outcomes[1][1].startswith("federation.enabled: True is "
-                                             "not served")
-            continue
         assert outcomes[1] == outcomes[0], (key, changed)
 
 

@@ -68,7 +68,7 @@ def test_port_imports_without_jax_or_the_jax_package():
                 "server.shmring", "server.degraded", "refimpl",
                 "kernels.mesh", "parallel.cluster", "parallel.mesh",
                 "parallel.serve", "services.loadmodel",
-                "server.autoscaler"):
+                "server.autoscaler", "parallel.federation"):
         assert f"omero_ms_image_region_tpu_torch.{mod}" in doc["imported"]
     assert doc["leaked"] == []
     assert doc["jax"] == []

@@ -168,6 +168,11 @@ def test_metrics_match_jax(data_dir):
     assert {f for f, _ in port_fams} == set(types) - {
         *(f for f in types if f.startswith(("imageregion_fleet_",
                                             "imageregion_hotkey_"))),
+        # The federation's, which only a federation (or a partition
+        # drill) moves, held to the JAX app's by
+        # tests/test_torch_federation.py.
+        *(f for f in types if f.startswith(("imageregion_federation_",
+                                            "imageregion_partition_"))),
         "imageregion_drain_state", "imageregion_drain_transitions_total",
         "imageregion_breaker_state", "imageregion_breaker_opens_total",
         "imageregion_retries_total", "imageregion_retry_attempts",

@@ -258,28 +258,35 @@ def test_jax_client_against_the_port_sidecar(data_dir, tmp_path):
 
 
 def test_port_sidecar_refuses_unknown_and_fleet_ops(data_dir, tmp_path):
-    """Ops the port does not serve (the federation's) answer 400, as a JAX
-    peer answers an op it does not know; a malformed plane_put is a 400
-    too."""
+    """The federation's five ops are served: with no manifest installed a
+    sidecar answers them as a JAX one does (``enabled: false``, and the
+    empty partition table); an op it does not know and a malformed
+    plane_put answer 400."""
     sock = str(tmp_path / "ops.sock")
 
     async def body(services):
         client = sidecar.SidecarClient(sock)
         try:
             out = []
-            for op in ("member_gossip", "epoch_propose", "partition",
-                       "nonsense"):
-                out.append((await client.call(op, {}))[0])
+            for op in ("manifest_hello", "member_gossip", "epoch_propose",
+                       "epoch_commit", "partition", "nonsense"):
+                status, resp = await client.call(op, {})
+                out.append((status, json.loads(bytes(resp))
+                            if status == 200 else None))
             status, err = await client.call(
                 "plane_put", {}, body=b"\0" * 10,
                 extra={"digest": "", "dtype": "uint16", "shape": [4, 4]})
-            out.append(status)
+            out.append((status, None))
             ping = json.loads(bytes((await client.call("ping", {}))[1]))
             return out, ping
         finally:
             await client.close()
 
-    codes, ping = asyncio.run(_with_port_sidecar(_config(data_dir), sock,
-                                                 body))
-    assert codes == [400, 400, 400, 400, 400]
+    answers, ping = asyncio.run(_with_port_sidecar(_config(data_dir), sock,
+                                                   body))
+    assert answers == [
+        (200, {"enabled": False}), (200, {"enabled": False, "view": {}}),
+        (200, {"enabled": False}), (200, {"enabled": False}),
+        (200, {"rules": [], "quorum": None, "epoch": None}),
+        (400, None), (400, None)]
     assert ping["ok"] and ping["prewarm_pending"] is False
