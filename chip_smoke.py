@@ -421,19 +421,27 @@ Phases (any failure ends the run with a non-zero exit and no result line):
            stacked partials in shard order): ramp, LUT, a reversed
            channel (exact) and the curved families (K1's +-1); raw in f32
            and u8; C=3 padded to 4 with inert channels and B=3 to 4; a
-           ragged 1000x1020 tile; each timed at chan 1 (and each shard's
-           K12a and K12b at chan 2 and 4) beside its bound and plain
-           version.  (b) The mesh app (``parallel: {enabled: true}``)
-           for the sparse and the Huffman engines, standalone and joined
-           to a process group of one (a free ``coordinator-address``,
-           ``num-processes: 1``: NCCL and gloo up, the collectives run on
-           the card): the 11 checked GETs twice and 16 cold tiles at 8 in
-           flight, every body byte-equal to the default app's (the
-           Huffman engine's tables pinned to the fixed ones, which the
-           mesh codes with, as JAX's); K12a and K12b launched, K1 and K2
-           not; cold and warm p50, tiles/s and the mean group size beside
-           ``e2e:``'s.  (c) Two ranks over NCCL are not run: NCCL refuses
-           two ranks on one GPU (a printed line says so);
+           ragged 1000x1020 tile; each timed on a chan-2 shard at B=8
+           and B=1 (K12a also on a chan-4 shard and, with the LUT, on a
+           chan-2 shard; K12b also over 4 shards and 1) beside its bound
+           and plain version.  (b) The mesh app (``parallel: {enabled:
+           true}``) for the sparse and the Huffman engines, standalone
+           and joined to a process group of one (a free
+           ``coordinator-address``, ``num-processes: 1``: NCCL and gloo
+           up, the collectives run on the card): the 11 checked GETs
+           twice and 16 cold tiles at 8 in flight, every body byte-equal
+           to the default app's (the Huffman engine's tables pinned to
+           the fixed ones, which the mesh codes with, as JAX's); at chan
+           1 the step renders with K1 and K2 and makes no partial: K1 and
+           K2 launched, K12a and K12b not; cold and warm p50, tiles/s and
+           the mean group size beside ``e2e:``'s.  (c) ``mesh_ranks:``
+           the chan > 1 path, K12's: two processes on the one card
+           joined over gloo (NCCL refuses two ranks on one GPU) as a (1,
+           2) mesh, each running ``render_step_sharded_batched`` on its
+           channel shard of 8 flagship tiles at 1024^2 (per-tile
+           windows; ramp, then a LUT channel): K12a on the shard, the
+           partials all-gathered, K12b; both ranks' rows equal to K1's and
+           K2's over the whole group, and K12a and K12b launched by each;
 6. warm_restart two lives of
            ``python -m omero_ms_image_region_tpu_torch.server``
            from one YAML (``persistence: {enabled: true, dir: <tmp>}``,
@@ -462,7 +470,8 @@ Each phase's launch counts are set to 0 just before it and read just
 after.  It prints the kernel table of all fourteen kernels as one JSON
 line (``launches``: the batch burst for K1-K4b, the huffman phase for K5,
 the bitpack phase for K6, the workload phases for K7, K8a, K8b and K9, the
-e2e run's cold misses for K10, the mesh app's GETs for K12a and K12b;
+e2e run's cold misses for K10, the two ranks of ``mesh_ranks:`` for K12a
+and K12b;
 ``workload_launches``: each
 kernel's launches in each of those phases, readers, pyramid, omero,
 prefetch, huffman, byte_cache, bitpack, growth, forensics, pressure,
@@ -7111,7 +7120,7 @@ def mesh_kernel_phase(torch, np):
     channels split as chan 1, 2 and 4; ramp and LUT; a reversed channel
     and the curved families; raw in f32 and u8; C=3 padded to 4 with
     inert channels; a ragged 1000x1020 tile; B=3 padded to 4 (data = 2).
-    Returns the two kernels' entries (timed at chan 1)."""
+    Returns the two kernels' entries (timed on a chan-2 shard)."""
     from omero_ms_image_region_tpu_torch.flagship import (
         flagship_rdef, synthetic_wsi_tiles)
     from omero_ms_image_region_tpu_torch.models.rendering import Family
@@ -7235,47 +7244,49 @@ def mesh_kernel_phase(torch, np):
                              dev)
     compare("ragged 1000x1020", ragged, args_for(flagship_rdef(4), 2), 2)
 
-    # Times at chan = 1 (the served posture on one card): the whole
-    # channel range in one K12a, then K12b over one shard.
-    for B, key in ((8, ""), (1, "b1_")):
-        raw = raw8[:B].contiguous()
-        args = args_for(flagship_rdef(4), B)
-        part = R.composite_partial(raw, *args)[None].contiguous()
-        (pb, pby), (kb, kby) = mesh_bound(raw, 1, args[-1])
-        timings = (
-            ("composite_partial",
-             lambda: R.composite_partial(raw, *args),
-             lambda: R.composite_partial_plain(raw, *args), pb, pby),
-            ("composite_pack", lambda: R.composite_pack(part),
-             lambda: R.composite_pack_plain(part), kb, kby))
-        for name, fn, plain, bnd, by in timings:
-            e = entries[name]
-            e[key + "ms"] = time_ms(torch, fn, 25)
+    # Times.  K12 serves chan > 1 only (at chan 1 the step runs K1/K2):
+    # the headline is a chan-2 shard's K12a and K12b over two shards, at
+    # B=8 and B=1; beside them a chan-4 shard and four shards, K12a with
+    # the LUT, and chan 1 (the whole channel range, one shard).
+    def timed(e, key, fn, plain, bnd, raw):
+        e[key + "ms"] = time_ms(torch, fn, 25)
+        if plain is not None:
             e[key + "plain_ms"] = time_ms(torch, plain, 5)
-            e[key + "bound_ms"], e[key + "bound_by"] = bnd, by
-            e[key + "shape"] = list(raw.shape)
-    # And each shard's K12a at chan 2 and 4, B = 8.
-    raw = raw8
-    args = args_for(flagship_rdef(4), 8)
-    for chan in (2, 4):
-        per = 4 // chan
-        e = entries["composite_partial"]
-        e[f"chan{chan}_shard_ms"] = time_ms(
-            torch, lambda: R.composite_partial(raw, *args, c0=0, c1=per), 25)
-        e[f"chan{chan}_shard_bound_ms"] = mesh_bound(raw, chan,
-                                                     args[-1])[0][0]
-        parts = torch.stack([R.composite_partial(raw, *args, c0=s * per,
-                                                 c1=(s + 1) * per)
-                             for s in range(chan)])
-        e = entries["composite_pack"]
-        e[f"chan{chan}_ms"] = time_ms(torch,
-                                      lambda: R.composite_pack(parts), 25)
-        e[f"chan{chan}_bound_ms"] = mesh_bound(raw, chan, args[-1])[1][0]
+        e[key + "bound_ms"], e[key + "bound_by"] = bnd
+        e[key + "shape"] = list(raw.shape)
+
+    a_e, b_e = entries["composite_partial"], entries["composite_pack"]
+    for B, b1 in ((8, ""), (1, "b1_")):
+        raw = raw8[:B].contiguous()
+        for kind, args in (("", args_for(flagship_rdef(4), B)),
+                           ("lut_", args_for(lut, B, luts))):
+            for chan in ((2, 4, 1) if not kind else (2,)):
+                per = 4 // chan
+                part_bound, pack_bound = mesh_bound(raw, chan, args[-1])
+                key = "" if chan == 2 else f"chan{chan}_"
+                timed(a_e, kind + b1 + key,
+                      lambda: R.composite_partial(raw, *args, c0=0, c1=per),
+                      (lambda: R.composite_partial_plain(raw, *args, c0=0,
+                                                         c1=per))
+                      if chan == 2 else None, part_bound, raw)
+                if kind:
+                    continue
+                parts = torch.stack([R.composite_partial(
+                    raw, *args, c0=s * per, c1=(s + 1) * per)
+                    for s in range(chan)])
+                timed(b_e, b1 + key, lambda: R.composite_pack(parts),
+                      (lambda: R.composite_pack_plain(parts))
+                      if chan == 2 else None, pack_bound, raw)
     for e in entries.values():
-        print(f"kernel {e['name']}: {e['ms']:.4f} ms at B=8 (bound "
+        print(f"kernel {e['name']}: {e['ms']:.4f} ms at B=8 chan 2 (bound "
               f"{e['bound_ms']:.4f} ms by {e['bound_by']}, plain "
               f"{e['plain_ms']:.3f} ms); {e['b1_ms']:.4f} ms at B=1 (bound "
-              f"{e['b1_bound_ms']:.4f})", flush=True)
+              f"{e['b1_bound_ms']:.4f}); chan 4 {e['chan4_ms']:.4f} / "
+              f"{e['b1_chan4_ms']:.4f}, chan 1 {e['chan1_ms']:.4f} / "
+              f"{e['b1_chan1_ms']:.4f}", flush=True)
+    print(f"kernel composite_partial lut: {a_e['lut_ms']:.4f} ms at B=8 "
+          f"chan 2 (bound {a_e['lut_bound_ms']:.4f}), {a_e['lut_b1_ms']:.4f}"
+          f" at B=1 (bound {a_e['lut_b1_bound_ms']:.4f})", flush=True)
     return entries
 
 
@@ -7300,8 +7311,9 @@ async def mesh_serve_phase(torch, np, data_dir, lut_root, have_aiohttp,
     group of one (NCCL and gloo up, the collectives run): the 11 flagship
     GETs, 16 cold JPEG tiles one at a time and again warm, and 16 other
     cold tiles at 8 in flight, each body byte-equal to the default app's
-    for the same request; K12a and K12b launched, K1 and K2 not.  Returns
-    K12's launches over the four runs."""
+    for the same request.  The one card's mesh is (1, 1): at chan 1 the
+    step renders with K1 and K2, so they launch and K12a and K12b do not.
+    Returns K1's and K2's launches over the four runs."""
     import torch.distributed as dist
     from omero_ms_image_region_tpu_torch.kernels import jpeg as KJ
     from omero_ms_image_region_tpu_torch.kernels import mesh as KM
@@ -7326,7 +7338,7 @@ async def mesh_serve_phase(torch, np, data_dir, lut_root, have_aiohttp,
     for edge in (256, 512, 1024, 2048):
         for q in (85, 90):
             J._TUNED_TABLES[(edge, edge, q)] = None
-    launches = {"composite_partial": 0, "composite_pack": 0}
+    launches = {"render_ramp": 0, "render_lut": 0}
     doc = {"card": smi, "runs": {}}
     try:
         for engine in ("sparse", "huffman"):
@@ -7386,16 +7398,17 @@ async def mesh_serve_phase(torch, np, data_dir, lut_root, have_aiohttp,
                     wire = {k: KJ.LAUNCHES[k] for k in (
                         "jpeg_coefficients", "sparse_pack", "huffman_pack",
                         "compact_rows")}
-                    check(sum(k1.values()) == 0,
-                          f"mesh {label}: K1/K2 launched: {k1}")
-                    check(all(v >= 1 for v in k12.values()),
-                          f"mesh {label}: K12 not launched: {k12}")
+                    # At chan 1 the step is K1/K2's render: no partial.
+                    check(all(v >= 1 for v in k1.values()),
+                          f"mesh {label}: K1/K2 not launched: {k1}")
+                    check(sum(k12.values()) == 0,
+                          f"mesh {label}: K12 launched at chan 1: {k12}")
                     check(wire["jpeg_coefficients"] >= 1
                           and wire["sparse_pack" if engine == "sparse"
                                    else "huffman_pack"] >= 1,
                           f"mesh {label}: the {engine} wire was not "
                           f"launched: {wire}")
-                    for k, v in k12.items():
+                    for k, v in k1.items():
                         launches[k] += v
                     doc["runs"][label] = {
                         "mesh": renderer.mesh.shape,
@@ -7428,13 +7441,151 @@ async def mesh_serve_phase(torch, np, data_dir, lut_root, have_aiohttp,
         "concurrent_p50_ms": e2e["concurrent_p50_ms"],
         "concurrent_tiles_per_s": e2e["concurrent_tiles_per_s"],
         "mean_group_size": e2e["mean_group_size"]}
-    doc["two_ranks"] = ("not measured: NCCL refuses two ranks on one GPU; "
-                        "a two-rank mesh over NCCL waits for a four-chip "
-                        "cell (the gloo pod runs in tests/test_torch_pod.py)")
     print("mesh: " + json.dumps(doc), flush=True)
-    print("mesh: two ranks over NCCL not run: NCCL refuses two ranks on "
-          "one GPU (a four-chip cell's)", flush=True)
     return launches
+
+
+def mesh_ranks_inputs(np, tile: int):
+    """Eight flagship tiles (``tile``^2, 4 channels, uint16) and two stacked
+    per-tile settings of them, windows differing by tile: ramp weights,
+    and a LUT on channel 1 (tables [B, C, 256, 3])."""
+    from omero_ms_image_region_tpu_torch.flagship import (
+        flagship_rdef, synthetic_wsi_tiles)
+    from omero_ms_image_region_tpu_torch.ops import render as R
+    from omero_ms_image_region_tpu_torch.ops.lut import LutProvider
+
+    B = 8
+    raw = synthetic_wsi_tiles(np.random.default_rng(23), B, 4, tile, tile)
+    luts = LutProvider()
+    luts.add("smoke.lut", smoke_lut(np))
+    out = {}
+    for label in ("ramp", "lut"):
+        settings = []
+        for b in range(B):
+            rdef = flagship_rdef(4)
+            for k, cb in enumerate(rdef.channel_bindings):
+                cb.input_start = 100.0 + 150.0 * b + 40.0 * k
+                cb.input_end = 30000.0 + 1500.0 * b - 900.0 * k
+            if label == "lut":
+                rdef.channel_bindings[1].lut = "smoke.lut"
+            settings.append(R.pack_settings(rdef, luts))
+        stacked = {k: np.stack([s[k] for s in settings]) for k in (
+            "window_start", "window_end", "family", "coefficient",
+            "reverse", "tables")}
+        stacked.update(cd_start=int(settings[0]["cd_start"]),
+                       cd_end=int(settings[0]["cd_end"]))
+        out[label] = stacked
+    return raw, out
+
+
+def mesh_ranks_worker(rank: int, port: int, queue, device: str,
+                      tile: int) -> None:
+    """One rank of a (1, 2) mesh on the one card, joined over gloo: the
+    mesh step (``render_step_sharded_batched``) on its channel shard of
+    ``mesh_ranks_inputs``' group, ramp then LUT, with K12's counts set to
+    0 just before and read just after; the rows checked against K1's and
+    K2's render of the whole group (after the counts are read)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from omero_ms_image_region_tpu_torch.kernels import mesh as KM
+    from omero_ms_image_region_tpu_torch.ops import render as R
+    from omero_ms_image_region_tpu_torch.parallel import mesh as M
+
+    out = {"rank": rank}
+    try:
+        dev = torch.device(device)
+        if dev.type == "cuda":
+            dev = torch.device("cuda", 0)
+            torch.cuda.set_device(dev)
+        dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:"
+                                f"{port}", world_size=2, rank=rank)
+        sync = (torch.cuda.synchronize if dev.type == "cuda"
+                else (lambda: None))
+        mesh = M.make_mesh(2, chan_parallel=2, device=dev)
+        raw, inputs = mesh_ranks_inputs(np, tile)
+        step = M.render_step_sharded_batched(mesh)
+        shards = {label: M.shard_batch_batched(mesh, raw, stacked)
+                  for label, stacked in inputs.items()}
+        sync()
+        KM.reset_launches()
+        t0 = time.perf_counter()
+        rows = {label: step(*args) for label, args in shards.items()}
+        sync()
+        out["step_ms"] = (time.perf_counter() - t0) * 1e3
+        out["launches"] = dict(KM.LAUNCHES)
+        raw_t = R.raw_to_tensor(raw, dev)
+        out["equal"] = {}
+        for label, stacked in inputs.items():
+            args = (*(torch.from_numpy(stacked[k]).to(dev) for k in (
+                "window_start", "window_end", "family", "coefficient",
+                "reverse")), stacked["cd_start"], stacked["cd_end"],
+                torch.from_numpy(stacked["tables"]).to(dev))
+            want = R.render_tile_batch_packed(raw_t, *args)
+            out["equal"][label] = bool(torch.equal(rows[label], want))
+        out.update(shape=mesh.shape, position=list(mesh.position),
+                   backend=dist.get_backend(),
+                   shard=list(shards["ramp"][0].shape))
+    except Exception as exc:   # reported by the parent, which fails
+        out["error"] = f"{type(exc).__name__}: {exc}"
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        queue.put(out)
+
+
+def mesh_ranks_phase(smi: str) -> dict:
+    """``mesh_ranks:`` the chan > 1 mesh step, K12's path: two processes
+    on the one card as the ranks of a (1, 2) mesh over gloo (NCCL refuses
+    two ranks on one GPU).  Each rank's rows must equal K1's and K2's,
+    and each must launch K12a and K12b.  Returns K12's launches over both
+    ranks."""
+    import multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    queue = ctx.Queue()
+    port = free_port()
+    t0 = time.perf_counter()
+    procs = [ctx.Process(target=mesh_ranks_worker,
+                         args=(r, port, queue, DEVICE, TILE))
+             for r in (0, 1)]
+    for p in procs:
+        p.start()
+    results = []
+    try:
+        # Each rank puts one result, also when it fails; a rank that dies
+        # without one ends the wait.
+        deadline = time.monotonic() + 300
+        while len(results) < len(procs) and time.monotonic() < deadline:
+            try:
+                results.append(queue.get(timeout=5))
+            except Exception:
+                if not all(p.is_alive() for p in procs):
+                    break
+        results.sort(key=lambda r: r["rank"])
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    wall = time.perf_counter() - t0
+    check(len(results) == len(procs),
+          f"mesh_ranks: {len(results)} of {len(procs)} ranks answered "
+          f"(exit codes {[p.exitcode for p in procs]})")
+    for r in results:
+        check("error" not in r, f"mesh_ranks rank {r['rank']}: "
+                                f"{r.get('error')}")
+        check(all(r["equal"].values()),
+              f"mesh_ranks rank {r['rank']}: rows differ from K1/K2's "
+              f"render: {r['equal']}")
+        check(all(v >= 1 for v in r["launches"].values()),
+              f"mesh_ranks rank {r['rank']}: K12 not launched: "
+              f"{r['launches']}")
+    print("mesh_ranks: " + json.dumps({"card": smi, "wall_s": wall,
+                                       "ranks": results}), flush=True)
+    return {name: sum(r["launches"][name] for r in results)
+            for name in ("composite_partial", "composite_pack")}
 
 
 def main() -> int:
@@ -7561,8 +7712,9 @@ def main() -> int:
         t_mesh = time.perf_counter()
         mesh_entries = mesh_kernel_phase(torch, np)
         torch.cuda.empty_cache()
-        mesh_launches = asyncio.run(mesh_serve_phase(
+        mesh_app_launches = asyncio.run(mesh_serve_phase(
             torch, np, data_dir, lut_root, have_aiohttp, fleet["e2e"], smi))
+        mesh_launches = mesh_ranks_phase(smi)
         print(f"mesh: phase {time.perf_counter() - t_mesh:.1f} s",
               flush=True)
         warm_restart_phase(torch, np, data_dir, lut_root, have_pil, smi)
@@ -7597,10 +7749,13 @@ def main() -> int:
         check(e["launches"] >= 1, f"{name} was not launched by the cold "
                                   f"misses of the e2e run")
     entries.update(staging_entries)
-    # K12's path is the mesh app's GETs (the four runs of mesh:).
+    # K12's path is the chan > 1 step (the two ranks of mesh_ranks:); the
+    # one card's mesh app (chan 1) runs K1 and K2 instead.
     for name, e in mesh_entries.items():
         e["launches"] = mesh_launches[name]
     entries.update(mesh_entries)
+    for name, n in mesh_app_launches.items():
+        entries[name]["mesh_app_launches"] = n
     for name, e in entries.items():
         e["workload_launches"] = {phase: p.get(name, 0) for phase, p in
                                   workload_launches.items()}

@@ -1,7 +1,9 @@
 // Per-channel quantize shared by the render kernels (render.cu) and the mesh
 // kernels (mesh.cu): window clamp, family curve, round half to even into
 // [cd_start, cd_end], reverse, clip 0..255, and the loads and ramp
-// accumulation of eight contiguous pixels.  The arithmetic is described in
+// accumulation of eight contiguous pixels; and the LUT composite's tables
+// staged in shared memory as float4 entries, their lookups, and the split
+// of a launch's blocks over its tiles.  The arithmetic is described in
 // render.cu's header; it is the plain version's (ops/quantum.py,
 // ops/render.py::quantize_tiles) operation for operation, and both files
 // are built with -fmad=false.
@@ -14,6 +16,9 @@
 namespace {
 
 constexpr int kGroup = 8;      // contiguous pixels per thread
+constexpr int kTableFloats = 256 * 3;   // one channel's f32[256][3] table
+constexpr int kLutBytes = 256 * 16;     // one channel's staged float4 table
+constexpr int kMaxSmem = 227 * 1024;    // dynamic shared memory per block
 constexpr float kEps = 1e-12f;
 // Above this |den| the reciprocal nears the subnormal range; such channels
 // divide with __fdiv_rn.
@@ -272,6 +277,77 @@ __device__ __forceinline__ void accumulate_chunk(float acc[kGroup][3],
       });
     }
   }
+}
+
+__device__ __forceinline__ void add_rgb(float acc[3], const float4 t) {
+  acc[0] = __fadd_rn(acc[0], t.x);
+  acc[1] = __fadd_rn(acc[1], t.y);
+  acc[2] = __fadd_rn(acc[2], t.z);
+}
+
+// Quantize the eight loaded values of one channel of family FAM and add
+// their table entries (lut: the channel's staged float4[256]).
+template <int FAM, typename T>
+__device__ __forceinline__ void lookup8(float acc[kGroup][3],
+                                       const Pack8<T>& v, const ChanParams& p,
+                                       const float4* lut, float cd_start,
+                                       float k_max, float cd_sum) {
+#pragma unroll
+  for (int j = 0; j < kGroup; ++j)
+    add_rgb(acc[j], lut[static_cast<int>(quantize_fam<FAM>(
+                        p, v.get(j), cd_start, k_max, cd_sum))]);
+}
+
+// Channels c0 .. min(c0 + kChunk, ce) - 1, whose tables start at `luts`.
+template <typename T>
+__device__ __forceinline__ void lookup_chunk(float acc[kGroup][3],
+                                             const Pack8<T>* v,
+                                             const ChanParams* tp,
+                                             const float4* luts, int c0,
+                                             int ce, float cd_start,
+                                             float k_max, float cd_sum) {
+#pragma unroll
+  for (int k = 0; k < Pack8<T>::kChunk; ++k) {
+    if (c0 + k < ce) {
+      const ChanParams p = tp[c0 + k];
+      with_family(p.fam, [&](auto fam) {
+        lookup8<decltype(fam)::value>(acc, v[k], p, luts + k * 256, cd_start,
+                                      k_max, cd_sum);
+      });
+    }
+  }
+}
+
+// Tables of channels cs .. ce - 1 of one tile (f32[C][256][3] at `src`) as
+// float4 (r, g, b, 0) entries.
+__device__ __forceinline__ void stage_tables(float4* luts, const float* src,
+                                             int cs, int ce) {
+  for (int i = threadIdx.x; i < (ce - cs) * 256; i += blockDim.x) {
+    const float* e = src + (static_cast<long long>(cs) * 256 + i) * 3;
+    luts[i] = make_float4(__ldg(e), __ldg(e + 1), __ldg(e + 2), 0.f);
+  }
+}
+
+// Channels of float4 tables that fit beside C channels' constants.
+inline int lut_table_chunk(int C) {
+  const long long room = static_cast<long long>(kMaxSmem) -
+                         static_cast<long long>(sizeof(ChanParams)) * C;
+  const long long fit = room > 0 ? room / kLutBytes : 0;
+  return static_cast<int>(fit < C ? fit : C);
+}
+
+// A LUT launch's blocks stay inside one tile: the `resident` blocks split
+// evenly over the B tiles of hw pixels, each block's run of pixel groups a
+// whole number of `threads`-group rounds.
+inline void split_tiles(long long hw, int B, long long resident, int threads,
+                        long long* run, long long* blocks_per_tile) {
+  const long long groups = (hw + kGroup - 1) / kGroup;
+  const long long rounds = (groups + threads - 1) / threads;
+  const long long share = resident / B;
+  const long long per_tile =
+      share < 1 ? 1 : (share < rounds ? share : rounds);
+  *run = (rounds + per_tile - 1) / per_tile * threads;
+  *blocks_per_tile = (groups + *run - 1) / *run;
 }
 
 }  // namespace

@@ -56,7 +56,9 @@
 // construction), and the composite summed in channel order.  powf, logf
 // and expf may differ from XLA's by an ulp, which can move a curved-family
 // value by 1.  The per-channel constants, the quantize and the loads live
-// in quantize.cuh, shared with the mesh kernels (mesh.cu).
+// in quantize.cuh, shared with the mesh kernels (mesh.cu), and so do the
+// LUT kernel's table staging and lookups and its split of the blocks over
+// the tiles, which K12a's LUT mode reuses.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -65,10 +67,7 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kTableFloats = 256 * 3;
 constexpr int kDefaultSmem = 48 * 1024;
-constexpr int kMaxSmem = 227 * 1024;   // dynamic shared memory per block
-constexpr int kLutBytes = 256 * 16;    // one channel's staged float4 table
 
 __device__ __forceinline__ void store_group(int32_t* dst,
                                             const float acc[kGroup][3]) {
@@ -148,55 +147,6 @@ render_ramp_kernel(const T* __restrict__ raw, const float* __restrict__ ws,
       for (int j = 0; j < kGroup; ++j)
         if (j < n) dst[j] = pack(acc[j][0], acc[j][1], acc[j][2]);
     }
-  }
-}
-
-__device__ __forceinline__ void add_rgb(float acc[3], const float4 t) {
-  acc[0] = __fadd_rn(acc[0], t.x);
-  acc[1] = __fadd_rn(acc[1], t.y);
-  acc[2] = __fadd_rn(acc[2], t.z);
-}
-
-// Quantize the eight loaded values of one channel of family FAM and add
-// their table entries (lut: the channel's staged float4[256]).
-template <int FAM, typename T>
-__device__ __forceinline__ void lookup8(float acc[kGroup][3],
-                                       const Pack8<T>& v, const ChanParams& p,
-                                       const float4* lut, float cd_start,
-                                       float k_max, float cd_sum) {
-#pragma unroll
-  for (int j = 0; j < kGroup; ++j)
-    add_rgb(acc[j], lut[static_cast<int>(quantize_fam<FAM>(
-                        p, v.get(j), cd_start, k_max, cd_sum))]);
-}
-
-// Channels c0 .. min(c0 + kChunk, ce) - 1, whose tables start at `luts`.
-template <typename T>
-__device__ __forceinline__ void lookup_chunk(float acc[kGroup][3],
-                                             const Pack8<T>* v,
-                                             const ChanParams* tp,
-                                             const float4* luts, int c0,
-                                             int ce, float cd_start,
-                                             float k_max, float cd_sum) {
-#pragma unroll
-  for (int k = 0; k < Pack8<T>::kChunk; ++k) {
-    if (c0 + k < ce) {
-      const ChanParams p = tp[c0 + k];
-      with_family(p.fam, [&](auto fam) {
-        lookup8<decltype(fam)::value>(acc, v[k], p, luts + k * 256, cd_start,
-                                      k_max, cd_sum);
-      });
-    }
-  }
-}
-
-// Tables of channels cs .. ce - 1 of one tile (f32[C][256][3] at `src`) as
-// float4 (r, g, b, 0) entries.
-__device__ __forceinline__ void stage_tables(float4* luts, const float* src,
-                                             int cs, int ce) {
-  for (int i = threadIdx.x; i < (ce - cs) * 256; i += blockDim.x) {
-    const float* e = src + (static_cast<long long>(cs) * 256 + i) * 3;
-    luts[i] = make_float4(__ldg(e), __ldg(e + 1), __ldg(e + 2), 0.f);
   }
 }
 
@@ -328,14 +278,6 @@ cudaError_t launch_ramp(const void* raw, const float* ws, const float* we,
   return cudaGetLastError();
 }
 
-// Channels of float4 tables that fit beside C channels' constants.
-int lut_table_chunk(int C) {
-  const long long room = static_cast<long long>(kMaxSmem) -
-                         static_cast<long long>(sizeof(ChanParams)) * C;
-  const long long fit = room > 0 ? room / kLutBytes : 0;
-  return static_cast<int>(fit < C ? fit : C);
-}
-
 template <typename T>
 cudaError_t launch_lut(const void* raw, const float* ws, const float* we,
                        const float* coef, const int32_t* fam,
@@ -357,15 +299,9 @@ cudaError_t launch_lut(const void* raw, const float* ws, const float* we,
            &per_sm, render_lut_kernel<T>, kThreads, smem)) != cudaSuccess)
     return err;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  // Split the resident blocks evenly over the B tiles; each block's run is
-  // a whole number of kThreads-group rounds.
-  const long long groups = (hw + kGroup - 1) / kGroup;
-  const long long rounds = (groups + kThreads - 1) / kThreads;
-  const long long share = static_cast<long long>(sms) * per_sm / B;
-  const long long per_tile =
-      share < 1 ? 1 : (share < rounds ? share : rounds);
-  const long long run = (rounds + per_tile - 1) / per_tile * kThreads;
-  const long long blocks_per_tile = (groups + run - 1) / run;
+  long long run = 0, blocks_per_tile = 0;
+  split_tiles(hw, B, static_cast<long long>(sms) * per_sm, kThreads, &run,
+              &blocks_per_tile);
   const long long blocks = blocks_per_tile * B;
   if (blocks > 0x7FFFFFFFLL) return cudaErrorInvalidConfiguration;
   const uintptr_t align = reinterpret_cast<uintptr_t>(raw) |

@@ -1,7 +1,10 @@
 """Hand-written CUDA mesh kernels for Hopper: build, load, launch.
 
 Counterparts of the per-shard body of the JAX package's mesh steps
-(``parallel/mesh.py``; XLA programs under ``shard_map``, no Pallas kernel):
+(``parallel/mesh.py``; XLA programs under ``shard_map``, no Pallas kernel)
+on a mesh with ``chan > 1``; at ``chan = 1`` the port's step renders with
+K1 or K2 instead (``ops.render.render_tile_batch_packed``), with no
+partial:
 
 * :func:`composite_partial` (K12a) replaces ``_local_render`` (``:100``)
   and ``_local_render_batched`` (``:227``): one chan shard's partial RGB
@@ -68,7 +71,7 @@ def _configure(lib: ctypes.CDLL) -> None:
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
         ctypes.c_void_p]
     lib.composite_pack_launch.restype = ctypes.c_int
-    lib.mesh_max_settings.argtypes = []
+    lib.mesh_max_settings.argtypes = [ctypes.c_int]
     lib.mesh_max_settings.restype = ctypes.c_int
 
 
@@ -118,10 +121,12 @@ def composite_partial(raw, window_start, window_end, family, coefficient,
     if out.numel() == 0:
         return out
     lib = library()
-    if B * (c1 - c0) > lib.mesh_max_settings():
-        raise ValueError(f"composite_partial: {B * (c1 - c0)} channel "
-                         f"settings do not fit the kernel's shared memory "
-                         f"(max {lib.mesh_max_settings()})")
+    # Ramp weights: every tile's settings in one block; tables: one tile's.
+    settings = (c1 - c0) if lut else B * (c1 - c0)
+    if settings > lib.mesh_max_settings(int(lut)):
+        raise ValueError(f"composite_partial: {settings} channel settings "
+                         f"do not fit the kernel's shared memory (max "
+                         f"{lib.mesh_max_settings(int(lut))})")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.composite_partial_launch(

@@ -16,6 +16,10 @@ up):
   and packs.  That replaces JAX's ``psum`` over ``chan``: an ordered sum
   is the same on every rank and at every world size, where NCCL's ring
   all-reduce sums in an order of its own (``kernels/csrc/mesh.cu``).
+  At ``chan = 1`` (one card's mesh, the default) the ``psum`` is the
+  identity and no partial is made: a position renders its rows whole with
+  K1 or K2 (``ops.render.render_tile_batch_packed``), the same bytes in
+  one launch that moves a third of K12a's and K12b's.
 
 A step is called on every rank of the mesh with that rank's shard of the
 group (:func:`shard_batch` / :func:`shard_batch_batched`: its rows and its
@@ -47,7 +51,7 @@ from ..io.staging import pinned_copy
 from ..ops.jpegenc import (huffman_pack, huffman_spec_arrays,
                            packed_to_jpeg_coefficients, sparse_pack,
                            spec_tensor)
-from ..ops.render import composite_pack, composite_partial
+from ..ops import render as render_ops
 
 _SETTINGS = ("window_start", "window_end", "family", "coefficient",
              "reverse")
@@ -246,11 +250,14 @@ def _composite_step_batched(mesh: Mesh, raw, window_start, window_end,
                             family, coefficient, reverse, cd_start, cd_end,
                             tables) -> torch.Tensor:
     """This position's shard -> its rows packed, i32[Bl, H, W]: K12a on
-    its channel slice, the row's partials all-gathered, K12b."""
-    partial = composite_partial(raw, window_start, window_end, family,
-                                coefficient, reverse, cd_start, cd_end,
-                                tables)
-    return composite_pack(mesh.gather_chan(partial))
+    its channel slice, the row's partials all-gathered, K12b; at chan 1
+    the whole composite by K1/K2, with no partial."""
+    args = (raw, window_start, window_end, family, coefficient, reverse,
+            cd_start, cd_end, tables)
+    if mesh.shape["chan"] == 1:
+        return render_ops.render_tile_batch_packed(*args)
+    partial = render_ops.composite_partial(*args)
+    return render_ops.composite_pack(mesh.gather_chan(partial))
 
 
 def _shared_to_batched(raw, args):

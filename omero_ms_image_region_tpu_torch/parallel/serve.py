@@ -7,7 +7,8 @@ coalesced group through the mesh steps of ``parallel.mesh``: tiles
 data-parallel across the mesh, channels tensor-parallel, each position's
 partial composite (K12a) all-gathered over ``chan`` and packed in shard
 order (K12b), then K3 and K4a (sparse wire) or K5 (Huffman wire) on the
-position's rows.  On the card no group launches K1.
+position's rows.  At ``chan = 1`` (one card) a group renders by K1 or K2
+instead, with no partial; the bytes are the same.
 
 Group padding makes the fixed mesh shapes hold: the batch pads up to a
 multiple of ``data`` (repeating the last tile) and the channels up to a
@@ -48,7 +49,7 @@ from ..ops.jpegenc import (_CAP_MEMO, blocks_per_tile, compact_huffman_rows,
                            default_words_cap, fetch_rows,
                            finish_huffman_batch, finish_sparse_to_jpegs,
                            packed_to_jpeg_coefficients, row_header_i32)
-from ..ops.render import composite_pack, composite_partial
+from ..ops import render as render_ops
 from ..server.batcher import BatchingRenderer, _Pending, _shape_label
 from ..utils import telemetry
 from ..utils.stopwatch import REGISTRY, stopwatch
@@ -365,16 +366,16 @@ class MeshRenderer(BatchingRenderer):
         return fetch_rows(compact, B)
 
     def _dense_coefficients(self, raw, stacked, quality: int, i: int):
-        """One tile's dense coefficients on this rank's device, by K12a
-        over all its channels, K12b and K3 (no collective): the rare
-        overflow fallback of both wire engines, on the leader only."""
+        """One tile's dense coefficients on this rank's device, by K1/K2
+        over all its channels and K3 (no collective): the rare overflow
+        fallback of both wire engines, on the leader only."""
         one = slice(i, i + 1)
         args = shard_batch_batched(
             Mesh(np.zeros((1, 1), np.int64), self.mesh.device,
                  collective=False), raw[one],
             {k: (v[one] if getattr(v, "ndim", 0) else v)
              for k, v in stacked.items()})
-        packed = composite_pack(composite_partial(*args)[None])
+        packed = render_ops.render_tile_batch_packed(*args)
         y, cb, cr = packed_to_jpeg_coefficients(packed, quality)
         return y[0].cpu().numpy(), cb[0].cpu().numpy(), cr[0].cpu().numpy()
 

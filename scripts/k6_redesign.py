@@ -38,8 +38,6 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import json
-import statistics
-import subprocess
 import sys
 from pathlib import Path
 
@@ -48,24 +46,9 @@ import numpy as np
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
-REL_SOURCE = "omero_ms_image_region_tpu_torch/kernels/csrc/jpeg.cu"
+from redesign import means, parent_source, turns  # noqa: E402
+
 VARIANT_FLAGS = {"chunk64": ["-DK6_BIT_THREADS=64"]}
-
-
-def parent_source(build_dir: Path, rev: str) -> Path:
-    """The parent's jpeg.cu in ``build_dir``: taken with ``git show``
-    where the tree is a git checkout, else the copy made there before."""
-    build_dir.mkdir(parents=True, exist_ok=True)
-    path = build_dir / f"k6_parent_{rev.replace('/', '_')}_jpeg.cu"
-    proc = subprocess.run(["git", "show", f"{rev}:{REL_SOURCE}"], cwd=ROOT,
-                          capture_output=True, text=True)
-    if proc.returncode == 0:
-        path.write_text(proc.stdout)
-    elif not path.exists():
-        raise RuntimeError(f"git show {rev}:{REL_SOURCE} failed and no "
-                           f"copy is in {build_dir}: run this script once "
-                           f"where git is\n{proc.stderr}")
-    return path
 
 
 def configure_parent(lib: ctypes.CDLL) -> None:
@@ -89,7 +72,7 @@ def main(argv) -> int:
     args = ap.parse_args(argv)
 
     from omero_ms_image_region_tpu_torch.kernels import build
-    parent = parent_source(build.BUILD_DIR, args.parent)
+    parent = parent_source(build.BUILD_DIR, "k6", args.parent, "jpeg.cu")
     import torch
     if not torch.cuda.is_available():
         print(f"k6_redesign: the parent's source is in {parent}; timing "
@@ -210,12 +193,9 @@ def main(argv) -> int:
                     for name in libs}
         row = {"case": label, "shape": [blocks.shape[0], H, W],
                "cap_words": cw}
-        turns = {"parent": [], "change": []}
-        for name in ("parent", "change", "change", "parent"):
-            turns[name].append(time_ms(torch, launches[name], 25))
-        row["parent_ms"] = statistics.mean(turns["parent"])
-        row["change_ms"] = statistics.mean(turns["change"])
-        row["turns_ms"] = turns
+        got = turns(lambda fn: time_ms(torch, fn, 25), launches)
+        row.update(means(got))
+        row["turns_ms"] = got
         for name in libs:
             if name not in ("parent", "change"):
                 row[f"{name}_ms"] = time_ms(torch, launches[name], 25)

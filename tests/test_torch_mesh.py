@@ -17,6 +17,13 @@ virtual CPU mesh (``tests/conftest.py``).
 * The JPEG step: the port's wire rows (K3, then K4a or K5 with the fixed
   tables) against ``render_jpeg_step_sharded(_batched)``'s, and the JFIF
   bytes of both, byte for byte.
+* The chan-1 step, through the step functions themselves: against JAX
+  ``render_step_sharded(_batched)`` on ``make_mesh(2, chan_parallel=1)``
+  for every family with ramp weights and tables (exact for linear; a
+  curved family's bytes within one step of the largest channel
+  contribution, rounded up), its route (``render_tile_batch_packed``, K1 or
+  K2, and no K12 dispatcher, where a chan-2 position calls both), and the
+  ``MeshRenderer``'s dense coefficients against JAX's for the same tile.
 """
 
 import numpy as np
@@ -30,10 +37,13 @@ from omero_ms_image_region_tpu.ops import jpegenc as J
 from omero_ms_image_region_tpu.ops.render import (
     build_channel_tables, pack_settings)
 from omero_ms_image_region_tpu.parallel import mesh as jax_mesh
+from omero_ms_image_region_tpu.parallel.serve import (
+    MeshRenderer as JaxMeshRenderer)
 from omero_ms_image_region_tpu_torch.kernels import mesh as kernels
 from omero_ms_image_region_tpu_torch.ops import jpegenc as P
 from omero_ms_image_region_tpu_torch.ops import render as R
 from omero_ms_image_region_tpu_torch.parallel import mesh as M
+from omero_ms_image_region_tpu_torch.parallel.serve import MeshRenderer
 
 SETTINGS = ("window_start", "window_end", "family", "coefficient",
             "reverse")
@@ -298,3 +308,79 @@ def test_mesh_shape_and_errors():
                     device="cpu")
     with pytest.raises(ValueError, match="only 1 device.*pod-worker"):
         M.make_mesh(4096, device="cpu")
+
+
+def _count_routes(monkeypatch):
+    """Count the calls of ``ops.render``'s three step dispatchers."""
+    calls = {"render_tile_batch_packed": 0, "composite_partial": 0,
+             "composite_pack": 0}
+    for name in calls:
+        real = getattr(R, name)
+
+        def counted(*a, _real=real, _name=name, **kw):
+            calls[_name] += 1
+            return _real(*a, **kw)
+        monkeypatch.setattr(R, name, counted)
+    return calls
+
+
+@pytest.mark.parametrize("family", FAMILIES)
+@pytest.mark.parametrize("lut", [False, True], ids=["ramp", "lut"])
+def test_chan1_step_renders_whole_and_matches_jax(monkeypatch, family, lut):
+    """The chan-1 steps (per-tile and shared settings) at each position of
+    a (2, 1) mesh against JAX's on make_mesh(2, chan_parallel=1); the
+    step calls K1/K2's dispatcher and no K12 one, a chan-2 position both
+    K12 dispatchers."""
+    B, C = 4, 4
+    raw = _raw(B, C, seed=7)
+    stacked = _stacked([_settings(C, b, family, lut) for b in range(B)])
+    shared = _settings(C, 1, family, lut)
+    byte_tol = int(np.ceil(_step_tolerance(stacked, family)))
+    mesh = jax_mesh.make_mesh(2, chan_parallel=1)
+    want_batched = np.asarray(jax_mesh.render_step_sharded_batched(mesh)(
+        *jax_mesh.shard_batch_batched(mesh, raw.astype(np.float32),
+                                      stacked)))
+    want_shared = np.asarray(jax_mesh.render_step_sharded(mesh)(
+        *jax_mesh.shard_batch(mesh, raw.astype(np.float32), shared)))
+    calls = _count_routes(monkeypatch)
+    rows = [(M.render_step_sharded_batched(pos)(
+                 *M.shard_batch_batched(pos, raw, stacked)),
+             M.render_step_sharded(pos)(*M.shard_batch(pos, raw, shared)))
+            for (pos,) in _positions(2, 1)]
+    assert calls == {"render_tile_batch_packed": 4, "composite_partial": 0,
+                     "composite_pack": 0}
+    for got, want in ((torch.cat([r[0] for r in rows]), want_batched),
+                      (torch.cat([r[1] for r in rows]), want_shared)):
+        got = got.numpy().view(np.uint32)
+        assert got.shape == want.shape == (B, 32, 48)
+        diff = np.abs(R.unpack_rgba(got).astype(np.int16)
+                      - R.unpack_rgba(want).astype(np.int16))
+        assert diff.max() <= byte_tol
+        if family == "linear":
+            assert np.array_equal(got, want)
+    pos = _positions(1, 2)[0][0]
+    M.render_step_sharded_batched(pos)(*M.shard_batch_batched(pos, raw,
+                                                              stacked))
+    assert calls == {"render_tile_batch_packed": 4, "composite_partial": 1,
+                     "composite_pack": 1}
+
+
+@pytest.mark.parametrize("lut", [False, True], ids=["ramp", "lut"])
+def test_dense_coefficients_at_chan1_match_jax(monkeypatch, lut):
+    """The overflow fallback's one-tile dense coefficients on the port's
+    (1, 1) mesh (K1/K2 then K3, no partial) against the JAX
+    MeshRenderer's for the same tile, q 85."""
+    B, C, q = 3, 4, 85
+    raw = _raw(B, C, seed=8)
+    stacked = _stacked([_settings(C, b, "linear", lut) for b in range(B)])
+    port = MeshRenderer(M.make_mesh(device="cpu"))
+    calls = _count_routes(monkeypatch)
+    got = port._dense_coefficients(raw, stacked, q, 1)
+    assert calls == {"render_tile_batch_packed": 1, "composite_partial": 0,
+                     "composite_pack": 0}
+    qy, qc = (np.asarray(t, np.int32) for t in J.quant_tables(q))
+    want = JaxMeshRenderer._dense_coefficients(raw.astype(np.float32),
+                                               stacked, qy, qc, 1)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        assert np.array_equal(g, w)
